@@ -1,0 +1,122 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper)
+into a shared library with a plain C interface, at first use, and loaded
+with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
+The libraries go to ``csrc/build/`` (listed in ``.gitignore``), named by a
+hash of the sources and the flags: an edited source builds anew, an
+unchanged one is reused.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine-independent part is all they see.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+KERNELS = ("packed_attention", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p (a bare Python int
+# would be passed as a 32-bit int and cut the pointer).
+_SIGNATURES = {
+    "packed_attention": {
+        "packed_attention_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        "packed_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": (
+            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+        "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # name -> nvcc output of this process's build
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str] = KERNELS) -> float:
+    """Compile the named kernels that are not built yet, one ``nvcc`` per
+    source, all started together. Returns the wall seconds; raises with the
+    compiler's output if a build fails."""
+    t0 = time.perf_counter()
+    with _lock:
+        todo = [(n, _lib_path(n)) for n in names]
+        todo = [(n, p) for n, p in todo if not p.exists()]
+        if not todo:
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name, path in todo:
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs.append((name, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, path, tmp, proc in procs:
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode == 0:
+                os.replace(tmp, path)  # atomic: a reader never sees half a file
+            else:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a kernel's C entry returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")

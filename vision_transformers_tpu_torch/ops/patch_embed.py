@@ -1,0 +1,55 @@
+"""Patch embedding as one matrix product.
+
+Counterpart of ``vision_transformers_tpu/ops/patch_embed.py``. A stride-p
+p×p conv over non-overlapping patches is a reshape plus a matmul. Inputs
+are NHWC, as in the JAX package, and ``patchify`` orders each patch's
+features (ph, pw, c), so the same array and the same ``proj`` weights feed
+both packages.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from vision_transformers_tpu_torch.core.initializers import conv_patch_
+from vision_transformers_tpu_torch.ops.layers import Dense
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) → (B, H/p · W/p, p·p·C) non-overlapping patches."""
+    b, h, w, c = images.shape
+    p = patch_size
+    if h % p or w % p:
+        raise ValueError(f"image {h}x{w} indivisible by patch size {p}")
+    x = images.reshape(b, h // p, p, w // p, p, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # (B, nh, nw, p, p, C)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding (conv as matmul).
+
+    Init mirrors the reference conv patch embed: trunc_normal with
+    std=sqrt(1/fan_in), zero bias. Returns (tokens, (grid_h, grid_w)).
+    """
+
+    def __init__(self, embed_dim: int, patch_size: int, in_channels: int = 3,
+                 *, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(
+            patch_size * patch_size * in_channels, embed_dim, dtype=dtype,
+            weight_init=functools.partial(
+                conv_patch_, patch_size=patch_size, in_channels=in_channels),
+            generator=generator)
+
+    def forward(self, images: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        _, h, w, _ = images.shape
+        p = self.patch_size
+        return self.proj(patchify(images, p)), (h // p, w // p)

@@ -1,0 +1,224 @@
+"""Export + serving for trained classifiers.
+
+Counterpart of ``vision_transformers_tpu/serving.py``, with its API:
+``export_classifier`` → ``load_classifier`` → ``ServingClassifier.predict``
+/ ``warmup``, and the ``Microbatcher`` that coalesces concurrent requests.
+
+The JAX package ships StableHLO per batch bucket. PyTorch runs eagerly, so
+an artifact here is the model's class name and constructor kwargs in
+``manifest.json`` plus its weights (``weights.pt``); the loader rebuilds the
+model from this package's registry. Requests are still padded up to a fixed
+bucket (or chunked through the largest one), so the card only ever sees the
+exported batch sizes.
+
+Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
+through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
+serves through the kernels' plain versions, for tests.
+
+Not ported yet: ``quantize_classifier`` (int8) and mesh/SPMD artifacts.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vision_transformers_tpu_torch.core.dtypes import (
+    DeviceLike,
+    DtypeLike,
+    as_dtype,
+    dtype_name,
+    resolve_device,
+)
+from vision_transformers_tpu_torch.models.image_classification import ViT
+
+_MANIFEST = "manifest.json"
+_WEIGHTS = "weights.pt"
+_FORMAT_VERSION = 1
+_MODELS = {"ViT": ViT}
+
+
+def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],
+                      out_dir: str, *, buckets: Sequence[int] = (1, 8, 32),
+                      dtype: DtypeLike = torch.float32) -> dict:
+    """Write ``model``'s artifact to ``out_dir`` and return the manifest.
+
+    ``input_shape`` is the per-image shape, e.g. ``(224, 224, 3)`` (NHWC);
+    ``dtype`` is the INPUT dtype the server will feed (the model's compute
+    dtype is whatever it was constructed with, and is in its kwargs).
+    """
+    name = type(model).__name__
+    if _MODELS.get(name) is not type(model):
+        raise ValueError(f"no serving registry entry for {name}; "
+                         f"known: {sorted(_MODELS)}")
+    buckets = sorted(set(int(b) for b in buckets))
+    if not buckets or buckets[0] < 1:
+        raise ValueError(f"buckets must be positive ints, got {buckets}")
+    os.makedirs(out_dir, exist_ok=True)
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(weights, os.path.join(out_dir, _WEIGHTS))
+    manifest = {
+        "format_version": _FORMAT_VERSION,
+        "platforms": ["cuda"],
+        "buckets": buckets,
+        "input_shape": [int(d) for d in input_shape],
+        "input_dtype": dtype_name(dtype),
+        "params_file": _WEIGHTS,
+        "model": name,
+        "model_kwargs": dict(model.config),
+        "torch_version": torch.__version__,
+    }
+    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest
+
+
+class ServingClassifier:
+    """A loaded artifact: pads/chunks requests through fixed buckets.
+
+    ``predict(images)`` accepts ``(n, *input_shape)`` for any ``n >= 1``
+    (or one image without the batch axis): n is padded up to the smallest
+    bucket that fits, or chunked through the largest bucket (full chunks run
+    un-padded). It returns the logits as a tensor on the model's device, in
+    the model's compute dtype.
+    """
+
+    def __init__(self, manifest: dict, model: torch.nn.Module,
+                 device: torch.device):
+        self.manifest = manifest
+        self.model = model
+        self.device = device
+        self.buckets = sorted(int(b) for b in manifest["buckets"])
+        self.input_shape = tuple(manifest["input_shape"])
+        self.input_dtype = as_dtype(manifest["input_dtype"])
+
+    def warmup(self) -> None:
+        """Run every bucket once now (kernel builds, library handles), so
+        the first request pays nothing."""
+        for b in self.buckets:
+            x = torch.zeros((b, *self.input_shape), dtype=self.input_dtype,
+                            device=self.device)
+            self._run_bucket(b, x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def _run_bucket(self, b: int, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        if n < b:
+            x = torch.cat([x, x.new_zeros((b - n, *x.shape[1:]))], dim=0)
+        return self.model(x)[:n]
+
+    def predict(self, images: Any) -> torch.Tensor:
+        """Logits for ``images`` of shape ``(n, *input_shape)``."""
+        x = torch.as_tensor(images, dtype=self.input_dtype).to(self.device)
+        if x.ndim == len(self.input_shape):  # single image convenience
+            x = x[None]
+        if tuple(x.shape[1:]) != self.input_shape or x.shape[0] < 1:
+            raise ValueError(
+                f"expected (n, {self.input_shape}), got {tuple(x.shape)}")
+        n = x.shape[0]
+        big = self.buckets[-1]
+        if n <= big:
+            bucket = next(b for b in self.buckets if b >= n)
+            return self._run_bucket(bucket, x)
+        parts = [self._run_bucket(big, x[i: i + big]) for i in range(0, n, big)]
+        return torch.cat(parts, dim=0)
+
+
+def load_classifier(artifact_dir: str,
+                    device: DeviceLike = None) -> ServingClassifier:
+    """Load an exported artifact on ``device`` (default CUDA; raises when
+    there is no CUDA device unless ``device="cpu"`` is passed)."""
+    device = resolve_device(device)
+    with open(os.path.join(artifact_dir, _MANIFEST)) as f:
+        manifest = json.load(f)
+    if manifest.get("format_version") != _FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format {manifest.get('format_version')} != "
+            f"{_FORMAT_VERSION} supported by this build")
+    if device.type == "cuda" and "cuda" not in manifest["platforms"]:
+        raise RuntimeError(
+            f"artifact exported for {manifest['platforms']} cannot serve on "
+            "cuda")
+    cls = _MODELS.get(manifest["model"])
+    if cls is None:
+        raise ValueError(f"unknown model {manifest['model']!r}; "
+                         f"known: {sorted(_MODELS)}")
+    model = cls(**manifest["model_kwargs"], device=device)
+    weights = torch.load(os.path.join(artifact_dir, manifest["params_file"]),
+                         map_location=device, weights_only=True)
+    model.load_state_dict(weights)
+    model.eval()
+    return ServingClassifier(manifest, model, device)
+
+
+class Microbatcher:
+    """Coalesce concurrent single-image requests into one device call.
+
+    ``submit(image)`` blocks until the result is ready and returns the
+    image's logits as an fp32 numpy array; a background flusher fires when
+    ``max_batch`` requests are queued or the oldest request has waited
+    ``max_wait_ms``. Thread-safe; one device call at a time. An error in a
+    device call is raised in every waiter of that batch.
+    """
+
+    def __init__(self, classifier: ServingClassifier,
+                 max_batch: Optional[int] = None, max_wait_ms: float = 2.0):
+        self._clf = classifier
+        self._max_batch = max_batch or classifier.buckets[-1]
+        self._max_wait = max_wait_ms / 1e3
+        self._lock = threading.Condition()
+        self._pending: list = []  # [(image, event, slot)]
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def submit(self, image) -> np.ndarray:
+        ev = threading.Event()
+        slot: list = [None]
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("Microbatcher is closed")
+            self._pending.append((image, ev, slot))
+            self._lock.notify()
+        ev.wait()
+        if isinstance(slot[0], BaseException):
+            raise slot[0]
+        return slot[0]
+
+    def close(self) -> None:
+        """Serve what is queued, then stop the flusher thread."""
+        with self._lock:
+            self._closed = True
+            self._lock.notify()
+        self._thread.join()
+
+    def _loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._pending and not self._closed:
+                    self._lock.wait()
+                if not self._pending and self._closed:
+                    return
+                # batch not full yet: give co-arriving requests a window
+                if len(self._pending) < self._max_batch and not self._closed:
+                    self._lock.wait(timeout=self._max_wait)
+                batch = self._pending[: self._max_batch]
+                self._pending = self._pending[self._max_batch:]
+            try:
+                logits = self._clf.predict(
+                    np.stack([np.asarray(b[0]) for b in batch]))
+                logits = logits.float().cpu().numpy()
+                for i, (_, ev, slot) in enumerate(batch):
+                    slot[0] = logits[i]
+                    ev.set()
+            except Exception as e:  # surface to every waiter of the batch
+                for _, ev, slot in batch:
+                    slot[0] = e
+                    ev.set()
