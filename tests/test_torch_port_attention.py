@@ -201,4 +201,10 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     tfa.packed_flash_attention(qkv, 2)
     q = torch.from_numpy(_randn(21, 1, 2, 9, 8))
     tfa.flash_attention(q, q, q)
-    assert tfa.LAUNCHES == {"packed_attention": 0, "flash_attention": 0}
+    q.requires_grad_()
+    tfa.flash_dropout_attention(q, q, q, dropout_rate=0.1,
+                                seed=1).sum().backward()
+    assert set(tfa.LAUNCHES) == {
+        "packed_attention", "flash_attention", "packed_attention_bwd",
+        "dropout_attention_fwd", "dropout_attention_bwd"}
+    assert not any(tfa.LAUNCHES.values())

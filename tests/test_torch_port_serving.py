@@ -175,7 +175,8 @@ def test_load_rejects_other_format_version(artifact, tmp_path):
 def test_cpu_serving_launches_no_kernel(clf):
     tfa.reset_launch_counts()
     clf.predict(np.zeros((3, *SHAPE), np.float32))
-    assert tfa.LAUNCHES == {"packed_attention": 0, "flash_attention": 0}
+    assert tfa.LAUNCHES["packed_attention"] == 0
+    assert not any(tfa.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------

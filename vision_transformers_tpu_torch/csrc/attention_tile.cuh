@@ -1,7 +1,8 @@
-// Shared body of the two attention forward kernels (packed_attention.cu,
-// flash_attention.cu): one thread block computes softmax(q·kᵀ·scale + bias)·v
-// for a tile of kBlockQ query rows of one (batch, head) group, streaming the
-// keys in tiles of kBlockK with an online softmax.
+// Shared body of the attention forward kernels (packed_attention.cu,
+// flash_attention.cu, dropout_attention.cu): one thread block computes
+// dropout(softmax(q·kᵀ·scale + bias + key mask))·v for a tile of kBlockQ query
+// rows of one (batch, head) group, streaming the keys in tiles of kBlockK
+// with an online softmax.
 //
 // The caller hands in base pointers and row strides for this group, so the
 // same body reads q/k/v in place out of the packed (B, S, 3·H·dh) projection
@@ -9,15 +10,23 @@
 //
 // Numerics follow the TPU kernels: fp32 scores, bias added after the scale,
 // keys >= kv_valid set to DEFAULT_MASK_VALUE = -0.7·FLT_MAX (the TPU kernels'
-// finite mask), fp32 row max / sum, output divided by the row sum after the
-// PV product, lse = m + log(l). Keys past the end of the sequence (the ragged
-// last tile) get probability exactly 0.
+// finite mask), then the additive key mask (0 or DEFAULT_MASK_VALUE per key),
+// fp32 row max / sum, output divided by the row sum after the PV product,
+// lse = m + log(l). Keys past the end of the sequence (the ragged last tile)
+// get probability exactly 0.
+//
+// Dropout (philox.cuh) zeroes unnormalised probabilities and scales the kept
+// ones by 1/(1 − rate) on their way into the PV product only: the running
+// sum that normalises the output, and lse, are of the undropped softmax, as
+// in the TPU kernels (flash_attention.py:815-830).
 //
 // Overflow: the running max m is taken over the tile's scores before any
 // exp, so every exp argument s - m is <= 0. Key 0 is always valid
 // (kv_valid >= 1, checked by the wrapper), so m is finite from the first tile
 // on and a tile whose keys are all masked gives exp(-0.7·FLT_MAX - m) = 0,
-// never inf or NaN. The first tile's correction factor is exp(-inf) = 0.
+// never inf or NaN. The first tile's correction factor is exp(-inf) = 0. A key
+// hidden by both kv_valid and the key mask scores 2·(-0.7·FLT_MAX) = -inf,
+// and exp(-inf - m) = 0 as well; key 0 is never such a key.
 //
 // Design: plain fp32 FMAs on CUDA cores, operands staged in shared memory as
 // fp32. Warp w owns query rows w, w+4, ...; lane j owns key j of the tile, so
@@ -29,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "philox.cuh"
 
 namespace vtt {
 
@@ -68,15 +79,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Rows [blockIdx.y·kBlockQ, +kBlockQ) of one group. Pointers are the group's
 // row 0; *_rs are row strides in elements. bias (fp32, row stride bias_rs)
-// may be null. lse is fp32 with row stride lse_rs.
+// may be null; kmask (fp32, one value per key) may be null. lse is fp32 with
+// row stride lse_rs. rng_group is the group's index b·H + h for the dropout
+// mask.
 template <typename T, int D>
 __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
     const float* __restrict__ bias, long long bias_rs,
+    const float* __restrict__ kmask,
     T* __restrict__ o, long long o_rs,
     float* __restrict__ lse, long long lse_rs,
-    int sq, int sk, int kv_valid, float scale) {
+    int sq, int sk, int kv_valid, float scale, Dropout drop,
+    uint32_t rng_group) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   __shared__ float qs[kBlockQ][D];
   __shared__ float ks[kBlockK][D + 1];  // +1: lane-strided reads hit 32 banks
@@ -142,12 +157,16 @@ __device__ __forceinline__ void attend_rows(
       float x = s[r] * scale;
       if (bias != nullptr && key_in && qi < sq) x += bias[qi * bias_rs + kj];
       if (kj >= kv_valid) x = kMaskValue;
+      if (kmask != nullptr && key_in) x += kmask[kj];
       const float m_new = fmaxf(m_run[r], warp_max(key_in ? x : -CUDART_INF_F));
       const float p = key_in ? expf(x - m_new) : 0.f;
       const float alpha = expf(m_run[r] - m_new);
       l_run[r] = l_run[r] * alpha + warp_sum(p);
       m_run[r] = m_new;
-      ps[row][lane] = p;
+      float pd = p;
+      if (drop.thresh != 0u)
+        pd = dropout_keep(drop, rng_group, qi, kj) ? p * drop.inv_keep : 0.f;
+      ps[row][lane] = pd;
       if (lane == 0) alpha_s[row] = alpha;
     }
     __syncthreads();

@@ -33,8 +33,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ? nullptr
       : bias + (g % bias_g) * static_cast<long long>(sq) * sk;
   vtt::attend_rows<T, D>(q + g * sq * D, D, k + g * sk * D, v + g * sk * D, D,
-                         bg, sk, out + g * sq * D, D, lse + g * sq, 1,
-                         sq, sk, kv_valid, scale);
+                         bg, sk, nullptr, out + g * sq * D, D, lse + g * sq, 1,
+                         sq, sk, kv_valid, scale,
+                         vtt::make_dropout(0u, 1.f, 0ull), blockIdx.x);
 }
 
 template <typename T, int D>

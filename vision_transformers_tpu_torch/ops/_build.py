@@ -24,24 +24,36 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("packed_attention", "flash_attention")
+KERNELS = ("packed_attention", "flash_attention", "dropout_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# dropout arguments: threshold (32 bits), 1/(1-rate), seed (64 bits)
+_DROP = [ctypes.c_uint32, _F, ctypes.c_uint64]
 # C signatures: every pointer and the stream as c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer).
 _SIGNATURES = {
     "packed_attention": {
-        "packed_attention_fwd": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        "packed_attention_fwd": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
+        "packed_attention_bwd": (
+            _I, [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
         "packed_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
         "flash_attention_fwd": (
             _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "dropout_attention": {
+        "dropout_attention_fwd": (
+            _I, [_P] * 6 + [_I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
+        "dropout_attention_bwd": (
+            _I, [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
+        "dropout_attention_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

@@ -3,11 +3,16 @@
 Counterpart of ``vision_transformers_tpu/ops/attention.py``, with the same
 routing: ``SelfAttention`` sends its packed QKV projection to the packed
 kernel when ``packed_flash_supported`` allows it, and to the split-head
-dispatcher otherwise. On CUDA tensors ``dot_product_attention`` takes the
-split-head kernel wherever the JAX dispatcher takes a Pallas kernel on the
-TPU, raises ``NotImplementedError`` where that Pallas kernel is not ported
-yet, and takes the plain math where the JAX package takes jnp on the TPU
-too (an arbitrary boolean mask, or a bias at Sq·Sk > 1.5 M).
+dispatcher otherwise, with the dropout rate and a seed in training. On CUDA
+tensors ``dot_product_attention`` takes a kernel wherever the JAX dispatcher
+takes a Pallas kernel on the TPU, raises ``NotImplementedError`` where that
+Pallas kernel is not ported yet, and takes the plain math where the JAX
+package takes jnp on the TPU too (an arbitrary boolean mask, a bias with
+dropout, or a bias at Sq·Sk > 1.5 M).
+
+Dropout randomness is explicit: a host ``torch.Generator`` from which one
+integer seed per attention call is drawn (no device synchronisation); the
+kernels make their masks from that seed.
 """
 
 from __future__ import annotations
@@ -21,12 +26,17 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE,
     MAX_SCORE_ELEMS,
     flash_attention,
+    flash_dropout_attention,
     packed_flash_attention,
     packed_flash_supported,
 )
 from vision_transformers_tpu_torch.ops.layers import Dense
 
-_TRAINING_ITEM = "ROADMAP.md, queue 2, rows 5-7: the training slice's dropout kernels"
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One 62-bit seed for a kernel's dropout mask, drawn on the host."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=generator.device))
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,8 +58,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
-        keep = torch.rand(p.shape, generator=generator,
-                          device=p.device) >= dropout_rate
+        # drawn where the generator lives (the host), then moved
+        keep = torch.rand(
+            p.shape, generator=generator,
+            device=p.device if generator is None else generator.device
+        ).to(p.device) >= dropout_rate
         p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros_like(p))
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
 
@@ -62,13 +75,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dropout_rate: float = 0.0,
                           generator: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
-    """Dispatcher: the split-head kernel for CUDA tensors, its plain
-    version for CPU tensors (``flash_attention`` decides by device).
+    """Dispatcher: the split-head kernels for CUDA tensors, their plain
+    versions for CPU tensors (the wrappers decide by device).
 
     ``mask`` (arbitrary boolean) takes the plain math, as in the JAX
-    dispatcher. Key-padding masks (B, 1, 1, Sk) and probability dropout,
-    which the JAX package runs on Pallas kernels not ported yet, raise on
-    CUDA and take the plain math on the CPU.
+    dispatcher. Training-mode probability dropout without a bias, with an
+    optional key-padding mask (B, 1, 1, Sk), rides
+    ``flash_dropout_attention``; its seed is drawn from ``generator``, a
+    host generator. A key-padding mask at rate 0 belongs to a Pallas kernel
+    not ported yet: it raises on CUDA and takes the plain math on the CPU.
     """
     # above MAX_SCORE_ELEMS the JAX kernel takes no bias: biased large-S
     # attention takes the plain math there, and here
@@ -80,10 +95,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         and mask.shape[1] == 1 and mask.shape[2] == 1
         and mask.shape[0] == q.shape[0]
     )
-    if q.is_cuda and dropout_rate > 0.0:
-        raise NotImplementedError(
-            f"attention dropout on CUDA is not ported yet ({_TRAINING_ITEM})")
-    if q.is_cuda and bias is None and is_key_padding:
+    if (bias is None and dropout_rate > 0.0 and generator is not None
+            and (mask is None or is_key_padding)):
+        return flash_dropout_attention(
+            q, k, v, dropout_rate=dropout_rate, seed=draw_seed(generator),
+            scale=scale, kv_valid=kv_valid,
+            key_mask=None if mask is None else mask[:, 0, 0, :])
+    if q.is_cuda and bias is None and is_key_padding and dropout_rate == 0.0:
         raise NotImplementedError(
             "key-padding kv_mask on CUDA: the streaming kernel (_large_kernel)"
             " is not ported yet (ROADMAP.md, queue 2, row 3)")
@@ -107,7 +125,10 @@ class SelfAttention(nn.Module):
 
     ``qkv`` is one Dense with columns [q | k | v]; ``out`` projects back.
     ``forward(x, return_weights=True)`` also returns the (B, H, S, S)
-    probabilities (plain math, as in the JAX package).
+    probabilities (plain math, as in the JAX package). In training mode
+    with ``attention_dropout`` > 0, ``forward`` needs ``seed``, the host
+    integer its dropout mask is made from: the caller draws it, so that a
+    recomputed forward (``remat``) replays the same mask.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int,
@@ -125,19 +146,24 @@ class SelfAttention(nn.Module):
         self.out = Dense(hidden_dim, hidden_dim, bias=out_bias, dtype=dtype,
                          generator=generator)
 
-    def forward(self, x: torch.Tensor, return_weights: bool = False):
+    def forward(self, x: torch.Tensor, return_weights: bool = False, *,
+                seed: Optional[int] = None):
         b, s, _ = x.shape
         h = self.num_heads
         dh = self.hidden_dim // h
         qkv = self.qkv(x)
         drop = self.attention_dropout if self.training else 0.0
+        if drop > 0.0 and seed is None:
+            raise ValueError("attention dropout in training mode needs a seed")
         weights = None
 
-        if (not return_weights and drop == 0.0
+        if (not return_weights
                 and packed_flash_supported(b, s, qkv.shape[-1],
                                            qkv.element_size())):
-            # the kernel reads the projection output in place: no head split
-            out = packed_flash_attention(qkv, h)
+            # the kernel reads the projection output in place: no head
+            # split; dropout runs inside it
+            out = packed_flash_attention(
+                qkv, h, dropout_rate=drop, seed=seed if drop > 0.0 else None)
         else:
             q, k, v = (t.reshape(b, s, h, dh).transpose(1, 2).contiguous()
                        for t in qkv.split(self.hidden_dim, dim=-1))
@@ -148,7 +174,10 @@ class SelfAttention(nn.Module):
                 out = torch.matmul(weights.to(v.dtype).float(),
                                    v.float()).to(v.dtype)
             else:
-                out = dot_product_attention(q, k, v, dropout_rate=drop)
+                gen = (torch.Generator().manual_seed(seed) if drop > 0.0
+                       else None)
+                out = dot_product_attention(q, k, v, dropout_rate=drop,
+                                            generator=gen)
             out = out.transpose(1, 2).reshape(b, s, self.hidden_dim)
         out = self.out(out)
         if return_weights:

@@ -1,5 +1,5 @@
 """Small shared layers: ``Dense`` (flax ``nn.Dense`` semantics), LayerNorm
-(eps 1e-6 default like the reference) and DropPath.
+(eps 1e-6 default like the reference), seeded Dropout and DropPath.
 
 Counterpart of ``vision_transformers_tpu/ops/layers.py``. Parameters are
 fp32; ``dtype`` is the compute dtype each call casts its input and
@@ -62,6 +62,29 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout whose mask is a function of an explicit seed.
+
+    ``forward(x, seed)`` builds a generator on x's device from the host
+    integer ``seed``, so the same seed gives the same mask: a recomputed
+    forward (``remat``) replays it, and nothing reads the global RNG.
+    Identity at eval or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if seed is None:
+            raise ValueError("dropout in training mode needs a seed")
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class DropPath(nn.Module):

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision_transformers_tpu_torch.core.initializers import tiny_normal_
-from vision_transformers_tpu_torch.ops.layers import Dense
+from vision_transformers_tpu_torch.ops.layers import Dense, Dropout
 
 
 def gelu_for(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -39,8 +39,11 @@ class MLPBlock(nn.Module):
         self.fc2 = Dense(mlp_dim, out_dim, dtype=dtype, bias_init=tiny_normal_,
                          generator=generator)
         self.act = gelu_for(dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(self.act(self.fc1(x)))
-        return self.drop(self.fc2(x))
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
+        """``seed`` (training with dropout > 0): the two masks are made from
+        seed and seed + 1."""
+        x = self.drop(self.act(self.fc1(x)), seed)
+        return self.drop(self.fc2(x), None if seed is None else seed + 1)
