@@ -15,7 +15,11 @@ exit, and without the final result line:
    dropout and backward kernels at rate 0 and 0.1 under one seed (so both
    sides drop the same probabilities), the measured keep rate, the
    gradient through forward and backward of one seed against autograd of
-   the plain forward, and bit-equal gradients from two runs.
+   the plain forward, and bit-equal gradients from two runs. The four
+   window kernels at the shapes of Swin-T's and SwinV2-T's stages at batch
+   32 and of a CIFAR window, with a shared and a per-window bias; the two
+   fused ones with and without a shift into an output pre-filled with NaN
+   (every element must be written), and against each other on one map.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -24,14 +28,21 @@ exit, and without the final result line:
    against the same weights run on the CPU through the plain versions.
 4. Split-head path: a 2-layer ViT-B-width model at 512 px (S = 1025, where
    ``packed_flash_supported`` is false), through the split-head kernel.
-5. Training paths. ``ViT.train_model`` on ``vit_tiny_cifar100`` (full size,
+5. Window path: ``swint_224_imagenet`` and ``swinv2t_224_imagenet`` (full
+   width and depth, seeded weights) served in bf16 through the same entry
+   points at buckets 1, 8 and 32. Per forward Swin-T must launch the
+   batched window kernel 4 times, the fused slab kernel once and the fused
+   flat kernel 7 times; SwinV2-T the batched kernel 4 times and the packed
+   kernel 8 times; at every bucket, and no other attention kernel. Logits
+   against the same weights on the CPU (bf16 served, and an fp32 model).
+6. Training paths. ``ViT.train_model`` on ``vit_tiny_cifar100`` (full size,
    fp32, dropout 0.1, a seeded colour-class loader with a ragged last
    batch) for 3 epochs; 3 Adam steps of ViT-B/16 @224 in bf16 at batch 32
    with ``attention_dropout=0.1`` and the step's split into forward,
    backward and optimizer; one step each with and without dropout of the
    2-layer model at 512 px (the split-head kernels); and fp32 gradients of
    a 2-layer model on the card against the CPU run of the same weights.
-6. Times: serving latency per bucket, and each kernel beside its bound, its
+7. Times: serving latency per bucket, and each kernel beside its bound, its
    plain version and the PyTorch library call for the same function.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -61,6 +72,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # one bf16 rounding of outputs of magnitude <= 4 (2^-7 per ulp there).
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
+# The window kernels against their plain versions. fp32: summation order and
+# expf against torch.exp on outputs of magnitude <= 5. bf16: the plain
+# versions round the normalised probabilities to bf16 before PV (as the TPU
+# kernels do) while the kernels keep them fp32, plus one rounding of the output.
+WINDOW_TOL = {"float32": 5e-6, "bfloat16": 2e-2}
 # Gradients of a kernel against its plain version, relative to the largest
 # reference element (gradients grow with S). fp32: summation order and expf
 # against torch.exp. bf16: the plain versions round the probabilities and ds
@@ -76,6 +92,18 @@ MODEL_GRAD_TOL = 1e-4
 # largest reference logit.
 LOGIT_TOL_FP32 = 1e-3
 LOGIT_TOL_BF16_REL = 5e-2
+# Swin logits of an fp32 model on the card against the CPU run: summation
+# order through 12 blocks on logits of magnitude ~1.
+SWIN_LOGIT_TOL_FP32 = 1e-4
+# Window kernel launches per forward that the routing of ops/windows.py
+# implies for the 12 blocks of each preset (every other counter stays 0).
+SWIN_LAUNCHES_PER_FORWARD = {
+    "swint_224_imagenet": {"window_batched_attention": 4,
+                           "window_fused_slab_attention": 1,
+                           "window_fused_flat_attention": 7},
+    "swinv2t_224_imagenet": {"window_batched_attention": 4,
+                             "window_packed_attention": 8},
+}
 
 
 def log(msg: str) -> None:
@@ -93,14 +121,17 @@ def max_err(a, b) -> float:
 
 def seeded_state_dict(model, seed: int):
     """Every parameter from one numpy stream: Dense weights with xavier
-    scale, LayerNorm scales 1 + N(0, 0.1), everything else N(0, 0.02)."""
+    scale, LayerNorm scales 1 + N(0, 0.1), SwinV2's ``logit_scale``
+    log 10 + N(0, 0.1), everything else N(0, 0.02)."""
     import torch
 
     rng = np.random.RandomState(seed)
     out = {}
     for name, p in model.state_dict().items():
         shape = tuple(p.shape)
-        if name.endswith("weight") and len(shape) == 2:
+        if name.endswith("logit_scale"):  # SwinV2's temperature, init log 10
+            a = np.log(10.0) + 0.1 * rng.standard_normal(shape)
+        elif name.endswith("weight") and len(shape) == 2:
             a = rng.standard_normal(shape) * (2.0 / sum(shape)) ** 0.5
         elif name.endswith("weight"):
             a = 1.0 + 0.1 * rng.standard_normal(shape)
@@ -198,9 +229,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from vision_transformers_tpu_torch import serving
-    from vision_transformers_tpu_torch.models.image_classification import ViT
+    from vision_transformers_tpu_torch.models.image_classification import (
+        SwinTransformer,
+        SwinTransformerV2,
+        ViT,
+    )
     from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.ops import windows
     from vision_transformers_tpu_torch.training import trainer
     from vision_transformers_tpu_torch.utils.args import get_args
 
@@ -415,6 +451,101 @@ def main() -> int:
         f"(fp32, rate 0.1): max|diff| {e_replay:.3e}")
     del qkv, oracle, qs, ks_, vs_, oracles, do, zq, eye
 
+
+    # the four window kernels: Swin-T and SwinV2-T stage shapes at batch 32,
+    # and swin_tiny_cifar's 4x4 window
+    def window_inputs(g, n, h, dh, nwp, dtype):
+        qkv = randn(30, g, n, 3 * h * dh, dtype=dtype)
+        bias = None if nwp == 0 else randn(31, nwp, h, n, n, dtype=fp32)
+        return qkv, bias
+
+    def check_window(label, g, n, h, dh, nwp, dtype):
+        name = str(dtype).removeprefix("torch.")
+        qkv, bias = window_inputs(g, n, h, dh, nwp, dtype)
+        ref = fa.window_attention_reference(qkv, bias, h)
+        for fn in ("window_packed_attention", "window_batched_attention"):
+            out = getattr(fa, fn)(qkv, bias, h)
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            log(f"{fn} {label} {name}: max|out-plain| {e:.3e} "
+                f"(tol {WINDOW_TOL[name]})")
+            require(bool(torch.isfinite(out.float()).all())
+                    and e <= WINDOW_TOL[name],
+                    f"{fn} {label} {name} against its plain version")
+            errs[(fn, label, name)] = e
+
+    def fused_inputs(b, hw, win, h, dh, per_window, dtype):
+        n = win * win
+        nwp = (hw // win) ** 2 if per_window else 1
+        return (randn(32, b, hw, hw, 3 * h * dh, dtype=dtype),
+                randn(33, nwp, h, n, n, dtype=fp32), nwp)
+
+    def fused_plans(b, hw, win, h, dh, nwp):
+        """The plans a map has: flat always, slab where wp % 8 == 0."""
+        geom = (b, hw, hw, win, win, h, dh, nwp)
+        plans = {"slab": fa.window_fused_plan(*geom),
+                 "flat": fa.window_fused_flat_plan(*geom)}
+        return {k: p for k, p in plans.items() if p is not None}
+
+    def check_fused(label, b, hw, win, shift, h, dh, dtype):
+        name = str(dtype).removeprefix("torch.")
+        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, shift > 0, dtype)
+        ref = fa.window_fused_reference(qkv, bias, h, (win, win),
+                                        (shift, shift))
+        outs = {}
+        for kind, plan in fused_plans(b, hw, win, h, dh, nwp).items():
+            out = torch.full((b, hw, hw, h * dh), float("nan"), device=dev,
+                             dtype=dtype)
+            fa.fused_window_attention(qkv, bias, h, (win, win),
+                                      (shift, shift), plan=plan, out=out)
+            torch.cuda.synchronize()
+            require(not bool(torch.isnan(out.float()).any()),
+                    f"fused {kind} {label} {name}: every output element is "
+                    "written (none of the NaN fill is left)")
+            e = max_err(out, ref)
+            log(f"window_fused_{kind}_attention {label} shift {shift} {name}: "
+                f"max|out-plain| {e:.3e} (tol {WINDOW_TOL[name]}), no NaN "
+                "left of the fill")
+            require(e <= WINDOW_TOL[name],
+                    f"fused {kind} {label} {name} against its plain version")
+            errs[(f"window_fused_{kind}_attention", label, shift, name)] = e
+            outs[kind] = out
+        if len(outs) == 2:
+            e = max_err(outs["slab"], outs["flat"])
+            log(f"  slab against flat on the same map: max|diff| {e:.3e}")
+            require(e <= WINDOW_TOL[name],
+                    f"slab against flat, {label} {name}")
+
+    for dtype in (bf16, fp32):
+        check_window("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1, dtype)
+        check_window("swin-t s1 G2048 N49 H3 nW'64", 2048, 49, 3, 32, 64, dtype)
+        check_window("swin-t s2 G512 N49 H6 nW'16", 512, 49, 6, 32, 16, dtype)
+        check_window("swin-t s3 G128 N49 H12 nW'4", 128, 49, 12, 32, 4, dtype)
+        check_window("swin-t s4 G32 N49 H24 shared", 32, 49, 24, 32, 1, dtype)
+        check_window("swinv2-t s1 G1568 N64 H3 nW'49", 1568, 64, 3, 32, 49,
+                     dtype)
+        check_window("cifar G1024 N16 H3 nW'16", 1024, 16, 3, 32, 16, dtype)
+        check_window("no bias G33 N49 H3", 33, 49, 3, 32, 0, dtype)
+        for shift in (3, 0):
+            check_fused("swin-t s1 B32 56x56 H3", 32, 56, 7, shift, 3, 32,
+                        dtype)
+            check_fused("swin-t s2 B32 28x28 H6", 32, 28, 7, shift, 6, 32,
+                        dtype)
+            check_fused("swin-t s3 B32 14x14 H12", 32, 14, 7, shift, 12, 32,
+                        dtype)
+        check_fused("swinv2-t s2 B32 32x32 win8 H6", 32, 32, 8, 4, 6, 32,
+                    dtype)
+        check_fused("cifar B64 16x16 win4 H3", 64, 16, 4, 2, 3, 32, dtype)
+
+    qg = torch.zeros(4, 49, 3 * 3 * 32, device=dev, requires_grad=True)
+    try:
+        fa.window_packed_attention(qg, None, 3)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised, "a window kernel asked for a gradient on the card raises")
+    del qg
+
     # ---- 3. main path: ViT-B/16 @224 served in bf16 ----------------------
     args = get_args("vitb16_224_imagenet")
     shape = (args["image_size"], args["image_size"], 3)
@@ -522,8 +653,90 @@ def main() -> int:
             "S=1025 logits against the CPU run")
     del split_models, cpu_wide, cpu_model
 
-    # ---- 5. training paths ------------------------------------------------
-    # 5a. train_model on vit_tiny_cifar100: full size, fp32, dropout 0.1
+    # ---- 5. window path: Swin-T and SwinV2-T served in bf16 ---------------
+    swin = {}
+    for preset, cls in (("swint_224_imagenet", SwinTransformer),
+                        ("swinv2t_224_imagenet", SwinTransformerV2)):
+        sargs = get_args(preset)
+        sshape = (sargs["image_size"], sargs["image_size"], 3)
+        smodel = cls(**sargs, dtype="bfloat16")
+        sweights = seeded_state_dict(smodel, seed=5)
+        smodel.load_state_dict(sweights)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(smodel, sshape, tmp, buckets=(1, 8, 32),
+                                      dtype=fp32)
+            del smodel
+            sclf = serving.load_classifier(tmp)
+        require(type(sclf.model) is cls, f"{preset}: the artifact rebuilds "
+                f"a {cls.__name__}")
+        forwards = [0]
+        sclf.model.register_forward_hook(
+            lambda *_, forwards=forwards: forwards.__setitem__(
+                0, forwards[0] + 1))
+        want = SWIN_LAUNCHES_PER_FORWARD[preset]
+
+        def launches_match(n_forwards):
+            return all(v == n_forwards * want.get(k, 0)
+                       for k, v in fa.LAUNCHES.items())
+
+        fa.reset_launch_counts()
+        windows.ROUTE_LOG = []
+        t0 = time.perf_counter()
+        sclf.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        require(forwards[0] == 3 and launches_match(3),
+                f"{preset}: warmup runs each bucket once through "
+                f"{want} and no other attention kernel; got {fa.LAUNCHES}")
+        routes = windows.ROUTE_LOG[:12]
+        require(windows.ROUTE_LOG == routes * 3,
+                f"{preset}: the same 12 routes at every bucket")
+        windows.ROUTE_LOG = None
+        total = dict(fa.LAUNCHES)
+        sserved = {}
+        for n in (1, 8, 32, 40):  # 40 = a full bucket of 32 + 8
+            fa.reset_launch_counts()
+            f0 = forwards[0]
+            sserved[n] = sclf.predict(images[:n])
+            torch.cuda.synchronize()
+            require(forwards[0] - f0 == (2 if n == 40 else 1)
+                    and launches_match(forwards[0] - f0),
+                    f"{preset}: predict({n}) launches {want} per forward and "
+                    f"no other attention kernel; got {fa.LAUNCHES}")
+            require(sserved[n].shape == (n, sargs["num_classes"])
+                    and bool(torch.isfinite(sserved[n].float()).all()),
+                    f"{preset}: predict({n}) gives finite ({n}, classes) "
+                    "logits")
+            total = {k: v + fa.LAUNCHES[k] for k, v in total.items()}
+        log(f"{preset}: {forwards[0]} forwards (warmup {warm_s:.2f} s), "
+            f"routes per forward {routes}, launches "
+            f"{ {k: v for k, v in total.items() if v} }")
+
+        # the same weights on the CPU through the plain versions, fp32
+        cpu_swin = cls(**sargs, device="cpu")
+        cpu_swin.load_state_dict(sweights)
+        with torch.no_grad():
+            sref = cpu_swin(torch.from_numpy(images[:2])).float()
+        del cpu_swin
+        sscale = sref.abs().max().item()
+        e16 = max(max_err(sserved[n][:k].cpu(), sref[:k])
+                  for n, k in ((1, 1), (8, 2), (32, 2), (40, 2)))
+        swin32 = cls(**sargs)
+        swin32.load_state_dict(sweights)
+        with torch.inference_mode():
+            e32 = max_err(swin32(torch.from_numpy(images[:2]).to(dev)).cpu(),
+                          sref)
+        del swin32
+        log(f"{preset} logits vs CPU fp32: fp32 model on the card {e32:.3e} "
+            f"(tol {SWIN_LOGIT_TOL_FP32}), bf16 served {e16:.3e} (max|ref| "
+            f"{sscale:.3f}, tol {LOGIT_TOL_BF16_REL} x max|ref|)")
+        require(e32 <= SWIN_LOGIT_TOL_FP32
+                and e16 <= LOGIT_TOL_BF16_REL * sscale,
+                f"{preset}: logits against the CPU run of the same weights")
+        swin[preset] = (sclf, total, forwards[0])
+
+    # ---- 6. training paths ------------------------------------------------
+    # 6a. train_model on vit_tiny_cifar100: full size, fp32, dropout 0.1
     tiny_args = get_args("vit_tiny_cifar100")
     tiny = ViT(**tiny_args)
     train_loader = ColorClassLoader(1000, 64, seed=0)   # 15 x 64 + 40
@@ -562,7 +775,7 @@ def main() -> int:
             "train step (and 7 forward launches per eval batch)")
     del tiny
 
-    # 5b. ViT-B/16 @224, bf16, batch 32, attention dropout 0.1: 3 Adam steps
+    # 6b. ViT-B/16 @224, bf16, batch 32, attention dropout 0.1: 3 Adam steps
     vitb_args = dict(args, attention_dropout=0.1)
     vitb = ViT(**vitb_args, dtype="bfloat16")
     vitb.load_state_dict(weights)
@@ -628,7 +841,7 @@ def main() -> int:
             log(f"  {ms:8.3f} ms {n:4d}x {name}")
     del vitb, state, step, loss
 
-    # 5c. split-head training: 2 layers at 512 px (S = 1025), bf16, batch 2
+    # 6c. split-head training: 2 layers at 512 px (S = 1025), bf16, batch 2
     x512_2 = x512.to(dev)
     y512 = torch.tensor([1, 2], device=dev)
     w512 = torch.ones(2, device=dev)
@@ -659,7 +872,7 @@ def main() -> int:
             "split-head training: rows 5 and 6 with dropout; row 2 forward "
             "and row 6 backward without")
 
-    # 5d. fp32 gradients, card against CPU (plain versions), 2 layers, rate 0
+    # 6d. fp32 gradients, card against CPU (plain versions), 2 layers, rate 0
     small = dict(args, num_layers=2)
     grads = {}
     xg = torch.from_numpy(images[:2])
@@ -690,7 +903,7 @@ def main() -> int:
             "card gradients against the CPU run of the same weights")
     del grads
 
-    # ---- 6. times ---------------------------------------------------------
+    # ---- 7. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
         for _ in range(2):
@@ -718,6 +931,36 @@ def main() -> int:
             f"{1 - busy / wall:.3f}")
         for name, ms, n in top:
             log(f"  {ms:8.3f} ms {n:4d}x {name}")
+
+    for preset, (sclf, _, _) in swin.items():
+        for b in sclf.buckets:
+            x = images[:b]
+            for _ in range(2):
+                sclf.predict(x).float().cpu()
+            iters = 10
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                sclf.predict(x).float().cpu()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            log(f"serving {preset} bf16 bucket {b}: {ms:.3f} ms per request "
+                f"(host numpy in, logits out), {b / ms * 1e3:.1f} images/s")
+        with torch.inference_mode():
+            xb = torch.from_numpy(images[:32]).to(dev)
+            sfwd_ms = cuda_ms(lambda: sclf.model(xb), iters=10)
+        log(f"{preset} bf16 forward, batch 32, device time: {sfwd_ms:.3f} ms "
+            f"({32 / sfwd_ms * 1e3:.1f} images/s)")
+        for b in (1, 32):
+            wall, busy, count, top = device_profile(
+                lambda: sclf.predict(images[:b]).float().cpu(), top=12)
+            if busy is None:
+                log(f"profile {preset} bucket {b}: the profiler saw no device "
+                    "activity")
+                continue
+            log(f"profile {preset} bucket {b}: wall {wall:.3f} ms (profiler "
+                f"on), device busy {busy:.3f} ms in {count} activities, idle "
+                f"share {1 - busy / wall:.3f}")
+            for name, ms, n in top:
+                log(f"  {ms:8.3f} ms {n:4d}x {name}")
 
     kernels = []
     port = "vision_transformers_tpu_torch/csrc/"
@@ -828,6 +1071,84 @@ def main() -> int:
           8 * io_bytes + lse_bytes, 10 * b * h * s * s * d,
           rate0_ms=cuda_ms(lambda: fa.flash_dropout_attention_bwd(
               *bwd_args, dropout_rate=0.0, seed=None), iters=5))
+
+
+    # the window kernels, each at its largest launch on the two Swin paths
+    def split_heads(qkv, h):
+        """(G, N, 3·H·dh) → contiguous q, k, v (G, H, N, dh), not timed."""
+        g, n, c3 = qkv.shape
+        return (t.reshape(g, n, h, c3 // (3 * h)).transpose(1, 2).contiguous()
+                for t in qkv.split(c3 // 3, dim=-1))
+
+    def window_bytes_flops(g, n, h, dh, nwp):
+        """qkv read once, out written once, the bias once (bf16)."""
+        return ((4 * g * n * h * dh + nwp * h * n * n) * 2,
+                4 * g * h * n * n * dh)
+
+    swin_total = {k: sum(t[k] for _, t, _ in swin.values())
+                  for k in fa.LAUNCHES}
+
+    def window_entry(name, line, label, g, n, h, dh, nwp, other):
+        qkv, bias = window_inputs(g, n, h, dh, nwp, bf16)
+        q, k, v = split_heads(qkv, h)
+        mask = bias.to(bf16).repeat(g // nwp, 1, 1, 1)
+        nbytes, flops = window_bytes_flops(g, n, h, dh, nwp)
+        fn, other_fn = getattr(fa, name), getattr(fa, other)
+        entry(name, "window_attention.cu", line, swin_total[name],
+              errs[(name, label, "bfloat16")],
+              f"G{g} N{n} H{h} dh{dh} nW'{nwp}",
+              cuda_ms(lambda: fn(qkv, bias, h)),
+              cuda_ms(lambda: fa.window_attention_reference(qkv, bias, h)),
+              cuda_ms(lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=mask)),
+              nbytes, flops,
+              **{f"{other}_ms": cuda_ms(lambda: other_fn(qkv, bias, h))})
+
+    window_entry("window_packed_attention", 1295,
+                 "swinv2-t s1 G1568 N64 H3 nW'49", 1568, 64, 3, 32, 49,
+                 "window_batched_attention")
+    window_entry("window_batched_attention", 1708,
+                 "swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1,
+                 "window_packed_attention")
+
+    def fused_entry(kind, line, label, b, hw, win, shift, h, dh):
+        name = f"window_fused_{kind}_attention"
+        other = "flat" if kind == "slab" else "slab"
+        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, True, bf16)
+        plans = fused_plans(b, hw, win, h, dh, nwp)
+        g = b * nwp
+        mask = bias.to(bf16).repeat(b, 1, 1, 1)
+        window, sh = (win, win), (shift, shift)
+
+        def chain():
+            """The same function from library calls: roll, partition, head
+            split, SDPA with the bias as its mask, merge, reverse, roll."""
+            x = torch.roll(qkv, shifts=(-shift, -shift), dims=(1, 2))
+            q, k, v = split_heads(windows.window_partition(x, win, win), h)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            o = o.transpose(1, 2).reshape(g, win * win, h * dh)
+            o = windows.window_reverse(o, win, win, hw, hw)
+            return torch.roll(o, shifts=(shift, shift), dims=(1, 2))
+
+        e = max_err(chain(), fa.window_fused_reference(qkv, bias, h, window, sh))
+        require(e <= WINDOW_TOL["bfloat16"],
+                f"the library chain computes the fused function ({e:.3e})")
+        nbytes, flops = window_bytes_flops(g, win * win, h, dh, nwp)
+        entry(name, "window_fused_attention.cu", line, swin_total[name],
+              errs[(name, label, shift, "bfloat16")],
+              f"B{b} {hw}x{hw} win{win} shift{shift} H{h} dh{dh} nW'{nwp}",
+              cuda_ms(lambda: fa.fused_window_attention(
+                  qkv, bias, h, window, sh, plan=plans[kind])),
+              cuda_ms(lambda: fa.window_fused_reference(qkv, bias, h, window,
+                                                        sh)),
+              cuda_ms(chain), nbytes, flops,
+              **({f"{other}_same_map_ms": cuda_ms(
+                  lambda: fa.fused_window_attention(
+                      qkv, bias, h, window, sh, plan=plans[other]))}
+                 if other in plans else {}))
+
+    fused_entry("flat", 1997, "swin-t s2 B32 28x28 H6", 32, 28, 7, 3, 6, 32)
+    fused_entry("slab", 2056, "swin-t s1 B32 56x56 H3", 32, 56, 7, 3, 3, 32)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

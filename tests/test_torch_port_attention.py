@@ -206,5 +206,7 @@ def test_cpu_tensors_never_count_as_kernel_launches():
                                 seed=1).sum().backward()
     assert set(tfa.LAUNCHES) == {
         "packed_attention", "flash_attention", "packed_attention_bwd",
-        "dropout_attention_fwd", "dropout_attention_bwd"}
+        "dropout_attention_fwd", "dropout_attention_bwd",
+        "window_packed_attention", "window_batched_attention",
+        "window_fused_slab_attention", "window_fused_flat_attention"}
     assert not any(tfa.LAUNCHES.values())

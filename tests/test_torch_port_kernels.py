@@ -179,7 +179,153 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
     assert tfa.LAUNCHES == {
         "packed_attention": 1, "packed_attention_bwd": 1,
         "dropout_attention_fwd": 1, "dropout_attention_bwd": 2,
-        "flash_attention": 2}
+        "flash_attention": 2, "window_packed_attention": 0,
+        "window_batched_attention": 0, "window_fused_slab_attention": 0,
+        "window_fused_flat_attention": 0}
+
+
+# Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf
+# against torch.exp on outputs of magnitude <= 4. bf16: the plain version
+# rounds the normalised probabilities to bf16 before PV (as the TPU kernels
+# do) and the kernels keep them fp32, plus one rounding of the output.
+_WINDOW_TOL = {torch.float32: 5e-6, torch.bfloat16: 2e-2}
+
+_WINDOW_SHAPES = [
+    # g, n, heads, dh, nW'
+    (256, 49, 3, 32, 64),   # Swin-T stage 1, shifted
+    (147, 64, 3, 32, 49),   # SwinV2-T stage 1: nW' = 49 against any grouping
+    (64, 49, 6, 32, 16),    # Swin-T stage 2
+    (10, 49, 24, 32, 1),    # Swin-T stage 4: few windows, many heads
+    (37, 16, 2, 16, 1),     # CIFAR window, ragged last block
+    (7, 128, 1, 64, 7),     # the largest window and head dim
+    (5, 49, 3, 32, 0),      # no bias
+]
+
+
+def _window_inputs(cuda, dtype, g, n, heads, dh, nwp, seed=40):
+    qkv = torch.from_numpy(_randn(seed, g, n, 3 * heads * dh)).to(cuda, dtype)
+    bias = None if nwp == 0 else \
+        torch.from_numpy(_randn(seed + 1, nwp, heads, n, n)).to(cuda)
+    return qkv, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["window_packed_attention",
+                                "window_batched_attention"])
+@pytest.mark.parametrize("g,n,heads,dh,nwp", _WINDOW_SHAPES)
+def test_window_kernels_match_plain(cuda, dtype, fn, g, n, heads, dh, nwp):
+    qkv, bias = _window_inputs(cuda, dtype, g, n, heads, dh, nwp)
+    tfa.reset_launch_counts()
+    out = getattr(tfa, fn)(qkv, bias, heads)
+    ref = tfa.window_attention_reference(qkv, bias, heads)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[fn] == 1 and sum(tfa.LAUNCHES.values()) == 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= _WINDOW_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_window_masks_do_not_overflow(cuda):
+    """A shift mask of -100 and a pad mask of -1e9 on top of the bias, in
+    bf16: finite outputs equal to the plain version's."""
+    g, n, heads, dh = 8, 49, 3, 32
+    qkv, bias = _window_inputs(cuda, torch.bfloat16, g, n, heads, dh, 4)
+    bias[1, :, :, 40:] = -100.0
+    bias[2, :, :, 25:] += -1e9
+    bias[3, :, 10:, :10] = -100.0
+    ref = tfa.window_attention_reference(qkv, bias, heads)
+    for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
+        out = fn(qkv, bias, heads)
+        assert bool(torch.isfinite(out.float()).all())
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+_FUSED_SHAPES = [
+    # b, hp, wp, window, shift, heads, dh, per-window bias
+    (2, 56, 56, 7, (3, 3), 3, 32, True),    # Swin-T stage 1: slab and flat
+    (3, 28, 28, 7, (3, 3), 6, 32, True),    # stage 2 (flat): row and column wrap
+    (2, 14, 14, 7, (3, 3), 12, 32, True),   # stage 3 (flat)
+    (2, 14, 14, 7, (0, 0), 12, 32, False),  # stage 3 unshifted
+    (3, 16, 8, 4, (1, 3), 2, 16, True),     # non-square, CIFAR window
+    (1, 32, 32, 8, (4, 4), 2, 64, False),   # window 8, dh 64, shift without a mask
+]
+
+
+def _fused_plans(b, hp, wp, win, heads, dh, nwp):
+    """The plans the map has: flat always, slab where wp % 8 == 0."""
+    geom = (b, hp, wp, win, win, heads, dh, nwp)
+    plans = [tfa.window_fused_plan(*geom), tfa.window_fused_flat_plan(*geom)]
+    return [p for p in plans if p is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hp,wp,win,shift,heads,dh,per_window",
+                         _FUSED_SHAPES)
+def test_fused_window_kernels_match_plain(cuda, dtype, b, hp, wp, win, shift,
+                                          heads, dh, per_window):
+    n = win * win
+    nwp = (hp // win) * (wp // win) if per_window else 1
+    qkv = torch.from_numpy(_randn(42, b, hp, wp, 3 * heads * dh)).to(cuda, dtype)
+    bias = torch.from_numpy(_randn(43, nwp, heads, n, n)).to(cuda)
+    ref = tfa.window_fused_reference(qkv, bias, heads, (win, win), shift)
+    plans = _fused_plans(b, hp, wp, win, heads, dh, nwp)
+    assert [p[0] for p in plans] == (["flat"] if wp % 8 else ["slab", "flat"])
+    for plan in plans:
+        _check_fused_launch(cuda, dtype, qkv, bias, ref, heads, win, shift, plan)
+
+
+def _check_fused_launch(cuda, dtype, qkv, bias, ref, heads, win, shift, plan):
+    kind = plan[0]
+    out = torch.full(ref.shape, float("nan"), device=cuda, dtype=dtype)
+    tfa.reset_launch_counts()
+    got = tfa.fused_window_attention(qkv, bias, heads, (win, win), shift,
+                                     plan=plan, out=out)
+    torch.cuda.synchronize()
+    assert got is out and tfa.LAUNCHES[f"window_fused_{kind}_attention"] == 1
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    assert (out.float() - ref.float()).abs().max().item() <= _WINDOW_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_window_section_stride(cuda):
+    """Sections padded to 128 lanes (the TPU layout) are one value of the
+    stride: real lanes equal the plain version's, pad lanes are zero."""
+    b, hp, wp, heads, dh, sec = 2, 8, 8, 2, 32, 128
+    qkv = torch.zeros(b, hp, wp, 3, sec, device=cuda)
+    qkv[..., : heads * dh] = torch.from_numpy(
+        _randn(44, b, hp, wp, 3, heads * dh)).to(cuda)
+    qkv = qkv.reshape(b, hp, wp, 3 * sec)
+    bias = torch.from_numpy(_randn(45, 4, heads, 16, 16)).to(cuda)
+    ref = tfa.window_fused_reference(qkv, bias, heads, (4, 4), (2, 2),
+                                     hd=heads * dh)
+    for plan_fn in (tfa.window_fused_plan, tfa.window_fused_flat_plan):
+        plan = plan_fn(b, hp, wp, 4, 4, heads, dh, 4, 4)
+        out = tfa.fused_window_attention(qkv, bias, heads, (4, 4), (2, 2),
+                                         dh=dh, plan=plan)
+        assert out.shape == (b, hp, wp, sec)
+        assert (out - ref).abs().max().item() <= 5e-6
+        assert not bool(out[..., heads * dh:].any())
+
+
+@pytest.mark.cuda
+def test_window_kernels_are_forward_only_on_cuda(cuda):
+    qkv = torch.zeros(4, 16, 3 * 2 * 16, device=cuda, requires_grad=True)
+    for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
+        with pytest.raises(NotImplementedError, match="row 10"):
+            fn(qkv, None, 2)
+    qmap = torch.zeros(1, 8, 8, 3 * 2 * 16, device=cuda, requires_grad=True)
+    for plan_fn in (tfa.window_fused_plan, tfa.window_fused_flat_plan):
+        with pytest.raises(NotImplementedError, match="row 10"):
+            tfa.fused_window_attention(
+                qmap, None, 2, (4, 4), (2, 2),
+                plan=plan_fn(1, 8, 8, 4, 4, 2, 16, 1))
+    with torch.no_grad():  # a leaf that needs a gradient, but none recorded
+        assert tfa.window_packed_attention(qkv, None, 2).shape == (4, 16, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.window_packed_attention(torch.zeros(4, 16, 3 * 2 * 8, device=cuda),
+                                    None, 2)
 
 
 @pytest.mark.cuda

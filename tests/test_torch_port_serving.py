@@ -22,7 +22,11 @@ import torch
 
 from vision_transformers_tpu.models.image_classification import ViT as JViT
 from vision_transformers_tpu_torch import serving
-from vision_transformers_tpu_torch.models.image_classification import ViT
+from vision_transformers_tpu_torch.models.image_classification import (
+    SwinTransformer,
+    SwinTransformerV2,
+    ViT,
+)
 from vision_transformers_tpu_torch.ops import flash_attention as tfa
 from vision_transformers_tpu_torch.utils.port_jax import vit_state_dict_from_jax
 
@@ -164,6 +168,21 @@ def test_load_classifier_without_device_raises_without_cuda(artifact,
         serving.load_classifier(artifact[0])
 
 
+_NARROW_SWIN = dict(patch_size=[2, 2], embed_dim=8, depths=[1], num_heads=[2],
+                    window_size=[4, 4], num_classes=3)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: ViT(**TINY),
+    lambda: SwinTransformer(**_NARROW_SWIN),
+    lambda: SwinTransformerV2(**_NARROW_SWIN),
+], ids=["ViT", "SwinTransformer", "SwinTransformerV2"])
+def test_models_without_device_raise_without_cuda(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+
+
 def test_load_rejects_other_format_version(artifact, tmp_path):
     out, manifest = artifact
     bad = dict(manifest, format_version=99)
@@ -199,6 +218,9 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
+    assert {"vision_transformers_tpu_torch.ops.windows",
+            "vision_transformers_tpu_torch.models.image_classification"
+            ".swin_transformer"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"

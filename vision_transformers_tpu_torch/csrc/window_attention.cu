@@ -1,0 +1,214 @@
+// Window attention on the partitioned projection: the packed and the batched
+// kernel.
+//
+// Replace the TPU kernels vision_transformers_tpu/ops/flash_attention.py::
+// _window_pack_kernel (:1295, reached through _window_pack_fwd_pallas :1370
+// and window_packed_attention :1661) and _window_batched_kernel (:1708,
+// through _window_batched_fwd_pallas :1732 and window_batched_attention
+// :1806).
+//
+// qkv: (G, N, 3·H·D), G = batch·n_win with windows fastest, columns
+// [q | k | v]; head h's q of token (g, i) is at row g·N + i, column h·D, its
+// k one section (H·D) further, its v two. bias: null or (nW', H, N, N) in the
+// compute dtype; window g adds row g mod nW' (nW' = 1: shared by all windows;
+// nW' = n_win: per-window shift or pad masks; nW' need not divide the block).
+// out: (G, N, H·D). No head-split or transposed copy is made.
+//
+// What bounds them on the H100 (Swin-T @224 stage 1, batch 32: G = 2048,
+// N = 49, H = 3, D = 32, bf16): 4·G·H·N²·D = 1.9 GFLOP, 1.9 µs at 989 TFLOP/s,
+// against 57.8 MB of qkv read and 19.3 MB of out written, 23 µs at
+// 3.35 TB/s: bytes. So each must read qkv once and write out once and keep
+// every score on chip; see window_tile.cuh for how (one thread per query
+// row, K/V in shared memory, fp32 FMAs, which is where the gap to the bound
+// lies).
+//
+// window_packed_kernel, the TPU's "pack P windows into one MXU product": here
+// the unit to fill is the block's threads, so a block takes as many windows
+// of one head as fill its warps with query rows (N = 49: 5 windows, 245 of
+// 256 threads; N = 64: 4; N = 16: 16). Each window reads its own bias row
+// (g mod nW') straight from device memory (1.2 MB at SwinV2-T stage 1, L2
+// resident). Grid: x = ceil(G / P), y = H; a ragged last block is
+// bounds-checked.
+//
+// window_batched_kernel, the TPU's per-head batched product for a bias shared
+// by all windows: a block belongs to one head, stages that head's (N, N)
+// bias in shared memory once (row stride N + 1, so rows fall in distinct
+// banks) and reuses it over `passes` groups of P windows. Grid:
+// x = ceil(G / (P·passes)), y = H. A per-window bias (nW' > 1) is read from
+// device memory as in the packed kernel.
+#include "window_tile.cuh"
+
+namespace {
+
+using vtt::kWinMaxThreads;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWinMaxThreads)
+window_packed_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                     T* __restrict__ out, long long g, int n, int heads,
+                     int bias_windows, float scale, int p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + p * n * D;
+
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * D;
+  const long long w0 = static_cast<long long>(blockIdx.x) * p;
+  const int count = static_cast<int>(min(static_cast<long long>(p), g - w0));
+  const vtt::PackedRows map{n};
+
+  vtt::stage_kv<T, D>(qkv, map, w0, count, n, h * D, hd, 3 * hd, ks, vs);
+  __syncthreads();
+
+  const int w = threadIdx.x / n, i = threadIdx.x % n;
+  if (w >= count) return;
+  const long long gw = w0 + w;
+  const long long row = map(gw, i);
+  const T* b_row = bias == nullptr
+      ? nullptr
+      : bias + (((gw % bias_windows) * heads + h) * n + i) * n;
+  vtt::attend_row<T, D, T>(qkv + row * 3 * hd + h * D, ks + w * n * D,
+                           vs + w * n * D, b_row, n, scale,
+                           out + row * hd + h * D);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWinMaxThreads)
+window_batched_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                      T* __restrict__ out, long long g, int n, int heads,
+                      int bias_windows, float scale, int p, int passes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + p * n * D;
+  float* bs = vs + p * n * D;  // (N, N + 1): the head's shared bias
+
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * D;
+  const long long base = static_cast<long long>(blockIdx.x) * p * passes;
+  const bool shared_bias = bias != nullptr && bias_windows == 1;
+  const vtt::PackedRows map{n};
+
+  if (shared_bias) {
+    const T* bh = bias + static_cast<long long>(h) * n * n;
+    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x)
+      bs[(idx / n) * (n + 1) + idx % n] = vtt::to_f32(bh[idx]);
+  }
+
+  const int w = threadIdx.x / n, i = threadIdx.x % n;
+  for (int pass = 0; pass < passes; ++pass) {
+    const long long w0 = base + static_cast<long long>(pass) * p;
+    if (w0 >= g) break;  // the same for every thread of the block
+    const int count = static_cast<int>(min(static_cast<long long>(p), g - w0));
+    __syncthreads();  // the previous pass has read ks/vs; bs is staged
+    vtt::stage_kv<T, D>(qkv, map, w0, count, n, h * D, hd, 3 * hd, ks, vs);
+    __syncthreads();
+    if (w >= count) continue;
+    const long long gw = w0 + w;
+    const long long row = map(gw, i);
+    const T* q_row = qkv + row * 3 * hd + h * D;
+    T* o_row = out + row * hd + h * D;
+    if (shared_bias) {
+      vtt::attend_row<T, D, float>(q_row, ks + w * n * D, vs + w * n * D,
+                                   bs + i * (n + 1), n, scale, o_row);
+    } else {
+      const T* b_row = bias == nullptr
+          ? nullptr
+          : bias + (((gw % bias_windows) * heads + h) * n + i) * n;
+      vtt::attend_row<T, D, T>(q_row, ks + w * n * D, vs + w * n * D, b_row,
+                               n, scale, o_row);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_packed(const void* qkv, const void* bias, void* out, int g, int n,
+                  int heads, int bias_windows, float scale, int p, int threads,
+                  cudaStream_t stream) {
+  const size_t smem = vtt::window_kv_bytes(p, n, D);
+  auto kernel = window_packed_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g + p - 1) / p, heads);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<T*>(out), g, n, heads, bias_windows, scale, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_batched(const void* qkv, const void* bias, void* out, int g, int n,
+                   int heads, int bias_windows, float scale, int p,
+                   int threads, int passes, cudaStream_t stream) {
+  const size_t smem = vtt::window_kv_bytes(p, n, D) +
+                      static_cast<size_t>(n) * (n + 1) * sizeof(float);
+  auto kernel = window_batched_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = p * passes;
+  const dim3 grid((g + per_block - 1) / per_block, heads);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<T*>(out), g, n, heads, bias_windows, scale, p, passes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool args_ok(const void* bias, int g, int n, int heads, int bias_windows,
+             int p, int threads) {
+  return g >= 1 && heads >= 1 && heads <= 65535 &&
+         vtt::window_launch_ok(n, p, threads) &&
+         (bias == nullptr || bias_windows >= 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns 0 or the cudaError_t of the launch. bias may be null (then
+// bias_windows is ignored). is_bf16: 1 = bf16, 0 = fp32 (qkv, bias and out).
+
+int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
+                                int g, int n, int heads, int dh,
+                                int bias_windows, float scale, int p,
+                                int threads, int is_bf16, void* stream) {
+  if (!args_ok(bias, g, n, heads, bias_windows, p, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VTT_PACKED(T, D) \
+  launch_packed<T, D>(qkv, bias, out, g, n, heads, bias_windows, scale, p, threads, st)
+  switch (dh) {
+    case 16: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 16) : VTT_PACKED(float, 16);
+    case 32: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 32) : VTT_PACKED(float, 32);
+    case 64: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 64) : VTT_PACKED(float, 64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VTT_PACKED
+}
+
+int window_batched_attention_fwd(const void* qkv, const void* bias, void* out,
+                                 int g, int n, int heads, int dh,
+                                 int bias_windows, float scale, int p,
+                                 int threads, int passes, int is_bf16,
+                                 void* stream) {
+  if (!args_ok(bias, g, n, heads, bias_windows, p, threads) || passes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VTT_BATCHED(T, D) \
+  launch_batched<T, D>(qkv, bias, out, g, n, heads, bias_windows, scale, p, threads, passes, st)
+  switch (dh) {
+    case 16: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 16) : VTT_BATCHED(float, 16);
+    case 32: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 32) : VTT_BATCHED(float, 32);
+    case 64: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 64) : VTT_BATCHED(float, 64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VTT_BATCHED
+}
+
+const char* window_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,201 @@
+// Shared body of the four window-attention kernels (window_attention.cu,
+// window_fused_attention.cu): for one (window, head)
+//   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 16, 32 or 64,
+// with q, k, v read in place from a packed projection whose token rows the
+// caller's RowMap names (row index → q at column h·D, k one section further,
+// v two), so the same body serves the partitioned (G, N, 3·H·D) tensor and
+// the un-rolled NHWC map.
+//
+// Design. A window is small (N <= 128 keys), so its K and V fit in shared
+// memory as fp32 and ONE THREAD OWNS ONE QUERY ROW: q (scaled) and the output
+// accumulator live in registers, every lane of a window reads the same K/V
+// address (a shared-memory broadcast), and no two threads ever exchange a
+// value: no warp shuffles and no barrier inside the softmax. Keys go by in
+// chunks of 8 with an online softmax (one rescale of the accumulator per
+// chunk), so no N×N score tile is stored anywhere. This is the opposite
+// trade of attention_tile.cuh (one lane per key, ~1 shared load per FMA):
+// here a 16-byte shared load feeds 4 FMAs in each of the warp's 32 rows.
+// The products are still fp32 FMAs on the CUDA cores; tensor cores are later
+// work.
+//
+// Numerics follow the TPU kernels: fp32 scores and statistics; the bias is
+// held in the compute dtype T and widened at the add; the row max is taken
+// before any exp, so a mask of −100 or −1e9 (never a whole row) only ever
+// gives exp(very negative) = 0. Unlike the TPU kernels the probabilities stay
+// fp32 into the PV product and the output is divided by the row sum after it.
+#pragma once
+
+#include "attention_tile.cuh"
+
+namespace vtt {
+
+constexpr int kWinChunk = 8;         // keys per online-softmax step
+constexpr int kWinMaxThreads = 256;  // query rows per block
+constexpr int kWinMaxTokens = 128;
+
+// 16-byte vector load/store of kVec elements of T to/from fp32.
+template <typename T>
+struct RowIO;
+
+template <>
+struct RowIO<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ void load(const float* p, float* dst) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* src) {
+    *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
+  }
+};
+
+template <>
+struct RowIO<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* src) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+// Tokens of the partitioned (G, N, ·) tensor: window g, token i → row g·N + i.
+struct PackedRows {
+  int n;
+  __device__ __forceinline__ long long operator()(long long g, int i) const {
+    return g * n + i;
+  }
+};
+
+// K and V of head column `col` (= h·D) of windows [w0, w0 + count) into
+// shared memory as fp32: ks/vs[(w·n + i)·D + d]. Consecutive threads take
+// consecutive 16-byte pieces of one token's D elements, then the next token.
+template <typename T, int D, typename RowMap>
+__device__ __forceinline__ void stage_kv(
+    const T* __restrict__ qkv, const RowMap& map, long long w0, int count,
+    int n, long long col, long long sec, long long row_stride,
+    float* __restrict__ ks, float* __restrict__ vs) {
+  constexpr int V = RowIO<T>::kVec;
+  constexpr int C = D / V;
+  const int total = count * n * C;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int c = idx % C;
+    const int tok = idx / C;
+    const int w = tok / n, i = tok % n;
+    const T* src = qkv + map(w0 + w, i) * row_stride + col + c * V;
+    float tmp[V];
+    RowIO<T>::load(src + sec, tmp);
+    float* kd = ks + tok * D + c * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) kd[e] = tmp[e];
+    RowIO<T>::load(src + 2 * sec, tmp);
+    float* vd = vs + tok * D + c * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) vd[e] = tmp[e];
+  }
+}
+
+// One query row against its window's n keys. q_row, o_row: this row's D
+// elements in device memory (16-byte aligned). ks, vs: the window's K and V
+// in shared memory. b_row: this row's n bias values (shared memory fp32 or
+// device memory T) or null.
+template <typename T, int D, typename B>
+__device__ __forceinline__ void attend_row(
+    const T* __restrict__ q_row, const float* __restrict__ ks,
+    const float* __restrict__ vs, const B* __restrict__ b_row, int n,
+    float scale, T* __restrict__ o_row) {
+  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  constexpr int V = RowIO<T>::kVec;
+  float q[D], acc[D];
+#pragma unroll
+  for (int c = 0; c < D / V; ++c) RowIO<T>::load(q_row + c * V, q + c * V);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    q[d] *= scale;
+    acc[d] = 0.f;
+  }
+  float m = -CUDART_INF_F, l = 0.f;
+
+  for (int j0 = 0; j0 < n; j0 += kWinChunk) {
+    float s[kWinChunk];
+#pragma unroll
+    for (int c = 0; c < kWinChunk; ++c) {
+      const int j = j0 + c;
+      float x = -CUDART_INF_F;  // past the window's last key: p = 0
+      if (j < n) {
+        const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
+        float a = 0.f;
+#pragma unroll
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 kk = k4[d4];
+          a = fmaf(q[4 * d4], kk.x, a);
+          a = fmaf(q[4 * d4 + 1], kk.y, a);
+          a = fmaf(q[4 * d4 + 2], kk.z, a);
+          a = fmaf(q[4 * d4 + 3], kk.w, a);
+        }
+        x = a;
+        if (b_row != nullptr) x += to_f32(b_row[j]);
+      }
+      s[c] = x;
+    }
+    float m_new = m;  // key j0 is in the window, so m_new is finite
+#pragma unroll
+    for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
+    const float alpha = expf(m - m_new);  // first chunk: exp(-inf) = 0
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int c = 0; c < kWinChunk; ++c) {
+      const int j = j0 + c;
+      if (j < n) {
+        const float p = expf(s[c] - m_new);
+        l += p;
+        const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
+#pragma unroll
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 vv = v4[d4];
+          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
+          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+        }
+      }
+    }
+    m = m_new;
+  }
+
+  const float inv = 1.f / l;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] *= inv;
+#pragma unroll
+  for (int c = 0; c < D / V; ++c) RowIO<T>::store(o_row + c * V, acc + c * V);
+}
+
+// Bytes of dynamic shared memory for K and V of p windows.
+inline size_t window_kv_bytes(int p, int n, int d) {
+  return static_cast<size_t>(p) * n * d * 2 * sizeof(float);
+}
+
+// Common argument checks of the C entries.
+inline bool window_launch_ok(int n, int p, int threads) {
+  return n >= 1 && n <= kWinMaxTokens && p >= 1 && threads >= 32 &&
+         threads <= kWinMaxThreads && threads % 32 == 0 && p * n <= threads;
+}
+
+}  // namespace vtt

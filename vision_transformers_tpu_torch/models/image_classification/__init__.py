@@ -1,3 +1,10 @@
+from vision_transformers_tpu_torch.models.image_classification.swin_transformer import (
+    SwinTransformer,
+    SwinTransformerBlock,
+    SwinTransformerBlockV2,
+    SwinTransformerV2,
+)
 from vision_transformers_tpu_torch.models.image_classification.vanilla_vit import ViT
 
-__all__ = ["ViT"]
+__all__ = ["ViT", "SwinTransformer", "SwinTransformerV2",
+           "SwinTransformerBlock", "SwinTransformerBlockV2"]

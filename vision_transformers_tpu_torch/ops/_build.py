@@ -24,7 +24,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("packed_attention", "flash_attention", "dropout_attention")
+KERNELS = ("packed_attention", "flash_attention", "dropout_attention",
+           "window_attention", "window_fused_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -55,6 +56,22 @@ _SIGNATURES = {
             _I, [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
         "dropout_attention_error_string": (ctypes.c_char_p, [_I]),
     },
+    # (qkv, bias, out, g, n, heads, dh, bias_windows, scale, p, threads
+    #  [, passes], is_bf16, stream)
+    "window_attention": {
+        "window_packed_attention_fwd": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]),
+        "window_batched_attention_fwd": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]),
+        "window_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (qkv, bias, out, b, hp, wp, wh, ww, sh, sw, heads, dh, sec,
+    #  bias_windows, scale, p, threads, is_bf16, stream)
+    "window_fused_attention": {
+        fn: (_I, [_P, _P, _P] + [_I] * 11 + [_F, _I, _I, _I, _P])
+        for fn in ("window_fused_slab_attention_fwd",
+                   "window_fused_flat_attention_fwd")
+    } | {"window_fused_attention_error_string": (ctypes.c_char_p, [_I])},
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Attention kernels for Hopper, forward and backward, each beside its plain
 version.
 
-Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Five of
+Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Nine of
 its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 
 - ``packed_flash_attention`` (``csrc/packed_attention.cu``) replaces
@@ -17,6 +17,18 @@ its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   bias its backward is the ``flash_dropout_attention`` backward kernel at
   rate 0; with a bias it is plain PyTorch (dq, dk, dv and dbias), as the JAX
   package computes that case outside any kernel.
+- ``window_packed_attention`` and ``window_batched_attention``
+  (``csrc/window_attention.cu``) replace ``_window_pack_kernel`` and
+  ``_window_batched_kernel``: Swin's per-window attention read in place
+  from the partitioned (G, N, 3·H·dh) projection, with a shared or
+  per-window bias.
+- ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
+  ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
+  (the flat plan): cyclic shift, window partition, attention, reverse and
+  un-shift in one pass over the NHWC projection map. The four window
+  kernels are forward only: on CUDA they raise ``NotImplementedError`` for
+  inputs that require a gradient (their backward, ``_window_pack_bwd_kernel``,
+  is not ported yet); the plain versions differentiate on the CPU.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel or raises: there
@@ -37,7 +49,7 @@ Sq·Sk > 1.5 M).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,7 +67,9 @@ KERNEL_HEAD_DIMS = (16, 32, 64)
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "packed_attention": 0, "flash_attention": 0, "packed_attention_bwd": 0,
-    "dropout_attention_fwd": 0, "dropout_attention_bwd": 0}
+    "dropout_attention_fwd": 0, "dropout_attention_bwd": 0,
+    "window_packed_attention": 0, "window_batched_attention": 0,
+    "window_fused_slab_attention": 0, "window_fused_flat_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -768,3 +782,372 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and bias.
     """
     return _Flash.apply(q, k, v, bias, scale, kv_valid)
+
+
+# ---------------------------------------------------------------------------
+# Window attention (replaces _window_pack_kernel, flash_attention.py:1295,
+# _window_batched_kernel, :1708, _window_fused_flat_kernel, :1997, and
+# _window_fused_kernel, :2056)
+#
+# One function, four kernels: per (window g, head h)
+#   out = softmax(q·kᵀ·scale + bias[g mod nW', h])·v
+# with q, k, v read in place from the packed projection, N <= 128 tokens per
+# window and the bias rounded to the compute dtype. The packed and batched
+# kernels take the partitioned (G, N, 3·H·dh) tensor; the two fused kernels
+# take the NHWC map and fold roll, partition, reverse and un-roll into their
+# addressing.
+#
+# Two facts of the TPU layout are not carried over, on purpose. The TPU
+# kernels pack P = 128/dh windows block-diagonally into one MXU product and
+# tile the bias to the packs (`_pack_window_bias`, with an lcm-periodic
+# pattern when nW' does not divide into packs); here the contract is
+# "window g reads bias row g mod nW'" (windows vary fastest in G), one modulo
+# in the kernel. And the TPU's fused kernels want the q, k, v sections padded
+# to 128 lanes (sec = roundup(H·dh, 128)); here the section stride is an
+# argument and callers pass the unpadded map.
+
+# Tokens per window and head dims the window kernels' contract covers (the
+# conditions of the JAX plans that are about the function, not about VMEM).
+MAX_WINDOW_TOKENS = 128
+# Launch shape limits of the CUDA window kernels: one thread per query row,
+# K and V of the block's windows as fp32 in shared memory.
+_WINDOW_MAX_THREADS = 256
+_WINDOW_MAX_SMEM = 96 * 1024
+_H100_SMS = 132
+
+
+def _window_shape_ok(n: int, dh: int) -> bool:
+    return 0 < dh <= 64 and 128 % dh == 0 and 0 < n <= MAX_WINDOW_TOKENS
+
+
+def _window_block(n: int, dh: int, count: Optional[int] = None
+                  ) -> Tuple[int, int]:
+    """(windows per pass, threads per block) of a window kernel: one thread
+    per query row, so the pass's P·N rows should fill whole warps. Without
+    ``count`` the cheapest P per window wins; with it (the slab kernel's
+    windows per row) the fewest thread slots over ceil(count / P) passes."""
+    best = None
+    for p in range(1, max(1, _WINDOW_MAX_THREADS // n) + 1):
+        if p > 1 and p * n * dh * 8 > _WINDOW_MAX_SMEM:
+            break
+        if count is not None and p > count:
+            break
+        threads = -(-p * n // 32) * 32
+        cost = (threads / p if count is None
+                else -(-count // p) * threads)
+        if best is None or cost <= best[0]:
+            best = (cost, p, threads)
+    return best[1], best[2]
+
+
+def window_pack_plan(g: int, n: int, heads: int, dh: int, bias_windows: int,
+                     itemsize: int = 2):
+    """(windows per block, threads) for ``window_packed_attention``, or None
+    if the shape is outside the function's contract (dh <= 64 dividing 128,
+    N <= 128). ``bias_windows`` (1 or n_win) need not divide anything. The
+    JAX plan's ``g % p`` and VMEM conditions are the TPU's and are dropped:
+    the kernel bounds-checks a ragged last block."""
+    if not _window_shape_ok(n, dh) or g < 1:
+        return None
+    return _window_block(n, dh)
+
+
+def window_batched_plan(g: int, n: int, heads: int, dh: int,
+                        bias_windows: int, itemsize: int = 2):
+    """(windows per pass, threads, passes per block) for
+    ``window_batched_attention``, or None for N > 128. A block stages its
+    head's shared bias once and walks ``passes`` groups of windows; fewer
+    passes when G·H is too small to fill the card otherwise. The JAX plan's
+    ``g % blk`` condition is the TPU's and is dropped."""
+    if not 0 < n <= MAX_WINDOW_TOKENS or g < 1:
+        return None
+    p, threads = _window_block(n, dh)
+    passes = max(1, min(8, (g * heads) // (p * _H100_SMS * 4)))
+    return p, threads, passes
+
+
+def _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) -> bool:
+    if not _window_shape_ok(wh * ww, dh):
+        return False
+    if hp % wh or wp % ww or hp < wh or wp < ww:
+        return False
+    return bias_windows in (1, (hp // wh) * (wp // ww))
+
+
+def window_fused_plan(b: int, hp: int, wp: int, wh: int, ww: int, heads: int,
+                      dh: int, bias_windows: int, itemsize: int = 2):
+    """("slab", windows per pass, threads) for the slab kernel of
+    ``fused_window_attention`` (one block per image, window row and head),
+    or None.
+
+    ``wp % 8 == 0`` is kept from the JAX plan although it is a fact of the
+    TPU's DMA (a sliced copy needs 8-aligned rows): it is the rule that
+    gives the slab and the flat kernel the shapes they have in the
+    reference (Swin-T @224: stage 1 here, stages 2-3 flat)."""
+    if not _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) or wp % 8:
+        return None
+    return ("slab",) + _window_block(wh * ww, dh, count=wp // ww)
+
+
+def window_fused_flat_plan(b: int, hp: int, wp: int, wh: int, ww: int,
+                           heads: int, dh: int, bias_windows: int,
+                           itemsize: int = 2):
+    """("flat", windows per block, threads) for the flat kernel of
+    ``fused_window_attention`` (blocks of consecutive windows over the flat
+    (B·Hp·Wp, 3·sec) view, any width), or None."""
+    if not _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows):
+        return None
+    return ("flat",) + _window_block(wh * ww, dh)
+
+
+def _window_dims(qkv: torch.Tensor, heads: int, scale: Optional[float]):
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(
+            f"qkv must be (G, N, 3·H·dh) with H={heads}, got {tuple(qkv.shape)}")
+    g, n, three_hd = qkv.shape
+    hd = three_hd // 3
+    dh = hd // heads
+    return g, n, hd, dh, dh ** -0.5 if scale is None else float(scale)
+
+
+def _window_bias(bias: Optional[torch.Tensor], g: int, heads: int, n: int,
+                 dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """(nW', H, N, N) rounded to the compute dtype, as every window kernel
+    holds it; nW' must divide G (window g reads row g mod nW')."""
+    if bias is None:
+        return None
+    if bias.ndim != 4 or bias.shape[1:] != (heads, n, n) \
+            or g % bias.shape[0]:
+        raise ValueError(
+            f"bias must be (nW', {heads}, {n}, {n}) with nW' dividing G={g}, "
+            f"got {tuple(bias.shape)}")
+    return bias.to(dtype).contiguous()
+
+
+def window_attention_reference(qkv: torch.Tensor,
+                               bias: Optional[torch.Tensor], heads: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the packed and batched window kernels
+    (``_window_pack_ref``, flash_attention.py:1405): fp32 scores, the bias
+    rounded to qkv's dtype, probabilities normalised and then rounded to the
+    value dtype before PV. (G, N, 3·H·dh) → (G, N, H·dh)."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    bias = _window_bias(bias, g, heads, n, qkv.dtype)
+    q, k, v = (t.reshape(g, n, heads, dh).transpose(1, 2)
+               for t in qkv.split(hd, dim=-1))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        nw = bias.shape[0]
+        s = (s.reshape(g // nw, nw, heads, n, n) + bias.float()).reshape(
+            g, heads, n, n)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.matmul(pr.to(v.dtype).float(), v.float())
+    return o.transpose(1, 2).reshape(g, n, hd).to(qkv.dtype)
+
+
+def _fused_dims(qkv_map, heads, window, shift, dh, scale):
+    if qkv_map.ndim != 4 or qkv_map.shape[-1] % 3:
+        raise ValueError("qkv_map must be (B, Hp, Wp, 3·sec), got "
+                         f"{tuple(qkv_map.shape)}")
+    b, hp, wp, three_sec = qkv_map.shape
+    sec = three_sec // 3
+    wh, ww = (int(w) for w in window)
+    sh, sw = (int(s) for s in shift)
+    if dh is None:
+        dh = sec // heads
+    hd = heads * dh
+    if hd > sec or hd < 1:
+        raise ValueError(f"H·dh = {hd} does not fit the section stride {sec}")
+    if hp % wh or wp % ww or not (0 <= sh < hp and 0 <= sw < wp):
+        raise ValueError(
+            f"map {hp}x{wp} must be a multiple of the window {wh}x{ww} and "
+            f"the shift ({sh}, {sw}) inside it")
+    scale = dh ** -0.5 if scale is None else float(scale)
+    return b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale
+
+
+def window_fused_reference(qkv_map: torch.Tensor,
+                           bias: Optional[torch.Tensor], heads: int,
+                           window: Sequence[int], shift: Sequence[int],
+                           scale: Optional[float] = None,
+                           hd: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernels (``_window_fused_ref``,
+    flash_attention.py:2263): the explicit roll(−shift) → partition →
+    ``window_attention_reference`` → reverse → roll(+shift) chain on the
+    (B, Hp, Wp, 3·sec) map. ``hd``: the real H·dh when the sections are
+    padded (sec = map channels / 3); the output is (B, Hp, Wp, sec) with
+    zeros in the pad lanes."""
+    dh = None if hd is None else hd // heads
+    b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale = _fused_dims(
+        qkv_map, heads, window, shift, dh, scale)
+    x = qkv_map
+    if hd != sec:
+        x = torch.cat([x[..., s * sec:s * sec + hd] for s in range(3)], dim=-1)
+    if sh or sw:
+        x = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2))
+    x = x.reshape(b, hp // wh, wh, wp // ww, ww, 3 * hd).permute(
+        0, 1, 3, 2, 4, 5).reshape(-1, wh * ww, 3 * hd)
+    o = window_attention_reference(x, bias, heads, scale)
+    o = o.reshape(b, hp // wh, wp // ww, wh, ww, hd).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, hp, wp, hd)
+    if sh or sw:
+        o = torch.roll(o, shifts=(sh, sw), dims=(1, 2))
+    if hd != sec:
+        o = torch.nn.functional.pad(o, (0, sec - hd))
+    return o
+
+
+def _check_window_operands(name: str, qkv: torch.Tensor,
+                           bias: Optional[torch.Tensor], dh: int,
+                           sec: int) -> None:
+    """What the CUDA window kernels take: see ``_check_cuda_operand``; rows
+    are read as 16-byte vectors; and no gradient (forward only)."""
+    if torch.is_grad_enabled() and (
+            qkv.requires_grad or (bias is not None and bias.requires_grad)):
+        raise NotImplementedError(
+            f"{name} on CUDA is forward only: its backward "
+            "(_window_pack_bwd_kernel) is not ported yet (ROADMAP.md, queue "
+            "2, row 10); call it under torch.no_grad() or on the CPU")
+    _check_cuda_operand("qkv", qkv, qkv.dtype, dh)
+    if qkv.data_ptr() % 16 or (sec * qkv.element_size()) % 16:
+        raise ValueError(
+            f"{name}: qkv must be 16-byte aligned with sections of a "
+            "multiple of 16 bytes")
+    if bias is not None:
+        _check_same_device(qkv, bias=bias)
+
+
+def _window_launch(lib_name: str, fn: str, counter: str, qkv: torch.Tensor,
+                   bias: Optional[torch.Tensor], out: torch.Tensor,
+                   *args) -> torch.Tensor:
+    from vision_transformers_tpu_torch.ops import _build
+
+    lib = _build.load(lib_name)
+    with torch.cuda.device(qkv.device):  # launch on the tensor's card
+        rc = getattr(lib, fn)(
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), *args, int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(lib, lib_name, rc)
+    LAUNCHES[counter] += 1
+    return out
+
+
+def window_packed_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                            heads: int, scale: Optional[float] = None,
+                            plan=None) -> torch.Tensor:
+    """Multi-window attention on the partitioned projection output.
+
+    qkv: (G, N, 3·H·dh) with G = batch·n_win (windows fastest); bias:
+    (1 | nW', H, N, N) combined relative-position (+ shift or pad mask) bias
+    or None; window g reads bias row g mod nW'. ``plan`` from
+    ``window_pack_plan`` (computed if omitted). Returns (G, N, H·dh).
+
+    The CUDA kernel gives a block as many windows of one head as fill its
+    threads with query rows (one thread per row), each window reading its
+    own bias row from device memory."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    if plan is None:
+        plan = window_pack_plan(g, n, heads, dh,
+                                1 if bias is None else bias.shape[0],
+                                qkv.element_size())
+    if plan is None:
+        raise ValueError("shape not supported; check window_pack_plan first")
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, bias, heads, scale)
+    _check_window_operands("window_packed_attention", qkv, bias, dh, hd)
+    bias = _window_bias(bias, g, heads, n, qkv.dtype)
+    out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
+    p, threads = plan
+    return _window_launch(
+        "window_attention", "window_packed_attention_fwd",
+        "window_packed_attention", qkv, bias, out, g, n, heads, dh,
+        0 if bias is None else bias.shape[0], scale, p, threads)
+
+
+def window_batched_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                             heads: int, scale: Optional[float] = None,
+                             blk=None) -> torch.Tensor:
+    """Per-head batched window attention: the same function and shapes as
+    ``window_packed_attention``, for the case the router sends it (a bias
+    shared by all windows). ``blk`` from ``window_batched_plan`` (computed if
+    omitted).
+
+    The CUDA kernel's block belongs to one head: it stages that head's
+    shared (N, N) bias in shared memory once and reuses it over several
+    groups of windows. A per-window bias (nW' > 1) is read from device
+    memory instead."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    if blk is None:
+        blk = window_batched_plan(g, n, heads, dh,
+                                  1 if bias is None else bias.shape[0],
+                                  qkv.element_size())
+    if blk is None:
+        raise ValueError("shape not supported; check window_batched_plan")
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, bias, heads, scale)
+    _check_window_operands("window_batched_attention", qkv, bias, dh, hd)
+    bias = _window_bias(bias, g, heads, n, qkv.dtype)
+    out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
+    p, threads, passes = blk
+    return _window_launch(
+        "window_attention", "window_batched_attention_fwd",
+        "window_batched_attention", qkv, bias, out, g, n, heads, dh,
+        0 if bias is None else bias.shape[0], scale, p, threads, passes)
+
+
+def fused_window_attention(qkv_map: torch.Tensor,
+                           bias: Optional[torch.Tensor], heads: int,
+                           window: Sequence[int], shift: Sequence[int],
+                           dh: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           plan=None, *,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shifted-window attention straight off the dense NHWC projection map.
+
+    qkv_map: (B, Hp, Wp, 3·sec), [q | k | v] sections of stride sec >= H·dh
+    (the port passes the unpadded map, sec = H·dh; ``dh`` says otherwise),
+    padded to window multiples but NOT rolled. bias: (1 | nr·nw, H, N, N) or
+    None. Returns (B, Hp, Wp, sec) in the un-rolled coordinates.
+
+    Equals roll(−shift) → window_partition → window attention →
+    window_reverse → roll(+shift) (``window_fused_reference``), but no
+    rolled, partitioned or reversed tensor is made: window (R, c) reads rows
+    (R·wh + r + sh) mod Hp and columns (c·ww + j + sw) mod Wp of the map
+    and writes its outputs to the same positions. ``plan`` from
+    ``window_fused_plan`` (the slab kernel: one block per image, window row
+    and head; computed if omitted) or ``window_fused_flat_plan`` (the flat
+    kernel: blocks of consecutive windows of the flat view, any width).
+    ``out`` (CUDA only): a contiguous (B, Hp, Wp, sec) tensor to write into
+    instead of a new one; a check can pre-fill it to see that every element
+    of [..., :H·dh] is written."""
+    b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale = _fused_dims(
+        qkv_map, heads, window, shift, dh, scale)
+    n = wh * ww
+    if plan is None:
+        plan = window_fused_plan(b, hp, wp, wh, ww, heads, dh,
+                                 1 if bias is None else bias.shape[0],
+                                 qkv_map.element_size())
+    if plan is None:
+        raise ValueError("shape not supported; check window_fused_plan")
+    if qkv_map.device.type == "cpu":
+        return window_fused_reference(qkv_map, bias, heads, (wh, ww),
+                                      (sh, sw), scale, hd)
+    name = f"fused_window_attention ({plan[0]})"
+    _check_window_operands(name, qkv_map, bias, dh, sec)
+    nwin = (hp // wh) * (wp // ww)
+    bias = _window_bias(bias, nwin, heads, n, qkv_map.dtype)
+    if out is None:
+        alloc = torch.empty if sec == hd else torch.zeros  # zero pad lanes
+        out = alloc(b, hp, wp, sec, dtype=qkv_map.dtype,
+                    device=qkv_map.device)
+    elif out.shape != (b, hp, wp, sec) or out.dtype != qkv_map.dtype \
+            or out.device != qkv_map.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {(b, hp, wp, sec)} "
+                         f"{qkv_map.dtype} tensor on {qkv_map.device}")
+    kind, p, threads = plan
+    return _window_launch(
+        "window_fused_attention", f"window_fused_{kind}_attention_fwd",
+        f"window_fused_{kind}_attention", qkv_map, bias, out, b, hp, wp, wh,
+        ww, sh, sw, heads, dh, sec, 0 if bias is None else bias.shape[0],
+        scale, p, threads)

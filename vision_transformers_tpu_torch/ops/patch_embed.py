@@ -10,7 +10,7 @@ both packages.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -19,15 +19,19 @@ from vision_transformers_tpu_torch.core.initializers import conv_patch_
 from vision_transformers_tpu_torch.ops.layers import Dense
 
 
-def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
-    """(B, H, W, C) → (B, H/p · W/p, p·p·C) non-overlapping patches."""
+def patchify(images: torch.Tensor,
+             patch_size: Union[int, Sequence[int]]) -> torch.Tensor:
+    """(B, H, W, C) → (B, H/ph · W/pw, ph·pw·C) non-overlapping patches;
+    ``patch_size`` is p or (ph, pw)."""
     b, h, w, c = images.shape
-    p = patch_size
-    if h % p or w % p:
-        raise ValueError(f"image {h}x{w} indivisible by patch size {p}")
-    x = images.reshape(b, h // p, p, w // p, p, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)  # (B, nh, nw, p, p, C)
-    return x.reshape(b, (h // p) * (w // p), p * p * c)
+    ph, pw = ((patch_size, patch_size) if isinstance(patch_size, int)
+              else patch_size)
+    if h % ph or w % pw:
+        raise ValueError(
+            f"image {h}x{w} indivisible by patch size {ph}x{pw}")
+    x = images.reshape(b, h // ph, ph, w // pw, pw, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # (B, nh, nw, ph, pw, C)
+    return x.reshape(b, (h // ph) * (w // pw), ph * pw * c)
 
 
 class PatchEmbed(nn.Module):

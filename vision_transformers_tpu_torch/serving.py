@@ -11,6 +11,7 @@ model from this package's registry. Requests are still padded up to a fixed
 bucket (or chunked through the largest one), so the card only ever sees the
 exported batch sizes.
 
+The registry holds ``ViT``, ``SwinTransformer`` and ``SwinTransformerV2``.
 Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
 through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
 serves through the kernels' plain versions, for tests.
@@ -35,12 +36,17 @@ from vision_transformers_tpu_torch.core.dtypes import (
     dtype_name,
     resolve_device,
 )
-from vision_transformers_tpu_torch.models.image_classification import ViT
+from vision_transformers_tpu_torch.models.image_classification import (
+    SwinTransformer,
+    SwinTransformerV2,
+    ViT,
+)
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "weights.pt"
 _FORMAT_VERSION = 1
-_MODELS = {"ViT": ViT}
+_MODELS = {"ViT": ViT, "SwinTransformer": SwinTransformer,
+           "SwinTransformerV2": SwinTransformerV2}
 
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],
