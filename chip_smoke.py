@@ -20,6 +20,13 @@ exit, and without the final result line:
    32 and of a CIFAR window, with a shared and a per-window bias; the two
    fused ones with and without a shift into an output pre-filled with NaN
    (every element must be written), and against each other on one map.
+   The window backward kernel at the same stage shapes (shared, per-window
+   and no bias, with and without the bias gradient, dh 16/32/64) against
+   its plain version and, in fp32, against autograd of the plain forward,
+   into a dqkv pre-filled with NaN, twice for equal bits; gradients through
+   the two fused kernels' autograd function against autograd of their plain
+   version; the single-pass Adam kernel over leaves on both sides of 65 536
+   elements against its plain version, in place.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -42,6 +49,19 @@ exit, and without the final result line:
    backward and optimizer; one step each with and without dropout of the
    2-layer model at 512 px (the split-head kernels); and fp32 gradients of
    a 2-layer model on the card against the CPU run of the same weights.
+   Then the windowed models' training: ``swint_224_imagenet`` and
+   ``swinv2t_224_imagenet`` (full width and depth, bf16, batch 32) through
+   ``make_train_state`` and ``train_step_fn`` with
+   ``make_optimizer("adam", fused=True)`` and with ``fused=False``: per step
+   the 12 forward window launches of phase 5, 12 ``window_attention_bwd``
+   launches, one ``fused_adam`` launch per large leaf, and no other kernel
+   of the table; the loss of the batch in eval mode must fall; the step's
+   split and a profile; fp32 gradients of narrow 2-stage Swin and SwinV2
+   models on the card against the CPU; ``train_model`` on
+   ``swin_tiny_cifar100``. ``pvt_tiny224_imagenet`` and
+   ``twins_svts224_imagenet`` served in bf16 (buckets 1 and 32, logits
+   against the CPU) and trained for a few steps, with the kernels they
+   launch and Twins' window routes.
 7. Times: serving latency per bucket, and each kernel beside its bound, its
    plain version and the PyTorch library call for the same function.
 
@@ -95,6 +115,9 @@ LOGIT_TOL_BF16_REL = 5e-2
 # Swin logits of an fp32 model on the card against the CPU run: summation
 # order through 12 blocks on logits of magnitude ~1.
 SWIN_LOGIT_TOL_FP32 = 1e-4
+# The single-pass Adam kernel against its plain version after 3 steps: both
+# round every operation to fp32 in the same order.
+ADAM_TOL = 1e-6
 # Window kernel launches per forward that the routing of ops/windows.py
 # implies for the 12 blocks of each preset (every other counter stays 0).
 SWIN_LAUNCHES_PER_FORWARD = {
@@ -104,6 +127,19 @@ SWIN_LAUNCHES_PER_FORWARD = {
     "swinv2t_224_imagenet": {"window_batched_attention": 4,
                              "window_packed_attention": 8},
 }
+
+
+# Twins-SVT-S @224: 9 LSA blocks (stages 1, 2, 4 batched: 64, 16 and 1
+# windows; stage 3's 4 windows fused flat, 14 % 8 != 0) and 9 GSA blocks
+# (split-head kernel); PVT-Tiny: 8 SRA blocks.
+HIER_LAUNCHES_PER_FORWARD = {
+    "pvt_tiny224_imagenet": {"flash_attention": 8},
+    "twins_svts224_imagenet": {"flash_attention": 9,
+                               "window_batched_attention": 4,
+                               "window_fused_flat_attention": 5},
+}
+TWINS_ROUTES = (["batched", "batched"] + ["fused_flat"] * 5
+                + ["batched"] * 2)
 
 
 def log(msg: str) -> None:
@@ -122,7 +158,8 @@ def max_err(a, b) -> float:
 def seeded_state_dict(model, seed: int):
     """Every parameter from one numpy stream: Dense weights with xavier
     scale, LayerNorm scales 1 + N(0, 0.1), SwinV2's ``logit_scale``
-    log 10 + N(0, 0.1), everything else N(0, 0.02)."""
+    log 10 + N(0, 0.1), Twins' depthwise conv kernels N(0, 1/9),
+    everything else N(0, 0.02)."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -133,6 +170,8 @@ def seeded_state_dict(model, seed: int):
             a = np.log(10.0) + 0.1 * rng.standard_normal(shape)
         elif name.endswith("weight") and len(shape) == 2:
             a = rng.standard_normal(shape) * (2.0 / sum(shape)) ** 0.5
+        elif name.endswith("weight") and len(shape) == 4:  # depthwise 3x3
+            a = rng.standard_normal(shape) / 3.0
         elif name.endswith("weight"):
             a = 1.0 + 0.1 * rng.standard_normal(shape)
         else:
@@ -230,14 +269,18 @@ def main() -> int:
 
     from vision_transformers_tpu_torch import serving
     from vision_transformers_tpu_torch.models.image_classification import (
+        PVT,
         SwinTransformer,
         SwinTransformerV2,
+        TwinSVT,
         ViT,
     )
     from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.ops import fused_adam as fadam
     from vision_transformers_tpu_torch.ops import windows
     from vision_transformers_tpu_torch.training import trainer
+    from vision_transformers_tpu_torch.training.optimizers import make_optimizer
     from vision_transformers_tpu_torch.utils.args import get_args
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -537,14 +580,124 @@ def main() -> int:
                     dtype)
         check_fused("cifar B64 16x16 win4 H3", 64, 16, 4, 2, 3, 32, dtype)
 
-    qg = torch.zeros(4, 49, 3 * 3 * 32, device=dev, requires_grad=True)
-    try:
-        fa.window_packed_attention(qg, None, 3)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised, "a window kernel asked for a gradient on the card raises")
-    del qg
+    # the window backward kernel (the four forward kernels share it)
+    def check_window_bwd(label, g, n, h, dh, nwp, dtype):
+        name = str(dtype).removeprefix("torch.")
+        qkv, bias = window_inputs(g, n, h, dh, nwp, dtype)
+        do = randn(34, g, n, h * dh, dtype=dtype)
+        ref, ref_db = fa.window_attention_bwd_reference(qkv, bias, do, h)
+        filled = torch.full_like(qkv, float("nan"))
+        got, got_db = fa.window_attention_bwd(qkv, bias, do, h, dqkv=filled)
+        again, again_db = fa.window_attention_bwd(qkv, bias, do, h)
+        torch.cuda.synchronize()
+        what = f"window_attention_bwd {label} {name}"
+        require(got is filled and not bool(torch.isnan(got.float()).any()),
+                f"{what}: every element of dqkv is written (none of the NaN "
+                "fill is left)")
+        e, tol = grad_err(f"{what} dqkv", got, ref, name)
+        require(torch.equal(got, again), f"{what}: two runs give equal dqkv")
+        msg = f"{what}: max|dqkv-plain| {e:.3e} (tol {tol:.3e})"
+        errs[("window_attention_bwd", label, name)] = e
+        if bias is None:
+            require(got_db is None, f"{what}: no bias, no dbias")
+        else:
+            # relative to its own scale: it sums G/nW' windows
+            eb, tolb = grad_err(f"{what} dbias", got_db, ref_db, name)
+            require(got_db.dtype == bias.dtype and got_db.shape == bias.shape
+                    and torch.equal(got_db, again_db),
+                    f"{what}: dbias as the bias, equal from run to run")
+            lean, none = fa.window_attention_bwd(qkv, bias, do, h,
+                                                 need_dbias=False)
+            require(none is None and torch.equal(lean, got),
+                    f"{what}: the same dqkv without the bias gradient")
+            msg += f", max|dbias-plain| {eb:.3e} (tol {tolb:.3e})"
+        if dtype == fp32:  # the second oracle: autograd of the plain forward
+            leaves = [qkv.clone().requires_grad_()] + (
+                [] if bias is None else [bias.clone().requires_grad_()])
+            auto = torch.autograd.grad(fa.window_attention_reference(
+                leaves[0], None if bias is None else leaves[1], h), leaves, do)
+            ea = max(grad_err(f"{what} against autograd", a, b, name)[0]
+                     for a, b in zip([got, got_db], auto))
+            msg += f", against autograd of the plain forward {ea:.3e}"
+        log(msg + ", NaN fill overwritten, rerun bit-equal")
+
+    def check_fused_grad(label, b, hw, win, shift, h, dh):
+        """fp32 gradients through the fused wrappers' autograd function
+        against autograd of their plain version."""
+        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, shift > 0, fp32)
+        do = randn(35, b, hw, hw, h * dh, dtype=fp32)
+        window, sh = (win, win), (shift, shift)
+        x, bb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        ref = torch.autograd.grad(
+            fa.window_fused_reference(x, bb, h, window, sh), (x, bb), do)
+        for kind, plan in fused_plans(b, hw, win, h, dh, nwp).items():
+            x, bb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+            before = fa.LAUNCHES["window_attention_bwd"]
+            got = torch.autograd.grad(fa.fused_window_attention(
+                x, bb, h, window, sh, plan=plan), (x, bb), do)
+            require(fa.LAUNCHES["window_attention_bwd"] == before + 1,
+                    f"fused {kind} {label}: its backward launches the kernel")
+            e = max(grad_err(f"fused {kind} {label} shift {shift} gradient",
+                             a, r, "float32")[0] for a, r in zip(got, ref))
+            log(f"fused_window_attention ({kind}) {label} shift {shift} fp32: "
+                f"max|grad - autograd of plain| {e:.3e} (d map and dbias)")
+
+    for dtype in (bf16, fp32):
+        check_window_bwd("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1,
+                         dtype)
+        check_window_bwd("swin-t s1 G2048 N49 H3 nW'64", 2048, 49, 3, 32, 64,
+                         dtype)
+        check_window_bwd("swin-t s2 G512 N49 H6 nW'16", 512, 49, 6, 32, 16,
+                         dtype)
+        check_window_bwd("swin-t s3 G128 N49 H12 nW'4", 128, 49, 12, 32, 4,
+                         dtype)
+        check_window_bwd("swin-t s4 G32 N49 H24 shared", 32, 49, 24, 32, 1,
+                         dtype)
+        check_window_bwd("swinv2-t s1 G1568 N64 H3 nW'49", 1568, 64, 3, 32,
+                         49, dtype)
+        check_window_bwd("cifar G1024 N16 H3 nW'16", 1024, 16, 3, 32, 16,
+                         dtype)
+        check_window_bwd("no bias G33 N49 H3", 33, 49, 3, 32, 0, dtype)
+        check_window_bwd("dh16 G8 N49 H2 shared", 8, 49, 2, 16, 1, dtype)
+        check_window_bwd("dh64 G8 N49 H2 nW'4", 8, 49, 2, 64, 4, dtype)
+    for shift in (3, 0):
+        check_fused_grad("swin-t s1 B8 56x56 H3", 8, 56, 7, shift, 3, 32)
+        check_fused_grad("swin-t s2 B8 28x28 H6", 8, 28, 7, shift, 6, 32)
+
+    # the single-pass Adam kernel: leaves on both sides of 65 536 elements,
+    # one with a ragged last vector, 3 steps, with and without weight decay
+    adam_shapes = [(300, 300), (65536,), (65539,), (768, 3072), (1000,),
+                   (7, 9)]
+    n_large = sum(int(np.prod(sh_)) >= fadam._MIN_FUSED_SIZE
+                  for sh_ in adam_shapes)
+    for wd in (0.0, 0.05):
+        leaves = [[randn(36 + i, *sh_, dtype=fp32) * sc
+                   for i, sh_ in enumerate(adam_shapes)]
+                  for sc in (1.0, 0.0, 0.0)]
+        oracle = [[t.clone() for t in group] for group in leaves]
+        ptrs = [t.data_ptr() for group in leaves for t in group]
+        fa.reset_launch_counts()
+        for t_step in range(1, 4):
+            grads = [randn(50 + 10 * t_step + i, *sh_, dtype=fp32)
+                     for i, sh_ in enumerate(adam_shapes)]
+            fadam.fused_adam_update(*leaves, grads, t_step, 1e-3,
+                                    weight_decay=wd)
+            sc = fadam.adam_scalars(t_step, 1e-3, weight_decay=wd)
+            for leaf in zip(*oracle, grads):
+                fadam.fused_adam_reference(*leaf, sc)
+        torch.cuda.synchronize()
+        e = max(max_err(a, r) for got, want in zip(leaves, oracle)
+                for a, r in zip(got, want))
+        log(f"fused_adam weight decay {wd}: 3 steps over {len(adam_shapes)} "
+            f"leaves ({n_large} through the kernel), max|p, m, v - plain| "
+            f"{e:.3e} (tol {ADAM_TOL}), in place")
+        require(e <= ADAM_TOL, "fused_adam against its plain version")
+        require(fa.LAUNCHES["fused_adam"] == 3 * n_large,
+                "fused_adam: one launch per large leaf and step")
+        require(ptrs == [t.data_ptr() for group in leaves for t in group],
+                "fused_adam updates p, m and v in place")
+        errs[("fused_adam", wd)] = e
+    del leaves, oracle, grads
 
     # ---- 3. main path: ViT-B/16 @224 served in bf16 ----------------------
     args = get_args("vitb16_224_imagenet")
@@ -654,7 +807,7 @@ def main() -> int:
     del split_models, cpu_wide, cpu_model
 
     # ---- 5. window path: Swin-T and SwinV2-T served in bf16 ---------------
-    swin = {}
+    swin, swin_weights = {}, {}
     for preset, cls in (("swint_224_imagenet", SwinTransformer),
                         ("swinv2t_224_imagenet", SwinTransformerV2)):
         sargs = get_args(preset)
@@ -734,6 +887,7 @@ def main() -> int:
                 and e16 <= LOGIT_TOL_BF16_REL * sscale,
                 f"{preset}: logits against the CPU run of the same weights")
         swin[preset] = (sclf, total, forwards[0])
+        swin_weights[preset] = sweights
 
     # ---- 6. training paths ------------------------------------------------
     # 6a. train_model on vit_tiny_cifar100: full size, fp32, dropout 0.1
@@ -903,6 +1057,240 @@ def main() -> int:
             "card gradients against the CPU run of the same weights")
     del grads
 
+    # 6e. the windowed training path: Swin-T and SwinV2-T, bf16, batch 32
+    def step_split(model, state, x, y, w, n=5):
+        """Host ms per step and device ms of forward, backward, optimizer."""
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(n)]
+        model.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e0, e1, e2, e3 in ev:
+            e0.record()
+            loss = trainer.cross_entropy_with_weights(model(x), y, w)
+            e1.record()
+            state.optimizer.zero_grad()
+            loss.backward()
+            e2.record()
+            state.optimizer.step()
+            e3.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n * 1e3
+        return (host, *(float(np.mean([e[i].elapsed_time(e[i + 1])
+                                       for e in ev])) for i in range(3)))
+
+    def log_profile(what, fn, top=12):
+        wall, busy, count, ranked = device_profile(fn, top=top)
+        if busy is None:
+            log(f"profile {what}: the profiler saw no device activity")
+            return
+        log(f"profile {what}: wall {wall:.3f} ms (profiler on), device busy "
+            f"{busy:.3f} ms in {count} activities, idle share "
+            f"{1 - busy / wall:.3f}")
+        for name, ms, n in ranked:
+            log(f"  {ms:8.3f} ms {n:4d}x {name}")
+
+    def train_phase(preset, model, weights, x, y, w, want_fwd, want_bwd):
+        """3 steps with the fused and 3 with the unfused optimizer from the
+        same weights: launches per step, the batch's eval loss before and
+        after, the step's split. Returns (launches, times by optimizer)."""
+        n_big = sum(p.numel() >= fadam._MIN_FUSED_SIZE
+                    for p in model.parameters())
+        evaluate = trainer.eval_step_fn(model)
+        launches, times = {}, {}
+        for fused in (True, False):
+            model.load_state_dict(weights)
+            state = trainer.make_train_state(
+                model, tx=make_optimizer("adam", 1e-4, fused=fused))
+            step = trainer.train_step_fn(model)
+            before = (evaluate(model, x, y, w)[0] / 32).item()
+            model.dropout_generator.manual_seed(0)
+            fa.reset_launch_counts()
+            losses = []
+            for _ in range(3):
+                state, loss_n, _, n = step(state, x, y, w)
+                losses.append((loss_n / n).item())
+            torch.cuda.synchronize()
+            got = {k: v for k, v in fa.LAUNCHES.items() if v}
+            after = (evaluate(model, x, y, w)[0] / 32).item()
+            want = {k: 3 * v for k, v in {**want_fwd, **want_bwd}.items()}
+            if fused:
+                want["fused_adam"] = 3 * n_big
+            log(f"{preset} bf16 batch 32, 3 Adam steps (fused={fused}) on one "
+                f"batch: train-mode loss {[round(v, 4) for v in losses]}, "
+                f"eval-mode loss of the batch {before:.4f} -> {after:.4f}, "
+                f"launches {got}")
+            require(np.isfinite(losses).all() and np.isfinite(after)
+                    and after < before,
+                    f"{preset} fused={fused}: finite losses, and the batch's "
+                    "eval loss falls over 3 steps")
+            require(got == want, f"{preset} fused={fused}: per step {want_fwd} "
+                    f"forward, {want_bwd} backward"
+                    + (f", {n_big} fused_adam" if fused else "")
+                    + f" and no other kernel; got {got}")
+            require(all(bool(torch.isfinite(p).all())
+                        for p in model.parameters()),
+                    f"{preset} fused={fused}: finite parameters")
+            launches[fused] = got
+            times[fused] = step_split(model, state, x, y, w)
+            host, f_ms, b_ms, o_ms = times[fused]
+            log(f"{preset} bf16 train step, batch 32, fused={fused}: "
+                f"{host:.3f} ms per step by the host clock "
+                f"({32 / host * 1e3:.1f} images/s); device time forward "
+                f"{f_ms:.3f} ms, backward {b_ms:.3f} ms, optimizer "
+                f"{o_ms:.3f} ms ({n_big} large leaves of "
+                f"{sum(1 for _ in model.parameters())})")
+            if fused:
+                def one_step(state=state):
+                    loss = trainer.cross_entropy_with_weights(model(x), y, w)
+                    state.optimizer.zero_grad()
+                    loss.backward()
+                    state.optimizer.step()
+                model.train()
+                log_profile(f"{preset} train step (fused Adam)", one_step)
+        return launches, times
+
+    xb = torch.from_numpy(images[:32]).to(dev)
+    yb = torch.from_numpy(rng.randint(0, 1000, 32)).to(dev)
+    wb = torch.ones(32, device=dev)
+    bwd12 = {"window_attention_bwd": 12}
+    swin_train = {}
+    for preset, cls in (("swint_224_imagenet", SwinTransformer),
+                        ("swinv2t_224_imagenet", SwinTransformerV2)):
+        smodel = cls(**get_args(preset), dtype="bfloat16")
+        swin_train[preset] = train_phase(
+            preset, smodel, swin_weights[preset], xb, yb, wb,
+            SWIN_LAUNCHES_PER_FORWARD[preset], bwd12)
+        if preset == "swint_224_imagenet":
+            adam_model = smodel  # its leaves time the optimizers in phase 7
+        del smodel
+
+    # fp32 gradients of narrow 2-stage models, card against CPU (plain
+    # versions); stochastic depth 0: its masks differ between devices
+    narrow = dict(patch_size=[4, 4], embed_dim=32, depths=[2, 2],
+                  num_heads=[1, 2], window_size=[7, 7], num_classes=10,
+                  stochastic_depth_prob=0.0)
+    xn = torch.from_numpy(rng.standard_normal((2, 56, 56, 3))
+                          .astype(np.float32))
+    yn = torch.tensor([3, 7])
+    for cls in (SwinTransformer, SwinTransformerV2):
+        sd = seeded_state_dict(cls(**narrow, device="cpu"), seed=6)
+        grads = {}
+        for device in ("cpu", "cuda"):
+            m = cls(**narrow, device=device)
+            m.load_state_dict(sd)
+            m.train()
+            fa.reset_launch_counts()
+            loss = trainer.cross_entropy_with_weights(
+                m(xn.to(device)), yn.to(device), torch.ones(2, device=device))
+            loss.backward()
+            grads[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                           for n, p in m.named_parameters()})
+            if device == "cuda":
+                require(fa.LAUNCHES["window_attention_bwd"] == 4,
+                        "card gradients went through the window backward")
+        g_ref = max(g.abs().max().item() for g in grads["cpu"][1].values())
+        e_grad = max(max_err(grads["cuda"][1][n], g)
+                     for n, g in grads["cpu"][1].items())
+        log(f"fp32 gradients of a 2-stage {cls.__name__}, card vs CPU: loss "
+            f"{grads['cuda'][0]:.6f} vs {grads['cpu'][0]:.6f}, max|dgrad| "
+            f"{e_grad:.3e} (max|ref| {g_ref:.3e}, tol {MODEL_GRAD_TOL} x "
+            f"max(1, max|ref|))")
+        require(abs(grads["cuda"][0] - grads["cpu"][0]) <= 1e-4
+                and e_grad <= MODEL_GRAD_TOL * max(1.0, g_ref),
+                f"{cls.__name__}: card gradients against the CPU run")
+    del grads
+
+    # train_model on swin_tiny_cifar100 (32 px, window 4), fp32
+    stiny_args = get_args("swin_tiny_cifar100")
+    stiny = SwinTransformer(**stiny_args)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    shist = stiny.train_model(stiny, train_loader, test_loader, epochs,
+                              val_loader, lr=1e-4, verbose=False)
+    torch.cuda.synchronize()
+    stiny_s = time.perf_counter() - t0
+    stiny_launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    log(f"train_model swin_tiny_cifar100, {epochs} epochs x {steps_per_epoch} "
+        f"steps of 64 in {stiny_s:.2f} s: train loss "
+        f"{[round(v, 4) for v in shist['train_loss']]}, train acc "
+        f"{[round(v, 4) for v in shist['train_accuracy']]}, test acc "
+        f"{[round(v, 4) for v in shist['test_accuracy']]}, launches "
+        f"{stiny_launches}")
+    require(keys <= set(shist) and all(
+        len(shist[k]) == epochs and np.isfinite(shist[k]).all()
+        for k in keys), "swin_tiny: the six keys, finite, one value per epoch")
+    require(shist["train_loss"][-1] < shist["train_loss"][0]
+            and shist["train_accuracy"][-1] > 0.5,
+            "swin_tiny: train loss falls and train accuracy passes 0.5")
+    require(stiny_launches["window_attention_bwd"]
+            == 12 * shist["final_state"].step,
+            "swin_tiny: 12 window backward launches per train step")
+    del stiny
+
+    # 6f. PVT-Tiny and Twins-SVT-S @224: served and trained, bf16
+    hier = {}
+    for preset, cls in (("pvt_tiny224_imagenet", PVT),
+                        ("twins_svts224_imagenet", TwinSVT)):
+        hargs = get_args(preset)
+        hmodel = cls(**hargs, dtype="bfloat16")
+        hweights = seeded_state_dict(hmodel, seed=7)
+        hmodel.load_state_dict(hweights)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(hmodel, (224, 224, 3), tmp,
+                                      buckets=(1, 32), dtype=fp32)
+            hclf = serving.load_classifier(tmp)
+        require(type(hclf.model) is cls,
+                f"{preset}: the artifact rebuilds a {cls.__name__}")
+        want = HIER_LAUNCHES_PER_FORWARD[preset]
+        fa.reset_launch_counts()
+        windows.ROUTE_LOG = []
+        hclf.warmup()
+        routes = windows.ROUTE_LOG[:len(windows.ROUTE_LOG) // 2]
+        require(windows.ROUTE_LOG == routes * 2
+                and routes == (TWINS_ROUTES if cls is TwinSVT else []),
+                f"{preset}: window routes per forward, got {routes}")
+        windows.ROUTE_LOG = None
+        hserved = {n: hclf.predict(images[:n]) for n in (1, 32)}
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        require(got == {k: 4 * v for k, v in want.items()},
+                f"{preset}: {want} per forward over 4 forwards and no other "
+                f"kernel; got {got}")
+        cpu_h = cls(**hargs, device="cpu")
+        cpu_h.load_state_dict(hweights)
+        with torch.no_grad():
+            href = cpu_h(torch.from_numpy(images[:2])).float()
+        del cpu_h
+        hscale = href.abs().max().item()
+        e16 = max(max_err(hserved[n][:k].cpu(), href[:k])
+                  for n, k in ((1, 1), (32, 2)))
+        h32 = cls(**hargs)
+        h32.load_state_dict(hweights)
+        with torch.inference_mode():
+            e32 = max_err(h32(torch.from_numpy(images[:2]).to(dev)).cpu(),
+                          href)
+        del h32
+        log(f"{preset}: served at buckets 1 and 32, launches per forward "
+            f"{want}, routes {routes}; logits vs CPU fp32: fp32 model on the "
+            f"card {e32:.3e} (tol {SWIN_LOGIT_TOL_FP32}), bf16 served "
+            f"{e16:.3e} (max|ref| {hscale:.3f}, tol {LOGIT_TOL_BF16_REL} x "
+            "max|ref|)")
+        require(all(bool(torch.isfinite(o.float()).all())
+                    for o in hserved.values())
+                and e32 <= SWIN_LOGIT_TOL_FP32
+                and e16 <= LOGIT_TOL_BF16_REL * hscale,
+                f"{preset}: logits against the CPU run of the same weights")
+        # training: the split-head backward is the dropout kernel at rate 0;
+        # Twins' 9 LSA blocks add their window forwards and the shared backward
+        n_attn = want["flash_attention"]
+        want_bwd = {"dropout_attention_bwd": n_attn}
+        if cls is TwinSVT:
+            want_bwd["window_attention_bwd"] = 9
+        hier[preset] = (hclf, got, train_phase(
+            preset, hmodel, hweights, xb, yb, wb, want, want_bwd))
+        del hmodel
+
     # ---- 7. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -932,7 +1320,9 @@ def main() -> int:
         for name, ms, n in top:
             log(f"  {ms:8.3f} ms {n:4d}x {name}")
 
-    for preset, (sclf, _, _) in swin.items():
+    served_models = {**{k: v[0] for k, v in swin.items()},
+                     **{k: v[0] for k, v in hier.items()}}
+    for preset, sclf in served_models.items():
         for b in sclf.buckets:
             x = images[:b]
             for _ in range(2):
@@ -950,21 +1340,22 @@ def main() -> int:
         log(f"{preset} bf16 forward, batch 32, device time: {sfwd_ms:.3f} ms "
             f"({32 / sfwd_ms * 1e3:.1f} images/s)")
         for b in (1, 32):
-            wall, busy, count, top = device_profile(
-                lambda: sclf.predict(images[:b]).float().cpu(), top=12)
-            if busy is None:
-                log(f"profile {preset} bucket {b}: the profiler saw no device "
-                    "activity")
-                continue
-            log(f"profile {preset} bucket {b}: wall {wall:.3f} ms (profiler "
-                f"on), device busy {busy:.3f} ms in {count} activities, idle "
-                f"share {1 - busy / wall:.3f}")
-            for name, ms, n in top:
-                log(f"  {ms:8.3f} ms {n:4d}x {name}")
+            log_profile(f"{preset} bucket {b}",
+                        lambda: sclf.predict(images[:b]).float().cpu())
 
     kernels = []
     port = "vision_transformers_tpu_torch/csrc/"
     jax_file = "vision_transformers_tpu/ops/flash_attention.py"
+
+    # launches on the hierarchical models' paths: both Swins, PVT and Twins, each
+    # served and trained
+    path_runs = ([t for _, t, _ in swin.values()]
+                 + [la for las, _ in swin_train.values() for la in las.values()]
+                 + [got for _, got, _ in hier.values()]
+                 + [la for _, _, (las, _) in hier.values()
+                    for la in las.values()])
+    swin_total = {k: sum(run.get(k, 0) for run in path_runs)
+                  for k in fa.LAUNCHES}
 
     def sdpa_backward(q, k, v, do, p):
         """One call of SDPA's backward through autograd, graph kept."""
@@ -974,16 +1365,17 @@ def main() -> int:
                                            retain_graph=True)
 
     def entry(name, source, line, launches, err, shape, k_ms, p_ms, l_ms,
-              nbytes, flops, **extra):
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+              nbytes, flops, *, replaces=jax_file, ops_dtype="bfloat16",
+              **extra):
+        bnd, by = bound_ms(nbytes, flops, ops_dtype)
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,
-            replaces=f"{jax_file}:{line}", launches=launches, max_abs_err=err,
+            replaces=f"{replaces}:{line}", launches=launches, max_abs_err=err,
             ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
             library_ms=l_ms, **extra))
         more = "".join(f", {k} {v:.4f}" for k, v in extra.items())
-        log(f"{name} {shape} bf16: kernel {k_ms:.4f} ms, bound {bnd:.4f} ms "
+        log(f"{name} {shape}: kernel {k_ms:.4f} ms, bound {bnd:.4f} ms "
             f"({by}), plain {p_ms:.4f} ms, library {l_ms:.4f} ms{more}")
 
     # packed: ViT-B/16 @224, batch 32, bf16 — the serving and training shape
@@ -1037,7 +1429,8 @@ def main() -> int:
     lse_bytes = b * h * s * 4
     entry("flash_attention", "flash_attention.cu", 75,
           split_launches["flash_attention"]
-          + split_train_launches[0.0]["flash_attention"],
+          + split_train_launches[0.0]["flash_attention"]
+          + swin_total["flash_attention"],
           errs[("flash", "vitb16@512 G96 S1025", "bfloat16")], shape,
           cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
           cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
@@ -1060,7 +1453,8 @@ def main() -> int:
     bwd_args = (q, k, v, do, out, lse)
     entry("dropout_attention_bwd", "dropout_attention.cu", 525,
           split_train_launches[0.1]["dropout_attention_bwd"]
-          + split_train_launches[0.0]["dropout_attention_bwd"],
+          + split_train_launches[0.0]["dropout_attention_bwd"]
+          + swin_total["dropout_attention_bwd"],
           errs[("drop_bwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
           shape + f" rate {rate}",
           cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
@@ -1084,9 +1478,6 @@ def main() -> int:
         """qkv read once, out written once, the bias once (bf16)."""
         return ((4 * g * n * h * dh + nwp * h * n * n) * 2,
                 4 * g * h * n * n * dh)
-
-    swin_total = {k: sum(t[k] for _, t, _ in swin.values())
-                  for k in fa.LAUNCHES}
 
     def window_entry(name, line, label, g, n, h, dh, nwp, other):
         qkv, bias = window_inputs(g, n, h, dh, nwp, bf16)
@@ -1149,6 +1540,79 @@ def main() -> int:
 
     fused_entry("flat", 1997, "swin-t s2 B32 28x28 H6", 32, 28, 7, 3, 6, 32)
     fused_entry("slab", 2056, "swin-t s1 B32 56x56 H3", 32, 56, 7, 3, 3, 32)
+
+    # the window backward at its largest launch: Swin-T stage 1, batch 32
+    g, n, h, dh, nwp = 2048, 49, 3, 32, 1
+    qkv, bias = window_inputs(g, n, h, dh, nwp, bf16)
+    do = randn(34, g, n, h * dh, dtype=bf16)
+    q, k, v = split_heads(qkv, h)
+    do_h = do.reshape(g, n, h, dh).transpose(1, 2).contiguous()
+    mask = bias.to(bf16).repeat(g, 1, 1, 1)
+
+    def sdpa_masked_backward():
+        """SDPA's backward with the bias as its mask, graph kept; it gives
+        no bias gradient."""
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        return lambda: torch.autograd.grad(out, (ql, kl, vl), do_h,
+                                           retain_graph=True)
+
+    io = g * n * h * dh * 2
+    entry("window_attention_bwd", "window_attention_bwd.cu", 1466,
+          swin_total["window_attention_bwd"],
+          errs[("window_attention_bwd", "swin-t s1 G2048 N49 H3 shared",
+                "bfloat16")],
+          f"G{g} N{n} H{h} dh{dh} nW'{nwp} bf16, dbias wanted",
+          cuda_ms(lambda: fa.window_attention_bwd(qkv, bias, do, h)),
+          cuda_ms(lambda: fa.window_attention_bwd_reference(qkv, bias, do, h),
+                  iters=10),
+          cuda_ms(sdpa_masked_backward()),
+          # qkv and do read, dqkv written, the bias read, ds written
+          7 * io + nwp * h * n * n * 2 + g * h * n * n * 2,
+          10 * g * h * n * n * dh,
+          no_dbias_ms=cuda_ms(lambda: fa.window_attention_bwd(
+              qkv, bias, do, h, need_dbias=False)))
+    sw_t = swin_train["swint_224_imagenet"][1][True]
+    log(f"  the 12 launches of a Swin-T step are part of its {sw_t[2]:.3f} ms "
+        "backward")
+    del qkv, bias, do, q, k, v, do_h, mask
+
+    # the single-pass Adam kernel on Swin-T's largest leaf (stage 4's fc1,
+    # 768 x 3072: ViT-B/16's fc1 too), and the optimizers over all of
+    # Swin-T's leaves
+    leaf = [randn(60 + i, 768, 3072, dtype=fp32) * sc
+            for i, sc in enumerate((1.0, 0.0, 0.0, 0.01))]
+    sc = fadam.adam_scalars(5, 1e-4)
+    lib_p = leaf[0].clone().requires_grad_()
+    lib_p.grad = leaf[3].clone()
+    lib_opt = torch.optim.Adam([lib_p], lr=1e-4, fused=True)
+    n_el = leaf[0].numel()
+    params = [p for p in adam_model.parameters()]
+    for p_ in params:
+        p_.grad = torch.full_like(p_, 1e-3)
+    opt_ms = {}
+    for label, tx in (("fused", make_optimizer("adam", 1e-4, fused=True)),
+                      ("unfused", make_optimizer("adam", 1e-4))):
+        tx.init(params)
+        opt_ms[label] = cuda_ms(tx.step, iters=10)
+    lib_all = torch.optim.Adam(params, lr=1e-4, fused=True)
+    opt_ms["library"] = cuda_ms(lib_all.step, iters=10)
+    n_all = sum(p_.numel() for p_ in params)
+    entry("fused_adam", "fused_adam.cu", 36, swin_total["fused_adam"],
+          max(errs[("fused_adam", 0.0)], errs[("fused_adam", 0.05)]),
+          f"one fp32 leaf of {n_el} elements",
+          cuda_ms(lambda: fadam._launch([leaf], sc)),
+          cuda_ms(lambda: fadam.fused_adam_reference(*leaf, sc)),
+          cuda_ms(lib_opt.step),
+          7 * 4 * n_el, 12 * n_el,
+          replaces="vision_transformers_tpu/ops/fused_adam.py",
+          ops_dtype="float32",
+          swin_t_step_fused_ms=opt_ms["fused"],
+          swin_t_step_unfused_ms=opt_ms["unfused"],
+          swin_t_step_library_ms=opt_ms["library"],
+          swin_t_step_bound_ms=7 * 4 * n_all / HBM_BYTES_PER_S * 1e3)
+    require(len(kernels) == len(fa.LAUNCHES),
+            "every kernel of the launch table has its line")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

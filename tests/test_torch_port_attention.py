@@ -208,5 +208,6 @@ def test_cpu_tensors_never_count_as_kernel_launches():
         "packed_attention", "flash_attention", "packed_attention_bwd",
         "dropout_attention_fwd", "dropout_attention_bwd",
         "window_packed_attention", "window_batched_attention",
-        "window_fused_slab_attention", "window_fused_flat_attention"}
+        "window_fused_slab_attention", "window_fused_flat_attention",
+        "window_attention_bwd", "fused_adam"}
     assert not any(tfa.LAUNCHES.values())

@@ -181,7 +181,8 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
         "dropout_attention_fwd": 1, "dropout_attention_bwd": 2,
         "flash_attention": 2, "window_packed_attention": 0,
         "window_batched_attention": 0, "window_fused_slab_attention": 0,
-        "window_fused_flat_attention": 0}
+        "window_fused_flat_attention": 0, "window_attention_bwd": 0,
+        "fused_adam": 0}
 
 
 # Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf
@@ -311,21 +312,169 @@ def test_fused_window_section_stride(cuda):
 
 @pytest.mark.cuda
 def test_window_kernels_are_forward_only_on_cuda(cuda):
-    qkv = torch.zeros(4, 16, 3 * 2 * 16, device=cuda, requires_grad=True)
+    """They were, until the shared backward kernel: now a recorded gradient
+    goes through ``window_attention_bwd``, once per backward; ``out=`` stays
+    a forward-only convenience."""
+    qkv = torch.from_numpy(_randn(46, 4, 16, 3 * 2 * 16)).to(cuda)
+    qkv.requires_grad_()
     for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
-        with pytest.raises(NotImplementedError, match="row 10"):
-            fn(qkv, None, 2)
-    qmap = torch.zeros(1, 8, 8, 3 * 2 * 16, device=cuda, requires_grad=True)
+        tfa.reset_launch_counts()
+        (grad,) = torch.autograd.grad(fn(qkv, None, 2).sum(), qkv)
+        assert tfa.LAUNCHES["window_attention_bwd"] == 1
+        assert bool(torch.isfinite(grad).all())
+    qmap = torch.from_numpy(_randn(47, 1, 8, 8, 3 * 2 * 16)).to(cuda)
+    qmap.requires_grad_()
     for plan_fn in (tfa.window_fused_plan, tfa.window_fused_flat_plan):
-        with pytest.raises(NotImplementedError, match="row 10"):
-            tfa.fused_window_attention(
-                qmap, None, 2, (4, 4), (2, 2),
-                plan=plan_fn(1, 8, 8, 4, 4, 2, 16, 1))
+        plan = plan_fn(1, 8, 8, 4, 4, 2, 16, 1)
+        tfa.reset_launch_counts()
+        out = tfa.fused_window_attention(qmap, None, 2, (4, 4), (2, 2),
+                                         plan=plan)
+        (grad,) = torch.autograd.grad(out.sum(), qmap)
+        assert tfa.LAUNCHES["window_attention_bwd"] == 1
+        assert bool(torch.isfinite(grad).all())
+        with pytest.raises(ValueError, match="no gradient"):
+            tfa.fused_window_attention(qmap, None, 2, (4, 4), (2, 2),
+                                       plan=plan, out=torch.empty(
+                                           1, 8, 8, 32, device=cuda))
     with torch.no_grad():  # a leaf that needs a gradient, but none recorded
         assert tfa.window_packed_attention(qkv, None, 2).shape == (4, 16, 32)
     with pytest.raises(ValueError, match="head dim"):
         tfa.window_packed_attention(torch.zeros(4, 16, 3 * 2 * 8, device=cuda),
                                     None, 2)
+
+
+# The window backward against its plain version. dqkv as _GRAD_TOL. dbias sums
+# G/nW' windows of ds rounded to the compute dtype on both sides; the kernel's
+# ds differs from the plain one by fp32 summation order before that rounding,
+# so a few terms land on the other side of a bf16 rounding: relative to the
+# largest reference element.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,heads,dh,nwp", _WINDOW_SHAPES + [
+    (6, 128, 2, 64, 3),     # the largest tile: one window per block
+    (5, 100, 1, 64, 0)])
+def test_window_backward_kernel_matches_plain(cuda, dtype, g, n, heads, dh,
+                                              nwp):
+    qkv, bias = _window_inputs(cuda, dtype, g, n, heads, dh, nwp)
+    do = torch.from_numpy(_randn(48, g, n, heads * dh)).to(cuda, dtype)
+    ref, ref_db = tfa.window_attention_bwd_reference(qkv, bias, do, heads)
+    filled = torch.full_like(qkv, float("nan"))
+    tfa.reset_launch_counts()
+    got, got_db = tfa.window_attention_bwd(qkv, bias, do, heads, dqkv=filled)
+    again, again_db = tfa.window_attention_bwd(qkv, bias, do, heads)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["window_attention_bwd"] == 2 and got is filled
+    assert not bool(torch.isnan(got.float()).any())  # every element written
+    assert _grad_close(got, ref, dtype)
+    assert torch.equal(got, again)  # no atomics: equal bits
+    if bias is None:
+        assert got_db is None and ref_db is None
+    else:
+        assert got_db.shape == bias.shape and got_db.dtype == bias.dtype
+        assert _grad_close(got_db, ref_db, dtype)
+        assert torch.equal(got_db, again_db)
+        no_db = tfa.window_attention_bwd(qkv, bias, do, heads,
+                                         need_dbias=False)
+        assert no_db[1] is None and torch.equal(no_db[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["packed", "batched", "slab", "flat"])
+def test_window_gradients_match_autograd_of_plain(cuda, kind):
+    """fp32 gradients through each wrapper's autograd function against
+    autograd of the plain forward (the second oracle); masks of -100 and
+    -1e9 inside the bias."""
+    b, hp, wp, win, heads, dh = 2, 16, 16, 4, 2, 32
+    n, nw = win * win, (hp // win) * (wp // win)
+    qmap = torch.from_numpy(_randn(49, b, hp, wp, 3 * heads * dh)).to(cuda)
+    bias = torch.from_numpy(_randn(50, nw, heads, n, n)).to(cuda)
+    bias[1, :, :, 12:] = -100.0
+    bias[2, :, :, 9:] += -1e9
+    do = torch.from_numpy(_randn(51, b, hp, wp, heads * dh)).to(cuda)
+
+    def grads(fn, x, do_):
+        x, bb = x.clone().requires_grad_(), bias.clone().requires_grad_()
+        return torch.autograd.grad(fn(x, bb), (x, bb), do_)
+
+    if kind in ("packed", "batched"):
+        part = lambda t: t.reshape(b * nw, n, t.shape[-1])  # noqa: E731
+        wrapper = getattr(tfa, f"window_{kind}_attention")
+        got = grads(lambda x, bb: wrapper(x, bb, heads), part(qmap), part(do))
+        ref = grads(lambda x, bb: tfa.window_attention_reference(x, bb, heads),
+                    part(qmap), part(do))
+    else:
+        plan_fn = (tfa.window_fused_plan if kind == "slab"
+                   else tfa.window_fused_flat_plan)
+        plan = plan_fn(b, hp, wp, win, win, heads, dh, nw)
+        got = grads(lambda x, bb: tfa.fused_window_attention(
+            x, bb, heads, (win, win), (2, 2), plan=plan), qmap, do)
+        ref = grads(lambda x, bb: tfa.window_fused_reference(
+            x, bb, heads, (win, win), (2, 2)), qmap, do)
+    for a, r in zip(got, ref):
+        assert _grad_close(a, r, torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_window_backward_zeroes_pad_lanes(cuda):
+    """Sections padded to 128 lanes: the map's gradient equals autograd of
+    the plain version in the real lanes and is zero in the pad lanes."""
+    b, hp, wp, heads, dh, sec = 2, 8, 8, 2, 32, 128
+    qkv = torch.zeros(b, hp, wp, 3, sec, device=cuda)
+    qkv[..., : heads * dh] = torch.from_numpy(
+        _randn(52, b, hp, wp, 3, heads * dh)).to(cuda)
+    qkv = qkv.reshape(b, hp, wp, 3 * sec)
+    bias = torch.from_numpy(_randn(53, 4, heads, 16, 16)).to(cuda)
+    do = torch.from_numpy(_randn(54, b, hp, wp, sec)).to(cuda)
+    x = qkv.clone().requires_grad_()
+    plan = tfa.window_fused_flat_plan(b, hp, wp, 4, 4, heads, dh, 4, 4)
+    (got,) = torch.autograd.grad(tfa.fused_window_attention(
+        x, bias, heads, (4, 4), (2, 2), dh=dh, plan=plan), x, do)
+    y = qkv.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(tfa.window_fused_reference(
+        y, bias, heads, (4, 4), (2, 2), hd=heads * dh), y, do)
+    assert _grad_close(got, ref, torch.float32)
+    pads = got.reshape(b, hp, wp, 3, sec)[..., heads * dh:]
+    assert not bool(pads.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_decay", [0.0, 0.05])
+def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
+    """Three steps over leaves on both sides of 65 536 elements, one with a
+    ragged last vector and one not 16-byte aligned: in place, and within
+    1e-6 of the plain version (the kernel rounds each operation on its own,
+    in the plain version's order)."""
+    from vision_transformers_tpu_torch.ops import fused_adam as tadam
+
+    shapes = [(300, 300), (65536,), (65539,), (131, 1001), (1000,), (7, 9)]
+    rng = np.random.RandomState(55)
+    make = lambda scale: [  # noqa: E731
+        torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)).to(cuda)
+        for s in shapes]
+    params, mu, nu = make(1.0), make(0.0), make(0.0)
+    # a large leaf that starts 4 bytes past a 16-byte boundary
+    odd = torch.from_numpy(rng.randn(70001).astype(np.float32)).to(cuda)[1:]
+    params.append(odd)
+    mu.append(torch.zeros_like(odd))
+    nu.append(torch.zeros_like(odd))
+    ref = [[t.clone() for t in group] for group in (params, mu, nu)]
+    ptrs = [t.data_ptr() for group in (params, mu, nu) for t in group]
+    large = sum(p.numel() >= tadam._MIN_FUSED_SIZE for p in params)
+    tfa.reset_launch_counts()
+    for step in range(1, 4):
+        grads = [torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+                 .to(cuda) for p in params]
+        tadam.fused_adam_update(params, mu, nu, grads, step, 1e-3,
+                                weight_decay=weight_decay)
+        s = tadam.adam_scalars(step, 1e-3, weight_decay=weight_decay)
+        for p, m, v, g in zip(*ref, grads):
+            tadam.fused_adam_reference(p, m, v, g, s)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fused_adam"] == 3 * large and large == 5
+    assert ptrs == [t.data_ptr() for group in (params, mu, nu) for t in group]
+    for got, want in zip((params, mu, nu), ref):
+        for a, r in zip(got, want):
+            assert (a - r).abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda

@@ -218,9 +218,12 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
+    zoo = "vision_transformers_tpu_torch.models.image_classification."
     assert {"vision_transformers_tpu_torch.ops.windows",
-            "vision_transformers_tpu_torch.models.image_classification"
-            ".swin_transformer"} <= set(_port_modules())
+            "vision_transformers_tpu_torch.ops.fused_adam",
+            "vision_transformers_tpu_torch.ops.sra",
+            zoo + "swin_transformer", zoo + "pvt",
+            zoo + "twins_svt"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"

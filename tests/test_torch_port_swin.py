@@ -145,9 +145,9 @@ def test_block_matches_jax(v2, shift):
 
 
 def test_gradients_flow_on_the_cpu(pair):
-    """The plain versions differentiate: every parameter but the key bias
-    gets a finite gradient (training on the card waits for the window
-    backward kernel)."""
+    """Every parameter gets a finite gradient, through the window wrappers'
+    autograd functions (on the CPU their backward is the plain version of
+    the window backward kernel)."""
     _, _, _, tmodel = pair
     x = torch.from_numpy(
         np.random.RandomState(5).randn(2, *SHAPE).astype(np.float32))
@@ -165,9 +165,9 @@ def test_training_mode_draws_seeded_dropout(monkeypatch):
     x = torch.zeros(2, *SHAPE) + 0.5
     outs = []
     monkeypatch.setattr(TW, "_pack_dropout_warned", True)  # warned once elsewhere
-    for _ in range(2):
+    for i in range(2):
         model.dropout_generator.manual_seed(7)
-        torch.manual_seed(0)  # DropPath draws from the global generator
+        torch.manual_seed(i)  # nothing draws from the global generator
         outs.append(model(x).detach())
     assert bool(torch.isfinite(outs[0]).all())
     assert torch.equal(outs[0], outs[1])  # same seeds, same masks

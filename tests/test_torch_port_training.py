@@ -113,8 +113,16 @@ def test_cosine_schedule_matches_optax(total, warmup):
 def test_make_optimizer_rejects_what_it_cannot_do():
     with pytest.raises(ValueError, match="Unknown optimizer"):
         topt.make_optimizer("lion")
-    with pytest.raises(NotImplementedError, match="row 15"):
-        topt.make_optimizer("adam", fused=True)
+    # the single-pass Adam kernel composes with neither, as in the JAX
+    # package (training/optimizers.py:115-120)
+    for kw in (dict(grad_clip_norm=1.0), dict(accumulate_steps=2)):
+        with pytest.raises(ValueError, match="fused adam does not compose"):
+            topt.make_optimizer("adam", fused=True, **kw)
+        with pytest.raises(ValueError, match="fused adam does not compose"):
+            jopt.make_optimizer("adam", fused=True, **kw)
+    assert topt.make_optimizer("adamw", fused=True).fused
+    assert not topt.make_optimizer("sgd", fused=True).fused  # adam(w) only
+    assert not topt.make_optimizer("adam").fused  # opt-in, as in JAX
     with pytest.raises(RuntimeError, match="init"):
         topt.make_optimizer("adam").step()
     with pytest.raises(ValueError, match="decay"):

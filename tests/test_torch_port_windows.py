@@ -264,9 +264,13 @@ def test_cpu_wrappers_count_no_launch():
     qkv, bias = _qkv_bias(4, 16, 2, 16, 1)
     tfa.window_packed_attention(torch.from_numpy(qkv), torch.from_numpy(bias), 2)
     tfa.window_batched_attention(torch.from_numpy(qkv), torch.from_numpy(bias), 2)
+    tq = torch.from_numpy(qkv).requires_grad_()
+    tfa.window_packed_attention(tq, torch.from_numpy(bias), 2).sum().backward()
     assert set(tfa.LAUNCHES) >= {
         "window_packed_attention", "window_batched_attention",
-        "window_fused_slab_attention", "window_fused_flat_attention"}
+        "window_fused_slab_attention", "window_fused_flat_attention",
+        "window_attention_bwd"}
+    assert len(tfa.LAUNCHES) == 11
     assert not any(tfa.LAUNCHES.values())
 
 

@@ -4,25 +4,30 @@ The package mirrors the JAX package's paths and names, so each module's
 counterpart is easy to find. The JAX package stays the numerical
 reference; this one imports nothing from it (nor JAX itself).
 
-What is ported so far is the ViT main path, served and trained, and the
-windowed models for inference and serving:
+What is ported so far is the ViT main path and the windowed and pyramid
+models (Swin, SwinV2, Twins-SVT, PVT), each served and trained:
 
 - ``models.image_classification.ViT``: patch embed, class token, learned
   position embedding, pre-LN encoder blocks, CLS head; inputs are NHWC;
   ``train_model`` through the shared trainer.
 - ``models.image_classification.SwinTransformer`` and
   ``SwinTransformerV2``: patch embedding, four stages of shifted-window
-  attention blocks with patch merging, pooled head; forward only on CUDA
-  (the window kernels' backward is not ported yet).
+  attention blocks with patch merging, pooled head.
+- ``models.image_classification.PVT`` and ``TwinSVT``: pyramid stages of
+  spatial-reduction attention (``ops.sra``), Twins alternating it with
+  locally-grouped window attention and a depthwise-conv position encoding.
 - ``ops``: LayerNorm, GELU-MLP, seeded dropout, patch embedding, and
   attention through hand-written CUDA kernels (``csrc/``), forward and
   backward: self attention read in place from the packed QKV projection
   with in-kernel dropout, split-head attention with dropout and a
   key-padding mask, split-head attention with an additive bias, and four
-  window-attention kernels behind ``ops.windows.shifted_window_attention``.
-  Each kernel has a plain PyTorch version beside it, used for CPU tensors.
+  window-attention kernels with their shared backward behind
+  ``ops.windows.shifted_window_attention``. Each kernel has a plain PyTorch
+  version beside it, used for CPU tensors.
 - ``training``: ``make_optimizer`` and ``cosine_schedule`` with optax's
-  arithmetic, and ``trainer.fit`` with its train and eval steps.
+  arithmetic, the opt-in single-pass Adam kernel (``ops.fused_adam``,
+  ``make_optimizer(fused=True)``), and ``trainer.fit`` with its train and
+  eval steps.
 - ``serving``: export to an artifact directory, ``load_classifier``, static
   batch buckets and a request micro-batcher.
 

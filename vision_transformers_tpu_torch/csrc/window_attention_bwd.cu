@@ -1,0 +1,283 @@
+// Backward of window attention on the partitioned projection: one kernel for
+// the packed, the batched and (around plain roll/partition steps) the two
+// fused forward kernels.
+//
+// Replaces the TPU kernel vision_transformers_tpu/ops/flash_attention.py::
+// _window_pack_bwd_kernel (:1466, reached through _window_pack_bwd_pallas
+// :1562 from the rules at :1630, :1779 and :2310).
+//
+// qkv: (G, N, 3·H·D) as in window_attention.cu; bias: null or (nW', H, N, N)
+// in the compute dtype, window g reads row g mod nW'; dout: (G, N, H·D).
+// Per (window g, head h), everything recomputed from qkv and bias (no
+// statistic of the forward is kept):
+//   s  = q·kᵀ·scale + bias          p  = softmax(s), max taken before any exp
+//   dp = dO·vᵀ                      ds = p ⊙ (dp − rowsum(dp ⊙ p))
+//   dv = pᵀ·dO     dq = (ds·scale)·k     dk = (ds·scale)ᵀ·q
+// dqkv: (G, N, 3·H·D), [dq | dk | dv] in the places of [q | k | v]; every
+// element is written. ds_out: null, or (G, H, N, N) in the compute dtype, the
+// score gradient before the scale: the caller sums it over the windows that
+// share a bias row, in fp32, into the bias gradient.
+//
+// What bounds it on the H100 (Swin-T @224 stage 1, batch 32: G = 2048,
+// N = 49, H = 3, D = 32, bf16): 10·G·H·N²·D = 4.7 GFLOP, 4.8 µs at
+// 989 TFLOP/s, against 57.8 MB of qkv and 19.3 MB of dout read, 57.8 MB of
+// dqkv written and, where the bias gradient is wanted, 29.5 MB of ds_out:
+// 49 µs at 3.35 TB/s. Bytes. So the N×N tiles must never reach device
+// memory except as ds_out, and qkv and dout are read once each.
+//
+// Design. A block takes P windows of one head; one thread owns one row, as
+// in window_tile.cuh, and the block's two N×N tiles (p, then dp and ds) live
+// in shared memory as fp32, so each of the five products is computed once
+// (5·D FMAs per score) and nothing is recomputed for the transposed ones:
+//   phase A, thread = query row i, K and V in shared memory read by
+//     broadcast: s → tile 1 and the row max; exp and row sum; dp → tile 2,
+//     p → tile 1, δ = Σ p·dp; ds → tile 2, dq accumulated in registers.
+//     One D-vector of registers at a time (q, then dO, then dq).
+//   phase B, thread = key row j, after a barrier; Q and dO replace K and V in
+//     the same shared buffers: dk_j = Σ_i ds_ij·scale·q_i, dv_j = Σ_i p_ij·dO_i
+//     down column j of the tiles, and ds_out written with consecutive lanes on
+//     consecutive addresses.
+// Every output element has one owner and every sum a fixed order: no atomics,
+// so two runs give equal bits. The tiles' row stride is odd, so the lanes of a
+// warp (rows in phase A, columns in phase B) fall in distinct banks. The
+// products are fp32 FMAs on the CUDA cores; the probabilities and ds stay
+// fp32 into their products (the TPU kernel rounds them to the compute dtype
+// first); only ds_out is rounded, as the TPU kernel emits it.
+// Grid: x = ceil(G / P), y = H; a ragged last block is bounds-checked.
+#include "window_tile.cuh"
+
+namespace {
+
+using vtt::kWinMaxThreads;
+using vtt::RowIO;
+
+constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block can ask for
+
+// `rows` consecutive token rows of D elements, from column base `src` with
+// `row_stride` elements between rows, into shared memory as fp32 (rows, D).
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+                                           long long row_stride, int rows,
+                                           float* __restrict__ dst) {
+  constexpr int V = RowIO<T>::kVec;
+  constexpr int C = D / V;
+  for (int idx = threadIdx.x; idx < rows * C; idx += blockDim.x) {
+    const int c = idx % C, r = idx / C;
+    float tmp[V];
+    RowIO<T>::load(src + r * row_stride + c * V, tmp);
+    float* d = dst + r * D + c * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) d[e] = tmp[e];
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, float* r) {
+  constexpr int V = RowIO<T>::kVec;
+#pragma unroll
+  for (int c = 0; c < D / V; ++c) RowIO<T>::load(src + c * V, r + c * V);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* __restrict__ dst, const float* r) {
+  constexpr int V = RowIO<T>::kVec;
+#pragma unroll
+  for (int c = 0; c < D / V; ++c) RowIO<T>::store(dst + c * V, r + c * V);
+}
+
+// r · x for a register vector r and a 16-byte aligned shared-memory row x.
+template <int D>
+__device__ __forceinline__ float dot_row(const float* r,
+                                         const float* __restrict__ x) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float a = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 xx = x4[d4];
+    a = fmaf(r[4 * d4], xx.x, a);
+    a = fmaf(r[4 * d4 + 1], xx.y, a);
+    a = fmaf(r[4 * d4 + 2], xx.z, a);
+    a = fmaf(r[4 * d4 + 3], xx.w, a);
+  }
+  return a;
+}
+
+// r += c · x.
+template <int D>
+__device__ __forceinline__ void axpy_row(float c, const float* __restrict__ x,
+                                         float* r) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 xx = x4[d4];
+    r[4 * d4] = fmaf(c, xx.x, r[4 * d4]);
+    r[4 * d4 + 1] = fmaf(c, xx.y, r[4 * d4 + 1]);
+    r[4 * d4 + 2] = fmaf(c, xx.z, r[4 * d4 + 2]);
+    r[4 * d4 + 3] = fmaf(c, xx.w, r[4 * d4 + 3]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWinMaxThreads)
+window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                  const T* __restrict__ dout, T* __restrict__ dqkv,
+                  T* __restrict__ ds_out, long long g, int n, int heads,
+                  int bias_windows, float scale, int p) {
+  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = n | 1;  // odd row stride of the two score tiles
+  float* xs = reinterpret_cast<float*>(smem_raw);  // K, then Q: (P·N, D)
+  float* ys = xs + p * n * D;                      // V, then dO: (P·N, D)
+  float* pt = ys + p * n * D;                      // p:          (P·N, ld)
+  float* dt = pt + p * n * ld;                     // dp, then ds: (P·N, ld)
+
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * D;
+  const long long w0 = static_cast<long long>(blockIdx.x) * p;
+  const int count = static_cast<int>(min(static_cast<long long>(p), g - w0));
+  const int rows = count * n;
+  const T* q_base = qkv + w0 * n * 3 * hd + h * D;   // q of the first token
+  const T* do_base = dout + w0 * n * hd + h * D;
+  T* dq_base = dqkv + w0 * n * 3 * hd + h * D;
+
+  stage_rows<T, D>(q_base + hd, 3 * hd, rows, xs);      // K
+  stage_rows<T, D>(q_base + 2 * hd, 3 * hd, rows, ys);  // V
+  __syncthreads();
+
+  const int w = threadIdx.x / n, i = threadIdx.x % n;
+  const bool active = w < count;
+  const int t = w * n + i;  // this thread's token row within the block
+  const float* xw = xs + w * n * D;
+  const float* yw = ys + w * n * D;
+  float r[D];
+
+  if (active) {  // phase A: query row i of window w
+    float* prow = pt + t * ld;
+    float* drow = dt + t * ld;
+    const T* b_row = bias == nullptr
+        ? nullptr
+        : bias + ((((w0 + w) % bias_windows) * heads + h) * n + i) * n;
+
+    load_row<T, D>(q_base + t * 3 * hd, r);
+#pragma unroll
+    for (int d = 0; d < D; ++d) r[d] *= scale;
+    float m = -CUDART_INF_F;
+    for (int j = 0; j < n; ++j) {
+      float s = dot_row<D>(r, xw + j * D);
+      if (b_row != nullptr) s += vtt::to_f32(b_row[j]);
+      prow[j] = s;
+      m = fmaxf(m, s);
+    }
+    float l = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float e = expf(prow[j] - m);
+      prow[j] = e;
+      l += e;
+    }
+    const float inv = 1.f / l;
+
+    load_row<T, D>(do_base + t * hd, r);
+    float delta = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float dp = dot_row<D>(r, yw + j * D);
+      const float pj = prow[j] * inv;
+      prow[j] = pj;
+      drow[j] = dp;
+      delta = fmaf(pj, dp, delta);
+    }
+
+#pragma unroll
+    for (int d = 0; d < D; ++d) r[d] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float ds = prow[j] * (drow[j] - delta);
+      drow[j] = ds;
+      axpy_row<D>(ds * scale, xw + j * D, r);
+    }
+    store_row<T, D>(dq_base + t * 3 * hd, r);
+  }
+
+  __syncthreads();  // K and V have been read; both tiles are complete
+  stage_rows<T, D>(q_base, 3 * hd, rows, xs);  // Q
+  stage_rows<T, D>(do_base, hd, rows, ys);     // dO
+  __syncthreads();
+
+  if (active) {  // phase B: key row i of window w, down column i of the tiles
+    float dv[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      r[d] = 0.f;  // dk
+      dv[d] = 0.f;
+    }
+    const float* pcol = pt + w * n * ld + i;
+    const float* dcol = dt + w * n * ld + i;
+    T* ds_col = ds_out == nullptr
+        ? nullptr
+        : ds_out + ((w0 + w) * heads + h) * n * n + i;
+    for (int a = 0; a < n; ++a) {
+      const float pa = pcol[a * ld];
+      const float ds = dcol[a * ld];
+      if (ds_col != nullptr) ds_col[a * n] = vtt::from_f32<T>(ds);
+      axpy_row<D>(ds * scale, xw + a * D, r);
+      axpy_row<D>(pa, yw + a * D, dv);
+    }
+    store_row<T, D>(dq_base + t * 3 * hd + hd, r);
+    store_row<T, D>(dq_base + t * 3 * hd + 2 * hd, dv);
+  }
+}
+
+size_t bwd_smem_bytes(int p, int n, int d) {
+  return static_cast<size_t>(p) * n * (2 * d + 2 * (n | 1)) * sizeof(float);
+}
+
+template <typename T, int D>
+int launch_bwd(const void* qkv, const void* bias, const void* dout,
+               void* dqkv, void* ds_out, int g, int n, int heads,
+               int bias_windows, float scale, int p, int threads,
+               cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(p, n, D);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = window_bwd_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g + p - 1) / p, heads);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<const T*>(dout), static_cast<T*>(dqkv),
+      static_cast<T*>(ds_out), g, n, heads, bias_windows, scale, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 or the cudaError_t of the launch. bias may be null (then
+// bias_windows is ignored); ds_out may be null (no bias gradient wanted).
+// is_bf16: 1 = bf16, 0 = fp32 (qkv, bias, dout, dqkv and ds_out).
+int window_attention_bwd(const void* qkv, const void* bias, const void* dout,
+                         void* dqkv, void* ds_out, int g, int n, int heads,
+                         int dh, int bias_windows, float scale, int p,
+                         int threads, int is_bf16, void* stream) {
+  if (g < 1 || heads < 1 || heads > 65535 ||
+      !vtt::window_launch_ok(n, p, threads) ||
+      (bias != nullptr && bias_windows < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VTT_BWD(T, D) \
+  launch_bwd<T, D>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, p, threads, st)
+  switch (dh) {
+    case 16: return is_bf16 ? VTT_BWD(__nv_bfloat16, 16) : VTT_BWD(float, 16);
+    case 32: return is_bf16 ? VTT_BWD(__nv_bfloat16, 32) : VTT_BWD(float, 32);
+    case 64: return is_bf16 ? VTT_BWD(__nv_bfloat16, 64) : VTT_BWD(float, 64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VTT_BWD
+}
+
+const char* window_attention_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

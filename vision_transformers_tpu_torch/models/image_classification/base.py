@@ -12,6 +12,21 @@ unless it was built with ``device="cpu"``).
 
 from __future__ import annotations
 
+from typing import List, Optional
+
+import torch
+
+
+def draw_block_seeds(model, count: int) -> List[Optional[int]]:
+    """``count`` seeds for one forward of ``model``, drawn on the host (no
+    device synchronisation) from its ``dropout_generator``, in training mode
+    when it has any dropout or stochastic depth (``model.has_dropout``);
+    else ``count`` Nones. Every mask of a block is a function of its seed."""
+    if not (model.training and model.has_dropout):
+        return [None] * count
+    return torch.randint(0, 2 ** 62, (count,),
+                         generator=model.dropout_generator).tolist()
+
 
 class TrainableModel:
     """Mixin: reference-parity train_model API on top of the shared trainer."""

@@ -19,10 +19,15 @@ Module names mirror the JAX params tree (``patch_embed``, ``patch_norm``,
 transpose and one reshape (the conv kernel).
 
 Attention runs through the window kernels of ``ops/flash_attention.py``,
-which are forward only so far: on a CUDA device, a forward that records a
-gradient raises ``NotImplementedError`` (serve under ``torch.no_grad()`` or
-``torch.inference_mode()``, as ``serving`` does); on the CPU the plain
-versions differentiate.
+forward and backward, so the models train on the card through
+``train_model`` / ``training.trainer.fit`` as ViT does.
+
+Dropout and stochastic depth are explicit, as in ViT: the model owns one
+host ``torch.Generator`` (``dropout_generator``, which ``fit(seed=...)``
+seeds); in training mode one integer per block and forward is drawn from it
+on the host, and every mask of the block (the two stochastic-depth masks,
+the elementwise dropouts, the split-head attention dropout) is a function
+of that integer.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from vision_transformers_tpu_torch.core.dtypes import (
 from vision_transformers_tpu_torch.core.initializers import trunc_normal_, zeros_
 from vision_transformers_tpu_torch.models.image_classification.base import (
     TrainableModel,
+    draw_block_seeds,
 )
 from vision_transformers_tpu_torch.ops.layers import Dense, DropPath, LayerNorm
 from vision_transformers_tpu_torch.ops.mlp import MLPBlock
@@ -61,8 +67,9 @@ def _trunc02(t: torch.Tensor,
 
 class SwinTransformerBlock(nn.Module):
     """x + SD(attn(LN x)); x + SD(mlp(LN x)) on (B, H, W, C) maps.
-    ``forward(x, seed)``: ``seed`` is the block's dropout seed for this
-    forward (training with dropout only); its masks come from seed .. seed + 3."""
+    ``forward(x, seed)``: ``seed`` is the block's seed for this forward
+    (training with dropout or stochastic depth only); its masks come from
+    seed .. seed + 5."""
 
     attention_cls = ShiftedWindowAttention
 
@@ -85,9 +92,10 @@ class SwinTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None
                 ) -> torch.Tensor:
-        mlp_seed = None if seed is None else seed + 2
-        x = x + self.stochastic_depth(self.attn(self.norm1(x), seed))
-        return x + self.stochastic_depth(self.mlp(self.norm2(x), mlp_seed))
+        sub = (lambda i: None) if seed is None else (lambda i: seed + i)
+        x = x + self.stochastic_depth(self.attn(self.norm1(x), seed), sub(4))
+        return x + self.stochastic_depth(self.mlp(self.norm2(x), sub(2)),
+                                         sub(5))
 
 
 class SwinTransformerBlockV2(SwinTransformerBlock):
@@ -97,9 +105,10 @@ class SwinTransformerBlockV2(SwinTransformerBlock):
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None
                 ) -> torch.Tensor:
-        mlp_seed = None if seed is None else seed + 2
-        x = x + self.stochastic_depth(self.norm1(self.attn(x, seed)))
-        return x + self.stochastic_depth(self.norm2(self.mlp(x, mlp_seed)))
+        sub = (lambda i: None) if seed is None else (lambda i: seed + i)
+        x = x + self.stochastic_depth(self.norm1(self.attn(x, seed)), sub(4))
+        return x + self.stochastic_depth(self.norm2(self.mlp(x, sub(2))),
+                                         sub(5))
 
 
 class SwinTransformer(nn.Module, TrainableModel):
@@ -132,7 +141,8 @@ class SwinTransformer(nn.Module, TrainableModel):
             num_classes=num_classes, image_size=image_size, v2=v2,
             dtype=dtype_name(dtype), in_channels=in_channels)
         self.patch_size = patch_size
-        self.has_dropout = dropout > 0.0 or attention_dropout > 0.0
+        self.has_dropout = (dropout > 0.0 or attention_dropout > 0.0
+                            or stochastic_depth_prob > 0.0)
         gen = torch.Generator().manual_seed(seed)
         self.dropout_generator = torch.Generator().manual_seed(seed)
 
@@ -183,11 +193,7 @@ class SwinTransformer(nn.Module, TrainableModel):
         ph, pw = self.patch_size
         x = self.patch_embed(patchify(images, (ph, pw)))
         x = self.patch_norm(x).reshape(b, h // ph, w // pw, -1)
-        seeds = [None] * len(self.block_names)
-        if self.training and self.has_dropout:
-            # one host draw per forward: no device synchronisation
-            seeds = torch.randint(0, 2 ** 62, (len(seeds),),
-                                  generator=self.dropout_generator).tolist()
+        seeds = draw_block_seeds(self, len(self.block_names))
         for name, seed in zip(self.block_names, seeds):
             block = getattr(self, name)
             x = block(x) if name.startswith("merge") else block(x, seed)

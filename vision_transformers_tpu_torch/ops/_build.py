@@ -25,7 +25,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("packed_attention", "flash_attention", "dropout_attention",
-           "window_attention", "window_fused_attention")
+           "window_attention", "window_fused_attention",
+           "window_attention_bwd", "fused_adam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -72,6 +73,19 @@ _SIGNATURES = {
         for fn in ("window_fused_slab_attention_fwd",
                    "window_fused_flat_attention_fwd")
     } | {"window_fused_attention_error_string": (ctypes.c_char_p, [_I])},
+    # (qkv, bias, dout, dqkv, ds_out, g, n, heads, dh, bias_windows, scale,
+    #  p, threads, is_bf16, stream)
+    "window_attention_bwd": {
+        "window_attention_bwd": (
+            _I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P]),
+        "window_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (p, m, v, g, n, b1, b2, c1, c2, neg_lr, wd, eps, blocks, stream)
+    "fused_adam": {
+        "fused_adam": (
+            _I, [_P] * 4 + [ctypes.c_longlong] + [_F] * 7 + [_I, _P]),
+        "fused_adam_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Attention kernels for Hopper, forward and backward, each beside its plain
 version.
 
-Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Nine of
+Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Ten of
 its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 
 - ``packed_flash_attention`` (``csrc/packed_attention.cu``) replaces
@@ -25,10 +25,13 @@ its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
   ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
   (the flat plan): cyclic shift, window partition, attention, reverse and
-  un-shift in one pass over the NHWC projection map. The four window
-  kernels are forward only: on CUDA they raise ``NotImplementedError`` for
-  inputs that require a gradient (their backward, ``_window_pack_bwd_kernel``,
-  is not ported yet); the plain versions differentiate on the CPU.
+  un-shift in one pass over the NHWC projection map.
+- ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``) replaces
+  ``_window_pack_bwd_kernel``, the backward the four window kernels share:
+  from (qkv, bias, dO) it recomputes the probabilities and gives the packed
+  dqkv and the bias gradient. The fused wrapper's backward rolls and
+  partitions the map and dO around it in plain PyTorch, as the JAX package
+  does in plain XLA.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel or raises: there
@@ -69,7 +72,10 @@ LAUNCHES: Dict[str, int] = {
     "packed_attention": 0, "flash_attention": 0, "packed_attention_bwd": 0,
     "dropout_attention_fwd": 0, "dropout_attention_bwd": 0,
     "window_packed_attention": 0, "window_batched_attention": 0,
-    "window_fused_slab_attention": 0, "window_fused_flat_attention": 0}
+    "window_fused_slab_attention": 0, "window_fused_flat_attention": 0,
+    "window_attention_bwd": 0,
+    # ops/fused_adam.py (replaces fused_adam.py::_adam_kernel)
+    "fused_adam": 0}
 
 
 def reset_launch_counts() -> None:
@@ -786,10 +792,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Window attention (replaces _window_pack_kernel, flash_attention.py:1295,
-# _window_batched_kernel, :1708, _window_fused_flat_kernel, :1997, and
-# _window_fused_kernel, :2056)
+# _window_batched_kernel, :1708, _window_fused_flat_kernel, :1997,
+# _window_fused_kernel, :2056, and their shared backward
+# _window_pack_bwd_kernel, :1466)
 #
-# One function, four kernels: per (window g, head h)
+# One function, four forward kernels and one backward: per (window g, head h)
 #   out = softmax(q·kᵀ·scale + bias[g mod nW', h])·v
 # with q, k, v read in place from the packed projection, N <= 128 tokens per
 # window and the bias rounded to the compute dtype. The packed and batched
@@ -814,6 +821,12 @@ MAX_WINDOW_TOKENS = 128
 _WINDOW_MAX_THREADS = 256
 _WINDOW_MAX_SMEM = 96 * 1024
 _H100_SMS = 132
+# The backward kernel also keeps two fp32 N×N tiles per window in shared
+# memory: as many windows per block as leave room for two blocks on an SM,
+# and at least one (N = 128, dh = 64 takes 193 KB of the 227 KB a block may
+# ask for).
+_WINDOW_BWD_SMEM_TARGET = 100 * 1024
+_WINDOW_BWD_SMEM_LIMIT = 232448
 
 
 def _window_shape_ok(n: int, dh: int) -> bool:
@@ -864,6 +877,33 @@ def window_batched_plan(g: int, n: int, heads: int, dh: int,
     p, threads = _window_block(n, dh)
     passes = max(1, min(8, (g * heads) // (p * _H100_SMS * 4)))
     return p, threads, passes
+
+
+def _window_bwd_smem(p: int, n: int, dh: int) -> int:
+    """Bytes of shared memory of the backward kernel for p windows: K/V (then
+    Q/dO) as (N, dh) fp32 and two (N, N|1) fp32 score tiles each."""
+    return p * n * (2 * dh + 2 * (n | 1)) * 4
+
+
+def window_bwd_plan(g: int, n: int, heads: int, dh: int):
+    """(windows per block, threads) for ``window_attention_bwd``, or None if
+    the shape is outside the window kernels' contract. One thread per row,
+    so the block's P·N rows should fill whole warps, within the shared
+    memory that leaves two blocks to an SM. The JAX plan
+    (``_window_pack_bwd_gblk``) is a VMEM budget and a ``g % p`` condition,
+    facts of the TPU: here every shape the forward kernels take has a
+    backward kernel."""
+    if not _window_shape_ok(n, dh) or g < 1 \
+            or _window_bwd_smem(1, n, dh) > _WINDOW_BWD_SMEM_LIMIT:
+        return None
+    best = (-(-n // 32) * 32, 1)
+    for p in range(2, _WINDOW_MAX_THREADS // n + 1):
+        if _window_bwd_smem(p, n, dh) > _WINDOW_BWD_SMEM_TARGET:
+            break
+        threads = -(-p * n // 32) * 32
+        if threads / p <= best[0] / best[1]:
+            best = (threads, p)
+    return best[1], best[0]
 
 
 def _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) -> bool:
@@ -945,6 +985,61 @@ def window_attention_reference(qkv: torch.Tensor,
     return o.transpose(1, 2).reshape(g, n, hd).to(qkv.dtype)
 
 
+def window_attention_bwd_reference(
+        qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor,
+        heads: int, scale: Optional[float] = None, need_dbias: bool = True
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the window backward → (dqkv (G, N, 3·H·dh)
+    in qkv's dtype, dbias in the bias's shape and dtype or None), written
+    out from the TPU kernel's formulas (flash_attention.py:1500-1559,
+    :1607-1617), not autograd of the forward:
+
+    s = q·kᵀ·scale + bias (rounded to qkv's dtype), p = softmax(s) in fp32,
+    dp = do·vᵀ, ds = p ⊙ (dp − rowsum(dp ⊙ p)); dv = pᵀ·do with p rounded to
+    the value dtype; dq = (ds·scale)·k and dk = (ds·scale)ᵀ·q with ds·scale
+    rounded to the q dtype; dbias[w] = the fp32 sum, over the windows g with
+    g mod nW' = w, of ds rounded to qkv's dtype first (the TPU kernel emits
+    ds in that dtype and sums it outside)."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    if do.shape != (g, n, hd):
+        raise ValueError(f"do must be {(g, n, hd)}, got {tuple(do.shape)}")
+    dtype = qkv.dtype
+    bias_c = _window_bias(bias, g, heads, n, dtype)
+    q, k, v = (t.reshape(g, n, heads, dh).transpose(1, 2).float()
+               for t in qkv.split(hd, dim=-1))
+    dof = do.reshape(g, n, heads, dh).transpose(1, 2).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias_c is not None:
+        nw = bias_c.shape[0]
+        s = (s.reshape(g // nw, nw, heads, n, n) + bias_c.float()).reshape(
+            g, heads, n, n)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.matmul(dof, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof)
+    ds_c = (ds * scale).to(dtype).float()
+    dq = torch.matmul(ds_c, k)
+    dk = torch.matmul(ds_c.transpose(-1, -2), q)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(g, n, hd)
+                      for t in (dq, dk, dv)], dim=-1).to(dtype)
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = _reduce_window_ds(ds.to(dtype), bias)
+    return dqkv, dbias
+
+
+def _reduce_window_ds(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's per-window score gradient (G, H, N, N), in the compute
+    dtype, summed in fp32 over the windows that read one bias row → dbias
+    in the bias's shape and dtype (flash_attention.py:1609-1617; plain jnp
+    there, plain PyTorch here)."""
+    g, heads, n, _ = ds.shape
+    nw = bias.shape[0]
+    return ds.float().reshape(g // nw, nw, heads, n, n).sum(dim=0).to(
+        bias.dtype)
+
+
 def _fused_dims(qkv_map, heads, window, shift, dh, scale):
     if qkv_map.ndim != 4 or qkv_map.shape[-1] % 3:
         raise ValueError("qkv_map must be (B, Hp, Wp, 3·sec), got "
@@ -1001,13 +1096,7 @@ def _check_window_operands(name: str, qkv: torch.Tensor,
                            bias: Optional[torch.Tensor], dh: int,
                            sec: int) -> None:
     """What the CUDA window kernels take: see ``_check_cuda_operand``; rows
-    are read as 16-byte vectors; and no gradient (forward only)."""
-    if torch.is_grad_enabled() and (
-            qkv.requires_grad or (bias is not None and bias.requires_grad)):
-        raise NotImplementedError(
-            f"{name} on CUDA is forward only: its backward "
-            "(_window_pack_bwd_kernel) is not ported yet (ROADMAP.md, queue "
-            "2, row 10); call it under torch.no_grad() or on the CPU")
+    are read as 16-byte vectors."""
     _check_cuda_operand("qkv", qkv, qkv.dtype, dh)
     if qkv.data_ptr() % 16 or (sec * qkv.element_size()) % 16:
         raise ValueError(
@@ -1033,6 +1122,104 @@ def _window_launch(lib_name: str, fn: str, counter: str, qkv: torch.Tensor,
     return out
 
 
+def _window_forward(kind: str, qkv: torch.Tensor,
+                    bias: Optional[torch.Tensor], heads: int,
+                    scale: Optional[float], plan) -> torch.Tensor:
+    """The packed (``kind`` "packed") or batched forward; no autograd graph."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, bias, heads, scale)
+    name = f"window_{kind}_attention"
+    _check_window_operands(name, qkv, bias, dh, hd)
+    bias = _window_bias(bias, g, heads, n, qkv.dtype)
+    out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
+    return _window_launch(
+        "window_attention", f"{name}_fwd", name, qkv, bias, out, g, n, heads,
+        dh, 0 if bias is None else bias.shape[0], scale, *plan)
+
+
+def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                         do: torch.Tensor, heads: int,
+                         scale: Optional[float] = None,
+                         need_dbias: bool = True, *,
+                         dqkv: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward the four window kernels share: (qkv, bias) of a forward
+    with the same ``scale`` and the output's gradient do (G, N, H·dh) →
+    (dqkv (G, N, 3·H·dh), dbias in the bias's shape and dtype, or None
+    without a bias or with ``need_dbias`` false).
+
+    Nothing of the forward is kept: the kernel recomputes the probabilities
+    with the forward's max-before-exp, from the bias rounded to qkv's dtype
+    as the forward read it. Every element of dqkv is written, and two runs
+    give equal bits (no atomics). For dbias the kernel writes the score
+    gradient (G, H, N, N) in qkv's dtype and the sum over the windows that
+    share a bias row is taken here, in fp32; with ``need_dbias`` false
+    nothing of it is written. ``dqkv`` (CUDA only): a contiguous tensor
+    like qkv to write into instead of a new one."""
+    g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
+    if do.shape != (g, n, hd):
+        raise ValueError(f"do must be {(g, n, hd)}, got {tuple(do.shape)}")
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_reference(qkv, bias, do, heads, scale,
+                                              need_dbias)
+    plan = window_bwd_plan(g, n, heads, dh)
+    if plan is None:
+        raise ValueError(
+            f"window_attention_bwd: N = {n}, dh = {dh} not supported")
+
+    from vision_transformers_tpu_torch.ops import _build
+
+    do = do.contiguous()  # arrives as a view of the caller's reverse
+    _check_window_operands("window_attention_bwd", qkv, bias, dh, hd)
+    _check_cuda_operand("do", do, qkv.dtype, dh)
+    _check_same_device(qkv, do=do)
+    if do.data_ptr() % 16:
+        raise ValueError("window_attention_bwd: do must be 16-byte aligned")
+    if dqkv is None:
+        dqkv = torch.empty_like(qkv)
+    elif dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype \
+            or dqkv.device != qkv.device or not dqkv.is_contiguous():
+        raise ValueError("dqkv must be a contiguous tensor like qkv")
+    bias_c = _window_bias(bias, g, heads, n, qkv.dtype)
+    ds = None
+    if bias is not None and need_dbias:
+        ds = torch.empty(g, heads, n, n, dtype=qkv.dtype, device=qkv.device)
+    p, threads = plan
+    lib = _build.load("window_attention_bwd")
+    with torch.cuda.device(qkv.device):  # launch on the tensor's card
+        rc = lib.window_attention_bwd(
+            qkv.data_ptr(), None if bias_c is None else bias_c.data_ptr(),
+            do.data_ptr(), dqkv.data_ptr(),
+            None if ds is None else ds.data_ptr(), g, n, heads, dh,
+            0 if bias_c is None else bias_c.shape[0], scale, p, threads,
+            int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(lib, "window_attention_bwd", rc)
+    LAUNCHES["window_attention_bwd"] += 1
+    return dqkv, None if ds is None else _reduce_window_ds(ds, bias)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """``_window_pack``'s and ``_window_batched``'s custom_vjp
+    (flash_attention.py:1620-1658, :1769-1803): saves (qkv, bias) only; both
+    share one backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, heads, scale, kind, plan):
+        out = _window_forward(kind, qkv, bias, heads, scale, plan)
+        ctx.save_for_backward(qkv, bias)
+        ctx.args = (heads, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = window_attention_bwd(
+            qkv, bias, do, *ctx.args, need_dbias=ctx.needs_input_grad[1])
+        return dqkv, dbias, None, None, None, None
+
+
 def window_packed_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                             heads: int, scale: Optional[float] = None,
                             plan=None) -> torch.Tensor:
@@ -1042,6 +1229,7 @@ def window_packed_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     (1 | nW', H, N, N) combined relative-position (+ shift or pad mask) bias
     or None; window g reads bias row g mod nW'. ``plan`` from
     ``window_pack_plan`` (computed if omitted). Returns (G, N, H·dh).
+    Differentiable in qkv and bias (``window_attention_bwd``).
 
     The CUDA kernel gives a block as many windows of one head as fill its
     threads with query rows (one thread per row), each window reading its
@@ -1053,25 +1241,16 @@ def window_packed_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                                 qkv.element_size())
     if plan is None:
         raise ValueError("shape not supported; check window_pack_plan first")
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, bias, heads, scale)
-    _check_window_operands("window_packed_attention", qkv, bias, dh, hd)
-    bias = _window_bias(bias, g, heads, n, qkv.dtype)
-    out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
-    p, threads = plan
-    return _window_launch(
-        "window_attention", "window_packed_attention_fwd",
-        "window_packed_attention", qkv, bias, out, g, n, heads, dh,
-        0 if bias is None else bias.shape[0], scale, p, threads)
+    return _WindowAttention.apply(qkv, bias, heads, scale, "packed", plan)
 
 
 def window_batched_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                              heads: int, scale: Optional[float] = None,
                              blk=None) -> torch.Tensor:
-    """Per-head batched window attention: the same function and shapes as
-    ``window_packed_attention``, for the case the router sends it (a bias
-    shared by all windows). ``blk`` from ``window_batched_plan`` (computed if
-    omitted).
+    """Per-head batched window attention: the same function, shapes and
+    backward as ``window_packed_attention``, for the case the router sends
+    it (a bias shared by all windows). ``blk`` from ``window_batched_plan``
+    (computed if omitted).
 
     The CUDA kernel's block belongs to one head: it stages that head's
     shared (N, N) bias in shared memory once and reuses it over several
@@ -1084,16 +1263,87 @@ def window_batched_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                                   qkv.element_size())
     if blk is None:
         raise ValueError("shape not supported; check window_batched_plan")
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, bias, heads, scale)
-    _check_window_operands("window_batched_attention", qkv, bias, dh, hd)
-    bias = _window_bias(bias, g, heads, n, qkv.dtype)
-    out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
-    p, threads, passes = blk
+    return _WindowAttention.apply(qkv, bias, heads, scale, "batched", blk)
+
+
+def _fused_window_forward(qkv_map, bias, heads, window, shift, dh, scale,
+                          plan, out):
+    """The slab or flat forward; no autograd graph."""
+    b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale = _fused_dims(
+        qkv_map, heads, window, shift, dh, scale)
+    if qkv_map.device.type == "cpu":
+        return window_fused_reference(qkv_map, bias, heads, (wh, ww),
+                                      (sh, sw), scale, hd)
+    name = f"fused_window_attention ({plan[0]})"
+    _check_window_operands(name, qkv_map, bias, dh, sec)
+    nwin = (hp // wh) * (wp // ww)
+    bias = _window_bias(bias, nwin, heads, wh * ww, qkv_map.dtype)
+    if out is None:
+        alloc = torch.empty if sec == hd else torch.zeros  # zero pad lanes
+        out = alloc(b, hp, wp, sec, dtype=qkv_map.dtype,
+                    device=qkv_map.device)
+    elif out.shape != (b, hp, wp, sec) or out.dtype != qkv_map.dtype \
+            or out.device != qkv_map.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {(b, hp, wp, sec)} "
+                         f"{qkv_map.dtype} tensor on {qkv_map.device}")
+    kind, p, threads = plan
     return _window_launch(
-        "window_attention", "window_batched_attention_fwd",
-        "window_batched_attention", qkv, bias, out, g, n, heads, dh,
-        0 if bias is None else bias.shape[0], scale, p, threads, passes)
+        "window_fused_attention", f"window_fused_{kind}_attention_fwd",
+        f"window_fused_{kind}_attention", qkv_map, bias, out, b, hp, wp, wh,
+        ww, sh, sw, heads, dh, sec, 0 if bias is None else bias.shape[0],
+        scale, p, threads)
+
+
+def _fused_window_backward(qkv_map, bias, do, heads, window, shift, dh, scale,
+                           need_dbias):
+    """``_window_fused_bwd_rule`` (flash_attention.py:2310-2336): the
+    roll(−shift) → partition chain on the map and on do, cropped to the real
+    H·dh, in plain PyTorch (plain XLA there) around ``window_attention_bwd``;
+    dqkv reversed and rolled back to the map, zeros in the pad lanes."""
+    b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale = _fused_dims(
+        qkv_map, heads, window, shift, dh, scale)
+    x, do = qkv_map, do[..., :hd]
+    if hd != sec:
+        x = torch.cat([x[..., s * sec:s * sec + hd] for s in range(3)], dim=-1)
+    if sh or sw:
+        x = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2))
+        do = torch.roll(do, shifts=(-sh, -sw), dims=(1, 2))
+
+    def partition(t):
+        return t.reshape(b, hp // wh, wh, wp // ww, ww, t.shape[-1]).permute(
+            0, 1, 3, 2, 4, 5).reshape(-1, wh * ww, t.shape[-1])
+
+    dqkv, dbias = window_attention_bwd(partition(x), bias, partition(do),
+                                       heads, scale, need_dbias)
+    dmap = dqkv.reshape(b, hp // wh, wp // ww, wh, ww, 3 * hd).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, hp, wp, 3 * hd)
+    if sh or sw:
+        dmap = torch.roll(dmap, shifts=(sh, sw), dims=(1, 2))
+    if hd != sec:
+        padded = dmap.new_zeros(b, hp, wp, 3 * sec)
+        for s in range(3):
+            padded[..., s * sec:s * sec + hd] = dmap[..., s * hd:(s + 1) * hd]
+        dmap = padded
+    return dmap, dbias
+
+
+class _FusedWindowAttention(torch.autograd.Function):
+    """``_window_fused``'s custom_vjp (flash_attention.py:2298-2351)."""
+
+    @staticmethod
+    def forward(ctx, qkv_map, bias, heads, window, shift, dh, scale, plan):
+        out = _fused_window_forward(qkv_map, bias, heads, window, shift, dh,
+                                    scale, plan, None)
+        ctx.save_for_backward(qkv_map, bias)
+        ctx.args = (heads, window, shift, dh, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv_map, bias = ctx.saved_tensors
+        dmap, dbias = _fused_window_backward(
+            qkv_map, bias, do, *ctx.args, need_dbias=ctx.needs_input_grad[1])
+        return dmap, dbias, None, None, None, None, None, None
 
 
 def fused_window_attention(qkv_map: torch.Tensor,
@@ -1118,36 +1368,25 @@ def fused_window_attention(qkv_map: torch.Tensor,
     ``window_fused_plan`` (the slab kernel: one block per image, window row
     and head; computed if omitted) or ``window_fused_flat_plan`` (the flat
     kernel: blocks of consecutive windows of the flat view, any width).
-    ``out`` (CUDA only): a contiguous (B, Hp, Wp, sec) tensor to write into
-    instead of a new one; a check can pre-fill it to see that every element
-    of [..., :H·dh] is written."""
+    Differentiable in qkv_map and bias: the backward makes the rolled and
+    partitioned tensors the forward avoids, around ``window_attention_bwd``.
+    ``out`` (CUDA only, no gradient): a contiguous (B, Hp, Wp, sec) tensor
+    to write into instead of a new one; a check can pre-fill it to see that
+    every element of [..., :H·dh] is written."""
     b, hp, wp, sec, wh, ww, sh, sw, dh, hd, scale = _fused_dims(
         qkv_map, heads, window, shift, dh, scale)
-    n = wh * ww
     if plan is None:
         plan = window_fused_plan(b, hp, wp, wh, ww, heads, dh,
                                  1 if bias is None else bias.shape[0],
                                  qkv_map.element_size())
     if plan is None:
         raise ValueError("shape not supported; check window_fused_plan")
-    if qkv_map.device.type == "cpu":
-        return window_fused_reference(qkv_map, bias, heads, (wh, ww),
-                                      (sh, sw), scale, hd)
-    name = f"fused_window_attention ({plan[0]})"
-    _check_window_operands(name, qkv_map, bias, dh, sec)
-    nwin = (hp // wh) * (wp // ww)
-    bias = _window_bias(bias, nwin, heads, n, qkv_map.dtype)
     if out is None:
-        alloc = torch.empty if sec == hd else torch.zeros  # zero pad lanes
-        out = alloc(b, hp, wp, sec, dtype=qkv_map.dtype,
-                    device=qkv_map.device)
-    elif out.shape != (b, hp, wp, sec) or out.dtype != qkv_map.dtype \
-            or out.device != qkv_map.device or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous {(b, hp, wp, sec)} "
-                         f"{qkv_map.dtype} tensor on {qkv_map.device}")
-    kind, p, threads = plan
-    return _window_launch(
-        "window_fused_attention", f"window_fused_{kind}_attention_fwd",
-        f"window_fused_{kind}_attention", qkv_map, bias, out, b, hp, wp, wh,
-        ww, sh, sw, heads, dh, sec, 0 if bias is None else bias.shape[0],
-        scale, p, threads)
+        return _FusedWindowAttention.apply(qkv_map, bias, heads, (wh, ww),
+                                           (sh, sw), dh, scale, plan)
+    if torch.is_grad_enabled() and (
+            qkv_map.requires_grad
+            or (bias is not None and bias.requires_grad)):
+        raise ValueError("fused_window_attention: out= takes no gradient")
+    return _fused_window_forward(qkv_map, bias, heads, (wh, ww), (sh, sw), dh,
+                                 scale, plan, out)

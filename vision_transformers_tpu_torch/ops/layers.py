@@ -90,16 +90,21 @@ class Dropout(nn.Module):
 class DropPath(nn.Module):
     """Per-sample stochastic depth: drop the whole residual branch with
     probability ``rate``, rescale survivors by 1/(1-rate). Identity at
-    eval."""
+    eval or at rate 0. As ``Dropout``, ``forward(x, seed)`` makes its mask
+    from the host integer ``seed`` and from nothing else."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
+        if seed is None:
+            raise ValueError("stochastic depth in training mode needs a seed")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        mask = torch.rand(shape, generator=gen, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))

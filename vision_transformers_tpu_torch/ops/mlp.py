@@ -1,9 +1,11 @@
-"""Transformer MLP block.
+"""Transformer MLP blocks.
 
-Counterpart of ``vision_transformers_tpu/ops/mlp.py::MLPBlock``: Linear →
+Counterpart of ``vision_transformers_tpu/ops/mlp.py``. ``MLPBlock``: Linear →
 GELU → Dropout → Linear → Dropout with xavier-uniform weights and
-N(0, 1e-6) biases (the reference encoder MLP). Plain matrix products: the
-JAX package leaves them to XLA, and this port to ``torch.matmul``.
+N(0, 1e-6) biases (the reference encoder MLP, also Swin's). ``Mlp``: the
+timm-style two-layer MLP of the PVT and Twins families, trunc-normal 0.02
+weights and zero biases. Plain matrix products: the JAX package leaves them
+to XLA, and this port to ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vision_transformers_tpu_torch.core.initializers import tiny_normal_
+from vision_transformers_tpu_torch.core.initializers import (
+    tiny_normal_,
+    trunc_normal_,
+    zeros_,
+)
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout
 
 
@@ -45,5 +51,29 @@ class MLPBlock(nn.Module):
                 ) -> torch.Tensor:
         """``seed`` (training with dropout > 0): the two masks are made from
         seed and seed + 1."""
+        x = self.drop(self.act(self.fc1(x)), seed)
+        return self.drop(self.fc2(x), None if seed is None else seed + 1)
+
+
+class Mlp(nn.Module):
+    """timm-style MLP: in → hidden (default: in) → out (default: in), with
+    the dtype-appropriate GELU unless ``act`` is given and dropout after both
+    layers. ``forward(x, seed)`` as ``MLPBlock``."""
+
+    def __init__(self, in_dim: int, hidden_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, dropout: float = 0.0,
+                 act: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 *, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        init = dict(dtype=dtype, weight_init=trunc_normal_, bias_init=zeros_,
+                    generator=generator)
+        self.fc1 = Dense(in_dim, hidden_dim or in_dim, **init)
+        self.fc2 = Dense(hidden_dim or in_dim, out_dim or in_dim, **init)
+        self.act = act or gelu_for(dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
         x = self.drop(self.act(self.fc1(x)), seed)
         return self.drop(self.fc2(x), None if seed is None else seed + 1)

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from vision_transformers_tpu_torch.core.initializers import conv_patch_
-from vision_transformers_tpu_torch.ops.layers import Dense
+from vision_transformers_tpu_torch.ops.layers import Dense, LayerNorm
 
 
 def patchify(images: torch.Tensor,
@@ -38,11 +38,13 @@ class PatchEmbed(nn.Module):
     """Non-overlapping patch embedding (conv as matmul).
 
     Init mirrors the reference conv patch embed: trunc_normal with
-    std=sqrt(1/fan_in), zero bias. Returns (tokens, (grid_h, grid_w)).
+    std=sqrt(1/fan_in), zero bias. ``norm=True`` adds the LayerNorm
+    (eps 1e-6) after the projection that PVT and Twins use. Returns
+    (tokens, (grid_h, grid_w)).
     """
 
     def __init__(self, embed_dim: int, patch_size: int, in_channels: int = 3,
-                 *, dtype: torch.dtype = torch.float32,
+                 norm: bool = False, *, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.patch_size = patch_size
@@ -51,9 +53,14 @@ class PatchEmbed(nn.Module):
             weight_init=functools.partial(
                 conv_patch_, patch_size=patch_size, in_channels=in_channels),
             generator=generator)
+        self.norm = LayerNorm(embed_dim, eps=1e-6, dtype=dtype) if norm \
+            else None
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[int, int]]:
         _, h, w, _ = images.shape
         p = self.patch_size
-        return self.proj(patchify(images, p)), (h // p, w // p)
+        tokens = self.proj(patchify(images, p))
+        if self.norm is not None:
+            tokens = self.norm(tokens)
+        return tokens, (h // p, w // p)

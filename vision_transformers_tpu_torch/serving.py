@@ -11,7 +11,8 @@ model from this package's registry. Requests are still padded up to a fixed
 bucket (or chunked through the largest one), so the card only ever sees the
 exported batch sizes.
 
-The registry holds ``ViT``, ``SwinTransformer`` and ``SwinTransformerV2``.
+The registry holds ``ViT``, ``SwinTransformer``, ``SwinTransformerV2``,
+``PVT`` and ``TwinSVT``.
 Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
 through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
 serves through the kernels' plain versions, for tests.
@@ -37,8 +38,10 @@ from vision_transformers_tpu_torch.core.dtypes import (
     resolve_device,
 )
 from vision_transformers_tpu_torch.models.image_classification import (
+    PVT,
     SwinTransformer,
     SwinTransformerV2,
+    TwinSVT,
     ViT,
 )
 
@@ -46,7 +49,8 @@ _MANIFEST = "manifest.json"
 _WEIGHTS = "weights.pt"
 _FORMAT_VERSION = 1
 _MODELS = {"ViT": ViT, "SwinTransformer": SwinTransformer,
-           "SwinTransformerV2": SwinTransformerV2}
+           "SwinTransformerV2": SwinTransformerV2, "PVT": PVT,
+           "TwinSVT": TwinSVT}
 
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],

@@ -16,8 +16,10 @@ differ, optax's arithmetic is kept:
 - a schedule is read at the count of updates already applied.
 
 The updates run in place on fp32 parameters through ``torch._foreach_*``
-(a handful of launches per step, whatever the number of parameters). The JAX
-package's opt-in single-pass Adam kernel (``fused=True``) is not ported yet.
+(a handful of launches per step, whatever the number of parameters).
+``make_optimizer(..., fused=True)`` selects, for adam and adamw, the
+single-pass Adam kernel of ``ops/fused_adam.py`` instead (one launch per
+large leaf); it is opt-in, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Callable, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
+
+from vision_transformers_tpu_torch.ops.fused_adam import fused_adam_update
 
 Schedule = Callable[[int], float]
 
@@ -39,11 +43,14 @@ class Optimizer:
         loss.backward(); tx.step(); tx.zero_grad()
 
     ``count`` is the number of updates applied (accumulation steps that
-    only gather a gradient do not count)."""
+    only gather a gradient do not count). ``fused`` (adam and adamw only):
+    the whole update of a step goes through ``fused_adam_update``, with
+    fp32 moments whatever the parameters' dtype."""
 
     def __init__(self, name: str, learning_rate: Union[float, Schedule], *,
                  weight_decay: float, momentum: Optional[float],
-                 grad_clip_norm: Optional[float], accumulate_steps: int):
+                 grad_clip_norm: Optional[float], accumulate_steps: int,
+                 fused: bool = False):
         if name not in ("adam", "adamw", "sgd", "rmsprop"):
             raise ValueError(f"Unknown optimizer: {name}")
         self.name = name
@@ -52,6 +59,7 @@ class Optimizer:
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
         self.accumulate_steps = max(1, int(accumulate_steps))
+        self.fused = fused
         self.params: List[torch.Tensor] = []
         self.count = 0
         self.mini_step = 0
@@ -64,7 +72,11 @@ class Optimizer:
         self.mini_step = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.state = {}
-        if self.name in ("adam", "adamw"):
+        if self.fused:
+            fp32 = lambda: [torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                            for p in self.params]
+            self.state = {"mu": fp32(), "nu": fp32()}
+        elif self.name in ("adam", "adamw"):
             self.state = {"mu": zeros(), "nu": zeros()}
         elif self.name == "sgd" and self.momentum is not None:
             self.state = {"trace": zeros()}
@@ -120,6 +132,11 @@ class Optimizer:
 
     def _adam(self, params, grads, lr, b1=0.9, b2=0.999, eps=1e-8):
         mu, nu = self.state["mu"], self.state["nu"]
+        if self.fused:
+            fused_adam_update(params, mu, nu, grads, self.count + 1, lr,
+                              b1=b1, b2=b2, eps=eps,
+                              weight_decay=self.weight_decay)
+            return
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
@@ -179,17 +196,23 @@ def make_optimizer(
 ) -> Optimizer:
     """The JAX package's factory. ``weight_decay`` applies to adam and adamw
     (decoupled), ``momentum`` to sgd and rmsprop. ``schedule`` (count → lr)
-    replaces ``lr``. Bind parameters with ``.init(params)``."""
+    replaces ``lr``. Bind parameters with ``.init(params)``.
+
+    ``fused=True`` selects the single-pass Adam(W) kernel
+    (``ops/fused_adam.py``) for adam and adamw; it does not compose with
+    clipping or accumulation. Off by default, as in the JAX package."""
     name = name.lower()
-    if fused:
-        raise NotImplementedError(
-            "the single-pass Adam kernel is not ported yet "
-            "(ROADMAP.md, queue 2, row 15)")
+    fused = bool(fused) and name in ("adam", "adamw")
+    if fused and (grad_clip_norm is not None or accumulate_steps > 1):
+        raise ValueError(
+            "fused adam does not compose with grad_clip_norm or "
+            "gradient accumulation; pass fused=False")
     return Optimizer(
         name, schedule if schedule is not None else lr,
         weight_decay=weight_decay if name in ("adam", "adamw") else 0.0,
         momentum=momentum if name in ("sgd", "rmsprop") else None,
-        grad_clip_norm=grad_clip_norm, accumulate_steps=accumulate_steps)
+        grad_clip_norm=grad_clip_norm, accumulate_steps=accumulate_steps,
+        fused=fused)
 
 
 def cosine_schedule(base_lr: float, total_steps: int,

@@ -1,6 +1,7 @@
 """Weights from the JAX package's models into this port's modules.
 
-``vit_state_dict_from_jax(params)`` and ``swin_state_dict_from_jax(params)``
+``vit_state_dict_from_jax(params)``, ``swin_state_dict_from_jax(params)``,
+``pvt_state_dict_from_jax(params)`` and ``twins_state_dict_from_jax(params)``
 take a JAX model's params tree as nested dicts of numpy arrays
 (``jax.device_get(params)`` gives that) and return the port's
 ``state_dict``. The port's module names mirror the JAX tree, so the mapping
@@ -10,12 +11,15 @@ is a rename and a transpose:
 - a conv ``kernel`` (ph, pw, cin, out), Swin's patch embedding → the
   ``weight`` (out, ph·pw·cin) of the matmul that ``patchify`` feeds, whose
   features are ordered (ph, pw, c) too;
+- Twins' depthwise conv ``kernel`` (3, 3, 1, C) → ``F.conv2d``'s
+  ``weight`` (C, 1, 3, 3);
 - LayerNorm ``scale`` → ``weight``;
 - every other leaf as it is: ``bias``, ``class_token``, ``pos_embedding``,
-  and the window attention's raw parameters, which keep flax's (in, out)
-  layout in the port (``qkv_kernel``, ``proj_kernel``, ``qkv_bias``,
+  PVT's ``cls_token`` and ``position_embedding{i}``, and the window
+  attention's raw parameters, which keep flax's (in, out) layout in the
+  port (``qkv_kernel``, ``proj_kernel``, ``qkv_bias``,
   ``relative_position_bias_table``; SwinV2's ``q_bias``, ``v_bias``,
-  ``logit_scale``).
+  ``logit_scale``; Twins LSA's ``qkv_bias_p``, ``proj_bias_p``).
 
 Loading reference or torchvision checkpoints is not ported yet.
 """
@@ -37,11 +41,14 @@ def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 walk(sub, f"{prefix}{key}.")
                 continue
             arr = np.asarray(sub, dtype=np.float32)
-            if key == "kernel":
+            if key == "kernel" and prefix.startswith("pos_block"):
+                key, arr = "weight", arr.transpose(3, 2, 0, 1)  # depthwise
+            elif key == "kernel":
                 key, arr = "weight", arr.reshape(-1, arr.shape[-1]).T
             elif key == "scale":
                 key = "weight"
-            out[prefix + key] = torch.tensor(arr)  # a copy: jax arrays are read-only
+            # a contiguous copy: jax arrays are read-only
+            out[prefix + key] = torch.tensor(np.ascontiguousarray(arr))
 
     walk(params, "")
     return out
@@ -51,4 +58,17 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     """``SwinTransformer`` / ``SwinTransformerV2`` params → the port's
     ``state_dict`` (loads with ``strict=True``). The same walk as the ViT's:
     the tree's names are the port's module names."""
+    return vit_state_dict_from_jax(params)
+
+
+def pvt_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``PVT`` params → the port's ``state_dict`` (loads with
+    ``strict=True``): the same walk again."""
+    return vit_state_dict_from_jax(params)
+
+
+def twins_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``TwinSVT`` params → the port's ``state_dict`` (loads with
+    ``strict=True``); ``pos_block{k}.proj.kernel`` is the one depthwise conv
+    kernel of the tree."""
     return vit_state_dict_from_jax(params)
