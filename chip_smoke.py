@@ -26,7 +26,17 @@ exit, and without the final result line:
    into a dqkv pre-filled with NaN, twice for equal bits; gradients through
    the two fused kernels' autograd function against autograd of their plain
    version; the single-pass Adam kernel over leaves on both sides of 65 536
-   elements against its plain version, in place.
+   elements against its plain version, in place. The streaming forward
+   (``flash_attention_large``) at the DETR-R50 encoder's eval shape (batch
+   4 at the 896 x 1344 bucket: G 32, S 4704, D 32, the key masks of four
+   unequal COCO images), the decoder's cross shape (Sq 100, Sk 4704) and a
+   bias-free, mask-free ViT-B shape at S 1297, with ``kv_valid`` < Sk, into
+   an output pre-filled with NaN, twice for equal bits, and an image whose
+   keys are all masked against ``mha_reference``; the small-S backward
+   (``flash_attention_bwd``) at the DETR decoder's self attention and at
+   ViT-B/16's S 197 against its plain version, the row-6 kernel at rate 0
+   and, in fp32, autograd of the plain forward, into NaN-filled gradients,
+   twice for equal bits.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -62,7 +72,25 @@ exit, and without the final result line:
    ``twins_svts224_imagenet`` served in bf16 (buckets 1 and 32, logits
    against the CPU) and trained for a few steps, with the kernels they
    launch and Twins' window routes.
-7. Times: serving latency per bucket, and each kernel beside its bound, its
+7. Detection: ``Detr(num_classes=91, aux_loss=True)`` (DETR-R50 DC5, full
+   width and depth, weights drawn from a seed into the JAX package's params
+   layout and loaded through ``detr_state_dict_from_jax``) on synthetic
+   COCO-sized images. Eval in bf16 and fp32, batch 4 at the 896 x 1344
+   bucket (4704 C5 tokens), through ``DetectionLoader`` → ``evaluate_model``
+   with ``PostProcess``: exactly 12 streaming and 6 split-head launches per
+   forward and no other kernel; forward time, images/s and a profile; fp32
+   outputs against the CPU run of the same weights on one image padded to
+   512 x 640. Training through ``fit_detection``, 3 steps at batch 2 on the
+   same bucket, bf16: at dropout 0.1 18 dropout forward and 18 dropout
+   backward launches per step; at dropout 0 with ``USE_PALLAS_BWD`` 12
+   streaming, 6 split-head, 6 small-S backward and 12 row-6 backward
+   launches per step; in both the batch's eval-mode loss must fall; the
+   step's split and a profile. fp32 parameter gradients of a narrow DETR
+   (hidden 32, 1 + 2 layers, full ResNet-50, 128 x 160) on the card against
+   the CPU; the auction's assignment on the step's cost against scipy's.
+   One forward of the ViT-B backbone variant at the same bucket (24
+   streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
+8. Times: serving latency per bucket, and each kernel beside its bound, its
    plain version and the PyTorch library call for the same function.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -140,6 +168,95 @@ HIER_LAUNCHES_PER_FORWARD = {
 }
 TWINS_ROUTES = (["batched", "batched"] + ["fused_flat"] * 5
                 + ["batched"] * 2)
+
+# DETR-R50 outputs of an fp32 model on the card against the CPU run of the
+# same weights: summation order through 53 convolutions and 9 attention
+# layers; logits held relative to their largest magnitude, boxes (sigmoid
+# outputs in [0, 1]) absolutely.
+DETR_LOGIT_TOL_REL = 1e-3
+DETR_BOX_TOL = 1e-3
+# fp32 parameter gradients of the narrow DETR, card against CPU, relative to
+# the largest reference gradient (21): the two devices sum the convolutions
+# in different orders through 53 layers of random weights, and a
+# pre-activation within rounding of 0 can fall on either side of a ReLU,
+# which moves a whole upstream gradient term. Measured 2.0e-3, in
+# layer4_block2.conv1 (80 positions per image at 128 x 160), twice.
+DETR_GRAD_TOL = 5e-4
+# Launches per DETR-R50 forward at eval (6 encoder self and 6 decoder cross
+# attentions take the streaming kernel with their key-padding mask; the
+# mask-free 100 x 100 decoder self attention the split-head kernel), and
+# per train step at dropout 0.1 and at dropout 0 under USE_PALLAS_BWD.
+DETR_EVAL_LAUNCHES = {"flash_attention_large": 12, "flash_attention": 6}
+DETR_TRAIN_LAUNCHES = {
+    0.1: {"dropout_attention_fwd": 18, "dropout_attention_bwd": 18},
+    0.0: {"flash_attention_large": 12, "flash_attention": 6,
+          "flash_attention_bwd": 6, "dropout_attention_bwd": 12},
+}
+# Four COCO-sized images (shorter side 800 or less, longer up to 1333): one
+# batch at the 896 x 1344 bucket, each with its own padding.
+COCO_SIZES = [(800, 1333), (800, 1199), (800, 1066), (752, 1333)]
+
+
+class SyntheticCoco:
+    """Map-style detection dataset: (H, W, 3) float images as DETR's
+    transforms leave them (normalised, so N(0, 1) here) and targets with 1-6
+    boxes (rel-cxcywh), labels in [1, 90], ``image_id`` and ``orig_size``,
+    all drawn from ``seed``."""
+
+    def __init__(self, sizes, seed):
+        rng = np.random.RandomState(seed)
+        self.items = []
+        for i, (h, w) in enumerate(sizes):
+            k = 1 + rng.randint(6)
+            boxes = np.concatenate([rng.rand(k, 2) * 0.6 + 0.2,
+                                    rng.rand(k, 2) * 0.3 + 0.05], axis=1)
+            self.items.append((
+                rng.standard_normal((h, w, 3)).astype(np.float32),
+                {"labels": rng.randint(1, 91, k),
+                 "boxes": boxes.astype(np.float32),
+                 "image_id": np.asarray([i]),
+                 "orig_size": np.asarray([h, w])}))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def jax_shaped_weights(model, seed: int):
+    """The model's parameters as the JAX package's params tree holds them —
+    nested dicts of numpy arrays, conv kernels (kh, kw, in, out), Dense
+    kernels (in, out), norm scales named ``scale`` — drawn from one numpy
+    stream: kernels N(0, 1/fan_in), scales 1 + N(0, 0.1), FrozenBN
+    variances 1 + |N(0, 0.1)|, query embeddings N(0, 1), the rest
+    N(0, 0.02)."""
+    rng = np.random.RandomState(seed)
+    tree = {}
+    for name, p in model.state_dict().items():
+        *path, leaf = name.split(".")
+        shape = tuple(p.shape)
+        if leaf == "weight" and len(shape) == 4:
+            leaf, shape = "kernel", shape[2:] + (shape[1], shape[0])
+        elif leaf == "weight" and len(shape) == 2:
+            leaf, shape = "kernel", shape[::-1]
+        elif leaf == "weight":
+            leaf = "scale"
+        if leaf == "kernel":
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif leaf == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif leaf == "var":
+            a = 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
+        elif leaf == "query_embed":
+            a = rng.standard_normal(shape)
+        else:
+            a = 0.02 * rng.standard_normal(shape)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a.astype(np.float32)
+    return tree
 
 
 def log(msg: str) -> None:
@@ -281,7 +398,29 @@ def main() -> int:
     from vision_transformers_tpu_torch.ops import windows
     from vision_transformers_tpu_torch.training import trainer
     from vision_transformers_tpu_torch.training.optimizers import make_optimizer
+    from vision_transformers_tpu_torch.models.object_detection import (
+        Detr,
+        HungarianMatcher,
+        SetCriterion,
+        prepare_targets,
+    )
+    from vision_transformers_tpu_torch.models.object_detection.matcher import (
+        _host_assign,
+        auction_assign,
+    )
+    from vision_transformers_tpu_torch.ops import attention as attn
+    from vision_transformers_tpu_torch.training.detection import (
+        DetectionLoader,
+        evaluate_model,
+        fit_detection,
+    )
     from vision_transformers_tpu_torch.utils.args import get_args
+    from vision_transformers_tpu_torch.utils.coco.util.misc import (
+        nested_tensor_from_tensor_list,
+    )
+    from vision_transformers_tpu_torch.utils.port_jax import (
+        detr_state_dict_from_jax,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -698,6 +837,120 @@ def main() -> int:
                 "fused_adam updates p, m and v in place")
         errs[("fused_adam", wd)] = e
     del leaves, oracle, grads
+
+    # the streaming forward (row 3): the DETR-R50 encoder and cross shapes
+    # at the 896 x 1344 bucket, with the key masks the Joiner makes for the
+    # four COCO sizes, and a bias-free, mask-free ViT-B shape at S 1297
+    def coco_keep(sizes, hp=896, wp=1344, stride=16):
+        """(B, Hp/16 · Wp/16) keep-mask of the C5 tokens, resized as the
+        Joiner resizes the pixel mask."""
+        pix = torch.ones(len(sizes), 1, hp, wp)
+        for i, (h, w) in enumerate(sizes):
+            pix[i, 0, :h, :w] = 0.0
+        c5 = F.interpolate(pix, size=(hp // stride, wp // stride),
+                           mode="nearest-exact")[:, 0]
+        return (c5 == 0).reshape(len(sizes), -1).to(dev)
+
+    det_keep = coco_keep(COCO_SIZES)
+    log(f"DETR C5 key masks at 896 x 1344: unmasked tokens per image "
+        f"{det_keep.sum(dim=1).tolist()} of {det_keep.shape[1]}")
+
+    def check_large(label, b, h, sq, sk, d, kv_valid, keep, dtype):
+        name = str(dtype).removeprefix("torch.")
+        q = randn(70, b, h, sq, d, dtype=dtype)
+        k = randn(71, b, h, sk, d, dtype=dtype)
+        v = randn(72, b, h, sk, d, dtype=dtype)
+        filled = torch.full_like(q, float("nan"))
+        out, lse = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                                kv_valid=kv_valid, out=filled)
+        e = el = 0.0
+        for i in range(b):  # the plain version one image at a time
+            ref, ref_lse = fa.flash_attention_large_reference(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_valid=kv_valid,
+                kv_mask=None if keep is None else keep[i:i + 1])
+            e = max(e, max_err(out[i:i + 1], ref))
+            el = max(el, max_err(lse[i:i + 1], ref_lse))
+        again, _ = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                                kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        log(f"flash_attention_large {label} {name}: max|out-plain| {e:.3e} "
+            f"(tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}, NaN fill "
+            "overwritten, rerun bit-equal")
+        require(not bool(torch.isnan(out.float()).any())
+                and e <= KERNEL_TOL[name] and el <= LSE_TOL
+                and torch.equal(out, again),
+                f"flash_attention_large {label} {name} against its plain "
+                "version")
+        errs[("large", label, name)] = e
+
+    for dtype in (bf16, fp32):
+        check_large("detr-r50 encoder B4 G32 S4704 D32", 4, 8, 4704, 4704,
+                    32, None, det_keep, dtype)
+        check_large("detr-r50 cross B4 Sq100 Sk4704 D32", 4, 8, 100, 4704,
+                    32, None, det_keep, dtype)
+        check_large("vitb16@576 B2 G24 S1297 D64 no mask", 2, 12, 1297, 1297,
+                    64, None, None, dtype)
+        check_large("kv_valid 4600/4704 + mask", 2, 8, 300, 4704, 32, 4600,
+                    det_keep[:2], dtype)
+    # an image whose keys are all masked: the uniform average over its keys
+    keep = det_keep[:3, :300].clone()
+    keep[1] = False
+    qm, km, vm = (randn(73 + i, 3, 2, 300, 32, dtype=fp32) for i in range(3))
+    got, _ = fa.flash_attention_large_fwd(qm, km, vm, kv_mask=keep)
+    want = attn.mha_reference(qm, km, vm, mask=keep[:, None, None, :])
+    e_full = max_err(got, want)
+    log(f"flash_attention_large fully masked image: max|out - mha_reference| "
+        f"{e_full:.3e}")
+    require(e_full <= KERNEL_TOL["float32"],
+            "a fully masked image averages its keys, as mha_reference does")
+
+    # the small-S backward (row 4) against its plain version, the row-6
+    # kernel at rate 0 and, in fp32, autograd of the plain forward
+    def check_small_bwd(label, b, h, s, d, kv_valid, dtype):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, do = (randn(75 + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        out, lse = fa.flash_attention_reference(q, k, v, kv_valid=kv_valid)
+        filled = tuple(torch.full_like(t, float("nan")) for t in (q, k, v))
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid,
+                                     grads=filled)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                kv_valid=kv_valid)
+        row6 = fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                              dropout_rate=0.0, seed=None,
+                                              kv_valid=kv_valid)
+        e = max(grad_err(f"flash_attention_bwd {label} {name} d{n}", g, w,
+                         name)[0] for n, g, w in zip("qkv", got, want))
+        e6 = max(grad_err(f"flash_attention_bwd {label} {name} d{n} vs row 6",
+                          g, w, name)[0] for n, g, w in zip("qkv", got, row6))
+        extra = ""
+        if dtype == fp32:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            fa.flash_attention_reference(*leaves,
+                                         kv_valid=kv_valid)[0].backward(do)
+            ea = max(grad_err(f"flash_attention_bwd {label} d{n} vs autograd",
+                              g, t.grad, name)[0]
+                     for n, g, t in zip("qkv", got, leaves))
+            extra = f", vs autograd of the plain forward {ea:.3e}"
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                       kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        require(not any(bool(torch.isnan(g.float()).any()) for g in got)
+                and all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"flash_attention_bwd {label} {name}: every element written, "
+                "reruns bit-equal")
+        log(f"flash_attention_bwd {label} {name}: max|grad-plain| {e:.3e}, vs "
+            f"row 6 at rate 0 {e6:.3e}{extra} (tol {GRAD_TOL[name]} x max(1, "
+            "max|ref|)), NaN fill overwritten, rerun bit-equal")
+        errs[("small_bwd", label, name)] = e
+
+    for dtype in (bf16, fp32):
+        check_small_bwd("detr decoder self B2 G16 S100 D32", 2, 8, 100, 32,
+                        None, dtype)
+        check_small_bwd("vitb16@224 B32 G384 S197 D64", 32, 12, 197, 64, None,
+                        dtype)
+        check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
+    del qm, km, vm, got, want
 
     # ---- 3. main path: ViT-B/16 @224 served in bf16 ----------------------
     args = get_args("vitb16_224_imagenet")
@@ -1291,7 +1544,283 @@ def main() -> int:
             preset, hmodel, hweights, xb, yb, wb, want, want_bwd))
         del hmodel
 
-    # ---- 7. times ---------------------------------------------------------
+    # ---- 7. detection: DETR-R50 (DC5) at COCO scale ------------------------
+    det_cfg = dict(num_classes=91, aux_loss=True)   # cli.run_detection_main
+    det_w = None
+    det_eval, det_models = {}, {}
+    det_runs = []  # launches of every run of the detection path
+    ds = SyntheticCoco(COCO_SIZES, seed=11)
+    nt4, targets4 = next(iter(DetectionLoader(ds, 4)))
+    require(nt4.tensors.shape == (4, 896, 1344, 3),
+            f"four COCO-sized images collate to the 896 x 1344 bucket, got "
+            f"{nt4.tensors.shape}")
+    batch4 = nt4.to(dev)
+    for dname in ("bfloat16", "float32"):
+        det = Detr(**det_cfg, dtype=dname)
+        if det_w is None:
+            det_w = detr_state_dict_from_jax(jax_shaped_weights(det, seed=12))
+        det.load_state_dict(det_w, strict=True)
+        forwards = [0]
+        det.register_forward_hook(
+            lambda *_, forwards=forwards: forwards.__setitem__(
+                0, forwards[0] + 1))
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = evaluate_model(det, DetectionLoader(ds, 4), device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        det_runs.append(got)
+        log(f"DETR-R50 {dname} evaluate_model, batch 4 at 896 x 1344 "
+            f"(4704 C5 tokens): {eval_s:.2f} s with the first call, "
+            f"{forwards[0]} forward, launches {got}, metrics {metrics}")
+        require(forwards[0] == 1 and got == DETR_EVAL_LAUNCHES,
+                f"DETR {dname} eval: {DETR_EVAL_LAUNCHES} per forward and no "
+                f"other kernel; got {got}")
+        require(all(np.isfinite(v) for v in metrics.values())
+                and {"mAP", "AP50", "AR@100"} <= set(metrics),
+                f"DETR {dname}: finite COCO metrics")
+        with torch.inference_mode():
+            out = det(batch4.tensors, batch4.mask)
+            require(out["pred_logits"].shape == (4, 100, 92)
+                    and out["pred_boxes"].shape == (4, 100, 4)
+                    and len(out["aux_outputs"]) == 5
+                    and bool(torch.isfinite(out["pred_logits"].float()).all())
+                    and bool(((out["pred_boxes"] >= 0)
+                              & (out["pred_boxes"] <= 1)).all()),
+                    f"DETR {dname}: finite (4, 100, 92) logits, boxes in "
+                    "[0, 1], 5 aux outputs")
+            det_eval[dname] = {"out": {k: out[k].float()
+                                       for k in ("pred_logits", "pred_boxes")}}
+            fwd_ms = cuda_ms(lambda: det(batch4.tensors, batch4.mask),
+                             iters=5, warmup=1)
+            det_eval[dname]["fwd_ms"] = fwd_ms
+            log(f"DETR-R50 {dname} eval forward, batch 4 at 896 x 1344, "
+                f"device time {fwd_ms:.3f} ms ({4 / fwd_ms * 1e3:.1f} "
+                "images/s)")
+            log_profile(f"DETR-R50 {dname} eval forward, batch 4",
+                        lambda: det(batch4.tensors, batch4.mask), top=12)
+        det_models[dname] = det
+    e16 = max_err(det_eval["bfloat16"]["out"]["pred_logits"],
+                  det_eval["float32"]["out"]["pred_logits"])
+    log(f"DETR-R50 bf16 against fp32 logits on the card: max|diff| "
+        f"{e16:.3e} (max|fp32| "
+        f"{det_eval['float32']['out']['pred_logits'].abs().max().item():.3f})")
+
+    # fp32 on the card against the CPU run of the same weights, one image
+    # padded to 512 x 640
+    small = SyntheticCoco([(480, 620)], seed=14)
+    nt1 = nested_tensor_from_tensor_list([small[0][0]])
+    require(nt1.tensors.shape == (1, 512, 640, 3), "one image at 512 x 640")
+    cpu_det = Detr(**det_cfg, device="cpu")
+    cpu_det.load_state_dict(det_w, strict=True)
+    with torch.no_grad():
+        ref = cpu_det(*nt1.to("cpu").decompose())
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        got_out = det_models["float32"](*nt1.to(dev).decompose())
+    det_runs.append(dict(fa.LAUNCHES))
+    scale = ref["pred_logits"].abs().max().item()
+    e_logit = max_err(got_out["pred_logits"].cpu(), ref["pred_logits"])
+    e_box = max_err(got_out["pred_boxes"].cpu(), ref["pred_boxes"])
+    log(f"DETR-R50 fp32 at 512 x 640 (S 1280), card vs CPU: max|dlogits| "
+        f"{e_logit:.3e} (max|ref| {scale:.3f}, tol {DETR_LOGIT_TOL_REL} x "
+        f"max(1, max|ref|)), max|dboxes| {e_box:.3e} (tol {DETR_BOX_TOL}); "
+        f"launches {dict((k, v) for k, v in fa.LAUNCHES.items() if v)}")
+    require(e_logit <= DETR_LOGIT_TOL_REL * max(1.0, scale)
+            and e_box <= DETR_BOX_TOL
+            and fa.LAUNCHES["flash_attention_large"] == 12,
+            "DETR fp32 outputs on the card against the CPU run")
+    del cpu_det, det_models, ref
+
+    # training: fit_detection, 3 steps at batch 2 on one 896 x 1344 batch
+    train_ds = SyntheticCoco([COCO_SIZES[0], COCO_SIZES[2]], seed=15)
+    nt2, targets2 = next(iter(DetectionLoader(train_ds, 2)))
+    require(nt2.tensors.shape == (2, 896, 1344, 3), "train batch bucket")
+    crit = SetCriterion(num_classes=91)
+
+    def det_eval_loss(model):
+        labels, boxes, valid = prepare_targets(targets2, 64, 91, dev)
+        b = nt2.to(dev)
+        model.eval()
+        with torch.no_grad():
+            out = model(b.tensors, b.mask)
+            return crit.total_loss(crit(out, labels, boxes, valid)).item(), \
+                out
+
+    det_train = {}
+    for rate in (0.1, 0.0):
+        model = Detr(**det_cfg, dropout=rate, dtype="bfloat16")
+        model.load_state_dict(det_w, strict=True)
+        before, _ = det_eval_loss(model)
+        fa.USE_PALLAS_BWD = rate == 0.0
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = fit_detection(model, DetectionLoader(train_ds, 2), 3,
+                             num_classes=91, seed=0, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        det_runs.append(got)
+        after, out_after = det_eval_loss(model)
+        want = {k: 3 * v for k, v in DETR_TRAIN_LAUNCHES[rate].items()}
+        log(f"DETR-R50 bf16 fit_detection, 3 steps at batch 2 (896 x 1344), "
+            f"dropout {rate}, USE_PALLAS_BWD {fa.USE_PALLAS_BWD}: "
+            f"{fit_s:.2f} s with the first step, train loss per epoch "
+            f"{[round(v, 4) for v in hist['loss']]}, eval-mode loss of the "
+            f"batch {before:.4f} -> {after:.4f}, launches {got}")
+        require(hist["final_state"].step == 3 and got == want,
+                f"DETR train at dropout {rate}: per step "
+                f"{DETR_TRAIN_LAUNCHES[rate]} and no other kernel; got {got}")
+        require(np.isfinite(hist["loss"]).all() and np.isfinite(after)
+                and after < before,
+                f"DETR train at dropout {rate}: the batch's eval loss falls")
+        state = hist["final_state"]
+
+        # the step's split: forward (with matching and loss), backward,
+        # optimizer, CUDA events around the parts of training.detection
+        labels, boxes, valid = prepare_targets(targets2, 64, 91, dev)
+        b2 = nt2.to(dev)
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(3)]
+        model.train()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e0, e1, e2, e3 in ev:
+            e0.record()
+            loss = crit.total_loss(crit(model(b2.tensors, b2.mask), labels,
+                                        boxes, valid))
+            e1.record()
+            state.optimizer.zero_grad()
+            loss.backward()
+            e2.record()
+            state.optimizer.step()
+            e3.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / len(ev) * 1e3
+        f_ms, b_ms, o_ms = (float(np.mean([e[i].elapsed_time(e[i + 1])
+                                           for e in ev])) for i in range(3))
+        det_train[rate] = dict(launches=got, host_ms=host, fwd_ms=f_ms,
+                               bwd_ms=b_ms, opt_ms=o_ms)
+        log(f"DETR-R50 bf16 train step, batch 2, dropout {rate}: {host:.3f} "
+            f"ms per step by the host clock ({2 / host * 1e3:.2f} images/s); "
+            f"device time forward + matching + loss {f_ms:.3f} ms, backward "
+            f"{b_ms:.3f} ms, optimizer {o_ms:.3f} ms")
+
+        def det_step(model=model, state=state):
+            loss = crit.total_loss(crit(model(b2.tensors, b2.mask), labels,
+                                        boxes, valid))
+            state.optimizer.zero_grad()
+            loss.backward()
+            state.optimizer.step()
+
+        log_profile(f"DETR-R50 bf16 train step, dropout {rate}", det_step,
+                    top=12)
+        if rate == 0.0:
+            # the auction on the card against scipy on the step's cost
+            cost = HungarianMatcher().cost(out_after, labels, boxes)
+            auc = auction_assign(cost, valid)
+            ref_idx = _host_assign(cost.cpu().numpy(), valid.cpu().numpy())
+            c = cost.cpu().numpy()
+            gap = spread = 0.0
+            for i in range(c.shape[0]):
+                n = int(valid[i].sum())
+                mine = c[i, auc[i, :n].cpu().numpy(), np.arange(n)].sum()
+                best = c[i, ref_idx[i, :n], np.arange(n)].sum()
+                gap = max(gap, float(mine - best))
+                spread = max(spread, float(c[i].max() - c[i].min()))
+                require(len(set(auc[i, :n].tolist())) == n
+                        and bool((auc[i, n:] == -1).all()),
+                        "the auction gives a valid matching")
+            same = bool((auc.cpu().numpy() == ref_idx).all())
+            log(f"auction vs scipy on the trained step's cost (2 x 100 x 64): "
+                f"identical {same}, worst total-cost gap {gap:.3e} (cost "
+                f"spread {spread:.3f})")
+            require(gap <= 0.01 * spread,
+                    "the auction within 1% of the cost spread of scipy's")
+        fa.USE_PALLAS_BWD = False
+        del model, state, hist, loss
+
+    # fp32 gradients of a narrow DETR (full ResNet-50), card against CPU,
+    # both matched by scipy (the auction is the card's default)
+    narrow = dict(num_classes=91, hidden_dim=32, nheads=2,
+                  num_encoder_layers=1, num_decoder_layers=2,
+                  dim_feedforward=64, dropout=0.0, aux_loss=True)
+    nds = SyntheticCoco([(128, 150), (100, 160)], seed=16)
+    ntn = nested_tensor_from_tensor_list([nds[i][0] for i in range(2)],
+                                         size_bucket=32)
+    require(ntn.tensors.shape == (2, 128, 160, 3), "narrow batch 128 x 160")
+    ncrit = SetCriterion(num_classes=91,
+                         matcher=HungarianMatcher(method="scipy"))
+    nweights = None
+    grads = {}
+    fa.USE_PALLAS_BWD = True
+    for device in ("cpu", "cuda"):
+        m = Detr(**narrow, device=device)
+        if nweights is None:
+            nweights = detr_state_dict_from_jax(jax_shaped_weights(m, 17))
+        m.load_state_dict(nweights, strict=True)
+        m.train()
+        fa.reset_launch_counts()
+        b = ntn.to(device)
+        labels, boxes, valid = prepare_targets([nds[i][1] for i in range(2)],
+                                               64, 91, device)
+        loss = ncrit.total_loss(ncrit(m(b.tensors, b.mask), labels, boxes,
+                                      valid))
+        loss.backward()
+        grads[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                       for n, p in m.named_parameters()
+                                       if p.grad is not None})
+        if device == "cuda":
+            nl = {k: v for k, v in fa.LAUNCHES.items() if v}
+            det_runs.append(nl)
+            require(nl == {"flash_attention_large": 3, "flash_attention": 2,
+                           "flash_attention_bwd": 2,
+                           "dropout_attention_bwd": 3},
+                    f"narrow DETR gradients went through rows 3, 2, 4, 6; "
+                    f"got {nl}")
+    fa.USE_PALLAS_BWD = False
+    g_ref = max(g.abs().max().item() for g in grads["cpu"][1].values())
+    require(set(grads["cpu"][1]) == set(grads["cuda"][1]),
+            "the same parameters take gradients on both devices")
+    e_grad, worst = max((max_err(grads["cuda"][1][n], g), n)
+                        for n, g in grads["cpu"][1].items())
+    log(f"fp32 gradients of a narrow DETR (hidden 32, 1 + 2 layers, "
+        f"ResNet-50, 128 x 160), card vs CPU: loss {grads['cuda'][0]:.6f} vs "
+        f"{grads['cpu'][0]:.6f}, max|dgrad| {e_grad:.3e} over "
+        f"{len(grads['cpu'][1])} tensors, at {worst} (its max|ref| "
+        f"{grads['cpu'][1][worst].abs().max().item():.3e}; max|ref| "
+        f"{g_ref:.3e}, tol {DETR_GRAD_TOL} x max(1, max|ref|))")
+    require(abs(grads["cuda"][0] - grads["cpu"][0])
+            <= 1e-4 * max(1.0, abs(grads["cpu"][0]))
+            and e_grad <= DETR_GRAD_TOL * max(1.0, g_ref),
+            "narrow DETR gradients on the card against the CPU")
+    del grads
+
+    # the ViT-B backbone variant: 12 unmasked streaming launches at S 4704
+    vdet = Detr(**det_cfg, backbone_arch="vit", dtype="bfloat16")
+    vdet.load_state_dict(detr_state_dict_from_jax(jax_shaped_weights(vdet,
+                                                                     18)),
+                         strict=True)
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        vout = vdet(batch4.tensors, batch4.mask)
+    torch.cuda.synchronize()
+    vit_launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    det_runs.append(vit_launches)
+    with torch.inference_mode():
+        vit_fwd_ms = cuda_ms(lambda: vdet(batch4.tensors, batch4.mask),
+                             iters=3, warmup=1)
+    log(f"DETR ViT-B/16 backbone bf16, batch 4 at 896 x 1344 (S 4704): "
+        f"launches {vit_launches}, forward {vit_fwd_ms:.3f} ms")
+    require(vit_launches == {"flash_attention_large": 24,
+                             "flash_attention": 6}
+            and bool(torch.isfinite(vout["pred_logits"].float()).all()),
+            "ViT backbone: 12 unmasked + 12 masked streaming launches and 6 "
+            "split-head, finite logits")
+    del vdet, vout
+
+    # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
         for _ in range(2):
@@ -1356,6 +1885,8 @@ def main() -> int:
                     for la in las.values()])
     swin_total = {k: sum(run.get(k, 0) for run in path_runs)
                   for k in fa.LAUNCHES}
+    det_total = {k: sum(run.get(k, 0) for run in det_runs)
+                 for k in fa.LAUNCHES}
 
     def sdpa_backward(q, k, v, do, p):
         """One call of SDPA's backward through autograd, graph kept."""
@@ -1430,7 +1961,7 @@ def main() -> int:
     entry("flash_attention", "flash_attention.cu", 75,
           split_launches["flash_attention"]
           + split_train_launches[0.0]["flash_attention"]
-          + swin_total["flash_attention"],
+          + swin_total["flash_attention"] + det_total["flash_attention"],
           errs[("flash", "vitb16@512 G96 S1025", "bfloat16")], shape,
           cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
           cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
@@ -1438,7 +1969,8 @@ def main() -> int:
           4 * io_bytes + lse_bytes, 4 * b * h * s * s * d)
     kw = dict(dropout_rate=rate, seed=seed)
     entry("dropout_attention_fwd", "dropout_attention.cu", 491,
-          split_train_launches[0.1]["dropout_attention_fwd"],
+          split_train_launches[0.1]["dropout_attention_fwd"]
+          + det_total["dropout_attention_fwd"],
           errs[("drop_fwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
           shape + f" rate {rate}",
           cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw),
@@ -1454,7 +1986,8 @@ def main() -> int:
     entry("dropout_attention_bwd", "dropout_attention.cu", 525,
           split_train_launches[0.1]["dropout_attention_bwd"]
           + split_train_launches[0.0]["dropout_attention_bwd"]
-          + swin_total["dropout_attention_bwd"],
+          + swin_total["dropout_attention_bwd"]
+          + det_total["dropout_attention_bwd"],
           errs[("drop_bwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
           shape + f" rate {rate}",
           cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
@@ -1611,6 +2144,77 @@ def main() -> int:
           swin_t_step_unfused_ms=opt_ms["unfused"],
           swin_t_step_library_ms=opt_ms["library"],
           swin_t_step_bound_ms=7 * 4 * n_all / HBM_BYTES_PER_S * 1e3)
+    # the streaming forward at the DETR-R50 encoder's eval shape (batch 4 at
+    # 896 x 1344), beside its cross shape and the ViT-B S 1297 shape; the
+    # bound counts the keys this data attends (masked keys need no work)
+    b, h, s, d = 4, 8, 4704, 32
+    q, k, v = (randn(80 + i, b, h, s, d, dtype=bf16) for i in range(3))
+    qc = randn(83, b, h, 100, d, dtype=bf16)
+    qv, kv, vv = (randn(84 + i, 2, 12, 1297, 64, dtype=bf16)
+                  for i in range(3))
+    n_keys = int(det_keep.sum())
+    sdpa_mask = det_keep[:, None, None, :]
+    io_bytes = b * h * s * d * 2
+    entry("flash_attention_large", "flash_attention_large.cu", 229,
+          det_total["flash_attention_large"],
+          errs[("large", "detr-r50 encoder B4 G32 S4704 D32", "bfloat16")],
+          f"G{b * h} S{s} D{d}, the key masks of {COCO_SIZES}",
+          cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v,
+                                                       kv_mask=det_keep),
+                  iters=5),
+          cuda_ms(lambda: fa.flash_attention_large_reference(
+              q, k, v, kv_mask=det_keep), iters=3),
+          cuda_ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, attn_mask=sdpa_mask), iters=5),
+          4 * io_bytes + b * h * s * 4 + det_keep.numel(),
+          4 * h * s * n_keys * d,
+          cross_sq100_ms=cuda_ms(lambda: fa.flash_attention_large_fwd(
+              qc, k, v, kv_mask=det_keep), iters=5),
+          cross_sq100_library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+              qc, k, v, attn_mask=sdpa_mask), iters=5),
+          vitb_s1297_ms=cuda_ms(lambda: fa.flash_attention_large_fwd(
+              qv, kv, vv), iters=5),
+          vitb_s1297_library_ms=cuda_ms(
+              lambda: F.scaled_dot_product_attention(qv, kv, vv), iters=5))
+    log(f"  x6 encoder layers = {6 * kernels[-1]['ms']:.3f} ms of the "
+        f"{det_eval['bfloat16']['fwd_ms']:.3f} ms bf16 eval forward at batch 4")
+    del q, k, v, qc, qv, kv, vv
+
+    # the small-S backward at the DETR decoder's self attention in a train
+    # step (batch 2), beside ViT-B/16's S 197 at batch 32
+    def small_bwd_inputs(seed, b, h, s, d):
+        q, k, v, do = (randn(seed + i, b, h, s, d, dtype=bf16)
+                       for i in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        return q, k, v, out, lse, do
+
+    def row6(q, k, v, out, lse, do):
+        return fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                              dropout_rate=0.0, seed=None)
+
+    dargs = small_bwd_inputs(88, 2, 8, 100, 32)
+    vargs = small_bwd_inputs(92, 32, 12, 197, 64)
+    g, s, d = 16, 100, 32
+    entry("flash_attention_bwd", "flash_attention_bwd.cu", 362,
+          det_total["flash_attention_bwd"],
+          errs[("small_bwd", "detr decoder self B2 G16 S100 D32",
+                "bfloat16")],
+          f"G{g} S{s} D{d}",
+          cuda_ms(lambda: fa.flash_attention_bwd(*dargs)),
+          cuda_ms(lambda: fa.flash_attention_bwd_reference(*dargs)),
+          cuda_ms(sdpa_backward(*dargs[:3], dargs[5], 0.0)),
+          8 * g * s * d * 2 + g * s * 4, 10 * g * s * s * d,
+          row6_rate0_ms=cuda_ms(lambda: row6(*dargs)),
+          vitb_g384_s197_ms=cuda_ms(lambda: fa.flash_attention_bwd(*vargs)),
+          vitb_g384_s197_row6_ms=cuda_ms(lambda: row6(*vargs)),
+          vitb_g384_s197_library_ms=cuda_ms(
+              sdpa_backward(*vargs[:3], vargs[5], 0.0)),
+          vitb_g384_s197_bound_ms=bound_ms(8 * 384 * 197 * 64 * 2
+                                           + 384 * 197 * 4,
+                                           10 * 384 * 197 * 197 * 64,
+                                           "bfloat16")[0])
+    del dargs, vargs
+
     require(len(kernels) == len(fa.LAUNCHES),
             "every kernel of the launch table has its line")
 

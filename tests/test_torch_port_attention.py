@@ -204,10 +204,12 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     q.requires_grad_()
     tfa.flash_dropout_attention(q, q, q, dropout_rate=0.1,
                                 seed=1).sum().backward()
+    tfa.flash_attention(q, q, q, kv_mask=torch.ones(1, 9, dtype=torch.bool))
     assert set(tfa.LAUNCHES) == {
         "packed_attention", "flash_attention", "packed_attention_bwd",
         "dropout_attention_fwd", "dropout_attention_bwd",
         "window_packed_attention", "window_batched_attention",
         "window_fused_slab_attention", "window_fused_flat_attention",
-        "window_attention_bwd", "fused_adam"}
+        "window_attention_bwd", "fused_adam", "flash_attention_large",
+        "flash_attention_bwd"}
     assert not any(tfa.LAUNCHES.values())

@@ -182,7 +182,7 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
         "flash_attention": 2, "window_packed_attention": 0,
         "window_batched_attention": 0, "window_fused_slab_attention": 0,
         "window_fused_flat_attention": 0, "window_attention_bwd": 0,
-        "fused_adam": 0}
+        "fused_adam": 0, "flash_attention_large": 0, "flash_attention_bwd": 0}
 
 
 # Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf
@@ -479,12 +479,131 @@ def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
 
 @pytest.mark.cuda
 def test_unported_paths_raise_on_cuda(cuda):
+    """What the kernels refuse on the card: a bias on the streaming route
+    (a key-padding mask, or Sq·Sk > 1.5 M), an unsupported head dim, and a
+    small-S backward whose group does not fit a block's shared memory. A
+    key-padding mask at rate 0 and a large bias-free S now launch the
+    streaming kernel."""
     q = torch.zeros(1, 2, 8, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.dot_product_attention(
-            q, q, q, mask=torch.ones(1, 1, 1, 8, dtype=torch.bool, device=cuda))
+    keep = torch.ones(1, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="bias"):
+        tfa.flash_attention(q, q, q, torch.zeros(1, 2, 8, 8, device=cuda),
+                            kv_mask=keep)
     big = torch.zeros(1, 1, 1300, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="bias"):
+        tfa.flash_attention(big, big, big,
+                            torch.zeros(1, 1, 1300, 1300, device=cuda))
+    tfa.reset_launch_counts()
+    tattn.dot_product_attention(q, q, q, mask=keep[:, None, None, :])
+    tfa.flash_attention(big, big, big)
+    assert tfa.LAUNCHES["flash_attention_large"] == 2
     with pytest.raises(ValueError, match="head dim"):
         tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 8, device=cuda), 2)
+    wide = torch.zeros(1, 1, 4, 64, device=cuda)
+    long_k = torch.zeros(1, 1, 1000, 64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfa.flash_attention_bwd(wide, long_k, long_k, wide,
+                                torch.zeros(1, 1, 4, device=cuda), wide)
+
+
+# The streaming forward (row 3) and the small-S backward (row 4).
+
+
+def _masks(b, sk, seed=50, full=None):
+    m = np.random.RandomState(seed).rand(b, sk) > 0.3
+    m[:, 0] = True
+    if full is not None:
+        m[full] = False  # a fully masked image
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,kv_valid,masked", [
+    (2, 4, 300, 300, 32, None, True),     # encoder-style self attention
+    (2, 2, 100, 700, 32, 650, True),      # decoder cross attention, kv_valid
+    (1, 2, 1300, 1300, 64, None, False),  # bias-free Sq·Sk > 1.5 M
+    (3, 3, 70, 45, 16, 40, True)])
+def test_large_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, kv_valid,
+                                    masked):
+    q = torch.from_numpy(_randn(51, b, h, sq, d)).to(cuda, dtype)
+    k = torch.from_numpy(_randn(52, b, h, sk, d)).to(cuda, dtype)
+    v = torch.from_numpy(_randn(53, b, h, sk, d)).to(cuda, dtype)
+    mask = torch.from_numpy(_masks(b, sk)).to(cuda) if masked else None
+    filled = torch.full_like(q, float("nan"))
+    out, lse = tfa.flash_attention_large_fwd(q, k, v, kv_mask=mask,
+                                             kv_valid=kv_valid, out=filled)
+    ref, ref_lse = tfa.flash_attention_large_reference(
+        q, k, v, kv_mask=mask, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == filled.data_ptr()
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    again, _ = tfa.flash_attention_large_fwd(q, k, v, kv_mask=mask,
+                                             kv_valid=kv_valid)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_large_kernel_fully_masked_image_is_uniform(cuda, dtype):
+    b, h, s, d = 3, 2, 200, 32
+    q, k, v = (torch.from_numpy(_randn(54 + i, b, h, s, d)).to(cuda, dtype)
+               for i in range(3))
+    mask = torch.from_numpy(_masks(b, s, full=1)).to(cuda)
+    out, _ = tfa.flash_attention_large_fwd(q, k, v, kv_mask=mask)
+    want = tattn.mha_reference(q, k, v, mask=mask[:, None, None, :])
+    torch.cuda.synchronize()
+    assert (out.float() - want.float()).abs().max().item() <= \
+        _KERNEL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,kv_valid", [
+    (2, 8, 100, 100, 32, None),   # the DETR decoder's self attention
+    (2, 12, 197, 197, 64, None),  # ViT-B/16
+    (2, 3, 70, 45, 16, 40),
+    (1, 2, 33, 300, 32, 290)])
+def test_small_s_backward_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d,
+                                               kv_valid):
+    q = torch.from_numpy(_randn(57, b, h, sq, d)).to(cuda, dtype)
+    k = torch.from_numpy(_randn(58, b, h, sk, d)).to(cuda, dtype)
+    v = torch.from_numpy(_randn(59, b, h, sk, d)).to(cuda, dtype)
+    do = torch.from_numpy(_randn(60, b, h, sq, d)).to(cuda, dtype)
+    out, lse = tfa.flash_attention_reference(q, k, v, kv_valid=kv_valid)
+    filled = tuple(torch.full_like(t, float("nan")) for t in (q, k, v))
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid,
+                                  grads=filled)
+    want = tfa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                             kv_valid=kv_valid)
+    row6 = tfa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                           dropout_rate=0.0, seed=None,
+                                           kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, row6):
+        assert not bool(torch.isnan(g.float()).any())  # every element written
+        assert _grad_close(g, w, dtype)
+        assert _grad_close(g, r, dtype)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_its_backward(cuda, monkeypatch):
+    """Under USE_PALLAS_BWD a small bias-free, mask-free shape takes row 4;
+    with a kv_mask, or without the flag, the backward is row 6 at rate 0."""
+    b, h, s, d = 2, 2, 60, 32
+    q, k, v = (torch.from_numpy(_randn(61 + i, b, h, s, d)).to(cuda)
+               .requires_grad_() for i in range(3))
+    mask = torch.from_numpy(_masks(b, s)).to(cuda)
+    for flag, kv_mask, want in ((True, None, "flash_attention_bwd"),
+                                (True, mask, "dropout_attention_bwd"),
+                                (False, None, "dropout_attention_bwd")):
+        monkeypatch.setattr(tfa, "USE_PALLAS_BWD", flag)
+        tfa.reset_launch_counts()
+        tfa.flash_attention(q, k, v, kv_mask=kv_mask).sum().backward()
+        got = {n: c for n, c in tfa.LAUNCHES.items() if c}
+        fwd = "flash_attention" if kv_mask is None else "flash_attention_large"
+        assert got == {fwd: 1, want: 1}, got

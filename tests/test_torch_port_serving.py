@@ -223,7 +223,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vision_transformers_tpu_torch.ops.fused_adam",
             "vision_transformers_tpu_torch.ops.sra",
             zoo + "swin_transformer", zoo + "pvt",
-            zoo + "twins_svt"} <= set(_port_modules())
+            zoo + "twins_svt",
+            "vision_transformers_tpu_torch.ops.posenc",
+            "vision_transformers_tpu_torch.models.object_detection.detr",
+            "vision_transformers_tpu_torch.models.object_detection.matcher",
+            "vision_transformers_tpu_torch.training.detection",
+            "vision_transformers_tpu_torch.utils.coco.coco_eval",
+            "vision_transformers_tpu_torch.utils.metrics"} <= set(
+                _port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("packed_attention", "flash_attention", "dropout_attention",
            "window_attention", "window_fused_attention",
-           "window_attention_bwd", "fused_adam")
+           "window_attention_bwd", "fused_adam", "flash_attention_large",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -85,6 +86,18 @@ _SIGNATURES = {
         "fused_adam": (
             _I, [_P] * 4 + [ctypes.c_longlong] + [_F] * 7 + [_I, _P]),
         "fused_adam_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d, kv_valid, scale,
+    #  is_bf16, stream)
+    "flash_attention_large": {
+        "flash_attention_large_fwd": (_I, [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+        "flash_attention_large_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, d, kv_valid, scale,
+    #  is_bf16, stream)
+    "flash_attention_bwd": {
+        "flash_attention_bwd": (_I, [_P] * 9 + [_I] * 5 + [_F, _I, _P]),
+        "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

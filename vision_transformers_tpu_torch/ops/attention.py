@@ -5,10 +5,9 @@ routing: ``SelfAttention`` sends its packed QKV projection to the packed
 kernel when ``packed_flash_supported`` allows it, and to the split-head
 dispatcher otherwise, with the dropout rate and a seed in training. On CUDA
 tensors ``dot_product_attention`` takes a kernel wherever the JAX dispatcher
-takes a Pallas kernel on the TPU, raises ``NotImplementedError`` where that
-Pallas kernel is not ported yet, and takes the plain math where the JAX
-package takes jnp on the TPU too (an arbitrary boolean mask, a bias with
-dropout, or a bias at Sq·Sk > 1.5 M).
+takes a Pallas kernel on the TPU, and the plain math where the JAX package
+takes jnp on the TPU too (an arbitrary boolean mask, a bias with dropout, or
+a bias at Sq·Sk > 1.5 M).
 
 Dropout randomness is explicit: a host ``torch.Generator`` from which one
 integer seed per attention call is drawn (no device synchronisation); the
@@ -82,8 +81,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dispatcher. Training-mode probability dropout without a bias, with an
     optional key-padding mask (B, 1, 1, Sk), rides
     ``flash_dropout_attention``; its seed is drawn from ``generator``, a
-    host generator. A key-padding mask at rate 0 belongs to a Pallas kernel
-    not ported yet: it raises on CUDA and takes the plain math on the CPU.
+    host generator. A key-padding mask at rate 0 rides ``flash_attention``
+    as its ``kv_mask`` (the streaming kernel).
     """
     # above MAX_SCORE_ELEMS the JAX kernel takes no bias: biased large-S
     # attention takes the plain math there, and here
@@ -101,10 +100,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, dropout_rate=dropout_rate, seed=draw_seed(generator),
             scale=scale, kv_valid=kv_valid,
             key_mask=None if mask is None else mask[:, 0, 0, :])
-    if q.is_cuda and bias is None and is_key_padding and dropout_rate == 0.0:
-        raise NotImplementedError(
-            "key-padding kv_mask on CUDA: the streaming kernel (_large_kernel)"
-            " is not ported yet (ROADMAP.md, queue 2, row 3)")
+    if bias is None and is_key_padding and dropout_rate == 0.0:
+        return flash_attention(q, k, v, kv_mask=mask[:, 0, 0, :],
+                               scale=scale, kv_valid=kv_valid)
     if bias is not None and bias.shape[0] not in (1, q.shape[0]):
         # windowed attention: bias leading dim is num_windows, batch is
         # B·num_windows; batch b reads bias[b % num_windows]

@@ -1,8 +1,8 @@
 """Attention kernels for Hopper, forward and backward, each beside its plain
 version.
 
-Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Ten of
-its TPU kernels are ported, as CUDA C++ in ``csrc/``:
+Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Twelve
+of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 
 - ``packed_flash_attention`` (``csrc/packed_attention.cu``) replaces
   ``_packed_fwd_kernel`` and ``_packed_bwd_kernel``: self attention read in
@@ -32,6 +32,13 @@ its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   dqkv and the bias gradient. The fused wrapper's backward rolls and
   partitions the map and dO around it in plain PyTorch, as the JAX package
   does in plain XLA.
+- ``flash_attention_large_fwd`` (``csrc/flash_attention_large.cu``)
+  replaces ``_large_kernel``: the streaming forward that ``flash_attention``
+  takes for a runtime key-padding ``kv_mask`` and for bias-free
+  Sq·Sk > 1.5 M (the DETR encoder and cross attention at COCO scale).
+- ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) replaces
+  ``_bwd_kernel``: the bias-free, mask-free backward of ``flash_attention``
+  at small S, taken under ``USE_PALLAS_BWD`` as in the JAX package.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel or raises: there
@@ -45,9 +52,6 @@ query row, key column) and of nothing else — not of a tile, a block or a
 launch shape — so the plain versions draw the very mask the kernels draw,
 and a backward replays its forward's mask from the seed alone.
 
-Still raising ``NotImplementedError`` on CUDA: the runtime ``kv_mask`` at
-rate 0 and the large-S streaming forward (``_large_kernel``, for
-Sq·Sk > 1.5 M).
 """
 
 from __future__ import annotations
@@ -60,9 +64,17 @@ import torch
 # the CUDA kernels (csrc/attention_tile.cuh).
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# Score elements (Sq·Sk) above which the JAX package switches its bias-taking
-# forward to the streaming kernel (_SMALL_S_LIMIT), which is not ported yet.
+# Score elements (Sq·Sk) above which the split-head forward switches to the
+# streaming kernel, which takes no bias (the JAX package's _SMALL_S_LIMIT).
 MAX_SCORE_ELEMS = 1_500_000
+
+# The JAX package's switch (flash_attention.py:2404): its bias-free, mask-free
+# backward takes the small-S kernel (_bwd_kernel) below _PALLAS_BWD_MIN_SCORES
+# only when this is set; it is off there because it measured slower than the
+# jnp backward on a TPU v5e. Here the alternative is the row-6 kernel at rate
+# 0, which serves every size.
+USE_PALLAS_BWD = False
+_PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 
 # Head dims the CUDA kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64)
@@ -75,7 +87,8 @@ LAUNCHES: Dict[str, int] = {
     "window_fused_slab_attention": 0, "window_fused_flat_attention": 0,
     "window_attention_bwd": 0,
     # ops/fused_adam.py (replaces fused_adam.py::_adam_kernel)
-    "fused_adam": 0}
+    "fused_adam": 0,
+    "flash_attention_large": 0, "flash_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -707,18 +720,26 @@ def flash_attention_bias_bwd(
 
 def flash_attention_fwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        bias: Optional[torch.Tensor] = None, *, scale: Optional[float] = None,
+        bias: Optional[torch.Tensor] = None, *,
+        kv_mask: Optional[torch.Tensor] = None,
+        scale: Optional[float] = None,
         kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split-head forward → (out, fp32 lse (B, H, Sq)); no autograd
-    graph."""
-    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
+    graph. Routes as ``_flash_fwd`` does (flash_attention.py:143-147): a
+    ``kv_mask``, or Sq·Sk > ``MAX_SCORE_ELEMS``, takes the streaming kernel,
+    which has no bias (``ValueError`` with one)."""
+    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
+                                                     kv_mask)
+    if kv_mask is not None or s_q * s_k > MAX_SCORE_ELEMS:
+        if bias is not None:
+            raise ValueError(
+                "bias is not supported with kv_mask or Sq·Sk > "
+                f"{MAX_SCORE_ELEMS} (the streaming kernel takes none)")
+        return flash_attention_large_fwd(q, k, v, kv_mask=kv_mask,
+                                         scale=scale, kv_valid=kv_valid)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale=scale,
                                          kv_valid=kv_valid)
-    if s_q * s_k > MAX_SCORE_ELEMS:
-        raise NotImplementedError(
-            f"Sq·Sk = {s_q * s_k} > {MAX_SCORE_ELEMS}: the streaming kernel "
-            "(_large_kernel) is not ported yet (ROADMAP.md, queue 2, row 3)")
 
     from vision_transformers_tpu_torch.ops import _build
 
@@ -745,49 +766,245 @@ def flash_attention_fwd(
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# Streaming forward with a key-padding mask (replaces _large_kernel,
+# flash_attention.py:229, launched by _flash_fwd_large, :276)
+
+
+def flash_attention_large_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        kv_mask: Optional[torch.Tensor] = None,
+        scale: Optional[float] = None,
+        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the streaming forward → (out (B, H, Sq, D)
+    in q's dtype, lse (B, H, Sq) fp32), in ``_large_kernel``'s arithmetic
+    (:244-273): fp32 scores·scale REPLACED by ``DEFAULT_MASK_VALUE`` where
+    the key is >= ``kv_valid`` or masked; the max starts at
+    ``DEFAULT_MASK_VALUE``; the unnormalised probabilities rounded to the
+    value dtype before PV; out = acc / max(l, 1e-30), lse = m + log of the
+    same. ``kv_mask``: bool (B, Sk), True = attend, the same for every head
+    of an image. A row whose keys are all masked averages its Sk values
+    uniformly, as ``mha_reference`` does (the TPU kernel's zero-padded block
+    keys count there too; not carried over)."""
+    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
+                                                     kv_mask)
+    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    keep = (torch.arange(s_k, device=q.device) < kv_valid).expand(b, s_k)
+    if kv_mask is not None:
+        keep = keep & kv_mask
+    sc = torch.where(keep[:, None, None, :], sc,
+                     torch.full_like(sc, DEFAULT_MASK_VALUE))
+    m = sc.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
+    e = torch.exp(sc - m)
+    denom = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(e.to(v.dtype).float(), v.float()) / denom
+    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+
+
+def _check_into(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.shape != like.shape or t.dtype != like.dtype \
+            or t.device != like.device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(like.shape)} "
+                         f"{like.dtype} tensor on {like.device}")
+
+
+def flash_attention_large_fwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        kv_mask: Optional[torch.Tensor] = None,
+        scale: Optional[float] = None,
+        kv_valid: Optional[int] = None,
+        out: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming forward → (out, fp32 lse (B, H, Sq)); no autograd
+    graph. Any Sq·Sk: the S×S scores never reach device memory. ``out``
+    (CUDA only): a contiguous tensor like q to write into instead of a new
+    one (a check can pre-fill it to see that every element is written)."""
+    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
+                                                     kv_mask)
+    if q.device.type == "cpu":
+        return flash_attention_large_reference(q, k, v, kv_mask=kv_mask,
+                                               scale=scale, kv_valid=kv_valid)
+
+    from vision_transformers_tpu_torch.ops import _build
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda_operand(name, t, q.dtype, d)
+    _check_same_device(q, k=k, v=v)
+    if kv_mask is not None:
+        kv_mask = kv_mask.contiguous()
+        _check_same_device(q, kv_mask=kv_mask)
+    if out is None:
+        out = torch.empty_like(q)
+    _check_into("out", out, q)
+    lse = torch.empty(b, h, s_q, dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_large")
+    with torch.cuda.device(q.device):  # launch on the tensor's card
+        rc = lib.flash_attention_large_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_mask is None else kv_mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b * h, b, s_q, s_k, d, kv_valid,
+            scale, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention_large", rc)
+    LAUNCHES["flash_attention_large"] += 1
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Small-S backward (replaces _bwd_kernel, flash_attention.py:362, launched by
+# _flash_bwd_pallas, :399)
+
+# Shared memory a block may ask for on the H100 (227 KB).
+_SMEM_LIMIT = 232448
+
+
+def flash_bwd_smem_bytes(s_q: int, s_k: int, d: int) -> int:
+    """Shared memory of ``csrc/flash_attention_bwd.cu`` for one group: K and
+    V resident as fp32 (rows rounded up to 32, stride d + 1), lse and δ of
+    every query row, one q and one do tile, two 32 × 33 score tiles."""
+    r32 = lambda x: -(-x // 32) * 32  # noqa: E731
+    return 4 * (2 * r32(s_k) * (d + 1) + 2 * r32(s_q) + 2 * 32 * (d + 1)
+                + 2 * 32 * 33)
+
+
+def flash_bwd_supported(s_q: int, s_k: int, d: int) -> bool:
+    """The small-S backward's route: below the JAX package's
+    ``_PALLAS_BWD_MIN_SCORES`` and with the group's K and V in one block's
+    shared memory (as ``_BWD_SCORE_BUDGET`` bounds the TPU kernel)."""
+    return (s_q * s_k < _PALLAS_BWD_MIN_SCORES
+            and flash_bwd_smem_bytes(s_q, s_k, d) <= _SMEM_LIMIT)
+
+
+def flash_attention_bwd_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, *, scale: Optional[float] = None,
+        kv_valid: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the small-S backward → (dq, dk, dv) in the
+    inputs' dtype, from ``_bwd_kernel``'s formulas (:373-397): p =
+    exp(s − lse) with keys >= kv_valid masked, δ = rowsum(do ⊙ out) in
+    fp32, ds = p ⊙ (do·vᵀ − δ); dq = ds·k·scale, dv = pᵀ·do,
+    dk = dsᵀ·q·scale, with ds and p rounded to the input dtype before their
+    products, as the TPU kernel rounds them. lse is (B, H, Sq)."""
+    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
+    dtype = q.dtype
+    sc = _mask_keys(torch.matmul(q.float(), k.float().transpose(-1, -2))
+                    * scale, kv_valid)
+    p = torch.exp(sc - lse.unsqueeze(-1))
+    dof = do.float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (torch.matmul(dof, v.float().transpose(-1, -2)) - delta)).to(
+        dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def flash_attention_bwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, *, scale: Optional[float] = None,
+        kv_valid: Optional[int] = None,
+        grads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The small-S backward of a bias-free, mask-free forward with the same
+    ``scale`` and ``kv_valid``: (q, k, v, out, lse, do) → (dq, dk, dv). One
+    launch; one block owns each group and every output of it, so two runs
+    give equal bits. On CUDA the group's K and V must fit a block's shared
+    memory (``flash_bwd_smem_bytes``; ``ValueError`` otherwise). ``grads``
+    (CUDA only): contiguous (dq, dk, dv) like (q, k, v) to write into."""
+    b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
+    if do.shape != q.shape or out.shape != q.shape \
+            or lse.shape != (b, h, s_q):
+        raise ValueError(
+            f"do and out must be {tuple(q.shape)} and lse {(b, h, s_q)}; got "
+            f"{tuple(do.shape)}, {tuple(out.shape)}, {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                             scale=scale, kv_valid=kv_valid)
+    if flash_bwd_smem_bytes(s_q, s_k, d) > _SMEM_LIMIT:
+        raise ValueError(
+            f"flash_attention_bwd: Sq {s_q}, Sk {s_k}, D {d} need "
+            f"{flash_bwd_smem_bytes(s_q, s_k, d)} bytes of shared memory, "
+            f"more than a block has ({_SMEM_LIMIT})")
+
+    from vision_transformers_tpu_torch.ops import _build
+
+    do = do.contiguous()  # arrives as a view of the caller's transpose
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
+        _check_cuda_operand(name, t, q.dtype, d)
+    _check_cuda_operand("lse", lse, torch.float32, d)
+    _check_same_device(q, k=k, v=v, do=do, out=out, lse=lse)
+    if grads is None:
+        grads = (torch.empty_like(q), torch.empty_like(k),
+                 torch.empty_like(v))
+    dq, dk, dv = grads
+    for name, t, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+        _check_into(name, t, like)
+    lib = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b * h, s_q, s_k, d, kv_valid, scale,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention_bwd", rc)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 class _Flash(torch.autograd.Function):
     """``_flash_attention``'s custom_vjp (flash_attention.py:2389-2469)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, kv_valid):
-        out, lse = flash_attention_fwd(q, k, v, bias, scale=scale,
-                                       kv_valid=kv_valid)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
+    def forward(ctx, q, k, v, bias, kv_mask, scale, kv_valid):
+        out, lse = flash_attention_fwd(q, k, v, bias, kv_mask=kv_mask,
+                                       scale=scale, kv_valid=kv_valid)
+        ctx.save_for_backward(q, k, v, bias, kv_mask, out, lse)
         _, _, _, _, _, ctx.scale, ctx.kv_valid = _split_dims(q, k, v, scale,
                                                              kv_valid)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        if bias is None:
+        q, k, v, bias, kv_mask, out, lse = ctx.saved_tensors
+        kw = dict(scale=ctx.scale, kv_valid=ctx.kv_valid)
+        dbias = None
+        if bias is not None:
+            dq, dk, dv, dbias = flash_attention_bias_bwd(
+                q, k, v, bias, do, out, lse, **kw)
+        elif (kv_mask is None and USE_PALLAS_BWD
+              and flash_bwd_supported(q.shape[2], k.shape[2], q.shape[3])):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        else:
             # the JAX package takes this kernel from Sq·Sk >= 512² + 1 and
-            # jnp below; here it serves every size: the same function, and
-            # no S×S tensor in device memory
+            # jnp below (and for a kv_mask); here it serves every size: the
+            # same function, and no S×S tensor in device memory (four
+            # (G, 4704, 4704) fp32 tensors at the DETR encoder's shape)
             dq, dk, dv = flash_dropout_attention_bwd(
                 q, k, v, do, out, lse, dropout_rate=0.0, seed=None,
-                scale=ctx.scale, kv_valid=ctx.kv_valid)
-            dbias = None
-        else:
-            dq, dk, dv, dbias = flash_attention_bias_bwd(
-                q, k, v, bias, do, out, lse, scale=ctx.scale,
-                kv_valid=ctx.kv_valid)
-        return dq, dk, dv, dbias, None, None
+                key_mask=kv_mask, **kw)
+        return dq, dk, dv, dbias, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *,
+                    kv_mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
                     kv_valid: Optional[int] = None) -> torch.Tensor:
     """Batched attention over (B, H, S, D) inputs.
 
     ``bias`` is additive, (1 | n | B, H, Sq, Sk) with n dividing B: a leading
     dim smaller than B is broadcast over the batch (batch b reads
-    bias[b % n], as Swin's per-window bias needs). ``kv_valid`` masks
+    bias[b % n], as Swin's per-window bias needs). ``kv_mask``: bool
+    (B, Sk) keep-mask (per-image key padding, True = attend), broadcast over
+    heads; it takes the streaming kernel, as does a bias-free
+    Sq·Sk > ``MAX_SCORE_ELEMS``; neither takes a bias. ``kv_valid`` masks
     trailing key padding. Sq may differ from Sk. Differentiable in q, k, v
     and bias.
     """
-    return _Flash.apply(q, k, v, bias, scale, kv_valid)
+    return _Flash.apply(q, k, v, bias, kv_mask, scale, kv_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,127 @@
+"""Detection misc: padded batching (NestedTensor), resize, loss-dict reduce.
+
+Counterpart of ``vision_transformers_tpu/utils/coco/util/misc.py``, the
+part the detection path needs:
+
+- ``NestedTensor``: (B, H, W, C) padded batch + (B, H, W) bool mask, True on
+  padding (NHWC, as in the JAX package). Collation makes numpy arrays on the
+  host; ``to(device)`` moves both to torch tensors on a device.
+- ``nested_tensor_from_tensor_list`` / ``collate_fn`` with **shape
+  bucketing**: padded sizes are rounded up to a 128 grid (capped at 1344),
+  so COCO's scales map to a handful of shapes.
+- ``interpolate``: ``F.interpolate`` with ``jax.image.resize``'s arithmetic.
+- ``reduce_dict`` for one process. The multi-process helpers
+  (``init_distributed_mode``, ``all_gather``, ...) wait for the parallel
+  slice (ROADMAP.md, queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def reduce_dict(input_dict: dict, average: bool = True) -> dict:
+    """The loss dict as the reference's ``reduce_dict`` gives it on one
+    process: unchanged. Across processes it waits for the parallel slice."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError(
+            "reduce_dict across processes is not ported yet (ROADMAP.md, "
+            "queue 1, item 10)")
+    return dict(input_dict)
+
+
+def interpolate(array: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest") -> torch.Tensor:
+    """Resize (N, H, W, C) or (N, C, H, W) tensors as ``jax.image.resize``
+    does: "nearest" is F.interpolate's ``nearest-exact`` (pixel centres;
+    torch's ``nearest`` floors and picks other pixels), "bilinear" is
+    half-pixel bilinear with antialiasing when it shrinks. The layout test
+    is the JAX function's."""
+    nchw = (array.shape[1] <= 4 < array.shape[-1]
+            or array.shape[1] < array.shape[-1] // 8)
+    if size is None:
+        h, w = array.shape[2:] if nchw else array.shape[1:3]
+        size = (int(h * scale_factor), int(w * scale_factor))
+    x = array if nchw else array.permute(0, 3, 1, 2)
+    if mode == "nearest":
+        y = F.interpolate(x, size=tuple(size), mode="nearest-exact")
+    elif mode == "bilinear":
+        y = F.interpolate(x, size=tuple(size), mode="bilinear",
+                          align_corners=False, antialias=True)
+    else:
+        raise ValueError(f"mode {mode!r}: 'nearest' or 'bilinear'")
+    return y if nchw else y.permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------- NestedTensor
+
+SIZE_BUCKET = 128  # pad H/W up to multiples of this → few static shapes
+
+
+def bucket_size(x: int, bucket: int = SIZE_BUCKET, max_size: int = 1344) -> int:
+    return min(-(-x // bucket) * bucket, max_size)
+
+
+Array = Union[np.ndarray, torch.Tensor]
+
+
+@dataclass
+class NestedTensor:
+    """Padded image batch (NHWC) + padding mask (True = padded)."""
+
+    tensors: Array  # (B, H, W, C) float32
+    mask: Array     # (B, H, W) bool
+
+    def decompose(self):
+        return self.tensors, self.mask
+
+    @property
+    def shape(self):
+        return self.tensors.shape
+
+    def to(self, device) -> "NestedTensor":
+        """Both arrays as torch tensors on ``device``."""
+        return NestedTensor(torch.as_tensor(self.tensors, device=device),
+                            torch.as_tensor(self.mask, device=device))
+
+
+def _as_hwc(img: np.ndarray) -> np.ndarray:
+    if img.ndim == 3 and img.shape[0] in (1, 3) and img.shape[-1] not in (1, 3):
+        return np.ascontiguousarray(img.transpose(1, 2, 0))
+    return img
+
+
+def nested_tensor_from_tensor_list(
+    images: Sequence[np.ndarray],
+    size_bucket: int = SIZE_BUCKET,
+) -> NestedTensor:
+    """Pad a list of HWC/CHW float images to the bucketed batch max
+    (numpy, on the host)."""
+    images = [_as_hwc(np.asarray(im)) for im in images]
+    max_h = max(im.shape[0] for im in images)
+    max_w = max(im.shape[1] for im in images)
+    H = bucket_size(max_h, size_bucket)
+    W = bucket_size(max_w, size_bucket)
+    c = images[0].shape[2]
+    b = len(images)
+
+    out = np.zeros((b, H, W, c), np.float32)
+    mask = np.ones((b, H, W), bool)
+    for i, im in enumerate(images):
+        h, w = im.shape[:2]
+        out[i, :h, :w] = im
+        mask[i, :h, :w] = False
+    return NestedTensor(out, mask)
+
+
+def collate_fn(batch) -> Tuple[NestedTensor, tuple]:
+    """DETR collate: batch list of (image, target) → (NestedTensor,
+    targets)."""
+    images, targets = list(zip(*batch))
+    return nested_tensor_from_tensor_list(images), targets

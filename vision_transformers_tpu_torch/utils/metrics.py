@@ -1,0 +1,194 @@
+"""Metrics, logging and tracing.
+
+Counterpart of ``vision_transformers_tpu/utils/metrics.py``:
+
+- ``SmoothedValue`` / ``MetricLogger`` with the windowed median/avg/global
+  semantics of the reference's COCO utilities, including the iter/data-time
+  split of ``log_every``;
+- ``accuracy_topk``;
+- ``step_timer``: wall-clock step timing that waits for the CUDA device
+  before reading the clock (PyTorch returns before the card finishes);
+- ``profile_trace``: a ``torch.profiler`` trace (CPU and, where there is
+  one, CUDA activity) written for TensorBoard/Perfetto.
+
+Cross-process reduction waits for the parallel slice (ROADMAP.md, queue 1,
+item 10); in one process it is the identity.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import time
+from collections import defaultdict, deque
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+
+def _multi_process() -> bool:
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1)
+
+
+class SmoothedValue:
+    """Track a series with a smoothing window; exposes median/avg/
+    global_avg/max/value like the reference meter."""
+
+    def __init__(self, window_size: int = 20, fmt: Optional[str] = None):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt or "{median:.4f} ({global_avg:.4f})"
+
+    def update(self, value, n: int = 1):
+        value = float(value)
+        self.deque.append(value)
+        self.count += n
+        self.total += value * n
+
+    def synchronize_between_processes(self):
+        """(count, total) summed across processes; a no-op in one."""
+        if _multi_process():
+            raise NotImplementedError(
+                "cross-process metrics are not ported yet (ROADMAP.md, queue "
+                "1, item 10)")
+
+    @property
+    def median(self):
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self):
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self):
+        return self.total / max(self.count, 1)
+
+    @property
+    def max(self):
+        return max(self.deque) if self.deque else 0.0
+
+    @property
+    def value(self):
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self):
+        return self.fmt.format(
+            median=self.median, avg=self.avg, global_avg=self.global_avg,
+            max=self.max, value=self.value,
+        )
+
+
+class MetricLogger:
+    def __init__(self, delimiter: str = "\t"):
+        self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(
+            f"'{type(self).__name__}' object has no attribute '{attr}'"
+        )
+
+    def __str__(self):
+        return self.delimiter.join(
+            f"{name}: {meter}" for name, meter in self.meters.items()
+        )
+
+    def add_meter(self, name: str, meter: SmoothedValue):
+        self.meters[name] = meter
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
+
+    def log_every(self, iterable: Iterable, print_freq: int,
+                  header: str = ""):
+        """Yield items while logging iter/data time, ETA and meters."""
+        i = 0
+        start = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = SmoothedValue(fmt="{avg:.4f}")
+        try:
+            total = len(iterable)  # type: ignore[arg-type]
+        except TypeError:
+            total = None
+        end = time.time()
+        for obj in iterable:
+            data_time.update(time.time() - end)
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % print_freq == 0 or (total and i == total - 1):
+                if total:
+                    eta = datetime.timedelta(
+                        seconds=int(iter_time.global_avg * (total - i)))
+                    eta_s = f"eta: {eta}"
+                else:
+                    eta_s = ""
+                print(self.delimiter.join(filter(None, [
+                    header, f"[{i}" + (f"/{total}]" if total else "]"),
+                    eta_s, str(self),
+                    f"time: {iter_time}", f"data: {data_time}",
+                ])))
+            i += 1
+            end = time.time()
+        elapsed = time.time() - start
+        print(f"{header} Total time: "
+              f"{datetime.timedelta(seconds=int(elapsed))} "
+              f"({elapsed / max(i, 1):.4f} s / it)")
+
+
+def accuracy_topk(logits, labels, topk=(1,)):
+    """Top-k accuracies in percent."""
+    logits = torch.as_tensor(logits)
+    labels = torch.as_tensor(labels)
+    maxk = max(topk)
+    top = logits.topk(maxk, dim=-1).indices
+    correct = top == labels[:, None]
+    batch = labels.shape[0]
+    return [float(correct[:, :k].sum() * 100.0 / batch) for k in topk]
+
+
+@contextlib.contextmanager
+def step_timer(device=None):
+    """Wall-clock timer; on a CUDA ``device`` (or the current one when
+    ``device`` is None and CUDA is present) it synchronises before each
+    clock read, so the work queued inside is counted."""
+    dev = torch.device(device) if device is not None else None
+    sync = (torch.cuda.is_available() if dev is None
+            else dev.type == "cuda")
+
+    def now():
+        if sync:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    result = {}
+    t0 = now()
+    yield result
+    result["seconds"] = now() - t0
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """``torch.profiler`` trace of the block (CPU, and CUDA where present),
+    written to ``logdir`` as a Chrome/Perfetto trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

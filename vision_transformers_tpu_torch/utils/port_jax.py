@@ -1,8 +1,8 @@
 """Weights from the JAX package's models into this port's modules.
 
 ``vit_state_dict_from_jax(params)``, ``swin_state_dict_from_jax(params)``,
-``pvt_state_dict_from_jax(params)`` and ``twins_state_dict_from_jax(params)``
-take a JAX model's params tree as nested dicts of numpy arrays
+``pvt_state_dict_from_jax(params)``, ``twins_state_dict_from_jax(params)``
+and ``detr_state_dict_from_jax(params)`` take a JAX model's params tree as nested dicts of numpy arrays
 (``jax.device_get(params)`` gives that) and return the port's
 ``state_dict``. The port's module names mirror the JAX tree, so the mapping
 is a rename and a transpose:
@@ -72,3 +72,37 @@ def twins_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     ``strict=True``); ``pos_block{k}.proj.kernel`` is the one depthwise conv
     kernel of the tree."""
     return vit_state_dict_from_jax(params)
+
+
+def detr_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``Detr`` params (either backbone) → the port's ``state_dict`` (loads
+    with ``strict=True``). Its own walk, because DETR's convolutions are
+    real ones:
+
+    - a conv ``kernel`` (kh, kw, in, out) → ``F.conv2d``'s ``weight``
+      (out, in, kh, kw) (the ResNet, ``input_proj``; a depthwise (k, k, 1,
+      C) kernel gives (C, 1, k, k));
+    - a Dense ``kernel`` (in, out) → ``weight`` (out, in) (the ViT
+      backbone's patch embedding is a Dense on patchified pixels);
+    - ``scale`` → ``weight`` (LayerNorm, GroupNorm and ``FrozenBatchNorm``,
+      whose ``bias``, ``mean`` and ``var`` keep their names);
+    - everything else as it is: ``bias``, ``query_embed``, ``row_embed``,
+      ``col_embed``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for key, sub in tree.items():
+            if isinstance(sub, Mapping):
+                walk(sub, f"{prefix}{key}.")
+                continue
+            arr = np.asarray(sub, dtype=np.float32)
+            if key == "kernel" and arr.ndim == 4:
+                key, arr = "weight", arr.transpose(3, 2, 0, 1)
+            elif key == "kernel":
+                key, arr = "weight", arr.T
+            elif key == "scale":
+                key = "weight"
+            out[prefix + key] = torch.tensor(np.ascontiguousarray(arr))
+
+    walk(params, "")
+    return out
