@@ -36,7 +36,12 @@ exit, and without the final result line:
    (``flash_attention_bwd``) at the DETR decoder's self attention and at
    ViT-B/16's S 197 against its plain version, the row-6 kernel at rate 0
    and, in fp32, autograd of the plain forward, into NaN-filled gradients,
-   twice for equal bits.
+   twice for equal bits. The fused LayerNorm + Dense (``ln_dense``) at
+   benchmarks/ln_fused.py's ViT-B shapes at batch 32 ([ln_1 + QKV] and
+   [ln_2 + fc1 + GELU], a ragged R without a bias, erf GELU in fp32) and the
+   fused attention sub-block (``fused_attention_block``) at ViT-B/16,
+   DeiT-B, T2T-ViT-14 and bucket 1, into NaN-filled outputs, twice for
+   equal bits; gradients through both autograd functions in fp32.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -71,7 +76,19 @@ exit, and without the final result line:
    ``swin_tiny_cifar100``. ``pvt_tiny224_imagenet`` and
    ``twins_svts224_imagenet`` served in bf16 (buckets 1 and 32, logits
    against the CPU) and trained for a few steps, with the kernels they
-   launch and Twins' window routes.
+   launch and Twins' window routes. Then the ViT family on the
+   ``USE_FUSED_BLOCK`` path: ViT-B/16, DeiT-B, CPE-ViT-B, T2T-ViT-14 and
+   T2T-ViT_t-14 @224 (weights drawn into the JAX params layout, loaded
+   through ``utils/port_jax.py``'s converters) served in bf16 at buckets 1,
+   8 and 32 with the flag on (exactly 12, 12, 12, 14 and 14
+   ``fused_attention_block`` launches per forward, no packed launch; the
+   T2T_t one also 1 streaming and 1 split-head launch for its token
+   transformer), then off (the packed kernel per layer), logits against
+   each other and the CPU, fp32 on the card against the CPU; the three new
+   models trained for 3 Adam steps in bf16 at batch 32 with the flag on (no
+   fused launch in training mode, the batch's eval loss falls); and
+   benchmarks/ln_fused.py's fused chain (12 layers, ``ln_dense`` twice per
+   layer) against its library chain.
 7. Detection: ``Detr(num_classes=91, aux_loss=True)`` (DETR-R50 DC5, full
    width and depth, weights drawn from a seed into the JAX package's params
    layout and loaded through ``detr_state_dict_from_jax``) on synthetic
@@ -87,11 +104,16 @@ exit, and without the final result line:
    launches per step; in both the batch's eval-mode loss must fall; the
    step's split and a profile. fp32 parameter gradients of a narrow DETR
    (hidden 32, 1 + 2 layers, full ResNet-50, 128 x 160) on the card against
-   the CPU; the auction's assignment on the step's cost against scipy's.
+   the CPU, with the diagnosis of their largest difference (the
+   pre-activations of the ReLU after ``layer4_block2.conv1`` within rounding
+   of 0 and on opposite sides on the two devices, and that weight gradient
+   recomputed on the card with each device's ReLU mask); the auction's
+   assignment on the step's cost against scipy's.
    One forward of the ViT-B backbone variant at the same bucket (24
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
-8. Times: serving latency per bucket, and each kernel beside its bound, its
-   plain version and the PyTorch library call for the same function.
+8. Times: serving latency per bucket (the ViT family with the flag on and
+   off), and each of the fifteen kernels beside its bound, its plain version
+   and the PyTorch library call (or chain) for the same function.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -179,9 +201,16 @@ DETR_BOX_TOL = 1e-3
 # the largest reference gradient (21): the two devices sum the convolutions
 # in different orders through 53 layers of random weights, and a
 # pre-activation within rounding of 0 can fall on either side of a ReLU,
-# which moves a whole upstream gradient term. Measured 2.0e-3, in
-# layer4_block2.conv1 (80 positions per image at 128 x 160), twice.
+# which moves a whole gradient term. Measured on an H100 80GB HBM3: 2.0e-3
+# (9.6e-5 of max|ref|) in layer4_block2.conv1.weight; of the 81 920
+# pre-activations of the ReLU after it, 2 (CPU) and 1 (card) lie within
+# 1e-6·max|z| of 0 and 1 falls on opposite sides on the two devices, and
+# that weight gradient recomputed on the card with the CPU's ReLU mask is
+# 2.1e-7 (9.9e-9 relative) from the CPU's. narrow_detr_gradients prints
+# these counts each run and requires the masked recompute within
+# RELU_MASK_TOL.
 DETR_GRAD_TOL = 5e-4
+RELU_MASK_TOL = 1e-4
 # Launches per DETR-R50 forward at eval (6 encoder self and 6 decoder cross
 # attentions take the streaming kernel with their key-padding mask; the
 # mask-free 100 x 100 decoder self attention the split-head kernel), and
@@ -191,6 +220,26 @@ DETR_TRAIN_LAUNCHES = {
     0.1: {"dropout_attention_fwd": 18, "dropout_attention_bwd": 18},
     0.0: {"flash_attention_large": 12, "flash_attention": 6,
           "flash_attention_bwd": 6, "dropout_attention_bwd": 12},
+}
+# The ViT family on the USE_FUSED_BLOCK path, @224: (class name, kwargs, the
+# converter in utils/port_jax.py, encoder layers = fused launches per
+# forward, other attention launches per forward). DeiT-B: Touvron et al.
+# 2021 (arXiv:2012.12877); T2T-ViT-14 and T2T-ViT_t-14: Yuan et al. 2021
+# (arXiv:2101.11986) Table 1, whose token transformer takes the streaming
+# kernel at 3136 tokens and the split-head kernel at 784.
+_T2T14 = dict(image_size=224, patch_size=16, num_layers=14, num_heads=6,
+              hidden_dim=384, mlp_dim=1152, num_classes=1000, token_dim=64)
+FAMILY_CONFIGS = {
+    "vitb16_224_imagenet": ("ViT", None, "vit_state_dict_from_jax", 12, {}),
+    "deit-b@224": ("DeiT", dict(image_size=224, patch_size=16, num_layers=12,
+                                num_heads=12, embed_dim=768,
+                                num_classes=1000),
+                   "deit_state_dict_from_jax", 12, {}),
+    "cpe-vit-b@224": ("CPEViT", None, "cpevit_state_dict_from_jax", 12, {}),
+    "t2t-vit-14@224": ("T2T_ViT", _T2T14, "t2t_state_dict_from_jax", 14, {}),
+    "t2t-vit_t-14@224": ("T2T_ViT", dict(_T2T14, token_type="transformer"),
+                         "t2t_state_dict_from_jax", 14,
+                         {"flash_attention_large": 1, "flash_attention": 1}),
 }
 # Four COCO-sized images (shorter side 800 or less, longer up to 1333): one
 # batch at the 896 x 1344 bucket, each with its own padding.
@@ -374,6 +423,215 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dense_chain_weights(randn, dtype):
+    """The weights of benchmarks/ln_fused.py's ViT-B/16 layer (D 768, MLP
+    3072): LN scale and shift, QKV, out, fc1 and fc2 kernels (in, out) and
+    their biases; fp32 rows, kernels in ``dtype``."""
+    import torch
+
+    d, mlp = 768, 3072
+    f32 = torch.float32
+    ones = torch.ones(d, device="cuda")
+    zeros = lambda n: torch.zeros(n, device="cuda")  # noqa: E731
+    kernel = lambda seed, k, n: (0.02 * randn(seed, k, n, dtype=f32)).to(  # noqa: E731
+        dtype)
+    return dict(gamma=ones, beta=zeros(d), wqkv=kernel(141, d, 3 * d),
+                bqkv=zeros(3 * d), wout=kernel(142, d, d), bout=zeros(d),
+                w1=kernel(143, d, mlp), b1=zeros(mlp), w2=kernel(144, mlp, d),
+                b2=zeros(d))
+
+
+def base_ln_dense(x, gamma, beta, w, bias=None, *, eps=1e-6, activation=None):
+    """``ln_dense`` from library calls: ``F.layer_norm`` → ``F.linear``
+    (+ ``F.gelu``), in x's dtype (the ln_fused benchmark's "base" layer)."""
+    import torch.nn.functional as F
+
+    xn = F.layer_norm(x, (x.shape[-1],), gamma.to(x.dtype), beta.to(x.dtype),
+                      eps)
+    y = F.linear(xn, w.t(), None if bias is None else bias.to(x.dtype))
+    if activation is not None:
+        y = F.gelu(y, approximate="tanh" if activation == "gelu_tanh"
+                   else "none")
+    return y
+
+
+def ln_fused_chain(x, c, dense, attention, layers=12, heads=12):
+    """benchmarks/ln_fused.py's layer, ``layers`` times: x + out(attn(
+    dense(ln_1, QKV))); x + fc2(dense(ln_2, fc1, GELU))."""
+    import torch.nn.functional as F
+
+    for _ in range(layers):
+        y = attention(dense(x, c["gamma"], c["beta"], c["wqkv"], c["bqkv"]),
+                      heads)
+        x = x + F.linear(y, c["wout"].t(), c["bout"].to(x.dtype))
+        y = dense(x, c["gamma"], c["beta"], c["w1"], c["b1"],
+                  activation="gelu_tanh")
+        x = x + F.linear(y, c["w2"].t(), c["b2"].to(x.dtype))
+    return x
+
+
+def narrow_detr_gradients():
+    """fp32 parameter gradients of a narrow DETR (hidden 32, 1 + 2 layers,
+    full ResNet-50, two images at 128 x 160) on the CPU and on the card from
+    the same weights, held to ``DETR_GRAD_TOL``; then the diagnosis of the
+    ReLU after ``layer4_block2.conv1`` (see ``relu_mask_diagnosis``). Returns
+    the card run's kernel launches."""
+    import torch
+
+    from vision_transformers_tpu_torch.models.object_detection import (
+        Detr,
+        HungarianMatcher,
+        SetCriterion,
+        prepare_targets,
+    )
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.utils.coco.util.misc import (
+        nested_tensor_from_tensor_list,
+    )
+    from vision_transformers_tpu_torch.utils.port_jax import (
+        detr_state_dict_from_jax,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    narrow = dict(num_classes=91, hidden_dim=32, nheads=2,
+                  num_encoder_layers=1, num_decoder_layers=2,
+                  dim_feedforward=64, dropout=0.0, aux_loss=True)
+    nds = SyntheticCoco([(128, 150), (100, 160)], seed=16)
+    ntn = nested_tensor_from_tensor_list([nds[i][0] for i in range(2)],
+                                         size_bucket=32)
+    require(ntn.tensors.shape == (2, 128, 160, 3), "narrow batch 128 x 160")
+    ncrit = SetCriterion(num_classes=91,
+                         matcher=HungarianMatcher(method="scipy"))
+    nweights, launches = None, None
+    grads, taps = {}, {}
+    fa.USE_PALLAS_BWD = True
+    for device in ("cpu", "cuda"):
+        m = Detr(**narrow, device=device)
+        if nweights is None:
+            nweights = detr_state_dict_from_jax(jax_shaped_weights(m, 17))
+        m.load_state_dict(nweights, strict=True)
+        m.train()
+        taps[device] = tap_relu_after_conv1(
+            m.get_submodule("joiner.backbone.layer4_block2"))
+        fa.reset_launch_counts()
+        b = ntn.to(device)
+        labels, boxes, valid = prepare_targets([nds[i][1] for i in range(2)],
+                                               64, 91, device)
+        loss = ncrit.total_loss(ncrit(m(b.tensors, b.mask), labels, boxes,
+                                      valid))
+        loss.backward()
+        grads[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                       for n, p in m.named_parameters()
+                                       if p.grad is not None})
+        if device == "cuda":
+            launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+            require(launches == {"flash_attention_large": 3,
+                                 "flash_attention": 2,
+                                 "flash_attention_bwd": 2,
+                                 "dropout_attention_bwd": 3},
+                    f"narrow DETR gradients went through rows 3, 2, 4, 6; "
+                    f"got {launches}")
+    fa.USE_PALLAS_BWD = False
+    g_ref = max(g.abs().max().item() for g in grads["cpu"][1].values())
+    require(set(grads["cpu"][1]) == set(grads["cuda"][1]),
+            "the same parameters take gradients on both devices")
+    e_grad, worst = max((max_err(grads["cuda"][1][n], g), n)
+                        for n, g in grads["cpu"][1].items())
+    log(f"fp32 gradients of a narrow DETR (hidden 32, 1 + 2 layers, "
+        f"ResNet-50, 128 x 160), card vs CPU: loss {grads['cuda'][0]:.6f} vs "
+        f"{grads['cpu'][0]:.6f}, max|dgrad| {e_grad:.3e} over "
+        f"{len(grads['cpu'][1])} tensors, at {worst} (its max|ref| "
+        f"{grads['cpu'][1][worst].abs().max().item():.3e}; max|ref| "
+        f"{g_ref:.3e}, tol {DETR_GRAD_TOL} x max(1, max|ref|))")
+    diag = relu_mask_diagnosis(
+        taps, grads["cpu"][1]["joiner.backbone.layer4_block2.conv1.weight"],
+        grads["cuda"][1]["joiner.backbone.layer4_block2.conv1.weight"], g_ref)
+    require(diag["CPU mask, card dy"] <= RELU_MASK_TOL * max(1.0, g_ref),
+            "layer4_block2.conv1's gradient with the CPU's ReLU mask matches "
+            "the CPU's: the gap is the ReLU's flipped pre-activations")
+    require(abs(grads["cuda"][0] - grads["cpu"][0])
+            <= 1e-4 * max(1.0, abs(grads["cpu"][0]))
+            and e_grad <= DETR_GRAD_TOL * max(1.0, g_ref),
+            "narrow DETR gradients on the card against the CPU")
+    return launches
+
+
+def tap_relu_after_conv1(block):
+    """Hooks on a ResNet bottleneck that keep, from one forward and
+    backward: conv1's input x, the pre-activation z = bn1(conv1(x)) of the
+    first ReLU, the gradient dy arriving at that ReLU's output (conv2's
+    input) and bn1's per-channel scale."""
+    import torch
+
+    tap = {}
+
+    def keep_dy(_, args):
+        args[0].register_hook(lambda g: tap.__setitem__("dy", g.detach()))
+
+    block.conv1.register_forward_pre_hook(
+        lambda _, args: tap.__setitem__("x", args[0].detach()))
+    block.bn1.register_forward_hook(
+        lambda _, args, out: tap.__setitem__("z", out.detach()))
+    block.conv2.register_forward_pre_hook(keep_dy)
+    bn = block.bn1
+    tap["inv"] = (bn.weight * torch.rsqrt(bn.var + bn.epsilon)).detach()
+    tap["w_shape"] = block.conv1.weight.shape
+    return tap
+
+
+def relu_mask_diagnosis(taps, grad_cpu, grad_card, g_ref):
+    """The hypothesis for the card-vs-CPU gradient gap of
+    ``layer4_block2.conv1.weight``: pre-activations within fp32 rounding of
+    0 take opposite sides of the ReLU on the two devices. Counts them, then
+    recomputes that weight gradient on the card from the card's x and dy
+    with each device's ReLU mask (and, to attribute the rest, with the
+    CPU's dy), against the CPU's gradient. Logs and returns the numbers."""
+    import torch
+
+    cpu, card = taps["cpu"], taps["cuda"]
+    z_cpu, z_card = cpu["z"], card["z"].cpu()
+    near = {d: int((t["z"].abs() <= 1e-6 * t["z"].abs().max()).sum().item())
+            for d, t in taps.items()}
+    flips = int(((z_cpu > 0) != (z_card > 0)).sum().item())
+    dev = card["x"].device
+
+    def weight_grad(mask, dy):
+        """d loss / d conv1.weight of a 1x1 conv: Σ x ⊗ (dy·mask·inv)."""
+        dz = (dy.to(dev) * mask.to(dev) * card["inv"]).permute(0, 3, 1, 2)
+        return torch.nn.grad.conv2d_weight(card["x"].permute(0, 3, 1, 2),
+                                           card["w_shape"], dz).cpu()
+
+    mask_cpu, mask_card = z_cpu > 0, z_card > 0
+    rows = {
+        "card mask, card dy (autograd's)": weight_grad(mask_card, card["dy"]),
+        "CPU mask, card dy": weight_grad(mask_cpu, card["dy"]),
+        "card mask, CPU dy": weight_grad(mask_card, cpu["dy"]),
+        "CPU mask, CPU dy": weight_grad(mask_cpu, cpu["dy"]),
+    }
+    out = {"near_zero_cpu": near["cpu"], "near_zero_card": near["cuda"],
+           "opposite_signs": flips, "elements": z_cpu.numel(),
+           "autograd_gap": max_err(grad_card, grad_cpu),
+           "recompute_vs_autograd": max_err(
+               rows["card mask, card dy (autograd's)"], grad_card),
+           "dy_diff": max_err(card["dy"].cpu(), cpu["dy"]),
+           "g_ref": g_ref}
+    log(f"layer4_block2 ReLU after conv1: {z_cpu.numel()} pre-activations, "
+        f"{near['cpu']} (CPU) / {near['cuda']} (card) within 1e-6 x max|z| of "
+        f"0, {flips} on opposite sides of 0 on the two devices; "
+        f"max|dy card - dy CPU| {out['dy_diff']:.3e}")
+    log(f"  conv1.weight gradient, card autograd vs CPU: "
+        f"{out['autograd_gap']:.3e} ({out['autograd_gap'] / g_ref:.2e} of "
+        f"max|ref| {g_ref:.3e}); the recompute vs card autograd "
+        f"{out['recompute_vs_autograd']:.3e}")
+    for label, g in rows.items():
+        e = max_err(g, grad_cpu)
+        out[label] = e
+        log(f"  recomputed on the card with {label}: vs CPU {e:.3e} "
+            f"({e / g_ref:.2e} relative)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -395,6 +653,7 @@ def main() -> int:
     from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.ops import flash_attention as fa
     from vision_transformers_tpu_torch.ops import fused_adam as fadam
+    from vision_transformers_tpu_torch.ops import fused_dense as fdense
     from vision_transformers_tpu_torch.ops import windows
     from vision_transformers_tpu_torch.training import trainer
     from vision_transformers_tpu_torch.training.optimizers import make_optimizer
@@ -421,6 +680,19 @@ def main() -> int:
     from vision_transformers_tpu_torch.utils.port_jax import (
         detr_state_dict_from_jax,
     )
+
+    import vision_transformers_tpu_torch.models.image_classification as zoo
+    from vision_transformers_tpu_torch.models.image_classification import (
+        vanilla_vit as vv,
+    )
+    from vision_transformers_tpu_torch.utils import port_jax
+
+    # ViT-B/16 widths for the ViT and CPE-ViT entries
+    vitb = get_args("vitb16_224_imagenet")
+    FAMILY = {label: (getattr(zoo, cls), kw if kw is not None else vitb,
+                      convert, layers, extra)
+              for label, (cls, kw, convert, layers, extra)
+              in FAMILY_CONFIGS.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -951,6 +1223,106 @@ def main() -> int:
                         dtype)
         check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
     del qm, km, vm, got, want
+
+    # the fused LayerNorm + Dense (row 14) at benchmarks/ln_fused.py's ViT-B
+    # shapes (S 197, D 768, batch 32: R 6304) in its two forms, a ragged R
+    # without a bias, and gelu_erf in fp32; the fused attention sub-block
+    # (row 8) at ViT-B/16, DeiT-B (S 198), T2T-ViT-14 (H 6) and bucket 1;
+    # into NaN-filled outputs, twice for equal bits
+    def dense_inputs(seed, rows, d, n, dtype, with_bias=True):
+        x = randn(seed, rows, d, dtype=dtype)
+        g = (1 + 0.1 * randn(seed + 1, d, dtype=fp32))
+        b = 0.1 * randn(seed + 2, d, dtype=fp32)
+        w = (randn(seed + 3, d, n, dtype=fp32) / d ** 0.5).to(dtype)
+        bias = 0.1 * randn(seed + 4, n, dtype=fp32) if with_bias else None
+        return x, g, b, w, bias
+
+    def check_ln_dense(label, rows, d, n, activation, with_bias, dtype):
+        name = str(dtype).removeprefix("torch.")
+        args = dense_inputs(100, rows, d, n, dtype, with_bias)
+        kw = dict(activation=activation)
+        out = fdense.ln_dense_fwd(*args, **kw, out=torch.full(
+            (rows, n), float("nan"), dtype=dtype, device=dev))
+        want = fdense.ln_dense_reference(*args, **kw)
+        again = fdense.ln_dense_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        e = max_err(out, want)
+        tol = KERNEL_TOL[name] * max(1.0, want.float().abs().max().item())
+        errs[("ln_dense", label, name)] = e
+        log(f"ln_dense {label} {name}: max|out-plain| {e:.3e} (tol {tol:.3e})")
+        require(not bool(torch.isnan(out.float()).any())
+                and torch.equal(again, out) and e <= tol,
+                f"ln_dense {label} {name}: every element written, reruns "
+                "bit-equal, within tolerance of the plain version")
+
+    for dtype in (bf16, fp32):
+        check_ln_dense("[ln_1 + QKV] R6304 D768 N2304", 6304, 768, 2304, None,
+                       True, dtype)
+        check_ln_dense("[ln_2 + fc1 + GELU] R6304 D768 N3072", 6304, 768,
+                       3072, "gelu_tanh", True, dtype)
+        check_ln_dense("ragged R6301 N2304 no bias", 6301, 768, 2304, None,
+                       False, dtype)
+    check_ln_dense("gelu_erf R6304 N3072", 6304, 768, 3072, "gelu_erf", True,
+                   fp32)
+
+    def block_inputs(seed, b, s, hd, dtype):
+        x = randn(seed, b, s, hd, dtype=dtype)
+        rows = [1 + 0.1 * randn(seed + 1, hd, dtype=fp32),
+                0.1 * randn(seed + 2, hd, dtype=fp32),
+                0.1 * randn(seed + 3, 3 * hd, dtype=fp32),
+                0.1 * randn(seed + 4, hd, dtype=fp32)]
+        w = [(randn(seed + 5, hd, 3 * hd, dtype=fp32) / hd ** 0.5).to(dtype),
+             (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
+        return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
+
+    def check_block(label, b, s, h, dh, dtype):
+        name = str(dtype).removeprefix("torch.")
+        args = block_inputs(110, b, s, h * dh, dtype)
+        out = fa.fused_attention_block_fwd(
+            *args, h, out=torch.full_like(args[0], float("nan")))
+        want = fa.fused_attention_block_reference(*args, h)
+        again = fa.fused_attention_block_fwd(*args, h)
+        torch.cuda.synchronize()
+        e = max_err(out, want)
+        tol = KERNEL_TOL[name] * max(1.0, want.float().abs().max().item())
+        errs[("fused_block", label, name)] = e
+        log(f"fused_attention_block {label} {name}: max|out-plain| {e:.3e} "
+            f"(tol {tol:.3e})")
+        require(not bool(torch.isnan(out.float()).any())
+                and torch.equal(again, out) and e <= tol,
+                f"fused_attention_block {label} {name}: every element "
+                "written, reruns bit-equal, within tolerance of the plain "
+                "version")
+
+    for dtype in (bf16, fp32):
+        check_block("vitb16 B32 S197 H12", 32, 197, 12, 64, dtype)
+        check_block("deit-b B32 S198 H12", 32, 198, 12, 64, dtype)
+        check_block("t2t-vit-14 B32 S197 H6", 32, 197, 6, 64, dtype)
+        check_block("vitb16 B1 S197 H12", 1, 197, 12, 64, dtype)
+
+    # gradients through both autograd functions against autograd of their
+    # plain versions, fp32
+    def autograd_err(label, fn, ref, leaves, **kw):
+        grads = []
+        for f in (fn, ref):
+            ts = [t.detach().clone().requires_grad_() for t in leaves]
+            out = f(*ts, **kw)
+            out.backward(randn(120, *out.shape, dtype=fp32))
+            grads.append([t.grad for t in ts])
+        e = max(grad_err(f"{label} d{i}", g, r, "float32")[0]
+                for i, (g, r) in enumerate(zip(*grads)))
+        log(f"{label} gradients vs autograd of the plain version: {e:.3e}")
+        return e
+
+    errs[("ln_dense", "grad")] = autograd_err(
+        "ln_dense B4 S197 D768 N3072 gelu_tanh", fdense.ln_dense,
+        fdense.ln_dense_reference,
+        list(dense_inputs(121, 4 * 197, 768, 3072, fp32)),
+        activation="gelu_tanh")
+    errs[("fused_block", "grad")] = autograd_err(
+        "fused_attention_block B2 S197 H12", fa.fused_attention_block,
+        fa.fused_attention_block_reference,
+        list(block_inputs(130, 2, 197, 768, fp32)), heads=12)
 
     # ---- 3. main path: ViT-B/16 @224 served in bf16 ----------------------
     args = get_args("vitb16_224_imagenet")
@@ -1544,6 +1916,167 @@ def main() -> int:
             preset, hmodel, hweights, xb, yb, wb, want, want_bwd))
         del hmodel
 
+    # ---- 6g. the ViT family on the fused path (USE_FUSED_BLOCK) -----------
+    # ViT-B/16, DeiT-B, CPE-ViT-B and T2T-ViT-14 (both token types) @224,
+    # bf16, weights drawn into the JAX params layout and loaded through the
+    # converters; served with the flag on at buckets 1, 8 and 32, then with
+    # it off; fp32 on the card and the CPU; trained with the flag on
+    family, family_runs = {}, []
+    for label, (cls, kw, convert, layers, extra) in FAMILY.items():
+        model = cls(**kw, dtype="bfloat16")
+        fweights = getattr(port_jax, convert)(jax_shaped_weights(model, 40))
+        model.load_state_dict(fweights, strict=True)
+        vv.USE_FUSED_BLOCK = True
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(model, shape, tmp, buckets=(1, 8, 32),
+                                      dtype=fp32)
+            del model
+            fclf = serving.load_classifier(tmp)
+        fwd = [0]
+        fclf.model.register_forward_hook(
+            lambda *_: fwd.__setitem__(0, fwd[0] + 1))
+        fa.reset_launch_counts()
+        fclf.warmup()
+        fused_out = {n: fclf.predict(images[:n]) for n in (1, 8, 32)}
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        want = {k: v * fwd[0] for k, v in
+                {"fused_attention_block": layers, **extra}.items()}
+        log(f"{label} bf16 served with USE_FUSED_BLOCK: {fwd[0]} forwards "
+            f"(buckets 1, 8, 32), launches {got}")
+        require(got == want, f"{label}: per forward {layers} fused_attention_"
+                f"block launches{', ' + str(extra) if extra else ''} and no "
+                f"packed or other launch; got {got}")
+        family_runs.append(got)
+        x32 = torch.from_numpy(images[:32]).to(dev)
+        with torch.inference_mode():
+            fused_ms = cuda_ms(lambda: fclf.model(x32), iters=10)
+        vv.USE_FUSED_BLOCK = False
+        fwd[0] = 0
+        fa.reset_launch_counts()
+        plain_out = fclf.predict(images[:8])
+        torch.cuda.synchronize()
+        got_off = {k: v for k, v in fa.LAUNCHES.items() if v}
+        want_off = {k: v * fwd[0] for k, v in
+                    {"packed_attention": layers, **extra}.items()}
+        require(got_off == want_off, f"{label} flag off: per forward {layers} "
+                f"packed launches{', ' + str(extra) if extra else ''}; got "
+                f"{got_off}")
+        with torch.inference_mode():
+            modular_ms = cuda_ms(lambda: fclf.model(x32), iters=10)
+        cpu_model = cls(**kw, device="cpu")
+        cpu_model.load_state_dict(fweights, strict=True)
+        with torch.no_grad():
+            ref = cpu_model(torch.from_numpy(images[:2])).float()
+        del cpu_model
+        scale = ref.abs().max().item()
+        e_off = max_err(fused_out[8], plain_out)
+        e_cpu = max_err(fused_out[8][:2].cpu(), ref)
+        model32 = cls(**kw)
+        model32.load_state_dict(fweights, strict=True)
+        vv.USE_FUSED_BLOCK = True
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            out32 = model32(torch.from_numpy(images[:2]).to(dev)).float()
+        torch.cuda.synchronize()
+        vv.USE_FUSED_BLOCK = False
+        require(fa.LAUNCHES["fused_attention_block"] == layers,
+                f"{label} fp32: the fused kernel per layer")
+        e32 = max_err(out32.cpu(), ref)
+        del model32
+        log(f"{label}: bf16 fused vs bf16 modular logits {e_off:.3e}, vs CPU "
+            f"fp32 {e_cpu:.3e} (max|ref| {scale:.3f}, tol "
+            f"{LOGIT_TOL_BF16_REL} x max|ref|); fp32 fused on the card vs CPU "
+            f"{e32:.3e} (tol {LOGIT_TOL_FP32}); forward at batch 32, device "
+            f"time: fused {fused_ms:.3f} ms, modular {modular_ms:.3f} ms")
+        require(all(bool(torch.isfinite(o.float()).all())
+                    and o.shape == (o.shape[0], 1000)
+                    for o in fused_out.values())
+                and e_off <= LOGIT_TOL_BF16_REL * scale
+                and e_cpu <= LOGIT_TOL_BF16_REL * scale
+                and e32 <= LOGIT_TOL_FP32,
+                f"{label}: fused logits against the modular path and the CPU")
+        family[label] = dict(clf=fclf, fused_ms=fused_ms,
+                             modular_ms=modular_ms)
+
+    # the three new models trained with the flag on: it does not engage in
+    # training mode (no fused launch in a step), the packed kernels do
+    vv.USE_FUSED_BLOCK = True
+    fam_x = torch.from_numpy(images[:32]).to(dev)
+    fam_y = torch.from_numpy(rng.randint(0, 1000, 32)).to(dev)
+    fam_w = torch.ones(32, device=dev)
+    for label, (cls, kw, convert, layers, extra) in FAMILY.items():
+        if cls is ViT:
+            continue  # trained in phase 6b
+        model = cls(**kw, dtype="bfloat16")
+        model.load_state_dict(getattr(port_jax, convert)(
+            jax_shaped_weights(model, 41)), strict=True)
+        evaluate = trainer.eval_step_fn(model)
+        before = (evaluate(model, fam_x, fam_y, fam_w)[0] / 32).item()
+        state = trainer.make_train_state(model,
+                                         tx=make_optimizer("adam", 1e-4))
+        step = trainer.train_step_fn(model)
+        model.dropout_generator.manual_seed(0)
+        fa.reset_launch_counts()
+        losses = []
+        for _ in range(3):
+            state, loss_n, _, n = step(state, fam_x, fam_y, fam_w)
+            losses.append((loss_n / n).item())
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        after = (evaluate(model, fam_x, fam_y, fam_w)[0] / 32).item()
+        want = {k: 3 * v for k, v in {
+            "packed_attention": layers, "packed_attention_bwd": layers,
+            **extra,
+            **({"dropout_attention_bwd": sum(extra.values())}
+               if extra else {})}.items()}
+        family_runs.append(got)
+        host, f_ms, b_ms, o_ms = step_split(model, state, fam_x, fam_y,
+                                            fam_w)
+        log(f"{label} bf16 batch 32, 3 Adam steps with USE_FUSED_BLOCK set: "
+            f"train-mode loss {[round(v, 4) for v in losses]}, eval-mode "
+            f"loss of the batch {before:.4f} -> {after:.4f}, launches {got}; "
+            f"step {host:.3f} ms by the host clock ({32 / host * 1e3:.1f} "
+            f"images/s), device forward {f_ms:.3f}, backward {b_ms:.3f}, "
+            f"optimizer {o_ms:.3f} ms")
+        require(got == want, f"{label} training: per step {want} / 3 and no "
+                f"fused_attention_block launch; got {got}")
+        require(np.isfinite(losses).all() and after < before,
+                f"{label}: finite losses, and the batch's eval loss falls")
+        del model, state
+    vv.USE_FUSED_BLOCK = False
+
+    # row 14 as the public op: benchmarks/ln_fused.py's "fused" chain, 12
+    # ViT-B/16 layers at batch 32, bf16 (ln_dense for [ln_1 + QKV] and
+    # [ln_2 + fc1 + GELU], the packed kernel between), against its "base"
+    # chain of library calls
+    chain = dense_chain_weights(randn, bf16)
+    xc = 0.02 * randn(140, 32, 197, 768, dtype=bf16)
+    fa.reset_launch_counts()
+    with torch.inference_mode():
+        fused_chain = ln_fused_chain(xc, chain, fdense.ln_dense,
+                                     fa.packed_flash_attention)
+    torch.cuda.synchronize()
+    ln_chain_launches = {k: v for k, v in fa.LAUNCHES.items() if v}
+    with torch.inference_mode():
+        base_chain = ln_fused_chain(xc, chain, base_ln_dense,
+                                    fa.packed_flash_attention)
+        chain_ms = {name: cuda_ms(lambda f=f: ln_fused_chain(
+            xc, chain, f, fa.packed_flash_attention), iters=5)
+            for name, f in (("fused", fdense.ln_dense),
+                            ("base", base_ln_dense))}
+    e_chain = max_err(fused_chain, base_chain)
+    c_scale = base_chain.float().abs().max().item()
+    log(f"ln_fused chain (12 ViT-B/16 layers, batch 32, bf16): launches "
+        f"{ln_chain_launches}; fused {chain_ms['fused']:.3f} ms vs base "
+        f"{chain_ms['base']:.3f} ms; max|fused - base| {e_chain:.3e} (max|base| "
+        f"{c_scale:.3f})")
+    require(ln_chain_launches == {"ln_dense": 24, "packed_attention": 12}
+            and bool(torch.isfinite(fused_chain.float()).all())
+            and e_chain <= LOGIT_TOL_BF16_REL * max(1.0, c_scale),
+            "ln_fused chain: 2 ln_dense and 1 packed launch per layer, the "
+            "base chain's output")
+
     # ---- 7. detection: DETR-R50 (DC5) at COCO scale ------------------------
     det_cfg = dict(num_classes=91, aux_loss=True)   # cli.run_detection_main
     det_w = None
@@ -1742,60 +2275,9 @@ def main() -> int:
         del model, state, hist, loss
 
     # fp32 gradients of a narrow DETR (full ResNet-50), card against CPU,
-    # both matched by scipy (the auction is the card's default)
-    narrow = dict(num_classes=91, hidden_dim=32, nheads=2,
-                  num_encoder_layers=1, num_decoder_layers=2,
-                  dim_feedforward=64, dropout=0.0, aux_loss=True)
-    nds = SyntheticCoco([(128, 150), (100, 160)], seed=16)
-    ntn = nested_tensor_from_tensor_list([nds[i][0] for i in range(2)],
-                                         size_bucket=32)
-    require(ntn.tensors.shape == (2, 128, 160, 3), "narrow batch 128 x 160")
-    ncrit = SetCriterion(num_classes=91,
-                         matcher=HungarianMatcher(method="scipy"))
-    nweights = None
-    grads = {}
-    fa.USE_PALLAS_BWD = True
-    for device in ("cpu", "cuda"):
-        m = Detr(**narrow, device=device)
-        if nweights is None:
-            nweights = detr_state_dict_from_jax(jax_shaped_weights(m, 17))
-        m.load_state_dict(nweights, strict=True)
-        m.train()
-        fa.reset_launch_counts()
-        b = ntn.to(device)
-        labels, boxes, valid = prepare_targets([nds[i][1] for i in range(2)],
-                                               64, 91, device)
-        loss = ncrit.total_loss(ncrit(m(b.tensors, b.mask), labels, boxes,
-                                      valid))
-        loss.backward()
-        grads[device] = (loss.item(), {n: p.grad.detach().cpu()
-                                       for n, p in m.named_parameters()
-                                       if p.grad is not None})
-        if device == "cuda":
-            nl = {k: v for k, v in fa.LAUNCHES.items() if v}
-            det_runs.append(nl)
-            require(nl == {"flash_attention_large": 3, "flash_attention": 2,
-                           "flash_attention_bwd": 2,
-                           "dropout_attention_bwd": 3},
-                    f"narrow DETR gradients went through rows 3, 2, 4, 6; "
-                    f"got {nl}")
-    fa.USE_PALLAS_BWD = False
-    g_ref = max(g.abs().max().item() for g in grads["cpu"][1].values())
-    require(set(grads["cpu"][1]) == set(grads["cuda"][1]),
-            "the same parameters take gradients on both devices")
-    e_grad, worst = max((max_err(grads["cuda"][1][n], g), n)
-                        for n, g in grads["cpu"][1].items())
-    log(f"fp32 gradients of a narrow DETR (hidden 32, 1 + 2 layers, "
-        f"ResNet-50, 128 x 160), card vs CPU: loss {grads['cuda'][0]:.6f} vs "
-        f"{grads['cpu'][0]:.6f}, max|dgrad| {e_grad:.3e} over "
-        f"{len(grads['cpu'][1])} tensors, at {worst} (its max|ref| "
-        f"{grads['cpu'][1][worst].abs().max().item():.3e}; max|ref| "
-        f"{g_ref:.3e}, tol {DETR_GRAD_TOL} x max(1, max|ref|))")
-    require(abs(grads["cuda"][0] - grads["cpu"][0])
-            <= 1e-4 * max(1.0, abs(grads["cpu"][0]))
-            and e_grad <= DETR_GRAD_TOL * max(1.0, g_ref),
-            "narrow DETR gradients on the card against the CPU")
-    del grads
+    # both matched by scipy (the auction is the card's default), and the
+    # diagnosis of their largest difference
+    det_runs.append(narrow_detr_gradients())
 
     # the ViT-B backbone variant: 12 unmasked streaming launches at S 4704
     vdet = Detr(**det_cfg, backbone_arch="vit", dtype="bfloat16")
@@ -1872,6 +2354,27 @@ def main() -> int:
             log_profile(f"{preset} bucket {b}",
                         lambda: sclf.predict(images[:b]).float().cpu())
 
+    # the ViT family served with the flag on and off: ms per request per
+    # bucket, host numpy in and logits out
+    for label, fam in family.items():
+        for flag in (True, False):
+            vv.USE_FUSED_BLOCK = flag
+            for b in fam["clf"].buckets:
+                x = images[:b]
+                for _ in range(2):
+                    fam["clf"].predict(x).float().cpu()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fam["clf"].predict(x).float().cpu()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+                log(f"serving {label} bf16 USE_FUSED_BLOCK={flag} bucket {b}: "
+                    f"{ms:.3f} ms per request, {b / ms * 1e3:.1f} images/s")
+            if label == "vitb16_224_imagenet":
+                log_profile(f"{label} USE_FUSED_BLOCK={flag} bucket 32",
+                            lambda: fam["clf"].predict(images[:32]).float()
+                            .cpu())
+    vv.USE_FUSED_BLOCK = False
+
     kernels = []
     port = "vision_transformers_tpu_torch/csrc/"
     jax_file = "vision_transformers_tpu/ops/flash_attention.py"
@@ -1886,6 +2389,9 @@ def main() -> int:
     swin_total = {k: sum(run.get(k, 0) for run in path_runs)
                   for k in fa.LAUNCHES}
     det_total = {k: sum(run.get(k, 0) for run in det_runs)
+                 for k in fa.LAUNCHES}
+    # the ViT family's serving (flag on and off) and training runs
+    fam_total = {k: sum(run.get(k, 0) for run in family_runs)
                  for k in fa.LAUNCHES}
 
     def sdpa_backward(q, k, v, do, p):
@@ -1922,7 +2428,7 @@ def main() -> int:
     io_bytes = b * s * h * dh * 2
     entry("packed_attention", "packed_attention.cu", 796,
           main_launches["packed_attention"] + tiny_launches["packed_attention"]
-          + vitb_launches["packed_attention"],
+          + vitb_launches["packed_attention"] + fam_total["packed_attention"],
           errs[("packed", "vitb16@224 B32 S197", "bfloat16")], shape,
           cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv, h)),
           cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h)),
@@ -1938,7 +2444,8 @@ def main() -> int:
     bwd_kw = dict(dropout_rate=rate, seed=seed)
     entry("packed_attention_bwd", "packed_attention.cu", 833,
           tiny_launches["packed_attention_bwd"]
-          + vitb_launches["packed_attention_bwd"],
+          + vitb_launches["packed_attention_bwd"]
+          + fam_total["packed_attention_bwd"],
           errs[("packed_bwd", "vitb16@224 B32 S197", "bfloat16", rate)],
           shape + f" rate {rate}",
           cuda_ms(lambda: fa.packed_flash_attention_bwd(*bwd_args, **bwd_kw)),
@@ -1961,7 +2468,8 @@ def main() -> int:
     entry("flash_attention", "flash_attention.cu", 75,
           split_launches["flash_attention"]
           + split_train_launches[0.0]["flash_attention"]
-          + swin_total["flash_attention"] + det_total["flash_attention"],
+          + swin_total["flash_attention"] + det_total["flash_attention"]
+          + fam_total["flash_attention"],
           errs[("flash", "vitb16@512 G96 S1025", "bfloat16")], shape,
           cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
           cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
@@ -1987,7 +2495,8 @@ def main() -> int:
           split_train_launches[0.1]["dropout_attention_bwd"]
           + split_train_launches[0.0]["dropout_attention_bwd"]
           + swin_total["dropout_attention_bwd"]
-          + det_total["dropout_attention_bwd"],
+          + det_total["dropout_attention_bwd"]
+          + fam_total["dropout_attention_bwd"],
           errs[("drop_bwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
           shape + f" rate {rate}",
           cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
@@ -2156,7 +2665,8 @@ def main() -> int:
     sdpa_mask = det_keep[:, None, None, :]
     io_bytes = b * h * s * d * 2
     entry("flash_attention_large", "flash_attention_large.cu", 229,
-          det_total["flash_attention_large"],
+          det_total["flash_attention_large"]
+          + fam_total["flash_attention_large"],
           errs[("large", "detr-r50 encoder B4 G32 S4704 D32", "bfloat16")],
           f"G{b * h} S{s} D{d}, the key masks of {COCO_SIZES}",
           cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v,
@@ -2214,6 +2724,85 @@ def main() -> int:
                                            10 * 384 * 197 * 197 * 64,
                                            "bfloat16")[0])
     del dargs, vargs
+
+    # the fused LayerNorm + Dense at benchmarks/ln_fused.py's ViT-B shapes,
+    # batch 32: [ln_1 + QKV], with [ln_2 + fc1 + GELU] beside it; the
+    # library call is F.layer_norm -> F.linear (+ F.gelu)
+    r, d = 32 * 197, 768
+    qkv_in = dense_inputs(150, r, d, 2304, bf16)
+    fc1_in = dense_inputs(155, r, d, 3072, bf16)
+    gelu = dict(activation="gelu_tanh")
+
+    def ln_bytes(n):
+        """x read, W read, out written (bf16); gamma, beta, bias (fp32)."""
+        return (r * d + d * n + r * n) * 2 + (2 * d + n) * 4
+
+    entry("ln_dense", "ln_dense.cu", 72, ln_chain_launches["ln_dense"],
+          max(v for k, v in errs.items() if k[0] == "ln_dense"
+              and k[-1] == "bfloat16"),
+          f"R{r} D{d} N2304 [ln_1 + QKV]",
+          cuda_ms(lambda: fdense.ln_dense_fwd(*qkv_in)),
+          cuda_ms(lambda: fdense.ln_dense_reference(*qkv_in)),
+          cuda_ms(lambda: base_ln_dense(*qkv_in)),
+          ln_bytes(2304), 2 * r * d * 2304,
+          replaces="vision_transformers_tpu/ops/fused_dense.py",
+          fc1_gelu_ms=cuda_ms(lambda: fdense.ln_dense_fwd(*fc1_in, **gelu)),
+          fc1_gelu_plain_ms=cuda_ms(lambda: fdense.ln_dense_reference(
+              *fc1_in, **gelu)),
+          fc1_gelu_library_ms=cuda_ms(lambda: base_ln_dense(*fc1_in, **gelu)),
+          fc1_gelu_bound_ms=bound_ms(ln_bytes(3072), 2 * r * d * 3072,
+                                     "bfloat16")[0],
+          chain_fused_ms=chain_ms["fused"], chain_base_ms=chain_ms["base"])
+    del qkv_in, fc1_in
+
+    # the fused attention sub-block at ViT-B/16 @224, batch 32, beside bucket
+    # 1 and T2T-ViT-14's 6 heads; the library chain is LN -> F.linear ->
+    # SDPA -> F.linear + residual
+    def library_block(x, g, be, wqkv, bqkv, wout, bout, h):
+        b, s, hd = x.shape
+        xn = F.layer_norm(x, (hd,), g.to(x.dtype), be.to(x.dtype), 1e-6)
+        qkv = F.linear(xn, wqkv.t(), bqkv.to(x.dtype))
+        q, k, v = (t.view(b, s, h, hd // h).transpose(1, 2)
+                   for t in qkv.split(hd, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v)
+        return x + F.linear(o.transpose(1, 2).reshape(b, s, hd), wout.t(),
+                            bout.to(x.dtype))
+
+    def block_cost(b, s, hd):
+        """(bytes, FLOPs): x read, the weights read, out written (bf16), the
+        fp32 rows; the two projections and the attention products."""
+        return ((2 * b * s * hd + 4 * hd * hd) * 2 + 6 * hd * 4,
+                2 * b * s * hd * 4 * hd + 4 * b * s * s * hd)
+
+    blk = block_inputs(160, 32, 197, 768, bf16)
+    blk1 = block_inputs(161, 1, 197, 768, bf16)
+    blk_t2t = block_inputs(162, 32, 197, 384, bf16)
+    casts = [torch.zeros(n, 768, device=dev) for n in (2304, 768)]
+    vit_fam = family["vitb16_224_imagenet"]
+    entry("fused_attention_block", "fused_block.cu", 1028,
+          fam_total["fused_attention_block"],
+          max(v for k, v in errs.items() if k[0] == "fused_block"
+              and k[-1] == "bfloat16"),
+          "B32 S197 H12 dh64 (ViT-B/16)",
+          cuda_ms(lambda: fa.fused_attention_block_fwd(*blk, 12)),
+          cuda_ms(lambda: fa.fused_attention_block_reference(*blk, 12)),
+          cuda_ms(lambda: library_block(*blk, 12)),
+          *block_cost(32, 197, 768),
+          bucket1_ms=cuda_ms(lambda: fa.fused_attention_block_fwd(*blk1, 12)),
+          bucket1_library_ms=cuda_ms(lambda: library_block(*blk1, 12)),
+          bucket1_bound_ms=bound_ms(*block_cost(1, 197, 768), "bfloat16")[0],
+          t2t14_ms=cuda_ms(lambda: fa.fused_attention_block_fwd(*blk_t2t, 6)),
+          t2t14_library_ms=cuda_ms(lambda: library_block(*blk_t2t, 6)),
+          t2t14_bound_ms=bound_ms(*block_cost(32, 197, 384), "bfloat16")[0],
+          weight_casts_per_layer_ms=cuda_ms(
+              lambda: [c.to(bf16) for c in casts]),
+          vitb_forward_fused_ms=vit_fam["fused_ms"],
+          vitb_forward_modular_ms=vit_fam["modular_ms"])
+    log(f"  x12 layers = {12 * kernels[-1]['ms']:.3f} ms of the "
+        f"{vit_fam['fused_ms']:.3f} ms flag-on ViT-B/16 forward at batch 32 "
+        f"(flag off {vit_fam['modular_ms']:.3f} ms); its per-call weight "
+        f"casts {12 * kernels[-1]['weight_casts_per_layer_ms']:.3f} ms")
+    del blk, blk1, blk_t2t, casts
 
     require(len(kernels) == len(fa.LAUNCHES),
             "every kernel of the launch table has its line")

@@ -19,6 +19,7 @@ from vision_transformers_tpu.ops import attention as jattn
 from vision_transformers_tpu.ops import flash_attention as jfa
 from vision_transformers_tpu_torch.ops import attention as tattn
 from vision_transformers_tpu_torch.ops import flash_attention as tfa
+from vision_transformers_tpu_torch.ops import fused_dense as tfd
 from vision_transformers_tpu_torch.utils.port_jax import vit_state_dict_from_jax
 
 ATOL = 1e-5
@@ -205,11 +206,17 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     tfa.flash_dropout_attention(q, q, q, dropout_rate=0.1,
                                 seed=1).sum().backward()
     tfa.flash_attention(q, q, q, kv_mask=torch.ones(1, 9, dtype=torch.bool))
+    x = torch.from_numpy(_randn(22, 1, 9, 16)).requires_grad_()
+    rows = [torch.ones(16), torch.zeros(16), torch.zeros(48), torch.zeros(16)]
+    tfa.fused_attention_block(x, rows[0], rows[1], torch.eye(16).repeat(1, 3),
+                              rows[2], torch.eye(16), rows[3],
+                              2).sum().backward()
+    tfd.ln_dense(x, rows[0], rows[1], torch.eye(16)).sum().backward()
     assert set(tfa.LAUNCHES) == {
         "packed_attention", "flash_attention", "packed_attention_bwd",
         "dropout_attention_fwd", "dropout_attention_bwd",
         "window_packed_attention", "window_batched_attention",
         "window_fused_slab_attention", "window_fused_flat_attention",
         "window_attention_bwd", "fused_adam", "flash_attention_large",
-        "flash_attention_bwd"}
+        "flash_attention_bwd", "ln_dense", "fused_attention_block"}
     assert not any(tfa.LAUNCHES.values())

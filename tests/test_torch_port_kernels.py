@@ -13,6 +13,7 @@ import torch
 
 from vision_transformers_tpu_torch.ops import attention as tattn
 from vision_transformers_tpu_torch.ops import flash_attention as tfa
+from vision_transformers_tpu_torch.ops import fused_dense as tfd
 
 
 def _randn(seed, *shape):
@@ -174,15 +175,22 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
     tfa.flash_attention(q, k, v).sum().backward()
     bias = torch.zeros(1, 2, 40, 40, device=cuda, requires_grad=True)
     tfa.flash_attention(q, k, v, bias).sum().backward()
+    x, rows, w = _block_inputs(cuda, dtype, 2, 20, 32)
+    x.requires_grad_()
+    tfa.fused_attention_block(x, *rows[:2], w[0], rows[2], w[1], rows[3],
+                              2).sum().backward()
+    tfd.ln_dense(x, *rows[:2], w[0], rows[2]).sum().backward()
     torch.cuda.synchronize()
     assert qkv.grad.shape == qkv.shape and bias.grad.shape == bias.shape
+    assert x.grad.shape == x.shape
     assert tfa.LAUNCHES == {
         "packed_attention": 1, "packed_attention_bwd": 1,
         "dropout_attention_fwd": 1, "dropout_attention_bwd": 2,
         "flash_attention": 2, "window_packed_attention": 0,
         "window_batched_attention": 0, "window_fused_slab_attention": 0,
         "window_fused_flat_attention": 0, "window_attention_bwd": 0,
-        "fused_adam": 0, "flash_attention_large": 0, "flash_attention_bwd": 0}
+        "fused_adam": 0, "flash_attention_large": 0, "flash_attention_bwd": 0,
+        "ln_dense": 1, "fused_attention_block": 1}
 
 
 # Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf
@@ -504,6 +512,12 @@ def test_unported_paths_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         tfa.flash_attention_bwd(wide, long_k, long_k, wide,
                                 torch.zeros(1, 1, 4, device=cuda), wide)
+    x, rows, w = _block_inputs(cuda, torch.float32, 1, 8, 40)
+    with pytest.raises(ValueError, match="head dim"):   # dh 20
+        tfa.fused_attention_block(x, *rows[:2], w[0], rows[2], w[1], rows[3],
+                                  2)
+    with pytest.raises(ValueError, match="fp32"):
+        tfd.ln_dense(x, rows[0].bfloat16(), rows[1], w[0])
 
 
 # The streaming forward (row 3) and the small-S backward (row 4).
@@ -607,3 +621,113 @@ def test_flash_attention_routes_its_backward(cuda, monkeypatch):
         got = {n: c for n, c in tfa.LAUNCHES.items() if c}
         fwd = "flash_attention" if kv_mask is None else "flash_attention_large"
         assert got == {fwd: 1, want: 1}, got
+
+
+# The fused sub-block (row 8) and the fused LayerNorm + Dense (row 14).
+# fp32: summation order only, relative to the largest output. bf16: the
+# plain versions round the unnormalised probabilities to bf16 before PV (as
+# the TPU kernel does) and the kernel keeps them fp32; every product's
+# summation order can move a bf16 rounding by one step (2^-8 relative).
+_FUSED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _block_inputs(device, dtype, b, s, hd, seed=70):
+    """x (B, S, hd) in dtype; fp32 rows gamma, beta, bqkv, bout; the two
+    weights (in, out) in dtype."""
+    x = torch.from_numpy(_randn(seed, b, s, hd)).to(device, dtype)
+    rows = [1 + 0.1 * torch.from_numpy(_randn(seed + 1, hd)),
+            0.1 * torch.from_numpy(_randn(seed + 2, hd)),
+            0.1 * torch.from_numpy(_randn(seed + 3, 3 * hd)),
+            0.1 * torch.from_numpy(_randn(seed + 4, hd))]
+    w = [torch.from_numpy(_randn(seed + 5, hd, 3 * hd)) / hd ** 0.5,
+         torch.from_numpy(_randn(seed + 6, hd, hd)) / hd ** 0.5]
+    return (x, [r.to(device) for r in rows], [t.to(device, dtype) for t in w])
+
+
+def _fused_close(got, want, dtype):
+    scale = max(1.0, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() \
+        <= _FUSED_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,heads,dh", [
+    (2, 197, 12, 64),   # ViT-B/16
+    (1, 198, 12, 64),   # DeiT-B at bucket 1
+    (2, 197, 6, 64),    # T2T-ViT-14
+    (3, 33, 4, 32), (2, 17, 2, 16)])
+def test_fused_block_kernel_matches_plain(cuda, dtype, b, s, heads, dh):
+    x, rows, w = _block_inputs(cuda, dtype, b, s, heads * dh)
+    args = (x, rows[0], rows[1], w[0], rows[2], w[1], rows[3], heads)
+    out = tfa.fused_attention_block_fwd(*args,
+                                        out=torch.full_like(x, float("nan")))
+    want = tfa.fused_attention_block_reference(*args)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    assert _fused_close(out, want, dtype)
+    assert torch.equal(tfa.fused_attention_block_fwd(*args), out)
+    # torch's (out, in) weights read through transposed views
+    views = [t.t().contiguous().t() for t in w]
+    assert torch.equal(tfa.fused_attention_block_fwd(
+        x, rows[0], rows[1], views[0], rows[2], views[1], rows[3], heads), out)
+
+
+@pytest.mark.cuda
+def test_fused_block_gradients_match_autograd_of_plain(cuda):
+    x, rows, w = _block_inputs(cuda, torch.float32, 2, 50, 64)
+    leaves = [x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]]
+    do = torch.from_numpy(_randn(79, *x.shape)).to(cuda)
+    grads = []
+    for fn in (tfa.fused_attention_block, tfa.fused_attention_block_reference):
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        fn(*ts, 4).backward(do)
+        grads.append([t.grad for t in ts])
+    for g, r in zip(*grads):
+        scale = max(1.0, r.abs().max().item())
+        assert (g - r).abs().max().item() <= 5e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,n,activation,with_bias", [
+    (394, 768, 2304, None, True),         # [ln_1 + QKV], ViT-B, 2 images
+    (394, 768, 3072, "gelu_tanh", True),  # [ln_2 + fc1 + GELU]
+    (101, 96, 70, "gelu_erf", False),     # ragged rows and columns, no bias
+    (7, 40, 64, None, False)])
+def test_ln_dense_kernel_matches_plain(cuda, dtype, rows, d, n, activation,
+                                       with_bias):
+    x = torch.from_numpy(_randn(80, rows, d)).to(cuda, dtype)
+    g = (1 + 0.1 * torch.from_numpy(_randn(81, d))).to(cuda)
+    b = (0.1 * torch.from_numpy(_randn(82, d))).to(cuda)
+    w = (torch.from_numpy(_randn(83, d, n)) / d ** 0.5).to(cuda, dtype)
+    bias = (0.1 * torch.from_numpy(_randn(84, n))).to(cuda) if with_bias \
+        else None
+    kw = dict(activation=activation)
+    out = tfd.ln_dense_fwd(x, g, b, w, bias, **kw, out=torch.full(
+        (rows, n), float("nan"), dtype=dtype, device=cuda))
+    want = tfd.ln_dense_reference(x, g, b, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(out.float()).any())
+    assert _fused_close(out, want, dtype)
+    assert torch.equal(tfd.ln_dense_fwd(x, g, b, w, bias, **kw), out)
+    wt = w.t().contiguous().t()  # a torch (N, D) weight, transposed
+    assert torch.equal(tfd.ln_dense_fwd(x, g, b, wt, bias, **kw), out)
+
+
+@pytest.mark.cuda
+def test_ln_dense_gradients_match_autograd_of_plain(cuda):
+    leaves = [torch.from_numpy(_randn(85, 3, 40, 64)),
+              1 + 0.1 * torch.from_numpy(_randn(86, 64)),
+              0.1 * torch.from_numpy(_randn(87, 64)),
+              torch.from_numpy(_randn(88, 64, 96)) / 8,
+              0.1 * torch.from_numpy(_randn(89, 96))]
+    dy = torch.from_numpy(_randn(90, 3, 40, 96)).to(cuda)
+    grads = []
+    for fn in (tfd.ln_dense, tfd.ln_dense_reference):
+        ts = [t.to(cuda).requires_grad_() for t in leaves]
+        fn(*ts, activation="gelu_tanh").backward(dy)
+        grads.append([t.grad for t in ts])
+    for g, r in zip(*grads):
+        scale = max(1.0, r.abs().max().item())
+        assert (g - r).abs().max().item() <= 5e-5 * scale

@@ -223,7 +223,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vision_transformers_tpu_torch.ops.fused_adam",
             "vision_transformers_tpu_torch.ops.sra",
             zoo + "swin_transformer", zoo + "pvt",
-            zoo + "twins_svt",
+            zoo + "twins_svt", zoo + "deit", zoo + "cpe_vit",
+            zoo + "t2t_vit", zoo + "token_performer",
+            zoo + "token_transformer",
+            "vision_transformers_tpu_torch.ops.fused_dense",
             "vision_transformers_tpu_torch.ops.posenc",
             "vision_transformers_tpu_torch.models.object_detection.detr",
             "vision_transformers_tpu_torch.models.object_detection.matcher",

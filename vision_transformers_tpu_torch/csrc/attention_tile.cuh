@@ -77,14 +77,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [blockIdx.y·kBlockQ, +kBlockQ) of one group. Pointers are the group's
-// row 0; *_rs are row strides in elements. bias (fp32, row stride bias_rs)
-// may be null; kmask (fp32, one value per key) may be null. lse is fp32 with
-// row stride lse_rs. rng_group is the group's index b·H + h for the dropout
-// mask.
+// Rows [q0, q0 + kBlockQ) of one group. Pointers are the group's row 0;
+// *_rs are row strides in elements. bias (fp32, row stride bias_rs) may be
+// null; kmask (fp32, one value per key) may be null. lse is fp32 with row
+// stride lse_rs, or null when the caller does not need it. rng_group is the
+// group's index b·H + h for the dropout mask.
 template <typename T, int D>
 __device__ __forceinline__ void attend_rows(
-    const T* __restrict__ q, long long q_rs,
+    int q0, const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
     const float* __restrict__ bias, long long bias_rs,
     const float* __restrict__ kmask,
@@ -103,7 +103,6 @@ __device__ __forceinline__ void attend_rows(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int q0 = blockIdx.y * kBlockQ;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
@@ -187,7 +186,8 @@ __device__ __forceinline__ void attend_rows(
       const int row = warp + kWarps * r;
       const int qi = q0 + row;
       l_s[row] = l_run[r];
-      if (qi < sq) lse[qi * lse_rs] = m_run[r] + logf(l_run[r]);
+      if (qi < sq && lse != nullptr)
+        lse[qi * lse_rs] = m_run[r] + logf(l_run[r]);
     }
   }
   __syncthreads();

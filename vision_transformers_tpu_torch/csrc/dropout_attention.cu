@@ -51,7 +51,8 @@ drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 T* __restrict__ out, float* __restrict__ lse, int heads,
                 int sq, int sk, int kv_valid, float scale, vtt::Dropout drop) {
   const long long g = blockIdx.x;
-  vtt::attend_rows<T, D>(q + g * sq * D, D, k + g * sk * D, v + g * sk * D, D,
+  vtt::attend_rows<T, D>(blockIdx.y * vtt::kBlockQ, q + g * sq * D, D,
+                         k + g * sk * D, v + g * sk * D, D,
                          nullptr, 0, group_mask(kmask, heads, sk),
                          out + g * sq * D, D, lse + g * sq, 1,
                          sq, sk, kv_valid, scale, drop, blockIdx.x);

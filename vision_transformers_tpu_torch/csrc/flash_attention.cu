@@ -32,7 +32,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bg = bias == nullptr
       ? nullptr
       : bias + (g % bias_g) * static_cast<long long>(sq) * sk;
-  vtt::attend_rows<T, D>(q + g * sq * D, D, k + g * sk * D, v + g * sk * D, D,
+  vtt::attend_rows<T, D>(blockIdx.y * vtt::kBlockQ, q + g * sq * D, D,
+                         k + g * sk * D, v + g * sk * D, D,
                          bg, sk, nullptr, out + g * sq * D, D, lse + g * sq, 1,
                          sq, sk, kv_valid, scale,
                          vtt::make_dropout(0u, 1.f, 0ull), blockIdx.x);

@@ -51,7 +51,8 @@ packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                   float scale, vtt::Dropout drop) {
   const PackedGroup<T, D> g(s, heads);
   const T* q = qkv + g.packed();
-  vtt::attend_rows<T, D>(q, 3 * g.hd, q + g.hd, q + 2 * g.hd, 3 * g.hd,
+  vtt::attend_rows<T, D>(blockIdx.y * vtt::kBlockQ, q, 3 * g.hd, q + g.hd,
+                         q + 2 * g.hd, 3 * g.hd,
                          nullptr, 0, nullptr,
                          out + g.unpacked(), g.hd,
                          lse + g.lse(), heads,

@@ -1,3 +1,7 @@
+from vision_transformers_tpu_torch.models.image_classification.cpe_vit import (
+    CPEViT,
+)
+from vision_transformers_tpu_torch.models.image_classification.deit import DeiT
 from vision_transformers_tpu_torch.models.image_classification.pvt import (
     PVT,
     PVTBlock,
@@ -14,9 +18,12 @@ from vision_transformers_tpu_torch.models.image_classification.twins_svt import 
     PosCNN,
     TwinSVT,
 )
+from vision_transformers_tpu_torch.models.image_classification.t2t_vit import (
+    T2T_ViT,
+)
 from vision_transformers_tpu_torch.models.image_classification.vanilla_vit import ViT
 
 __all__ = ["ViT", "SwinTransformer", "SwinTransformerV2",
            "SwinTransformerBlock", "SwinTransformerBlockV2",
            "PVT", "PVTBlock", "TwinSVT", "GroupBlock", "GroupAttention",
-           "PosCNN"]
+           "PosCNN", "DeiT", "CPEViT", "T2T_ViT"]

@@ -18,8 +18,13 @@ draws from it one integer per block and forward, on the host, outside any
 and the elementwise dropouts') is a function of that integer, so a block
 recomputed under ``remat`` replays its masks.
 
-The JAX package's fused attention sub-block (``USE_FUSED_BLOCK``) is off
-there and not ported.
+``USE_FUSED_BLOCK`` (False, as in the JAX package) sends each block's
+LN → attention → residual in eval mode through ``fused_attention_block``,
+one kernel launch per layer (``csrc/fused_block.cu``; its plain version on
+the CPU), reading the same ``ln_1`` and ``self_attention`` parameters as the
+modular branch. ``EncoderBlock._use_fused_block`` is the JAX guard less its
+two TPU facts: no device test (the JAX package fuses only on a TPU) and the
+port's own size rule (``fused_block_supported``) in place of the VMEM budget.
 """
 
 from __future__ import annotations
@@ -42,9 +47,18 @@ from vision_transformers_tpu_torch.models.image_classification.base import (
     TrainableModel,
 )
 from vision_transformers_tpu_torch.ops.attention import SelfAttention
+from vision_transformers_tpu_torch.ops.flash_attention import (
+    fused_attention_block,
+    fused_block_supported,
+)
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout, LayerNorm
 from vision_transformers_tpu_torch.ops.mlp import MLPBlock
 from vision_transformers_tpu_torch.ops.patch_embed import PatchEmbed
+
+
+# The JAX package's switch (vanilla_vit.py:42): the fused attention
+# sub-block for inference, off by default there and here.
+USE_FUSED_BLOCK = False
 
 
 class EncoderBlock(nn.Module):
@@ -55,6 +69,8 @@ class EncoderBlock(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.num_heads = num_heads
+        self.hidden_dim = hidden_dim
         self.ln_1 = LayerNorm(hidden_dim, eps=1e-6, dtype=dtype)
         self.self_attention = SelfAttention(
             hidden_dim, num_heads, attention_dropout=attention_dropout,
@@ -64,19 +80,42 @@ class EncoderBlock(nn.Module):
         self.mlp = MLPBlock(hidden_dim, mlp_dim, dropout=dropout, dtype=dtype,
                             generator=generator)
 
+    def _use_fused_block(self, x: torch.Tensor, return_weights: bool) -> bool:
+        """The JAX guard (vanilla_vit.py:56-67): the flag, eval mode (its
+        ``deterministic``), no attention weights asked for and a 3-D input,
+        within the port's size rule. ``quant8`` is refused when a model is
+        built, so it needs no term here."""
+        return (USE_FUSED_BLOCK and not self.training and not return_weights
+                and x.ndim == 3
+                and fused_block_supported(self.hidden_dim, self.num_heads))
+
     def forward(self, x: torch.Tensor, return_weights: bool = False,
                 seed: Optional[int] = None):
         """``seed``: the block's dropout seed for this forward (training
         only); its masks are made from seed .. seed + 3."""
         weights = None
         sub = (lambda i: None) if seed is None else (lambda i: seed + i)
-        y = self.ln_1(x)
-        if return_weights:
-            y, weights = self.self_attention(y, return_weights=True,
-                                             seed=sub(0))
+        if self._use_fused_block(x, return_weights):
+            # one launch for LN + QKV + attention + out-projection +
+            # residual; the weights are cast per call, as the modular
+            # branch's Dense casts them, and read in torch's (out, in)
+            # layout through a transposed view
+            attn = self.self_attention
+            dt = attn.qkv.dtype
+            x = fused_attention_block(
+                x.to(dt), self.ln_1.weight.float(), self.ln_1.bias.float(),
+                attn.qkv.weight.to(dt).t(), attn.qkv.bias.float(),
+                attn.out.weight.to(dt).t(), attn.out.bias.float(),
+                self.num_heads, (self.hidden_dim // self.num_heads) ** -0.5,
+                self.ln_1.eps)
         else:
-            y = self.self_attention(y, seed=sub(0))
-        x = x + self.drop(y, sub(1))
+            y = self.ln_1(x)
+            if return_weights:
+                y, weights = self.self_attention(y, return_weights=True,
+                                                 seed=sub(0))
+            else:
+                y = self.self_attention(y, seed=sub(0))
+            x = x + self.drop(y, sub(1))
         out = x + self.mlp(self.ln_2(x), sub(2))
         if return_weights:
             return out, weights

@@ -27,7 +27,7 @@ BUILD_DIR = CSRC / "build"
 KERNELS = ("packed_attention", "flash_attention", "dropout_attention",
            "window_attention", "window_fused_attention",
            "window_attention_bwd", "fused_adam", "flash_attention_large",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ln_dense", "fused_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # dropout arguments: threshold (32 bits), 1/(1-rate), seed (64 bits)
+_L = ctypes.c_longlong
 _DROP = [ctypes.c_uint32, _F, ctypes.c_uint64]
 # C signatures: every pointer and the stream as c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer).
@@ -98,6 +99,20 @@ _SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attention_bwd": (_I, [_P] * 9 + [_I] * 5 + [_F, _I, _P]),
         "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (x, gamma, beta, w, ldk, ldn, bias, out, rows, d, n, eps, act, is_bf16,
+    #  stream)
+    "ln_dense": {
+        "ln_dense_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _I, _I, _I, _F, _I, _I,
+                                         _P]),
+        "ln_dense_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (x, gamma, beta, wqkv, ldk1, ldn1, bqkv, wout, ldk3, ldn3, bout, qkv_ws,
+    #  attn_ws, out, b, s, heads, dh, scale, eps, is_bf16, stream)
+    "fused_block": {
+        "fused_block_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L] + [_P] * 4
+                            + [_I] * 4 + [_F, _F, _I, _P]),
+        "fused_block_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

@@ -1,8 +1,8 @@
 """Attention kernels for Hopper, forward and backward, each beside its plain
 version.
 
-Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. Twelve
-of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
+Counterpart of ``vision_transformers_tpu/ops/flash_attention.py``. All
+thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 
 - ``packed_flash_attention`` (``csrc/packed_attention.cu``) replaces
   ``_packed_fwd_kernel`` and ``_packed_bwd_kernel``: self attention read in
@@ -39,6 +39,11 @@ of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) replaces
   ``_bwd_kernel``: the bias-free, mask-free backward of ``flash_attention``
   at small S, taken under ``USE_PALLAS_BWD`` as in the JAX package.
+- ``fused_attention_block`` (``csrc/fused_block.cu``) replaces
+  ``_fused_block_kernel``: LayerNorm, QKV projection, attention,
+  out-projection and residual of a pre-LN encoder layer in one launch (the
+  ``USE_FUSED_BLOCK`` inference path); its backward differentiates the plain
+  version, as the JAX package recomputes it in jnp.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel or raises: there
@@ -88,7 +93,10 @@ LAUNCHES: Dict[str, int] = {
     "window_attention_bwd": 0,
     # ops/fused_adam.py (replaces fused_adam.py::_adam_kernel)
     "fused_adam": 0,
-    "flash_attention_large": 0, "flash_attention_bwd": 0}
+    "flash_attention_large": 0, "flash_attention_bwd": 0,
+    # ops/fused_dense.py (replaces fused_dense.py::_ln_dense_kernel)
+    "ln_dense": 0,
+    "fused_attention_block": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1607,3 +1615,171 @@ def fused_window_attention(qkv_map: torch.Tensor,
         raise ValueError("fused_window_attention: out= takes no gradient")
     return _fused_window_forward(qkv_map, bias, heads, (wh, ww), (sh, sw), dh,
                                  scale, plan, out)
+
+
+# ---------------------------------------------------------------------------
+# Fused attention sub-block (replaces _fused_block_kernel,
+# flash_attention.py:1028, launched by _fused_block_fwd_pallas :1074)
+
+
+def fused_block_supported(hd: int, heads: int) -> bool:
+    """The port's size rule for ``fused_attention_block``, in place of the
+    JAX package's VMEM budget (``fused_block_supported(s, hd, itemsize)``,
+    :1015, which counts Wqkv and Wout resident in a TPU core's VMEM). The
+    CUDA kernel keeps no operand resident: weights, qkv and keys stream
+    through fixed 64 × 64 and 32 × dh shared-memory tiles, the rest goes
+    through a device-memory workspace. So neither S nor the width is
+    limited; the one condition is a head dim the kernel is built for
+    (``KERNEL_HEAD_DIMS``). ViT-L (hd 1024, dh 64) is admitted in bf16,
+    which the JAX rule excludes."""
+    return heads > 0 and hd % heads == 0 and hd // heads in KERNEL_HEAD_DIMS
+
+
+def _block_dims(x, wqkv, wout, heads, scale):
+    if x.ndim != 3:
+        raise ValueError(f"x must be (B, S, H·dh), got {tuple(x.shape)}")
+    hd = x.shape[-1]
+    if hd % heads or wqkv.shape != (hd, 3 * hd) or wout.shape != (hd, hd):
+        raise ValueError(
+            f"x (B, S, {hd}) with {heads} heads needs wqkv ({hd}, {3 * hd}) "
+            f"and wout ({hd}, {hd}); got {tuple(wqkv.shape)}, "
+            f"{tuple(wout.shape)}")
+    dh = hd // heads
+    return hd, dh, dh ** -0.5 if scale is None else float(scale)
+
+
+def _row(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 (1, n) row (or (n,)) → (n,) fp32."""
+    return t.reshape(-1).float()
+
+
+def fused_attention_block_reference(
+        x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+        wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor,
+        bout: torch.Tensor, heads: int, scale: Optional[float] = None,
+        eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of the fused sub-block, differentiable in all
+    seven tensors: x + out_proj(attention(qkv_proj(LN(x)))) with the TPU
+    kernel's arithmetic (flash_attention.py:1028-1071): fp32 LN statistics,
+    xn·γ + β rounded to x's dtype, qkv in fp32 + bqkv rounded, attention as
+    ``packed_flash_attention_reference`` computes it (the unnormalised exp
+    rounded to the value dtype before P·V, as the kernel rounds it — the
+    JAX twin ``_fused_block_ref`` rounds the normalised probabilities
+    instead; in fp32 the two coincide), then attn·Wout in fp32 + bout + the
+    fp32 x, one rounding. Weights (in, out) in x's dtype, any strides."""
+    hd, _, scale = _block_dims(x, wqkv, wout, heads, scale)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + eps) * _row(gamma)
+          + _row(beta)).to(x.dtype)
+    qkv = (torch.matmul(xn.float(), wqkv.float()) + _row(bqkv)).to(x.dtype)
+    attn, _ = packed_flash_attention_reference(qkv, heads, scale)
+    out = torch.matmul(attn.float(), wout.float()) + _row(bout)
+    return (out + xf).to(x.dtype)
+
+
+def _weight_strides(name: str, w: torch.Tensor) -> Tuple[int, int]:
+    """(ldk, ldn) of a (K, N) weight that is row-major or a transposed view
+    of a row-major (N, K) tensor (torch's Linear weight ``.t()``)."""
+    ldk, ldn = w.stride()
+    k, n = w.shape
+    if (ldn == 1 and ldk == n) or (ldk == 1 and ldn == k):
+        return ldk, ldn
+    raise ValueError(f"{name} must be a row-major (K, N) tensor or the "
+                     f"transpose of a row-major (N, K) one; strides {w.stride()}")
+
+
+def fused_attention_block_fwd(
+        x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+        wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor,
+        bout: torch.Tensor, heads: int, scale: Optional[float] = None,
+        eps: float = 1e-6, *, out: Optional[torch.Tensor] = None
+        ) -> torch.Tensor:
+    """The fused sub-block's forward, no autograd graph: one kernel launch
+    on a CUDA x, the plain version on a CPU one. ``out`` (CUDA only): a
+    contiguous tensor like x to write into instead of a new one."""
+    hd, dh, scale = _block_dims(x, wqkv, wout, heads, scale)
+    if x.device.type == "cpu":
+        return fused_attention_block_reference(x, gamma, beta, wqkv, bqkv,
+                                               wout, bout, heads, scale, eps)
+
+    from vision_transformers_tpu_torch.ops import _build
+
+    _check_cuda_operand("x", x, x.dtype, dh)
+    for name, w in (("wqkv", wqkv), ("wout", wout)):
+        if not w.is_cuda or w.dtype != x.dtype:
+            raise ValueError(f"{name} must be a {x.dtype} CUDA tensor, got "
+                             f"{w.dtype} on {w.device}")
+    _check_same_device(x, wqkv=wqkv, wout=wout)
+    ldk1, ldn1 = _weight_strides("wqkv", wqkv)
+    ldk3, ldn3 = _weight_strides("wout", wout)
+    r = {}  # the fp32 parameter rows as contiguous (n,) tensors
+    for name, t, n in (("gamma", gamma, hd), ("beta", beta, hd),
+                       ("bqkv", bqkv, 3 * hd), ("bout", bout, hd)):
+        if t.dtype != torch.float32 or t.device != x.device \
+                or t.numel() != n:
+            raise ValueError(f"{name} must hold {n} fp32 values on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+        r[name] = t.reshape(-1).contiguous()
+    b, s, _ = x.shape
+    if out is None:
+        out = torch.empty_like(x)
+    _check_into("out", out, x)
+    qkv_ws = torch.empty(b, s, 3 * hd, dtype=x.dtype, device=x.device)
+    attn_ws = torch.empty(b, s, hd, dtype=x.dtype, device=x.device)
+    lib = _build.load("fused_block")
+    with torch.cuda.device(x.device):  # launch on the tensor's card
+        rc = lib.fused_block_fwd(
+            x.data_ptr(), r["gamma"].data_ptr(), r["beta"].data_ptr(),
+            wqkv.data_ptr(), ldk1, ldn1, r["bqkv"].data_ptr(), wout.data_ptr(),
+            ldk3, ldn3, r["bout"].data_ptr(), qkv_ws.data_ptr(),
+            attn_ws.data_ptr(), out.data_ptr(), b, s, heads, dh, scale,
+            float(eps), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "fused_block", rc)
+    LAUNCHES["fused_attention_block"] += 1
+    return out
+
+
+class _FusedBlock(torch.autograd.Function):
+    """``fused_attention_block``'s custom_vjp (:1156-1159): the forward is
+    the kernel; the backward differentiates the plain version, recomputed
+    (the JAX package's jnp recompute; no backward kernel exists there)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, bqkv, wout, bout, heads, scale,
+                eps):
+        ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wout, bout)
+        ctx.args = (heads, scale, eps)
+        return fused_attention_block_fwd(x, gamma, beta, wqkv, bqkv, wout,
+                                         bout, heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, do):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_attention_block_reference(*inputs, *ctx.args)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, do))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None)
+
+
+def fused_attention_block(x: torch.Tensor, gamma: torch.Tensor,
+                          beta: torch.Tensor, wqkv: torch.Tensor,
+                          bqkv: torch.Tensor, wout: torch.Tensor,
+                          bout: torch.Tensor, heads: int,
+                          scale: Optional[float] = None,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """x + out_proj(attention(qkv_proj(LN(x)))) as one kernel launch, the
+    JAX package's signature and layout: x (B, S, H·dh) in the compute dtype;
+    gamma, beta, bqkv, bout fp32 rows ((1, n) or (n,)); wqkv (H·dh, 3·H·dh)
+    and wout (H·dh, H·dh), (in, out), in x's dtype — row-major, or the
+    transpose of torch's (out, in) Linear weight, read in place. Inference
+    path (``fused_block_supported``); differentiable through a recompute of
+    the plain version."""
+    return _FusedBlock.apply(x, gamma, beta, wqkv, bqkv, wout, bout, heads,
+                             scale, eps)

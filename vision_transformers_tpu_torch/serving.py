@@ -12,7 +12,7 @@ bucket (or chunked through the largest one), so the card only ever sees the
 exported batch sizes.
 
 The registry holds ``ViT``, ``SwinTransformer``, ``SwinTransformerV2``,
-``PVT`` and ``TwinSVT``.
+``PVT``, ``TwinSVT``, ``DeiT``, ``CPEViT`` and ``T2T_ViT``.
 Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
 through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
 serves through the kernels' plain versions, for tests.
@@ -39,8 +39,11 @@ from vision_transformers_tpu_torch.core.dtypes import (
 )
 from vision_transformers_tpu_torch.models.image_classification import (
     PVT,
+    CPEViT,
+    DeiT,
     SwinTransformer,
     SwinTransformerV2,
+    T2T_ViT,
     TwinSVT,
     ViT,
 )
@@ -50,7 +53,8 @@ _WEIGHTS = "weights.pt"
 _FORMAT_VERSION = 1
 _MODELS = {"ViT": ViT, "SwinTransformer": SwinTransformer,
            "SwinTransformerV2": SwinTransformerV2, "PVT": PVT,
-           "TwinSVT": TwinSVT}
+           "TwinSVT": TwinSVT, "DeiT": DeiT, "CPEViT": CPEViT,
+           "T2T_ViT": T2T_ViT}
 
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],

@@ -1,8 +1,10 @@
 """Weights from the JAX package's models into this port's modules.
 
 ``vit_state_dict_from_jax(params)``, ``swin_state_dict_from_jax(params)``,
-``pvt_state_dict_from_jax(params)``, ``twins_state_dict_from_jax(params)``
-and ``detr_state_dict_from_jax(params)`` take a JAX model's params tree as nested dicts of numpy arrays
+``pvt_state_dict_from_jax(params)``, ``twins_state_dict_from_jax(params)``,
+``deit_state_dict_from_jax(params)``, ``cpevit_state_dict_from_jax(params)``,
+``t2t_state_dict_from_jax(params)`` and ``detr_state_dict_from_jax(params)``
+take a JAX model's params tree as nested dicts of numpy arrays
 (``jax.device_get(params)`` gives that) and return the port's
 ``state_dict``. The port's module names mirror the JAX tree, so the mapping
 is a rename and a transpose:
@@ -11,11 +13,12 @@ is a rename and a transpose:
 - a conv ``kernel`` (ph, pw, cin, out), Swin's patch embedding → the
   ``weight`` (out, ph·pw·cin) of the matmul that ``patchify`` feeds, whose
   features are ordered (ph, pw, c) too;
-- Twins' depthwise conv ``kernel`` (3, 3, 1, C) → ``F.conv2d``'s
-  ``weight`` (C, 1, 3, 3);
+- Twins' and CPE-ViT's depthwise conv ``kernel`` (3, 3, 1, C) →
+  ``F.conv2d``'s ``weight`` (C, 1, 3, 3);
 - LayerNorm ``scale`` → ``weight``;
 - every other leaf as it is: ``bias``, ``class_token``, ``pos_embedding``,
-  PVT's ``cls_token`` and ``position_embedding{i}``, and the window
+  PVT's ``cls_token`` and ``position_embedding{i}``, DeiT's ``cls_token``,
+  ``dist_token`` and ``pos_embed``, the T2T performer's frozen ``w``, and the window
   attention's raw parameters, which keep flax's (in, out) layout in the
   port (``qkv_kernel``, ``proj_kernel``, ``qkv_bias``,
   ``relative_position_bias_table``; SwinV2's ``q_bias``, ``v_bias``,
@@ -41,7 +44,8 @@ def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 walk(sub, f"{prefix}{key}.")
                 continue
             arr = np.asarray(sub, dtype=np.float32)
-            if key == "kernel" and prefix.startswith("pos_block"):
+            if key == "kernel" and prefix.startswith(("pos_block",
+                                                       "pos_embedding.")):
                 key, arr = "weight", arr.transpose(3, 2, 0, 1)  # depthwise
             elif key == "kernel":
                 key, arr = "weight", arr.reshape(-1, arr.shape[-1]).T
@@ -71,6 +75,29 @@ def twins_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     """``TwinSVT`` params → the port's ``state_dict`` (loads with
     ``strict=True``); ``pos_block{k}.proj.kernel`` is the one depthwise conv
     kernel of the tree."""
+    return vit_state_dict_from_jax(params)
+
+
+def deit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``DeiT`` params → the port's ``state_dict`` (loads with
+    ``strict=True``): the ViT's walk (``block{i}``, ``norm_f``, ``head``,
+    ``head_dist``, the two tokens and ``pos_embed`` by name)."""
+    return vit_state_dict_from_jax(params)
+
+
+def cpevit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``CPEViT`` params → the port's ``state_dict`` (loads with
+    ``strict=True``); ``pos_embedding.conv.kernel`` is the one depthwise
+    conv kernel of the tree."""
+    return vit_state_dict_from_jax(params)
+
+
+def t2t_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``T2T_ViT`` params, either token type → the port's ``state_dict``
+    (loads with ``strict=True``): ``t2t.attention{1,2}`` (the transformer's
+    ``norm1``, ``attn.qkv``, ``attn.proj``, ``norm2``, ``mlp``; the
+    performer's ``w``, ``kqv``, ``proj``, ``mlp_fc{1,2}``), ``t2t.project``
+    and the ViT encoder, by the ViT's walk."""
     return vit_state_dict_from_jax(params)
 
 
