@@ -41,7 +41,16 @@ exit, and without the final result line:
    [ln_2 + fc1 + GELU], a ragged R without a bias, erf GELU in fp32) and the
    fused attention sub-block (``fused_attention_block``) at ViT-B/16,
    DeiT-B, T2T-ViT-14 and bucket 1, into NaN-filled outputs, twice for
-   equal bits; gradients through both autograd functions in fp32.
+   equal bits; gradients through both autograd functions in fp32. Rows 2
+   and 6: bf16 launches go through the tensor-core kernels and fp32 ones
+   through the CUDA-core kernels, by the kernels' names in a
+   ``torch.profiler`` trace (here, and on the split-head forward of phase
+   4, the split-head train steps of phase 6 and the DETR train steps of
+   phase 7); the bf16 kernels at the paths' own shapes (row 2 at the DETR
+   decoder's self attention, G 32, S 100, D 32, with and without a bias;
+   row 6 at the DETR encoder, G 16, S 4704, D 32, with the key masks of two
+   COCO images at rate 0.1, and at PVT stage 1, G 32, Sq 3136, Sk 49, D 64)
+   against their plain versions, twice for equal bits.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -113,7 +122,8 @@ exit, and without the final result line:
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
-   and the PyTorch library call (or chain) for the same function.
+   and the PyTorch library call (or chain) for the same function; rows 2 and
+   6 also at the path shapes of phase 2, with their TFLOP/s and SDPA's time.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -153,6 +163,20 @@ WINDOW_TOL = {"float32": 5e-6, "bfloat16": 2e-2}
 # to bf16 before their products, as the TPU kernels do, while the CUDA
 # kernels keep them in fp32; plus one bf16 rounding of the result.
 GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# The bf16 tensor-core backward of row 6 against its plain version, relative
+# to the largest reference element: both round pd and ds to bf16 before their
+# products (as the TPU kernel does), so what is left is summation order and
+# one rounding of the result (up to 3.1e-3 at PVT stage 1 on an H100).
+MMA_GRAD_TOL = 5e-3
+# Substrings of the CUDA kernels' names that tell the routes of rows 2 and 6
+# apart in a profile (csrc/flash_attention.cu, csrc/dropout_attention.cu):
+# bf16 on the tensor cores, fp32 on the CUDA cores.
+ROUTE_NAMES = {
+    ("row 2", "bfloat16"): ("flash_fwd_mma_kernel",),
+    ("row 2", "float32"): ("flash_fwd_kernel",),
+    ("row 6", "bfloat16"): ("drop_bwd_dq_mma_kernel", "drop_bwd_dkv_mma_kernel"),
+    ("row 6", "float32"): ("drop_bwd_dq_kernel", "drop_bwd_dkv_kernel"),
+}
 # fp32 parameter gradients of a 2-layer model, card against CPU: summation
 # order through two blocks, relative to the largest reference gradient.
 MODEL_GRAD_TOL = 1e-4
@@ -389,6 +413,35 @@ def device_profile(fn, top: int = 8):
     count = sum(n for _, n in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return wall, busy, count, [(k[:90], ms, n) for k, (ms, n) in ranked]
+
+
+def kernel_names(fn):
+    """Names of the CUDA kernels that one call of ``fn`` launches, from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def require_route(label, fn, routes):
+    """One call of ``fn`` launches, for each (row, dtype) of ``routes``, the
+    kernels of ROUTE_NAMES[(row, dtype)] and none of that row's other
+    route."""
+    names = kernel_names(fn)
+    require(bool(names), f"{label}: the profiler saw the card's kernels")
+    hit = lambda s: any(s in n for n in names)  # noqa: E731
+    for row, dtype in routes:
+        other = "float32" if dtype == "bfloat16" else "bfloat16"
+        new, old = ROUTE_NAMES[(row, dtype)], ROUTE_NAMES[(row, other)]
+        require(all(hit(s) for s in new) and not any(hit(s) for s in old),
+                f"{label}: {row} in {dtype} launches {new}, none of {old}")
+        log(f"route {label}: {row} {dtype} through {', '.join(new)}")
 
 
 class ColorClassLoader:
@@ -1224,6 +1277,75 @@ def main() -> int:
         check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
     del qm, km, vm, got, want
 
+    # rows 2 and 6: bf16 on the tensor-core kernels, fp32 on the CUDA-core
+    # ones, by the kernels' names in a profile; then the bf16 kernels at the
+    # paths' own shapes against their plain versions, reruns bit-equal
+    for dtype in (bf16, fp32):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, do = (randn(80 + i, 2, 4, 150, 64, dtype=dtype)
+                       for i in range(4))
+        out, lse = fa.flash_attention_reference(q, k, v)
+        require_route(f"wrappers {name}", lambda: (
+            fa.flash_attention_fwd(q, k, v),
+            fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                           dropout_rate=0.1, seed=5)),
+            [("row 2", name), ("row 6", name)])
+
+    def check_flash_path(label, b, h, s, d, bias_lead):
+        q, k, v = (randn(84 + i, b, h, s, d, dtype=bf16) for i in range(3))
+        bias = (None if bias_lead is None
+                else randn(87, bias_lead, h, s, s, dtype=fp32))
+        out, lse = fa.flash_attention_fwd(q, k, v, bias)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, bias)
+        again = fa.flash_attention_fwd(q, k, v, bias)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        require(bool(torch.isfinite(out.float()).all())
+                and e <= KERNEL_TOL["bfloat16"] and el <= LSE_TOL
+                and torch.equal(again[0], out) and torch.equal(again[1], lse),
+                f"split {label} bf16 against its plain version, rerun "
+                "bit-equal")
+        log(f"split {label} bf16 (tensor cores): max|out-plain| {e:.3e} "
+            f"(tol {KERNEL_TOL['bfloat16']}), max|lse-plain| {el:.3e}, "
+            "rerun bit-equal")
+        errs[("flash_path", label)] = e
+
+    def check_drop_path(label, b, h, sq, sk, d, key_mask, rate):
+        q, k, v, do = (randn(88 + i, b, h, n, d, dtype=bf16)
+                       for i, n in enumerate((sq, sk, sk, sq)))
+        kw = dict(dropout_rate=rate, seed=4321 + (11 << 34),
+                  key_mask=key_mask)
+        out, lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
+        got = fa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+        want = fa.flash_dropout_attention_bwd_reference(q, k, v, do, out,
+                                                        lse, **kw)
+        again = fa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+        torch.cuda.synchronize()
+        e = 0.0
+        for n, g, w in zip("qkv", got, want):
+            scale_ = max(1.0, w.float().abs().max().item())
+            e = max(e, max_err(g, w) / scale_)
+            require(bool(torch.isfinite(g.float()).all())
+                    and max_err(g, w) <= MMA_GRAD_TOL * scale_,
+                    f"dropout bwd {label} bf16 d{n} against its plain version")
+        require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"dropout bwd {label} bf16: reruns bit-equal")
+        log(f"dropout bwd {label} bf16 rate {rate} (tensor cores, "
+            f"{fa.dkv_chunks(b * h, sq, sk)} dk/dv chunks): max|grad-plain| "
+            f"/ max(1, max|ref|) {e:.3e} (tol {MMA_GRAD_TOL}), rerun bit-equal")
+        errs[("drop_path", label)] = e
+        del q, k, v, do, out, lse, got, want, again
+
+    check_flash_path("detr decoder self B4 G32 S100 D32", 4, 8, 100, 32, None)
+    check_flash_path("detr decoder self B4 G32 S100 D32 + bias", 4, 8, 100,
+                     32, 1)
+    check_drop_path("detr encoder B2 G16 S4704 D32 + COCO key mask", 2, 8,
+                    4704, 4704, 32, coco_keep(COCO_SIZES[:2]), 0.1)
+    check_drop_path("pvt stage 1 B32 G32 Sq3136 Sk49 D64", 32, 1, 3136, 49,
+                    64, None, 0.0)
+    check_drop_path("vitb16@512 G96 S1025 D64", 8, 12, 1025, 1025, 64, None,
+                    0.1)
+
     # the fused LayerNorm + Dense (row 14) at benchmarks/ln_fused.py's ViT-B
     # shapes (S 197, D 768, batch 32: R 6304) in its two forms, a ragged R
     # without a bias, and gelu_erf in fp32; the fused attention sub-block
@@ -1419,6 +1541,10 @@ def main() -> int:
     require(split_launches["flash_attention"] == 2 * 2
             and split_launches["packed_attention"] == 0,
             "split-head kernel: 1 launch per layer per forward at S=1025")
+    for d_, m in split_models.items():
+        with torch.inference_mode():
+            require_route(f"split-head path forward {d_}",
+                          lambda: m(x512.to(dev)), [("row 2", d_)])
     cpu_wide = ViT(**wide, device="cpu")
     cpu_wide.load_state_dict(split_weights)
     ref512 = cpu_wide(x512).float()
@@ -1637,6 +1763,11 @@ def main() -> int:
         log(f"split-head train step (2 layers @512, S=1025, bf16, attention "
             f"dropout {rate}): loss {loss_v:.4f}, launches "
             f"{split_train_launches[rate]}")
+        require_route(f"split-head train step bf16 rate {rate}",
+                      lambda: trainer.train_step_fn(m)(st, x512_2, y512,
+                                                       w512),
+                      [("row 6", "bfloat16")]
+                      + ([("row 2", "bfloat16")] if rate == 0.0 else []))
         require(np.isfinite(loss_v) and finite,
                 f"split-head train step at rate {rate}: finite loss and "
                 "parameters")
@@ -2249,6 +2380,9 @@ def main() -> int:
 
         log_profile(f"DETR-R50 bf16 train step, dropout {rate}", det_step,
                     top=12)
+        require_route(f"DETR-R50 bf16 train step, dropout {rate}", det_step,
+                      [("row 6", "bfloat16")]
+                      + ([("row 2", "bfloat16")] if rate == 0.0 else []))
         if rate == 0.0:
             # the auction on the card against scipy on the step's cost
             cost = HungarianMatcher().cost(out_after, labels, boxes)
@@ -2394,10 +2528,11 @@ def main() -> int:
     fam_total = {k: sum(run.get(k, 0) for run in family_runs)
                  for k in fa.LAUNCHES}
 
-    def sdpa_backward(q, k, v, do, p):
+    def sdpa_backward(q, k, v, do, p, mask=None):
         """One call of SDPA's backward through autograd, graph kept."""
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(q, k, v, dropout_p=p)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                             dropout_p=p)
         return lambda: torch.autograd.grad(out, (q, k, v), do,
                                            retain_graph=True)
 
@@ -2459,22 +2594,56 @@ def main() -> int:
         f"{train_bwd_ms:.3f} ms training backward")
     del qkv, do, out, lse, bwd_args
 
+    # rows 2 and 6 (bf16, tensor cores) at the paths' own shapes: kernel ms,
+    # TFLOP/s of the work the inputs need (row 6 counts the keys its mask
+    # attends), and SDPA's ms beside them as the yardstick
+    def flash_path_times(key, b, h, s, d, bias_lead):
+        q, k, v = (randn(84 + i, b, h, s, d, dtype=bf16) for i in range(3))
+        bias = (None if bias_lead is None
+                else randn(87, bias_lead, h, s, s, dtype=fp32))
+        mask = None if bias is None else bias.to(bf16)
+        k_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bias))
+        return {f"{key}_ms": k_ms,
+                f"{key}_tflops": 4 * b * h * s * s * d / k_ms / 1e9,
+                f"{key}_sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))}
+
+    def drop_path_times(key, b, h, sq, sk, d, key_mask, rate):
+        q, k, v, do = (randn(88 + i, b, h, n, d, dtype=bf16)
+                       for i, n in enumerate((sq, sk, sk, sq)))
+        kw = dict(dropout_rate=rate, seed=4321 + (11 << 34),
+                  key_mask=key_mask)
+        out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
+        k_ms = cuda_ms(lambda: fa.flash_dropout_attention_bwd(
+            q, k, v, do, out, lse, **kw), iters=10)
+        keys = b * sk if key_mask is None else int(key_mask.sum().item())
+        mask = None if key_mask is None else key_mask[:, None, None, :]
+        return {f"{key}_ms": k_ms,
+                f"{key}_tflops": 10 * h * sq * keys * d / k_ms / 1e9,
+                f"{key}_sdpa_ms": cuda_ms(sdpa_backward(q, k, v, do, rate,
+                                                        mask), iters=10)}
+
     # split-head: ViT-B/16 @512, batch 8, bf16 — the S = 1025 paths' shape
     b, h, s, d = 8, 12, 1025, 64
     shape = f"G{b * h} S{s} D{d}"
     q, k, v, do = (randn(7 + i, b, h, s, d, dtype=bf16) for i in range(4))
     io_bytes = b * h * s * d * 2
     lse_bytes = b * h * s * 4
+    k_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10)
     entry("flash_attention", "flash_attention.cu", 75,
           split_launches["flash_attention"]
           + split_train_launches[0.0]["flash_attention"]
           + swin_total["flash_attention"] + det_total["flash_attention"]
           + fam_total["flash_attention"],
-          errs[("flash", "vitb16@512 G96 S1025", "bfloat16")], shape,
-          cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
+          errs[("flash", "vitb16@512 G96 S1025", "bfloat16")], shape, k_ms,
           cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10),
           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=10),
-          4 * io_bytes + lse_bytes, 4 * b * h * s * s * d)
+          4 * io_bytes + lse_bytes, 4 * b * h * s * s * d,
+          tflops=4 * b * h * s * s * d / k_ms / 1e9,
+          detr_self_err=errs[("flash_path",
+                              "detr decoder self B4 G32 S100 D32")],
+          **flash_path_times("detr_self", 4, 8, 100, 32, None),
+          **flash_path_times("detr_self_bias", 4, 8, 100, 32, 1))
     kw = dict(dropout_rate=rate, seed=seed)
     entry("dropout_attention_fwd", "dropout_attention.cu", 491,
           split_train_launches[0.1]["dropout_attention_fwd"]
@@ -2491,6 +2660,8 @@ def main() -> int:
           4 * io_bytes + lse_bytes, 4 * b * h * s * s * d)
     out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
     bwd_args = (q, k, v, do, out, lse)
+    k_ms = cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
+                   iters=10)
     entry("dropout_attention_bwd", "dropout_attention.cu", 525,
           split_train_launches[0.1]["dropout_attention_bwd"]
           + split_train_launches[0.0]["dropout_attention_bwd"]
@@ -2498,15 +2669,20 @@ def main() -> int:
           + det_total["dropout_attention_bwd"]
           + fam_total["dropout_attention_bwd"],
           errs[("drop_bwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
-          shape + f" rate {rate}",
-          cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
-                  iters=5),
+          shape + f" rate {rate}", k_ms,
           cuda_ms(lambda: fa.flash_dropout_attention_bwd_reference(
               *bwd_args, **kw), iters=5),
           cuda_ms(sdpa_backward(q, k, v, do, rate), iters=10),
           8 * io_bytes + lse_bytes, 10 * b * h * s * s * d,
           rate0_ms=cuda_ms(lambda: fa.flash_dropout_attention_bwd(
-              *bwd_args, dropout_rate=0.0, seed=None), iters=5))
+              *bwd_args, dropout_rate=0.0, seed=None), iters=10),
+          tflops=10 * b * h * s * s * d / k_ms / 1e9,
+          detr_enc_err=errs[("drop_path", "detr encoder B2 G16 S4704 D32 "
+                             "+ COCO key mask")],
+          pvt_err=errs[("drop_path", "pvt stage 1 B32 G32 Sq3136 Sk49 D64")],
+          **drop_path_times("detr_enc", 2, 8, 4704, 4704, 32,
+                            coco_keep(COCO_SIZES[:2]), 0.1),
+          **drop_path_times("pvt", 32, 1, 3136, 49, 64, None, 0.0))
 
 
     # the window kernels, each at its largest launch on the two Swin paths

@@ -29,8 +29,11 @@ def cuda():
 
 
 # fp32: summation order only. bf16: the plain version rounds the
-# unnormalised probabilities to bf16 before PV (as the TPU kernel does) and
-# the kernel keeps them fp32, plus one rounding of the output.
+# probabilities to bf16 before PV (as the TPU kernel does); the packed and
+# dropout kernels keep them fp32, and the split-head kernel on the tensor
+# cores rounds them before it normalises, not after; plus one rounding of
+# the output, one bf16 step of 1.6e-2 at |out| 2-4 (which the tensor-core
+# kernel reaches at D 64 with a bias).
 _KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -49,13 +52,20 @@ def test_packed_kernel_matches_plain(cuda, dtype, b, s, heads, dh, kv_valid):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
+# Shapes of the split-head kernels: (Sq, Sk, kv_valid, D). Sk 49 is below
+# one 64-key tile of the bf16 kernels, Sq 1000 a ragged last query tile.
+_SPLIT_SHAPES = [(49, 49, None, 32), (100, 25, None, 32), (70, 70, 60, 32),
+                 (1000, 49, None, 64), (1000, 130, 120, 16),
+                 (100, 100, None, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias_lead", [None, 1, 2, 4])
-@pytest.mark.parametrize("sq,sk,kv_valid", [(49, 49, None), (100, 25, None),
-                                            (70, 70, 60)])
-def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid):
-    b, h, d = 4, 3, 32
+@pytest.mark.parametrize("sq,sk,kv_valid,d", _SPLIT_SHAPES)
+def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid,
+                                    d):
+    b, h = 4, 3
     q = torch.from_numpy(_randn(23, b, h, sq, d)).to(cuda, dtype)
     k = torch.from_numpy(_randn(24, b, h, sk, d)).to(cuda, dtype)
     v = torch.from_numpy(_randn(25, b, h, sk, d)).to(cuda, dtype)
@@ -67,6 +77,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid):
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+    again = tfa.flash_attention_fwd(q, k, v, bias, kv_valid=kv_valid)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 # Gradients, relative to the largest reference element (they grow with S).
@@ -74,10 +86,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid):
 # round the probabilities and ds to bf16 before their products (as the TPU
 # kernels do) and the kernels keep them fp32, plus one rounding of the result.
 _GRAD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# The bf16 split-head backward (row 6) runs on the tensor cores and rounds pd
+# and ds to bf16 before their products, as its plain version does: what is
+# left is summation order and one rounding of the result (up to 3.1e-3 at
+# PVT stage 1 in chip_smoke.py's runs on an H100).
+_MMA_GRAD_TOL = 5e-3
 
 
-def _grad_close(got, ref, dtype):
-    tol = _GRAD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+def _grad_close(got, ref, dtype, tol=None):
+    tol = (_GRAD_TOL[dtype] if tol is None else tol) \
+        * max(1.0, ref.float().abs().max().item())
     return (got.float() - ref.float()).abs().max().item() <= tol
 
 
@@ -110,12 +128,14 @@ def test_packed_dropout_and_backward_match_plain(cuda, dtype, rate, b, s,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("sq,sk,kv_valid,masked", [
-    (49, 49, None, False), (100, 25, None, False), (70, 70, 60, True),
-    (257, 257, None, True)])
+@pytest.mark.parametrize("sq,sk,kv_valid,masked,d", [
+    (49, 49, None, False, 32), (100, 25, None, False, 32),
+    (70, 70, 60, True, 32), (257, 257, None, True, 32),
+    (1000, 49, None, False, 64), (1000, 130, 120, True, 16),
+    (130, 1000, 990, True, 64)])
 def test_dropout_kernels_match_plain(cuda, dtype, rate, sq, sk, kv_valid,
-                                     masked):
-    b, h, d = 3, 2, 32
+                                     masked, d):
+    b, h = 3, 2
     q = torch.from_numpy(_randn(29, b, h, sq, d)).to(cuda, dtype)
     k = torch.from_numpy(_randn(30, b, h, sk, d)).to(cuda, dtype)
     v = torch.from_numpy(_randn(31, b, h, sk, d)).to(cuda, dtype)
@@ -135,11 +155,71 @@ def test_dropout_kernels_match_plain(cuda, dtype, rate, sq, sk, kv_valid,
     want = tfa.flash_dropout_attention_bwd_reference(q, k, v, do, ref,
                                                      ref_lse, **kw)
     torch.cuda.synchronize()
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g.float()).all())
-        assert _grad_close(g, w, dtype)
+        assert _grad_close(g, w, dtype, tol)
     again = tfa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d", [(64, 64, 64), (100, 49, 32),
+                                     (70, 130, 16)])
+def test_backward_drops_exactly_the_plain_mask(cuda, sq, sk, d):
+    """At rate 0.5 the bf16 backward's keep bits (four per Philox call,
+    shared by shuffles, in both passes) are the plain mask. With q = 0 every
+    probability is 1/Sk; with k = identity rows and v = 1, dq[i, c] is
+    ds[i, c], and with do = 1, ds = p·(keep·2D − D·Σ_j pd)·scale is > 0
+    exactly where kept (pass 1). With do = identity columns, dv[j, c] is
+    pd[c, j] (pass 2). Then the backward against its plain version on
+    random inputs."""
+    b, h, rate, seed = 2, 2, 0.5, 11 + (5 << 36)
+    g, bf16 = b * h, torch.bfloat16
+    q = torch.zeros(b, h, sq, d, device=cuda, dtype=bf16)
+    k = torch.eye(sk, d, device=cuda, dtype=bf16).expand(b, h, sk,
+                                                          d).contiguous()
+    v = torch.ones(b, h, sk, d, device=cuda, dtype=bf16)
+    kw = dict(dropout_rate=rate, seed=seed)
+    keep = tfa.dropout_keep_mask(seed, rate, g, sq, sk, cuda)
+    out, lse = tfa.flash_dropout_attention_reference(q, k, v, **kw)
+    dq, _, _ = tfa.flash_dropout_attention_bwd(q, k, v, torch.ones_like(q),
+                                               out, lse, **kw)
+    cols = min(sk, d)
+    assert torch.equal(dq.reshape(g, sq, d)[:, :, :cols] > 0,
+                       keep[:, :, :cols])
+    eye = torch.eye(sq, d, device=cuda, dtype=bf16).expand(b, h, sq, d)
+    _, _, dv = tfa.flash_dropout_attention_bwd(q, k, v, eye.contiguous(),
+                                               out, lse, **kw)
+    rows = min(sq, d)
+    assert torch.equal(
+        dv.reshape(g, sk, d)[:, :, :rows].transpose(1, 2) > 0,
+        keep[:, :rows])
+    q, k, v, do = (torch.from_numpy(_randn(90 + i, b, h, n, d)).to(cuda, bf16)
+                   for i, n in enumerate((sq, sk, sk, sq)))
+    out, lse = tfa.flash_dropout_attention_reference(q, k, v, **kw)
+    got = tfa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+    want = tfa.flash_dropout_attention_bwd_reference(q, k, v, do, out, lse,
+                                                     **kw)
+    torch.cuda.synchronize()
+    for gr, w in zip(got, want):
+        assert _grad_close(gr, w, bf16, _MMA_GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_misaligned_operands(cuda):
+    """The tensor-core kernels read with 16-byte copies: a bf16 operand
+    that is not 16-byte aligned raises, and nothing falls back."""
+    b, h, s, d = 1, 2, 40, 32
+    base = torch.zeros(b * h * s * d + 1, device=cuda, dtype=torch.bfloat16)
+    q = base[1:].view(b, h, s, d)  # contiguous, 2 bytes off
+    k = torch.zeros(b, h, s, d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.flash_attention_fwd(q, k, k)
+    out, lse = tfa.flash_attention_fwd(k, k, k)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.flash_dropout_attention_bwd(q, k, k, k, out, lse,
+                                        dropout_rate=0.0, seed=None)
 
 
 @pytest.mark.cuda

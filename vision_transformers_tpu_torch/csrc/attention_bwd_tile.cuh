@@ -1,5 +1,7 @@
-// Shared bodies of the attention backward kernels (packed_attention.cu,
-// dropout_attention.cu). From (q, k, v, do, out, lse) of one (batch, head)
+// Shared bodies of the CUDA-core attention backward kernels: row 7
+// (packed_attention.cu) and row 6 (dropout_attention.cu) for fp32 inputs;
+// bf16 row 6 runs on the tensor cores (attention_bwd_mma_tile.cuh), which
+// row 7 is to take next. From (q, k, v, do, out, lse) of one (batch, head)
 // group they recompute the probabilities and give dq, dk, dv; the S×S scores
 // never reach device memory.
 //
@@ -33,8 +35,10 @@
 //
 // Design as the forward: fp32 FMAs on the CUDA cores, operands staged in
 // shared memory as fp32, accumulators in fp32 registers, one cast at the
-// store. Warp w owns rows w, w+4, ... of the block's own tile and lane j owns
-// row j of the streamed tile.
+// store; pd and ds stay fp32 (the plain versions and the TPU kernels round
+// them to the input dtype). Warp w owns rows w, w+4, ... of the block's own
+// tile and lane j owns row j of the streamed tile. What bounds it on the
+// H100 is the products on the CUDA cores, and the Philox call per element.
 #pragma once
 
 #include "attention_tile.cuh"

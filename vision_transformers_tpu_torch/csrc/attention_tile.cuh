@@ -1,5 +1,8 @@
-// Shared body of the attention forward kernels (packed_attention.cu,
-// flash_attention.cu, dropout_attention.cu): one thread block computes
+// Shared body of the CUDA-core attention forward kernels of PERF.md's rows 1
+// (packed_attention.cu), 5 (dropout_attention.cu's forward) and 8
+// (fused_block.cu), and of row 2 (flash_attention.cu) for fp32 inputs; row 3
+// (flash_attention_large.cu) uses its constants and helpers. bf16 row 2 runs
+// on the tensor cores (attention_mma_tile.cuh). One thread block computes
 // dropout(softmax(q·kᵀ·scale + bias + key mask))·v for a tile of kBlockQ query
 // rows of one (batch, head) group, streaming the keys in tiles of kBlockK
 // with an online softmax.
@@ -31,8 +34,10 @@
 // Design: plain fp32 FMAs on CUDA cores, operands staged in shared memory as
 // fp32. Warp w owns query rows w, w+4, ...; lane j owns key j of the tile, so
 // a warp computes its rows' scores and their softmax statistics with warp
-// shuffles and no block barrier in between. Tensor cores (mma/wgmma) and
-// TMA are not used yet.
+// shuffles and no block barrier in between. What bounds it on the H100 is
+// the products on the CUDA cores (about 1% of the bf16 tensor-core peak at
+// row 2's shape); attention_mma_tile.cuh is the tensor-core redesign, which
+// rows 5 and 3 are to take next.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -10,8 +10,12 @@
 // (_dropout_keep). It depends on nothing else — not on a tile, a block or a
 // launch shape — so a backward replays its forward's mask from the seed.
 //
-// Each thread computes the whole 4-word block for its own element and uses
-// one word: simple, and three quarters of the generator's work is wasted.
+// dropout_keep computes the whole 4-word block for its own element and uses
+// one word: three quarters of the generator's work is wasted. The fp32
+// kernels and rows 1, 5 and 7 use it. dropout_keep4 returns all four keep
+// bits of one block; the tensor-core backward (attention_bwd_mma_tile.cuh)
+// shares them among the lanes that hold those four columns, one call per
+// four probabilities. Both give the same bit for the same element.
 #pragma once
 
 #include <cstdint>
@@ -57,6 +61,17 @@ __device__ __forceinline__ bool dropout_keep(const Dropout& d, uint32_t group,
   const uint32_t lane = col & 3u;
   const uint32_t word = lane == 0 ? r.x : lane == 1 ? r.y : lane == 2 ? r.z : r.w;
   return word >= d.thresh;
+}
+
+// Keep bits of columns 4·quad .. 4·quad + 3 of one row: bit w is
+// dropout_keep(d, group, row, 4·quad + w).
+__device__ __forceinline__ uint32_t dropout_keep4(const Dropout& d,
+                                                 uint32_t group, uint32_t row,
+                                                 uint32_t quad) {
+  const uint4 r = philox_4x32_10(make_uint4(quad, row, group, 0u), d.key0,
+                                 d.key1);
+  return (r.x >= d.thresh ? 1u : 0u) | (r.y >= d.thresh ? 2u : 0u) |
+         (r.z >= d.thresh ? 4u : 0u) | (r.w >= d.thresh ? 8u : 0u);
 }
 
 }  // namespace vtt

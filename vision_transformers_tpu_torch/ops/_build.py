@@ -55,8 +55,10 @@ _SIGNATURES = {
     "dropout_attention": {
         "dropout_attention_fwd": (
             _I, [_P] * 6 + [_I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
+        # (q, k, v, kmask, do, out, lse, dq, dk, dv, delta, part, g, heads,
+        #  sq, sk, d, kv_valid, chunks, scale, is_bf16, *drop, stream)
         "dropout_attention_bwd": (
-            _I, [_P] * 11 + [_I, _I, _I, _I, _I, _I, _F, _I, *_DROP, _P]),
+            _I, [_P] * 12 + [_I] * 7 + [_F, _I, *_DROP, _P]),
         "dropout_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     # (qkv, bias, out, g, n, heads, dh, bias_windows, scale, p, threads

@@ -11,9 +11,11 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   (qkv, lse), replays the dropout mask and writes the packed dqkv.
 - ``flash_dropout_attention`` (``csrc/dropout_attention.cu``) replaces
   ``_drop_fwd_kernel`` and ``_drop_bwd_kernel``: split-head (B, H, S, D)
-  attention with dropout, a key-padding mask and Sq != Sk.
+  attention with dropout, a key-padding mask and Sq != Sk. The backward
+  runs on the tensor cores for bf16 (``csrc/attention_bwd_mma_tile.cuh``).
 - ``flash_attention`` (``csrc/flash_attention.cu``) replaces
-  ``_attn_kernel``: split-head attention with an additive bias. Without a
+  ``_attn_kernel``: split-head attention with an additive bias, on the
+  tensor cores for bf16 (``csrc/attention_mma_tile.cuh``). Without a
   bias its backward is the ``flash_dropout_attention`` backward kernel at
   rate 0; with a bias it is plain PyTorch (dq, dk, dv and dbias), as the JAX
   package computes that case outside any kernel.
@@ -530,6 +532,28 @@ def flash_dropout_attention_bwd_reference(
                                kv_valid, mask_add, keep, rate)
 
 
+# The bf16 backward's tiles (csrc/attention_bwd_mma_tile.cuh): 64 query rows
+# or keys per block, and about as many 128-thread blocks as fill the H100's
+# 132 SMs twice.
+_MMA_TILE = 64
+_FILL_BLOCKS = 2 * 132
+
+
+def dkv_chunks(groups: int, s_q: int, s_k: int) -> int:
+    """Ranges the bf16 backward's dk/dv pass splits its query loop into. One
+    block per (group, 64 keys) cannot fill the card when G·ceil(Sk/64) is
+    small (PVT stage 1: G 32, Sk 49 → 32 blocks, each looping over 49 query
+    tiles), so the loop is cut into up to ceil(264 / blocks) equal ranges
+    whose fp32 partial dk/dv a third launch adds in order. A function of the
+    shape alone, so reruns stay bit-equal; 1 = no split."""
+    blocks = groups * -(-s_k // _MMA_TILE)
+    nq = -(-s_q // _MMA_TILE)
+    if blocks >= _FILL_BLOCKS or nq == 1:
+        return 1
+    per = -(-nq // min(nq, -(-_FILL_BLOCKS // blocks)))
+    return -(-nq // per)
+
+
 def flash_dropout_attention_fwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dropout_rate: float, seed: Optional[int],
@@ -576,7 +600,10 @@ def flash_dropout_attention_bwd(
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dropout backward → (dq, dk, dv) in the inputs' dtype; dk and dv
     are accumulated in fp32 in a fixed order and cast once. At rate 0 it is
-    also the bias-free backward of ``flash_attention``."""
+    also the bias-free backward of ``flash_attention``. bf16 runs on the
+    tensor cores (with ``dkv_chunks`` ranges of the query loop in the dk/dv
+    pass), fp32 on the CUDA cores; a bf16 operand that is not 16-byte
+    aligned raises."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      key_mask)
     rate, seed = _dropout_args(dropout_rate, seed)
@@ -601,14 +628,21 @@ def flash_dropout_attention_bwd(
                        **({} if mask_add is None else {"key_mask": mask_add}))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
+    is_bf16 = q.dtype == torch.bfloat16
+    chunks = dkv_chunks(b * h, s_q, s_k) if is_bf16 else 1
+    part = None  # the chunks' fp32 partial dk and dv
+    if chunks > 1:
+        part = torch.empty(2 * chunks * b * h * s_k * d, dtype=torch.float32,
+                           device=q.device)
     lib = _build.load("dropout_attention")
     with torch.cuda.device(q.device):
         rc = lib.dropout_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask_add is None else mask_add.data_ptr(),
             do.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b * h, h, s_q,
-            s_k, d, kv_valid, scale, int(q.dtype == torch.bfloat16),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), b * h, h, s_q, s_k, d,
+            kv_valid, chunks, scale, int(is_bf16),
             *_c_dropout(rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "dropout_attention", rc)
@@ -735,7 +769,9 @@ def flash_attention_fwd(
     """The split-head forward → (out, fp32 lse (B, H, Sq)); no autograd
     graph. Routes as ``_flash_fwd`` does (flash_attention.py:143-147): a
     ``kv_mask``, or Sq·Sk > ``MAX_SCORE_ELEMS``, takes the streaming kernel,
-    which has no bias (``ValueError`` with one)."""
+    which has no bias (``ValueError`` with one). Otherwise bf16 runs on the
+    tensor cores and fp32 on the CUDA cores; a bf16 operand that is not
+    16-byte aligned raises."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if kv_mask is not None or s_q * s_k > MAX_SCORE_ELEMS:
