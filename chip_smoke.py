@@ -41,16 +41,24 @@ exit, and without the final result line:
    [ln_2 + fc1 + GELU], a ragged R without a bias, erf GELU in fp32) and the
    fused attention sub-block (``fused_attention_block``) at ViT-B/16,
    DeiT-B, T2T-ViT-14 and bucket 1, into NaN-filled outputs, twice for
-   equal bits; gradients through both autograd functions in fp32. Rows 2
-   and 6: bf16 launches go through the tensor-core kernels and fp32 ones
-   through the CUDA-core kernels, by the kernels' names in a
+   equal bits; gradients through both autograd functions in fp32. Rows 2,
+   3, 5 and 6: bf16 launches go through the tensor-core kernels and fp32
+   ones through the CUDA-core kernels, by the kernels' names in a
    ``torch.profiler`` trace (here, and on the split-head forward of phase
-   4, the split-head train steps of phase 6 and the DETR train steps of
-   phase 7); the bf16 kernels at the paths' own shapes (row 2 at the DETR
-   decoder's self attention, G 32, S 100, D 32, with and without a bias;
-   row 6 at the DETR encoder, G 16, S 4704, D 32, with the key masks of two
-   COCO images at rate 0.1, and at PVT stage 1, G 32, Sq 3136, Sk 49, D 64)
-   against their plain versions, twice for equal bits.
+   4, the split-head train steps of phase 6, T2T-ViT_t-14 served in phase
+   6g, and the DETR eval forwards and train steps of phase 7); the bf16
+   kernels at the paths' own shapes (row 2 at the DETR decoder's self
+   attention, G 32, S 100, D 32, with and without a bias; row 6 at the DETR
+   encoder, G 16, S 4704, D 32, with the key masks of two COCO images at
+   rate 0.1, and at PVT stage 1, G 32, Sq 3136, Sk 49, D 64; row 5 at the
+   DETR encoder and cross shapes in training, G 16, Sk 4704, two COCO masks,
+   rate 0.1; row 3 also at T2T-ViT_t-14's token transformer, G 32, S 3136,
+   D 64) against their plain versions, twice for equal bits, each beside a
+   planted fault (the plain output with one live key tile hidden) that must
+   exceed its limit; and the skipped key tiles of rows 3 and 5: keys hidden
+   from a 64-key boundary on give out and lse bit-equal to the call on K/V
+   truncated there, and the kernel's own tile counters show it walked only
+   the tiles below the boundary.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -122,8 +130,9 @@ exit, and without the final result line:
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
-   and the PyTorch library call (or chain) for the same function; rows 2 and
-   6 also at the path shapes of phase 2, with their TFLOP/s and SDPA's time.
+   and the PyTorch library call (or chain) for the same function; rows 2, 3,
+   5 and 6 also at the path shapes of phase 2, with their TFLOP/s and SDPA's
+   time (rows 3 and 5 also the share of key tiles they skip).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -168,12 +177,24 @@ GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # products (as the TPU kernel does), so what is left is summation order and
 # one rounding of the result (up to 3.1e-3 at PVT stage 1 on an H100).
 MMA_GRAD_TOL = 5e-3
-# Substrings of the CUDA kernels' names that tell the routes of rows 2 and 6
-# apart in a profile (csrc/flash_attention.cu, csrc/dropout_attention.cu):
-# bf16 on the tensor cores, fp32 on the CUDA cores.
+# The bf16 kernels of rows 3 and 5 against their plain versions at the
+# paths' shapes (Sk in the thousands, so |out| stays well below 1), times
+# max(1, max|ref|): summation order and one bf16 rounding of the output, up
+# to 9.8e-4 at |out| in [0.125, 0.25) on an H100. Each such check also reads
+# a planted fault on the plain version, the output of a kernel that skipped
+# live key tile 10, and requires it above this limit.
+MASKED_FWD_TOL = 3e-3
+# Substrings of the CUDA kernels' names that tell the routes of rows 2, 3, 5
+# and 6 apart in a profile (csrc/flash_attention.cu,
+# csrc/flash_attention_large.cu, csrc/dropout_attention.cu): bf16 on the
+# tensor cores, fp32 on the CUDA cores. No name is a substring of another.
 ROUTE_NAMES = {
     ("row 2", "bfloat16"): ("flash_fwd_mma_kernel",),
     ("row 2", "float32"): ("flash_fwd_kernel",),
+    ("row 3", "bfloat16"): ("flash_large_mma_kernel",),
+    ("row 3", "float32"): ("flash_large_kernel",),
+    ("row 5", "bfloat16"): ("drop_fwd_mma_kernel",),
+    ("row 5", "float32"): ("drop_fwd_kernel",),
     ("row 6", "bfloat16"): ("drop_bwd_dq_mma_kernel", "drop_bwd_dkv_mma_kernel"),
     ("row 6", "float32"): ("drop_bwd_dq_kernel", "drop_bwd_dkv_kernel"),
 }
@@ -430,17 +451,29 @@ def kernel_names(fn):
 
 
 def require_route(label, fn, routes):
-    """One call of ``fn`` launches, for each (row, dtype) of ``routes``, the
+    """Calls of ``fn`` launch, for each (row, dtype) of ``routes``, the
     kernels of ROUTE_NAMES[(row, dtype)] and none of that row's other
-    route."""
-    names = kernel_names(fn)
-    require(bool(names), f"{label}: the profiler saw the card's kernels")
+    route. One run on an H100 saw no row-3 kernel in the profile of
+    T2T-ViT_t's served forward while the wrapper counted its launch, and
+    the next run saw it: while a kernel of ``routes`` is unseen, ``fn`` is
+    profiled again, up to three calls, and the profiles missed are logged;
+    an other-route kernel in any of them fails."""
+    names = set()
     hit = lambda s: any(s in n for n in names)  # noqa: E731
+    for call in range(1, 4):
+        got = kernel_names(fn)
+        require(bool(got), f"{label}: the profiler saw the card's kernels")
+        names |= got
+        if all(hit(s) for r in routes for s in ROUTE_NAMES[r]):
+            break
+        log(f"route {label}: profile {call} missed a kernel of {routes}; it "
+            f"saw {sorted(n.split('(')[0] for n in got)}")
     for row, dtype in routes:
         other = "float32" if dtype == "bfloat16" else "bfloat16"
         new, old = ROUTE_NAMES[(row, dtype)], ROUTE_NAMES[(row, other)]
         require(all(hit(s) for s in new) and not any(hit(s) for s in old),
-                f"{label}: {row} in {dtype} launches {new}, none of {old}")
+                f"{label}: {row} in {dtype} launches {new}, none of {old}; "
+                f"the profiles saw {sorted(n.split('(')[0] for n in names)}")
         log(f"route {label}: {row} {dtype} through {', '.join(new)}")
 
 
@@ -1180,6 +1213,16 @@ def main() -> int:
     log(f"DETR C5 key masks at 896 x 1344: unmasked tokens per image "
         f"{det_keep.sum(dim=1).tolist()} of {det_keep.shape[1]}")
 
+    def planted_fault(plain, keep, b, sk):
+        """max|plain(mask) - plain(mask with keys 640..703 hidden too)|: how
+        far the output of a kernel that skipped live key tile 10 (which
+        every mask here attends) lies from the plain version."""
+        base = (torch.ones(b, sk, dtype=torch.bool, device=dev)
+                if keep is None else keep)
+        fault = base.clone()
+        fault[:, 640:704] = False
+        return max_err(plain(base)[0], plain(fault)[0])
+
     def check_large(label, b, h, sq, sk, d, kv_valid, keep, dtype):
         name = str(dtype).removeprefix("torch.")
         q = randn(70, b, h, sq, d, dtype=dtype)
@@ -1188,21 +1231,31 @@ def main() -> int:
         filled = torch.full_like(q, float("nan"))
         out, lse = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
                                                 kv_valid=kv_valid, out=filled)
-        e = el = 0.0
+        e = el = top = 0.0
         for i in range(b):  # the plain version one image at a time
             ref, ref_lse = fa.flash_attention_large_reference(
                 q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_valid=kv_valid,
                 kv_mask=None if keep is None else keep[i:i + 1])
             e = max(e, max_err(out[i:i + 1], ref))
             el = max(el, max_err(lse[i:i + 1], ref_lse))
+            top = max(top, ref.float().abs().max().item())
         again, _ = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
                                                 kv_valid=kv_valid)
         torch.cuda.synchronize()
+        tol, fault = KERNEL_TOL[name], ""
+        if dtype == bf16:  # image 0's plain output with tile 10 hidden
+            tol = MASKED_FWD_TOL * max(1.0, top)
+            ef = planted_fault(lambda m: fa.flash_attention_large_reference(
+                q[:1], k[:1], v[:1], kv_valid=kv_valid, kv_mask=m[:1]),
+                keep, b, sk)
+            require(ef > tol, f"flash_attention_large {label}: one skipped "
+                    f"live tile ({ef:.3e}) would pass the limit {tol:.3e}")
+            fault = f", one live tile skipped {ef:.3e}"
         log(f"flash_attention_large {label} {name}: max|out-plain| {e:.3e} "
-            f"(tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}, NaN fill "
+            f"(tol {tol:.3e}{fault}), max|lse-plain| {el:.3e}, NaN fill "
             "overwritten, rerun bit-equal")
         require(not bool(torch.isnan(out.float()).any())
-                and e <= KERNEL_TOL[name] and el <= LSE_TOL
+                and e <= tol and el <= LSE_TOL
                 and torch.equal(out, again),
                 f"flash_attention_large {label} {name} against its plain "
                 "version")
@@ -1217,6 +1270,9 @@ def main() -> int:
                     64, None, None, dtype)
         check_large("kv_valid 4600/4704 + mask", 2, 8, 300, 4704, 32, 4600,
                     det_keep[:2], dtype)
+    # T2T-ViT_t-14's token transformer (one head of 64 at 3136 tokens)
+    check_large("t2t-vit_t-14 tokens B32 G32 S3136 D64 no mask", 32, 1, 3136,
+                3136, 64, None, None, bf16)
     # an image whose keys are all masked: the uniform average over its keys
     keep = det_keep[:3, :300].clone()
     keep[1] = False
@@ -1277,19 +1333,25 @@ def main() -> int:
         check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
     del qm, km, vm, got, want
 
-    # rows 2 and 6: bf16 on the tensor-core kernels, fp32 on the CUDA-core
-    # ones, by the kernels' names in a profile; then the bf16 kernels at the
-    # paths' own shapes against their plain versions, reruns bit-equal
+    # rows 2, 3, 5 and 6: bf16 on the tensor-core kernels, fp32 on the
+    # CUDA-core ones, by the kernels' names in a profile; then the bf16
+    # kernels at the paths' own shapes against their plain versions, reruns
+    # bit-equal
     for dtype in (bf16, fp32):
         name = str(dtype).removeprefix("torch.")
         q, k, v, do = (randn(80 + i, 2, 4, 150, 64, dtype=dtype)
                        for i in range(4))
         out, lse = fa.flash_attention_reference(q, k, v)
+        keep = coco_keep(COCO_SIZES[:2])[:, :150]
         require_route(f"wrappers {name}", lambda: (
             fa.flash_attention_fwd(q, k, v),
+            fa.flash_attention_large_fwd(q, k, v, kv_mask=keep),
+            fa.flash_dropout_attention_fwd(q, k, v, dropout_rate=0.1, seed=5,
+                                           key_mask=keep),
             fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
                                            dropout_rate=0.1, seed=5)),
-            [("row 2", name), ("row 6", name)])
+            [("row 2", name), ("row 3", name), ("row 5", name),
+             ("row 6", name)])
 
     def check_flash_path(label, b, h, s, d, bias_lead):
         q, k, v = (randn(84 + i, b, h, s, d, dtype=bf16) for i in range(3))
@@ -1345,6 +1407,72 @@ def main() -> int:
                     64, None, 0.0)
     check_drop_path("vitb16@512 G96 S1025 D64", 8, 12, 1025, 1025, 64, None,
                     0.1)
+
+    # row 5 (bf16, tensor cores) at the DETR train step's shapes: the
+    # encoder's self attention and the decoder's cross attention, batch 2,
+    # with the key masks of two COCO images, rate 0.1
+    def check_drop_fwd_path(label, b, h, sq, sk, d, key_mask, rate):
+        q, k, v = (randn(95 + i, b, h, n, d, dtype=bf16)
+                   for i, n in enumerate((sq, sk, sk)))
+        kw = dict(dropout_rate=rate, seed=8765 + (13 << 34),
+                  key_mask=key_mask)
+        out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
+        ref, ref_lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
+        again = fa.flash_dropout_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = MASKED_FWD_TOL * max(1.0, ref.float().abs().max().item())
+        kw.pop("key_mask")
+        ef = planted_fault(lambda m: fa.flash_dropout_attention_reference(
+            q[:1], k[:1], v[:1], key_mask=m[:1], **kw), key_mask, b, sk)
+        require(ef > tol, f"dropout fwd {label}: one skipped live tile "
+                f"({ef:.3e}) would pass the limit {tol:.3e}")
+        require(bool(torch.isfinite(out.float()).all())
+                and e <= tol and el <= LSE_TOL
+                and torch.equal(again[0], out) and torch.equal(again[1], lse),
+                f"dropout fwd {label} bf16 against its plain version, rerun "
+                "bit-equal")
+        log(f"dropout fwd {label} bf16 rate {rate} (tensor cores): "
+            f"max|out-plain| {e:.3e} (tol {tol:.3e}, one live tile skipped "
+            f"{ef:.3e}), max|lse-plain| {el:.3e}, rerun bit-equal")
+        errs[("drop_fwd_path", label)] = e
+        del q, k, v, out, lse, ref, ref_lse, again
+
+    det_keep2 = coco_keep(COCO_SIZES[:2])
+    check_drop_fwd_path("detr encoder B2 G16 S4704 D32 + COCO key mask", 2,
+                        8, 4704, 4704, 32, det_keep2, 0.1)
+    check_drop_fwd_path("detr cross B2 G16 Sq100 Sk4704 D32 + COCO key mask",
+                        2, 8, 100, 4704, 32, det_keep2, 0.1)
+
+    # the skipped tiles of rows 3 and 5 (bf16): one image whose keys are
+    # hidden from a 64-key boundary n on gives out and lse bit-equal to the
+    # same call on K/V truncated to n keys, with no mask
+    n_cut = 64 * 50
+    qt, kt, vt = (randn(98 + i, 1, 8, s_, 32, dtype=bf16)
+                  for i, s_ in enumerate((1000, 4704, 4704)))
+    cut = (torch.arange(4704, device=dev) < n_cut)[None]
+    short = (kt[:, :, :n_cut].contiguous(), vt[:, :, :n_cut].contiguous())
+    for row, lib, fn, kw, mask_kw in (
+            ("row 3", "flash_attention_large", fa.flash_attention_large_fwd,
+             {}, "kv_mask"),
+            ("row 5", "dropout_attention", fa.flash_dropout_attention_fwd,
+             dict(dropout_rate=0.1, seed=77 + (2 << 40)), "key_mask")):
+        fa.masked_tile_counts(lib)  # zeroes the kernel's counters
+        got = fn(qt, kt, vt, **kw, **{mask_kw: cut})
+        walked, held = fa.masked_tile_counts(lib)
+        want = fn(qt, *short, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"{row} bf16: keys hidden from {n_cut} on give the bits of "
+                f"the call on K/V truncated to {n_cut}")
+        require(held > 0 and walked * 74 == held * (n_cut // 64),
+                f"{row} bf16: the kernel walked {walked} of {held} key "
+                f"tiles, not {n_cut // 64} of every 74")
+        log(f"{row} bf16, keys hidden from {n_cut} of 4704 on (G 8, Sq "
+            f"1000, D 32): out and lse bit-equal to the call on K/V "
+            f"truncated to {n_cut} keys; the kernel walked {walked} of "
+            f"{held} key tiles ({n_cut // 64} of 74 a block)")
+    del qt, kt, vt, short
 
     # the fused LayerNorm + Dense (row 14) at benchmarks/ln_fused.py's ViT-B
     # shapes (S 197, D 768, batch 32: R 6304) in its two forms, a ragged R
@@ -2082,6 +2210,10 @@ def main() -> int:
         x32 = torch.from_numpy(images[:32]).to(dev)
         with torch.inference_mode():
             fused_ms = cuda_ms(lambda: fclf.model(x32), iters=10)
+            if "flash_attention_large" in extra:  # T2T-ViT_t's tokens
+                require_route(f"{label} bf16 served forward",
+                              lambda: fclf.model(x32),
+                              [("row 3", "bfloat16"), ("row 2", "bfloat16")])
         vv.USE_FUSED_BLOCK = False
         fwd[0] = 0
         fa.reset_launch_counts()
@@ -2264,6 +2396,9 @@ def main() -> int:
                 "images/s)")
             log_profile(f"DETR-R50 {dname} eval forward, batch 4",
                         lambda: det(batch4.tensors, batch4.mask), top=12)
+            require_route(f"DETR-R50 {dname} eval forward",
+                          lambda: det(batch4.tensors, batch4.mask),
+                          [("row 3", dname), ("row 2", dname)])
         det_models[dname] = det
     e16 = max_err(det_eval["bfloat16"]["out"]["pred_logits"],
                   det_eval["float32"]["out"]["pred_logits"])
@@ -2382,7 +2517,8 @@ def main() -> int:
                     top=12)
         require_route(f"DETR-R50 bf16 train step, dropout {rate}", det_step,
                       [("row 6", "bfloat16")]
-                      + ([("row 2", "bfloat16")] if rate == 0.0 else []))
+                      + ([("row 2", "bfloat16"), ("row 3", "bfloat16")]
+                         if rate == 0.0 else [("row 5", "bfloat16")]))
         if rate == 0.0:
             # the auction on the card against scipy on the step's cost
             cost = HungarianMatcher().cost(out_after, labels, boxes)
@@ -2623,6 +2759,40 @@ def main() -> int:
                 f"{key}_sdpa_ms": cuda_ms(sdpa_backward(q, k, v, do, rate,
                                                         mask), iters=10)}
 
+    def skipped_share(lib, run):
+        """The share of 64-key tiles one call of ``run`` skipped, from the
+        counters the bf16 kernel of ``lib`` (row 3 or 5) keeps."""
+        fa.masked_tile_counts(lib)  # zeroes them
+        run()
+        walked, held = fa.masked_tile_counts(lib)
+        require(held > 0, f"{lib}: the bf16 forward counted its key tiles")
+        return 1 - walked / held
+
+    def masked_fwd_times(key, lib, run, q, k, v, keep, kv_valid=None,
+                         rate=0.0):
+        """A row-3 or row-5 call ``run`` (bf16, tensor cores, library
+        ``lib``) at one path shape: kernel ms, its bound, TFLOP/s of the keys
+        its masks attend, SDPA's ms on the same inputs (the boolean mask, the
+        same rate), and the share of key tiles the kernel skipped."""
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        att = (torch.arange(sk, device=dev)
+               < (sk if kv_valid is None else kv_valid)).expand(b, sk)
+        if keep is not None:
+            att = att & keep
+        flops = 4 * h * sq * d * int(att.sum())
+        nbytes = 2 * b * h * (sq + sk) * d * 2 + b * h * sq * 4 + (
+            0 if keep is None else keep.numel() * keep.element_size())
+        mask = None if bool(att.all()) else att[:, None, None, :]
+        k_ms = cuda_ms(run, iters=5)
+        return {f"{key}_ms": k_ms,
+                f"{key}_bound_ms": bound_ms(nbytes, flops, "bfloat16")[0],
+                f"{key}_tflops": flops / k_ms / 1e9,
+                f"{key}_sdpa_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, dropout_p=rate), iters=5),
+                f"{key}_skipped_tiles": skipped_share(lib, run)}
+
     # split-head: ViT-B/16 @512, batch 8, bf16 — the S = 1025 paths' shape
     b, h, s, d = 8, 12, 1025, 64
     shape = f"G{b * h} S{s} D{d}"
@@ -2645,19 +2815,39 @@ def main() -> int:
           **flash_path_times("detr_self", 4, 8, 100, 32, None),
           **flash_path_times("detr_self_bias", 4, 8, 100, 32, 1))
     kw = dict(dropout_rate=rate, seed=seed)
+    k_ms = cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw),
+                   iters=10)
+    # row 5 at the DETR train step's shapes (batch 2, two COCO key masks)
+    qd, kd, vd = (randn(95 + i, 2, 8, 4704, 32, dtype=bf16) for i in range(3))
+    qdc = randn(96, 2, 8, 100, 32, dtype=bf16)
+    dkw = dict(kw, key_mask=det_keep2)
     entry("dropout_attention_fwd", "dropout_attention.cu", 491,
           split_train_launches[0.1]["dropout_attention_fwd"]
           + det_total["dropout_attention_fwd"],
           errs[("drop_fwd", "vitb16@512 G96 S1025", "bfloat16", rate)],
-          shape + f" rate {rate}",
-          cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw),
-                  iters=10),
+          shape + f" rate {rate}", k_ms,
           cuda_ms(lambda: fa.flash_dropout_attention_reference(q, k, v, **kw),
                   iters=5),
           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                          dropout_p=rate),
                   iters=10),
-          4 * io_bytes + lse_bytes, 4 * b * h * s * s * d)
+          4 * io_bytes + lse_bytes, 4 * b * h * s * s * d,
+          tflops=4 * b * h * s * s * d / k_ms / 1e9,
+          rate0_ms=cuda_ms(lambda: fa.flash_dropout_attention_fwd(
+              q, k, v, dropout_rate=0.0, seed=None), iters=10),
+          detr_enc_err=errs[("drop_fwd_path", "detr encoder B2 G16 S4704 D32 "
+                             "+ COCO key mask")],
+          detr_cross_err=errs[("drop_fwd_path", "detr cross B2 G16 Sq100 "
+                               "Sk4704 D32 + COCO key mask")],
+          **masked_fwd_times("detr_enc", "dropout_attention",
+                             lambda: fa.flash_dropout_attention_fwd(
+                                 qd, kd, vd, **dkw),
+                             qd, kd, vd, det_keep2, rate=rate),
+          **masked_fwd_times("detr_cross", "dropout_attention",
+                             lambda: fa.flash_dropout_attention_fwd(
+                                 qdc, kd, vd, **dkw),
+                             qdc, kd, vd, det_keep2, rate=rate))
+    del qd, kd, vd, qdc
     out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
     bwd_args = (q, k, v, do, out, lse)
     k_ms = cuda_ms(lambda: fa.flash_dropout_attention_bwd(*bwd_args, **kw),
@@ -2830,41 +3020,56 @@ def main() -> int:
           swin_t_step_library_ms=opt_ms["library"],
           swin_t_step_bound_ms=7 * 4 * n_all / HBM_BYTES_PER_S * 1e3)
     # the streaming forward at the DETR-R50 encoder's eval shape (batch 4 at
-    # 896 x 1344), beside its cross shape and the ViT-B S 1297 shape; the
-    # bound counts the keys this data attends (masked keys need no work)
+    # 896 x 1344), beside its cross shape, the kv_valid shape, the ViT-B
+    # S 1297 shape and T2T-ViT_t-14's tokens; the bound counts the keys this
+    # data attends (masked keys need no work)
     b, h, s, d = 4, 8, 4704, 32
     q, k, v = (randn(80 + i, b, h, s, d, dtype=bf16) for i in range(3))
     qc = randn(83, b, h, 100, d, dtype=bf16)
+    qs3 = randn(79, 2, 8, 300, d, dtype=bf16)
     qv, kv, vv = (randn(84 + i, 2, 12, 1297, 64, dtype=bf16)
+                  for i in range(3))
+    qt, kt, vt = (randn(87 + i, 32, 1, 3136, 64, dtype=bf16)
                   for i in range(3))
     n_keys = int(det_keep.sum())
     sdpa_mask = det_keep[:, None, None, :]
     io_bytes = b * h * s * d * 2
+    k_ms = cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v,
+                                                        kv_mask=det_keep),
+                   iters=5)
+    large = fa.flash_attention_large_fwd
     entry("flash_attention_large", "flash_attention_large.cu", 229,
           det_total["flash_attention_large"]
           + fam_total["flash_attention_large"],
           errs[("large", "detr-r50 encoder B4 G32 S4704 D32", "bfloat16")],
-          f"G{b * h} S{s} D{d}, the key masks of {COCO_SIZES}",
-          cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v,
-                                                       kv_mask=det_keep),
-                  iters=5),
+          f"G{b * h} S{s} D{d}, the key masks of {COCO_SIZES}", k_ms,
           cuda_ms(lambda: fa.flash_attention_large_reference(
               q, k, v, kv_mask=det_keep), iters=3),
           cuda_ms(lambda: F.scaled_dot_product_attention(
               q, k, v, attn_mask=sdpa_mask), iters=5),
           4 * io_bytes + b * h * s * 4 + det_keep.numel(),
           4 * h * s * n_keys * d,
-          cross_sq100_ms=cuda_ms(lambda: fa.flash_attention_large_fwd(
-              qc, k, v, kv_mask=det_keep), iters=5),
-          cross_sq100_library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-              qc, k, v, attn_mask=sdpa_mask), iters=5),
-          vitb_s1297_ms=cuda_ms(lambda: fa.flash_attention_large_fwd(
-              qv, kv, vv), iters=5),
-          vitb_s1297_library_ms=cuda_ms(
-              lambda: F.scaled_dot_product_attention(qv, kv, vv), iters=5))
+          tflops=4 * h * s * n_keys * d / k_ms / 1e9,
+          skipped_tiles=skipped_share("flash_attention_large", lambda: large(
+              q, k, v, kv_mask=det_keep)),
+          t2t_err=errs[("large", "t2t-vit_t-14 tokens B32 G32 S3136 D64 no "
+                        "mask", "bfloat16")],
+          **masked_fwd_times("cross_sq100", "flash_attention_large",
+              lambda: large(
+              qc, k, v, kv_mask=det_keep), qc, k, v, det_keep),
+          **masked_fwd_times("kv_valid4600_sq300", "flash_attention_large",
+              lambda: large(
+              qs3, k[:2], v[:2], kv_mask=det_keep[:2], kv_valid=4600),
+              qs3, k[:2], v[:2], det_keep[:2], kv_valid=4600),
+          **masked_fwd_times("vitb_s1297", "flash_attention_large",
+              lambda: large(qv, kv, vv),
+                             qv, kv, vv, None),
+          **masked_fwd_times("t2t_s3136", "flash_attention_large",
+              lambda: large(qt, kt, vt),
+                             qt, kt, vt, None))
     log(f"  x6 encoder layers = {6 * kernels[-1]['ms']:.3f} ms of the "
         f"{det_eval['bfloat16']['fwd_ms']:.3f} ms bf16 eval forward at batch 4")
-    del q, k, v, qc, qv, kv, vv
+    del q, k, v, qc, qs3, qv, kv, vv, qt, kt, vt
 
     # the small-S backward at the DETR decoder's self attention in a train
     # step (batch 2), beside ViT-B/16's S 197 at batch 32

@@ -17,7 +17,23 @@ within 1/128 of the largest reference element (one bf16 step at magnitudes
 rounding point (rounding P after P·V, or not rounding ds) flips many more
 of them by a step at these shapes, and fails every case here, while the two
 packages agree bit for bit here. The fp32 lse: 1e-5.
+
+The masked streaming forward (row 3, ``csrc/flash_attention_large.cu``) on
+the tensor cores rounds the unnormalised probabilities before P·V, as
+``_large_kernel`` does: its plain version is held against
+``_flash_fwd_large`` here in bf16 the same way, at key counts of one Pallas
+block (512), where both take one global max.
+
+The bf16 kernels of rows 3 and 5 skip 64-key tiles whose keys are all
+hidden. That rests on an identity of the function, tested here on the plain
+versions in fp32: keys hidden from n on give the output of the same call on
+K/V truncated to n keys. A hidden key's probability is exactly 0 in fp32
+(exp(-0.7·FLT_MAX - m) underflows), so what is left is the summation order
+of a longer row: 1e-6 on outputs of magnitude below 3 and on lse.
 """
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +184,102 @@ def test_dkv_chunks_split_the_query_loop_into_nonempty_ranges(groups, s_q,
     assert -(-nq // per) == chunks and (chunks - 1) * per < nq
     assert (chunks > 1) == (blocks < 264 and nq > 1)
     assert tfa.dkv_chunks(groups, s_q, s_k) == chunks  # shape alone
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,kv_valid", [
+    (2, 2, 33, 70, 16, 60),     # ragged Sq, kv_valid < Sk, cross attention
+    (1, 3, 130, 200, 32, None),  # queries over one 128-block
+    (2, 1, 9, 130, 8, 120),
+])
+def test_large_reference_matches_jax_kernel_in_bf16(b, h, sq, sk, d,
+                                                    kv_valid):
+    """``flash_attention_large_reference`` against ``_large_kernel`` (through
+    ``_flash_fwd_large``), both in bf16, with a keep mask per image: out and
+    the fp32 lse. Both round the unnormalised probabilities before P·V."""
+    g = b * h
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(_randn(s, b, h, n, d)) for s, n in
+                                    ((11, sq), (12, sk), (13, sk)))
+    keep = _key_mask(b, sk, seed=14)
+    want, want_lse = jfa._flash_fwd_large(
+        jq.reshape(g, sq, d), jk.reshape(g, sk, d), jv.reshape(g, sk, d),
+        d ** -0.5, sk if kv_valid is None else kv_valid,
+        kv_mask=jnp.asarray(keep), heads=h)
+    got, got_lse = tfa.flash_attention_large_reference(
+        tq, tk, tv, kv_mask=torch.from_numpy(keep), kv_valid=kv_valid)
+    assert got.dtype == torch.bfloat16
+    _close(got.reshape(g, sq, d), _np(want)[:, :sq])
+    np.testing.assert_allclose(_np(got_lse).reshape(g, sq),
+                               _np(want_lse)[:, :sq, 0], atol=LSE_ATOL,
+                               rtol=0)
+
+
+SKIP_ATOL = 1e-6
+
+
+def _hidden_from(b, sk, n, seed):
+    """A random keep mask over keys [0, n) (key 0 kept) and keys >= n
+    hidden."""
+    keep = _key_mask(b, sk, seed)
+    keep[:, n:] = False
+    return torch.from_numpy(keep)
+
+
+@pytest.mark.parametrize("sq,sk,n,d", [(40, 200, 128, 16), (70, 130, 64, 32),
+                                       (33, 300, 192, 64)])
+def test_large_reference_keys_hidden_from_n_equal_truncation(sq, sk, n, d):
+    """Row 3's plain version: keys hidden from n on (mask and kv_valid)
+    against the call on K/V truncated to n, in fp32."""
+    b, h = 2, 2
+    q, k, v = (torch.from_numpy(_randn(20 + i, b, h, s, d))
+               for i, s in enumerate((sq, sk, sk)))
+    keep = _hidden_from(b, sk, n, seed=23)
+    for kw, cut in (({"kv_mask": keep}, {"kv_mask": keep[:, :n]}),
+                    ({"kv_valid": n}, {})):
+        out, lse = tfa.flash_attention_large_reference(q, k, v, **kw)
+        want, want_lse = tfa.flash_attention_large_reference(
+            q, k[:, :, :n], v[:, :, :n], **cut)
+        np.testing.assert_allclose(_np(out), _np(want), atol=SKIP_ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(_np(lse), _np(want_lse), atol=SKIP_ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("sq,sk,n,d", [(40, 200, 128, 16), (33, 300, 192, 64)])
+def test_dropout_reference_keys_hidden_from_n_equal_truncation(rate, sq, sk,
+                                                               n, d):
+    """Row 5's plain version: keys hidden from n on by the key mask against
+    the call on K/V truncated to n, in fp32; the dropout bits of a column
+    depend on nothing but (seed, group, row, column), so both calls drop the
+    same probabilities."""
+    b, h = 2, 2
+    q, k, v = (torch.from_numpy(_randn(30 + i, b, h, s, d))
+               for i, s in enumerate((sq, sk, sk)))
+    keep = _hidden_from(b, sk, n, seed=33)
+    kw = dict(dropout_rate=rate, seed=2024 + (7 << 35))
+    out, lse = tfa.flash_dropout_attention_reference(q, k, v, key_mask=keep,
+                                                     **kw)
+    want, want_lse = tfa.flash_dropout_attention_reference(
+        q, k[:, :, :n], v[:, :, :n], key_mask=keep[:, :n], **kw)
+    np.testing.assert_allclose(_np(out), _np(want), atol=SKIP_ATOL, rtol=0)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), atol=SKIP_ATOL,
+                               rtol=0)
+
+
+def test_key_mask_add_writes_the_kernels_mask_value_bit_for_bit():
+    """Row 5's bf16 kernel tells a hidden key by comparing its mask value
+    with the fp32 constant kMaskValue of ``csrc/attention_tile.cuh`` bit for
+    bit (a tile of hidden keys past the last attended one is skipped), so
+    ``_key_mask_add`` must write exactly -0.7f·FLT_MAX, rounded in fp32 as
+    the C expression is, for a hidden key and 0 for a kept one; and both
+    must be the JAX package's DEFAULT_MASK_VALUE."""
+    src = (pathlib.Path(tfa.__file__).parent.parent / "csrc"
+           / "attention_tile.cuh").read_text()
+    assert re.search(r"constexpr float kMaskValue = "
+                     r"-0\.7f \* 3\.40282346638528859812e\+38f;", src)
+    hidden = (np.float32(-0.7) * np.float32(3.40282346638528859812e+38)
+              ).view(np.uint32)
+    got = tfa._key_mask_add(torch.tensor([[True, False, True, False]]))
+    assert got.dtype == torch.float32
+    assert got.numpy().view(np.uint32).tolist() == [[0, hidden, 0, hidden]]
+    assert np.float32(jfa.DEFAULT_MASK_VALUE).view(np.uint32) == hidden

@@ -1,17 +1,26 @@
 // Tensor-core building blocks of the bf16 attention kernels, and the bf16
 // split-head forward body on them.
 //
-// attend_rows_mma replaces, for bf16 inputs, the TPU kernel
-// vision_transformers_tpu/ops/flash_attention.py::_attn_kernel (:75), through
-// flash_attention.cu (row 2 of PERF.md's kernel table). fp32 inputs keep
-// attend_rows (attention_tile.cuh), and so do rows 1, 3, 5, 7 and 8.
+// attend_rows_mma replaces, for bf16 inputs, three TPU kernels of
+// vision_transformers_tpu/ops/flash_attention.py (rows of PERF.md's kernel
+// table), by its two compile-time parameters, a key-mask policy and a
+// dropout flag:
+//   - row 2, _attn_kernel (:75), through flash_attention.cu:
+//     <D, NoMask, false>, with an optional fp32 bias;
+//   - row 3, _large_kernel (:229), through flash_attention_large.cu:
+//     <D, ReplaceByte, false>, a uint8 keep byte per key;
+//   - row 5, _drop_fwd_kernel (:491), through dropout_attention.cu:
+//     <D, AddFloat, true>, an fp32 value per key and dropout.
+// fp32 inputs keep attend_rows (attention_tile.cuh) and flash_large_kernel,
+// and so do rows 1 and 8 in every dtype.
 //
 // What bounds it on the H100: at ViT-B/16 @512 (G 96, S 1025, D 64) the
 // kernel does 4·G·S²·D = 25.8 GFLOP against 50 MB of q/k/v/out, 26 µs of
 // bf16 tensor-core work against 15 µs of memory, so the bound is the
-// products, and the S×S scores must never leave the SM. attend_rows runs the
-// products as fp32 FMAs on the CUDA cores (about 1% of the bf16 peak). This
-// design is FlashAttention-2's shape on mma.sync:
+// products, and the S×S scores must never leave the SM (at the DETR-R50
+// encoder, G 32, S 4704, D 32: 90.6 GFLOP, 92 µs, against 38.5 MB). The
+// CUDA-core tiles run the products as fp32 FMAs (about 1% of the bf16
+// peak). This design is FlashAttention-2's shape on mma.sync:
 //
 //   - 128 threads, 4 warps; at D 16 and 32 each warp owns 32 of the block's
 //     128 query rows, two m16 A tiles, so each K or V fragment read from
@@ -21,8 +30,8 @@
 //     once from device memory straight into registers as the m16n8k16 A
 //     fragments (4 bytes per load, no shared memory).
 //   - K and V stream through shared memory in tiles of 64 keys, bf16,
-//     double-buffered with 16-byte cp.async: tile t+1 loads while tile t
-//     computes. Rows are padded from D to D + 8 elements, so the eight
+//     double-buffered with 16-byte cp.async: the next tile loads while this
+//     one computes. Rows are padded from D to D + 8 elements, so the eight
 //     16-byte rows one ldmatrix phase reads fall in eight distinct 4-bank
 //     groups (row stride 144, 80 or 48 bytes at D 64, 32, 16): no conflicts.
 //   - S = Q·Kᵀ with mma.sync.m16n8k16 (bf16 in, fp32 accumulators), K read
@@ -37,26 +46,64 @@
 //   - P·V: the unnormalised probabilities, rounded to bf16, are the A
 //     fragments of P·V directly (two adjacent n8 accumulator tiles are one
 //     k16 A fragment); V is read with ldmatrix.x4.trans.
-//   - Epilogue: out = acc / l in bf16, lse = m + log(l) (natural log, fp32).
-//   - Occupancy (ptxas -v, printed by chip_smoke.py): 148, 141 and 110
-//     registers at D 64, 32 and 16, no spills, 12-36 KB of shared memory: 3,
-//     3 and 4 blocks of 128 threads an SM.
+//   - Epilogue: out = acc / l in bf16, lse = m + log(l) (natural log, fp32);
+//     ReplaceByte takes _large_kernel's denominator max(l, 1e-30).
+//   - Key mask (ReplaceByte, AddFloat): the mask of the next tile is read
+//     with plain loads beside its cp.async (a mask row starts at any byte),
+//     held in registers while this tile computes and stored to shared
+//     memory after it: 64 keep bits from two warp ballots, or 64 fp32
+//     values. The score is masked by its key's index after the product.
+//   - Skipped tiles (ReplaceByte, AddFloat): at block start every thread
+//     scans the mask row for the last 64-key tile that holds a key <
+//     kv_valid the mask attends (one warp max and one integer atomicMax in
+//     shared memory per warp), and the K/V loop walks tiles 0 .. that one,
+//     in order. The key-padding masks of the repo hide the end of a row:
+//     the DETR C5 masks pad the right of each row of the 56 × 84 grid and
+//     the bottom rows, and only the bottom padding fills whole tiles (8-12
+//     of 74 per image), all of them past the last live tile. A hidden tile
+//     inside a row is walked and adds nothing. The kernel adds the tiles it
+//     walked and the tiles its rows hold to two device counters, which the
+//     C entry points' *_tile_counts read (chip_smoke.py reports the share).
+//   - Dropout (kDrop): the keep bits of philox.cuh's dropout_keep4, one
+//     Philox call per four probabilities: lane tq draws row[tq & 1]'s block
+//     of columns 4·(tq / 2) .. +3 of an n8 tile, and one __shfl_xor_sync
+//     with lane ^ 1 gives each lane both rows' bits (as bwd_dq_rows_mma).
+//   - Occupancy (ptxas -v, printed by chip_smoke.py) at D 64, 32 and 16: row
+//     2 148, 141 and 110 registers, 36-12 KB of shared memory, 3, 3 and 4
+//     blocks of 128 threads an SM; row 3 128 (asked for at D 64, 32 bytes of
+//     stack), 156 and 111 registers, 37-12 KB, 4, 3 and 4 blocks; row 5 128
+//     (16 bytes of stack), 164 and 126 registers, 37-13 KB, 4, 3 and 4.
 //
-// Numerics (the contract of attention_tile.cuh): fp32 scores·scale, then the
-// fp32 bias, then keys >= kv_valid REPLACED by -0.7·FLT_MAX; keys past Sk
-// (the cp.async zero-filled tail, whose scores are 0, not -inf) are masked by
-// index after the product and get probability exactly 0. The max is taken
-// before any exp, in natural units; exp(x - m) is exp2f((x - m)·log2 e), so
-// a masked score gives (-0.7·FLT_MAX - m)·log2 e = -inf there and
-// probability 0, never NaN. Key 0 is always valid
-// (kv_valid >= 1), so m is finite from the first tile on. As _attn_kernel
-// does, the probabilities are rounded to the value dtype before P·V; the
-// kernel rounds them before the normalisation (the division by l is after
-// P·V), the plain version after it.
+// Numerics (the contract of attention_tile.cuh): fp32 scores·scale, then
+// (NoMask) the fp32 bias; keys >= kv_valid REPLACED by -0.7·FLT_MAX; then
+// (ReplaceByte) keys whose byte is 0 replaced too, or (AddFloat) the key's
+// value added, which must be 0 or -0.7·FLT_MAX (ops/flash_attention.py's
+// _key_mask_add makes no other). Keys past Sk (the cp.async zero-filled
+// tail, whose scores are 0, not -inf) are masked by index after the product
+// and get probability exactly 0. The max is taken before any exp, in natural
+// units; exp(x - m) is exp2f((x - m)·log2 e), so a hidden score gives
+// (-0.7·FLT_MAX - m)·log2 e = -inf there and probability 0, never NaN. Key 0
+// is always valid (kv_valid >= 1), so m is finite from the first tile on; a
+// key hidden both by kv_valid and by an AddFloat mask scores -inf, which the
+// max ignores. The running max starts at -inf, not at _large_kernel's
+// -0.7·FLT_MAX: every walked tile holds a key < Sk, whose score is >=
+// -0.7·FLT_MAX under replacement, so the two give the same m after the first
+// step. Dropout zeroes the probabilities (and scales the kept ones by
+// 1/(1 − rate)) on their way into P·V only: the running max, the sum l and
+// lse are of the undropped softmax, as in _drop_fwd_kernel.
+//
+// Where the kernel rounds: the probabilities are rounded to bf16 before P·V,
+// unnormalised (the division by l is after P·V). Row 3 rounds where its TPU
+// kernel does: _large_kernel, and flash_attention_large_reference, round the
+// unnormalised P too. _attn_kernel and _drop_fwd_kernel, and the plain
+// versions of rows 2 and 5, round the normalised P (row 5: dropped and
+// scaled). A one-pass streaming kernel does not know l before P·V, so rows 2
+// and 5 round p (row 5: p·(1/(1 − rate))) unnormalised and divide at the
+// end: within one bf16 step of their plain versions, not bit-equal.
 //
 // Contract of the caller: bf16 operands, contiguous (G, S, D) groups with D
 // in {16, 32, 64}, every base pointer 16-byte aligned (the C entry points
-// check this and refuse the launch otherwise).
+// check this and refuse the launch otherwise), kv_valid >= 1.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -247,15 +294,108 @@ __host__ __device__ constexpr int fwd_m() { return D == 64 ? 1 : 2; }
 template <int D>
 __host__ __device__ constexpr int fwd_rows() { return 64 * fwd_m<D>(); }
 
+// How the forward hides keys besides kv_valid (the mask is one row per
+// group, the same for each of its query rows).
+enum class KeyMask {
+  NoMask,       // row 2: keys >= kv_valid REPLACED by kMaskValue
+  ReplaceByte,  // row 3: uint8 per key, 0 = hide; a key >= kv_valid or
+                // hidden has its score REPLACED by kMaskValue
+  AddFloat,     // row 5: keys >= kv_valid replaced, then the fp32 value of
+                // the key (0 or kMaskValue) ADDED
+};
+
+// Whether the mask row attends key kj: a nonzero byte (ReplaceByte), a
+// value other than kMaskValue (AddFloat, whose values are 0 or kMaskValue).
+template <KeyMask P>
+__device__ __forceinline__ bool attended(const void* mrow, int kj) {
+  if constexpr (P == KeyMask::ReplaceByte)
+    return static_cast<const unsigned char*>(mrow)[kj] != 0;
+  else
+    return static_cast<const float*>(mrow)[kj] != kMaskValue;
+}
+
+// The last 64-key tile of keys [0, n) that holds a key the mask row
+// attends, or -1 if none. Thread i scans keys i + 128·j; one warp max and
+// one shared-memory atomicMax per warp (an integer max: the order of the
+// atomics does not matter). A block barrier; returns the tile on every
+// thread.
+template <KeyMask P>
+__device__ __forceinline__ int last_live_tile(int* last, const void* mrow,
+                                              int n) {
+  if (threadIdx.x == 0) *last = -1;
+  __syncthreads();
+  int t = -1;
+#pragma unroll 8
+  for (int kj = threadIdx.x; kj < n; kj += kThreads)
+    if (attended<P>(mrow, kj)) t = kj / kCols;
+  t = __reduce_max_sync(0xffffffffu, t);
+  if ((threadIdx.x & 31) == 0) atomicMax(last, t);
+  __syncthreads();
+  return *last;
+}
+
+// The mask of key tile t, read into registers so that the loads' latency
+// hides behind a tile's products: ReplaceByte, warp 0, the keep flags of
+// keys t·64 + 32·i + lane (0 for keys >= kv_valid); AddFloat, threads < 64,
+// the value of key t·64 + threadIdx.x (0 past Sk). kmask may be null.
+template <KeyMask P>
+__device__ __forceinline__ void fetch_tile_mask(int (&raw)[2], float& add,
+                                                const void* kmask, int t,
+                                                int sk, int kv_valid) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (P == KeyMask::ReplaceByte) {
+    if (threadIdx.x < 32)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kj = t * kCols + 32 * i + lane;
+        raw[i] = kj >= kv_valid ? 0
+                 : kmask != nullptr
+                     ? static_cast<const unsigned char*>(kmask)[kj] : 1;
+      }
+  } else {
+    const int kj = t * kCols + threadIdx.x;
+    add = kmask != nullptr && threadIdx.x < kCols && kj < sk
+              ? static_cast<const float*>(kmask)[kj] : 0.f;
+  }
+}
+
+// What fetch_tile_mask read, into one buffer's shared memory: 64 keep bits
+// from two warp ballots, or 64 values.
+template <KeyMask P>
+__device__ __forceinline__ void store_tile_mask(uint32_t* keep, float* add_s,
+                                                const int (&raw)[2],
+                                                float add) {
+  if constexpr (P == KeyMask::ReplaceByte) {
+    if (threadIdx.x < 32) {
+      const uint32_t w0 = __ballot_sync(0xffffffffu, raw[0] != 0);
+      const uint32_t w1 = __ballot_sync(0xffffffffu, raw[1] != 0);
+      if (threadIdx.x == 0) {
+        keep[0] = w0;
+        keep[1] = w1;
+      }
+    }
+  } else {
+    if (threadIdx.x < kCols) add_s[threadIdx.x] = add;
+  }
+}
+
 // Rows [q0, q0 + fwd_rows<D>()) of one group: out (bf16, row stride D) and
-// lse (fp32, one per row). bias: this group's fp32 (Sq, Sk) slice, or null.
-template <int D>
+// lse (fp32, one per row). bias: this group's fp32 (Sq, Sk) slice, or null
+// (NoMask only). kmask: this group's mask row (uint8 for ReplaceByte, fp32
+// for AddFloat), or null. kDrop: dropout by drop's keep bits of
+// (rng_group, row, column), at drop.thresh != 0. tile_counts (masked
+// policies; may be null): thread 0 adds the key tiles this block walks to
+// [0] and the key tiles of its rows to [1].
+template <int D, KeyMask kMask = KeyMask::NoMask, bool kDrop = false>
 __device__ __forceinline__ void attend_rows_mma(
     int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk,
-    int kv_valid, float scale) {
+    int kv_valid, float scale, const void* __restrict__ kmask = nullptr,
+    Dropout drop = Dropout{}, uint32_t rng_group = 0u,
+    unsigned long long* tile_counts = nullptr) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  constexpr bool kMasked = kMask != KeyMask::NoMask;
   constexpr int S = D + 8;
   constexpr int M = fwd_m<D>();
   // keys per online-softmax step: the whole tile for one A tile a warp, half
@@ -263,6 +403,10 @@ __device__ __forceinline__ void attend_rows_mma(
   constexpr int kSub = M == 1 ? kCols : kCols / 2;
   __shared__ __align__(16) bf16 ks[2][kCols * S];
   __shared__ __align__(16) bf16 vs[2][kCols * S];
+  // the mask of the two buffered tiles: 64 keep bits (ReplaceByte) or 64
+  // values (AddFloat)
+  __shared__ uint32_t keep_s[2][kMask == KeyMask::ReplaceByte ? 2 : 1];
+  __shared__ float add_s[2][kMask == KeyMask::AddFloat ? kCols : 1];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -278,6 +422,30 @@ __device__ __forceinline__ void attend_rows_mma(
   load_tile<D>(ks[0], k, 0, sk);
   load_tile<D>(vs[0], v, 0, sk);
   cp_async_commit();
+  // The key tiles walked: all of them, or (masked policies) tiles 0 .. the
+  // last one that holds a key < kv_valid the mask attends. Skipping the
+  // tiles past it is exact: an attended key is seen by then, so a hidden
+  // key's exp2 argument is (-0.7·FLT_MAX - m)·log2 e = -inf, its
+  // probability +0 and its tile adds nothing. A row with no such tile
+  // skips nothing, so a fully masked row stays the uniform average over its
+  // Sk keys.
+  int tiles = (sk + kCols - 1) / kCols;
+  int raw[2] = {0, 0};  // the next tile's mask (fetch_tile_mask)
+  float add = 0.f;
+  if constexpr (kMasked) {
+    __shared__ int last_s;
+    const int last = kmask == nullptr
+                         ? (kv_valid - 1) / kCols  // key 0 is attended
+                         : last_live_tile<kMask>(&last_s, kmask, kv_valid);
+    if (last >= 0) tiles = last + 1;
+    if (tile_counts != nullptr && threadIdx.x == 0) {
+      atomicAdd(&tile_counts[0], static_cast<unsigned long long>(tiles));
+      atomicAdd(&tile_counts[1],
+                static_cast<unsigned long long>((sk + kCols - 1) / kCols));
+    }
+    fetch_tile_mask<kMask>(raw, add, kmask, 0, sk, kv_valid);
+    store_tile_mask<kMask>(keep_s[0], add_s[0], raw, add);  // seen after
+  }                                                         // the 1st barrier
   uint32_t qf[M][D / 16][4];
 #pragma unroll
   for (int m = 0; m < M; ++m) load_a_frags<D>(qf[m], q, row[m], sq);
@@ -294,18 +462,27 @@ __device__ __forceinline__ void attend_rows_mma(
     l[m][0] = l[m][1] = 0.f;
   }
 
-  const int tiles = (sk + kCols - 1) / kCols;
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
       load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk);
       load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk);
       cp_async_commit();
+      if constexpr (kMasked)
+        fetch_tile_mask<kMask>(raw, add, kmask, t + 1, sk, kv_valid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    // ReplaceByte: the tile's keep bits shifted by this lane's column
+    // offset 2·tq, so that column cc + 2·tq is bit cc of kw[cc / 32] with
+    // cc (< 32 within its word, 2·tq + (cc % 32) < 32) known at compile time
+    uint32_t kw[2] = {0u, 0u};
+    if constexpr (kMask == KeyMask::ReplaceByte) {
+      kw[0] = keep_s[buf][0] >> (2 * tq);
+      kw[1] = keep_s[buf][1] >> (2 * tq);
+    }
 
 #pragma unroll
     for (int h = 0; h < kCols / kSub; ++h) {
@@ -326,12 +503,19 @@ __device__ __forceinline__ void attend_rows_mma(
         for (int n = 0; n < kSub / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            const int cc = h * kSub + n * 8 + (e & 1);  // in the tile, - 2·tq
             const int kj = k0 + n * 8 + 2 * tq + (e & 1);
             const int r = row[m][e >> 1];
             float x = s[m][n][e] * scale;
             if (bias != nullptr && kj < sk && r < sq)
               x += bias[static_cast<long long>(r) * sk + kj];
-            if (kj >= kv_valid) x = kMaskValue;
+            if constexpr (kMask == KeyMask::ReplaceByte) {
+              if (((kw[cc >> 5] >> (cc & 31)) & 1u) == 0u) x = kMaskValue;
+            } else {
+              if (kj >= kv_valid) x = kMaskValue;
+              if constexpr (kMask == KeyMask::AddFloat)
+                if (kmask != nullptr) x += add_s[buf][cc + 2 * tq];
+            }
             s[m][n][e] = x;
             if (kj < sk) mx[e >> 1] = fmaxf(mx[e >> 1], x);
           }
@@ -354,8 +538,31 @@ __device__ __forceinline__ void attend_rows_mma(
             const float p =
                 kj < sk ? exp2f((s[m][n][e] - mr[m][e >> 1]) * kLog2e) : 0.f;
             s[m][n][e] = p;
-            l[m][e >> 1] += p;
+            l[m][e >> 1] += p;  // the undropped sum normalises, and is lse's
           }
+        if constexpr (kDrop) {
+          // only P·V's A fragment is dropped. This lane draws row[m][tq & 1]'s
+          // keep bits of columns k0 + n·8 + 4·(tq / 2) .. +3, and its
+          // neighbour (lane ^ 1) the other row's, so bit
+          // 4·i + 2·(tq & 1) + (e & 1) is element e's (i = e / 2)
+          if (drop.thresh != 0u)
+#pragma unroll
+            for (int n = 0; n < kSub / 8; ++n) {
+              uint32_t keep =
+                  dropout_keep4(drop, rng_group,
+                                (tq & 1) ? row[m][1] : row[m][0],
+                                (k0 + n * 8 + (tq >> 1) * 4) >> 2)
+                  << (4 * (tq & 1));
+              keep |= __shfl_xor_sync(0xffffffffu, keep, 1);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (((keep >> (4 * (e >> 1) + 2 * (tq & 1) + (e & 1))) & 1u) ==
+                    0u)
+                  s[m][n][e] = 0.f;
+                else
+                  s[m][n][e] *= drop.inv_keep;
+            }
+        }
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           acc[m][n][0] *= alpha[0];
@@ -373,6 +580,9 @@ __device__ __forceinline__ void attend_rows_mma(
         mma_ab<D, M>(acc, a, vs[buf] + (h * kSub + kk * 16) * S, lane);
       }
     }
+    if constexpr (kMasked)
+      if (t + 1 < tiles)
+        store_tile_mask<kMask>(keep_s[buf ^ 1], add_s[buf ^ 1], raw, add);
     __syncthreads();  // every warp is done with this buffer
   }
 
@@ -383,6 +593,8 @@ __device__ __forceinline__ void attend_rows_mma(
       float li = l[m][i];
       li += __shfl_xor_sync(0xffffffffu, li, 1);
       li += __shfl_xor_sync(0xffffffffu, li, 2);
+      // _large_kernel's denominator (l >= 1 here: the max key gives 1)
+      if constexpr (kMask == KeyMask::ReplaceByte) li = fmaxf(li, 1e-30f);
       const int r = row[m][i];
       if (r >= sq) continue;
 #pragma unroll

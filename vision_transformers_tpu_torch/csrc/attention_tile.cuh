@@ -1,8 +1,9 @@
 // Shared body of the CUDA-core attention forward kernels of PERF.md's rows 1
-// (packed_attention.cu), 5 (dropout_attention.cu's forward) and 8
-// (fused_block.cu), and of row 2 (flash_attention.cu) for fp32 inputs; row 3
-// (flash_attention_large.cu) uses its constants and helpers. bf16 row 2 runs
-// on the tensor cores (attention_mma_tile.cuh). One thread block computes
+// (packed_attention.cu) and 8 (fused_block.cu), in both dtypes, and of rows
+// 2 (flash_attention.cu) and 5 (dropout_attention.cu's forward) for fp32
+// inputs; row 3's fp32 kernel (flash_attention_large.cu) uses its constants
+// and helpers. In bf16, rows 2, 3 and 5 run on the tensor cores
+// (attention_mma_tile.cuh). One thread block computes
 // dropout(softmax(q·kᵀ·scale + bias + key mask))·v for a tile of kBlockQ query
 // rows of one (batch, head) group, streaming the keys in tiles of kBlockK
 // with an online softmax.
@@ -37,7 +38,7 @@
 // shuffles and no block barrier in between. What bounds it on the H100 is
 // the products on the CUDA cores (about 1% of the bf16 tensor-core peak at
 // row 2's shape); attention_mma_tile.cuh is the tensor-core redesign, which
-// rows 5 and 3 are to take next.
+// rows 1 and 8 have not taken yet.
 #pragma once
 
 #include <cuda_bf16.h>

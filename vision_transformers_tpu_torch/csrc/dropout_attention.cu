@@ -19,10 +19,23 @@
 // bf16): forward 4·G·S²·D = 25.8 GFLOP, 26 µs at 989 TFLOP/s, against 50 MB
 // moved, 15 µs; backward 10·G·S²·D = 64.6 GFLOP, 65 µs, against 101 MB
 // moved, 30 µs. So both are bound by the operations, and the S×S scores
-// (0.4 GB in fp32) must never reach device memory.
+// (0.4 GB in fp32) must never reach device memory. The dropout bits add
+// integer work: one Philox 4x32-10 call per four probabilities.
 //
-// Forward (row 5, both dtypes): attend_rows (attention_tile.cuh), fp32 FMAs
-// on the CUDA cores in 32 × 32 tiles. Grid: x = G, y = ceil(Sq / 32).
+// Forward (row 5), by dtype:
+//   bf16: drop_fwd_mma_kernel on attend_rows_mma<D, AddFloat, true>
+//     (attention_mma_tile.cuh): the products on the tensor cores, the key
+//     mask staged per 64-key tile, the 64-key tiles past the last one
+//     that holds an attended key skipped, the keep bits four per Philox
+//     call shared by one shuffle. It rounds
+//     the dropped probabilities to bf16 unnormalised and divides by the
+//     undropped sum after P·V; _drop_fwd_kernel (and the plain version)
+//     round them normalised, which a one-pass kernel cannot (one bf16 step
+//     of the output apart). Grid: x = G, y = ceil(Sq / 128) (D 16, 32) or
+//     ceil(Sq / 64) (D 64). Every bf16 pointer must be 16-byte aligned
+//     (checked here).
+//   fp32: drop_fwd_kernel on attend_rows (attention_tile.cuh), fp32 FMAs on
+//     the CUDA cores in 32 × 32 tiles. Grid: x = G, y = ceil(Sq / 32).
 // Backward (row 6), by dtype:
 //   bf16: the tensor-core passes of attention_bwd_mma_tile.cuh — pass 1
 //     (drop_bwd_dq_mma_kernel, grid x = G, y = ceil(Sq / 64)), pass 2
@@ -39,6 +52,7 @@
 
 #include "attention_bwd_tile.cuh"
 #include "attention_bwd_mma_tile.cuh"
+#include "attention_mma_tile.cuh"
 
 namespace {
 
@@ -72,6 +86,28 @@ drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          sq, sk, kv_valid, scale, drop, blockIdx.x);
 }
 
+using bf16 = __nv_bfloat16;
+
+// The key tiles the bf16 forward walked and the key tiles its blocks' rows
+// hold, summed over its launches since the last read
+// (dropout_attention_tile_counts).
+__device__ unsigned long long tile_counts[2];
+
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ kmask, bf16* __restrict__ out,
+                    float* __restrict__ lse, int heads, int sq, int sk,
+                    int kv_valid, float scale, vtt::Dropout drop) {
+  const long long g = blockIdx.x;
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::AddFloat, true>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * D, k + g * sk * D,
+      v + g * sk * D, nullptr, out + g * sq * D, lse + g * sq, sq, sk,
+      kv_valid, scale, group_mask(kmask, heads, sk), drop, blockIdx.x,
+      tile_counts);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(vtt::kThreads)
 drop_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -103,8 +139,6 @@ drop_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           dk + g * sk * D, dv + g * sk * D, D,
                           sq, sk, kv_valid, scale, drop, blockIdx.x);
 }
-
-using bf16 = __nv_bfloat16;
 
 template <int D>
 __global__ void __launch_bounds__(vtt::mma::kThreads)
@@ -210,13 +244,22 @@ int launch_bwd_mma(const Args& a) {
 
 template <typename T, int D>
 int launch_fwd(const Args& a) {
-  const dim3 grid(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
-  drop_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const float*>(a.kmask),
-      static_cast<T*>(const_cast<void*>(a.out)),
-      static_cast<float*>(const_cast<void*>(a.lse)), a.heads, a.sq, a.sk,
-      a.kv_valid, a.scale, a.drop);
+  T* out = static_cast<T*>(const_cast<void*>(a.out));
+  float* lse = static_cast<float*>(const_cast<void*>(a.lse));
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr int rows = vtt::mma::fwd_rows<D>();
+    const dim3 grid(a.g, (a.sq + rows - 1) / rows);
+    drop_fwd_mma_kernel<D><<<grid, vtt::mma::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
+        lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
+  } else {
+    const dim3 grid(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
+    drop_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
+        lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -265,7 +308,10 @@ int dispatch(const Args& a, int d, int is_bf16, bool backward) {
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
-  if (backward && is_bf16 &&
+  // the tensor-core kernels read bf16 operands with 16-byte copies (the
+  // forward's q, k, v, out; the backward's also do, dq, dk, dv; unused ones
+  // are null here)
+  if (is_bf16 &&
       ((addr(a.q) | addr(a.k) | addr(a.v) | addr(a.dout) | addr(a.out) |
         addr(a.dq) | addr(a.dk) | addr(a.dv)) & 15u))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -277,9 +323,14 @@ int dispatch(const Args& a, int d, int is_bf16, bool backward) {
 
 extern "C" {
 
-// Each returns 0 or the cudaError_t of a launch. kmask may be null.
-// is_bf16: 1 = bf16, 0 = fp32. drop_thresh = min(int(rate·2^32), 2^32 − 1),
-// 0 for no dropout; inv_keep = 1/(1 − rate); seed: the mask's 64-bit seed.
+// Each returns 0 or the cudaError_t of a launch. kmask may be null; its
+// values must be 0 or -0.7·FLT_MAX (what _key_mask_add makes; the bf16
+// forward skips the tiles past the last one that holds a key < kv_valid
+// whose value is 0). is_bf16: 1 = bf16, 0 = fp32. drop_thresh =
+// min(int(rate·2^32), 2^32 − 1), 0 for no dropout; inv_keep = 1/(1 − rate);
+// seed: the mask's 64-bit seed.
+// A bf16 q, k, v or out that is not 16-byte aligned is refused
+// (cudaErrorMisalignedAddress).
 int dropout_attention_fwd(const void* q, const void* k, const void* v,
                           const void* kmask, void* out, void* lse, int g,
                           int heads, int sq, int sk, int d, int kv_valid,
@@ -313,6 +364,15 @@ int dropout_attention_bwd(const void* q, const void* k, const void* v,
                vtt::make_dropout(drop_thresh, inv_keep, seed),
                static_cast<cudaStream_t>(stream)};
   return dispatch(a, d, is_bf16, true);
+}
+
+// Copies the two tile counts of the bf16 forward into counts, and zeroes
+// them. Returns 0 or the cudaError_t of the copies.
+int dropout_attention_tile_counts(unsigned long long* counts) {
+  const unsigned long long zero[2] = {0ull, 0ull};
+  cudaError_t e = cudaMemcpyFromSymbol(counts, tile_counts, sizeof zero);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(tile_counts, zero, sizeof zero);
+  return static_cast<int>(e);
 }
 
 const char* dropout_attention_error_string(int code) {

@@ -5,7 +5,8 @@
 // through _flash_fwd (:143-147) for any kv_mask and for bias-free
 // Sq·Sk > 1.5 M: the DETR encoder's self attention and decoder's cross
 // attention (key padding of each image), a ViT at 576 px or a ViT detection
-// backbone at COCO size.
+// backbone at COCO size, T2T-ViT_t's token transformer at 3136 tokens. Row 3
+// of PERF.md's kernel table.
 //
 // q: (G, Sq, D), k/v: (G, Sk, D), contiguous, G = B·H with heads fastest.
 // kmask: null or uint8 (n, Sk), nonzero = attend, n dividing G: group g
@@ -14,23 +15,37 @@
 //
 // Numerics are the TPU kernel's: the score times the scale is REPLACED by
 // DEFAULT_MASK_VALUE = -0.7·FLT_MAX where the key is >= kv_valid or masked,
-// before the running max; the running max starts at DEFAULT_MASK_VALUE, not
-// -inf; denom = max(l, 1e-30); lse = m + log(denom). Keys past Sk (the ragged
-// last tile) take no part at all. So a row whose keys are all masked is the
-// uniform average over its Sk keys (mha_reference's answer); the TPU kernel,
-// whose zero-padded block keys count too, gives Σv / Sk_padded there.
+// before the running max; denom = max(l, 1e-30); lse = m + log(denom); the
+// unnormalised probabilities are rounded to the value dtype before P·V.
+// Keys past Sk (the ragged last tile) take no part at all. So a row whose
+// keys are all masked is the uniform average over its Sk keys
+// (mha_reference's answer); the TPU kernel, whose zero-padded block keys
+// count too, gives Σv / Sk_padded there. The TPU kernel's running max
+// starts at DEFAULT_MASK_VALUE, the bf16 kernel's at -inf (fp32:
+// DEFAULT_MASK_VALUE): every tile either walks holds a key < Sk, whose
+// replaced score is >= DEFAULT_MASK_VALUE, so both give the same max.
 //
 // What bounds it on the H100 (the DETR-R50 encoder at the 896 × 1344 bucket,
 // batch 4: G = 32, S = 4704, D = 32, bf16): 4·G·S²·D = 90.6 GFLOP, 0.092 ms
 // at 989 TFLOP/s, against 38.5 MB of q/k/v read and out/lse written, 0.0115
 // ms at 3.35 TB/s: the operations. One image's (8, 4704, 4704) fp32 scores
-// would be 708 MB, so they never leave the block: keys stream through shared
-// memory in tiles of 32 with an online softmax, each lane reading its own
-// key's mask byte beside the tile. The products are fp32 FMAs on the CUDA
-// cores (attention_tile.cuh's layout), not yet the tensor cores, which is
-// where the gap to the bound lies.
-// Grid: x = G groups, y = ceil(Sq / 32) query tiles; 128 threads per block.
-#include "attention_tile.cuh"
+// would be 708 MB, so they never leave the block. Two routes, by dtype:
+//   bf16: flash_large_mma_kernel on attend_rows_mma<D, ReplaceByte, false>
+//     (attention_mma_tile.cuh): the products on the tensor cores (mma.sync
+//     m16n8k16), K/V tiles of 64 keys double-buffered by cp.async, each
+//     tile's 64 keep bits staged beside it, and the 64-key tiles past the
+//     last one that holds an attended key (the bottom rows of padding of a
+//     COCO image) skipped.
+//     Grid: x = G, y = ceil(Sq / 128) (D 16, 32) or ceil(Sq / 64) (D 64);
+//     128 threads. Every bf16 pointer must be 16-byte aligned (checked here).
+//   fp32: flash_large_kernel, fp32 FMAs on the CUDA cores (attention_tile.cuh's
+//     layout): keys stream through shared memory in tiles of 32 with an
+//     online softmax, each lane reading its own key's mask byte beside the
+//     tile. Grid: x = G, y = ceil(Sq / 32); 128 threads.
+#include <cstdint>
+#include <type_traits>
+
+#include "attention_mma_tile.cuh"
 
 namespace {
 
@@ -166,16 +181,77 @@ flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+using bf16 = __nv_bfloat16;
+
+// The key tiles the bf16 forward walked and the key tiles its blocks' rows
+// hold, summed over its launches since the last read
+// (flash_attention_large_tile_counts).
+__device__ unsigned long long tile_counts[2];
+
+template <int D>
+__device__ __forceinline__ void large_mma_rows(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const unsigned char* __restrict__ kmask,
+    bf16* __restrict__ out, float* __restrict__ lse, int groups_per_row,
+    int sq, int sk, int kv_valid, float scale) {
+  const long long g = blockIdx.x;
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::ReplaceByte, false>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * D, k + g * sk * D,
+      v + g * sk * D, nullptr, out + g * sq * D, lse + g * sq, sq, sk,
+      kv_valid, scale,
+      kmask == nullptr ? nullptr : kmask + (g / groups_per_row) * sk,
+      vtt::Dropout{}, 0u, tile_counts);
+}
+
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+flash_large_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const unsigned char* __restrict__ kmask,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int groups_per_row, int sq, int sk, int kv_valid,
+                       float scale) {
+  large_mma_rows<D>(q, k, v, kmask, out, lse, groups_per_row, sq, sk,
+                    kv_valid, scale);
+}
+
+// D 64 asks for four blocks an SM (at most 128 registers): left free, ptxas
+// takes 142 and only three fit. At D 32 and 16 a block hint makes it take
+// more registers than it does free, and the launches run slower.
+template <>
+__global__ void __launch_bounds__(vtt::mma::kThreads, 4)
+flash_large_mma_kernel<64>(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const unsigned char* __restrict__ kmask,
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           int groups_per_row, int sq, int sk, int kv_valid,
+                           float scale) {
+  large_mma_rows<64>(q, k, v, kmask, out, lse, groups_per_row, sq, sk,
+                     kv_valid, scale);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kmask,
            void* out, void* lse, int g, int mask_rows, int sq, int sk,
            int kv_valid, float scale, cudaStream_t stream) {
-  const dim3 grid(g, (sq + kBlockQ - 1) / kBlockQ);
-  flash_large_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
-      static_cast<T*>(out), static_cast<float*>(lse),
-      kmask == nullptr ? 1 : g / mask_rows, sq, sk, kv_valid, scale);
+  const int per_row = kmask == nullptr ? 1 : g / mask_rows;
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr int rows = vtt::mma::fwd_rows<D>();
+    const dim3 grid(g, (sq + rows - 1) / rows);
+    flash_large_mma_kernel<D><<<grid, vtt::mma::kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
+        static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
+        kv_valid, scale);
+  } else {
+    const dim3 grid(g, (sq + kBlockQ - 1) / kBlockQ);
+    flash_large_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
+        static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
+        kv_valid, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,7 +273,10 @@ extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. kmask may be null (then
 // mask_rows is ignored); else mask_rows must divide g. is_bf16: 1 = bf16,
-// 0 = fp32. sq / 32 query tiles must fit the grid's y dimension.
+// 0 = fp32. sq / 32 query tiles must fit the grid's y dimension. A bf16 q,
+// k, v or out that is not 16-byte aligned is refused
+// (cudaErrorMisalignedAddress): the tensor-core route reads them with
+// 16-byte copies. The mask may start at any byte.
 int flash_attention_large_fwd(const void* q, const void* k, const void* v,
                               const void* kmask, void* out, void* lse, int g,
                               int mask_rows, int sq, int sk, int d,
@@ -207,10 +286,24 @@ int flash_attention_large_fwd(const void* q, const void* k, const void* v,
       (sq + kBlockQ - 1) / kBlockQ > 65535 ||
       (kmask != nullptr && (mask_rows < 1 || g % mask_rows != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(q) |
+                   reinterpret_cast<std::uintptr_t>(k) |
+                   reinterpret_cast<std::uintptr_t>(v) |
+                   reinterpret_cast<std::uintptr_t>(out)) & 15u))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
       ? dispatch_d<__nv_bfloat16>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d, kv_valid, scale, st)
       : dispatch_d<float>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d, kv_valid, scale, st);
+}
+
+// Copies the two tile counts of the bf16 forward into counts, and zeroes
+// them. Returns 0 or the cudaError_t of the copies.
+int flash_attention_large_tile_counts(unsigned long long* counts) {
+  const unsigned long long zero[2] = {0ull, 0ull};
+  cudaError_t e = cudaMemcpyFromSymbol(counts, tile_counts, sizeof zero);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(tile_counts, zero, sizeof zero);
+  return static_cast<int>(e);
 }
 
 const char* flash_attention_large_error_string(int code) {

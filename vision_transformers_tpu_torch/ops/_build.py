@@ -59,6 +59,7 @@ _SIGNATURES = {
         #  sq, sk, d, kv_valid, chunks, scale, is_bf16, *drop, stream)
         "dropout_attention_bwd": (
             _I, [_P] * 12 + [_I] * 7 + [_F, _I, *_DROP, _P]),
+        "dropout_attention_tile_counts": (_I, [_P]),
         "dropout_attention_error_string": (ctypes.c_char_p, [_I]),
     },
     # (qkv, bias, out, g, n, heads, dh, bias_windows, scale, p, threads
@@ -94,6 +95,7 @@ _SIGNATURES = {
     #  is_bf16, stream)
     "flash_attention_large": {
         "flash_attention_large_fwd": (_I, [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+        "flash_attention_large_tile_counts": (_I, [_P]),
         "flash_attention_large_error_string": (ctypes.c_char_p, [_I]),
     },
     # (q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, d, kv_valid, scale,

@@ -11,8 +11,9 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   (qkv, lse), replays the dropout mask and writes the packed dqkv.
 - ``flash_dropout_attention`` (``csrc/dropout_attention.cu``) replaces
   ``_drop_fwd_kernel`` and ``_drop_bwd_kernel``: split-head (B, H, S, D)
-  attention with dropout, a key-padding mask and Sq != Sk. The backward
-  runs on the tensor cores for bf16 (``csrc/attention_bwd_mma_tile.cuh``).
+  attention with dropout, a key-padding mask and Sq != Sk. For bf16 the
+  forward runs on the tensor cores (``csrc/attention_mma_tile.cuh``) and so
+  does the backward (``csrc/attention_bwd_mma_tile.cuh``).
 - ``flash_attention`` (``csrc/flash_attention.cu``) replaces
   ``_attn_kernel``: split-head attention with an additive bias, on the
   tensor cores for bf16 (``csrc/attention_mma_tile.cuh``). Without a
@@ -37,7 +38,9 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``flash_attention_large_fwd`` (``csrc/flash_attention_large.cu``)
   replaces ``_large_kernel``: the streaming forward that ``flash_attention``
   takes for a runtime key-padding ``kv_mask`` and for bias-free
-  Sq·Sk > 1.5 M (the DETR encoder and cross attention at COCO scale).
+  Sq·Sk > 1.5 M (the DETR encoder and cross attention at COCO scale). For
+  bf16 it runs on the tensor cores and skips the 64-key tiles past the last
+  one that holds an attended key (``masked_tile_counts`` reads how many).
 - ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) replaces
   ``_bwd_kernel``: the bias-free, mask-free backward of ``flash_attention``
   at small S, taken under ``USE_PALLAS_BWD`` as in the JAX package.
@@ -63,6 +66,7 @@ and a backward replays its forward's mask from the seed alone.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -104,6 +108,21 @@ LAUNCHES: Dict[str, int] = {
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def masked_tile_counts(name: str) -> Tuple[int, int]:
+    """(key tiles walked, key tiles held) by the bf16 forward of
+    ``"flash_attention_large"`` (row 3) or ``"dropout_attention"`` (row 5),
+    summed over its launches since the last call, which zeroes both: the
+    counters the kernel itself keeps, so ``1 - walked / held`` is the share
+    of 64-key tiles it skipped. Synchronises with the card."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    lib = _build.load(name)
+    torch.cuda.synchronize()
+    counts = (ctypes.c_ulonglong * 2)()
+    _build.check(lib, name, getattr(lib, f"{name}_tile_counts")(counts))
+    return int(counts[0]), int(counts[1])
 
 
 def _kv_valid(kv_valid: Optional[int], s_k: int) -> int:
@@ -560,7 +579,10 @@ def flash_dropout_attention_fwd(
         scale: Optional[float] = None, kv_valid: Optional[int] = None,
         key_mask: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dropout forward → (out, fp32 lse (B, H, Sq)); no autograd graph."""
+    """The dropout forward → (out, fp32 lse (B, H, Sq)); no autograd graph.
+    bf16 runs on the tensor cores (skipping the 64-key tiles past the last
+    one that holds an attended key), fp32 on the CUDA cores; a bf16 operand
+    that is not 16-byte aligned raises."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      key_mask)
     rate, seed = _dropout_args(dropout_rate, seed)
@@ -862,7 +884,10 @@ def flash_attention_large_fwd(
     """The streaming forward → (out, fp32 lse (B, H, Sq)); no autograd
     graph. Any Sq·Sk: the S×S scores never reach device memory. ``out``
     (CUDA only): a contiguous tensor like q to write into instead of a new
-    one (a check can pre-fill it to see that every element is written)."""
+    one (a check can pre-fill it to see that every element is written).
+    bf16 runs on the tensor cores (skipping the 64-key tiles past the last
+    one that holds an attended key), fp32 on the CUDA cores; a bf16 q, k, v
+    or ``out`` that is not 16-byte aligned raises."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if q.device.type == "cpu":
