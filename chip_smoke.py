@@ -9,7 +9,9 @@ exit, and without the final result line:
 
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
-   (one ``nvcc`` per source, all in parallel).
+   (one ``nvcc`` per source, all in parallel), and the registers, shared
+   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1, 2,
+   3, 5, 8 and 14.
 2. Kernels against their plain PyTorch versions, on the card, in bf16 and
    fp32, at the shapes the serving and training paths give them; the
    dropout and backward kernels at rate 0 and 0.1 under one seed (so both
@@ -38,15 +40,22 @@ exit, and without the final result line:
    and, in fp32, autograd of the plain forward, into NaN-filled gradients,
    twice for equal bits. The fused LayerNorm + Dense (``ln_dense``) at
    benchmarks/ln_fused.py's ViT-B shapes at batch 32 ([ln_1 + QKV] and
-   [ln_2 + fc1 + GELU], a ragged R without a bias, erf GELU in fp32) and the
-   fused attention sub-block (``fused_attention_block``) at ViT-B/16,
-   DeiT-B, T2T-ViT-14 and bucket 1, into NaN-filled outputs, twice for
-   equal bits; gradients through both autograd functions in fp32. Rows 2,
-   3, 5 and 6: bf16 launches go through the tensor-core kernels and fp32
-   ones through the CUDA-core kernels, by the kernels' names in a
-   ``torch.profiler`` trace (here, and on the split-head forward of phase
-   4, the split-head train steps of phase 6, T2T-ViT_t-14 served in phase
-   6g, and the DETR eval forwards and train steps of phase 7); the bf16
+   [ln_2 + fc1 + GELU], ragged R and N without a bias, erf GELU), in bf16
+   and fp32, each beside a planted fault (the plain output with one 16-wide
+   k slice left out) that must exceed its limit, torch's (out, in) weight
+   bit-equal to the (in, out) one, and the fused attention sub-block
+   (``fused_attention_block``) at ViT-B/16, DeiT-B, T2T-ViT-14 and bucket
+   1, into NaN-filled outputs, twice for equal bits; gradients through both
+   autograd functions in fp32. Rows 1, 2, 3, 5, 6 and 14: bf16 launches go
+   through the tensor-core kernels and fp32 ones through the CUDA-core
+   kernels, by the kernels' names in a ``torch.profiler`` trace (here, and
+   on the served ViT-B/16 forward of phase 3, the split-head forward of
+   phase 4, the ViT-B/16 and split-head train steps of phase 6, T2T-ViT_t-14
+   served and the ln_fused chain in phase 6g, and the DETR eval forwards
+   and train steps of phase 7); row 1 in bf16 at the ViT paths' shapes
+   (ViT-B/16 and T2T-ViT-14 at batch 32, vit_tiny at 64; rate 0 and 0.1)
+   into NaN-filled outputs, reruns bit-equal, beside a planted fault (the
+   plain output under the next seed's mask); the bf16
    kernels at the paths' own shapes (row 2 at the DETR decoder's self
    attention, G 32, S 100, D 32, with and without a bias; row 6 at the DETR
    encoder, G 16, S 4704, D 32, with the key masks of two COCO images at
@@ -78,7 +87,9 @@ exit, and without the final result line:
    fp32, dropout 0.1, a seeded colour-class loader with a ragged last
    batch) for 3 epochs; 3 Adam steps of ViT-B/16 @224 in bf16 at batch 32
    with ``attention_dropout=0.1`` and the step's split into forward,
-   backward and optimizer; one step each with and without dropout of the
+   backward and optimizer, and the packed backward (row 7) fed the
+   tensor-core forward's out and lse on the first layer's projection of
+   the batch, against its plain version at rate 0.1; one step each with and without dropout of the
    2-layer model at 512 px (the split-head kernels); and fp32 gradients of
    a 2-layer model on the card against the CPU run of the same weights.
    Then the windowed models' training: ``swint_224_imagenet`` and
@@ -130,9 +141,11 @@ exit, and without the final result line:
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
-   and the PyTorch library call (or chain) for the same function; rows 2, 3,
-   5 and 6 also at the path shapes of phase 2, with their TFLOP/s and SDPA's
-   time (rows 3 and 5 also the share of key tiles they skip).
+   and the PyTorch library call (or chain) for the same function; rows 1
+   and 14 with their TFLOP/s, fp32 route and (row 1) S 192 against S 197,
+   (row 14) torch's weight layout; rows 2, 3, 5 and 6 also at the path
+   shapes of phase 2, with their TFLOP/s and SDPA's time (rows 3 and 5 also
+   the share of key tiles they skip).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -142,6 +155,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -184,11 +199,18 @@ MMA_GRAD_TOL = 5e-3
 # a planted fault on the plain version, the output of a kernel that skipped
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
-# Substrings of the CUDA kernels' names that tell the routes of rows 2, 3, 5
-# and 6 apart in a profile (csrc/flash_attention.cu,
-# csrc/flash_attention_large.cu, csrc/dropout_attention.cu): bf16 on the
-# tensor cores, fp32 on the CUDA cores. No name is a substring of another.
+# Substrings of the CUDA kernels' names that tell the routes of rows 1, 2,
+# 3, 5, 6 and 14 apart in a profile (csrc/packed_attention.cu,
+# csrc/flash_attention.cu, csrc/flash_attention_large.cu,
+# csrc/dropout_attention.cu, csrc/ln_dense.cu): bf16 on the tensor cores,
+# fp32 on the CUDA cores (row 14 by ops/fused_dense.py::ln_dense_route, its
+# tensor-core route after the statistics launch; every bf16 width of the
+# repo takes the tensor cores). No name is a substring of another.
 ROUTE_NAMES = {
+    ("row 1", "bfloat16"): ("packed_fwd_mma_kernel",),
+    ("row 1", "float32"): ("packed_fwd_kernel",),
+    ("row 14", "bfloat16"): ("ln_stats_kernel", "ln_dense_mma_kernel"),
+    ("row 14", "float32"): ("ln_dense_kernel",),
     ("row 2", "bfloat16"): ("flash_fwd_mma_kernel",),
     ("row 2", "float32"): ("flash_fwd_kernel",),
     ("row 3", "bfloat16"): ("flash_large_mma_kernel",),
@@ -503,6 +525,46 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
+# The sources of rows 1, 2, 3, 5, 8 and 14, whose kernels' registers and
+# shared memory phase 1 prints.
+PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
+                 "dropout_attention", "fused_block", "ln_dense")
+
+
+def ptxas_usage(build_log):
+    """[(source, kernel, registers, smem bytes, spill store bytes, stack
+    bytes)] of every kernel ``nvcc -Xptxas -v`` compiled, from its output;
+    the kernel named as ``c++filt`` reads its mangled name, without the
+    argument list."""
+    found = []
+    for src, out in build_log.items():
+        kernel, spill, stack = None, 0, 0
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel, spill, stack = m.group(1), 0, 0
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                          line)
+            if m:
+                stack, spill = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
+            if m and kernel is not None:
+                found.append([src, kernel, int(m.group(1)),
+                              int(m.group(2) or 0), spill, stack])
+                kernel = None
+    if shutil.which("c++filt") is None:  # the mangled names, then
+        return [tuple(f) for f in found]
+    names = subprocess.run(["c++filt"], input="\n".join(f[1] for f in found),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.splitlines()
+    for f, name in zip(found, names):
+        f[1] = name.replace("(anonymous namespace)::", "").split("(")[0] \
+            .removeprefix("void ")
+    return [tuple(f) for f in found]
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -797,10 +859,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = _build.build()
     log(f"kernel build: {build_s:.2f} s for {list(_build.KERNELS)}")
-    for name, out in _build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+    for src, kernel, regs, smem, spill, stack in ptxas_usage(
+            _build.build_log):
+        if src in PTXAS_SOURCES:
+            log(f"  ptxas {src}: {kernel}: {regs} registers, {smem} bytes "
+                f"smem, {stack} bytes stack, {spill} bytes spilled")
 
     # ---- 2. kernels against their plain versions -------------------------
     def randn(seed, *shape, dtype):
@@ -809,18 +872,31 @@ def main() -> int:
 
     errs = {}
 
+    def nan_filled(b, s, h, dh, dtype):
+        """out and lse of a packed forward, filled with NaN."""
+        return dict(out=torch.full((b, s, h * dh), float("nan"), dtype=dtype,
+                                   device=dev),
+                    lse=torch.full((b, s, h), float("nan"), device=dev))
+
     def check_packed(label, b, s, h, dh, kv_valid, dtype):
         qkv = randn(1, b, s, 3 * h * dh, dtype=dtype)
-        out, lse = fa.packed_flash_attention_fwd(qkv, h, kv_valid=kv_valid)
+        out, lse = fa.packed_flash_attention_fwd(
+            qkv, h, kv_valid=kv_valid, **nan_filled(b, s, h, dh, dtype))
         ref, ref_lse = fa.packed_flash_attention_reference(
             qkv, h, kv_valid=kv_valid)
+        again = fa.packed_flash_attention_fwd(qkv, h, kv_valid=kv_valid)
         torch.cuda.synchronize()
         e, el = max_err(out, ref), max_err(lse, ref_lse)
         name = str(dtype).removeprefix("torch.")
         log(f"packed {label} {name}: max|out-plain| {e:.3e} "
-            f"(tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}")
-        require(bool(torch.isfinite(out).all()) and e <= KERNEL_TOL[name]
-                and el <= LSE_TOL, f"packed {label} {name} against its plain version")
+            f"(tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}, every "
+            "element written, rerun bit-equal")
+        require(bool(torch.isfinite(out).all())
+                and bool(torch.isfinite(lse).all()) and e <= KERNEL_TOL[name]
+                and el <= LSE_TOL and torch.equal(again[0], out)
+                and torch.equal(again[1], lse),
+                f"packed {label} {name} against its plain version, every "
+                "element written, rerun bit-equal")
         errs[("packed", label, name)] = e
 
     def check_flash(label, b, h, sq, sk, d, bias_lead, kv_valid, dtype):
@@ -845,6 +921,7 @@ def main() -> int:
         check_packed("vitb16@224 B32 S197", 32, 197, 12, 64, None, dtype)
         check_packed("S208 kv_valid197", 32, 208, 12, 64, 197, dtype)
         check_packed("swin-head dh32", 8, 49, 3, 32, None, dtype)
+        check_packed("dh16 S130 kv_valid120", 4, 130, 4, 16, 120, dtype)
         check_flash("vitb16@512 G96 S1025", 8, 12, 1025, 1025, 64, None,
                     None, dtype)
         for lead, what in ((1, "shared"), (4, "per-window"),
@@ -876,13 +953,14 @@ def main() -> int:
         require(bool(torch.isfinite(out.float()).all())
                 and e <= KERNEL_TOL[name] and el <= LSE_TOL,
                 f"packed fwd {label} {name} rate {rate} against its plain version")
-        # both backwards from the plain (out, lse): only the backward differs
-        dqkv = fa.packed_flash_attention_bwd(qkv, do, ref, ref_lse, h, **kw)
-        dref = fa.packed_flash_attention_bwd_reference(qkv, do, ref, ref_lse,
-                                                       h, **kw)
+        # both backwards from the kernel's (out, lse), so only the backward
+        # differs: the CUDA-core backward replays the forward's mask
+        dqkv = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
+        dref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
+                                                       **kw)
         eg, tol = grad_err(f"packed bwd {label} {name} rate {rate}", dqkv,
                            dref, name)
-        again = fa.packed_flash_attention_bwd(qkv, do, ref, ref_lse, h, **kw)
+        again = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
         torch.cuda.synchronize()
         require(torch.equal(dqkv, again),
                 f"packed bwd {label} {name}: two runs give equal gradients")
@@ -1333,8 +1411,8 @@ def main() -> int:
         check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
     del qm, km, vm, got, want
 
-    # rows 2, 3, 5 and 6: bf16 on the tensor-core kernels, fp32 on the
-    # CUDA-core ones, by the kernels' names in a profile; then the bf16
+    # rows 1, 2, 3, 5, 6 and 14: bf16 on the tensor-core kernels, fp32 on
+    # the CUDA-core ones, by the kernels' names in a profile; then the bf16
     # kernels at the paths' own shapes against their plain versions, reruns
     # bit-equal
     for dtype in (bf16, fp32):
@@ -1343,15 +1421,64 @@ def main() -> int:
                        for i in range(4))
         out, lse = fa.flash_attention_reference(q, k, v)
         keep = coco_keep(COCO_SIZES[:2])[:, :150]
+        qkv_r = randn(90, 2, 150, 3 * 4 * 64, dtype=dtype)
+        x_r = randn(91, 300, 64, dtype=dtype)
+        ones = torch.ones(64, device=dev)
+        w_r = randn(92, 64, 128, dtype=dtype)
         require_route(f"wrappers {name}", lambda: (
+            fa.packed_flash_attention_fwd(qkv_r, 4),
+            fa.packed_flash_attention_fwd(qkv_r, 4, dropout_rate=0.1, seed=5),
+            fdense.ln_dense_fwd(x_r, ones, ones, w_r),
+            fdense.ln_dense_fwd(x_r, ones, ones, w_r.t().contiguous().t()),
             fa.flash_attention_fwd(q, k, v),
             fa.flash_attention_large_fwd(q, k, v, kv_mask=keep),
             fa.flash_dropout_attention_fwd(q, k, v, dropout_rate=0.1, seed=5,
                                            key_mask=keep),
             fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
                                            dropout_rate=0.1, seed=5)),
-            [("row 2", name), ("row 3", name), ("row 5", name),
-             ("row 6", name)])
+            [("row 1", name), ("row 2", name), ("row 3", name),
+             ("row 5", name), ("row 6", name), ("row 14", name)])
+
+    # row 1 (bf16, tensor cores) at the ViT paths' shapes: ViT-B/16 @224 at
+    # batch 32 (served at rate 0, trained at 0.1), T2T-ViT-14's 6 heads and
+    # vit_tiny's 4, into NaN-filled outputs, reruns bit-equal; beside the
+    # limit, a planted fault: the plain output of the next seed at rate 0.1
+    # (another dropout mask), which must exceed it
+    def check_packed_path(label, b, s, h, dh, rate):
+        qkv = randn(93, b, s, 3 * h * dh, dtype=bf16)
+        kw = dict(dropout_rate=rate, seed=60606 + (1 << 36))
+        out, lse = fa.packed_flash_attention_fwd(
+            qkv, h, **kw, **nan_filled(b, s, h, dh, bf16))
+        ref, ref_lse = fa.packed_flash_attention_reference(qkv, h, **kw)
+        again = fa.packed_flash_attention_fwd(qkv, h, **kw)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = KERNEL_TOL["bfloat16"]
+        fault = ""
+        if rate > 0:
+            ef = max_err(fa.packed_flash_attention_reference(
+                qkv, h, dropout_rate=rate, seed=kw["seed"] + 1)[0], ref)
+            require(ef > tol, f"packed {label}: the next seed's mask "
+                    f"({ef:.3e}) would pass the limit {tol:.3e}")
+            fault = f", the next seed's mask {ef:.3e}"
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out)
+                and torch.equal(again[1], lse),
+                f"packed {label} bf16 rate {rate} against its plain version, "
+                "every element written, rerun bit-equal")
+        log(f"packed {label} bf16 rate {rate} (tensor cores): max|out-plain| "
+            f"{e:.3e} (tol {tol}{fault}), max|lse-plain| {el:.3e}, every "
+            "element written, rerun bit-equal")
+        errs[("packed_path", label, rate)] = e
+        del qkv, out, lse, ref, ref_lse, again
+
+    for rate in (0.0, 0.1):
+        check_packed_path("vitb16@224 B32 S197 H12 dh64", 32, 197, 12, 64,
+                          rate)
+        check_packed_path("t2t-vit-14 B32 S197 H6 dh64", 32, 197, 6, 64,
+                          rate)
+        check_packed_path("vit_tiny B64 S65 H4 dh64", 64, 65, 4, 64, rate)
 
     def check_flash_path(label, b, h, s, d, bias_lead):
         q, k, v = (randn(84 + i, b, h, s, d, dtype=bf16) for i in range(3))
@@ -1488,22 +1615,40 @@ def main() -> int:
         return x, g, b, w, bias
 
     def check_ln_dense(label, rows, d, n, activation, with_bias, dtype):
+        """Row 14 into a NaN-filled output against its plain version, a
+        rerun and torch's (out, in) weight layout bit-equal to it; beside
+        the limit a planted fault, the plain output with k 368 .. 383 (one
+        16-wide slice) left out of the product, which must exceed it."""
         name = str(dtype).removeprefix("torch.")
         args = dense_inputs(100, rows, d, n, dtype, with_bias)
         kw = dict(activation=activation)
+        route = fdense.ln_dense_route(dtype, d, n, *args[3].stride())
         out = fdense.ln_dense_fwd(*args, **kw, out=torch.full(
             (rows, n), float("nan"), dtype=dtype, device=dev))
         want = fdense.ln_dense_reference(*args, **kw)
         again = fdense.ln_dense_fwd(*args, **kw)
+        x, g, b, w, bias = args
+        out_in = fdense.ln_dense_fwd(x, g, b, w.t().contiguous().t(), bias,
+                                     **kw)
+        cut = w.clone()
+        cut[368:384] = 0
+        e_fault = max_err(fdense.ln_dense_reference(x, g, b, cut, bias, **kw),
+                          want)
         torch.cuda.synchronize()
         e = max_err(out, want)
         tol = KERNEL_TOL[name] * max(1.0, want.float().abs().max().item())
         errs[("ln_dense", label, name)] = e
-        log(f"ln_dense {label} {name}: max|out-plain| {e:.3e} (tol {tol:.3e})")
+        log(f"ln_dense {label} {name} ({route}): max|out-plain| {e:.3e} "
+            f"(tol {tol:.3e}, k 368..383 left out {e_fault:.3e}), every "
+            "element written, rerun and (out, in) weight bit-equal")
+        require(e_fault > tol, f"ln_dense {label} {name}: a 16-wide k slice "
+                f"left out ({e_fault:.3e}) would pass the limit {tol:.3e}")
         require(not bool(torch.isnan(out.float()).any())
-                and torch.equal(again, out) and e <= tol,
+                and torch.equal(again, out) and torch.equal(out_in, out)
+                and e <= tol,
                 f"ln_dense {label} {name}: every element written, reruns "
-                "bit-equal, within tolerance of the plain version")
+                "and the (out, in) layout bit-equal, within tolerance of the "
+                "plain version")
 
     for dtype in (bf16, fp32):
         check_ln_dense("[ln_1 + QKV] R6304 D768 N2304", 6304, 768, 2304, None,
@@ -1512,8 +1657,10 @@ def main() -> int:
                        3072, "gelu_tanh", True, dtype)
         check_ln_dense("ragged R6301 N2304 no bias", 6301, 768, 2304, None,
                        False, dtype)
-    check_ln_dense("gelu_erf R6304 N3072", 6304, 768, 3072, "gelu_erf", True,
-                   fp32)
+        check_ln_dense("ragged R6301 N2312 no bias", 6301, 768, 2312, None,
+                       False, dtype)
+        check_ln_dense("gelu_erf R6304 N3072", 6304, 768, 3072, "gelu_erf",
+                       True, dtype)
 
     def block_inputs(seed, b, s, hd, dtype):
         x = randn(seed, b, s, hd, dtype=dtype)
@@ -1614,6 +1761,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, launches {main_launches}")
     require(main_forwards > 0 and main_launches["packed_attention"]
             == 12 * main_forwards, "packed kernel: 12 launches per forward")
+    require_route("ViT-B/16 bf16 served forward",
+                  lambda: clf.predict(images[:8]), [("row 1", "bfloat16")])
 
     for n, out in served.items():
         require(out.shape == (n, args["num_classes"])
@@ -1862,6 +2011,33 @@ def main() -> int:
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
+
+    require_route("ViT-B/16 bf16 train step", one_step,
+                  [("row 1", "bfloat16")])
+
+    # the step's row 7 (the CUDA-core backward) fed the tensor-core
+    # forward's out and lse on the first layer's projection of this batch,
+    # at rate 0.1, against the plain backward on the same (out, lse): the
+    # backward replays the forward's mask
+    taps = []
+    hook = vitb.encoder.encoder_layer_0.self_attention.qkv.register_forward_hook(
+        lambda _m, _i, o: taps.append(o.detach()))
+    with torch.no_grad():
+        vitb(xb)
+    hook.remove()
+    qkv_t = taps[0]
+    do_t = randn(94, *qkv_t.shape[:2], qkv_t.shape[-1] // 3, dtype=bf16)
+    kw = dict(dropout_rate=0.1, seed=777 + (5 << 33))
+    out_t, lse_t = fa.packed_flash_attention_fwd(qkv_t, 12, **kw)
+    g_t = fa.packed_flash_attention_bwd(qkv_t, do_t, out_t, lse_t, 12, **kw)
+    g_ref = fa.packed_flash_attention_bwd_reference(qkv_t, do_t, out_t, lse_t,
+                                                    12, **kw)
+    e_step, tol = grad_err("ViT-B train step layer 0 packed bwd rate 0.1",
+                           g_t, g_ref, "bfloat16")
+    log(f"ViT-B train step, layer 0's projection {tuple(qkv_t.shape)}: row 7 "
+        f"fed row 1's out and lse at rate 0.1, max|dqkv-plain| {e_step:.3e} "
+        f"(tol {tol:.3e})")
+    del taps, qkv_t, do_t, out_t, lse_t, g_t, g_ref
 
     wall, busy, count, top = device_profile(one_step, top=10)
     if busy is None:
@@ -2328,6 +2504,10 @@ def main() -> int:
             xc, chain, f, fa.packed_flash_attention), iters=5)
             for name, f in (("fused", fdense.ln_dense),
                             ("base", base_ln_dense))}
+    with torch.inference_mode():
+        require_route("ln_fused chain", lambda: ln_fused_chain(
+            xc, chain, fdense.ln_dense, fa.packed_flash_attention),
+            [("row 14", "bfloat16"), ("row 1", "bfloat16")])
     e_chain = max_err(fused_chain, base_chain)
     c_scale = base_chain.float().abs().max().item()
     log(f"ln_fused chain (12 ViT-B/16 layers, batch 32, bf16): launches "
@@ -2697,20 +2877,34 @@ def main() -> int:
     out, lse = fa.packed_flash_attention_fwd(qkv, h, dropout_rate=rate,
                                              seed=seed)
     io_bytes = b * s * h * dh * 2
+    # S 192: three whole 64-row and 64-key tiles, where S 197 takes four
+    # (the last holding 5 rows and 5 keys): the cost of the padding
+    qkv192 = randn(6, b, 192, 3 * h * dh, dtype=bf16)
+    p_ms = cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv, h))
+    p_drop_ms = cuda_ms(lambda: fa.packed_flash_attention_fwd(
+        qkv, h, dropout_rate=rate, seed=seed))
+    p_flops = 4 * b * h * s * s * dh
     entry("packed_attention", "packed_attention.cu", 796,
           main_launches["packed_attention"] + tiny_launches["packed_attention"]
           + vitb_launches["packed_attention"] + fam_total["packed_attention"],
-          errs[("packed", "vitb16@224 B32 S197", "bfloat16")], shape,
-          cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv, h)),
-          cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h)),
+          max(v for k_, v in errs.items() if k_[0] == "packed_path"), shape,
+          p_ms, cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h)),
           cuda_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv)),
-          4 * io_bytes + b * s * h * 4, 4 * b * h * s * s * dh,
-          dropout_ms=cuda_ms(lambda: fa.packed_flash_attention_fwd(
-              qkv, h, dropout_rate=rate, seed=seed)))
+          4 * io_bytes + b * s * h * 4, p_flops,
+          tflops=p_flops / p_ms / 1e9, dropout_ms=p_drop_ms,
+          dropout_tflops=p_flops / p_drop_ms / 1e9,
+          dropout_library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+              qv, kv, vv, dropout_p=rate)),
+          s192_ms=cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv192, h)),
+          fp32_ms=cuda_ms(lambda: fa.packed_flash_attention_fwd(
+              qkv.float(), h)))
     log(f"  x12 layers = {12 * kernels[-1]['ms']:.3f} ms of the {fwd_ms:.3f} "
         f"ms serving forward; with dropout x12 = "
         f"{12 * kernels[-1]['dropout_ms']:.3f} ms of the {train_fwd_ms:.3f} ms "
-        "training forward")
+        f"training forward; S 192 (3 whole tiles a side) "
+        f"{kernels[-1]['s192_ms']:.4f} ms against S 197's {p_ms:.4f} (4 tiles "
+        f"a side, {197 ** 2 / 256 ** 2:.3f} of the tile work live)")
+    del qkv192
     bwd_args = (qkv, do, out, lse, h)
     bwd_kw = dict(dropout_rate=rate, seed=seed)
     entry("packed_attention_bwd", "packed_attention.cu", 833,
@@ -3118,23 +3312,32 @@ def main() -> int:
         """x read, W read, out written (bf16); gamma, beta, bias (fp32)."""
         return (r * d + d * n + r * n) * 2 + (2 * d + n) * 4
 
+    l_ms = cuda_ms(lambda: fdense.ln_dense_fwd(*qkv_in))
+    l_gelu_ms = cuda_ms(lambda: fdense.ln_dense_fwd(*fc1_in, **gelu))
+    x_, g_, b_, w_, bias_ = qkv_in
+    w_t = w_.t().contiguous().t()  # torch's (out, in) weight, transposed
     entry("ln_dense", "ln_dense.cu", 72, ln_chain_launches["ln_dense"],
           max(v for k, v in errs.items() if k[0] == "ln_dense"
               and k[-1] == "bfloat16"),
-          f"R{r} D{d} N2304 [ln_1 + QKV]",
-          cuda_ms(lambda: fdense.ln_dense_fwd(*qkv_in)),
+          f"R{r} D{d} N2304 [ln_1 + QKV]", l_ms,
           cuda_ms(lambda: fdense.ln_dense_reference(*qkv_in)),
           cuda_ms(lambda: base_ln_dense(*qkv_in)),
           ln_bytes(2304), 2 * r * d * 2304,
           replaces="vision_transformers_tpu/ops/fused_dense.py",
-          fc1_gelu_ms=cuda_ms(lambda: fdense.ln_dense_fwd(*fc1_in, **gelu)),
+          tflops=2 * r * d * 2304 / l_ms / 1e9,
+          out_in_ms=cuda_ms(lambda: fdense.ln_dense_fwd(x_, g_, b_, w_t,
+                                                        bias_)),
+          fp32_ms=cuda_ms(lambda: fdense.ln_dense_fwd(
+              x_.float(), g_, b_, w_.float(), bias_)),
+          fc1_gelu_ms=l_gelu_ms,
+          fc1_gelu_tflops=2 * r * d * 3072 / l_gelu_ms / 1e9,
           fc1_gelu_plain_ms=cuda_ms(lambda: fdense.ln_dense_reference(
               *fc1_in, **gelu)),
           fc1_gelu_library_ms=cuda_ms(lambda: base_ln_dense(*fc1_in, **gelu)),
           fc1_gelu_bound_ms=bound_ms(ln_bytes(3072), 2 * r * d * 3072,
                                      "bfloat16")[0],
           chain_fused_ms=chain_ms["fused"], chain_base_ms=chain_ms["base"])
-    del qkv_in, fc1_in
+    del qkv_in, fc1_in, x_, w_, w_t
 
     # the fused attention sub-block at ViT-B/16 @224, batch 32, beside bucket
     # 1 and T2T-ViT-14's 6 heads; the library chain is LN -> F.linear ->

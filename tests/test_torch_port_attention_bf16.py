@@ -18,6 +18,12 @@ rounding point (rounding P after P·V, or not rounding ds) flips many more
 of them by a step at these shapes, and fails every case here, while the two
 packages agree bit for bit here. The fp32 lse: 1e-5.
 
+The packed forward (row 1, ``csrc/packed_attention.cu``) runs on the same
+tensor-core tile in bf16 and rounds the unnormalised probabilities before
+P·V, as ``_packed_fwd_kernel`` does: its plain version is held against
+``_packed_fwd`` here in bf16 the same way, at rate 0 (the interpreter has
+no TPU PRNG), with trailing keys past ``kv_valid``.
+
 The masked streaming forward (row 3, ``csrc/flash_attention_large.cu``) on
 the tensor cores rounds the unnormalised probabilities before P·V, as
 ``_large_kernel`` does: its plain version is held against
@@ -210,6 +216,27 @@ def test_large_reference_matches_jax_kernel_in_bf16(b, h, sq, sk, d,
     _close(got.reshape(g, sq, d), _np(want)[:, :sq])
     np.testing.assert_allclose(_np(got_lse).reshape(g, sq),
                                _np(want_lse)[:, :sq, 0], atol=LSE_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
+    (2, 24, 2, 16, 19),
+    (2, 33, 3, 32, 29),    # ragged S
+    (1, 40, 2, 32, 37),
+])
+def test_packed_reference_matches_jax_kernel_in_bf16(b, s, heads, dh,
+                                                     kv_valid):
+    """``packed_flash_attention_reference`` against ``_packed_fwd_kernel``
+    (through ``_packed_fwd``), both in bf16 at rate 0, keys >= kv_valid
+    hidden: out (B, S, H·dh) and the fp32 lse (B, S, H)."""
+    jqkv, tqkv = _pair(_randn(40, b, s, 3 * heads * dh))
+    want, want_lse = jfa._packed_fwd(jqkv, heads, dh ** -0.5,
+                                     kv_valid=kv_valid)
+    got, got_lse = tfa.packed_flash_attention_reference(tqkv, heads,
+                                                        kv_valid=kv_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, heads * dh)
+    _close(got, want)
+    np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=LSE_ATOL,
                                rtol=0)
 
 

@@ -111,3 +111,21 @@ def test_cpu_wrapper_counts_no_launch_and_checks_its_arguments():
         tfd.ln_dense(x, g, b, w, activation="relu")
     with pytest.raises(ValueError, match="needs gamma"):
         tfd.ln_dense(x, g, b, w.t())
+
+
+@pytest.mark.parametrize("dtype,d,n,layout,route", [
+    (torch.bfloat16, 768, 2304, "in_out", "tensor_cores"),  # [ln_1 + QKV]
+    (torch.bfloat16, 768, 3072, "out_in", "tensor_cores"),  # torch's weight
+    (torch.bfloat16, 40, 64, "out_in", "tensor_cores"),
+    (torch.bfloat16, 96, 70, "in_out", "cuda_cores"),       # N % 8 != 0
+    (torch.bfloat16, 100, 64, "out_in", "cuda_cores"),      # D % 8 != 0
+    (torch.float32, 768, 2304, "in_out", "cuda_cores"),
+    (torch.float32, 768, 3072, "out_in", "cuda_cores"),
+])
+def test_ln_dense_route_rule(dtype, d, n, layout, route):
+    """Which CUDA launches take the tensor-core kernel: bf16 with D, N and
+    W's leading stride multiples of 8, in either weight layout; everything
+    else the CUDA-core kernel."""
+    w = torch.empty(d, n) if layout == "in_out" else torch.empty(n, d).t()
+    ldk, ldn = tfa._weight_strides("w", w)
+    assert tfd.ln_dense_route(dtype, d, n, ldk, ldn) == route

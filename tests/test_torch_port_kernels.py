@@ -29,12 +29,12 @@ def cuda():
 
 
 # fp32: summation order only. bf16: the plain version rounds the
-# probabilities to bf16 before PV (as the TPU kernel does); the packed
-# kernel keeps them fp32, the tensor-core kernels of rows 2 and 5 round them
-# before they normalise, not after, and row 3's rounds them where its plain
-# version does (unnormalised); plus one rounding of the output, one bf16
-# step of 1.6e-2 at |out| 2-4 (which the tensor-core kernel reaches at D 64
-# with a bias).
+# probabilities to bf16 before PV (as the TPU kernel does); the tensor-core
+# kernels of rows 2 and 5 round them before they normalise, not after, and
+# those of rows 1 and 3 round them where their plain versions do
+# (unnormalised), against a running max where the plain versions take the
+# row's; plus one rounding of the output, one bf16 step of 1.6e-2 at |out|
+# 2-4 (which the tensor-core kernel reaches at D 64 with a bias).
 _KERNEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # The bf16 kernels of rows 3 and 5 at Sk >= 1000, where |out| stays well
 # below 1, times max(1, max|ref|): summation order and one bf16 rounding of
@@ -48,19 +48,33 @@ def _fwd_tol(dtype, sk, ref):
     return _KERNEL_TOL[dtype]
 
 
+def _nan_filled(b, s, heads, dh, dtype, cuda):
+    """out and lse of a packed forward, filled with NaN: every element the
+    kernel leaves unwritten shows."""
+    return dict(out=torch.full((b, s, heads * dh), float("nan"), dtype=dtype,
+                               device=cuda),
+                lse=torch.full((b, s, heads), float("nan"), device=cuda))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
-    (2, 197, 12, 64, None), (2, 208, 12, 64, 197), (3, 49, 3, 32, None),
-    (1, 33, 2, 16, 30)])
+    (2, 197, 12, 64, None), (32, 197, 12, 64, None),  # ViT-B/16 @224
+    (2, 208, 12, 64, 197), (3, 49, 3, 32, None), (2, 197, 6, 32, 190),
+    (1, 33, 2, 16, 30), (2, 130, 4, 16, None)])
 def test_packed_kernel_matches_plain(cuda, dtype, b, s, heads, dh, kv_valid):
     qkv = torch.from_numpy(_randn(22, b, s, 3 * heads * dh)).to(cuda, dtype)
-    out, lse = tfa.packed_flash_attention_fwd(qkv, heads, kv_valid=kv_valid)
+    out, lse = tfa.packed_flash_attention_fwd(
+        qkv, heads, kv_valid=kv_valid,
+        **_nan_filled(b, s, heads, dh, dtype, cuda))
     ref, ref_lse = tfa.packed_flash_attention_reference(qkv, heads,
                                                         kv_valid=kv_valid)
     torch.cuda.synchronize()
+    assert not bool(out.isnan().any()) and not bool(lse.isnan().any())
     assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+    again = tfa.packed_flash_attention_fwd(qkv, heads, kv_valid=kv_valid)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 # Shapes of the split-head kernels: (Sq, Sk, kv_valid, D). Sk 49 is below
@@ -114,25 +128,31 @@ def _grad_close(got, ref, dtype, tol=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
-    (2, 197, 12, 64, None), (2, 208, 12, 64, 197), (4, 65, 4, 64, None),
+    (2, 197, 12, 64, None), (32, 197, 12, 64, None),  # ViT-B/16 @224
+    (2, 208, 12, 64, 197), (4, 65, 4, 64, None), (2, 197, 6, 32, 190),
     (1, 33, 2, 16, 30)])
 def test_packed_dropout_and_backward_match_plain(cuda, dtype, rate, b, s,
                                                  heads, dh, kv_valid):
     qkv = torch.from_numpy(_randn(27, b, s, 3 * heads * dh)).to(cuda, dtype)
     do = torch.from_numpy(_randn(28, b, s, heads * dh)).to(cuda, dtype)
     kw = dict(dropout_rate=rate, seed=1234 + (7 << 40), kv_valid=kv_valid)
-    out, lse = tfa.packed_flash_attention_fwd(qkv, heads, **kw)
+    out, lse = tfa.packed_flash_attention_fwd(
+        qkv, heads, **kw, **_nan_filled(b, s, heads, dh, dtype, cuda))
     ref, ref_lse = tfa.packed_flash_attention_reference(qkv, heads, **kw)
+    again = tfa.packed_flash_attention_fwd(qkv, heads, **kw)
+    assert not bool(out.isnan().any()) and not bool(lse.isnan().any())
     assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
-    # both backwards from the same (out, lse), so only the backward differs
-    dqkv = tfa.packed_flash_attention_bwd(qkv, do, ref, ref_lse, heads, **kw)
-    dref = tfa.packed_flash_attention_bwd_reference(qkv, do, ref, ref_lse,
-                                                    heads, **kw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    # both backwards from the kernel's (out, lse), so only the backward
+    # differs: the CUDA-core backward replays the forward's mask
+    dqkv = tfa.packed_flash_attention_bwd(qkv, do, out, lse, heads, **kw)
+    dref = tfa.packed_flash_attention_bwd_reference(qkv, do, out, lse, heads,
+                                                    **kw)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dqkv.float()).all())
     assert _grad_close(dqkv, dref, dtype)
-    again = tfa.packed_flash_attention_bwd(qkv, do, ref, ref_lse, heads, **kw)
+    again = tfa.packed_flash_attention_bwd(qkv, do, out, lse, heads, **kw)
     assert torch.equal(dqkv, again)  # no atomics: equal from run to run
 
 
@@ -302,6 +322,15 @@ def test_bf16_kernels_refuse_misaligned_operands(cuda):
         tfa.flash_attention_large_fwd(q, k, k)
     with pytest.raises(RuntimeError, match="misaligned"):
         tfa.flash_attention_large_fwd(k, k, k, out=q)
+    qkv = torch.zeros(b * s * 96 + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(b, s, 96)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.packed_flash_attention_fwd(qkv, 2)
+    x = base[1:1 + s * 64].view(s, 64)
+    ones = torch.ones(64, device=cuda)
+    w = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfd.ln_dense_fwd(x, ones, ones, w)
 
 
 @pytest.mark.cuda
@@ -857,11 +886,17 @@ def test_fused_block_gradients_match_autograd_of_plain(cuda):
         assert (g - r).abs().max().item() <= 5e-5 * scale
 
 
+# Row 14's cases: in bf16 the tensor-core kernel (D and N multiples of 8;
+# 128 × 128 tiles, 32-wide k steps) but for the N 70 case, which takes the
+# CUDA-core kernel by ln_dense_route; fp32 the CUDA-core kernel throughout.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d,n,activation,with_bias", [
     (394, 768, 2304, None, True),         # [ln_1 + QKV], ViT-B, 2 images
     (394, 768, 3072, "gelu_tanh", True),  # [ln_2 + fc1 + GELU]
+    (6301, 768, 2312, None, False),       # ragged R and N, no bias
+    (6301, 768, 200, "gelu_tanh", False),
+    (130, 72, 136, "gelu_erf", True),     # D not a multiple of 32
     (101, 96, 70, "gelu_erf", False),     # ragged rows and columns, no bias
     (7, 40, 64, None, False)])
 def test_ln_dense_kernel_matches_plain(cuda, dtype, rows, d, n, activation,

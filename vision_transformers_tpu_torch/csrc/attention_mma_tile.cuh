@@ -1,18 +1,21 @@
 // Tensor-core building blocks of the bf16 attention kernels, and the bf16
 // split-head forward body on them.
 //
-// attend_rows_mma replaces, for bf16 inputs, three TPU kernels of
+// attend_rows_mma replaces, for bf16 inputs, four TPU kernels of
 // vision_transformers_tpu/ops/flash_attention.py (rows of PERF.md's kernel
-// table), by its two compile-time parameters, a key-mask policy and a
-// dropout flag:
+// table), by its compile-time parameters, a key-mask policy, a dropout flag
+// and a row layout:
 //   - row 2, _attn_kernel (:75), through flash_attention.cu:
 //     <D, NoMask, false>, with an optional fp32 bias;
 //   - row 3, _large_kernel (:229), through flash_attention_large.cu:
 //     <D, ReplaceByte, false>, a uint8 keep byte per key;
 //   - row 5, _drop_fwd_kernel (:491), through dropout_attention.cu:
-//     <D, AddFloat, true>, an fp32 value per key and dropout.
+//     <D, AddFloat, true>, an fp32 value per key and dropout;
+//   - row 1, _packed_fwd_kernel (:796), through packed_attention.cu:
+//     <D, NoMask, kDrop, Strided>, q, k and v read in place from the packed
+//     (B, S, 3·H·dh) projection, out and lse written in place.
 // fp32 inputs keep attend_rows (attention_tile.cuh) and flash_large_kernel,
-// and so do rows 1 and 8 in every dtype.
+// and so does row 8 in every dtype.
 //
 // What bounds it on the H100: at ViT-B/16 @512 (G 96, S 1025, D 64) the
 // kernel does 4·G·S²·D = 25.8 GFLOP against 50 MB of q/k/v/out, 26 µs of
@@ -72,7 +75,10 @@
 //     2 148, 141 and 110 registers, 36-12 KB of shared memory, 3, 3 and 4
 //     blocks of 128 threads an SM; row 3 128 (asked for at D 64, 32 bytes of
 //     stack), 156 and 111 registers, 37-12 KB, 4, 3 and 4 blocks; row 5 128
-//     (16 bytes of stack), 164 and 126 registers, 37-13 KB, 4, 3 and 4.
+//     (16 bytes of stack), 164 and 126 registers, 37-13 KB, 4, 3 and 4; row
+//     1 144, 142 and 123 registers at rate 0 and 165, 187 and 139 with
+//     dropout, 36-12 KB, 3, 3 and 4 blocks at rate 0 and 3, 2 and 3 with
+//     dropout.
 //
 // Numerics (the contract of attention_tile.cuh): fp32 scores·scale, then
 // (NoMask) the fp32 bias; keys >= kv_valid REPLACED by -0.7·FLT_MAX; then
@@ -101,9 +107,10 @@
 // and 5 round p (row 5: p·(1/(1 − rate))) unnormalised and divide at the
 // end: within one bf16 step of their plain versions, not bit-equal.
 //
-// Contract of the caller: bf16 operands, contiguous (G, S, D) groups with D
-// in {16, 32, 64}, every base pointer 16-byte aligned (the C entry points
-// check this and refuse the launch otherwise), kv_valid >= 1.
+// Contract of the caller: bf16 operands with D in {16, 32, 64}, in
+// contiguous (G, S, D) groups (Contiguous) or at row strides that are
+// multiples of 8 elements (Strided), every base pointer 16-byte aligned (the
+// C entry points check this and refuse the launch otherwise), kv_valid >= 1.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,12 +193,13 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// Rows [row0, row0 + kCols) of a (n, D) bf16 matrix into shared memory with
-// row stride D + 8; rows >= n are zero-filled. One cp.async group's worth;
-// the caller commits.
+// Rows [row0, row0 + kCols) of an (n, D) bf16 matrix whose rows lie
+// `stride` elements apart (a multiple of 8) into shared memory with row
+// stride D + 8; rows >= n are zero-filled. One cp.async group's worth; the
+// caller commits.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
-                                          int n) {
+                                          int n, int stride = D) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
 #pragma unroll
   for (int i = 0; i < kCols * kChunks / kThreads; ++i) {
@@ -200,16 +208,17 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
     const int gr = row0 + r;
     const bool in = gr < n;
     cp_async_16(s + r * (D + 8) + c * 8,
-                g + static_cast<long long>(in ? gr : 0) * D + c * 8, in);
+                g + static_cast<long long>(in ? gr : 0) * stride + c * 8, in);
   }
 }
 
-// The A fragments (16 rows × D) of rows row[0] = r, row[1] = r + 8 of a
-// (n, D) bf16 matrix, read from device memory; rows >= n are zero.
+// The A fragments (16 rows × D) of rows row[0] = r, row[1] = r + 8 of an
+// (n, D) bf16 matrix whose rows lie `stride` elements apart, read from
+// device memory; rows >= n are zero.
 template <int D>
 __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
                                              const bf16* p, const int (&row)[2],
-                                             int n) {
+                                             int n, int stride = D) {
   const int tq = threadIdx.x & 3;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -218,7 +227,7 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
       const int r = row[j & 1];
       const int c = kk * 16 + (j >> 1) * 8 + 2 * tq;
       f[kk][j] = r < n ? *reinterpret_cast<const uint32_t*>(
-                             p + static_cast<long long>(r) * D + c)
+                             p + static_cast<long long>(r) * stride + c)
                        : 0u;
     }
 }
@@ -293,6 +302,26 @@ template <int D>
 __host__ __device__ constexpr int fwd_m() { return D == 64 ? 1 : 2; }
 template <int D>
 __host__ __device__ constexpr int fwd_rows() { return 64 * fwd_m<D>(); }
+
+// Where the forward's rows lie: q, k and v rows qkv() elements apart, out
+// rows o() apart, lse entries lse() apart. Contiguous (rows 2, 3, 5): (G, S,
+// D) groups, the strides compile-time constants, so that these
+// instantiations keep the code they had before the layout was a parameter.
+// Strided (row 1): rows of the packed (B, S, 3·H·dh) projection, 3·H·dh
+// apart, out rows H·dh apart in (B, S, H·dh), lse H apart in (B, S, H).
+template <int D>
+struct Contiguous {
+  __device__ static constexpr int qkv() { return D; }
+  __device__ static constexpr int o() { return D; }
+  __device__ static constexpr int lse() { return 1; }
+};
+
+struct Strided {
+  int qkv_stride, o_stride, lse_stride;
+  __device__ int qkv() const { return qkv_stride; }
+  __device__ int o() const { return o_stride; }
+  __device__ int lse() const { return lse_stride; }
+};
 
 // How the forward hides keys besides kv_valid (the mask is one row per
 // group, the same for each of its query rows).
@@ -379,21 +408,22 @@ __device__ __forceinline__ void store_tile_mask(uint32_t* keep, float* add_s,
   }
 }
 
-// Rows [q0, q0 + fwd_rows<D>()) of one group: out (bf16, row stride D) and
-// lse (fp32, one per row). bias: this group's fp32 (Sq, Sk) slice, or null
+// Rows [q0, q0 + fwd_rows<D>()) of one group: out (bf16) and lse (fp32, one
+// per row), at lay's strides, as q, k and v are read. bias: this group's fp32 (Sq, Sk) slice, or null
 // (NoMask only). kmask: this group's mask row (uint8 for ReplaceByte, fp32
 // for AddFloat), or null. kDrop: dropout by drop's keep bits of
 // (rng_group, row, column), at drop.thresh != 0. tile_counts (masked
 // policies; may be null): thread 0 adds the key tiles this block walks to
 // [0] and the key tiles of its rows to [1].
-template <int D, KeyMask kMask = KeyMask::NoMask, bool kDrop = false>
+template <int D, KeyMask kMask = KeyMask::NoMask, bool kDrop = false,
+          class Layout = Contiguous<D>>
 __device__ __forceinline__ void attend_rows_mma(
     int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk,
     int kv_valid, float scale, const void* __restrict__ kmask = nullptr,
     Dropout drop = Dropout{}, uint32_t rng_group = 0u,
-    unsigned long long* tile_counts = nullptr) {
+    unsigned long long* tile_counts = nullptr, Layout lay = Layout{}) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   constexpr bool kMasked = kMask != KeyMask::NoMask;
   constexpr int S = D + 8;
@@ -419,8 +449,8 @@ __device__ __forceinline__ void attend_rows_mma(
     row[m][1] = row[m][0] + 8;
   }
 
-  load_tile<D>(ks[0], k, 0, sk);
-  load_tile<D>(vs[0], v, 0, sk);
+  load_tile<D>(ks[0], k, 0, sk, lay.qkv());
+  load_tile<D>(vs[0], v, 0, sk, lay.qkv());
   cp_async_commit();
   // The key tiles walked: all of them, or (masked policies) tiles 0 .. the
   // last one that holds a key < kv_valid the mask attends. Skipping the
@@ -448,7 +478,8 @@ __device__ __forceinline__ void attend_rows_mma(
   }                                                         // the 1st barrier
   uint32_t qf[M][D / 16][4];
 #pragma unroll
-  for (int m = 0; m < M; ++m) load_a_frags<D>(qf[m], q, row[m], sq);
+  for (int m = 0; m < M; ++m)
+    load_a_frags<D>(qf[m], q, row[m], sq, lay.qkv());
 
   float acc[M][D / 8][4];
   float mr[M][2], l[M][2];  // running max; this lane's share of the row sums
@@ -465,8 +496,8 @@ __device__ __forceinline__ void attend_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk);
-      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk);
+      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv());
+      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv());
       cp_async_commit();
       if constexpr (kMasked)
         fetch_tile_mask<kMask>(raw, add, kmask, t + 1, sk, kv_valid);
@@ -600,10 +631,10 @@ __device__ __forceinline__ void attend_rows_mma(
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(
-            o + static_cast<long long>(r) * D + n * 8 + 2 * tq) =
+            o + static_cast<long long>(r) * lay.o() + n * 8 + 2 * tq) =
             __floats2bfloat162_rn(acc[m][n][2 * i] / li,
                                   acc[m][n][2 * i + 1] / li);
-      if (tq == 0) lse[r] = mr[m][i] + logf(li);
+      if (tq == 0) lse[r * lay.lse()] = mr[m][i] + logf(li);
     }
 }
 

@@ -19,14 +19,30 @@
 // 3.35 TB/s. The backward at the same shape: 10·B·H·S²·dh = 9.5 GFLOP,
 // 9.6 µs, against qkv, do and out read and dqkv written, 77.5 MB plus the
 // lse, 23 µs. So both are bound by memory: they must read their inputs once
-// and keep the S×S scores on chip. This design keeps them on chip (32×32
-// fp32 tiles in shared memory) but computes with fp32 FMAs on the CUDA
-// cores, far below the tensor-core rate, so it is compute-limited in
-// practice; each block re-reads its group's other operands (L2-resident).
-// Forward grid: x = B·H groups, y = ceil(S / 32) query tiles. Backward: the
-// two passes of attention_bwd_tile.cuh, each with the same grid (its y
-// counts query tiles, then key tiles). 128 threads per block.
+// and keep the S×S scores on chip. Two forward routes, by dtype:
+//   bf16: packed_fwd_mma_kernel on attention_mma_tile.cuh's attend_rows_mma
+//     with the Strided layout (q, k and v rows 3·H·dh apart, out rows H·dh
+//     apart, lse H apart), so the tensor-core tile of rows 2, 3 and 5 reads
+//     the projection and writes out and lse in place; <D, NoMask, false> at
+//     rate 0, <D, NoMask, true> (dropout_keep4's bits, one Philox call per
+//     four probabilities) at rate > 0. Grid: x = B·H groups, y = ceil(S /
+//     128) (dh 16, 32) or ceil(S / 64) (dh 64); 128 threads. At S 197 the
+//     last 64-key tile holds 5 live keys, computed and masked by index. The
+//     qkv and out pointers must be 16-byte aligned (checked here): K and V
+//     stream by 16-byte cp.async.
+//   fp32: packed_fwd_kernel on attend_rows (attention_tile.cuh), fp32 FMAs
+//     on the CUDA cores, 32 × 32 tiles in shared memory; grid x = B·H,
+//     y = ceil(S / 32), 128 threads; each block re-reads its group's other
+//     operands (L2-resident).
+// Backward, in both dtypes: the two passes of attention_bwd_tile.cuh on the
+// CUDA cores, each with the forward's fp32 grid (its y counts query tiles,
+// then key tiles), replaying either route's mask: both take the keep bit of
+// (b·H + h, row, column) from philox.cuh.
+#include <cstdint>
+#include <type_traits>
+
 #include "attention_bwd_tile.cuh"
+#include "attention_mma_tile.cuh"
 
 namespace {
 
@@ -57,6 +73,25 @@ packed_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                          out + g.unpacked(), g.hd,
                          lse + g.lse(), heads,
                          s, s, kv_valid, scale, drop, blockIdx.x);
+}
+
+// rate 0 (kDrop false) and rate > 0 (kDrop true); both take drop, the first
+// ignores it.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int s, int heads, int kv_valid,
+                      float scale, vtt::Dropout drop) {
+  const PackedGroup<__nv_bfloat16, D> g(s, heads);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::NoMask, kDrop,
+                            vtt::mma::Strided>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q, q + g.hd, q + 2 * g.hd,
+      nullptr, out + g.unpacked(), lse + g.lse(), s, s, kv_valid, scale,
+      nullptr, drop, blockIdx.x, nullptr,
+      vtt::mma::Strided{static_cast<int>(3 * g.hd), static_cast<int>(g.hd),
+                        heads});
 }
 
 template <typename T, int D>
@@ -108,12 +143,28 @@ struct Args {
 
 template <typename T, int D>
 int launch_fwd(const Args& a) {
-  const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
-  packed_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.qkv),
-      static_cast<T*>(const_cast<void*>(a.out)),
-      static_cast<float*>(const_cast<void*>(a.lse)), a.s, a.heads,
-      a.kv_valid, a.scale, a.drop);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr int rows = vtt::mma::fwd_rows<D>();
+    const dim3 grid(a.b * a.heads, (a.s + rows - 1) / rows);
+    const auto* qkv = static_cast<const T*>(a.qkv);
+    auto* out = static_cast<T*>(const_cast<void*>(a.out));
+    auto* lse = static_cast<float*>(const_cast<void*>(a.lse));
+    if (a.drop.thresh != 0u)
+      packed_fwd_mma_kernel<D, true><<<grid, vtt::mma::kThreads, 0,
+                                       a.stream>>>(
+          qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop);
+    else
+      packed_fwd_mma_kernel<D, false><<<grid, vtt::mma::kThreads, 0,
+                                        a.stream>>>(
+          qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop);
+  } else {
+    const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
+    packed_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.qkv),
+        static_cast<T*>(const_cast<void*>(a.out)),
+        static_cast<float*>(const_cast<void*>(a.lse)), a.s, a.heads,
+        a.kv_valid, a.scale, a.drop);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,11 +208,16 @@ extern "C" {
 
 // Each returns 0 or the cudaError_t of a launch. is_bf16: 1 = bf16, 0 = fp32.
 // drop_thresh = min(int(rate·2^32), 2^32 − 1), 0 for no dropout;
-// inv_keep = 1/(1 − rate); seed: the mask's 64-bit seed.
+// inv_keep = 1/(1 − rate); seed: the mask's 64-bit seed. The forward refuses
+// a bf16 qkv or out that is not 16-byte aligned (cudaErrorMisalignedAddress):
+// the tensor-core route reads K and V with 16-byte copies.
 int packed_attention_fwd(const void* qkv, void* out, void* lse, int b, int s,
                          int heads, int dh, int kv_valid, float scale,
                          int is_bf16, unsigned int drop_thresh, float inv_keep,
                          unsigned long long seed, void* stream) {
+  if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(qkv) |
+                   reinterpret_cast<std::uintptr_t>(out)) & 15u))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{qkv, nullptr, out, lse, nullptr, nullptr, b, s, heads, kv_valid,
                scale, vtt::make_dropout(drop_thresh, inv_keep, seed),
                static_cast<cudaStream_t>(stream)};

@@ -109,6 +109,10 @@ _SIGNATURES = {
     "ln_dense": {
         "ln_dense_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _I, _I, _I, _F, _I, _I,
                                          _P]),
+        # (x, gamma, beta, w, ldk, ldn, bias, out, stats, rows, d, n, eps,
+        #  act, stream): bf16 only, tensor cores; stats fp32 scratch
+        "ln_dense_mma_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _P, _I, _I, _I,
+                                             _F, _I, _P]),
         "ln_dense_error_string": (ctypes.c_char_p, [_I]),
     },
     # (x, gamma, beta, wqkv, ldk1, ldn1, bqkv, wout, ldk3, ldn3, bout, qkv_ws,

@@ -8,7 +8,9 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   ``_packed_fwd_kernel`` and ``_packed_bwd_kernel``: self attention read in
   place from the packed (B, S, 3·H·dh) QKV projection, with in-kernel
   probability dropout; the backward recomputes the probabilities from
-  (qkv, lse), replays the dropout mask and writes the packed dqkv.
+  (qkv, lse), replays the dropout mask and writes the packed dqkv. For bf16
+  the forward runs on the tensor cores (``csrc/attention_mma_tile.cuh`` with
+  the packed row strides); the backward stays on the CUDA cores.
 - ``flash_dropout_attention`` (``csrc/dropout_attention.cu``) replaces
   ``_drop_fwd_kernel`` and ``_drop_bwd_kernel``: split-head (B, H, S, D)
   attention with dropout, a key-padding mask and Sq != Sk. For bf16 the
@@ -364,8 +366,14 @@ def _attention_bwd_math(q, k, v, do, out, lse, scale, kv_valid, mask_add,
 def packed_flash_attention_fwd(
         qkv: torch.Tensor, heads: int, scale: Optional[float] = None,
         dropout_rate: float = 0.0, seed: Optional[int] = None,
-        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed forward → (out, fp32 lse (B, S, H)); no autograd graph."""
+        kv_valid: Optional[int] = None, *, out: Optional[torch.Tensor] = None,
+        lse: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed forward → (out, fp32 lse (B, S, H)); no autograd graph.
+    ``out`` / ``lse`` (CUDA only): contiguous tensors of those shapes to
+    write into instead of new ones. bf16 runs on the tensor cores
+    (``packed_fwd_mma_kernel``) and needs qkv and out 16-byte aligned, or
+    the launch raises; fp32 on the CUDA cores (``packed_fwd_kernel``)."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if qkv.device.type == "cpu":
@@ -375,8 +383,16 @@ def packed_flash_attention_fwd(
     from vision_transformers_tpu_torch.ops import _build
 
     _check_cuda_operand("qkv", qkv, qkv.dtype, dh)
-    out = torch.empty(b, s, hd, dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty(b, s, heads, dtype=torch.float32, device=qkv.device)
+    if out is None:
+        out = torch.empty(b, s, hd, dtype=qkv.dtype, device=qkv.device)
+    if lse is None:
+        lse = torch.empty(b, s, heads, dtype=torch.float32, device=qkv.device)
+    for name, t, shape, dtype in (("out", out, (b, s, hd), qkv.dtype),
+                                  ("lse", lse, (b, s, heads), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != qkv.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {qkv.device}")
     lib = _build.load("packed_attention")
     with torch.cuda.device(qkv.device):  # launch on the tensor's card
         rc = lib.packed_attention_fwd(

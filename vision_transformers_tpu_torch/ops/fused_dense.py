@@ -7,6 +7,13 @@ rows to device memory: fp32 row statistics, the normalised rows rounded to
 x's dtype, the product accumulated in fp32, the fp32 bias and activation,
 one rounding to x's dtype.
 
+Two routes, by a stated rule (``ln_dense_route``): bf16 with D, N and W's
+leading stride multiples of 8 runs on the tensor cores
+(``ln_dense_mma_kernel``, ``csrc/dense_mma_tile.cuh``, after a short
+launch that writes each row's mean and rstd to a scratch of 8 bytes a row);
+fp32, and bf16 of any other width, on the CUDA cores (``ln_dense_kernel``,
+``csrc/dense_tile.cuh``).
+
 As in the JAX package, ``ln_dense`` is a public op that no model calls (the
 JAX package's ``vanilla_vit.py`` imports only ``fused_attention_block``);
 its gradient is autograd of the plain version, recomputed, as the JAX
@@ -29,6 +36,22 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
 
 # activation name → the kernel's code (csrc/dense_tile.cuh::Activation)
 ACTIVATIONS = {None: 0, "gelu_tanh": 1, "gelu_erf": 2}
+
+
+def ln_dense_route(dtype: torch.dtype, d: int, n: int, ldk: int,
+                   ldn: int) -> str:
+    """The route of a CUDA launch: ``"tensor_cores"`` (``ln_stats_kernel``,
+    then ``ln_dense_mma_kernel``) for bf16 whose D, N and W's leading stride
+    (ldk for the (in, out) layout, ldn = 1; ldn for torch's (out, in) one,
+    ldk = 1) are multiples of 8 — the 16-byte rows the tile's copies need,
+    every width of the repo — else ``"cuda_cores"`` (``ln_dense_kernel``).
+    A shape rule, not a fallback: a launch on the chosen route that fails
+    raises."""
+    lead = ldk if ldn == 1 else ldn
+    if dtype == torch.bfloat16 and d % 8 == 0 and n % 8 == 0 \
+            and lead % 8 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _act(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
@@ -79,9 +102,11 @@ def ln_dense_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                  eps: float = 1e-6, activation: Optional[str] = None,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The forward, no autograd graph: one kernel launch on a CUDA x, the
-    plain version on a CPU one. ``out`` (CUDA only): a contiguous
-    (..., N) tensor of x's dtype to write into instead of a new one."""
+    """The forward, no autograd graph: one kernel launch on a CUDA x (the
+    route of ``ln_dense_route``), the plain version on a CPU one. ``out``
+    (CUDA only): a contiguous (..., N) tensor of x's dtype to write into
+    instead of a new one. On the tensor-core route x, w, out, gamma and
+    beta must be 16-byte aligned, or the launch raises."""
     d, n = _dims(x, gamma, beta, w, bias, activation)
     if x.device.type == "cpu":
         return ln_dense_reference(x, gamma, beta, w, bias, eps=eps,
@@ -110,14 +135,20 @@ def ln_dense_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"out must be a contiguous {shape} {x.dtype} tensor "
                          f"on {x.device}")
     lib = _build.load("ln_dense")
-    with torch.cuda.device(x.device):  # launch on the tensor's card
-        rc = lib.ln_dense_fwd(
-            x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
+    head = (x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
             ldk, ldn, None if bias is None else bias.data_ptr(),
-            out.data_ptr(), x2.shape[0], d, n, float(eps),
-            ACTIVATIONS[activation],
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr())
+    tail = (x2.shape[0], d, n, float(eps), ACTIVATIONS[activation])
+    with torch.cuda.device(x.device):  # launch on the tensor's card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if ln_dense_route(x.dtype, d, n, ldk, ldn) == "tensor_cores":
+            # each row's (mean, rstd), written by the first of two launches
+            stats = torch.empty(x2.shape[0], 2, dtype=torch.float32,
+                                device=x.device)
+            rc = lib.ln_dense_mma_fwd(*head, stats.data_ptr(), *tail, stream)
+        else:
+            rc = lib.ln_dense_fwd(*head, *tail,
+                                  int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, "ln_dense", rc)
     LAUNCHES["ln_dense"] += 1
     return out
