@@ -10,8 +10,9 @@ exit, and without the final result line:
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
    (one ``nvcc`` per source, all in parallel), and the registers, shared
-   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1, 2,
-   3, 5, 8 and 14.
+   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-3,
+   5-8 and 14; the tensor-core kernels of rows 1, 2, 3, 5, 6 and 14 must
+   keep their registers (``KEPT_REGISTERS``).
 2. Kernels against their plain PyTorch versions, on the card, in bf16 and
    fp32, at the shapes the serving and training paths give them; the
    dropout and backward kernels at rate 0 and 0.1 under one seed (so both
@@ -45,17 +46,20 @@ exit, and without the final result line:
    k slice left out) that must exceed its limit, torch's (out, in) weight
    bit-equal to the (in, out) one, and the fused attention sub-block
    (``fused_attention_block``) at ViT-B/16, DeiT-B, T2T-ViT-14 and bucket
-   1, into NaN-filled outputs, twice for equal bits; gradients through both
-   autograd functions in fp32. Rows 1, 2, 3, 5, 6 and 14: bf16 launches go
+   1, into NaN-filled outputs, twice for equal bits, torch's (out, in)
+   weights bit-equal to the (in, out) ones, beside a planted fault (one
+   16-wide k slice of Wout left out); gradients through both autograd
+   functions in fp32. Rows 1, 2, 3, 5, 6, 7, 8 and 14: bf16 launches go
    through the tensor-core kernels and fp32 ones through the CUDA-core
    kernels, by the kernels' names in a ``torch.profiler`` trace (here, and
    on the served ViT-B/16 forward of phase 3, the split-head forward of
-   phase 4, the ViT-B/16 and split-head train steps of phase 6, T2T-ViT_t-14
-   served and the ln_fused chain in phase 6g, and the DETR eval forwards
-   and train steps of phase 7); row 1 in bf16 at the ViT paths' shapes
-   (ViT-B/16 and T2T-ViT-14 at batch 32, vit_tiny at 64; rate 0 and 0.1)
-   into NaN-filled outputs, reruns bit-equal, beside a planted fault (the
-   plain output under the next seed's mask); the bf16
+   phase 4, the ViT-B/16 train step (rows 1 and 7) and the split-head train
+   steps of phase 6, every flag-on forward of the ViT family (row 8) and the
+   ln_fused chain in phase 6g, and the DETR eval forwards and train steps
+   of phase 7); rows 1 and 7 in bf16 at the ViT paths' shapes (ViT-B/16 and
+   T2T-ViT-14 at batch 32, vit_tiny at 64; rate 0 and 0.1) into NaN-filled
+   outputs, reruns bit-equal, beside a planted fault (the plain output, or
+   gradients, under the next seed's mask); the bf16
    kernels at the paths' own shapes (row 2 at the DETR decoder's self
    attention, G 32, S 100, D 32, with and without a bias; row 6 at the DETR
    encoder, G 16, S 4704, D 32, with the key masks of two COCO images at
@@ -87,8 +91,8 @@ exit, and without the final result line:
    fp32, dropout 0.1, a seeded colour-class loader with a ragged last
    batch) for 3 epochs; 3 Adam steps of ViT-B/16 @224 in bf16 at batch 32
    with ``attention_dropout=0.1`` and the step's split into forward,
-   backward and optimizer, and the packed backward (row 7) fed the
-   tensor-core forward's out and lse on the first layer's projection of
+   backward and optimizer, and the tensor-core packed backward (row 7) fed
+   the tensor-core forward's out and lse on the first layer's projection of
    the batch, against its plain version at rate 0.1; one step each with and without dropout of the
    2-layer model at 512 px (the split-head kernels); and fp32 gradients of
    a 2-layer model on the card against the CPU run of the same weights.
@@ -141,9 +145,12 @@ exit, and without the final result line:
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
-   and the PyTorch library call (or chain) for the same function; rows 1
-   and 14 with their TFLOP/s, fp32 route and (row 1) S 192 against S 197,
-   (row 14) torch's weight layout; rows 2, 3, 5 and 6 also at the path
+   and the PyTorch library call (or chain) for the same function; rows 1,
+   7, 8 and 14 with their TFLOP/s, fp32 (row 8: CUDA-core) route and (row 1)
+   S 192 against S 197, (row 14) torch's weight layout; row 8 also its
+   device time in one launch and in four ordered launches of one phase each
+   (the wait at its grid barriers; ``_measure_fused_block_phases``), and
+   rows 14 and 1 alone at its shapes; rows 2, 3, 5 and 6 also at the path
    shapes of phase 2, with their TFLOP/s and SDPA's time (rows 3 and 5 also
    the share of key tiles they skip).
 
@@ -184,13 +191,15 @@ WINDOW_TOL = {"float32": 5e-6, "bfloat16": 2e-2}
 # Gradients of a kernel against its plain version, relative to the largest
 # reference element (gradients grow with S). fp32: summation order and expf
 # against torch.exp. bf16: the plain versions round the probabilities and ds
-# to bf16 before their products, as the TPU kernels do, while the CUDA
-# kernels keep them in fp32; plus one bf16 rounding of the result.
+# to bf16 before their products, as the TPU kernels do, while the CUDA-core
+# kernels (the window backward, row 4) keep them in fp32; plus one bf16
+# rounding of the result.
 GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
-# The bf16 tensor-core backward of row 6 against its plain version, relative
-# to the largest reference element: both round pd and ds to bf16 before their
-# products (as the TPU kernel does), so what is left is summation order and
-# one rounding of the result (up to 3.1e-3 at PVT stage 1 on an H100).
+# The bf16 tensor-core backwards of rows 6 and 7 against their plain
+# versions, relative to the largest reference element: both round pd and ds
+# to bf16 before their products (as the TPU kernels do), so what is left is
+# summation order and one rounding of the result (up to 3.1e-3 at PVT stage
+# 1 on an H100).
 MMA_GRAD_TOL = 5e-3
 # The bf16 kernels of rows 3 and 5 against their plain versions at the
 # paths' shapes (Sk in the thousands, so |out| stays well below 1), times
@@ -200,15 +209,22 @@ MMA_GRAD_TOL = 5e-3
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
 # Substrings of the CUDA kernels' names that tell the routes of rows 1, 2,
-# 3, 5, 6 and 14 apart in a profile (csrc/packed_attention.cu,
+# 3, 5, 6, 7, 8 and 14 apart in a profile (csrc/packed_attention.cu,
 # csrc/flash_attention.cu, csrc/flash_attention_large.cu,
-# csrc/dropout_attention.cu, csrc/ln_dense.cu): bf16 on the tensor cores,
-# fp32 on the CUDA cores (row 14 by ops/fused_dense.py::ln_dense_route, its
-# tensor-core route after the statistics launch; every bf16 width of the
-# repo takes the tensor cores). No name is a substring of another.
+# csrc/dropout_attention.cu, csrc/fused_block.cu, csrc/ln_dense.cu): bf16 on
+# the tensor cores, fp32 on the CUDA cores (row 14 by
+# ops/fused_dense.py::ln_dense_route, its tensor-core route after the
+# statistics launch, and row 8 by ops/flash_attention.py::fused_block_route;
+# every bf16 width and weight layout of the repo's models takes the tensor
+# cores). No name is a substring of another.
 ROUTE_NAMES = {
     ("row 1", "bfloat16"): ("packed_fwd_mma_kernel",),
     ("row 1", "float32"): ("packed_fwd_kernel",),
+    ("row 7", "bfloat16"): ("packed_bwd_dq_mma_kernel",
+                            "packed_bwd_dkv_mma_kernel"),
+    ("row 7", "float32"): ("packed_bwd_dq_kernel", "packed_bwd_dkv_kernel"),
+    ("row 8", "bfloat16"): ("fused_block_mma_kernel",),
+    ("row 8", "float32"): ("fused_block_kernel",),
     ("row 14", "bfloat16"): ("ln_stats_kernel", "ln_dense_mma_kernel"),
     ("row 14", "float32"): ("ln_dense_kernel",),
     ("row 2", "bfloat16"): ("flash_fwd_mma_kernel",),
@@ -472,6 +488,31 @@ def kernel_names(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+def queued_ms(fns, reps: int = 10):
+    """Device ms of each of ``fns`` (each a call that launches a few
+    kernels), by CUDA events recorded around it while the stream is kept
+    full: a ``torch.cuda._sleep`` kernel ahead of them holds the card while
+    the host enqueues every call, so no host gap falls between an event
+    pair. Mean of ``reps`` rounds."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    ev = [[(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in fns]
+          for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    for row in ev:
+        for (start, end), f in zip(row, fns):
+            start.record()
+            f()
+            end.record()
+    torch.cuda.synchronize()
+    return [float(np.mean([row[i][0].elapsed_time(row[i][1]) for row in ev]))
+            for i in range(len(fns))]
+
+
 def require_route(label, fn, routes):
     """Calls of ``fn`` launch, for each (row, dtype) of ``routes``, the
     kernels of ROUTE_NAMES[(row, dtype)] and none of that row's other
@@ -525,10 +566,41 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
-# The sources of rows 1, 2, 3, 5, 8 and 14, whose kernels' registers and
-# shared memory phase 1 prints.
+# The sources of rows 1-3, 5-8 and 14, whose kernels' registers and shared
+# memory phase 1 prints.
 PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
                  "dropout_attention", "fused_block", "ln_dense")
+# The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the tensor-core
+# kernels of rows 1, 2, 3, 5, 6 and 14, the same as before rows 7 and 8 moved
+# onto their tiles: the tiles' new parameters (a row layout and a dropout flag
+# for the backward, a thread policy for the forward) default to the old code,
+# and phase 1 checks that they still do.
+KEPT_REGISTERS = {
+    "packed_fwd_mma_kernel<16, false>": 123,
+    "packed_fwd_mma_kernel<16, true>": 139,
+    "packed_fwd_mma_kernel<32, false>": 142,
+    "packed_fwd_mma_kernel<32, true>": 187,
+    "packed_fwd_mma_kernel<64, false>": 144,
+    "packed_fwd_mma_kernel<64, true>": 165,
+    "flash_fwd_mma_kernel<16>": 110,
+    "flash_fwd_mma_kernel<32>": 141,
+    "flash_fwd_mma_kernel<64>": 148,
+    "flash_large_mma_kernel<16>": 111,
+    "flash_large_mma_kernel<32>": 156,
+    "flash_large_mma_kernel<64>": 128,
+    "drop_fwd_mma_kernel<16>": 126,
+    "drop_fwd_mma_kernel<32>": 164,
+    "drop_fwd_mma_kernel<64>": 128,
+    "drop_bwd_dq_mma_kernel<16>": 96,
+    "drop_bwd_dq_mma_kernel<32>": 125,
+    "drop_bwd_dq_mma_kernel<64>": 168,
+    "drop_bwd_dkv_mma_kernel<16>": 96,
+    "drop_bwd_dkv_mma_kernel<32>": 128,
+    "drop_bwd_dkv_mma_kernel<64>": 168,
+    "ln_dense_mma_kernel<false>": 128,
+    "ln_dense_mma_kernel<true>": 128,
+    "ln_stats_kernel": 32,
+}
 
 
 def ptxas_usage(build_log):
@@ -859,11 +931,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = _build.build()
     log(f"kernel build: {build_s:.2f} s for {list(_build.KERNELS)}")
+    kept = {}
     for src, kernel, regs, smem, spill, stack in ptxas_usage(
             _build.build_log):
         if src in PTXAS_SOURCES:
             log(f"  ptxas {src}: {kernel}: {regs} registers, {smem} bytes "
                 f"smem, {stack} bytes stack, {spill} bytes spilled")
+        if kernel in KEPT_REGISTERS:
+            kept[kernel] = regs
+    require(kept == KEPT_REGISTERS, "the tensor-core kernels of rows 1, 2, "
+            "3, 5, 6 and 14 keep their registers: "
+            f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
+    log(f"ptxas: the {len(kept)} tensor-core kernels of rows 1, 2, 3, 5, 6 and "
+        "14 at their registers of before rows 7 and 8 joined their tiles")
 
     # ---- 2. kernels against their plain versions -------------------------
     def randn(seed, *shape, dtype):
@@ -954,7 +1034,7 @@ def main() -> int:
                 and e <= KERNEL_TOL[name] and el <= LSE_TOL,
                 f"packed fwd {label} {name} rate {rate} against its plain version")
         # both backwards from the kernel's (out, lse), so only the backward
-        # differs: the CUDA-core backward replays the forward's mask
+        # differs: the backward (either route) replays the forward's mask
         dqkv = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
         dref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
                                                        **kw)
@@ -1411,10 +1491,22 @@ def main() -> int:
         check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
     del qm, km, vm, got, want
 
-    # rows 1, 2, 3, 5, 6 and 14: bf16 on the tensor-core kernels, fp32 on
-    # the CUDA-core ones, by the kernels' names in a profile; then the bf16
-    # kernels at the paths' own shapes against their plain versions, reruns
-    # bit-equal
+    def block_inputs(seed, b, s, hd, dtype):
+        """Row 8's operands: x (B, S, hd) in dtype; fp32 rows gamma, beta,
+        bqkv, bout; Wqkv and Wout (in, out) in dtype."""
+        x = randn(seed, b, s, hd, dtype=dtype)
+        rows = [1 + 0.1 * randn(seed + 1, hd, dtype=fp32),
+                0.1 * randn(seed + 2, hd, dtype=fp32),
+                0.1 * randn(seed + 3, 3 * hd, dtype=fp32),
+                0.1 * randn(seed + 4, hd, dtype=fp32)]
+        w = [(randn(seed + 5, hd, 3 * hd, dtype=fp32) / hd ** 0.5).to(dtype),
+             (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
+        return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
+
+    # rows 1, 2, 3, 5, 6, 7, 8 and 14: bf16 on the tensor-core kernels, fp32
+    # on the CUDA-core ones, by the kernels' names in a profile; then the
+    # bf16 kernels at the paths' own shapes against their plain versions,
+    # reruns bit-equal
     for dtype in (bf16, fp32):
         name = str(dtype).removeprefix("torch.")
         q, k, v, do = (randn(80 + i, 2, 4, 150, 64, dtype=dtype)
@@ -1422,12 +1514,22 @@ def main() -> int:
         out, lse = fa.flash_attention_reference(q, k, v)
         keep = coco_keep(COCO_SIZES[:2])[:, :150]
         qkv_r = randn(90, 2, 150, 3 * 4 * 64, dtype=dtype)
+        p_out, p_lse = fa.packed_flash_attention_reference(qkv_r, 4)
+        do_r = randn(93, 2, 150, 4 * 64, dtype=dtype)
         x_r = randn(91, 300, 64, dtype=dtype)
         ones = torch.ones(64, device=dev)
         w_r = randn(92, 64, 128, dtype=dtype)
+        blk_r = block_inputs(94, 2, 150, 256, dtype)
+        blk_t = (*blk_r[:3], blk_r[3].t().contiguous().t(), blk_r[4],
+                 blk_r[5].t().contiguous().t(), blk_r[6])
         require_route(f"wrappers {name}", lambda: (
             fa.packed_flash_attention_fwd(qkv_r, 4),
             fa.packed_flash_attention_fwd(qkv_r, 4, dropout_rate=0.1, seed=5),
+            fa.packed_flash_attention_bwd(qkv_r, do_r, p_out, p_lse, 4),
+            fa.packed_flash_attention_bwd(qkv_r, do_r, p_out, p_lse, 4,
+                                          dropout_rate=0.1, seed=5),
+            fa.fused_attention_block_fwd(*blk_r, 4),
+            fa.fused_attention_block_fwd(*blk_t, 4),
             fdense.ln_dense_fwd(x_r, ones, ones, w_r),
             fdense.ln_dense_fwd(x_r, ones, ones, w_r.t().contiguous().t()),
             fa.flash_attention_fwd(q, k, v),
@@ -1437,7 +1539,8 @@ def main() -> int:
             fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
                                            dropout_rate=0.1, seed=5)),
             [("row 1", name), ("row 2", name), ("row 3", name),
-             ("row 5", name), ("row 6", name), ("row 14", name)])
+             ("row 5", name), ("row 6", name), ("row 7", name),
+             ("row 8", name), ("row 14", name)])
 
     # row 1 (bf16, tensor cores) at the ViT paths' shapes: ViT-B/16 @224 at
     # batch 32 (served at rate 0, trained at 0.1), T2T-ViT-14's 6 heads and
@@ -1473,12 +1576,48 @@ def main() -> int:
         errs[("packed_path", label, rate)] = e
         del qkv, out, lse, ref, ref_lse, again
 
+    # row 7 (bf16, tensor cores) at the same shapes, from the forward's out
+    # and lse, into a NaN-filled dqkv, reruns bit-equal; beside the limit, a
+    # planted fault at rate 0.1: the plain gradients under the next seed's
+    # mask, which must exceed it
+    def check_packed_bwd_path(label, b, s, h, dh, rate):
+        qkv = randn(96, b, s, 3 * h * dh, dtype=bf16)
+        do = randn(97, b, s, h * dh, dtype=bf16)
+        kw = dict(dropout_rate=rate, seed=70707 + (3 << 36))
+        out, lse = fa.packed_flash_attention_fwd(qkv, h, **kw)
+        got = fa.packed_flash_attention_bwd(
+            qkv, do, out, lse, h, **kw,
+            dqkv=torch.full_like(qkv, float("nan")))
+        ref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
+                                                      **kw)
+        again = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
+        torch.cuda.synchronize()
+        tol = MMA_GRAD_TOL * max(1.0, ref.float().abs().max().item())
+        e = max_err(got, ref)
+        fault = ""
+        if rate > 0:
+            ef = max_err(fa.packed_flash_attention_bwd_reference(
+                qkv, do, out, lse, h, dropout_rate=rate,
+                seed=kw["seed"] + 1), ref)
+            require(ef > tol, f"packed bwd {label}: the next seed's mask "
+                    f"({ef:.3e}) would pass the limit {tol:.3e}")
+            fault = f", the next seed's mask {ef:.3e}"
+        require(not bool(torch.isnan(got.float()).any()) and e <= tol
+                and torch.equal(again, got),
+                f"packed bwd {label} bf16 rate {rate} against its plain "
+                "version, every element written, rerun bit-equal")
+        log(f"packed bwd {label} bf16 rate {rate} (tensor cores): "
+            f"max|dqkv-plain| {e:.3e} (tol {tol:.3e}{fault}), every element "
+            "written, rerun bit-equal")
+        errs[("packed_bwd_path", label, rate)] = e
+        del qkv, do, out, lse, got, ref, again
+
     for rate in (0.0, 0.1):
-        check_packed_path("vitb16@224 B32 S197 H12 dh64", 32, 197, 12, 64,
-                          rate)
-        check_packed_path("t2t-vit-14 B32 S197 H6 dh64", 32, 197, 6, 64,
-                          rate)
-        check_packed_path("vit_tiny B64 S65 H4 dh64", 64, 65, 4, 64, rate)
+        for label, b_, s_, h_ in (("vitb16@224 B32 S197 H12 dh64", 32, 197, 12),
+                                  ("t2t-vit-14 B32 S197 H6 dh64", 32, 197, 6),
+                                  ("vit_tiny B64 S65 H4 dh64", 64, 65, 4)):
+            check_packed_path(label, b_, s_, h_, 64, rate)
+            check_packed_bwd_path(label, b_, s_, h_, 64, rate)
 
     def check_flash_path(label, b, h, s, d, bias_lead):
         q, k, v = (randn(84 + i, b, h, s, d, dtype=bf16) for i in range(3))
@@ -1662,34 +1801,52 @@ def main() -> int:
         check_ln_dense("gelu_erf R6304 N3072", 6304, 768, 3072, "gelu_erf",
                        True, dtype)
 
-    def block_inputs(seed, b, s, hd, dtype):
-        x = randn(seed, b, s, hd, dtype=dtype)
-        rows = [1 + 0.1 * randn(seed + 1, hd, dtype=fp32),
-                0.1 * randn(seed + 2, hd, dtype=fp32),
-                0.1 * randn(seed + 3, 3 * hd, dtype=fp32),
-                0.1 * randn(seed + 4, hd, dtype=fp32)]
-        w = [(randn(seed + 5, hd, 3 * hd, dtype=fp32) / hd ** 0.5).to(dtype),
-             (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
-        return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
-
     def check_block(label, b, s, h, dh, dtype):
+        """Row 8 into a NaN-filled output against its plain version, a rerun
+        and torch's (out, in) weight layout bit-equal to it; beside the limit
+        a planted fault, the plain output with k 368 .. 383 of Wout (one
+        16-wide slice of the out-projection) left out, which must exceed
+        it."""
         name = str(dtype).removeprefix("torch.")
         args = block_inputs(110, b, s, h * dh, dtype)
+        x, g, be, wqkv, bqkv, wout, bout = args
+        route = fa.fused_block_route(dtype, h * dh, h,
+                                     (*wqkv.stride(), *wout.stride()))
         out = fa.fused_attention_block_fwd(
             *args, h, out=torch.full_like(args[0], float("nan")))
         want = fa.fused_attention_block_reference(*args, h)
         again = fa.fused_attention_block_fwd(*args, h)
+        out_in = fa.fused_attention_block_fwd(
+            x, g, be, wqkv.t().contiguous().t(), bqkv,
+            wout.t().contiguous().t(), bout, h)
+        cut = wout.clone()
+        cut[368:384] = 0
+        e_fault = max_err(fa.fused_attention_block_reference(
+            x, g, be, wqkv, bqkv, cut, bout, h), want)
         torch.cuda.synchronize()
         e = max_err(out, want)
         tol = KERNEL_TOL[name] * max(1.0, want.float().abs().max().item())
         errs[("fused_block", label, name)] = e
-        log(f"fused_attention_block {label} {name}: max|out-plain| {e:.3e} "
-            f"(tol {tol:.3e})")
+        log(f"fused_attention_block {label} {name} ({route}): max|out-plain| "
+            f"{e:.3e} (tol {tol:.3e}, k 368..383 of Wout left out "
+            f"{e_fault:.3e}), every element written, rerun and (out, in) "
+            "weights bit-equal")
+        require(e_fault > tol, f"fused_attention_block {label} {name}: a "
+                f"16-wide k slice of Wout left out ({e_fault:.3e}) would pass "
+                f"the limit {tol:.3e}")
         require(not bool(torch.isnan(out.float()).any())
-                and torch.equal(again, out) and e <= tol,
+                and torch.equal(again, out) and torch.equal(out_in, out)
+                and e <= tol,
                 f"fused_attention_block {label} {name}: every element "
-                "written, reruns bit-equal, within tolerance of the plain "
-                "version")
+                "written, reruns and the (out, in) layout bit-equal, within "
+                "tolerance of the plain version")
+        if route == "tensor_cores":
+            # the phases as ordered launches of their own read what an
+            # earlier phase wrote only across a kernel boundary
+            require(torch.equal(fa._measure_fused_block_phases(
+                        *args, h, (0, 1, 2, 3)), out),
+                    f"fused_attention_block {label}: the one cooperative "
+                    "launch bit-equal to its four phases launched in order")
 
     for dtype in (bf16, fp32):
         check_block("vitb16 B32 S197 H12", 32, 197, 12, 64, dtype)
@@ -2013,9 +2170,9 @@ def main() -> int:
         state.optimizer.step()
 
     require_route("ViT-B/16 bf16 train step", one_step,
-                  [("row 1", "bfloat16")])
+                  [("row 1", "bfloat16"), ("row 7", "bfloat16")])
 
-    # the step's row 7 (the CUDA-core backward) fed the tensor-core
+    # the step's row 7 (the tensor-core backward) fed the tensor-core
     # forward's out and lse on the first layer's projection of this batch,
     # at rate 0.1, against the plain backward on the same (out, lse): the
     # backward replays the forward's mask
@@ -2032,11 +2189,14 @@ def main() -> int:
     g_t = fa.packed_flash_attention_bwd(qkv_t, do_t, out_t, lse_t, 12, **kw)
     g_ref = fa.packed_flash_attention_bwd_reference(qkv_t, do_t, out_t, lse_t,
                                                     12, **kw)
-    e_step, tol = grad_err("ViT-B train step layer 0 packed bwd rate 0.1",
-                           g_t, g_ref, "bfloat16")
+    e_step = max_err(g_t, g_ref)
+    tol = MMA_GRAD_TOL * max(1.0, g_ref.float().abs().max().item())
+    require(bool(torch.isfinite(g_t.float()).all()) and e_step <= tol,
+            f"ViT-B train step layer 0 packed bwd rate 0.1 against its plain "
+            f"version ({e_step:.3e} > {tol:.3e})")
     log(f"ViT-B train step, layer 0's projection {tuple(qkv_t.shape)}: row 7 "
-        f"fed row 1's out and lse at rate 0.1, max|dqkv-plain| {e_step:.3e} "
-        f"(tol {tol:.3e})")
+        f"(tensor cores) fed row 1's out and lse at rate 0.1, max|dqkv-plain| "
+        f"{e_step:.3e} (tol {tol:.3e})")
     del taps, qkv_t, do_t, out_t, lse_t, g_t, g_ref
 
     wall, busy, count, top = device_profile(one_step, top=10)
@@ -2386,10 +2546,12 @@ def main() -> int:
         x32 = torch.from_numpy(images[:32]).to(dev)
         with torch.inference_mode():
             fused_ms = cuda_ms(lambda: fclf.model(x32), iters=10)
-            if "flash_attention_large" in extra:  # T2T-ViT_t's tokens
-                require_route(f"{label} bf16 served forward",
-                              lambda: fclf.model(x32),
-                              [("row 3", "bfloat16"), ("row 2", "bfloat16")])
+            require_route(f"{label} bf16 served forward, USE_FUSED_BLOCK",
+                          lambda: fclf.model(x32),
+                          [("row 8", "bfloat16")]
+                          + ([("row 3", "bfloat16"), ("row 2", "bfloat16")]
+                             if "flash_attention_large" in extra  # T2T_t
+                             else []))
         vv.USE_FUSED_BLOCK = False
         fwd[0] = 0
         fa.reset_launch_counts()
@@ -2907,19 +3069,27 @@ def main() -> int:
     del qkv192
     bwd_args = (qkv, do, out, lse, h)
     bwd_kw = dict(dropout_rate=rate, seed=seed)
+    do_h = do.view(b, s, h, dh).transpose(1, 2)
+    b_flops = 10 * b * h * s * s * dh
+    b_ms = cuda_ms(lambda: fa.packed_flash_attention_bwd(*bwd_args, **bwd_kw))
+    b0_ms = cuda_ms(lambda: fa.packed_flash_attention_bwd(*bwd_args))
     entry("packed_attention_bwd", "packed_attention.cu", 833,
           tiny_launches["packed_attention_bwd"]
           + vitb_launches["packed_attention_bwd"]
           + fam_total["packed_attention_bwd"],
-          errs[("packed_bwd", "vitb16@224 B32 S197", "bfloat16", rate)],
-          shape + f" rate {rate}",
-          cuda_ms(lambda: fa.packed_flash_attention_bwd(*bwd_args, **bwd_kw)),
+          max([errs[("packed_bwd", "vitb16@224 B32 S197", "bfloat16", rate)]]
+              + [v for k_, v in errs.items() if k_[0] == "packed_bwd_path"]),
+          shape + f" rate {rate}", b_ms,
           cuda_ms(lambda: fa.packed_flash_attention_bwd_reference(
               *bwd_args, **bwd_kw), iters=10),
-          cuda_ms(sdpa_backward(qv, kv, vv, do.view(b, s, h, dh).transpose(1, 2),
-                                rate)),
-          8 * io_bytes + b * s * h * 4, 10 * b * h * s * s * dh,
-          rate0_ms=cuda_ms(lambda: fa.packed_flash_attention_bwd(*bwd_args)))
+          cuda_ms(sdpa_backward(qv, kv, vv, do_h, rate)),
+          8 * io_bytes + b * s * h * 4, b_flops,
+          tflops=b_flops / b_ms / 1e9, rate0_ms=b0_ms,
+          rate0_tflops=b_flops / b0_ms / 1e9,
+          rate0_library_ms=cuda_ms(sdpa_backward(qv, kv, vv, do_h, 0.0)),
+          fp32_ms=cuda_ms(lambda: fa.packed_flash_attention_bwd(
+              qkv.float(), do.float(), out.float(), lse, h, **bwd_kw),
+              iters=5))
     log(f"  x12 layers = {12 * kernels[-1]['ms']:.3f} ms of the "
         f"{train_bwd_ms:.3f} ms training backward")
     del qkv, do, out, lse, bwd_args
@@ -3363,19 +3533,64 @@ def main() -> int:
     blk_t2t = block_inputs(162, 32, 197, 384, bf16)
     casts = [torch.zeros(n, 768, device=dev) for n in (2304, 768)]
     vit_fam = family["vitb16_224_imagenet"]
+    block_fwd = fa.fused_attention_block_fwd
+    block_phases = fa._measure_fused_block_phases  # ordinary launches
+    # the kernel's device time in one cooperative launch, and in ordered
+    # launches of one phase each, at ViT-B B 32: what the one launch spends
+    # beyond its phases run alone is its wait at the grid barriers (and the
+    # tail of each phase's last wave, which the barrier makes every block
+    # wait out); beside them rows 14 and 1 alone at the same shapes (row 14
+    # with its statistics launch)
+    x_rows = blk[0].reshape(-1, 768)
+    qkv_blk = fdense.ln_dense_fwd(x_rows, blk[1], blk[2], blk[3], blk[4])
+    dev_ms = queued_ms(
+        [lambda: block_fwd(*blk, 12)]
+        + [lambda p=p: block_phases(*blk, 12, (p,)) for p in range(4)]
+        + [lambda: block_phases(*blk, 12, (0, 1, 2, 3)),
+           lambda: fdense.ln_dense_fwd(x_rows, blk[1], blk[2], blk[3],
+                                       blk[4]),
+           lambda: fa.packed_flash_attention_fwd(
+               qkv_blk.view(32, 197, 2304), 12),
+           lambda: block_fwd(*blk1, 12), lambda: block_fwd(*blk_t2t, 6)])
+    one, phases, ordered, row14, row1 = (dev_ms[:1], dev_ms[1:5], dev_ms[5],
+                                         dev_ms[6], dev_ms[7])
+    log(f"row 8 at ViT-B B 32, device time: one launch {one[0]:.4f} ms; "
+        f"its phases launched alone {', '.join(f'{t:.4f}' for t in phases)} "
+        f"ms (statistics, LN + QKV, attention, out-projection), sum "
+        f"{sum(phases):.4f}; wait at the barriers {one[0] - sum(phases):.4f} "
+        f"ms; rows 14 + 1 alone {row14:.4f} + {row1:.4f} ms, with the "
+        f"out-projection {row14 + row1 + phases[3]:.4f} ms; the four phases "
+        f"in one call of ordered launches {ordered:.4f} ms")
+    # the tensor-core route against the CUDA-core one, which the route rule
+    # gives weights in two layouts
+    mixed = (*blk[:5], blk[5].t().contiguous().t(), blk[6])
+    require(fa.fused_block_route(bf16, 768, 12, (*mixed[3].stride(),
+                                                 *mixed[5].stride()))
+            == "cuda_cores", "row 8: mixed weight layouts take the CUDA "
+            "cores by the route rule")
     entry("fused_attention_block", "fused_block.cu", 1028,
           fam_total["fused_attention_block"],
           max(v for k, v in errs.items() if k[0] == "fused_block"
               and k[-1] == "bfloat16"),
           "B32 S197 H12 dh64 (ViT-B/16)",
-          cuda_ms(lambda: fa.fused_attention_block_fwd(*blk, 12)),
+          cuda_ms(lambda: block_fwd(*blk, 12)),
           cuda_ms(lambda: fa.fused_attention_block_reference(*blk, 12)),
           cuda_ms(lambda: library_block(*blk, 12)),
           *block_cost(32, 197, 768),
+          tflops=block_cost(32, 197, 768)[1] / one[0] / 1e9,
+          device_ms=one[0], ordered_ms=ordered,
+          **{f"phase{i}_ms": t for i, t in enumerate(phases)},
+          barrier_wait_ms=one[0] - sum(phases),
+          row14_row1_outproj_ms=row14 + row1 + phases[3],
+          ordered_back_to_back_ms=cuda_ms(
+              lambda: block_phases(*blk, 12, (0, 1, 2, 3))),
+          cuda_core_ms=cuda_ms(lambda: block_fwd(*mixed, 12), iters=5),
           bucket1_ms=cuda_ms(lambda: fa.fused_attention_block_fwd(*blk1, 12)),
+          bucket1_device_ms=dev_ms[8],
           bucket1_library_ms=cuda_ms(lambda: library_block(*blk1, 12)),
           bucket1_bound_ms=bound_ms(*block_cost(1, 197, 768), "bfloat16")[0],
           t2t14_ms=cuda_ms(lambda: fa.fused_attention_block_fwd(*blk_t2t, 6)),
+          t2t14_device_ms=dev_ms[9],
           t2t14_library_ms=cuda_ms(lambda: library_block(*blk_t2t, 6)),
           t2t14_bound_ms=bound_ms(*block_cost(32, 197, 384), "bfloat16")[0],
           weight_casts_per_layer_ms=cuda_ms(
@@ -3386,7 +3601,7 @@ def main() -> int:
         f"{vit_fam['fused_ms']:.3f} ms flag-on ViT-B/16 forward at batch 32 "
         f"(flag off {vit_fam['modular_ms']:.3f} ms); its per-call weight "
         f"casts {12 * kernels[-1]['weight_casts_per_layer_ms']:.3f} ms")
-    del blk, blk1, blk_t2t, casts
+    del blk, blk1, blk_t2t, casts, mixed, x_rows, qkv_blk
 
     require(len(kernels) == len(fa.LAUNCHES),
             "every kernel of the launch table has its line")

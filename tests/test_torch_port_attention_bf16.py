@@ -22,7 +22,11 @@ The packed forward (row 1, ``csrc/packed_attention.cu``) runs on the same
 tensor-core tile in bf16 and rounds the unnormalised probabilities before
 P·V, as ``_packed_fwd_kernel`` does: its plain version is held against
 ``_packed_fwd`` here in bf16 the same way, at rate 0 (the interpreter has
-no TPU PRNG), with trailing keys past ``kv_valid``.
+no TPU PRNG), with trailing keys past ``kv_valid``. Its backward (row 7)
+runs on the tensor-core backward of row 6 with the packed strides and rounds
+pd and ds to bf16 before their products, as ``_packed_bwd_kernel`` does:
+its plain version is held against ``_packed_bwd_pallas`` the same way, both
+from the JAX forward's (out, lse).
 
 The masked streaming forward (row 3, ``csrc/flash_attention_large.cu``) on
 the tensor cores rounds the unnormalised probabilities before P·V, as
@@ -238,6 +242,34 @@ def test_packed_reference_matches_jax_kernel_in_bf16(b, s, heads, dh,
     _close(got, want)
     np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=LSE_ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
+    (2, 24, 2, 16, 19),
+    (2, 33, 3, 32, 29),    # ragged S
+    (1, 40, 2, 32, 37),
+])
+def test_packed_bwd_reference_matches_jax_kernel_in_bf16(b, s, heads, dh,
+                                                         kv_valid):
+    """``packed_flash_attention_bwd_reference`` against
+    ``_packed_bwd_kernel`` (through ``_packed_bwd_pallas``), both in bf16 at
+    rate 0 from the JAX forward's (out, lse), keys >= kv_valid hidden:
+    dqkv (B, S, 3·H·dh), its q, k and v thirds each."""
+    jqkv, tqkv = _pair(_randn(41, b, s, 3 * heads * dh))
+    jdo, tdo = _pair(_randn(42, b, s, heads * dh))
+    scale = dh ** -0.5
+    j_out, j_lse = jfa._packed_fwd(jqkv, heads, scale, kv_valid=kv_valid)
+    want = jfa._packed_bwd_pallas(jqkv, jdo, j_out, j_lse, heads, scale,
+                                  kv_valid=kv_valid)
+    got = tfa.packed_flash_attention_bwd_reference(
+        tqkv, tdo, torch.from_numpy(_np(j_out).copy()).to(torch.bfloat16),
+        torch.from_numpy(_np(j_lse).copy()), heads, kv_valid=kv_valid)
+    assert got.dtype == torch.bfloat16 and got.shape == tqkv.shape
+    hd = heads * dh
+    for i in range(3):
+        _close(got[..., i * hd:(i + 1) * hd], _np(want)[..., i * hd:(i + 1) * hd])
+    # the hidden keys' dk and dv are exactly 0
+    assert not got[:, kv_valid:, hd:].float().abs().max().item()
 
 
 SKIP_ATOL = 1e-6

@@ -132,6 +132,74 @@ def test_size_rule(hd, heads, ok):
     assert tfa.fused_block_supported(hd, heads) is ok
 
 
+def _weights(hd, layouts, device="cpu"):
+    """Wqkv (hd, 3hd) and Wout (hd, hd) in the named layouts: "in_out"
+    row-major, "out_in" the transposed view of torch's (out, in) weight."""
+    make = {"in_out": lambda k, n: torch.empty(k, n, device=device),
+            "out_in": lambda k, n: torch.empty(n, k, device=device).t()}
+    return [make[lay](hd, n) for lay, n in zip(layouts, (3 * hd, hd))]
+
+
+@pytest.mark.parametrize("dtype,hd,heads,layouts,route", [
+    (torch.bfloat16, 768, 12, ("out_in", "out_in"), "tensor_cores"),  # ViT
+    (torch.bfloat16, 768, 12, ("in_out", "in_out"), "tensor_cores"),  # JAX's
+    (torch.bfloat16, 384, 6, ("out_in", "out_in"), "tensor_cores"),   # T2T
+    (torch.bfloat16, 64, 2, ("in_out", "in_out"), "tensor_cores"),    # dh 32
+    (torch.bfloat16, 32, 2, ("out_in", "out_in"), "tensor_cores"),    # dh 16
+    (torch.bfloat16, 768, 12, ("in_out", "out_in"), "cuda_cores"),  # mixed
+    (torch.bfloat16, 768, 12, ("out_in", "in_out"), "cuda_cores"),
+    (torch.bfloat16, 1280, 16, ("out_in", "out_in"), "cuda_cores"),  # dh 80
+    (torch.float32, 768, 12, ("out_in", "out_in"), "cuda_cores"),
+    (torch.float32, 384, 6, ("in_out", "in_out"), "cuda_cores"),
+])
+def test_fused_block_route_rule(dtype, hd, heads, layouts, route):
+    """Which CUDA launches of row 8 take the tensor cores: bf16 at a head
+    dim of the kernels with both weights in one layout at leading strides
+    that are multiples of 8; everything else the CUDA-core kernel."""
+    strides = [st for w, n in zip(_weights(hd, layouts), ("wqkv", "wout"))
+               for st in tfa._weight_strides(n, w)]
+    assert tfa.fused_block_route(dtype, hd, heads, tuple(strides)) == route
+
+
+@pytest.mark.parametrize("lead", [12, 8, 36])
+def test_fused_block_route_reads_the_leading_strides(lead):
+    """Leading strides that are not multiples of 8 (the 16-byte rows the
+    tiles copy) send a bf16 launch to the CUDA cores, in either layout."""
+    ok = lead % 8 == 0
+    for strides in ((lead, 1, lead, 1), (1, lead, 1, lead)):
+        assert tfa.fused_block_route(torch.bfloat16, 64, 4, strides) == \
+            ("tensor_cores" if ok else "cuda_cores")
+
+
+def test_phase_launches_refuse_the_plain_version():
+    """``_measure_fused_block_phases`` times phases of the tensor-core
+    kernel; on a CPU tensor (the plain version) it raises, not pass."""
+    x, g, b, wqkv, bqkv, wout, bout = map(torch.from_numpy, _inputs(seed=8))
+    for phases in ((1,), (0, 1, 2, 3)):
+        with pytest.raises(ValueError, match="tensor-core kernel only"):
+            tfa._measure_fused_block_phases(x, g, b, wqkv, bqkv, wout, bout,
+                                            4, phases)
+
+
+def test_fused_block_route_is_decided_from_the_operands_metadata(
+        monkeypatch):
+    """Row 8 chooses its route from dtype, widths and strides alone, before
+    any build or launch: the rule runs on tensors without data (the meta
+    device) while building or loading a kernel raises."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    def no_launch(*_a, **_k):
+        raise AssertionError("a route rule built or loaded a kernel")
+
+    monkeypatch.setattr(_build, "load", no_launch)
+    monkeypatch.setattr(_build, "build", no_launch)
+    wqkv, wout = _weights(768, ("out_in", "out_in"), device="meta")
+    strides = (*tfa._weight_strides("wqkv", wqkv),
+               *tfa._weight_strides("wout", wout))
+    assert tfa.fused_block_route(torch.bfloat16, 768, 12, strides) \
+        == "tensor_cores"
+
+
 # ---------------------------------------------------------------------------
 # the flag and its guard
 

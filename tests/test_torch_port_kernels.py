@@ -109,10 +109,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid,
 # Gradients, relative to the largest reference element (they grow with S).
 # fp32: summation order and expf against torch.exp. bf16: the plain versions
 # round the probabilities and ds to bf16 before their products (as the TPU
-# kernels do) and the kernels keep them fp32, plus one rounding of the result.
+# kernels do) and the CUDA-core kernels keep them fp32, plus one rounding of
+# the result.
 _GRAD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
-# The bf16 split-head backward (row 6) runs on the tensor cores and rounds pd
-# and ds to bf16 before their products, as its plain version does: what is
+# The bf16 backwards of rows 6 and 7 run on the tensor cores and round pd
+# and ds to bf16 before their products, as their plain versions do: what is
 # left is summation order and one rounding of the result (up to 3.1e-3 at
 # PVT stage 1 in chip_smoke.py's runs on an H100).
 _MMA_GRAD_TOL = 5e-3
@@ -145,7 +146,7 @@ def test_packed_dropout_and_backward_match_plain(cuda, dtype, rate, b, s,
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     # both backwards from the kernel's (out, lse), so only the backward
-    # differs: the CUDA-core backward replays the forward's mask
+    # differs: the backward (either route) replays the forward's mask
     dqkv = tfa.packed_flash_attention_bwd(qkv, do, out, lse, heads, **kw)
     dref = tfa.packed_flash_attention_bwd_reference(qkv, do, out, lse, heads,
                                                     **kw)
@@ -884,6 +885,109 @@ def test_fused_block_gradients_match_autograd_of_plain(cuda):
     for g, r in zip(*grads):
         scale = max(1.0, r.abs().max().item())
         assert (g - r).abs().max().item() <= 5e-5 * scale
+
+
+# Row 8 in bf16 on the tensor cores (fused_block_mma_kernel) at the shapes of
+# the flag-on ViT family: ViT-B/16 at batch 32 and 1, DeiT-B (S 198),
+# T2T-ViT-14 (6 heads). Beside the limit a planted fault: the plain output
+# with one 16-wide k slice of Wout left out must exceed it.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,heads,dh", [
+    (32, 197, 12, 64), (32, 198, 12, 64), (32, 197, 6, 64), (1, 197, 12, 64)])
+def test_fused_block_tensor_cores_at_path_shapes(cuda, b, s, heads, dh):
+    x, rows, w = _block_inputs(cuda, torch.bfloat16, b, s, heads * dh)
+    args = (x, rows[0], rows[1], w[0], rows[2], w[1], rows[3], heads)
+    views = (x, rows[0], rows[1], w[0].t().contiguous().t(), rows[2],
+             w[1].t().contiguous().t(), rows[3], heads)
+    for a in (args, views):
+        assert tfa.fused_block_route(torch.bfloat16, heads * dh, heads,
+                                     (*a[3].stride(), *a[5].stride())) \
+            == "tensor_cores"
+    out = tfa.fused_attention_block_fwd(*args,
+                                        out=torch.full_like(x, float("nan")))
+    want = tfa.fused_attention_block_reference(*args)
+    cut = w[1].clone()
+    cut[368:384] = 0
+    fault = tfa.fused_attention_block_reference(
+        *args[:5], cut, rows[3], heads)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    assert _fused_close(out, want, torch.bfloat16)
+    assert not _fused_close(fault, want, torch.bfloat16)
+    # the same bits from a rerun and from torch's (out, in) weights
+    for a in (args, views):
+        assert torch.equal(tfa.fused_attention_block_fwd(*a), out)
+    # and from the four phases as ordered launches of their own (the
+    # measurement entry), which read what an earlier phase wrote only after
+    # a kernel boundary
+    assert torch.equal(
+        tfa._measure_fused_block_phases(*args, (0, 1, 2, 3)), out)
+
+
+# Row 7 in bf16 on the tensor cores (packed_bwd_*_mma_kernel) at the ViT
+# paths' shapes (ViT-B/16 and T2T-ViT-14 at batch 32, vit_tiny at 64) and at
+# dh 32 and 16, from the forward's out and lse, relative to max(1,
+# max|ref|): it rounds pd and ds where its plain version does.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,s,heads,dh", [
+    (32, 197, 12, 64), (32, 197, 6, 64), (64, 65, 4, 64), (4, 100, 4, 32),
+    (2, 70, 3, 16)])
+def test_packed_backward_tensor_cores_at_path_shapes(cuda, rate, b, s, heads,
+                                                     dh):
+    bf16 = torch.bfloat16
+    qkv = torch.from_numpy(_randn(29, b, s, 3 * heads * dh)).to(cuda, bf16)
+    do = torch.from_numpy(_randn(30, b, s, heads * dh)).to(cuda, bf16)
+    kw = dict(dropout_rate=rate, seed=4321 + (3 << 40))
+    out, lse = tfa.packed_flash_attention_fwd(qkv, heads, **kw)
+    dqkv = tfa.packed_flash_attention_bwd(
+        qkv, do, out, lse, heads, **kw,
+        dqkv=torch.full_like(qkv, float("nan")))
+    dref = tfa.packed_flash_attention_bwd_reference(qkv, do, out, lse, heads,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert not bool(dqkv.isnan().any())  # every element written
+    assert _grad_close(dqkv, dref, bf16, _MMA_GRAD_TOL)
+    assert torch.equal(
+        tfa.packed_flash_attention_bwd(qkv, do, out, lse, heads, **kw), dqkv)
+    if rate > 0:  # the next seed's mask is another function
+        other = tfa.packed_flash_attention_bwd_reference(
+            qkv, do, out, lse, heads, dropout_rate=rate, seed=kw["seed"] + 1)
+        assert not _grad_close(other, dref, bf16, _MMA_GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
+    """Row 7 takes bf16 (the tensor cores) and fp32 (the CUDA cores) at the
+    kernels' head dims; a float16 operand or head dim 80 raises before any
+    launch. Rows 7 and 8 on the tensor cores copy 16 bytes at a time: a
+    bf16 operand 2 bytes off raises. Nothing falls back."""
+    bf16 = torch.bfloat16
+    b, s, heads, dh = 1, 40, 2, 32
+    qkv = torch.zeros(b, s, 3 * heads * dh, device=cuda, dtype=bf16)
+    out, lse = tfa.packed_flash_attention_fwd(qkv, heads)
+    half = qkv.half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.packed_flash_attention_bwd(half, out.half(), out.half(), lse,
+                                       heads)
+    wide = torch.zeros(b, s, 3 * 80, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="head dim 80"):
+        tfa.packed_flash_attention_bwd(wide, wide[..., :80], wide[..., :80],
+                                       lse[..., :1], 1)
+    off = torch.zeros(qkv.numel() + 8, device=cuda, dtype=bf16)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.packed_flash_attention_bwd(off[1:1 + qkv.numel()].view_as(qkv),
+                                       out, out, lse, heads)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.packed_flash_attention_bwd(
+            qkv, out, out, lse, heads,
+            dqkv=off[1:1 + qkv.numel()].view_as(qkv))
+    x, rows, w = _block_inputs(cuda, bf16, b, s, heads * dh)
+    x_off = off[1:1 + x.numel()].view_as(x)
+    x_off.copy_(x)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tfa.fused_attention_block_fwd(x_off, rows[0], rows[1], w[0], rows[2],
+                                      w[1], rows[3], heads)
 
 
 # Row 14's cases: in bf16 the tensor-core kernel (D and N multiples of 8;

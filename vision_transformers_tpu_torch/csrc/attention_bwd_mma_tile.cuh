@@ -1,11 +1,18 @@
-// Tensor-core bodies of the bf16 split-head attention backward.
+// Tensor-core bodies of the bf16 attention backward.
 //
-// Replace, for bf16 inputs, the TPU kernel vision_transformers_tpu/ops/
-// flash_attention.py::_drop_bwd_kernel (:525), through dropout_attention.cu's
-// dropout_attention_bwd (row 6 of PERF.md's kernel table): the dropout
-// backward, and at rate 0 the bias-free backward of flash_attention. fp32
-// inputs keep bwd_dq_rows / bwd_dkv_rows (attention_bwd_tile.cuh), and so
-// does the packed backward (row 7).
+// Replace, for bf16 inputs, two TPU kernels of vision_transformers_tpu/ops/
+// flash_attention.py (rows of PERF.md's kernel table), by a row layout and a
+// dropout flag given at compile time:
+//   - row 6, _drop_bwd_kernel (:525), through dropout_attention.cu's
+//     dropout_attention_bwd: <D> (Contiguous (G, S, D) groups, dropout by
+//     the runtime threshold) — the dropout backward, and at rate 0 the
+//     bias-free backward of flash_attention;
+//   - row 7, _packed_bwd_kernel (:833), through packed_attention.cu's
+//     packed_attention_bwd: <D, Strided, kDrop> — q, k, v read and dq, dk,
+//     dv written in place in the packed (B, S, 3·H·dh) layout, do and out
+//     read at row stride H·dh, lse at H; rate 0 (kDrop false, no dropout
+//     code) and rate > 0 are two instantiations.
+// fp32 inputs keep bwd_dq_rows / bwd_dkv_rows (attention_bwd_tile.cuh).
 //
 // The formulas are those of attention_bwd_tile.cuh (the TPU kernel's):
 //   s  = q·kᵀ·scale, keys >= kv_valid → -0.7·FLT_MAX, + key mask
@@ -76,17 +83,18 @@
 namespace vtt {
 namespace mma {
 
-// Pass 1: rows [q0, q0 + kRows) of one group. Pointers are the group's row 0
-// (row stride D; lse and delta one value per row). kmask: fp32 per key or
-// null.
-template <int D>
+// Pass 1: rows [q0, q0 + kRows) of one group. Pointers are the group's row 0,
+// rows at lay's strides: q, k, v and dq lay.qkv() apart, do and out lay.o(),
+// lse lay.lse(); delta one value per row. kmask: fp32 per key or null.
+// kMayDrop false: no dropout whatever drop says (its code compiled out).
+template <int D, class Layout = Contiguous<D>, bool kMayDrop = true>
 __device__ __forceinline__ void bwd_dq_rows_mma(
     int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const bf16* __restrict__ out, const float* __restrict__ lse,
     const float* __restrict__ kmask, bf16* __restrict__ dq,
     float* __restrict__ delta, int sq, int sk, int kv_valid, float scale,
-    Dropout drop, uint32_t rng_group) {
+    Dropout drop, uint32_t rng_group, Layout lay = Layout{}) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   constexpr int S = D + 8;
   __shared__ __align__(16) bf16 ks[2][kCols * S];
@@ -98,12 +106,12 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
   const int row[2] = {q0 + warp * 16 + (lane >> 2),
                       q0 + warp * 16 + (lane >> 2) + 8};
 
-  load_tile<D>(ks[0], k, 0, sk);
-  load_tile<D>(vs[0], v, 0, sk);
+  load_tile<D>(ks[0], k, 0, sk, lay.qkv());
+  load_tile<D>(vs[0], v, 0, sk, lay.qkv());
   cp_async_commit();
   uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_frags<D>(qf, q, row, sq);
-  load_a_frags<D>(df, dout, row, sq);
+  load_a_frags<D>(qf, q, row, sq, lay.qkv());
+  load_a_frags<D>(df, dout, row, sq, lay.o());
 
   // δ and lse·log2 e of this lane's two rows; the four lanes of a row split
   // its D columns and meet by shuffles
@@ -113,7 +121,8 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     const int r = row[i];
     float part = 0.f;
     if (r < sq) {
-      const long long base = static_cast<long long>(r) * D + tq * (D / 4);
+      const long long base =
+          static_cast<long long>(r) * lay.o() + tq * (D / 4);
 #pragma unroll
       for (int c = 0; c < D / 4; c += 2) {
         const float2 d2 = __bfloat1622float2(
@@ -127,7 +136,7 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     part += __shfl_xor_sync(0xffffffffu, part, 2);
     delta_r[i] = part;
-    lse_r[i] = r < sq ? lse[r] * kLog2e : 0.f;
+    lse_r[i] = r < sq ? lse[r * lay.lse()] * kLog2e : 0.f;
     if (tq == 0 && r < sq) delta[r] = part;
   }
 
@@ -141,8 +150,8 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk);
-      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk);
+      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv());
+      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv());
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -164,7 +173,7 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         uint32_t keep = 0xffffffffu;
-        if (drop.thresh != 0u) {
+        if (kMayDrop && drop.thresh != 0u) {
           // this lane draws row[tq & 1]'s block of columns 4·(tq / 2) .. +3
           keep = dropout_keep4(drop, rng_group, (tq & 1) ? row[1] : row[0],
                                (k0 + n * 8 + (tq >> 1) * 4) >> 2)
@@ -181,7 +190,7 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
           const float p = (kj < sk && row[i] < sq)
                               ? exp2f(fmaf(x, kLog2e, -lse_r[i])) : 0.f;
           float dpv = dp[n][e];
-          if (drop.thresh != 0u)
+          if (kMayDrop && drop.thresh != 0u)
             dpv = (keep >> (4 * i + 2 * (tq & 1) + (e & 1))) & 1u
                       ? dpv * drop.inv_keep : 0.f;
           s[n][e] = p * (dpv - delta_r[i]) * scale;
@@ -204,30 +213,32 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(
-          dq + static_cast<long long>(r) * D + n * 8 + 2 * tq) =
+          dq + static_cast<long long>(r) * lay.qkv() + n * 8 + 2 * tq) =
           __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
 // Query tile t of Q and dO (cp.async; the caller commits), and its lse·log2 e
-// and δ; rows >= Sq are zero.
-template <int D>
+// and δ; rows >= Sq are zero. Rows at lay's strides, δ one value per row.
+template <int D, class Layout>
 __device__ __forceinline__ void load_q_tile(
     bf16* qs, bf16* dos, float* lse_s, float* delta_s, const bf16* q,
-    const bf16* dout, const float* lse, const float* delta, int t, int sq) {
-  load_tile<D>(qs, q, t * kCols, sq);
-  load_tile<D>(dos, dout, t * kCols, sq);
+    const bf16* dout, const float* lse, const float* delta, int t, int sq,
+    const Layout& lay) {
+  load_tile<D>(qs, q, t * kCols, sq, lay.qkv());
+  load_tile<D>(dos, dout, t * kCols, sq, lay.o());
   if (threadIdx.x < kCols) {
     const int qi = t * kCols + threadIdx.x;
-    lse_s[threadIdx.x] = qi < sq ? lse[qi] * kLog2e : 0.f;
+    lse_s[threadIdx.x] = qi < sq ? lse[qi * lay.lse()] * kLog2e : 0.f;
     delta_s[threadIdx.x] = qi < sq ? delta[qi] : 0.f;
   }
 }
 
 // Pass 2: keys [k0, k0 + kRows) of one group against query tiles
-// [t_begin, t_end). Writes bf16 dk, dv (row stride D) when part_k is null,
-// else this chunk's fp32 partials to part_k, part_v (row stride D).
-template <int D>
+// [t_begin, t_end), rows at lay's strides as in pass 1. Writes bf16 dk, dv
+// (rows lay.qkv() apart) when part_k is null, else this chunk's fp32
+// partials to part_k, part_v (row stride D).
+template <int D, class Layout = Contiguous<D>, bool kMayDrop = true>
 __device__ __forceinline__ void bwd_dkv_rows_mma(
     int k0, int t_begin, int t_end, const bf16* __restrict__ q,
     const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -235,7 +246,7 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     const float* __restrict__ delta, const float* __restrict__ kmask,
     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part_k,
     float* __restrict__ part_v, int sq, int sk, int kv_valid, float scale,
-    Dropout drop, uint32_t rng_group) {
+    Dropout drop, uint32_t rng_group, Layout lay = Layout{}) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   constexpr int S = D + 8;
   __shared__ __align__(16) bf16 qs[2][kCols * S];
@@ -251,12 +262,12 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
 
   if (t_begin < t_end) {
     load_q_tile<D>(qs[0], dos[0], lse_s[0], delta_s[0], q, dout, lse, delta,
-                   t_begin, sq);
+                   t_begin, sq, lay);
     cp_async_commit();
   }
   uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(kf, k, key, sk);
-  load_a_frags<D>(vf, v, key, sk);
+  load_a_frags<D>(kf, k, key, sk, lay.qkv());
+  load_a_frags<D>(vf, v, key, sk, lay.qkv());
   float madd[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -276,7 +287,7 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     const int buf = (t - t_begin) & 1;
     if (t + 1 < t_end) {
       load_q_tile<D>(qs[buf ^ 1], dos[buf ^ 1], lse_s[buf ^ 1],
-                     delta_s[buf ^ 1], q, dout, lse, delta, t + 1, sq);
+                     delta_s[buf ^ 1], q, dout, lse, delta, t + 1, sq, lay);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -299,7 +310,7 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
       for (int n = 0; n < 4; ++n) {
         const int c0 = h * 32 + n * 8 + 2 * tq;  // this lane's two columns
         uint32_t keep = 0xffffffffu;
-        if (drop.thresh != 0u) {
+        if (kMayDrop && drop.thresh != 0u) {
           keep = dropout_keep4(drop, rng_group, q0 + c0 + (j & 1), quad)
                  << (4 * j);
           keep |= __shfl_xor_sync(0xffffffffu, keep, 4);
@@ -315,7 +326,7 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
           const float p = (key[i] < sk && q0 + c < sq)
                               ? exp2f(fmaf(x, kLog2e, -lse_s[buf][c])) : 0.f;
           float pd = p, dpv = dpt[n][e];
-          if (drop.thresh != 0u) {
+          if (kMayDrop && drop.thresh != 0u) {
             const bool kept = (keep >> (4 * e + j)) & 1u;
             pd = kept ? p * drop.inv_keep : 0.f;
             dpv = kept ? dpv * drop.inv_keep : 0.f;
@@ -343,13 +354,15 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     if (kr >= sk) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      const long long off = static_cast<long long>(kr) * D + n * 8 + 2 * tq;
       if (part_k == nullptr) {
+        const long long off =
+            static_cast<long long>(kr) * lay.qkv() + n * 8 + 2 * tq;
         *reinterpret_cast<__nv_bfloat162*>(dk + off) =
             __floats2bfloat162_rn(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
         *reinterpret_cast<__nv_bfloat162*>(dv + off) =
             __floats2bfloat162_rn(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
       } else {
+        const long long off = static_cast<long long>(kr) * D + n * 8 + 2 * tq;
         *reinterpret_cast<float2*>(part_k + off) =
             make_float2(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
         *reinterpret_cast<float2*>(part_v + off) =

@@ -13,9 +13,12 @@
 //     <D, AddFloat, true>, an fp32 value per key and dropout;
 //   - row 1, _packed_fwd_kernel (:796), through packed_attention.cu:
 //     <D, NoMask, kDrop, Strided>, q, k and v read in place from the packed
-//     (B, S, 3·H·dh) projection, out and lse written in place.
-// fp32 inputs keep attend_rows (attention_tile.cuh) and flash_large_kernel,
-// and so does row 8 in every dtype.
+//     (B, S, 3·H·dh) projection, out and lse written in place;
+//   - row 8's attention phase, _fused_block_kernel (:1028), through
+//     fused_block.cu: <D, NoMask, false, Strided, HalfBlock>, each 128-thread
+//     half of a 256-thread block on its own rows, q, k and v read in place
+//     from the block's QKV workspace.
+// fp32 inputs keep attend_rows (attention_tile.cuh) and flash_large_kernel.
 //
 // What bounds it on the H100: at ViT-B/16 @512 (G 96, S 1025, D 64) the
 // kernel does 4·G·S²·D = 25.8 GFLOP against 50 MB of q/k/v/out, 26 µs of
@@ -195,15 +198,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 
 // Rows [row0, row0 + kCols) of an (n, D) bf16 matrix whose rows lie
 // `stride` elements apart (a multiple of 8) into shared memory with row
-// stride D + 8; rows >= n are zero-filled. One cp.async group's worth; the
-// caller commits.
+// stride D + 8; rows >= n are zero-filled. One cp.async group's worth, by
+// the kThreads threads numbered tid; the caller commits.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
-                                          int n, int stride = D) {
+                                          int n, int stride, unsigned tid) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
 #pragma unroll
   for (int i = 0; i < kCols * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+    const int idx = tid + i * kThreads;
     const int r = idx / kChunks, c = idx % kChunks;
     const int gr = row0 + r;
     const bool in = gr < n;
@@ -212,10 +215,19 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
   }
 }
 
+// The same, by a block of kThreads threads.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
+                                          int n, int stride = D) {
+  load_tile<D>(s, g, row0, n, stride, threadIdx.x);
+}
+
 // The A fragments (16 rows × D) of rows row[0] = r, row[1] = r + 8 of an
 // (n, D) bf16 matrix whose rows lie `stride` elements apart, read from
-// device memory; rows >= n are zero.
-template <int D>
+// device memory; rows >= n are zero. kL2: read through L2 (ld.global.cg),
+// for a matrix written earlier in the same launch, where the non-coherent
+// path the compiler may pick for a read-only pointer is not allowed.
+template <int D, bool kL2 = false>
 __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
                                              const bf16* p, const int (&row)[2],
                                              int n, int stride = D) {
@@ -226,9 +238,16 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
     for (int j = 0; j < 4; ++j) {
       const int r = row[j & 1];
       const int c = kk * 16 + (j >> 1) * 8 + 2 * tq;
-      f[kk][j] = r < n ? *reinterpret_cast<const uint32_t*>(
-                             p + static_cast<long long>(r) * stride + c)
-                       : 0u;
+      // the address formed only for r < n: formed for every row, it cost
+      // rows 2, 5 and 6 registers
+      if constexpr (kL2)
+        f[kk][j] = r < n ? __ldcg(reinterpret_cast<const uint32_t*>(
+                               p + static_cast<long long>(r) * stride + c))
+                         : 0u;
+      else
+        f[kk][j] = r < n ? *reinterpret_cast<const uint32_t*>(
+                               p + static_cast<long long>(r) * stride + c)
+                         : 0u;
     }
 }
 
@@ -323,6 +342,38 @@ struct Strided {
   __device__ int lse() const { return lse_stride; }
 };
 
+// Which threads run the forward's tile, how they meet, and where its K/V
+// buffers lie. WholeBlock (rows 1, 2, 3, 5): a block of kThreads threads,
+// __syncthreads(), buffers declared in the function, so that these
+// instantiations keep the code they had before this was a parameter.
+// HalfBlock (row 8, fused_block.cu): one 128-thread half of a 256-thread
+// block, numbered from 0 within the half, meeting at named barrier 1 + half
+// (barrier 0 is __syncthreads'), its buffers 4·64·(D + 8) bf16 of the
+// caller's shared memory (K's two, then V's two). NoMask only. Its q, k and
+// v were written earlier in the same launch: k and v come by cp.async.cg,
+// q through L2 (kL2Loads), never by the non-coherent path.
+struct WholeBlock {
+  static constexpr bool kOwnSmem = true;
+  static constexpr bool kL2Loads = false;
+  __device__ static unsigned tid() { return threadIdx.x; }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ bf16* kv() const { return nullptr; }
+};
+
+struct HalfBlock {
+  static constexpr bool kOwnSmem = false;
+  static constexpr bool kL2Loads = true;
+  bf16* kv_smem;
+  __device__ static unsigned tid() { return threadIdx.x & (kThreads - 1); }
+  __device__ static void sync() {
+    asm volatile("bar.sync %0, %1;\n"
+                 :: "r"(1 + static_cast<int>(threadIdx.x / kThreads)),
+                    "n"(kThreads)
+                 : "memory");
+  }
+  __device__ bf16* kv() const { return kv_smem; }
+};
+
 // How the forward hides keys besides kv_valid (the mask is one row per
 // group, the same for each of its query rows).
 enum class KeyMask {
@@ -414,32 +465,43 @@ __device__ __forceinline__ void store_tile_mask(uint32_t* keep, float* add_s,
 // for AddFloat), or null. kDrop: dropout by drop's keep bits of
 // (rng_group, row, column), at drop.thresh != 0. tile_counts (masked
 // policies; may be null): thread 0 adds the key tiles this block walks to
-// [0] and the key tiles of its rows to [1].
+// [0] and the key tiles of its rows to [1]. blk: the threads that run it
+// (WholeBlock or HalfBlock).
 template <int D, KeyMask kMask = KeyMask::NoMask, bool kDrop = false,
-          class Layout = Contiguous<D>>
+          class Layout = Contiguous<D>, class Block = WholeBlock>
 __device__ __forceinline__ void attend_rows_mma(
     int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk,
     int kv_valid, float scale, const void* __restrict__ kmask = nullptr,
     Dropout drop = Dropout{}, uint32_t rng_group = 0u,
-    unsigned long long* tile_counts = nullptr, Layout lay = Layout{}) {
+    unsigned long long* tile_counts = nullptr, Layout lay = Layout{},
+    Block blk = Block{}) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   constexpr bool kMasked = kMask != KeyMask::NoMask;
+  static_assert(Block::kOwnSmem || !kMasked,
+                "a half block runs the unmasked tile only");
   constexpr int S = D + 8;
   constexpr int M = fwd_m<D>();
   // keys per online-softmax step: the whole tile for one A tile a warp, half
   // of it for two (so that 2 × 4 score tiles are live, not 2 × 8)
   constexpr int kSub = M == 1 ? kCols : kCols / 2;
-  __shared__ __align__(16) bf16 ks[2][kCols * S];
-  __shared__ __align__(16) bf16 vs[2][kCols * S];
+  __shared__ __align__(16) bf16 ks_own[Block::kOwnSmem ? 2 : 1]
+                                      [Block::kOwnSmem ? kCols * S : 8];
+  __shared__ __align__(16) bf16 vs_own[Block::kOwnSmem ? 2 : 1]
+                                      [Block::kOwnSmem ? kCols * S : 8];
+  bf16 (*ks)[kCols * S] = reinterpret_cast<bf16 (*)[kCols * S]>(
+      Block::kOwnSmem ? &ks_own[0][0] : blk.kv());
+  bf16 (*vs)[kCols * S] = reinterpret_cast<bf16 (*)[kCols * S]>(
+      Block::kOwnSmem ? &vs_own[0][0] : blk.kv() + 2 * kCols * S);
   // the mask of the two buffered tiles: 64 keep bits (ReplaceByte) or 64
   // values (AddFloat)
   __shared__ uint32_t keep_s[2][kMask == KeyMask::ReplaceByte ? 2 : 1];
   __shared__ float add_s[2][kMask == KeyMask::AddFloat ? kCols : 1];
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const unsigned tid = blk.tid();  // unsigned, as threadIdx.x: the same code
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int tq = lane & 3;
   // this lane's rows: row[m][0] and row[m][1] = row[m][0] + 8 of A tile m
   int row[M][2];
@@ -449,8 +511,8 @@ __device__ __forceinline__ void attend_rows_mma(
     row[m][1] = row[m][0] + 8;
   }
 
-  load_tile<D>(ks[0], k, 0, sk, lay.qkv());
-  load_tile<D>(vs[0], v, 0, sk, lay.qkv());
+  load_tile<D>(ks[0], k, 0, sk, lay.qkv(), tid);
+  load_tile<D>(vs[0], v, 0, sk, lay.qkv(), tid);
   cp_async_commit();
   // The key tiles walked: all of them, or (masked policies) tiles 0 .. the
   // last one that holds a key < kv_valid the mask attends. Skipping the
@@ -479,7 +541,7 @@ __device__ __forceinline__ void attend_rows_mma(
   uint32_t qf[M][D / 16][4];
 #pragma unroll
   for (int m = 0; m < M; ++m)
-    load_a_frags<D>(qf[m], q, row[m], sq, lay.qkv());
+    load_a_frags<D, Block::kL2Loads>(qf[m], q, row[m], sq, lay.qkv());
 
   float acc[M][D / 8][4];
   float mr[M][2], l[M][2];  // running max; this lane's share of the row sums
@@ -496,8 +558,10 @@ __device__ __forceinline__ void attend_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv());
-      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv());
+      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv(),
+                    tid);
+      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv(),
+                    tid);
       cp_async_commit();
       if constexpr (kMasked)
         fetch_tile_mask<kMask>(raw, add, kmask, t + 1, sk, kv_valid);
@@ -505,7 +569,7 @@ __device__ __forceinline__ void attend_rows_mma(
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
+    blk.sync();
     // ReplaceByte: the tile's keep bits shifted by this lane's column
     // offset 2·tq, so that column cc + 2·tq is bit cc of kw[cc / 32] with
     // cc (< 32 within its word, 2·tq + (cc % 32) < 32) known at compile time
@@ -614,7 +678,7 @@ __device__ __forceinline__ void attend_rows_mma(
     if constexpr (kMasked)
       if (t + 1 < tiles)
         store_tile_mask<kMask>(keep_s[buf ^ 1], add_s[buf ^ 1], raw, add);
-    __syncthreads();  // every warp is done with this buffer
+    blk.sync();  // every warp is done with this buffer
   }
 
 #pragma unroll

@@ -6,7 +6,12 @@
 // multiples of 8, the TPU kernel vision_transformers_tpu/ops/fused_dense.py::
 // _ln_dense_kernel (:72), through ln_dense.cu (row 14 of PERF.md's kernel
 // table). fp32 inputs and other bf16 widths keep dense_tile.cuh's CUDA-core
-// tile, and so does row 8 (fused_block.cu) in every dtype.
+// tile.
+//
+// dense_residual_mma_tile, the same products with A streamed as it is (no
+// LayerNorm) and an epilogue that adds the bias and a residual, is row 8's
+// out-projection (fused_block.cu, _fused_block_kernel :1028), whose first
+// phase is ln_dense_mma_tile itself.
 //
 // What bounds it on the H100 (ViT-B/16 at batch 32: R = 6304, D = 768):
 // [ln_1 + QKV], N = 2304, is 2·R·D·N = 22.3 GFLOP, 22.6 µs at 989 TFLOP/s,
@@ -213,6 +218,47 @@ __device__ __forceinline__ void load_w(bf16* s, const bf16* __restrict__ w,
   }
 }
 
+// acc += one kBK step of A (as: kBM rows of kAS) times W (ws, as load_w
+// stores it) for warp (wm, wn): rows 64·wm .. +63, columns 32·wn .. +31,
+// 4 m16 A tiles against 4 n8 tiles, each fragment read from shared memory
+// once.
+template <bool kWk>
+__device__ __forceinline__ void mma_step(float (&acc)[4][4][4],
+                                         const bf16* as, const bf16* ws,
+                                         int lane, int wm, int wn) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mma::ldsm_x4(a[i], as + (wm * 64 + i * 16 + (lane & 7)
+                               + ((lane >> 3) & 1) * 8) * kAS
+                             + kk * 16 + (lane >> 4) * 8);
+    uint32_t b[4][2];
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t f[4];
+      if constexpr (kWk)
+        mma::ldsm_x4(f, ws + (wn * 32 + np * 16 + (lane & 7)
+                              + ((lane >> 4) << 3)) * kAS
+                            + kk * 16 + ((lane >> 3) & 1) * 8);
+      else
+        mma::ldsm_x4_t(f, ws + (kk * 16 + (lane & 7)
+                                + ((lane >> 3) & 1) * 8) * kWS
+                              + wn * 32 + np * 16 + (lane >> 4) * 8);
+      b[2 * np][0] = f[0];
+      b[2 * np][1] = f[1];
+      b[2 * np + 1][0] = f[2];
+      b[2 * np + 1][1] = f[3];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma::mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
+}
+
 // The output tile at (m0, n0), with the rows' (μ, rstd) in stats (row_stats
 // ran first). The caller launched kThreads threads.
 template <bool kWk>
@@ -240,10 +286,12 @@ __device__ __forceinline__ void ln_dense_mma_tile(
   float mu[2], rs[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    // through L2 (ld.global.cg): fused_block.cu writes them earlier in the
+    // same launch, which the non-coherent path does not allow
     const float2 st =
         grow[i] < rows
-            ? *reinterpret_cast<const float2*>(
-                  stats + 2 * static_cast<long long>(grow[i]))
+            ? __ldcg(reinterpret_cast<const float2*>(
+                  stats + 2 * static_cast<long long>(grow[i])))
             : make_float2(0.f, 0.f);
     mu[i] = st.x;
     rs[i] = st.y;
@@ -273,39 +321,7 @@ __device__ __forceinline__ void ln_dense_mma_tile(
       if (t + 2 < steps) load_gb(sm.gb[buf], gamma, beta, d, (t + 2) * kBK);
       mma::cp_async_commit();
     }
-    const bf16* as = sm.a[buf];
-    const bf16* ws = sm.w[buf];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        mma::ldsm_x4(a[i], as + (wm * 64 + i * 16 + (lane & 7)
-                                 + ((lane >> 3) & 1) * 8) * kAS
-                               + kk * 16 + (lane >> 4) * 8);
-      uint32_t b[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t f[4];
-        if constexpr (kWk)
-          mma::ldsm_x4(f, ws + (wn * 32 + np * 16 + (lane & 7)
-                                + ((lane >> 4) << 3)) * kAS
-                              + kk * 16 + ((lane >> 3) & 1) * 8);
-        else
-          mma::ldsm_x4_t(f, ws + (kk * 16 + (lane & 7)
-                                  + ((lane >> 3) & 1) * 8) * kWS
-                                + wn * 32 + np * 16 + (lane >> 4) * 8);
-        b[2 * np][0] = f[0];
-        b[2 * np][1] = f[1];
-        b[2 * np + 1][0] = f[2];
-        b[2 * np + 1][1] = f[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma::mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
+    mma_step<kWk>(acc, sm.a[buf], sm.w[buf], lane, wm, wn);
     if (t + 1 < steps) {
       // the other buffer's readers finished at the last barrier
       store_a(sm.a[buf ^ 1], xr, mu, rs, sm.gb[buf ^ 1], d,
@@ -335,6 +351,93 @@ __device__ __forceinline__ void ln_dense_mma_tile(
         }
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(activate(y0, act), activate(y1, act));
+      }
+    }
+}
+
+// The shared buffers of dense_residual_mma_tile: two A slices (128 rows of
+// kAS) and two W slices, as load_w stores them.
+template <bool kWk>
+struct PlainSmem {
+  __align__(16) bf16 a[2][kBM * kAS];
+  __align__(16) bf16 w[2][kWk ? kBN * kAS : kBK * kWS];
+};
+
+// A's slice k0 .. k0 + kBK of rows m0 .. m0 + kBM (an (R, D) bf16 matrix)
+// into one buffer by cp.async, 512 16-byte chunks, two a thread; zero past R
+// or D. The caller commits.
+__device__ __forceinline__ void load_a(bf16* s, const bf16* __restrict__ a,
+                                       int rows, int d, int m0, int k0) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx >> 2, c = (idx & 3) * 8;
+    const int gr = m0 + r, gk = k0 + c;
+    const bool in = gr < rows && gk < d;
+    mma::cp_async_16(s + r * kAS + c,
+                     a + (in ? static_cast<long long>(gr) * d + gk : 0), in);
+  }
+}
+
+// The output tile at (m0, n0), kBM × kBN, of out = round(a·W + bias +
+// resid) with no LayerNorm: a (R, D), resid and out (R, N), bf16; bias fp32
+// (N,). A and W stream by cp.async, double-buffered one k step ahead; the
+// products are mma_step's, as in ln_dense_mma_tile; the epilogue adds the
+// bias and resid (read in fp32) to the fp32 accumulators and rounds once.
+// The caller launched kThreads threads.
+template <bool kWk>
+__device__ __forceinline__ void dense_residual_mma_tile(
+    const bf16* __restrict__ a, const bf16* __restrict__ w, long long ldw,
+    const float* __restrict__ bias, const bf16* __restrict__ resid,
+    bf16* __restrict__ out, int rows, int d, int n, int m0, int n0,
+    PlainSmem<kWk>& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int steps = (d + kBK - 1) / kBK;
+  load_a(sm.a[0], a, rows, d, m0, 0);
+  load_w<kWk>(sm.w[0], w, ldw, d, n, n0, 0);
+  mma::cp_async_commit();
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < steps) {
+      load_a(sm.a[buf ^ 1], a, rows, d, m0, (t + 1) * kBK);
+      load_w<kWk>(sm.w[buf ^ 1], w, ldw, d, n, n0, (t + 1) * kBK);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    mma_step<kWk>(acc, sm.a[buf], sm.w[buf], lane, wm, wn);
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 64 + i * 16 + g + 8 * h;
+      if (row >= rows) continue;
+      const long long off = static_cast<long long>(row) * n;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn * 32 + j * 8 + 2 * tq;
+        if (col >= n) continue;  // n % 8 == 0: col + 1 < n too
+        const float2 r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(resid + off + col));
+        *reinterpret_cast<__nv_bfloat162*>(out + off + col) =
+            __floats2bfloat162_rn(acc[i][j][2 * h] + bias[col] + r.x,
+                                  acc[i][j][2 * h + 1] + bias[col + 1] + r.y);
       }
     }
 }

@@ -34,13 +34,27 @@
 //     on the CUDA cores, 32 × 32 tiles in shared memory; grid x = B·H,
 //     y = ceil(S / 32), 128 threads; each block re-reads its group's other
 //     operands (L2-resident).
-// Backward, in both dtypes: the two passes of attention_bwd_tile.cuh on the
-// CUDA cores, each with the forward's fp32 grid (its y counts query tiles,
-// then key tiles), replaying either route's mask: both take the keep bit of
-// (b·H + h, row, column) from philox.cuh.
+// Two backward routes, by dtype; both replay either forward route's mask,
+// the keep bit of (b·H + h, row, column) from philox.cuh:
+//   bf16: packed_bwd_dq_mma_kernel, then packed_bwd_dkv_mma_kernel, on
+//     attention_bwd_mma_tile.cuh's two passes with the Strided layout (q, k,
+//     v and dq, dk, dv rows 3·H·dh apart, do and out H·dh, lse H), so the
+//     tensor-core backward of row 6 reads the projection and writes dqkv in
+//     place; <D, false> at rate 0 (no dropout code), <D, true> at rate > 0.
+//     pd and ds are rounded to bf16 before their products, as
+//     _packed_bwd_kernel does (:875-879). Grids x = B·H, y = ceil(S / 64)
+//     query rows (pass 1) or keys (pass 2), 128 threads. The dk/dv pass is
+//     not split along its query loop (row 6's dkv_chunks): the main path's
+//     grids fill the card (ViT-B at batch 32: 384 groups × 4 key tiles =
+//     1536 blocks; vit_tiny at batch 64: 512). The qkv, do, out and dqkv
+//     pointers must be 16-byte aligned (checked here).
+//   fp32: the two passes of attention_bwd_tile.cuh on the CUDA cores, each
+//     with the forward's fp32 grid (its y counts query tiles, then key
+//     tiles).
 #include <cstdint>
 #include <type_traits>
 
+#include "attention_bwd_mma_tile.cuh"
 #include "attention_bwd_tile.cuh"
 #include "attention_mma_tile.cuh"
 
@@ -128,6 +142,49 @@ packed_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                           s, s, kv_valid, scale, drop, blockIdx.x);
 }
 
+// rate 0 (kDrop false) and rate > 0 (kDrop true), as the forward; delta:
+// B·H·S fp32, S per group.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const __nv_bfloat16* __restrict__ out,
+                         const float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ dqkv,
+                         float* __restrict__ delta, int s, int heads,
+                         int kv_valid, float scale, vtt::Dropout drop) {
+  const PackedGroup<__nv_bfloat16, D> g(s, heads);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::mma::bwd_dq_rows_mma<D, vtt::mma::Strided, kDrop>(
+      blockIdx.y * vtt::mma::kRows, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), out + g.unpacked(), lse + g.lse(), nullptr,
+      dqkv + g.packed(), delta + static_cast<long long>(blockIdx.x) * s, s,
+      s, kv_valid, scale, drop, blockIdx.x,
+      vtt::mma::Strided{static_cast<int>(3 * g.hd), static_cast<int>(g.hd),
+                        heads});
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dqkv, int s, int heads,
+                          int kv_valid, float scale, vtt::Dropout drop) {
+  const PackedGroup<__nv_bfloat16, D> g(s, heads);
+  const __nv_bfloat16* q = qkv + g.packed();
+  __nv_bfloat16* dq = dqkv + g.packed();
+  vtt::mma::bwd_dkv_rows_mma<D, vtt::mma::Strided, kDrop>(
+      blockIdx.y * vtt::mma::kRows, 0, (s + vtt::mma::kCols - 1) /
+      vtt::mma::kCols, q, q + g.hd, q + 2 * g.hd, dout + g.unpacked(),
+      lse + g.lse(), delta + static_cast<long long>(blockIdx.x) * s, nullptr,
+      dq + g.hd, dq + 2 * g.hd, nullptr, nullptr, s, s, kv_valid, scale,
+      drop, blockIdx.x,
+      vtt::mma::Strided{static_cast<int>(3 * g.hd), static_cast<int>(g.hd),
+                        heads});
+}
+
 struct Args {
   const void* qkv;
   const void* dout;  // backward only
@@ -168,21 +225,49 @@ int launch_fwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_bwd(const Args& a) {
-  const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
-  packed_bwd_dq_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
-      static_cast<const T*>(a.out), static_cast<const float*>(a.lse),
-      static_cast<T*>(a.dqkv), static_cast<float*>(a.delta), a.s, a.heads,
-      a.kv_valid, a.scale, a.drop);
+template <int D, bool kDrop>
+int launch_bwd_mma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  const dim3 grid(a.b * a.heads,
+                  (a.s + vtt::mma::kRows - 1) / vtt::mma::kRows);
+  const auto* qkv = static_cast<const bf16*>(a.qkv);
+  const auto* dout = static_cast<const bf16*>(a.dout);
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* dqkv = static_cast<bf16*>(a.dqkv);
+  auto* delta = static_cast<float*>(a.delta);
+  packed_bwd_dq_mma_kernel<D, kDrop><<<grid, vtt::mma::kThreads, 0,
+                                       a.stream>>>(
+      qkv, dout, static_cast<const bf16*>(a.out), lse, dqkv, delta, a.s,
+      a.heads, a.kv_valid, a.scale, a.drop);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  packed_bwd_dkv_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dqkv), a.s, a.heads, a.kv_valid, a.scale, a.drop);
+  packed_bwd_dkv_mma_kernel<D, kDrop><<<grid, vtt::mma::kThreads, 0,
+                                        a.stream>>>(
+      qkv, dout, lse, delta, dqkv, a.s, a.heads, a.kv_valid, a.scale,
+      a.drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_bwd(const Args& a) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return a.drop.thresh != 0u ? launch_bwd_mma<D, true>(a)
+                               : launch_bwd_mma<D, false>(a);
+  } else {
+    const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
+    packed_bwd_dq_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
+        static_cast<const T*>(a.out), static_cast<const float*>(a.lse),
+        static_cast<T*>(a.dqkv), static_cast<float*>(a.delta), a.s, a.heads,
+        a.kv_valid, a.scale, a.drop);
+    int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    packed_bwd_dkv_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dqkv), a.s, a.heads, a.kv_valid, a.scale, a.drop);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>
@@ -225,12 +310,19 @@ int packed_attention_fwd(const void* qkv, void* out, void* lse, int b, int s,
 }
 
 // delta: fp32 scratch of B·H·S elements (δ = rowsum(do ⊙ out), written by
-// the first pass and read by the second).
+// the first pass and read by the second). A bf16 qkv, do, out or dqkv that
+// is not 16-byte aligned is refused (cudaErrorMisalignedAddress): the
+// tensor-core route copies 16 bytes at a time.
 int packed_attention_bwd(const void* qkv, const void* dout, const void* out,
                          const void* lse, void* dqkv, void* delta, int b,
                          int s, int heads, int dh, int kv_valid, float scale,
                          int is_bf16, unsigned int drop_thresh, float inv_keep,
                          unsigned long long seed, void* stream) {
+  if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(qkv) |
+                   reinterpret_cast<std::uintptr_t>(dout) |
+                   reinterpret_cast<std::uintptr_t>(out) |
+                   reinterpret_cast<std::uintptr_t>(dqkv)) & 15u))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{qkv, dout, out, lse, dqkv, delta, b, s, heads, kv_valid, scale,
                vtt::make_dropout(drop_thresh, inv_keep, seed),
                static_cast<cudaStream_t>(stream)};

@@ -5,7 +5,8 @@ into a shared library with a plain C interface, at first use, and loaded
 with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
 The libraries go to ``csrc/build/`` (listed in ``.gitignore``), named by a
 hash of the sources and the flags: an edited source builds anew, an
-unchanged one is reused.
+unchanged one is reused, and so is the compiler's output kept beside it
+(``build_log``, whose ``-Xptxas -v`` lines give each kernel's registers).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent part is all they see.
@@ -120,13 +121,22 @@ _SIGNATURES = {
     "fused_block": {
         "fused_block_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L] + [_P] * 4
                             + [_I] * 4 + [_F, _F, _I, _P]),
+        # (x, gamma, beta, wqkv, ldk1, ldn1, bqkv, wout, ldk3, ldn3, bout,
+        #  qkv_ws, attn_ws, out, stats, lse_ws, b, s, heads, dh, scale, eps,
+        #  stream): bf16 only, tensor cores
+        "fused_block_mma_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L]
+                                + [_P] * 6 + [_I] * 4 + [_F, _F, _P]),
+        # the same with `phases` before the stream: measurement only
+        "fused_block_mma_phases": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L]
+                                   + [_P] * 6 + [_I] * 4 + [_F, _F, _I,
+                                                            _P]),
         "fused_block_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # name -> nvcc output of this process's build
+build_log: Dict[str, str] = {}  # name -> nvcc output of its library's build
 
 
 def _nvcc() -> str:
@@ -152,6 +162,10 @@ def build(names: Sequence[str] = KERNELS) -> float:
     t0 = time.perf_counter()
     with _lock:
         todo = [(n, _lib_path(n)) for n in names]
+        for name, path in todo:
+            if path.exists() and path.with_suffix(".log").exists():
+                build_log.setdefault(name,
+                                     path.with_suffix(".log").read_text())
         todo = [(n, p) for n, p in todo if not p.exists()]
         if not todo:
             return 0.0
@@ -170,7 +184,11 @@ def build(names: Sequence[str] = KERNELS) -> float:
             out, _ = proc.communicate()
             build_log[name] = out
             if proc.returncode == 0:
-                os.replace(tmp, path)  # atomic: a reader never sees half a file
+                # atomic: a reader never sees half a file, nor a library
+                # without its log
+                tmp.with_suffix(".log").write_text(out)
+                os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
+                os.replace(tmp, path)
             else:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
         if failed:

@@ -9,8 +9,9 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   place from the packed (B, S, 3·H·dh) QKV projection, with in-kernel
   probability dropout; the backward recomputes the probabilities from
   (qkv, lse), replays the dropout mask and writes the packed dqkv. For bf16
-  the forward runs on the tensor cores (``csrc/attention_mma_tile.cuh`` with
-  the packed row strides); the backward stays on the CUDA cores.
+  both run on the tensor cores, on the tiles of
+  ``csrc/attention_mma_tile.cuh`` and ``csrc/attention_bwd_mma_tile.cuh``
+  with the packed row strides; for fp32 on the CUDA cores.
 - ``flash_dropout_attention`` (``csrc/dropout_attention.cu``) replaces
   ``_drop_fwd_kernel`` and ``_drop_bwd_kernel``: split-head (B, H, S, D)
   attention with dropout, a key-padding mask and Sq != Sk. For bf16 the
@@ -49,8 +50,10 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``fused_attention_block`` (``csrc/fused_block.cu``) replaces
   ``_fused_block_kernel``: LayerNorm, QKV projection, attention,
   out-projection and residual of a pre-LN encoder layer in one launch (the
-  ``USE_FUSED_BLOCK`` inference path); its backward differentiates the plain
-  version, as the JAX package recomputes it in jnp.
+  ``USE_FUSED_BLOCK`` inference path); for bf16 (``fused_block_route``)
+  every product runs on the tensor cores, on ``csrc/dense_mma_tile.cuh``
+  and ``csrc/attention_mma_tile.cuh``. Its backward differentiates the
+  plain version, as the JAX package recomputes it in jnp.
 
 Each wrapper takes its plain PyTorch version (``*_reference``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel or raises: there
@@ -409,11 +412,16 @@ def packed_flash_attention_bwd(
         qkv: torch.Tensor, do: torch.Tensor, out: torch.Tensor,
         lse: torch.Tensor, heads: int, scale: Optional[float] = None,
         dropout_rate: float = 0.0, seed: Optional[int] = None,
-        kv_valid: Optional[int] = None) -> torch.Tensor:
+        kv_valid: Optional[int] = None, *,
+        dqkv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The packed backward: (qkv, do, out, lse) of a forward with the same
     ``scale``, ``dropout_rate``, ``seed`` and ``kv_valid`` → dqkv. Every
     element of dqkv is written. Gradients are equal from run to run: dk and
-    dv are summed in a fixed order, without atomics."""
+    dv are summed in a fixed order, without atomics. ``dqkv`` (CUDA only): a
+    contiguous tensor like qkv to write into instead of a new one. bf16
+    takes the tensor cores (``packed_bwd_dq_mma_kernel``,
+    ``packed_bwd_dkv_mma_kernel``), where qkv, do, out and dqkv must be
+    16-byte aligned or the launch raises; fp32 the CUDA cores."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if do.shape != (b, s, hd) or out.shape != (b, s, hd) \
@@ -432,7 +440,9 @@ def packed_flash_attention_bwd(
         _check_cuda_operand(name, t, qkv.dtype, dh)
     _check_cuda_operand("lse", lse, torch.float32, dh)
     _check_same_device(qkv, do=do, out=out, lse=lse)
-    dqkv = torch.empty_like(qkv)
+    if dqkv is None:
+        dqkv = torch.empty_like(qkv)
+    _check_into("dqkv", dqkv, qkv)
     delta = torch.empty(b * heads * s, dtype=torch.float32, device=qkv.device)
     lib = _build.load("packed_attention")
     with torch.cuda.device(qkv.device):
@@ -1703,13 +1713,36 @@ def fused_block_supported(hd: int, heads: int) -> bool:
     """The port's size rule for ``fused_attention_block``, in place of the
     JAX package's VMEM budget (``fused_block_supported(s, hd, itemsize)``,
     :1015, which counts Wqkv and Wout resident in a TPU core's VMEM). The
-    CUDA kernel keeps no operand resident: weights, qkv and keys stream
-    through fixed 64 × 64 and 32 × dh shared-memory tiles, the rest goes
-    through a device-memory workspace. So neither S nor the width is
-    limited; the one condition is a head dim the kernel is built for
-    (``KERNEL_HEAD_DIMS``). ViT-L (hd 1024, dh 64) is admitted in bf16,
-    which the JAX rule excludes."""
+    CUDA kernels keep no operand resident: weights, qkv and keys stream
+    through fixed shared-memory tiles, the rest goes through a device-memory
+    workspace. So neither S nor the width is limited; the one condition is a
+    head dim the kernels are built for (``KERNEL_HEAD_DIMS``). ViT-L
+    (hd 1024, dh 64) is admitted in bf16, which the JAX rule excludes."""
     return heads > 0 and hd % heads == 0 and hd // heads in KERNEL_HEAD_DIMS
+
+
+def fused_block_route(dtype: torch.dtype, hd: int, heads: int,
+                      strides: Tuple[int, int, int, int]) -> str:
+    """The route of a CUDA launch of the fused sub-block, from the operands
+    alone, before any launch: ``"tensor_cores"`` (``fused_block_mma_kernel``,
+    every product on ``mma.sync``) for bf16 whose width H·dh is a multiple of
+    8 and whose two weights lie in one layout — both (in, out) (ldn = 1) or
+    both torch's (out, in) (ldk = 1) — at leading strides that are multiples
+    of 8 (the 16-byte rows the tiles' copies need; every model of the repo);
+    else ``"cuda_cores"`` (``fused_block_kernel``). ``strides``: (ldk, ldn)
+    of Wqkv, then of Wout. A shape rule, not a fallback: a launch on the
+    chosen route that fails raises."""
+    ldk1, ldn1, ldk3, ldn3 = strides
+    if ldk1 == 1 and ldk3 == 1:
+        leads = (ldn1, ldn3)
+    elif ldn1 == 1 and ldn3 == 1:
+        leads = (ldk1, ldk3)
+    else:
+        return "cuda_cores"
+    if dtype == torch.bfloat16 and fused_block_supported(hd, heads) \
+            and hd % 8 == 0 and all(ld % 8 == 0 for ld in leads):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _block_dims(x, wqkv, wout, heads, scale):
@@ -1774,13 +1807,44 @@ def fused_attention_block_fwd(
         eps: float = 1e-6, *, out: Optional[torch.Tensor] = None
         ) -> torch.Tensor:
     """The fused sub-block's forward, no autograd graph: one kernel launch
-    on a CUDA x, the plain version on a CPU one. ``out`` (CUDA only): a
-    contiguous tensor like x to write into instead of a new one."""
+    on a CUDA x (the route of ``fused_block_route``), the plain version on a
+    CPU one. ``out`` (CUDA only): a contiguous tensor like x to write into
+    instead of a new one. On the tensor-core route x, both weights and out
+    must be 16-byte aligned, or the launch raises."""
     hd, dh, scale = _block_dims(x, wqkv, wout, heads, scale)
     if x.device.type == "cpu":
         return fused_attention_block_reference(x, gamma, beta, wqkv, bqkv,
                                                wout, bout, heads, scale, eps)
+    return _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads,
+                               hd, dh, scale, eps, out, None)
 
+
+def _measure_fused_block_phases(
+        x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+        wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor,
+        bout: torch.Tensor, heads: int, phases: Sequence[int],
+        scale: Optional[float] = None, eps: float = 1e-6) -> torch.Tensor:
+    """For measurement only, never on a model's path: the tensor-core
+    route's ``phases`` (0 the row statistics, 1 LayerNorm + QKV, 2 the
+    attention, 3 the out-projection), each as one ordinary launch of its
+    own, in order, instead of the block's one cooperative launch. With all
+    four the output is the block's, bit for bit; with fewer it is not. It
+    raises for a CPU x and for operands the route rule sends to the CUDA
+    cores."""
+    hd, dh, scale = _block_dims(x, wqkv, wout, heads, scale)
+    if x.device.type == "cpu" or not set(phases) <= {0, 1, 2, 3} \
+            or not phases:
+        raise ValueError(f"phases {tuple(phases)} of 0..3 run on the card's "
+                         f"tensor-core kernel only, got x on {x.device}")
+    return _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads,
+                               hd, dh, scale, eps, None,
+                               sum(1 << p for p in set(phases)))
+
+
+def _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads, hd,
+                        dh, scale, eps, out, phases):
+    """The CUDA launch of ``fused_attention_block_fwd`` (``phases`` None) or
+    of ``_measure_fused_block_phases`` (``phases`` a bit mask)."""
     from vision_transformers_tpu_torch.ops import _build
 
     _check_cuda_operand("x", x, x.dtype, dh)
@@ -1791,6 +1855,10 @@ def fused_attention_block_fwd(
     _check_same_device(x, wqkv=wqkv, wout=wout)
     ldk1, ldn1 = _weight_strides("wqkv", wqkv)
     ldk3, ldn3 = _weight_strides("wout", wout)
+    route = fused_block_route(x.dtype, hd, heads, (ldk1, ldn1, ldk3, ldn3))
+    if phases is not None and route != "tensor_cores":
+        raise ValueError("phases run on the tensor-core kernel only; these "
+                         "operands take the CUDA cores")
     r = {}  # the fp32 parameter rows as contiguous (n,) tensors
     for name, t, n in (("gamma", gamma, hd), ("beta", beta, hd),
                        ("bqkv", bqkv, 3 * hd), ("bout", bout, hd)):
@@ -1807,14 +1875,27 @@ def fused_attention_block_fwd(
     qkv_ws = torch.empty(b, s, 3 * hd, dtype=x.dtype, device=x.device)
     attn_ws = torch.empty(b, s, hd, dtype=x.dtype, device=x.device)
     lib = _build.load("fused_block")
+    head = (x.data_ptr(), r["gamma"].data_ptr(), r["beta"].data_ptr(),
+            wqkv.data_ptr(), ldk1, ldn1, r["bqkv"].data_ptr(),
+            wout.data_ptr(), ldk3, ldn3, r["bout"].data_ptr(),
+            qkv_ws.data_ptr(), attn_ws.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):  # launch on the tensor's card
-        rc = lib.fused_block_fwd(
-            x.data_ptr(), r["gamma"].data_ptr(), r["beta"].data_ptr(),
-            wqkv.data_ptr(), ldk1, ldn1, r["bqkv"].data_ptr(), wout.data_ptr(),
-            ldk3, ldn3, r["bout"].data_ptr(), qkv_ws.data_ptr(),
-            attn_ws.data_ptr(), out.data_ptr(), b, s, heads, dh, scale,
-            float(eps), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "tensor_cores":
+            # each row's (mean, rstd); the attention phase's lse, unread
+            stats = torch.empty(b * s, 2, dtype=torch.float32,
+                                device=x.device)
+            lse_ws = torch.empty(b, s, heads, dtype=torch.float32,
+                                 device=x.device)
+            tail = (stats.data_ptr(), lse_ws.data_ptr(), b, s, heads, dh,
+                    scale, float(eps))
+            rc = lib.fused_block_mma_fwd(*head, *tail, stream) \
+                if phases is None \
+                else lib.fused_block_mma_phases(*head, *tail, phases, stream)
+        else:
+            rc = lib.fused_block_fwd(*head, b, s, heads, dh, scale,
+                                     float(eps),
+                                     int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, "fused_block", rc)
     LAUNCHES["fused_attention_block"] += 1
     return out
