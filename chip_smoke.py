@@ -10,9 +10,12 @@ exit, and without the final result line:
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
    (one ``nvcc`` per source, all in parallel), and the registers, shared
-   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-3,
-   5-8 and 14; the tensor-core kernels of rows 1, 2, 3, 5, 6 and 14 must
-   keep their registers (``KEPT_REGISTERS``).
+   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-8
+   and 14; the kernels of rows 1-7 and 14, on both routes, must keep their
+   registers (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
+   CUDA-core route) must read its workspaces through L2 (``cuobjdump
+   -sass``: its .CONSTANT loads, beside their count before the repair, and
+   its .STRONG.GPU ones).
 2. Kernels against their plain PyTorch versions, on the card, in bf16 and
    fp32, at the shapes the serving and training paths give them; the
    dropout and backward kernels at rate 0 and 0.1 under one seed (so both
@@ -22,7 +25,9 @@ exit, and without the final result line:
    window kernels at the shapes of Swin-T's and SwinV2-T's stages at batch
    32 and of a CIFAR window, with a shared and a per-window bias; the two
    fused ones with and without a shift into an output pre-filled with NaN
-   (every element must be written), and against each other on one map.
+   (every element must be written), and against each other on one map; in
+   bf16 each is also bit-equal to its plain version but for a small share
+   of elements, since both round the probabilities where the TPU kernels do.
    The window backward kernel at the same stage shapes (shared, per-window
    and no bias, with and without the bias gradient, dh 16/32/64) against
    its plain version and, in fp32, against autograd of the plain forward,
@@ -36,11 +41,13 @@ exit, and without the final result line:
    bias-free, mask-free ViT-B shape at S 1297, with ``kv_valid`` < Sk, into
    an output pre-filled with NaN, twice for equal bits, and an image whose
    keys are all masked against ``mha_reference``; the small-S backward
-   (``flash_attention_bwd``) at the DETR decoder's self attention and at
-   ViT-B/16's S 197 against its plain version, the row-6 kernel at rate 0
-   and, in fp32, autograd of the plain forward, into NaN-filled gradients,
-   twice for equal bits. The fused LayerNorm + Dense (``ln_dense``) at
-   benchmarks/ln_fused.py's ViT-B shapes at batch 32 ([ln_1 + QKV] and
+   (``flash_attention_bwd``) at the DETR decoder's self attention, at
+   ViT-B/16's S 197 and at ragged, cross and ``kv_valid`` shapes against its
+   plain version (bf16 on the tensor cores by name in a profile, to
+   ``MMA_GRAD_TOL``), the row-6 kernel at rate 0 and, in fp32, autograd of
+   the plain forward, into NaN-filled gradients, twice for equal bits. The
+   fused LayerNorm + Dense (``ln_dense``) at benchmarks/ln_fused.py's ViT-B
+   shapes at batch 32 ([ln_1 + QKV] and
    [ln_2 + fc1 + GELU], ragged R and N without a bias, erf GELU), in bf16
    and fp32, each beside a planted fault (the plain output with one 16-wide
    k slice left out) that must exceed its limit, torch's (out, in) weight
@@ -49,14 +56,15 @@ exit, and without the final result line:
    1, into NaN-filled outputs, twice for equal bits, torch's (out, in)
    weights bit-equal to the (in, out) ones, beside a planted fault (one
    16-wide k slice of Wout left out); gradients through both autograd
-   functions in fp32. Rows 1, 2, 3, 5, 6, 7, 8 and 14: bf16 launches go
+   functions in fp32. Rows 1-8 and 14: bf16 launches go
    through the tensor-core kernels and fp32 ones through the CUDA-core
    kernels, by the kernels' names in a ``torch.profiler`` trace (here, and
    on the served ViT-B/16 forward of phase 3, the split-head forward of
    phase 4, the ViT-B/16 train step (rows 1 and 7) and the split-head train
    steps of phase 6, every flag-on forward of the ViT family (row 8) and the
    ln_fused chain in phase 6g, and the DETR eval forwards and train steps
-   of phase 7); rows 1 and 7 in bf16 at the ViT paths' shapes (ViT-B/16 and
+   of phase 7, row 4 in the step at dropout 0); rows 1 and 7 in bf16 at the
+   ViT paths' shapes (ViT-B/16 and
    T2T-ViT-14 at batch 32, vit_tiny at 64; rate 0 and 0.1) into NaN-filled
    outputs, reruns bit-equal, beside a planted fault (the plain output, or
    gradients, under the next seed's mask); the bf16
@@ -152,7 +160,9 @@ exit, and without the final result line:
    (the wait at its grid barriers; ``_measure_fused_block_phases``), and
    rows 14 and 1 alone at its shapes; rows 2, 3, 5 and 6 also at the path
    shapes of phase 2, with their TFLOP/s and SDPA's time (rows 3 and 5 also
-   the share of key tiles they skip).
+   the share of key tiles they skip); row 4 at the DETR decoder's shape and
+   ViT-B's with its TFLOP/s and device time beside SDPA's backward and row
+   6 at rate 0.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -184,22 +194,43 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
 # The window kernels against their plain versions. fp32: summation order and
-# expf against torch.exp on outputs of magnitude <= 5. bf16: the plain
-# versions round the normalised probabilities to bf16 before PV (as the TPU
-# kernels do) while the kernels keep them fp32, plus one rounding of the output.
-WINDOW_TOL = {"float32": 5e-6, "bfloat16": 2e-2}
+# expf against torch.exp on outputs of magnitude <= 5. bf16: kernels and plain
+# versions round the normalised probabilities to bf16 before PV, as the TPU
+# kernels do, so what is left is fp32 summation order moving a rounding (of a
+# probability or of the output) by one step: one bf16 step at |out| in
+# [2, 4), 2^-6, where all but a few of the largest outputs of these shapes
+# lie (max|ref| is printed with each check, at most 4.31 on an H100; measured
+# error at most 7.8e-3), and at
+# most WINDOW_DIFFERING_MAX of the output elements differ from the plain
+# version's bits at all (at most 0.051% on an H100). Rounding the
+# probabilities elsewhere (after P·V, or not at all) moves far more.
+WINDOW_TOL = {"float32": 5e-6, "bfloat16": 1.6e-2}
+WINDOW_DIFFERING_MAX = 5e-3
+# The library chain (roll, partition, SDPA, reverse, roll) against the window
+# plain version in bf16: SDPA rounds its probabilities at its own points.
+LIBRARY_WINDOW_TOL = 2e-2
 # Gradients of a kernel against its plain version, relative to the largest
 # reference element (gradients grow with S). fp32: summation order and expf
-# against torch.exp. bf16: the plain versions round the probabilities and ds
-# to bf16 before their products, as the TPU kernels do, while the CUDA-core
-# kernels (the window backward, row 4) keep them in fp32; plus one bf16
-# rounding of the result.
+# against torch.exp. bf16: the looser bound, for kernels that round at other
+# points than the plain version they are held against (row 4 against row 6,
+# which rounds ds·scale where row 4 rounds ds), plus one bf16 rounding of
+# the result.
 GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
-# The bf16 tensor-core backwards of rows 6 and 7 against their plain
-# versions, relative to the largest reference element: both round pd and ds
-# to bf16 before their products (as the TPU kernels do), so what is left is
-# summation order and one rounding of the result (up to 3.1e-3 at PVT stage
-# 1 on an H100).
+# The bf16 window backward (row 10) against its plain version, relative to
+# the largest reference element: both round p (for dv) and ds·scale (for dq
+# and dk) to bf16 before their products, as _window_pack_bwd_kernel does, so
+# what is left is summation order and one rounding of the result, at most one
+# bf16 step at the largest element, 2^-7 relative (3.2e-3 measured on an
+# H100, a step of 2^-6 beside max|ref| 4.9); and at most WINDOW_DIFFERING_MAX
+# of dqkv's elements differ from the plain version's bits (0.025% at most on
+# an H100).
+WINDOW_GRAD_TOL = 8e-3
+# The bf16 tensor-core backwards of rows 4, 6 and 7 against their plain
+# versions, relative to the largest reference element: each rounds pd and ds
+# to bf16 before their products where its TPU kernel does (row 4 ds before
+# the scale, rows 6 and 7 ds·scale), and so does its plain version, so what
+# is left is summation order and one rounding of the result (up to 3.1e-3 at
+# PVT stage 1 on an H100).
 MMA_GRAD_TOL = 5e-3
 # The bf16 kernels of rows 3 and 5 against their plain versions at the
 # paths' shapes (Sk in the thousands, so |out| stays well below 1), times
@@ -209,9 +240,10 @@ MMA_GRAD_TOL = 5e-3
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
 # Substrings of the CUDA kernels' names that tell the routes of rows 1, 2,
-# 3, 5, 6, 7, 8 and 14 apart in a profile (csrc/packed_attention.cu,
+# 3, 4, 5, 6, 7, 8 and 14 apart in a profile (csrc/packed_attention.cu,
 # csrc/flash_attention.cu, csrc/flash_attention_large.cu,
-# csrc/dropout_attention.cu, csrc/fused_block.cu, csrc/ln_dense.cu): bf16 on
+# csrc/flash_attention_bwd.cu, csrc/dropout_attention.cu,
+# csrc/fused_block.cu, csrc/ln_dense.cu): bf16 on
 # the tensor cores, fp32 on the CUDA cores (row 14 by
 # ops/fused_dense.py::ln_dense_route, its tensor-core route after the
 # statistics launch, and row 8 by ops/flash_attention.py::fused_block_route;
@@ -235,6 +267,9 @@ ROUTE_NAMES = {
     ("row 5", "float32"): ("drop_fwd_kernel",),
     ("row 6", "bfloat16"): ("drop_bwd_dq_mma_kernel", "drop_bwd_dkv_mma_kernel"),
     ("row 6", "float32"): ("drop_bwd_dq_kernel", "drop_bwd_dkv_kernel"),
+    ("row 4", "bfloat16"): ("flash_bwd_dq_mma_kernel",
+                            "flash_bwd_dkv_mma_kernel"),
+    ("row 4", "float32"): ("flash_bwd_kernel",),
 }
 # fp32 parameter gradients of a 2-layer model, card against CPU: summation
 # order through two blocks, relative to the largest reference gradient.
@@ -404,6 +439,11 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def differing_share(a, b) -> float:
+    """The share of elements of a whose bits differ from b's."""
+    return (a != b).float().mean().item()
+
+
 def seeded_state_dict(model, seed: int):
     """Every parameter from one numpy stream: Dense weights with xavier
     scale, LayerNorm scales 1 + N(0, 0.1), SwinV2's ``logit_scale``
@@ -566,15 +606,19 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
-# The sources of rows 1-3, 5-8 and 14, whose kernels' registers and shared
+# The sources of rows 1-8 and 14, whose kernels' registers and shared
 # memory phase 1 prints.
 PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
-                 "dropout_attention", "fused_block", "ln_dense")
-# The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the tensor-core
-# kernels of rows 1, 2, 3, 5, 6 and 14, the same as before rows 7 and 8 moved
-# onto their tiles: the tiles' new parameters (a row layout and a dropout flag
-# for the backward, a thread policy for the forward) default to the old code,
-# and phase 1 checks that they still do.
+                 "flash_attention_bwd", "dropout_attention", "fused_block",
+                 "ln_dense")
+# The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the kernels of
+# rows 1-7 and 14 on both routes, which phase 1 checks. The tiles' policies
+# (a row layout, a dropout flag and a scale placement for the backward, a
+# thread policy and a load policy for the forwards) default to the code the
+# older rows had, so a new row on a shared tile leaves theirs alone: the
+# tensor-core kernels of rows 1, 2, 3, 5, 6, 7 and 14 and the CUDA-core ones
+# of rows 1-7 and 14 as they were before row 4 joined row 6's tiles and the
+# fp32 fused block took the tiles' L2 loads, and row 4's own.
 KEPT_REGISTERS = {
     "packed_fwd_mma_kernel<16, false>": 123,
     "packed_fwd_mma_kernel<16, true>": 139,
@@ -582,6 +626,18 @@ KEPT_REGISTERS = {
     "packed_fwd_mma_kernel<32, true>": 187,
     "packed_fwd_mma_kernel<64, false>": 144,
     "packed_fwd_mma_kernel<64, true>": 165,
+    "packed_bwd_dq_mma_kernel<16, false>": 72,
+    "packed_bwd_dq_mma_kernel<16, true>": 96,
+    "packed_bwd_dq_mma_kernel<32, false>": 96,
+    "packed_bwd_dq_mma_kernel<32, true>": 128,
+    "packed_bwd_dq_mma_kernel<64, false>": 164,
+    "packed_bwd_dq_mma_kernel<64, true>": 167,
+    "packed_bwd_dkv_mma_kernel<16, false>": 95,
+    "packed_bwd_dkv_mma_kernel<16, true>": 104,
+    "packed_bwd_dkv_mma_kernel<32, false>": 127,
+    "packed_bwd_dkv_mma_kernel<32, true>": 138,
+    "packed_bwd_dkv_mma_kernel<64, false>": 209,
+    "packed_bwd_dkv_mma_kernel<64, true>": 251,
     "flash_fwd_mma_kernel<16>": 110,
     "flash_fwd_mma_kernel<32>": 141,
     "flash_fwd_mma_kernel<64>": 148,
@@ -597,10 +653,54 @@ KEPT_REGISTERS = {
     "drop_bwd_dkv_mma_kernel<16>": 96,
     "drop_bwd_dkv_mma_kernel<32>": 128,
     "drop_bwd_dkv_mma_kernel<64>": 168,
+    "drop_bwd_dkv_sum_kernel": 32,
     "ln_dense_mma_kernel<false>": 128,
     "ln_dense_mma_kernel<true>": 128,
     "ln_stats_kernel": 32,
+    "flash_bwd_dq_mma_kernel<16>": 72,
+    "flash_bwd_dq_mma_kernel<32>": 96,
+    "flash_bwd_dq_mma_kernel<64>": 155,
+    "flash_bwd_dkv_mma_kernel<16>": 95,
+    "flash_bwd_dkv_mma_kernel<32>": 128,
+    "flash_bwd_dkv_mma_kernel<64>": 177,
+    # the CUDA-core route (fp32; row 14 also in bf16)
+    "packed_fwd_kernel<float, 16>": 64,
+    "packed_fwd_kernel<float, 32>": 91,
+    "packed_fwd_kernel<float, 64>": 91,
+    "packed_bwd_dq_kernel<float, 16>": 126,
+    "packed_bwd_dq_kernel<float, 32>": 126,
+    "packed_bwd_dq_kernel<float, 64>": 120,
+    "packed_bwd_dkv_kernel<float, 16>": 96,
+    "packed_bwd_dkv_kernel<float, 32>": 96,
+    "packed_bwd_dkv_kernel<float, 64>": 120,
+    "flash_fwd_kernel<float, 16>": 64,
+    "flash_fwd_kernel<float, 32>": 72,
+    "flash_fwd_kernel<float, 64>": 88,
+    "flash_large_kernel<float, 16>": 68,
+    "flash_large_kernel<float, 32>": 72,
+    "flash_large_kernel<float, 64>": 80,
+    "flash_bwd_kernel<float, 16>": 64,
+    "flash_bwd_kernel<float, 32>": 72,
+    "flash_bwd_kernel<float, 64>": 96,
+    "drop_fwd_kernel<float, 16>": 72,
+    "drop_fwd_kernel<float, 32>": 72,
+    "drop_fwd_kernel<float, 64>": 89,
+    "drop_bwd_dq_kernel<float, 16>": 96,
+    "drop_bwd_dq_kernel<float, 32>": 122,
+    "drop_bwd_dq_kernel<float, 64>": 120,
+    "drop_bwd_dkv_kernel<float, 16>": 84,
+    "drop_bwd_dkv_kernel<float, 32>": 96,
+    "drop_bwd_dkv_kernel<float, 64>": 124,
+    "ln_dense_kernel<float>": 80,
+    "ln_dense_kernel<__nv_bfloat16>": 80,
 }
+# The global loads of fused_block_kernel<float, D> (row 8's CUDA-core route)
+# that took the non-coherent path (SASS .CONSTANT) before its phases read the
+# QKV and attention workspaces through L2, by cuobjdump -sass: none (the
+# kernel takes its pointers in a struct, which nvcc did not treat as
+# read-only); the L2 loads make that hold by construction, not by the
+# compiler's choice.
+FUSED_BLOCK_NC_LOADS_BEFORE = {16: 0, 32: 0, 64: 0}
 
 
 def ptxas_usage(build_log):
@@ -635,6 +735,33 @@ def ptxas_usage(build_log):
         f[1] = name.replace("(anonymous namespace)::", "").split("(")[0] \
             .removeprefix("void ")
     return [tuple(f) for f in found]
+
+
+def sass_global_loads(lib, kernel_re):
+    """{D: (global loads, of them .CONSTANT, of them .STRONG.GPU)} of the
+    kernels of the library ``lib`` whose mangled names match ``kernel_re``
+    (its group 1 the head dim), from ``cuobjdump -sass``: .CONSTANT is the
+    non-coherent path (ld.global.nc), .STRONG.GPU the loads through L2
+    (ld.global.cg, ``__ldcg``)."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found, d = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(kernel_re, m.group(1))
+            d = int(k.group(1)) if k else None
+            if d is not None:
+                found[d] = [0, 0, 0]
+            continue
+        if d is not None and re.search(r"\bLDG\b|\bLDG\.", line):
+            found[d][0] += 1
+            found[d][1] += ".CONSTANT" in line
+            found[d][2] += ".STRONG.GPU" in line
+    return {k: tuple(v) for k, v in sorted(found.items())}
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str):
@@ -939,11 +1066,25 @@ def main() -> int:
                 f"smem, {stack} bytes stack, {spill} bytes spilled")
         if kernel in KEPT_REGISTERS:
             kept[kernel] = regs
-    require(kept == KEPT_REGISTERS, "the tensor-core kernels of rows 1, 2, "
-            "3, 5, 6 and 14 keep their registers: "
+    require(kept == KEPT_REGISTERS, "the kernels of rows 1-7 and 14 keep "
+            "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
-    log(f"ptxas: the {len(kept)} tensor-core kernels of rows 1, 2, 3, 5, 6 and "
-        "14 at their registers of before rows 7 and 8 joined their tiles")
+    log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-7 and 14, "
+        "both routes) at their registers")
+    # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
+    # own phases wrote through L2, never by the non-coherent path
+    loads = sass_global_loads(_build._lib_path("fused_block"),
+                              r"fused_block_kernelIfLi(\d+)E")
+    for d_, (n_ldg, n_nc, n_l2) in loads.items():
+        log(f"sass fused_block_kernel<float, {d_}>: {n_ldg} global loads, "
+            f"{n_nc} .CONSTANT (the non-coherent path; "
+            f"{FUSED_BLOCK_NC_LOADS_BEFORE[d_]} before its workspace reads "
+            f"went through L2), {n_l2} .STRONG.GPU (through L2)")
+    require(sorted(loads) == [16, 32, 64]
+            and all(n_l2 > 0 and n_nc <= FUSED_BLOCK_NC_LOADS_BEFORE[d_]
+                    for d_, (_, n_nc, n_l2) in loads.items()),
+            f"fused_block_kernel<float, D> reads its workspaces through L2: "
+            f"{loads}")
 
     # ---- 2. kernels against their plain versions -------------------------
     def randn(seed, *shape, dtype):
@@ -1012,9 +1153,10 @@ def main() -> int:
                     dtype)
         check_flash("kv_valid 60/70", 4, 3, 70, 70, 32, 1, 60, dtype)
 
-    def grad_err(label, got, ref, name):
+    def grad_err(label, got, ref, name, rel_tol=None):
         e = max_err(got, ref)
-        tol = GRAD_TOL[name] * max(1.0, ref.float().abs().max().item())
+        tol = (GRAD_TOL[name] if rel_tol is None else rel_tol) \
+            * max(1.0, ref.float().abs().max().item())
         require(bool(torch.isfinite(got.float()).all()) and e <= tol,
                 f"{label} against its plain version ({e:.3e} > {tol:.3e})")
         return e, tol
@@ -1164,11 +1306,13 @@ def main() -> int:
         for fn in ("window_packed_attention", "window_batched_attention"):
             out = getattr(fa, fn)(qkv, bias, h)
             torch.cuda.synchronize()
-            e = max_err(out, ref)
+            e, share = max_err(out, ref), differing_share(out, ref)
             log(f"{fn} {label} {name}: max|out-plain| {e:.3e} "
-                f"(tol {WINDOW_TOL[name]})")
+                f"(tol {WINDOW_TOL[name]}), elements differing {share:.3e}, "
+                f"max|ref| {ref.float().abs().max().item():.3f}")
             require(bool(torch.isfinite(out.float()).all())
-                    and e <= WINDOW_TOL[name],
+                    and e <= WINDOW_TOL[name]
+                    and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX),
                     f"{fn} {label} {name} against its plain version")
             errs[(fn, label, name)] = e
 
@@ -1200,11 +1344,13 @@ def main() -> int:
             require(not bool(torch.isnan(out.float()).any()),
                     f"fused {kind} {label} {name}: every output element is "
                     "written (none of the NaN fill is left)")
-            e = max_err(out, ref)
+            e, share = max_err(out, ref), differing_share(out, ref)
             log(f"window_fused_{kind}_attention {label} shift {shift} {name}: "
-                f"max|out-plain| {e:.3e} (tol {WINDOW_TOL[name]}), no NaN "
-                "left of the fill")
-            require(e <= WINDOW_TOL[name],
+                f"max|out-plain| {e:.3e} (tol {WINDOW_TOL[name]}), elements "
+                f"differing {share:.3e}, max|ref| "
+                f"{ref.float().abs().max().item():.3f}, no NaN left of the fill")
+            require(e <= WINDOW_TOL[name]
+                    and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX),
                     f"fused {kind} {label} {name} against its plain version")
             errs[(f"window_fused_{kind}_attention", label, shift, name)] = e
             outs[kind] = out
@@ -1249,15 +1395,22 @@ def main() -> int:
         require(got is filled and not bool(torch.isnan(got.float()).any()),
                 f"{what}: every element of dqkv is written (none of the NaN "
                 "fill is left)")
-        e, tol = grad_err(f"{what} dqkv", got, ref, name)
+        rel_tol = WINDOW_GRAD_TOL if dtype == bf16 else None
+        e, tol = grad_err(f"{what} dqkv", got, ref, name, rel_tol)
+        share = differing_share(got, ref)
+        require(dtype == fp32 or share <= WINDOW_DIFFERING_MAX,
+                f"{what}: dqkv bit-equal to the plain version's but for "
+                f"{share:.3e} of its elements")
         require(torch.equal(got, again), f"{what}: two runs give equal dqkv")
-        msg = f"{what}: max|dqkv-plain| {e:.3e} (tol {tol:.3e})"
+        msg = (f"{what}: max|dqkv-plain| {e:.3e} (tol {tol:.3e}), elements "
+               f"differing {share:.3e}")
         errs[("window_attention_bwd", label, name)] = e
         if bias is None:
             require(got_db is None, f"{what}: no bias, no dbias")
         else:
             # relative to its own scale: it sums G/nW' windows
-            eb, tolb = grad_err(f"{what} dbias", got_db, ref_db, name)
+            eb, tolb = grad_err(f"{what} dbias", got_db, ref_db, name,
+                                rel_tol)
             require(got_db.dtype == bias.dtype and got_db.shape == bias.shape
                     and torch.equal(got_db, again_db),
                     f"{what}: dbias as the bias, equal from run to run")
@@ -1444,11 +1597,13 @@ def main() -> int:
             "a fully masked image averages its keys, as mha_reference does")
 
     # the small-S backward (row 4) against its plain version, the row-6
-    # kernel at rate 0 and, in fp32, autograd of the plain forward
-    def check_small_bwd(label, b, h, s, d, kv_valid, dtype):
+    # kernel at rate 0 and, in fp32, autograd of the plain forward; in bf16
+    # on the tensor cores (by name in a profile), held to MMA_GRAD_TOL
+    # against the plain version, which rounds where the kernel does
+    def check_small_bwd(label, b, h, sq, sk, d, kv_valid, dtype):
         name = str(dtype).removeprefix("torch.")
-        q, k, v, do = (randn(75 + i, b, h, s, d, dtype=dtype)
-                       for i in range(4))
+        q, do = (randn(75 + i, b, h, sq, d, dtype=dtype) for i in (0, 3))
+        k, v = (randn(75 + i, b, h, sk, d, dtype=dtype) for i in (1, 2))
         out, lse = fa.flash_attention_reference(q, k, v, kv_valid=kv_valid)
         filled = tuple(torch.full_like(t, float("nan")) for t in (q, k, v))
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid,
@@ -1458,8 +1613,16 @@ def main() -> int:
         row6 = fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
                                               dropout_rate=0.0, seed=None,
                                               kv_valid=kv_valid)
-        e = max(grad_err(f"flash_attention_bwd {label} {name} d{n}", g, w,
-                         name)[0] for n, g, w in zip("qkv", got, want))
+        tol = MMA_GRAD_TOL if dtype == bf16 else GRAD_TOL[name]
+        e = rel = 0.0
+        for n, g, w in zip("qkv", got, want):
+            e_n = max_err(g, w)
+            ref_max = max(1.0, w.float().abs().max().item())
+            require(bool(torch.isfinite(g.float()).all())
+                    and e_n <= tol * ref_max,
+                    f"flash_attention_bwd {label} {name} d{n} against its "
+                    f"plain version ({e_n:.3e} > {tol * ref_max:.3e})")
+            e, rel = max(e, e_n), max(rel, e_n / ref_max)
         e6 = max(grad_err(f"flash_attention_bwd {label} {name} d{n} vs row 6",
                           g, w, name)[0] for n, g, w in zip("qkv", got, row6))
         extra = ""
@@ -1478,17 +1641,27 @@ def main() -> int:
                 and all(torch.equal(a, g) for a, g in zip(again, got)),
                 f"flash_attention_bwd {label} {name}: every element written, "
                 "reruns bit-equal")
-        log(f"flash_attention_bwd {label} {name}: max|grad-plain| {e:.3e}, vs "
-            f"row 6 at rate 0 {e6:.3e}{extra} (tol {GRAD_TOL[name]} x max(1, "
-            "max|ref|)), NaN fill overwritten, rerun bit-equal")
+        require_route(f"flash_attention_bwd {label}", lambda: (
+            fa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid)),
+            [("row 4", name)])
+        log(f"flash_attention_bwd {label} {name}: max|grad-plain| {e:.3e}, "
+            f"/ max(1, max|ref|) {rel:.3e} (tol {tol}), vs row 6 at rate 0 "
+            f"{e6:.3e} (tol "
+            f"{GRAD_TOL[name]} x max(1, max|ref|)){extra}, NaN fill "
+            "overwritten, rerun bit-equal")
         errs[("small_bwd", label, name)] = e
 
     for dtype in (bf16, fp32):
-        check_small_bwd("detr decoder self B2 G16 S100 D32", 2, 8, 100, 32,
+        check_small_bwd("detr decoder self B2 G16 S100 D32", 2, 8, 100, 100,
+                        32, None, dtype)
+        check_small_bwd("vitb16@224 B32 G384 S197 D64", 32, 12, 197, 197, 64,
                         None, dtype)
-        check_small_bwd("vitb16@224 B32 G384 S197 D64", 32, 12, 197, 64, None,
+        check_small_bwd("kv_valid 90/100", 2, 8, 100, 100, 32, 90, dtype)
+        check_small_bwd("G24 S197 D64", 2, 12, 197, 197, 64, None, dtype)
+        check_small_bwd("Sq70 Sk45 D16 kv_valid 40", 2, 3, 70, 45, 16, 40,
                         dtype)
-        check_small_bwd("kv_valid 90/100", 2, 8, 100, 32, 90, dtype)
+        check_small_bwd("Sq33 Sk300 D32 kv_valid 290", 1, 2, 33, 300, 32, 290,
+                        dtype)
     del qm, km, vm, got, want
 
     def block_inputs(seed, b, s, hd, dtype):
@@ -1503,7 +1676,7 @@ def main() -> int:
              (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
         return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
 
-    # rows 1, 2, 3, 5, 6, 7, 8 and 14: bf16 on the tensor-core kernels, fp32
+    # rows 1-8 and 14: bf16 on the tensor-core kernels, fp32
     # on the CUDA-core ones, by the kernels' names in a profile; then the
     # bf16 kernels at the paths' own shapes against their plain versions,
     # reruns bit-equal
@@ -1537,10 +1710,11 @@ def main() -> int:
             fa.flash_dropout_attention_fwd(q, k, v, dropout_rate=0.1, seed=5,
                                            key_mask=keep),
             fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
-                                           dropout_rate=0.1, seed=5)),
+                                           dropout_rate=0.1, seed=5),
+            fa.flash_attention_bwd(q, k, v, out, lse, do)),
             [("row 1", name), ("row 2", name), ("row 3", name),
-             ("row 5", name), ("row 6", name), ("row 7", name),
-             ("row 8", name), ("row 14", name)])
+             ("row 4", name), ("row 5", name), ("row 6", name),
+             ("row 7", name), ("row 8", name), ("row 14", name)])
 
     # row 1 (bf16, tensor cores) at the ViT paths' shapes: ViT-B/16 @224 at
     # batch 32 (served at rate 0, trained at 0.1), T2T-ViT-14's 6 heads and
@@ -2859,7 +3033,8 @@ def main() -> int:
                     top=12)
         require_route(f"DETR-R50 bf16 train step, dropout {rate}", det_step,
                       [("row 6", "bfloat16")]
-                      + ([("row 2", "bfloat16"), ("row 3", "bfloat16")]
+                      + ([("row 2", "bfloat16"), ("row 3", "bfloat16"),
+                          ("row 4", "bfloat16")]
                          if rate == 0.0 else [("row 5", "bfloat16")]))
         if rate == 0.0:
             # the auction on the card against scipy on the step's cost
@@ -3293,8 +3468,10 @@ def main() -> int:
             o = windows.window_reverse(o, win, win, hw, hw)
             return torch.roll(o, shifts=(shift, shift), dims=(1, 2))
 
+        # the library chain rounds at SDPA's own points, not the TPU
+        # kernels', so it keeps its own, looser limit
         e = max_err(chain(), fa.window_fused_reference(qkv, bias, h, window, sh))
-        require(e <= WINDOW_TOL["bfloat16"],
+        require(e <= LIBRARY_WINDOW_TOL,
                 f"the library chain computes the fused function ({e:.3e})")
         nbytes, flops = window_bytes_flops(g, win * win, h, dh, nwp)
         entry(name, "window_fused_attention.cu", line, swin_total[name],
@@ -3450,20 +3627,35 @@ def main() -> int:
     dargs = small_bwd_inputs(88, 2, 8, 100, 32)
     vargs = small_bwd_inputs(92, 32, 12, 197, 64)
     g, s, d = 16, 100, 32
+    k_ms = cuda_ms(lambda: fa.flash_attention_bwd(*dargs))
+    v_ms = cuda_ms(lambda: fa.flash_attention_bwd(*vargs))
+    # device time with the stream kept full: at the decoder's shape the
+    # back-to-back calls are paced by the host
+    d_ms = queued_ms([lambda: fa.flash_attention_bwd(*dargs),
+                     sdpa_backward(*dargs[:3], dargs[5], 0.0),
+                     lambda: row6(*dargs),
+                     lambda: fa.flash_attention_bwd(*vargs),
+                     sdpa_backward(*vargs[:3], vargs[5], 0.0),
+                     lambda: row6(*vargs)])
     entry("flash_attention_bwd", "flash_attention_bwd.cu", 362,
           det_total["flash_attention_bwd"],
           errs[("small_bwd", "detr decoder self B2 G16 S100 D32",
                 "bfloat16")],
-          f"G{g} S{s} D{d}",
-          cuda_ms(lambda: fa.flash_attention_bwd(*dargs)),
+          f"G{g} S{s} D{d}", k_ms,
           cuda_ms(lambda: fa.flash_attention_bwd_reference(*dargs)),
           cuda_ms(sdpa_backward(*dargs[:3], dargs[5], 0.0)),
           8 * g * s * d * 2 + g * s * 4, 10 * g * s * s * d,
           row6_rate0_ms=cuda_ms(lambda: row6(*dargs)),
-          vitb_g384_s197_ms=cuda_ms(lambda: fa.flash_attention_bwd(*vargs)),
+          device_ms=d_ms[0], library_device_ms=d_ms[1], row6_device_ms=d_ms[2],
+          tflops=10 * g * s * s * d / d_ms[0] / 1e9,
+          vitb_g384_s197_ms=v_ms,
+          vitb_g384_s197_tflops=10 * 384 * 197 * 197 * 64 / v_ms / 1e9,
           vitb_g384_s197_row6_ms=cuda_ms(lambda: row6(*vargs)),
           vitb_g384_s197_library_ms=cuda_ms(
               sdpa_backward(*vargs[:3], vargs[5], 0.0)),
+          vitb_g384_s197_device_ms=d_ms[3],
+          vitb_g384_s197_library_device_ms=d_ms[4],
+          vitb_g384_s197_row6_device_ms=d_ms[5],
           vitb_g384_s197_bound_ms=bound_ms(8 * 384 * 197 * 64 * 2
                                            + 384 * 197 * 4,
                                            10 * 384 * 197 * 197 * 64,

@@ -28,6 +28,13 @@ pd and ds to bf16 before their products, as ``_packed_bwd_kernel`` does:
 its plain version is held against ``_packed_bwd_pallas`` the same way, both
 from the JAX forward's (out, lse).
 
+The small-S backward (row 4, ``csrc/flash_attention_bwd.cu``) runs on the
+tensor-core backward of row 6 in bf16 with ``_bwd_kernel``'s rounding: ds
+rounded before the scale, pᵀ before dv, dq and dk scaled in fp32 before
+their rounding. Its plain version is held against ``_flash_bwd_pallas``
+here at D 32 and 16, where the scale is not a power of two, beside the
+other order (ds·scale rounded, rows 6 and 7's), which must fail there.
+
 The masked streaming forward (row 3, ``csrc/flash_attention_large.cu``) on
 the tensor cores rounds the unnormalised probabilities before P·V, as
 ``_large_kernel`` does: its plain version is held against
@@ -270,6 +277,76 @@ def test_packed_bwd_reference_matches_jax_kernel_in_bf16(b, s, heads, dh,
         _close(got[..., i * hd:(i + 1) * hd], _np(want)[..., i * hd:(i + 1) * hd])
     # the hidden keys' dk and dv are exactly 0
     assert not got[:, kv_valid:, hd:].float().abs().max().item()
+
+
+def _within(got, want):
+    """``_close`` as a truth value."""
+    got, want = _np(got), _np(want)
+    tol = REL_TOL * max(1.0, float(np.abs(want).max()))
+    return bool(np.abs(got - want).max() <= tol
+                and np.mean(got != want) <= DIFFERING_MAX)
+
+
+def _small_bwd_rounding_ds_scaled(q, k, v, out, lse, do, scale, kv_valid):
+    """``flash_attention_bwd_reference`` with ds·scale rounded to bf16
+    instead of ds (the order of rows 6 and 7): what the test below must
+    tell from ``_bwd_kernel``'s rounding."""
+    f = lambda t: t.float()  # noqa: E731
+    s = f(q) @ f(k).transpose(-1, -2) * scale
+    s[..., kv_valid:] = tfa.DEFAULT_MASK_VALUE
+    p = torch.exp(s - lse.unsqueeze(-1))
+    delta = (f(do) * f(out)).sum(-1, keepdim=True)
+    ds = (p * (f(do) @ f(v).transpose(-1, -2) - delta) * scale).to(
+        q.dtype).float()
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ f(do)
+    return ((ds @ f(k)).to(q.dtype), (ds.transpose(-1, -2) @ f(q)).to(q.dtype),
+            dv.to(q.dtype))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,kv_valid", [
+    (2, 2, 40, 40, 32, None),  # the DETR decoder's D 32, narrow
+    (1, 3, 33, 17, 32, None),  # Sq != Sk
+    (2, 2, 24, 24, 32, 19),    # kv_valid < Sk
+    (1, 3, 33, 17, 16, None),  # scale 0.25: the two orders agree
+])
+def test_small_bwd_reference_matches_jax_kernel_in_bf16(b, h, sq, sk, d,
+                                                        kv_valid):
+    """``flash_attention_bwd_reference`` against ``_bwd_kernel`` (through
+    ``_flash_bwd_pallas``), both in bf16 from the JAX forward's (out, lse):
+    ds rounded before the scale, pᵀ before dv, dq and dk scaled in fp32,
+    the rounding row 4's tensor-core kernels keep. At D 32 the scale 1/√32
+    is not a power of two, so rounding ds·scale instead (rows 6 and 7's
+    order) moves about half the elements of dq and dk by a step, and fails
+    the same limits; at D 16 and 64 (0.25, 0.125) the two orders give the
+    same bits."""
+    g = b * h
+    kvv = sk if kv_valid is None else kv_valid
+    scale = d ** -0.5
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(_randn(s, b, h, n, d)) for s, n in
+                                    ((51, sq), (52, sk), (53, sk)))
+    jdo, tdo = _pair(_randn(54, b, h, sq, d))
+    j_out, j_lse = jfa._flash_fwd(
+        jq.reshape(g, sq, d), jk.reshape(g, sk, d), jv.reshape(g, sk, d),
+        None, None, scale, kvv, 256)
+    want = jfa._flash_bwd_pallas(
+        jq.reshape(g, sq, d), jk.reshape(g, sk, d), jv.reshape(g, sk, d),
+        j_out, j_lse, jdo.reshape(g, sq, d), scale, kvv)
+    t_out = torch.from_numpy(_np(j_out).copy()).to(torch.bfloat16).reshape(
+        b, h, sq, d)
+    t_lse = torch.from_numpy(_np(j_lse)[..., 0].copy()).reshape(b, h, sq)
+    got = tfa.flash_attention_bwd_reference(tq, tk, tv, t_out, t_lse, tdo,
+                                            kv_valid=kv_valid)
+    fault = _small_bwd_rounding_ds_scaled(tq, tk, tv, t_out, t_lse, tdo,
+                                          scale, kvv)
+    for gr, w, n in zip(got, want, (sq, sk, sk)):
+        assert gr.dtype == torch.bfloat16
+        _close(gr.reshape(g, n, d), w)
+    # dv does not see ds; dq and dk tell the two orders apart at D 32
+    for f, gr, w, n in zip(fault[:2], got[:2], want[:2], (sq, sk)):
+        if d == 32:
+            assert not _within(f.reshape(g, n, d), w)
+        else:
+            assert torch.equal(f, gr)
 
 
 SKIP_ATOL = 1e-6

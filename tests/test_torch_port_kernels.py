@@ -107,13 +107,14 @@ def test_flash_kernel_matches_plain(cuda, dtype, bias_lead, sq, sk, kv_valid,
 
 
 # Gradients, relative to the largest reference element (they grow with S).
-# fp32: summation order and expf against torch.exp. bf16: the plain versions
-# round the probabilities and ds to bf16 before their products (as the TPU
-# kernels do) and the CUDA-core kernels keep them fp32, plus one rounding of
-# the result.
+# fp32: summation order and expf against torch.exp. bf16: the looser bound,
+# for results that round at other points than what they are held against
+# (row 4 against row 6, which rounds ds·scale where row 4 rounds ds), plus
+# one rounding of the result.
 _GRAD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
-# The bf16 backwards of rows 6 and 7 run on the tensor cores and round pd
-# and ds to bf16 before their products, as their plain versions do: what is
+# The bf16 backwards of rows 4, 6 and 7 run on the tensor cores and round pd
+# and ds to bf16 before their products where their TPU kernels and plain
+# versions do (row 4 ds before the scale, rows 6 and 7 ds·scale): what is
 # left is summation order and one rounding of the result (up to 3.1e-3 at
 # PVT stage 1 in chip_smoke.py's runs on an H100).
 _MMA_GRAD_TOL = 5e-3
@@ -386,10 +387,29 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
 
 
 # Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf
-# against torch.exp on outputs of magnitude <= 4. bf16: the plain version
-# rounds the normalised probabilities to bf16 before PV (as the TPU kernels
-# do) and the kernels keep them fp32, plus one rounding of the output.
-_WINDOW_TOL = {torch.float32: 5e-6, torch.bfloat16: 2e-2}
+# against torch.exp on outputs of magnitude <= 4. bf16: kernels and plain
+# version round the normalised probabilities to bf16 before PV, as the TPU
+# kernels do, so fp32 summation order can move a rounding by one step: one
+# bf16 step at |out| in [2, 4) (2^-6), where all but a few of the largest of
+# these outputs lie, and at most _WINDOW_DIFFERING_MAX of the elements differ at all (0.051%
+# at most in chip_smoke.py's runs on an H100). Rounding the probabilities at
+# another point moves far more.
+_WINDOW_TOL = {torch.float32: 5e-6, torch.bfloat16: 1.6e-2}
+_WINDOW_DIFFERING_MAX = 5e-3
+# The bf16 window backward (row 10) rounds p for dv and ds·scale for dq and
+# dk where its plain version does: summation order and one rounding of the
+# result, one bf16 step at the largest element at most (2^-7 relative), and
+# at most _WINDOW_DIFFERING_MAX of dqkv's elements differ at all.
+_WINDOW_GRAD_TOL = 8e-3
+
+
+def _window_close(out, ref, dtype):
+    """out within _WINDOW_TOL of ref; in bf16 also bit-equal to it in all
+    but _WINDOW_DIFFERING_MAX of the elements."""
+    err = (out.float() - ref.float()).abs().max().item()
+    share = (out != ref).float().mean().item()
+    return err <= _WINDOW_TOL[dtype] and (
+        dtype == torch.float32 or share <= _WINDOW_DIFFERING_MAX)
 
 _WINDOW_SHAPES = [
     # g, n, heads, dh, nW'
@@ -423,7 +443,7 @@ def test_window_kernels_match_plain(cuda, dtype, fn, g, n, heads, dh, nwp):
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[fn] == 1 and sum(tfa.LAUNCHES.values()) == 1
     assert out.shape == ref.shape and out.dtype == dtype
-    assert (out.float() - ref.float()).abs().max().item() <= _WINDOW_TOL[dtype]
+    assert _window_close(out, ref, dtype)
 
 
 @pytest.mark.cuda
@@ -439,7 +459,7 @@ def test_window_masks_do_not_overflow(cuda):
     for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
         out = fn(qkv, bias, heads)
         assert bool(torch.isfinite(out.float()).all())
-        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        assert _window_close(out, ref, torch.bfloat16)
 
 
 _FUSED_SHAPES = [
@@ -486,7 +506,7 @@ def _check_fused_launch(cuda, dtype, qkv, bias, ref, heads, win, shift, plan):
     torch.cuda.synchronize()
     assert got is out and tfa.LAUNCHES[f"window_fused_{kind}_attention"] == 1
     assert not bool(torch.isnan(out.float()).any())  # every element written
-    assert (out.float() - ref.float()).abs().max().item() <= _WINDOW_TOL[dtype]
+    assert _window_close(out, ref, dtype)
 
 
 @pytest.mark.cuda
@@ -543,11 +563,12 @@ def test_window_kernels_are_forward_only_on_cuda(cuda):
                                     None, 2)
 
 
-# The window backward against its plain version. dqkv as _GRAD_TOL. dbias sums
-# G/nW' windows of ds rounded to the compute dtype on both sides; the kernel's
-# ds differs from the plain one by fp32 summation order before that rounding,
-# so a few terms land on the other side of a bf16 rounding: relative to the
-# largest reference element.
+# The window backward against its plain version: dqkv, in bf16 to
+# _WINDOW_GRAD_TOL. dbias sums G/nW' windows of ds rounded to the compute
+# dtype on both sides; the kernel's ds differs from the plain one by fp32
+# summation order before that rounding, so a few terms land on the other
+# side of a bf16 rounding: relative to the largest reference element, to the
+# same limits.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,n,heads,dh,nwp", _WINDOW_SHAPES + [
@@ -565,13 +586,16 @@ def test_window_backward_kernel_matches_plain(cuda, dtype, g, n, heads, dh,
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["window_attention_bwd"] == 2 and got is filled
     assert not bool(torch.isnan(got.float()).any())  # every element written
-    assert _grad_close(got, ref, dtype)
+    tol = _WINDOW_GRAD_TOL if dtype == torch.bfloat16 else None
+    assert _grad_close(got, ref, dtype, tol)
+    assert dtype == torch.float32 or \
+        (got != ref).float().mean().item() <= _WINDOW_DIFFERING_MAX
     assert torch.equal(got, again)  # no atomics: equal bits
     if bias is None:
         assert got_db is None and ref_db is None
     else:
         assert got_db.shape == bias.shape and got_db.dtype == bias.dtype
-        assert _grad_close(got_db, ref_db, dtype)
+        assert _grad_close(got_db, ref_db, dtype, tol)
         assert torch.equal(got_db, again_db)
         no_db = tfa.window_attention_bwd(qkv, bias, do, heads,
                                          need_dbias=False)
@@ -795,9 +819,10 @@ def test_small_s_backward_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d,
                                            dropout_rate=0.0, seed=None,
                                            kv_valid=kv_valid)
     torch.cuda.synchronize()
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
     for g, w, r in zip(got, want, row6):
         assert not bool(torch.isnan(g.float()).any())  # every element written
-        assert _grad_close(g, w, dtype)
+        assert _grad_close(g, w, dtype, tol)
         assert _grad_close(g, r, dtype)
     again = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=kv_valid)
     assert all(torch.equal(a, g) for a, g in zip(again, got))

@@ -1,8 +1,8 @@
 // Tensor-core bodies of the bf16 attention backward.
 //
-// Replace, for bf16 inputs, two TPU kernels of vision_transformers_tpu/ops/
-// flash_attention.py (rows of PERF.md's kernel table), by a row layout and a
-// dropout flag given at compile time:
+// Replace, for bf16 inputs, three TPU kernels of vision_transformers_tpu/ops/
+// flash_attention.py (rows of PERF.md's kernel table), by a row layout, a
+// dropout flag and a scale placement given at compile time:
 //   - row 6, _drop_bwd_kernel (:525), through dropout_attention.cu's
 //     dropout_attention_bwd: <D> (Contiguous (G, S, D) groups, dropout by
 //     the runtime threshold) — the dropout backward, and at rate 0 the
@@ -11,8 +11,12 @@
 //     packed_attention_bwd: <D, Strided, kDrop> — q, k, v read and dq, dk,
 //     dv written in place in the packed (B, S, 3·H·dh) layout, do and out
 //     read at row stride H·dh, lse at H; rate 0 (kDrop false, no dropout
-//     code) and rate > 0 are two instantiations.
-// fp32 inputs keep bwd_dq_rows / bwd_dkv_rows (attention_bwd_tile.cuh).
+//     code) and rate > 0 are two instantiations;
+//   - row 4, _bwd_kernel (:362), through flash_attention_bwd.cu's
+//     flash_attention_bwd: <D, Contiguous<D>, false, ScaledGrads> — no
+//     dropout code, no key mask, ds rounded before the scale (below).
+// fp32 inputs keep bwd_dq_rows / bwd_dkv_rows (attention_bwd_tile.cuh), and
+// row 4's fp32 kernel its own body.
 //
 // The formulas are those of attention_bwd_tile.cuh (the TPU kernel's):
 //   s  = q·kᵀ·scale, keys >= kv_valid → -0.7·FLT_MAX, + key mask
@@ -20,7 +24,9 @@
 //   dropout: pd = keep·p/(1−r), dp ← keep·dp/(1−r)
 //   dv = pdᵀ·do, ds = p ⊙ (dp − δ)·scale, dq = ds·k, dk = dsᵀ·q
 // and, as _drop_bwd_kernel does, pd and ds are rounded to bf16 before their
-// products (the fp32 bodies keep them fp32).
+// products (the fp32 bodies keep them fp32). Under ScaledGrads (row 4, as
+// _bwd_kernel does) ds = p ⊙ (dp − δ) is rounded, and dq = ds·k·scale,
+// dk = dsᵀ·q·scale are scaled in fp32 before their rounding.
 //
 // What bounds it on the H100: 10·G·Sq·Sk·D operations (5 products) against
 // q, k, v, do, out, dq, dk, dv once: at G 96, S 1025, D 64, 64.6 GFLOP, 65 µs
@@ -83,11 +89,27 @@
 namespace vtt {
 namespace mma {
 
+// Where the softmax scale enters the gradients, a compile-time policy of both
+// passes. ScaledDs (rows 6 and 7, _drop_bwd_kernel :578): ds·scale is
+// rounded to bf16 and is the A operand of dq = ds·k and dk = dsᵀ·q.
+// ScaledGrads (row 4, _bwd_kernel :384-396): ds is rounded unscaled, and the
+// fp32 dq and dk accumulators are multiplied by the scale before their one
+// rounding. The two give the same bits where the scale is a power of two
+// (D 16: 0.25, D 64: 0.125), not at D 32 (1/√32).
+struct ScaledDs {
+  static constexpr bool kAfter = false;
+};
+struct ScaledGrads {
+  static constexpr bool kAfter = true;
+};
+
 // Pass 1: rows [q0, q0 + kRows) of one group. Pointers are the group's row 0,
 // rows at lay's strides: q, k, v and dq lay.qkv() apart, do and out lay.o(),
 // lse lay.lse(); delta one value per row. kmask: fp32 per key or null.
 // kMayDrop false: no dropout whatever drop says (its code compiled out).
-template <int D, class Layout = Contiguous<D>, bool kMayDrop = true>
+// Scale: ScaledDs or ScaledGrads.
+template <int D, class Layout = Contiguous<D>, bool kMayDrop = true,
+          class Scale = ScaledDs>
 __device__ __forceinline__ void bwd_dq_rows_mma(
     int q0, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -193,7 +215,10 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
           if (kMayDrop && drop.thresh != 0u)
             dpv = (keep >> (4 * i + 2 * (tq & 1) + (e & 1))) & 1u
                       ? dpv * drop.inv_keep : 0.f;
-          s[n][e] = p * (dpv - delta_r[i]) * scale;
+          if constexpr (Scale::kAfter)
+            s[n][e] = p * (dpv - delta_r[i]);
+          else
+            s[n][e] = p * (dpv - delta_r[i]) * scale;
         }
       }
 #pragma unroll
@@ -206,6 +231,12 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     __syncthreads();  // every warp is done with this buffer
   }
 
+  if constexpr (Scale::kAfter) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= scale;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row[i];
@@ -237,8 +268,9 @@ __device__ __forceinline__ void load_q_tile(
 // Pass 2: keys [k0, k0 + kRows) of one group against query tiles
 // [t_begin, t_end), rows at lay's strides as in pass 1. Writes bf16 dk, dv
 // (rows lay.qkv() apart) when part_k is null, else this chunk's fp32
-// partials to part_k, part_v (row stride D).
-template <int D, class Layout = Contiguous<D>, bool kMayDrop = true>
+// partials to part_k, part_v (row stride D). Scale as in pass 1.
+template <int D, class Layout = Contiguous<D>, bool kMayDrop = true,
+          class Scale = ScaledDs>
 __device__ __forceinline__ void bwd_dkv_rows_mma(
     int k0, int t_begin, int t_end, const bf16* __restrict__ q,
     const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -332,7 +364,10 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
             dpv = kept ? dpv * drop.inv_keep : 0.f;
           }
           st[n][e] = pd;
-          dpt[n][e] = p * (dpv - delta_s[buf][c]) * scale;
+          if constexpr (Scale::kAfter)
+            dpt[n][e] = p * (dpv - delta_s[buf][c]);
+          else
+            dpt[n][e] = p * (dpv - delta_s[buf][c]) * scale;
         }
       }
 #pragma unroll
@@ -348,6 +383,12 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     __syncthreads();  // every warp is done with this buffer
   }
 
+  if constexpr (Scale::kAfter) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[n][e] *= scale;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kr = key[i];

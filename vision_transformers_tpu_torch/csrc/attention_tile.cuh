@@ -1,9 +1,9 @@
 // Shared body of the CUDA-core attention forward kernels of PERF.md's rows 1
-// (packed_attention.cu) and 8 (fused_block.cu), in both dtypes, and of rows
-// 2 (flash_attention.cu) and 5 (dropout_attention.cu's forward) for fp32
-// inputs; row 3's fp32 kernel (flash_attention_large.cu) uses its constants
-// and helpers. In bf16, rows 2, 3 and 5 run on the tensor cores
-// (attention_mma_tile.cuh). One thread block computes
+// (packed_attention.cu), 2 (flash_attention.cu) and 5 (dropout_attention.cu's
+// forward) for fp32 inputs, and of row 8's CUDA-core route (fused_block.cu,
+// fp32 and bf16 with mixed weight layouts); row 3's fp32 kernel
+// (flash_attention_large.cu) uses its constants and helpers. In bf16, rows 1,
+// 2, 3 and 5 run on the tensor cores (attention_mma_tile.cuh). One thread block computes
 // dropout(softmax(q·kᵀ·scale + bias + key mask))·v for a tile of kBlockQ query
 // rows of one (batch, head) group, streaming the keys in tiles of kBlockK
 // with an online softmax.
@@ -37,8 +37,7 @@
 // a warp computes its rows' scores and their softmax statistics with warp
 // shuffles and no block barrier in between. What bounds it on the H100 is
 // the products on the CUDA cores (about 1% of the bf16 tensor-core peak at
-// row 2's shape); attention_mma_tile.cuh is the tensor-core redesign, which
-// rows 1 and 8 have not taken yet.
+// row 2's shape); attention_mma_tile.cuh is the tensor-core redesign.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +68,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Load policies for the operands a kernel may have written itself, earlier in
+// the same launch (fused_block.cu's workspaces, across a grid barrier).
+// PlainLoads, the default, reads them as every other operand: through a
+// const __restrict__ pointer nvcc may take the non-coherent path
+// (ld.global.nc), which PTX allows only for data the launch never writes.
+// L2Loads reads them with __ldcg (ld.global.cg), through L2, which holds
+// what the other blocks wrote before the barrier.
+struct PlainLoads {
+  static constexpr bool kThroughL2 = false;
+};
+struct L2Loads {
+  static constexpr bool kThroughL2 = true;
+};
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -87,8 +100,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 // *_rs are row strides in elements. bias (fp32, row stride bias_rs) may be
 // null; kmask (fp32, one value per key) may be null. lse is fp32 with row
 // stride lse_rs, or null when the caller does not need it. rng_group is the
-// group's index b·H + h for the dropout mask.
-template <typename T, int D>
+// group's index b·H + h for the dropout mask. Loads: how q, k and v are read
+// (PlainLoads, or L2Loads where the launch wrote them).
+template <typename T, int D, class Loads = PlainLoads>
 __device__ __forceinline__ void attend_rows(
     int q0, const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
@@ -112,7 +126,10 @@ __device__ __forceinline__ void attend_rows(
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
-    qs[r][c] = qi < sq ? to_f32(q[qi * q_rs + c]) : 0.f;
+    if constexpr (Loads::kThroughL2)
+      qs[r][c] = qi < sq ? to_f32(__ldcg(q + qi * q_rs + c)) : 0.f;
+    else
+      qs[r][c] = qi < sq ? to_f32(q[qi * q_rs + c]) : 0.f;
   }
 
   // softmax state of rows warp + kWarps·r, replicated across the warp's lanes
@@ -137,8 +154,13 @@ __device__ __forceinline__ void attend_rows(
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D, kj = k0 + r;
       const bool in = kj < sk;
-      ks[r][c] = in ? to_f32(k[kj * kv_rs + c]) : 0.f;
-      vs[r][c] = in ? to_f32(v[kj * kv_rs + c]) : 0.f;
+      if constexpr (Loads::kThroughL2) {
+        ks[r][c] = in ? to_f32(__ldcg(k + kj * kv_rs + c)) : 0.f;
+        vs[r][c] = in ? to_f32(__ldcg(v + kj * kv_rs + c)) : 0.f;
+      } else {
+        ks[r][c] = in ? to_f32(k[kj * kv_rs + c]) : 0.f;
+        vs[r][c] = in ? to_f32(v[kj * kv_rs + c]) : 0.f;
+      }
     }
     __syncthreads();
 

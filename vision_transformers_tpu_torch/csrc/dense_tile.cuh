@@ -87,8 +87,10 @@ __device__ __forceinline__ float activate(float y, int act) {
 // One tile at (m0, n0). a: rows × kdim, row stride kdim. gamma/beta (fp32,
 // kdim each) both null for no LayerNorm; with them the caller has run
 // row_stats for this m0 and synchronised. bias (fp32, ncols) and resid
-// (rows × ncols, row stride ncols) may be null. out: rows × ncols.
-template <typename T>
+// (rows × ncols, row stride ncols) may be null. out: rows × ncols. Loads:
+// how A is read (attention_tile.cuh's PlainLoads, or L2Loads where the
+// launch wrote it); W, the bias and resid are read plainly.
+template <typename T, class Loads = PlainLoads>
 __device__ __forceinline__ void dense_tile(
     const T* __restrict__ a, int rows, int kdim,
     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -110,7 +112,10 @@ __device__ __forceinline__ void dense_tile(
       const int row = m0 + r, k = k0 + c;
       float v = 0.f;
       if (row < rows && k < kdim) {
-        v = to_f32(a[static_cast<long long>(row) * kdim + k]);
+        if constexpr (Loads::kThroughL2)
+          v = to_f32(__ldcg(a + static_cast<long long>(row) * kdim + k));
+        else
+          v = to_f32(a[static_cast<long long>(row) * kdim + k]);
         if (gamma != nullptr)
           v = to_f32(from_f32<T>((v - sm.mu[r]) * sm.rstd[r] * gamma[k] +
                                  beta[k]));

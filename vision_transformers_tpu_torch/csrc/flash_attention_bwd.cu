@@ -13,31 +13,50 @@
 //   p  = exp(s − lse),  δ = rowsum(do ⊙ out) (fp32),  dp = do·vᵀ
 //   ds = p ⊙ (dp − δ),  dq = ds·k·scale,  dv = pᵀ·do,  dk = dsᵀ·q·scale
 //
-// (the TPU kernel's formulas, :373-397, there with ds and pᵀ rounded to the
-// input dtype before their products; here they stay fp32).
+// (the TPU kernel's formulas, :373-397). Two routes, by dtype:
 //
-// One thread block owns one group and every output of it, in one launch and
-// without atomics, so two runs give equal bits. It keeps the group's K and V
-// resident in shared memory as fp32 and works in two phases, the TPU
-// kernel's two orientations:
+// bf16: flash_bwd_dq_mma_kernel, then flash_bwd_dkv_mma_kernel, on
+// attention_bwd_mma_tile.cuh's two passes <D, Contiguous<D>, false,
+// ScaledGrads> (row 6's tiles without dropout code or key mask): every
+// product as mma.sync.m16n8k16 (bf16 in, fp32 accumulators). The rounding is
+// _bwd_kernel's: ds = p ⊙ (dp − δ) rounded to bf16 unscaled (:384, :395), pᵀ
+// rounded before dv (:393), and dq, dk multiplied by the scale in fp32
+// before their one rounding (:385, :396). The first pass (grid G × ceil(Sq /
+// 64)) writes dq, and δ of its rows to a scratch; the second (grid G ×
+// ceil(Sk / 64)) writes dk and dv over every query tile. Unlike row 6 the
+// second pass's query loop is not split (dkv_chunks): at the DETR decoder's
+// shape, its one path shape, a block walks only two query tiles, so a split
+// would buy little parallelism for a third launch and fp32 partials.
+// 7 tile products where the mathematics needs 5, no atomics, so two runs
+// give equal bits. Each block holds one 64-row tile of Q and dO (or K and V)
+// in registers and streams the other operands, so nothing about the group's
+// size limits it; the route keeps flash_bwd_smem_bytes's rule all the same,
+// as the contract of this entry.
+//
+// fp32: flash_bwd_kernel, fp32 FMAs on the CUDA cores. One thread block owns
+// one group and every output of it, in one launch and without atomics. It
+// keeps the group's K and V resident in shared memory as fp32 and works in
+// two phases, the TPU kernel's two orientations:
 //   1. per tile of 32 query rows: δ and lse of the rows into shared memory,
 //      then s and dp against every key tile, ds into a shared tile, and dq of
 //      the rows accumulated in registers and written;
 //   2. per tile of 32 keys: sᵀ and dpᵀ against every query tile (q and do
 //      streamed from device memory, L2-resident at these sizes), pᵀ and dsᵀ
 //      into shared tiles, dk and dv of the keys accumulated and written.
-// That is 7 tile products where the mathematics needs 5, as on the TPU. The
-// whole group's K and V must fit the block's shared memory
+// The whole group's K and V must fit the block's shared memory
 // (flash_attention.py::flash_bwd_smem_bytes, the same formula as here): the
-// route takes this kernel only then, as _BWD_SCORE_BUDGET bounds it on the
+// route takes this entry only then, as _BWD_SCORE_BUDGET bounds it on the
 // TPU; outside it the backward is dropout_attention_bwd at rate 0.
 //
 // What bounds it on the H100 (ViT-B/16 @224, batch 32: G = 384, S = 197,
 // D = 64, bf16): 10·G·S²·D = 9.5 GFLOP, 9.6 µs at 989 TFLOP/s, against
 // 8·G·S·D·2 + G·S·4 = 77.8 MB moved, 23 µs at 3.35 TB/s: the bytes. At the
 // DETR decoder shape (G = 16, S = 100, D = 32) the card is barely occupied:
-// 16 blocks on 132 SMs. The products are fp32 FMAs on the CUDA cores.
-// Grid: x = G groups; 128 threads per block; dynamic shared memory.
+// 32 blocks a pass on 132 SMs, each walking 2 tiles, so the launches' fixed
+// cost is most of the time.
+#include <cstdint>
+
+#include "attention_bwd_mma_tile.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -258,57 +277,137 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           int g, int sq, int sk, int kv_valid, float scale, size_t smem,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_kernel<T, D><<<g, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(out),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
-      kv_valid, scale);
+// ---- the tensor-core route (bf16) ------------------------------------------
+
+namespace mm = vtt::mma;
+using bf16 = __nv_bfloat16;
+
+// Pass 1: dq of query rows [64·y, 64·y + 64) of group x, and δ of those rows
+// into the delta scratch (G·Sq fp32) for pass 2.
+template <int D>
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const bf16* __restrict__ out,
+                        const float* __restrict__ lse, bf16* __restrict__ dq,
+                        float* __restrict__ delta, int sq, int sk,
+                        int kv_valid, float scale) {
+  const long long g = blockIdx.x;
+  mm::bwd_dq_rows_mma<D, mm::Contiguous<D>, false, mm::ScaledGrads>(
+      blockIdx.y * mm::kRows, q + g * sq * D, k + g * sk * D, v + g * sk * D,
+      dout + g * sq * D, out + g * sq * D, lse + g * sq, nullptr,
+      dq + g * sq * D, delta + g * sq, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u);
+}
+
+// Pass 2: dk, dv of keys [64·y, 64·y + 64) of group x, over every query
+// tile.
+template <int D>
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
+                         int sk, int kv_valid, float scale) {
+  const long long g = blockIdx.x;
+  mm::bwd_dkv_rows_mma<D, mm::Contiguous<D>, false, mm::ScaledGrads>(
+      blockIdx.y * mm::kRows, 0, (sq + mm::kCols - 1) / mm::kCols,
+      q + g * sq * D, k + g * sk * D, v + g * sk * D, dout + g * sq * D,
+      lse + g * sq, delta + g * sq, nullptr, dk + g * sk * D,
+      dv + g * sk * D, nullptr, nullptr, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u);
+}
+
+struct Args {
+  const void *q, *k, *v, *out, *lse, *dout;
+  void *dq, *dk, *dv, *delta;
+  int g, sq, sk, kv_valid;
+  float scale;
+  size_t smem;  // the CUDA-core kernel's
+  cudaStream_t stream;
+};
+
+template <int D>
+int launch_mma(const Args& a) {
+  const dim3 grid_q(a.g, (a.sq + mm::kRows - 1) / mm::kRows);
+  flash_bwd_dq_mma_kernel<D><<<grid_q, mm::kThreads, 0, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const bf16*>(a.out), static_cast<const float*>(a.lse),
+      static_cast<bf16*>(a.dq), static_cast<float*>(a.delta), a.sq, a.sk,
+      a.kv_valid, a.scale);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const dim3 grid_k(a.g, (a.sk + mm::kRows - 1) / mm::kRows);
+  flash_bwd_dkv_mma_kernel<D><<<grid_k, mm::kThreads, 0, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk,
+      a.kv_valid, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const void* out,
-               const void* lse, const void* dout, void* dq, void* dk, void* dv,
-               int g, int sq, int sk, int d, int kv_valid, float scale,
-               size_t smem, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, kv_valid, scale, smem, stream);
-    case 32: return launch<T, 32>(q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, kv_valid, scale, smem, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, kv_valid, scale, smem, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// ---- the CUDA-core route (fp32) --------------------------------------------
+
+template <int D>
+int launch(const Args& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(a.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_kernel<float, D><<<a.g, kThreads, a.smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.out),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dout),
+      static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const Args& a, int is_bf16) {
+  return is_bf16 ? launch_mma<D>(a) : launch<D>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns 0 or the cudaError_t of the launch; cudaErrorInvalidValue when the
-// group does not fit one block's 227 KB of shared memory. is_bf16: 1 = bf16,
-// 0 = fp32.
+// Returns 0 or the cudaError_t of a launch; cudaErrorInvalidValue when the
+// shape is outside the route (flash_attention.py::flash_bwd_smem_bytes over
+// one block's 227 KB of shared memory). is_bf16: 1 = bf16 (the tensor
+// cores), 0 = fp32. bf16 only: delta, fp32 scratch of G·Sq elements (δ,
+// written by the first pass and read by the second); a q, k, v, out, do, dq,
+// dk or dv that is not 16-byte aligned is refused
+// (cudaErrorMisalignedAddress).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* lse, const void* dout,
-                        void* dq, void* dk, void* dv, int g, int sq, int sk,
-                        int d, int kv_valid, float scale, int is_bf16,
-                        void* stream) {
+                        void* dq, void* dk, void* dv, void* delta, int g,
+                        int sq, int sk, int d, int kv_valid, float scale,
+                        int is_bf16, void* stream) {
   const size_t smem = static_cast<size_t>(smem_floats(sq, sk, d)) * 4;
   if (g < 1 || sq < 1 || sk < 1 || kv_valid < 1 || kv_valid > sk ||
-      smem > 232448)
+      smem > 232448 || (is_bf16 && delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? dispatch_d<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, d, kv_valid, scale, smem, st)
-      : dispatch_d<float>(q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, d, kv_valid, scale, smem, st);
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p);
+  };
+  if (is_bf16 && ((addr(q) | addr(k) | addr(v) | addr(out) | addr(dout) |
+                   addr(dq) | addr(dk) | addr(dv)) & 15u))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Args a{q, k, v, out, lse, dout, dq, dk, dv, delta, g, sq, sk,
+               kv_valid, scale, smem, static_cast<cudaStream_t>(stream)};
+  switch (d) {
+    case 16: return launch_d<16>(a, is_bf16);
+    case 32: return launch_d<32>(a, is_bf16);
+    case 64: return launch_d<64>(a, is_bf16);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_bwd_error_string(int code) {

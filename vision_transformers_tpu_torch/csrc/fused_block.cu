@@ -68,6 +68,12 @@
 //      (attention_tile.cuh::attend_rows: keys streamed in 32-wide tiles with
 //      an online softmax, the S × S scores never stored);
 //   3. out-projection + bias + residual over 64 × 64 tiles.
+//   Phase 2 reads q, k and v of the QKV workspace, and phase 3 the attention
+//   output as A, with __ldcg (ld.global.cg, the tiles' L2Loads policy): other
+//   blocks of this launch wrote them before the grid barrier, and the
+//   non-coherent path (ld.global.nc), which a const __restrict__ pointer lets
+//   nvcc take, is defined only for data the launch never writes. x, the
+//   weights and the biases, which no phase writes, are read plainly.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -125,9 +131,10 @@ fused_block_kernel(Params p) {
     const T* q = qkv + img * p.s * row3 + h * D;
     __syncthreads();  // the previous item's shared tiles are read no more
     T* o = attn + static_cast<long long>(img) * p.s * hd + h * D;
-    vtt::attend_rows<T, D>(q0, q, row3, q + hd, q + 2 * hd, row3, nullptr, 0,
-                           nullptr, o, hd, nullptr, 0, p.s, p.s, p.s, p.scale,
-                           vtt::make_dropout(0u, 1.f, 0ull), 0u);
+    vtt::attend_rows<T, D, vtt::L2Loads>(
+        q0, q, row3, q + hd, q + 2 * hd, row3, nullptr, 0, nullptr, o, hd,
+        nullptr, 0, p.s, p.s, p.s, p.scale, vtt::make_dropout(0u, 1.f, 0ull),
+        0u);
   }
   grid.sync();
 
@@ -135,10 +142,10 @@ fused_block_kernel(Params p) {
   const int n3 = cdiv(hd, vtt::kTileN);
   for (int t = blockIdx.x; t < m_tiles * n3; t += gridDim.x) {
     const int m0 = (t / n3) * vtt::kTileM, n0 = (t % n3) * vtt::kTileN;
-    vtt::dense_tile<T>(attn, rows, hd, nullptr, nullptr,
-                       static_cast<const T*>(p.wout), p.ldk3, p.ldn3, hd,
-                       p.bout, vtt::kActNone, x, static_cast<T*>(p.out), m0,
-                       n0, sm);
+    vtt::dense_tile<T, vtt::L2Loads>(
+        attn, rows, hd, nullptr, nullptr, static_cast<const T*>(p.wout),
+        p.ldk3, p.ldn3, hd, p.bout, vtt::kActNone, x, static_cast<T*>(p.out),
+        m0, n0, sm);
   }
 }
 

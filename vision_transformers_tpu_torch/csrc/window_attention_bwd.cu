@@ -40,14 +40,19 @@
 // Every output element has one owner and every sum a fixed order: no atomics,
 // so two runs give equal bits. The tiles' row stride is odd, so the lanes of a
 // warp (rows in phase A, columns in phase B) fall in distinct banks. The
-// products are fp32 FMAs on the CUDA cores; the probabilities and ds stay
-// fp32 into their products (the TPU kernel rounds them to the compute dtype
-// first); only ds_out is rounded, as the TPU kernel emits it.
+// products are fp32 FMAs on the CUDA cores, with their operands rounded to
+// the compute dtype where _window_pack_bwd_kernel rounds them (:1521-1522):
+// dv takes p rounded (probs_c), dq and dk take ds·scale rounded (ds_c). δ and
+// ds are formed from the fp32 p of the tile, so p is rounded only where dv
+// reads it in phase B; ds_out is the pre-scale ds rounded once, as the TPU
+// kernel emits it. In fp32 every rounding is the identity.
 // Grid: x = ceil(G / P), y = H; a ragged last block is bounds-checked.
 #include "window_tile.cuh"
 
 namespace {
 
+using vtt::axpy_row;
+using vtt::dot_row;
 using vtt::kWinMaxThreads;
 using vtt::RowIO;
 
@@ -83,38 +88,6 @@ __device__ __forceinline__ void store_row(T* __restrict__ dst, const float* r) {
   constexpr int V = RowIO<T>::kVec;
 #pragma unroll
   for (int c = 0; c < D / V; ++c) RowIO<T>::store(dst + c * V, r + c * V);
-}
-
-// r · x for a register vector r and a 16-byte aligned shared-memory row x.
-template <int D>
-__device__ __forceinline__ float dot_row(const float* r,
-                                         const float* __restrict__ x) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float a = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 xx = x4[d4];
-    a = fmaf(r[4 * d4], xx.x, a);
-    a = fmaf(r[4 * d4 + 1], xx.y, a);
-    a = fmaf(r[4 * d4 + 2], xx.z, a);
-    a = fmaf(r[4 * d4 + 3], xx.w, a);
-  }
-  return a;
-}
-
-// r += c · x.
-template <int D>
-__device__ __forceinline__ void axpy_row(float c, const float* __restrict__ x,
-                                         float* r) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 xx = x4[d4];
-    r[4 * d4] = fmaf(c, xx.x, r[4 * d4]);
-    r[4 * d4 + 1] = fmaf(c, xx.y, r[4 * d4 + 1]);
-    r[4 * d4 + 2] = fmaf(c, xx.z, r[4 * d4 + 2]);
-    r[4 * d4 + 3] = fmaf(c, xx.w, r[4 * d4 + 3]);
-  }
 }
 
 template <typename T, int D>
@@ -191,7 +164,7 @@ window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
     for (int j = 0; j < n; ++j) {
       const float ds = prow[j] * (drow[j] - delta);
       drow[j] = ds;
-      axpy_row<D>(ds * scale, xw + j * D, r);
+      axpy_row<D>(vtt::to_f32(vtt::from_f32<T>(ds * scale)), xw + j * D, r);
     }
     store_row<T, D>(dq_base + t * 3 * hd, r);
   }
@@ -217,8 +190,8 @@ window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
       const float pa = pcol[a * ld];
       const float ds = dcol[a * ld];
       if (ds_col != nullptr) ds_col[a * n] = vtt::from_f32<T>(ds);
-      axpy_row<D>(ds * scale, xw + a * D, r);
-      axpy_row<D>(pa, yw + a * D, dv);
+      axpy_row<D>(vtt::to_f32(vtt::from_f32<T>(ds * scale)), xw + a * D, r);
+      axpy_row<D>(vtt::to_f32(vtt::from_f32<T>(pa)), yw + a * D, dv);
     }
     store_row<T, D>(dq_base + t * 3 * hd + hd, r);
     store_row<T, D>(dq_base + t * 3 * hd + 2 * hd, dv);

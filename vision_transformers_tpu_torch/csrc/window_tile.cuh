@@ -21,9 +21,17 @@
 // Numerics follow the TPU kernels: fp32 scores and statistics; the bias is
 // held in the compute dtype T and widened at the add; the row max is taken
 // before any exp, so a mask of −100 or −1e9 (never a whole row) only ever
-// gives exp(very negative) = 0. Unlike the TPU kernels the probabilities stay
-// fp32 into the PV product and the output is divided by the row sum after it.
+// gives exp(very negative) = 0. In bf16 the probabilities are rounded where
+// _window_pack_kernel rounds them (flash_attention.py:1320-1323: max, exp,
+// sum, divide, round, then P·V): a first pass over the keys takes the row
+// max m and the sum l online (scalars only, no score is kept), a second
+// recomputes each score and accumulates bf16(exp(s − m) / l)·v, and nothing
+// is divided after P·V. The recompute costs D more FMAs a key. In fp32 the
+// rounding is the identity, and one pass with the division after P·V gives
+// the same function to summation order.
 #pragma once
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -110,6 +118,38 @@ __device__ __forceinline__ void stage_kv(
   }
 }
 
+// r · x for a register vector r and a 16-byte aligned shared-memory row x.
+template <int D>
+__device__ __forceinline__ float dot_row(const float* r,
+                                         const float* __restrict__ x) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float a = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 xx = x4[d4];
+    a = fmaf(r[4 * d4], xx.x, a);
+    a = fmaf(r[4 * d4 + 1], xx.y, a);
+    a = fmaf(r[4 * d4 + 2], xx.z, a);
+    a = fmaf(r[4 * d4 + 3], xx.w, a);
+  }
+  return a;
+}
+
+// r += c · x.
+template <int D>
+__device__ __forceinline__ void axpy_row(float c, const float* __restrict__ x,
+                                         float* r) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 xx = x4[d4];
+    r[4 * d4] = fmaf(c, xx.x, r[4 * d4]);
+    r[4 * d4 + 1] = fmaf(c, xx.y, r[4 * d4 + 1]);
+    r[4 * d4 + 2] = fmaf(c, xx.z, r[4 * d4 + 2]);
+    r[4 * d4 + 3] = fmaf(c, xx.w, r[4 * d4 + 3]);
+  }
+}
+
 // One query row against its window's n keys. q_row, o_row: this row's D
 // elements in device memory (16-byte aligned). ks, vs: the window's K and V
 // in shared memory. b_row: this row's n bias values (shared memory fp32 or
@@ -131,58 +171,98 @@ __device__ __forceinline__ void attend_row(
   }
   float m = -CUDART_INF_F, l = 0.f;
 
-  for (int j0 = 0; j0 < n; j0 += kWinChunk) {
-    float s[kWinChunk];
+  if constexpr (std::is_same_v<T, float>) {
+    // one pass: p = exp(s − m) against the running max, the accumulator
+    // rescaled once a chunk, the output divided by l after P·V
+    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
+      float s[kWinChunk];
 #pragma unroll
-    for (int c = 0; c < kWinChunk; ++c) {
-      const int j = j0 + c;
-      float x = -CUDART_INF_F;  // past the window's last key: p = 0
-      if (j < n) {
-        const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
-        float a = 0.f;
+      for (int c = 0; c < kWinChunk; ++c) {
+        const int j = j0 + c;
+        float x = -CUDART_INF_F;  // past the window's last key: p = 0
+        if (j < n) {
+          const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
+          float a = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kk = k4[d4];
-          a = fmaf(q[4 * d4], kk.x, a);
-          a = fmaf(q[4 * d4 + 1], kk.y, a);
-          a = fmaf(q[4 * d4 + 2], kk.z, a);
-          a = fmaf(q[4 * d4 + 3], kk.w, a);
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 kk = k4[d4];
+            a = fmaf(q[4 * d4], kk.x, a);
+            a = fmaf(q[4 * d4 + 1], kk.y, a);
+            a = fmaf(q[4 * d4 + 2], kk.z, a);
+            a = fmaf(q[4 * d4 + 3], kk.w, a);
+          }
+          x = a;
+          if (b_row != nullptr) x += to_f32(b_row[j]);
         }
-        x = a;
-        if (b_row != nullptr) x += to_f32(b_row[j]);
+        s[c] = x;
       }
-      s[c] = x;
-    }
-    float m_new = m;  // key j0 is in the window, so m_new is finite
+      float m_new = m;  // key j0 is in the window, so m_new is finite
 #pragma unroll
-    for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
-    const float alpha = expf(m - m_new);  // first chunk: exp(-inf) = 0
-    l *= alpha;
+      for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
+      const float alpha = expf(m - m_new);  // first chunk: exp(-inf) = 0
+      l *= alpha;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int c = 0; c < kWinChunk; ++c) {
-      const int j = j0 + c;
-      if (j < n) {
-        const float p = expf(s[c] - m_new);
-        l += p;
-        const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
+      for (int c = 0; c < kWinChunk; ++c) {
+        const int j = j0 + c;
+        if (j < n) {
+          const float p = expf(s[c] - m_new);
+          l += p;
+          const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = v4[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 vv = v4[d4];
+            acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
+            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+          }
         }
       }
+      m = m_new;
     }
-    m = m_new;
-  }
 
-  const float inv = 1.f / l;
+    const float inv = 1.f / l;
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] *= inv;
+    for (int d = 0; d < D; ++d) acc[d] *= inv;
+  } else {
+    // pass 1: the row max m and the sum l of exp(s − m), online
+    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
+      float s[kWinChunk];
+#pragma unroll
+      for (int c = 0; c < kWinChunk; ++c) {
+        const int j = j0 + c;
+        float x = -CUDART_INF_F;
+        if (j < n) {
+          x = dot_row<D>(q, ks + j * D);
+          if (b_row != nullptr) x += to_f32(b_row[j]);
+        }
+        s[c] = x;
+      }
+      float m_new = m;
+#pragma unroll
+      for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
+      l *= expf(m - m_new);
+#pragma unroll
+      for (int c = 0; c < kWinChunk; ++c)
+        if (j0 + c < n) l += expf(s[c] - m_new);
+      m = m_new;
+    }
+    // pass 2: the same scores again, p = bf16(exp(s − m) / l) into P·V
+    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
+#pragma unroll
+      for (int c = 0; c < kWinChunk; ++c) {
+        const int j = j0 + c;
+        if (j < n) {
+          float x = dot_row<D>(q, ks + j * D);
+          if (b_row != nullptr) x += to_f32(b_row[j]);
+          const float p = to_f32(from_f32<T>(expf(x - m) / l));
+          axpy_row<D>(p, vs + j * D, acc);
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int c = 0; c < D / V; ++c) RowIO<T>::store(o_row + c * V, acc + c * V);
 }

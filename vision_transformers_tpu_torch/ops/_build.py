@@ -99,10 +99,10 @@ _SIGNATURES = {
         "flash_attention_large_tile_counts": (_I, [_P]),
         "flash_attention_large_error_string": (ctypes.c_char_p, [_I]),
     },
-    # (q, k, v, out, lse, dout, dq, dk, dv, g, sq, sk, d, kv_valid, scale,
-    #  is_bf16, stream)
+    # (q, k, v, out, lse, dout, dq, dk, dv, delta, g, sq, sk, d, kv_valid,
+    #  scale, is_bf16, stream); delta: fp32 scratch, bf16 only
     "flash_attention_bwd": {
-        "flash_attention_bwd": (_I, [_P] * 9 + [_I] * 5 + [_F, _I, _P]),
+        "flash_attention_bwd": (_I, [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
         "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
     # (x, gamma, beta, w, ldk, ldn, bias, out, rows, d, n, eps, act, is_bf16,

@@ -1003,11 +1003,14 @@ def flash_attention_bwd(
         grads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The small-S backward of a bias-free, mask-free forward with the same
-    ``scale`` and ``kv_valid``: (q, k, v, out, lse, do) → (dq, dk, dv). One
-    launch; one block owns each group and every output of it, so two runs
-    give equal bits. On CUDA the group's K and V must fit a block's shared
-    memory (``flash_bwd_smem_bytes``; ``ValueError`` otherwise). ``grads``
-    (CUDA only): contiguous (dq, dk, dv) like (q, k, v) to write into."""
+    ``scale`` and ``kv_valid``: (q, k, v, out, lse, do) → (dq, dk, dv).
+    bf16 runs on the tensor cores (two launches; a bf16 operand that is not
+    16-byte aligned raises), rounding ds unscaled and pᵀ before their
+    products as ``_bwd_kernel`` does; fp32 on the CUDA cores, one launch of
+    one block per group. Every output has one owner, so two runs give equal
+    bits. On CUDA the shape must pass ``flash_bwd_smem_bytes``'s rule
+    (``ValueError`` otherwise). ``grads`` (CUDA only): contiguous (dq, dk,
+    dv) like (q, k, v) to write into."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
     if do.shape != q.shape or out.shape != q.shape \
             or lse.shape != (b, h, s_q):
@@ -1036,13 +1039,17 @@ def flash_attention_bwd(
     dq, dk, dv = grads
     for name, t, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
         _check_into(name, t, like)
+    is_bf16 = q.dtype == torch.bfloat16
+    # δ, written by the bf16 route's first pass and read by its second
+    delta = (torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
+             if is_bf16 else None)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b * h, s_q, s_k, d, kv_valid, scale,
-            int(q.dtype == torch.bfloat16),
+            dv.data_ptr(), None if delta is None else delta.data_ptr(),
+            b * h, s_q, s_k, d, kv_valid, scale, int(is_bf16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention_bwd", rc)
     LAUNCHES["flash_attention_bwd"] += 1
