@@ -10,9 +10,11 @@ exit, and without the final result line:
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
    (one ``nvcc`` per source, all in parallel), and the registers, shared
-   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-8
-   and 14; the kernels of rows 1-7 and 14, on both routes, must keep their
-   registers (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
+   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-14;
+   the kernels of rows 1-7 and 14, on both routes, and the window kernels
+   whose text did not change when rows 9 and 10 took the tensor cores (rows
+   9 and 10 in fp32, rows 11-13), must keep their registers
+   (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
    CUDA-core route) must read its workspaces through L2 (``cuobjdump
    -sass``: its .CONSTANT loads, beside their count before the repair, and
    its .STRONG.GPU ones).
@@ -23,13 +25,15 @@ exit, and without the final result line:
    gradient through forward and backward of one seed against autograd of
    the plain forward, and bit-equal gradients from two runs. The four
    window kernels at the shapes of Swin-T's and SwinV2-T's stages at batch
-   32 and of a CIFAR window, with a shared and a per-window bias; the two
+   32 and of a CIFAR window, with a shared and a per-window bias, the
+   packed one also at N 100 and 128, dh 64; the two
    fused ones with and without a shift into an output pre-filled with NaN
    (every element must be written), and against each other on one map; in
    bf16 each is also bit-equal to its plain version but for a small share
    of elements, since both round the probabilities where the TPU kernels do.
    The window backward kernel at the same stage shapes (shared, per-window
-   and no bias, with and without the bias gradient, dh 16/32/64) against
+   and no bias, with and without the bias gradient, dh 16/32/64, N 100 and
+   128) against
    its plain version and, in fp32, against autograd of the plain forward,
    into a dqkv pre-filled with NaN, twice for equal bits; gradients through
    the two fused kernels' autograd function against autograd of their plain
@@ -56,9 +60,11 @@ exit, and without the final result line:
    1, into NaN-filled outputs, twice for equal bits, torch's (out, in)
    weights bit-equal to the (in, out) ones, beside a planted fault (one
    16-wide k slice of Wout left out); gradients through both autograd
-   functions in fp32. Rows 1-8 and 14: bf16 launches go
+   functions in fp32. Rows 1-10 and 14: bf16 launches go
    through the tensor-core kernels and fp32 ones through the CUDA-core
    kernels, by the kernels' names in a ``torch.profiler`` trace (here, and
+   rows 9 and 10 on SwinV2-T's served forward of phase 5 and the Swin-T,
+   SwinV2-T and Twins-SVT-S train steps of phase 6, and
    on the served ViT-B/16 forward of phase 3, the split-head forward of
    phase 4, the ViT-B/16 train step (rows 1 and 7) and the split-head train
    steps of phase 6, every flag-on forward of the ViT family (row 8) and the
@@ -153,7 +159,12 @@ exit, and without the final result line:
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
-   and the PyTorch library call (or chain) for the same function; rows 1,
+   and the PyTorch library call (or chain) for the same function (rows 9-13:
+   the median of five timings of the library); row 9 also in fp32 and at
+   N 49 against N 64 over the same tokens (the cost of padding 49 keys to
+   64), row 10 also without the bias gradient and beside SDPA's backward with
+   the bias's gradient (the mask a leaf, its gradient summed over the
+   windows that share a bias row); rows 1,
    7, 8 and 14 with their TFLOP/s, fp32 (row 8: CUDA-core) route and (row 1)
    S 192 against S 197, (row 14) torch's weight layout; row 8 also its
    device time in one launch and in four ordered launches of one phase each
@@ -239,16 +250,18 @@ MMA_GRAD_TOL = 5e-3
 # a planted fault on the plain version, the output of a kernel that skipped
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
-# Substrings of the CUDA kernels' names that tell the routes of rows 1, 2,
-# 3, 4, 5, 6, 7, 8 and 14 apart in a profile (csrc/packed_attention.cu,
+# Substrings of the CUDA kernels' names that tell the routes of rows 1-10
+# and 14 apart in a profile (csrc/packed_attention.cu,
 # csrc/flash_attention.cu, csrc/flash_attention_large.cu,
 # csrc/flash_attention_bwd.cu, csrc/dropout_attention.cu,
-# csrc/fused_block.cu, csrc/ln_dense.cu): bf16 on
+# csrc/fused_block.cu, csrc/ln_dense.cu, csrc/window_attention.cu,
+# csrc/window_attention_bwd.cu): bf16 on
 # the tensor cores, fp32 on the CUDA cores (row 14 by
 # ops/fused_dense.py::ln_dense_route, its tensor-core route after the
-# statistics launch, and row 8 by ops/flash_attention.py::fused_block_route;
-# every bf16 width and weight layout of the repo's models takes the tensor
-# cores). No name is a substring of another.
+# statistics launch, row 8 by ops/flash_attention.py::fused_block_route and
+# rows 9 and 10 by ops/flash_attention.py::window_route; every bf16 width
+# and weight layout of the repo's models takes the tensor cores). No name is
+# a substring of another.
 ROUTE_NAMES = {
     ("row 1", "bfloat16"): ("packed_fwd_mma_kernel",),
     ("row 1", "float32"): ("packed_fwd_kernel",),
@@ -270,6 +283,10 @@ ROUTE_NAMES = {
     ("row 4", "bfloat16"): ("flash_bwd_dq_mma_kernel",
                             "flash_bwd_dkv_mma_kernel"),
     ("row 4", "float32"): ("flash_bwd_kernel",),
+    ("row 9", "bfloat16"): ("window_packed_mma_kernel",),
+    ("row 9", "float32"): ("window_packed_kernel",),
+    ("row 10", "bfloat16"): ("window_bwd_mma_kernel",),
+    ("row 10", "float32"): ("window_bwd_kernel",),
 }
 # fp32 parameter gradients of a 2-layer model, card against CPU: summation
 # order through two blocks, relative to the largest reference gradient.
@@ -558,19 +575,21 @@ def require_route(label, fn, routes):
     kernels of ROUTE_NAMES[(row, dtype)] and none of that row's other
     route. One run on an H100 saw no row-3 kernel in the profile of
     T2T-ViT_t's served forward while the wrapper counted its launch, and
-    the next run saw it: while a kernel of ``routes`` is unseen, ``fn`` is
-    profiled again, up to three calls, and the profiles missed are logged;
-    an other-route kernel in any of them fails."""
+    the next run saw it, and another saw no kernel at all in the profile of
+    a call that launches one (the fp32 window_packed_kernel): while a
+    kernel of ``routes`` is unseen, ``fn`` is profiled again, up to three
+    calls, and the profiles missed are logged; an other-route kernel in any
+    of them fails."""
     names = set()
     hit = lambda s: any(s in n for n in names)  # noqa: E731
     for call in range(1, 4):
         got = kernel_names(fn)
-        require(bool(got), f"{label}: the profiler saw the card's kernels")
         names |= got
         if all(hit(s) for r in routes for s in ROUTE_NAMES[r]):
             break
         log(f"route {label}: profile {call} missed a kernel of {routes}; it "
             f"saw {sorted(n.split('(')[0] for n in got)}")
+    require(bool(names), f"{label}: the profiler saw the card's kernels")
     for row, dtype in routes:
         other = "float32" if dtype == "bfloat16" else "bfloat16"
         new, old = ROUTE_NAMES[(row, dtype)], ROUTE_NAMES[(row, other)]
@@ -606,13 +625,16 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
-# The sources of rows 1-8 and 14, whose kernels' registers and shared
-# memory phase 1 prints.
+# The sources of rows 1-14, whose kernels' registers and shared memory
+# phase 1 prints.
 PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
                  "flash_attention_bwd", "dropout_attention", "fused_block",
-                 "ln_dense")
+                 "ln_dense", "window_attention", "window_attention_bwd",
+                 "window_fused_attention")
 # The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the kernels of
-# rows 1-7 and 14 on both routes, which phase 1 checks. The tiles' policies
+# rows 1-7 and 14 on both routes, and the window kernels of rows 9-13 that
+# kept their text (read from the parent's build on the card when rows 9 and
+# 10 took the tensor cores), which phase 1 checks. The tiles' policies
 # (a row layout, a dropout flag and a scale placement for the backward, a
 # thread policy and a load policy for the forwards) default to the code the
 # older rows had, so a new row on a shared tile leaves theirs alone: the
@@ -693,6 +715,32 @@ KEPT_REGISTERS = {
     "drop_bwd_dkv_kernel<float, 64>": 124,
     "ln_dense_kernel<float>": 80,
     "ln_dense_kernel<__nv_bfloat16>": 80,
+    # the window kernels whose text did not change when rows 9 and 10 took
+    # the tensor cores: rows 9 and 10 in fp32, rows 11-13 on both routes
+    "window_packed_kernel<float, 16>": 76,
+    "window_packed_kernel<float, 32>": 123,
+    "window_packed_kernel<float, 64>": 176,
+    "window_bwd_kernel<float, 16>": 74,
+    "window_bwd_kernel<float, 32>": 112,
+    "window_bwd_kernel<float, 64>": 174,
+    "window_batched_kernel<float, 16>": 80,
+    "window_batched_kernel<float, 32>": 128,
+    "window_batched_kernel<float, 64>": 211,
+    "window_batched_kernel<__nv_bfloat16, 16>": 75,
+    "window_batched_kernel<__nv_bfloat16, 32>": 128,
+    "window_batched_kernel<__nv_bfloat16, 64>": 175,
+    "window_fused_slab_kernel<float, 16>": 80,
+    "window_fused_slab_kernel<float, 32>": 128,
+    "window_fused_slab_kernel<float, 64>": 213,
+    "window_fused_slab_kernel<__nv_bfloat16, 16>": 73,
+    "window_fused_slab_kernel<__nv_bfloat16, 32>": 128,
+    "window_fused_slab_kernel<__nv_bfloat16, 64>": 169,
+    "window_fused_flat_kernel<float, 16>": 64,
+    "window_fused_flat_kernel<float, 32>": 125,
+    "window_fused_flat_kernel<float, 64>": 175,
+    "window_fused_flat_kernel<__nv_bfloat16, 16>": 64,
+    "window_fused_flat_kernel<__nv_bfloat16, 32>": 96,
+    "window_fused_flat_kernel<__nv_bfloat16, 64>": 166,
 }
 # The global loads of fused_block_kernel<float, D> (row 8's CUDA-core route)
 # that took the non-coherent path (SASS .CONSTANT) before its phases read the
@@ -1066,11 +1114,11 @@ def main() -> int:
                 f"smem, {stack} bytes stack, {spill} bytes spilled")
         if kernel in KEPT_REGISTERS:
             kept[kernel] = regs
-    require(kept == KEPT_REGISTERS, "the kernels of rows 1-7 and 14 keep "
+    require(kept == KEPT_REGISTERS, "the kernels of KEPT_REGISTERS keep "
             "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
     log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-7 and 14, "
-        "both routes) at their registers")
+        "both routes; rows 9 and 10 in fp32, rows 11-13) at their registers")
     # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
     # own phases wrote through L2, never by the non-coherent path
     loads = sass_global_loads(_build._lib_path("fused_block"),
@@ -1299,7 +1347,11 @@ def main() -> int:
         bias = None if nwp == 0 else randn(31, nwp, h, n, n, dtype=fp32)
         return qkv, bias
 
-    def check_window(label, g, n, h, dh, nwp, dtype):
+    def check_window(label, g, n, h, dh, nwp, dtype, route=False):
+        """The packed and the batched kernel against the plain version; with
+        ``route``, row 9's kernel by name in a profile (one shape a dtype:
+        the profiler saw no kernel at all after some tens of profiles in
+        one run, so the profiles are kept few)."""
         name = str(dtype).removeprefix("torch.")
         qkv, bias = window_inputs(g, n, h, dh, nwp, dtype)
         ref = fa.window_attention_reference(qkv, bias, h)
@@ -1314,7 +1366,13 @@ def main() -> int:
                     and e <= WINDOW_TOL[name]
                     and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX),
                     f"{fn} {label} {name} against its plain version")
+            require(torch.equal(getattr(fa, fn)(qkv, bias, h), out),
+                    f"{fn} {label} {name}: reruns bit-equal")
             errs[(fn, label, name)] = e
+        if route:
+            require_route(f"window_packed_attention {label}",
+                          lambda: fa.window_packed_attention(qkv, bias, h),
+                          [("row 9", name)])
 
     def fused_inputs(b, hw, win, h, dh, per_window, dtype):
         n = win * win
@@ -1361,7 +1419,8 @@ def main() -> int:
                     f"slab against flat, {label} {name}")
 
     for dtype in (bf16, fp32):
-        check_window("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1, dtype)
+        check_window("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1, dtype,
+                     route=True)
         check_window("swin-t s1 G2048 N49 H3 nW'64", 2048, 49, 3, 32, 64, dtype)
         check_window("swin-t s2 G512 N49 H6 nW'16", 512, 49, 6, 32, 16, dtype)
         check_window("swin-t s3 G128 N49 H12 nW'4", 128, 49, 12, 32, 4, dtype)
@@ -1370,6 +1429,8 @@ def main() -> int:
                      dtype)
         check_window("cifar G1024 N16 H3 nW'16", 1024, 16, 3, 32, 16, dtype)
         check_window("no bias G33 N49 H3", 33, 49, 3, 32, 0, dtype)
+        check_window("N100 G64 H2 dh64 nW'4", 64, 100, 2, 64, 4, dtype)
+        check_window("N128 G64 H2 dh64 shared", 64, 128, 2, 64, 1, dtype)
         for shift in (3, 0):
             check_fused("swin-t s1 B32 56x56 H3", 32, 56, 7, shift, 3, 32,
                         dtype)
@@ -1382,7 +1443,7 @@ def main() -> int:
         check_fused("cifar B64 16x16 win4 H3", 64, 16, 4, 2, 3, 32, dtype)
 
     # the window backward kernel (the four forward kernels share it)
-    def check_window_bwd(label, g, n, h, dh, nwp, dtype):
+    def check_window_bwd(label, g, n, h, dh, nwp, dtype, route=False):
         name = str(dtype).removeprefix("torch.")
         qkv, bias = window_inputs(g, n, h, dh, nwp, dtype)
         do = randn(34, g, n, h * dh, dtype=dtype)
@@ -1402,6 +1463,9 @@ def main() -> int:
                 f"{what}: dqkv bit-equal to the plain version's but for "
                 f"{share:.3e} of its elements")
         require(torch.equal(got, again), f"{what}: two runs give equal dqkv")
+        if route:  # row 10's kernel by name, as check_window's route
+            require_route(what, lambda: fa.window_attention_bwd(
+                qkv, bias, do, h), [("row 10", name)])
         msg = (f"{what}: max|dqkv-plain| {e:.3e} (tol {tol:.3e}), elements "
                f"differing {share:.3e}")
         errs[("window_attention_bwd", label, name)] = e
@@ -1452,7 +1516,7 @@ def main() -> int:
 
     for dtype in (bf16, fp32):
         check_window_bwd("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1,
-                         dtype)
+                         dtype, route=True)
         check_window_bwd("swin-t s1 G2048 N49 H3 nW'64", 2048, 49, 3, 32, 64,
                          dtype)
         check_window_bwd("swin-t s2 G512 N49 H6 nW'16", 512, 49, 6, 32, 16,
@@ -1468,6 +1532,8 @@ def main() -> int:
         check_window_bwd("no bias G33 N49 H3", 33, 49, 3, 32, 0, dtype)
         check_window_bwd("dh16 G8 N49 H2 shared", 8, 49, 2, 16, 1, dtype)
         check_window_bwd("dh64 G8 N49 H2 nW'4", 8, 49, 2, 64, 4, dtype)
+        check_window_bwd("N100 G64 H2 dh64 nW'4", 64, 100, 2, 64, 4, dtype)
+        check_window_bwd("N128 G64 H2 dh64 shared", 64, 128, 2, 64, 1, dtype)
     for shift in (3, 0):
         check_fused_grad("swin-t s1 B8 56x56 H3", 8, 56, 7, shift, 3, 32)
         check_fused_grad("swin-t s2 B8 28x28 H6", 8, 28, 7, shift, 6, 32)
@@ -2223,6 +2289,10 @@ def main() -> int:
         log(f"{preset}: {forwards[0]} forwards (warmup {warm_s:.2f} s), "
             f"routes per forward {routes}, launches "
             f"{ {k: v for k, v in total.items() if v} }")
+        if "window_packed_attention" in want:
+            require_route(f"{preset} bf16 served forward, bucket 32",
+                          lambda: sclf.predict(images[:32]),
+                          [("row 9", "bfloat16")])
 
         # the same weights on the CPU through the plain versions, fp32
         cpu_swin = cls(**sargs, device="cpu")
@@ -2484,10 +2554,12 @@ def main() -> int:
         for name, ms, n in ranked:
             log(f"  {ms:8.3f} ms {n:4d}x {name}")
 
-    def train_phase(preset, model, weights, x, y, w, want_fwd, want_bwd):
+    def train_phase(preset, model, weights, x, y, w, want_fwd, want_bwd,
+                    routes=()):
         """3 steps with the fused and 3 with the unfused optimizer from the
         same weights: launches per step, the batch's eval loss before and
-        after, the step's split. Returns (launches, times by optimizer)."""
+        after, the step's split; the step's kernels take ``routes``
+        (require_route). Returns (launches, times by optimizer)."""
         n_big = sum(p.numel() >= fadam._MIN_FUSED_SIZE
                     for p in model.parameters())
         evaluate = trainer.eval_step_fn(model)
@@ -2542,6 +2614,9 @@ def main() -> int:
                     state.optimizer.step()
                 model.train()
                 log_profile(f"{preset} train step (fused Adam)", one_step)
+                if routes:
+                    require_route(f"{preset} bf16 train step", one_step,
+                                  routes)
         return launches, times
 
     xb = torch.from_numpy(images[:32]).to(dev)
@@ -2552,9 +2627,12 @@ def main() -> int:
     for preset, cls in (("swint_224_imagenet", SwinTransformer),
                         ("swinv2t_224_imagenet", SwinTransformerV2)):
         smodel = cls(**get_args(preset), dtype="bfloat16")
+        want_fwd = SWIN_LAUNCHES_PER_FORWARD[preset]
         swin_train[preset] = train_phase(
-            preset, smodel, swin_weights[preset], xb, yb, wb,
-            SWIN_LAUNCHES_PER_FORWARD[preset], bwd12)
+            preset, smodel, swin_weights[preset], xb, yb, wb, want_fwd, bwd12,
+            [("row 10", "bfloat16")] + ([("row 9", "bfloat16")]
+                                        if "window_packed_attention" in want_fwd
+                                        else []))
         if preset == "swint_224_imagenet":
             adam_model = smodel  # its leaves time the optimizers in phase 7
         del smodel
@@ -2682,7 +2760,8 @@ def main() -> int:
         if cls is TwinSVT:
             want_bwd["window_attention_bwd"] = 9
         hier[preset] = (hclf, got, train_phase(
-            preset, hmodel, hweights, xb, yb, wb, want, want_bwd))
+            preset, hmodel, hweights, xb, yb, wb, want, want_bwd,
+            [("row 10", "bfloat16")] if cls is TwinSVT else []))
         del hmodel
 
     # ---- 6g. the ViT family on the fused path (USE_FUSED_BLOCK) -----------
@@ -3426,7 +3505,13 @@ def main() -> int:
         return ((4 * g * n * h * dh + nwp * h * n * n) * 2,
                 4 * g * h * n * n * dh)
 
-    def window_entry(name, line, label, g, n, h, dh, nwp, other):
+    def median_ms(fn, reps=5, **kw):
+        """The median of ``reps`` timings of ``fn`` (cuda_ms): the library
+        calls of rows 9-13, whose times moved between runs (row 10's SDPA
+        backward 0.31 and 0.76 ms in two calls)."""
+        return float(np.median([cuda_ms(fn, **kw) for _ in range(reps)]))
+
+    def window_entry(name, line, label, g, n, h, dh, nwp, other, **more):
         qkv, bias = window_inputs(g, n, h, dh, nwp, bf16)
         q, k, v = split_heads(qkv, h)
         mask = bias.to(bf16).repeat(g // nwp, 1, 1, 1)
@@ -3437,14 +3522,31 @@ def main() -> int:
               f"G{g} N{n} H{h} dh{dh} nW'{nwp}",
               cuda_ms(lambda: fn(qkv, bias, h)),
               cuda_ms(lambda: fa.window_attention_reference(qkv, bias, h)),
-              cuda_ms(lambda: F.scaled_dot_product_attention(
+              median_ms(lambda: F.scaled_dot_product_attention(
                   q, k, v, attn_mask=mask)),
               nbytes, flops,
-              **{f"{other}_ms": cuda_ms(lambda: other_fn(qkv, bias, h))})
+              **{f"{other}_ms": cuda_ms(lambda: other_fn(qkv, bias, h))},
+              **more)
 
+    # row 9: fp32 (the CUDA cores), and the cost of padding 49 keys to the
+    # tensor-core kernel's 64: Swin-T's stage 1 (N 49) against SwinV2-T's
+    # (N 64) at the same 100 352 tokens, in ms per 10^6 tokens
+    qkv, bias = window_inputs(1568, 64, 3, 32, 49, fp32)
+    row9_fp32_ms = cuda_ms(lambda: fa.window_packed_attention(qkv, bias, 3))
+    qkv, bias = window_inputs(2048, 49, 3, 32, 64, bf16)
+    n49_ms = cuda_ms(lambda: fa.window_packed_attention(qkv, bias, 3))
+    del qkv, bias
     window_entry("window_packed_attention", 1295,
                  "swinv2-t s1 G1568 N64 H3 nW'49", 1568, 64, 3, 32, 49,
-                 "window_batched_attention")
+                 "window_batched_attention", fp32_ms=row9_fp32_ms,
+                 n49_g2048_ms=n49_ms,
+                 n49_ms_per_mtok=n49_ms / (2048 * 49) * 1e6)
+    k9 = kernels[-1]
+    k9["n64_ms_per_mtok"] = k9["ms"] / (1568 * 64) * 1e6
+    log(f"  padding: N 49 (G 2048, 64 keys a tile) {n49_ms:.4f} ms = "
+        f"{k9['n49_ms_per_mtok']:.4f} ms per 10^6 tokens against N 64 (G "
+        f"1568) {k9['ms']:.4f} ms = {k9['n64_ms_per_mtok']:.4f}; the padded "
+        f"keys are {1 - 49 / 64:.3f} of N 49's key tiles")
     window_entry("window_batched_attention", 1708,
                  "swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1,
                  "window_packed_attention")
@@ -3481,7 +3583,7 @@ def main() -> int:
                   qkv, bias, h, window, sh, plan=plans[kind])),
               cuda_ms(lambda: fa.window_fused_reference(qkv, bias, h, window,
                                                         sh)),
-              cuda_ms(chain), nbytes, flops,
+              median_ms(chain), nbytes, flops,
               **({f"{other}_same_map_ms": cuda_ms(
                   lambda: fa.fused_window_attention(
                       qkv, bias, h, window, sh, plan=plans[other]))}
@@ -3496,17 +3598,40 @@ def main() -> int:
     do = randn(34, g, n, h * dh, dtype=bf16)
     q, k, v = split_heads(qkv, h)
     do_h = do.reshape(g, n, h, dh).transpose(1, 2).contiguous()
-    mask = bias.to(bf16).repeat(g, 1, 1, 1)
+    mask = bias.to(bf16).repeat(g // nwp, 1, 1, 1)
 
-    def sdpa_masked_backward():
-        """SDPA's backward with the bias as its mask, graph kept; it gives
-        no bias gradient."""
-        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
-        return lambda: torch.autograd.grad(out, (ql, kl, vl), do_h,
+    def sdpa_masked_backward(bias_grad):
+        """SDPA's backward with the bias as its mask, graph kept. With
+        ``bias_grad`` the (nW', H, N, N) bias is a leaf repeated over the
+        windows, so the backward also gives its gradient, the score gradient
+        summed over the windows that share a bias row, as _reduce_window_ds
+        sums the kernel's ds: the kernel's function. Without, no bias
+        gradient."""
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        m = mask
+        if bias_grad:
+            leaves.append(bias.to(bf16).requires_grad_())
+            m = leaves[-1].repeat(g // nwp, 1, 1, 1)
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=m)
+        return lambda: torch.autograd.grad(out, leaves, do_h,
                                            retain_graph=True)
 
     io = g * n * h * dh * 2
+    ds_ = torch.ones(g, h, n, n, dtype=bf16, device=dev)
+    qkv32, do32 = qkv.float(), do.float()
+    bias_c, dqkv_ = bias.to(bf16), torch.empty_like(qkv)
+    bwd_lib = _build.load("window_attention_bwd")
+
+    def row10_kernel(ds):
+        """The kernel alone, as window_attention_bwd launches it (its C
+        entry, the bias already in bf16), ds written or not, no sum after
+        it."""
+        rc = bwd_lib.window_attention_bwd(
+            qkv.data_ptr(), bias_c.data_ptr(), do.data_ptr(), dqkv_.data_ptr(),
+            None if ds is None else ds.data_ptr(), g, n, h, dh, nwp,
+            dh ** -0.5, *fa.window_bwd_plan(g, n, h, dh), 1,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(bwd_lib, "window_attention_bwd", rc)
     entry("window_attention_bwd", "window_attention_bwd.cu", 1466,
           swin_total["window_attention_bwd"],
           errs[("window_attention_bwd", "swin-t s1 G2048 N49 H3 shared",
@@ -3515,16 +3640,33 @@ def main() -> int:
           cuda_ms(lambda: fa.window_attention_bwd(qkv, bias, do, h)),
           cuda_ms(lambda: fa.window_attention_bwd_reference(qkv, bias, do, h),
                   iters=10),
-          cuda_ms(sdpa_masked_backward()),
+          median_ms(sdpa_masked_backward(True)),
           # qkv and do read, dqkv written, the bias read, ds written
           7 * io + nwp * h * n * n * 2 + g * h * n * n * 2,
           10 * g * h * n * n * dh,
           no_dbias_ms=cuda_ms(lambda: fa.window_attention_bwd(
-              qkv, bias, do, h, need_dbias=False)))
+              qkv, bias, do, h, need_dbias=False)),
+          library_no_dbias_ms=median_ms(sdpa_masked_backward(False)),
+          # of ms: the fp32 sum of ds over the windows that share a bias
+          # row, in plain PyTorch after the kernel (_reduce_window_ds)
+          reduce_ds_ms=cuda_ms(lambda: fa._reduce_window_ds(ds_, bias)),
+          kernel_ds_ms=cuda_ms(lambda: row10_kernel(ds_)),
+          kernel_no_ds_ms=cuda_ms(lambda: row10_kernel(None)),
+          fp32_ms=cuda_ms(lambda: fa.window_attention_bwd(
+              qkv32, bias, do32, h), iters=5))
+    k10 = kernels[-1]
+    log(f"  the bias gradient: {1 - k10['no_dbias_ms'] / k10['ms']:.3f} of the "
+        f"wrapper's time, {k10['reduce_ds_ms']:.4f} ms of it the sum of ds "
+        f"after the kernel; the kernel alone {k10['kernel_ds_ms']:.4f} ms "
+        f"writing ds, {k10['kernel_no_ds_ms']:.4f} without (ds "
+        f"{g * h * n * n * 2 / 1e6:.1f} MB of the "
+        f"{k10['bound_ms'] * HBM_BYTES_PER_S / 1e9:.1f} MB it moves); SDPA's "
+        f"backward {k10['library_ms']:.4f} ms with the bias gradient, "
+        f"{k10['library_no_dbias_ms']:.4f} without")
     sw_t = swin_train["swint_224_imagenet"][1][True]
     log(f"  the 12 launches of a Swin-T step are part of its {sw_t[2]:.3f} ms "
         "backward")
-    del qkv, bias, do, q, k, v, do_h, mask
+    del qkv, bias, do, q, k, v, do_h, mask, ds_, qkv32, do32, bias_c, dqkv_
 
     # the single-pass Adam kernel on Swin-T's largest leaf (stage 4's fc1,
     # 768 x 3072: ViT-B/16's fc1 too), and the optimizers over all of

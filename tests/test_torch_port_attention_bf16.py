@@ -35,6 +35,21 @@ their rounding. Its plain version is held against ``_flash_bwd_pallas``
 here at D 32 and 16, where the scale is not a power of two, beside the
 other order (ds·scale rounded, rows 6 and 7's), which must fail there.
 
+The per-window forward (row 9, ``csrc/window_attention.cu``) and the shared
+window backward (row 10, ``csrc/window_attention_bwd.cu``) run on the tensor
+cores in bf16 (``csrc/window_mma_tile.cuh``) and round where
+``_window_pack_kernel`` and ``_window_pack_bwd_kernel`` round: s = q·kᵀ
+scaled in fp32, p normalised and then rounded before P·V; p in fp32 for δ
+and ds, ds·scale rounded for dq and dk, p rounded for dv. Their plain
+versions are held against ``_window_pack_fwd_pallas`` and
+``_window_pack_bwd_pallas`` here at N 49, dh 32 (scale 1/√32, not a power
+of two) with a per-window bias, beside the tempting wrong orders, which must
+fail the same limits: q·scale rounded before the product, p rounded
+unnormalised with the division after P·V; ds rounded before the scale for dq
+and dk, δ taken from the rounded p. Each of them moves a quarter to a half
+of the elements by a step. ``window_route`` sends bf16 to the tensor cores at
+every shape the window kernels take, fp32 to the CUDA cores.
+
 The masked streaming forward (row 3, ``csrc/flash_attention_large.cu``) on
 the tensor cores rounds the unnormalised probabilities before P·V, as
 ``_large_kernel`` does: its plain version is held against
@@ -419,3 +434,115 @@ def test_key_mask_add_writes_the_kernels_mask_value_bit_for_bit():
     assert got.dtype == torch.float32
     assert got.numpy().view(np.uint32).tolist() == [[0, hidden, 0, hidden]]
     assert np.float32(jfa.DEFAULT_MASK_VALUE).view(np.uint32) == hidden
+
+
+def _window_qkv(seed, g, n, heads, dh, nwp):
+    """bf16 qkv (G, N, 3·H·dh) on both sides, and an fp32 (nW', H, N, N)
+    bias."""
+    jqkv, tqkv = _pair(_randn(seed, g, n, 3 * heads * dh))
+    return jqkv, tqkv, _randn(seed + 1, nwp, heads, n, n)
+
+
+def _window_scores(tqkv, bias, heads, q_scaled_bf16=False):
+    """q, k, v (G, H, N, dh) in fp32 and the fp32 scores with the bias
+    rounded to bf16, as ``window_attention_reference`` forms them; with
+    ``q_scaled_bf16`` q·scale rounded to bf16 before the product instead."""
+    g, n, c3 = tqkv.shape
+    dh = c3 // (3 * heads)
+    scale = dh ** -0.5
+    q, k, v = (t.reshape(g, n, heads, dh).transpose(1, 2).float()
+               for t in tqkv.split(c3 // 3, dim=-1))
+    if q_scaled_bf16:
+        s = (q * scale).to(torch.bfloat16).float() @ k.transpose(-1, -2)
+    else:
+        s = q @ k.transpose(-1, -2) * scale
+    nw = bias.shape[0]
+    b = torch.from_numpy(bias).to(torch.bfloat16).float()
+    s = (s.reshape(g // nw, nw, heads, n, n) + b).reshape(g, heads, n, n)
+    return q, k, v, s
+
+
+def _merge(t):
+    """(G, H, N, dh) fp32 → (G, N, H·dh) bf16."""
+    g, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(g, n, h * dh).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("g,heads,nwp", [(16, 3, 4), (12, 2, 3)])
+def test_window_reference_matches_jax_kernel_in_bf16(g, heads, nwp):
+    """``window_attention_reference`` against ``_window_pack_kernel``
+    (through ``_window_pack_fwd_pallas``), both in bf16 at N 49, dh 32 with
+    a per-window bias; the two wrong rounding orders fail the same limits."""
+    n, dh = 49, 32
+    jqkv, tqkv, bias = _window_qkv(70, g, n, heads, dh, nwp)
+    p, g_blk = jfa.window_pack_plan(g, n, heads, dh, nwp, 2)
+    want = jfa._window_pack_fwd_pallas(jqkv, jnp.asarray(bias), heads,
+                                       dh ** -0.5, p, g_blk)
+    got = tfa.window_attention_reference(tqkv, torch.from_numpy(bias), heads)
+    assert got.dtype == torch.bfloat16
+    _close(got, want)
+
+    _, _, v, s = _window_scores(tqkv, bias, heads, q_scaled_bf16=True)
+    q_rounded = _merge(torch.softmax(s, -1).to(torch.bfloat16).float() @ v)
+    _, _, v, s = _window_scores(tqkv, bias, heads)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    divided_after = _merge((e.to(torch.bfloat16).float() @ v)
+                           / e.sum(-1, keepdim=True))
+    for wrong in (q_rounded, divided_after):
+        assert not _within(wrong, want)
+
+
+@pytest.mark.parametrize("g,heads,nwp", [(16, 3, 4), (12, 2, 3)])
+def test_window_bwd_reference_matches_jax_kernel_in_bf16(g, heads, nwp):
+    """``window_attention_bwd_reference`` against ``_window_pack_bwd_kernel``
+    (through ``_window_pack_bwd_pallas``), both in bf16 at N 49, dh 32 with
+    a per-window bias: dqkv's q, k and v thirds and dbias. ds rounded before
+    the scale, or δ taken from the rounded p, fails the same limits in dq and
+    dk (dv does not see ds)."""
+    n, dh = 49, 32
+    scale = dh ** -0.5
+    jqkv, tqkv, bias = _window_qkv(72, g, n, heads, dh, nwp)
+    jdo, tdo = _pair(_randn(74, g, n, heads * dh))
+    want, want_db = jfa._window_pack_bwd_pallas(
+        jqkv, jnp.asarray(bias), jdo, heads, scale,
+        jfa.window_pack_plan(g, n, heads, dh, nwp, 2)[0],
+        jfa._window_pack_bwd_gblk(g, n, heads, dh, nwp, 2))
+    got, got_db = tfa.window_attention_bwd_reference(
+        tqkv, torch.from_numpy(bias), tdo, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == tqkv.shape
+    hd = heads * dh
+    want = _np(want)
+    for i in range(3):
+        _close(got[..., i * hd:(i + 1) * hd], want[..., i * hd:(i + 1) * hd])
+    _close(got_db, want_db)
+
+    q, k, v, s = _window_scores(tqkv, bias, heads)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    do = tdo.reshape(g, n, heads, dh).transpose(1, 2).float()
+    dp = do @ v.transpose(-1, -2)
+    p_c = p.to(torch.bfloat16).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_c = ds.to(torch.bfloat16).float()  # rounded before the scale
+    wrong = [(ds_c @ k * scale, ds_c.transpose(-1, -2) @ q * scale)]
+    ds = p * (dp - (dp * p_c).sum(-1, keepdim=True))  # δ of the rounded p
+    ds_c = (ds * scale).to(torch.bfloat16).float()
+    wrong.append((ds_c @ k, ds_c.transpose(-1, -2) @ q))
+    for dq, dk in wrong:
+        for i, grad in enumerate((dq, dk)):
+            assert not _within(_merge(grad), want[..., i * hd:(i + 1) * hd])
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_window_route_sends_bf16_to_the_tensor_cores(dh):
+    """``window_route``: bf16 → the tensor-core kernels of rows 9 and 10 at
+    every N the window kernels take, fp32 → the CUDA-core ones; N 0 and
+    N 129, a head dim outside ``KERNEL_HEAD_DIMS`` and fp16 refused."""
+    for n in range(1, tfa.MAX_WINDOW_TOKENS + 1):
+        assert tfa.window_route(torch.bfloat16, n, dh) == "tensor_cores"
+        assert tfa.window_route(torch.float32, n, dh) == "cuda_cores"
+    for dtype, n, d in ((torch.bfloat16, 129, dh), (torch.float32, 129, dh),
+                        (torch.bfloat16, 0, dh), (torch.float16, 49, dh),
+                        (torch.bfloat16, 49, 8), (torch.float32, 49, 128)):
+        with pytest.raises(ValueError):
+            tfa.window_route(dtype, n, d)

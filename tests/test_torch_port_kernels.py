@@ -420,7 +420,51 @@ _WINDOW_SHAPES = [
     (37, 16, 2, 16, 1),     # CIFAR window, ragged last block
     (7, 128, 1, 64, 7),     # the largest window and head dim
     (5, 49, 3, 32, 0),      # no bias
+    (15, 9, 2, 32, 3),      # a 3 x 3 window: 16 keys, 4 windows a block
+    (15, 25, 2, 32, 3),     # a 5 x 5 window: 32 keys (the only shape that
+                            # takes them), nW' 3 across blocks of 2 windows
+    (9, 25, 3, 64, 1),
 ]
+
+# The kernels of rows 9 and 10 by route (ops/flash_attention.py's
+# window_route): bf16 on the tensor cores, fp32 on the CUDA cores.
+_WINDOW_ROUTE_NAMES = {
+    ("window_packed_attention", torch.bfloat16): "window_packed_mma_kernel",
+    ("window_packed_attention", torch.float32): "window_packed_kernel",
+    ("window_attention_bwd", torch.bfloat16): "window_bwd_mma_kernel",
+    ("window_attention_bwd", torch.float32): "window_bwd_kernel",
+}
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _takes_window_route(fn, wrapper, dtype):
+    """Calls of ``fn`` launch the kernel of ``wrapper``'s route for
+    ``dtype`` and not the other route's. The profiler on an H100 sometimes
+    saw none of a call's kernels (as ``chip_smoke.py``'s require_route
+    notes): while the kernel is unseen, ``fn`` is profiled again, up to
+    three calls, and their names are joined."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    want = _WINDOW_ROUTE_NAMES[(wrapper, dtype)]
+    avoid = _WINDOW_ROUTE_NAMES[(wrapper, other)]
+    names = set()
+    for _ in range(3):
+        names |= _kernel_names(fn)
+        if any(want in x for x in names):
+            break
+    return any(want in x for x in names) and not any(avoid in x
+                                                      for x in names)
 
 
 def _window_inputs(cuda, dtype, g, n, heads, dh, nwp, seed=40):
@@ -444,12 +488,17 @@ def test_window_kernels_match_plain(cuda, dtype, fn, g, n, heads, dh, nwp):
     assert tfa.LAUNCHES[fn] == 1 and sum(tfa.LAUNCHES.values()) == 1
     assert out.shape == ref.shape and out.dtype == dtype
     assert _window_close(out, ref, dtype)
+    assert torch.equal(getattr(tfa, fn)(qkv, bias, heads), out)
+    if fn == "window_packed_attention":
+        assert _takes_window_route(lambda: tfa.window_packed_attention(
+            qkv, bias, heads), fn, dtype)
 
 
 @pytest.mark.cuda
 def test_window_masks_do_not_overflow(cuda):
     """A shift mask of -100 and a pad mask of -1e9 on top of the bias, in
-    bf16: finite outputs equal to the plain version's."""
+    bf16: finite outputs equal to the plain version's, and finite gradients
+    within their limits, on the tensor-core route of rows 9 and 10."""
     g, n, heads, dh = 8, 49, 3, 32
     qkv, bias = _window_inputs(cuda, torch.bfloat16, g, n, heads, dh, 4)
     bias[1, :, :, 40:] = -100.0
@@ -460,6 +509,18 @@ def test_window_masks_do_not_overflow(cuda):
         out = fn(qkv, bias, heads)
         assert bool(torch.isfinite(out.float()).all())
         assert _window_close(out, ref, torch.bfloat16)
+    assert _takes_window_route(lambda: tfa.window_packed_attention(
+        qkv, bias, heads), "window_packed_attention", torch.bfloat16)
+    do = torch.from_numpy(_randn(52, g, n, heads * dh)).to(cuda, torch.bfloat16)
+    ref, ref_db = tfa.window_attention_bwd_reference(qkv, bias, do, heads)
+    got, got_db = tfa.window_attention_bwd(qkv, bias, do, heads)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(torch.isfinite(got_db.float()).all())
+    assert _grad_close(got, ref, torch.bfloat16, _WINDOW_GRAD_TOL)
+    assert _grad_close(got_db, ref_db, torch.bfloat16, _WINDOW_GRAD_TOL)
+    assert (got != ref).float().mean().item() <= _WINDOW_DIFFERING_MAX
+    assert _takes_window_route(lambda: tfa.window_attention_bwd(
+        qkv, bias, do, heads), "window_attention_bwd", torch.bfloat16)
 
 
 _FUSED_SHAPES = [
@@ -600,6 +661,8 @@ def test_window_backward_kernel_matches_plain(cuda, dtype, g, n, heads, dh,
         no_db = tfa.window_attention_bwd(qkv, bias, do, heads,
                                          need_dbias=False)
         assert no_db[1] is None and torch.equal(no_db[0], got)
+    assert _takes_window_route(lambda: tfa.window_attention_bwd(
+        qkv, bias, do, heads), "window_attention_bwd", dtype)
 
 
 @pytest.mark.cuda

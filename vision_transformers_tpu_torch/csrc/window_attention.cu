@@ -18,17 +18,25 @@
 // N = 49, H = 3, D = 32, bf16): 4·G·H·N²·D = 1.9 GFLOP, 1.9 µs at 989 TFLOP/s,
 // against 57.8 MB of qkv read and 19.3 MB of out written, 23 µs at
 // 3.35 TB/s: bytes. So each must read qkv once and write out once and keep
-// every score on chip; see window_tile.cuh for how (one thread per query
-// row, K/V in shared memory, fp32 FMAs, which is where the gap to the bound
-// lies).
+// every score on chip; see window_tile.cuh for how on the CUDA cores (one
+// thread per query row, K/V in shared memory, fp32 FMAs, which is where the
+// gap to the bound lies) and window_mma_tile.cuh for how on the tensor
+// cores.
 //
-// window_packed_kernel, the TPU's "pack P windows into one MXU product": here
-// the unit to fill is the block's threads, so a block takes as many windows
-// of one head as fill its warps with query rows (N = 49: 5 windows, 245 of
-// 256 threads; N = 64: 4; N = 16: 16). Each window reads its own bias row
-// (g mod nW') straight from device memory (1.2 MB at SwinV2-T stage 1, L2
-// resident). Grid: x = ceil(G / P), y = H; a ragged last block is
-// bounds-checked.
+// window_packed_kernel (fp32), the TPU's "pack P windows into one MXU
+// product": here the unit to fill is the block's threads, so a block takes
+// as many windows of one head as fill its warps with query rows (N = 49: 5
+// windows, 245 of 256 threads; N = 64: 4; N = 16: 16). Each window reads its
+// own bias row (g mod nW') straight from device memory (1.2 MB at SwinV2-T
+// stage 1, L2 resident). Grid: x = ceil(G / P), y = H; a ragged last block
+// is bounds-checked.
+//
+// window_packed_mma_kernel (bf16), the same function on the tensor cores
+// (window_mma_tile.cuh): a block takes wpb windows of one head, a warp per
+// 16 query rows of a window, the window's q, k, v and bias row staged in
+// shared memory; the launch shape comes from N alone (window_mma_geometry),
+// and the C entry's p and threads, the CUDA-core plan, are only checked.
+// Grid: x = ceil(G / wpb), y = H.
 //
 // window_batched_kernel, the TPU's per-head batched product for a bias shared
 // by all windows: a block belongs to one head, stages that head's (N, N)
@@ -36,6 +44,7 @@
 // banks) and reuses it over `passes` groups of P windows. Grid:
 // x = ceil(G / (P·passes)), y = H. A per-window bias (nW' > 1) is read from
 // device memory as in the packed kernel.
+#include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
 namespace {
@@ -70,6 +79,44 @@ window_packed_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   vtt::attend_row<T, D, T>(qkv + row * 3 * hd + h * D, ks + w * n * D,
                            vs + w * n * D, b_row, n, scale,
                            out + row * hd + h * D);
+}
+
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_packed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                         const __nv_bfloat16* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, long long g, int n,
+                         int heads, int bias_windows, float scale, int mt,
+                         int wpb) {
+  using vtt::mma::bf16;
+  constexpr int S = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp / mt, t = warp % mt;  // window of the block, query tile
+  const long long gw = static_cast<long long>(blockIdx.x) * wpb + w;
+  if (gw >= g) return;  // a ragged last block: this window's warps only
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw)
+             + w * vtt::mma::window_smem_elems<D, NK>(3, 1);
+  bf16* ks = qs + NK * S;
+  bf16* vs = ks + NK * S;
+  bf16* bs = vs + NK * S;  // (NK, NK + 8): the window's bias row
+
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * D;
+  const bf16* src = qkv + gw * n * 3 * hd + h * D;  // q of token 0
+  const int tid = t * 32 + lane, count = mt * 32;
+  vtt::mma::window_stage<D, NK>(qs, src, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<D, NK>(ks, src + hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<D, NK>(vs, src + 2 * hd, n, 3 * hd, tid, count);
+  vtt::mma::cp_async_commit();
+  if (bias != nullptr)
+    vtt::mma::window_stage_bias<NK>(
+        bs, bias + ((gw % bias_windows) * heads + h) * n * n, n, t, mt, lane);
+  vtt::mma::cp_async_wait<0>();
+  vtt::mma::window_sync(w, count);
+  vtt::mma::window_attend_mma<D, NK>(qs, ks, vs, bias == nullptr ? nullptr : bs,
+                                     n, t, scale, out + gw * n * hd + h * D,
+                                     hd, lane);
 }
 
 template <typename T, int D>
@@ -137,6 +184,41 @@ int launch_packed(const void* qkv, const void* bias, void* out, int g, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int NK>
+int launch_packed_mma(const void* qkv, const void* bias, void* out, int g,
+                      int n, int heads, int bias_windows, float scale,
+                      cudaStream_t stream) {
+  const vtt::mma::WindowGeometry geo = vtt::mma::window_mma_geometry(n);
+  const size_t smem = static_cast<size_t>(geo.wpb) *
+                      vtt::mma::window_smem_elems<D, NK>(3, 1) *
+                      sizeof(__nv_bfloat16);
+  auto kernel = window_packed_mma_kernel<D, NK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g + geo.wpb - 1) / geo.wpb, heads);
+  kernel<<<grid, geo.threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), g, n, heads, bias_windows, scale,
+      geo.mt, geo.wpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernel whose key tiles NK hold n (16, 32, 64 or 128).
+template <int D>
+int launch_packed_mma_keys(const void* qkv, const void* bias, void* out,
+                           int g, int n, int heads, int bias_windows,
+                           float scale, cudaStream_t stream) {
+  switch (vtt::mma::window_keys(n)) {
+    case 16: return launch_packed_mma<D, 16>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
+    case 32: return launch_packed_mma<D, 32>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
+    case 64: return launch_packed_mma<D, 64>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
+    default: return launch_packed_mma<D, 128>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
+  }
+}
+
 template <typename T, int D>
 int launch_batched(const void* qkv, const void* bias, void* out, int g, int n,
                    int heads, int bias_windows, float scale, int p,
@@ -169,6 +251,9 @@ extern "C" {
 
 // Each returns 0 or the cudaError_t of the launch. bias may be null (then
 // bias_windows is ignored). is_bf16: 1 = bf16, 0 = fp32 (qkv, bias and out).
+// The packed forward takes the tensor cores in bf16
+// (window_packed_mma_kernel, its own launch shape) and the CUDA cores in
+// fp32 (window_packed_kernel, the launch shape p, threads).
 
 int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
                                 int g, int n, int heads, int dh,
@@ -177,12 +262,15 @@ int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
   if (!args_ok(bias, g, n, heads, bias_windows, p, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VTT_PACKED(T, D) \
-  launch_packed<T, D>(qkv, bias, out, g, n, heads, bias_windows, scale, p, threads, st)
+#define VTT_PACKED(D)                                                     \
+  (is_bf16 ? launch_packed_mma_keys<D>(qkv, bias, out, g, n, heads,          \
+                                       bias_windows, scale, st)              \
+           : launch_packed<float, D>(qkv, bias, out, g, n, heads,            \
+                                     bias_windows, scale, p, threads, st))
   switch (dh) {
-    case 16: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 16) : VTT_PACKED(float, 16);
-    case 32: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 32) : VTT_PACKED(float, 32);
-    case 64: return is_bf16 ? VTT_PACKED(__nv_bfloat16, 64) : VTT_PACKED(float, 64);
+    case 16: return VTT_PACKED(16);
+    case 32: return VTT_PACKED(32);
+    case 64: return VTT_PACKED(64);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VTT_PACKED

@@ -25,10 +25,18 @@
 // 49 µs at 3.35 TB/s. Bytes. So the N×N tiles must never reach device
 // memory except as ds_out, and qkv and dout are read once each.
 //
-// Design. A block takes P windows of one head; one thread owns one row, as
-// in window_tile.cuh, and the block's two N×N tiles (p, then dp and ds) live
-// in shared memory as fp32, so each of the five products is computed once
-// (5·D FMAs per score) and nothing is recomputed for the transposed ones:
+// bf16 runs window_bwd_mma_kernel, every product on the tensor cores
+// (window_mma_tile.cuh: a block takes wpb windows of one head, a warp per 16
+// query rows and then per 16 keys of a window, p, ds·scale and ds staged as
+// bf16 tiles in shared memory; its launch shape comes from N alone and the C
+// entry's p and threads, the CUDA-core plan, are only checked; grid
+// x = ceil(G / wpb), y = H). fp32 runs window_bwd_kernel, below.
+//
+// Design of window_bwd_kernel. A block takes P windows of one head; one
+// thread owns one row, as in window_tile.cuh, and the block's two N×N tiles
+// (p, then dp and ds) live in shared memory as fp32, so each of the five
+// products is computed once (5·D FMAs per score) and nothing is recomputed
+// for the transposed ones:
 //   phase A, thread = query row i, K and V in shared memory read by
 //     broadcast: s → tile 1 and the row max; exp and row sum; dp → tile 2,
 //     p → tile 1, δ = Σ p·dp; ds → tile 2, dq accumulated in registers.
@@ -45,8 +53,10 @@
 // dv takes p rounded (probs_c), dq and dk take ds·scale rounded (ds_c). δ and
 // ds are formed from the fp32 p of the tile, so p is rounded only where dv
 // reads it in phase B; ds_out is the pre-scale ds rounded once, as the TPU
-// kernel emits it. In fp32 every rounding is the identity.
+// kernel emits it. It is instantiated for fp32 alone, where every rounding is
+// the identity.
 // Grid: x = ceil(G / P), y = H; a ragged last block is bounds-checked.
+#include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
 namespace {
@@ -198,6 +208,67 @@ window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
+// Each window's shared memory: Q, K, V, dO (NK rows of D + 8), then the
+// tiles bf16(p), bf16(ds·scale) and the bias, overwritten by bf16(ds)
+// (NK rows of NK + 8).
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                      const __nv_bfloat16* __restrict__ bias,
+                      const __nv_bfloat16* __restrict__ dout,
+                      __nv_bfloat16* __restrict__ dqkv,
+                      __nv_bfloat16* __restrict__ ds_out, long long g, int n,
+                      int heads, int bias_windows, float scale, int mt,
+                      int wpb) {
+  using vtt::mma::bf16;
+  constexpr int S = D + 8, SB = NK + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp / mt, t = warp % mt;  // window of the block, tile
+  const long long gw = static_cast<long long>(blockIdx.x) * wpb + w;
+  if (gw >= g) return;  // a ragged last block: this window's warps only
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw)
+             + w * vtt::mma::window_smem_elems<D, NK>(4, 3);
+  bf16* ks = qs + NK * S;
+  bf16* vs = ks + NK * S;
+  bf16* dos = vs + NK * S;
+  bf16* pt = dos + NK * S;  // bf16(p)
+  bf16* dt = pt + NK * SB;  // bf16(ds·scale)
+  bf16* xt = dt + NK * SB;  // the bias, then bf16(ds)
+
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * D;
+  const long long row0 = gw * n;  // token 0 of the window
+  const bf16* src = qkv + row0 * 3 * hd + h * D;
+  const int tid = t * 32 + lane, count = mt * 32;
+  vtt::mma::window_stage<D, NK>(qs, src, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<D, NK>(ks, src + hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<D, NK>(vs, src + 2 * hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<D, NK>(dos, dout + row0 * hd + h * D, n, hd, tid,
+                                count);
+  vtt::mma::cp_async_commit();
+  if (bias != nullptr)
+    vtt::mma::window_stage_bias<NK>(
+        xt, bias + ((gw % bias_windows) * heads + h) * n * n, n, t, mt, lane);
+  vtt::mma::cp_async_wait<0>();
+  vtt::mma::window_sync(w, count);
+
+  bf16* dq = dqkv + row0 * 3 * hd + h * D;
+  vtt::mma::window_bwd_rows_mma<D, NK>(
+      qs, ks, vs, dos, bias == nullptr ? nullptr : xt,
+      ds_out == nullptr ? nullptr : xt, pt, dt, n, t, scale, dq, 3 * hd,
+      lane);
+  vtt::mma::window_sync(w, count);  // every query tile's p and ds is staged
+
+  if (ds_out != nullptr) {  // rows of N, consecutive lanes on consecutive
+    bf16* d = ds_out + (gw * heads + h) * n * n;  // elements
+    for (int r = t; r < n; r += mt)
+      for (int c = lane; c < n; c += 32) d[r * n + c] = xt[r * SB + c];
+  }
+  vtt::mma::window_bwd_keys_mma<D, NK>(qs, dos, pt, dt, n, t, mt, dq + hd,
+                                       dq + 2 * hd, 3 * hd, lane);
+}
+
 size_t bwd_smem_bytes(int p, int n, int d) {
   return static_cast<size_t>(p) * n * (2 * d + 2 * (n | 1)) * sizeof(float);
 }
@@ -222,13 +293,52 @@ int launch_bwd(const void* qkv, const void* bias, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int NK>
+int launch_bwd_mma(const void* qkv, const void* bias, const void* dout,
+                   void* dqkv, void* ds_out, int g, int n, int heads,
+                   int bias_windows, float scale, cudaStream_t stream) {
+  const vtt::mma::WindowGeometry geo = vtt::mma::window_mma_geometry(n);
+  const size_t smem = static_cast<size_t>(geo.wpb) *
+                      vtt::mma::window_smem_elems<D, NK>(4, 3) *
+                      sizeof(__nv_bfloat16);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = window_bwd_mma_kernel<D, NK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g + geo.wpb - 1) / geo.wpb, heads);
+  kernel<<<grid, geo.threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(dqkv), static_cast<__nv_bfloat16*>(ds_out),
+      g, n, heads, bias_windows, scale, geo.mt, geo.wpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernel whose key tiles NK hold n (16, 32, 64 or 128).
+template <int D>
+int launch_bwd_mma_keys(const void* qkv, const void* bias, const void* dout,
+                        void* dqkv, void* ds_out, int g, int n, int heads,
+                        int bias_windows, float scale, cudaStream_t stream) {
+  switch (vtt::mma::window_keys(n)) {
+    case 16: return launch_bwd_mma<D, 16>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
+    case 32: return launch_bwd_mma<D, 32>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
+    case 64: return launch_bwd_mma<D, 64>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
+    default: return launch_bwd_mma<D, 128>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. bias may be null (then
 // bias_windows is ignored); ds_out may be null (no bias gradient wanted).
-// is_bf16: 1 = bf16, 0 = fp32 (qkv, bias, dout, dqkv and ds_out).
+// is_bf16: 1 = bf16, 0 = fp32 (qkv, bias, dout, dqkv and ds_out). bf16
+// takes the tensor cores (window_bwd_mma_kernel, its own launch shape), fp32
+// the CUDA cores (window_bwd_kernel, the launch shape p, threads).
 int window_attention_bwd(const void* qkv, const void* bias, const void* dout,
                          void* dqkv, void* ds_out, int g, int n, int heads,
                          int dh, int bias_windows, float scale, int p,
@@ -238,12 +348,16 @@ int window_attention_bwd(const void* qkv, const void* bias, const void* dout,
       (bias != nullptr && bias_windows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VTT_BWD(T, D) \
-  launch_bwd<T, D>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, p, threads, st)
+#define VTT_BWD(D)                                                        \
+  (is_bf16 ? launch_bwd_mma_keys<D>(qkv, bias, dout, dqkv, ds_out, g, n,     \
+                                    heads, bias_windows, scale, st)          \
+           : launch_bwd<float, D>(qkv, bias, dout, dqkv, ds_out, g, n,       \
+                                  heads, bias_windows, scale, p, threads,    \
+                                  st))
   switch (dh) {
-    case 16: return is_bf16 ? VTT_BWD(__nv_bfloat16, 16) : VTT_BWD(float, 16);
-    case 32: return is_bf16 ? VTT_BWD(__nv_bfloat16, 32) : VTT_BWD(float, 32);
-    case 64: return is_bf16 ? VTT_BWD(__nv_bfloat16, 64) : VTT_BWD(float, 64);
+    case 16: return VTT_BWD(16);
+    case 32: return VTT_BWD(32);
+    case 64: return VTT_BWD(64);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VTT_BWD

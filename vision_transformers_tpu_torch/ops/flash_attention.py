@@ -27,7 +27,8 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   (``csrc/window_attention.cu``) replace ``_window_pack_kernel`` and
   ``_window_batched_kernel``: Swin's per-window attention read in place
   from the partitioned (G, N, 3·H·dh) projection, with a shared or
-  per-window bias.
+  per-window bias. For bf16 the packed one runs on the tensor cores
+  (``csrc/window_mma_tile.cuh``, ``window_route``).
 - ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
   ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
   (the flat plan): cyclic shift, window partition, attention, reverse and
@@ -35,9 +36,10 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``) replaces
   ``_window_pack_bwd_kernel``, the backward the four window kernels share:
   from (qkv, bias, dO) it recomputes the probabilities and gives the packed
-  dqkv and the bias gradient. The fused wrapper's backward rolls and
-  partitions the map and dO around it in plain PyTorch, as the JAX package
-  does in plain XLA.
+  dqkv and the bias gradient, for bf16 on the tensor cores
+  (``csrc/window_mma_tile.cuh``, ``window_route``). The fused wrapper's
+  backward rolls and partitions the map and dO around it in plain PyTorch,
+  as the JAX package does in plain XLA.
 - ``flash_attention_large_fwd`` (``csrc/flash_attention_large.cu``)
   replaces ``_large_kernel``: the streaming forward that ``flash_attention``
   takes for a runtime key-padding ``kv_mask`` and for bias-free
@@ -1135,8 +1137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Tokens per window and head dims the window kernels' contract covers (the
 # conditions of the JAX plans that are about the function, not about VMEM).
 MAX_WINDOW_TOKENS = 128
-# Launch shape limits of the CUDA window kernels: one thread per query row,
-# K and V of the block's windows as fp32 in shared memory.
+# Launch shape limits of the CUDA-core window kernels: one thread per query
+# row, K and V of the block's windows as fp32 in shared memory.
 _WINDOW_MAX_THREADS = 256
 _WINDOW_MAX_SMEM = 96 * 1024
 _H100_SMS = 132
@@ -1178,7 +1180,9 @@ def window_pack_plan(g: int, n: int, heads: int, dh: int, bias_windows: int,
     if the shape is outside the function's contract (dh <= 64 dividing 128,
     N <= 128). ``bias_windows`` (1 or n_win) need not divide anything. The
     JAX plan's ``g % p`` and VMEM conditions are the TPU's and are dropped:
-    the kernel bounds-checks a ragged last block."""
+    the kernel bounds-checks a ragged last block. The launch shape of the
+    CUDA-core kernel (fp32, ``window_route``); the tensor-core kernel (bf16)
+    takes its own from N, and the C entry only checks this one."""
     if not _window_shape_ok(n, dh) or g < 1:
         return None
     return _window_block(n, dh)
@@ -1211,7 +1215,9 @@ def window_bwd_plan(g: int, n: int, heads: int, dh: int):
     memory that leaves two blocks to an SM. The JAX plan
     (``_window_pack_bwd_gblk``) is a VMEM budget and a ``g % p`` condition,
     facts of the TPU: here every shape the forward kernels take has a
-    backward kernel."""
+    backward kernel. The launch shape of the CUDA-core kernel (fp32,
+    ``window_route``); the tensor-core kernel (bf16) takes its own from N,
+    and the C entry only checks this one."""
     if not _window_shape_ok(n, dh) or g < 1 \
             or _window_bwd_smem(1, n, dh) > _WINDOW_BWD_SMEM_LIMIT:
         return None
@@ -1223,6 +1229,29 @@ def window_bwd_plan(g: int, n: int, heads: int, dh: int):
         if threads / p <= best[0] / best[1]:
             best = (threads, p)
     return best[1], best[0]
+
+
+def window_route(dtype: torch.dtype, n: int, dh: int) -> str:
+    """The route of a CUDA launch of the per-window forward
+    (``window_packed_attention``, row 9) and of the window backward
+    (``window_attention_bwd``, row 10), from the operands alone, before any
+    launch: ``"tensor_cores"`` (``window_packed_mma_kernel``,
+    ``window_bwd_mma_kernel``: every product on ``mma.sync``) for bf16,
+    ``"cuda_cores"`` (``window_packed_kernel``, ``window_bwd_kernel``) for
+    fp32, at every shape the window kernels take: 1 <= N <= 128 tokens and a
+    head dim of ``KERNEL_HEAD_DIMS``. Any other shape or dtype raises
+    ``ValueError``. A shape rule, not a fallback: the C entries take the
+    same kernel by the dtype, and a launch on it that fails raises. The
+    batched and fused window kernels (rows 11-13) keep the CUDA cores."""
+    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
+            f"dim of {KERNEL_HEAD_DIMS}, got N = {n}, dh = {dh}")
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise ValueError(f"window kernels take float32 or bfloat16, got {dtype}")
 
 
 def _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) -> bool:
@@ -1450,6 +1479,8 @@ def _window_forward(kind: str, qkv: torch.Tensor,
         return window_attention_reference(qkv, bias, heads, scale)
     name = f"window_{kind}_attention"
     _check_window_operands(name, qkv, bias, dh, hd)
+    if kind == "packed":
+        window_route(qkv.dtype, n, dh)
     bias = _window_bias(bias, g, heads, n, qkv.dtype)
     out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
     return _window_launch(
@@ -1475,7 +1506,8 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     gradient (G, H, N, N) in qkv's dtype and the sum over the windows that
     share a bias row is taken here, in fp32; with ``need_dbias`` false
     nothing of it is written. ``dqkv`` (CUDA only): a contiguous tensor
-    like qkv to write into instead of a new one."""
+    like qkv to write into instead of a new one. On the card bf16 takes the
+    tensor cores, fp32 the CUDA cores (``window_route``)."""
     g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
     if do.shape != (g, n, hd):
         raise ValueError(f"do must be {(g, n, hd)}, got {tuple(do.shape)}")
@@ -1495,6 +1527,7 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     _check_same_device(qkv, do=do)
     if do.data_ptr() % 16:
         raise ValueError("window_attention_bwd: do must be 16-byte aligned")
+    route = window_route(qkv.dtype, n, dh)
     if dqkv is None:
         dqkv = torch.empty_like(qkv)
     elif dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype \
@@ -1512,7 +1545,7 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
             do.data_ptr(), dqkv.data_ptr(),
             None if ds is None else ds.data_ptr(), g, n, heads, dh,
             0 if bias_c is None else bias_c.shape[0], scale, p, threads,
-            int(qkv.dtype == torch.bfloat16),
+            int(route == "tensor_cores"),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, "window_attention_bwd", rc)
     LAUNCHES["window_attention_bwd"] += 1
@@ -1550,7 +1583,10 @@ def window_packed_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     ``window_pack_plan`` (computed if omitted). Returns (G, N, H·dh).
     Differentiable in qkv and bias (``window_attention_bwd``).
 
-    The CUDA kernel gives a block as many windows of one head as fill its
+    On the card (``window_route``): in bf16 a block of the tensor-core
+    kernel takes a few windows of one head, a warp per 16 query rows, with
+    each window's q, k, v and bias row in shared memory; in fp32 the
+    CUDA-core kernel gives a block as many windows of one head as fill its
     threads with query rows (one thread per row), each window reading its
     own bias row from device memory."""
     g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
