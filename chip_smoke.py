@@ -12,9 +12,10 @@ exit, and without the final result line:
    (one ``nvcc`` per source, all in parallel), and the registers, shared
    memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-14;
    the kernels of rows 1-7 and 14, on both routes, and the window kernels
-   whose text did not change when rows 9 and 10 took the tensor cores (rows
-   9 and 10 in fp32, rows 11-13), must keep their registers
-   (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
+   whose text did not change when rows 9-12 took the tensor cores (rows
+   9-12 in fp32, row 13 in both dtypes, and rows 9 and 10's tensor-core
+   kernels, which rows 11 and 12 joined on their tile), must keep their
+   registers (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
    CUDA-core route) must read its workspaces through L2 (``cuobjdump
    -sass``: its .CONSTANT loads, beside their count before the repair, and
    its .STRONG.GPU ones).
@@ -28,7 +29,8 @@ exit, and without the final result line:
    32 and of a CIFAR window, with a shared and a per-window bias, the
    packed one also at N 100 and 128, dh 64; the two
    fused ones with and without a shift into an output pre-filled with NaN
-   (every element must be written), and against each other on one map; in
+   (every element must be written), reruns bit-equal, and against each
+   other on one map; in
    bf16 each is also bit-equal to its plain version but for a small share
    of elements, since both round the probabilities where the TPU kernels do.
    The window backward kernel at the same stage shapes (shared, per-window
@@ -47,7 +49,7 @@ exit, and without the final result line:
    keys are all masked against ``mha_reference``; the small-S backward
    (``flash_attention_bwd``) at the DETR decoder's self attention, at
    ViT-B/16's S 197 and at ragged, cross and ``kv_valid`` shapes against its
-   plain version (bf16 on the tensor cores by name in a profile, to
+   plain version (bf16 on the tensor cores by name in the launch log, to
    ``MMA_GRAD_TOL``), the row-6 kernel at rate 0 and, in fp32, autograd of
    the plain forward, into NaN-filled gradients, twice for equal bits. The
    fused LayerNorm + Dense (``ln_dense``) at benchmarks/ln_fused.py's ViT-B
@@ -60,11 +62,13 @@ exit, and without the final result line:
    1, into NaN-filled outputs, twice for equal bits, torch's (out, in)
    weights bit-equal to the (in, out) ones, beside a planted fault (one
    16-wide k slice of Wout left out); gradients through both autograd
-   functions in fp32. Rows 1-10 and 14: bf16 launches go
+   functions in fp32. Rows 1-12 and 14: bf16 launches go
    through the tensor-core kernels and fp32 ones through the CUDA-core
-   kernels, by the kernels' names in a ``torch.profiler`` trace (here, and
-   rows 9 and 10 on SwinV2-T's served forward of phase 5 and the Swin-T,
-   SwinV2-T and Twins-SVT-S train steps of phase 6, and
+   kernels, by the kernels' names in the libraries' launch logs, and row 13
+   through its slab kernel in both (here, and rows 9-13 on the Swin-T,
+   SwinV2-T and Twins-SVT-S served forwards of phases 5 and 6 and their
+   train steps of phase 6, each row its forwards launch, row 10 in every
+   step, and
    on the served ViT-B/16 forward of phase 3, the split-head forward of
    phase 4, the ViT-B/16 train step (rows 1 and 7) and the split-head train
    steps of phase 6, every flag-on forward of the ViT family (row 8) and the
@@ -162,7 +166,10 @@ exit, and without the final result line:
    and the PyTorch library call (or chain) for the same function (rows 9-13:
    the median of five timings of the library); row 9 also in fp32 and at
    N 49 against N 64 over the same tokens (the cost of padding 49 keys to
-   64), row 10 also without the bias gradient and beside SDPA's backward with
+   64), row 11 also in fp32 and with its tensor-core kernel's run of windows
+   and blocks an SM, row 12 also in fp32 and at Swin-T's stage 3 (B 32,
+   14 x 14, H 12, shifted with nW' 4 and unshifted with nW' 1), row 10 also
+   without the bias gradient and beside SDPA's backward with
    the bias's gradient (the mask a leaf, its gradient summed over the
    windows that share a bias row); rows 1,
    7, 8 and 14 with their TFLOP/s, fp32 (row 8: CUDA-core) route and (row 1)
@@ -250,18 +257,19 @@ MMA_GRAD_TOL = 5e-3
 # a planted fault on the plain version, the output of a kernel that skipped
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
-# Substrings of the CUDA kernels' names that tell the routes of rows 1-10
-# and 14 apart in a profile (csrc/packed_attention.cu,
+# The CUDA kernels' names, as their launch sites log them
+# (csrc/launch_log.cuh), that tell the routes of rows 1-12 and 14 apart
+# (csrc/packed_attention.cu,
 # csrc/flash_attention.cu, csrc/flash_attention_large.cu,
 # csrc/flash_attention_bwd.cu, csrc/dropout_attention.cu,
 # csrc/fused_block.cu, csrc/ln_dense.cu, csrc/window_attention.cu,
-# csrc/window_attention_bwd.cu): bf16 on
+# csrc/window_attention_bwd.cu, csrc/window_fused_attention.cu): bf16 on
 # the tensor cores, fp32 on the CUDA cores (row 14 by
 # ops/fused_dense.py::ln_dense_route, its tensor-core route after the
 # statistics launch, row 8 by ops/flash_attention.py::fused_block_route and
-# rows 9 and 10 by ops/flash_attention.py::window_route; every bf16 width
-# and weight layout of the repo's models takes the tensor cores). No name is
-# a substring of another.
+# rows 9-13 by ops/flash_attention.py::window_route; every bf16 width and
+# weight layout of the repo's models takes the tensor cores), and row 13's
+# one kernel, which keeps the CUDA cores in both.
 ROUTE_NAMES = {
     ("row 1", "bfloat16"): ("packed_fwd_mma_kernel",),
     ("row 1", "float32"): ("packed_fwd_kernel",),
@@ -287,7 +295,20 @@ ROUTE_NAMES = {
     ("row 9", "float32"): ("window_packed_kernel",),
     ("row 10", "bfloat16"): ("window_bwd_mma_kernel",),
     ("row 10", "float32"): ("window_bwd_kernel",),
+    ("row 11", "bfloat16"): ("window_batched_mma_kernel",),
+    ("row 11", "float32"): ("window_batched_kernel",),
+    ("row 12", "bfloat16"): ("window_fused_flat_mma_kernel",),
+    ("row 12", "float32"): ("window_fused_flat_kernel",),
+    # the slab kernel keeps the CUDA cores in both dtypes
+    ("row 13", "bfloat16"): ("window_fused_slab_kernel",),
+    ("row 13", "float32"): ("window_fused_slab_kernel",),
 }
+# The window wrappers' launch counters and their rows of the kernel table:
+# a path that launches one requires its route by name.
+WINDOW_ROWS = {"window_packed_attention": "row 9",
+               "window_batched_attention": "row 11",
+               "window_fused_flat_attention": "row 12",
+               "window_fused_slab_attention": "row 13"}
 # fp32 parameter gradients of a 2-layer model, card against CPU: summation
 # order through two blocks, relative to the largest reference gradient.
 MODEL_GRAD_TOL = 1e-4
@@ -531,20 +552,6 @@ def device_profile(fn, top: int = 8):
     return wall, busy, count, [(k[:90], ms, n) for k, (ms, n) in ranked]
 
 
-def kernel_names(fn):
-    """Names of the CUDA kernels that one call of ``fn`` launches, from
-    ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
 def queued_ms(fns, reps: int = 10):
     """Device ms of each of ``fns`` (each a call that launches a few
     kernels), by CUDA events recorded around it while the stream is kept
@@ -570,33 +577,39 @@ def queued_ms(fns, reps: int = 10):
             for i in range(len(fns))]
 
 
+def window_routes(launches):
+    """The bf16 routes of the window forwards that a path's launch counts
+    (per forward) name."""
+    return [(row, "bfloat16") for k, row in WINDOW_ROWS.items()
+            if launches.get(k)]
+
+
 def require_route(label, fn, routes):
-    """Calls of ``fn`` launch, for each (row, dtype) of ``routes``, the
+    """One call of ``fn`` launches, for each (row, dtype) of ``routes``, the
     kernels of ROUTE_NAMES[(row, dtype)] and none of that row's other
-    route. One run on an H100 saw no row-3 kernel in the profile of
-    T2T-ViT_t's served forward while the wrapper counted its launch, and
-    the next run saw it, and another saw no kernel at all in the profile of
-    a call that launches one (the fp32 window_packed_kernel): while a
-    kernel of ``routes`` is unseen, ``fn`` is profiled again, up to three
-    calls, and the profiles missed are logged; an other-route kernel in any
-    of them fails."""
-    names = set()
-    hit = lambda s: any(s in n for n in names)  # noqa: E731
-    for call in range(1, 4):
-        got = kernel_names(fn)
-        names |= got
-        if all(hit(s) for r in routes for s in ROUTE_NAMES[r]):
-            break
-        log(f"route {label}: profile {call} missed a kernel of {routes}; it "
-            f"saw {sorted(n.split('(')[0] for n in got)}")
-    require(bool(names), f"{label}: the profiler saw the card's kernels")
+    route, by the kernel libraries' launch logs (``_build.launched``: each
+    launch site counts its kernel by name once it has launched). Not by a
+    profiler: runs on an H100 saw the port's kernels missing from
+    ``torch.profiler`` sessions at random, some tens of sessions into a
+    process, while the kernels had run."""
+    import torch
+    from vision_transformers_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launched()
+    fn()
+    torch.cuda.synchronize()
+    got = _build.launched()
     for row, dtype in routes:
         other = "float32" if dtype == "bfloat16" else "bfloat16"
-        new, old = ROUTE_NAMES[(row, dtype)], ROUTE_NAMES[(row, other)]
-        require(all(hit(s) for s in new) and not any(hit(s) for s in old),
+        new = ROUTE_NAMES[(row, dtype)]
+        old = tuple(x for x in ROUTE_NAMES[(row, other)] if x not in new)
+        require(all(got.get(x, 0) > 0 for x in new)
+                and not any(x in got for x in old),
                 f"{label}: {row} in {dtype} launches {new}, none of {old}; "
-                f"the profiles saw {sorted(n.split('(')[0] for n in names)}")
-        log(f"route {label}: {row} {dtype} through {', '.join(new)}")
+                f"the launch logs saw {got}")
+        log(f"route {label}: {row} {dtype} through "
+            f"{', '.join(f'{x} x{got[x]}' for x in new)}")
 
 
 class ColorClassLoader:
@@ -632,9 +645,10 @@ PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
                  "ln_dense", "window_attention", "window_attention_bwd",
                  "window_fused_attention")
 # The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the kernels of
-# rows 1-7 and 14 on both routes, and the window kernels of rows 9-13 that
-# kept their text (read from the parent's build on the card when rows 9 and
-# 10 took the tensor cores), which phase 1 checks. The tiles' policies
+# rows 1-7 and 14 on both routes, and the window kernels that kept their
+# text (read from the parent's build on the card when rows 9 and 10 took the
+# tensor cores, and rows 9 and 10's tensor-core kernels when rows 11 and 12
+# joined their tile), which phase 1 checks. The tiles' policies
 # (a row layout, a dropout flag and a scale placement for the backward, a
 # thread policy and a load policy for the forwards) default to the code the
 # older rows had, so a new row on a shared tile leaves theirs alone: the
@@ -715,8 +729,8 @@ KEPT_REGISTERS = {
     "drop_bwd_dkv_kernel<float, 64>": 124,
     "ln_dense_kernel<float>": 80,
     "ln_dense_kernel<__nv_bfloat16>": 80,
-    # the window kernels whose text did not change when rows 9 and 10 took
-    # the tensor cores: rows 9 and 10 in fp32, rows 11-13 on both routes
+    # the window kernels on the CUDA cores whose text did not change when
+    # rows 9-12 took the tensor cores: rows 9-12 in fp32, row 13 in both
     "window_packed_kernel<float, 16>": 76,
     "window_packed_kernel<float, 32>": 123,
     "window_packed_kernel<float, 64>": 176,
@@ -726,9 +740,6 @@ KEPT_REGISTERS = {
     "window_batched_kernel<float, 16>": 80,
     "window_batched_kernel<float, 32>": 128,
     "window_batched_kernel<float, 64>": 211,
-    "window_batched_kernel<__nv_bfloat16, 16>": 75,
-    "window_batched_kernel<__nv_bfloat16, 32>": 128,
-    "window_batched_kernel<__nv_bfloat16, 64>": 175,
     "window_fused_slab_kernel<float, 16>": 80,
     "window_fused_slab_kernel<float, 32>": 128,
     "window_fused_slab_kernel<float, 64>": 213,
@@ -738,9 +749,32 @@ KEPT_REGISTERS = {
     "window_fused_flat_kernel<float, 16>": 64,
     "window_fused_flat_kernel<float, 32>": 125,
     "window_fused_flat_kernel<float, 64>": 175,
-    "window_fused_flat_kernel<__nv_bfloat16, 16>": 64,
-    "window_fused_flat_kernel<__nv_bfloat16, 32>": 96,
-    "window_fused_flat_kernel<__nv_bfloat16, 64>": 166,
+    # rows 9 and 10 on the tensor cores, as before rows 11 and 12 joined
+    # their tile (window_mma_tile.cuh's row-map paths default to their code)
+    "window_packed_mma_kernel<16, 16>": 40,
+    "window_packed_mma_kernel<16, 32>": 40,
+    "window_packed_mma_kernel<16, 64>": 63,
+    "window_packed_mma_kernel<16, 128>": 127,
+    "window_packed_mma_kernel<32, 16>": 40,
+    "window_packed_mma_kernel<32, 32>": 40,
+    "window_packed_mma_kernel<32, 64>": 64,
+    "window_packed_mma_kernel<32, 128>": 127,
+    "window_packed_mma_kernel<64, 16>": 48,
+    "window_packed_mma_kernel<64, 32>": 53,
+    "window_packed_mma_kernel<64, 64>": 78,
+    "window_packed_mma_kernel<64, 128>": 128,
+    "window_bwd_mma_kernel<16, 16>": 64,
+    "window_bwd_mma_kernel<16, 32>": 64,
+    "window_bwd_mma_kernel<16, 64>": 102,
+    "window_bwd_mma_kernel<16, 128>": 222,
+    "window_bwd_mma_kernel<32, 16>": 64,
+    "window_bwd_mma_kernel<32, 32>": 72,
+    "window_bwd_mma_kernel<32, 64>": 96,
+    "window_bwd_mma_kernel<32, 128>": 210,
+    "window_bwd_mma_kernel<64, 16>": 102,
+    "window_bwd_mma_kernel<64, 32>": 128,
+    "window_bwd_mma_kernel<64, 64>": 127,
+    "window_bwd_mma_kernel<64, 128>": 207,
 }
 # The global loads of fused_block_kernel<float, D> (row 8's CUDA-core route)
 # that took the non-coherent path (SASS .CONSTANT) before its phases read the
@@ -1118,7 +1152,8 @@ def main() -> int:
             "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
     log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-7 and 14, "
-        "both routes; rows 9 and 10 in fp32, rows 11-13) at their registers")
+        "both routes; rows 9-12 in fp32, row 13 in both, rows 9 and 10 on "
+        "the tensor cores) at their registers")
     # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
     # own phases wrote through L2, never by the non-coherent path
     loads = sass_global_loads(_build._lib_path("fused_block"),
@@ -1347,11 +1382,9 @@ def main() -> int:
         bias = None if nwp == 0 else randn(31, nwp, h, n, n, dtype=fp32)
         return qkv, bias
 
-    def check_window(label, g, n, h, dh, nwp, dtype, route=False):
-        """The packed and the batched kernel against the plain version; with
-        ``route``, row 9's kernel by name in a profile (one shape a dtype:
-        the profiler saw no kernel at all after some tens of profiles in
-        one run, so the profiles are kept few)."""
+    def check_window(label, g, n, h, dh, nwp, dtype):
+        """The packed and the batched kernel against the plain version,
+        reruns bit-equal, and rows 9 and 11's kernels by name."""
         name = str(dtype).removeprefix("torch.")
         qkv, bias = window_inputs(g, n, h, dh, nwp, dtype)
         ref = fa.window_attention_reference(qkv, bias, h)
@@ -1369,16 +1402,18 @@ def main() -> int:
             require(torch.equal(getattr(fa, fn)(qkv, bias, h), out),
                     f"{fn} {label} {name}: reruns bit-equal")
             errs[(fn, label, name)] = e
-        if route:
-            require_route(f"window_packed_attention {label}",
-                          lambda: fa.window_packed_attention(qkv, bias, h),
-                          [("row 9", name)])
+        require_route(f"window_packed_attention {label}",
+                      lambda: fa.window_packed_attention(qkv, bias, h),
+                      [("row 9", name)])
+        require_route(f"window_batched_attention {label}",
+                      lambda: fa.window_batched_attention(qkv, bias, h),
+                      [("row 11", name)])
 
-    def fused_inputs(b, hw, win, h, dh, per_window, dtype):
+    def fused_inputs(b, hw, win, h, dh, per_window, dtype, biased=True):
         n = win * win
         nwp = (hw // win) ** 2 if per_window else 1
         return (randn(32, b, hw, hw, 3 * h * dh, dtype=dtype),
-                randn(33, nwp, h, n, n, dtype=fp32), nwp)
+                randn(33, nwp, h, n, n, dtype=fp32) if biased else None, nwp)
 
     def fused_plans(b, hw, win, h, dh, nwp):
         """The plans a map has: flat always, slab where wp % 8 == 0."""
@@ -1387,9 +1422,14 @@ def main() -> int:
                  "flat": fa.window_fused_flat_plan(*geom)}
         return {k: p for k, p in plans.items() if p is not None}
 
-    def check_fused(label, b, hw, win, shift, h, dh, dtype):
+    def check_fused(label, b, hw, win, shift, h, dh, dtype, biased=True):
+        """The slab and the flat kernel (where the map has each) against the
+        plain version, into NaN-filled outputs, reruns bit-equal, and rows
+        12 and 13's kernels by name. A per-window bias where the map is
+        shifted, else a shared one; none where ``biased`` is false."""
         name = str(dtype).removeprefix("torch.")
-        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, shift > 0, dtype)
+        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, shift > 0, dtype,
+                                      biased)
         ref = fa.window_fused_reference(qkv, bias, h, (win, win),
                                         (shift, shift))
         outs = {}
@@ -1410,6 +1450,14 @@ def main() -> int:
             require(e <= WINDOW_TOL[name]
                     and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX),
                     f"fused {kind} {label} {name} against its plain version")
+            require(torch.equal(fa.fused_window_attention(
+                qkv, bias, h, (win, win), (shift, shift), plan=plan), out),
+                f"fused {kind} {label} {name}: reruns bit-equal")
+            require_route(
+                f"window_fused_{kind}_attention {label}",
+                lambda: fa.fused_window_attention(
+                    qkv, bias, h, (win, win), (shift, shift), plan=plan),
+                [("row 12" if kind == "flat" else "row 13", name)])
             errs[(f"window_fused_{kind}_attention", label, shift, name)] = e
             outs[kind] = out
         if len(outs) == 2:
@@ -1419,8 +1467,7 @@ def main() -> int:
                     f"slab against flat, {label} {name}")
 
     for dtype in (bf16, fp32):
-        check_window("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1, dtype,
-                     route=True)
+        check_window("swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1, dtype)
         check_window("swin-t s1 G2048 N49 H3 nW'64", 2048, 49, 3, 32, 64, dtype)
         check_window("swin-t s2 G512 N49 H6 nW'16", 512, 49, 6, 32, 16, dtype)
         check_window("swin-t s3 G128 N49 H12 nW'4", 128, 49, 12, 32, 4, dtype)
@@ -1429,6 +1476,11 @@ def main() -> int:
                      dtype)
         check_window("cifar G1024 N16 H3 nW'16", 1024, 16, 3, 32, 16, dtype)
         check_window("no bias G33 N49 H3", 33, 49, 3, 32, 0, dtype)
+        # Twins-SVT-S's LSA at batch 32 takes no bias: stages 1, 2 and 4
+        check_window("twins s1 G2048 N49 H2 no bias", 2048, 49, 2, 32, 0,
+                     dtype)
+        check_window("twins s2 G512 N49 H4 no bias", 512, 49, 4, 32, 0, dtype)
+        check_window("twins s4 G32 N49 H16 no bias", 32, 49, 16, 32, 0, dtype)
         check_window("N100 G64 H2 dh64 nW'4", 64, 100, 2, 64, 4, dtype)
         check_window("N128 G64 H2 dh64 shared", 64, 128, 2, 64, 1, dtype)
         for shift in (3, 0):
@@ -1441,6 +1493,10 @@ def main() -> int:
         check_fused("swinv2-t s2 B32 32x32 win8 H6", 32, 32, 8, 4, 6, 32,
                     dtype)
         check_fused("cifar B64 16x16 win4 H3", 64, 16, 4, 2, 3, 32, dtype)
+        # Twins-SVT-S's stage 3 LSA (5 flat launches a forward): no bias, no
+        # shift
+        check_fused("twins s3 B32 14x14 H8 no bias", 32, 14, 7, 0, 8, 32,
+                    dtype, biased=False)
 
     # the window backward kernel (the four forward kernels share it)
     def check_window_bwd(label, g, n, h, dh, nwp, dtype, route=False):
@@ -1664,7 +1720,7 @@ def main() -> int:
 
     # the small-S backward (row 4) against its plain version, the row-6
     # kernel at rate 0 and, in fp32, autograd of the plain forward; in bf16
-    # on the tensor cores (by name in a profile), held to MMA_GRAD_TOL
+    # on the tensor cores (by name in the launch log), held to MMA_GRAD_TOL
     # against the plain version, which rounds where the kernel does
     def check_small_bwd(label, b, h, sq, sk, d, kv_valid, dtype):
         name = str(dtype).removeprefix("torch.")
@@ -1742,8 +1798,8 @@ def main() -> int:
              (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
         return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
 
-    # rows 1-8 and 14: bf16 on the tensor-core kernels, fp32
-    # on the CUDA-core ones, by the kernels' names in a profile; then the
+    # rows 1-8 and 14: bf16 on the tensor-core kernels, fp32 on the
+    # CUDA-core ones, by the kernels' names in the launch logs; then the
     # bf16 kernels at the paths' own shapes against their plain versions,
     # reruns bit-equal
     for dtype in (bf16, fp32):
@@ -2289,10 +2345,8 @@ def main() -> int:
         log(f"{preset}: {forwards[0]} forwards (warmup {warm_s:.2f} s), "
             f"routes per forward {routes}, launches "
             f"{ {k: v for k, v in total.items() if v} }")
-        if "window_packed_attention" in want:
-            require_route(f"{preset} bf16 served forward, bucket 32",
-                          lambda: sclf.predict(images[:32]),
-                          [("row 9", "bfloat16")])
+        require_route(f"{preset} bf16 served forward, bucket 32",
+                      lambda: sclf.predict(images[:32]), window_routes(want))
 
         # the same weights on the CPU through the plain versions, fp32
         cpu_swin = cls(**sargs, device="cpu")
@@ -2630,9 +2684,7 @@ def main() -> int:
         want_fwd = SWIN_LAUNCHES_PER_FORWARD[preset]
         swin_train[preset] = train_phase(
             preset, smodel, swin_weights[preset], xb, yb, wb, want_fwd, bwd12,
-            [("row 10", "bfloat16")] + ([("row 9", "bfloat16")]
-                                        if "window_packed_attention" in want_fwd
-                                        else []))
+            [("row 10", "bfloat16")] + window_routes(want_fwd))
         if preset == "swint_224_imagenet":
             adam_model = smodel  # its leaves time the optimizers in phase 7
         del smodel
@@ -2729,6 +2781,10 @@ def main() -> int:
         require(got == {k: 4 * v for k, v in want.items()},
                 f"{preset}: {want} per forward over 4 forwards and no other "
                 f"kernel; got {got}")
+        if window_routes(want):
+            require_route(f"{preset} bf16 served forward, bucket 32",
+                          lambda: hclf.predict(images[:32]),
+                          window_routes(want))
         cpu_h = cls(**hargs, device="cpu")
         cpu_h.load_state_dict(hweights)
         with torch.no_grad():
@@ -2761,7 +2817,8 @@ def main() -> int:
             want_bwd["window_attention_bwd"] = 9
         hier[preset] = (hclf, got, train_phase(
             preset, hmodel, hweights, xb, yb, wb, want, want_bwd,
-            [("row 10", "bfloat16")] if cls is TwinSVT else []))
+            [("row 10", "bfloat16")] + window_routes(want)
+            if cls is TwinSVT else []))
         del hmodel
 
     # ---- 6g. the ViT family on the fused path (USE_FUSED_BLOCK) -----------
@@ -3526,7 +3583,7 @@ def main() -> int:
                   q, k, v, attn_mask=mask)),
               nbytes, flops,
               **{f"{other}_ms": cuda_ms(lambda: other_fn(qkv, bias, h))},
-              **more)
+              device_ms=queued_ms([lambda: fn(qkv, bias, h)])[0], **more)
 
     # row 9: fp32 (the CUDA cores), and the cost of padding 49 keys to the
     # tensor-core kernel's 64: Swin-T's stage 1 (N 49) against SwinV2-T's
@@ -3547,14 +3604,30 @@ def main() -> int:
         f"{k9['n49_ms_per_mtok']:.4f} ms per 10^6 tokens against N 64 (G "
         f"1568) {k9['ms']:.4f} ms = {k9['n64_ms_per_mtok']:.4f}; the padded "
         f"keys are {1 - 49 / 64:.3f} of N 49's key tiles")
+    # row 11: fp32 (the CUDA cores)
+    qkv, bias = window_inputs(2048, 49, 3, 32, 1, fp32)
+    row11_fp32_ms = cuda_ms(lambda: fa.window_batched_attention(qkv, bias, 3))
+    del qkv, bias
     window_entry("window_batched_attention", 1708,
                  "swin-t s1 G2048 N49 H3 shared", 2048, 49, 3, 32, 1,
-                 "window_packed_attention")
+                 "window_packed_attention", fp32_ms=row11_fp32_ms)
 
-    def fused_entry(kind, line, label, b, hw, win, shift, h, dh):
+    def fused_times(kind, b, hw, win, shift, h, dh, per_window, dtype=bf16):
+        """ms of the fused kernel of ``kind`` on a seeded map back to back
+        and as device time (queued_ms: the wrapper's host time, some 50 µs,
+        is near the kernel's at these shapes), and the inputs."""
+        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, per_window, dtype)
+        plan = fused_plans(b, hw, win, h, dh, nwp)[kind]
+        window, sh = (win, win), (shift, shift)
+        call = lambda: fa.fused_window_attention(  # noqa: E731
+            qkv, bias, h, window, sh, plan=plan)
+        return cuda_ms(call), queued_ms([call])[0], qkv, bias, nwp
+
+    def fused_entry(kind, line, label, b, hw, win, shift, h, dh, **more):
         name = f"window_fused_{kind}_attention"
         other = "flat" if kind == "slab" else "slab"
-        qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, True, bf16)
+        k_ms, k_dev, qkv, bias, nwp = fused_times(kind, b, hw, win, shift, h,
+                                                  dh, True)
         plans = fused_plans(b, hw, win, h, dh, nwp)
         g = b * nwp
         mask = bias.to(bf16).repeat(b, 1, 1, 1)
@@ -3579,17 +3652,25 @@ def main() -> int:
         entry(name, "window_fused_attention.cu", line, swin_total[name],
               errs[(name, label, shift, "bfloat16")],
               f"B{b} {hw}x{hw} win{win} shift{shift} H{h} dh{dh} nW'{nwp}",
-              cuda_ms(lambda: fa.fused_window_attention(
-                  qkv, bias, h, window, sh, plan=plans[kind])),
+              k_ms,
               cuda_ms(lambda: fa.window_fused_reference(qkv, bias, h, window,
                                                         sh)),
-              median_ms(chain), nbytes, flops,
+              median_ms(chain), nbytes, flops, device_ms=k_dev,
+              fp32_ms=fused_times(kind, b, hw, win, shift, h, dh, True,
+                                  fp32)[0],
               **({f"{other}_same_map_ms": cuda_ms(
                   lambda: fa.fused_window_attention(
                       qkv, bias, h, window, sh, plan=plans[other]))}
-                 if other in plans else {}))
+                 if other in plans else {}), **more)
 
-    fused_entry("flat", 1997, "swin-t s2 B32 28x28 H6", 32, 28, 7, 3, 6, 32)
+    # row 12 at Swin-T's stage 3 (B 32, 14 x 14, H 12), which takes 6 of its
+    # 7 launches a forward: shifted (nW' 4) and unshifted (nW' 1)
+    s3 = {}
+    for sh_ in (3, 0):
+        s3[f"s3_shift{sh_}_ms"], s3[f"s3_shift{sh_}_device_ms"] = fused_times(
+            "flat", 32, 14, 7, sh_, 12, 32, sh_ > 0)[:2]
+    fused_entry("flat", 1997, "swin-t s2 B32 28x28 H6", 32, 28, 7, 3, 6, 32,
+                **s3)
     fused_entry("slab", 2056, "swin-t s1 B32 56x56 H3", 32, 56, 7, 3, 3, 32)
 
     # the window backward at its largest launch: Swin-T stage 1, batch 32

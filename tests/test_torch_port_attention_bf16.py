@@ -546,3 +546,93 @@ def test_window_route_sends_bf16_to_the_tensor_cores(dh):
                         (torch.bfloat16, 49, 8), (torch.float32, 49, 128)):
         with pytest.raises(ValueError):
             tfa.window_route(dtype, n, d)
+
+
+@pytest.mark.parametrize("kernel", ["packed", "bwd", "batched", "fused_flat",
+                                    "fused_slab"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_window_route_names_each_kernel(dh, kernel):
+    """``window_route(..., kernel)``: bf16 → the tensor cores for every
+    window kernel but the slab one (row 13), which keeps the CUDA cores in
+    both dtypes; fp32 → the CUDA cores; N 0 and N 129, a head dim of 8, fp16
+    and an unknown kernel refused."""
+    bf16_route = "cuda_cores" if kernel == "fused_slab" else "tensor_cores"
+    for n in (1, 16, 17, 49, 64, 100, tfa.MAX_WINDOW_TOKENS):
+        assert tfa.window_route(torch.bfloat16, n, dh, kernel) == bf16_route
+        assert tfa.window_route(torch.float32, n, dh, kernel) == "cuda_cores"
+    for dtype, n, d in ((torch.bfloat16, 0, dh), (torch.bfloat16, 129, dh),
+                        (torch.float32, 129, dh), (torch.bfloat16, 49, 8),
+                        (torch.float16, 49, dh)):
+        with pytest.raises(ValueError):
+            tfa.window_route(dtype, n, d, kernel)
+    with pytest.raises(ValueError, match="window kernels are"):
+        tfa.window_route(torch.bfloat16, 49, dh, kernel + "_x")
+
+
+def _wrong_window_orders(tqkv, bias, heads):
+    """The two tempting wrong rounding orders of the window forward on a
+    partitioned (G, N, 3·H·dh) bf16 qkv: q·scale rounded before the
+    product; p rounded unnormalised with the division after P·V."""
+    _, _, v, s = _window_scores(tqkv, bias, heads, q_scaled_bf16=True)
+    q_rounded = _merge(torch.softmax(s, -1).to(torch.bfloat16).float() @ v)
+    _, _, v, s = _window_scores(tqkv, bias, heads)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    divided_after = _merge((e.to(torch.bfloat16).float() @ v)
+                           / e.sum(-1, keepdim=True))
+    return q_rounded, divided_after
+
+
+@pytest.mark.parametrize("g,heads,nwp", [(16, 3, 1), (8, 2, 8)])
+def test_window_batched_reference_matches_jax_kernel_in_bf16(g, heads, nwp):
+    """``window_attention_reference`` against ``_window_batched_kernel``
+    (through ``_window_batched_fwd_pallas``), both in bf16 at N 49, dh 32,
+    with the shared bias the router gives it and a per-window one; the two
+    wrong rounding orders fail the same limits."""
+    n, dh = 49, 32
+    jqkv, tqkv, bias = _window_qkv(76, g, n, heads, dh, nwp)
+    blk = jfa.window_batched_plan(g, n, heads, dh, nwp, 2)
+    want = jfa._window_batched_fwd_pallas(jqkv, jnp.asarray(bias), heads,
+                                          dh ** -0.5, blk)
+    got = tfa.window_attention_reference(tqkv, torch.from_numpy(bias), heads)
+    assert got.dtype == torch.bfloat16
+    _close(got, want)
+    for wrong in _wrong_window_orders(tqkv, bias, heads):
+        assert not _within(wrong, want)
+
+
+def test_window_fused_flat_reference_matches_jax_kernel_in_bf16():
+    """``window_fused_reference`` against ``_window_fused_flat_kernel``
+    (``fused_window_attention`` with ``window_fused_flat_plan``'s plan), both
+    in bf16 on a shifted 14 x 14 map (window 7, shift 3, H 2, dh 32, nW' 4;
+    batch 2, the least the JAX flat plan takes at 14 x 14: its images must
+    fill whole 8-row DMA tiles). The JAX layout pads each section to 128
+    lanes; the port's plain version takes the real H·dh. The two wrong
+    rounding orders, applied on the rolled and partitioned map, fail the
+    same limits."""
+    b, hw, win, shift, heads, dh, nwp = 2, 14, 7, 3, 2, 32, 4
+    hd, sec = heads * dh, 128
+    real = _randn(78, b, hw, hw, 3, hd)
+    padded = np.zeros((b, hw, hw, 3, sec), np.float32)
+    padded[..., :hd] = real
+    jmap, tmap = _pair(padded.reshape(b, hw, hw, 3 * sec))
+    bias = _randn(79, nwp, heads, win * win, win * win)
+    plan = jfa.window_fused_flat_plan(b, hw, hw, win, win, heads, dh, nwp, 2)
+    assert plan is not None and plan[2] == "flat"
+    want = _np(jfa.fused_window_attention(
+        jmap, jnp.asarray(bias), heads, (win, win), (shift, shift), dh=dh,
+        plan=plan))[..., :hd]
+    got = tfa.window_fused_reference(tmap, torch.from_numpy(bias), heads,
+                                     (win, win), (shift, shift), hd=hd)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hw, hw, sec)
+    assert not got[..., hd:].float().any()
+    _close(got[..., :hd], want)
+
+    x = torch.from_numpy(real.reshape(b, hw, hw, 3 * hd)).to(torch.bfloat16)
+    x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
+    x = x.reshape(b, 2, win, 2, win, 3 * hd).permute(0, 1, 3, 2, 4, 5)
+    for wrong in _wrong_window_orders(x.reshape(-1, win * win, 3 * hd), bias,
+                                      heads):
+        o = wrong.reshape(b, 2, 2, win, win, hd).permute(0, 1, 3, 2, 4, 5)
+        o = torch.roll(o.reshape(b, hw, hw, hd), shifts=(shift, shift),
+                       dims=(1, 2))
+        assert not _within(o, want)

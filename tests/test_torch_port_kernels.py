@@ -424,47 +424,49 @@ _WINDOW_SHAPES = [
     (15, 25, 2, 32, 3),     # a 5 x 5 window: 32 keys (the only shape that
                             # takes them), nW' 3 across blocks of 2 windows
     (9, 25, 3, 64, 1),
+    (40, 49, 2, 32, 1),     # the batched kernel: one step a block
+    (8192, 49, 3, 32, 1),   # G·H 24 576: the batched kernel's longest run
+    (2048, 49, 2, 32, 0),   # Twins-SVT-S's LSA at batch 32, no bias:
+    (512, 49, 4, 32, 0),    # stages 1, 2 and 4
+    (32, 49, 16, 32, 0),
 ]
 
-# The kernels of rows 9 and 10 by route (ops/flash_attention.py's
-# window_route): bf16 on the tensor cores, fp32 on the CUDA cores.
+# The kernels of rows 9-12 by route (ops/flash_attention.py's
+# window_route): bf16 on the tensor cores, fp32 on the CUDA cores. (Row 13,
+# the slab kernel, keeps the CUDA cores in both.)
 _WINDOW_ROUTE_NAMES = {
     ("window_packed_attention", torch.bfloat16): "window_packed_mma_kernel",
     ("window_packed_attention", torch.float32): "window_packed_kernel",
     ("window_attention_bwd", torch.bfloat16): "window_bwd_mma_kernel",
     ("window_attention_bwd", torch.float32): "window_bwd_kernel",
+    ("window_batched_attention", torch.bfloat16): "window_batched_mma_kernel",
+    ("window_batched_attention", torch.float32): "window_batched_kernel",
+    ("window_fused_flat_attention", torch.bfloat16):
+        "window_fused_flat_mma_kernel",
+    ("window_fused_flat_attention", torch.float32): "window_fused_flat_kernel",
 }
 
 
-def _kernel_names(fn):
-    """Names of the CUDA kernels one call of ``fn`` launches
-    (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
 def _takes_window_route(fn, wrapper, dtype):
-    """Calls of ``fn`` launch the kernel of ``wrapper``'s route for
-    ``dtype`` and not the other route's. The profiler on an H100 sometimes
-    saw none of a call's kernels (as ``chip_smoke.py``'s require_route
-    notes): while the kernel is unseen, ``fn`` is profiled again, up to
-    three calls, and their names are joined."""
+    """One call of ``fn`` launches the kernel of ``wrapper``'s route for
+    ``dtype`` and not the other route's, by the kernel libraries' launch
+    logs (``_build.launched``), not a profiler: runs of this file on an
+    H100 saw the port's kernels missing from ``torch.profiler`` sessions at
+    random while they had run."""
+    from vision_transformers_tpu_torch.ops import _build
+
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     want = _WINDOW_ROUTE_NAMES[(wrapper, dtype)]
     avoid = _WINDOW_ROUTE_NAMES[(wrapper, other)]
-    names = set()
-    for _ in range(3):
-        names |= _kernel_names(fn)
-        if any(want in x for x in names):
-            break
-    return any(want in x for x in names) and not any(avoid in x
-                                                      for x in names)
+    torch.cuda.synchronize()
+    _build.reset_launched()
+    fn()
+    torch.cuda.synchronize()
+    got = _build.launched()
+    ok = got.get(want, 0) > 0 and avoid not in got
+    if not ok:  # shown with the failure
+        print(f"{wrapper} {dtype} launched {got}")
+    return ok
 
 
 def _window_inputs(cuda, dtype, g, n, heads, dh, nwp, seed=40):
@@ -489,9 +491,8 @@ def test_window_kernels_match_plain(cuda, dtype, fn, g, n, heads, dh, nwp):
     assert out.shape == ref.shape and out.dtype == dtype
     assert _window_close(out, ref, dtype)
     assert torch.equal(getattr(tfa, fn)(qkv, bias, heads), out)
-    if fn == "window_packed_attention":
-        assert _takes_window_route(lambda: tfa.window_packed_attention(
-            qkv, bias, heads), fn, dtype)
+    assert _takes_window_route(lambda: getattr(tfa, fn)(qkv, bias, heads), fn,
+                               dtype)
 
 
 @pytest.mark.cuda
@@ -524,13 +525,14 @@ def test_window_masks_do_not_overflow(cuda):
 
 
 _FUSED_SHAPES = [
-    # b, hp, wp, window, shift, heads, dh, per-window bias
+    # b, hp, wp, window, shift, heads, dh, per-window bias (None: no bias)
     (2, 56, 56, 7, (3, 3), 3, 32, True),    # Swin-T stage 1: slab and flat
     (3, 28, 28, 7, (3, 3), 6, 32, True),    # stage 2 (flat): row and column wrap
     (2, 14, 14, 7, (3, 3), 12, 32, True),   # stage 3 (flat)
     (2, 14, 14, 7, (0, 0), 12, 32, False),  # stage 3 unshifted
     (3, 16, 8, 4, (1, 3), 2, 16, True),     # non-square, CIFAR window
     (1, 32, 32, 8, (4, 4), 2, 64, False),   # window 8, dh 64, shift without a mask
+    (2, 14, 14, 7, (0, 0), 8, 32, None),    # Twins-SVT-S stage 3: no bias
 ]
 
 
@@ -550,7 +552,8 @@ def test_fused_window_kernels_match_plain(cuda, dtype, b, hp, wp, win, shift,
     n = win * win
     nwp = (hp // win) * (wp // win) if per_window else 1
     qkv = torch.from_numpy(_randn(42, b, hp, wp, 3 * heads * dh)).to(cuda, dtype)
-    bias = torch.from_numpy(_randn(43, nwp, heads, n, n)).to(cuda)
+    bias = None if per_window is None else \
+        torch.from_numpy(_randn(43, nwp, heads, n, n)).to(cuda)
     ref = tfa.window_fused_reference(qkv, bias, heads, (win, win), shift)
     plans = _fused_plans(b, hp, wp, win, heads, dh, nwp)
     assert [p[0] for p in plans] == (["flat"] if wp % 8 else ["slab", "flat"])
@@ -568,6 +571,12 @@ def _check_fused_launch(cuda, dtype, qkv, bias, ref, heads, win, shift, plan):
     assert got is out and tfa.LAUNCHES[f"window_fused_{kind}_attention"] == 1
     assert not bool(torch.isnan(out.float()).any())  # every element written
     assert _window_close(out, ref, dtype)
+    assert torch.equal(tfa.fused_window_attention(
+        qkv, bias, heads, (win, win), shift, plan=plan), out)
+    if kind == "flat":
+        assert _takes_window_route(lambda: tfa.fused_window_attention(
+            qkv, bias, heads, (win, win), shift, plan=plan),
+            "window_fused_flat_attention", dtype)
 
 
 @pytest.mark.cuda

@@ -53,6 +53,7 @@
 #include "attention_bwd_tile.cuh"
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_mma_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -218,7 +219,7 @@ int launch_bwd_mma(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<bf16*>(a.dq),
       static_cast<float*>(a.delta), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
       a.drop);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = vtt::launched("drop_bwd_dq_mma_kernel");
   if (rc != 0) return rc;
   const int nq = (a.sq + kCols - 1) / kCols;
   const int chunks = a.part == nullptr ? 1 : std::min(a.chunks, nq);
@@ -232,14 +233,14 @@ int launch_bwd_mma(const Args& a) {
       static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), z > 1 ? static_cast<float*>(a.part) : nullptr,
       a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop, per);
-  rc = static_cast<int>(cudaGetLastError());
+  rc = vtt::launched("drop_bwd_dkv_mma_kernel");
   if (rc != 0 || z == 1) return rc;
   const long long plane = static_cast<long long>(a.g) * a.sk * D;
   const int blocks = static_cast<int>(std::min(4096ll, (plane + 255) / 256));
   drop_bwd_dkv_sum_kernel<<<blocks, 256, 0, a.stream>>>(
       static_cast<const float*>(a.part), static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), plane, z);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("drop_bwd_dkv_sum_kernel");
 }
 
 template <typename T, int D>
@@ -253,14 +254,15 @@ int launch_fwd(const Args& a) {
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
         lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
+    return vtt::launched("drop_fwd_mma_kernel");
   } else {
     const dim3 grid(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
     drop_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
         lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
+    return vtt::launched("drop_fwd_kernel");
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
@@ -276,7 +278,7 @@ int launch_bwd(const Args& a) {
         static_cast<const float*>(a.lse), static_cast<T*>(a.dq),
         static_cast<float*>(a.delta), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
         a.drop);
-    int rc = static_cast<int>(cudaGetLastError());
+    int rc = vtt::launched("drop_bwd_dq_kernel");
     if (rc != 0) return rc;
     const dim3 grid_k(a.g, (a.sk + vtt::kBlockK - 1) / vtt::kBlockK);
     drop_bwd_dkv_kernel<T, D><<<grid_k, vtt::kThreads, 0, a.stream>>>(
@@ -286,7 +288,7 @@ int launch_bwd(const Args& a) {
         static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
         a.drop);
-    return static_cast<int>(cudaGetLastError());
+    return vtt::launched("drop_bwd_dkv_kernel");
   }
 }
 

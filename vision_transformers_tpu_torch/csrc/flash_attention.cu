@@ -26,6 +26,7 @@
 #include <type_traits>
 
 #include "attention_mma_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -77,6 +78,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
         static_cast<const T*>(v), static_cast<const float*>(bias),
         static_cast<T*>(out), static_cast<float*>(lse), sq, sk, bias_g,
         kv_valid, scale);
+    return vtt::launched("flash_fwd_mma_kernel");
   } else {
     const dim3 grid(g, (sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
     flash_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, stream>>>(
@@ -84,8 +86,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
         static_cast<const T*>(v), static_cast<const float*>(bias),
         static_cast<T*>(out), static_cast<float*>(lse), sq, sk, bias_g,
         kv_valid, scale);
+    return vtt::launched("flash_fwd_kernel");
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

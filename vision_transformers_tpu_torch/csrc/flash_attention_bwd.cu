@@ -58,6 +58,7 @@
 
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -340,7 +341,7 @@ int launch_mma(const Args& a) {
       static_cast<const bf16*>(a.out), static_cast<const float*>(a.lse),
       static_cast<bf16*>(a.dq), static_cast<float*>(a.delta), a.sq, a.sk,
       a.kv_valid, a.scale);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = vtt::launched("flash_bwd_dq_mma_kernel");
   if (rc != 0) return rc;
   const dim3 grid_k(a.g, (a.sk + mm::kRows - 1) / mm::kRows);
   flash_bwd_dkv_mma_kernel<D><<<grid_k, mm::kThreads, 0, a.stream>>>(
@@ -349,7 +350,7 @@ int launch_mma(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk,
       a.kv_valid, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("flash_bwd_dkv_mma_kernel");
 }
 
 // ---- the CUDA-core route (fp32) --------------------------------------------
@@ -366,7 +367,7 @@ int launch(const Args& a) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.dout),
       static_cast<float*>(a.dq), static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("flash_bwd_kernel");
 }
 
 template <int D>

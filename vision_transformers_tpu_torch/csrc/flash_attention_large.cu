@@ -46,6 +46,7 @@
 #include <type_traits>
 
 #include "attention_mma_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -244,6 +245,7 @@ int launch(const void* q, const void* k, const void* v, const void* kmask,
         static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
         static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
         kv_valid, scale);
+    return vtt::launched("flash_large_mma_kernel");
   } else {
     const dim3 grid(g, (sq + kBlockQ - 1) / kBlockQ);
     flash_large_kernel<T, D><<<grid, kThreads, 0, stream>>>(
@@ -251,8 +253,8 @@ int launch(const void* q, const void* k, const void* v, const void* kmask,
         static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
         static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
         kv_valid, scale);
+    return vtt::launched("flash_large_kernel");
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

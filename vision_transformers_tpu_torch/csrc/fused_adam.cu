@@ -18,6 +18,7 @@
 // the order written above, so the plain version beside the wrapper computes
 // the same bits.
 #include <cuda_runtime.h>
+#include "launch_log.cuh"
 
 namespace {
 
@@ -96,11 +97,12 @@ int fused_adam(void* p, void* m, void* v, const void* g, long long n,
   float* mf = static_cast<float*>(m);
   float* vf = static_cast<float*>(v);
   const float* gf = static_cast<const float*>(g);
-  if (aligned16(p) && aligned16(m) && aligned16(v) && aligned16(g))
+  if (aligned16(p) && aligned16(m) && aligned16(v) && aligned16(g)) {
     adam_vec_kernel<<<blocks, 256, 0, st>>>(pf, mf, vf, gf, n, s);
-  else
-    adam_scalar_kernel<<<blocks, 256, 0, st>>>(pf, mf, vf, gf, n, s);
-  return static_cast<int>(cudaGetLastError());
+    return vtt::launched("adam_vec_kernel");
+  }
+  adam_scalar_kernel<<<blocks, 256, 0, st>>>(pf, mf, vf, gf, n, s);
+  return vtt::launched("adam_scalar_kernel");
 }
 
 const char* fused_adam_error_string(int code) {

@@ -81,6 +81,7 @@
 
 #include "dense_mma_tile.cuh"
 #include "dense_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -172,7 +173,7 @@ int launch(Params p, cudaStream_t stream) {
   rc = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(vtt::kThreads),
                                    args, 0, stream);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("fused_block_kernel");
 }
 
 template <typename T>
@@ -382,7 +383,7 @@ int launch_mma(const MmaParams& p, cudaStream_t stream) {
       dim3(std::min(blocks, work)), dim3(dm::kThreads), args,
       mma_smem_bytes<D, kWk>(), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("fused_block_mma_kernel");
 }
 
 // The phases whose bits are set in `phases`, one ordinary launch each, in
@@ -397,8 +398,8 @@ int launch_phases(const MmaParams& p, int phases, cudaStream_t stream) {
     fused_block_mma_phase_kernel<D, kWk>
         <<<phase_work<D>(p, phase), dm::kThreads, mma_smem_bytes<D, kWk>(),
            stream>>>(p, phase);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc = vtt::launched("fused_block_mma_phase_kernel");
+    if (rc != 0) return rc;
   }
   return 0;
 }

@@ -34,6 +34,7 @@
 
 #include "dense_mma_tile.cuh"
 #include "dense_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -88,7 +89,7 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w,
       static_cast<const float*>(beta), static_cast<const T*>(w), ldk, ldn,
       static_cast<const float*>(bias), static_cast<T*>(out), rows, d, n, eps,
       act);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("ln_dense_kernel");
 }
 
 }  // namespace
@@ -147,7 +148,7 @@ int ln_dense_mma_fwd(const void* x, const void* gamma, const void* beta,
   constexpr int kRowsPerBlock = vtt::dense_mma::kThreads / 32;
   ln_stats_kernel<<<(rows + kRowsPerBlock - 1) / kRowsPerBlock,
                     vtt::dense_mma::kThreads, 0, st>>>(xb, rows, d, eps, sts);
-  const int rc = static_cast<int>(cudaGetLastError());
+  const int rc = vtt::launched("ln_stats_kernel");
   if (rc != 0) return rc;
   if (ldn == 1)
     ln_dense_mma_kernel<false><<<grid, vtt::dense_mma::kThreads, 0, st>>>(
@@ -155,7 +156,7 @@ int ln_dense_mma_fwd(const void* x, const void* gamma, const void* beta,
   else
     ln_dense_mma_kernel<true><<<grid, vtt::dense_mma::kThreads, 0, st>>>(
         xb, g, be, wb, ldw, bi, sts, o, rows, d, n, act);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("ln_dense_mma_kernel");
 }
 
 const char* ln_dense_error_string(int code) {

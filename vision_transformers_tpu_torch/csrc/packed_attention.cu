@@ -57,6 +57,7 @@
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_bwd_tile.cuh"
 #include "attention_mma_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -214,6 +215,7 @@ int launch_fwd(const Args& a) {
       packed_fwd_mma_kernel<D, false><<<grid, vtt::mma::kThreads, 0,
                                         a.stream>>>(
           qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop);
+    return vtt::launched("packed_fwd_mma_kernel");
   } else {
     const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
     packed_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
@@ -221,8 +223,8 @@ int launch_fwd(const Args& a) {
         static_cast<T*>(const_cast<void*>(a.out)),
         static_cast<float*>(const_cast<void*>(a.lse)), a.s, a.heads,
         a.kv_valid, a.scale, a.drop);
+    return vtt::launched("packed_fwd_kernel");
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kDrop>
@@ -239,13 +241,13 @@ int launch_bwd_mma(const Args& a) {
                                        a.stream>>>(
       qkv, dout, static_cast<const bf16*>(a.out), lse, dqkv, delta, a.s,
       a.heads, a.kv_valid, a.scale, a.drop);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = vtt::launched("packed_bwd_dq_mma_kernel");
   if (rc != 0) return rc;
   packed_bwd_dkv_mma_kernel<D, kDrop><<<grid, vtt::mma::kThreads, 0,
                                         a.stream>>>(
       qkv, dout, lse, delta, dqkv, a.s, a.heads, a.kv_valid, a.scale,
       a.drop);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("packed_bwd_dkv_mma_kernel");
 }
 
 template <typename T, int D>
@@ -260,13 +262,13 @@ int launch_bwd(const Args& a) {
         static_cast<const T*>(a.out), static_cast<const float*>(a.lse),
         static_cast<T*>(a.dqkv), static_cast<float*>(a.delta), a.s, a.heads,
         a.kv_valid, a.scale, a.drop);
-    int rc = static_cast<int>(cudaGetLastError());
+    int rc = vtt::launched("packed_bwd_dq_kernel");
     if (rc != 0) return rc;
     packed_bwd_dkv_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<T*>(a.dqkv), a.s, a.heads, a.kv_valid, a.scale, a.drop);
-    return static_cast<int>(cudaGetLastError());
+    return vtt::launched("packed_bwd_dkv_kernel");
   }
 }
 

@@ -38,12 +38,21 @@
 // and the C entry's p and threads, the CUDA-core plan, are only checked.
 // Grid: x = ceil(G / wpb), y = H.
 //
-// window_batched_kernel, the TPU's per-head batched product for a bias shared
-// by all windows: a block belongs to one head, stages that head's (N, N)
-// bias in shared memory once (row stride N + 1, so rows fall in distinct
-// banks) and reuses it over `passes` groups of P windows. Grid:
+// window_batched_kernel (fp32), the TPU's per-head batched product for a
+// bias shared by all windows: a block belongs to one head, stages that
+// head's (N, N) bias in shared memory once (row stride N + 1, so rows fall
+// in distinct banks) and reuses it over `passes` groups of P windows. Grid:
 // x = ceil(G / (P·passes)), y = H. A per-window bias (nW' > 1) is read from
 // device memory as in the packed kernel.
+//
+// window_batched_mma_kernel (bf16), the same function on the tensor cores
+// (window_mma_tile.cuh's window_run_mma): a block belongs to one head,
+// stages a shared bias once as bf16 and walks a run of windows, each
+// window's q, k and v double-buffered so the copies of the next overlap the
+// products of the current one; a per-window bias is staged beside each
+// window's q, k, v. The launch shape (windows a step, run, grid) comes from
+// N, G·H and the card (window_run_launch); the C entry's p, threads and
+// passes, the CUDA-core plan, are only checked.
 #include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
@@ -167,6 +176,19 @@ window_batched_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_batched_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                          const __nv_bfloat16* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out, long long g, int n,
+                          int heads, int bias_windows, float scale, int mt,
+                          int wpb, int run) {
+  vtt::mma::window_run_mma<D, NK>(vtt::mma::PackedWindows{n}, qkv, bias, out,
+                                  g, n, heads,
+                                  static_cast<long long>(heads) * D,
+                                  bias_windows, scale, mt, wpb, run);
+}
+
 template <typename T, int D>
 int launch_packed(const void* qkv, const void* bias, void* out, int g, int n,
                   int heads, int bias_windows, float scale, int p, int threads,
@@ -181,7 +203,7 @@ int launch_packed(const void* qkv, const void* bias, void* out, int g, int n,
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(bias),
       static_cast<T*>(out), g, n, heads, bias_windows, scale, p);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("window_packed_kernel");
 }
 
 template <int D, int NK>
@@ -203,20 +225,7 @@ int launch_packed_mma(const void* qkv, const void* bias, void* out, int g,
       static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(out), g, n, heads, bias_windows, scale,
       geo.mt, geo.wpb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The tensor-core kernel whose key tiles NK hold n (16, 32, 64 or 128).
-template <int D>
-int launch_packed_mma_keys(const void* qkv, const void* bias, void* out,
-                           int g, int n, int heads, int bias_windows,
-                           float scale, cudaStream_t stream) {
-  switch (vtt::mma::window_keys(n)) {
-    case 16: return launch_packed_mma<D, 16>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
-    case 32: return launch_packed_mma<D, 32>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
-    case 64: return launch_packed_mma<D, 64>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
-    default: return launch_packed_mma<D, 128>(qkv, bias, out, g, n, heads, bias_windows, scale, stream);
-  }
+  return vtt::launched("window_packed_mma_kernel");
 }
 
 template <typename T, int D>
@@ -235,7 +244,7 @@ int launch_batched(const void* qkv, const void* bias, void* out, int g, int n,
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(bias),
       static_cast<T*>(out), g, n, heads, bias_windows, scale, p, passes);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("window_batched_kernel");
 }
 
 bool args_ok(const void* bias, int g, int n, int heads, int bias_windows,
@@ -251,9 +260,10 @@ extern "C" {
 
 // Each returns 0 or the cudaError_t of the launch. bias may be null (then
 // bias_windows is ignored). is_bf16: 1 = bf16, 0 = fp32 (qkv, bias and out).
-// The packed forward takes the tensor cores in bf16
-// (window_packed_mma_kernel, its own launch shape) and the CUDA cores in
-// fp32 (window_packed_kernel, the launch shape p, threads).
+// Both forwards take the tensor cores in bf16 (window_packed_mma_kernel,
+// window_batched_mma_kernel: their own launch shapes) and the CUDA cores in
+// fp32 (window_packed_kernel, window_batched_kernel: the launch shape p,
+// threads [, passes]).
 
 int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
                                 int g, int n, int heads, int dh,
@@ -263,8 +273,10 @@ int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VTT_PACKED(D)                                                     \
-  (is_bf16 ? launch_packed_mma_keys<D>(qkv, bias, out, g, n, heads,          \
-                                       bias_windows, scale, st)              \
+  (is_bf16 ? vtt::mma::with_window_keys(n, [&](auto nk) {                  \
+               return launch_packed_mma<D, decltype(nk)::value>(             \
+                   qkv, bias, out, g, n, heads, bias_windows, scale, st);    \
+             })                                                              \
            : launch_packed<float, D>(qkv, bias, out, g, n, heads,            \
                                      bias_windows, scale, p, threads, st))
   switch (dh) {
@@ -284,12 +296,25 @@ int window_batched_attention_fwd(const void* qkv, const void* bias, void* out,
   if (!args_ok(bias, g, n, heads, bias_windows, p, threads) || passes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VTT_BATCHED(T, D) \
-  launch_batched<T, D>(qkv, bias, out, g, n, heads, bias_windows, scale, p, threads, passes, st)
+  const int bw = bias == nullptr ? 0 : bias_windows;
+#define VTT_BATCHED(D)                                                      \
+  (is_bf16 ? vtt::mma::with_window_keys(n, [&](auto nk) {                  \
+               constexpr int NK = decltype(nk)::value;                       \
+               return vtt::mma::window_run_launch<D, NK>(                    \
+                   window_batched_mma_kernel<D, NK>,                         \
+                   "window_batched_mma_kernel", g, n, heads, bw, false,      \
+                   bias, st, static_cast<const __nv_bfloat16*>(qkv),         \
+                   static_cast<const __nv_bfloat16*>(bias),                  \
+                   static_cast<__nv_bfloat16*>(out),                         \
+                   static_cast<long long>(g), n, heads, bw, scale);          \
+             })                                                              \
+           : launch_batched<float, D>(qkv, bias, out, g, n, heads,            \
+                                      bias_windows, scale, p, threads,        \
+                                      passes, st))
   switch (dh) {
-    case 16: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 16) : VTT_BATCHED(float, 16);
-    case 32: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 32) : VTT_BATCHED(float, 32);
-    case 64: return is_bf16 ? VTT_BATCHED(__nv_bfloat16, 64) : VTT_BATCHED(float, 64);
+    case 16: return VTT_BATCHED(16);
+    case 32: return VTT_BATCHED(32);
+    case 64: return VTT_BATCHED(64);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VTT_BATCHED

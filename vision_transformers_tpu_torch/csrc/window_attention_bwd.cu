@@ -58,6 +58,7 @@
 // Grid: x = ceil(G / P), y = H; a ragged last block is bounds-checked.
 #include "window_mma_tile.cuh"
 #include "window_tile.cuh"
+#include "launch_log.cuh"
 
 namespace {
 
@@ -290,7 +291,7 @@ int launch_bwd(const void* qkv, const void* bias, const void* dout,
       static_cast<const T*>(qkv), static_cast<const T*>(bias),
       static_cast<const T*>(dout), static_cast<T*>(dqkv),
       static_cast<T*>(ds_out), g, n, heads, bias_windows, scale, p);
-  return static_cast<int>(cudaGetLastError());
+  return vtt::launched("window_bwd_kernel");
 }
 
 template <int D, int NK>
@@ -314,20 +315,7 @@ int launch_bwd_mma(const void* qkv, const void* bias, const void* dout,
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<__nv_bfloat16*>(dqkv), static_cast<__nv_bfloat16*>(ds_out),
       g, n, heads, bias_windows, scale, geo.mt, geo.wpb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The tensor-core kernel whose key tiles NK hold n (16, 32, 64 or 128).
-template <int D>
-int launch_bwd_mma_keys(const void* qkv, const void* bias, const void* dout,
-                        void* dqkv, void* ds_out, int g, int n, int heads,
-                        int bias_windows, float scale, cudaStream_t stream) {
-  switch (vtt::mma::window_keys(n)) {
-    case 16: return launch_bwd_mma<D, 16>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
-    case 32: return launch_bwd_mma<D, 32>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
-    case 64: return launch_bwd_mma<D, 64>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
-    default: return launch_bwd_mma<D, 128>(qkv, bias, dout, dqkv, ds_out, g, n, heads, bias_windows, scale, stream);
-  }
+  return vtt::launched("window_bwd_mma_kernel");
 }
 
 }  // namespace
@@ -349,8 +337,11 @@ int window_attention_bwd(const void* qkv, const void* bias, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VTT_BWD(D)                                                        \
-  (is_bf16 ? launch_bwd_mma_keys<D>(qkv, bias, dout, dqkv, ds_out, g, n,     \
-                                    heads, bias_windows, scale, st)          \
+  (is_bf16 ? vtt::mma::with_window_keys(n, [&](auto nk) {                \
+               return launch_bwd_mma<D, decltype(nk)::value>(              \
+                   qkv, bias, dout, dqkv, ds_out, g, n, heads,             \
+                   bias_windows, scale, st);                               \
+             })                                                            \
            : launch_bwd<float, D>(qkv, bias, dout, dqkv, ds_out, g, n,       \
                                   heads, bias_windows, scale, p, threads,    \
                                   st))

@@ -26,20 +26,34 @@
 // 56×56, H = 3, D = 32): 77 MB of map read and written, 23 µs at 3.35 TB/s,
 // against 1.9 GFLOP, 1.9 µs at 989 TFLOP/s: bytes, as for the kernels of
 // window_attention.cu, and more so for the chain they replace, which moves
-// the map five times. See window_tile.cuh for the body (one thread per query
-// row, K/V in shared memory, fp32 FMAs).
+// the map five times. window_tile.cuh holds the CUDA-core body (one thread
+// per query row, K/V in shared memory, fp32 FMAs), window_mma_tile.cuh the
+// tensor-core one.
 //
-// window_fused_slab_kernel: grid x = B·nr (image, window row), y = H. A block
-// owns the wh rolled rows of its window row (the last window row wraps to the
-// top of the image) and walks the nw windows of the row in passes of P.
+// window_fused_slab_kernel (both dtypes, window_tile.cuh): grid x = B·nr
+// (image, window row), y = H. A block owns the wh rolled rows of its window
+// row (the last window row wraps to the top of the image) and walks the nw
+// windows of the row in passes of P.
 //
-// window_fused_flat_kernel: grid x = ceil(B·nr·nw / P), y = H, over the flat
-// (B·Hp·Wp, 3·sec) view. A block takes P consecutive windows of the flat
-// window order, wherever they lie (they may span window rows and images),
-// and finds each token's flat row with the strip arithmetic of the TPU kernel
-// (:2014-2028): a window's row r is a run of ww flat rows that splits in two
-// where the column range wraps. Any map width; a ragged last block is
-// bounds-checked.
+// window_fused_flat_kernel (fp32, window_tile.cuh): grid x = ceil(B·nr·nw /
+// P), y = H, over the flat (B·Hp·Wp, 3·sec) view. A block takes P
+// consecutive windows of the flat window order, wherever they lie (they may
+// span window rows and images), and finds each token's flat row with the
+// strip arithmetic of the TPU kernel (:2014-2028): a window's row r is a run
+// of ww flat rows that splits in two where the column range wraps. Any map
+// width; a ragged last block is bounds-checked.
+//
+// window_fused_flat_mma_kernel (bf16), the flat kernel on the tensor cores
+// (window_mma_tile.cuh's window_run_mma): a block belongs to one head and
+// walks a run of consecutive windows of the flat order, each window's q, k
+// and v double-buffered so the copies of the next overlap the products of
+// the current one. The strip arithmetic runs once a token, into a row table
+// of the window in shared memory that the copies and the output store then
+// read; the bias row (window g mod nW', nW' = nr·nw or 1) is staged per
+// window, or once per block where nW' = 1. The launch shape comes from N,
+// the window count, H and the card (window_run_launch); the C entry's p and
+// threads, the CUDA-core plan, are only checked.
+#include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
 namespace {
@@ -52,6 +66,7 @@ struct MapGeom {
 
 // Flat view: window g = (b·nr + R)·nw + c, token i = r·ww + j → flat row.
 struct FlatRows {
+  static constexpr bool kTable = true;  // window_run_mma tabulates them
   MapGeom m;
   __device__ __forceinline__ long long operator()(long long g, int i) const {
     const int per_image = m.nr * m.nw;
@@ -148,44 +163,69 @@ window_fused_flat_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
       out + row * sec + h * D);
 }
 
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_fused_flat_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, MapGeom m,
+                             long long g, int heads, long long sec,
+                             int bias_windows, float scale, int mt, int wpb,
+                             int run) {
+  // nW' is 1 or the windows of one image, so g mod nW' is the window's
+  // index inside its image
+  vtt::mma::window_run_mma<D, NK>(FlatRows{m}, qkv, bias, out, g,
+                                  m.wh * m.ww, heads, sec, bias_windows,
+                                  scale, mt, wpb, run);
+}
+
 template <typename T, int D>
-int launch(bool slab, const void* qkv, const void* bias, void* out, int b,
-           MapGeom m, int heads, int sec, int bias_windows, float scale,
-           int p, int threads, cudaStream_t stream) {
+int launch_slab(const void* qkv, const void* bias, void* out, int b,
+                MapGeom m, int heads, int sec, int bias_windows, float scale,
+                int p, int threads, cudaStream_t stream) {
+  const size_t smem = vtt::window_kv_bytes(p, m.wh * m.ww, D);
+  auto kernel = window_fused_slab_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(b * m.nr, heads);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<T*>(out), m, heads, sec, bias_windows, scale, p);
+  return vtt::launched("window_fused_slab_kernel");
+}
+
+template <typename T, int D>
+int launch_flat(const void* qkv, const void* bias, void* out, int b,
+                MapGeom m, int heads, int sec, int bias_windows, float scale,
+                int p, int threads, cudaStream_t stream) {
   const size_t smem = vtt::window_kv_bytes(p, m.wh * m.ww, D);
   const long long g = static_cast<long long>(b) * m.nr * m.nw;
-  cudaError_t err;
-  if (slab) {
-    auto kernel = window_fused_slab_kernel<T, D>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(b * m.nr, heads);
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(bias),
-        static_cast<T*>(out), m, heads, sec, bias_windows, scale, p);
-  } else {
-    auto kernel = window_fused_flat_kernel<T, D>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>((g + p - 1) / p), heads);
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(bias),
-        static_cast<T*>(out), m, g, heads, sec, bias_windows, scale, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = window_fused_flat_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((g + p - 1) / p), heads);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(bias),
+      static_cast<T*>(out), m, g, heads, sec, bias_windows, scale, p);
+  return vtt::launched("window_fused_flat_kernel");
+}
+
+// The geometry of the C entries' arguments, or false.
+bool map_ok(int b, int hp, int wp, int wh, int ww, int sh, int sw,
+            int heads, int dh, int sec) {
+  return b >= 1 && wh >= 1 && ww >= 1 && hp >= wh && wp >= ww &&
+         hp % wh == 0 && wp % ww == 0 && sh >= 0 && sh < hp && sw >= 0 &&
+         sw < wp && heads >= 1 && heads <= 65535 && sec >= heads * dh;
 }
 
 int dispatch(bool slab, const void* qkv, const void* bias, void* out, int b,
              int hp, int wp, int wh, int ww, int sh, int sw, int heads, int dh,
              int sec, int bias_windows, float scale, int p, int threads,
              int is_bf16, void* stream) {
-  if (b < 1 || wh < 1 || ww < 1 || hp < wh || wp < ww || hp % wh || wp % ww ||
-      sh < 0 || sh >= hp || sw < 0 || sw >= wp || heads < 1 ||
-      heads > 65535 || sec < heads * dh ||
+  if (!map_ok(b, hp, wp, wh, ww, sh, sw, heads, dh, sec) ||
       !vtt::window_launch_ok(wh * ww, p, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const MapGeom m{hp, wp, wh, ww, sh, sw, hp / wh, wp / ww};
@@ -193,12 +233,32 @@ int dispatch(bool slab, const void* qkv, const void* bias, void* out, int b,
     return static_cast<int>(cudaErrorInvalidValue);
   if (slab && p > m.nw) p = m.nw;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VTT_FUSED(T, D) \
-  launch<T, D>(slab, qkv, bias, out, b, m, heads, sec, bias_windows, scale, p, threads, st)
+  const int bw = bias == nullptr ? 0 : bias_windows;
+  const long long g = static_cast<long long>(b) * m.nr * m.nw;
+#define VTT_FUSED(D)                                                        \
+  (slab ? (is_bf16 ? launch_slab<__nv_bfloat16, D>(                         \
+                         qkv, bias, out, b, m, heads, sec, bias_windows,    \
+                         scale, p, threads, st)                             \
+                   : launch_slab<float, D>(qkv, bias, out, b, m, heads, sec, \
+                                           bias_windows, scale, p, threads, \
+                                           st))                             \
+   : is_bf16 ? vtt::mma::with_window_keys(wh * ww, [&](auto nk) {        \
+                 constexpr int NK = decltype(nk)::value;                    \
+                 return vtt::mma::window_run_launch<D, NK>(                 \
+                     window_fused_flat_mma_kernel<D, NK>,                   \
+                     "window_fused_flat_mma_kernel", g, wh * ww, heads, bw, \
+                     true, bias, st,                                        \
+                     static_cast<const __nv_bfloat16*>(qkv),                \
+                     static_cast<const __nv_bfloat16*>(bias),               \
+                     static_cast<__nv_bfloat16*>(out), m, g, heads,         \
+                     static_cast<long long>(sec), bw, scale);               \
+               })                                                           \
+             : launch_flat<float, D>(qkv, bias, out, b, m, heads, sec,      \
+                                     bias_windows, scale, p, threads, st))
   switch (dh) {
-    case 16: return is_bf16 ? VTT_FUSED(__nv_bfloat16, 16) : VTT_FUSED(float, 16);
-    case 32: return is_bf16 ? VTT_FUSED(__nv_bfloat16, 32) : VTT_FUSED(float, 32);
-    case 64: return is_bf16 ? VTT_FUSED(__nv_bfloat16, 64) : VTT_FUSED(float, 64);
+    case 16: return VTT_FUSED(16);
+    case 32: return VTT_FUSED(32);
+    case 64: return VTT_FUSED(64);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VTT_FUSED
@@ -210,6 +270,10 @@ extern "C" {
 
 // Each returns 0 or the cudaError_t of the launch. bias may be null (then
 // bias_windows is ignored). is_bf16: 1 = bf16, 0 = fp32 (qkv, bias and out).
+// The slab kernel takes the CUDA cores in both dtypes (the launch shape p,
+// threads); the flat one the tensor cores in bf16
+// (window_fused_flat_mma_kernel, its own launch shape) and the CUDA cores
+// in fp32.
 
 int window_fused_slab_attention_fwd(const void* qkv, const void* bias,
                                     void* out, int b, int hp, int wp, int wh,

@@ -1,14 +1,22 @@
-// Tensor-core bodies of the bf16 window attention: the per-window forward
-// and the backward the window kernels share.
+// Tensor-core bodies of the bf16 window attention: the per-window forward,
+// the forward that walks a run of windows, and the backward the window
+// kernels share.
 //
-// Replace, for bf16 inputs, two TPU kernels of vision_transformers_tpu/ops/
+// Replace, for bf16 inputs, four TPU kernels of vision_transformers_tpu/ops/
 // flash_attention.py (rows of PERF.md's kernel table):
 //   - row 9, _window_pack_kernel (:1295), through window_attention.cu's
 //     window_packed_mma_kernel: window_attend_mma;
 //   - row 10, _window_pack_bwd_kernel (:1466), through
 //     window_attention_bwd.cu's window_bwd_mma_kernel: window_bwd_rows_mma
-//     (query rows), then window_bwd_keys_mma (key rows).
-// fp32 inputs, and the bf16 kernels of rows 11-13, keep window_tile.cuh.
+//     (query rows), then window_bwd_keys_mma (key rows);
+//   - row 11, _window_batched_kernel (:1708), through window_attention.cu's
+//     window_batched_mma_kernel, and row 12, _window_fused_flat_kernel
+//     (:1997), through window_fused_attention.cu's
+//     window_fused_flat_mma_kernel: window_run_mma, which walks a run of
+//     windows with window_attend_mma, the copies of the next window in
+//     flight while the current one computes.
+// fp32 inputs, and row 13 (window_fused_slab_kernel) in both dtypes, keep
+// window_tile.cuh.
 //
 // What bounds them on the H100: bytes (window_attention.cu,
 // window_attention_bwd.cu: at Swin-T's and SwinV2-T's stage 1 the products
@@ -48,6 +56,26 @@
 //     D 32, NK 64: 47 KB a window, 4 blocks of 128 threads an SM, by shared
 //     memory) and 207-222 at NK 128 (178 KB at D 64: one block of 256).
 //
+// Runs of windows (rows 11 and 12, window_run_mma). A block belongs to one
+// head and walks `run` steps of wpb windows (the geometry above); each
+// window slot of the block double-buffers its Q, K and V tiles, so the
+// cp.async group of step s + 1 is in flight while the slot's warps compute
+// step s (one named barrier a step: it both publishes step s's copies and
+// tells the slot that step s − 1's buffer, which the prefetch reuses, is
+// read). A bias shared by all windows (nW' = 1) is staged once per block,
+// as bf16, into one tile every slot reads: the point of row 11's kernel;
+// a per-window bias (nW' > 1) is copied per window, its N·N values whole by
+// 16-byte cp.async in the group of its Q, K and V (so it is in flight with
+// them), and read back as it lies (FlatBias; a bias tile of the packed
+// layout would need 2-byte copies, which the warps would wait for). Row 12 reads the un-rolled NHWC map through a row table:
+// each window's N flat rows, computed once a token (the strip arithmetic's
+// 64-bit divisions) into shared memory, then read by the copies and by the
+// output store (RowTable). The run is chosen on the host (window_run_launch)
+// from G·H against what the card holds at once: the SMs times the blocks
+// an SM takes at this kernel's registers and shared memory (the occupancy
+// API), so one wave of blocks covers the work, at most kMaxRun steps a
+// block; past that, more blocks.
+//
 // Numerics, as _window_pack_kernel and window_attention_reference: s =
 // acc·scale + bias in fp32, two roundings (never an FMA: the plain version
 // multiplies, then adds), the bias held in bf16 and widened at the add;
@@ -75,7 +103,13 @@
 // atomics, reruns bit-equal.
 #pragma once
 
+#include <algorithm>
+#include <mutex>
+#include <type_traits>
+#include <vector>
+
 #include "attention_mma_tile.cuh"
+#include "launch_log.cuh"
 
 namespace vtt {
 namespace mma {
@@ -111,20 +145,45 @@ __device__ __forceinline__ void window_sync(int w, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(1 + w), "r"(threads) : "memory");
 }
 
-// Rows [0, n) of an (n, D) bf16 matrix whose rows lie `stride` elements
-// apart into shared memory of row stride D + 8, rows [n, NK) zero-filled,
-// by the `count` threads numbered tid; the caller commits.
-template <int D, int NK>
-__device__ __forceinline__ void window_stage(bf16* s, const bf16* g, int n,
-                                             long long stride, int tid,
-                                             int count) {
+// Where row r of a window lies, in elements from the matrix's base pointer:
+// rows `stride` apart (the partitioned tensor; rows 9 and 10), or a row
+// table's entries times the stride (row 12's flat rows of the map).
+struct RowStride {
+  long long stride;
+  __device__ __forceinline__ long long operator()(int r) const {
+    return r * stride;
+  }
+};
+
+struct RowTable {
+  const long long* table;  // shared memory, one entry a token
+  long long stride;
+  __device__ __forceinline__ long long operator()(int r) const {
+    return table[r] * stride;
+  }
+};
+
+// Rows [0, n) of an (n, D) bf16 matrix whose row r lies at g + rows(r) into
+// shared memory of row stride D + 8, rows [n, NK) zero-filled, by the
+// `count` threads numbered tid; the caller commits.
+template <int D, int NK, class Rows>
+__device__ __forceinline__ void window_stage_rows(bf16* s, const bf16* g,
+                                                  int n, const Rows& rows,
+                                                  int tid, int count) {
   constexpr int C = D / 8;  // 16-byte chunks a row
   for (int idx = tid; idx < NK * C; idx += count) {
     const int r = idx / C, c = idx % C;
     const bool in = r < n;
-    cp_async_16(s + r * (D + 8) + c * 8, g + (in ? r : 0) * stride + c * 8,
-                in);
+    cp_async_16(s + r * (D + 8) + c * 8, g + rows(in ? r : 0) + c * 8, in);
   }
+}
+
+// The same with rows `stride` elements apart.
+template <int D, int NK>
+__device__ __forceinline__ void window_stage(bf16* s, const bf16* g, int n,
+                                             long long stride, int tid,
+                                             int count) {
+  window_stage_rows<D, NK>(s, g, n, RowStride{stride}, tid, count);
 }
 
 // The bias rows [0, n) × [0, n) of one (window, head), n·n consecutive
@@ -159,14 +218,39 @@ __device__ __forceinline__ void load_at_smem(uint32_t (&f)[4], const bf16* t,
                    + ((lane >> 3) & 1) * 8);
 }
 
+// Where window_probs reads the bias pair (r, kj), (r, kj + 1), kj even:
+// a tile of row stride NK + 8 (or no bias: null), read as one aligned bf16
+// pair; or the window's N·N values as they lie in device memory, row r at
+// r·n, copied whole (rows 11 and 12's own bias rows): two 2-byte reads,
+// since a row of odd N starts at an odd element.
+template <int NK>
+struct TileBias {
+  const bf16* s;
+  __device__ __forceinline__ bool present() const { return s != nullptr; }
+  __device__ __forceinline__ float2 pair(int r, int kj) const {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(s + r * (NK + 8) + kj));
+  }
+};
+
+struct FlatBias {
+  const bf16* s;
+  int n;
+  __device__ __forceinline__ bool present() const { return true; }
+  __device__ __forceinline__ float2 pair(int r, int kj) const {
+    const bf16* p = s + r * n + kj;
+    return make_float2(__bfloat162float(p[0]), __bfloat162float(p[1]));
+  }
+};
+
 // s: this lane's accumulators of Q·Kᵀ for rows r0 and r0 + 8 of the window
 // (columns n8·8 + 2·tq + {0, 1}) → p = exp(s·scale + bias − m) / l in fp32,
-// keys >= n at exactly 0. bs: the window's bias tile or null. Rows >= n are
-// left as computed (the scores of zero queries); the caller decides.
-template <int NK>
-__device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
-                                             const bf16* bs, int r0, int n,
-                                             int tq, float scale) {
+// keys >= n at exactly 0. bias: TileBias or FlatBias. Rows >= n are left as
+// computed (the scores of zero queries); the caller decides.
+template <int NK, class Bias>
+__device__ __forceinline__ void window_probs_with(float (&s)[NK / 8][4],
+                                                  const Bias& bias, int r0,
+                                                  int n, int tq, float scale) {
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int n8 = 0; n8 < NK / 8; ++n8)
@@ -174,9 +258,7 @@ __device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i, kj = n8 * 8 + 2 * tq;
       float2 b = make_float2(0.f, 0.f);
-      if (bs != nullptr && r < n)
-        b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(bs + r * (NK + 8) + kj));
+      if (bias.present() && r < n) b = bias.pair(r, kj);
       float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
       if (kj < n) x0 = __fadd_rn(__fmul_rn(s[n8][2 * i], scale), b.x);
       if (kj + 1 < n) x1 = __fadd_rn(__fmul_rn(s[n8][2 * i + 1], scale), b.y);
@@ -210,13 +292,21 @@ __device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
     for (int e = 0; e < 4; ++e) s[n8][e] = s[n8][e] / l[e >> 1];
 }
 
-// Query tile t (rows 16·t .. 16·t + 15) of one (window, head): out rows < n
-// in bf16 at row stride o_stride. qs, ks, vs: the window's Q, K, V tiles
-// (row stride D + 8, rows >= n zero); bs: its bias tile or null.
-template <int D, int NK>
-__device__ __forceinline__ void window_attend_mma(
-    const bf16* qs, const bf16* ks, const bf16* vs, const bf16* bs, int n,
-    int t, float scale, bf16* __restrict__ o, long long o_stride, int lane) {
+// The same with the bias tile bs (row stride NK + 8) or null.
+template <int NK>
+__device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
+                                             const bf16* bs, int r0, int n,
+                                             int tq, float scale) {
+  window_probs_with<NK>(s, TileBias<NK>{bs}, r0, n, tq, scale);
+}
+
+// Query tile t (rows 16·t .. 16·t + 15) of one (window, head): out rows
+// r < n in bf16 at o + rows(r). qs, ks, vs: the window's Q, K, V tiles (row
+// stride D + 8, rows >= n zero); bias: TileBias or FlatBias.
+template <int D, int NK, class Rows, class Bias>
+__device__ __forceinline__ void window_attend_mma_rows(
+    const bf16* qs, const bf16* ks, const bf16* vs, const Bias& bias, int n,
+    int t, float scale, bf16* __restrict__ o, const Rows& rows, int lane) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
   constexpr int S = D + 8;
   const int tq = lane & 3;
@@ -230,7 +320,7 @@ __device__ __forceinline__ void window_attend_mma(
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n8][e] = 0.f;
   mma_abt<D, NK / 8>(s, qf, ks, lane);
-  window_probs<NK>(s, bs, r0, n, tq, scale);
+  window_probs_with<NK>(s, bias, r0, n, tq, scale);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -249,9 +339,19 @@ __device__ __forceinline__ void window_attend_mma(
     if (r >= n) continue;
 #pragma unroll
     for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<__nv_bfloat162*>(o + r * o_stride + n8 * 8 + 2 * tq) =
+      *reinterpret_cast<__nv_bfloat162*>(o + rows(r) + n8 * 8 + 2 * tq) =
           __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
   }
+}
+
+// The same with out rows o_stride elements apart and the bias tile bs (row
+// stride NK + 8) or null.
+template <int D, int NK>
+__device__ __forceinline__ void window_attend_mma(
+    const bf16* qs, const bf16* ks, const bf16* vs, const bf16* bs, int n,
+    int t, float scale, bf16* __restrict__ o, long long o_stride, int lane) {
+  window_attend_mma_rows<D, NK>(qs, ks, vs, TileBias<NK>{bs}, n, t, scale, o,
+                                RowStride{o_stride}, lane);
 }
 
 // The backward's query tile t of one (window, head): p, ds and dq. qs, ks,
@@ -386,6 +486,272 @@ __device__ __forceinline__ void window_bwd_keys_mma(
           __floats2bfloat162_rn(av[n8][2 * i], av[n8][2 * i + 1]);
     }
   }
+}
+
+// Windows of the partitioned (G, N, ·) tensor: window g, token i → row
+// g·N + i, so a window's rows are consecutive and need no table.
+struct PackedWindows {
+  static constexpr bool kTable = false;
+  int n;
+  __device__ __forceinline__ long long operator()(long long g, int i) const {
+    return g * n + i;
+  }
+};
+
+constexpr int kMaxRun = 16;  // steps a block walks at most
+
+// bf16 elements of one buffer of a window slot: Q, K and V (row stride
+// D + 8) and, with a per-window bias, room for the window's N·N bias values
+// copied whole from the 16-byte boundary at or before their start (up to 7
+// values before them) plus the NK − 1 values window_probs may read past a
+// row's end for keys >= N.
+template <int D, int NK>
+__host__ __device__ constexpr int window_run_buffer_elems(bool own_bias) {
+  return 3 * NK * (D + 8) + (own_bias ? NK * NK + NK + 8 : 0);
+}
+
+// Elements of the block's shared memory before the row tables: the shared
+// bias tile (nW' = 1, row stride NK + 8), then wpb slots of two buffers.
+template <int D, int NK>
+__host__ __device__ constexpr int window_run_elems(int wpb, bool shared_bias,
+                                                   bool own_bias) {
+  return (shared_bias ? NK * (NK + 8) : 0) +
+         wpb * 2 * window_run_buffer_elems<D, NK>(own_bias);
+}
+
+// 16 bytes global → shared of which the first `bytes` (0-16) are read and
+// the rest zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async_16_part(void* dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+// Where window g's own bias row (g mod nW' of head h, N·N values) starts in
+// the (nW', H, N, N) bias, and where the 16-byte chunk holding its first
+// value starts (the tensor's start is 16-byte aligned).
+struct OwnBias {
+  long long off, first;
+  __device__ __forceinline__ OwnBias(long long g, int bias_windows, int heads,
+                                     int h, int n)
+      : off(((g % bias_windows) * heads + h) * n * n), first(off & ~7LL) {}
+  __device__ __forceinline__ int head() const {
+    return static_cast<int>(off - first);
+  }
+};
+
+// Window gw of the slot whose buffer is `qs` (Q, K, V, then its own bias
+// values) for window_run_mma: its rows into `rows` first (table maps), then
+// Q, K, V and, with a per-window bias (bias non-null, `total` values), the
+// window's bias row as whole 16-byte chunks, as one cp.async group.
+template <int D, int NK, class Windows>
+__device__ __forceinline__ void window_run_load(
+    const Windows& wins, bf16* qs, long long* rows, const bf16* col,
+    long long sec, long long gw, int n, int w, int t, int mt, int lane,
+    const bf16* bias, long long total, const OwnBias& own) {
+  constexpr int S = D + 8;
+  const int tid = t * 32 + lane, count = mt * 32;
+  if constexpr (Windows::kTable) {
+    if (tid < n) rows[tid] = wins(gw, tid);  // count >= 2n threads
+    window_sync(w, count);
+    const RowTable in{rows, 3 * sec};
+    window_stage_rows<D, NK>(qs, col, n, in, tid, count);
+    window_stage_rows<D, NK>(qs + NK * S, col + sec, n, in, tid, count);
+    window_stage_rows<D, NK>(qs + 2 * NK * S, col + 2 * sec, n, in, tid,
+                             count);
+  } else {
+    const bf16* src = col + wins(gw, 0) * 3 * sec;
+    window_stage<D, NK>(qs, src, n, 3 * sec, tid, count);
+    window_stage<D, NK>(qs + NK * S, src + sec, n, 3 * sec, tid, count);
+    window_stage<D, NK>(qs + 2 * NK * S, src + 2 * sec, n, 3 * sec, tid,
+                        count);
+  }
+  if (bias != nullptr) {  // chunks past the tensor's end read nothing
+    bf16* bs = qs + 3 * NK * S;
+    const int chunks = (own.head() + n * n + 7) / 8;
+    for (int c = tid; c < chunks; c += count) {
+      const long long e = own.first + 8LL * c, left = total - e;
+      const int bytes = left >= 8 ? 16 : left > 0 ? static_cast<int>(2 * left)
+                                                  : 0;
+      cp_async_16_part(bs + 8 * c, bytes > 0 ? bias + e : bias, bytes);
+    }
+  }
+  cp_async_commit();
+}
+
+// Windows [0, g) of head blockIdx.y, steps of wpb windows, `run` steps from
+// step blockIdx.x · run on: out = softmax(q·kᵀ·scale + bias)·v for each, as
+// window_attend_mma computes it. `wins` names each token's flat row (q at
+// column h·D of a row of 3·sec elements, k at sec + h·D, v at 2·sec + h·D;
+// out at h·D of a row of sec); a Windows policy with kTable keeps the rows
+// of the window in flight in a shared-memory table. bias: null or
+// (nW', H, N, N) bf16, window g reading row g mod nW'.
+template <int D, int NK, class Windows>
+__device__ __forceinline__ void window_run_mma(
+    const Windows& wins, const bf16* __restrict__ qkv,
+    const bf16* __restrict__ bias, bf16* __restrict__ out, long long g, int n,
+    int heads, long long sec, int bias_windows, float scale, int mt, int wpb,
+    int run) {
+  constexpr int S = D + 8, SB = NK + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = warp / mt, t = warp % mt;  // window slot, query tile
+  const int count = mt * 32;
+  const int h = blockIdx.y;
+  const bool shared_bias = bias != nullptr && bias_windows == 1;
+  const bool own_bias = bias != nullptr && bias_windows > 1;
+  const int elems = window_run_buffer_elems<D, NK>(own_bias);
+  bf16* sb = reinterpret_cast<bf16*>(smem_raw);  // the shared bias tile
+  bf16* slot = sb + (shared_bias ? NK * SB : 0) + w * 2 * elems;
+  long long* table = reinterpret_cast<long long*>(
+      sb + window_run_elems<D, NK>(wpb, shared_bias, own_bias)) + w * 2 * NK;
+  const bf16* col = qkv + h * D;
+  const long long first = static_cast<long long>(blockIdx.x) * wpb * run + w;
+  const bf16* own_rows = own_bias ? bias : nullptr;
+  const long long total = static_cast<long long>(bias_windows) * heads * n * n;
+  const int nwp = own_bias ? bias_windows : 1;  // OwnBias's modulus, not 0
+
+  if (shared_bias)  // once, by every warp of the block
+    window_stage_bias<NK>(sb, bias + static_cast<long long>(h) * n * n, n,
+                          warp, mt * wpb, lane);
+  if (first < g)
+    window_run_load<D, NK>(wins, slot, table, col, sec, first, n, w, t, mt,
+                           lane, own_rows, total,
+                           OwnBias(first, nwp, heads, h, n));
+  __syncthreads();  // the shared bias tile
+  for (int s = 0; s < run; ++s) {
+    const long long gw = first + static_cast<long long>(s) * wpb;
+    if (gw >= g) break;  // the same for every warp of the slot
+    // this step's group is the only one in flight: the next is issued below
+    cp_async_wait<0>();
+    // buffer s & 1 is complete for the slot, and the slot has finished step
+    // s − 1, whose buffer (and row table) the prefetch below overwrites
+    window_sync(w, count);
+    const int b = s & 1;
+    if (s + 1 < run && gw + wpb < g)
+      window_run_load<D, NK>(wins, slot + (b ^ 1) * elems,
+                             table + (b ^ 1) * NK, col, sec, gw + wpb, n, w,
+                             t, mt, lane, own_rows, total,
+                             OwnBias(gw + wpb, nwp, heads, h, n));
+    const bf16* qs = slot + b * elems;
+    const auto attend = [&](const auto& bias_at) {
+      if constexpr (Windows::kTable)
+        window_attend_mma_rows<D, NK>(qs, qs + NK * S, qs + 2 * NK * S,
+                                      bias_at, n, t, scale, out + h * D,
+                                      RowTable{table + b * NK, sec}, lane);
+      else
+        window_attend_mma_rows<D, NK>(qs, qs + NK * S, qs + 2 * NK * S,
+                                      bias_at, n, t, scale,
+                                      out + wins(gw, 0) * sec + h * D,
+                                      RowStride{sec}, lane);
+    };
+    if (own_bias)
+      attend(FlatBias{qs + 3 * NK * S +
+                          OwnBias(gw, nwp, heads, h, n).head(),
+                      n});
+    else
+      attend(TileBias<NK>{shared_bias ? sb : nullptr});
+  }
+}
+
+// f(std::integral_constant<int, NK>()) for the key tiles NK that hold n:
+// the one dispatch from N to the window kernels' templates.
+template <class F>
+inline int with_window_keys(int n, F&& f) {
+  switch (window_keys(n)) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    default: return f(std::integral_constant<int, 128>());
+  }
+}
+
+// The current card's SMs and the blocks an SM takes of `kernel` at
+// `threads` and `smem` bytes, its attributes set first (as much dynamic
+// shared memory as any of its shapes takes, the SM's memory carved out as
+// shared). Asked of the runtime once per (kernel, device, threads, smem),
+// then read from a table: the attribute and occupancy calls cost host time
+// on every launch otherwise, and the window paths wait on the host.
+inline cudaError_t run_occupancy(const void* kernel, int threads, size_t smem,
+                                 int* sms, int* blocks) {
+  struct Seen {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int sms, blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t most = smem;  // lowering the limit would fail a larger shape seen
+  for (const Seen& o : seen) {
+    if (o.kernel != kernel || o.dev != dev) continue;
+    if (o.threads == threads && o.smem == smem) {
+      *sms = o.sms;
+      *blocks = o.blocks;
+      return cudaSuccess;
+    }
+    most = std::max(most, o.smem);
+  }
+  Seen s{kernel, dev, threads, smem, 0, 0};
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(most));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (s.blocks < 1) return cudaErrorInvalidConfiguration;
+  seen.push_back(s);
+  *sms = s.sms;
+  *blocks = s.blocks;
+  return cudaSuccess;
+}
+
+// Launches a window_run_mma kernel (`name` for the launch log) on g windows
+// of n tokens and `heads` heads (bias_windows 0: no bias; table: the kernel
+// keeps a row table a window slot) with `args`, then the shape's mt, wpb
+// and run. The run: the blocks the card holds at once (its SMs times the
+// blocks an SM takes at this kernel's registers and shared memory) shared
+// evenly among the heads, each head's ceil(g / wpb) steps split among its
+// share, so that one wave covers the work; at most kMaxRun steps a block,
+// and more blocks (waves) beyond that. Grid: x = the head's blocks, y = H.
+template <int D, int NK, class... Params, class... Args>
+inline int window_run_launch(void (*kernel)(Params...), const char* name,
+                             long long g, int n, int heads, int bias_windows,
+                             bool table, const void* bias,
+                             cudaStream_t stream, Args... args) {
+  // a per-window bias row is copied by 16-byte cp.async from the tensor's
+  // 16-byte chunks
+  if (bias_windows > 1 && reinterpret_cast<uintptr_t>(bias) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WindowGeometry geo = window_mma_geometry(n);
+  const size_t smem =
+      window_run_elems<D, NK>(geo.wpb, bias_windows == 1, bias_windows > 1) *
+          sizeof(bf16) +
+      (table ? geo.wpb * 2 * NK * sizeof(long long) : 0);
+  int sms = 0, blocks_per_sm = 0;
+  const cudaError_t err =
+      run_occupancy(reinterpret_cast<const void*>(kernel), geo.threads, smem,
+                    &sms, &blocks_per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long steps = (g + geo.wpb - 1) / geo.wpb;
+  const long long share = std::max(
+      1LL, static_cast<long long>(blocks_per_sm) * sms / heads);
+  const int run = static_cast<int>(
+      std::min<long long>(kMaxRun, (steps + share - 1) / share));
+  kernel<<<dim3(static_cast<unsigned>((steps + run - 1) / run), heads),
+           geo.threads, smem, stream>>>(args..., geo.mt, geo.wpb, run);
+  return launched(name);
 }
 
 }  // namespace mma

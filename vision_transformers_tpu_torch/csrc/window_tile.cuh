@@ -1,5 +1,8 @@
-// Shared body of the four window-attention kernels (window_attention.cu,
-// window_fused_attention.cu): for one (window, head)
+// CUDA-core body of the window-attention forwards (window_attention.cu,
+// window_fused_attention.cu): the fp32 kernels of rows 9, 11, 12 and 13 and
+// row 13's slab kernel in bf16 (the bf16 kernels of rows 9-12 run on the
+// tensor cores, window_mma_tile.cuh); the fp32 backward of row 10
+// (window_attention_bwd.cu) shares its row I/O. For one (window, head)
 //   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 16, 32 or 64,
 // with q, k, v read in place from a packed projection whose token rows the
 // caller's RowMap names (row index → q at column h·D, k one section further,
@@ -15,8 +18,7 @@
 // chunk), so no N×N score tile is stored anywhere. This is the opposite
 // trade of attention_tile.cuh (one lane per key, ~1 shared load per FMA):
 // here a 16-byte shared load feeds 4 FMAs in each of the warp's 32 rows.
-// The products are still fp32 FMAs on the CUDA cores; tensor cores are later
-// work.
+// The products are fp32 FMAs on the CUDA cores.
 //
 // Numerics follow the TPU kernels: fp32 scores and statistics; the bias is
 // held in the compute dtype T and widened at the add; the row max is taken

@@ -78,7 +78,9 @@ _SIGNATURES = {
         fn: (_I, [_P, _P, _P] + [_I] * 11 + [_F, _I, _I, _I, _P])
         for fn in ("window_fused_slab_attention_fwd",
                    "window_fused_flat_attention_fwd")
-    } | {"window_fused_attention_error_string": (ctypes.c_char_p, [_I])},
+    } | {
+        "window_fused_attention_error_string": (ctypes.c_char_p, [_I]),
+    },
     # (qkv, bias, dout, dqkv, ds_out, g, n, heads, dh, bias_windows, scale,
     #  p, threads, is_bf16, stream)
     "window_attention_bwd": {
@@ -133,6 +135,15 @@ _SIGNATURES = {
         "fused_block_error_string": (ctypes.c_char_p, [_I]),
     },
 }
+
+# Every library's launch log (csrc/launch_log.cuh): the kernel name in a
+# slot, its launches since the last reset, the reset.
+_LOG_SIGNATURES = {
+    "vtt_launch_name": (ctypes.c_char_p, [_I]),
+    "vtt_launch_count": (_L, [_I]),
+    "vtt_launch_log_reset": (None, []),
+}
+_LOG_SLOTS = 32  # csrc/launch_log.cuh's LaunchLog::kSlots
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -205,7 +216,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+            for fn, (restype, argtypes) in (_SIGNATURES[name]
+                                            | _LOG_SIGNATURES).items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
             _loaded[name] = lib
@@ -217,3 +229,26 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def reset_launched() -> None:
+    """Zero every loaded library's launch log."""
+    for lib in list(_loaded.values()):
+        lib.vtt_launch_log_reset()
+
+
+def launched() -> Dict[str, int]:
+    """Launches of each kernel since ``reset_launched``, by the name its
+    launch site gives (``csrc/launch_log.cuh``), over the loaded libraries:
+    which kernels the C entries chose, read without a profiler. Kernels
+    launched no time are left out."""
+    counts: Dict[str, int] = {}
+    for lib in list(_loaded.values()):
+        for slot in range(_LOG_SLOTS):
+            name = lib.vtt_launch_name(slot)
+            if name is None:
+                break
+            n = lib.vtt_launch_count(slot)
+            if n:
+                counts[name.decode()] = counts.get(name.decode(), 0) + n
+    return counts

@@ -27,12 +27,16 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   (``csrc/window_attention.cu``) replace ``_window_pack_kernel`` and
   ``_window_batched_kernel``: Swin's per-window attention read in place
   from the partitioned (G, N, 3·H·dh) projection, with a shared or
-  per-window bias. For bf16 the packed one runs on the tensor cores
-  (``csrc/window_mma_tile.cuh``, ``window_route``).
+  per-window bias. For bf16 both run on the tensor cores
+  (``csrc/window_mma_tile.cuh``, ``window_route``); the batched one walks a
+  run of windows per block with the shared bias staged once.
 - ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
   ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
   (the flat plan): cyclic shift, window partition, attention, reverse and
-  un-shift in one pass over the NHWC projection map.
+  un-shift in one pass over the NHWC projection map. For bf16 the flat one
+  runs on the tensor cores (``csrc/window_mma_tile.cuh``, through a row
+  table of each window's flat rows); the slab one keeps the CUDA cores in
+  both dtypes (``window_route``).
 - ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``) replaces
   ``_window_pack_bwd_kernel``, the backward the four window kernels share:
   from (qkv, bias, dO) it recomputes the probabilities and gives the packed
@@ -1231,24 +1235,34 @@ def window_bwd_plan(g: int, n: int, heads: int, dh: int):
     return best[1], best[0]
 
 
-def window_route(dtype: torch.dtype, n: int, dh: int) -> str:
-    """The route of a CUDA launch of the per-window forward
-    (``window_packed_attention``, row 9) and of the window backward
-    (``window_attention_bwd``, row 10), from the operands alone, before any
-    launch: ``"tensor_cores"`` (``window_packed_mma_kernel``,
-    ``window_bwd_mma_kernel``: every product on ``mma.sync``) for bf16,
-    ``"cuda_cores"`` (``window_packed_kernel``, ``window_bwd_kernel``) for
-    fp32, at every shape the window kernels take: 1 <= N <= 128 tokens and a
-    head dim of ``KERNEL_HEAD_DIMS``. Any other shape or dtype raises
+WINDOW_KERNELS = ("packed", "bwd", "batched", "fused_flat", "fused_slab")
+
+
+def window_route(dtype: torch.dtype, n: int, dh: int,
+                 kernel: str = "packed") -> str:
+    """The route of a CUDA launch of a window kernel, from the operands
+    alone, before any launch. ``kernel`` names it: ``"packed"``
+    (``window_packed_attention``, row 9), ``"bwd"``
+    (``window_attention_bwd``, row 10), ``"batched"``
+    (``window_batched_attention``, row 11), ``"fused_flat"`` and
+    ``"fused_slab"`` (``fused_window_attention``'s flat and slab plans, rows
+    12 and 13). ``"tensor_cores"`` (every product on ``mma.sync``:
+    ``window_packed_mma_kernel``, ``window_bwd_mma_kernel``,
+    ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``) for
+    bf16 but the slab kernel; ``"cuda_cores"`` for fp32 and for the slab
+    kernel in both dtypes (``window_fused_slab_kernel``), at every shape the
+    window kernels take: 1 <= N <= 128 tokens and a head dim of
+    ``KERNEL_HEAD_DIMS``. Any other shape, dtype or kernel raises
     ``ValueError``. A shape rule, not a fallback: the C entries take the
-    same kernel by the dtype, and a launch on it that fails raises. The
-    batched and fused window kernels (rows 11-13) keep the CUDA cores."""
+    same kernel by the dtype, and a launch on it that fails raises."""
+    if kernel not in WINDOW_KERNELS:
+        raise ValueError(f"window kernels are {WINDOW_KERNELS}, got {kernel!r}")
     if not 0 < n <= MAX_WINDOW_TOKENS or dh not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
             f"dim of {KERNEL_HEAD_DIMS}, got N = {n}, dh = {dh}")
     if dtype == torch.bfloat16:
-        return "tensor_cores"
+        return "cuda_cores" if kernel == "fused_slab" else "tensor_cores"
     if dtype == torch.float32:
         return "cuda_cores"
     raise ValueError(f"window kernels take float32 or bfloat16, got {dtype}")
@@ -1301,7 +1315,9 @@ def _window_dims(qkv: torch.Tensor, heads: int, scale: Optional[float]):
 def _window_bias(bias: Optional[torch.Tensor], g: int, heads: int, n: int,
                  dtype: torch.dtype) -> Optional[torch.Tensor]:
     """(nW', H, N, N) rounded to the compute dtype, as every window kernel
-    holds it; nW' must divide G (window g reads row g mod nW')."""
+    holds it; nW' must divide G (window g reads row g mod nW'). Its storage
+    starts on a 16-byte boundary: the bf16 tensor-core kernels of rows 11
+    and 12 copy a window's row by 16-byte chunks of the tensor."""
     if bias is None:
         return None
     if bias.ndim != 4 or bias.shape[1:] != (heads, n, n) \
@@ -1309,7 +1325,8 @@ def _window_bias(bias: Optional[torch.Tensor], g: int, heads: int, n: int,
         raise ValueError(
             f"bias must be (nW', {heads}, {n}, {n}) with nW' dividing G={g}, "
             f"got {tuple(bias.shape)}")
-    return bias.to(dtype).contiguous()
+    bias = bias.to(dtype).contiguous()
+    return bias.clone() if bias.data_ptr() % 16 else bias
 
 
 def window_attention_reference(qkv: torch.Tensor,
@@ -1479,8 +1496,7 @@ def _window_forward(kind: str, qkv: torch.Tensor,
         return window_attention_reference(qkv, bias, heads, scale)
     name = f"window_{kind}_attention"
     _check_window_operands(name, qkv, bias, dh, hd)
-    if kind == "packed":
-        window_route(qkv.dtype, n, dh)
+    window_route(qkv.dtype, n, dh, kind)
     bias = _window_bias(bias, g, heads, n, qkv.dtype)
     out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
     return _window_launch(
@@ -1527,7 +1543,7 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     _check_same_device(qkv, do=do)
     if do.data_ptr() % 16:
         raise ValueError("window_attention_bwd: do must be 16-byte aligned")
-    route = window_route(qkv.dtype, n, dh)
+    route = window_route(qkv.dtype, n, dh, "bwd")
     if dqkv is None:
         dqkv = torch.empty_like(qkv)
     elif dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype \
@@ -1607,10 +1623,16 @@ def window_batched_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     it (a bias shared by all windows). ``blk`` from ``window_batched_plan``
     (computed if omitted).
 
-    The CUDA kernel's block belongs to one head: it stages that head's
-    shared (N, N) bias in shared memory once and reuses it over several
-    groups of windows. A per-window bias (nW' > 1) is read from device
-    memory instead."""
+    A block of the CUDA kernel belongs to one head and stages that head's
+    shared (N, N) bias in shared memory once, then reuses it over several
+    windows (``window_route``). In bf16 the tensor-core kernel walks a run
+    of windows (its length from G·H and the card:
+    ``csrc/window_mma_tile.cuh``'s ``window_run_launch``), a warp per 16
+    query rows of a window,
+    the next window's q, k and v copied while the current one computes, the
+    bias held as bf16; in fp32 the CUDA-core kernel walks ``passes`` groups
+    of windows, one thread per query row. A per-window bias (nW' > 1) is
+    staged per window (bf16) or read from device memory (fp32) instead."""
     g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
     if blk is None:
         blk = window_batched_plan(g, n, heads, dh,
@@ -1631,6 +1653,7 @@ def _fused_window_forward(qkv_map, bias, heads, window, shift, dh, scale,
                                       (sh, sw), scale, hd)
     name = f"fused_window_attention ({plan[0]})"
     _check_window_operands(name, qkv_map, bias, dh, sec)
+    window_route(qkv_map.dtype, wh * ww, dh, f"fused_{plan[0]}")
     nwin = (hp // wh) * (wp // ww)
     bias = _window_bias(bias, nwin, heads, wh * ww, qkv_map.dtype)
     if out is None:
