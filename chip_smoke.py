@@ -10,11 +10,11 @@ exit, and without the final result line:
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
    (one ``nvcc`` per source, all in parallel), and the registers, shared
-   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-14;
+   memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-15;
    the kernels of rows 1-7 and 14, on both routes, and the window kernels
-   whose text did not change when rows 9-12 took the tensor cores (rows
-   9-12 in fp32, row 13 in both dtypes, and rows 9 and 10's tensor-core
-   kernels, which rows 11 and 12 joined on their tile), must keep their
+   whose text did not change when rows 9-13 took the tensor cores (rows
+   9-13 in fp32, and rows 9 and 10's tensor-core kernels, which rows 11-13
+   joined on their tile), must keep their
    registers (``KEPT_REGISTERS``), and the fp32 fused sub-block (row 8's
    CUDA-core route) must read its workspaces through L2 (``cuobjdump
    -sass``: its .CONSTANT loads, beside their count before the repair, and
@@ -39,8 +39,12 @@ exit, and without the final result line:
    its plain version and, in fp32, against autograd of the plain forward,
    into a dqkv pre-filled with NaN, twice for equal bits; gradients through
    the two fused kernels' autograd function against autograd of their plain
-   version; the single-pass Adam kernel over leaves on both sides of 65 536
-   elements against its plain version, in place. The streaming forward
+   version, each fused check beside a planted fault (the plain output with
+   key 0 of the last window of the map hidden) that must exceed its limit;
+   the multi-tensor Adam kernel (one launch a step) over leaves on both
+   sides of 65 536 elements, one not 16-byte aligned, more leaves than one
+   launch's table, and over the parameter lists of Swin-T and ViT-B/16,
+   against its plain version, in place, bit-equal. The streaming forward
    (``flash_attention_large``) at the DETR-R50 encoder's eval shape (batch
    4 at the 896 x 1344 bucket: G 32, S 4704, D 32, the key masks of four
    unequal COCO images), the decoder's cross shape (Sq 100, Sk 4704) and a
@@ -62,10 +66,10 @@ exit, and without the final result line:
    1, into NaN-filled outputs, twice for equal bits, torch's (out, in)
    weights bit-equal to the (in, out) ones, beside a planted fault (one
    16-wide k slice of Wout left out); gradients through both autograd
-   functions in fp32. Rows 1-12 and 14: bf16 launches go
+   functions in fp32. Rows 1-14: bf16 launches go
    through the tensor-core kernels and fp32 ones through the CUDA-core
-   kernels, by the kernels' names in the libraries' launch logs, and row 13
-   through its slab kernel in both (here, and rows 9-13 on the Swin-T,
+   kernels, by the kernels' names in the libraries' launch logs (here, and
+   rows 9-13 on the Swin-T,
    SwinV2-T and Twins-SVT-S served forwards of phases 5 and 6 and their
    train steps of phase 6, each row its forwards launch, row 10 in every
    step, and
@@ -119,7 +123,7 @@ exit, and without the final result line:
    ``make_train_state`` and ``train_step_fn`` with
    ``make_optimizer("adam", fused=True)`` and with ``fused=False``: per step
    the 12 forward window launches of phase 5, 12 ``window_attention_bwd``
-   launches, one ``fused_adam`` launch per large leaf, and no other kernel
+   launches, one ``fused_adam`` launch (``adam_multi_kernel``), and no other kernel
    of the table; the loss of the batch in eval mode must fall; the step's
    split and a profile; fp32 gradients of narrow 2-stage Swin and SwinV2
    models on the card against the CPU; ``train_model`` on
@@ -180,7 +184,11 @@ exit, and without the final result line:
    shapes of phase 2, with their TFLOP/s and SDPA's time (rows 3 and 5 also
    the share of key tiles they skip); row 4 at the DETR decoder's shape and
    ViT-B's with its TFLOP/s and device time beside SDPA's backward and row
-   6 at rate 0.
+   6 at rate 0; row 15 on one 768 x 3072 leaf (device time with L2 cold
+   and warm) and over the parameter lists of Swin-T and ViT-B/16: the fused
+   optimizer step's device time (L2 warm and cold), back-to-back time and
+   host enqueue time beside the unfused one's and
+   ``torch.optim.Adam(fused=True)``'s on the same tensors.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -258,7 +266,7 @@ MMA_GRAD_TOL = 5e-3
 # live key tile 10, and requires it above this limit.
 MASKED_FWD_TOL = 3e-3
 # The CUDA kernels' names, as their launch sites log them
-# (csrc/launch_log.cuh), that tell the routes of rows 1-12 and 14 apart
+# (csrc/launch_log.cuh), that tell the routes of rows 1-14 apart
 # (csrc/packed_attention.cu,
 # csrc/flash_attention.cu, csrc/flash_attention_large.cu,
 # csrc/flash_attention_bwd.cu, csrc/dropout_attention.cu,
@@ -268,8 +276,7 @@ MASKED_FWD_TOL = 3e-3
 # ops/fused_dense.py::ln_dense_route, its tensor-core route after the
 # statistics launch, row 8 by ops/flash_attention.py::fused_block_route and
 # rows 9-13 by ops/flash_attention.py::window_route; every bf16 width and
-# weight layout of the repo's models takes the tensor cores), and row 13's
-# one kernel, which keeps the CUDA cores in both.
+# weight layout of the repo's models takes the tensor cores).
 ROUTE_NAMES = {
     ("row 1", "bfloat16"): ("packed_fwd_mma_kernel",),
     ("row 1", "float32"): ("packed_fwd_kernel",),
@@ -299,8 +306,7 @@ ROUTE_NAMES = {
     ("row 11", "float32"): ("window_batched_kernel",),
     ("row 12", "bfloat16"): ("window_fused_flat_mma_kernel",),
     ("row 12", "float32"): ("window_fused_flat_kernel",),
-    # the slab kernel keeps the CUDA cores in both dtypes
-    ("row 13", "bfloat16"): ("window_fused_slab_kernel",),
+    ("row 13", "bfloat16"): ("window_fused_slab_mma_kernel",),
     ("row 13", "float32"): ("window_fused_slab_kernel",),
 }
 # The window wrappers' launch counters and their rows of the kernel table:
@@ -322,7 +328,7 @@ LOGIT_TOL_BF16_REL = 5e-2
 # order through 12 blocks on logits of magnitude ~1.
 SWIN_LOGIT_TOL_FP32 = 1e-4
 # The single-pass Adam kernel against its plain version after 3 steps: both
-# round every operation to fp32 in the same order.
+# round every operation to fp32 in the same order, so 0 is expected.
 ADAM_TOL = 1e-6
 # Window kernel launches per forward that the routing of ops/windows.py
 # implies for the 12 blocks of each preset (every other counter stays 0).
@@ -577,6 +583,29 @@ def queued_ms(fns, reps: int = 10):
             for i in range(len(fns))]
 
 
+def cold_ms(fn, reps: int = 10) -> float:
+    """Device ms of ``fn`` with the L2 cache cold: a 256 MB write before
+    each call, outside the pair of CUDA events around it, while a sleep
+    kernel ahead keeps the stream full (as ``queued_ms``). What a caller
+    that streams more than the 50 MB of L2 between two calls sees, as an
+    optimizer step over all of a model's leaves does. Mean of ``reps``."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clocks
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.mean([start.elapsed_time(end) for start, end in ev]))
+
+
 def window_routes(launches):
     """The bf16 routes of the window forwards that a path's launch counts
     (per forward) name."""
@@ -638,9 +667,10 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
-# The sources of rows 1-14, whose kernels' registers and shared memory
+# The sources of rows 1-15, whose kernels' registers and shared memory
 # phase 1 prints.
-PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
+PTXAS_SOURCES = ("fused_adam", "packed_attention", "flash_attention",
+                 "flash_attention_large",
                  "flash_attention_bwd", "dropout_attention", "fused_block",
                  "ln_dense", "window_attention", "window_attention_bwd",
                  "window_fused_attention")
@@ -648,7 +678,8 @@ PTXAS_SOURCES = ("packed_attention", "flash_attention", "flash_attention_large",
 # rows 1-7 and 14 on both routes, and the window kernels that kept their
 # text (read from the parent's build on the card when rows 9 and 10 took the
 # tensor cores, and rows 9 and 10's tensor-core kernels when rows 11 and 12
-# joined their tile), which phase 1 checks. The tiles' policies
+# joined their tile; row 13's bf16 CUDA-core kernel went when row 13 took
+# the tensor cores), which phase 1 checks. The tiles' policies
 # (a row layout, a dropout flag and a scale placement for the backward, a
 # thread policy and a load policy for the forwards) default to the code the
 # older rows had, so a new row on a shared tile leaves theirs alone: the
@@ -730,7 +761,7 @@ KEPT_REGISTERS = {
     "ln_dense_kernel<float>": 80,
     "ln_dense_kernel<__nv_bfloat16>": 80,
     # the window kernels on the CUDA cores whose text did not change when
-    # rows 9-12 took the tensor cores: rows 9-12 in fp32, row 13 in both
+    # rows 9-13 took the tensor cores: rows 9-13 in fp32
     "window_packed_kernel<float, 16>": 76,
     "window_packed_kernel<float, 32>": 123,
     "window_packed_kernel<float, 64>": 176,
@@ -743,14 +774,11 @@ KEPT_REGISTERS = {
     "window_fused_slab_kernel<float, 16>": 80,
     "window_fused_slab_kernel<float, 32>": 128,
     "window_fused_slab_kernel<float, 64>": 213,
-    "window_fused_slab_kernel<__nv_bfloat16, 16>": 73,
-    "window_fused_slab_kernel<__nv_bfloat16, 32>": 128,
-    "window_fused_slab_kernel<__nv_bfloat16, 64>": 169,
     "window_fused_flat_kernel<float, 16>": 64,
     "window_fused_flat_kernel<float, 32>": 125,
     "window_fused_flat_kernel<float, 64>": 175,
-    # rows 9 and 10 on the tensor cores, as before rows 11 and 12 joined
-    # their tile (window_mma_tile.cuh's row-map paths default to their code)
+    # rows 9 and 10 on the tensor cores, as before rows 11-13 joined their
+    # tile (window_mma_tile.cuh's row-map paths default to their code)
     "window_packed_mma_kernel<16, 16>": 40,
     "window_packed_mma_kernel<16, 32>": 40,
     "window_packed_mma_kernel<16, 64>": 63,
@@ -1152,8 +1180,8 @@ def main() -> int:
             "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
     log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-7 and 14, "
-        "both routes; rows 9-12 in fp32, row 13 in both, rows 9 and 10 on "
-        "the tensor cores) at their registers")
+        "both routes; rows 9-13 in fp32, rows 9 and 10 on the tensor cores) "
+        "at their registers")
     # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
     # own phases wrote through L2, never by the non-coherent path
     loads = sass_global_loads(_build._lib_path("fused_block"),
@@ -1425,13 +1453,22 @@ def main() -> int:
     def check_fused(label, b, hw, win, shift, h, dh, dtype, biased=True):
         """The slab and the flat kernel (where the map has each) against the
         plain version, into NaN-filled outputs, reruns bit-equal, and rows
-        12 and 13's kernels by name. A per-window bias where the map is
-        shifted, else a shared one; none where ``biased`` is false."""
+        12 and 13's kernels by name, each beside a planted fault: the plain
+        output with key 0 of the map's last window (the one whose rows and
+        columns wrap) hidden from its queries. A per-window bias where the
+        map is shifted, else a shared one; none where ``biased`` is
+        false."""
         name = str(dtype).removeprefix("torch.")
         qkv, bias, nwp = fused_inputs(b, hw, win, h, dh, shift > 0, dtype,
                                       biased)
         ref = fa.window_fused_reference(qkv, bias, h, (win, win),
                                         (shift, shift))
+        n, nwin = win * win, (hw // win) ** 2
+        hidden = (torch.zeros(nwin, h, n, n, device=dev) if bias is None
+                  else bias.float().expand(nwin, h, n, n).clone())
+        hidden[-1, :, :, 0] = -1e9
+        fault = fa.window_fused_reference(qkv, hidden, h, (win, win),
+                                          (shift, shift))
         outs = {}
         for kind, plan in fused_plans(b, hw, win, h, dh, nwp).items():
             out = torch.full((b, hw, hw, h * dh), float("nan"), device=dev,
@@ -1443,13 +1480,19 @@ def main() -> int:
                     f"fused {kind} {label} {name}: every output element is "
                     "written (none of the NaN fill is left)")
             e, share = max_err(out, ref), differing_share(out, ref)
+            ef = max_err(out, fault)
             log(f"window_fused_{kind}_attention {label} shift {shift} {name}: "
                 f"max|out-plain| {e:.3e} (tol {WINDOW_TOL[name]}), elements "
                 f"differing {share:.3e}, max|ref| "
-                f"{ref.float().abs().max().item():.3f}, no NaN left of the fill")
+                f"{ref.float().abs().max().item():.3f}, no NaN left of the "
+                f"fill; planted fault {ef:.3e}, its elements differing "
+                f"{differing_share(out, fault):.3e}")
             require(e <= WINDOW_TOL[name]
                     and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX),
                     f"fused {kind} {label} {name} against its plain version")
+            require(ef > WINDOW_TOL[name],
+                    f"fused {kind} {label} {name}: the planted fault exceeds "
+                    "the limit")
             require(torch.equal(fa.fused_window_attention(
                 qkv, bias, h, (win, win), (shift, shift), plan=plan), out),
                 f"fused {kind} {label} {name}: reruns bit-equal")
@@ -1594,40 +1637,61 @@ def main() -> int:
         check_fused_grad("swin-t s1 B8 56x56 H3", 8, 56, 7, shift, 3, 32)
         check_fused_grad("swin-t s2 B8 28x28 H6", 8, 28, 7, shift, 6, 32)
 
-    # the single-pass Adam kernel: leaves on both sides of 65 536 elements,
-    # one with a ragged last vector, 3 steps, with and without weight decay
-    adam_shapes = [(300, 300), (65536,), (65539,), (768, 3072), (1000,),
-                   (7, 9)]
-    n_large = sum(int(np.prod(sh_)) >= fadam._MIN_FUSED_SIZE
-                  for sh_ in adam_shapes)
-    for wd in (0.0, 0.05):
-        leaves = [[randn(36 + i, *sh_, dtype=fp32) * sc
-                   for i, sh_ in enumerate(adam_shapes)]
-                  for sc in (1.0, 0.0, 0.0)]
-        oracle = [[t.clone() for t in group] for group in leaves]
-        ptrs = [t.data_ptr() for group in leaves for t in group]
+    # the multi-tensor Adam kernel (row 15), one launch a step (one more
+    # past each table of leaves), 3 steps against its plain version: a mixed
+    # list (leaves on both sides of 65 536 elements, ragged last vectors, one
+    # leaf not 16-byte aligned, more leaves than one launch's table) with
+    # and without weight decay, and the parameter lists of Swin-T and
+    # ViT-B/16
+    def adam_leaves(shapes, seed, scale=1.0):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.empty(sh_, device=dev).normal_(generator=gen) * scale
+                for sh_ in shapes]
+
+    def check_adam(label, shapes, wd, misaligned=False):
+        params = adam_leaves(shapes, 36)
+        if misaligned:  # a leaf 4 bytes past a 16-byte boundary
+            params.insert(1, adam_leaves([(70001,)], 37)[0][1:])
+        mu = [torch.zeros_like(p_) for p_ in params]
+        nu = [torch.zeros_like(p_) for p_ in params]
+        oracle = [[t.clone() for t in group] for group in (params, mu, nu)]
+        ptrs = [t.data_ptr() for group in (params, mu, nu) for t in group]
+        bound = fadam.FusedAdamLeaves(params, mu, nu)
+        per_step = -(-len(params) // fadam._TABLE_LEAVES)
         fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        _build.reset_launched()
         for t_step in range(1, 4):
-            grads = [randn(50 + 10 * t_step + i, *sh_, dtype=fp32)
-                     for i, sh_ in enumerate(adam_shapes)]
-            fadam.fused_adam_update(*leaves, grads, t_step, 1e-3,
-                                    weight_decay=wd)
+            grads = adam_leaves([p_.shape for p_ in params], 50 + t_step, 0.1)
+            bound.update(grads, t_step, 1e-3, weight_decay=wd)
             sc = fadam.adam_scalars(t_step, 1e-3, weight_decay=wd)
             for leaf in zip(*oracle, grads):
                 fadam.fused_adam_reference(*leaf, sc)
         torch.cuda.synchronize()
-        e = max(max_err(a, r) for got, want in zip(leaves, oracle)
+        logged = _build.launched().get("adam_multi_kernel", 0)
+        e = max(max_err(a, r) for got, want in zip((params, mu, nu), oracle)
                 for a, r in zip(got, want))
-        log(f"fused_adam weight decay {wd}: 3 steps over {len(adam_shapes)} "
-            f"leaves ({n_large} through the kernel), max|p, m, v - plain| "
-            f"{e:.3e} (tol {ADAM_TOL}), in place")
-        require(e <= ADAM_TOL, "fused_adam against its plain version")
-        require(fa.LAUNCHES["fused_adam"] == 3 * n_large,
-                "fused_adam: one launch per large leaf and step")
-        require(ptrs == [t.data_ptr() for group in leaves for t in group],
-                "fused_adam updates p, m and v in place")
-        errs[("fused_adam", wd)] = e
-    del leaves, oracle, grads
+        log(f"fused_adam {label}, weight decay {wd}: 3 steps over "
+            f"{len(params)} leaves ({sum(p_.numel() for p_ in params)} "
+            f"elements) in {logged} launches of adam_multi_kernel, max|p, m, "
+            f"v - plain| {e:.3e} (tol {ADAM_TOL}), in place")
+        require(e <= ADAM_TOL, f"fused_adam {label} against its plain version")
+        require(fa.LAUNCHES["fused_adam"] == logged == 3 * per_step,
+                f"fused_adam {label}: {per_step} launch(es) a step")
+        require(ptrs == [t.data_ptr() for group in (params, mu, nu)
+                         for t in group],
+                f"fused_adam {label} updates p, m and v in place")
+        errs[("fused_adam", label, wd)] = e
+
+    adam_shapes = ([(300, 300), (65536,), (65539,), (768, 3072), (1000,),
+                    (7, 9), (65535,), (3,), (1,)]
+                   + [(i % 37 + 1,) for i in range(320)])
+    for wd in (0.0, 0.05):
+        check_adam("mixed", adam_shapes, wd, misaligned=True)
+    for preset, cls in (("swint_224_imagenet", SwinTransformer),
+                        ("vitb16_224_imagenet", ViT)):
+        shapes = [p_.shape for p_ in cls(**get_args(preset)).parameters()]
+        check_adam(preset, shapes, 0.05)
 
     # the streaming forward (row 3): the DETR-R50 encoder and cross shapes
     # at the 896 x 1344 bucket, with the key masks the Joiner makes for the
@@ -2614,8 +2678,9 @@ def main() -> int:
         same weights: launches per step, the batch's eval loss before and
         after, the step's split; the step's kernels take ``routes``
         (require_route). Returns (launches, times by optimizer)."""
-        n_big = sum(p.numel() >= fadam._MIN_FUSED_SIZE
-                    for p in model.parameters())
+        n_leaves = sum(1 for p in model.parameters()
+                       if p.dtype == torch.float32)
+        per_step = -(-n_leaves // fadam._TABLE_LEAVES)  # fused_adam launches
         evaluate = trainer.eval_step_fn(model)
         launches, times = {}, {}
         for fused in (True, False):
@@ -2626,16 +2691,18 @@ def main() -> int:
             before = (evaluate(model, x, y, w)[0] / 32).item()
             model.dropout_generator.manual_seed(0)
             fa.reset_launch_counts()
+            _build.reset_launched()
             losses = []
             for _ in range(3):
                 state, loss_n, _, n = step(state, x, y, w)
                 losses.append((loss_n / n).item())
             torch.cuda.synchronize()
             got = {k: v for k, v in fa.LAUNCHES.items() if v}
+            adam_logged = _build.launched().get("adam_multi_kernel", 0)
             after = (evaluate(model, x, y, w)[0] / 32).item()
             want = {k: 3 * v for k, v in {**want_fwd, **want_bwd}.items()}
             if fused:
-                want["fused_adam"] = 3 * n_big
+                want["fused_adam"] = 3 * per_step
             log(f"{preset} bf16 batch 32, 3 Adam steps (fused={fused}) on one "
                 f"batch: train-mode loss {[round(v, 4) for v in losses]}, "
                 f"eval-mode loss of the batch {before:.4f} -> {after:.4f}, "
@@ -2644,10 +2711,12 @@ def main() -> int:
                     and after < before,
                     f"{preset} fused={fused}: finite losses, and the batch's "
                     "eval loss falls over 3 steps")
-            require(got == want, f"{preset} fused={fused}: per step {want_fwd} "
+            require(got == want and adam_logged == want.get("fused_adam", 0),
+                    f"{preset} fused={fused}: per step {want_fwd} "
                     f"forward, {want_bwd} backward"
-                    + (f", {n_big} fused_adam" if fused else "")
-                    + f" and no other kernel; got {got}")
+                    + (f", {per_step} fused_adam" if fused else "")
+                    + f" and no other kernel; got {got}, {adam_logged} "
+                    "adam_multi_kernel launches")
             require(all(bool(torch.isfinite(p).all())
                         for p in model.parameters()),
                     f"{preset} fused={fused}: finite parameters")
@@ -2658,8 +2727,8 @@ def main() -> int:
                 f"{host:.3f} ms per step by the host clock "
                 f"({32 / host * 1e3:.1f} images/s); device time forward "
                 f"{f_ms:.3f} ms, backward {b_ms:.3f} ms, optimizer "
-                f"{o_ms:.3f} ms ({n_big} large leaves of "
-                f"{sum(1 for _ in model.parameters())})")
+                f"{o_ms:.3f} ms ({n_leaves} fp32 leaves, {per_step} "
+                "adam_multi_kernel launch(es) a fused step)")
             if fused:
                 def one_step(state=state):
                     loss = trainer.cross_entropy_with_weights(model(x), y, w)
@@ -3749,40 +3818,80 @@ def main() -> int:
         "backward")
     del qkv, bias, do, q, k, v, do_h, mask, ds_, qkv32, do32, bias_c, dqkv_
 
-    # the single-pass Adam kernel on Swin-T's largest leaf (stage 4's fc1,
-    # 768 x 3072: ViT-B/16's fc1 too), and the optimizers over all of
-    # Swin-T's leaves
+    # the multi-tensor Adam kernel (row 15) on Swin-T's largest leaf (stage
+    # 4's fc1, 768 x 3072: ViT-B/16's fc1 too), device time with L2 cold, as
+    # a step over all the leaves finds each leaf, and warm (the 38 MB leaf
+    # fits the 50 MB L2); then the optimizer step over all of Swin-T's and
+    # of ViT-B/16's leaves, fused (one launch), unfused (torch._foreach_*)
+    # and torch.optim.Adam(fused=True) on the same tensors: device time,
+    # back to back, and the host's enqueue time
     leaf = [randn(60 + i, 768, 3072, dtype=fp32) * sc
             for i, sc in enumerate((1.0, 0.0, 0.0, 0.01))]
     sc = fadam.adam_scalars(5, 1e-4)
+    one = fadam.FusedAdamLeaves(*([t] for t in leaf[:3]))
+
+    def one_leaf():
+        one.update(leaf[3:], 5, 1e-4)
+
     lib_p = leaf[0].clone().requires_grad_()
     lib_p.grad = leaf[3].clone()
     lib_opt = torch.optim.Adam([lib_p], lr=1e-4, fused=True)
     n_el = leaf[0].numel()
-    params = [p for p in adam_model.parameters()]
-    for p_ in params:
-        p_.grad = torch.full_like(p_, 1e-3)
-    opt_ms = {}
-    for label, tx in (("fused", make_optimizer("adam", 1e-4, fused=True)),
-                      ("unfused", make_optimizer("adam", 1e-4))):
-        tx.init(params)
-        opt_ms[label] = cuda_ms(tx.step, iters=10)
-    lib_all = torch.optim.Adam(params, lr=1e-4, fused=True)
-    opt_ms["library"] = cuda_ms(lib_all.step, iters=10)
-    n_all = sum(p_.numel() for p_ in params)
+
+    def host_ms(fn, iters=10):
+        """Host ms of one call of ``fn``: the clock around ``iters`` calls
+        with no synchronisation between them (what the host spends to
+        enqueue, while the card keeps up)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    def optimizer_times(model_name, params):
+        for p_ in params:
+            p_.grad = torch.full_like(p_, 1e-3)
+        times = {}
+        for label, tx in (
+                ("fused", make_optimizer("adam", 1e-4, fused=True)
+                 .init(params)),
+                ("unfused", make_optimizer("adam", 1e-4).init(params)),
+                ("library", torch.optim.Adam(params, lr=1e-4, fused=True))):
+            times[f"{model_name}_{label}_device_ms"] = queued_ms(
+                [tx.step], reps=5)[0]
+            times[f"{model_name}_{label}_cold_device_ms"] = cold_ms(
+                tx.step, reps=5)
+            times[f"{model_name}_{label}_ms"] = cuda_ms(tx.step, iters=10)
+            times[f"{model_name}_{label}_host_ms"] = host_ms(tx.step)
+        n_all = sum(p_.numel() for p_ in params)
+        times[f"{model_name}_bound_ms"] = 7 * 4 * n_all / HBM_BYTES_PER_S * 1e3
+        log(f"optimizer step over {model_name}'s {len(params)} leaves "
+            f"({n_all} elements): " + ", ".join(
+                f"{k.removeprefix(model_name + '_')} {v:.4f}"
+                for k, v in times.items()))
+        for p_ in params:
+            p_.grad = None
+        return times
+
+    opt_times = optimizer_times("swin_t", list(adam_model.parameters()))
+    vit_adam = ViT(**get_args("vitb16_224_imagenet"))
+    opt_times |= optimizer_times("vit_b16", list(vit_adam.parameters()))
+    del vit_adam
     entry("fused_adam", "fused_adam.cu", 36, swin_total["fused_adam"],
-          max(errs[("fused_adam", 0.0)], errs[("fused_adam", 0.05)]),
-          f"one fp32 leaf of {n_el} elements",
-          cuda_ms(lambda: fadam._launch([leaf], sc)),
+          max(v for k, v in errs.items() if k[0] == "fused_adam"),
+          f"one fp32 leaf of {n_el} elements (device time, L2 cold)",
+          cold_ms(one_leaf),
           cuda_ms(lambda: fadam.fused_adam_reference(*leaf, sc)),
-          cuda_ms(lib_opt.step),
+          cold_ms(lib_opt.step),
           7 * 4 * n_el, 12 * n_el,
           replaces="vision_transformers_tpu/ops/fused_adam.py",
-          ops_dtype="float32",
-          swin_t_step_fused_ms=opt_ms["fused"],
-          swin_t_step_unfused_ms=opt_ms["unfused"],
-          swin_t_step_library_ms=opt_ms["library"],
-          swin_t_step_bound_ms=7 * 4 * n_all / HBM_BYTES_PER_S * 1e3)
+          ops_dtype="float32", warm_device_ms=queued_ms([one_leaf])[0],
+          back_to_back_ms=cuda_ms(one_leaf),
+          library_warm_device_ms=queued_ms([lib_opt.step])[0],
+          library_back_to_back_ms=cuda_ms(lib_opt.step), **opt_times)
     # the streaming forward at the DETR-R50 encoder's eval shape (batch 4 at
     # 896 x 1344), beside its cross shape, the kv_valid shape, the ViT-B
     # S 1297 shape and T2T-ViT_t-14's tokens; the bound counts the keys this

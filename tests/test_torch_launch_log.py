@@ -49,3 +49,14 @@ def test_route_names_are_logged_names():
     assert required <= logged, sorted(required - logged)
     helper = (CSRC / "window_mma_tile.cuh").read_text()
     assert helper.count("<<<") == 1 and "return launched(name);" in helper
+
+
+def test_adam_and_slab_kernels_are_logged_at_their_launch_sites():
+    """The multi-tensor Adam kernel (row 15) and the slab window kernel on
+    the tensor cores (row 13) log their launches by name; the per-leaf Adam
+    kernels they replaced are gone with their launch sites."""
+    logged = _logged_names()
+    assert {"adam_multi_kernel", "window_fused_slab_mma_kernel"} <= logged
+    assert not {"adam_vec_kernel", "adam_scalar_kernel"} & logged
+    assert chip_smoke.ROUTE_NAMES[("row 13", "bfloat16")] == (
+        "window_fused_slab_mma_kernel",)

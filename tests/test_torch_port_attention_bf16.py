@@ -553,12 +553,10 @@ def test_window_route_sends_bf16_to_the_tensor_cores(dh):
 @pytest.mark.parametrize("dh", [16, 32, 64])
 def test_window_route_names_each_kernel(dh, kernel):
     """``window_route(..., kernel)``: bf16 → the tensor cores for every
-    window kernel but the slab one (row 13), which keeps the CUDA cores in
-    both dtypes; fp32 → the CUDA cores; N 0 and N 129, a head dim of 8, fp16
-    and an unknown kernel refused."""
-    bf16_route = "cuda_cores" if kernel == "fused_slab" else "tensor_cores"
+    window kernel, the slab one (row 13) too; fp32 → the CUDA cores; N 0 and
+    N 129, a head dim of 8, fp16 and an unknown kernel refused."""
     for n in (1, 16, 17, 49, 64, 100, tfa.MAX_WINDOW_TOKENS):
-        assert tfa.window_route(torch.bfloat16, n, dh, kernel) == bf16_route
+        assert tfa.window_route(torch.bfloat16, n, dh, kernel) == "tensor_cores"
         assert tfa.window_route(torch.float32, n, dh, kernel) == "cuda_cores"
     for dtype, n, d in ((torch.bfloat16, 0, dh), (torch.bfloat16, 129, dh),
                         (torch.float32, 129, dh), (torch.bfloat16, 49, 8),

@@ -61,6 +61,32 @@ def test_leaf_sizes_straddle_the_kernel_threshold():
     assert sizes[2] == 65535
 
 
+@pytest.mark.parametrize("n", [1, 3, 65535, 65536, 65539, 768 * 3072])
+def test_every_fp32_leaf_on_cuda_joins_the_launch(n):
+    """On CUDA every non-empty fp32 leaf takes the kernel, small ones too
+    (one launch a step); on the CPU the JAX package's split by size stays;
+    other dtypes take the plain version on both."""
+    assert tadam.adam_route("cuda", torch.float32, n) == "kernel"
+    assert tadam.adam_route("cpu", torch.float32, n) == (
+        "reference" if n >= 65536 else "foreach")
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        for device in ("cuda", "cpu"):
+            assert tadam.adam_route(device, dtype, n) == "reference"
+    assert tadam.adam_route("cuda", torch.float32, 0) == "reference"
+
+
+def test_cpu_leaves_keep_the_jax_split():
+    """``FusedAdamLeaves`` on the CPU binds no card and sorts the leaves as
+    the JAX package does: the two of 65 536 elements or more to the plain
+    version, the small fp32 ones to the foreach path, a bf16 leaf to the
+    plain version."""
+    params = _t(_leaves(0)) + [torch.zeros(4, dtype=torch.bfloat16)]
+    moments = [torch.zeros(p.shape) for p in params]
+    leaves = tadam.FusedAdamLeaves(params, moments, list(moments))
+    assert leaves.cards == []
+    assert leaves.routes == {"foreach": [2, 3, 4, 5], "reference": [0, 1, 6]}
+
+
 @pytest.mark.parametrize("weight_decay", [0.0, 0.05])
 def test_fused_adam_update_matches_jax(weight_decay):
     """4 steps of ``fused_adam_update`` with a learning rate that changes

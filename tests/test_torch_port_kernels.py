@@ -431,9 +431,8 @@ _WINDOW_SHAPES = [
     (32, 49, 16, 32, 0),
 ]
 
-# The kernels of rows 9-12 by route (ops/flash_attention.py's
-# window_route): bf16 on the tensor cores, fp32 on the CUDA cores. (Row 13,
-# the slab kernel, keeps the CUDA cores in both.)
+# The kernels of rows 9-13 by route (ops/flash_attention.py's
+# window_route): bf16 on the tensor cores, fp32 on the CUDA cores.
 _WINDOW_ROUTE_NAMES = {
     ("window_packed_attention", torch.bfloat16): "window_packed_mma_kernel",
     ("window_packed_attention", torch.float32): "window_packed_kernel",
@@ -444,6 +443,9 @@ _WINDOW_ROUTE_NAMES = {
     ("window_fused_flat_attention", torch.bfloat16):
         "window_fused_flat_mma_kernel",
     ("window_fused_flat_attention", torch.float32): "window_fused_flat_kernel",
+    ("window_fused_slab_attention", torch.bfloat16):
+        "window_fused_slab_mma_kernel",
+    ("window_fused_slab_attention", torch.float32): "window_fused_slab_kernel",
 }
 
 
@@ -573,10 +575,45 @@ def _check_fused_launch(cuda, dtype, qkv, bias, ref, heads, win, shift, plan):
     assert _window_close(out, ref, dtype)
     assert torch.equal(tfa.fused_window_attention(
         qkv, bias, heads, (win, win), shift, plan=plan), out)
-    if kind == "flat":
-        assert _takes_window_route(lambda: tfa.fused_window_attention(
-            qkv, bias, heads, (win, win), shift, plan=plan),
-            "window_fused_flat_attention", dtype)
+    assert _takes_window_route(lambda: tfa.fused_window_attention(
+        qkv, bias, heads, (win, win), shift, plan=plan),
+        f"window_fused_{kind}_attention", dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hw,win,shift,heads,dh,per_window", [
+    (32, 56, 7, 3, 3, 32, True),    # Swin-T stage 1, shifted: row 13's shape
+    (32, 56, 7, 0, 3, 32, False),   # unshifted, shared bias
+    (1, 56, 7, 3, 3, 32, True),     # bucket 1: rows split into short runs
+    (2, 32, 4, 2, 2, 16, True),     # N 16: 4 windows a block step
+    (2, 40, 5, 2, 2, 64, True),     # N 25 (2 windows a step), 8 a row
+    (2, 24, 3, 1, 4, 32, None),     # N 9, no bias
+    (1, 24, 4, 2, 2, 32, True),     # 6 windows a row: a half-full last step
+])
+def test_slab_kernel_matches_plain_and_flat(cuda, dtype, b, hw, win, shift,
+                                            heads, dh, per_window):
+    """Row 13 at shapes with wp % 8 == 0 (where the slab plan exists), N not
+    a multiple of 16 among them: against its plain version into a
+    NaN-filled output, reruns bit-equal, by its kernel's name, and against
+    the flat kernel on the same map (both read the rolled windows through a
+    row table, so in bf16 they may differ by summation order only)."""
+    n = win * win
+    nwp = (hw // win) ** 2 if per_window else 1
+    qkv = torch.from_numpy(_randn(46, b, hw, hw, 3 * heads * dh)).to(cuda,
+                                                                     dtype)
+    bias = None if per_window is None else \
+        torch.from_numpy(_randn(47, nwp, heads, n, n)).to(cuda)
+    ref = tfa.window_fused_reference(qkv, bias, heads, (win, win),
+                                     (shift, shift))
+    plans = _fused_plans(b, hw, hw, win, heads, dh, nwp)
+    assert [p[0] for p in plans] == ["slab", "flat"]
+    slab, flat = (_check_fused_launch(cuda, dtype, qkv, bias, ref, heads,
+                                      win, (shift, shift), plan)
+                  for plan in plans)
+    assert (slab.float() - flat.float()).abs().max().item() \
+        <= _WINDOW_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -736,41 +773,48 @@ def test_fused_window_backward_zeroes_pad_lanes(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("weight_decay", [0.0, 0.05])
 def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
-    """Three steps over leaves on both sides of 65 536 elements, one with a
-    ragged last vector and one not 16-byte aligned: in place, and within
-    1e-6 of the plain version (the kernel rounds each operation on its own,
-    in the plain version's order)."""
+    """Three steps over a mixed list, in place and bit-equal to the plain
+    version (the kernel rounds each operation on its own, in the plain
+    version's order): leaves on both sides of 65 536 elements, ragged last
+    vectors, a view not 16-byte aligned, and more leaves than one launch's
+    table holds, so a step is two launches of adam_multi_kernel."""
+    from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.ops import fused_adam as tadam
 
-    shapes = [(300, 300), (65536,), (65539,), (131, 1001), (1000,), (7, 9)]
+    shapes = [(300, 300), (65536,), (65539,), (131, 1001), (1000,), (7, 9),
+              (65535,), (3,), (1,)] + [(i % 37 + 1,) for i in range(320)]
     rng = np.random.RandomState(55)
     make = lambda scale: [  # noqa: E731
         torch.from_numpy((scale * rng.randn(*s)).astype(np.float32)).to(cuda)
         for s in shapes]
     params, mu, nu = make(1.0), make(0.0), make(0.0)
-    # a large leaf that starts 4 bytes past a 16-byte boundary
+    # a leaf that starts 4 bytes past a 16-byte boundary
     odd = torch.from_numpy(rng.randn(70001).astype(np.float32)).to(cuda)[1:]
-    params.append(odd)
-    mu.append(torch.zeros_like(odd))
-    nu.append(torch.zeros_like(odd))
+    params.insert(3, odd)
+    mu.insert(3, torch.zeros_like(odd))
+    nu.insert(3, torch.zeros_like(odd))
+    assert odd.data_ptr() % 16 and len(params) > tadam._TABLE_LEAVES
     ref = [[t.clone() for t in group] for group in (params, mu, nu)]
     ptrs = [t.data_ptr() for group in (params, mu, nu) for t in group]
-    large = sum(p.numel() >= tadam._MIN_FUSED_SIZE for p in params)
+    leaves = tadam.FusedAdamLeaves(params, mu, nu)
     tfa.reset_launch_counts()
+    torch.cuda.synchronize()
+    _build.reset_launched()
     for step in range(1, 4):
         grads = [torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
                  .to(cuda) for p in params]
-        tadam.fused_adam_update(params, mu, nu, grads, step, 1e-3,
-                                weight_decay=weight_decay)
+        grads[0] = grads[0].t()  # not contiguous: the wrapper copies it
+        leaves.update(grads, step, 1e-3, weight_decay=weight_decay)
         s = tadam.adam_scalars(step, 1e-3, weight_decay=weight_decay)
         for p, m, v, g in zip(*ref, grads):
             tadam.fused_adam_reference(p, m, v, g, s)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES["fused_adam"] == 3 * large and large == 5
+    assert tfa.LAUNCHES["fused_adam"] == 3 * 2
+    assert _build.launched().get("adam_multi_kernel") == 3 * 2
     assert ptrs == [t.data_ptr() for group in (params, mu, nu) for t in group]
     for got, want in zip((params, mu, nu), ref):
         for a, r in zip(got, want):
-            assert (a - r).abs().max().item() <= 1e-6
+            assert torch.equal(a, r)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-// One Adam(W) step over one fp32 parameter leaf in a single pass, in place.
+// One Adam(W) step over all the fp32 parameter leaves of a step, in place,
+// in one launch (more only past one launch's table of leaves).
 //
 // Replaces the TPU kernel vision_transformers_tpu/ops/fused_adam.py::
 // _adam_kernel (:36, reached through _fused_leaf :63 from fused_adam_update
@@ -10,17 +11,42 @@
 //
 // What bounds it on the H100: four streams read and three written, 28 bytes
 // and a dozen operations per element, so bytes by two orders of magnitude
-// (a 2.36 M-element leaf, ViT-B/16's fc1: 66 MB, 19.7 µs at 3.35 TB/s). The
-// design is what a streaming pass needs and nothing else: a grid-stride loop
-// over 16-byte vectors, every address touched once, a scalar tail for the
-// last n mod 4 elements (and a scalar kernel for a leaf that is not 16-byte
-// aligned). Each operation is rounded on its own (no fused multiply-add), in
-// the order written above, so the plain version beside the wrapper computes
-// the same bits.
+// (a 2.36 M-element leaf, ViT-B/16's fc1: 66 MB, 19.7 µs at 3.35 TB/s;
+// Swin-T's 28 M parameters 0.24 ms). And the host: the TPU kernel runs one
+// launch per large leaf, which on this card costs a ctypes call and a launch
+// per leaf, more than the step's bytes take. So:
+//   - one launch takes every leaf (adam_plan.cuh's table, passed by value as
+//     a __grid_constant__ parameter: no copy of it per thread). A block walks
+//     chunks of kChunk elements of the virtual concatenation of the leaves,
+//     grid-stride, and finds a chunk's leaf by a binary search over the
+//     table's chunk prefix; a chunk never crosses a leaf;
+//   - the grid is one full wave (the occupancy API's blocks an SM times the
+//     SMs, asked once per device), or the chunks if fewer;
+//   - each thread issues its loads of kUnroll float4s of each of the four
+//     streams before any arithmetic (128 bytes in flight a thread). Plain
+//     loads and stores: with the streaming hints (__ldcs / __stcs) the step
+//     over Swin-T's and ViT-B/16's leaves took 1-2% longer on an H100, and
+//     a leaf that L2 still held from the step before 37% longer
+//     (adam_times.py); 4 float4s a stream took 110 registers and gained
+//     nothing;
+//   - a leaf whose four pointers are not all 16-byte aligned, and the last
+//     n mod 4 elements of a leaf, take the scalar path in the same kernel.
+// Each operation is rounded on its own (no fused multiply-add), in the order
+// written above, so the plain version beside the wrapper computes the same
+// bits.
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <mutex>
+
+#include "adam_plan.cuh"
 #include "launch_log.cuh"
 
 namespace {
+
+using vtt::adam::kChunk;
+using vtt::adam::kThreads;
+using vtt::adam::kUnroll;
 
 struct AdamScalars {
   float b1, b2, c1, c2, neg_lr, wd, eps;
@@ -38,71 +64,112 @@ __device__ __forceinline__ void adam_element(float& p, float& m, float& v,
   p = __fadd_rn(p, __fmul_rn(s.neg_lr, upd));
 }
 
-__global__ void __launch_bounds__(256)
-adam_vec_kernel(float* __restrict__ p, float* __restrict__ m,
-                float* __restrict__ v, const float* __restrict__ g,
-                long long n, AdamScalars s) {
-  const long long n4 = n / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float4* p4 = reinterpret_cast<float4*>(p);
-  float4* m4 = reinterpret_cast<float4*>(m);
-  float4* v4 = reinterpret_cast<float4*>(v);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  for (long long i = tid; i < n4; i += stride) {
-    float4 pp = p4[i], mm = m4[i], vv = v4[i];
-    const float4 gg = g4[i];
-    adam_element(pp.x, mm.x, vv.x, gg.x, s);
-    adam_element(pp.y, mm.y, vv.y, gg.y, s);
-    adam_element(pp.z, mm.z, vv.z, gg.z, s);
-    adam_element(pp.w, mm.w, vv.w, gg.w, s);
-    p4[i] = pp;
-    m4[i] = mm;
-    v4[i] = vv;
+__device__ __forceinline__ void adam_vec(float4& p, float4& m, float4& v,
+                                         const float4& g,
+                                         const AdamScalars& s) {
+  adam_element(p.x, m.x, v.x, g.x, s);
+  adam_element(p.y, m.y, v.y, g.y, s);
+  adam_element(p.z, m.z, v.z, g.z, s);
+  adam_element(p.w, m.w, v.w, g.w, s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+adam_multi_kernel(const __grid_constant__ vtt::adam::Table t,
+                  const AdamScalars s) {
+  const int chunks = t.first_chunk[t.count];
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const vtt::adam::Chunk ch = vtt::adam::chunk_of(t, c);
+    float* __restrict__ p = t.p[ch.leaf];
+    float* __restrict__ m = t.m[ch.leaf];
+    float* __restrict__ v = t.v[ch.leaf];
+    const float* __restrict__ g = t.g[ch.leaf];
+    if (!t.aligned[ch.leaf]) {
+      for (long long e = ch.begin + threadIdx.x; e < ch.end; e += kThreads)
+        adam_element(p[e], m[e], v[e], g[e], s);
+      continue;
+    }
+    // kChunk is a multiple of 4: the chunk's vectors are [begin/4, end/4)
+    const long long v1 = ch.end / 4;
+    float4 pp[kUnroll], mm[kUnroll], vv[kUnroll], gg[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = ch.begin / 4 + threadIdx.x + u * kThreads;
+      if (i < v1) {
+        pp[u] = reinterpret_cast<const float4*>(p)[i];
+        mm[u] = reinterpret_cast<const float4*>(m)[i];
+        vv[u] = reinterpret_cast<const float4*>(v)[i];
+        gg[u] = reinterpret_cast<const float4*>(g)[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = ch.begin / 4 + threadIdx.x + u * kThreads;
+      if (i < v1) {
+        adam_vec(pp[u], mm[u], vv[u], gg[u], s);
+        reinterpret_cast<float4*>(p)[i] = pp[u];
+        reinterpret_cast<float4*>(m)[i] = mm[u];
+        reinterpret_cast<float4*>(v)[i] = vv[u];
+      }
+    }
+    const long long e = 4 * v1 + threadIdx.x;  // the leaf's last n mod 4
+    if (e < ch.end) adam_element(p[e], m[e], v[e], g[e], s);
   }
-  const long long i = 4 * n4 + tid;  // the ragged tail, at most 3 elements
-  if (i < n) adam_element(p[i], m[i], v[i], g[i], s);
 }
 
-__global__ void __launch_bounds__(256)
-adam_scalar_kernel(float* __restrict__ p, float* __restrict__ m,
-                   float* __restrict__ v, const float* __restrict__ g,
-                   long long n, AdamScalars s) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    adam_element(p[i], m[i], v[i], g[i], s);
-}
-
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
+// One full wave of adam_multi_kernel on the current device: its blocks an
+// SM (the occupancy API) times the SMs, asked once per device.
+cudaError_t wave_blocks(int* blocks) {
+  constexpr int kDevices = 64;
+  static std::mutex mu;
+  static int seen[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (seen[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, adam_multi_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    seen[dev] = sms * per_sm;
+  }
+  *blocks = seen[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// p, m, v (updated in place) and g: n contiguous floats each. `blocks` is the
-// grid size (the wrapper passes a few blocks per SM). Returns 0 or the
-// cudaError_t of the launch.
-int fused_adam(void* p, void* m, void* v, const void* g, long long n,
-               float b1, float b2, float c1, float c2, float neg_lr, float wd,
-               float eps, int blocks, void* stream) {
-  if (n < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+// `leaves`: five int64 a leaf, (p, m, v, g, n): p, m, v (updated in place)
+// and g, n contiguous floats each, n >= 1. One launch of adam_multi_kernel
+// per vtt::adam::kMaxLeaves leaves, in order, on `stream`. Returns 0 or the
+// cudaError_t of the first launch that failed.
+int adam_multi(const long long* leaves, int total, float b1, float b2,
+               float c1, float c2, float neg_lr, float wd, float eps,
+               void* stream) {
+  if (leaves == nullptr || total < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int wave = 0;
+  const cudaError_t err = wave_blocks(&wave);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const AdamScalars s{b1, b2, c1, c2, neg_lr, wd, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pf = static_cast<float*>(p);
-  float* mf = static_cast<float*>(m);
-  float* vf = static_cast<float*>(v);
-  const float* gf = static_cast<const float*>(g);
-  if (aligned16(p) && aligned16(m) && aligned16(v) && aligned16(g)) {
-    adam_vec_kernel<<<blocks, 256, 0, st>>>(pf, mf, vf, gf, n, s);
-    return vtt::launched("adam_vec_kernel");
+  static thread_local vtt::adam::Table t;  // 14 KB: kept off the stack
+  for (int first = 0; first < total;) {
+    const int count = vtt::adam::pack(leaves, total, first, &t);
+    if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = std::min(wave, t.first_chunk[count]);
+    adam_multi_kernel<<<blocks, kThreads, 0, st>>>(t, s);
+    const int rc = vtt::launched("adam_multi_kernel");
+    if (rc != 0) return rc;
+    first += count;
   }
-  adam_scalar_kernel<<<blocks, 256, 0, st>>>(pf, mf, vf, gf, n, s);
-  return vtt::launched("adam_scalar_kernel");
+  return 0;
 }
 
 const char* fused_adam_error_string(int code) {

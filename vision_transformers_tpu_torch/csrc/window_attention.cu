@@ -183,10 +183,10 @@ window_batched_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                           __nv_bfloat16* __restrict__ out, long long g, int n,
                           int heads, int bias_windows, float scale, int mt,
                           int wpb, int run) {
-  vtt::mma::window_run_mma<D, NK>(vtt::mma::PackedWindows{n}, qkv, bias, out,
-                                  g, n, heads,
-                                  static_cast<long long>(heads) * D,
-                                  bias_windows, scale, mt, wpb, run);
+  vtt::mma::window_run_mma<D, NK>(
+      vtt::mma::PackedWindows{n}, qkv, bias, out,
+      static_cast<long long>(blockIdx.x) * wpb * run, g, n, heads,
+      static_cast<long long>(heads) * D, bias_windows, scale, mt, wpb, run);
 }
 
 template <typename T, int D>
@@ -302,7 +302,7 @@ int window_batched_attention_fwd(const void* qkv, const void* bias, void* out,
                constexpr int NK = decltype(nk)::value;                       \
                return vtt::mma::window_run_launch<D, NK>(                    \
                    window_batched_mma_kernel<D, NK>,                         \
-                   "window_batched_mma_kernel", g, n, heads, bw, false,      \
+                   "window_batched_mma_kernel", g, 0, n, heads, bw, false,   \
                    bias, st, static_cast<const __nv_bfloat16*>(qkv),         \
                    static_cast<const __nv_bfloat16*>(bias),                  \
                    static_cast<__nv_bfloat16*>(out),                         \

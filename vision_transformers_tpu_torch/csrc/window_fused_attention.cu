@@ -30,10 +30,21 @@
 // per query row, K/V in shared memory, fp32 FMAs), window_mma_tile.cuh the
 // tensor-core one.
 //
-// window_fused_slab_kernel (both dtypes, window_tile.cuh): grid x = B·nr
-// (image, window row), y = H. A block owns the wh rolled rows of its window
-// row (the last window row wraps to the top of the image) and walks the nw
-// windows of the row in passes of P.
+// window_fused_slab_kernel (fp32, window_tile.cuh): grid x = B·nr (image,
+// window row), y = H. A block owns the wh rolled rows of its window row (the
+// last window row wraps to the top of the image) and walks the nw windows of
+// the row in passes of P.
+//
+// window_fused_slab_mma_kernel (bf16), the slab kernel on the tensor cores
+// (window_mma_tile.cuh's window_run_mma, as row 12's): a block belongs to
+// one head and to one window row of one image, which the TPU grid (B/bb,
+// nr) gives a program, and walks a run of that row's windows, each window's
+// q, k, v and own bias row double-buffered. No block crosses a window row
+// (window_run_plan.cuh's row_block): where one wave of blocks needs it, a
+// row is split into runs of a divisor of its steps. The slab's rolled-row
+// arithmetic (SlabRows, two 32-bit modulos a token) fills the
+// window's row table; the per-window bias (nW' = nr·nw at a shifted block)
+// is copied whole by 16-byte cp.async with the window's q, k and v.
 //
 // window_fused_flat_kernel (fp32, window_tile.cuh): grid x = ceil(B·nr·nw /
 // P), y = H, over the flat (B·Hp·Wp, 3·sec) view. A block takes P
@@ -50,9 +61,11 @@
 // the current one. The strip arithmetic runs once a token, into a row table
 // of the window in shared memory that the copies and the output store then
 // read; the bias row (window g mod nW', nW' = nr·nw or 1) is staged per
-// window, or once per block where nW' = 1. The launch shape comes from N,
-// the window count, H and the card (window_run_launch); the C entry's p and
-// threads, the CUDA-core plan, are only checked.
+// window, or once per block where nW' = 1.
+//
+// Both tensor-core kernels take their launch shape from N, the window
+// count, H and the card (window_run_launch); the C entries' p and threads,
+// the CUDA-core plan, are only checked.
 #include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
@@ -91,6 +104,17 @@ struct SlabRows {
     const int y = (row0 + r) % m.hp;
     const int x = (static_cast<int>(c) * m.ww + j + m.sw) % m.wp;
     return (image_row0 + y) * m.wp + x;
+  }
+};
+
+// The windows of one window row for window_run_mma: window g of the flat
+// order (the row's first is `first`), token i → flat row, by SlabRows.
+struct SlabWindows {
+  static constexpr bool kTable = true;  // window_run_mma tabulates them
+  SlabRows rows;
+  long long first;
+  __device__ __forceinline__ long long operator()(long long g, int i) const {
+    return rows(g - first, i);
   }
 };
 
@@ -173,7 +197,28 @@ window_fused_flat_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                              int run) {
   // nW' is 1 or the windows of one image, so g mod nW' is the window's
   // index inside its image
-  vtt::mma::window_run_mma<D, NK>(FlatRows{m}, qkv, bias, out, g,
+  vtt::mma::window_run_mma<D, NK>(
+      FlatRows{m}, qkv, bias, out,
+      static_cast<long long>(blockIdx.x) * wpb * run, g, m.wh * m.ww, heads,
+      sec, bias_windows, scale, mt, wpb, run);
+}
+
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_fused_slab_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, MapGeom m,
+                             int heads, long long sec, int bias_windows,
+                             float scale, int mt, int wpb, int run) {
+  // the block's window row b·nr + R of the batch, and its run of the row;
+  // the window's index inside its image, g mod nW', is R·nw + c
+  const vtt::mma::RowBlock rb =
+      vtt::mma::row_block(blockIdx.x, m.nw, wpb, run);
+  const int b = rb.row / m.nr, R = rb.row % m.nr;
+  const SlabWindows wins{
+      SlabRows{m, static_cast<long long>(b) * m.hp, R * m.wh + m.sh},
+      rb.end - m.nw};
+  vtt::mma::window_run_mma<D, NK>(wins, qkv, bias, out, rb.first, rb.end,
                                   m.wh * m.ww, heads, sec, bias_windows,
                                   scale, mt, wpb, run);
 }
@@ -236,25 +281,29 @@ int dispatch(bool slab, const void* qkv, const void* bias, void* out, int b,
   const int bw = bias == nullptr ? 0 : bias_windows;
   const long long g = static_cast<long long>(b) * m.nr * m.nw;
 #define VTT_FUSED(D)                                                        \
-  (slab ? (is_bf16 ? launch_slab<__nv_bfloat16, D>(                         \
-                         qkv, bias, out, b, m, heads, sec, bias_windows,    \
-                         scale, p, threads, st)                             \
-                   : launch_slab<float, D>(qkv, bias, out, b, m, heads, sec, \
-                                           bias_windows, scale, p, threads, \
-                                           st))                             \
-   : is_bf16 ? vtt::mma::with_window_keys(wh * ww, [&](auto nk) {        \
-                 constexpr int NK = decltype(nk)::value;                    \
-                 return vtt::mma::window_run_launch<D, NK>(                 \
-                     window_fused_flat_mma_kernel<D, NK>,                   \
-                     "window_fused_flat_mma_kernel", g, wh * ww, heads, bw, \
-                     true, bias, st,                                        \
-                     static_cast<const __nv_bfloat16*>(qkv),                \
-                     static_cast<const __nv_bfloat16*>(bias),               \
-                     static_cast<__nv_bfloat16*>(out), m, g, heads,         \
-                     static_cast<long long>(sec), bw, scale);               \
-               })                                                           \
-             : launch_flat<float, D>(qkv, bias, out, b, m, heads, sec,      \
-                                     bias_windows, scale, p, threads, st))
+  (!is_bf16 ? (slab ? launch_slab<float, D>(qkv, bias, out, b, m, heads,    \
+                                            sec, bias_windows, scale, p,    \
+                                            threads, st)                    \
+                    : launch_flat<float, D>(qkv, bias, out, b, m, heads,    \
+                                            sec, bias_windows, scale, p,    \
+                                            threads, st))                   \
+   : vtt::mma::with_window_keys(wh * ww, [&](auto nk) {                    \
+       constexpr int NK = decltype(nk)::value;                              \
+       const auto* q = static_cast<const __nv_bfloat16*>(qkv);              \
+       const auto* bs = static_cast<const __nv_bfloat16*>(bias);            \
+       auto* o = static_cast<__nv_bfloat16*>(out);                          \
+       const long long sc = sec;                                            \
+       return slab ? vtt::mma::window_run_launch<D, NK>(                    \
+                         window_fused_slab_mma_kernel<D, NK>,               \
+                         "window_fused_slab_mma_kernel", g, m.nw, wh * ww,  \
+                         heads, bw, true, bias, st, q, bs, o, m, heads, sc, \
+                         bw, scale)                                         \
+                   : vtt::mma::window_run_launch<D, NK>(                    \
+                         window_fused_flat_mma_kernel<D, NK>,               \
+                         "window_fused_flat_mma_kernel", g, 0, wh * ww,     \
+                         heads, bw, true, bias, st, q, bs, o, m, g, heads,  \
+                         sc, bw, scale);                                    \
+     }))
   switch (dh) {
     case 16: return VTT_FUSED(16);
     case 32: return VTT_FUSED(32);
@@ -270,10 +319,9 @@ extern "C" {
 
 // Each returns 0 or the cudaError_t of the launch. bias may be null (then
 // bias_windows is ignored). is_bf16: 1 = bf16, 0 = fp32 (qkv, bias and out).
-// The slab kernel takes the CUDA cores in both dtypes (the launch shape p,
-// threads); the flat one the tensor cores in bf16
-// (window_fused_flat_mma_kernel, its own launch shape) and the CUDA cores
-// in fp32.
+// bf16 takes the tensor cores (window_fused_slab_mma_kernel,
+// window_fused_flat_mma_kernel, each its own launch shape), fp32 the CUDA
+// cores (the launch shape p, threads).
 
 int window_fused_slab_attention_fwd(const void* qkv, const void* bias,
                                     void* out, int b, int hp, int wp, int wh,

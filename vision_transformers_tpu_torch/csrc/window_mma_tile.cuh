@@ -2,7 +2,7 @@
 // the forward that walks a run of windows, and the backward the window
 // kernels share.
 //
-// Replace, for bf16 inputs, four TPU kernels of vision_transformers_tpu/ops/
+// Replace, for bf16 inputs, five TPU kernels of vision_transformers_tpu/ops/
 // flash_attention.py (rows of PERF.md's kernel table):
 //   - row 9, _window_pack_kernel (:1295), through window_attention.cu's
 //     window_packed_mma_kernel: window_attend_mma;
@@ -10,13 +10,13 @@
 //     window_attention_bwd.cu's window_bwd_mma_kernel: window_bwd_rows_mma
 //     (query rows), then window_bwd_keys_mma (key rows);
 //   - row 11, _window_batched_kernel (:1708), through window_attention.cu's
-//     window_batched_mma_kernel, and row 12, _window_fused_flat_kernel
-//     (:1997), through window_fused_attention.cu's
-//     window_fused_flat_mma_kernel: window_run_mma, which walks a run of
+//     window_batched_mma_kernel, row 12, _window_fused_flat_kernel (:1997),
+//     and row 13, _window_fused_kernel (:2056), through
+//     window_fused_attention.cu's window_fused_flat_mma_kernel and
+//     window_fused_slab_mma_kernel: window_run_mma, which walks a run of
 //     windows with window_attend_mma, the copies of the next window in
 //     flight while the current one computes.
-// fp32 inputs, and row 13 (window_fused_slab_kernel) in both dtypes, keep
-// window_tile.cuh.
+// fp32 inputs keep window_tile.cuh.
 //
 // What bounds them on the H100: bytes (window_attention.cu,
 // window_attention_bwd.cu: at Swin-T's and SwinV2-T's stage 1 the products
@@ -56,7 +56,7 @@
 //     D 32, NK 64: 47 KB a window, 4 blocks of 128 threads an SM, by shared
 //     memory) and 207-222 at NK 128 (178 KB at D 64: one block of 256).
 //
-// Runs of windows (rows 11 and 12, window_run_mma). A block belongs to one
+// Runs of windows (rows 11-13, window_run_mma). A block belongs to one
 // head and walks `run` steps of wpb windows (the geometry above); each
 // window slot of the block double-buffers its Q, K and V tiles, so the
 // cp.async group of step s + 1 is in flight while the slot's warps compute
@@ -67,14 +67,16 @@
 // a per-window bias (nW' > 1) is copied per window, its N·N values whole by
 // 16-byte cp.async in the group of its Q, K and V (so it is in flight with
 // them), and read back as it lies (FlatBias; a bias tile of the packed
-// layout would need 2-byte copies, which the warps would wait for). Row 12 reads the un-rolled NHWC map through a row table:
-// each window's N flat rows, computed once a token (the strip arithmetic's
-// 64-bit divisions) into shared memory, then read by the copies and by the
-// output store (RowTable). The run is chosen on the host (window_run_launch)
-// from G·H against what the card holds at once: the SMs times the blocks
-// an SM takes at this kernel's registers and shared memory (the occupancy
-// API), so one wave of blocks covers the work, at most kMaxRun steps a
-// block; past that, more blocks.
+// layout would need 2-byte copies, which the warps would wait for). Rows
+// 12 and 13 read the un-rolled NHWC map through a row table: each window's
+// N flat rows, computed once a token (row 12's strip arithmetic with its
+// 64-bit divisions, row 13's rolled rows of one window row) into shared
+// memory, then read by the copies and by the output store (RowTable). The
+// run is chosen on the host (window_run_launch, window_run_plan.cuh) from
+// G·H against what the card holds at once: the SMs times the blocks an SM
+// takes at this kernel's registers and shared memory (the occupancy API),
+// so one wave of blocks covers the work, at most kMaxRun steps a block;
+// past that, more blocks. Row 13's blocks each keep to one window row.
 //
 // Numerics, as _window_pack_kernel and window_attention_reference: s =
 // acc·scale + bias in fp32, two roundings (never an FMA: the plain version
@@ -110,6 +112,7 @@
 
 #include "attention_mma_tile.cuh"
 #include "launch_log.cuh"
+#include "window_run_plan.cuh"
 
 namespace vtt {
 namespace mma {
@@ -498,8 +501,6 @@ struct PackedWindows {
   }
 };
 
-constexpr int kMaxRun = 16;  // steps a block walks at most
-
 // bf16 elements of one buffer of a window slot: Q, K and V (row stride
 // D + 8) and, with a per-window bias, room for the window's N·N bias values
 // copied whole from the 16-byte boundary at or before their start (up to 7
@@ -579,8 +580,9 @@ __device__ __forceinline__ void window_run_load(
   cp_async_commit();
 }
 
-// Windows [0, g) of head blockIdx.y, steps of wpb windows, `run` steps from
-// step blockIdx.x · run on: out = softmax(q·kᵀ·scale + bias)·v for each, as
+// Windows of head blockIdx.y, `run` steps of wpb windows from window
+// `first` on (window slot w takes first + w, first + w + wpb, ...), those
+// below `end`: out = softmax(q·kᵀ·scale + bias)·v for each, as
 // window_attend_mma computes it. `wins` names each token's flat row (q at
 // column h·D of a row of 3·sec elements, k at sec + h·D, v at 2·sec + h·D;
 // out at h·D of a row of sec); a Windows policy with kTable keeps the rows
@@ -589,9 +591,9 @@ __device__ __forceinline__ void window_run_load(
 template <int D, int NK, class Windows>
 __device__ __forceinline__ void window_run_mma(
     const Windows& wins, const bf16* __restrict__ qkv,
-    const bf16* __restrict__ bias, bf16* __restrict__ out, long long g, int n,
-    int heads, long long sec, int bias_windows, float scale, int mt, int wpb,
-    int run) {
+    const bf16* __restrict__ bias, bf16* __restrict__ out, long long first,
+    long long end, int n, int heads, long long sec, int bias_windows,
+    float scale, int mt, int wpb, int run) {
   constexpr int S = D + 8, SB = NK + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -606,7 +608,7 @@ __device__ __forceinline__ void window_run_mma(
   long long* table = reinterpret_cast<long long*>(
       sb + window_run_elems<D, NK>(wpb, shared_bias, own_bias)) + w * 2 * NK;
   const bf16* col = qkv + h * D;
-  const long long first = static_cast<long long>(blockIdx.x) * wpb * run + w;
+  const long long own = first + w;  // the slot's first window
   const bf16* own_rows = own_bias ? bias : nullptr;
   const long long total = static_cast<long long>(bias_windows) * heads * n * n;
   const int nwp = own_bias ? bias_windows : 1;  // OwnBias's modulus, not 0
@@ -614,21 +616,21 @@ __device__ __forceinline__ void window_run_mma(
   if (shared_bias)  // once, by every warp of the block
     window_stage_bias<NK>(sb, bias + static_cast<long long>(h) * n * n, n,
                           warp, mt * wpb, lane);
-  if (first < g)
-    window_run_load<D, NK>(wins, slot, table, col, sec, first, n, w, t, mt,
+  if (own < end)
+    window_run_load<D, NK>(wins, slot, table, col, sec, own, n, w, t, mt,
                            lane, own_rows, total,
-                           OwnBias(first, nwp, heads, h, n));
+                           OwnBias(own, nwp, heads, h, n));
   __syncthreads();  // the shared bias tile
   for (int s = 0; s < run; ++s) {
-    const long long gw = first + static_cast<long long>(s) * wpb;
-    if (gw >= g) break;  // the same for every warp of the slot
+    const long long gw = own + static_cast<long long>(s) * wpb;
+    if (gw >= end) break;  // the same for every warp of the slot
     // this step's group is the only one in flight: the next is issued below
     cp_async_wait<0>();
     // buffer s & 1 is complete for the slot, and the slot has finished step
     // s − 1, whose buffer (and row table) the prefetch below overwrites
     window_sync(w, count);
     const int b = s & 1;
-    if (s + 1 < run && gw + wpb < g)
+    if (s + 1 < run && gw + wpb < end)
       window_run_load<D, NK>(wins, slot + (b ^ 1) * elems,
                              table + (b ^ 1) * NK, col, sec, gw + wpb, n, w,
                              t, mt, lane, own_rows, total,
@@ -718,17 +720,17 @@ inline cudaError_t run_occupancy(const void* kernel, int threads, size_t smem,
 }
 
 // Launches a window_run_mma kernel (`name` for the launch log) on g windows
-// of n tokens and `heads` heads (bias_windows 0: no bias; table: the kernel
-// keeps a row table a window slot) with `args`, then the shape's mt, wpb
-// and run. The run: the blocks the card holds at once (its SMs times the
-// blocks an SM takes at this kernel's registers and shared memory) shared
-// evenly among the heads, each head's ceil(g / wpb) steps split among its
-// share, so that one wave covers the work; at most kMaxRun steps a block,
-// and more blocks (waves) beyond that. Grid: x = the head's blocks, y = H.
+// of n tokens and `heads` heads (row_windows: 0, or the windows of a row no
+// block may cross; bias_windows 0: no bias; table: the kernel keeps a row
+// table a window slot) with `args`, then the shape's mt, wpb and run. The
+// run and the blocks: window_run_plan (window_run_plan.cuh) against the
+// blocks the card holds at once, its SMs times the blocks an SM takes at
+// this kernel's registers and shared memory. Grid: x = the head's blocks,
+// y = H.
 template <int D, int NK, class... Params, class... Args>
 inline int window_run_launch(void (*kernel)(Params...), const char* name,
-                             long long g, int n, int heads, int bias_windows,
-                             bool table, const void* bias,
+                             long long g, int row_windows, int n, int heads,
+                             int bias_windows, bool table, const void* bias,
                              cudaStream_t stream, Args... args) {
   // a per-window bias row is copied by 16-byte cp.async from the tensor's
   // 16-byte chunks
@@ -744,13 +746,11 @@ inline int window_run_launch(void (*kernel)(Params...), const char* name,
       run_occupancy(reinterpret_cast<const void*>(kernel), geo.threads, smem,
                     &sms, &blocks_per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long steps = (g + geo.wpb - 1) / geo.wpb;
-  const long long share = std::max(
-      1LL, static_cast<long long>(blocks_per_sm) * sms / heads);
-  const int run = static_cast<int>(
-      std::min<long long>(kMaxRun, (steps + share - 1) / share));
-  kernel<<<dim3(static_cast<unsigned>((steps + run - 1) / run), heads),
-           geo.threads, smem, stream>>>(args..., geo.mt, geo.wpb, run);
+  const RunPlan plan =
+      window_run_plan(g, row_windows, geo.wpb, heads,
+                      static_cast<long long>(blocks_per_sm) * sms);
+  kernel<<<dim3(static_cast<unsigned>(plan.blocks), heads), geo.threads,
+           smem, stream>>>(args..., geo.mt, geo.wpb, plan.run);
   return launched(name);
 }
 

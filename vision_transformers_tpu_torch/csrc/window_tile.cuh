@@ -1,8 +1,8 @@
 // CUDA-core body of the window-attention forwards (window_attention.cu,
-// window_fused_attention.cu): the fp32 kernels of rows 9, 11, 12 and 13 and
-// row 13's slab kernel in bf16 (the bf16 kernels of rows 9-12 run on the
-// tensor cores, window_mma_tile.cuh); the fp32 backward of row 10
-// (window_attention_bwd.cu) shares its row I/O. For one (window, head)
+// window_fused_attention.cu): the fp32 kernels of rows 9, 11, 12 and 13 (in
+// bf16 all of them run on the tensor cores, window_mma_tile.cuh); the fp32
+// backward of row 10 (window_attention_bwd.cu) shares its row I/O. For one
+// (window, head)
 //   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 16, 32 or 64,
 // with q, k, v read in place from a packed projection whose token rows the
 // caller's RowMap names (row index → q at column h·D, k one section further,
@@ -20,15 +20,10 @@
 // here a 16-byte shared load feeds 4 FMAs in each of the warp's 32 rows.
 // The products are fp32 FMAs on the CUDA cores.
 //
-// Numerics follow the TPU kernels: fp32 scores and statistics; the bias is
-// held in the compute dtype T and widened at the add; the row max is taken
-// before any exp, so a mask of −100 or −1e9 (never a whole row) only ever
-// gives exp(very negative) = 0. In bf16 the probabilities are rounded where
-// _window_pack_kernel rounds them (flash_attention.py:1320-1323: max, exp,
-// sum, divide, round, then P·V): a first pass over the keys takes the row
-// max m and the sum l online (scalars only, no score is kept), a second
-// recomputes each score and accumulates bf16(exp(s − m) / l)·v, and nothing
-// is divided after P·V. The recompute costs D more FMAs a key. In fp32 the
+// Numerics follow the TPU kernels: fp32 scores and statistics; the row max
+// is taken before any exp, so a mask of −100 or −1e9 (never a whole row)
+// only ever gives exp(very negative) = 0. The TPU kernels round the
+// normalised probabilities to the compute dtype before P·V; in fp32 that
 // rounding is the identity, and one pass with the division after P·V gives
 // the same function to summation order.
 #pragma once
@@ -56,31 +51,6 @@ struct RowIO<float> {
   }
   static __device__ __forceinline__ void store(float* p, const float* src) {
     *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-  }
-};
-
-template <>
-struct RowIO<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* src) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 
@@ -162,6 +132,7 @@ __device__ __forceinline__ void attend_row(
     const float* __restrict__ vs, const B* __restrict__ b_row, int n,
     float scale, T* __restrict__ o_row) {
   static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(std::is_same_v<T, float>, "bf16 takes window_mma_tile.cuh");
   constexpr int V = RowIO<T>::kVec;
   float q[D], acc[D];
 #pragma unroll
@@ -173,98 +144,60 @@ __device__ __forceinline__ void attend_row(
   }
   float m = -CUDART_INF_F, l = 0.f;
 
-  if constexpr (std::is_same_v<T, float>) {
-    // one pass: p = exp(s − m) against the running max, the accumulator
-    // rescaled once a chunk, the output divided by l after P·V
-    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
-      float s[kWinChunk];
+  // one pass: p = exp(s − m) against the running max, the accumulator
+  // rescaled once a chunk, the output divided by l after P·V
+  for (int j0 = 0; j0 < n; j0 += kWinChunk) {
+    float s[kWinChunk];
 #pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) {
-        const int j = j0 + c;
-        float x = -CUDART_INF_F;  // past the window's last key: p = 0
-        if (j < n) {
-          const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
-          float a = 0.f;
+    for (int c = 0; c < kWinChunk; ++c) {
+      const int j = j0 + c;
+      float x = -CUDART_INF_F;  // past the window's last key: p = 0
+      if (j < n) {
+        const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
+        float a = 0.f;
 #pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 kk = k4[d4];
-            a = fmaf(q[4 * d4], kk.x, a);
-            a = fmaf(q[4 * d4 + 1], kk.y, a);
-            a = fmaf(q[4 * d4 + 2], kk.z, a);
-            a = fmaf(q[4 * d4 + 3], kk.w, a);
-          }
-          x = a;
-          if (b_row != nullptr) x += to_f32(b_row[j]);
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 kk = k4[d4];
+          a = fmaf(q[4 * d4], kk.x, a);
+          a = fmaf(q[4 * d4 + 1], kk.y, a);
+          a = fmaf(q[4 * d4 + 2], kk.z, a);
+          a = fmaf(q[4 * d4 + 3], kk.w, a);
         }
-        s[c] = x;
+        x = a;
+        if (b_row != nullptr) x += to_f32(b_row[j]);
       }
-      float m_new = m;  // key j0 is in the window, so m_new is finite
-#pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
-      const float alpha = expf(m - m_new);  // first chunk: exp(-inf) = 0
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) {
-        const int j = j0 + c;
-        if (j < n) {
-          const float p = expf(s[c] - m_new);
-          l += p;
-          const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
-#pragma unroll
-          for (int d4 = 0; d4 < D / 4; ++d4) {
-            const float4 vv = v4[d4];
-            acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-          }
-        }
-      }
-      m = m_new;
+      s[c] = x;
     }
-
-    const float inv = 1.f / l;
+    float m_new = m;  // key j0 is in the window, so m_new is finite
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= inv;
-  } else {
-    // pass 1: the row max m and the sum l of exp(s − m), online
-    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
-      float s[kWinChunk];
+    for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
+    const float alpha = expf(m - m_new);  // first chunk: exp(-inf) = 0
+    l *= alpha;
 #pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) {
-        const int j = j0 + c;
-        float x = -CUDART_INF_F;
-        if (j < n) {
-          x = dot_row<D>(q, ks + j * D);
-          if (b_row != nullptr) x += to_f32(b_row[j]);
-        }
-        s[c] = x;
-      }
-      float m_new = m;
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) m_new = fmaxf(m_new, s[c]);
-      l *= expf(m - m_new);
+    for (int c = 0; c < kWinChunk; ++c) {
+      const int j = j0 + c;
+      if (j < n) {
+        const float p = expf(s[c] - m_new);
+        l += p;
+        const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
 #pragma unroll
-      for (int c = 0; c < kWinChunk; ++c)
-        if (j0 + c < n) l += expf(s[c] - m_new);
-      m = m_new;
-    }
-    // pass 2: the same scores again, p = bf16(exp(s − m) / l) into P·V
-    for (int j0 = 0; j0 < n; j0 += kWinChunk) {
-#pragma unroll
-      for (int c = 0; c < kWinChunk; ++c) {
-        const int j = j0 + c;
-        if (j < n) {
-          float x = dot_row<D>(q, ks + j * D);
-          if (b_row != nullptr) x += to_f32(b_row[j]);
-          const float p = to_f32(from_f32<T>(expf(x - m) / l));
-          axpy_row<D>(p, vs + j * D, acc);
+        for (int d4 = 0; d4 < D / 4; ++d4) {
+          const float4 vv = v4[d4];
+          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
+          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
         }
       }
     }
+    m = m_new;
   }
+
+  const float inv = 1.f / l;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] *= inv;
 #pragma unroll
   for (int c = 0; c < D / V; ++c) RowIO<T>::store(o_row + c * V, acc + c * V);
 }

@@ -88,10 +88,10 @@ _SIGNATURES = {
             _I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P]),
         "window_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
-    # (p, m, v, g, n, b1, b2, c1, c2, neg_lr, wd, eps, blocks, stream)
+    # (leaves: (L, 5) int64 of p, m, v, g, n; L, b1, b2, c1, c2, neg_lr,
+    #  wd, eps, stream)
     "fused_adam": {
-        "fused_adam": (
-            _I, [_P] * 4 + [ctypes.c_longlong] + [_F] * 7 + [_I, _P]),
+        "adam_multi": (_I, [_P, _I] + [_F] * 7 + [_P]),
         "fused_adam_error_string": (ctypes.c_char_p, [_I]),
     },
     # (q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d, kv_valid, scale,

@@ -33,10 +33,10 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
 - ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
   ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
   (the flat plan): cyclic shift, window partition, attention, reverse and
-  un-shift in one pass over the NHWC projection map. For bf16 the flat one
-  runs on the tensor cores (``csrc/window_mma_tile.cuh``, through a row
-  table of each window's flat rows); the slab one keeps the CUDA cores in
-  both dtypes (``window_route``).
+  un-shift in one pass over the NHWC projection map. For bf16 both run on
+  the tensor cores (``csrc/window_mma_tile.cuh``, through a row table of
+  each window's flat rows; a slab block keeps to one window row), for fp32
+  on the CUDA cores (``window_route``).
 - ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``) replaces
   ``_window_pack_bwd_kernel``, the backward the four window kernels share:
   from (qkv, bias, dO) it recomputes the probabilities and gives the packed
@@ -1248,11 +1248,10 @@ def window_route(dtype: torch.dtype, n: int, dh: int,
     ``"fused_slab"`` (``fused_window_attention``'s flat and slab plans, rows
     12 and 13). ``"tensor_cores"`` (every product on ``mma.sync``:
     ``window_packed_mma_kernel``, ``window_bwd_mma_kernel``,
-    ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``) for
-    bf16 but the slab kernel; ``"cuda_cores"`` for fp32 and for the slab
-    kernel in both dtypes (``window_fused_slab_kernel``), at every shape the
-    window kernels take: 1 <= N <= 128 tokens and a head dim of
-    ``KERNEL_HEAD_DIMS``. Any other shape, dtype or kernel raises
+    ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``,
+    ``window_fused_slab_mma_kernel``) for bf16, ``"cuda_cores"`` for fp32,
+    at every shape the window kernels take: 1 <= N <= 128 tokens and a head
+    dim of ``KERNEL_HEAD_DIMS``. Any other shape, dtype or kernel raises
     ``ValueError``. A shape rule, not a fallback: the C entries take the
     same kernel by the dtype, and a launch on it that fails raises."""
     if kernel not in WINDOW_KERNELS:
@@ -1262,7 +1261,7 @@ def window_route(dtype: torch.dtype, n: int, dh: int,
             f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
             f"dim of {KERNEL_HEAD_DIMS}, got N = {n}, dh = {dh}")
     if dtype == torch.bfloat16:
-        return "cuda_cores" if kernel == "fused_slab" else "tensor_cores"
+        return "tensor_cores"
     if dtype == torch.float32:
         return "cuda_cores"
     raise ValueError(f"window kernels take float32 or bfloat16, got {dtype}")
@@ -1279,8 +1278,11 @@ def _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) -> bool:
 def window_fused_plan(b: int, hp: int, wp: int, wh: int, ww: int, heads: int,
                       dh: int, bias_windows: int, itemsize: int = 2):
     """("slab", windows per pass, threads) for the slab kernel of
-    ``fused_window_attention`` (one block per image, window row and head),
-    or None.
+    ``fused_window_attention`` (a block per image, window row and head; in
+    bf16 per run of a window row, the C code's choice), or None. The
+    windows per pass and threads are the CUDA-core kernel's launch shape
+    (fp32, ``window_route``); the tensor-core kernel (bf16) takes its own
+    from N, and the C entry only checks this one.
 
     ``wp % 8 == 0`` is kept from the JAX plan although it is a fact of the
     TPU's DMA (a sliced copy needs 8-aligned rows): it is the rule that

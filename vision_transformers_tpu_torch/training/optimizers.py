@@ -18,8 +18,9 @@ differ, optax's arithmetic is kept:
 The updates run in place on fp32 parameters through ``torch._foreach_*``
 (a handful of launches per step, whatever the number of parameters).
 ``make_optimizer(..., fused=True)`` selects, for adam and adamw, the
-single-pass Adam kernel of ``ops/fused_adam.py`` instead (one launch per
-large leaf); it is opt-in, as in the JAX package.
+single-pass Adam kernel of ``ops/fused_adam.py`` instead (on CUDA one
+launch per step for all the fp32 leaves of a card); it is opt-in, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Callable, Iterable, List, Optional, Union
 import numpy as np
 import torch
 
-from vision_transformers_tpu_torch.ops.fused_adam import fused_adam_update
+from vision_transformers_tpu_torch.ops.fused_adam import FusedAdamLeaves
 
 Schedule = Callable[[int], float]
 
@@ -44,8 +45,9 @@ class Optimizer:
 
     ``count`` is the number of updates applied (accumulation steps that
     only gather a gradient do not count). ``fused`` (adam and adamw only):
-    the whole update of a step goes through ``fused_adam_update``, with
-    fp32 moments whatever the parameters' dtype."""
+    the whole update of a step goes through ``FusedAdamLeaves``, bound to
+    the parameters and their fp32 moments (whatever the parameters' dtype)
+    at ``init``, so the leaves are checked once and not at every step."""
 
     def __init__(self, name: str, learning_rate: Union[float, Schedule], *,
                  weight_decay: float, momentum: Optional[float],
@@ -76,6 +78,8 @@ class Optimizer:
             fp32 = lambda: [torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
                             for p in self.params]
             self.state = {"mu": fp32(), "nu": fp32()}
+            self._fused = FusedAdamLeaves(self.params, self.state["mu"],
+                                          self.state["nu"])
         elif self.name in ("adam", "adamw"):
             self.state = {"mu": zeros(), "nu": zeros()}
         elif self.name == "sgd" and self.momentum is not None:
@@ -133,9 +137,8 @@ class Optimizer:
     def _adam(self, params, grads, lr, b1=0.9, b2=0.999, eps=1e-8):
         mu, nu = self.state["mu"], self.state["nu"]
         if self.fused:
-            fused_adam_update(params, mu, nu, grads, self.count + 1, lr,
-                              b1=b1, b2=b2, eps=eps,
-                              weight_decay=self.weight_decay)
+            self._fused.update(grads, self.count + 1, lr, b1=b1, b2=b2,
+                               eps=eps, weight_decay=self.weight_decay)
             return
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
@@ -199,8 +202,9 @@ def make_optimizer(
     replaces ``lr``. Bind parameters with ``.init(params)``.
 
     ``fused=True`` selects the single-pass Adam(W) kernel
-    (``ops/fused_adam.py``) for adam and adamw; it does not compose with
-    clipping or accumulation. Off by default, as in the JAX package."""
+    (``ops/fused_adam.py``: one launch per step on CUDA) for adam and adamw;
+    it does not compose with clipping or accumulation. Off by default, as in
+    the JAX package."""
     name = name.lower()
     fused = bool(fused) and name in ("adam", "adamw")
     if fused and (grad_clip_norm is not None or accumulate_steps > 1):
