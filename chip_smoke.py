@@ -93,7 +93,11 @@ exit, and without the final result line:
    exceed its limit; and the skipped key tiles of rows 3 and 5: keys hidden
    from a 64-key boundary on give out and lse bit-equal to the call on K/V
    truncated there, and the kernel's own tile counters show it walked only
-   the tiles below the boundary.
+   the tiles below the boundary. Rows 2, 5 and 6 at TNT's two attentions at
+   batch 256 (inner G 16384, S 4, D 12, a padded tile; outer G 1024, S 17,
+   D 128), bf16 and fp32, rates 0 and 0.1, row 2 with and without a bias,
+   into outputs, lse and gradients pre-filled with NaN, lse against the
+   plain version, reruns bit-equal, every launch by kernel name.
 3. Main path: ViT-B/16 @224 (``vitb16_224_imagenet``, full width, weights
    from a seeded numpy draw, head included) served in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``warmup`` → ``predict``
@@ -165,6 +169,21 @@ exit, and without the final result line:
    assignment on the step's cost against scipy's.
    One forward of the ViT-B backbone variant at the same bucket (24
    streaming launches: 12 unmasked in the backbone at S 4704, 12 masked).
+7b. The training CLI (``vision_transformers_tpu_torch.cli.main``) on a
+   synthetic CIFAR-100 in the real pickle format (4096 + 1024 images of
+   colour classes), batch 256, 2 epochs, each run by kernel name over the
+   whole run and its train loss falling: ``vit_tiny_cifar100`` in fp32 with
+   a checkpoint each epoch (the latest restored bit-equal to the final
+   state) and an export (served, equal to the trained model), with
+   ``--on-device`` and with ``--bf16``; ``cpvt_cifar100``,
+   ``cpvtgap_cifar100`` (rows 1 and 7) and ``tnt_cifar100`` (rows 2 and 6 at
+   D 128 and, padded, at D 12; 14 row-2 launches a forward, 14 row-2 and 14
+   row-6 a step) in fp32 and bf16; ``swin_tiny_cifar100`` (rows 9-13);
+   ``run_reference_main(fused=True)`` (row 15, one launch a step); DeiT-Ti
+   distilled from a seeded ViT teacher; ViT-Ti/16 on an image folder of PNGs
+   (``ImageFolderLoader``); ``run_detection_main`` (DETR-R50, 2 steps at
+   batch 2 on a COCO folder with boxes, polygons and both RLE forms). The
+   fused C++ augmentation must have built.
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -295,6 +314,16 @@ ROUTE_NAMES = {
     ("row 5", "float32"): ("drop_fwd_kernel",),
     ("row 6", "bfloat16"): ("drop_bwd_dq_mma_kernel", "drop_bwd_dkv_mma_kernel"),
     ("row 6", "float32"): ("drop_bwd_dq_kernel", "drop_bwd_dkv_kernel"),
+    # rows 2, 5 and 6 at a head dim below 64 other than 16 and 32 (TNT's
+    # inner D 12): the next tile width with the columns past D zero
+    ("row 2 padded", "bfloat16"): ("flash_fwd_mma_padded_kernel",),
+    ("row 2 padded", "float32"): ("flash_fwd_padded_kernel",),
+    ("row 5 padded", "bfloat16"): ("drop_fwd_mma_padded_kernel",),
+    ("row 5 padded", "float32"): ("drop_fwd_padded_kernel",),
+    ("row 6 padded", "bfloat16"): ("drop_bwd_dq_mma_padded_kernel",
+                                   "drop_bwd_dkv_mma_padded_kernel"),
+    ("row 6 padded", "float32"): ("drop_bwd_dq_padded_kernel",
+                                  "drop_bwd_dkv_padded_kernel"),
     ("row 4", "bfloat16"): ("flash_bwd_dq_mma_kernel",
                             "flash_bwd_dkv_mma_kernel"),
     ("row 4", "float32"): ("flash_bwd_kernel",),
@@ -667,6 +696,114 @@ class ColorClassLoader:
         return -(-len(self.labels) // self.batch_size)
 
 
+def write_cifar100(root, n_train, n_test, seed):
+    """A synthetic CIFAR-100 in the real python-pickle format under
+    root/cifar-100-python: ``train`` and ``test``, each a dict of uint8
+    ``data`` (N, 3072; the three 32 x 32 planes of an image in a row) and
+    ``fine_labels``. Each class is a colour plus noise (learnable in a few
+    steps); the colours come from one fixed seed, labels and noise from
+    ``seed``."""
+    import pickle
+
+    base = os.path.join(root, "cifar-100-python")
+    os.makedirs(base, exist_ok=True)
+    colours = np.random.RandomState(1234).randint(0, 256, (100, 3))
+    rng = np.random.RandomState(seed)
+    for name, n in (("train", n_train), ("test", n_test)):
+        labels = rng.randint(0, 100, n)
+        img = colours[labels][:, :, None, None] + rng.randint(
+            -20, 21, (n, 3, 32, 32))
+        with open(os.path.join(base, name), "wb") as fh:
+            pickle.dump({b"data": np.clip(img, 0, 255).astype(np.uint8)
+                         .reshape(n, 3072),
+                         b"fine_labels": labels.tolist()}, fh)
+
+
+def write_image_folder(root, classes, per_class, side, seed):
+    """root/{train,val}/class{c}/{i}.png: colour classes, as
+    ``write_cifar100``'s, at ``side`` pixels (the imagenet-style layout
+    ``get_train_test_loaders`` reads with ``ImageFolderLoader``)."""
+    from PIL import Image
+
+    colours = np.random.RandomState(1234).randint(0, 256, (classes, 3))
+    rng = np.random.RandomState(seed)
+    for split in ("train", "val"):
+        for c in range(classes):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(per_class):
+                img = colours[c] + rng.randint(-20, 21, (side, side, 3))
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    os.path.join(d, f"{i}.png"))
+
+
+def rle_counts(mask):
+    """Uncompressed COCO RLE counts of a 0/1 mask (column-major, from a run
+    of zeros)."""
+    flat = mask.T.reshape(-1)
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    runs = np.diff(np.concatenate([[0], edges, [flat.size]]))
+    return ([0] if flat[0] else []) + runs.tolist()
+
+
+def rle_string(counts):
+    """pycocotools' compressed RLE string of ``counts``."""
+    out = []
+    for i, x in enumerate(counts):
+        if i > 2:
+            x -= counts[i - 2]
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = (x != -1) if c & 0x10 else (x != 0)
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def write_coco_folder(root, sizes, seed):
+    """A COCO folder (train2017/, val2017/,
+    annotations/instances_{train,val}2017.json) of ``sizes`` (h, w) random
+    JPEG images per split, each with four objects: a box with a polygon, one
+    with an uncompressed and one with a compressed RLE mask, and a crowd
+    one."""
+    import json as js
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(root, f"{split}2017"), exist_ok=True)
+        images, anns = [], []
+        for i, (h, w) in enumerate(sizes):
+            name = f"{i + 1:012d}.jpg"
+            Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(
+                np.uint8)).save(os.path.join(root, f"{split}2017", name))
+            images.append({"id": i + 1, "file_name": name, "height": h,
+                           "width": w})
+            for j in range(4):
+                bw, bh = rng.randint(w // 8, w // 2), rng.randint(h // 8,
+                                                                  h // 2)
+                x0, y0 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+                m = np.zeros((h, w), np.uint8)
+                m[y0:y0 + bh, x0:x0 + bw] = 1
+                seg = ([[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0,
+                         y0 + bh]] if j == 0
+                       else {"counts": rle_counts(m) if j == 1
+                             else rle_string(rle_counts(m)), "size": [h, w]})
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "bbox": [x0, y0, bw, bh],
+                             "category_id": int(rng.randint(1, 91)),
+                             "area": float(bw * bh), "iscrowd": int(j == 3),
+                             "segmentation": seg})
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}2017.json"), "w") as fh:
+            js.dump({"images": images, "annotations": anns,
+                     "categories": [{"id": c, "name": str(c)}
+                                    for c in range(1, 91)]}, fh)
+
+
 # The sources of rows 1-15, whose kernels' registers and shared memory
 # phase 1 prints.
 PTXAS_SOURCES = ("fused_adam", "packed_attention", "flash_attention",
@@ -760,6 +897,42 @@ KEPT_REGISTERS = {
     "drop_bwd_dkv_kernel<float, 64>": 124,
     "ln_dense_kernel<float>": 80,
     "ln_dense_kernel<__nv_bfloat16>": 80,
+    # rows 2, 5 and 6 at D 128 (dynamic shared memory) and in the padded
+    # tiles (any other D up to 64), both routes: the first build's counts
+    # (the D 128 tensor-core backward passes at 253 and 255, the dk/dv one
+    # with 120 bytes spilled; the padded dk/dv at tile 64 at 255, 28 spilled)
+    "flash_fwd_mma_kernel<128>": 228,
+    "flash_fwd_mma_padded_kernel<16>": 138,
+    "flash_fwd_mma_padded_kernel<32>": 142,
+    "flash_fwd_mma_padded_kernel<64>": 154,
+    "flash_fwd_kernel<float, 128>": 142,
+    "flash_fwd_padded_kernel<float, 16>": 64,
+    "flash_fwd_padded_kernel<float, 32>": 72,
+    "flash_fwd_padded_kernel<float, 64>": 80,
+    "drop_fwd_mma_kernel<128>": 230,
+    "drop_bwd_dq_mma_kernel<128>": 253,
+    "drop_bwd_dkv_mma_kernel<128>": 255,
+    "drop_fwd_mma_padded_kernel<16>": 128,
+    "drop_fwd_mma_padded_kernel<32>": 172,
+    "drop_fwd_mma_padded_kernel<64>": 183,
+    "drop_bwd_dq_mma_padded_kernel<16>": 92,
+    "drop_bwd_dq_mma_padded_kernel<32>": 128,
+    "drop_bwd_dq_mma_padded_kernel<64>": 176,
+    "drop_bwd_dkv_mma_padded_kernel<16>": 131,
+    "drop_bwd_dkv_mma_padded_kernel<32>": 176,
+    "drop_bwd_dkv_mma_padded_kernel<64>": 255,
+    "drop_fwd_kernel<float, 128>": 128,
+    "drop_bwd_dq_kernel<float, 128>": 148,
+    "drop_bwd_dkv_kernel<float, 128>": 140,
+    "drop_fwd_padded_kernel<float, 16>": 72,
+    "drop_fwd_padded_kernel<float, 32>": 80,
+    "drop_fwd_padded_kernel<float, 64>": 91,
+    "drop_bwd_dq_padded_kernel<float, 16>": 96,
+    "drop_bwd_dq_padded_kernel<float, 32>": 126,
+    "drop_bwd_dq_padded_kernel<float, 64>": 96,
+    "drop_bwd_dkv_padded_kernel<float, 16>": 80,
+    "drop_bwd_dkv_padded_kernel<float, 32>": 80,
+    "drop_bwd_dkv_padded_kernel<float, 64>": 128,
     # the window kernels on the CUDA cores whose text did not change when
     # rows 9-13 took the tensor cores: rows 9-13 in fp32
     "window_packed_kernel<float, 16>": 76,
@@ -1355,6 +1528,85 @@ def main() -> int:
                        rate)
             check_drop("kv_valid 60/70 + key mask", 4, 3, 70, 70, 32, 60,
                        True, dtype, rate)
+
+    # rows 2, 5 and 6 at TNT's two attentions at batch 256 (the CLI's
+    # tnt_cifar100, the constructor defaults): inner (B·16 patches, 4 heads,
+    # S 4, D 12: a padded tile) and outer (B, 4 heads, S 17, D 128), into
+    # outputs, lse and gradients pre-filled with NaN, against the plain
+    # versions (lse too), reruns bit-equal, each launch by kernel name
+    def check_tnt(label, b, h, s, d, dtype, rate, bias_lead):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, do = (randn(40 + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        pad = "" if d in (16, 32, 64, 128) else " padded"
+        kw = dict(dropout_rate=rate, seed=606 + (3 << 40) if rate else None)
+        if rate == 0.0:
+            bias = (None if bias_lead is None
+                    else randn(45, bias_lead, h, s, s, dtype=fp32))
+            fwd = lambda **o: fa.flash_attention_fwd(q, k, v, bias, **o)
+            ref, ref_lse = fa.flash_attention_reference(q, k, v, bias)
+            row = f"row 2{pad}"
+        else:
+            fwd = lambda **o: fa.flash_dropout_attention_fwd(q, k, v, **kw,
+                                                             **o)
+            ref, ref_lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
+            row = f"row 5{pad}"
+        got = []
+        require_route(f"tnt {label} {name} rate {rate}", lambda: got.append(
+            fwd(out=torch.full_like(q, float("nan")),
+                lse=torch.full((b, h, s), float("nan"), device=dev))),
+            [(row, name)])
+        (out, lse), again = got[0], fwd()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        # KERNEL_TOL in bf16 is 1.28 bf16 steps at |out| 2-4 (the kernel
+        # rounds p before it normalises, the plain version after: one step
+        # apart). At 4 keys with a bias a row's output is nearly one value
+        # row, past 4 here, where the step doubles: 1.28 steps of max|ref|
+        big = ref.float().abs().max().item()
+        tol = KERNEL_TOL[name] if dtype == fp32 else max(
+            KERNEL_TOL[name], 1.28 * 2.0 ** (np.floor(np.log2(big)) - 7))
+        msg = (f"tnt {label} {name} rate {rate}: {row} max|out-plain| "
+               f"{e:.3e} (tol {tol:.3e}), max|lse-plain| {el:.3e}")
+        log(msg)
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out)
+                and torch.equal(again[1], lse),
+                f"tnt {label} {name} rate {rate}: {row} against its plain "
+                "version, every element written, rerun bit-equal")
+        errs[("tnt_fwd", label, name, rate)] = e
+        if bias_lead is None:  # row 6 (a bias's backward is plain PyTorch)
+            gotb = []
+            require_route(
+                f"tnt {label} {name} rate {rate} bwd",
+                lambda: gotb.append(fa.flash_dropout_attention_bwd(
+                    q, k, v, do, ref, ref_lse, **kw,
+                    grads=tuple(torch.full_like(t, float("nan"))
+                                for t in (q, k, v)))),
+                [(f"row 6{pad}", name)])
+            want = fa.flash_dropout_attention_bwd_reference(
+                q, k, v, do, ref, ref_lse, **kw)
+            eg = max(grad_err(f"tnt {label} {name} rate {rate} d{n}", g_, w_,
+                              name)[0]
+                     for n, g_, w_ in zip("qkv", gotb[0], want))
+            againb = fa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse,
+                                                    **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, g_) for a, g_ in zip(againb, gotb[0])),
+                    f"tnt {label} {name} rate {rate}: row 6 reruns equal")
+            errs[("tnt_bwd", label, name, rate)] = eg
+            msg += (f"; row 6{pad} max|grad-plain| {eg:.3e} (tol "
+                    f"{GRAD_TOL[name]} x max(1, max|ref|))")
+        log(msg + ", every element written, reruns bit-equal")
+
+    for dtype in (bf16, fp32):
+        for rate in (0.0, 0.1):
+            check_tnt("inner B256 G16384 S4 D12", 4096, 4, 4, 12, dtype, rate,
+                      None)
+            check_tnt("outer B256 G1024 S17 D128", 256, 4, 17, 128, dtype,
+                      rate, None)
+        check_tnt("inner + bias", 4096, 4, 4, 12, dtype, 0.0, 1)
+        check_tnt("outer + bias", 256, 4, 17, 128, dtype, 0.0, 1)
 
     # the kernel's mask is the plain function's mask: with q = 0 and v the
     # identity, the output is the dropped probability matrix itself
@@ -3294,6 +3546,232 @@ def main() -> int:
             "split-head, finite logits")
     del vdet, vout
 
+    # ---- 7b. the training CLI ---------------------------------------------
+    # python -m vision_transformers_tpu_torch.cli, as a user runs it, on a
+    # synthetic CIFAR-100 in the real pickle format (4096 train and 1024 test
+    # images of learnable colour classes, 0.2 of the train split held out
+    # for validation): each run's launch counts are zeroed just before and
+    # read just after it, and its routes checked by kernel name over the
+    # whole run
+    from vision_transformers_tpu_torch import cli, native
+    from vision_transformers_tpu_torch.utils import checkpoint as ckpt
+    from vision_transformers_tpu_torch.utils.load_data import (
+        get_train_test_loaders,
+    )
+
+    work = tempfile.mkdtemp(prefix="vtt_cli_")
+    cifar_root = os.path.join(work, "data")
+    write_cifar100(cifar_root, 4096, 1024, seed=15)
+    cli_total = {k: 0 for k in fa.LAUNCHES}
+    cli_runs = {}
+
+    def cli_run(label, argv, routes, falls=True):
+        """One ``cli.main(argv)`` at batch 256, 2 epochs, on the synthetic
+        CIFAR-100; its train loss must fall from epoch to epoch."""
+        out = []
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        require_route(f"cli {label}", lambda: out.append(cli.main(
+            [argv[0], "--epochs", "2", "--batch-size", "256", "--data-root",
+             cifar_root, *argv[1:]])), routes)
+        secs = time.perf_counter() - t0
+        hist, counts = out[0], {k: v for k, v in fa.LAUNCHES.items() if v}
+        for k_, v_ in counts.items():
+            cli_total[k_] += v_
+        tl = hist["train_loss"]
+        log(f"cli {label}: {secs:.1f} s, train loss {tl}, train acc "
+            f"{hist['train_accuracy']}, test acc {hist['test_accuracy']}, "
+            f"launches {counts}")
+        require(all(np.isfinite(tl)) and (tl[-1] < tl[0] or not falls),
+                f"cli {label}: the train loss falls ({tl})")
+        cli_runs[label] = dict(secs=secs, launches=counts,
+                               train_loss=tl, test_accuracy=hist[
+                                   "test_accuracy"])
+        return hist
+
+    require(native.available(), "the port's augment.cpp builds: the CIFAR "
+            "loaders augment through the fused C++ loop")
+    ck_dir, art_dir = os.path.join(work, "ckpt"), os.path.join(work, "art")
+    vit_routes = [("row 1", "float32"), ("row 7", "float32")]
+    hist = cli_run("vit_tiny_cifar100 fp32 + checkpoints + export",
+                   ["vit_tiny_cifar100", "--lr", "1e-3", "--checkpoint-dir",
+                    ck_dir, "--checkpoint-every", "1", "--export", art_dir,
+                    "--export-buckets", "1,8,32"], vit_routes)
+    state = hist["final_state"]
+    require(ckpt.available_checkpoints(ck_dir) == [1, 2],
+            "a checkpoint after each of the 2 epochs")
+    fresh = trainer.make_train_state(
+        zoo.ViT(**state.model.config, seed=7), lr=1e-3)
+    ckpt.restore_checkpoint(ck_dir, fresh)
+    same = (fresh.step == state.step
+            and fresh.optimizer.count == state.optimizer.count
+            and all(torch.equal(a, b) for a, b in zip(
+                state.model.state_dict().values(),
+                fresh.model.state_dict().values()))
+            and all(torch.equal(a, b) for key in state.optimizer.state
+                    for a, b in zip(state.optimizer.state[key],
+                                    fresh.optimizer.state[key])))
+    require(same, "the latest checkpoint restores bit-equal to final_state "
+            "(weights, Adam moments, counts)")
+    served = serving.load_classifier(art_dir)
+    xs = torch.from_numpy(np.random.RandomState(3).rand(
+        8, 32, 32, 3).astype(np.float32))
+    with torch.inference_mode():
+        e_art = max_err(served.predict(xs.numpy()),
+                        state.model.eval()(xs.to(dev)))
+    log(f"cli export: {art_dir} served at buckets {served.buckets}, "
+        f"max|served - trained model| {e_art:.3e} at batch 8")
+    require(e_art <= 1e-5, "the exported artifact serves the trained model")
+    del served, fresh, state, hist
+
+    cli_run("vit_tiny_cifar100 --on-device",
+            ["vit_tiny_cifar100", "--lr", "1e-3", "--on-device"], vit_routes)
+    cli_run("vit_tiny_cifar100 --bf16",
+            ["vit_tiny_cifar100", "--lr", "1e-3", "--bf16"],
+            [("row 1", "bfloat16"), ("row 7", "bfloat16")])
+    x_tnt = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (256, 32, 32, 3)).astype(np.uint8))
+    y_tnt = np.random.RandomState(5).randint(0, 100, 256).astype(np.int32)
+    for key in ("cpvt_cifar100", "cpvtgap_cifar100", "tnt_cifar100"):
+        for dtype, flag in (("float32", []), ("bfloat16", ["--bf16"])):
+            tnt = key.startswith("tnt")
+            routes = ([("row 2", dtype), ("row 2 padded", dtype),
+                       ("row 6", dtype), ("row 6 padded", dtype)] if tnt
+                      else [("row 1", dtype), ("row 7", dtype)])
+            hist = cli_run(f"{key} {dtype}",
+                           [key, "--lr", "5e-4" if tnt else "1e-3", *flag],
+                           routes)
+            model = hist["final_state"].model
+            st = trainer.make_train_state(model, lr=0.0)
+            step = trainer.train_step_fn(model)
+            ones = np.ones(256, np.float32)
+            if tnt:
+                # 7 layers: an inner (D 12) and an outer (D 128) attention
+                # each, forward row 2, backward row 6 at rate 0
+                fa.reset_launch_counts()
+                with torch.inference_mode():
+                    model.eval()(x_tnt.to(dev).float() / 255)
+                fwd_counts = dict(fa.LAUNCHES)
+                fa.reset_launch_counts()
+                step(st, x_tnt, y_tnt, ones)
+                torch.cuda.synchronize()
+                step_counts = dict(fa.LAUNCHES)
+                log(f"cli {key} {dtype}: launches per forward "
+                    f"{ {k: v for k, v in fwd_counts.items() if v} }, per "
+                    f"train step { {k: v for k, v in step_counts.items() if v} }")
+                require(fwd_counts["flash_attention"] == 14
+                        and sum(fwd_counts.values()) == 14
+                        and step_counts["flash_attention"] == 14
+                        and step_counts["dropout_attention_bwd"] == 14
+                        and sum(step_counts.values()) == 28,
+                        f"{key} {dtype}: 14 row-2 launches a forward, 14 "
+                        "row-2 and 14 row-6 launches a train step")
+            # one train step at batch 256 of the trained model: host clock
+            # (synchronised) and the profiler's busy time and idle share
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step(st, x_tnt, y_tnt, ones)
+            torch.cuda.synchronize()
+            cli_runs[f"{key} {dtype}"]["step_ms"] = \
+                (time.perf_counter() - t0) / 5 * 1e3
+            log(f"cli {key} {dtype}: train step B256 "
+                f"{cli_runs[f'{key} {dtype}']['step_ms']:.3f} ms (host "
+                "clock, 5 steps)")
+            log_profile(f"cli {key} {dtype} train step B256",
+                        lambda: step(st, x_tnt, y_tnt, ones))
+            del model, st, step
+            del hist
+    hist = cli_run("swin_tiny_cifar100", ["swin_tiny_cifar100"],
+                   [("row 10", "float32")])
+    swin_cli = cli_runs["swin_tiny_cifar100"]["launches"]
+    require(sum(swin_cli.get(k_, 0) for k_ in WINDOW_ROWS) > 0
+            and swin_cli.get("window_attention_bwd", 0) > 0,
+            "swin_tiny_cifar100 through the window kernels (rows 9-13)")
+    del hist
+
+    # the Adam step in one launch a step (row 15) through the CLI's
+    # run_reference_main, the trainer's fit(fused=True)
+    fa.reset_launch_counts()
+    hist = cli.run_reference_main("vit_tiny_cifar100", epochs=1,
+                                  batch_size=256, data_root=cifar_root,
+                                  lr=1e-3, fused=True, verbose=False)
+    fused_counts = {k: v for k, v in fa.LAUNCHES.items() if v}
+    for k_, v_ in fused_counts.items():
+        cli_total[k_] += v_
+    log(f"cli run_reference_main(fused=True): launches {fused_counts}")
+    require(fused_counts.get("fused_adam", 0) == hist["final_state"].step
+            and np.isfinite(hist["train_loss"][0]),
+            "fit(fused=True): one fused_adam launch a step")
+    del hist
+
+    # DeiT's distillation against a seeded ViT teacher
+    fa.reset_launch_counts()
+    teacher = zoo.ViT(**get_args("vit_tiny_cifar100"), seed=21)
+    torch.nn.init.normal_(teacher.head.weight, std=0.05)
+    student = zoo.DeiT(**get_args("deit_tinydistil_cifar100"), seed=22)
+    d_train, d_test = get_train_test_loaders("cifar100", 256,
+                                             root_dir=cifar_root)
+    hist = student.train_model_with_distillation(
+        d_train, d_test, 2, teacher=teacher, distillation_type="hard",
+        lr=1e-3, verbose=False)
+    distill_counts = {k: v for k, v in fa.LAUNCHES.items() if v}
+    for k_, v_ in distill_counts.items():
+        cli_total[k_] += v_
+    tl = hist["train_loss"]
+    log(f"DeiT-Ti distilled from a ViT teacher (hard, alpha 0.5): train "
+        f"loss {tl}, test acc {hist['test_accuracy']}, launches "
+        f"{distill_counts}")
+    require(all(np.isfinite(tl)) and tl[-1] < tl[0]
+            and student.distilled_training
+            and distill_counts.get("packed_attention_bwd", 0) > 0,
+            "distillation: the blended loss falls, through rows 1 and 7")
+    del teacher, student, hist, d_train, d_test
+
+    # ImageFolderLoader on the card: ViT-Ti/16 @224 on an image folder
+    folder_root = os.path.join(work, "folders")
+    write_image_folder(os.path.join(folder_root, "imagenet100"), 4, 16, 64,
+                       seed=16)
+    fa.reset_launch_counts()
+    out = []
+    t0 = time.perf_counter()
+    require_route("cli vitti16_224_imagenet100 image folder", lambda: out.append(
+        cli.main(["vitti16_224_imagenet100", "--epochs", "2",
+                  "--batch-size", "16", "--data-root", folder_root, "--lr",
+                  "1e-3", "--num-workers", "4"])),
+        [("row 1", "float32"), ("row 7", "float32")])
+    folder_counts = {k: v for k, v in fa.LAUNCHES.items() if v}
+    for k_, v_ in folder_counts.items():
+        cli_total[k_] += v_
+    log(f"cli vitti16_224_imagenet100 (ImageFolderLoader, 64 + 64 PNGs): "
+        f"{time.perf_counter() - t0:.1f} s, train loss "
+        f"{out[0]['train_loss']}, launches {folder_counts}")
+    require(all(np.isfinite(out[0]["train_loss"])),
+            "the image-folder run trains")
+    del out
+
+    # run_detection_main: DETR-R50 2 steps at batch 2 on a COCO folder
+    coco_root = os.path.join(work, "coco")
+    write_coco_folder(coco_root, [(480, 640), (427, 640), (640, 480),
+                                  (500, 375)], seed=17)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    dhist = cli.run_detection_main(coco_root, epochs=1, batch_size=2,
+                                   verbose=False)
+    det_cli = {k: v for k, v in fa.LAUNCHES.items() if v}
+    for k_, v_ in det_cli.items():
+        cli_total[k_] += v_
+    log(f"cli run_detection_main (DETR-R50, 4 + 4 COCO images, batch 2): "
+        f"{time.perf_counter() - t0:.1f} s, loss {dhist['loss']}, metrics "
+        f"{dhist['metrics'][-1]}, "
+        f"launches {det_cli}")
+    require(np.isfinite(dhist["loss"][0]) and dhist["final_state"].step == 2
+            and det_cli.get("dropout_attention_fwd", 0) > 0
+            and det_cli.get("dropout_attention_bwd", 0) > 0,
+            "run_detection_main: 2 finite steps through rows 5 and 6")
+    del dhist
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"cli launches in all: { {k: v for k, v in cli_total.items() if v} }")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -3398,13 +3876,16 @@ def main() -> int:
               nbytes, flops, *, replaces=jax_file, ops_dtype="bfloat16",
               **extra):
         bnd, by = bound_ms(nbytes, flops, ops_dtype)
+        extra["cli_launches"] = cli_total[name]  # phase 7b's runs
+        launches += cli_total[name]
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,
             replaces=f"{replaces}:{line}", launches=launches, max_abs_err=err,
             ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by,
             library_ms=l_ms, **extra))
-        more = "".join(f", {k} {v:.4f}" for k, v in extra.items())
+        more = "".join(f", {k} {v:.4f}" if isinstance(v, float)
+                       else f", {k} {v}" for k, v in extra.items())
         log(f"{name} {shape}: kernel {k_ms:.4f} ms, bound {bnd:.4f} ms "
             f"({by}), plain {p_ms:.4f} ms, library {l_ms:.4f} ms{more}")
 
@@ -3537,6 +4018,55 @@ def main() -> int:
                         q, k, v, attn_mask=mask, dropout_p=rate), iters=5),
                 f"{key}_skipped_tiles": skipped_share(lib, run)}
 
+    def tnt_times(kind):
+        """Rows 2 ("fwd"), 5 ("drop_fwd", rate 0.1) and 6 ("bwd", rate 0,
+        TNT's step) at TNT's two attentions at batch 256, bf16: kernel ms,
+        its bound (bytes or operations), SDPA's ms on the same inputs, the
+        fp32 kernel's ms, and the launches of the CLI's TNT runs (phase
+        7b)."""
+        got = {}
+        for key, (b, h, s_, d) in (("tnt_inner_d12", (4096, 4, 4, 12)),
+                                   ("tnt_outer_d128", (256, 4, 17, 128))):
+            q, k, v, do = (randn(120 + i, b, h, s_, d, dtype=bf16)
+                           for i in range(4))
+            io, lse_b = b * h * s_ * d * 2, b * h * s_ * 4
+            if kind == "fwd":
+                def run(q=q, k=k, v=v):
+                    return fa.flash_attention_fwd(q, k, v)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v)
+                nbytes, flops = 4 * io + lse_b, 4 * b * h * s_ * s_ * d
+            elif kind == "drop_fwd":
+                def run(q=q, k=k, v=v):
+                    return fa.flash_dropout_attention_fwd(
+                        q, k, v, dropout_rate=0.1, seed=5)
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, k, v, dropout_p=0.1)
+                nbytes, flops = 4 * io + lse_b, 4 * b * h * s_ * s_ * d
+            else:
+                def run(q=q, k=k, v=v, do=do):
+                    out_, lse_ = fa.flash_attention_reference(q, k, v)
+                    return lambda: fa.flash_dropout_attention_bwd(
+                        q, k, v, do, out_, lse_, dropout_rate=0.0, seed=None)
+                lib = sdpa_backward(q, k, v, do, 0.0)
+                nbytes, flops = 8 * io + lse_b, 10 * b * h * s_ * s_ * d
+            fp32_in = [t.float() for t in (q, k, v, do)]
+            if kind == "bwd":
+                k_fn, k32 = run(), run(*fp32_in)
+            else:
+                k_fn = run
+                k32 = lambda: run(*fp32_in[:3])
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            got.update({f"{key}_ms": cuda_ms(k_fn), f"{key}_bound_ms": bnd,
+                        f"{key}_bound_by": by,
+                        f"{key}_library_ms": cuda_ms(lib),
+                        f"{key}_fp32_ms": cuda_ms(k32)})
+        runs = [r["launches"] for lbl, r in cli_runs.items()
+                if lbl.startswith("tnt")]
+        name = {"fwd": "flash_attention", "drop_fwd": "dropout_attention_fwd",
+                "bwd": "dropout_attention_bwd"}[kind]
+        got["tnt_cli_launches"] = sum(r.get(name, 0) for r in runs)
+        return got
+
     # split-head: ViT-B/16 @512, batch 8, bf16 — the S = 1025 paths' shape
     b, h, s, d = 8, 12, 1025, 64
     shape = f"G{b * h} S{s} D{d}"
@@ -3557,7 +4087,8 @@ def main() -> int:
           detr_self_err=errs[("flash_path",
                               "detr decoder self B4 G32 S100 D32")],
           **flash_path_times("detr_self", 4, 8, 100, 32, None),
-          **flash_path_times("detr_self_bias", 4, 8, 100, 32, 1))
+          **flash_path_times("detr_self_bias", 4, 8, 100, 32, 1),
+          **tnt_times("fwd"))
     kw = dict(dropout_rate=rate, seed=seed)
     k_ms = cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw),
                    iters=10)
@@ -3590,7 +4121,8 @@ def main() -> int:
           **masked_fwd_times("detr_cross", "dropout_attention",
                              lambda: fa.flash_dropout_attention_fwd(
                                  qdc, kd, vd, **dkw),
-                             qdc, kd, vd, det_keep2, rate=rate))
+                             qdc, kd, vd, det_keep2, rate=rate),
+          **tnt_times("drop_fwd"))
     del qd, kd, vd, qdc
     out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
     bwd_args = (q, k, v, do, out, lse)
@@ -3616,7 +4148,8 @@ def main() -> int:
           pvt_err=errs[("drop_path", "pvt stage 1 B32 G32 Sq3136 Sk49 D64")],
           **drop_path_times("detr_enc", 2, 8, 4704, 4704, 32,
                             coco_keep(COCO_SIZES[:2]), 0.1),
-          **drop_path_times("pvt", 32, 1, 3136, 49, 64, None, 0.0))
+          **drop_path_times("pvt", 32, 1, 3136, 49, 64, None, 0.0),
+          **tnt_times("bwd"))
 
 
     # the window kernels, each at its largest launch on the two Swin paths

@@ -1180,3 +1180,149 @@ def test_ln_dense_gradients_match_autograd_of_plain(cuda):
     for g, r in zip(*grads):
         scale = max(1.0, r.abs().max().item())
         assert (g - r).abs().max().item() <= 5e-5 * scale
+
+
+# Rows 2, 5 and 6 at head dims other than 16, 32 and 64: TNT's (inner
+# attention D 12 at S 4, outer D 128 at S 17), D 20 and 40 (the padded tiles
+# 32 and 64) and an odd D 7 (2-byte copies). D 128 is an instantiation of
+# its own; the others run in the next tile with zero columns past D.
+_OTHER_DIM_SHAPES = [(4, 4, None, 12), (17, 17, None, 128),
+                     (100, 100, 90, 12), (130, 70, None, 20),
+                     (70, 200, 180, 128), (49, 49, None, 7),
+                     (65, 65, None, 40)]
+
+
+def _split_route(d, name):
+    """The kernel a split-head launch of head dim d takes in bf16."""
+    return name if d in (16, 32, 64, 128) else name.replace(
+        "_kernel", "_padded_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_lead", [None, 2])
+@pytest.mark.parametrize("sq,sk,kv_valid,d", _OTHER_DIM_SHAPES)
+def test_flash_kernel_other_head_dims(cuda, dtype, bias_lead, sq, sk,
+                                      kv_valid, d):
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, h = 4, 3
+    q = torch.from_numpy(_randn(23, b, h, sq, d)).to(cuda, dtype)
+    k = torch.from_numpy(_randn(24, b, h, sk, d)).to(cuda, dtype)
+    v = torch.from_numpy(_randn(25, b, h, sk, d)).to(cuda, dtype)
+    bias = None if bias_lead is None else \
+        torch.from_numpy(_randn(26, bias_lead, h, sq, sk)).to(cuda)
+    _build.reset_launched()
+    out, lse = tfa.flash_attention_fwd(q, k, v, bias, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    name = "flash_fwd_mma_kernel" if dtype == torch.bfloat16 \
+        else "flash_fwd_kernel"
+    assert _build.launched() == {_split_route(d, name): 1}
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, bias,
+                                                 kv_valid=kv_valid)
+    assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    again = tfa.flash_attention_fwd(q, k, v, bias, kv_valid=kv_valid)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("sq,sk,kv_valid,d", _OTHER_DIM_SHAPES)
+def test_dropout_kernels_other_head_dims(cuda, dtype, rate, masked, sq, sk,
+                                         kv_valid, d):
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, h = 3, 2
+    q = torch.from_numpy(_randn(29, b, h, sq, d)).to(cuda, dtype)
+    k = torch.from_numpy(_randn(30, b, h, sk, d)).to(cuda, dtype)
+    v = torch.from_numpy(_randn(31, b, h, sk, d)).to(cuda, dtype)
+    do = torch.from_numpy(_randn(32, b, h, sq, d)).to(cuda, dtype)
+    key_mask = None
+    if masked:
+        m = np.random.RandomState(33).rand(b, sk) > 0.3
+        m[:, 0] = True
+        key_mask = torch.from_numpy(m).to(cuda)
+    kw = dict(dropout_rate=rate, seed=99, kv_valid=kv_valid,
+              key_mask=key_mask)
+    _build.reset_launched()
+    out, lse = tfa.flash_dropout_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        names = ("drop_fwd_mma_kernel", "drop_bwd_dq_mma_kernel",
+                 "drop_bwd_dkv_mma_kernel")
+    else:
+        names = ("drop_fwd_kernel", "drop_bwd_dq_kernel",
+                 "drop_bwd_dkv_kernel")
+    launched = _build.launched()
+    assert all(launched.get(_split_route(d, n)) == 1 for n in names)
+    ref, ref_lse = tfa.flash_dropout_attention_reference(q, k, v, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        _fwd_tol(dtype, sk, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    got = tfa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
+    want = tfa.flash_dropout_attention_bwd_reference(q, k, v, do, ref,
+                                                     ref_lse, **kw)
+    torch.cuda.synchronize()
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _grad_close(g, w, dtype, tol)
+    again = tfa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [12, 7])
+def test_bf16_padded_operands_at_odd_row_offsets(cuda, d):
+    """A bf16 D 12 row is 24 bytes: an operand that starts one row into a
+    buffer is 8-byte, not 16-byte, aligned, and rows 2, 5 and 6 take it
+    (4-byte copies) with the bits of the aligned call; 2 bytes off, an even
+    D is refused (misaligned) and an odd one (2-byte loads) taken."""
+    b, h, s, bf16 = 2, 3, 37, torch.bfloat16
+    n = b * h * s * d
+
+    def at(offset, seed):
+        buf = torch.zeros(n + offset, device=cuda, dtype=bf16)
+        buf[offset:] = torch.from_numpy(_randn(seed, n)).to(cuda, bf16)
+        return buf[offset:].view(b, h, s, d)
+
+    aligned = [at(0, 60 + i) for i in range(4)]
+    row_off = [at(d, 60 + i) for i in range(4)]
+    assert row_off[0].data_ptr() % 16 != 0
+    kw = dict(dropout_rate=0.1, seed=5)
+    for fn in (lambda q, k, v, do: tfa.flash_attention_fwd(q, k, v),
+               lambda q, k, v, do: tfa.flash_dropout_attention_fwd(q, k, v,
+                                                                   **kw)):
+        want, got = fn(*aligned), fn(*row_off)
+        assert all(torch.equal(a, g) for a, g in zip(want, got))
+    out, lse = tfa.flash_dropout_attention_fwd(*aligned[:3], **kw)
+    want = tfa.flash_dropout_attention_bwd(*aligned, out, lse, **kw)
+    got = tfa.flash_dropout_attention_bwd(*row_off, out, lse, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(want, got))
+    two_off = at(1, 64)
+    if d % 2 == 0:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            tfa.flash_attention_fwd(two_off, *aligned[1:3])
+    else:
+        want = tfa.flash_attention_fwd(two_off.clone(), *aligned[1:3])
+        got = tfa.flash_attention_fwd(two_off, *aligned[1:3])
+        assert all(torch.equal(a, g) for a, g in zip(want, got))
+
+
+@pytest.mark.cuda
+def test_split_head_rule_refuses_other_dims(cuda):
+    """Rows 2, 5 and 6 refuse D 65-127 and above 128, naming their rule;
+    the packed kernel (row 1) still refuses D 12."""
+    for d in (65, 96, 130):
+        q = torch.zeros(1, 1, 8, d, device=cuda)
+        with pytest.raises(ValueError, match="rows 2, 5 and 6"):
+            tfa.flash_attention_fwd(q, q, q)
+        with pytest.raises(ValueError, match="rows 2, 5 and 6"):
+            tfa.flash_dropout_attention_fwd(q, q, q, dropout_rate=0.1, seed=1)
+    with pytest.raises(ValueError, match="head dim 12"):
+        tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 12,
+                                               device=cuda), 2)

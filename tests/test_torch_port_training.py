@@ -335,14 +335,23 @@ def test_fit_same_seed_same_history():
     assert run(1)["train_loss"] != run(2)["train_loss"]  # dropout is on
 
 
-def test_fit_refuses_what_is_not_ported():
+def test_fit_refuses_what_is_not_ported(tmp_path):
+    """A mesh is not ported (queue 1, item 10); checkpoints and a teacher
+    are (item 5): a teacher with a model that returns one head's logits is
+    refused, and ``checkpoint_every`` writes its epochs."""
     model = ViT(**_FIT_CFG)
     data = SyntheticLoader(8, 8, 16, 2, seed=14)
-    for kw, item in ((dict(mesh=object()), "item 10"),
-                     (dict(checkpoint_dir="ckpt"), "item 5"),
-                     (dict(teacher_fn=lambda x: x), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrainer.fit(model, data, data, 1, verbose=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ttrainer.fit(model, data, data, 1, verbose=False, mesh=object())
+    with pytest.raises(ValueError, match="cls_logits, dist_logits"):
+        ttrainer.fit(model, data, data, 1, verbose=False,
+                     teacher_fn=lambda x: x)
+    ttrainer.fit(model, data, data, 2, verbose=False,
+                 checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    from vision_transformers_tpu_torch.utils.checkpoint import (
+        available_checkpoints,
+    )
+    assert available_checkpoints(str(tmp_path)) == [1, 2]
 
 
 def test_multi_step_skips_all_padding_batches():

@@ -283,7 +283,7 @@ def test_deit_heads_and_distillation_surface():
     model.eval()
     with torch.no_grad():
         torch.testing.assert_close(model(x), (cls + dist) / 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="teacher"):
         model.train_model_with_distillation(None, None, 1)
 
 

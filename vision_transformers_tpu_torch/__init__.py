@@ -5,7 +5,8 @@ counterpart is easy to find. The JAX package stays the numerical
 reference; this one imports nothing from it (nor JAX itself).
 
 What is ported so far is the ViT main path and the windowed and pyramid
-models (Swin, SwinV2, Twins-SVT, PVT), each served and trained:
+models (Swin, SwinV2, Twins-SVT, PVT), each served and trained, and the
+training CLI with what it calls:
 
 - ``models.image_classification.ViT``: patch embed, class token, learned
   position embedding, pre-LN encoder blocks, CLS head; inputs are NHWC;
@@ -30,6 +31,14 @@ models (Swin, SwinV2, Twins-SVT, PVT), each served and trained:
   eval steps.
 - ``serving``: export to an artifact directory, ``load_classifier``, static
   batch buckets and a request micro-batcher.
+- The rest of the zoo (``DeiT``, ``CPEViT``, ``T2T_ViT``, ``CPVT``,
+  ``CPVTGAP``, ``TNT``) and DETR-R50 (``models.object_detection``,
+  ``training.detection``, the COCO dataset in ``utils.coco``).
+- ``cli``: the training CLI (``python -m vision_transformers_tpu_torch.cli
+  <preset>``) over ``utils.load_data`` (local CIFAR and image folders, the
+  fused C++ augmentation of ``native``), ``utils.checkpoint``,
+  ``utils.distillation_loss`` and ``training.device_data`` (on-device
+  epochs).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise instead of running on

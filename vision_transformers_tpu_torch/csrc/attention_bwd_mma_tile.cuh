@@ -77,6 +77,12 @@
 //     lane % 4 hold keys 4a .. 4a+3 and 8+4a .. 8+4a+3 of query columns
 //     c, c+1: four calls, one per lane, gathered by __shfl_xor_sync 4 and 8.
 //
+// Other head dims (row 6 only; attention_mma_tile.cuh): D 128 keeps the
+// streamed K/V (pass 1) or Q/dO (pass 2) buffers, 68 KB, in dynamic shared
+// memory; a head dim d below 64 runs in the next tile under the Padded
+// layout, zeros in the columns d .. D and only d columns written (dq, dk, dv
+// and the fp32 partials, whose rows are then d apart).
+//
 // Masking: keys past Sk (the zero-filled tail) and query rows past Sq are
 // masked by index, their probabilities exactly 0; nothing is written for
 // them. A key >= kv_valid (or hidden by the key mask) has p = 0, so its dk
@@ -117,10 +123,16 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     const float* __restrict__ kmask, bf16* __restrict__ dq,
     float* __restrict__ delta, int sq, int sk, int kv_valid, float scale,
     Dropout drop, uint32_t rng_group, Layout lay = Layout{}) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kPad = IsPadded<Layout>::value;
   constexpr int S = D + 8;
-  __shared__ __align__(16) bf16 ks[2][kCols * S];
-  __shared__ __align__(16) bf16 vs[2][kCols * S];
+  constexpr bool kDyn = D > 64;
+  __shared__ __align__(16) bf16 ks_st[2][kDyn ? 8 : kCols * S];
+  __shared__ __align__(16) bf16 vs_st[2][kDyn ? 8 : kCols * S];
+  bf16 (&ks)[2][kCols * S] = smem_array<bf16[2][kCols * S]>(ks_st, 0);
+  bf16 (&vs)[2][kCols * S] =
+      smem_array<bf16[2][kCols * S]>(vs_st, 2 * tile_bytes<D>());
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -128,12 +140,12 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
   const int row[2] = {q0 + warp * 16 + (lane >> 2),
                       q0 + warp * 16 + (lane >> 2) + 8};
 
-  load_tile<D>(ks[0], k, 0, sk, lay.qkv());
-  load_tile<D>(vs[0], v, 0, sk, lay.qkv());
+  load_tile_as<D>(lay, ks[0], k, 0, sk, lay.qkv(), threadIdx.x);
+  load_tile_as<D>(lay, vs[0], v, 0, sk, lay.qkv(), threadIdx.x);
   cp_async_commit();
   uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_frags<D>(qf, q, row, sq, lay.qkv());
-  load_a_frags<D>(df, dout, row, sq, lay.o());
+  load_a_frags_as<D>(lay, qf, q, row, sq, lay.qkv());
+  load_a_frags_as<D>(lay, df, dout, row, sq, lay.o());
 
   // δ and lse·log2 e of this lane's two rows; the four lanes of a row split
   // its D columns and meet by shuffles
@@ -142,7 +154,14 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
   for (int i = 0; i < 2; ++i) {
     const int r = row[i];
     float part = 0.f;
-    if (r < sq) {
+    if constexpr (kPad) {
+      if (r < sq) {  // columns tq, tq + 4, ... < d, one at a time
+        const long long base = static_cast<long long>(r) * lay.d;
+        for (int c = tq; c < lay.d; c += 4)
+          part = fmaf(__bfloat162float(dout[base + c]),
+                      __bfloat162float(out[base + c]), part);
+      }
+    } else if (r < sq) {
       const long long base =
           static_cast<long long>(r) * lay.o() + tq * (D / 4);
 #pragma unroll
@@ -172,8 +191,10 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv());
-      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv());
+      load_tile_as<D>(lay, ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv(),
+                      threadIdx.x);
+      load_tile_as<D>(lay, vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv(),
+                      threadIdx.x);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -243,9 +264,14 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     if (r >= sq) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + static_cast<long long>(r) * lay.qkv() + n * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+      if constexpr (kPad)
+        store_pair_padded(dq + static_cast<long long>(r) * lay.d,
+                          n * 8 + 2 * tq, lay.d, acc[n][2 * i],
+                          acc[n][2 * i + 1]);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(
+            dq + static_cast<long long>(r) * lay.qkv() + n * 8 + 2 * tq) =
+            __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
@@ -256,8 +282,8 @@ __device__ __forceinline__ void load_q_tile(
     bf16* qs, bf16* dos, float* lse_s, float* delta_s, const bf16* q,
     const bf16* dout, const float* lse, const float* delta, int t, int sq,
     const Layout& lay) {
-  load_tile<D>(qs, q, t * kCols, sq, lay.qkv());
-  load_tile<D>(dos, dout, t * kCols, sq, lay.o());
+  load_tile_as<D>(lay, qs, q, t * kCols, sq, lay.qkv(), threadIdx.x);
+  load_tile_as<D>(lay, dos, dout, t * kCols, sq, lay.o(), threadIdx.x);
   if (threadIdx.x < kCols) {
     const int qi = t * kCols + threadIdx.x;
     lse_s[threadIdx.x] = qi < sq ? lse[qi * lay.lse()] * kLog2e : 0.f;
@@ -268,7 +294,7 @@ __device__ __forceinline__ void load_q_tile(
 // Pass 2: keys [k0, k0 + kRows) of one group against query tiles
 // [t_begin, t_end), rows at lay's strides as in pass 1. Writes bf16 dk, dv
 // (rows lay.qkv() apart) when part_k is null, else this chunk's fp32
-// partials to part_k, part_v (row stride D). Scale as in pass 1.
+// partials to part_k, part_v (row stride D; Padded: d). Scale as in pass 1.
 template <int D, class Layout = Contiguous<D>, bool kMayDrop = true,
           class Scale = ScaledDs>
 __device__ __forceinline__ void bwd_dkv_rows_mma(
@@ -279,10 +305,16 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part_k,
     float* __restrict__ part_v, int sq, int sk, int kv_valid, float scale,
     Dropout drop, uint32_t rng_group, Layout lay = Layout{}) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kPad = IsPadded<Layout>::value;
   constexpr int S = D + 8;
-  __shared__ __align__(16) bf16 qs[2][kCols * S];
-  __shared__ __align__(16) bf16 dos[2][kCols * S];
+  constexpr bool kDyn = D > 64;
+  __shared__ __align__(16) bf16 qs_st[2][kDyn ? 8 : kCols * S];
+  __shared__ __align__(16) bf16 dos_st[2][kDyn ? 8 : kCols * S];
+  bf16 (&qs)[2][kCols * S] = smem_array<bf16[2][kCols * S]>(qs_st, 0);
+  bf16 (&dos)[2][kCols * S] =
+      smem_array<bf16[2][kCols * S]>(dos_st, 2 * tile_bytes<D>());
   __shared__ float lse_s[2][kCols];
   __shared__ float delta_s[2][kCols];
 
@@ -298,8 +330,8 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     cp_async_commit();
   }
   uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(kf, k, key, sk, lay.qkv());
-  load_a_frags<D>(vf, v, key, sk, lay.qkv());
+  load_a_frags_as<D>(lay, kf, k, key, sk, lay.qkv());
+  load_a_frags_as<D>(lay, vf, v, key, sk, lay.qkv());
   float madd[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -395,7 +427,25 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     if (kr >= sk) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      if (part_k == nullptr) {
+      if constexpr (kPad) {
+        const int c = n * 8 + 2 * tq;
+        const long long off = static_cast<long long>(kr) * lay.d;
+        if (part_k == nullptr) {
+          store_pair_padded(dk + off, c, lay.d, acc_k[n][2 * i],
+                            acc_k[n][2 * i + 1]);
+          store_pair_padded(dv + off, c, lay.d, acc_v[n][2 * i],
+                            acc_v[n][2 * i + 1]);
+        } else {
+          if (c < lay.d) {
+            part_k[off + c] = acc_k[n][2 * i];
+            part_v[off + c] = acc_v[n][2 * i];
+          }
+          if (c + 1 < lay.d) {
+            part_k[off + c + 1] = acc_k[n][2 * i + 1];
+            part_v[off + c + 1] = acc_v[n][2 * i + 1];
+          }
+        }
+      } else if (part_k == nullptr) {
         const long long off =
             static_cast<long long>(kr) * lay.qkv() + n * 8 + 2 * tq;
         *reinterpret_cast<__nv_bfloat162*>(dk + off) =

@@ -45,9 +45,18 @@
 
 namespace vtt {
 
+// The shared bytes the fp32 backward passes take from the dynamic memory at
+// D 128: q, do, k and v of one tile (bwd_dkv_rows stages the same four).
+template <int D>
+__host__ __device__ constexpr int bwd_dyn_bytes() {
+  return D > 64 ? 4 * (2 * kBlockQ * D + 2 * kBlockK * (D + 1)) : 0;
+}
+
 // Pointers are the group's row 0; *_rs are row strides in elements. dout and
 // out share o_rs. delta is this group's fp32 scratch vector (Sq values).
-template <typename T, int D>
+// kPad (row 6 at a head dim dc below the tile's D): columns >= dc read as 0
+// and not written; D 128 takes bwd_dyn_bytes<D>() of dynamic shared memory.
+template <typename T, int D, bool kPad = false>
 __device__ __forceinline__ void bwd_dq_rows(
     const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
@@ -56,12 +65,22 @@ __device__ __forceinline__ void bwd_dq_rows(
     const float* __restrict__ kmask,
     T* __restrict__ dq, long long dq_rs, float* __restrict__ delta,
     int sq, int sk, int kv_valid, float scale, Dropout drop,
-    uint32_t rng_group) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
-  __shared__ float qs[kBlockQ][D];
-  __shared__ float dos[kBlockQ][D];
-  __shared__ float ks[kBlockK][D + 1];  // +1: lane-strided reads hit 32 banks
-  __shared__ float vs[kBlockK][D + 1];
+    uint32_t rng_group, int dc = D) {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kDyn = D > 64;
+  __shared__ float qs_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D];
+  __shared__ float dos_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D];
+  __shared__ float ks_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D + 1];
+  __shared__ float vs_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D + 1];
+  // +1 in ks, vs: lane-strided reads hit 32 banks
+  float (&qs)[kBlockQ][D] = smem_array<float[kBlockQ][D]>(qs_st, 0);
+  float (&dos)[kBlockQ][D] =
+      smem_array<float[kBlockQ][D]>(dos_st, 4 * kBlockQ * D);
+  float (&ks)[kBlockK][D + 1] =
+      smem_array<float[kBlockK][D + 1]>(ks_st, 8 * kBlockQ * D);
+  float (&vs)[kBlockK][D + 1] = smem_array<float[kBlockK][D + 1]>(
+      vs_st, 4 * (2 * kBlockQ * D + kBlockK * (D + 1)));
   __shared__ float dss[kBlockQ][kBlockK + 1];
 
   const int tid = threadIdx.x;
@@ -71,7 +90,7 @@ __device__ __forceinline__ void bwd_dq_rows(
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
-    const bool in = qi < sq;
+    const bool in = qi < sq && (!kPad || c < dc);
     qs[r][c] = in ? to_f32(q[qi * q_rs + c]) : 0.f;
     dos[r][c] = in ? to_f32(dout[qi * o_rs + c]) : 0.f;
   }
@@ -85,7 +104,7 @@ __device__ __forceinline__ void bwd_dq_rows(
     const int qi = q0 + row;
     float part = 0.f;
     if (qi < sq)
-      for (int c = lane; c < D; c += 32)
+      for (int c = lane; c < (kPad ? dc : D); c += 32)
         part = fmaf(dos[row][c], to_f32(out[qi * o_rs + c]), part);
     delta_r[r] = warp_sum(part);
     lse_r[r] = qi < sq ? lse[qi * lse_rs] : 0.f;
@@ -104,7 +123,7 @@ __device__ __forceinline__ void bwd_dq_rows(
     __syncthreads();  // the previous tile's readers are done
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D, kj = k0 + r;
-      const bool in = kj < sk;
+      const bool in = kj < sk && (!kPad || c < dc);
       ks[r][c] = in ? to_f32(k[kj * kv_rs + c]) : 0.f;
       vs[r][c] = in ? to_f32(v[kj * kv_rs + c]) : 0.f;
     }
@@ -154,13 +173,14 @@ __device__ __forceinline__ void bwd_dq_rows(
 #pragma unroll
   for (int i = 0; i < kOutRows; ++i) {
     const int qi = q0 + orow + kOutStride * i;
-    if (qi < sq) dq[qi * dq_rs + od] = from_f32<T>(acc[i]);
+    if (qi < sq && (!kPad || od < dc)) dq[qi * dq_rs + od] = from_f32<T>(acc[i]);
   }
 }
 
 // Keys [blockIdx.y·kBlockK, +kBlockK) of one group. delta holds δ of every
 // query row of the group (written by bwd_dq_rows). dk and dv share dkv_rs.
-template <typename T, int D>
+// kPad, dc and D 128 as bwd_dq_rows.
+template <typename T, int D, bool kPad = false>
 __device__ __forceinline__ void bwd_dkv_rows(
     const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
@@ -169,12 +189,23 @@ __device__ __forceinline__ void bwd_dkv_rows(
     const float* __restrict__ delta, const float* __restrict__ kmask,
     T* __restrict__ dk, T* __restrict__ dv, long long dkv_rs,
     int sq, int sk, int kv_valid, float scale, Dropout drop,
-    uint32_t rng_group) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
-  __shared__ float ks[kBlockK][D];       // this block's keys, resident
-  __shared__ float vs[kBlockK][D];
-  __shared__ float qs[kBlockQ][D + 1];   // streamed; lane-strided reads
-  __shared__ float dos[kBlockQ][D + 1];
+    uint32_t rng_group, int dc = D) {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kDyn = D > 64;
+  __shared__ float ks_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D];
+  __shared__ float vs_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D];
+  __shared__ float qs_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D + 1];
+  __shared__ float dos_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D + 1];
+  // ks, vs: this block's keys, resident; qs, dos: streamed, lane-strided
+  // reads
+  float (&ks)[kBlockK][D] = smem_array<float[kBlockK][D]>(ks_st, 0);
+  float (&vs)[kBlockK][D] =
+      smem_array<float[kBlockK][D]>(vs_st, 4 * kBlockK * D);
+  float (&qs)[kBlockQ][D + 1] =
+      smem_array<float[kBlockQ][D + 1]>(qs_st, 8 * kBlockK * D);
+  float (&dos)[kBlockQ][D + 1] = smem_array<float[kBlockQ][D + 1]>(
+      dos_st, 4 * (2 * kBlockK * D + kBlockQ * (D + 1)));
   __shared__ float pds[kBlockK][kBlockQ + 1];  // [key][query row]
   __shared__ float dss[kBlockK][kBlockQ + 1];
   __shared__ float lse_s[kBlockQ];
@@ -187,7 +218,7 @@ __device__ __forceinline__ void bwd_dkv_rows(
 
   for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, kj = k0 + r;
-    const bool in = kj < sk;
+    const bool in = kj < sk && (!kPad || c < dc);
     ks[r][c] = in ? to_f32(k[kj * kv_rs + c]) : 0.f;
     vs[r][c] = in ? to_f32(v[kj * kv_rs + c]) : 0.f;
   }
@@ -212,7 +243,7 @@ __device__ __forceinline__ void bwd_dkv_rows(
     __syncthreads();  // the previous tile's readers are done (ks/vs loaded)
     for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
       const int r = idx / D, c = idx % D, qi = q0 + r;
-      const bool in = qi < sq;
+      const bool in = qi < sq && (!kPad || c < dc);
       qs[r][c] = in ? to_f32(q[qi * q_rs + c]) : 0.f;
       dos[r][c] = in ? to_f32(dout[qi * o_rs + c]) : 0.f;
     }
@@ -276,7 +307,7 @@ __device__ __forceinline__ void bwd_dkv_rows(
 #pragma unroll
   for (int i = 0; i < kOutRows; ++i) {
     const int kj = k0 + orow + kOutStride * i;
-    if (kj < sk) {
+    if (kj < sk && (!kPad || od < dc)) {
       dk[kj * dkv_rs + od] = from_f32<T>(acc_k[i]);
       dv[kj * dkv_rs + od] = from_f32<T>(acc_v[i]);
     }

@@ -110,10 +110,22 @@
 // and 5 round p (row 5: p·(1/(1 − rate))) unnormalised and divide at the
 // end: within one bf16 step of their plain versions, not bit-equal.
 //
-// Contract of the caller: bf16 operands with D in {16, 32, 64}, in
+// Other head dims (rows 2, 5 and 6 only): D 128 is an instantiation of its
+// own (one A tile a warp, its K/V buffers, 68 KB, in dynamic shared memory).
+// A head dim d below 64 and not 16 or 32 runs in the next tile (16, 32 or 64)
+// under the Padded layout: (G, S, d) groups whose columns d .. D are read as
+// zeros (cp.async's source size 0), so the scores and lse are those of the d
+// columns, and only d columns are written. Its rows are 2·d bytes apart, not
+// always on a 16-byte boundary: K/V tiles come by 4-byte cp.async for an even
+// d and by plain 2-byte loads for an odd one, Q and the outputs by 2-byte
+// loads and stores. The other layouts keep their code (if constexpr).
+//
+// Contract of the caller: bf16 operands with D in {16, 32, 64, 128}, in
 // contiguous (G, S, D) groups (Contiguous) or at row strides that are
 // multiples of 8 elements (Strided), every base pointer 16-byte aligned (the
-// C entry points check this and refuse the launch otherwise), kv_valid >= 1.
+// C entry points check this and refuse the launch otherwise), kv_valid >= 1;
+// or Padded (G, S, d) groups, 1 <= d < D, base pointers 4-byte aligned for
+// an even d.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,6 +133,7 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -144,6 +157,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+}
+
+// 4 bytes global → shared, zero-filled when !pred (the Padded layout's rows).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -220,6 +240,72 @@ template <int D>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0,
                                           int n, int stride = D) {
   load_tile<D>(s, g, row0, n, stride, threadIdx.x);
+}
+
+// load_tile for the Padded layout: rows of d < D elements, d apart, columns
+// d .. D zero-filled. An even d by 4-byte cp.async (a row starts on a 4-byte
+// boundary); an odd one by plain loads and stores, which the caller's barrier
+// publishes as it does the copies.
+template <int D>
+__device__ __forceinline__ void load_tile_padded(bf16* s, const bf16* g,
+                                                 int row0, int n, int d,
+                                                 unsigned tid) {
+  if ((d & 1) == 0) {
+    constexpr int kWords = D / 2;  // 4-byte words per row
+#pragma unroll
+    for (int i = 0; i < kCols * kWords / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kWords, c = 2 * (idx % kWords);
+      const int gr = row0 + r;
+      const bool in = gr < n && c < d;
+      cp_async_4(s + r * (D + 8) + c,
+                 g + (in ? static_cast<long long>(gr) * d + c : 0ll), in);
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(g);
+    unsigned short* su = reinterpret_cast<unsigned short*>(s);
+#pragma unroll 4
+    for (int i = 0; i < kCols * D / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / D, c = idx % D;
+      const int gr = row0 + r;
+      su[r * (D + 8) + c] =
+          gr < n && c < d ? u[static_cast<long long>(gr) * d + c] : 0;
+    }
+  }
+}
+
+// load_a_frags for the Padded layout: rows d apart, columns >= d zero, by
+// 2-byte loads.
+template <int D>
+__device__ __forceinline__ void load_a_frags_padded(uint32_t (&f)[D / 16][4],
+                                                    const bf16* p,
+                                                    const int (&row)[2],
+                                                    int n, int d) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = row[j & 1];
+      const int c = kk * 16 + (j >> 1) * 8 + 2 * tq;
+      uint32_t lo = 0u, hi = 0u;
+      if (r < n) {
+        const long long b = static_cast<long long>(r) * d + c;
+        if (c < d) lo = u[b];
+        if (c + 1 < d) hi = u[b + 1];
+      }
+      f[kk][j] = lo | (hi << 16);
+    }
+}
+
+// Columns c, c + 1 of a bf16 row under the Padded layout: those < d written,
+// one element at a time.
+__device__ __forceinline__ void store_pair_padded(bf16* p, int c, int d,
+                                                  float x0, float x1) {
+  if (c < d) p[c] = __float2bfloat16_rn(x0);
+  if (c + 1 < d) p[c + 1] = __float2bfloat16_rn(x1);
 }
 
 // The A fragments (16 rows × D) of rows row[0] = r, row[1] = r + 8 of an
@@ -316,9 +402,9 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4],
 // and V fragment read from shared memory feeds that many products. Two at
 // D 16 and 32; one at D 64, where two A tiles' output accumulators and Q
 // fragments alone (2 · (32 + 16) registers) with the scores leave too few
-// registers for more than two blocks an SM.
+// registers for more than two blocks an SM (and at D 128).
 template <int D>
-__host__ __device__ constexpr int fwd_m() { return D == 64 ? 1 : 2; }
+__host__ __device__ constexpr int fwd_m() { return D >= 64 ? 1 : 2; }
 template <int D>
 __host__ __device__ constexpr int fwd_rows() { return 64 * fwd_m<D>(); }
 
@@ -341,6 +427,60 @@ struct Strided {
   __device__ int o() const { return o_stride; }
   __device__ int lse() const { return lse_stride; }
 };
+
+// Padded (rows 2, 5 and 6 at a head dim d < D, not 16 or 32): contiguous
+// (G, S, d) groups in the tile of width D, the columns d .. D zeros.
+template <int D>
+struct Padded {
+  int d;
+  __device__ int qkv() const { return d; }
+  __device__ int o() const { return d; }
+  __device__ static constexpr int lse() { return 1; }
+};
+
+template <class Layout>
+struct IsPadded : std::false_type {};
+template <int D>
+struct IsPadded<Padded<D>> : std::true_type {};
+
+// K/V-tile and Q-fragment loads by layout: Padded's, or the 16-byte ones.
+template <int D, class Layout>
+__device__ __forceinline__ void load_tile_as(const Layout& lay, bf16* s,
+                                             const bf16* g, int row0, int n,
+                                             int stride, unsigned tid) {
+  if constexpr (IsPadded<Layout>::value)
+    load_tile_padded<D>(s, g, row0, n, lay.d, tid);
+  else
+    load_tile<D>(s, g, row0, n, stride, tid);
+}
+
+template <int D, class Layout>
+__device__ __forceinline__ void load_a_frags_as(const Layout& lay,
+                                                uint32_t (&f)[D / 16][4],
+                                                const bf16* p,
+                                                const int (&row)[2], int n,
+                                                int stride) {
+  if constexpr (IsPadded<Layout>::value)
+    load_a_frags_padded<D>(f, p, row, n, lay.d);
+  else
+    load_a_frags<D>(f, p, row, n, stride);
+}
+
+// The low address bits a bf16 operand's base pointer must have clear: 16
+// bytes for the 16-byte copies of D 16, 32, 64 and 128, 4 for the Padded
+// layout's 4-byte copies (an even d), none for an odd d (2-byte loads).
+__host__ __device__ constexpr unsigned align_mask(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128 ? 15u
+         : (d & 1) ? 0u : 3u;
+}
+
+// The bf16 bytes of one K/V buffer of a tile of kCols rows at width D
+// (row stride D + 8); D 128 keeps its K/V buffers (4 of them, 68 KB) and the
+// backward its Q/dO or K/V ones in dynamic shared memory.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return kCols * (D + 8) * 2; }
+template <int D>
+__host__ __device__ constexpr int mma_dyn_bytes() { return D > 64 ? 4 * tile_bytes<D>() : 0; }
 
 // Which threads run the forward's tile, how they meet, and where its K/V
 // buffers lie. WholeBlock (rows 1, 2, 3, 5): a block of kThreads threads,
@@ -477,23 +617,29 @@ __device__ __forceinline__ void attend_rows_mma(
     Dropout drop = Dropout{}, uint32_t rng_group = 0u,
     unsigned long long* tile_counts = nullptr, Layout lay = Layout{},
     Block blk = Block{}) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
   constexpr bool kMasked = kMask != KeyMask::NoMask;
+  constexpr bool kPad = IsPadded<Layout>::value;
   static_assert(Block::kOwnSmem || !kMasked,
                 "a half block runs the unmasked tile only");
+  static_assert(Block::kOwnSmem || D <= 64, "a half block runs D <= 64");
   constexpr int S = D + 8;
   constexpr int M = fwd_m<D>();
   // keys per online-softmax step: the whole tile for one A tile a warp, half
   // of it for two (so that 2 × 4 score tiles are live, not 2 × 8)
   constexpr int kSub = M == 1 ? kCols : kCols / 2;
-  __shared__ __align__(16) bf16 ks_own[Block::kOwnSmem ? 2 : 1]
-                                      [Block::kOwnSmem ? kCols * S : 8];
-  __shared__ __align__(16) bf16 vs_own[Block::kOwnSmem ? 2 : 1]
-                                      [Block::kOwnSmem ? kCols * S : 8];
+  // the block's own K/V buffers: static up to D 64, dynamic at D 128
+  constexpr bool kOwn = Block::kOwnSmem && D <= 64;
+  __shared__ __align__(16) bf16 ks_own[kOwn ? 2 : 1][kOwn ? kCols * S : 8];
+  __shared__ __align__(16) bf16 vs_own[kOwn ? 2 : 1][kOwn ? kCols * S : 8];
+  bf16* kv_ext = nullptr;
+  if constexpr (!kOwn)
+    kv_ext = Block::kOwnSmem ? reinterpret_cast<bf16*>(dyn_smem()) : blk.kv();
   bf16 (*ks)[kCols * S] = reinterpret_cast<bf16 (*)[kCols * S]>(
-      Block::kOwnSmem ? &ks_own[0][0] : blk.kv());
+      kOwn ? &ks_own[0][0] : kv_ext);
   bf16 (*vs)[kCols * S] = reinterpret_cast<bf16 (*)[kCols * S]>(
-      Block::kOwnSmem ? &vs_own[0][0] : blk.kv() + 2 * kCols * S);
+      kOwn ? &vs_own[0][0] : kv_ext + 2 * kCols * S);
   // the mask of the two buffered tiles: 64 keep bits (ReplaceByte) or 64
   // values (AddFloat)
   __shared__ uint32_t keep_s[2][kMask == KeyMask::ReplaceByte ? 2 : 1];
@@ -511,8 +657,8 @@ __device__ __forceinline__ void attend_rows_mma(
     row[m][1] = row[m][0] + 8;
   }
 
-  load_tile<D>(ks[0], k, 0, sk, lay.qkv(), tid);
-  load_tile<D>(vs[0], v, 0, sk, lay.qkv(), tid);
+  load_tile_as<D>(lay, ks[0], k, 0, sk, lay.qkv(), tid);
+  load_tile_as<D>(lay, vs[0], v, 0, sk, lay.qkv(), tid);
   cp_async_commit();
   // The key tiles walked: all of them, or (masked policies) tiles 0 .. the
   // last one that holds a key < kv_valid the mask attends. Skipping the
@@ -541,7 +687,10 @@ __device__ __forceinline__ void attend_rows_mma(
   uint32_t qf[M][D / 16][4];
 #pragma unroll
   for (int m = 0; m < M; ++m)
-    load_a_frags<D, Block::kL2Loads>(qf[m], q, row[m], sq, lay.qkv());
+    if constexpr (kPad)
+      load_a_frags_padded<D>(qf[m], q, row[m], sq, lay.qkv());
+    else
+      load_a_frags<D, Block::kL2Loads>(qf[m], q, row[m], sq, lay.qkv());
 
   float acc[M][D / 8][4];
   float mr[M][2], l[M][2];  // running max; this lane's share of the row sums
@@ -558,10 +707,10 @@ __device__ __forceinline__ void attend_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile<D>(ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv(),
-                    tid);
-      load_tile<D>(vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv(),
-                    tid);
+      load_tile_as<D>(lay, ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv(),
+                      tid);
+      load_tile_as<D>(lay, vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv(),
+                      tid);
       cp_async_commit();
       if constexpr (kMasked)
         fetch_tile_mask<kMask>(raw, add, kmask, t + 1, sk, kv_valid);
@@ -694,10 +843,15 @@ __device__ __forceinline__ void attend_rows_mma(
       if (r >= sq) continue;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + static_cast<long long>(r) * lay.o() + n * 8 + 2 * tq) =
-            __floats2bfloat162_rn(acc[m][n][2 * i] / li,
-                                  acc[m][n][2 * i + 1] / li);
+        if constexpr (kPad)
+          store_pair_padded(o + static_cast<long long>(r) * lay.o(),
+                            n * 8 + 2 * tq, lay.d, acc[m][n][2 * i] / li,
+                            acc[m][n][2 * i + 1] / li);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(
+              o + static_cast<long long>(r) * lay.o() + n * 8 + 2 * tq) =
+              __floats2bfloat162_rn(acc[m][n][2 * i] / li,
+                                    acc[m][n][2 * i + 1] / li);
       if (tq == 0) lse[r * lay.lse()] = mr[m][i] + logf(li);
     }
 }

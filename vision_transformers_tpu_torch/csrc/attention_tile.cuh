@@ -44,6 +44,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <mutex>
+#include <utility>
+#include <vector>
+
 #include "philox.cuh"
 
 namespace vtt {
@@ -82,6 +86,57 @@ struct L2Loads {
   static constexpr bool kThroughL2 = true;
 };
 
+// The launch's dynamic shared memory. The D 128 tiles of rows 2, 5 and 6 take
+// their large buffers from it: they need more than the 48 KB a block may
+// declare statically.
+__device__ __forceinline__ unsigned char* dyn_smem() {
+  extern __shared__ __align__(16) unsigned char vtt_dyn_smem[];
+  return vtt_dyn_smem;
+}
+
+// A shared array of type A: the static one `st` when it has A's size, else
+// (D 128: `st` declared with one element) A's bytes at `off` of the dynamic
+// shared memory.
+template <class A, class St>
+__device__ __forceinline__ A& smem_array(St& st, unsigned off) {
+  if constexpr (sizeof(St) == sizeof(A))
+    return reinterpret_cast<A&>(st);
+  else
+    return *reinterpret_cast<A*>(dyn_smem() + off);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, past the 48 KB a
+// launch gets without asking; set once per kernel and device (0 bytes:
+// nothing to set). Returns 0 or the cudaError_t.
+inline int allow_dynamic_smem(const void* kernel, int bytes) {
+  if (bytes <= 0) return 0;
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;  // (kernel, device)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& kd : done)
+    if (kd.first == kernel && kd.second == dev) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.emplace_back(kernel, dev);
+  return static_cast<int>(err);
+}
+
+template <class Kernel>
+int allow_dynamic_smem(Kernel* kernel, int bytes) {
+  return allow_dynamic_smem(reinterpret_cast<const void*>(kernel), bytes);
+}
+
+// The fp32 forward's shared bytes taken from the dynamic memory at D 128:
+// q, k and v of one tile.
+template <int D>
+__host__ __device__ constexpr int attend_dyn_bytes() {
+  return D > 64 ? 4 * (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D) : 0;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -101,8 +156,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // null; kmask (fp32, one value per key) may be null. lse is fp32 with row
 // stride lse_rs, or null when the caller does not need it. rng_group is the
 // group's index b·H + h for the dropout mask. Loads: how q, k and v are read
-// (PlainLoads, or L2Loads where the launch wrote them).
-template <typename T, int D, class Loads = PlainLoads>
+// (PlainLoads, or L2Loads where the launch wrote them). kPad (rows 2 and 5
+// at a head dim dc below the tile's D): columns >= dc read as 0 and not
+// written; D 128 takes attend_dyn_bytes<D>() of dynamic shared memory.
+template <typename T, int D, class Loads = PlainLoads, bool kPad = false>
 __device__ __forceinline__ void attend_rows(
     int q0, const T* __restrict__ q, long long q_rs,
     const T* __restrict__ k, const T* __restrict__ v, long long kv_rs,
@@ -111,11 +168,19 @@ __device__ __forceinline__ void attend_rows(
     T* __restrict__ o, long long o_rs,
     float* __restrict__ lse, long long lse_rs,
     int sq, int sk, int kv_valid, float scale, Dropout drop,
-    uint32_t rng_group) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
-  __shared__ float qs[kBlockQ][D];
-  __shared__ float ks[kBlockK][D + 1];  // +1: lane-strided reads hit 32 banks
-  __shared__ float vs[kBlockK][D];
+    uint32_t rng_group, int dc = D) {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kDyn = D > 64;
+  __shared__ float qs_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D];
+  __shared__ float ks_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D + 1];
+  __shared__ float vs_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D];
+  // +1 in ks: lane-strided reads hit 32 banks
+  float (&qs)[kBlockQ][D] = smem_array<float[kBlockQ][D]>(qs_st, 0);
+  float (&ks)[kBlockK][D + 1] =
+      smem_array<float[kBlockK][D + 1]>(ks_st, 4 * kBlockQ * D);
+  float (&vs)[kBlockK][D] = smem_array<float[kBlockK][D]>(
+      vs_st, 4 * (kBlockQ * D + kBlockK * (D + 1)));
   __shared__ float ps[kBlockQ][kBlockK + 1];
   __shared__ float alpha_s[kBlockQ];
   __shared__ float l_s[kBlockQ];
@@ -128,6 +193,8 @@ __device__ __forceinline__ void attend_rows(
     const int r = idx / D, c = idx % D, qi = q0 + r;
     if constexpr (Loads::kThroughL2)
       qs[r][c] = qi < sq ? to_f32(__ldcg(q + qi * q_rs + c)) : 0.f;
+    else if constexpr (kPad)
+      qs[r][c] = qi < sq && c < dc ? to_f32(q[qi * q_rs + c]) : 0.f;
     else
       qs[r][c] = qi < sq ? to_f32(q[qi * q_rs + c]) : 0.f;
   }
@@ -157,6 +224,9 @@ __device__ __forceinline__ void attend_rows(
       if constexpr (Loads::kThroughL2) {
         ks[r][c] = in ? to_f32(__ldcg(k + kj * kv_rs + c)) : 0.f;
         vs[r][c] = in ? to_f32(__ldcg(v + kj * kv_rs + c)) : 0.f;
+      } else if constexpr (kPad) {
+        ks[r][c] = in && c < dc ? to_f32(k[kj * kv_rs + c]) : 0.f;
+        vs[r][c] = in && c < dc ? to_f32(v[kj * kv_rs + c]) : 0.f;
       } else {
         ks[r][c] = in ? to_f32(k[kj * kv_rs + c]) : 0.f;
         vs[r][c] = in ? to_f32(v[kj * kv_rs + c]) : 0.f;
@@ -223,7 +293,8 @@ __device__ __forceinline__ void attend_rows(
   for (int i = 0; i < kOutRows; ++i) {
     const int row = orow + kOutStride * i;
     const int qi = q0 + row;
-    if (qi < sq) o[qi * o_rs + od] = from_f32<T>(acc[i] / l_s[row]);
+    if (qi < sq && (!kPad || od < dc))
+      o[qi * o_rs + od] = from_f32<T>(acc[i] / l_s[row]);
   }
 }
 

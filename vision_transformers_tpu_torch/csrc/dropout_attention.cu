@@ -46,6 +46,12 @@
 //   fp32: bwd_dq_rows / bwd_dkv_rows (attention_bwd_tile.cuh), fp32 FMAs,
 //     grids x = G, y = ceil(Sq / 32) and ceil(Sk / 32).
 // 128 threads per block throughout.
+// Head dims: D 16, 32, 64 and 128 are instantiations of these kernels (D 128
+// with its tile buffers in dynamic shared memory: TNT's outer attention). Any
+// other D up to 64 (TNT's inner attention, D 12) runs in the next tile width
+// with the columns past D read as zeros and not written (the *_padded_kernel
+// kernels; a bf16 operand must be 4-byte aligned for an even D); the fp32
+// partials of a split dk/dv pass then have rows D apart.
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
@@ -60,7 +66,7 @@ namespace {
 struct Args {
   const void *q, *k, *v, *kmask, *dout, *out, *lse;
   void *dq, *dk, *dv, *delta, *part;
-  int g, heads, sq, sk, kv_valid, chunks;
+  int g, heads, sq, sk, d, kv_valid, chunks;
   float scale;
   vtt::Dropout drop;
   cudaStream_t stream;
@@ -206,36 +212,187 @@ drop_bwd_dkv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
   }
 }
 
+// ---- head dims other than 16, 32, 64 and 128: the tile of width D, the
+// columns d .. D read as zeros and not written (Padded layout); rows d apart.
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_fwd_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const float* __restrict__ kmask, T* __restrict__ out,
+                       float* __restrict__ lse, int heads, int sq, int sk,
+                       int kv_valid, float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::attend_rows<T, D, vtt::PlainLoads, true>(
+      blockIdx.y * vtt::kBlockQ, q + g * sq * d, d, k + g * sk * d,
+      v + g * sk * d, d, nullptr, 0, group_mask(kmask, heads, sk),
+      out + g * sq * d, d, lse + g * sq, 1, sq, sk, kv_valid, scale, drop,
+      blockIdx.x, d);
+}
+
 template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_fwd_mma_padded_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const float* __restrict__ kmask,
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           int heads, int sq, int sk, int kv_valid,
+                           float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::AddFloat, true,
+                            vtt::mma::Padded<D>>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, nullptr, out + g * sq * d, lse + g * sq, sq, sk,
+      kv_valid, scale, group_mask(kmask, heads, sk), drop, blockIdx.x,
+      tile_counts, vtt::mma::Padded<D>{d});
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_bwd_dq_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const float* __restrict__ kmask,
+                          const T* __restrict__ dout,
+                          const T* __restrict__ out,
+                          const float* __restrict__ lse, T* __restrict__ dq,
+                          float* __restrict__ delta, int heads, int sq,
+                          int sk, int kv_valid, float scale,
+                          vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::bwd_dq_rows<T, D, true>(
+      q + g * sq * d, d, k + g * sk * d, v + g * sk * d, d, dout + g * sq * d,
+      out + g * sq * d, d, lse + g * sq, 1, group_mask(kmask, heads, sk),
+      dq + g * sq * d, d, delta + g * sq, sq, sk, kv_valid, scale, drop,
+      blockIdx.x, d);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_bwd_dkv_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const float* __restrict__ kmask,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int heads,
+                           int sq, int sk, int kv_valid, float scale,
+                           vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::bwd_dkv_rows<T, D, true>(
+      q + g * sq * d, d, k + g * sk * d, v + g * sk * d, d, dout + g * sq * d,
+      d, lse + g * sq, 1, delta + g * sq, group_mask(kmask, heads, sk),
+      dk + g * sk * d, dv + g * sk * d, d, sq, sk, kv_valid, scale, drop,
+      blockIdx.x, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_bwd_dq_mma_padded_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const float* __restrict__ kmask,
+                              const bf16* __restrict__ dout,
+                              const bf16* __restrict__ out,
+                              const float* __restrict__ lse,
+                              bf16* __restrict__ dq,
+                              float* __restrict__ delta, int heads, int sq,
+                              int sk, int kv_valid, float scale,
+                              vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::mma::bwd_dq_rows_mma<D, vtt::mma::Padded<D>>(
+      blockIdx.y * vtt::mma::kRows, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, out + g * sq * d, lse + g * sq,
+      group_mask(kmask, heads, sk), dq + g * sq * d, delta + g * sq, sq, sk,
+      kv_valid, scale, drop, blockIdx.x, vtt::mma::Padded<D>{d});
+}
+
+// part as drop_bwd_dkv_mma_kernel's, rows d apart.
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_bwd_dkv_mma_padded_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const float* __restrict__ kmask,
+                               const bf16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               float* __restrict__ part, int heads, int sq,
+                               int sk, int kv_valid, float scale,
+                               vtt::Dropout drop, int per, int d) {
+  const long long g = blockIdx.x;
+  const int nq = (sq + vtt::mma::kCols - 1) / vtt::mma::kCols;
+  const int t0 = blockIdx.z * per;
+  const int t1 = min(nq, t0 + per);
+  float *pk = nullptr, *pv = nullptr;
+  if (part != nullptr) {
+    const long long plane = static_cast<long long>(gridDim.x) * sk * d;
+    pk = part + blockIdx.z * plane + g * sk * d;
+    pv = part + (gridDim.z + blockIdx.z) * plane + g * sk * d;
+  }
+  vtt::mma::bwd_dkv_rows_mma<D, vtt::mma::Padded<D>>(
+      blockIdx.y * vtt::mma::kRows, t0, t1, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, lse + g * sq, delta + g * sq,
+      group_mask(kmask, heads, sk), dk + g * sk * d, dv + g * sk * d, pk, pv,
+      sq, sk, kv_valid, scale, drop, blockIdx.x, vtt::mma::Padded<D>{d});
+}
+
+// kPad: the head dim a.d runs in the tile of width D (a.d < D).
+template <int D, bool kPad>
 int launch_bwd_mma(const Args& a) {
   using vtt::mma::kCols;
   using vtt::mma::kRows;
   using vtt::mma::kThreads;
+  constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const float* kmask = static_cast<const float*>(a.kmask);
+  const float* lse = static_cast<const float*>(a.lse);
+  float* delta = static_cast<float*>(a.delta);
   const dim3 grid_q(a.g, (a.sq + kRows - 1) / kRows);
-  drop_bwd_dq_mma_kernel<D><<<grid_q, kThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.kmask),
-      static_cast<const bf16*>(a.dout), static_cast<const bf16*>(a.out),
-      static_cast<const float*>(a.lse), static_cast<bf16*>(a.dq),
-      static_cast<float*>(a.delta), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
-      a.drop);
-  int rc = vtt::launched("drop_bwd_dq_mma_kernel");
+  int rc;
+  if constexpr (kPad) {
+    drop_bwd_dq_mma_padded_kernel<D><<<grid_q, kThreads, 0, a.stream>>>(
+        q, k, v, kmask, dout, static_cast<const bf16*>(a.out), lse,
+        static_cast<bf16*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+        a.scale, a.drop, a.d);
+    rc = vtt::launched("drop_bwd_dq_mma_padded_kernel");
+  } else {
+    rc = vtt::allow_dynamic_smem(drop_bwd_dq_mma_kernel<D>, smem);
+    if (rc != 0) return rc;
+    drop_bwd_dq_mma_kernel<D><<<grid_q, kThreads, smem, a.stream>>>(
+        q, k, v, kmask, dout, static_cast<const bf16*>(a.out), lse,
+        static_cast<bf16*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+        a.scale, a.drop);
+    rc = vtt::launched("drop_bwd_dq_mma_kernel");
+  }
   if (rc != 0) return rc;
   const int nq = (a.sq + kCols - 1) / kCols;
   const int chunks = a.part == nullptr ? 1 : std::min(a.chunks, nq);
   const int per = (nq + chunks - 1) / chunks;
   const int z = (nq + per - 1) / per;  // <= chunks: no empty chunk
   const dim3 grid_k(a.g, (a.sk + kRows - 1) / kRows, z);
-  drop_bwd_dkv_mma_kernel<D><<<grid_k, kThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.kmask),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), z > 1 ? static_cast<float*>(a.part) : nullptr,
-      a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop, per);
-  rc = vtt::launched("drop_bwd_dkv_mma_kernel");
+  float* part = z > 1 ? static_cast<float*>(a.part) : nullptr;
+  if constexpr (kPad) {
+    drop_bwd_dkv_mma_padded_kernel<D><<<grid_k, kThreads, 0, a.stream>>>(
+        q, k, v, kmask, dout, lse, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), part, a.heads, a.sq, a.sk, a.kv_valid,
+        a.scale, a.drop, per, a.d);
+    rc = vtt::launched("drop_bwd_dkv_mma_padded_kernel");
+  } else {
+    rc = vtt::allow_dynamic_smem(drop_bwd_dkv_mma_kernel<D>, smem);
+    if (rc != 0) return rc;
+    drop_bwd_dkv_mma_kernel<D><<<grid_k, kThreads, smem, a.stream>>>(
+        q, k, v, kmask, dout, lse, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), part, a.heads, a.sq, a.sk, a.kv_valid,
+        a.scale, a.drop, per);
+    rc = vtt::launched("drop_bwd_dkv_mma_kernel");
+  }
   if (rc != 0 || z == 1) return rc;
-  const long long plane = static_cast<long long>(a.g) * a.sk * D;
+  const long long plane = static_cast<long long>(a.g) * a.sk * a.d;
   const int blocks = static_cast<int>(std::min(4096ll, (plane + 255) / 256));
   drop_bwd_dkv_sum_kernel<<<blocks, 256, 0, a.stream>>>(
       static_cast<const float*>(a.part), static_cast<bf16*>(a.dk),
@@ -243,66 +400,123 @@ int launch_bwd_mma(const Args& a) {
   return vtt::launched("drop_bwd_dkv_sum_kernel");
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 int launch_fwd(const Args& a) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const float* kmask = static_cast<const float*>(a.kmask);
   T* out = static_cast<T*>(const_cast<void*>(a.out));
   float* lse = static_cast<float*>(const_cast<void*>(a.lse));
   if constexpr (std::is_same_v<T, bf16>) {
     constexpr int rows = vtt::mma::fwd_rows<D>();
     const dim3 grid(a.g, (a.sq + rows - 1) / rows);
-    drop_fwd_mma_kernel<D><<<grid, vtt::mma::kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
-        lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
-    return vtt::launched("drop_fwd_mma_kernel");
+    if constexpr (kPad) {
+      drop_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, 0,
+                                      a.stream>>>(
+          q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop, a.d);
+      return vtt::launched("drop_fwd_mma_padded_kernel");
+    } else {
+      constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+      const int rc = vtt::allow_dynamic_smem(drop_fwd_mma_kernel<D>, smem);
+      if (rc != 0) return rc;
+      drop_fwd_mma_kernel<D><<<grid, vtt::mma::kThreads, smem, a.stream>>>(
+          q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop);
+      return vtt::launched("drop_fwd_mma_kernel");
+    }
   } else {
     const dim3 grid(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
-    drop_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask), out,
-        lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale, a.drop);
-    return vtt::launched("drop_fwd_kernel");
+    if constexpr (kPad) {
+      drop_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+          q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop, a.d);
+      return vtt::launched("drop_fwd_padded_kernel");
+    } else {
+      constexpr int smem = vtt::attend_dyn_bytes<D>();
+      const int rc = vtt::allow_dynamic_smem(drop_fwd_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      drop_fwd_kernel<T, D><<<grid, vtt::kThreads, smem, a.stream>>>(
+          q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop);
+      return vtt::launched("drop_fwd_kernel");
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 int launch_bwd(const Args& a) {
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_bwd_mma<D>(a);
+    return launch_bwd_mma<D, kPad>(a);
   } else {
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    const float* kmask = static_cast<const float*>(a.kmask);
+    const float* lse = static_cast<const float*>(a.lse);
+    float* delta = static_cast<float*>(a.delta);
+    constexpr int smem = vtt::bwd_dyn_bytes<D>();
     const dim3 grid_q(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
-    drop_bwd_dq_kernel<T, D><<<grid_q, vtt::kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask),
-        static_cast<const T*>(a.dout), static_cast<const T*>(a.out),
-        static_cast<const float*>(a.lse), static_cast<T*>(a.dq),
-        static_cast<float*>(a.delta), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
-        a.drop);
-    int rc = vtt::launched("drop_bwd_dq_kernel");
+    int rc;
+    if constexpr (kPad) {
+      drop_bwd_dq_padded_kernel<T, D><<<grid_q, vtt::kThreads, 0, a.stream>>>(
+          q, k, v, kmask, dout, static_cast<const T*>(a.out), lse,
+          static_cast<T*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+          a.scale, a.drop, a.d);
+      rc = vtt::launched("drop_bwd_dq_padded_kernel");
+    } else {
+      rc = vtt::allow_dynamic_smem(drop_bwd_dq_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      drop_bwd_dq_kernel<T, D><<<grid_q, vtt::kThreads, smem, a.stream>>>(
+          q, k, v, kmask, dout, static_cast<const T*>(a.out), lse,
+          static_cast<T*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+          a.scale, a.drop);
+      rc = vtt::launched("drop_bwd_dq_kernel");
+    }
     if (rc != 0) return rc;
     const dim3 grid_k(a.g, (a.sk + vtt::kBlockK - 1) / vtt::kBlockK);
-    drop_bwd_dkv_kernel<T, D><<<grid_k, vtt::kThreads, 0, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const float*>(a.kmask),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
-        a.drop);
-    return vtt::launched("drop_bwd_dkv_kernel");
+    if constexpr (kPad) {
+      drop_bwd_dkv_padded_kernel<T, D><<<grid_k, vtt::kThreads, 0,
+                                         a.stream>>>(
+          q, k, v, kmask, dout, lse, delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop, a.d);
+      return vtt::launched("drop_bwd_dkv_padded_kernel");
+    } else {
+      rc = vtt::allow_dynamic_smem(drop_bwd_dkv_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      drop_bwd_dkv_kernel<T, D><<<grid_k, vtt::kThreads, smem, a.stream>>>(
+          q, k, v, kmask, dout, lse, delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+          a.drop);
+      return vtt::launched("drop_bwd_dkv_kernel");
+    }
   }
+}
+
+template <typename T, int D, bool kPad>
+int launch_dir(const Args& a, bool backward) {
+  return backward ? launch_bwd<T, D, kPad>(a) : launch_fwd<T, D, kPad>(a);
 }
 
 template <typename T>
-int dispatch_d(const Args& a, int d, bool backward) {
-  switch (d) {
-    case 16: return backward ? launch_bwd<T, 16>(a) : launch_fwd<T, 16>(a);
-    case 32: return backward ? launch_bwd<T, 32>(a) : launch_fwd<T, 32>(a);
-    case 64: return backward ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_d(const Args& a, bool backward) {
+  switch (a.d) {
+    case 16: return launch_dir<T, 16, false>(a, backward);
+    case 32: return launch_dir<T, 32, false>(a, backward);
+    case 64: return launch_dir<T, 64, false>(a, backward);
+    case 128: return launch_dir<T, 128, false>(a, backward);
+    default:
+      if (a.d < 1 || a.d > 64) return static_cast<int>(cudaErrorInvalidValue);
+      return a.d < 16 ? launch_dir<T, 16, true>(a, backward)
+             : a.d < 32 ? launch_dir<T, 32, true>(a, backward)
+                        : launch_dir<T, 64, true>(a, backward);
   }
 }
 
-int dispatch(const Args& a, int d, int is_bf16, bool backward) {
+int dispatch(const Args& a, int is_bf16, bool backward) {
   if (a.g < 1 || a.heads < 1 || a.g % a.heads != 0 || a.sq < 1 || a.sk < 1 ||
       a.kv_valid < 1 || a.kv_valid > a.sk ||
       (backward && is_bf16 && a.part != nullptr && a.chunks < 1))
@@ -310,15 +524,15 @@ int dispatch(const Args& a, int d, int is_bf16, bool backward) {
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
-  // the tensor-core kernels read bf16 operands with 16-byte copies (the
-  // forward's q, k, v, out; the backward's also do, dq, dk, dv; unused ones
-  // are null here)
+  // the tensor-core kernels read bf16 operands with 16-byte copies (4-byte
+  // ones for an even padded d; the forward's q, k, v, out; the backward's
+  // also do, dq, dk, dv; unused ones are null here)
   if (is_bf16 &&
       ((addr(a.q) | addr(a.k) | addr(a.v) | addr(a.dout) | addr(a.out) |
-        addr(a.dq) | addr(a.dk) | addr(a.dv)) & 15u))
+        addr(a.dq) | addr(a.dk) | addr(a.dv)) & vtt::mma::align_mask(a.d)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return is_bf16 ? dispatch_d<__nv_bfloat16>(a, d, backward)
-                 : dispatch_d<float>(a, d, backward);
+  return is_bf16 ? dispatch_d<__nv_bfloat16>(a, backward)
+                 : dispatch_d<float>(a, backward);
 }
 
 }  // namespace
@@ -330,9 +544,9 @@ extern "C" {
 // forward skips the tiles past the last one that holds a key < kv_valid
 // whose value is 0). is_bf16: 1 = bf16, 0 = fp32. drop_thresh =
 // min(int(rate·2^32), 2^32 − 1), 0 for no dropout; inv_keep = 1/(1 − rate);
-// seed: the mask's 64-bit seed.
-// A bf16 q, k, v or out that is not 16-byte aligned is refused
-// (cudaErrorMisalignedAddress).
+// seed: the mask's 64-bit seed. d: 1-64 or 128.
+// A bf16 q, k, v or out that is not 16-byte aligned (4-byte for an even d
+// other than 16, 32, 64 and 128) is refused (cudaErrorMisalignedAddress).
 int dropout_attention_fwd(const void* q, const void* k, const void* v,
                           const void* kmask, void* out, void* lse, int g,
                           int heads, int sq, int sk, int d, int kv_valid,
@@ -340,15 +554,15 @@ int dropout_attention_fwd(const void* q, const void* k, const void* v,
                           float inv_keep, unsigned long long seed,
                           void* stream) {
   const Args a{q, k, v, kmask, nullptr, out, lse, nullptr, nullptr, nullptr,
-               nullptr, nullptr, g, heads, sq, sk, kv_valid, 1, scale,
+               nullptr, nullptr, g, heads, sq, sk, d, kv_valid, 1, scale,
                vtt::make_dropout(drop_thresh, inv_keep, seed),
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, d, is_bf16, false);
+  return dispatch(a, is_bf16, false);
 }
 
 // delta: fp32 scratch of G·Sq elements (δ = rowsum(do ⊙ out), written by the
 // first pass and read by the second). bf16 only: part, null or fp32 scratch
-// of 2·chunks·G·Sk·D elements, splits the dk/dv pass's query loop into
+// of 2·chunks·G·Sk·d elements, splits the dk/dv pass's query loop into
 // `chunks` ranges (1 = no split, part may be null). A bf16 q, k, v, do, out,
 // dq, dk or dv that is not 16-byte aligned is refused
 // (cudaErrorMisalignedAddress).
@@ -361,11 +575,11 @@ int dropout_attention_bwd(const void* q, const void* k, const void* v,
                           float inv_keep, unsigned long long seed,
                           void* stream) {
   const Args a{q, k, v, kmask, dout, out, lse, dq, dk, dv, delta,
-               chunks > 1 ? part : nullptr, g, heads, sq, sk, kv_valid,
+               chunks > 1 ? part : nullptr, g, heads, sq, sk, d, kv_valid,
                chunks, scale,
                vtt::make_dropout(drop_thresh, inv_keep, seed),
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, d, is_bf16, true);
+  return dispatch(a, is_bf16, true);
 }
 
 // Copies the two tile counts of the bf16 forward into counts, and zeroes

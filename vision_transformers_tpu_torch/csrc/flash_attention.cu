@@ -22,6 +22,13 @@
 //   fp32: flash_fwd_kernel on attend_rows (attention_tile.cuh), fp32 FMAs on
 //     the CUDA cores, 32 × 32 tiles. Grid: x = G, y = ceil(Sq / 32); 128
 //     threads.
+// Head dims: D 16, 32, 64 and 128 are instantiations of these kernels (D 128
+// with its tile buffers in dynamic shared memory: TNT's outer attention, D
+// 128 at S 17). Any other D up to 64 (TNT's inner attention, D 12 at S 4)
+// runs in the next tile width, 16, 32 or 64, with the columns past D read as
+// zeros and not written: flash_fwd_mma_padded_kernel (bf16, the Padded
+// layout of attention_mma_tile.cuh; a bf16 operand must be 4-byte aligned
+// for an even D) and flash_fwd_padded_kernel (fp32).
 #include <cstdint>
 #include <type_traits>
 
@@ -47,6 +54,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          vtt::make_dropout(0u, 1.f, 0ull), blockIdx.x);
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+flash_fwd_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const float* __restrict__ bias, T* __restrict__ out,
+                        float* __restrict__ lse, int sq, int sk, int bias_g,
+                        int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  const float* bg = bias == nullptr
+      ? nullptr
+      : bias + (g % bias_g) * static_cast<long long>(sq) * sk;
+  vtt::attend_rows<T, D, vtt::PlainLoads, true>(
+      blockIdx.y * vtt::kBlockQ, q + g * sq * d, d, k + g * sk * d,
+      v + g * sk * d, d, bg, sk, nullptr, out + g * sq * d, d, lse + g * sq,
+      1, sq, sk, kv_valid, scale, vtt::make_dropout(0u, 1.f, 0ull),
+      blockIdx.x, d);
+}
+
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+flash_fwd_mma_padded_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int sq, int sk,
+                            int bias_g, int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  const float* bg = bias == nullptr
+      ? nullptr
+      : bias + (g % bias_g) * static_cast<long long>(sq) * sk;
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::NoMask, false,
+                            vtt::mma::Padded<D>>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, bg, out + g * sq * d, lse + g * sq, sq, sk, kv_valid,
+      scale, nullptr, vtt::Dropout{}, 0u, nullptr, vtt::mma::Padded<D>{d});
+}
+
 template <int D>
 __global__ void __launch_bounds__(vtt::mma::kThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -66,27 +111,46 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                kv_valid, scale);
 }
 
-template <typename T, int D>
+// kPad: the head dim d runs in the tile of width D (d < D).
+template <typename T, int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* out, void* lse, int g, int sq, int sk, int bias_g,
+           void* out, void* lse, int g, int sq, int sk, int d, int bias_g,
            int kv_valid, float scale, cudaStream_t stream) {
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const float* b_ = static_cast<const float*>(bias);
+  T* o_ = static_cast<T*>(out);
+  float* l_ = static_cast<float*>(lse);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     constexpr int rows = vtt::mma::fwd_rows<D>();
     const dim3 grid(g, (sq + rows - 1) / rows);
-    flash_fwd_mma_kernel<D><<<grid, vtt::mma::kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(out), static_cast<float*>(lse), sq, sk, bias_g,
-        kv_valid, scale);
-    return vtt::launched("flash_fwd_mma_kernel");
+    if constexpr (kPad) {
+      flash_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, 0, stream>>>(
+          q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale, d);
+      return vtt::launched("flash_fwd_mma_padded_kernel");
+    } else {
+      constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+      const int rc = vtt::allow_dynamic_smem(flash_fwd_mma_kernel<D>, smem);
+      if (rc != 0) return rc;
+      flash_fwd_mma_kernel<D><<<grid, vtt::mma::kThreads, smem, stream>>>(
+          q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale);
+      return vtt::launched("flash_fwd_mma_kernel");
+    }
   } else {
     const dim3 grid(g, (sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
-    flash_fwd_kernel<T, D><<<grid, vtt::kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<T*>(out), static_cast<float*>(lse), sq, sk, bias_g,
-        kv_valid, scale);
-    return vtt::launched("flash_fwd_kernel");
+    if constexpr (kPad) {
+      flash_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, 0, stream>>>(
+          q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale, d);
+      return vtt::launched("flash_fwd_padded_kernel");
+    } else {
+      constexpr int smem = vtt::attend_dyn_bytes<D>();
+      const int rc = vtt::allow_dynamic_smem(flash_fwd_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      flash_fwd_kernel<T, D><<<grid, vtt::kThreads, smem, stream>>>(
+          q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale);
+      return vtt::launched("flash_fwd_kernel");
+    }
   }
 }
 
@@ -94,12 +158,20 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
                void* out, void* lse, int g, int sq, int sk, int d, int bias_g,
                int kv_valid, float scale, cudaStream_t stream) {
+#define VTT_LAUNCH(D, PAD) \
+  launch<T, D, PAD>(q, k, v, bias, out, lse, g, sq, sk, d, bias_g, kv_valid, \
+                    scale, stream)
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, bias, out, lse, g, sq, sk, bias_g, kv_valid, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, out, lse, g, sq, sk, bias_g, kv_valid, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, lse, g, sq, sk, bias_g, kv_valid, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return VTT_LAUNCH(16, false);
+    case 32: return VTT_LAUNCH(32, false);
+    case 64: return VTT_LAUNCH(64, false);
+    case 128: return VTT_LAUNCH(128, false);
+    default:
+      if (d < 1 || d > 64) return static_cast<int>(cudaErrorInvalidValue);
+      return d < 16 ? VTT_LAUNCH(16, true)
+             : d < 32 ? VTT_LAUNCH(32, true) : VTT_LAUNCH(64, true);
   }
+#undef VTT_LAUNCH
 }
 
 }  // namespace
@@ -107,9 +179,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
 extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. bias may be null (then bias_g
-// is ignored). is_bf16: 1 = bf16, 0 = fp32. A bf16 q, k, v or out that is
-// not 16-byte aligned is refused (cudaErrorMisalignedAddress): the
-// tensor-core route reads them with 16-byte copies.
+// is ignored). is_bf16: 1 = bf16, 0 = fp32. d: 1-64 or 128. A bf16 q, k, v
+// or out that is not 16-byte aligned (4-byte for an even d other than 16, 32,
+// 64 and 128) is refused (cudaErrorMisalignedAddress): the tensor-core route
+// reads them with 16-byte (4-byte) copies.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, void* lse, int g, int sq,
                         int sk, int d, int bias_g, int kv_valid, float scale,
@@ -120,7 +193,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(q) |
                    reinterpret_cast<std::uintptr_t>(k) |
                    reinterpret_cast<std::uintptr_t>(v) |
-                   reinterpret_cast<std::uintptr_t>(out)) & 15u))
+                   reinterpret_cast<std::uintptr_t>(out)) &
+                  vtt::mma::align_mask(d)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16

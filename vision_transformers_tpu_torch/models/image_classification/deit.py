@@ -7,7 +7,8 @@ a learned position embedding, pre-LN ``EncoderBlock``s of the ViT (so the
 ``USE_FUSED_BLOCK`` inference path serves them too), a final LN and two
 zero-initialised heads. With ``distilled_training=True`` a training-mode
 forward returns (cls_logits, dist_logits); otherwise the mean of the two.
-Inputs are NHWC.
+``train_model_with_distillation`` trains against a teacher (DeiT's hard or
+soft distillation, ``utils/distillation_loss.py``). Inputs are NHWC.
 
 Module names mirror the JAX params tree (``patch_embed.proj``,
 ``cls_token``, ``dist_token``, ``pos_embed``, ``block{i}``, ``norm_f``,
@@ -117,9 +118,38 @@ class DeiT(nn.Module, TrainableModel):
             return cls_logits, dist_logits
         return (cls_logits + dist_logits) / 2.0
 
-    def train_model_with_distillation(self, *args, **kwargs):
-        """The JAX package's distillation loop needs the distillation loss
-        and ``fit(teacher_fn=, distill=)``, which are not ported yet."""
-        raise NotImplementedError(
-            "DeiT distillation is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "the distillation loss); train_model trains on the mean logits")
+    def train_model_with_distillation(self, train_loader, test_loader,
+                                      epochs: int, val_loader=None, *,
+                                      teacher=None,
+                                      distillation_type: str = "hard",
+                                      alpha: float = 0.5, tau: float = 5.0,
+                                      **fit_kwargs):
+        """The reference's distillation surface (deit.py:36-137) over the
+        shared trainer, so it inherits ``steps_per_call`` and checkpointing
+        from ``fit``. ``teacher``: a callable images → logits (a module is
+        put in eval mode), or (module, state_dict); there is no pretrained
+        teacher to fall back on. The model trains with
+        ``distilled_training`` on (its training forward returns both
+        heads' logits) and gets its own setting back afterwards. Extra
+        kwargs (lr, seed, verbose, steps_per_call, checkpoint_*) go to
+        ``fit``."""
+        from vision_transformers_tpu_torch.training.trainer import fit
+
+        if teacher is None:
+            raise ValueError(
+                "DeiT distillation needs an injected teacher: pass "
+                "teacher=(module, state_dict) or a callable images->logits")
+        if isinstance(teacher, tuple):
+            t_model, t_weights = teacher
+            t_model.load_state_dict(t_weights)
+            teacher = t_model
+        if isinstance(teacher, nn.Module):
+            teacher.eval()
+        prev = self.distilled_training
+        self.distilled_training = True
+        try:
+            return fit(self, train_loader, test_loader, epochs, val_loader,
+                       teacher_fn=teacher,
+                       distill=(distillation_type, alpha, tau), **fit_kwargs)
+        finally:
+            self.distilled_training = prev

@@ -100,6 +100,16 @@ _PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 
 # Head dims the CUDA kernels are instantiated for.
 KERNEL_HEAD_DIMS = (16, 32, 64)
+# Rows 2, 5 and 6 (flash_attention's and flash_dropout_attention's split-head
+# kernels) also take D 128, an instantiation of its own, and any D up to 64,
+# run in the next instantiated tile with the columns past D read as zeros
+# (TNT: outer attention at D 128, inner at D 12). The JAX kernels take any D.
+SPLIT_HEAD_DIM_RULE = "1 <= D <= 64 or D == 128"
+
+
+def split_head_dim_supported(d: int) -> bool:
+    """Whether rows 2, 5 and 6 take head dim ``d`` on the card."""
+    return 1 <= d <= 64 or d == 128
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
@@ -152,7 +162,11 @@ def _mask_keys(s: torch.Tensor, kv_valid: int) -> torch.Tensor:
 
 
 def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
-                        head_dim: int) -> None:
+                        head_dim: int, split_head: bool = False) -> None:
+    """What a CUDA kernel takes: a contiguous CUDA tensor of ``dtype``
+    (float32 or bfloat16) and a head dim of ``KERNEL_HEAD_DIMS``, or, for
+    the split-head rows 2, 5 and 6 (``split_head``), of
+    ``SPLIT_HEAD_DIM_RULE``; anything else raises ``ValueError``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
@@ -161,16 +175,46 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
             "the same for every operand")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if head_dim not in KERNEL_HEAD_DIMS:
+    if split_head:
+        if not split_head_dim_supported(head_dim):
+            raise ValueError(
+                f"head dim {head_dim} not supported by the split-head CUDA "
+                f"kernels (rows 2, 5 and 6: {SPLIT_HEAD_DIM_RULE})")
+    elif head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"head dim {head_dim} not supported by the CUDA kernel "
-            f"(supported: {KERNEL_HEAD_DIMS})")
+            f"(supported: {KERNEL_HEAD_DIMS}; only rows 2, 5 and 6 take "
+            f"{SPLIT_HEAD_DIM_RULE})")
 
 
 def _check_same_device(ref: torch.Tensor, **others: torch.Tensor) -> None:
     for name, t in others.items():
         if t.device != ref.device:
             raise ValueError(f"{name} on {t.device}, expected {ref.device}")
+
+
+def _check_into(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.shape != like.shape or t.dtype != like.dtype \
+            or t.device != like.device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(like.shape)} "
+                         f"{like.dtype} tensor on {like.device}")
+
+
+def _outputs(q: torch.Tensor, out: Optional[torch.Tensor],
+             lse: Optional[torch.Tensor], lse_shape) -> Tuple[torch.Tensor,
+                                                              torch.Tensor]:
+    """(out like q, fp32 lse of ``lse_shape``): the given ones, checked, or
+    new ones."""
+    if out is None:
+        out = torch.empty_like(q)
+    if lse is None:
+        lse = torch.empty(lse_shape, dtype=torch.float32, device=q.device)
+    _check_into("out", out, q)
+    if tuple(lse.shape) != tuple(lse_shape) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous {tuple(lse_shape)} "
+                         f"float32 tensor on {q.device}")
+    return out, lse
 
 
 # ---------------------------------------------------------------------------
@@ -609,12 +653,17 @@ def flash_dropout_attention_fwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dropout_rate: float, seed: Optional[int],
         scale: Optional[float] = None, kv_valid: Optional[int] = None,
-        key_mask: Optional[torch.Tensor] = None
+        key_mask: Optional[torch.Tensor] = None,
+        out: Optional[torch.Tensor] = None,
+        lse: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dropout forward → (out, fp32 lse (B, H, Sq)); no autograd graph.
     bf16 runs on the tensor cores (skipping the 64-key tiles past the last
     one that holds an attended key), fp32 on the CUDA cores; a bf16 operand
-    that is not 16-byte aligned raises."""
+    that is not 16-byte aligned (4-byte at an even D other than 16, 32, 64
+    and 128) raises. D: ``SPLIT_HEAD_DIM_RULE``. ``out``, ``lse`` (CUDA
+    only): contiguous tensors to write into instead of new ones (a check
+    can pre-fill them to see that every element is written)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      key_mask)
     rate, seed = _dropout_args(dropout_rate, seed)
@@ -626,12 +675,11 @@ def flash_dropout_attention_fwd(
     from vision_transformers_tpu_torch.ops import _build
 
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t, q.dtype, d)
+        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
     mask_add = _key_mask_add(key_mask)
     _check_same_device(q, k=k, v=v,
                        **({} if mask_add is None else {"key_mask": mask_add}))
-    out = torch.empty_like(q)
-    lse = torch.empty(b, h, s_q, dtype=torch.float32, device=q.device)
+    out, lse = _outputs(q, out, lse, (b, h, s_q))
     lib = _build.load("dropout_attention")
     with torch.cuda.device(q.device):
         rc = lib.dropout_attention_fwd(
@@ -650,14 +698,17 @@ def flash_dropout_attention_bwd(
         out: torch.Tensor, lse: torch.Tensor, *, dropout_rate: float,
         seed: Optional[int], scale: Optional[float] = None,
         kv_valid: Optional[int] = None,
-        key_mask: Optional[torch.Tensor] = None
+        key_mask: Optional[torch.Tensor] = None,
+        grads: Optional[Tuple[torch.Tensor, ...]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dropout backward → (dq, dk, dv) in the inputs' dtype; dk and dv
     are accumulated in fp32 in a fixed order and cast once. At rate 0 it is
     also the bias-free backward of ``flash_attention``. bf16 runs on the
     tensor cores (with ``dkv_chunks`` ranges of the query loop in the dk/dv
     pass), fp32 on the CUDA cores; a bf16 operand that is not 16-byte
-    aligned raises."""
+    aligned (4-byte at an even D other than 16, 32, 64 and 128) raises. D:
+    ``SPLIT_HEAD_DIM_RULE``. ``grads`` (CUDA only): (dq, dk, dv), contiguous
+    tensors like q, k, v to write into instead of new ones."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      key_mask)
     rate, seed = _dropout_args(dropout_rate, seed)
@@ -675,12 +726,16 @@ def flash_dropout_attention_bwd(
 
     do = do.contiguous()  # arrives as a view of the caller's transpose
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
-        _check_cuda_operand(name, t, q.dtype, d)
-    _check_cuda_operand("lse", lse, torch.float32, d)
+        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
+    _check_cuda_operand("lse", lse, torch.float32, d, split_head=True)
     mask_add = _key_mask_add(key_mask)
     _check_same_device(q, k=k, v=v, do=do, out=out, lse=lse,
                        **({} if mask_add is None else {"key_mask": mask_add}))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if grads is None:
+        grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    for name, t, like in zip(("dq", "dk", "dv"), grads, (q, k, v)):
+        _check_into(name, t, like)
+    dq, dk, dv = grads
     delta = torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
     is_bf16 = q.dtype == torch.bfloat16
     chunks = dkv_chunks(b * h, s_q, s_k) if is_bf16 else 1
@@ -819,13 +874,18 @@ def flash_attention_fwd(
         bias: Optional[torch.Tensor] = None, *,
         kv_mask: Optional[torch.Tensor] = None,
         scale: Optional[float] = None,
-        kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        kv_valid: Optional[int] = None, out: Optional[torch.Tensor] = None,
+        lse: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split-head forward → (out, fp32 lse (B, H, Sq)); no autograd
-    graph. Routes as ``_flash_fwd`` does (flash_attention.py:143-147): a
+    graph. ``out``, ``lse`` (CUDA, split-head route only): as
+    ``flash_dropout_attention_fwd``'s. Routes as ``_flash_fwd`` does (flash_attention.py:143-147): a
     ``kv_mask``, or Sq·Sk > ``MAX_SCORE_ELEMS``, takes the streaming kernel,
     which has no bias (``ValueError`` with one). Otherwise bf16 runs on the
     tensor cores and fp32 on the CUDA cores; a bf16 operand that is not
-    16-byte aligned raises."""
+    16-byte aligned (4-byte at an even D other than 16, 32, 64 and 128)
+    raises. D: ``SPLIT_HEAD_DIM_RULE`` (the streaming kernel:
+    ``KERNEL_HEAD_DIMS``)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if kv_mask is not None or s_q * s_k > MAX_SCORE_ELEMS:
@@ -833,8 +893,11 @@ def flash_attention_fwd(
             raise ValueError(
                 "bias is not supported with kv_mask or Sq·Sk > "
                 f"{MAX_SCORE_ELEMS} (the streaming kernel takes none)")
+        if lse is not None:
+            raise ValueError("lse= is for the split-head route")
         return flash_attention_large_fwd(q, k, v, kv_mask=kv_mask,
-                                         scale=scale, kv_valid=kv_valid)
+                                         scale=scale, kv_valid=kv_valid,
+                                         out=out)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale=scale,
                                          kv_valid=kv_valid)
@@ -842,15 +905,14 @@ def flash_attention_fwd(
     from vision_transformers_tpu_torch.ops import _build
 
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t, q.dtype, d)
+        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
     _check_same_device(q, k=k, v=v)
     bias_g = 0
     if bias is not None:
         bias = _group_bias(bias, b, h, s_q, s_k).float().contiguous()
         _check_same_device(q, bias=bias)
         bias_g = bias.shape[0]
-    out = torch.empty_like(q)
-    lse = torch.empty(b, h, s_q, dtype=torch.float32, device=q.device)
+    out, lse = _outputs(q, out, lse, (b, h, s_q))
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):  # launch on the tensor's card
         rc = lib.flash_attention_fwd(
@@ -899,11 +961,6 @@ def flash_attention_large_reference(
     return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
-def _check_into(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    if t.shape != like.shape or t.dtype != like.dtype \
-            or t.device != like.device or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {tuple(like.shape)} "
-                         f"{like.dtype} tensor on {like.device}")
 
 
 def flash_attention_large_fwd(

@@ -12,7 +12,8 @@ bucket (or chunked through the largest one), so the card only ever sees the
 exported batch sizes.
 
 The registry holds ``ViT``, ``SwinTransformer``, ``SwinTransformerV2``,
-``PVT``, ``TwinSVT``, ``DeiT``, ``CPEViT`` and ``T2T_ViT``.
+``PVT``, ``TwinSVT``, ``DeiT``, ``CPEViT``, ``T2T_ViT``, ``CPVT``,
+``CPVTGAP`` and ``TNT``.
 Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
 through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
 serves through the kernels' plain versions, for tests.
@@ -38,7 +39,10 @@ from vision_transformers_tpu_torch.core.dtypes import (
     resolve_device,
 )
 from vision_transformers_tpu_torch.models.image_classification import (
+    CPVT,
+    CPVTGAP,
     PVT,
+    TNT,
     CPEViT,
     DeiT,
     SwinTransformer,
@@ -54,7 +58,7 @@ _FORMAT_VERSION = 1
 _MODELS = {"ViT": ViT, "SwinTransformer": SwinTransformer,
            "SwinTransformerV2": SwinTransformerV2, "PVT": PVT,
            "TwinSVT": TwinSVT, "DeiT": DeiT, "CPEViT": CPEViT,
-           "T2T_ViT": T2T_ViT}
+           "T2T_ViT": T2T_ViT, "CPVT": CPVT, "CPVTGAP": CPVTGAP, "TNT": TNT}
 
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],

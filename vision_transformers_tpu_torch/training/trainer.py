@@ -13,13 +13,16 @@ What it keeps of the JAX trainer's design:
   every step sees one shape.
 - ``steps_per_call`` stacks k batches per call; a chunk's all-padding filler
   batches are skipped.
+- ``checkpoint_dir`` / ``checkpoint_every``: the state is saved every that
+  many epochs (``utils/checkpoint.py``); ``teacher_fn`` / ``distill``:
+  DeiT-style distillation (``utils/distillation_loss.py``).
 
 What differs: PyTorch runs eagerly, so there is no jit and no donated
 state; the model and the optimizer are updated in place and a
 ``TrainState`` just holds them with the step count. Dropout randomness
 comes from the model's own generator, which ``fit(seed=...)`` seeds, not
-from a key passed to each step. A mesh, checkpointing and distillation
-belong to modules that are not ported yet and raise ``NotImplementedError``.
+from a key passed to each step. A mesh belongs to a module that is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ import torch.nn.functional as F
 from vision_transformers_tpu_torch.training.optimizers import (
     Optimizer,
     make_optimizer,
+)
+from vision_transformers_tpu_torch.utils.checkpoint import save_checkpoint
+from vision_transformers_tpu_torch.utils.distillation_loss import (
+    distillation_loss,
 )
 
 
@@ -77,11 +84,18 @@ def _to_device(device, images, labels, weights):
             torch.as_tensor(weights, device=device).float())
 
 
-def train_step_fn(model, normalize=None, loss_fn=None):
+def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
+                  distill=None):
     """Build the train step for a classification model:
     ``step(state, images, labels, weights)`` → (state, loss·n, correct, n),
     the last three as scalars on the model's device. Inputs may be numpy
-    arrays or tensors; they are moved to the model's device."""
+    arrays or tensors; they are moved to the model's device.
+
+    ``teacher_fn`` (normalised images → logits) enables DeiT-style
+    distillation: the model's training forward must return (cls_logits,
+    dist_logits), and ``distill`` = (type, alpha, tau) (default ("hard",
+    0.5, 5.0)) blends the base loss with the distillation term; accuracy is
+    the class head's."""
     loss_fn = loss_fn or cross_entropy_with_weights
 
     def step(state: TrainState, images, labels, weights):
@@ -89,8 +103,23 @@ def train_step_fn(model, normalize=None, loss_fn=None):
                                              labels, weights)
         x = _default_preprocess(images, normalize)
         model.train()
-        logits = model(x)
-        loss = loss_fn(logits, labels, weights)
+        out = model(x)
+        if teacher_fn is not None:
+            if not isinstance(out, tuple):
+                raise ValueError(
+                    "distillation needs a model whose training forward "
+                    "returns (cls_logits, dist_logits), as DeiT's does with "
+                    "distilled_training=True")
+            logits, dist_logits = out
+            with torch.no_grad():
+                teacher_logits = teacher_fn(x)
+            kind, alpha, tau = distill or ("hard", 0.5, 5.0)
+            loss = distillation_loss(loss_fn(logits, labels, weights),
+                                     dist_logits, teacher_logits, kind, alpha,
+                                     tau)
+        else:
+            logits = out
+            loss = loss_fn(logits, labels, weights)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
@@ -132,12 +161,13 @@ def _sum_steps(results, device):
     return tuple(torch.stack(t).sum() for t in zip(*results))
 
 
-def multi_train_step_fn(model, normalize=None, loss_fn=None):
+def multi_train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
+                        distill=None):
     """k steps per call over batches stacked to (k, B, ...): a Python loop
     (PyTorch runs eagerly; there is no scan to amortise). A batch whose
     weights are all 0 (an epoch-tail filler) is skipped. Pass ``weights``
     as a numpy array and that test costs no device synchronisation."""
-    step = train_step_fn(model, normalize, loss_fn)
+    step = train_step_fn(model, normalize, loss_fn, teacher_fn, distill)
 
     def multi(state: TrainState, images, labels, weights):
         results = []
@@ -258,20 +288,15 @@ def fit(
     optional ``loader.normalize = (mean, std)`` attribute moves normalization
     onto the device. ``seed`` seeds the model's dropout generator.
     ``steps_per_call > 1`` hands that many stacked batches to one call of
-    the step function.
+    the step function. ``checkpoint_dir`` with ``checkpoint_every`` = n
+    saves the state after every n-th epoch as step ``epoch``
+    (``utils.checkpoint.save_checkpoint``). ``teacher_fn`` and ``distill``
+    as ``train_step_fn``'s.
     """
     if mesh is not None:
         raise NotImplementedError(
             "training over a mesh is not ported yet (ROADMAP.md, queue 1, "
             "item 10: parallelism)")
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "utils/checkpoint.py)")
-    if teacher_fn is not None or distill is not None:
-        raise NotImplementedError(
-            "distillation is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "utils/distillation_loss.py)")
     normalize = getattr(train_loader, "normalize", None)
     generator = getattr(model, "dropout_generator", None)
     if generator is not None:
@@ -293,10 +318,12 @@ def fit(
 
     k = max(1, steps_per_call)
     if k == 1:
-        train_step = train_step_fn(model, normalize, loss_fn)
+        train_step = train_step_fn(model, normalize, loss_fn, teacher_fn,
+                                   distill)
         eval_step = eval_step_fn(model, normalize, loss_fn)
     else:
-        train_step = multi_train_step_fn(model, normalize, loss_fn)
+        train_step = multi_train_step_fn(model, normalize, loss_fn,
+                                         teacher_fn, distill)
         eval_step = multi_eval_step_fn(model, normalize, loss_fn)
 
     def chunks(loader):
@@ -370,6 +397,10 @@ def fit(
                 f"Val Loss: {vl}, Val Acc: {va}, "
                 f"Test Loss: {tl:.4f}, Test Acc: {ta:.4f}"
             )
+
+        if checkpoint_dir and checkpoint_every and \
+                (epoch + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, state, step=epoch + 1)
 
     model.eval()  # as the model was built: deterministic until trained again
     history["final_state"] = state

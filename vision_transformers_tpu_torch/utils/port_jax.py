@@ -3,7 +3,8 @@
 ``vit_state_dict_from_jax(params)``, ``swin_state_dict_from_jax(params)``,
 ``pvt_state_dict_from_jax(params)``, ``twins_state_dict_from_jax(params)``,
 ``deit_state_dict_from_jax(params)``, ``cpevit_state_dict_from_jax(params)``,
-``t2t_state_dict_from_jax(params)`` and ``detr_state_dict_from_jax(params)``
+``t2t_state_dict_from_jax(params)``, ``cpvt_state_dict_from_jax(params)``,
+``tnt_state_dict_from_jax(params)`` and ``detr_state_dict_from_jax(params)``
 take a JAX model's params tree as nested dicts of numpy arrays
 (``jax.device_get(params)`` gives that) and return the port's
 ``state_dict``. The port's module names mirror the JAX tree, so the mapping
@@ -13,8 +14,9 @@ is a rename and a transpose:
 - a conv ``kernel`` (ph, pw, cin, out), Swin's patch embedding → the
   ``weight`` (out, ph·pw·cin) of the matmul that ``patchify`` feeds, whose
   features are ordered (ph, pw, c) too;
-- Twins' and CPE-ViT's depthwise conv ``kernel`` (3, 3, 1, C) →
-  ``F.conv2d``'s ``weight`` (C, 1, 3, 3);
+- Twins', CPE-ViT's and CPVT's depthwise conv ``kernel`` (3, 3, 1, C) →
+  ``F.conv2d``'s ``weight`` (C, 1, 3, 3), and TNT's words conv
+  ``patch_proj.kernel`` (7, 7, in, out) → (out, in, 7, 7);
 - LayerNorm ``scale`` → ``weight``;
 - every other leaf as it is: ``bias``, ``class_token``, ``pos_embedding``,
   PVT's ``cls_token`` and ``position_embedding{i}``, DeiT's ``cls_token``,
@@ -36,6 +38,13 @@ import torch
 
 
 def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return _walk(params, lambda prefix: prefix.startswith(
+        ("pos_block", "pos_embedding.")))
+
+
+def _walk(params: Mapping[str, Any], depthwise) -> Dict[str, torch.Tensor]:
+    """The ViT family's walk; ``depthwise(prefix)`` says which ``kernel``
+    leaves are depthwise convs."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str) -> None:
@@ -44,8 +53,7 @@ def vit_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 walk(sub, f"{prefix}{key}.")
                 continue
             arr = np.asarray(sub, dtype=np.float32)
-            if key == "kernel" and prefix.startswith(("pos_block",
-                                                       "pos_embedding.")):
+            if key == "kernel" and depthwise(prefix):
                 key, arr = "weight", arr.transpose(3, 2, 0, 1)  # depthwise
             elif key == "kernel":
                 key, arr = "weight", arr.reshape(-1, arr.shape[-1]).T
@@ -99,6 +107,22 @@ def t2t_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
     performer's ``w``, ``kqv``, ``proj``, ``mlp_fc{1,2}``), ``t2t.project``
     and the ViT encoder, by the ViT's walk."""
     return vit_state_dict_from_jax(params)
+
+
+def cpvt_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``CPVT`` / ``CPVTGAP`` params → the port's ``state_dict`` (loads with
+    ``strict=True``): the ViT's walk, with ``pos_embedding.conv.kernel`` and
+    every block's ``peg.conv.kernel`` the depthwise conv kernels."""
+    return _walk(params, lambda prefix: prefix.startswith("pos_embedding.")
+                 or prefix.endswith(".peg.conv."))
+
+
+def tnt_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``TNT`` params → the port's ``state_dict`` (loads with
+    ``strict=True``): DETR's walk, its one conv ``patch_proj`` real (7, 7,
+    in, out) → (out, in, 7, 7), Dense kernels transposed, the SE layer's
+    ``LayerNorm_0``, ``Dense_0`` and ``Dense_1`` by flax's names."""
+    return detr_state_dict_from_jax(params)
 
 
 def detr_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
