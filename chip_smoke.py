@@ -104,6 +104,16 @@ exit, and without the final result line:
    (n = 1, 5, 8, 40) → 16 concurrent ``Microbatcher.submit`` calls. The
    packed kernel must launch 12 times per forward. Served logits are held
    against the same weights run on the CPU through the plain versions.
+3b. int8 serving: the same float model through ``quantize_classifier`` →
+   ``export_classifier`` → ``load_classifier`` → ``predict`` at buckets 1,
+   8 and 32 with ``USE_FUSED_BLOCK`` on: per forward 12 row-1 launches (by
+   name), no row-8 launch and 48 int8 products (``ops/quant.py``,
+   ``torch._int_mm``); reruns bit-equal; logits against the same artifact
+   served on the CPU (``INT8_CPU_TOL_REL``) and features against the float
+   model on the card (``INT8_FEATURE_REL``); ``int8_matmul`` on the card
+   bit-equal to the CPU at 5 rows (padded to 17) and at ViT-B's fc1, and its
+   K rule; ms per request at each bucket, images/s at 32, forward device
+   time and idle share, int8 and bf16 in turns.
 4. Split-head path: a 2-layer ViT-B-width model at 512 px (S = 1025, where
    ``packed_flash_supported`` is false), through the split-head kernel.
 5. Window path: ``swint_224_imagenet`` and ``swinv2t_224_imagenet`` (full
@@ -119,7 +129,13 @@ exit, and without the final result line:
    with ``attention_dropout=0.1`` and the step's split into forward,
    backward and optimizer, and the tensor-core packed backward (row 7) fed
    the tensor-core forward's out and lse on the first layer's projection of
-   the batch, against its plain version at rate 0.1; one step each with and without dropout of the
+   the batch, against its plain version at rate 0.1; 3 superleaf Adam steps
+   (``training/superleaf.py``) of the same model and batch, one row-15
+   launch a step, the flat buffers bit-equal to ``fused_adam_reference`` on
+   the step's flat gradient and the parameters bit-equal to
+   ``make_optimizer(fused=True)`` under the same dropout seeds, with host
+   clock, optimizer device time and idle share beside the per-leaf step's;
+   one step each with and without dropout of the
    2-layer model at 512 px (the split-head kernels); and fp32 gradients of
    a 2-layer model on the card against the CPU run of the same weights.
    Then the windowed models' training: ``swint_224_imagenet`` and
@@ -174,9 +190,13 @@ exit, and without the final result line:
    colour classes), batch 256, 2 epochs, each run by kernel name over the
    whole run and its train loss falling: ``vit_tiny_cifar100`` in fp32 with
    a checkpoint each epoch (the latest restored bit-equal to the final
-   state) and an export (served, equal to the trained model), with
-   ``--on-device`` and with ``--bf16``; ``cpvt_cifar100``,
-   ``cpvtgap_cifar100`` (rows 1 and 7) and ``tnt_cifar100`` (rows 2 and 6 at
+   state) and an ``--export-int8`` export (served, equal to the quantized
+   trained model); ``vit_tiny_cifar100`` and ``swin_tiny_cifar100`` with
+   ``--init-from-torch`` from reference-layout checkpoints written from a
+   seed (the first forward's weights equal to the checkpoint loaded by
+   hand); ``utils.optimization.run_study`` with 2 trials of ``objective``;
+   ``vit_tiny_cifar100`` with ``--on-device`` and with ``--bf16``;
+   ``cpvt_cifar100``, ``cpvtgap_cifar100`` (rows 1 and 7) and ``tnt_cifar100`` (rows 2 and 6 at
    D 128 and, padded, at D 12; 14 row-2 launches a forward, 14 row-2 and 14
    row-6 a step) in fp32 and bf16; ``swin_tiny_cifar100`` (rows 9-13);
    ``run_reference_main(fused=True)`` (row 15, one launch a step); DeiT-Ti
@@ -353,6 +373,17 @@ MODEL_GRAD_TOL = 1e-4
 # largest reference logit.
 LOGIT_TOL_FP32 = 1e-3
 LOGIT_TOL_BF16_REL = 5e-2
+# int8 (w8a8) serving, ViT-B/16 @224 in bf16. The card's logits against the
+# same artifact served on the CPU: both quantize the same way and their int8
+# products are exact, so they differ only where the bf16 float parts (LN,
+# attention, GELU) round differently on the two devices, the bf16 path's
+# difference, which an activation on an int8 rounding boundary can move by one
+# int8 step of its row (1/127 of the row's max): the bf16 limit,
+# LOGIT_TOL_BF16_REL x max|ref|. Against the float bf16 model on the card:
+# the JAX test's limit, 5% relative (Frobenius) feature error
+# (tests/test_quant.py:81).
+INT8_CPU_TOL_REL = LOGIT_TOL_BF16_REL
+INT8_FEATURE_REL = 5e-2
 # Swin logits of an fp32 model on the card against the CPU run: summation
 # order through 12 blocks on logits of magnitude ~1.
 SWIN_LOGIT_TOL_FP32 = 1e-4
@@ -540,6 +571,87 @@ def seeded_state_dict(model, seed: int):
             a = 0.02 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(a.astype(np.float32))
     return out
+
+
+def reference_state_dict(shapes, seed: int):
+    """Tensors for ``shapes`` (name → shape) from one numpy stream: a 1-D
+    ``weight`` (a norm's scale) 1 + N(0, 0.1), a weight of two or more
+    dimensions N(0, 2 / (fan out + fan in)), everything else N(0, 0.02)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in shapes.items():
+        a = rng.standard_normal(shape)
+        if name.endswith("weight") and len(shape) == 1:
+            a = 1.0 + 0.1 * a
+        elif name.endswith("weight"):
+            a *= (2.0 / (shape[0] + int(np.prod(shape[1:])))) ** 0.5
+        else:
+            a *= 0.02
+        out[name] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def reference_vit_state_dict(a, seed: int):
+    """A ViT ``state_dict`` in the reference's (torchvision's) layout for
+    the preset kwargs ``a``: what ``--init-from-torch`` reads."""
+    d, m, p = a["hidden_dim"], a["mlp_dim"], a["patch_size"]
+    shapes = {"conv_proj.weight": (d, 3, p, p), "conv_proj.bias": (d,),
+              "class_token": (1, 1, d),
+              "encoder.pos_embedding": (1, (a["image_size"] // p) ** 2 + 1,
+                                        d)}
+    for i in range(a["num_layers"]):
+        q = f"encoder.layers.encoder_layer_{i}."
+        shapes.update({
+            q + "ln_1.weight": (d,), q + "ln_1.bias": (d,),
+            q + "self_attention.in_proj_weight": (3 * d, d),
+            q + "self_attention.in_proj_bias": (3 * d,),
+            q + "self_attention.out_proj.weight": (d, d),
+            q + "self_attention.out_proj.bias": (d,),
+            q + "ln_2.weight": (d,), q + "ln_2.bias": (d,),
+            q + "mlp.0.weight": (m, d), q + "mlp.0.bias": (m,),
+            q + "mlp.3.weight": (d, m), q + "mlp.3.bias": (d,)})
+    shapes.update({"encoder.ln.weight": (d,), "encoder.ln.bias": (d,),
+                   "heads.head.weight": (a["num_classes"], d),
+                   "heads.head.bias": (a["num_classes"],)})
+    return reference_state_dict(shapes, seed)
+
+
+def reference_swin_state_dict(a, seed: int):
+    """A Swin ``state_dict`` in torchvision's ``features`` layout for the
+    preset kwargs ``a`` (bias-free patch-merging reductions, as
+    torchvision's)."""
+    e, p = a["embed_dim"], a["patch_size"][0]
+    wh, ww = a["window_size"]
+    shapes = {"features.0.0.weight": (e, 3, p, p), "features.0.0.bias": (e,),
+              "features.0.2.weight": (e,), "features.0.2.bias": (e,)}
+    depths = a["depths"]
+    for i, (depth, heads) in enumerate(zip(depths, a["num_heads"])):
+        d = e * 2 ** i
+        h = int(d * a["mlp_ratio"])
+        for j in range(depth):
+            q = f"features.{2 * i + 1}.{j}."
+            shapes.update({
+                q + "norm1.weight": (d,), q + "norm1.bias": (d,),
+                q + "attn.qkv.weight": (3 * d, d),
+                q + "attn.qkv.bias": (3 * d,),
+                q + "attn.proj.weight": (d, d), q + "attn.proj.bias": (d,),
+                q + "attn.relative_position_bias_table":
+                    ((2 * wh - 1) * (2 * ww - 1), heads),
+                q + "norm2.weight": (d,), q + "norm2.bias": (d,),
+                q + "mlp.0.weight": (h, d), q + "mlp.0.bias": (h,),
+                q + "mlp.3.weight": (d, h), q + "mlp.3.bias": (d,)})
+        if i < len(depths) - 1:
+            q = f"features.{2 * i + 2}."
+            shapes.update({q + "norm.weight": (4 * d,),
+                           q + "norm.bias": (4 * d,),
+                           q + "reduction.weight": (2 * d, 4 * d)})
+    n = e * 2 ** (len(depths) - 1)
+    shapes.update({"norm.weight": (n,), "norm.bias": (n,),
+                   "head.weight": (a["num_classes"], n),
+                   "head.bias": (a["num_classes"],)})
+    return reference_state_dict(shapes, seed)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2569,6 +2681,159 @@ def main() -> int:
     require(e_fp32 <= LOGIT_TOL_FP32, "fp32 served logits against the CPU run")
     del clf32
 
+    # ---- 3b. int8 serving: ViT-B/16 @224 quantized to w8a8 ----------------
+    # quantize_classifier → export_classifier → load_classifier (CUDA) →
+    # predict at buckets 1, 8 and 32, with USE_FUSED_BLOCK on: quant8 keeps
+    # row 8 off (it reads float weights), so each forward launches row 1 in
+    # every layer and nothing else, and runs 48 int8 products (qkv, out, fc1,
+    # fc2 of 12 layers; torch._int_mm, the port of JAX's lax.dot_general)
+    from vision_transformers_tpu_torch.ops import quant
+
+    fmodel = ViT(**args, dtype="bfloat16")
+    fmodel.load_state_dict(weights)  # the float model first, then int8
+    qmodel = serving.quantize_classifier(fmodel)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        manifest = serving.export_classifier(qmodel, shape, tmp,
+                                             buckets=(1, 8, 32), dtype=fp32)
+        del qmodel
+        clf8 = serving.load_classifier(tmp)
+        clf8_cpu = serving.load_classifier(tmp, device="cpu")
+    fc1 = clf8.model.encoder.encoder_layer_0.mlp.fc1
+    require(manifest["model_kwargs"].get("quant8") is True
+            and fc1.kernel_q.dtype == torch.int8 and fc1.kernel_q.is_cuda,
+            "the int8 artifact: quant8 in its kwargs, int8 weights on the "
+            "card")
+    q_forwards = [0]
+    clf8.model.register_forward_hook(
+        lambda *_: q_forwards.__setitem__(0, q_forwards[0] + 1))
+    clf8.warmup()
+    vv.USE_FUSED_BLOCK = True
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        quant.reset_product_counts()
+        _build.reset_launched()
+        q_forwards[0] = 0
+        served8 = {b: clf8.predict(images[:b]) for b in (1, 8, 32)}
+        torch.cuda.synchronize()
+    finally:
+        vv.USE_FUSED_BLOCK = False
+    int8_launches = dict(fa.LAUNCHES)
+    int8_products = quant.PRODUCTS["int8_matmul"]
+    int8_logged = _build.launched()
+    n8 = q_forwards[0]
+    log(f"int8 serving ViT-B/16 bf16 (USE_FUSED_BLOCK on): {n8} forwards, "
+        f"launches { {k: v for k, v in int8_launches.items() if v} }, "
+        f"{int8_products} int8 products, kernels by name {int8_logged}")
+    row8_names = (ROUTE_NAMES[("row 8", "bfloat16")]
+                  + ROUTE_NAMES[("row 8", "float32")])
+    require(n8 == 3 and int8_launches["packed_attention"] == 12 * n8
+            and sum(int8_launches.values()) == 12 * n8
+            and int8_products == 48 * n8
+            and all(int8_logged.get(k, 0) == 12 * n8
+                    for k in ROUTE_NAMES[("row 1", "bfloat16")])
+            and not any(k in int8_logged for k in row8_names),
+            "int8 serving: per forward 12 row-1 launches (tensor cores), no "
+            "row-8 launch and 48 int8 products")
+    for b, out in served8.items():
+        require(out.shape == (b, args["num_classes"])
+                and bool(torch.isfinite(out.float()).all()),
+                f"int8 predict({b}) gives finite ({b}, classes) logits")
+    require(torch.equal(clf8.predict(images[:32]), served8[32])
+            and torch.equal(clf8.predict(images[:8]), served8[8]),
+            "int8 serving reruns bit-equal")
+    # the same artifact on the CPU: the plain versions and the same int8
+    # products (torch._int_mm on the CPU)
+    cpu8 = clf8_cpu.predict(images[:8]).float()
+    scale8 = cpu8.abs().max().item()
+    e_cpu8 = max_err(served8[8].cpu(), cpu8)
+    log(f"int8 served logits vs the same artifact on the CPU: max|diff| "
+        f"{e_cpu8:.3e} (max|ref| {scale8:.3f}, tol {INT8_CPU_TOL_REL} x "
+        "max|ref|)")
+    require(e_cpu8 <= INT8_CPU_TOL_REL * scale8,
+            "int8 served logits against the CPU run of the artifact")
+    del clf8_cpu, cpu8
+    with torch.inference_mode():
+        x32 = torch.from_numpy(images[:32]).to(dev)
+        f8 = clf8.model.forward_features(x32).float()
+        f16 = fmodel.forward_features(x32).float()
+        l16 = fmodel(x32).float()
+    feat_rel = ((f8 - f16).norm() / f16.norm()).item()
+    logit_rel = ((served8[32].float() - l16).norm() / l16.norm()).item()
+    log(f"int8 vs float bf16 on the card, batch 32: relative feature error "
+        f"{feat_rel:.4f} (tol {INT8_FEATURE_REL}), relative logit error "
+        f"{logit_rel:.4f}")
+    require(feat_rel < INT8_FEATURE_REL,
+            "int8 features within 5% of the float bf16 model's")
+    del f8, f16, l16, fmodel
+    # int8_matmul on the card against the CPU, bit-equal (exact int32
+    # products, the same fp32 steps), at 5 rows (padded to torch._int_mm's
+    # 17 on CUDA) and at ViT-B's fc1 (6304 x 768 -> 3072); a K off the
+    # multiple of 8 raises
+    for rows in (5, 32 * 197):
+        xm = randn(130, rows, 768, dtype=bf16)
+        wq, ws = quant.quantize_kernel(randn(131, 3072, 768, dtype=fp32))
+        bm = randn(132, 3072, dtype=fp32)
+        got = quant.int8_matmul(xm, wq, ws, bm)
+        want = quant.int8_matmul(xm.cpu(), wq.cpu(), ws.cpu(), bm.cpu())
+        require(torch.equal(got.cpu(), want),
+                f"int8_matmul at {rows} rows: the card bit-equal to the CPU")
+    try:
+        quant.int8_matmul(xm[:, :12], wq[:, :12], ws)
+        raise RuntimeError("check failed: int8_matmul K 12 on CUDA raises")
+    except ValueError as e:
+        log(f"int8_matmul K 12 on CUDA: {e}")
+    w16 = randn(131, 3072, 768, dtype=bf16)
+    xq = quant.dynamic_quant_rows(xm)[0]
+    mm_ms = queued_ms([lambda: quant.int8_matmul(xm, wq, ws, bm),
+                       lambda: torch._int_mm(xq, wq.t()),
+                       lambda: F.linear(xm, w16, bm.to(bf16))])
+    log(f"ViT-B fc1 (6304 x 768 -> 3072) device time: int8_matmul "
+        f"{mm_ms[0]:.4f} ms (quantize rows, torch._int_mm, rescale, bias), "
+        f"torch._int_mm alone {mm_ms[1]:.4f} ms, bf16 F.linear "
+        f"{mm_ms[2]:.4f} ms")
+    del xm, xq, wq, ws, bm, got, want, w16
+
+    def serve_ms(c, b, iters=10):
+        """ms per request at bucket b, host numpy in and logits out."""
+        x = images[:b]
+        for _ in range(2):
+            c.predict(x).float().cpu()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            c.predict(x).float().cpu()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    int8_serving = {}
+    for b in (1, 8, 32):
+        # bf16, int8, int8, bf16: one process, in turns
+        t = [serve_ms(c, b) for c in (clf, clf8, clf8, clf)]
+        int8_serving[b] = dict(bf16_ms=(t[0] + t[3]) / 2,
+                               int8_ms=(t[1] + t[2]) / 2)
+        log(f"serving ViT-B/16 bucket {b}: int8 {t[1]:.3f} / {t[2]:.3f} ms, "
+            f"bf16 {t[0]:.3f} / {t[3]:.3f} ms per request")
+    log(f"serving ViT-B/16 bucket 32: int8 "
+        f"{32e3 / int8_serving[32]['int8_ms']:.1f} images/s, bf16 "
+        f"{32e3 / int8_serving[32]['bf16_ms']:.1f} images/s")
+    with torch.inference_mode():
+        fwd8 = [cuda_ms(lambda: c.model(x32), iters=10) for c in (clf8, clf)]
+    log(f"ViT-B/16 forward at batch 32, device time: int8 {fwd8[0]:.3f} ms, "
+        f"bf16 {fwd8[1]:.3f} ms")
+    for label, c in (("int8", clf8), ("bf16", clf)):
+        wall, busy, count, top = device_profile(
+            lambda: c.predict(images[:32]).float().cpu(), top=8)
+        if busy is None:
+            log(f"profile {label} bucket 32: the profiler saw no device "
+                "activity")
+            continue
+        int8_serving[32][f"{label}_idle"] = 1 - busy / wall
+        log(f"profile {label} bucket 32: wall {wall:.3f} ms (profiler on), "
+            f"device busy {busy:.3f} ms in {count} activities, idle share "
+            f"{1 - busy / wall:.3f}")
+        for name, ms, n in top:
+            log(f"  {ms:8.3f} ms {n:4d}x {name}")
+    del clf8, x32
+
     # ---- 4. split-head path: S = 1025 -----------------------------------
     wide = dict(args, image_size=512, num_layers=2)
     split_models = {d: ViT(**wide, dtype=d) for d in ("float32", "bfloat16")}
@@ -2823,6 +3088,129 @@ def main() -> int:
         for name, ms, n in top:
             log(f"  {ms:8.3f} ms {n:4d}x {name}")
     del vitb, state, step, loss
+
+    # 6b'. superleaf Adam (training/superleaf.py) on the same model and batch:
+    # the master weights, mu and nu each one flat fp32 buffer, the forward on
+    # views of it, the update one row-15 launch a step; each step's flat
+    # buffers against fused_adam_reference applied to the same flat
+    # gradient, and the parameters against make_optimizer(fused=True)
+    # stepping the same weights under the same dropout seeds, bit-equal
+    from vision_transformers_tpu_torch.training import superleaf as sl
+
+    sleaf = ViT(**vitb_args, dtype="bfloat16")
+    sleaf.load_state_dict(weights)
+    per_leaf = ViT(**vitb_args, dtype="bfloat16")
+    per_leaf.load_state_dict(weights)
+    sstate, smeta = sl.init_state(dict(sleaf.named_parameters()))
+    sstep = sl.superleaf_train_step_fn(sleaf, smeta, 1e-4)
+    pstate = trainer.make_train_state(
+        per_leaf, tx=make_optimizer("adam", 1e-4, fused=True))
+    pstep = trainer.train_step_fn(per_leaf)
+    sleaf.dropout_generator.manual_seed(0)
+    per_leaf.dropout_generator.manual_seed(0)
+    seen = []
+    real_adam_flat = sl.adam_flat
+
+    def spy_adam_flat(st, g, *a, **kw):
+        """The step's own adam_flat, with its inputs kept for the check."""
+        seen.append((st.flat.clone(), st.mu.clone(), st.nu.clone(),
+                     g.clone(), st.step))
+        return real_adam_flat(st, g, *a, **kw)
+
+    sl_losses, sl_logged = [], []
+    sl.adam_flat = spy_adam_flat
+    try:
+        fa.reset_launch_counts()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            _build.reset_launched()
+            sstate, loss_n, _, n = sstep(sstate, xb, yb, wb)
+            torch.cuda.synchronize()
+            sl_logged.append(_build.launched().get("adam_multi_kernel", 0))
+            sl_losses.append((loss_n / n).item())
+            p0, m0, v0, g0, t_ = seen.pop()
+            fadam.fused_adam_reference(p0, m0, v0, g0,
+                                       fadam.adam_scalars(t_ + 1, 1e-4))
+            require(torch.equal(p0, sstate.flat) and torch.equal(m0, sstate.mu)
+                    and torch.equal(v0, sstate.nu),
+                    f"superleaf step {t_ + 1}: the flat buffers bit-equal to "
+                    "fused_adam_reference on the same flat gradient")
+        sl_launches = dict(fa.LAUNCHES)
+    finally:
+        sl.adam_flat = real_adam_flat
+    del p0, m0, v0, g0
+    pl_losses = []
+    for _ in range(3):
+        pstate, loss_n, _, n = pstep(pstate, xb, yb, wb)
+        pl_losses.append((loss_n / n).item())
+    flat_params = sl.unflatten_tree(sstate.flat, smeta)
+    p_diff = max(max_err(flat_params[k], p)
+                 for k, p in per_leaf.named_parameters())
+    log(f"superleaf ViT-B/16 bf16 batch 32 attention_dropout 0.1, "
+        f"{smeta.total_padded} flat elements ({sum(smeta.sizes)} live): loss "
+        f"{sl_losses} (per-leaf fused {pl_losses}), launches "
+        f"{ {k: v for k, v in sl_launches.items() if v} }, adam_multi_kernel "
+        f"per step {sl_logged}, max|superleaf - per-leaf| {p_diff:.3e}")
+    require(sl_logged == [1, 1, 1] and sl_launches["fused_adam"] == 3
+            and sl_launches["packed_attention"] == 36
+            and sl_launches["packed_attention_bwd"] == 36,
+            "superleaf: one row-15 launch a step, 12 row-1 and 12 row-7 "
+            "launches a step")
+    require(sl_losses == pl_losses and p_diff == 0.0,
+            "superleaf: losses and parameters bit-equal to the per-leaf fused "
+            "Adam under the same dropout seeds")
+    require(np.isfinite(sl_losses).all() and sl_losses[-1] < sl_losses[0],
+            "superleaf: finite falling loss over 3 steps on one batch")
+    # times: host clock per synchronised step (superleaf, per-leaf,
+    # per-leaf, superleaf), the optimizer's device time (the one flat launch
+    # against the per-leaf step's one launch over 152 leaves) and the idle
+    # share of a profiled step
+    box = [sstate, pstate]
+
+    def sl_once():
+        box[0] = sstep(box[0], xb, yb, wb)[0]
+
+    def pl_once():
+        box[1] = pstep(box[1], xb, yb, wb)[0]
+
+    def step_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    host = [step_ms(f) for f in (sl_once, pl_once, pl_once, sl_once)]
+    g_zero = torch.zeros_like(sstate.flat)
+    opt_dev = queued_ms([lambda: real_adam_flat(box[0], g_zero, 1e-4),
+                         lambda: box[1].optimizer.step()], reps=5)
+    superleaf_times = dict(
+        step_ms=(host[0] + host[3]) / 2,
+        per_leaf_step_ms=(host[1] + host[2]) / 2,
+        adam_ms=opt_dev[0], per_leaf_adam_ms=opt_dev[1],
+        flat_elements=smeta.total_padded,
+        adam_bound_ms=bound_ms(7 * 4 * smeta.total_padded,
+                               12 * smeta.total_padded, "float32")[0])
+    log(f"superleaf train step B32: {host[0]:.3f} / {host[3]:.3f} ms by the "
+        f"host clock, per-leaf fused {host[1]:.3f} / {host[2]:.3f} ms; "
+        f"optimizer device time: one flat launch {opt_dev[0]:.4f} ms (bound "
+        f"{superleaf_times['adam_bound_ms']:.4f} ms, 7 fp32 streams), "
+        f"per-leaf launch {opt_dev[1]:.4f} ms")
+    for label, key, fn in (("superleaf", "idle", sl_once),
+                           ("per-leaf fused", "per_leaf_idle", pl_once)):
+        wall, busy, count, top = device_profile(fn, top=6)
+        if busy is None:
+            log(f"profile {label} step: the profiler saw no device activity")
+            continue
+        superleaf_times[key] = 1 - busy / wall
+        log(f"profile {label} step: wall {wall:.3f} ms (profiler on), device "
+            f"busy {busy:.3f} ms in {count} activities, idle share "
+            f"{1 - busy / wall:.3f}")
+        for name, ms, n in top:
+            log(f"  {ms:8.3f} ms {n:4d}x {name}")
+    del sleaf, per_leaf, sstate, pstate, sstep, pstep, box, flat_params, g_zero
 
     # 6c. split-head training: 2 layers at 512 px (S = 1025), bf16, batch 2
     x512_2 = x512.to(dev)
@@ -3593,10 +3981,11 @@ def main() -> int:
             "loaders augment through the fused C++ loop")
     ck_dir, art_dir = os.path.join(work, "ckpt"), os.path.join(work, "art")
     vit_routes = [("row 1", "float32"), ("row 7", "float32")]
-    hist = cli_run("vit_tiny_cifar100 fp32 + checkpoints + export",
+    hist = cli_run("vit_tiny_cifar100 fp32 + checkpoints + int8 export",
                    ["vit_tiny_cifar100", "--lr", "1e-3", "--checkpoint-dir",
                     ck_dir, "--checkpoint-every", "1", "--export", art_dir,
-                    "--export-buckets", "1,8,32"], vit_routes)
+                    "--export-buckets", "1,8,32", "--export-int8"],
+                   vit_routes)
     state = hist["final_state"]
     require(ckpt.available_checkpoints(ck_dir) == [1, 2],
             "a checkpoint after each of the 2 epochs")
@@ -3613,16 +4002,96 @@ def main() -> int:
                                     fresh.optimizer.state[key])))
     require(same, "the latest checkpoint restores bit-equal to final_state "
             "(weights, Adam moments, counts)")
+    # --export-int8: the artifact serves quantize_classifier of the trained
+    # model, int8 weights and all
     served = serving.load_classifier(art_dir)
     xs = torch.from_numpy(np.random.RandomState(3).rand(
         8, 32, 32, 3).astype(np.float32))
     with torch.inference_mode():
-        e_art = max_err(served.predict(xs.numpy()),
-                        state.model.eval()(xs.to(dev)))
-    log(f"cli export: {art_dir} served at buckets {served.buckets}, "
-        f"max|served - trained model| {e_art:.3e} at batch 8")
-    require(e_art <= 1e-5, "the exported artifact serves the trained model")
-    del served, fresh, state, hist
+        got = served.predict(xs.numpy())
+        e_art = max_err(got, serving.quantize_classifier(state.model)(
+            xs.to(dev)))
+        f_logits = state.model.eval()(xs.to(dev))
+        rel_f = ((got - f_logits).norm() / f_logits.norm()).item()
+    log(f"cli export (int8): {art_dir} served at buckets {served.buckets}, "
+        f"max|served - quantized trained model| {e_art:.3e} at batch 8, "
+        f"relative error against the float model {rel_f:.4f}")
+    require(served.manifest["model_kwargs"].get("quant8") is True
+            and served.model.encoder.encoder_layer_0.mlp.fc1.kernel_q.dtype
+            == torch.int8 and e_art <= 1e-5,
+            "the exported int8 artifact serves the quantized trained model")
+    del served, fresh, state, hist, got, f_logits
+
+    # --init-from-torch: a reference-layout torch checkpoint written from a
+    # seed; the run's first forward sees exactly the weights that
+    # load_torch_checkpoint gives when they are loaded by hand
+    from vision_transformers_tpu_torch.utils import port_torch
+
+    for key, write, routes in (
+            ("vit_tiny_cifar100", reference_vit_state_dict, vit_routes),
+            ("swin_tiny_cifar100", reference_swin_state_dict,
+             [("row 10", "float32")])):
+        key_args = get_args(key)
+        ckpt_path = os.path.join(work, f"{key}_reference.pt")
+        torch.save({"state_dict": write(key_args, seed=31)}, ckpt_path)
+        cls = cli._model_for(key)
+        first = []
+
+        def snapshot(module, _inputs, cls=cls, first=first):
+            if type(module) is cls and not first:
+                first.append({k: v.detach().clone()
+                              for k, v in module.state_dict().items()})
+
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            snapshot)
+        try:
+            cli_run(f"{key} --init-from-torch",
+                    [key, "--init-from-torch", ckpt_path]
+                    + (["--lr", "1e-3"] if key.startswith("vit") else []),
+                    routes)
+        finally:
+            hook.remove()
+        hand = cls(**key_args, device=dev)
+        started = cls(**key_args, device=dev)
+        hand.load_state_dict(port_torch.load_torch_checkpoint(
+            ckpt_path, key, key_args))
+        started.load_state_dict(first[0])
+        xs = torch.from_numpy(np.random.RandomState(4).rand(
+            8, 32, 32, 3).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            e_first = max_err(started(xs), hand(xs))
+        log(f"cli {key} --init-from-torch: the first forward's weights "
+            f"against the checkpoint loaded by hand: max|logits diff| "
+            f"{e_first:.3e}")
+        require(e_first == 0.0 and all(
+            torch.equal(first[0][k], v) for k, v in hand.state_dict().items()),
+            f"cli {key} --init-from-torch starts from the ported checkpoint")
+        del hand, started, first
+
+    # run_study: 2 trials of the real objective (1 epoch each) on the
+    # synthetic CIFAR-100, the model and its state carried by fit
+    from vision_transformers_tpu_torch.utils import optimization as hpo
+
+    s_train, s_val, _ = get_train_test_loaders(
+        "cifar100", 256, val_split=0.2, root_dir=cifar_root)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    study = hpo.run_study(lambda trial: hpo.objective(
+        trial, model_cls=zoo.ViT,
+        base_args=dict(get_args("vit_tiny_cifar100"), device=dev),
+        train_loader=s_train, val_loader=s_val, num_epochs=1),
+        n_trials=2, seed=0)
+    study_counts = {k: v for k, v in fa.LAUNCHES.items() if v}
+    for k_, v_ in study_counts.items():
+        cli_total[k_] += v_
+    log(f"run_study, 2 trials of 1 epoch: {time.perf_counter() - t0:.1f} s, "
+        f"params {[t.params for t in study.trials]}, values {study.values}, "
+        f"best {study.best_value}, launches {study_counts}")
+    require(len(study.trials) == 2
+            and all(v is not None and 0.0 <= v <= 1.0 for v in study.values)
+            and study_counts.get("packed_attention_bwd", 0) > 0,
+            "run_study: 2 trials of the objective train through rows 1 and 7")
+    del study, s_train, s_val
 
     cli_run("vit_tiny_cifar100 --on-device",
             ["vit_tiny_cifar100", "--lr", "1e-3", "--on-device"], vit_routes)
@@ -3909,7 +4378,9 @@ def main() -> int:
     p_flops = 4 * b * h * s * s * dh
     entry("packed_attention", "packed_attention.cu", 796,
           main_launches["packed_attention"] + tiny_launches["packed_attention"]
-          + vitb_launches["packed_attention"] + fam_total["packed_attention"],
+          + vitb_launches["packed_attention"] + fam_total["packed_attention"]
+          + int8_launches["packed_attention"]
+          + sl_launches["packed_attention"],
           max(v for k_, v in errs.items() if k_[0] == "packed_path"), shape,
           p_ms, cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h)),
           cuda_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv)),
@@ -3920,7 +4391,10 @@ def main() -> int:
               qv, kv, vv, dropout_p=rate)),
           s192_ms=cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv192, h)),
           fp32_ms=cuda_ms(lambda: fa.packed_flash_attention_fwd(
-              qkv.float(), h)))
+              qkv.float(), h)),
+          int8_serving_launches=int8_launches["packed_attention"],
+          superleaf_launches=sl_launches["packed_attention"],
+          int8_serving=int8_serving)
     log(f"  x12 layers = {12 * kernels[-1]['ms']:.3f} ms of the {fwd_ms:.3f} "
         f"ms serving forward; with dropout x12 = "
         f"{12 * kernels[-1]['dropout_ms']:.3f} ms of the {train_fwd_ms:.3f} ms "
@@ -3937,7 +4411,8 @@ def main() -> int:
     entry("packed_attention_bwd", "packed_attention.cu", 833,
           tiny_launches["packed_attention_bwd"]
           + vitb_launches["packed_attention_bwd"]
-          + fam_total["packed_attention_bwd"],
+          + fam_total["packed_attention_bwd"]
+          + sl_launches["packed_attention_bwd"],
           max([errs[("packed_bwd", "vitb16@224 B32 S197", "bfloat16", rate)]]
               + [v for k_, v in errs.items() if k_[0] == "packed_bwd_path"]),
           shape + f" rate {rate}", b_ms,
@@ -3948,6 +4423,7 @@ def main() -> int:
           tflops=b_flops / b_ms / 1e9, rate0_ms=b0_ms,
           rate0_tflops=b_flops / b0_ms / 1e9,
           rate0_library_ms=cuda_ms(sdpa_backward(qv, kv, vv, do_h, 0.0)),
+          superleaf_launches=sl_launches["packed_attention_bwd"],
           fp32_ms=cuda_ms(lambda: fa.packed_flash_attention_bwd(
               qkv.float(), do.float(), out.float(), lse, h, **bwd_kw),
               iters=5))
@@ -4413,7 +4889,8 @@ def main() -> int:
     vit_adam = ViT(**get_args("vitb16_224_imagenet"))
     opt_times |= optimizer_times("vit_b16", list(vit_adam.parameters()))
     del vit_adam
-    entry("fused_adam", "fused_adam.cu", 36, swin_total["fused_adam"],
+    entry("fused_adam", "fused_adam.cu", 36,
+          swin_total["fused_adam"] + sl_launches["fused_adam"],
           max(v for k, v in errs.items() if k[0] == "fused_adam"),
           f"one fp32 leaf of {n_el} elements (device time, L2 cold)",
           cold_ms(one_leaf),
@@ -4424,7 +4901,9 @@ def main() -> int:
           ops_dtype="float32", warm_device_ms=queued_ms([one_leaf])[0],
           back_to_back_ms=cuda_ms(one_leaf),
           library_warm_device_ms=queued_ms([lib_opt.step])[0],
-          library_back_to_back_ms=cuda_ms(lib_opt.step), **opt_times)
+          library_back_to_back_ms=cuda_ms(lib_opt.step), **opt_times,
+          superleaf_launches=sl_launches["fused_adam"],
+          **{f"superleaf_{k}": v for k, v in superleaf_times.items()})
     # the streaming forward at the DETR-R50 encoder's eval shape (batch 4 at
     # 896 x 1344), beside its cross shape, the kv_valid shape, the ViT-B
     # S 1297 shape and T2T-ViT_t-14's tokens; the bound counts the keys this

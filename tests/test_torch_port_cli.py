@@ -1,9 +1,10 @@
 """The port's training CLI end to end on the CPU (``--device cpu``, the
 kernels' plain versions) on a tiny synthetic CIFAR-100 in the real pickle
 format: the host-loader path with checkpoints and an export, the on-device
-path, TNT and CPVT; the family table against the JAX CLI's; and the
-options that are not ported yet. (``run_detection_main`` resizes COCO images
-to 480-800 pixels: it runs on the card, in ``chip_smoke.py``.)
+path, TNT and CPVT; the family table against the JAX CLI's; and
+``--init-from-torch`` and ``--export-int8``. (``run_detection_main`` resizes
+COCO images to 480-800 pixels: it trains on the card, in ``chip_smoke.py``;
+here its ``init_from_torch`` wiring only.)
 """
 
 import numpy as np
@@ -87,11 +88,72 @@ def test_model_table_matches_the_jax_cli():
         cli._model_for("resnet_cifar100")
 
 
-def test_unported_options_raise(cifar):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _run(cifar, "vit_tiny_cifar100", "--init-from-torch", "x.pt")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _run(cifar, "vit_tiny_cifar100", "--export", "a", "--export-int8")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.run_detection_main("nowhere", init_from_torch="x.pt",
-                               device="cpu")
+def test_unported_options_raise(cifar, tmp_path, monkeypatch):
+    """The options once refused as not ported, end to end on the CPU:
+    ``--init-from-torch`` starts training from a reference-layout torch
+    checkpoint (the first forward sees exactly the ported weights),
+    ``--export-int8`` exports the trained model's w8a8 serving model, and
+    ``run_detection_main(init_from_torch=)`` hands ``fit_detection`` a
+    facebook-DETR checkpoint's weights that load into its ``Detr``."""
+    from tests.test_port_torch import RefViT, _fake_detr_state_dict
+    from vision_transformers_tpu_torch.models.image_classification import ViT
+    from vision_transformers_tpu_torch.utils import port_torch
+    from vision_transformers_tpu_torch.utils.args import get_args
+
+    a = get_args("vit_tiny_cifar100")
+    torch.manual_seed(0)
+    ref = RefViT(a["image_size"], a["patch_size"], a["num_layers"],
+                 a["num_heads"], a["hidden_dim"], a["mlp_dim"],
+                 a["num_classes"])
+    ckpt, art = str(tmp_path / "ref.pt"), str(tmp_path / "art")
+    torch.save({"state_dict": ref.state_dict()}, ckpt)
+    first = []
+
+    def snapshot(module, _inputs):
+        if isinstance(module, ViT) and not first:
+            first.append({k: v.clone() for k, v in
+                          module.state_dict().items()})
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(snapshot)
+    try:
+        hist = _run(cifar, "vit_tiny_cifar100", "--epochs", "1",
+                    "--init-from-torch", ckpt, "--export", art,
+                    "--export-int8", "--export-buckets", "4")
+    finally:
+        hook.remove()
+    hand = ViT(**a, device="cpu")
+    hand.load_state_dict(port_torch.port_vit_state_dict(ref.state_dict()))
+    for k, v in hand.state_dict().items():
+        assert torch.equal(first[0][k], v), k
+    model = hist["final_state"].model
+    assert not torch.equal(model.head.weight, hand.head.weight)  # it trained
+    clf = serving.load_classifier(art, device="cpu")
+    assert clf.manifest["model_kwargs"]["quant8"] is True
+    assert clf.model.encoder.encoder_layer_0.mlp.fc1.kernel_q.dtype == \
+        torch.int8
+    x = np.random.RandomState(1).rand(3, 32, 32, 3).astype(np.float32)
+    with torch.no_grad():
+        want = serving.quantize_classifier(model)(torch.from_numpy(x))
+    torch.testing.assert_close(clf.predict(x), want, rtol=0, atol=1e-6)
+
+    sd = {k: torch.from_numpy(v) for k, v in _fake_detr_state_dict(
+        d=256, heads=8, enc=6, dec=6, ffn=2048, classes=91, queries=100,
+        stage_sizes=(3, 4, 6, 3)).items()}
+    det_ckpt = str(tmp_path / "detr.pt")
+    torch.save(sd, det_ckpt)
+    seen = {}
+
+    def fake_fit_detection(model, train, epochs, **kw):
+        seen.update(kw, model=model)
+        return "trained"
+
+    from vision_transformers_tpu_torch.training import detection
+    from vision_transformers_tpu_torch.utils.coco import build_coco
+    monkeypatch.setattr(build_coco, "build", lambda *a_, **k: [])
+    monkeypatch.setattr(detection, "DetectionLoader", lambda *a_, **k: None)
+    monkeypatch.setattr(detection, "fit_detection", fake_fit_detection)
+    assert cli.run_detection_main("coco", init_from_torch=det_ckpt,
+                                  device="cpu") == "trained"
+    seen["model"].load_state_dict(seen["init_params"])  # strict
+    assert torch.equal(seen["init_params"]["query_embed"],
+                       sd["query_embed.weight"])

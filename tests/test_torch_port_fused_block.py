@@ -300,5 +300,8 @@ def test_each_guard_condition_turns_the_branch_off(fused_flag, fused_calls):
     with torch.no_grad():
         odd(torch.zeros(1, 16, 16, 3))
     assert fused_calls == []
-    with pytest.raises(NotImplementedError, match="int8"):
-        ViT(**CFG, quant8=True, device="cpu")               # no quant8
+    quant8 = ViT(**CFG, quant8=True, device="cpu")   # reads int8 weights
+    assert not quant8.encoder.encoder_layer_0._use_fused_block(x, False)
+    with torch.no_grad():
+        quant8(torch.zeros(1, 16, 16, 3))
+    assert fused_calls == []

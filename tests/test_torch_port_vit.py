@@ -180,8 +180,13 @@ def test_vit_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_vit_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ViT(**TINY, quant8=True, device="cpu")
+    # quant8 is ported (the int8 serving model): its encoder Dense layers are
+    # QuantDense, the patch embedding and head stay float, and it records
+    # quant8 in its config; its numerics are in test_torch_port_quant.py
+    q = ViT(**TINY, quant8=True, device="cpu")
+    assert q.config["quant8"] and q.quant8
+    assert q.encoder.encoder_layer_0.mlp.fc1.kernel_q.dtype == torch.int8
+    assert q.head.weight.dtype == torch.float32
     with pytest.raises(ValueError):
         ViT(**{**TINY, "image_size": 18}, device="cpu")
 

@@ -39,6 +39,11 @@ training CLI with what it calls:
   fused C++ augmentation of ``native``), ``utils.checkpoint``,
   ``utils.distillation_loss`` and ``training.device_data`` (on-device
   epochs).
+- int8 (w8a8) serving of the ViT (``ops.quant``,
+  ``serving.quantize_classifier``, ``--export-int8``); reference and
+  torchvision checkpoints (``utils.port_torch``, ``--init-from-torch``);
+  superleaf Adam (``training.superleaf``), the hyperparameter search
+  (``utils.optimization``) and the plots (``utils.visualization``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise instead of running on

@@ -9,9 +9,10 @@ args registry, ``run_reference_main`` (the reference's per-model
         --epochs 100 --batch-size 256 --data-root ./data [--device cpu]
 
 Everything runs on the CUDA device unless ``--device`` (``device=``) names
-another; the CPU runs the kernels' plain versions. Not ported yet:
-``--init-from-torch`` (ROADMAP.md, queue 1, item 12) and ``--export-int8``
-(item 11), which raise.
+another; the CPU runs the kernels' plain versions. ``--init-from-torch``
+starts from a reference torch checkpoint (``utils/port_torch.py``);
+``--export-int8`` quantizes the trained model to w8a8 before the export
+(``serving.quantize_classifier``).
 """
 
 from __future__ import annotations
@@ -20,17 +21,7 @@ import argparse
 from typing import Optional
 
 from vision_transformers_tpu_torch.core.dtypes import DeviceLike
-
-
-def parse_model_key(name: str):
-    """args-registry key → (family, is_swin_v2): the first ``_`` part,
-    lower-cased, and whether it names a SwinV2 preset (the reference
-    registers ``swin_*v2`` keys, utils/args.py:29-41). The port's copy of
-    ``vision_transformers_tpu/utils/port_torch.py::parse_model_key``."""
-    parts = name.lower().split("_")
-    family = parts[0]
-    v2 = family == "swin" and len(parts) > 1 and parts[1].endswith("v2")
-    return family, v2
+from vision_transformers_tpu_torch.utils.port_torch import parse_model_key
 
 
 def _model_for(name: str):
@@ -53,17 +44,6 @@ def _model_for(name: str):
     return table[family]
 
 
-def _refuse_unported(init_from_torch, export_int8) -> None:
-    if init_from_torch:
-        raise NotImplementedError(
-            "--init-from-torch (porting a torch reference checkpoint) is not "
-            "ported yet (ROADMAP.md, queue 1, item 12: utils/port_torch.py)")
-    if export_int8:
-        raise NotImplementedError(
-            "--export-int8 (int8 w8a8 quantization) is not ported yet "
-            "(ROADMAP.md, queue 1, item 11: ops/quant.py)")
-
-
 def run_reference_main(model_name: str, epochs: int = 100,
                        batch_size: int = 256, val_split: float = 0.2,
                        num_workers: int = 4, data_root: str = "./data",
@@ -77,8 +57,12 @@ def run_reference_main(model_name: str, epochs: int = 100,
     """The reference's per-model __main__ recipe (vanilla_vit.py:311-324):
     loaders → args → model → train_model, on ``device`` (CUDA by default).
     ``on_device=True`` (CIFAR only) keeps the dataset on the device
-    (``training.device_data``). ``export_dir``: a serving artifact of the
-    trained model (``serving.export_classifier``)."""
+    (``training.device_data``). ``init_from_torch``: a reference torch
+    checkpoint (``.pt`` or ``.npz``) loaded into the model before training
+    (``utils.port_torch.load_torch_checkpoint``); the trainer then builds the
+    optimizer with the same kwargs as a fresh run. ``export_dir``: a serving
+    artifact of the trained model (``serving.export_classifier``), int8
+    with ``export_int8`` (``serving.quantize_classifier``)."""
     import torch
 
     from vision_transformers_tpu_torch.utils.args import (
@@ -89,7 +73,6 @@ def run_reference_main(model_name: str, epochs: int = 100,
         get_train_test_loaders,
     )
 
-    _refuse_unported(init_from_torch, export_int8)
     dataset = model_name.split("_")[-1]
     train_loader, val_loader, test_loader = get_train_test_loaders(
         dataset_name=dataset, batch_size=batch_size,
@@ -114,6 +97,16 @@ def run_reference_main(model_name: str, epochs: int = 100,
             "DeiT.train_model_with_distillation(...) directly")
     model = cls(**args, device=device)
     print(model)
+    if init_from_torch:
+        # continue from a torch reference checkpoint: the weights go into
+        # the model, and fit / fit_on_device build the optimizer from the
+        # same kwargs as a fresh run
+        from vision_transformers_tpu_torch.utils.port_torch import (
+            load_torch_checkpoint,
+        )
+
+        model.load_state_dict(
+            load_torch_checkpoint(init_from_torch, model_name, args))
     if on_device and dataset.lower().startswith("cifar"):
         import numpy as np
 
@@ -147,8 +140,10 @@ def run_reference_main(model_name: str, epochs: int = 100,
     if export_dir:
         from vision_transformers_tpu_torch import serving
 
+        export_model = (serving.quantize_classifier(model) if export_int8
+                        else model)
         img = args.get("image_size") or 32
-        serving.export_classifier(model, (img, img, 3), export_dir,
+        serving.export_classifier(export_model, (img, img, 3), export_dir,
                                   buckets=export_buckets)
         print(f"exported serving artifact to {export_dir}")
     return metrics
@@ -162,7 +157,9 @@ def run_detection_main(coco_path: str, epochs: int = 300,
     """DETR-on-COCO entry point: ``coco_path`` holds ``train2017/``,
     ``val2017/`` and ``annotations/instances_{train,val}2017.json``; trains
     ``Detr(num_classes, aux_loss=True)`` on ``device`` (CUDA by default)
-    through ``fit_detection``. ``init_from_torch`` is not ported yet."""
+    through ``fit_detection``. ``init_from_torch``: a facebook-DETR
+    (detr-r50) checkpoint to start from
+    (``utils.port_torch.port_detr_state_dict``)."""
     from vision_transformers_tpu_torch.models.object_detection import Detr
     from vision_transformers_tpu_torch.training.detection import (
         DetectionLoader,
@@ -170,12 +167,21 @@ def run_detection_main(coco_path: str, epochs: int = 300,
     )
     from vision_transformers_tpu_torch.utils.coco.build_coco import build
 
-    _refuse_unported(init_from_torch, False)
     train_ds = build("train", coco_path, return_masks=masks)
     val_ds = build("val", coco_path, return_masks=masks)
     train = DetectionLoader(train_ds, batch_size, shuffle=True)
     val = DetectionLoader(val_ds, batch_size)
     model = Detr(num_classes=num_classes, aux_loss=True, device=device)
+    if init_from_torch:
+        import torch
+
+        from vision_transformers_tpu_torch.utils.port_torch import (
+            port_detr_state_dict,
+        )
+
+        sd = torch.load(init_from_torch, map_location="cpu",
+                        weights_only=True)
+        kwargs["init_params"] = port_detr_state_dict(sd)
     return fit_detection(model, train, epochs, val_loader=val,
                          num_classes=num_classes, **kwargs)
 
@@ -203,14 +209,15 @@ def main(argv: Optional[list] = None):
                    help="batches per call of the step function "
                         "(host-loader path)")
     p.add_argument("--init-from-torch", default=None, metavar="CKPT",
-                   help="not ported yet (ROADMAP.md, queue 1, item 12)")
+                   help="torch reference state_dict (.pt/.npz) to port and "
+                        "continue training from (utils/port_torch.py)")
     p.add_argument("--export", default=None, metavar="DIR",
                    help="after training, export a serving artifact "
                         "(serving.export_classifier) to DIR")
     p.add_argument("--export-buckets", default="1,8,32",
                    help="serving batch buckets, csv (with --export)")
     p.add_argument("--export-int8", action="store_true",
-                   help="not ported yet (ROADMAP.md, queue 1, item 11)")
+                   help="post-training int8 w8a8 quantization before export")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")

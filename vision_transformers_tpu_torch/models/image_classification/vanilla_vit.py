@@ -25,6 +25,12 @@ the CPU), reading the same ``ln_1`` and ``self_attention`` parameters as the
 modular branch. ``EncoderBlock._use_fused_block`` is the JAX guard less its
 two TPU facts: no device test (the JAX package fuses only on a TPU) and the
 port's own size rule (``fused_block_supported``) in place of the VMEM budget.
+
+``quant8`` (serving only): every encoder block's ``qkv``, ``out``, ``fc1`` and
+``fc2`` are ``ops.quant.QuantDense`` (int8 weights, activations quantized per
+row at run time); the patch embedding and the head stay float, and the fused
+block stays off (it reads float weights). ``serving.quantize_classifier``
+makes such a model from a trained one; ``fit`` refuses it.
 """
 
 from __future__ import annotations
@@ -66,27 +72,28 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, num_heads: int, hidden_dim: int, mlp_dim: int,
                  dropout: float = 0.0, attention_dropout: float = 0.0, *,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, quant8: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_heads = num_heads
         self.hidden_dim = hidden_dim
+        self.quant8 = quant8
         self.ln_1 = LayerNorm(hidden_dim, eps=1e-6, dtype=dtype)
         self.self_attention = SelfAttention(
             hidden_dim, num_heads, attention_dropout=attention_dropout,
-            dtype=dtype, generator=generator)
+            dtype=dtype, quant8=quant8, generator=generator)
         self.drop = Dropout(dropout)
         self.ln_2 = LayerNorm(hidden_dim, eps=1e-6, dtype=dtype)
         self.mlp = MLPBlock(hidden_dim, mlp_dim, dropout=dropout, dtype=dtype,
-                            generator=generator)
+                            quant8=quant8, generator=generator)
 
     def _use_fused_block(self, x: torch.Tensor, return_weights: bool) -> bool:
-        """The JAX guard (vanilla_vit.py:56-67): the flag, eval mode (its
+        """The JAX guard (vanilla_vit.py:56-67): the flag, not ``quant8``
+        (the fused kernel reads float weights), eval mode (its
         ``deterministic``), no attention weights asked for and a 3-D input,
-        within the port's size rule. ``quant8`` is refused when a model is
-        built, so it needs no term here."""
-        return (USE_FUSED_BLOCK and not self.training and not return_weights
-                and x.ndim == 3
+        within the port's size rule."""
+        return (USE_FUSED_BLOCK and not self.quant8 and not self.training
+                and not return_weights and x.ndim == 3
                 and fused_block_supported(self.hidden_dim, self.num_heads))
 
     def forward(self, x: torch.Tensor, return_weights: bool = False,
@@ -129,7 +136,7 @@ class Encoder(nn.Module):
     def __init__(self, seq_length: int, num_layers: int, num_heads: int,
                  hidden_dim: int, mlp_dim: int, dropout: float = 0.0,
                  attention_dropout: float = 0.0, remat: bool = False, *,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, quant8: bool = False,
                  generator: Optional[torch.Generator] = None,
                  dropout_generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -144,7 +151,7 @@ class Encoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"encoder_layer_{i}", EncoderBlock(
                 num_heads, hidden_dim, mlp_dim, dropout, attention_dropout,
-                dtype=dtype, generator=generator))
+                dtype=dtype, quant8=quant8, generator=generator))
         self.ln = LayerNorm(hidden_dim, eps=1e-6, dtype=dtype)
 
     def forward(self, x: torch.Tensor, return_weights: bool = False):
@@ -177,7 +184,8 @@ class ViT(nn.Module, TrainableModel):
     """ViT classifier with the JAX package's constructor arguments, plus
     ``device`` (default CUDA; raises without one unless ``device="cpu"``)
     and ``seed`` for the initial weights. ``dtype`` is the compute dtype;
-    parameters are fp32. ``config`` holds the constructor kwargs that
+    parameters are fp32. ``quant8`` builds the int8 serving model (the
+    module's docstring). ``config`` holds the constructor kwargs that
     rebuild the model (serving's manifest stores them).
     ``train_model(model, train_loader, test_loader, epochs, val_loader)``
     trains it through ``training.trainer.fit``."""
@@ -190,9 +198,6 @@ class ViT(nn.Module, TrainableModel):
                  in_channels: int = 3, *, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
-        if quant8:
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md, queue 1, item 11)")
         if image_size % patch_size:
             raise ValueError("Input shape indivisible by patch size!")
         device = resolve_device(device)
@@ -203,7 +208,10 @@ class ViT(nn.Module, TrainableModel):
             hidden_dim=hidden_dim, mlp_dim=mlp_dim, dropout=dropout,
             attention_dropout=attention_dropout, num_classes=num_classes,
             remat=remat, dtype=dtype_name(dtype), in_channels=in_channels)
+        if quant8:  # a float model's config (and manifest) stays as it was
+            self.config["quant8"] = True
         self.hidden_dim = hidden_dim
+        self.quant8 = quant8
         gen = torch.Generator().manual_seed(seed)
         self.dropout_generator = torch.Generator().manual_seed(seed)
         seq_length = (image_size // patch_size) ** 2 + 1
@@ -212,8 +220,8 @@ class ViT(nn.Module, TrainableModel):
         self.class_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         self.encoder = Encoder(
             seq_length, num_layers, num_heads, hidden_dim, mlp_dim, dropout,
-            attention_dropout, remat, dtype=dtype, generator=gen,
-            dropout_generator=self.dropout_generator)
+            attention_dropout, remat, dtype=dtype, quant8=quant8,
+            generator=gen, dropout_generator=self.dropout_generator)
         self.head = Dense(hidden_dim, num_classes, dtype=dtype,
                           weight_init=zeros_, bias_init=zeros_)
         self.to(device)

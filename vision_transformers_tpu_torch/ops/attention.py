@@ -30,6 +30,7 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
     packed_flash_supported,
 )
 from vision_transformers_tpu_torch.ops.layers import Dense
+from vision_transformers_tpu_torch.ops.quant import QuantDense
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -126,12 +127,14 @@ class SelfAttention(nn.Module):
     probabilities (plain math, as in the JAX package). In training mode
     with ``attention_dropout`` > 0, ``forward`` needs ``seed``, the host
     integer its dropout mask is made from: the caller draws it, so that a
-    recomputed forward (``remat``) replays the same mask.
+    recomputed forward (``remat``) replays the same mask. ``quant8``
+    (serving): ``qkv`` and ``out`` are ``QuantDense`` (w8a8, ``ops/quant.py``);
+    ``qkv``'s output keeps ``dtype``, so the attention keeps its route.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  attention_dropout: float = 0.0, out_bias: bool = True, *,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, quant8: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_dim % num_heads:
@@ -139,10 +142,15 @@ class SelfAttention(nn.Module):
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.attention_dropout = attention_dropout
-        self.qkv = Dense(hidden_dim, 3 * hidden_dim, dtype=dtype,
-                         generator=generator)
-        self.out = Dense(hidden_dim, hidden_dim, bias=out_bias, dtype=dtype,
-                         generator=generator)
+        if quant8:
+            self.qkv = QuantDense(hidden_dim, 3 * hidden_dim, dtype=dtype)
+            self.out = QuantDense(hidden_dim, hidden_dim, bias=out_bias,
+                                  dtype=dtype)
+        else:
+            self.qkv = Dense(hidden_dim, 3 * hidden_dim, dtype=dtype,
+                             generator=generator)
+            self.out = Dense(hidden_dim, hidden_dim, bias=out_bias,
+                             dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, return_weights: bool = False, *,
                 seed: Optional[int] = None):

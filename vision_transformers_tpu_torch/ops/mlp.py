@@ -22,6 +22,7 @@ from vision_transformers_tpu_torch.core.initializers import (
     zeros_,
 )
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout
+from vision_transformers_tpu_torch.ops.quant import QuantDense
 
 
 def gelu_for(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -32,18 +33,23 @@ def gelu_for(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 class MLPBlock(nn.Module):
-    """Reference ViT encoder MLP: in → mlp_dim → out (default: in)."""
+    """Reference ViT encoder MLP: in → mlp_dim → out (default: in).
+    ``quant8`` (serving): ``fc1`` and ``fc2`` are ``QuantDense`` (w8a8)."""
 
     def __init__(self, in_dim: int, mlp_dim: int,
                  out_dim: Optional[int] = None, dropout: float = 0.0, *,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, quant8: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out_dim = in_dim if out_dim is None else out_dim
-        self.fc1 = Dense(in_dim, mlp_dim, dtype=dtype, bias_init=tiny_normal_,
-                         generator=generator)
-        self.fc2 = Dense(mlp_dim, out_dim, dtype=dtype, bias_init=tiny_normal_,
-                         generator=generator)
+        if quant8:
+            self.fc1 = QuantDense(in_dim, mlp_dim, dtype=dtype)
+            self.fc2 = QuantDense(mlp_dim, out_dim, dtype=dtype)
+        else:
+            self.fc1 = Dense(in_dim, mlp_dim, dtype=dtype,
+                             bias_init=tiny_normal_, generator=generator)
+            self.fc2 = Dense(mlp_dim, out_dim, dtype=dtype,
+                             bias_init=tiny_normal_, generator=generator)
         self.act = gelu_for(dtype)
         self.drop = Dropout(dropout)
 

@@ -18,7 +18,10 @@ Artifacts are for CUDA (``platforms: ["cuda"]``), where the attention runs
 through the kernels in ``csrc/``. ``load_classifier(dir, device="cpu")``
 serves through the kernels' plain versions, for tests.
 
-Not ported yet: ``quantize_classifier`` (int8) and mesh/SPMD artifacts.
+``quantize_classifier`` turns a trained ViT into its int8 (w8a8) serving
+model (``ops/quant.py``); its artifact carries ``quant8`` in the model kwargs
+and the int8 weights in ``weights.pt``. Not ported yet: mesh/SPMD artifacts
+(ROADMAP.md, queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -51,6 +54,11 @@ from vision_transformers_tpu_torch.models.image_classification import (
     TwinSVT,
     ViT,
 )
+from vision_transformers_tpu_torch.ops.layers import Dense
+from vision_transformers_tpu_torch.ops.quant import (
+    QuantDense,
+    quantize_dense_params,
+)
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "weights.pt"
@@ -59,6 +67,34 @@ _MODELS = {"ViT": ViT, "SwinTransformer": SwinTransformer,
            "SwinTransformerV2": SwinTransformerV2, "PVT": PVT,
            "TwinSVT": TwinSVT, "DeiT": DeiT, "CPEViT": CPEViT,
            "T2T_ViT": T2T_ViT, "CPVT": CPVT, "CPVTGAP": CPVTGAP, "TNT": TNT}
+
+
+def quantize_classifier(model: torch.nn.Module) -> torch.nn.Module:
+    """Post-training int8 (w8a8) quantization for serving.
+
+    Returns a new model of ``model``'s class built with ``quant8=True`` on
+    its device, loaded with ``model``'s weights: every ``Dense`` that the
+    quant8 model builds as a ``QuantDense`` (each encoder block's
+    ``self_attention.qkv``, ``self_attention.out``, ``mlp.fc1`` and
+    ``mlp.fc2``, the JAX package's targets) becomes int8 per-channel weights
+    and fp32 scales (``ops/quant.py``); activations quantize at run time, so
+    no calibration set is needed. The patch embedding and the head stay in
+    the float dtype. A model without a ``quant8`` serving path raises
+    ``ValueError``, as in the JAX package."""
+    if not hasattr(model, "quant8"):
+        raise ValueError(
+            f"{type(model).__name__} has no quant8 serving path")
+    device = next(model.parameters()).device
+    qmodel = type(model)(**dict(model.config, quant8=True), device=device)
+    floats = dict(model.named_modules())
+    state = dict(model.state_dict())
+    for name, sub in qmodel.named_modules():
+        if isinstance(sub, QuantDense) and isinstance(floats[name], Dense):
+            del state[f"{name}.weight"]
+            state.update({f"{name}.{key}": value for key, value
+                          in quantize_dense_params(floats[name]).items()})
+    qmodel.load_state_dict(state)
+    return qmodel.eval()
 
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],

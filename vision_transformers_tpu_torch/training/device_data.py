@@ -29,6 +29,7 @@ from vision_transformers_tpu_torch.training.trainer import (
     TrainState,
     cross_entropy_with_weights,
     make_train_state,
+    refuse_serving_only,
 )
 
 
@@ -99,6 +100,7 @@ def fit_on_device(
     permutation, ``len // batch_size`` steps (the ragged tail of the
     permutation is dropped, as in the JAX package) and one host read.
     Returns the reference-parity metrics dict plus ``final_state``."""
+    refuse_serving_only(model)
     dev = next(model.parameters()).device
 
     def put(d):

@@ -74,6 +74,16 @@ def _default_preprocess(images, normalize):
     return x
 
 
+def refuse_serving_only(model) -> None:
+    """A ``quant8`` model holds int8 weights for serving (``ops/quant.py``,
+    as JAX ``QuantDense``): no training path takes it."""
+    if getattr(model, "quant8", False):
+        raise ValueError(
+            f"{type(model).__name__}(quant8=True) is a serving-only model "
+            "(int8 weights): train the float model, then quantize it with "
+            "serving.quantize_classifier")
+
+
 def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
@@ -89,13 +99,15 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     """Build the train step for a classification model:
     ``step(state, images, labels, weights)`` → (state, loss·n, correct, n),
     the last three as scalars on the model's device. Inputs may be numpy
-    arrays or tensors; they are moved to the model's device.
+    arrays or tensors; they are moved to the model's device. A ``quant8``
+    model raises ``ValueError`` (``refuse_serving_only``).
 
     ``teacher_fn`` (normalised images → logits) enables DeiT-style
     distillation: the model's training forward must return (cls_logits,
     dist_logits), and ``distill`` = (type, alpha, tau) (default ("hard",
     0.5, 5.0)) blends the base loss with the distillation term; accuracy is
     the class head's."""
+    refuse_serving_only(model)
     loss_fn = loss_fn or cross_entropy_with_weights
 
     def step(state: TrainState, images, labels, weights):

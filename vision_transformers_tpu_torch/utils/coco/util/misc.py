@@ -13,6 +13,8 @@ part the detection path needs:
 - ``reduce_dict`` for one process. The multi-process helpers
   (``init_distributed_mode``, ``all_gather``, ...) wait for the parallel
   slice (ROADMAP.md, queue 1, item 10).
+- The JAX module's re-exports of ``utils.metrics``: ``MetricLogger``,
+  ``SmoothedValue``, ``accuracy`` (``accuracy_topk``) and ``get_sha``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,14 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the JAX module's re-exports
+from vision_transformers_tpu_torch.utils.metrics import (  # noqa: F401
+    MetricLogger,
+    SmoothedValue,
+    accuracy_topk as accuracy,
+    get_sha,
+)
 
 
 def reduce_dict(input_dict: dict, average: bool = True) -> dict:

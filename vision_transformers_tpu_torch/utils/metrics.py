@@ -9,7 +9,9 @@ Counterpart of ``vision_transformers_tpu/utils/metrics.py``:
 - ``step_timer``: wall-clock step timing that waits for the CUDA device
   before reading the clock (PyTorch returns before the card finishes);
 - ``profile_trace``: a ``torch.profiler`` trace (CPU and, where there is
-  one, CUDA activity) written for TensorBoard/Perfetto.
+  one, CUDA activity) written for TensorBoard/Perfetto;
+- ``force_sync``: wait for a tensor's device by reading one scalar of it;
+- ``get_sha``: the git provenance stamp of the working directory.
 
 Cross-process reduction waits for the parallel slice (ROADMAP.md, queue 1,
 item 10); in one process it is the identity.
@@ -179,6 +181,12 @@ def step_timer(device=None):
     result["seconds"] = now() - t0
 
 
+def force_sync(x) -> float:
+    """Force device completion by pulling one scalar (the fp32 sum of
+    ``x``) to the host."""
+    return float(torch.as_tensor(x).float().sum())
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """``torch.profiler`` trace of the block (CPU, and CUDA where present),
@@ -192,3 +200,22 @@ def profile_trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def get_sha() -> str:
+    """Git provenance stamp of the working directory: ``"sha: <HEAD>,
+    status: clean"`` (or ``has uncommitted changes``), ``"sha: N/A"``
+    outside a git checkout."""
+    import subprocess
+
+    try:
+        sha = subprocess.check_output(
+            ["git", "rev-parse", "HEAD"], text=True,
+            stderr=subprocess.DEVNULL).strip()
+        diff = subprocess.check_output(
+            ["git", "diff-index", "HEAD"], text=True,
+            stderr=subprocess.DEVNULL).strip()
+        return (f"sha: {sha}, status: "
+                f"{'has uncommitted changes' if diff else 'clean'}")
+    except Exception:
+        return "sha: N/A"

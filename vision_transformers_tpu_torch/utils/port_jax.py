@@ -10,7 +10,9 @@ take a JAX model's params tree as nested dicts of numpy arrays
 ``state_dict``. The port's module names mirror the JAX tree, so the mapping
 is a rename and a transpose:
 
-- Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
+- Dense ``kernel`` (in, out) → Linear ``weight`` (out, in); a quantized
+  ViT's ``QuantDense`` ``kernel_q`` (int8, (in, out)) → its int8 (out, in)
+  ``kernel_q``, with ``kernel_scale`` and ``bias`` in fp32;
 - a conv ``kernel`` (ph, pw, cin, out), Swin's patch embedding → the
   ``weight`` (out, ph·pw·cin) of the matmul that ``patchify`` feeds, whose
   features are ordered (ph, pw, c) too;
@@ -26,7 +28,8 @@ is a rename and a transpose:
   ``relative_position_bias_table``; SwinV2's ``q_bias``, ``v_bias``,
   ``logit_scale``; Twins LSA's ``qkv_bias_p``, ``proj_bias_p``).
 
-Loading reference or torchvision checkpoints is not ported yet.
+Reference, torchvision and facebook-DETR checkpoints load through
+``utils/port_torch.py``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ def _walk(params: Mapping[str, Any], depthwise) -> Dict[str, torch.Tensor]:
         for key, sub in tree.items():
             if isinstance(sub, Mapping):
                 walk(sub, f"{prefix}{key}.")
+                continue
+            if key == "kernel_q":
+                # a QuantDense's int8 (in, out) kernel → QuantDense's
+                # (out, in), still int8; its scale and bias fall through
+                # to fp32 below
+                arr = np.asarray(sub)
+                if arr.dtype != np.int8:
+                    raise ValueError(f"{prefix}kernel_q is {arr.dtype}, "
+                                     "not int8")
+                out[prefix + key] = torch.tensor(np.ascontiguousarray(arr.T))
                 continue
             arr = np.asarray(sub, dtype=np.float32)
             if key == "kernel" and depthwise(prefix):
