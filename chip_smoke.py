@@ -204,6 +204,24 @@ exit, and without the final result line:
    (``ImageFolderLoader``); ``run_detection_main`` (DETR-R50, 2 steps at
    batch 2 on a COCO folder with boxes, polygons and both RLE forms). The
    fused C++ augmentation must have built.
+7c. Parallel at one rank: ``parallel.init_distributed_mode`` under
+   torchrun's environment (set by the phase) joins an NCCL group of 1, and
+   every mesh path runs its collectives there with the kernels on, each
+   run's launch counts zeroed before and read after it: ``fit`` of
+   ViT-B/16 @224 (bf16, batch 32, 3 steps and an eval batch, attention
+   dropout 0.1, fused Adam) on a (1, 1) data × model mesh, its losses and
+   weights bit-equal to ``mesh=None`` (rows 1, 7 and 15 by name); the step
+   with and without the mesh by the host clock and the gradient all-reduce
+   alone; ``fit_detection`` of DETR-R50 (one step at batch 2, 896 x 1344,
+   dropout 0.1 and 0 with ``USE_PALLAS_BWD``: rows 5, 6 and 2, 3, 4, 6)
+   on a (1,) data mesh, bit-equal to ``mesh=None``; data-parallel serving
+   artifacts of ViT-B/16 and its int8 twin at buckets 1, 8 and 32, predict
+   bit-equal to the artifacts without a mesh; ``vit_pipeline_forward`` with
+   one stage, bit-equal to the forward; ring attention at the DETR
+   encoder's shape (B 2, H 8, S 4704, D 32, COCO key masks, one hop)
+   against ``mha_reference`` with its time beside row 3's; the MoE against
+   its dense oracle. The multi-rank runs are the CPU tests' (NCCL takes no
+   two ranks on one card).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -4241,6 +4259,251 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     log(f"cli launches in all: { {k: v for k, v in cli_total.items() if v} }")
 
+    # ---- 7c. parallel at one rank: NCCL and the mesh paths ------------------
+    # One process on the one card joins an NCCL group of 1 through
+    # init_distributed_mode (torchrun's environment, set here); every mesh
+    # path runs its collectives at world 1 with the kernels on, each run's
+    # launch counts zeroed just before and read just after it. The multi-rank
+    # numerics are held on the CPU (tests/test_torch_port_multiprocess.py):
+    # NCCL takes no two ranks on one device.
+    import socket
+
+    from vision_transformers_tpu_torch import parallel
+    from vision_transformers_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        par_port = sock.getsockname()[1]
+    par_env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(par_port),
+                   RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(par_env)
+    info = parallel.init_distributed_mode()
+    require(info == {"rank": 0, "world_size": 1, "distributed": False}
+            and torch.distributed.get_backend() == "nccl",
+            f"init_distributed_mode under torchrun's env joins NCCL at world "
+            f"1: {info}, backend {torch.distributed.get_backend()}")
+    log(f"parallel: NCCL {torch.cuda.nccl.version()} "
+        f"group of 1, {info}")
+    par_total = {k: 0 for k in fa.LAUNCHES}
+
+    def par_run(label, fn):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after; returns (its result, the counts, the kernels by name)."""
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        _build.reset_launched()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fa.LAUNCHES.items() if v}
+        for k, v in got.items():
+            par_total[k] += v
+        log(f"parallel {label}: launches {got}")
+        return out, got, _build.launched()
+
+    def same_state(a, b):
+        sa, sb = a.state_dict(), b.state_dict()
+        return set(sa) == set(sb) and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
+
+    # fit(ViT-B/16, mesh=(1, 1)): 3 steps at batch 32 in bf16, attention
+    # dropout 0.1, fused Adam; losses and weights bit-equal to mesh=None
+    dm = parallel.make_mesh((1, 1), ("data", "model"))
+    prng = np.random.RandomState(21)
+    fit_x = prng.standard_normal((96, 224, 224, 3)).astype(np.float32)
+    fit_y = prng.randint(0, args["num_classes"], 96).astype(np.int32)
+
+    class Batches:
+        def __init__(self, n):
+            self.n = n
+
+        def __iter__(self):
+            for i in range(0, self.n, 32):
+                yield fit_x[i:i + 32], fit_y[i:i + 32]
+
+    def vit_fit(mesh):
+        m = ViT(**dict(args, attention_dropout=0.1), dtype="bfloat16")
+        m.load_state_dict(weights)
+        h = trainer.fit(m, Batches(96), Batches(32), 1, lr=1e-4, mesh=mesh,
+                        verbose=False, seed=5, fused=True)
+        return h, m
+
+    (h_plain, m_plain), got_plain, _ = par_run(
+        "fit ViT-B/16 mesh=None", lambda: vit_fit(None))
+    (h_mesh, m_mesh), got_mesh, names = par_run(
+        "fit ViT-B/16 mesh (1, 1)", lambda: vit_fit(dm))
+    log(f"parallel fit ViT-B/16: train loss {h_mesh['train_loss']} (mesh) "
+        f"{h_plain['train_loss']} (none), test loss {h_mesh['test_loss']}")
+    require(all(h_mesh[k] == h_plain[k] for k in
+                ("train_loss", "train_accuracy", "test_loss",
+                 "test_accuracy")) and same_state(m_mesh, m_plain),
+            "fit(mesh=(1, 1)): losses and final weights bit-equal to "
+            "mesh=None")
+    require(got_mesh == got_plain
+            and got_mesh.get("packed_attention") == 12 * 4
+            and got_mesh.get("packed_attention_bwd") == 12 * 3
+            and got_mesh.get("fused_adam") == 3,
+            f"fit ViT-B/16 under the mesh: 12 row-1 launches per forward (3 "
+            f"steps + 1 eval batch), 12 row-7 per step, one row 15 a step; "
+            f"got {got_mesh}")
+    want_names = (ROUTE_NAMES[("row 1", "bfloat16")]
+                  + ROUTE_NAMES[("row 7", "bfloat16")] + ("adam_multi_kernel",))
+    require(all(names.get(x, 0) > 0 for x in want_names),
+            f"fit under the mesh launches {want_names} by name; the launch "
+            f"logs saw {names}")
+
+    # the step with and without the mesh: the cost of NCCL at world 1
+    xb = torch.from_numpy(fit_x[:32]).to(dev)
+    yb = torch.from_numpy(fit_y[:32]).long().to(dev)
+    wb = torch.ones(32, device=dev)
+    steps = {None: (trainer.train_step_fn(m_plain), h_plain["final_state"]),
+             dm: (trainer.train_step_fn(m_mesh, mesh=dm),
+                  h_mesh["final_state"])}
+    step_ms = {None: [], dm: []}
+    for mesh in (None, dm, dm, None, None, dm):
+        fn, st = steps[mesh]
+        fn(st, xb, yb, wb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(st, xb, yb, wb)
+        torch.cuda.synchronize()
+        step_ms[mesh].append((time.perf_counter() - t0) / 5 * 1e3)
+    dp1 = pmesh.DataParallel(dm)
+    grads_ms = cuda_ms(lambda: dp1.all_reduce_grads(
+        h_mesh["final_state"].optimizer.params), iters=10)
+    n_grad = sum(p.numel() for p in h_mesh["final_state"].optimizer.params)
+    logits = torch.zeros(32, args["num_classes"], device=dev)
+    gather_ms = cuda_ms(lambda: dp1.gather(logits), iters=10)
+    par_times = dict(
+        step_ms=float(np.median(step_ms[dm])),
+        step_plain_ms=float(np.median(step_ms[None])),
+        allreduce_ms=grads_ms, gather_ms=gather_ms)
+    log(f"parallel ViT-B/16 bf16 train step, batch 32 (host clock, 3 x 5 "
+        f"steps alternating): mesh (1, 1) {step_ms[dm]} ms, none "
+        f"{step_ms[None]} ms; the step's gradient all-reduce alone "
+        f"({n_grad} fp32 values, one NCCL call) {grads_ms:.4f} ms, the "
+        f"logits' all-gather {gather_ms:.4f} ms (device time)")
+    del m_plain, m_mesh, h_plain, h_mesh, steps, fit_x
+
+    # fit_detection(DETR-R50, mesh=(1,)): one step at batch 2 (896 x 1344)
+    # in bf16, at dropout 0.1 (rows 5, 6) and 0 with USE_PALLAS_BWD (rows 2,
+    # 3, 4, 6), equal to the step without a mesh
+    d1 = parallel.make_mesh((1,), ("data",))
+    for rate in (0.1, 0.0):
+        fa.USE_PALLAS_BWD = rate == 0.0
+        runs = []
+        for mesh in (None, d1):
+            m = Detr(**det_cfg, dropout=rate, dtype="bfloat16")
+            m.load_state_dict(det_w, strict=True)
+            hist, got, _ = par_run(
+                f"fit_detection DETR-R50 dropout {rate} mesh "
+                f"{None if mesh is None else mesh.shape}",
+                lambda m=m, mesh=mesh: fit_detection(
+                    m, DetectionLoader(train_ds, 2), 1, num_classes=91,
+                    seed=0, verbose=False, mesh=mesh))
+            runs.append((hist["loss"], m, got))
+        fa.USE_PALLAS_BWD = False
+        (l0, m0, g0), (l1, m1, g1) = runs
+        require(l0 == l1 and np.isfinite(l1).all() and same_state(m0, m1),
+                f"fit_detection(mesh=(1,)) at dropout {rate}: loss {l1} and "
+                f"weights bit-equal to mesh=None ({l0})")
+        require(g1 == g0 == DETR_TRAIN_LAUNCHES[rate],
+                f"fit_detection under the mesh at dropout {rate}: "
+                f"{DETR_TRAIN_LAUNCHES[rate]}; got {g1}")
+        del m0, m1
+
+    # data-parallel serving artifacts (float and int8) at buckets 1, 8, 32:
+    # predict bit-equal to the artifacts exported without a mesh
+    smodel = ViT(**args, dtype="bfloat16")
+    smodel.load_state_dict(weights)
+    par_dir = tempfile.mkdtemp(prefix="vtt_par_")
+    img_shape = (args["image_size"], args["image_size"], 3)
+    for tag, m in (("bf16", smodel),
+                   ("int8", serving.quantize_classifier(smodel))):
+        plain_dir = os.path.join(par_dir, tag)
+        dp_dir = os.path.join(par_dir, tag + "_dp")
+        serving.export_classifier(m, img_shape, plain_dir,
+                                  buckets=(1, 8, 32))
+        manifest = serving.export_classifier(m, img_shape, dp_dir,
+                                             buckets=(1, 8, 32), mesh=d1)
+        require(manifest["nr_devices"] == 1
+                and manifest["data_axis"] == "data",
+                f"{tag} DP manifest: {manifest}")
+        a = serving.load_classifier(plain_dir)
+        b_ = serving.load_classifier(dp_dir, mesh=d1)
+        a.warmup()
+        b_.warmup()
+        outs, got, _ = par_run(
+            f"serving {tag} DP artifact, n = 1, 5, 8, 32, 40",
+            lambda b_=b_: [b_.predict(images[:n]) for n in (1, 5, 8, 32, 40)])
+        for n, o in zip((1, 5, 8, 32, 40), outs):
+            require(torch.equal(o, a.predict(images[:n])),
+                    f"{tag} DP artifact: predict({n}) bit-equal to the plain "
+                    "artifact's")
+        require(got.get("packed_attention") == 12 * 6,
+                f"{tag} DP serving: 12 row-1 launches per forward; {got}")
+    shutil.rmtree(par_dir, ignore_errors=True)
+
+    # vit_pipeline_forward with one stage: the model's forward, bit for bit
+    st1 = parallel.make_mesh((1,), ("stage",))
+    x8 = torch.from_numpy(images[:8]).to(dev)
+    with torch.inference_mode():
+        want = smodel(x8)
+    got_pp, got, names = par_run(
+        "vit_pipeline_forward ViT-B/16 one stage, batch 8",
+        lambda: parallel.vit_pipeline_forward(smodel, None, x8, st1,
+                                              n_micro=1))
+    require(torch.equal(got_pp, want) and got.get("packed_attention") == 12
+            and names.get(ROUTE_NAMES[("row 1", "bfloat16")][0], 0) > 0,
+            f"one-stage pipeline: the forward's logits (max err "
+            f"{max_err(got_pp, want)}), 12 row-1 launches ({got})")
+    del smodel
+
+    # ring attention at the DETR encoder's shape, one hop, COCO key masks,
+    # against mha_reference; its time beside row 3's (the streaming kernel)
+    sq1 = parallel.make_mesh((1,), ("seq",))
+    keep2 = coco_keep(COCO_SIZES[:2])
+    q, k, v = (randn(90 + i, 2, 8, 4704, 32, dtype=bf16) for i in range(3))
+    ring = parallel.sequence_parallel_attention(q, k, v, sq1, kv_mask=keep2)
+    ref = attn.mha_reference(q, k, v, mask=keep2[:, None, None, :])
+    ring_err = max_err(ring, ref)
+    require(ring.shape == ref.shape and ring_err <= KERNEL_TOL["bfloat16"],
+            f"ring attention at B2 H8 S4704 D32 against mha_reference: max "
+            f"err {ring_err} (limit {KERNEL_TOL['bfloat16']})")
+    ring_ms = cuda_ms(lambda: parallel.sequence_parallel_attention(
+        q, k, v, sq1, kv_mask=keep2), iters=5)
+    row3_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_mask=keep2),
+                      iters=5)
+    par_times.update(ring_ms=ring_ms, ring_row3_ms=row3_ms,
+                     ring_max_abs_err=ring_err)
+    log(f"parallel ring attention B2 H8 S4704 D32 bf16, COCO key masks, one "
+        f"hop: {ring_ms:.4f} ms (fp32 matmuls and online softmax), max err "
+        f"{ring_err:.3g}; row 3 (flash_attention_large) on the same inputs "
+        f"{row3_ms:.4f} ms")
+    del q, k, v, ring, ref
+
+    # top-1 MoE with its experts on one rank against the dense oracle
+    ex1 = parallel.make_mesh((1,), ("expert",))
+    g_ = torch.Generator().manual_seed(23)
+    moe = [(torch.randn(*s, generator=g_) * 0.05).to(dev)
+           for s in ((768, 8), (8, 768, 3072), (8, 3072), (8, 3072, 768),
+                     (8, 768))]
+    xt = torch.randn(1024, 768, generator=g_).to(dev)
+    moe_err = max_err(parallel.expert_parallel_mlp(xt, *moe, ex1),
+                      parallel.moe_mlp_reference(xt, *moe))
+    moe_ms = cuda_ms(lambda: parallel.expert_parallel_mlp(xt, *moe, ex1),
+                     iters=5)
+    require(moe_err <= 1e-5, f"expert_parallel_mlp against moe_mlp_reference "
+            f"at T 1024 D 768 H 3072 E 8: max err {moe_err}")
+    par_times.update(moe_ms=moe_ms, moe_max_abs_err=moe_err)
+    log(f"parallel MoE T1024 D768 H3072 E8 fp32, one rank: {moe_ms:.4f} ms, "
+        f"max err {moe_err:.3g} against the dense oracle")
+    parallel.destroy_distributed_mode()
+    for key in par_env:
+        os.environ.pop(key, None)
+    log(f"parallel launches in all: { {k: v for k, v in par_total.items() if v} }")
+    log(f"parallel times: {json.dumps(par_times)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -4346,7 +4609,8 @@ def main() -> int:
               **extra):
         bnd, by = bound_ms(nbytes, flops, ops_dtype)
         extra["cli_launches"] = cli_total[name]  # phase 7b's runs
-        launches += cli_total[name]
+        extra["parallel_launches"] = par_total[name]  # phase 7c's runs
+        launches += cli_total[name] + par_total[name]
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,

@@ -8,6 +8,8 @@
   of the parameter comparison: its true gradient is 0 (softmax ignores a
   shift of every key's score), so each package's Adam turns its own
   rounding noise into steps of size lr.
+- The same trajectory data parallel, ``fit_detection(mesh=...)`` in a gloo
+  group of 2 processes, against the same JAX run.
 - The per-label AdamW with per-group clipping and ``lr_drop`` against
   ``optax.multi_transform`` of two chains, 1e-6; FrozenBatchNorm leaves
   take no gradient and are decayed.
@@ -98,17 +100,21 @@ def trajectory():
     thist = tdet.fit_detection(tmod, tdet.DetectionLoader(ds, 2), 1,
                                init_params=detr_state_dict_from_jax(params),
                                **kw)
-    return ds, jmod, jhist, tmod, thist
+    return ds, jmod, jhist, tmod, thist, params
 
 
 def test_fit_detection_trajectory_matches_jax(trajectory):
-    ds, jmod, jhist, tmod, thist = trajectory
+    ds, jmod, jhist, tmod, thist, _ = trajectory
     assert thist["final_state"].step == 3
     np.testing.assert_allclose(thist["loss"], jhist["loss"], atol=1e-4,
                                rtol=0)
     want = detr_state_dict_from_jax(
         jax.device_get(jhist["final_state"].params))
     got = tmod.state_dict()
+    _assert_params_match(got, want)
+
+
+def _assert_params_match(got, want):
     moved = 0
     for name, w in want.items():
         if name.endswith("k_proj.bias"):
@@ -119,9 +125,27 @@ def test_fit_detection_trajectory_matches_jax(trajectory):
     assert moved > 300
 
 
+def test_fit_detection_data_parallel_matches_jax(trajectory, tmp_path):
+    """``fit_detection(mesh=...)`` in a gloo group of 2 processes (the
+    workers of ``tests/test_torch_port_multiprocess.py``), each rank one
+    image of each batch of 2, from the trajectory's weights: the same
+    losses and final parameters as JAX's run, 1e-4."""
+    from tests.test_torch_port_multiprocess import spawn
+
+    ds, jmod, jhist, tmod, thist, params = trajectory
+    np.savez(tmp_path / "detr_refs.npz", **{
+        k: v.numpy() for k, v in detr_state_dict_from_jax(params).items()})
+    spawn(2, tmp_path, mode="detr")
+    got = dict(np.load(tmp_path / "detr_out.npz"))
+    np.testing.assert_allclose(got.pop("loss"), jhist["loss"], atol=1e-4,
+                               rtol=0)
+    _assert_params_match(got, detr_state_dict_from_jax(
+        jax.device_get(jhist["final_state"].params)))
+
+
 def test_trained_batch_loss_matches_jax(trajectory):
     """The loss of the first batch under the trained weights, eval mode."""
-    ds, jmod, jhist, tmod, thist = trajectory
+    ds, jmod, jhist, tmod, thist, _ = trajectory
     nt, targets = next(iter(tdet.DetectionLoader(ds, 2)))
     jout = jax.jit(jmod.apply)({"params": jhist["final_state"].params},
                                jnp.asarray(nt.tensors), jnp.asarray(nt.mask))
@@ -140,7 +164,7 @@ def test_frozen_batch_norm_leaves_are_decayed_not_trained(trajectory):
     """They take no gradient, but AdamW decays them (lr_backbone 1e-5,
     weight decay 1e-4: a leaf v moves to v·(1 − 1e-9) per step), as
     ``optax.adamw`` decays every leaf of the JAX tree."""
-    _, _, jhist, tmod, _ = trajectory
+    _, _, jhist, tmod, _, _ = trajectory
     jparams = jax.device_get(jhist["final_state"].params)
     var_j = np.asarray(jparams["joiner"]["backbone"]["bn1"]["var"])
     var_t = _np(tmod.joiner.backbone.bn1.var)
@@ -299,7 +323,8 @@ def test_fit_detection_evaluates_and_reproduces_dropout():
         losses.append(hist["loss"])
         assert "mAP" in hist["metrics"][0] and np.isfinite(hist["loss"][0])
     assert losses[0] == losses[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh that is not parallel.make_mesh's (a JAX mesh, say) is refused
+    with pytest.raises(TypeError, match="make_mesh's Mesh"):
         tdet.fit_detection(model, tdet.DetectionLoader(ds, 2), 1,
                            num_classes=5, mesh=object())
 

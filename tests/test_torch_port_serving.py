@@ -232,8 +232,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "vision_transformers_tpu_torch.models.object_detection.matcher",
             "vision_transformers_tpu_torch.training.detection",
             "vision_transformers_tpu_torch.utils.coco.coco_eval",
-            "vision_transformers_tpu_torch.utils.metrics"} <= set(
-                _port_modules())
+            "vision_transformers_tpu_torch.utils.metrics",
+            "vision_transformers_tpu_torch.parallel"} | {
+                f"vision_transformers_tpu_torch.parallel.{m}" for m in (
+                    "distributed", "mesh", "sequence", "pipeline",
+                    "expert")} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"

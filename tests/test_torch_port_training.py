@@ -336,12 +336,13 @@ def test_fit_same_seed_same_history():
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """A mesh is not ported (queue 1, item 10); checkpoints and a teacher
-    are (item 5): a teacher with a model that returns one head's logits is
-    refused, and ``checkpoint_every`` writes its epochs."""
+    """A mesh that is not ``parallel.make_mesh``'s (a JAX mesh, say) is
+    refused with a clear error; a teacher with a model that returns one
+    head's logits is refused, and ``checkpoint_every`` writes its
+    epochs."""
     model = ViT(**_FIT_CFG)
     data = SyntheticLoader(8, 8, 16, 2, seed=14)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="make_mesh's Mesh"):
         ttrainer.fit(model, data, data, 1, verbose=False, mesh=object())
     with pytest.raises(ValueError, match="cls_logits, dist_logits"):
         ttrainer.fit(model, data, data, 1, verbose=False,

@@ -4,9 +4,8 @@ The package mirrors the JAX package's paths and names, so each module's
 counterpart is easy to find. The JAX package stays the numerical
 reference; this one imports nothing from it (nor JAX itself).
 
-What is ported so far is the ViT main path and the windowed and pyramid
-models (Swin, SwinV2, Twins-SVT, PVT), each served and trained, and the
-training CLI with what it calls:
+It covers what the JAX package does: the classification zoo and DETR,
+each served and trained, the training CLI, and the parallel paths:
 
 - ``models.image_classification.ViT``: patch embed, class token, learned
   position embedding, pre-LN encoder blocks, CLS head; inputs are NHWC;
@@ -29,8 +28,14 @@ training CLI with what it calls:
   arithmetic, the opt-in single-pass Adam kernel (``ops.fused_adam``,
   ``make_optimizer(fused=True)``), and ``trainer.fit`` with its train and
   eval steps.
+- ``parallel``: ``torch.distributed`` initialization (NCCL on CUDA, gloo
+  on the CPU), a mesh of ranks with named axes (``make_mesh``), DP and
+  Megatron TP in ``fit`` and DP in ``fit_detection``, ring attention
+  (``sequence_parallel_attention``), GPipe (``pipeline_apply``,
+  ``vit_pipeline_forward``) and a top-1 MoE over an expert axis.
 - ``serving``: export to an artifact directory, ``load_classifier``, static
-  batch buckets and a request micro-batcher.
+  batch buckets, data-parallel artifacts over a mesh and a request
+  micro-batcher.
 - The rest of the zoo (``DeiT``, ``CPEViT``, ``T2T_ViT``, ``CPVT``,
   ``CPVTGAP``, ``TNT``) and DETR-R50 (``models.object_detection``,
   ``training.detection``, the COCO dataset in ``utils.coco``).

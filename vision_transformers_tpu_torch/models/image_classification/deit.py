@@ -131,8 +131,9 @@ class DeiT(nn.Module, TrainableModel):
         teacher to fall back on. The model trains with
         ``distilled_training`` on (its training forward returns both
         heads' logits) and gets its own setting back afterwards. Extra
-        kwargs (lr, seed, verbose, steps_per_call, checkpoint_*) go to
-        ``fit``."""
+        kwargs (lr, seed, verbose, mesh, steps_per_call, checkpoint_*) go
+        to ``fit``; under a ``mesh`` the teacher runs on each rank's slice
+        of the batch too."""
         from vision_transformers_tpu_torch.training.trainer import fit
 
         if teacher is None:

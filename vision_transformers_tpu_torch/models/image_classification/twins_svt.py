@@ -54,6 +54,7 @@ from vision_transformers_tpu_torch.ops.mlp import Mlp
 from vision_transformers_tpu_torch.ops.patch_embed import PatchEmbed
 from vision_transformers_tpu_torch.ops.sra import SpatialReductionAttention
 from vision_transformers_tpu_torch.ops.windows import shifted_window_attention
+from vision_transformers_tpu_torch.parallel.mesh import shard_tensor
 
 
 class PosCNN(nn.Module):
@@ -84,7 +85,13 @@ class PosCNN(nn.Module):
 
 class GroupAttention(nn.Module):
     """LSA: window attention without shift or relative bias, padded edge
-    windows masked. ``forward(x, grid, seed)`` as ``SpatialReductionAttention``."""
+    windows masked. ``forward(x, grid, seed)`` as ``SpatialReductionAttention``.
+    Under tensor parallelism (``parallel.shard_params``) ``tp`` is set:
+    ``qkv_kernel`` holds this rank's heads' columns of q, k and v and
+    ``proj_kernel`` their rows; the biases stay whole (no rule shards them,
+    as in the JAX package) and each rank reads its part of ``qkv_bias_p``."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, ws: int,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -104,26 +111,48 @@ class GroupAttention(nn.Module):
         self.proj_bias_p = nn.Parameter(torch.zeros(dim, dtype=PARAM_DTYPE))
         self.drop = Dropout(proj_drop)
 
+    def tp_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0
+
+    def tp_shard(self, tp) -> None:
+        self.qkv_kernel = shard_tensor(self.qkv_kernel, tp, 1, parts=3)
+        self.proj_kernel = shard_tensor(self.proj_kernel, tp, 0)
+        self.tp = tp
+
     def forward(self, x: torch.Tensor, grid, seed: Optional[int] = None
                 ) -> torch.Tensor:
         b, n, c = x.shape
         h, w = grid
         dt = self.dtype
+        x = x.reshape(b, h, w, c)
+        heads, attn_seed, tp = self.num_heads, seed, self.tp
+        qkv_bias = self.qkv_bias_p
+        if tp is not None:
+            x = tp.copy(x)
+            heads //= tp.size
+            attn_seed = tp.seed(seed)
+            if qkv_bias is not None:
+                qkv_bias = tp.copy(qkv_bias).index_select(
+                    0, tp.blocks(c, 3).to(qkv_bias.device))
         gen = None
         if self.training and self.attn_drop > 0.0:
             if seed is None:
                 raise ValueError(
                     "attention dropout in training mode needs a seed")
-            gen = torch.Generator().manual_seed(seed)
+            gen = torch.Generator().manual_seed(attn_seed)
+        proj_bias = self.proj_bias_p.to(dt)
         out = shifted_window_attention(
-            x.reshape(b, h, w, c).to(dt), self.qkv_kernel.to(dt),
-            None if self.qkv_bias_p is None else self.qkv_bias_p.to(dt),
-            self.proj_kernel.to(dt), self.proj_bias_p.to(dt), None,
-            (self.ws, self.ws), self.num_heads, (0, 0),
+            x.to(dt), self.qkv_kernel.to(dt),
+            None if qkv_bias is None else qkv_bias.to(dt),
+            self.proj_kernel.to(dt), None if tp is not None else proj_bias,
+            None, (self.ws, self.ws), heads, (0, 0),
             attention_dropout=self.attn_drop,
             deterministic=not self.training, generator=gen,
-            mask_padding=True).reshape(b, n, c)
-        return self.drop(out, None if seed is None else seed + 1)
+            mask_padding=True)
+        if tp is not None:
+            out = tp.reduce(out) + proj_bias
+        return self.drop(out.reshape(b, n, c), None if seed is None
+                         else seed + 1)
 
 
 class GroupBlock(nn.Module):

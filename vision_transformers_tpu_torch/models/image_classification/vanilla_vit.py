@@ -91,8 +91,10 @@ class EncoderBlock(nn.Module):
         """The JAX guard (vanilla_vit.py:56-67): the flag, not ``quant8``
         (the fused kernel reads float weights), eval mode (its
         ``deterministic``), no attention weights asked for and a 3-D input,
-        within the port's size rule."""
+        within the port's size rule; and whole weights (not sharded by
+        ``parallel.shard_params``: the kernel reads all heads)."""
         return (USE_FUSED_BLOCK and not self.quant8 and not self.training
+                and self.self_attention.tp is None
                 and not return_weights and x.ndim == 3
                 and fused_block_supported(self.hidden_dim, self.num_heads))
 

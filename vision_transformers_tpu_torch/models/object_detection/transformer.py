@@ -27,6 +27,14 @@ from torch import nn
 
 from vision_transformers_tpu_torch.ops.attention import dot_product_attention
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout, LayerNorm
+from vision_transformers_tpu_torch.parallel.mesh import (
+    ColumnParallelDense,
+    RowParallelDense,
+)
+from vision_transformers_tpu_torch.parallel.sequence import (
+    current_sequence_sharding,
+    sequence_parallel_attention,
+)
 
 
 def _sub(seed: Optional[int]) -> Callable[[int], Optional[int]]:
@@ -36,11 +44,17 @@ def _sub(seed: Optional[int]) -> Callable[[int], Optional[int]]:
 class CrossAttention(nn.Module):
     """MHA with separate query/key/value inputs and a key-padding mask.
 
-    ``sp_capable`` is set on the encoder's self attention only: in the JAX
-    package it turns the softmax into ring attention over a mesh inside a
-    ``parallel.sequence_sharding`` context. No such context exists in the
-    port yet (ROADMAP.md, queue 1, item 10), so, as in the JAX package
-    without one, it changes nothing."""
+    ``sp_capable`` is set on the encoder's self attention only: while a
+    ``parallel.sequence_sharding(mesh)`` context is active, the sequence
+    divides the mesh's seq axis, q and k have one length and dropout is off,
+    the softmax runs as ring attention over that axis
+    (``parallel.sequence_parallel_attention``); otherwise it takes the
+    ordinary route. Under tensor parallelism (``parallel.shard_params``)
+    ``tp`` is set: the three input projections hold this rank's heads
+    (``nhead`` and ``d_model`` are its share) and ``out_proj`` their rows.
+    """
+
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
                  sp_capable: bool = False, *,
@@ -55,6 +69,17 @@ class CrossAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(d_model, d_model, dtype=dtype,
                                         generator=generator))
+
+    def tp_divides(self, size: int) -> bool:
+        return self.nhead % size == 0
+
+    def tp_shard(self, tp) -> None:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            setattr(self, name, ColumnParallelDense(getattr(self, name), tp))
+        self.out_proj = RowParallelDense(self.out_proj, tp)
+        self.nhead //= tp.size
+        self.d_model //= tp.size
+        self.tp = tp
 
     def forward(self, q_in: torch.Tensor, k_in: torch.Tensor,
                 v_in: torch.Tensor,
@@ -73,12 +98,23 @@ class CrossAttention(nn.Module):
             # (B, Sk) True = PADDING (torch convention) → keep-mask
             mask = ~key_padding_mask[:, None, None, :]
         drop = self.dropout if self.training else 0.0
+        if self.sp_capable and sq == sk and drop == 0.0:
+            ctx = current_sequence_sharding()
+            if ctx is not None and sk % ctx.mesh.shape[ctx.seq_axis] == 0:
+                out = sequence_parallel_attention(
+                    q, k, v, ctx.mesh, seq_axis=ctx.seq_axis,
+                    data_axis=ctx.data_axis,
+                    kv_mask=(None if key_padding_mask is None
+                             else ~key_padding_mask))
+                return self.out_proj(
+                    out.transpose(1, 2).reshape(b, sq, self.d_model))
         gen = None
         if drop > 0.0:
             if seed is None:
                 raise ValueError("attention dropout in training mode needs a "
                                  "seed")
-            gen = torch.Generator().manual_seed(seed)
+            gen = torch.Generator().manual_seed(
+                seed if self.tp is None else self.tp.seed(seed))
         out = dot_product_attention(q, k, v, mask=mask, dropout_rate=drop,
                                     generator=gen)
         return self.out_proj(out.transpose(1, 2).reshape(b, sq, self.d_model))
@@ -90,7 +126,21 @@ _ACTIVATIONS = {"relu": F.relu, "glu": lambda x: F.glu(x, dim=-1),
 
 class _Layer(nn.Module):
     """What the encoder and decoder layers share: the FFN (linear1 →
-    activation → dropout → linear2, the JAX names) and the dropout."""
+    activation → dropout → linear2, the JAX names) and the dropout. Under
+    tensor parallelism ``linear1`` is column-parallel (GLU: both halves
+    split alike) and ``linear2`` row-parallel."""
+
+    tp = None
+
+    def tp_divides(self, size: int) -> bool:
+        return self.linear2.weight.shape[1] % size == 0
+
+    def tp_shard(self, tp) -> None:
+        glu = self.linear1.weight.shape[0] != self.linear2.weight.shape[1]
+        self.linear1 = ColumnParallelDense(self.linear1, tp,
+                                           parts=2 if glu else 1)
+        self.linear2 = RowParallelDense(self.linear2, tp)
+        self.tp = tp
 
     def _init_ffn(self, d_model, dim_feedforward, dropout, activation, dtype,
                   generator):
@@ -106,6 +156,8 @@ class _Layer(nn.Module):
         self.drop = Dropout(dropout)
 
     def _ffn(self, x, seed):
+        if self.tp is not None:
+            seed = self.tp.seed(seed)
         return self.linear2(self.drop(self.act(self.linear1(x)), seed))
 
 

@@ -31,6 +31,10 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
 )
 from vision_transformers_tpu_torch.ops.layers import Dense
 from vision_transformers_tpu_torch.ops.quant import QuantDense
+from vision_transformers_tpu_torch.parallel.mesh import (
+    ColumnParallelDense,
+    RowParallelDense,
+)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -130,7 +134,12 @@ class SelfAttention(nn.Module):
     recomputed forward (``remat``) replays the same mask. ``quant8``
     (serving): ``qkv`` and ``out`` are ``QuantDense`` (w8a8, ``ops/quant.py``);
     ``qkv``'s output keeps ``dtype``, so the attention keeps its route.
+    Under tensor parallelism (``parallel.shard_params``) ``tp`` is set, and
+    ``qkv`` holds this rank's heads of q, k and v (``num_heads`` and
+    ``hidden_dim`` are then the rank's share) and ``out`` their rows.
     """
+
+    tp = None
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  attention_dropout: float = 0.0, out_bias: bool = True, *,
@@ -152,6 +161,16 @@ class SelfAttention(nn.Module):
             self.out = Dense(hidden_dim, hidden_dim, bias=out_bias,
                              dtype=dtype, generator=generator)
 
+    def tp_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0 and isinstance(self.qkv, Dense)
+
+    def tp_shard(self, tp) -> None:
+        self.qkv = ColumnParallelDense(self.qkv, tp, parts=3)
+        self.out = RowParallelDense(self.out, tp)
+        self.num_heads //= tp.size
+        self.hidden_dim //= tp.size
+        self.tp = tp
+
     def forward(self, x: torch.Tensor, return_weights: bool = False, *,
                 seed: Optional[int] = None):
         b, s, _ = x.shape
@@ -161,6 +180,8 @@ class SelfAttention(nn.Module):
         drop = self.attention_dropout if self.training else 0.0
         if drop > 0.0 and seed is None:
             raise ValueError("attention dropout in training mode needs a seed")
+        if self.tp is not None:
+            seed = self.tp.seed(seed)
         weights = None
 
         if (not return_weights

@@ -23,6 +23,36 @@ from vision_transformers_tpu_torch.core.initializers import (
 )
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout
 from vision_transformers_tpu_torch.ops.quant import QuantDense
+from vision_transformers_tpu_torch.parallel.mesh import (
+    ColumnParallelDense,
+    RowParallelDense,
+)
+
+
+class _TwoLayer(nn.Module):
+    """What the two MLPs share: ``fc1`` → act → dropout → ``fc2`` →
+    dropout, and tensor parallelism (``parallel.shard_params``): ``fc1``
+    column-parallel, ``fc2`` row-parallel, the first mask over this rank's
+    hidden units drawn from its own seed."""
+
+    tp = None
+
+    def tp_divides(self, size: int) -> bool:
+        return (isinstance(self.fc1, Dense)
+                and self.fc1.weight.shape[0] % size == 0)
+
+    def tp_shard(self, tp) -> None:
+        self.fc1 = ColumnParallelDense(self.fc1, tp)
+        self.fc2 = RowParallelDense(self.fc2, tp)
+        self.tp = tp
+
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None
+                ) -> torch.Tensor:
+        """``seed`` (training with dropout > 0): the two masks are made from
+        seed and seed + 1."""
+        hidden_seed = seed if self.tp is None else self.tp.seed(seed)
+        x = self.drop(self.act(self.fc1(x)), hidden_seed)
+        return self.drop(self.fc2(x), None if seed is None else seed + 1)
 
 
 def gelu_for(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -32,7 +62,7 @@ def gelu_for(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda x: F.gelu(x, approximate=approximate)
 
 
-class MLPBlock(nn.Module):
+class MLPBlock(_TwoLayer):
     """Reference ViT encoder MLP: in → mlp_dim → out (default: in).
     ``quant8`` (serving): ``fc1`` and ``fc2`` are ``QuantDense`` (w8a8)."""
 
@@ -53,15 +83,8 @@ class MLPBlock(nn.Module):
         self.act = gelu_for(dtype)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None
-                ) -> torch.Tensor:
-        """``seed`` (training with dropout > 0): the two masks are made from
-        seed and seed + 1."""
-        x = self.drop(self.act(self.fc1(x)), seed)
-        return self.drop(self.fc2(x), None if seed is None else seed + 1)
 
-
-class Mlp(nn.Module):
+class Mlp(_TwoLayer):
     """timm-style MLP: in → hidden (default: in) → out (default: in), with
     the dtype-appropriate GELU unless ``act`` is given and dropout after both
     layers. ``forward(x, seed)`` as ``MLPBlock``."""
@@ -78,8 +101,3 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_dim or in_dim, out_dim or in_dim, **init)
         self.act = act or gelu_for(dtype)
         self.drop = Dropout(dropout)
-
-    def forward(self, x: torch.Tensor, seed: Optional[int] = None
-                ) -> torch.Tensor:
-        x = self.drop(self.act(self.fc1(x)), seed)
-        return self.drop(self.fc2(x), None if seed is None else seed + 1)

@@ -19,6 +19,10 @@ from torch import nn
 from vision_transformers_tpu_torch.core.initializers import trunc_normal_, zeros_
 from vision_transformers_tpu_torch.ops.attention import dot_product_attention
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout, LayerNorm
+from vision_transformers_tpu_torch.parallel.mesh import (
+    ColumnParallelDense,
+    RowParallelDense,
+)
 
 
 class SpatialReductionAttention(nn.Module):
@@ -29,8 +33,13 @@ class SpatialReductionAttention(nn.Module):
     every query can still attend to them. ``qkv_bias`` governs ``q`` and
     ``kv`` only; ``sr`` and ``proj`` always have a bias.
     ``forward(x, grid, seed)``: ``seed`` feeds the attention dropout (seed)
-    and the projection dropout (seed + 1) in training mode.
+    and the projection dropout (seed + 1) in training mode. Under tensor
+    parallelism (``parallel.shard_params``) ``tp`` is set: ``q`` and ``kv``
+    hold this rank's heads (``num_heads`` is its share) and ``proj`` their
+    rows; the reduction ``sr`` stays whole.
     """
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int = 1,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -58,6 +67,16 @@ class SpatialReductionAttention(nn.Module):
         self.proj = Dense(dim, dim, **init)
         self.drop = Dropout(proj_drop)
 
+    def tp_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0
+
+    def tp_shard(self, tp) -> None:
+        self.q = ColumnParallelDense(self.q, tp)
+        self.kv = ColumnParallelDense(self.kv, tp, parts=2)
+        self.proj = RowParallelDense(self.proj, tp)
+        self.num_heads //= tp.size
+        self.tp = tp
+
     def _reduce(self, x: torch.Tensor, grid: Tuple[int, int]) -> torch.Tensor:
         """The K/V input: CLS tokens, then the grid reduced r×r → 1. A grid
         that r does not divide is zero-padded first, so padded cells
@@ -76,8 +95,9 @@ class SpatialReductionAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, grid: Tuple[int, int],
                 seed: Optional[int] = None) -> torch.Tensor:
-        b, n, c = x.shape
+        b, n, _ = x.shape
         heads = self.num_heads
+        c = self.q.weight.shape[0]  # the width of this rank's heads
         dh = c // heads
         q = self.q(x).reshape(b, n, heads, dh).transpose(1, 2).contiguous()
         kv_in = self._reduce(x, grid) if self.sr_ratio > 1 else x
@@ -91,7 +111,8 @@ class SpatialReductionAttention(nn.Module):
             if seed is None:
                 raise ValueError(
                     "attention dropout in training mode needs a seed")
-            gen = torch.Generator().manual_seed(seed)
+            gen = torch.Generator().manual_seed(
+                seed if self.tp is None else self.tp.seed(seed))
         out = dot_product_attention(q, k, v, scale=self.scale,
                                     dropout_rate=drop, generator=gen)
         out = self.proj(out.transpose(1, 2).reshape(b, n, c))

@@ -61,6 +61,7 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
     window_packed_attention,
 )
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout, LayerNorm
+from vision_transformers_tpu_torch.parallel.mesh import shard_tensor
 
 # Test hooks, as in the JAX package: None = auto, True/False forces the
 # choice of the packed kernel over the split-head path, ...
@@ -267,7 +268,9 @@ def shifted_window_attention(
     n_win = (pad_h // wh) * (pad_w // ww)
     n = wh * ww
     g = b * n_win
-    dh = c // num_heads
+    # the attention's width: c, or a TP rank's share of it
+    cq = qkv_kernel.shape[-1] // 3
+    dh = cq // num_heads
     itemsize = x.element_size()
 
     # Decide the path before projecting: the fused kernels read the
@@ -307,7 +310,7 @@ def shifted_window_attention(
             num_heads, 1).to(qkv.dtype)
         kn = _l2_normalize(q5[..., 1, :, :])
         qkv = torch.stack([qn, kn, q5[..., 2, :, :]], dim=3).reshape(
-            b, pad_h, pad_w, 3 * c)
+            b, pad_h, pad_w, 3 * cq)
         scale = 1.0
 
     # Combined additive bias (nW', nH, N, N), nW' in {1, n_win}: the
@@ -329,7 +332,7 @@ def shifted_window_attention(
             qkv, bias, num_heads, (wh, ww), tuple(shift), dh=dh, scale=scale,
             plan=fused_plan)
         # (B, Hp, Wp, C) in un-rolled coordinates
-        return _project(out[:, :h, :w, :c], proj_kernel, proj_bias)
+        return _project(out[:, :h, :w, :cq], proj_kernel, proj_bias)
 
     qkv_packed = window_partition(qkv, wh, ww)  # (B·nW, N, 3C), [q | k | v]
 
@@ -363,7 +366,7 @@ def shifted_window_attention(
         out = dot_product_attention(
             q, k, v, bias=bias, scale=scale, dropout_rate=drop,
             generator=generator)
-        out = out.transpose(1, 2).reshape(g, n, c)
+        out = out.transpose(1, 2).reshape(g, n, cq)
 
     out = window_reverse(out, wh, ww, pad_h, pad_w)
     if sum(shift) > 0:
@@ -373,7 +376,15 @@ def shifted_window_attention(
 
 class _WindowAttentionBase(nn.Module):
     """Parameters shared by the two window attention modules, raw and named
-    as in the JAX params tree (kernels are flax's (in, out))."""
+    as in the JAX params tree (kernels are flax's (in, out)).
+
+    Under tensor parallelism (``parallel.shard_params``) ``tp`` is set:
+    ``qkv_kernel`` holds this rank's heads' columns of q, k and v and
+    ``proj_kernel`` their rows; the position bias (and SwinV2's temperature
+    and q/v biases) stay whole and each rank reads its heads' part of
+    them."""
+
+    tp = None
 
     def __init__(self, dim: int, window_size: Sequence[int],
                  shift_size: Sequence[int], num_heads: int,
@@ -404,24 +415,51 @@ class _WindowAttentionBase(nn.Module):
         return table[self._rel_index].reshape(n, n, self.num_heads).permute(
             2, 0, 1)
 
+    def tp_divides(self, size: int) -> bool:
+        return self.num_heads % size == 0
+
+    def tp_shard(self, tp) -> None:
+        self.qkv_kernel = shard_tensor(self.qkv_kernel, tp, 1, parts=3)
+        if getattr(self, "qkv_bias", None) is not None:
+            self.qkv_bias = shard_tensor(self.qkv_bias, tp, 0, parts=3)
+        self.proj_kernel = shard_tensor(self.proj_kernel, tp, 0)
+        self.tp = tp
+
+    def _tp_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads (dim 0) of a whole per-head tensor."""
+        idx = self.tp.blocks(self.num_heads).to(t.device)
+        return self.tp.copy(t).index_select(0, idx)
+
     def _attend(self, x, qkv_bias, rel_bias, seed, logit_scale=None):
         dt = self.dtype
         drop = self.attention_dropout if self.training else 0.0
+        heads, attn_seed, tp = self.num_heads, seed, self.tp
+        if tp is not None:
+            x = tp.copy(x)
+            rel_bias = self._tp_heads(rel_bias)
+            if logit_scale is not None:
+                logit_scale = self._tp_heads(logit_scale)
+            heads //= tp.size
+            attn_seed = tp.seed(seed)
         gen = None
         if drop > 0.0:
             if seed is None:
                 raise ValueError(
                     "attention dropout in training mode needs a seed")
-            gen = torch.Generator().manual_seed(seed)
+            gen = torch.Generator().manual_seed(attn_seed)
+        proj_bias = None if self.proj_bias is None else self.proj_bias.to(dt)
         out = shifted_window_attention(
             x.to(dt), self.qkv_kernel.to(dt),
             None if qkv_bias is None else qkv_bias.to(dt),
-            self.proj_kernel.to(dt),
-            None if self.proj_bias is None else self.proj_bias.to(dt),
-            rel_bias, self.window_size, self.num_heads, self.shift_size,
+            self.proj_kernel.to(dt), None if tp is not None else proj_bias,
+            rel_bias, self.window_size, heads, self.shift_size,
             attention_dropout=self.attention_dropout,
             deterministic=not self.training, generator=gen,
             logit_scale=logit_scale)
+        if tp is not None:
+            out = tp.reduce(out)
+            if proj_bias is not None:
+                out = out + proj_bias
         return self.drop(out, None if seed is None else seed + 1)
 
 
@@ -494,6 +532,9 @@ class ShiftedWindowAttentionV2(_WindowAttentionBase):
         if self.q_bias is not None:
             qkv_bias = torch.cat(
                 [self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            if self.tp is not None:
+                qkv_bias = self.tp.copy(qkv_bias).index_select(
+                    0, self.tp.blocks(self.dim, 3).to(qkv_bias.device))
         return self._attend(x, qkv_bias, rel_bias, seed,
                             logit_scale=self.logit_scale)
 

@@ -20,8 +20,15 @@ serves through the kernels' plain versions, for tests.
 
 ``quantize_classifier`` turns a trained ViT into its int8 (w8a8) serving
 model (``ops/quant.py``); its artifact carries ``quant8`` in the model kwargs
-and the int8 weights in ``weights.pt``. Not ported yet: mesh/SPMD artifacts
-(ROADMAP.md, queue 1, item 10).
+and the int8 weights in ``weights.pt``.
+
+Data-parallel artifacts (the JAX package's SPMD export): ``export_classifier(
+..., mesh=, data_axis=)`` refuses a bucket that the mesh's ``data_axis``
+does not divide and records ``nr_devices`` (the mesh's ranks) and
+``data_axis`` in the manifest; ``load_classifier(dir, mesh=)`` refuses a
+missing mesh or one of another size, and ``predict`` runs each rank's slice
+of the bucket and all-gathers the rows, so every rank returns all the
+logits. Every rank of the mesh calls these functions together.
 """
 
 from __future__ import annotations
@@ -58,6 +65,11 @@ from vision_transformers_tpu_torch.ops.layers import Dense
 from vision_transformers_tpu_torch.ops.quant import (
     QuantDense,
     quantize_dense_params,
+)
+from vision_transformers_tpu_torch.parallel.distributed import is_main_process
+from vision_transformers_tpu_torch.parallel.mesh import (
+    DataParallel,
+    check_mesh,
 )
 
 _MANIFEST = "manifest.json"
@@ -99,12 +111,18 @@ def quantize_classifier(model: torch.nn.Module) -> torch.nn.Module:
 
 def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],
                       out_dir: str, *, buckets: Sequence[int] = (1, 8, 32),
-                      dtype: DtypeLike = torch.float32) -> dict:
+                      dtype: DtypeLike = torch.float32, mesh=None,
+                      data_axis: str = "data") -> dict:
     """Write ``model``'s artifact to ``out_dir`` and return the manifest.
 
     ``input_shape`` is the per-image shape, e.g. ``(224, 224, 3)`` (NHWC);
     ``dtype`` is the INPUT dtype the server will feed (the model's compute
     dtype is whatever it was constructed with, and is in its kwargs).
+
+    With ``mesh`` (``parallel.make_mesh``) the artifact is data-parallel:
+    every bucket must divide ``mesh.shape[data_axis]``, and it needs a
+    mesh of the same size to load. Rank 0 writes the files; every rank
+    returns the manifest once they are written.
     """
     name = type(model).__name__
     if _MODELS.get(name) is not type(model):
@@ -113,9 +131,13 @@ def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],
     buckets = sorted(set(int(b) for b in buckets))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"buckets must be positive ints, got {buckets}")
-    os.makedirs(out_dir, exist_ok=True)
-    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(weights, os.path.join(out_dir, _WEIGHTS))
+    if mesh is not None:
+        check_mesh(mesh)
+        n_shards = mesh.shape[data_axis]
+        bad = [b for b in buckets if b % n_shards]
+        if bad:
+            raise ValueError(f"buckets {bad} not divisible by mesh axis "
+                             f"'{data_axis}'={n_shards}")
     manifest = {
         "format_version": _FORMAT_VERSION,
         "platforms": ["cuda"],
@@ -126,9 +148,17 @@ def export_classifier(model: torch.nn.Module, input_shape: Sequence[int],
         "model": name,
         "model_kwargs": dict(model.config),
         "torch_version": torch.__version__,
+        "nr_devices": 1 if mesh is None else mesh.size,
+        "data_axis": None if mesh is None else data_axis,
     }
-    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
+    if is_main_process():
+        os.makedirs(out_dir, exist_ok=True)
+        weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        torch.save(weights, os.path.join(out_dir, _WEIGHTS))
+        with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+    if mesh is not None:
+        torch.distributed.barrier()
     return manifest
 
 
@@ -143,10 +173,11 @@ class ServingClassifier:
     """
 
     def __init__(self, manifest: dict, model: torch.nn.Module,
-                 device: torch.device):
+                 device: torch.device, dp=None):
         self.manifest = manifest
         self.model = model
         self.device = device
+        self._dp = dp  # data-parallel artifacts: the batch split
         self.buckets = sorted(int(b) for b in manifest["buckets"])
         self.input_shape = tuple(manifest["input_shape"])
         self.input_dtype = as_dtype(manifest["input_dtype"])
@@ -166,6 +197,8 @@ class ServingClassifier:
         n = x.shape[0]
         if n < b:
             x = torch.cat([x, x.new_zeros((b - n, *x.shape[1:]))], dim=0)
+        if self._dp is not None:
+            return self._dp.gather(self.model(self._dp.local(x)))[:n]
         return self.model(x)[:n]
 
     def predict(self, images: Any) -> torch.Tensor:
@@ -185,10 +218,12 @@ class ServingClassifier:
         return torch.cat(parts, dim=0)
 
 
-def load_classifier(artifact_dir: str,
-                    device: DeviceLike = None) -> ServingClassifier:
+def load_classifier(artifact_dir: str, device: DeviceLike = None,
+                    mesh=None) -> ServingClassifier:
     """Load an exported artifact on ``device`` (default CUDA; raises when
-    there is no CUDA device unless ``device="cpu"`` is passed)."""
+    there is no CUDA device unless ``device="cpu"`` is passed). A
+    data-parallel artifact needs ``mesh``, of the size it was exported
+    for."""
     device = resolve_device(device)
     with open(os.path.join(artifact_dir, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -200,6 +235,16 @@ def load_classifier(artifact_dir: str,
         raise RuntimeError(
             f"artifact exported for {manifest['platforms']} cannot serve on "
             "cuda")
+    nr_devices = manifest.get("nr_devices", 1)
+    dp = None
+    if manifest.get("data_axis") is not None:
+        if ((mesh is None and nr_devices > 1) or
+                (mesh is not None and check_mesh(mesh).size != nr_devices)):
+            raise RuntimeError(
+                f"SPMD artifact needs a {nr_devices}-device mesh, got "
+                f"{'none' if mesh is None else mesh.size}")
+        if mesh is not None:
+            dp = DataParallel(mesh, manifest["data_axis"])
     cls = _MODELS.get(manifest["model"])
     if cls is None:
         raise ValueError(f"unknown model {manifest['model']!r}; "
@@ -209,7 +254,7 @@ def load_classifier(artifact_dir: str,
                          map_location=device, weights_only=True)
     model.load_state_dict(weights)
     model.eval()
-    return ServingClassifier(manifest, model, device)
+    return ServingClassifier(manifest, model, device, dp)
 
 
 class Microbatcher:

@@ -18,6 +18,14 @@ Counterpart of ``vision_transformers_tpu/training/detection.py``:
 PyTorch runs eagerly: there is no jitted step and no donated state; the
 model and its two optimizers are updated in place. Dropout seeds come from
 the model's ``dropout_generator``, which ``seed`` seeds.
+
+``fit_detection(mesh=...)`` is data parallelism over the mesh's ``data``
+axis: the model and optimizer state are whole on every rank, each rank runs
+its slice of the batch, the outputs are gathered so every rank matches and
+weighs the whole batch (the loss is the same on every rank), and the
+gradients are summed over ``data`` before the clipped update. A batch that
+does not divide the axis (a ragged final bucket) runs whole on every rank,
+unsplit, as the JAX package keeps it replicated.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from vision_transformers_tpu_torch.models.object_detection.detr import (
 from vision_transformers_tpu_torch.models.object_detection.matcher import (
     prepare_targets,
 )
+from vision_transformers_tpu_torch.parallel.mesh import DataParallel
 from vision_transformers_tpu_torch.training.optimizers import (
     Optimizer,
     make_optimizer,
@@ -190,12 +199,9 @@ def fit_detection(
     ``init_params``: a ``state_dict`` loaded (``strict=True``) before
     training, e.g. from ``utils.port_jax.detr_state_dict_from_jax``.
     ``state``: a ``TrainState`` of this model to continue from. ``lr_drop``
-    needs a sized loader. ``mesh`` (data parallelism) raises
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_detection(mesh=...) is not ported yet (ROADMAP.md, queue 1, "
-            "item 10)")
+    needs a sized loader. ``mesh``: data parallelism over its ``data``
+    axis (the module docstring)."""
+    dp = None if mesh is None else DataParallel(mesh, "data")
     criterion = criterion or SetCriterion(num_classes=num_classes)
     device = _model_device(model)
     if init_params is not None:
@@ -220,7 +226,7 @@ def fit_detection(
               if verbose else train_loader)
         for nt, targets in it:
             loss, losses = train_step(state, criterion, nt, targets,
-                                      max_targets, num_classes)
+                                      max_targets, num_classes, dp)
             # the loss stays on the device; non-verbose runs read it once
             # per epoch
             epoch_losses.append(loss)
@@ -242,22 +248,41 @@ def fit_detection(
     return history
 
 
+def _gather_outputs(out, dp):
+    """DETR's output dict (tensors, lists of dicts of them) with every
+    tensor's batch rows gathered from the ranks."""
+    if isinstance(out, dict):
+        return {k: _gather_outputs(v, dp) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_gather_outputs(v, dp) for v in out)
+    return dp.gather(out)
+
+
 def train_step(state: TrainState, criterion: SetCriterion, nt, targets,
-               max_targets: int, num_classes: int):
+               max_targets: int, num_classes: int, dp=None):
     """One step on a collated batch: forward in training mode, matching,
     set loss, backward, the optimizers' update. Returns (total loss, loss
-    dict), detached, on the model's device."""
+    dict), detached, on the model's device. ``dp``: the ``DataParallel`` of
+    ``fit_detection(mesh=...)``."""
     model = state.model
     device = _model_device(model)
     labels, boxes, valid = prepare_targets(targets, max_targets, num_classes,
                                            device)
     batch = nt.to(device)
     model.train()
-    out = model(batch.tensors, batch.mask)
+    split = dp is not None and dp.divides(batch.tensors.shape[0])
+    if split:
+        with dp.seeded(model.dropout_generator):
+            out = model(dp.local(batch.tensors), dp.local(batch.mask))
+        out = _gather_outputs(out, dp)
+    else:
+        out = model(batch.tensors, batch.mask)
     losses = criterion(out, labels, boxes, valid)
     loss = criterion.total_loss(losses)
     state.optimizer.zero_grad()
     loss.backward()
+    if split:
+        dp.all_reduce_grads(p for p in model.parameters() if p.requires_grad)
     state.optimizer.step()
     state.step += 1
     return loss.detach(), {k: v.detach() for k, v in losses.items()}

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from vision_transformers_tpu_torch.ops.fused_adam import FusedAdamLeaves
+from vision_transformers_tpu_torch.parallel.mesh import grad_norm_fn
 
 Schedule = Callable[[int], float]
 
@@ -66,10 +67,14 @@ class Optimizer:
         self.count = 0
         self.mini_step = 0
         self.state: dict = {}
+        self.grad_norm: Optional[Callable] = None
 
     def init(self, params: Iterable[torch.Tensor]) -> "Optimizer":
         """Bind the parameters and zero the state."""
         self.params = [p for p in params if p.requires_grad]
+        # clipping's global norm: over every rank's shards when
+        # parallel.shard_params sharded some of the parameters
+        self.grad_norm = grad_norm_fn(self.params)
         self.count = 0
         self.mini_step = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
@@ -128,7 +133,8 @@ class Optimizer:
 
     def _clip(self, grads):
         norms = torch._foreach_norm(grads)
-        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+        g_norm = (torch.linalg.vector_norm(torch.stack(norms))
+                  if self.grad_norm is None else self.grad_norm(norms))
         max_norm = float(self.grad_clip_norm)
         factor = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                              max_norm / g_norm)

@@ -32,6 +32,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from vision_transformers_tpu_torch.ops.fused_adam import FusedAdamLeaves
+from vision_transformers_tpu_torch.parallel.mesh import is_tp_sharded
 
 _ROW = 1024
 # the JAX package pads to whole 128-row blocks of 1024 elements
@@ -132,6 +133,13 @@ def superleaf_train_step_fn(model, meta: SuperleafMeta, lr: float,
     )
 
     refuse_serving_only(model)
+    if is_tp_sharded(model):
+        # the JAX module's scope: one flat buffer cannot carry per-leaf TP
+        # shards; the per-leaf optimizers (fit's) take them
+        raise ValueError("superleaf Adam is for one device or data "
+                         "parallelism: a model sharded by "
+                         "parallel.shard_params trains through fit's "
+                         "per-leaf optimizer")
 
     def step(state: SuperleafState, images, labels, weights):
         images, labels, weights = _to_device(state.flat.device, images,

@@ -21,8 +21,18 @@ What differs: PyTorch runs eagerly, so there is no jit and no donated
 state; the model and the optimizer are updated in place and a
 ``TrainState`` just holds them with the step count. Dropout randomness
 comes from the model's own generator, which ``fit(seed=...)`` seeds, not
-from a key passed to each step. A mesh belongs to a module that is not
-ported yet and raises ``NotImplementedError``.
+from a key passed to each step.
+
+``mesh`` (``parallel.make_mesh``, a mesh of ranks): every rank reads the
+same global batch and runs its slice of the batch axis over ``data``; the
+outputs are gathered, so every rank computes the loss of the whole batch
+(a global weighted mean, padded rows included) and the same metrics, and
+the gradients are summed over ``data`` in one all-reduce. A ``model``
+axis larger than 1 first shards the parameters (``parallel.shard_params``,
+Megatron TP) and then builds the optimizer from the shards, so Adam steps
+on each rank's own slices; gradient clipping takes the norm over the
+whole model. A checkpoint is the file a run without a mesh writes: TP
+shards are gathered and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vision_transformers_tpu_torch.parallel import mesh as pmesh
 from vision_transformers_tpu_torch.training.optimizers import (
     Optimizer,
     make_optimizer,
@@ -94,8 +105,23 @@ def _to_device(device, images, labels, weights):
             torch.as_tensor(weights, device=device).float())
 
 
+def _data_parallel(mesh):
+    return None if mesh is None else pmesh.DataParallel(mesh, "data")
+
+
+def _forward(fn, x, dp):
+    """``fn(x)``, or under data parallelism ``fn`` of this rank's rows with
+    the outputs (a tensor or a tuple of them) gathered whole."""
+    if dp is None:
+        return fn(x)
+    out = fn(dp.local(x))
+    if isinstance(out, tuple):
+        return tuple(dp.gather(o) for o in out)
+    return dp.gather(out)
+
+
 def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
-                  distill=None):
+                  distill=None, mesh=None):
     """Build the train step for a classification model:
     ``step(state, images, labels, weights)`` → (state, loss·n, correct, n),
     the last three as scalars on the model's device. Inputs may be numpy
@@ -106,16 +132,23 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     distillation: the model's training forward must return (cls_logits,
     dist_logits), and ``distill`` = (type, alpha, tau) (default ("hard",
     0.5, 5.0)) blends the base loss with the distillation term; accuracy is
-    the class head's."""
+    the class head's. ``mesh``: the step of ``fit(mesh=...)`` (the module
+    docstring); the inputs are the whole batch on every rank."""
     refuse_serving_only(model)
     loss_fn = loss_fn or cross_entropy_with_weights
+    dp = _data_parallel(mesh)
+    generator = getattr(model, "dropout_generator", None)
 
     def step(state: TrainState, images, labels, weights):
         images, labels, weights = _to_device(_model_device(model), images,
                                              labels, weights)
         x = _default_preprocess(images, normalize)
         model.train()
-        out = model(x)
+        if dp is None:
+            out = model(x)
+        else:
+            with dp.seeded(generator):
+                out = _forward(model, x, dp)
         if teacher_fn is not None:
             if not isinstance(out, tuple):
                 raise ValueError(
@@ -124,7 +157,7 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
                     "distilled_training=True")
             logits, dist_logits = out
             with torch.no_grad():
-                teacher_logits = teacher_fn(x)
+                teacher_logits = _forward(teacher_fn, x, dp)
             kind, alpha, tau = distill or ("hard", 0.5, 5.0)
             loss = distillation_loss(loss_fn(logits, labels, weights),
                                      dist_logits, teacher_logits, kind, alpha,
@@ -134,6 +167,8 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
             loss = loss_fn(logits, labels, weights)
         state.optimizer.zero_grad()
         loss.backward()
+        if dp is not None:
+            dp.all_reduce_grads(state.optimizer.params)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -145,10 +180,11 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     return step
 
 
-def eval_step_fn(model, normalize=None, loss_fn=None):
+def eval_step_fn(model, normalize=None, loss_fn=None, mesh=None):
     """``step(model, images, labels, weights)`` → (loss·n, correct, n) in
-    eval mode, without gradients."""
+    eval mode, without gradients (``mesh`` as ``train_step_fn``'s)."""
     loss_fn = loss_fn or cross_entropy_with_weights
+    dp = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(model_, images, labels, weights):
@@ -156,7 +192,7 @@ def eval_step_fn(model, normalize=None, loss_fn=None):
                                              labels, weights)
         x = _default_preprocess(images, normalize)
         model_.eval()
-        logits = model_(x)
+        logits = _forward(model_, x, dp)
         loss = loss_fn(logits, labels, weights)
         pred = logits.argmax(dim=-1)
         correct = ((pred == labels) * weights).sum()
@@ -174,12 +210,13 @@ def _sum_steps(results, device):
 
 
 def multi_train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
-                        distill=None):
+                        distill=None, mesh=None):
     """k steps per call over batches stacked to (k, B, ...): a Python loop
     (PyTorch runs eagerly; there is no scan to amortise). A batch whose
     weights are all 0 (an epoch-tail filler) is skipped. Pass ``weights``
     as a numpy array and that test costs no device synchronisation."""
-    step = train_step_fn(model, normalize, loss_fn, teacher_fn, distill)
+    step = train_step_fn(model, normalize, loss_fn, teacher_fn, distill,
+                         mesh)
 
     def multi(state: TrainState, images, labels, weights):
         results = []
@@ -192,8 +229,8 @@ def multi_train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     return multi
 
 
-def multi_eval_step_fn(model, normalize=None, loss_fn=None):
-    step = eval_step_fn(model, normalize, loss_fn)
+def multi_eval_step_fn(model, normalize=None, loss_fn=None, mesh=None):
+    step = eval_step_fn(model, normalize, loss_fn, mesh)
 
     def multi(model_, images, labels, weights):
         results = [step(model_, im, lb, w)
@@ -303,12 +340,13 @@ def fit(
     the step function. ``checkpoint_dir`` with ``checkpoint_every`` = n
     saves the state after every n-th epoch as step ``epoch``
     (``utils.checkpoint.save_checkpoint``). ``teacher_fn`` and ``distill``
-    as ``train_step_fn``'s.
+    as ``train_step_fn``'s. ``mesh``: DP over its ``data`` axis and TP over
+    its ``model`` axis (the module docstring); the batch size must divide
+    the ``data`` axis, and a ``state`` passed in under TP must hold a model
+    that ``parallel.shard_params`` sharded.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh is not ported yet (ROADMAP.md, queue 1, "
-            "item 10: parallelism)")
+    tp_active = (mesh is not None
+                 and pmesh.check_mesh(mesh).shape.get("model", 1) > 1)
     normalize = getattr(train_loader, "normalize", None)
     generator = getattr(model, "dropout_generator", None)
     if generator is not None:
@@ -322,21 +360,33 @@ def fit(
         # epoch (which would silently see no data) is attempted.
         train_loader = _OneShotLoader(first, probe_it)
     batch_size = _as_nhwc(_to_numpy(first[0])).shape[0]
+    if mesh is not None and "data" in mesh.shape \
+            and batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch size {batch_size} does not split over the "
+                         f"mesh's data axis of {mesh.shape['data']}")
 
     if state is None:
+        if tp_active:
+            # shard first, then build the optimizer from the shards, so
+            # its moments are each rank's slices (JAX trainer.py:300-317)
+            pmesh.shard_params(model, mesh)
         state = make_train_state(model, lr=lr, optimizer=optimizer,
                                  **opt_kwargs)
+    elif tp_active and not pmesh.is_tp_sharded(model):
+        raise ValueError("under a model axis, pass state=None (fit shards "
+                         "the model) or the state of a model that "
+                         "parallel.shard_params sharded")
     device = _model_device(model)
 
     k = max(1, steps_per_call)
     if k == 1:
         train_step = train_step_fn(model, normalize, loss_fn, teacher_fn,
-                                   distill)
-        eval_step = eval_step_fn(model, normalize, loss_fn)
+                                   distill, mesh)
+        eval_step = eval_step_fn(model, normalize, loss_fn, mesh)
     else:
         train_step = multi_train_step_fn(model, normalize, loss_fn,
-                                         teacher_fn, distill)
-        eval_step = multi_eval_step_fn(model, normalize, loss_fn)
+                                         teacher_fn, distill, mesh)
+        eval_step = multi_eval_step_fn(model, normalize, loss_fn, mesh)
 
     def chunks(loader):
         """Yield (images, labels, weights) as host arrays stacked to
@@ -412,7 +462,10 @@ def fit(
 
         if checkpoint_dir and checkpoint_every and \
                 (epoch + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint_dir, state, step=epoch + 1)
+            save_checkpoint(
+                checkpoint_dir,
+                pmesh.gather_train_state(state) if tp_active else state,
+                step=epoch + 1)
 
     model.eval()  # as the model was built: deterministic until trained again
     history["final_state"] = state

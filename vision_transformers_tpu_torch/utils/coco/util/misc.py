@@ -10,11 +10,12 @@ part the detection path needs:
   bucketing**: padded sizes are rounded up to a 128 grid (capped at 1344),
   so COCO's scales map to a handful of shapes.
 - ``interpolate``: ``F.interpolate`` with ``jax.image.resize``'s arithmetic.
-- ``reduce_dict`` for one process. The multi-process helpers
-  (``init_distributed_mode``, ``all_gather``, ...) wait for the parallel
-  slice (ROADMAP.md, queue 1, item 10).
-- The JAX module's re-exports of ``utils.metrics``: ``MetricLogger``,
-  ``SmoothedValue``, ``accuracy`` (``accuracy_topk``) and ``get_sha``.
+- ``reduce_dict``: a dict of scalars summed (or averaged) over the ranks.
+- The JAX module's re-exports of ``parallel.distributed``
+  (``init_distributed_mode``, ``all_gather`` = ``all_gather_objects``,
+  ``get_rank``, ``get_world_size``, ``is_main_process``, ``save_on_master``)
+  and of ``utils.metrics`` (``MetricLogger``, ``SmoothedValue``,
+  ``accuracy`` = ``accuracy_topk``, ``get_sha``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vision_transformers_tpu_torch.parallel.distributed import all_reduce_host
 # the JAX module's re-exports
+from vision_transformers_tpu_torch.parallel.distributed import (  # noqa: F401
+    all_gather_objects as all_gather,
+    get_rank,
+    get_world_size,
+    init_distributed_mode,
+    is_main_process,
+    save_on_master,
+)
 from vision_transformers_tpu_torch.utils.metrics import (  # noqa: F401
     MetricLogger,
     SmoothedValue,
@@ -36,14 +46,17 @@ from vision_transformers_tpu_torch.utils.metrics import (  # noqa: F401
 
 
 def reduce_dict(input_dict: dict, average: bool = True) -> dict:
-    """The loss dict as the reference's ``reduce_dict`` gives it on one
-    process: unchanged. Across processes it waits for the parallel slice."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "reduce_dict across processes is not ported yet (ROADMAP.md, "
-            "queue 1, item 10)")
-    return dict(input_dict)
+    """A dict of scalars summed over the ranks, or averaged with
+    ``average``, in float64 (the reference's ``reduce_dict``); unchanged in
+    one process."""
+    world = get_world_size()
+    if world == 1:
+        return dict(input_dict)
+    keys = sorted(input_dict)
+    summed = all_reduce_host([float(input_dict[k]) for k in keys])
+    if average:
+        summed = summed / world
+    return {k: float(v) for k, v in zip(keys, summed)}
 
 
 def interpolate(array: torch.Tensor, size=None, scale_factor=None,

@@ -306,15 +306,22 @@ class ImageFolderLoader:
 
 
 def shard_for_process(images, labels, seed: int = 0):
-    """Each process's shard of a dataset for multi-process data parallelism:
-    the identity in one process; across processes not ported yet."""
-    from vision_transformers_tpu_torch.utils.metrics import _multi_process
+    """Each process's shard of a dataset for multi-process data parallelism
+    (in place of a DistributedSampler): rank r keeps every world_size-th
+    example of the fixed permutation ``RandomState(seed).permutation``,
+    starting at r, index for index the JAX function's. The identity in one
+    process."""
+    from vision_transformers_tpu_torch.parallel.distributed import (
+        get_rank,
+        get_world_size,
+    )
 
-    if _multi_process():
-        raise NotImplementedError(
-            "sharding a dataset across processes is not ported yet "
-            "(ROADMAP.md, queue 1, item 10)")
-    return images, labels
+    world = get_world_size()
+    if world == 1:
+        return images, labels
+    perm = np.random.RandomState(seed).permutation(len(labels))
+    mine = perm[get_rank()::world]
+    return images[mine], labels[mine]
 
 
 def get_train_test_loaders(dataset_name: str = "cifar100", batch_size: int = 128,

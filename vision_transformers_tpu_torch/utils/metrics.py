@@ -13,8 +13,10 @@ Counterpart of ``vision_transformers_tpu/utils/metrics.py``:
 - ``force_sync``: wait for a tensor's device by reading one scalar of it;
 - ``get_sha``: the git provenance stamp of the working directory.
 
-Cross-process reduction waits for the parallel slice (ROADMAP.md, queue 1,
-item 10); in one process it is the identity.
+``SmoothedValue.synchronize_between_processes`` (and ``MetricLogger``'s)
+sums (count, total) over the ranks of the process group
+(``parallel.distributed.all_reduce_host``); in one process it is the
+identity.
 """
 
 from __future__ import annotations
@@ -55,9 +57,13 @@ class SmoothedValue:
     def synchronize_between_processes(self):
         """(count, total) summed across processes; a no-op in one."""
         if _multi_process():
-            raise NotImplementedError(
-                "cross-process metrics are not ported yet (ROADMAP.md, queue "
-                "1, item 10)")
+            from vision_transformers_tpu_torch.parallel.distributed import (
+                all_reduce_host,
+            )
+
+            count, total = all_reduce_host([self.count, self.total])
+            self.count = int(count)
+            self.total = float(total)
 
     @property
     def median(self):
