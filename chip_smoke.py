@@ -222,6 +222,35 @@ exit, and without the final result line:
    against ``mha_reference`` with its time beside row 3's; the MoE against
    its dense oracle. The multi-rank runs are the CPU tests' (NCCL takes no
    two ranks on one card).
+7d. Rows 1-7 at every head dim, and ViT-H/14 (Dosovitskiy et al. 2020,
+   Table 1: 32 layers, hidden 1280, MLP 5120, 16 heads of dh 80, patch 14;
+   built from ``ViT`` keyword arguments, seeded weights). Each row's kernel
+   against its plain version in bf16 and fp32 (``KERNEL_TOL``, gradients
+   ``MMA_GRAD_TOL`` / ``GRAD_TOL`` times max(1, max|ref|)), into outputs
+   pre-filled with NaN, reruns bit-equal, the route by kernel name (rows 1
+   and 7 at any dh but 16, 32 and 64 and rows 3 and 4 at any D but 16, 32,
+   64 and 128 in their ``*_padded_kernel`` kernels): rows 1 and 7 at
+   ViT-H/14 @224 (B 32, S 257, H 16, dh 80) and at dh 12, 96, 128 and 77,
+   rate 0 and 0.1 (same-mask oracle, beside a planted fault: the next
+   seed's mask); rows 2, 5 and 6 at ViT-H/14 @336 (B 4, H 16, S 577, D 80;
+   384 px is no multiple of the patch, 336 px gives the same S 577) and at
+   D 77 with a key mask; row 3 at ViT-H/14 @518 (S 1370, D 80, no mask), at
+   the DETR encoder's masked shape (B 4, H 8, S 4704, COCO masks) with D 80
+   and at D 12, 128 and 77; row 4 at ViT-H/14 @224's split-head shape (B 2,
+   H 16, S 257, D 80, which its shared-memory rule admits) and at D 12, 128
+   and 77. Each row's time at dh 80 (bf16) beside its bound, its plain
+   version and SDPA. Then ViT-H/14 at full width and depth in bf16 through
+   ``export_classifier`` → ``load_classifier`` → ``predict``: @224 at
+   buckets 1 and 32 (32 row-1 launches a forward), @336 and @518 at bucket 4
+   (32 row-2 and 32 row-3 launches), each route by name, ms per request,
+   forward device time and idle share; 2 layers at full width in fp32 on the
+   card against the CPU's plain versions (``LOGIT_TOL_FP32``); the
+   full-depth bf16 forward finite and its argmax against the full-depth fp32
+   card forward on 64 seeded images (``VITH_ARGMAX_FLOOR``); 3 fused-Adam
+   steps at 224 px, batch 8, attention dropout 0.1 on one batch, the loss
+   falling (32 row-1 and 32 row-7 launches a step, row 15), the step's ms
+   and idle share; one step at 336 px, batch 2, at rate 0 (rows 2 and 6)
+   and 0.1 (rows 5 and 6).
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -365,6 +394,19 @@ ROUTE_NAMES = {
     ("row 4", "bfloat16"): ("flash_bwd_dq_mma_kernel",
                             "flash_bwd_dkv_mma_kernel"),
     ("row 4", "float32"): ("flash_bwd_kernel",),
+    # rows 1 and 7 at any dh but 16, 32 and 64, rows 3 and 4 at any D but
+    # 16, 32, 64 and 128 (ViT-H/14's 80): the next tile, columns past D zero
+    ("row 1 padded", "bfloat16"): ("packed_fwd_mma_padded_kernel",),
+    ("row 1 padded", "float32"): ("packed_fwd_padded_kernel",),
+    ("row 7 padded", "bfloat16"): ("packed_bwd_dq_mma_padded_kernel",
+                                   "packed_bwd_dkv_mma_padded_kernel"),
+    ("row 7 padded", "float32"): ("packed_bwd_dq_padded_kernel",
+                                  "packed_bwd_dkv_padded_kernel"),
+    ("row 3 padded", "bfloat16"): ("flash_large_mma_padded_kernel",),
+    ("row 3 padded", "float32"): ("flash_large_padded_kernel",),
+    ("row 4 padded", "bfloat16"): ("flash_bwd_dq_mma_padded_kernel",
+                                   "flash_bwd_dkv_mma_padded_kernel"),
+    ("row 4 padded", "float32"): ("flash_bwd_padded_kernel",),
     ("row 9", "bfloat16"): ("window_packed_mma_kernel",),
     ("row 9", "float32"): ("window_packed_kernel",),
     ("row 10", "bfloat16"): ("window_bwd_mma_kernel",),
@@ -1063,6 +1105,80 @@ KEPT_REGISTERS = {
     "drop_bwd_dkv_padded_kernel<float, 16>": 80,
     "drop_bwd_dkv_padded_kernel<float, 32>": 80,
     "drop_bwd_dkv_padded_kernel<float, 64>": 128,
+    # rows 1-7 at every other head dim up to 128 (PR 18): the padded tiles
+    # of rows 1, 3, 4 and 7 and rows 2, 5 and 6's 128 one, rows 3 and 4's
+    # D 128, both routes; the first build's counts (the padded 128 tiles on
+    # PaddedStrided copies, GroupPad: forwards 187-230 registers without
+    # spill, backward passes 250-255 with 0-212 bytes spilled)
+    "flash_fwd_mma_padded_kernel<128>": 224,
+    "drop_fwd_mma_padded_kernel<128>": 228,
+    "drop_bwd_dq_mma_padded_kernel<128>": 255,
+    "drop_bwd_dkv_mma_padded_kernel<128>": 255,
+    "flash_large_mma_padded_kernel<128>": 230,
+    "flash_bwd_dq_mma_padded_kernel<128>": 250,
+    "flash_bwd_dkv_mma_padded_kernel<128>": 255,
+    "drop_bwd_dkv_padded_kernel<float, 128>": 140,
+    "drop_bwd_dq_padded_kernel<float, 128>": 156,
+    "drop_fwd_padded_kernel<float, 128>": 138,
+    "flash_bwd_dkv_mma_kernel<128>": 255,
+    "flash_bwd_dkv_mma_padded_kernel<16>": 96,
+    "flash_bwd_dkv_mma_padded_kernel<32>": 139,
+    "flash_bwd_dkv_mma_padded_kernel<64>": 255,
+    "flash_bwd_dq_mma_kernel<128>": 243,
+    "flash_bwd_dq_mma_padded_kernel<16>": 67,
+    "flash_bwd_dq_mma_padded_kernel<32>": 96,
+    "flash_bwd_dq_mma_padded_kernel<64>": 175,
+    "flash_bwd_kernel<float, 128>": 128,
+    "flash_bwd_padded_kernel<float, 128>": 167,
+    "flash_bwd_padded_kernel<float, 16>": 128,
+    "flash_bwd_padded_kernel<float, 32>": 128,
+    "flash_bwd_padded_kernel<float, 64>": 128,
+    "flash_fwd_padded_kernel<float, 128>": 142,
+    "flash_large_kernel<float, 128>": 137,
+    "flash_large_mma_kernel<128>": 223,
+    "flash_large_mma_padded_kernel<16>": 146,
+    "flash_large_mma_padded_kernel<32>": 193,
+    "flash_large_mma_padded_kernel<64>": 158,
+    "flash_large_padded_kernel<float, 128>": 142,
+    "flash_large_padded_kernel<float, 16>": 64,
+    "flash_large_padded_kernel<float, 32>": 72,
+    "flash_large_padded_kernel<float, 64>": 80,
+    "packed_bwd_dkv_mma_padded_kernel<128, false>": 255,
+    "packed_bwd_dkv_mma_padded_kernel<128, true>": 255,
+    "packed_bwd_dkv_mma_padded_kernel<16, false>": 105,
+    "packed_bwd_dkv_mma_padded_kernel<16, true>": 101,
+    "packed_bwd_dkv_mma_padded_kernel<32, false>": 143,
+    "packed_bwd_dkv_mma_padded_kernel<32, true>": 168,
+    "packed_bwd_dkv_mma_padded_kernel<64, false>": 182,
+    "packed_bwd_dkv_mma_padded_kernel<64, true>": 182,
+    "packed_bwd_dkv_padded_kernel<float, 128>": 146,
+    "packed_bwd_dkv_padded_kernel<float, 16>": 120,
+    "packed_bwd_dkv_padded_kernel<float, 32>": 120,
+    "packed_bwd_dkv_padded_kernel<float, 64>": 120,
+    "packed_bwd_dq_mma_padded_kernel<128, false>": 254,
+    "packed_bwd_dq_mma_padded_kernel<128, true>": 255,
+    "packed_bwd_dq_mma_padded_kernel<16, false>": 66,
+    "packed_bwd_dq_mma_padded_kernel<16, true>": 90,
+    "packed_bwd_dq_mma_padded_kernel<32, false>": 110,
+    "packed_bwd_dq_mma_padded_kernel<32, true>": 136,
+    "packed_bwd_dq_mma_padded_kernel<64, false>": 133,
+    "packed_bwd_dq_mma_padded_kernel<64, true>": 135,
+    "packed_bwd_dq_padded_kernel<float, 128>": 194,
+    "packed_bwd_dq_padded_kernel<float, 16>": 126,
+    "packed_bwd_dq_padded_kernel<float, 32>": 140,
+    "packed_bwd_dq_padded_kernel<float, 64>": 126,
+    "packed_fwd_mma_padded_kernel<128, false>": 187,
+    "packed_fwd_mma_padded_kernel<128, true>": 230,
+    "packed_fwd_mma_padded_kernel<16, false>": 92,
+    "packed_fwd_mma_padded_kernel<16, true>": 110,
+    "packed_fwd_mma_padded_kernel<32, false>": 153,
+    "packed_fwd_mma_padded_kernel<32, true>": 190,
+    "packed_fwd_mma_padded_kernel<64, false>": 128,
+    "packed_fwd_mma_padded_kernel<64, true>": 136,
+    "packed_fwd_padded_kernel<float, 128>": 180,
+    "packed_fwd_padded_kernel<float, 16>": 72,
+    "packed_fwd_padded_kernel<float, 32>": 91,
+    "packed_fwd_padded_kernel<float, 64>": 92,
     # the window kernels on the CUDA cores whose text did not change when
     # rows 9-13 took the tensor cores: rows 9-13 in fp32
     "window_packed_kernel<float, 16>": 76,
@@ -1390,6 +1506,588 @@ def relu_mask_diagnosis(taps, grad_cpu, grad_card, g_ref):
         log(f"  recomputed on the card with {label}: vs CPU {e:.3e} "
             f"({e / g_ref:.2e} relative)")
     return out
+
+
+# ViT-H/14 (Dosovitskiy et al. 2020, "An Image is Worth 16x16 Words",
+# Table 1): 32 layers, hidden 1280, MLP 5120, 16 heads (dh 80), patch 14;
+# 1000 classes. Built from ViT's keyword arguments (the JAX package's
+# ``vit_huge`` preset is its CIFAR configuration), seeded weights.
+VITH14 = dict(patch_size=14, num_layers=32, num_heads=16, hidden_dim=1280,
+              mlp_dim=5120, num_classes=1000)
+# The share of a seeded batch whose full-depth bf16 argmax equals the
+# full-depth fp32 one on the card. bf16 rounds every activation through 32
+# layers, which moves the logits by a few percent of their spread, and the
+# top two of 1000 seeded logits lie closer than that in some rows; a floor
+# far above chance (1/1000) that a wrong function cannot reach.
+VITH_ARGMAX_FLOOR = 0.5
+
+
+def vith_route(row: str, d: int) -> str:
+    """The ROUTE_NAMES row that a head dim d takes: rows 1 and 7 run any d
+    but 16, 32 and 64 in their padded kernels, rows 2-6 any d but 16, 32,
+    64 and 128."""
+    own = (16, 32, 64) if row in ("row 1", "row 7") else (16, 32, 64, 128)
+    return row if d in own else f"{row} padded"
+
+
+def vith_phase(det_keep):
+    """Phase 7d: rows 1-7 at the head dims they took in this slice, and
+    ViT-H/14 served and trained at full width and depth. Returns (the
+    launches of its model runs by wrapper, the rows' times at dh 80 by
+    wrapper name, the new checks' errors, the model numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformers_tpu_torch import serving
+    from vision_transformers_tpu_torch.models.image_classification import ViT
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.training import trainer
+    from vision_transformers_tpu_torch.training.optimizers import (
+        make_optimizer,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs = {}
+
+    def randn(seed, *shape, dtype):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def nan_like(t):
+        return torch.full_like(t, float("nan"))
+
+    def grad_tol(name, ref):
+        tol = MMA_GRAD_TOL if name == "bfloat16" else GRAD_TOL[name]
+        return tol * max(1.0, ref.float().abs().max().item())
+
+    def fwd_tol(name, sk, ref):
+        # bf16 at Sk >= 1000: |out| stays well below 1 (rows 3 and 5)
+        if name == "bfloat16" and sk >= 1000:
+            return MASKED_FWD_TOL * max(1.0, ref.float().abs().max().item())
+        return KERNEL_TOL[name]
+
+    # ---- rows 1 and 7 ------------------------------------------------------
+    def check_packed(label, b, s, h, dh, dtype, rate):
+        name = str(dtype).removeprefix("torch.")
+        qkv = randn(200 + dh, b, s, 3 * h * dh, dtype=dtype)
+        do = randn(300 + dh, b, s, h * dh, dtype=dtype)
+        kw = dict(dropout_rate=rate, seed=9090 + (dh << 36) if rate else None)
+        got = []
+        require_route(
+            f"vith {label} {name} rate {rate} fwd", lambda: got.append(
+            fa.packed_flash_attention_fwd(
+                qkv, h, **kw, out=torch.full((b, s, h * dh), float("nan"),
+                                             dtype=dtype, device=dev),
+                lse=torch.full((b, s, h), float("nan"), device=dev))),
+            [(vith_route("row 1", dh), name)])
+        out, lse = got[0]
+        ref, ref_lse = fa.packed_flash_attention_reference(qkv, h, **kw)
+        again = fa.packed_flash_attention_fwd(qkv, h, **kw)
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all())
+                and e <= KERNEL_TOL[name] and el <= LSE_TOL
+                and torch.equal(again[0], out) and torch.equal(again[1], lse),
+                f"vith {label} {name} rate {rate}: row 1 against its plain "
+                f"version ({e:.3e}, lse {el:.3e}), every element written, "
+                "rerun bit-equal")
+        gotb = []
+        require_route(
+            f"vith {label} {name} rate {rate} bwd", lambda: gotb.append(
+            fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw,
+                                          dqkv=nan_like(qkv))),
+            [(vith_route("row 7", dh), name)])
+        dref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
+                                                       **kw)
+        eg, tol = max_err(gotb[0], dref), grad_tol(name, dref)
+        againb = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(gotb[0].float()).all()) and eg <= tol
+                and torch.equal(againb, gotb[0]),
+                f"vith {label} {name} rate {rate}: row 7 against its plain "
+                f"version ({eg:.3e} > {tol:.3e}?), every element written, "
+                "rerun bit-equal")
+        msg = ""
+        if rate:  # the next seed's mask is far off: the oracle sees masks
+            other = fa.packed_flash_attention_reference(
+                qkv, h, dropout_rate=rate, seed=kw["seed"] + 1)[0]
+            fault = max_err(other, ref)
+            require(fault > KERNEL_TOL[name], f"vith {label} {name}: the "
+                    f"planted fault (the next seed's mask) {fault:.3e} "
+                    f"exceeds {KERNEL_TOL[name]}")
+            msg = f", planted fault (next seed's mask) {fault:.3e}"
+        log(f"vith packed {label} {name} rate {rate}: row 1 max|out-plain| "
+            f"{e:.3e} (tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}; "
+            f"row 7 max|dqkv-plain| {eg:.3e} (tol {tol:.3e}){msg}; every "
+            "element written, reruns bit-equal")
+        errs[("row 1", label, name, rate)] = e
+        errs[("row 7", label, name, rate)] = eg
+
+    # ---- rows 2, 5 and 6 ---------------------------------------------------
+    def check_split(label, b, h, s, d, dtype, rate, masked=False):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, do = (randn(400 + 4 * d + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        key_mask = None
+        if masked:
+            m = np.random.RandomState(d).rand(b, s) > 0.3
+            m[:, 0] = True
+            key_mask = torch.from_numpy(m).to(dev)
+        kw = dict(dropout_rate=rate, seed=7070 + (d << 36) if rate else None,
+                  key_mask=key_mask)
+        got = []
+        if rate == 0.0 and key_mask is None:
+            row = "row 2"
+            fwd = lambda **o: fa.flash_attention_fwd(q, k, v, **o)  # noqa: E731
+            ref, ref_lse = fa.flash_attention_reference(q, k, v)
+        else:
+            row = "row 5"
+            fwd = lambda **o: fa.flash_dropout_attention_fwd(  # noqa: E731
+                q, k, v, **kw, **o)
+            ref, ref_lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
+        require_route(
+            f"vith {label} {name} rate {rate} fwd", lambda: got.append(
+            fwd(out=nan_like(q), lse=torch.full((b, h, s), float("nan"),
+                                                device=dev))),
+            [(vith_route(row, d), name)])
+        (out, lse), again = got[0], fwd()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = fwd_tol(name, s, ref)
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out)
+                and torch.equal(again[1], lse),
+                f"vith {label} {name} rate {rate}: {row} against its plain "
+                f"version ({e:.3e} > {tol}?), every element written, rerun "
+                "bit-equal")
+        gotb = []
+        require_route(
+            f"vith {label} {name} rate {rate} bwd", lambda: gotb.append(
+            fa.flash_dropout_attention_bwd(
+                q, k, v, do, ref, ref_lse, **kw,
+                grads=tuple(nan_like(t) for t in (q, k, v)))),
+            [(vith_route("row 6", d), name)])
+        want = fa.flash_dropout_attention_bwd_reference(q, k, v, do, ref,
+                                                        ref_lse, **kw)
+        againb = fa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
+        torch.cuda.synchronize()
+        eg = 0.0
+        for n, g_, w_, a_ in zip("qkv", gotb[0], want, againb):
+            eg_, tg = max_err(g_, w_), grad_tol(name, w_)
+            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
+                    and torch.equal(a_, g_),
+                    f"vith {label} {name} rate {rate}: row 6 d{n} against its "
+                    f"plain version ({eg_:.3e} > {tg:.3e}?), every element "
+                    "written, rerun bit-equal")
+            eg = max(eg, eg_)
+        log(f"vith split {label} {name} rate {rate}: {row} max|out-plain| "
+            f"{e:.3e} (tol {tol:.3e}), max|lse-plain| {el:.3e}; row 6 "
+            f"max|grad-plain| {eg:.3e}; every element written, reruns "
+            "bit-equal")
+        errs[(row, label, name, rate)] = e
+        errs[("row 6", label, name, rate)] = eg
+
+    # ---- row 3 -------------------------------------------------------------
+    def check_large(label, b, h, sq, sk, d, dtype, keep=None, kv_valid=None):
+        name = str(dtype).removeprefix("torch.")
+        q = randn(500 + d, b, h, sq, d, dtype=dtype)
+        k, v = (randn(501 + d + i, b, h, sk, d, dtype=dtype) for i in (0, 1))
+        got = []
+        require_route(f"vith {label} {name}", lambda: got.append(
+            fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                         kv_valid=kv_valid,
+                                         out=nan_like(q))),
+            [(vith_route("row 3", d), name)])
+        out, lse = got[0]
+        ref, ref_lse = fa.flash_attention_large_reference(
+            q, k, v, kv_mask=keep, kv_valid=kv_valid)
+        again = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                             kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = fwd_tol(name, sk, ref)
+        require(bool(torch.isfinite(out.float()).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out),
+                f"vith {label} {name}: row 3 against its plain version "
+                f"({e:.3e} > {tol:.3e}?), every element written, rerun "
+                "bit-equal")
+        log(f"vith large {label} {name}: row 3 max|out-plain| {e:.3e} (tol "
+            f"{tol:.3e}), max|lse-plain| {el:.3e}; every element written, "
+            "rerun bit-equal")
+        errs[("row 3", label, name)] = e
+
+    # ---- row 4 -------------------------------------------------------------
+    def check_small_bwd(label, b, h, s, d, dtype):
+        name = str(dtype).removeprefix("torch.")
+        require(fa.flash_bwd_supported(s, s, d), f"vith {label}: row 4's "
+                "shared-memory rule admits the shape")
+        q, k, v, do = (randn(600 + 4 * d + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        out, lse = fa.flash_attention_reference(q, k, v)
+        got = []
+        require_route(f"vith {label} {name}", lambda: got.append(
+            fa.flash_attention_bwd(
+                q, k, v, out, lse, do,
+                grads=tuple(nan_like(t) for t in (q, k, v)))),
+            [(vith_route("row 4", d), name)])
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        eg = 0.0
+        for n, g_, w_, a_ in zip("qkv", got[0], want, again):
+            eg_, tg = max_err(g_, w_), grad_tol(name, w_)
+            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
+                    and torch.equal(a_, g_),
+                    f"vith {label} {name}: row 4 d{n} against its plain "
+                    f"version ({eg_:.3e} > {tg:.3e}?), every element written, "
+                    "rerun bit-equal")
+            eg = max(eg, eg_)
+        log(f"vith small-S bwd {label} {name}: row 4 max|grad-plain| {eg:.3e};"
+            " every element written, rerun bit-equal")
+        errs[("row 4", label, name)] = eg
+
+    det_b, det_sk = det_keep.shape
+    for dtype in (bf16, fp32):
+        for rate in (0.0, 0.1):
+            check_packed("ViT-H/14@224 B32 S257 H16 dh80", 32, 257, 16, 80,
+                         dtype, rate)
+            check_split("ViT-H/14@336 B4 H16 S577 D80", 4, 16, 577, 80,
+                        dtype, rate)
+            for dh in (12, 96, 128, 77):
+                check_packed(f"B4 S197 H4 dh{dh}", 4, 197, 4, dh, dtype, rate)
+            check_split("B2 H3 S150 D77", 2, 3, 150, 77, dtype, rate, rate > 0)
+        check_large("ViT-H/14@518 B4 H16 S1370 D80", 4, 16, 1370, 1370, 80,
+                    dtype)
+        check_large("DETR-R50 encoder B4 H8 S4704 D80 COCO masks", det_b, 8,
+                    det_sk, det_sk, 80, dtype, keep=det_keep)
+        for d in (12, 128, 77):
+            check_large(f"B2 H4 S1300 D{d} masked", 2, 4, 1300, 1300, d,
+                        dtype, keep=det_keep[:2, :1300])
+        check_small_bwd("ViT-H/14@224 B2 H16 S257 D80", 2, 16, 257, 80, dtype)
+        for d, s in ((12, 257), (128, 100), (77, 150)):
+            check_small_bwd(f"B2 H4 S{s} D{d}", 2, 4, s, d, dtype)
+    log(f"vith kernel checks in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the rows' times at ViT-H/14's dh 80 (bf16) -----------------------
+    def sdpa_grad(q, k, v, do, p):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, dropout_p=p)
+        return lambda: torch.autograd.grad(out, (q, k, v), do,
+                                           retain_graph=True)
+
+    times = {}
+
+    def put(name, key, k_ms, p_ms, l_ms, nbytes, flops):
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        times.setdefault(name, {}).update({
+            f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+            f"{key}_library_ms": l_ms, f"{key}_bound_ms": bnd,
+            f"{key}_bound_by": by, f"{key}_tflops": flops / k_ms / 1e9})
+        log(f"vith time {name} {key}: kernel {k_ms:.4f} ms, bound {bnd:.4f} "
+            f"ms ({by}), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, "
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+
+    b, s, h, dh = 32, 257, 16, 80
+    qkv = randn(700, b, s, 3 * h * dh, dtype=bf16)
+    do = randn(701, b, s, h * dh, dtype=bf16)
+    qv, kv, vv = (t.view(b, s, h, dh).transpose(1, 2)
+                  for t in qkv.split(h * dh, dim=-1))
+    io = b * s * h * dh * 2
+    kw = dict(dropout_rate=0.1, seed=2026)
+    put("packed_attention", "vith_s257_d80",
+        cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv, h)),
+        cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h), iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv)),
+        4 * io + b * s * h * 4, 4 * b * h * s * s * dh)
+    out, lse = fa.packed_flash_attention_fwd(qkv, h, **kw)
+    do_h = do.view(b, s, h, dh).transpose(1, 2)
+    put("packed_attention_bwd", "vith_s257_d80",
+        cuda_ms(lambda: fa.packed_flash_attention_bwd(qkv, do, out, lse, h,
+                                                      **kw)),
+        cuda_ms(lambda: fa.packed_flash_attention_bwd_reference(
+            qkv, do, out, lse, h, **kw), iters=3),
+        cuda_ms(sdpa_grad(qv, kv, vv, do_h, 0.1)),
+        8 * io + b * s * h * 4, 10 * b * h * s * s * dh)
+    # the same rows at dh 64 (a tile of its own) and 128 (the tile dh 80
+    # runs in): what padding 80 to 128 costs against an exact tile
+    for d_ in (64, 128):
+        qkv_d = randn(702, b, s, 3 * h * d_, dtype=bf16)
+        times["packed_attention"][f"vith_s257_d{d_}_ms"] = cuda_ms(
+            lambda: fa.packed_flash_attention_fwd(qkv_d, h))
+    del qkv, do, qv, kv, vv, out, lse, do_h, qkv_d
+    b, h, s, d = 4, 16, 577, 80
+    q, k, v, do = (randn(710 + i, b, h, s, d, dtype=bf16) for i in range(4))
+    io = b * h * s * d * 2
+    put("flash_attention", "vith_s577_d80",
+        cuda_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+        cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    put("dropout_attention_fwd", "vith_s577_d80",
+        cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw)),
+        cuda_ms(lambda: fa.flash_dropout_attention_reference(q, k, v, **kw),
+                iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       dropout_p=0.1)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    for d_ in (64, 128):
+        q_d = randn(713, b, h, s, d_, dtype=bf16)
+        times["flash_attention"][f"vith_s577_d{d_}_ms"] = cuda_ms(
+            lambda: fa.flash_attention_fwd(q_d, q_d, q_d))
+    del q_d
+    out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
+    put("dropout_attention_bwd", "vith_s577_d80",
+        cuda_ms(lambda: fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                                       **kw)),
+        cuda_ms(lambda: fa.flash_dropout_attention_bwd_reference(
+            q, k, v, do, out, lse, **kw), iters=3),
+        cuda_ms(sdpa_grad(q, k, v, do, 0.1)),
+        8 * io + b * h * s * 4, 10 * b * h * s * s * d)
+    del q, k, v, do, out, lse
+    b, h, s, d = 4, 16, 1370, 80
+    q, k, v = (randn(720 + i, b, h, s, d, dtype=bf16) for i in range(3))
+    io = b * h * s * d * 2
+    put("flash_attention_large", "vith_s1370_d80",
+        cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v)),
+        cuda_ms(lambda: fa.flash_attention_large_reference(q, k, v),
+                iters=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    del q, k, v
+    b, h, s, d = 2, 16, 257, 80
+    q, k, v, do = (randn(730 + i, b, h, s, d, dtype=bf16) for i in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    io = b * h * s * d * 2
+    put("flash_attention_bwd", "vith_s257_d80",
+        cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)),
+        cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                         do), iters=5),
+        cuda_ms(sdpa_grad(q, k, v, do, 0.0)),
+        8 * io + b * h * s * 4, 10 * b * h * s * s * d)
+    del q, k, v, do, out, lse
+
+    # ---- ViT-H/14 at full width and depth ----------------------------------
+    t0 = time.perf_counter()
+    model = ViT(image_size=224, **VITH14, dtype="bfloat16")
+    weights = seeded_state_dict(model, seed=14)
+    model.load_state_dict(weights)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"ViT-H/14 @224: {n_params} parameters, built and seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(n_params > 6e8, "ViT-H/14 has about 632 M parameters")
+    rng = np.random.RandomState(15)
+    runs = []  # the launch counts of each model run, zeroed before it
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append(dict(fa.LAUNCHES))
+        return out, runs[-1]
+
+    def weights_at(image):
+        """weights at a resolution: the same tensors, at another than 224
+        a seeded position embedding of its own length."""
+        if image == 224:
+            return weights
+        w = dict(weights)
+        shape = (1, (image // 14) ** 2 + 1, 1280)
+        w["encoder.pos_embedding"] = torch.from_numpy(
+            (0.02 * np.random.RandomState(image).standard_normal(shape))
+            .astype(np.float32))
+        return w
+
+    served, numbers = {}, {}
+    for image, buckets, row in ((224, (1, 32), "row 1"),
+                                (336, (4,), "row 2"),
+                                (518, (4,), "row 3")):
+        shape = (image, image, 3)
+        if image != 224:
+            model = ViT(image_size=image, **VITH14, dtype="bfloat16")
+            model.load_state_dict(weights_at(image))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(model, shape, tmp, buckets=buckets,
+                                      dtype=fp32)
+            clf = serving.load_classifier(tmp)
+        if image != 224:
+            del model
+        log(f"ViT-H/14 @{image}: exported and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        clf.warmup()
+        x = rng.standard_normal((max(buckets), *shape)).astype(np.float32)
+        name = {"row 1": "packed_attention", "row 2": "flash_attention",
+                "row 3": "flash_attention_large"}[row]
+        for bkt in buckets:
+            logits, la = counted(lambda: clf.predict(x[:bkt]))
+            require(tuple(logits.shape) == (bkt, 1000)
+                    and bool(torch.isfinite(logits.float()).all())
+                    and la[name] == 32
+                    and sum(la.values()) == 32,
+                    f"ViT-H/14 @{image} bucket {bkt}: finite logits, 32 "
+                    f"{name} launches and no other kernel of the table: {la}")
+            require_route(f"ViT-H/14 @{image} bucket {bkt} forward",
+                          lambda: clf.predict(x[:bkt]),
+                          [(vith_route(row, 80), "bfloat16")])
+            for _ in range(2):
+                clf.predict(x[:bkt]).float().cpu()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                clf.predict(x[:bkt]).float().cpu()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            with torch.inference_mode():
+                xb = torch.from_numpy(x[:bkt]).to(dev)
+                dev_ms = cuda_ms(lambda: clf.model(xb), iters=5, warmup=1)
+            wall, busy, count, top = device_profile(
+                lambda: clf.predict(x[:bkt]).float().cpu())
+            idle = None if busy is None else 1 - busy / wall
+            numbers[f"served_{image}_b{bkt}"] = dict(
+                ms=ms, device_ms=dev_ms, idle=idle)
+            log(f"ViT-H/14 @{image} bf16 served bucket {bkt}: {ms:.3f} ms per "
+                f"request (host numpy in, logits out), forward device time "
+                f"{dev_ms:.3f} ms, {bkt / ms * 1e3:.1f} images/s; profile "
+                + ("saw no device activity" if busy is None else
+                   f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} "
+                   f"activities, idle share {idle:.3f}"))
+        served[image] = clf
+    clf224 = served.pop(224)
+    del served
+
+    # 2 layers at full width, fp32, card against the CPU's plain versions
+    two = {k: v for k, v in weights.items()
+           if not re.search(r"encoder_layer_([2-9]|[1-3]\d)\.", k)}
+    kw2 = dict(VITH14, num_layers=2)
+    card2 = ViT(image_size=224, **kw2)
+    card2.load_state_dict(two)
+    cpu2 = ViT(image_size=224, **kw2, device="cpu")
+    cpu2.load_state_dict(two)
+    x2 = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        (got2, la2) = counted(lambda: card2(torch.from_numpy(x2).to(dev)))
+        want2 = cpu2(torch.from_numpy(x2))
+        require_route("ViT-H/14 2 layers fp32 forward",
+                      lambda: card2(torch.from_numpy(x2).to(dev)),
+                      [("row 1 padded", "float32")])
+    e2 = max_err(got2.cpu(), want2)
+    log(f"ViT-H/14 2 layers fp32, card against the CPU's plain versions: "
+        f"max|logit diff| {e2:.3e} (tol {LOGIT_TOL_FP32}, max|ref| "
+        f"{want2.abs().max().item():.3f}), launches {la2}")
+    require(e2 <= LOGIT_TOL_FP32 and la2["packed_attention"] == 2,
+            "ViT-H/14 2 layers fp32 on the card against the CPU")
+    del card2, cpu2, two
+
+    # full depth: bf16 finite, and its argmax against fp32's on the card
+    full32 = ViT(image_size=224, **VITH14)
+    full32.load_state_dict(weights)
+    xs = rng.standard_normal((64, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        l16, _ = counted(lambda: torch.cat([clf224.predict(xs[i:i + 32])
+                                            for i in (0, 32)]))
+        l32, _ = counted(lambda: torch.cat([
+            full32(torch.from_numpy(xs[i:i + 32]).to(dev)) for i in (0, 32)]))
+    agree = (l16.float().argmax(-1) == l32.argmax(-1)).float().mean().item()
+    rel = max_err(l16, l32) / l32.abs().max().item()
+    log(f"ViT-H/14 full depth, 64 seeded images: bf16 logits finite, argmax "
+        f"agrees with the fp32 card forward on {agree:.4f} of them (floor "
+        f"{VITH_ARGMAX_FLOOR}); max|bf16 - fp32| / max|fp32| {rel:.4f}")
+    require(bool(torch.isfinite(l16.float()).all())
+            and bool(torch.isfinite(l32).all()) and agree >= VITH_ARGMAX_FLOOR,
+            "ViT-H/14 full-depth bf16 finite, its argmax agrees with fp32")
+    numbers.update(argmax_agree=agree, bf16_fp32_rel=rel)
+    del full32, l16, l32
+
+    # training: 3 Adam steps (fused, row 15) at 224 px, batch 8, attention
+    # dropout 0.1 (rows 1 and 7 with dropout), on one batch: the loss falls
+    def train_run(image, bsz, rate, steps, label):
+        m = ViT(image_size=image, **VITH14, attention_dropout=rate,
+                dtype="bfloat16")
+        m.load_state_dict(weights_at(image))
+        state = trainer.make_train_state(
+            m, tx=make_optimizer("adam", 3e-5, fused=True))
+        step = trainer.train_step_fn(m)
+        xb = rng.randint(0, 256, (bsz, image, image, 3)).astype(np.uint8)
+        yb = rng.randint(0, 1000, bsz).astype(np.int32)
+        wb = np.ones(bsz, np.float32)
+        m.dropout_generator.manual_seed(image)
+        losses = []
+
+        def go():
+            nonlocal state
+            for _ in range(steps):
+                state, loss_n, _, n = step(state, xb, yb, wb)
+                losses.append((loss_n / n).item())
+
+        t0 = time.perf_counter()
+        _, la = counted(go)
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        log(f"ViT-H/14 @{image} {label}: {steps} Adam steps at batch {bsz}, "
+            f"attention dropout {rate}: loss {[round(x_, 4) for x_ in losses]}"
+            f", {ms:.1f} ms a step (host clock, first steps), launches {la}")
+        require(np.isfinite(losses).all(), f"ViT-H/14 @{image} {label}: "
+                "finite losses")
+        return state, step, (xb, yb, wb), losses, la
+
+    del clf224
+    state, step, batch, losses, la = train_run(224, 8, 0.1, 3, "train")
+    require(losses[-1] < losses[0] and la["packed_attention"] == 96
+            and la["packed_attention_bwd"] == 96 and la["fused_adam"] >= 3,
+            "ViT-H/14 @224: the loss falls over 3 steps; 32 row-1 and 32 "
+            f"row-7 launches and row 15 each step: {la}")
+
+    def one_step():
+        nonlocal state
+        state, *_ = step(state, *batch)
+
+    require_route("ViT-H/14 @224 bf16 train step, dropout 0.1", one_step,
+                  [("row 1 padded", "bfloat16"), ("row 7 padded", "bfloat16")])
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    wall, busy, count, _ = device_profile(one_step)
+    idle = None if busy is None else 1 - busy / wall
+    numbers["train_224_b8"] = dict(ms=step_ms, idle=idle, losses=losses)
+    log(f"ViT-H/14 @224 bf16 train step, batch 8, attention dropout 0.1: "
+        f"{step_ms:.3f} ms a step (host clock, synchronised; "
+        f"{8 / step_ms * 1e3:.1f} images/s); profile "
+        + ("saw no device activity" if busy is None else
+           f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} activities, "
+           f"idle share {idle:.3f}"))
+    del state, step, batch
+
+    # one step at 336 px, batch 2: rate 0 (rows 2 and 6), rate 0.1 (5 and 6)
+    for rate, rows in ((0.0, ("row 2 padded", "row 6 padded")),
+                       (0.1, ("row 5 padded", "row 6 padded"))):
+        state, step, batch, _, la = train_run(336, 2, rate, 1,
+                                              f"train rate {rate}")
+        fwd = "flash_attention" if rate == 0.0 else "dropout_attention_fwd"
+        require(la[fwd] == 32 and la["dropout_attention_bwd"] == 32,
+                f"ViT-H/14 @336 rate {rate}: 32 {fwd} and 32 row-6 launches "
+                f"a step: {la}")
+        require_route(f"ViT-H/14 @336 bf16 train step, rate {rate}",
+                      lambda: step(state, *batch),
+                      [(r, "bfloat16") for r in rows])
+        del state, step
+    del weights
+    for name, row in (("packed_attention", "row 1"),
+                      ("packed_attention_bwd", "row 7"),
+                      ("flash_attention", "row 2"),
+                      ("flash_attention_large", "row 3"),
+                      ("flash_attention_bwd", "row 4"),
+                      ("dropout_attention_fwd", "row 5"),
+                      ("dropout_attention_bwd", "row 6")):
+        times[name]["vith_max_abs_err"] = max(
+            v for k, v in errs.items() if k[0] == row and "bfloat16" in k)
+    totals = {k: sum(r.get(k, 0) for r in runs) for k in fa.LAUNCHES}
+    log(f"ViT-H/14 phase in {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in totals.items() if v} }")
+    return totals, times, errs, numbers
 
 
 def main() -> int:
@@ -4504,6 +5202,10 @@ def main() -> int:
     log(f"parallel launches in all: { {k: v for k, v in par_total.items() if v} }")
     log(f"parallel times: {json.dumps(par_times)}")
 
+    # ---- 7d. ViT-H/14 and rows 1-7 at every head dim ------------------------
+    vith_total, vith_times, vith_errs, vith_numbers = vith_phase(det_keep)
+    log(f"ViT-H/14 numbers: {json.dumps(vith_numbers)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -4610,7 +5312,9 @@ def main() -> int:
         bnd, by = bound_ms(nbytes, flops, ops_dtype)
         extra["cli_launches"] = cli_total[name]  # phase 7b's runs
         extra["parallel_launches"] = par_total[name]  # phase 7c's runs
-        launches += cli_total[name] + par_total[name]
+        extra["vith_launches"] = vith_total[name]  # phase 7d's model runs
+        extra.update(vith_times.get(name, {}))  # phase 7d's dh-80 times
+        launches += cli_total[name] + par_total[name] + vith_total[name]
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,

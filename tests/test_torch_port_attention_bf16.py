@@ -537,7 +537,9 @@ def test_window_bwd_reference_matches_jax_kernel_in_bf16(g, heads, nwp):
 def test_window_route_sends_bf16_to_the_tensor_cores(dh):
     """``window_route``: bf16 → the tensor-core kernels of rows 9 and 10 at
     every N the window kernels take, fp32 → the CUDA-core ones; N 0 and
-    N 129, a head dim outside ``KERNEL_HEAD_DIMS`` and fp16 refused."""
+    N 129, a head dim outside ``TILE_HEAD_DIMS`` (the window kernels keep
+    their own rule; rows 1-7 take 1 <= D <= 128) and fp16 refused."""
+    assert dh in tfa.TILE_HEAD_DIMS and tfa.attention_head_dim_supported(dh)
     for n in range(1, tfa.MAX_WINDOW_TOKENS + 1):
         assert tfa.window_route(torch.bfloat16, n, dh) == "tensor_cores"
         assert tfa.window_route(torch.float32, n, dh) == "cuda_cores"

@@ -61,7 +61,11 @@ def _nan_filled(b, s, heads, dh, dtype, cuda):
 @pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
     (2, 197, 12, 64, None), (32, 197, 12, 64, None),  # ViT-B/16 @224
     (2, 208, 12, 64, 197), (3, 49, 3, 32, None), (2, 197, 6, 32, 190),
-    (1, 33, 2, 16, 30), (2, 130, 4, 16, None)])
+    (1, 33, 2, 16, 30), (2, 130, 4, 16, None),
+    # any other head dim, in the next tile (_PADDED_HEAD_DIMS)
+    (2, 257, 16, 80, None),  # ViT-H/14 @224
+    (2, 65, 3, 12, 60), (1, 70, 2, 96, None), (2, 40, 2, 128, 37),
+    (1, 33, 2, 77, None), (2, 20, 3, 1, None)])
 def test_packed_kernel_matches_plain(cuda, dtype, b, s, heads, dh, kv_valid):
     qkv = torch.from_numpy(_randn(22, b, s, 3 * heads * dh)).to(cuda, dtype)
     out, lse = tfa.packed_flash_attention_fwd(
@@ -81,7 +85,9 @@ def test_packed_kernel_matches_plain(cuda, dtype, b, s, heads, dh, kv_valid):
 # one 64-key tile of the bf16 kernels, Sq 1000 a ragged last query tile.
 _SPLIT_SHAPES = [(49, 49, None, 32), (100, 25, None, 32), (70, 70, 60, 32),
                  (1000, 49, None, 64), (1000, 130, 120, 16),
-                 (100, 100, None, 64)]
+                 (100, 100, None, 64),
+                 # D 65-127 in the 128 tile (ViT-H/14 @384: D 80), odd D
+                 (130, 70, None, 80), (70, 70, 60, 96), (49, 49, None, 77)]
 
 
 @pytest.mark.cuda
@@ -132,7 +138,10 @@ def _grad_close(got, ref, dtype, tol=None):
 @pytest.mark.parametrize("b,s,heads,dh,kv_valid", [
     (2, 197, 12, 64, None), (32, 197, 12, 64, None),  # ViT-B/16 @224
     (2, 208, 12, 64, 197), (4, 65, 4, 64, None), (2, 197, 6, 32, 190),
-    (1, 33, 2, 16, 30)])
+    (1, 33, 2, 16, 30),
+    (2, 257, 16, 80, None),  # ViT-H/14 @224
+    (1, 70, 2, 96, 64), (2, 40, 2, 128, None), (1, 33, 3, 12, 30),
+    (1, 50, 2, 77, None)])
 def test_packed_dropout_and_backward_match_plain(cuda, dtype, rate, b, s,
                                                  heads, dh, kv_valid):
     qkv = torch.from_numpy(_randn(27, b, s, 3 * heads * dh)).to(cuda, dtype)
@@ -166,7 +175,9 @@ def test_packed_dropout_and_backward_match_plain(cuda, dtype, rate, b, s,
     (70, 70, 60, True, 32), (257, 257, None, True, 32),
     (1000, 49, None, False, 64), (1000, 130, 120, True, 16),
     (130, 1000, 990, True, 64), (1000, 49, 40, True, 32),
-    (300, 700, 650, True, 16), (300, 700, 650, False, 32)])
+    (300, 700, 650, True, 16), (300, 700, 650, False, 32),
+    (257, 257, None, True, 80), (130, 200, 180, True, 96),
+    (49, 49, None, False, 77)])
 def test_dropout_kernels_match_plain(cuda, dtype, rate, sq, sk, kv_valid,
                                      masked, d):
     b, h = 3, 2
@@ -820,7 +831,7 @@ def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
 @pytest.mark.cuda
 def test_unported_paths_raise_on_cuda(cuda):
     """What the kernels refuse on the card: a bias on the streaming route
-    (a key-padding mask, or Sq·Sk > 1.5 M), an unsupported head dim, and a
+    (a key-padding mask, or Sq·Sk > 1.5 M), a head dim above 128, and a
     small-S backward whose group does not fit a block's shared memory. A
     key-padding mask at rate 0 and a large bias-free S now launch the
     streaming kernel."""
@@ -837,8 +848,9 @@ def test_unported_paths_raise_on_cuda(cuda):
     tattn.dot_product_attention(q, q, q, mask=keep[:, None, None, :])
     tfa.flash_attention(big, big, big)
     assert tfa.LAUNCHES["flash_attention_large"] == 2
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 8, device=cuda), 2)
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 129,
+                                               device=cuda), 2)
     wide = torch.zeros(1, 1, 4, 64, device=cuda)
     long_k = torch.zeros(1, 1, 1000, 64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -875,7 +887,12 @@ def _masks(b, sk, seed=50, full=None):
     (2, 3, 1000, 1000, 16, 900, True),    # ragged Sq, kv_valid with a mask
     (2, 2, 1000, 700, 64, 650, True),
     (1, 2, 333, 4704, 32, None, False),
-    (1, 2, 500, 1300, 64, 1000, False)])  # kv_valid without a mask
+    (1, 2, 500, 1300, 64, 1000, False),   # kv_valid without a mask
+    # any other head dim: 128 its own tile, the rest padded
+    (1, 2, 1370, 1370, 80, None, False),  # ViT-H/14 @518
+    (2, 4, 300, 300, 80, None, True),     # the DETR encoder's masks at D 80
+    (2, 2, 300, 300, 12, None, True), (2, 2, 100, 700, 128, 650, True),
+    (1, 2, 333, 500, 77, None, True), (1, 2, 200, 1300, 96, 1250, False)])
 def test_large_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d, kv_valid,
                                     masked):
     q = torch.from_numpy(_randn(51, b, h, sq, d)).to(cuda, dtype)
@@ -918,7 +935,10 @@ def test_large_kernel_fully_masked_image_is_uniform(cuda, dtype):
     (2, 8, 100, 100, 32, None),   # the DETR decoder's self attention
     (2, 12, 197, 197, 64, None),  # ViT-B/16
     (2, 3, 70, 45, 16, 40),
-    (1, 2, 33, 300, 32, 290)])
+    (1, 2, 33, 300, 32, 290),
+    # any other head dim the shared-memory rule admits
+    (2, 2, 100, 100, 80, None), (2, 3, 70, 45, 12, 40),
+    (1, 2, 60, 100, 128, None), (1, 2, 33, 50, 77, 45)])
 def test_small_s_backward_kernel_matches_plain(cuda, dtype, b, h, sq, sk, d,
                                                kv_valid):
     q = torch.from_numpy(_randn(57, b, h, sq, d)).to(cuda, dtype)
@@ -1099,10 +1119,11 @@ def test_packed_backward_tensor_cores_at_path_shapes(cuda, rate, b, s, heads,
 
 @pytest.mark.cuda
 def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
-    """Row 7 takes bf16 (the tensor cores) and fp32 (the CUDA cores) at the
-    kernels' head dims; a float16 operand or head dim 80 raises before any
-    launch. Rows 7 and 8 on the tensor cores copy 16 bytes at a time: a
-    bf16 operand 2 bytes off raises. Nothing falls back."""
+    """Row 7 takes bf16 (the tensor cores) and fp32 (the CUDA cores) at
+    every head dim from 1 to 128 (dh 80 launches its padded kernels); a
+    float16 operand or head dim 129 raises before any launch. Rows 7 and 8
+    on the tensor cores copy 16 bytes at a time: a bf16 operand 2 bytes off
+    raises. Nothing falls back."""
     bf16 = torch.bfloat16
     b, s, heads, dh = 1, 40, 2, 32
     qkv = torch.zeros(b, s, 3 * heads * dh, device=cuda, dtype=bf16)
@@ -1111,10 +1132,19 @@ def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.packed_flash_attention_bwd(half, out.half(), out.half(), lse,
                                        heads)
+    from vision_transformers_tpu_torch.ops import _build
+
     wide = torch.zeros(b, s, 3 * 80, device=cuda, dtype=bf16)
-    with pytest.raises(ValueError, match="head dim 80"):
-        tfa.packed_flash_attention_bwd(wide, wide[..., :80], wide[..., :80],
-                                       lse[..., :1], 1)
+    w_out, w_lse = tfa.packed_flash_attention_fwd(wide, 1)
+    _build.reset_launched()
+    tfa.packed_flash_attention_bwd(wide, w_out, w_out, w_lse, 1)
+    torch.cuda.synchronize()
+    assert _build.launched() == {"packed_bwd_dq_mma_padded_kernel": 1,
+                                 "packed_bwd_dkv_mma_padded_kernel": 1}
+    wider = torch.zeros(b, s, 3 * 129, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="head dim 129"):
+        tfa.packed_flash_attention_bwd(wider, wider[..., :129],
+                                       wider[..., :129], lse[..., :1], 1)
     off = torch.zeros(qkv.numel() + 8, device=cuda, dtype=bf16)
     with pytest.raises(RuntimeError, match="misaligned"):
         tfa.packed_flash_attention_bwd(off[1:1 + qkv.numel()].view_as(qkv),
@@ -1314,15 +1344,155 @@ def test_bf16_padded_operands_at_odd_row_offsets(cuda, d):
 
 
 @pytest.mark.cuda
-def test_split_head_rule_refuses_other_dims(cuda):
-    """Rows 2, 5 and 6 refuse D 65-127 and above 128, naming their rule;
-    the packed kernel (row 1) still refuses D 12."""
-    for d in (65, 96, 130):
-        q = torch.zeros(1, 1, 8, d, device=cuda)
-        with pytest.raises(ValueError, match="rows 2, 5 and 6"):
-            tfa.flash_attention_fwd(q, q, q)
-        with pytest.raises(ValueError, match="rows 2, 5 and 6"):
-            tfa.flash_dropout_attention_fwd(q, q, q, dropout_rate=0.1, seed=1)
-    with pytest.raises(ValueError, match="head dim 12"):
-        tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 12,
-                                               device=cuda), 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_head_rule_refuses_other_dims(cuda, dtype):
+    """Rows 1-7 take 1 <= D <= 128 and refuse D 0 and 129 before any launch,
+    naming their rule; D 65 and 96 (once refused by rows 2, 5 and 6) and
+    D 12 (once refused by row 1) launch."""
+    for d in (0, 129):
+        q = torch.zeros(1, 1, 8, d, device=cuda, dtype=dtype)
+        calls = (
+            lambda: tfa.flash_attention_fwd(q, q, q),
+            lambda: tfa.flash_dropout_attention_fwd(q, q, q,
+                                                    dropout_rate=0.1, seed=1),
+            lambda: tfa.flash_attention_large_fwd(q, q, q),
+            lambda: tfa.flash_attention_bwd(
+                q, q, q, q, torch.zeros(1, 1, 8, device=cuda), q),
+            lambda: tfa.packed_flash_attention_fwd(
+                torch.zeros(1, 8, 3 * 2 * d, device=cuda, dtype=dtype), 2))
+        for call in calls:
+            with pytest.raises(ValueError, match=r"1 <= D <= 128"):
+                call()
+    tfa.reset_launch_counts()
+    for d in (65, 96):
+        q = torch.zeros(1, 1, 8, d, device=cuda, dtype=dtype)
+        tfa.flash_attention_fwd(q, q, q)
+        tfa.flash_dropout_attention_fwd(q, q, q, dropout_rate=0.1, seed=1)
+    tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 12, device=cuda,
+                                           dtype=dtype), 2)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == 2
+    assert tfa.LAUNCHES["dropout_attention_fwd"] == 2
+    assert tfa.LAUNCHES["packed_attention"] == 1
+
+
+# Rows 1, 3, 4 and 7 at head dims other than 16, 32 and 64 (rows 2, 5 and 6
+# in test_*_other_head_dims above): D 128 takes row 3's and row 4's own
+# instantiation and rows 1 and 7's padded tile, any other D the padded
+# kernels; by name in the launch log, both dtypes.
+def _padded_routes(d, bf):
+    mma = "_mma" if bf else ""
+    own = d == 128
+    packed = ({"packed_fwd_mma_padded_kernel": 1,
+               "packed_bwd_dq_mma_padded_kernel": 1,
+               "packed_bwd_dkv_mma_padded_kernel": 1} if bf else
+              {"packed_fwd_padded_kernel": 1,
+               "packed_bwd_dq_padded_kernel": 1,
+               "packed_bwd_dkv_padded_kernel": 1})
+    large = {f"flash_large{mma}_{'' if own else 'padded_'}kernel": 1}
+    if bf:
+        pad = "" if own else "padded_"
+        small = {f"flash_bwd_dq_mma_{pad}kernel": 1,
+                 f"flash_bwd_dkv_mma_{pad}kernel": 1}
+    else:
+        small = {f"flash_bwd_{'' if own else 'padded_'}kernel": 1}
+    return packed, large, small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 77, 80, 96, 128])
+def test_rows_1_3_4_7_take_every_head_dim(cuda, dtype, d):
+    from vision_transformers_tpu_torch.ops import _build
+
+    packed, large, small = _padded_routes(d, dtype == torch.bfloat16)
+    qkv = torch.from_numpy(_randn(70, 2, 40, 3 * 2 * d)).to(cuda, dtype)
+    kw = dict(dropout_rate=0.1, seed=5)
+    _build.reset_launched()
+    out, lse = tfa.packed_flash_attention_fwd(qkv, 2, **kw)
+    tfa.packed_flash_attention_bwd(qkv, out, out, lse, 2, **kw)
+    torch.cuda.synchronize()
+    assert _build.launched() == packed
+    q = torch.from_numpy(_randn(71, 2, 2, 90, d)).to(cuda, dtype)
+    mask = torch.from_numpy(_masks(2, 90)).to(cuda)
+    _build.reset_launched()
+    out, _ = tfa.flash_attention_large_fwd(q, q, q, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert _build.launched() == large
+    ref, ref_lse = tfa.flash_attention_reference(q, q, q)
+    _build.reset_launched()
+    tfa.flash_attention_bwd(q, q, q, ref, ref_lse, q)
+    torch.cuda.synchronize()
+    assert _build.launched() == small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,offset,takes", [
+    (80, 2, False), (80, 8, True),   # 16-byte copies: 4 bytes off refused
+    (12, 2, True), (12, 1, False),   # 4-byte copies: 2 bytes off refused
+    (7, 1, True), (77, 3, True)])    # an odd dh: 2-byte loads, any offset
+def test_packed_padded_copy_grain_follows_the_head_dim(cuda, dh, offset,
+                                                       takes):
+    """Rows 1 and 7 read the packed projection at a dh other than 16, 32
+    and 64 with the widest copy every head offset h·dh keeps aligned: a bf16
+    qkv `offset` elements into a buffer gives the aligned call's bits where
+    that grain allows it, and is refused as misaligned where it does not."""
+    b, s, heads, bf16 = 2, 37, 3, torch.bfloat16
+    n = b * s * 3 * heads * dh
+    buf = torch.zeros(n + offset, device=cuda, dtype=bf16)
+    buf[offset:] = torch.from_numpy(_randn(72, n)).to(cuda, bf16)
+    moved = buf[offset:].view(b, s, 3 * heads * dh)
+    qkv = moved.clone()
+    do = torch.from_numpy(_randn(73, b, s, heads * dh)).to(cuda, bf16)
+    kw = dict(dropout_rate=0.1, seed=9)
+    out, lse = tfa.packed_flash_attention_fwd(qkv, heads, **kw)
+    want = tfa.packed_flash_attention_bwd(qkv, do, out, lse, heads, **kw)
+    if not takes:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            tfa.packed_flash_attention_fwd(moved, heads, **kw)
+        return
+    got = tfa.packed_flash_attention_fwd(moved, heads, **kw)
+    assert torch.equal(got[0], out) and torch.equal(got[1], lse)
+    assert torch.equal(tfa.packed_flash_attention_bwd(moved, do, out, lse,
+                                                      heads, **kw), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset,takes", [
+    (80, 2, False), (80, 8, True),   # 16-byte copies: 4 bytes off refused
+    (90, 2, True), (90, 1, False),   # 4-byte copies: 2 bytes off refused
+    (77, 1, True)])                  # an odd D: 2-byte loads, any offset
+def test_split_head_128_tile_copy_grain_follows_the_head_dim(cuda, d, offset,
+                                                             takes):
+    """Rows 2-6 run D 65-127 in the 128 tile with the PaddedStrided layout's
+    copies (`GroupPad`): a bf16 operand `offset` elements into a buffer gives
+    the aligned call's bits where the grain allows it, and is refused as
+    misaligned where it does not."""
+    b, h, s, bf16 = 2, 3, 37, torch.bfloat16
+    n = b * h * s * d
+
+    def at(off, seed):
+        buf = torch.zeros(n + off, device=cuda, dtype=bf16)
+        buf[off:] = torch.from_numpy(_randn(seed, n)).to(cuda, bf16)
+        return buf[off:].view(b, h, s, d)
+
+    aligned = [at(0, 80 + i) for i in range(4)]
+    moved = [at(offset, 80 + i) for i in range(4)]
+    mask = torch.from_numpy(_masks(b, s)).to(cuda)
+    kw = dict(dropout_rate=0.1, seed=5)
+    out, lse = tfa.flash_dropout_attention_fwd(*aligned[:3], **kw)
+    calls = (
+        lambda q, k, v, do: tfa.flash_attention_fwd(q, k, v),
+        lambda q, k, v, do: tfa.flash_dropout_attention_fwd(q, k, v, **kw),
+        lambda q, k, v, do: tfa.flash_dropout_attention_bwd(
+            q, k, v, do, out, lse, **kw),
+        lambda q, k, v, do: tfa.flash_attention_large_fwd(q, k, v,
+                                                          kv_mask=mask),
+        lambda q, k, v, do: tfa.flash_attention_bwd(q, k, v, out, lse, do))
+    for fn in calls:
+        if not takes:
+            with pytest.raises(RuntimeError, match="misaligned"):
+                fn(*moved)
+            continue
+        want, got = fn(*aligned), fn(*moved)
+        assert all(torch.equal(a, g) for a, g in zip(want, got))

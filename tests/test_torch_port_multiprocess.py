@@ -859,7 +859,6 @@ def _nccl_world_one(tmp):
     try:
         assert info["world_size"] == 1
         assert torch.distributed.get_backend() == "nccl"
-        # head dim 16: rows 1 and 7 take 16, 32 and 64 on the card
         cfg = dict(VIT_FIT, num_heads=2, dtype="bfloat16",
                    attention_dropout=0.1)
         runs = []

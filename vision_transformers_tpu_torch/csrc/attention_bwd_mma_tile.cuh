@@ -77,11 +77,14 @@
 //     lane % 4 hold keys 4a .. 4a+3 and 8+4a .. 8+4a+3 of query columns
 //     c, c+1: four calls, one per lane, gathered by __shfl_xor_sync 4 and 8.
 //
-// Other head dims (row 6 only; attention_mma_tile.cuh): D 128 keeps the
-// streamed K/V (pass 1) or Q/dO (pass 2) buffers, 68 KB, in dynamic shared
-// memory; a head dim d below 64 runs in the next tile under the Padded
-// layout, zeros in the columns d .. D and only d columns written (dq, dk, dv
-// and the fp32 partials, whose rows are then d apart).
+// Other head dims (rows 4, 6 and 7 take any d from 1 to 128;
+// attention_mma_tile.cuh): D 128 keeps the streamed K/V (pass 1) or Q/dO
+// (pass 2) buffers, 68 KB, in dynamic shared memory; a head dim d not 16,
+// 32, 64 or 128 runs in the next tile under the Padded layout (rows 4 and 6;
+// in the 128 tile PaddedStrided at rows d apart, GroupPad) or, d not 16, 32
+// or 64, the PaddedStrided one (row 7), zeros in the
+// columns d .. D and only d columns written (dq, dk, dv at the layout's row
+// strides, and row 6's fp32 partials, whose rows are then d apart).
 //
 // Masking: keys past Sk (the zero-filled tail) and query rows past Sq are
 // masked by index, their probabilities exactly 0; nothing is written for
@@ -156,7 +159,7 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
     float part = 0.f;
     if constexpr (kPad) {
       if (r < sq) {  // columns tq, tq + 4, ... < d, one at a time
-        const long long base = static_cast<long long>(r) * lay.d;
+        const long long base = static_cast<long long>(r) * lay.o();
         for (int c = tq; c < lay.d; c += 4)
           part = fmaf(__bfloat162float(dout[base + c]),
                       __bfloat162float(out[base + c]), part);
@@ -265,7 +268,7 @@ __device__ __forceinline__ void bwd_dq_rows_mma(
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       if constexpr (kPad)
-        store_pair_padded(dq + static_cast<long long>(r) * lay.d,
+        store_pair_padded(dq + static_cast<long long>(r) * lay.qkv(),
                           n * 8 + 2 * tq, lay.d, acc[n][2 * i],
                           acc[n][2 * i + 1]);
       else
@@ -429,7 +432,9 @@ __device__ __forceinline__ void bwd_dkv_rows_mma(
     for (int n = 0; n < D / 8; ++n) {
       if constexpr (kPad) {
         const int c = n * 8 + 2 * tq;
-        const long long off = static_cast<long long>(kr) * lay.d;
+        // rows lay.qkv() apart: d for rows 4 and 6 (Padded, GroupPad),
+        // whose fp32 partials (row 6 alone splits the pass) lie d apart too
+        const long long off = static_cast<long long>(kr) * lay.qkv();
         if (part_k == nullptr) {
           store_pair_padded(dk + off, c, lay.d, acc_k[n][2 * i],
                             acc_k[n][2 * i + 1]);

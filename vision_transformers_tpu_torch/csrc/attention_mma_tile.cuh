@@ -110,22 +110,29 @@
 // and 5 round p (row 5: p·(1/(1 − rate))) unnormalised and divide at the
 // end: within one bf16 step of their plain versions, not bit-equal.
 //
-// Other head dims (rows 2, 5 and 6 only): D 128 is an instantiation of its
-// own (one A tile a warp, its K/V buffers, 68 KB, in dynamic shared memory).
-// A head dim d below 64 and not 16 or 32 runs in the next tile (16, 32 or 64)
-// under the Padded layout: (G, S, d) groups whose columns d .. D are read as
-// zeros (cp.async's source size 0), so the scores and lse are those of the d
-// columns, and only d columns are written. Its rows are 2·d bytes apart, not
-// always on a 16-byte boundary: K/V tiles come by 4-byte cp.async for an even
-// d and by plain 2-byte loads for an odd one, Q and the outputs by 2-byte
-// loads and stores. The other layouts keep their code (if constexpr).
+// Other head dims (rows 1-7 take any d from 1 to 128): D 128 is an
+// instantiation of its own (one A tile a warp, its K/V buffers, 68 KB, in
+// dynamic shared memory). A head dim d not 16, 32, 64 or 128 runs in the
+// next tile (16, 32, 64 or 128) under the Padded layout: (G, S, d) groups
+// whose columns d .. D are read as zeros (cp.async's source size 0), so the
+// scores and lse are those of the d columns, and only d columns are written.
+// Its rows are 2·d bytes apart, not always on a 16-byte boundary: K/V tiles
+// come by 4-byte cp.async for an even d and by plain 2-byte loads for an odd
+// one, Q and the outputs by 2-byte loads and stores; in the 128 tile (d
+// 65-127) rows 2-6 take PaddedStrided at rows d apart (GroupPad). Row 1 (the
+// packed projection) at any d but 16, 32 and 64 takes PaddedStrided too:
+// Strided's row strides with d <= D columns, K/V tiles by the widest copy
+// the offsets allow (16 bytes for d a multiple of 8, 4 for an even d, 2 for
+// an odd one), Q by 4-byte loads for an even d. The other layouts keep their
+// code (if constexpr).
 //
 // Contract of the caller: bf16 operands with D in {16, 32, 64, 128}, in
 // contiguous (G, S, D) groups (Contiguous) or at row strides that are
 // multiples of 8 elements (Strided), every base pointer 16-byte aligned (the
 // C entry points check this and refuse the launch otherwise), kv_valid >= 1;
 // or Padded (G, S, d) groups, 1 <= d < D, base pointers 4-byte aligned for
-// an even d.
+// an even d; or PaddedStrided rows, 1 <= d <= D, base pointers and strides
+// aligned to strided_align_mask(d).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -273,6 +280,84 @@ __device__ __forceinline__ void load_tile_padded(bf16* s, const bf16* g,
           gr < n && c < d ? u[static_cast<long long>(gr) * d + c] : 0;
     }
   }
+}
+
+// load_tile for the PaddedStrided layout: rows of d <= D elements, `stride`
+// elements apart, columns d .. D zero-filled. The copy grain is the widest
+// that d's row and head offsets keep aligned: 16-byte cp.async for d a
+// multiple of 8 (16-byte chunks wholly in or out of the row), 4-byte for an
+// even d, plain 2-byte loads and stores for an odd one (the caller's
+// barrier publishes them, as the copies).
+template <int D>
+__device__ __forceinline__ void load_tile_strided_padded(
+    bf16* s, const bf16* g, int row0, int n, int d, int stride,
+    unsigned tid) {
+  if ((d & 7) == 0) {
+    constexpr int kChunks = D / 8;
+#pragma unroll
+    for (int i = 0; i < kCols * kChunks / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kChunks, c = idx % kChunks;
+      const int gr = row0 + r;
+      const bool in = gr < n && c * 8 < d;
+      cp_async_16(s + r * (D + 8) + c * 8,
+                  g + (in ? static_cast<long long>(gr) * stride + c * 8
+                          : 0ll), in);
+    }
+  } else if ((d & 1) == 0) {
+    constexpr int kWords = D / 2;
+#pragma unroll 8
+    for (int i = 0; i < kCols * kWords / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kWords, c = 2 * (idx % kWords);
+      const int gr = row0 + r;
+      const bool in = gr < n && c < d;
+      cp_async_4(s + r * (D + 8) + c,
+                 g + (in ? static_cast<long long>(gr) * stride + c : 0ll),
+                 in);
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(g);
+    unsigned short* su = reinterpret_cast<unsigned short*>(s);
+#pragma unroll 4
+    for (int i = 0; i < kCols * D / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / D, c = idx % D;
+      const int gr = row0 + r;
+      su[r * (D + 8) + c] =
+          gr < n && c < d ? u[static_cast<long long>(gr) * stride + c] : 0;
+    }
+  }
+}
+
+// load_a_frags for the PaddedStrided layout: rows `stride` apart, columns
+// >= d zero; 4-byte loads for an even d (a fragment's column pair is then
+// wholly in or out of the row), 2-byte ones for an odd d.
+template <int D>
+__device__ __forceinline__ void load_a_frags_strided_padded(
+    uint32_t (&f)[D / 16][4], const bf16* p, const int (&row)[2], int n,
+    int d, int stride) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  const int tq = threadIdx.x & 3;
+  const bool even = (d & 1) == 0;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = row[j & 1];
+      const int c = kk * 16 + (j >> 1) * 8 + 2 * tq;
+      uint32_t w = 0u;
+      if (r < n && c < d) {
+        const long long b = static_cast<long long>(r) * stride + c;
+        if (even) {
+          w = *reinterpret_cast<const uint32_t*>(p + b);
+        } else {
+          w = u[b];
+          if (c + 1 < d) w |= static_cast<uint32_t>(u[b + 1]) << 16;
+        }
+      }
+      f[kk][j] = w;
+    }
 }
 
 // load_a_frags for the Padded layout: rows d apart, columns >= d zero, by
@@ -438,17 +523,40 @@ struct Padded {
   __device__ static constexpr int lse() { return 1; }
 };
 
+// PaddedStrided (rows 1 and 7 at a head dim other than 16, 32 and 64): the
+// rows of Strided (q, k and v qkv_stride apart in the packed projection, do
+// and out o_stride apart, lse lse_stride apart), d <= D columns of each in
+// the tile of width D, the columns d .. D zeros.
+template <int D>
+struct PaddedStrided {
+  int d, qkv_stride, o_stride, lse_stride;
+  __device__ int qkv() const { return qkv_stride; }
+  __device__ int o() const { return o_stride; }
+  __device__ int lse() const { return lse_stride; }
+};
+
+// Padded and PaddedStrided: columns d .. D zero, only d columns written.
 template <class Layout>
 struct IsPadded : std::false_type {};
 template <int D>
 struct IsPadded<Padded<D>> : std::true_type {};
+template <int D>
+struct IsPadded<PaddedStrided<D>> : std::true_type {};
 
-// K/V-tile and Q-fragment loads by layout: Padded's, or the 16-byte ones.
+template <class Layout>
+struct IsPaddedStrided : std::false_type {};
+template <int D>
+struct IsPaddedStrided<PaddedStrided<D>> : std::true_type {};
+
+// K/V-tile and Q-fragment loads by layout: PaddedStrided's (the grain by
+// d), Padded's, or the 16-byte ones.
 template <int D, class Layout>
 __device__ __forceinline__ void load_tile_as(const Layout& lay, bf16* s,
                                              const bf16* g, int row0, int n,
                                              int stride, unsigned tid) {
-  if constexpr (IsPadded<Layout>::value)
+  if constexpr (IsPaddedStrided<Layout>::value)
+    load_tile_strided_padded<D>(s, g, row0, n, lay.d, stride, tid);
+  else if constexpr (IsPadded<Layout>::value)
     load_tile_padded<D>(s, g, row0, n, lay.d, tid);
   else
     load_tile<D>(s, g, row0, n, stride, tid);
@@ -460,18 +568,45 @@ __device__ __forceinline__ void load_a_frags_as(const Layout& lay,
                                                 const bf16* p,
                                                 const int (&row)[2], int n,
                                                 int stride) {
-  if constexpr (IsPadded<Layout>::value)
+  if constexpr (IsPaddedStrided<Layout>::value)
+    load_a_frags_strided_padded<D>(f, p, row, n, lay.d, stride);
+  else if constexpr (IsPadded<Layout>::value)
     load_a_frags_padded<D>(f, p, row, n, lay.d);
   else
     load_a_frags<D>(f, p, row, n, stride);
 }
 
-// The low address bits a bf16 operand's base pointer must have clear: 16
-// bytes for the 16-byte copies of D 16, 32, 64 and 128, 4 for the Padded
-// layout's 4-byte copies (an even d), none for an odd d (2-byte loads).
+// The low address bits a bf16 operand's base pointer must have clear under
+// PaddedStrided: every row offset (and rows 1 and 7's head offset h·d) is a
+// multiple of the grain load_tile_strided_padded takes, 16 bytes for d a
+// multiple of 8, 4 for an even d, 2 for an odd one; so is the base's.
+__host__ __device__ constexpr unsigned strided_align_mask(int d) {
+  return (d & 7) == 0 ? 15u : (d & 1) ? 0u : 3u;
+}
+
+// The same for rows 2-6: 16 bytes for the 16-byte copies of D 16, 32, 64
+// and 128, 4 for the Padded layout's 4-byte copies (an even d below 64),
+// none for an odd d (2-byte loads), and the 128 tile's (GroupPad) grain.
 __host__ __device__ constexpr unsigned align_mask(int d) {
   return d == 16 || d == 32 || d == 64 || d == 128 ? 15u
-         : (d & 1) ? 0u : 3u;
+         : d > 64 ? strided_align_mask(d) : (d & 1) ? 0u : 3u;
+}
+
+// The layout of rows 2-6's contiguous (G, S, d) groups at a head dim d in
+// the tile of width D: Padded below 128, PaddedStrided with rows d apart in
+// the 128 tile (d 65-127), whose 16-byte K/V copies (d a multiple of 8) and
+// 4-byte Q loads (an even d) Padded lacks: there its 4-byte copies and
+// 2-byte loads took 255 registers, spilled, and ran D 80 slower than the
+// exact D 128 tile on the same shape.
+template <int D>
+using GroupPad = std::conditional_t<D == 128, PaddedStrided<D>, Padded<D>>;
+
+template <int D>
+__device__ __forceinline__ GroupPad<D> group_pad(int d) {
+  if constexpr (D == 128)
+    return PaddedStrided<D>{d, d, d, 1};
+  else
+    return Padded<D>{d};
 }
 
 // The bf16 bytes of one K/V buffer of a tile of kCols rows at width D
@@ -687,7 +822,9 @@ __device__ __forceinline__ void attend_rows_mma(
   uint32_t qf[M][D / 16][4];
 #pragma unroll
   for (int m = 0; m < M; ++m)
-    if constexpr (kPad)
+    if constexpr (IsPaddedStrided<Layout>::value)
+      load_a_frags_strided_padded<D>(qf[m], q, row[m], sq, lay.d, lay.qkv());
+    else if constexpr (kPad)
       load_a_frags_padded<D>(qf[m], q, row[m], sq, lay.qkv());
     else
       load_a_frags<D, Block::kL2Loads>(qf[m], q, row[m], sq, lay.qkv());

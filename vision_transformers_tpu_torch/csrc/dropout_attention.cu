@@ -48,10 +48,13 @@
 // 128 threads per block throughout.
 // Head dims: D 16, 32, 64 and 128 are instantiations of these kernels (D 128
 // with its tile buffers in dynamic shared memory: TNT's outer attention). Any
-// other D up to 64 (TNT's inner attention, D 12) runs in the next tile width
-// with the columns past D read as zeros and not written (the *_padded_kernel
-// kernels; a bf16 operand must be 4-byte aligned for an even D); the fp32
-// partials of a split dk/dv pass then have rows D apart.
+// other D from 1 to 128 (TNT's inner attention, D 12; ViT-H/14's D 80 at S
+// 577) runs in the next tile width, 16, 32, 64 or 128 (the 128 tile in
+// dynamic shared memory), with the columns past D read as zeros and not
+// written (the *_padded_kernel kernels, on attention_mma_tile.cuh's
+// GroupPad layouts; a bf16 operand aligned as align_mask(D) says: 4 bytes for
+// an even D below 64, the PaddedStrided grain in the 128 tile, 16 bytes for D
+// 80); the fp32 partials of a split dk/dv pass then have rows D apart.
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
@@ -241,11 +244,11 @@ drop_fwd_mma_padded_kernel(const bf16* __restrict__ q,
                            float scale, vtt::Dropout drop, int d) {
   const long long g = blockIdx.x;
   vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::AddFloat, true,
-                            vtt::mma::Padded<D>>(
+                            vtt::mma::GroupPad<D>>(
       blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * d, k + g * sk * d,
       v + g * sk * d, nullptr, out + g * sq * d, lse + g * sq, sq, sk,
       kv_valid, scale, group_mask(kmask, heads, sk), drop, blockIdx.x,
-      tile_counts, vtt::mma::Padded<D>{d});
+      tile_counts, vtt::mma::group_pad<D>(d));
 }
 
 template <typename T, int D>
@@ -300,11 +303,11 @@ drop_bwd_dq_mma_padded_kernel(const bf16* __restrict__ q,
                               int sk, int kv_valid, float scale,
                               vtt::Dropout drop, int d) {
   const long long g = blockIdx.x;
-  vtt::mma::bwd_dq_rows_mma<D, vtt::mma::Padded<D>>(
+  vtt::mma::bwd_dq_rows_mma<D, vtt::mma::GroupPad<D>>(
       blockIdx.y * vtt::mma::kRows, q + g * sq * d, k + g * sk * d,
       v + g * sk * d, dout + g * sq * d, out + g * sq * d, lse + g * sq,
       group_mask(kmask, heads, sk), dq + g * sq * d, delta + g * sq, sq, sk,
-      kv_valid, scale, drop, blockIdx.x, vtt::mma::Padded<D>{d});
+      kv_valid, scale, drop, blockIdx.x, vtt::mma::group_pad<D>(d));
 }
 
 // part as drop_bwd_dkv_mma_kernel's, rows d apart.
@@ -331,11 +334,11 @@ drop_bwd_dkv_mma_padded_kernel(const bf16* __restrict__ q,
     pk = part + blockIdx.z * plane + g * sk * d;
     pv = part + (gridDim.z + blockIdx.z) * plane + g * sk * d;
   }
-  vtt::mma::bwd_dkv_rows_mma<D, vtt::mma::Padded<D>>(
+  vtt::mma::bwd_dkv_rows_mma<D, vtt::mma::GroupPad<D>>(
       blockIdx.y * vtt::mma::kRows, t0, t1, q + g * sq * d, k + g * sk * d,
       v + g * sk * d, dout + g * sq * d, lse + g * sq, delta + g * sq,
       group_mask(kmask, heads, sk), dk + g * sk * d, dv + g * sk * d, pk, pv,
-      sq, sk, kv_valid, scale, drop, blockIdx.x, vtt::mma::Padded<D>{d});
+      sq, sk, kv_valid, scale, drop, blockIdx.x, vtt::mma::group_pad<D>(d));
 }
 
 // kPad: the head dim a.d runs in the tile of width D (a.d < D).
@@ -355,7 +358,9 @@ int launch_bwd_mma(const Args& a) {
   const dim3 grid_q(a.g, (a.sq + kRows - 1) / kRows);
   int rc;
   if constexpr (kPad) {
-    drop_bwd_dq_mma_padded_kernel<D><<<grid_q, kThreads, 0, a.stream>>>(
+    rc = vtt::allow_dynamic_smem(drop_bwd_dq_mma_padded_kernel<D>, smem);
+    if (rc != 0) return rc;
+    drop_bwd_dq_mma_padded_kernel<D><<<grid_q, kThreads, smem, a.stream>>>(
         q, k, v, kmask, dout, static_cast<const bf16*>(a.out), lse,
         static_cast<bf16*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
         a.scale, a.drop, a.d);
@@ -377,7 +382,9 @@ int launch_bwd_mma(const Args& a) {
   const dim3 grid_k(a.g, (a.sk + kRows - 1) / kRows, z);
   float* part = z > 1 ? static_cast<float*>(a.part) : nullptr;
   if constexpr (kPad) {
-    drop_bwd_dkv_mma_padded_kernel<D><<<grid_k, kThreads, 0, a.stream>>>(
+    rc = vtt::allow_dynamic_smem(drop_bwd_dkv_mma_padded_kernel<D>, smem);
+    if (rc != 0) return rc;
+    drop_bwd_dkv_mma_padded_kernel<D><<<grid_k, kThreads, smem, a.stream>>>(
         q, k, v, kmask, dout, lse, delta, static_cast<bf16*>(a.dk),
         static_cast<bf16*>(a.dv), part, a.heads, a.sq, a.sk, a.kv_valid,
         a.scale, a.drop, per, a.d);
@@ -412,7 +419,11 @@ int launch_fwd(const Args& a) {
     constexpr int rows = vtt::mma::fwd_rows<D>();
     const dim3 grid(a.g, (a.sq + rows - 1) / rows);
     if constexpr (kPad) {
-      drop_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, 0,
+      constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+      const int rc =
+          vtt::allow_dynamic_smem(drop_fwd_mma_padded_kernel<D>, smem);
+      if (rc != 0) return rc;
+      drop_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, smem,
                                       a.stream>>>(
           q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
           a.drop, a.d);
@@ -429,7 +440,11 @@ int launch_fwd(const Args& a) {
   } else {
     const dim3 grid(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
     if constexpr (kPad) {
-      drop_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, 0, a.stream>>>(
+      constexpr int smem = vtt::attend_dyn_bytes<D>();
+      const int rc = vtt::allow_dynamic_smem(drop_fwd_padded_kernel<T, D>,
+                                             smem);
+      if (rc != 0) return rc;
+      drop_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, smem, a.stream>>>(
           q, k, v, kmask, out, lse, a.heads, a.sq, a.sk, a.kv_valid, a.scale,
           a.drop, a.d);
       return vtt::launched("drop_fwd_padded_kernel");
@@ -461,7 +476,10 @@ int launch_bwd(const Args& a) {
     const dim3 grid_q(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
     int rc;
     if constexpr (kPad) {
-      drop_bwd_dq_padded_kernel<T, D><<<grid_q, vtt::kThreads, 0, a.stream>>>(
+      rc = vtt::allow_dynamic_smem(drop_bwd_dq_padded_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      drop_bwd_dq_padded_kernel<T, D><<<grid_q, vtt::kThreads, smem,
+                                        a.stream>>>(
           q, k, v, kmask, dout, static_cast<const T*>(a.out), lse,
           static_cast<T*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
           a.scale, a.drop, a.d);
@@ -478,7 +496,9 @@ int launch_bwd(const Args& a) {
     if (rc != 0) return rc;
     const dim3 grid_k(a.g, (a.sk + vtt::kBlockK - 1) / vtt::kBlockK);
     if constexpr (kPad) {
-      drop_bwd_dkv_padded_kernel<T, D><<<grid_k, vtt::kThreads, 0,
+      rc = vtt::allow_dynamic_smem(drop_bwd_dkv_padded_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      drop_bwd_dkv_padded_kernel<T, D><<<grid_k, vtt::kThreads, smem,
                                          a.stream>>>(
           q, k, v, kmask, dout, lse, delta, static_cast<T*>(a.dk),
           static_cast<T*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
@@ -509,10 +529,12 @@ int dispatch_d(const Args& a, bool backward) {
     case 64: return launch_dir<T, 64, false>(a, backward);
     case 128: return launch_dir<T, 128, false>(a, backward);
     default:
-      if (a.d < 1 || a.d > 64) return static_cast<int>(cudaErrorInvalidValue);
-      return a.d < 16 ? launch_dir<T, 16, true>(a, backward)
+      if (a.d < 1 || a.d > 128)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return a.d < 16   ? launch_dir<T, 16, true>(a, backward)
              : a.d < 32 ? launch_dir<T, 32, true>(a, backward)
-                        : launch_dir<T, 64, true>(a, backward);
+             : a.d < 64 ? launch_dir<T, 64, true>(a, backward)
+                        : launch_dir<T, 128, true>(a, backward);
   }
 }
 
@@ -524,9 +546,9 @@ int dispatch(const Args& a, int is_bf16, bool backward) {
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
-  // the tensor-core kernels read bf16 operands with 16-byte copies (4-byte
-  // ones for an even padded d; the forward's q, k, v, out; the backward's
-  // also do, dq, dk, dv; unused ones are null here)
+  // the tensor-core kernels read bf16 operands with copies of
+  // align_mask(d)'s width (the forward's q, k, v, out; the backward's also
+  // do, dq, dk, dv; unused ones are null here)
   if (is_bf16 &&
       ((addr(a.q) | addr(a.k) | addr(a.v) | addr(a.dout) | addr(a.out) |
         addr(a.dq) | addr(a.dk) | addr(a.dv)) & vtt::mma::align_mask(a.d)))
@@ -544,9 +566,9 @@ extern "C" {
 // forward skips the tiles past the last one that holds a key < kv_valid
 // whose value is 0). is_bf16: 1 = bf16, 0 = fp32. drop_thresh =
 // min(int(rate·2^32), 2^32 − 1), 0 for no dropout; inv_keep = 1/(1 − rate);
-// seed: the mask's 64-bit seed. d: 1-64 or 128.
-// A bf16 q, k, v or out that is not 16-byte aligned (4-byte for an even d
-// other than 16, 32, 64 and 128) is refused (cudaErrorMisalignedAddress).
+// seed: the mask's 64-bit seed. d: 1-128.
+// A bf16 q, k, v or out off its copies' grain (attention_mma_tile.cuh's
+// align_mask(d)) is refused (cudaErrorMisalignedAddress).
 int dropout_attention_fwd(const void* q, const void* k, const void* v,
                           const void* kmask, void* out, void* lse, int g,
                           int heads, int sq, int sk, int d, int kv_valid,

@@ -24,11 +24,13 @@
 //     threads.
 // Head dims: D 16, 32, 64 and 128 are instantiations of these kernels (D 128
 // with its tile buffers in dynamic shared memory: TNT's outer attention, D
-// 128 at S 17). Any other D up to 64 (TNT's inner attention, D 12 at S 4)
-// runs in the next tile width, 16, 32 or 64, with the columns past D read as
-// zeros and not written: flash_fwd_mma_padded_kernel (bf16, the Padded
-// layout of attention_mma_tile.cuh; a bf16 operand must be 4-byte aligned
-// for an even D) and flash_fwd_padded_kernel (fp32).
+// 128 at S 17). Any other D from 1 to 128 (TNT's inner attention, D 12 at S
+// 4; ViT-H/14's D 80 at S 577) runs in the next tile width, 16, 32, 64 or
+// 128, with the columns past D read as zeros and not written:
+// flash_fwd_mma_padded_kernel (bf16, attention_mma_tile.cuh's GroupPad
+// layouts: Padded below 128, a bf16 operand 4-byte aligned for an even D;
+// the 128 tile in dynamic shared memory with PaddedStrided's copies, 16-byte
+// aligned for D a multiple of 8) and flash_fwd_padded_kernel (fp32).
 #include <cstdint>
 #include <type_traits>
 
@@ -86,10 +88,10 @@ flash_fwd_mma_padded_kernel(const __nv_bfloat16* __restrict__ q,
       ? nullptr
       : bias + (g % bias_g) * static_cast<long long>(sq) * sk;
   vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::NoMask, false,
-                            vtt::mma::Padded<D>>(
+                            vtt::mma::GroupPad<D>>(
       blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * d, k + g * sk * d,
       v + g * sk * d, bg, out + g * sq * d, lse + g * sq, sq, sk, kv_valid,
-      scale, nullptr, vtt::Dropout{}, 0u, nullptr, vtt::mma::Padded<D>{d});
+      scale, nullptr, vtt::Dropout{}, 0u, nullptr, vtt::mma::group_pad<D>(d));
 }
 
 template <int D>
@@ -126,7 +128,12 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
     constexpr int rows = vtt::mma::fwd_rows<D>();
     const dim3 grid(g, (sq + rows - 1) / rows);
     if constexpr (kPad) {
-      flash_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, 0, stream>>>(
+      constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+      const int rc =
+          vtt::allow_dynamic_smem(flash_fwd_mma_padded_kernel<D>, smem);
+      if (rc != 0) return rc;
+      flash_fwd_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, smem,
+                                       stream>>>(
           q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale, d);
       return vtt::launched("flash_fwd_mma_padded_kernel");
     } else {
@@ -140,7 +147,11 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   } else {
     const dim3 grid(g, (sq + vtt::kBlockQ - 1) / vtt::kBlockQ);
     if constexpr (kPad) {
-      flash_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, 0, stream>>>(
+      constexpr int smem = vtt::attend_dyn_bytes<D>();
+      const int rc =
+          vtt::allow_dynamic_smem(flash_fwd_padded_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      flash_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, smem, stream>>>(
           q_, k_, v_, b_, o_, l_, sq, sk, bias_g, kv_valid, scale, d);
       return vtt::launched("flash_fwd_padded_kernel");
     } else {
@@ -167,9 +178,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
     case 64: return VTT_LAUNCH(64, false);
     case 128: return VTT_LAUNCH(128, false);
     default:
-      if (d < 1 || d > 64) return static_cast<int>(cudaErrorInvalidValue);
-      return d < 16 ? VTT_LAUNCH(16, true)
-             : d < 32 ? VTT_LAUNCH(32, true) : VTT_LAUNCH(64, true);
+      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      return d < 16   ? VTT_LAUNCH(16, true)
+             : d < 32 ? VTT_LAUNCH(32, true)
+             : d < 64 ? VTT_LAUNCH(64, true) : VTT_LAUNCH(128, true);
   }
 #undef VTT_LAUNCH
 }
@@ -179,10 +191,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
 extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. bias may be null (then bias_g
-// is ignored). is_bf16: 1 = bf16, 0 = fp32. d: 1-64 or 128. A bf16 q, k, v
-// or out that is not 16-byte aligned (4-byte for an even d other than 16, 32,
-// 64 and 128) is refused (cudaErrorMisalignedAddress): the tensor-core route
-// reads them with 16-byte (4-byte) copies.
+// is ignored). is_bf16: 1 = bf16, 0 = fp32. d: 1-128. A bf16 q, k, v
+// or out off its copies' grain (align_mask(d): 16 bytes at D 16, 32, 64,
+// 128 and a multiple of 8 above 64, 4 at another even D, none at an odd D) is refused (cudaErrorMisalignedAddress): the
+// tensor-core route reads them with copies of that width.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, void* lse, int g, int sq,
                         int sk, int d, int bias_g, int kv_valid, float scale,

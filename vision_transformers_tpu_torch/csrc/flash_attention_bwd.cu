@@ -48,6 +48,19 @@
 // route takes this entry only then, as _BWD_SCORE_BUDGET bounds it on the
 // TPU; outside it the backward is dropout_attention_bwd at rate 0.
 //
+// Head dims: D 16, 32, 64 and 128 are instantiations of both routes' kernels
+// (the bf16 D 128 passes with their streamed tiles in dynamic shared
+// memory). Any other D from 1 to 128 (ViT-H/14's 80, TNT's 12) runs in the
+// next tile width, 16, 32, 64 or 128, with the columns past D read as zeros
+// and not written: flash_bwd_{dq,dkv}_mma_padded_kernel (bf16, the GroupPad
+// layouts; a bf16 operand aligned as align_mask(D) says) and
+// flash_bwd_padded_kernel (fp32, rows D + 1 apart in shared memory, so the
+// group's footprint is smem_floats(sq, sk, D) exactly). The route's rule,
+// flash_attention.py::flash_bwd_smem_bytes, is the fp32 kernel's footprint;
+// the bf16 passes take at most 71 KB whatever the shape (the 128 tile's four
+// 17 KB tile buffers and the staged lse and δ), under a block's 227 KB, so
+// every shape the rule admits runs on both routes.
+//
 // What bounds it on the H100 (ViT-B/16 @224, batch 32: G = 384, S = 197,
 // D = 64, bf16): 10·G·S²·D = 9.5 GFLOP, 9.6 µs at 989 TFLOP/s, against
 // 8·G·S·D·2 + G·S·4 = 77.8 MB moved, 23 µs at 3.35 TB/s: the bytes. At the
@@ -83,15 +96,23 @@ __host__ __device__ inline long long smem_floats(int sq, int sk, int d) {
          2LL * kBlockQ * dp + 2LL * kBlockK * kTile;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ out,
-                 const float* __restrict__ lse, const T* __restrict__ dout,
-                 T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                 int sq, int sk, int kv_valid, float scale) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
-  constexpr int DP = D + 1;  // odd row stride: lane-strided reads hit 32 banks
+// One group's dq, dk and dv. kPad: the head dim dc runs in the tile of
+// width D (dc <= D): rows dc apart in device memory and dc + 1 in shared
+// memory (so smem_floats(sq, sk, dc) holds), columns >= dc never read or
+// written, the threads of such columns idle in the products.
+template <typename T, int D, bool kPad>
+__device__ __forceinline__ void bwd_group(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ out,
+    const float* __restrict__ lse, const T* __restrict__ dout,
+    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+    int sq, int sk, int kv_valid, float scale, int dc) {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  // the global row width, and the odd shared row stride (lane-strided reads
+  // hit 32 banks)
+  const int w = kPad ? dc : D;
+  const int DP = w + 1;
   extern __shared__ float smem[];
   const int sk_pad = round_up(sk, kBlockK);
   const int sq_pad = round_up(sq, kBlockQ);
@@ -105,15 +126,15 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* t2 = t1 + kBlockQ * kTile;  // [32][kTile]
 
   const long long g = blockIdx.x;
-  q += g * sq * D;
-  out += g * sq * D;
-  dout += g * sq * D;
-  dq += g * sq * D;
+  q += g * sq * w;
+  out += g * sq * w;
+  dout += g * sq * w;
+  dq += g * sq * w;
   lse += g * sq;
-  k += g * sk * D;
-  v += g * sk * D;
-  dk += g * sk * D;
-  dv += g * sk * D;
+  k += g * sk * w;
+  v += g * sk * w;
+  dk += g * sk * w;
+  dv += g * sk * w;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -122,21 +143,22 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kOutRows = kBlockQ / kOutStride;
   const int od = tid % D;
   const int orow = tid / D;
+  const bool col_in = !kPad || od < dc;  // this thread's output column
 
-  for (int idx = tid; idx < sk_pad * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
+  for (int idx = tid; idx < sk_pad * w; idx += kThreads) {
+    const int r = idx / w, c = idx % w;
     const bool in = r < sk;
-    ks[r * DP + c] = in ? vtt::to_f32(k[r * D + c]) : 0.f;
-    vs[r * DP + c] = in ? vtt::to_f32(v[r * D + c]) : 0.f;
+    ks[r * DP + c] = in ? vtt::to_f32(k[r * w + c]) : 0.f;
+    vs[r * DP + c] = in ? vtt::to_f32(v[r * w + c]) : 0.f;
   }
 
   // stage rows [q0, q0 + 32) of q and do as fp32, zeros past Sq
   auto load_rows = [&](int q0) {
-    for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, qi = q0 + r;
+    for (int idx = tid; idx < kBlockQ * w; idx += kThreads) {
+      const int r = idx / w, c = idx % w, qi = q0 + r;
       const bool in = qi < sq;
-      qs[r * DP + c] = in ? vtt::to_f32(q[qi * D + c]) : 0.f;
-      dos[r * DP + c] = in ? vtt::to_f32(dout[qi * D + c]) : 0.f;
+      qs[r * DP + c] = in ? vtt::to_f32(q[qi * w + c]) : 0.f;
+      dos[r * DP + c] = in ? vtt::to_f32(dout[qi * w + c]) : 0.f;
     }
   };
 
@@ -154,8 +176,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qi = q0 + row;
       float part = 0.f;
       if (qi < sq)
-        for (int c = lane; c < D; c += 32)
-          part = fmaf(dos[row * DP + c], vtt::to_f32(out[qi * D + c]), part);
+        for (int c = lane; c < w; c += 32)
+          part = fmaf(dos[row * DP + c], vtt::to_f32(out[qi * w + c]), part);
       delta_r[r] = vtt::warp_sum(part);
       lse_r[r] = qi < sq ? lse[qi] : 0.f;
       if (lane == 0) {
@@ -175,7 +197,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* kr = ks + (k0 + lane) * DP;
       const float* vr = vs + (k0 + lane) * DP;
 #pragma unroll 8
-      for (int c = 0; c < D; ++c) {
+      for (int c = 0; c < w; ++c) {
         const float kc = kr[c], vc = vr[c];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -195,21 +217,22 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         t1[row * kTile + lane] = p * (dp[r] - delta_r[r]);
       }
       __syncthreads();
+      if (col_in)
 #pragma unroll
-      for (int i = 0; i < kOutRows; ++i) {
-        const int row = orow + kOutStride * i;
-        float a = acc[i];
+        for (int i = 0; i < kOutRows; ++i) {
+          const int row = orow + kOutStride * i;
+          float a = acc[i];
 #pragma unroll 8
-        for (int j = 0; j < kBlockK; ++j)
-          a = fmaf(t1[row * kTile + j], ks[(k0 + j) * DP + od], a);
-        acc[i] = a;
-      }
+          for (int j = 0; j < kBlockK; ++j)
+            a = fmaf(t1[row * kTile + j], ks[(k0 + j) * DP + od], a);
+          acc[i] = a;
+        }
       __syncthreads();  // t1 is rewritten by the next key tile
     }
 #pragma unroll
     for (int i = 0; i < kOutRows; ++i) {
       const int qi = q0 + orow + kOutStride * i;
-      if (qi < sq) dq[qi * D + od] = vtt::from_f32<T>(acc[i] * scale);
+      if (qi < sq && col_in) dq[qi * w + od] = vtt::from_f32<T>(acc[i] * scale);
     }
   }
 
@@ -231,13 +254,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* qr = qs + lane * DP;
       const float* dr = dos + lane * DP;
 #pragma unroll 8
-      for (int c = 0; c < D; ++c) {
-        const float qc = qr[c], dc = dr[c];
+      for (int c = 0; c < w; ++c) {
+        const float qc = qr[c], dc_ = dr[c];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) {
           const int key = k0 + warp + kWarps * r;
           st[r] = fmaf(ks[key * DP + c], qc, st[r]);
-          dpt[r] = fmaf(vs[key * DP + c], dc, dpt[r]);
+          dpt[r] = fmaf(vs[key * DP + c], dc_, dpt[r]);
         }
       }
       const int qi = q0 + lane;
@@ -254,28 +277,53 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         t2[key * kTile + lane] = p * (dpt[r] - delta_i);
       }
       __syncthreads();
+      if (col_in)
 #pragma unroll
-      for (int i = 0; i < kOutRows; ++i) {
-        const int key = orow + kOutStride * i;
-        float ak = acc_k[i], av = acc_v[i];
+        for (int i = 0; i < kOutRows; ++i) {
+          const int key = orow + kOutStride * i;
+          float ak = acc_k[i], av = acc_v[i];
 #pragma unroll 8
-        for (int j = 0; j < kBlockQ; ++j) {
-          av = fmaf(t1[key * kTile + j], dos[j * DP + od], av);
-          ak = fmaf(t2[key * kTile + j], qs[j * DP + od], ak);
+          for (int j = 0; j < kBlockQ; ++j) {
+            av = fmaf(t1[key * kTile + j], dos[j * DP + od], av);
+            ak = fmaf(t2[key * kTile + j], qs[j * DP + od], ak);
+          }
+          acc_k[i] = ak;
+          acc_v[i] = av;
         }
-        acc_k[i] = ak;
-        acc_v[i] = av;
-      }
     }
 #pragma unroll
     for (int i = 0; i < kOutRows; ++i) {
       const int kj = k0 + orow + kOutStride * i;
-      if (kj < sk) {
-        dk[kj * D + od] = vtt::from_f32<T>(acc_k[i] * scale);
-        dv[kj * D + od] = vtt::from_f32<T>(acc_v[i]);
+      if (kj < sk && col_in) {
+        dk[kj * w + od] = vtt::from_f32<T>(acc_k[i] * scale);
+        dv[kj * w + od] = vtt::from_f32<T>(acc_v[i]);
       }
     }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ out,
+                 const float* __restrict__ lse, const T* __restrict__ dout,
+                 T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                 int sq, int sk, int kv_valid, float scale) {
+  bwd_group<T, D, false>(q, k, v, out, lse, dout, dq, dk, dv, sq, sk,
+                         kv_valid, scale, D);
+}
+
+// Any other head dim d from 1 to 128 in the tile of width D.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ out,
+                        const float* __restrict__ lse,
+                        const T* __restrict__ dout, T* __restrict__ dq,
+                        T* __restrict__ dk, T* __restrict__ dv, int sq,
+                        int sk, int kv_valid, float scale, int d) {
+  bwd_group<T, D, true>(q, k, v, out, lse, dout, dq, dk, dv, sq, sk,
+                        kv_valid, scale, d);
 }
 
 // ---- the tensor-core route (bf16) ------------------------------------------
@@ -323,6 +371,48 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       vtt::make_dropout(0u, 1.f, 0ull), 0u);
 }
 
+// Both passes at any other head dim d from 1 to 128, in the tile of width D
+// under the Padded layout: rows d apart, columns d .. D zeros, only d
+// columns written.
+template <int D>
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dq_mma_padded_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout,
+                               const bf16* __restrict__ out,
+                               const float* __restrict__ lse,
+                               bf16* __restrict__ dq,
+                               float* __restrict__ delta, int sq, int sk,
+                               int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  mm::bwd_dq_rows_mma<D, mm::GroupPad<D>, false, mm::ScaledGrads>(
+      blockIdx.y * mm::kRows, q + g * sq * d, k + g * sk * d, v + g * sk * d,
+      dout + g * sq * d, out + g * sq * d, lse + g * sq, nullptr,
+      dq + g * sq * d, delta + g * sq, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, mm::group_pad<D>(d));
+}
+
+template <int D>
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dkv_mma_padded_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int sq, int sk, int kv_valid, float scale,
+                                int d) {
+  const long long g = blockIdx.x;
+  mm::bwd_dkv_rows_mma<D, mm::GroupPad<D>, false, mm::ScaledGrads>(
+      blockIdx.y * mm::kRows, 0, (sq + mm::kCols - 1) / mm::kCols,
+      q + g * sq * d, k + g * sk * d, v + g * sk * d, dout + g * sq * d,
+      lse + g * sq, delta + g * sq, nullptr, dk + g * sk * d,
+      dv + g * sk * d, nullptr, nullptr, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, mm::group_pad<D>(d));
+}
+
 struct Args {
   const void *q, *k, *v, *out, *lse, *dout;
   void *dq, *dk, *dv, *delta;
@@ -332,47 +422,91 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-int launch_mma(const Args& a) {
+// kPad: the head dim d runs in the tile of width D (d < D); D 128 takes its
+// streamed tile buffers from dynamic shared memory.
+template <int D, bool kPad>
+int launch_mma(const Args& a, int d) {
+  constexpr int smem = mm::mma_dyn_bytes<D>();
+  const auto* q = static_cast<const bf16*>(a.q);
+  const auto* k = static_cast<const bf16*>(a.k);
+  const auto* v = static_cast<const bf16*>(a.v);
+  const auto* dout = static_cast<const bf16*>(a.dout);
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* delta = static_cast<float*>(a.delta);
   const dim3 grid_q(a.g, (a.sq + mm::kRows - 1) / mm::kRows);
-  flash_bwd_dq_mma_kernel<D><<<grid_q, mm::kThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const bf16*>(a.out), static_cast<const float*>(a.lse),
-      static_cast<bf16*>(a.dq), static_cast<float*>(a.delta), a.sq, a.sk,
-      a.kv_valid, a.scale);
-  int rc = vtt::launched("flash_bwd_dq_mma_kernel");
+  int rc;
+  if constexpr (kPad) {
+    rc = vtt::allow_dynamic_smem(flash_bwd_dq_mma_padded_kernel<D>, smem);
+    if (rc != 0) return rc;
+    flash_bwd_dq_mma_padded_kernel<D><<<grid_q, mm::kThreads, smem,
+                                        a.stream>>>(
+        q, k, v, dout, static_cast<const bf16*>(a.out), lse,
+        static_cast<bf16*>(a.dq), delta, a.sq, a.sk, a.kv_valid, a.scale, d);
+    rc = vtt::launched("flash_bwd_dq_mma_padded_kernel");
+  } else {
+    rc = vtt::allow_dynamic_smem(flash_bwd_dq_mma_kernel<D>, smem);
+    if (rc != 0) return rc;
+    flash_bwd_dq_mma_kernel<D><<<grid_q, mm::kThreads, smem, a.stream>>>(
+        q, k, v, dout, static_cast<const bf16*>(a.out), lse,
+        static_cast<bf16*>(a.dq), delta, a.sq, a.sk, a.kv_valid, a.scale);
+    rc = vtt::launched("flash_bwd_dq_mma_kernel");
+  }
   if (rc != 0) return rc;
   const dim3 grid_k(a.g, (a.sk + mm::kRows - 1) / mm::kRows);
-  flash_bwd_dkv_mma_kernel<D><<<grid_k, mm::kThreads, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk,
-      a.kv_valid, a.scale);
-  return vtt::launched("flash_bwd_dkv_mma_kernel");
+  if constexpr (kPad) {
+    rc = vtt::allow_dynamic_smem(flash_bwd_dkv_mma_padded_kernel<D>, smem);
+    if (rc != 0) return rc;
+    flash_bwd_dkv_mma_padded_kernel<D><<<grid_k, mm::kThreads, smem,
+                                         a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale, d);
+    return vtt::launched("flash_bwd_dkv_mma_padded_kernel");
+  } else {
+    rc = vtt::allow_dynamic_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+    if (rc != 0) return rc;
+    flash_bwd_dkv_mma_kernel<D><<<grid_k, mm::kThreads, smem, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale);
+    return vtt::launched("flash_bwd_dkv_mma_kernel");
+  }
 }
 
 // ---- the CUDA-core route (fp32) --------------------------------------------
 
-template <int D>
-int launch(const Args& a) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(a.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_kernel<float, D><<<a.g, kThreads, a.smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.out),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.dout),
-      static_cast<float*>(a.dq), static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale);
-  return vtt::launched("flash_bwd_kernel");
+template <int D, bool kPad>
+int launch(const Args& a, int d) {
+  if constexpr (kPad) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_padded_kernel<float, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(a.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_padded_kernel<float, D><<<a.g, kThreads, a.smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.out),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dout),
+        static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale, d);
+    return vtt::launched("flash_bwd_padded_kernel");
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_kernel<float, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(a.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_kernel<float, D><<<a.g, kThreads, a.smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.out),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dout),
+        static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+        static_cast<float*>(a.dv), a.sq, a.sk, a.kv_valid, a.scale);
+    return vtt::launched("flash_bwd_kernel");
+  }
 }
 
-template <int D>
-int launch_d(const Args& a, int is_bf16) {
-  return is_bf16 ? launch_mma<D>(a) : launch<D>(a);
+template <int D, bool kPad>
+int launch_d(const Args& a, int d, int is_bf16) {
+  return is_bf16 ? launch_mma<D, kPad>(a, d) : launch<D, kPad>(a, d);
 }
 
 }  // namespace
@@ -382,9 +516,9 @@ extern "C" {
 // Returns 0 or the cudaError_t of a launch; cudaErrorInvalidValue when the
 // shape is outside the route (flash_attention.py::flash_bwd_smem_bytes over
 // one block's 227 KB of shared memory). is_bf16: 1 = bf16 (the tensor
-// cores), 0 = fp32. bf16 only: delta, fp32 scratch of G·Sq elements (δ,
-// written by the first pass and read by the second); a q, k, v, out, do, dq,
-// dk or dv that is not 16-byte aligned is refused
+// cores), 0 = fp32. d: 1-128. bf16 only: delta, fp32 scratch of G·Sq
+// elements (δ, written by the first pass and read by the second); a q, k, v,
+// out, do, dq, dk or dv off its copies' grain (align_mask(d)) is refused
 // (cudaErrorMisalignedAddress).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* lse, const void* dout,
@@ -399,15 +533,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return reinterpret_cast<std::uintptr_t>(p);
   };
   if (is_bf16 && ((addr(q) | addr(k) | addr(v) | addr(out) | addr(dout) |
-                   addr(dq) | addr(dk) | addr(dv)) & 15u))
+                   addr(dq) | addr(dk) | addr(dv)) &
+                  vtt::mma::align_mask(d)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{q, k, v, out, lse, dout, dq, dk, dv, delta, g, sq, sk,
                kv_valid, scale, smem, static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 16: return launch_d<16>(a, is_bf16);
-    case 32: return launch_d<32>(a, is_bf16);
-    case 64: return launch_d<64>(a, is_bf16);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_d<16, false>(a, d, is_bf16);
+    case 32: return launch_d<32, false>(a, d, is_bf16);
+    case 64: return launch_d<64, false>(a, d, is_bf16);
+    case 128: return launch_d<128, false>(a, d, is_bf16);
+    default:
+      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      return d < 16   ? launch_d<16, true>(a, d, is_bf16)
+             : d < 32 ? launch_d<32, true>(a, d, is_bf16)
+             : d < 64 ? launch_d<64, true>(a, d, is_bf16)
+                      : launch_d<128, true>(a, d, is_bf16);
   }
 }
 

@@ -42,6 +42,13 @@
 //     layout): keys stream through shared memory in tiles of 32 with an
 //     online softmax, each lane reading its own key's mask byte beside the
 //     tile. Grid: x = G, y = ceil(Sq / 32); 128 threads.
+// Head dims: D 16, 32, 64 and 128 are instantiations of these kernels (D 128
+// with its tile buffers in dynamic shared memory). Any other D from 1 to 128
+// (ViT-H/14's D 80 at 518 px, S 1370; TNT's D 12) runs in the next tile
+// width with the columns past D read as zeros and not written:
+// flash_large_mma_padded_kernel (bf16, attention_mma_tile.cuh's GroupPad
+// layouts, the same mask policy and skipped trailing tiles) and
+// flash_large_padded_kernel (fp32).
 #include <cstdint>
 #include <type_traits>
 
@@ -57,26 +64,38 @@ using vtt::kRowsPerWarp;
 using vtt::kThreads;
 using vtt::kWarps;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v,
-                   const unsigned char* __restrict__ kmask,
-                   T* __restrict__ out, float* __restrict__ lse,
-                   int groups_per_row, int sq, int sk, int kv_valid,
-                   float scale) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
-  __shared__ float qs[kBlockQ][D];
-  __shared__ float ks[kBlockK][D + 1];  // +1: lane-strided reads hit 32 banks
-  __shared__ float vs[kBlockK][D];
+// Rows [blockIdx.y·kBlockQ, +kBlockQ) of group blockIdx.x. kPad: the head
+// dim dc runs in the tile of width D (dc <= D; rows dc apart, columns >= dc
+// read as 0 and not written); D 128 takes its q, k and v tiles from the
+// dynamic shared memory (attend_dyn_bytes<D>()).
+template <typename T, int D, bool kPad>
+__device__ __forceinline__ void large_rows(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const unsigned char* __restrict__ kmask, T* __restrict__ out,
+    float* __restrict__ lse, int groups_per_row, int sq, int sk, int kv_valid,
+    float scale, int dc) {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim must be 16, 32, 64 or 128");
+  constexpr bool kDyn = D > 64;
+  __shared__ float qs_st[kDyn ? 1 : kBlockQ][kDyn ? 1 : D];
+  __shared__ float ks_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D + 1];
+  __shared__ float vs_st[kDyn ? 1 : kBlockK][kDyn ? 1 : D];
+  // +1 in ks: lane-strided reads hit 32 banks
+  float (&qs)[kBlockQ][D] = vtt::smem_array<float[kBlockQ][D]>(qs_st, 0);
+  float (&ks)[kBlockK][D + 1] =
+      vtt::smem_array<float[kBlockK][D + 1]>(ks_st, 4 * kBlockQ * D);
+  float (&vs)[kBlockK][D] = vtt::smem_array<float[kBlockK][D]>(
+      vs_st, 4 * (kBlockQ * D + kBlockK * (D + 1)));
   __shared__ float ps[kBlockQ][kBlockK + 1];
   __shared__ float alpha_s[kBlockQ];
   __shared__ float l_s[kBlockQ];
+  // the global row width: D, or the padded head dim
+  const int w = kPad ? dc : D;
 
   const long long g = blockIdx.x;
-  const T* qg = q + g * sq * D;
-  const T* kg = k + g * sk * D;
-  const T* vg = v + g * sk * D;
+  const T* qg = q + g * sq * w;
+  const T* kg = k + g * sk * w;
+  const T* vg = v + g * sk * w;
   const unsigned char* mrow =
       kmask == nullptr ? nullptr : kmask + (g / groups_per_row) * sk;
 
@@ -87,8 +106,9 @@ flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
-    qs[r][c] = qi < sq ? vtt::to_f32(qg[static_cast<long long>(qi) * D + c])
-                       : 0.f;
+    qs[r][c] = qi < sq && (!kPad || c < dc)
+                   ? vtt::to_f32(qg[static_cast<long long>(qi) * w + c])
+                   : 0.f;
   }
 
   // softmax state of rows warp + kWarps·r, replicated across the warp's lanes
@@ -112,8 +132,8 @@ flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done (and qs is loaded)
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D, kj = k0 + r;
-      const bool in = kj < sk;
-      const long long off = static_cast<long long>(kj) * D + c;
+      const bool in = kj < sk && (!kPad || c < dc);
+      const long long off = static_cast<long long>(kj) * w + c;
       ks[r][c] = in ? vtt::to_f32(kg[off]) : 0.f;
       vs[r][c] = in ? vtt::to_f32(vg[off]) : 0.f;
     }
@@ -176,10 +196,35 @@ flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kOutRows; ++i) {
     const int row = orow + kOutStride * i;
     const int qi = q0 + row;
-    if (qi < sq)
-      out[g * sq * D + static_cast<long long>(qi) * D + od] =
+    if (qi < sq && (!kPad || od < dc))
+      out[g * sq * w + static_cast<long long>(qi) * w + od] =
           vtt::from_f32<T>(acc[i] / l_s[row]);
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_large_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v,
+                   const unsigned char* __restrict__ kmask,
+                   T* __restrict__ out, float* __restrict__ lse,
+                   int groups_per_row, int sq, int sk, int kv_valid,
+                   float scale) {
+  large_rows<T, D, false>(q, k, v, kmask, out, lse, groups_per_row, sq, sk,
+                          kv_valid, scale, D);
+}
+
+// Any other head dim d from 1 to 128 in the tile of width D.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_large_padded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const unsigned char* __restrict__ kmask,
+                          T* __restrict__ out, float* __restrict__ lse,
+                          int groups_per_row, int sq, int sk, int kv_valid,
+                          float scale, int d) {
+  large_rows<T, D, true>(q, k, v, kmask, out, lse, groups_per_row, sq, sk,
+                         kv_valid, scale, d);
 }
 
 using bf16 = __nv_bfloat16;
@@ -232,28 +277,75 @@ flash_large_mma_kernel<64>(const bf16* __restrict__ q,
                      kv_valid, scale);
 }
 
-template <typename T, int D>
+// Any other head dim d from 1 to 128 in the tile of width D under the
+// Padded layout (the 128 tile's K/V buffers in dynamic shared memory).
+template <int D>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+flash_large_mma_padded_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const unsigned char* __restrict__ kmask,
+                              bf16* __restrict__ out, float* __restrict__ lse,
+                              int groups_per_row, int sq, int sk,
+                              int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::ReplaceByte, false,
+                            vtt::mma::GroupPad<D>>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, nullptr, out + g * sq * d, lse + g * sq, sq, sk,
+      kv_valid, scale,
+      kmask == nullptr ? nullptr : kmask + (g / groups_per_row) * sk,
+      vtt::Dropout{}, 0u, tile_counts, vtt::mma::group_pad<D>(d));
+}
+
+// kPad: the head dim d runs in the tile of width D (d < D).
+template <typename T, int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, const void* kmask,
-           void* out, void* lse, int g, int mask_rows, int sq, int sk,
+           void* out, void* lse, int g, int mask_rows, int sq, int sk, int d,
            int kv_valid, float scale, cudaStream_t stream) {
   const int per_row = kmask == nullptr ? 1 : g / mask_rows;
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const auto* m_ = static_cast<const unsigned char*>(kmask);
+  T* o_ = static_cast<T*>(out);
+  float* l_ = static_cast<float*>(lse);
   if constexpr (std::is_same_v<T, bf16>) {
     constexpr int rows = vtt::mma::fwd_rows<D>();
+    constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
     const dim3 grid(g, (sq + rows - 1) / rows);
-    flash_large_mma_kernel<D><<<grid, vtt::mma::kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
-        static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
-        kv_valid, scale);
-    return vtt::launched("flash_large_mma_kernel");
+    if constexpr (kPad) {
+      const int rc =
+          vtt::allow_dynamic_smem(flash_large_mma_padded_kernel<D>, smem);
+      if (rc != 0) return rc;
+      flash_large_mma_padded_kernel<D><<<grid, vtt::mma::kThreads, smem,
+                                         stream>>>(
+          q_, k_, v_, m_, o_, l_, per_row, sq, sk, kv_valid, scale, d);
+      return vtt::launched("flash_large_mma_padded_kernel");
+    } else {
+      const int rc = vtt::allow_dynamic_smem(flash_large_mma_kernel<D>, smem);
+      if (rc != 0) return rc;
+      flash_large_mma_kernel<D><<<grid, vtt::mma::kThreads, smem, stream>>>(
+          q_, k_, v_, m_, o_, l_, per_row, sq, sk, kv_valid, scale);
+      return vtt::launched("flash_large_mma_kernel");
+    }
   } else {
+    constexpr int smem = vtt::attend_dyn_bytes<D>();
     const dim3 grid(g, (sq + kBlockQ - 1) / kBlockQ);
-    flash_large_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const unsigned char*>(kmask),
-        static_cast<T*>(out), static_cast<float*>(lse), per_row, sq, sk,
-        kv_valid, scale);
-    return vtt::launched("flash_large_kernel");
+    if constexpr (kPad) {
+      const int rc =
+          vtt::allow_dynamic_smem(flash_large_padded_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      flash_large_padded_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, m_, o_, l_, per_row, sq, sk, kv_valid, scale, d);
+      return vtt::launched("flash_large_padded_kernel");
+    } else {
+      const int rc = vtt::allow_dynamic_smem(flash_large_kernel<T, D>, smem);
+      if (rc != 0) return rc;
+      flash_large_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+          q_, k_, v_, m_, o_, l_, per_row, sq, sk, kv_valid, scale);
+      return vtt::launched("flash_large_kernel");
+    }
   }
 }
 
@@ -261,12 +353,21 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const void* kmask,
                void* out, void* lse, int g, int mask_rows, int sq, int sk,
                int d, int kv_valid, float scale, cudaStream_t stream) {
+#define VTT_LAUNCH(D, PAD) \
+  launch<T, D, PAD>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d, \
+                    kv_valid, scale, stream)
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, kv_valid, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, kv_valid, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, kv_valid, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return VTT_LAUNCH(16, false);
+    case 32: return VTT_LAUNCH(32, false);
+    case 64: return VTT_LAUNCH(64, false);
+    case 128: return VTT_LAUNCH(128, false);
+    default:
+      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      return d < 16   ? VTT_LAUNCH(16, true)
+             : d < 32 ? VTT_LAUNCH(32, true)
+             : d < 64 ? VTT_LAUNCH(64, true) : VTT_LAUNCH(128, true);
   }
+#undef VTT_LAUNCH
 }
 
 }  // namespace
@@ -275,10 +376,12 @@ extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. kmask may be null (then
 // mask_rows is ignored); else mask_rows must divide g. is_bf16: 1 = bf16,
-// 0 = fp32. sq / 32 query tiles must fit the grid's y dimension. A bf16 q,
-// k, v or out that is not 16-byte aligned is refused
-// (cudaErrorMisalignedAddress): the tensor-core route reads them with
-// 16-byte copies. The mask may start at any byte.
+// 0 = fp32. d: 1-128. sq / 32 query tiles must fit the grid's y dimension.
+// A bf16 q, k, v or out off its copies' grain (align_mask(d): 16 bytes at D
+// 16, 32, 64, 128 and a multiple of 8 above 64, 4 at another even D, none
+// at an odd D) is refused (cudaErrorMisalignedAddress):
+// the tensor-core route reads them with copies of that width. The mask may
+// start at any byte.
 int flash_attention_large_fwd(const void* q, const void* k, const void* v,
                               const void* kmask, void* out, void* lse, int g,
                               int mask_rows, int sq, int sk, int d,
@@ -291,7 +394,8 @@ int flash_attention_large_fwd(const void* q, const void* k, const void* v,
   if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(q) |
                    reinterpret_cast<std::uintptr_t>(k) |
                    reinterpret_cast<std::uintptr_t>(v) |
-                   reinterpret_cast<std::uintptr_t>(out)) & 15u))
+                   reinterpret_cast<std::uintptr_t>(out)) &
+                  vtt::mma::align_mask(d)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16

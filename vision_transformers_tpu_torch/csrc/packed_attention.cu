@@ -51,6 +51,17 @@
 //   fp32: the two passes of attention_bwd_tile.cuh on the CUDA cores, each
 //     with the forward's fp32 grid (its y counts query tiles, then key
 //     tiles).
+// Head dims: dh 16, 32 and 64 are instantiations of these kernels. Any other
+// dh from 1 to 128 (ViT-H/14's 80 at S 257, TNT's 12, 128) runs in the next
+// tile width, 16, 32, 64 or 128 (D 128 with its tile buffers in dynamic
+// shared memory), with the columns past dh read as zeros and not written:
+// the *_padded_kernel kernels, on attention_mma_tile.cuh's PaddedStrided
+// layout in bf16 (q, k and v still read in place at row stride 3·H·dh; K/V
+// tiles by 16-byte cp.async for dh a multiple of 8, 4-byte for an even dh,
+// 2-byte loads for an odd one: the widest copy every head offset h·dh keeps
+// aligned) and the fp32 tiles' kPad in fp32. The in-kernel dropout draws the
+// same keep bits at every dh: f(seed, b·H + h, row, column). Zero-padding
+// dh 80 into the 128 tile spends 37.5% of the tile's products on zeros.
 #include <cstdint>
 #include <type_traits>
 
@@ -186,6 +197,137 @@ packed_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                         heads});
 }
 
+// ---- head dims other than 16, 32 and 64: the tile of width D (16, 32, 64 or
+// 128), the columns d .. D read as zeros and not written; d runtime.
+
+// Row 0 of head h of image b, as PackedGroup, at a head width d known at run
+// time.
+struct PackedGroupD {
+  long long b, h, hd, d;
+  int s, heads;
+  __device__ PackedGroupD(int s_, int heads_, int d_)
+      : b(blockIdx.x / heads_), h(blockIdx.x % heads_),
+        hd(static_cast<long long>(heads_) * d_), d(d_), s(s_),
+        heads(heads_) {}
+  __device__ long long packed() const { return b * s * 3 * hd + h * d; }
+  __device__ long long unpacked() const { return b * s * hd + h * d; }
+  __device__ long long lse() const { return b * s * heads + h; }
+  // q, k, v rows 3·H·d apart, do and out H·d, lse H
+  template <int D>
+  __device__ vtt::mma::PaddedStrided<D> layout() const {
+    return vtt::mma::PaddedStrided<D>{static_cast<int>(d),
+                                      static_cast<int>(3 * hd),
+                                      static_cast<int>(hd), heads};
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_fwd_padded_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                         float* __restrict__ lse, int s, int heads,
+                         int kv_valid, float scale, vtt::Dropout drop,
+                         int d) {
+  const PackedGroupD g(s, heads, d);
+  const T* q = qkv + g.packed();
+  vtt::attend_rows<T, D, vtt::PlainLoads, true>(
+      blockIdx.y * vtt::kBlockQ, q, 3 * g.hd, q + g.hd, q + 2 * g.hd,
+      3 * g.hd, nullptr, 0, nullptr, out + g.unpacked(), g.hd, lse + g.lse(),
+      heads, s, s, kv_valid, scale, drop, blockIdx.x, d);
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_fwd_mma_padded_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int s, int heads,
+                             int kv_valid, float scale, vtt::Dropout drop,
+                             int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::mma::attend_rows_mma<D, vtt::mma::KeyMask::NoMask, kDrop,
+                            vtt::mma::PaddedStrided<D>>(
+      blockIdx.y * vtt::mma::fwd_rows<D>(), q, q + g.hd, q + 2 * g.hd,
+      nullptr, out + g.unpacked(), lse + g.lse(), s, s, kv_valid, scale,
+      nullptr, drop, blockIdx.x, nullptr, g.layout<D>());
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_bwd_dq_padded_kernel(const T* __restrict__ qkv,
+                            const T* __restrict__ dout,
+                            const T* __restrict__ out,
+                            const float* __restrict__ lse,
+                            T* __restrict__ dqkv, float* __restrict__ delta,
+                            int s, int heads, int kv_valid, float scale,
+                            vtt::Dropout drop, int d) {
+  const PackedGroupD g(s, heads, d);
+  const T* q = qkv + g.packed();
+  vtt::bwd_dq_rows<T, D, true>(
+      q, 3 * g.hd, q + g.hd, q + 2 * g.hd, 3 * g.hd, dout + g.unpacked(),
+      out + g.unpacked(), g.hd, lse + g.lse(), heads, nullptr,
+      dqkv + g.packed(), 3 * g.hd,
+      delta + static_cast<long long>(blockIdx.x) * s, s, s, kv_valid, scale,
+      drop, blockIdx.x, d);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_bwd_dkv_padded_kernel(const T* __restrict__ qkv,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dqkv, int s, int heads,
+                             int kv_valid, float scale, vtt::Dropout drop,
+                             int d) {
+  const PackedGroupD g(s, heads, d);
+  const T* q = qkv + g.packed();
+  T* dq = dqkv + g.packed();
+  vtt::bwd_dkv_rows<T, D, true>(
+      q, 3 * g.hd, q + g.hd, q + 2 * g.hd, 3 * g.hd, dout + g.unpacked(),
+      g.hd, lse + g.lse(), heads,
+      delta + static_cast<long long>(blockIdx.x) * s, nullptr, dq + g.hd,
+      dq + 2 * g.hd, 3 * g.hd, s, s, kv_valid, scale, drop, blockIdx.x, d);
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dq_mma_padded_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const __nv_bfloat16* __restrict__ out,
+                                const float* __restrict__ lse,
+                                __nv_bfloat16* __restrict__ dqkv,
+                                float* __restrict__ delta, int s, int heads,
+                                int kv_valid, float scale, vtt::Dropout drop,
+                                int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::mma::bwd_dq_rows_mma<D, vtt::mma::PaddedStrided<D>, kDrop>(
+      blockIdx.y * vtt::mma::kRows, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), out + g.unpacked(), lse + g.lse(), nullptr,
+      dqkv + g.packed(), delta + static_cast<long long>(blockIdx.x) * s, s,
+      s, kv_valid, scale, drop, blockIdx.x, g.layout<D>());
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dkv_mma_padded_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                 const __nv_bfloat16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 __nv_bfloat16* __restrict__ dqkv, int s,
+                                 int heads, int kv_valid, float scale,
+                                 vtt::Dropout drop, int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  __nv_bfloat16* dq = dqkv + g.packed();
+  vtt::mma::bwd_dkv_rows_mma<D, vtt::mma::PaddedStrided<D>, kDrop>(
+      blockIdx.y * vtt::mma::kRows, 0, (s + vtt::mma::kCols - 1) /
+      vtt::mma::kCols, q, q + g.hd, q + 2 * g.hd, dout + g.unpacked(),
+      lse + g.lse(), delta + static_cast<long long>(blockIdx.x) * s, nullptr,
+      dq + g.hd, dq + 2 * g.hd, nullptr, nullptr, s, s, kv_valid, scale,
+      drop, blockIdx.x, g.layout<D>());
+}
+
 struct Args {
   const void* qkv;
   const void* dout;  // backward only
@@ -272,13 +414,124 @@ int launch_bwd(const Args& a) {
   }
 }
 
+// The padded kernels: head width dh in the tile of width D (D 128 takes its
+// tile buffers from dynamic shared memory).
+template <typename T, int D>
+int launch_fwd_padded(const Args& a, int dh) {
+  const auto* qkv = static_cast<const T*>(a.qkv);
+  auto* out = static_cast<T*>(const_cast<void*>(a.out));
+  auto* lse = static_cast<float*>(const_cast<void*>(a.lse));
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    constexpr int rows = vtt::mma::fwd_rows<D>();
+    constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+    const dim3 grid(a.b * a.heads, (a.s + rows - 1) / rows);
+    int rc;
+    if (a.drop.thresh != 0u) {
+      rc = vtt::allow_dynamic_smem(packed_fwd_mma_padded_kernel<D, true>,
+                                   smem);
+      if (rc != 0) return rc;
+      packed_fwd_mma_padded_kernel<D, true><<<grid, vtt::mma::kThreads, smem,
+                                              a.stream>>>(
+          qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop, dh);
+    } else {
+      rc = vtt::allow_dynamic_smem(packed_fwd_mma_padded_kernel<D, false>,
+                                   smem);
+      if (rc != 0) return rc;
+      packed_fwd_mma_padded_kernel<D, false><<<grid, vtt::mma::kThreads,
+                                               smem, a.stream>>>(
+          qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop, dh);
+    }
+    return vtt::launched("packed_fwd_mma_padded_kernel");
+  } else {
+    constexpr int smem = vtt::attend_dyn_bytes<D>();
+    const int rc = vtt::allow_dynamic_smem(packed_fwd_padded_kernel<T, D>,
+                                           smem);
+    if (rc != 0) return rc;
+    const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
+    packed_fwd_padded_kernel<T, D><<<grid, vtt::kThreads, smem, a.stream>>>(
+        qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop, dh);
+    return vtt::launched("packed_fwd_padded_kernel");
+  }
+}
+
+template <int D, bool kDrop>
+int launch_bwd_mma_padded(const Args& a, int dh) {
+  using bf16 = __nv_bfloat16;
+  constexpr int smem = vtt::mma::mma_dyn_bytes<D>();
+  const dim3 grid(a.b * a.heads,
+                  (a.s + vtt::mma::kRows - 1) / vtt::mma::kRows);
+  const auto* qkv = static_cast<const bf16*>(a.qkv);
+  const auto* dout = static_cast<const bf16*>(a.dout);
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* dqkv = static_cast<bf16*>(a.dqkv);
+  auto* delta = static_cast<float*>(a.delta);
+  int rc = vtt::allow_dynamic_smem(packed_bwd_dq_mma_padded_kernel<D, kDrop>,
+                                   smem);
+  if (rc != 0) return rc;
+  packed_bwd_dq_mma_padded_kernel<D, kDrop><<<grid, vtt::mma::kThreads, smem,
+                                              a.stream>>>(
+      qkv, dout, static_cast<const bf16*>(a.out), lse, dqkv, delta, a.s,
+      a.heads, a.kv_valid, a.scale, a.drop, dh);
+  rc = vtt::launched("packed_bwd_dq_mma_padded_kernel");
+  if (rc != 0) return rc;
+  rc = vtt::allow_dynamic_smem(packed_bwd_dkv_mma_padded_kernel<D, kDrop>,
+                               smem);
+  if (rc != 0) return rc;
+  packed_bwd_dkv_mma_padded_kernel<D, kDrop><<<grid, vtt::mma::kThreads,
+                                               smem, a.stream>>>(
+      qkv, dout, lse, delta, dqkv, a.s, a.heads, a.kv_valid, a.scale, a.drop,
+      dh);
+  return vtt::launched("packed_bwd_dkv_mma_padded_kernel");
+}
+
+template <typename T, int D>
+int launch_bwd_padded(const Args& a, int dh) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return a.drop.thresh != 0u ? launch_bwd_mma_padded<D, true>(a, dh)
+                               : launch_bwd_mma_padded<D, false>(a, dh);
+  } else {
+    constexpr int smem = vtt::bwd_dyn_bytes<D>();
+    const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ);
+    int rc = vtt::allow_dynamic_smem(packed_bwd_dq_padded_kernel<T, D>, smem);
+    if (rc != 0) return rc;
+    packed_bwd_dq_padded_kernel<T, D><<<grid, vtt::kThreads, smem,
+                                        a.stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
+        static_cast<const T*>(a.out), static_cast<const float*>(a.lse),
+        static_cast<T*>(a.dqkv), static_cast<float*>(a.delta), a.s, a.heads,
+        a.kv_valid, a.scale, a.drop, dh);
+    rc = vtt::launched("packed_bwd_dq_padded_kernel");
+    if (rc != 0) return rc;
+    rc = vtt::allow_dynamic_smem(packed_bwd_dkv_padded_kernel<T, D>, smem);
+    if (rc != 0) return rc;
+    packed_bwd_dkv_padded_kernel<T, D><<<grid, vtt::kThreads, smem,
+                                         a.stream>>>(
+        static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dqkv), a.s, a.heads, a.kv_valid, a.scale, a.drop,
+        dh);
+    return vtt::launched("packed_bwd_dkv_padded_kernel");
+  }
+}
+
+template <typename T, int D>
+int launch_padded(const Args& a, int dh, bool backward) {
+  return backward ? launch_bwd_padded<T, D>(a, dh)
+                  : launch_fwd_padded<T, D>(a, dh);
+}
+
 template <typename T>
 int dispatch_dh(const Args& a, int dh, bool backward) {
   switch (dh) {
     case 16: return backward ? launch_bwd<T, 16>(a) : launch_fwd<T, 16>(a);
     case 32: return backward ? launch_bwd<T, 32>(a) : launch_fwd<T, 32>(a);
     case 64: return backward ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (dh < 1 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+      return dh < 16   ? launch_padded<T, 16>(a, dh, backward)
+             : dh < 32 ? launch_padded<T, 32>(a, dh, backward)
+             : dh < 64 ? launch_padded<T, 64>(a, dh, backward)
+                       : launch_padded<T, 128>(a, dh, backward);
   }
 }
 
@@ -294,16 +547,18 @@ int dispatch(const Args& a, int dh, int is_bf16, bool backward) {
 extern "C" {
 
 // Each returns 0 or the cudaError_t of a launch. is_bf16: 1 = bf16, 0 = fp32.
-// drop_thresh = min(int(rate·2^32), 2^32 − 1), 0 for no dropout;
+// dh: 1-128. drop_thresh = min(int(rate·2^32), 2^32 − 1), 0 for no dropout;
 // inv_keep = 1/(1 − rate); seed: the mask's 64-bit seed. The forward refuses
-// a bf16 qkv or out that is not 16-byte aligned (cudaErrorMisalignedAddress):
-// the tensor-core route reads K and V with 16-byte copies.
+// a bf16 qkv or out that is not 16-byte aligned for dh a multiple of 8
+// (4-byte for another even dh; cudaErrorMisalignedAddress): the tensor-core
+// route reads K and V with copies of that width.
 int packed_attention_fwd(const void* qkv, void* out, void* lse, int b, int s,
                          int heads, int dh, int kv_valid, float scale,
                          int is_bf16, unsigned int drop_thresh, float inv_keep,
                          unsigned long long seed, void* stream) {
   if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(qkv) |
-                   reinterpret_cast<std::uintptr_t>(out)) & 15u))
+                   reinterpret_cast<std::uintptr_t>(out)) &
+                  vtt::mma::strided_align_mask(dh)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{qkv, nullptr, out, lse, nullptr, nullptr, b, s, heads, kv_valid,
                scale, vtt::make_dropout(drop_thresh, inv_keep, seed),
@@ -313,8 +568,8 @@ int packed_attention_fwd(const void* qkv, void* out, void* lse, int b, int s,
 
 // delta: fp32 scratch of B·H·S elements (δ = rowsum(do ⊙ out), written by
 // the first pass and read by the second). A bf16 qkv, do, out or dqkv that
-// is not 16-byte aligned is refused (cudaErrorMisalignedAddress): the
-// tensor-core route copies 16 bytes at a time.
+// is not aligned as the forward's operands is refused
+// (cudaErrorMisalignedAddress).
 int packed_attention_bwd(const void* qkv, const void* dout, const void* out,
                          const void* lse, void* dqkv, void* delta, int b,
                          int s, int heads, int dh, int kv_valid, float scale,
@@ -323,7 +578,8 @@ int packed_attention_bwd(const void* qkv, const void* dout, const void* out,
   if (is_bf16 && ((reinterpret_cast<std::uintptr_t>(qkv) |
                    reinterpret_cast<std::uintptr_t>(dout) |
                    reinterpret_cast<std::uintptr_t>(out) |
-                   reinterpret_cast<std::uintptr_t>(dqkv)) & 15u))
+                   reinterpret_cast<std::uintptr_t>(dqkv)) &
+                  vtt::mma::strided_align_mask(dh)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{qkv, dout, out, lse, dqkv, delta, b, s, heads, kv_valid, scale,
                vtt::make_dropout(drop_thresh, inv_keep, seed),

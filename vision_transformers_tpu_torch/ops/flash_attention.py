@@ -98,18 +98,22 @@ MAX_SCORE_ELEMS = 1_500_000
 USE_PALLAS_BWD = False
 _PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 
-# Head dims the CUDA kernels are instantiated for.
-KERNEL_HEAD_DIMS = (16, 32, 64)
-# Rows 2, 5 and 6 (flash_attention's and flash_dropout_attention's split-head
-# kernels) also take D 128, an instantiation of its own, and any D up to 64,
-# run in the next instantiated tile with the columns past D read as zeros
-# (TNT: outer attention at D 128, inner at D 12). The JAX kernels take any D.
-SPLIT_HEAD_DIM_RULE = "1 <= D <= 64 or D == 128"
+# Rows 1-7 (the packed, split-head, dropout, streaming and small-S
+# attention kernels, forward and backward) take any head dim from 1 to 128:
+# D 16, 32, 64 and 128 are instantiations of their tiles (rows 1 and 7: 16,
+# 32 and 64), any other D runs in the next one with the columns past D read
+# as zeros (TNT: D 12 and 128; ViT-H/14: D 80). The JAX kernels take any D
+# their VMEM budgets admit; no model of the repo goes above 128.
+ATTENTION_HEAD_DIM_RULE = "1 <= D <= 128"
+# Head dims the kernels of rows 8-13 (the fused block and the window
+# kernels) are instantiated for: their own rules keep to these.
+TILE_HEAD_DIMS = (16, 32, 64)
 
 
-def split_head_dim_supported(d: int) -> bool:
-    """Whether rows 2, 5 and 6 take head dim ``d`` on the card."""
-    return 1 <= d <= 64 or d == 128
+def attention_head_dim_supported(d: int) -> bool:
+    """Whether rows 1-7 take head dim ``d`` on the card."""
+    return 1 <= d <= 128
+
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
@@ -162,11 +166,12 @@ def _mask_keys(s: torch.Tensor, kv_valid: int) -> torch.Tensor:
 
 
 def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
-                        head_dim: int, split_head: bool = False) -> None:
+                        head_dim: int,
+                        head_dims: Optional[Tuple[int, ...]] = None) -> None:
     """What a CUDA kernel takes: a contiguous CUDA tensor of ``dtype``
-    (float32 or bfloat16) and a head dim of ``KERNEL_HEAD_DIMS``, or, for
-    the split-head rows 2, 5 and 6 (``split_head``), of
-    ``SPLIT_HEAD_DIM_RULE``; anything else raises ``ValueError``."""
+    (float32 or bfloat16) and a head dim of ``ATTENTION_HEAD_DIM_RULE``
+    (rows 1-7), or of ``head_dims`` where a row keeps its own
+    (``TILE_HEAD_DIMS``, rows 8-13); anything else raises ``ValueError``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
@@ -175,16 +180,16 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
             "the same for every operand")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if split_head:
-        if not split_head_dim_supported(head_dim):
+    if head_dims is None:
+        if not attention_head_dim_supported(head_dim):
             raise ValueError(
-                f"head dim {head_dim} not supported by the split-head CUDA "
-                f"kernels (rows 2, 5 and 6: {SPLIT_HEAD_DIM_RULE})")
-    elif head_dim not in KERNEL_HEAD_DIMS:
+                f"head dim {head_dim} not supported by the attention CUDA "
+                f"kernels (rows 1-7 take {ATTENTION_HEAD_DIM_RULE})")
+    elif head_dim not in head_dims:
         raise ValueError(
             f"head dim {head_dim} not supported by the CUDA kernel "
-            f"(supported: {KERNEL_HEAD_DIMS}; only rows 2, 5 and 6 take "
-            f"{SPLIT_HEAD_DIM_RULE})")
+            f"(supported: {head_dims}; rows 1-7 take "
+            f"{ATTENTION_HEAD_DIM_RULE})")
 
 
 def _check_same_device(ref: torch.Tensor, **others: torch.Tensor) -> None:
@@ -317,6 +322,9 @@ def _packed_dims(qkv: torch.Tensor, heads: int, scale: Optional[float],
     b, s, three_hd = qkv.shape
     hd = three_hd // 3
     dh = hd // heads
+    if dh < 1:
+        raise ValueError(f"head dim {dh}: rows 1-7 take "
+                         f"{ATTENTION_HEAD_DIM_RULE}")
     scale = dh ** -0.5 if scale is None else float(scale)
     return b, s, hd, dh, scale, _kv_valid(kv_valid, s)
 
@@ -425,8 +433,11 @@ def packed_flash_attention_fwd(
     """The packed forward → (out, fp32 lse (B, S, H)); no autograd graph.
     ``out`` / ``lse`` (CUDA only): contiguous tensors of those shapes to
     write into instead of new ones. bf16 runs on the tensor cores
-    (``packed_fwd_mma_kernel``) and needs qkv and out 16-byte aligned, or
-    the launch raises; fp32 on the CUDA cores (``packed_fwd_kernel``)."""
+    (``packed_fwd_mma_kernel``; at a dh other than 16, 32 and 64
+    ``packed_fwd_mma_padded_kernel``) and needs qkv and out 16-byte aligned
+    (4-byte for an even dh not a multiple of 8), or the launch raises; fp32
+    on the CUDA cores (``packed_fwd_kernel``, ``packed_fwd_padded_kernel``).
+    dh: ``ATTENTION_HEAD_DIM_RULE``."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if qkv.device.type == "cpu":
@@ -470,8 +481,9 @@ def packed_flash_attention_bwd(
     dv are summed in a fixed order, without atomics. ``dqkv`` (CUDA only): a
     contiguous tensor like qkv to write into instead of a new one. bf16
     takes the tensor cores (``packed_bwd_dq_mma_kernel``,
-    ``packed_bwd_dkv_mma_kernel``), where qkv, do, out and dqkv must be
-    16-byte aligned or the launch raises; fp32 the CUDA cores."""
+    ``packed_bwd_dkv_mma_kernel``; ``*_padded_kernel`` at a dh other than
+    16, 32 and 64), where qkv, do, out and dqkv must be aligned as the
+    forward's operands or the launch raises; fp32 the CUDA cores."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if do.shape != (b, s, hd) or out.shape != (b, s, hd) \
@@ -559,6 +571,9 @@ def _split_dims(q, k, v, scale, kv_valid, key_mask=None):
                                  or key_mask.dtype != torch.bool):
         raise ValueError(f"key_mask must be bool ({b}, {s_k}), got "
                          f"{key_mask.dtype} {tuple(key_mask.shape)}")
+    if d < 1:
+        raise ValueError(f"head dim {d}: rows 1-7 take "
+                         f"{ATTENTION_HEAD_DIM_RULE}")
     scale = d ** -0.5 if scale is None else float(scale)
     return b, h, s_q, s_k, d, scale, _kv_valid(kv_valid, s_k)
 
@@ -660,8 +675,9 @@ def flash_dropout_attention_fwd(
     """The dropout forward → (out, fp32 lse (B, H, Sq)); no autograd graph.
     bf16 runs on the tensor cores (skipping the 64-key tiles past the last
     one that holds an attended key), fp32 on the CUDA cores; a bf16 operand
-    that is not 16-byte aligned (4-byte at an even D other than 16, 32, 64
-    and 128) raises. D: ``SPLIT_HEAD_DIM_RULE``. ``out``, ``lse`` (CUDA
+    off its copies' grain raises (16 bytes at D 16, 32, 64, 128 and a
+    multiple of 8 above 64, 4 at another even D, none at an odd D). D:
+    ``ATTENTION_HEAD_DIM_RULE``. ``out``, ``lse`` (CUDA
     only): contiguous tensors to write into instead of new ones (a check
     can pre-fill them to see that every element is written)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
@@ -675,7 +691,7 @@ def flash_dropout_attention_fwd(
     from vision_transformers_tpu_torch.ops import _build
 
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
+        _check_cuda_operand(name, t, q.dtype, d)
     mask_add = _key_mask_add(key_mask)
     _check_same_device(q, k=k, v=v,
                        **({} if mask_add is None else {"key_mask": mask_add}))
@@ -705,10 +721,10 @@ def flash_dropout_attention_bwd(
     are accumulated in fp32 in a fixed order and cast once. At rate 0 it is
     also the bias-free backward of ``flash_attention``. bf16 runs on the
     tensor cores (with ``dkv_chunks`` ranges of the query loop in the dk/dv
-    pass), fp32 on the CUDA cores; a bf16 operand that is not 16-byte
-    aligned (4-byte at an even D other than 16, 32, 64 and 128) raises. D:
-    ``SPLIT_HEAD_DIM_RULE``. ``grads`` (CUDA only): (dq, dk, dv), contiguous
-    tensors like q, k, v to write into instead of new ones."""
+    pass), fp32 on the CUDA cores; a bf16 operand off its copies' grain
+    raises (as the forward's). D: ``ATTENTION_HEAD_DIM_RULE``. ``grads``
+    (CUDA only): (dq, dk, dv), contiguous tensors like q, k, v to write into
+    instead of new ones."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      key_mask)
     rate, seed = _dropout_args(dropout_rate, seed)
@@ -726,8 +742,8 @@ def flash_dropout_attention_bwd(
 
     do = do.contiguous()  # arrives as a view of the caller's transpose
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
-        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
-    _check_cuda_operand("lse", lse, torch.float32, d, split_head=True)
+        _check_cuda_operand(name, t, q.dtype, d)
+    _check_cuda_operand("lse", lse, torch.float32, d)
     mask_add = _key_mask_add(key_mask)
     _check_same_device(q, k=k, v=v, do=do, out=out, lse=lse,
                        **({} if mask_add is None else {"key_mask": mask_add}))
@@ -882,10 +898,9 @@ def flash_attention_fwd(
     ``flash_dropout_attention_fwd``'s. Routes as ``_flash_fwd`` does (flash_attention.py:143-147): a
     ``kv_mask``, or Sq·Sk > ``MAX_SCORE_ELEMS``, takes the streaming kernel,
     which has no bias (``ValueError`` with one). Otherwise bf16 runs on the
-    tensor cores and fp32 on the CUDA cores; a bf16 operand that is not
-    16-byte aligned (4-byte at an even D other than 16, 32, 64 and 128)
-    raises. D: ``SPLIT_HEAD_DIM_RULE`` (the streaming kernel:
-    ``KERNEL_HEAD_DIMS``)."""
+    tensor cores and fp32 on the CUDA cores; a bf16 operand off its
+    copies' grain raises (as ``flash_dropout_attention_fwd``'s). D:
+    ``ATTENTION_HEAD_DIM_RULE`` (both kernels)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if kv_mask is not None or s_q * s_k > MAX_SCORE_ELEMS:
@@ -905,7 +920,7 @@ def flash_attention_fwd(
     from vision_transformers_tpu_torch.ops import _build
 
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t, q.dtype, d, split_head=True)
+        _check_cuda_operand(name, t, q.dtype, d)
     _check_same_device(q, k=k, v=v)
     bias_g = 0
     if bias is not None:
@@ -976,7 +991,10 @@ def flash_attention_large_fwd(
     one (a check can pre-fill it to see that every element is written).
     bf16 runs on the tensor cores (skipping the 64-key tiles past the last
     one that holds an attended key), fp32 on the CUDA cores; a bf16 q, k, v
-    or ``out`` that is not 16-byte aligned raises."""
+    or ``out`` off its copies' grain raises (as
+    ``flash_dropout_attention_fwd``'s). D: ``ATTENTION_HEAD_DIM_RULE``, any
+    D but 16, 32, 64 and 128 in the next tile
+    (``flash_large_mma_padded_kernel``, ``flash_large_padded_kernel``)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if q.device.type == "cpu":
@@ -1072,8 +1090,9 @@ def flash_attention_bwd(
     products as ``_bwd_kernel`` does; fp32 on the CUDA cores, one launch of
     one block per group. Every output has one owner, so two runs give equal
     bits. On CUDA the shape must pass ``flash_bwd_smem_bytes``'s rule
-    (``ValueError`` otherwise). ``grads`` (CUDA only): contiguous (dq, dk,
-    dv) like (q, k, v) to write into."""
+    (``ValueError`` otherwise). D: ``ATTENTION_HEAD_DIM_RULE``, any D but
+    16, 32, 64 and 128 in the next tile (``*_padded_kernel``). ``grads``
+    (CUDA only): contiguous (dq, dk, dv) like (q, k, v) to write into."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
     if do.shape != q.shape or out.shape != q.shape \
             or lse.shape != (b, h, s_q):
@@ -1308,15 +1327,15 @@ def window_route(dtype: torch.dtype, n: int, dh: int,
     ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``,
     ``window_fused_slab_mma_kernel``) for bf16, ``"cuda_cores"`` for fp32,
     at every shape the window kernels take: 1 <= N <= 128 tokens and a head
-    dim of ``KERNEL_HEAD_DIMS``. Any other shape, dtype or kernel raises
+    dim of ``TILE_HEAD_DIMS``. Any other shape, dtype or kernel raises
     ``ValueError``. A shape rule, not a fallback: the C entries take the
     same kernel by the dtype, and a launch on it that fails raises."""
     if kernel not in WINDOW_KERNELS:
         raise ValueError(f"window kernels are {WINDOW_KERNELS}, got {kernel!r}")
-    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in KERNEL_HEAD_DIMS:
+    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in TILE_HEAD_DIMS:
         raise ValueError(
             f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
-            f"dim of {KERNEL_HEAD_DIMS}, got N = {n}, dh = {dh}")
+            f"dim of {TILE_HEAD_DIMS}, got N = {n}, dh = {dh}")
     if dtype == torch.bfloat16:
         return "tensor_cores"
     if dtype == torch.float32:
@@ -1521,7 +1540,7 @@ def _check_window_operands(name: str, qkv: torch.Tensor,
                            sec: int) -> None:
     """What the CUDA window kernels take: see ``_check_cuda_operand``; rows
     are read as 16-byte vectors."""
-    _check_cuda_operand("qkv", qkv, qkv.dtype, dh)
+    _check_cuda_operand("qkv", qkv, qkv.dtype, dh, TILE_HEAD_DIMS)
     if qkv.data_ptr() % 16 or (sec * qkv.element_size()) % 16:
         raise ValueError(
             f"{name}: qkv must be 16-byte aligned with sections of a "
@@ -1598,7 +1617,7 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
 
     do = do.contiguous()  # arrives as a view of the caller's reverse
     _check_window_operands("window_attention_bwd", qkv, bias, dh, hd)
-    _check_cuda_operand("do", do, qkv.dtype, dh)
+    _check_cuda_operand("do", do, qkv.dtype, dh, TILE_HEAD_DIMS)
     _check_same_device(qkv, do=do)
     if do.data_ptr() % 16:
         raise ValueError("window_attention_bwd: do must be 16-byte aligned")
@@ -1841,9 +1860,9 @@ def fused_block_supported(hd: int, heads: int) -> bool:
     CUDA kernels keep no operand resident: weights, qkv and keys stream
     through fixed shared-memory tiles, the rest goes through a device-memory
     workspace. So neither S nor the width is limited; the one condition is a
-    head dim the kernels are built for (``KERNEL_HEAD_DIMS``). ViT-L
+    head dim the kernels are built for (``TILE_HEAD_DIMS``). ViT-L
     (hd 1024, dh 64) is admitted in bf16, which the JAX rule excludes."""
-    return heads > 0 and hd % heads == 0 and hd // heads in KERNEL_HEAD_DIMS
+    return heads > 0 and hd % heads == 0 and hd // heads in TILE_HEAD_DIMS
 
 
 def fused_block_route(dtype: torch.dtype, hd: int, heads: int,
@@ -1972,7 +1991,7 @@ def _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads, hd,
     of ``_measure_fused_block_phases`` (``phases`` a bit mask)."""
     from vision_transformers_tpu_torch.ops import _build
 
-    _check_cuda_operand("x", x, x.dtype, dh)
+    _check_cuda_operand("x", x, x.dtype, dh, TILE_HEAD_DIMS)
     for name, w in (("wqkv", wqkv), ("wout", wout)):
         if not w.is_cuda or w.dtype != x.dtype:
             raise ValueError(f"{name} must be a {x.dtype} CUDA tensor, got "
