@@ -251,6 +251,31 @@ exit, and without the final result line:
    falling (32 row-1 and 32 row-7 launches a step, row 15), the step's ms
    and idle share; one step at 336 px, batch 2, at rate 0 (rows 2 and 6)
    and 0.1 (rows 5 and 6).
+7e. Rows 1-7 above head dim 128 and rows 9-13 at dh 1, 2, 4 and 8. Rows
+   1-7 (their ``*_wide_kernel`` kernels, the head dim split across the
+   grid) against their plain versions as in 7d (``RowChecks``) at D 129,
+   160, 200, 256 and 512 in bf16 and fp32, rates 0 and 0.1, row 3 with key
+   masks, row 4 at the largest S its shared-memory rule admits (none at D
+   512), and at the shapes of ViT-B/16's widths at 3 heads (dh 256): B 32,
+   S 197 (rows 1, 7), B 4, S 785 (rows 2, 5, 6), B 2, S 1297 (row 3), B 32,
+   S 64 (row 4). Rows 9-13 (their tensor-core kernels in bf16, dh 1-8 in
+   the 16 tile, and the CUDA-core ones in fp32) at dh 1, 2, 4 and 8 at Swin-T's stage shapes with
+   heads C / dh (batch 4): the packed and batched forwards and the backward
+   with dbias (dqkv NaN-filled) at stages 1 and 4, the slab and flat fused
+   forwards at stages 1 and 2 (NaN-filled), reruns bit-equal, routes by
+   name. Each row's time at those model shapes (bf16) beside its bound, its
+   plain version and SDPA. Then ViT-B/16's widths at 3 heads
+   (``VITB3``, seeded weights) in bf16: served @224 at buckets 1 and 32
+   (12 row-1 launches a forward), trained @224 at batch 32 with attention
+   dropout 0.1 (3 fused-Adam steps, the loss falling; rows 1, 7, 15),
+   served @448 at bucket 4 (row 2) and trained at batch 2, rate 0.1 (rows 5,
+   6; the loss falling), served @576 cut to 2 layers at bucket 2 (row 3), 2
+   layers in fp32 against the CPU; Swin-T's widths at 4x its heads
+   (``SWIN_T4_HEADS``, dh 8) served at buckets 1 and 32 (4 batched, 1 slab,
+   1 packed window forward and 6 split-head launches a forward, the JAX
+   package's routes), trained at batch 32 (3 fused-Adam steps, the loss
+   falling; row 10 six times a step), in fp32 against the CPU; ms per
+   request, forward device time, step ms and idle shares.
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -407,6 +432,28 @@ ROUTE_NAMES = {
     ("row 4 padded", "bfloat16"): ("flash_bwd_dq_mma_padded_kernel",
                                    "flash_bwd_dkv_mma_padded_kernel"),
     ("row 4 padded", "float32"): ("flash_bwd_padded_kernel",),
+    # rows 1-7 above head dim 128 (ViT-B/16's widths at 3 heads: 256): the
+    # head dim split across the grid (csrc/attention_wide_tile.cuh)
+    ("row 1 wide", "bfloat16"): ("packed_fwd_mma_wide_kernel",),
+    ("row 1 wide", "float32"): ("packed_fwd_wide_kernel",),
+    ("row 7 wide", "bfloat16"): ("packed_bwd_dq_mma_wide_kernel",
+                                 "packed_bwd_dkv_mma_wide_kernel"),
+    ("row 7 wide", "float32"): ("packed_bwd_dq_wide_kernel",
+                                "packed_bwd_dkv_wide_kernel"),
+    ("row 2 wide", "bfloat16"): ("flash_fwd_mma_wide_kernel",),
+    ("row 2 wide", "float32"): ("flash_fwd_wide_kernel",),
+    ("row 3 wide", "bfloat16"): ("flash_large_mma_wide_kernel",),
+    ("row 3 wide", "float32"): ("flash_large_wide_kernel",),
+    ("row 4 wide", "bfloat16"): ("flash_bwd_dq_mma_wide_kernel",
+                                 "flash_bwd_dkv_mma_wide_kernel"),
+    ("row 4 wide", "float32"): ("flash_bwd_dq_wide_kernel",
+                                "flash_bwd_dkv_wide_kernel"),
+    ("row 5 wide", "bfloat16"): ("drop_fwd_mma_wide_kernel",),
+    ("row 5 wide", "float32"): ("drop_fwd_wide_kernel",),
+    ("row 6 wide", "bfloat16"): ("drop_bwd_dq_mma_wide_kernel",
+                                 "drop_bwd_dkv_mma_wide_kernel"),
+    ("row 6 wide", "float32"): ("drop_bwd_dq_wide_kernel",
+                                "drop_bwd_dkv_wide_kernel"),
     ("row 9", "bfloat16"): ("window_packed_mma_kernel",),
     ("row 9", "float32"): ("window_packed_kernel",),
     ("row 10", "bfloat16"): ("window_bwd_mma_kernel",),
@@ -1197,7 +1244,8 @@ KEPT_REGISTERS = {
     "window_fused_flat_kernel<float, 32>": 125,
     "window_fused_flat_kernel<float, 64>": 175,
     # rows 9 and 10 on the tensor cores, as before rows 11-13 joined their
-    # tile (window_mma_tile.cuh's row-map paths default to their code)
+    # tile (window_mma_tile.cuh's row-map paths default to their code; dh
+    # 1-8 run in the 16 tile under a head-dim parameter that defaults to it)
     "window_packed_mma_kernel<16, 16>": 40,
     "window_packed_mma_kernel<16, 32>": 40,
     "window_packed_mma_kernel<16, 64>": 63,
@@ -1522,6 +1570,242 @@ VITH14 = dict(patch_size=14, num_layers=32, num_heads=16, hidden_dim=1280,
 VITH_ARGMAX_FLOOR = 0.5
 
 
+class RowChecks:
+    """Rows 1-7 against their plain versions on the card, at a head dim and
+    shape of the caller's: into outputs pre-filled with NaN (every element
+    must be written), reruns bit-equal, the route by kernel name
+    (``route(row, d)`` names the ROUTE_NAMES row a head dim takes), each
+    largest error into ``errs``. Phases 7d and 7e; ``tag`` starts their log
+    lines."""
+
+    def __init__(self, tag, route, errs):
+        import torch
+
+        self.tag, self.route, self.errs = tag, route, errs
+        self.dev = torch.device("cuda")
+
+    def randn(self, seed, *shape, dtype):
+        import torch
+
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randn(*shape, generator=g).to(self.dev, dtype)
+
+    @staticmethod
+    def nan_like(t):
+        import torch
+
+        return torch.full_like(t, float("nan"))
+
+    @staticmethod
+    def grad_tol(name, ref):
+        tol = MMA_GRAD_TOL if name == "bfloat16" else GRAD_TOL[name]
+        return tol * max(1.0, ref.float().abs().max().item())
+
+    @staticmethod
+    def fwd_tol(name, sk, ref):
+        # bf16 at Sk >= 1000: |out| stays well below 1 (rows 3 and 5)
+        if name == "bfloat16" and sk >= 1000:
+            return MASKED_FWD_TOL * max(1.0, ref.float().abs().max().item())
+        return KERNEL_TOL[name]
+
+    # ---- rows 1 and 7 ------------------------------------------------------
+    def check_packed(self, label, b, s, h, dh, dtype, rate):
+        import torch
+
+        from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+        name = str(dtype).removeprefix("torch.")
+        qkv = self.randn(200 + dh, b, s, 3 * h * dh, dtype=dtype)
+        do = self.randn(300 + dh, b, s, h * dh, dtype=dtype)
+        kw = dict(dropout_rate=rate, seed=9090 + (dh << 36) if rate else None)
+        got = []
+        require_route(
+            f"{self.tag} {label} {name} rate {rate} fwd", lambda: got.append(
+            fa.packed_flash_attention_fwd(
+                qkv, h, **kw, out=torch.full((b, s, h * dh), float("nan"),
+                                             dtype=dtype, device=self.dev),
+                lse=torch.full((b, s, h), float("nan"), device=self.dev))),
+            [(self.route("row 1", dh), name)])
+        out, lse = got[0]
+        ref, ref_lse = fa.packed_flash_attention_reference(qkv, h, **kw)
+        again = fa.packed_flash_attention_fwd(qkv, h, **kw)
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all())
+                and e <= KERNEL_TOL[name] and el <= LSE_TOL
+                and torch.equal(again[0], out) and torch.equal(again[1], lse),
+                f"{self.tag} {label} {name} rate {rate}: row 1 against its plain "
+                f"version ({e:.3e}, lse {el:.3e}), every element written, "
+                "rerun bit-equal")
+        gotb = []
+        require_route(
+            f"{self.tag} {label} {name} rate {rate} bwd", lambda: gotb.append(
+            fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw,
+                                          dqkv=self.nan_like(qkv))),
+            [(self.route("row 7", dh), name)])
+        dref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
+                                                       **kw)
+        eg, tol = max_err(gotb[0], dref), self.grad_tol(name, dref)
+        againb = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(gotb[0].float()).all()) and eg <= tol
+                and torch.equal(againb, gotb[0]),
+                f"{self.tag} {label} {name} rate {rate}: row 7 against its plain "
+                f"version ({eg:.3e} > {tol:.3e}?), every element written, "
+                "rerun bit-equal")
+        msg = ""
+        if rate:  # the next seed's mask is far off: the oracle sees masks
+            other = fa.packed_flash_attention_reference(
+                qkv, h, dropout_rate=rate, seed=kw["seed"] + 1)[0]
+            fault = max_err(other, ref)
+            require(fault > KERNEL_TOL[name], f"{self.tag} {label} {name}: the "
+                    f"planted fault (the next seed's mask) {fault:.3e} "
+                    f"exceeds {KERNEL_TOL[name]}")
+            msg = f", planted fault (next seed's mask) {fault:.3e}"
+        log(f"{self.tag} packed {label} {name} rate {rate}: row 1 max|out-plain| "
+            f"{e:.3e} (tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}; "
+            f"row 7 max|dqkv-plain| {eg:.3e} (tol {tol:.3e}){msg}; every "
+            "element written, reruns bit-equal")
+        self.errs[("row 1", label, name, rate)] = e
+        self.errs[("row 7", label, name, rate)] = eg
+
+    # ---- rows 2, 5 and 6 ---------------------------------------------------
+    def check_split(self, label, b, h, s, d, dtype, rate, masked=False):
+        import torch
+
+        from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, do = (self.randn(400 + 4 * d + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        key_mask = None
+        if masked:
+            m = np.random.RandomState(d).rand(b, s) > 0.3
+            m[:, 0] = True
+            key_mask = torch.from_numpy(m).to(self.dev)
+        kw = dict(dropout_rate=rate, seed=7070 + (d << 36) if rate else None,
+                  key_mask=key_mask)
+        got = []
+        if rate == 0.0 and key_mask is None:
+            row = "row 2"
+            fwd = lambda **o: fa.flash_attention_fwd(q, k, v, **o)  # noqa: E731
+            ref, ref_lse = fa.flash_attention_reference(q, k, v)
+        else:
+            row = "row 5"
+            fwd = lambda **o: fa.flash_dropout_attention_fwd(  # noqa: E731
+                q, k, v, **kw, **o)
+            ref, ref_lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
+        require_route(
+            f"{self.tag} {label} {name} rate {rate} fwd", lambda: got.append(
+            fwd(out=self.nan_like(q), lse=torch.full((b, h, s), float("nan"),
+                                                device=self.dev))),
+            [(self.route(row, d), name)])
+        (out, lse), again = got[0], fwd()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = self.fwd_tol(name, s, ref)
+        require(bool(torch.isfinite(out.float()).all())
+                and bool(torch.isfinite(lse).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out)
+                and torch.equal(again[1], lse),
+                f"{self.tag} {label} {name} rate {rate}: {row} against its plain "
+                f"version ({e:.3e} > {tol}?), every element written, rerun "
+                "bit-equal")
+        gotb = []
+        require_route(
+            f"{self.tag} {label} {name} rate {rate} bwd", lambda: gotb.append(
+            fa.flash_dropout_attention_bwd(
+                q, k, v, do, ref, ref_lse, **kw,
+                grads=tuple(self.nan_like(t) for t in (q, k, v)))),
+            [(self.route("row 6", d), name)])
+        want = fa.flash_dropout_attention_bwd_reference(q, k, v, do, ref,
+                                                        ref_lse, **kw)
+        againb = fa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
+        torch.cuda.synchronize()
+        eg = 0.0
+        for n, g_, w_, a_ in zip("qkv", gotb[0], want, againb):
+            eg_, tg = max_err(g_, w_), self.grad_tol(name, w_)
+            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
+                    and torch.equal(a_, g_),
+                    f"{self.tag} {label} {name} rate {rate}: row 6 d{n} against its "
+                    f"plain version ({eg_:.3e} > {tg:.3e}?), every element "
+                    "written, rerun bit-equal")
+            eg = max(eg, eg_)
+        log(f"{self.tag} split {label} {name} rate {rate}: {row} max|out-plain| "
+            f"{e:.3e} (tol {tol:.3e}), max|lse-plain| {el:.3e}; row 6 "
+            f"max|grad-plain| {eg:.3e}; every element written, reruns "
+            "bit-equal")
+        self.errs[(row, label, name, rate)] = e
+        self.errs[("row 6", label, name, rate)] = eg
+
+    # ---- row 3 -------------------------------------------------------------
+    def check_large(self, label, b, h, sq, sk, d, dtype, keep=None, kv_valid=None):
+        import torch
+
+        from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+        name = str(dtype).removeprefix("torch.")
+        q = self.randn(500 + d, b, h, sq, d, dtype=dtype)
+        k, v = (self.randn(501 + d + i, b, h, sk, d, dtype=dtype) for i in (0, 1))
+        got = []
+        require_route(f"{self.tag} {label} {name}", lambda: got.append(
+            fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                         kv_valid=kv_valid,
+                                         out=self.nan_like(q))),
+            [(self.route("row 3", d), name)])
+        out, lse = got[0]
+        ref, ref_lse = fa.flash_attention_large_reference(
+            q, k, v, kv_mask=keep, kv_valid=kv_valid)
+        again = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
+                                             kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        e, el = max_err(out, ref), max_err(lse, ref_lse)
+        tol = self.fwd_tol(name, sk, ref)
+        require(bool(torch.isfinite(out.float()).all()) and e <= tol
+                and el <= LSE_TOL and torch.equal(again[0], out),
+                f"{self.tag} {label} {name}: row 3 against its plain version "
+                f"({e:.3e} > {tol:.3e}?), every element written, rerun "
+                "bit-equal")
+        log(f"{self.tag} large {label} {name}: row 3 max|out-plain| {e:.3e} (tol "
+            f"{tol:.3e}), max|lse-plain| {el:.3e}; every element written, "
+            "rerun bit-equal")
+        self.errs[("row 3", label, name)] = e
+
+    # ---- row 4 -------------------------------------------------------------
+    def check_small_bwd(self, label, b, h, s, d, dtype):
+        import torch
+
+        from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+        name = str(dtype).removeprefix("torch.")
+        require(fa.flash_bwd_supported(s, s, d), f"{self.tag} {label}: row 4's "
+                "shared-memory rule admits the shape")
+        q, k, v, do = (self.randn(600 + 4 * d + i, b, h, s, d, dtype=dtype)
+                       for i in range(4))
+        out, lse = fa.flash_attention_reference(q, k, v)
+        got = []
+        require_route(f"{self.tag} {label} {name}", lambda: got.append(
+            fa.flash_attention_bwd(
+                q, k, v, out, lse, do,
+                grads=tuple(self.nan_like(t) for t in (q, k, v)))),
+            [(self.route("row 4", d), name)])
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        eg = 0.0
+        for n, g_, w_, a_ in zip("qkv", got[0], want, again):
+            eg_, tg = max_err(g_, w_), self.grad_tol(name, w_)
+            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
+                    and torch.equal(a_, g_),
+                    f"{self.tag} {label} {name}: row 4 d{n} against its plain "
+                    f"version ({eg_:.3e} > {tg:.3e}?), every element written, "
+                    "rerun bit-equal")
+            eg = max(eg, eg_)
+        log(f"{self.tag} small-S bwd {label} {name}: row 4 max|grad-plain| {eg:.3e};"
+            " every element written, rerun bit-equal")
+        self.errs[("row 4", label, name)] = eg
+
+
+
 def vith_route(row: str, d: int) -> str:
     """The ROUTE_NAMES row that a head dim d takes: rows 1 and 7 run any d
     but 16, 32 and 64 in their padded kernels, rows 2-6 any d but 16, 32,
@@ -1555,219 +1839,30 @@ def vith_phase(det_keep):
         g = torch.Generator(device="cpu").manual_seed(seed)
         return torch.randn(*shape, generator=g).to(dev, dtype)
 
-    def nan_like(t):
-        return torch.full_like(t, float("nan"))
-
-    def grad_tol(name, ref):
-        tol = MMA_GRAD_TOL if name == "bfloat16" else GRAD_TOL[name]
-        return tol * max(1.0, ref.float().abs().max().item())
-
-    def fwd_tol(name, sk, ref):
-        # bf16 at Sk >= 1000: |out| stays well below 1 (rows 3 and 5)
-        if name == "bfloat16" and sk >= 1000:
-            return MASKED_FWD_TOL * max(1.0, ref.float().abs().max().item())
-        return KERNEL_TOL[name]
-
-    # ---- rows 1 and 7 ------------------------------------------------------
-    def check_packed(label, b, s, h, dh, dtype, rate):
-        name = str(dtype).removeprefix("torch.")
-        qkv = randn(200 + dh, b, s, 3 * h * dh, dtype=dtype)
-        do = randn(300 + dh, b, s, h * dh, dtype=dtype)
-        kw = dict(dropout_rate=rate, seed=9090 + (dh << 36) if rate else None)
-        got = []
-        require_route(
-            f"vith {label} {name} rate {rate} fwd", lambda: got.append(
-            fa.packed_flash_attention_fwd(
-                qkv, h, **kw, out=torch.full((b, s, h * dh), float("nan"),
-                                             dtype=dtype, device=dev),
-                lse=torch.full((b, s, h), float("nan"), device=dev))),
-            [(vith_route("row 1", dh), name)])
-        out, lse = got[0]
-        ref, ref_lse = fa.packed_flash_attention_reference(qkv, h, **kw)
-        again = fa.packed_flash_attention_fwd(qkv, h, **kw)
-        e, el = max_err(out, ref), max_err(lse, ref_lse)
-        require(bool(torch.isfinite(out.float()).all())
-                and bool(torch.isfinite(lse).all())
-                and e <= KERNEL_TOL[name] and el <= LSE_TOL
-                and torch.equal(again[0], out) and torch.equal(again[1], lse),
-                f"vith {label} {name} rate {rate}: row 1 against its plain "
-                f"version ({e:.3e}, lse {el:.3e}), every element written, "
-                "rerun bit-equal")
-        gotb = []
-        require_route(
-            f"vith {label} {name} rate {rate} bwd", lambda: gotb.append(
-            fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw,
-                                          dqkv=nan_like(qkv))),
-            [(vith_route("row 7", dh), name)])
-        dref = fa.packed_flash_attention_bwd_reference(qkv, do, out, lse, h,
-                                                       **kw)
-        eg, tol = max_err(gotb[0], dref), grad_tol(name, dref)
-        againb = fa.packed_flash_attention_bwd(qkv, do, out, lse, h, **kw)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(gotb[0].float()).all()) and eg <= tol
-                and torch.equal(againb, gotb[0]),
-                f"vith {label} {name} rate {rate}: row 7 against its plain "
-                f"version ({eg:.3e} > {tol:.3e}?), every element written, "
-                "rerun bit-equal")
-        msg = ""
-        if rate:  # the next seed's mask is far off: the oracle sees masks
-            other = fa.packed_flash_attention_reference(
-                qkv, h, dropout_rate=rate, seed=kw["seed"] + 1)[0]
-            fault = max_err(other, ref)
-            require(fault > KERNEL_TOL[name], f"vith {label} {name}: the "
-                    f"planted fault (the next seed's mask) {fault:.3e} "
-                    f"exceeds {KERNEL_TOL[name]}")
-            msg = f", planted fault (next seed's mask) {fault:.3e}"
-        log(f"vith packed {label} {name} rate {rate}: row 1 max|out-plain| "
-            f"{e:.3e} (tol {KERNEL_TOL[name]}), max|lse-plain| {el:.3e}; "
-            f"row 7 max|dqkv-plain| {eg:.3e} (tol {tol:.3e}){msg}; every "
-            "element written, reruns bit-equal")
-        errs[("row 1", label, name, rate)] = e
-        errs[("row 7", label, name, rate)] = eg
-
-    # ---- rows 2, 5 and 6 ---------------------------------------------------
-    def check_split(label, b, h, s, d, dtype, rate, masked=False):
-        name = str(dtype).removeprefix("torch.")
-        q, k, v, do = (randn(400 + 4 * d + i, b, h, s, d, dtype=dtype)
-                       for i in range(4))
-        key_mask = None
-        if masked:
-            m = np.random.RandomState(d).rand(b, s) > 0.3
-            m[:, 0] = True
-            key_mask = torch.from_numpy(m).to(dev)
-        kw = dict(dropout_rate=rate, seed=7070 + (d << 36) if rate else None,
-                  key_mask=key_mask)
-        got = []
-        if rate == 0.0 and key_mask is None:
-            row = "row 2"
-            fwd = lambda **o: fa.flash_attention_fwd(q, k, v, **o)  # noqa: E731
-            ref, ref_lse = fa.flash_attention_reference(q, k, v)
-        else:
-            row = "row 5"
-            fwd = lambda **o: fa.flash_dropout_attention_fwd(  # noqa: E731
-                q, k, v, **kw, **o)
-            ref, ref_lse = fa.flash_dropout_attention_reference(q, k, v, **kw)
-        require_route(
-            f"vith {label} {name} rate {rate} fwd", lambda: got.append(
-            fwd(out=nan_like(q), lse=torch.full((b, h, s), float("nan"),
-                                                device=dev))),
-            [(vith_route(row, d), name)])
-        (out, lse), again = got[0], fwd()
-        e, el = max_err(out, ref), max_err(lse, ref_lse)
-        tol = fwd_tol(name, s, ref)
-        require(bool(torch.isfinite(out.float()).all())
-                and bool(torch.isfinite(lse).all()) and e <= tol
-                and el <= LSE_TOL and torch.equal(again[0], out)
-                and torch.equal(again[1], lse),
-                f"vith {label} {name} rate {rate}: {row} against its plain "
-                f"version ({e:.3e} > {tol}?), every element written, rerun "
-                "bit-equal")
-        gotb = []
-        require_route(
-            f"vith {label} {name} rate {rate} bwd", lambda: gotb.append(
-            fa.flash_dropout_attention_bwd(
-                q, k, v, do, ref, ref_lse, **kw,
-                grads=tuple(nan_like(t) for t in (q, k, v)))),
-            [(vith_route("row 6", d), name)])
-        want = fa.flash_dropout_attention_bwd_reference(q, k, v, do, ref,
-                                                        ref_lse, **kw)
-        againb = fa.flash_dropout_attention_bwd(q, k, v, do, ref, ref_lse, **kw)
-        torch.cuda.synchronize()
-        eg = 0.0
-        for n, g_, w_, a_ in zip("qkv", gotb[0], want, againb):
-            eg_, tg = max_err(g_, w_), grad_tol(name, w_)
-            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
-                    and torch.equal(a_, g_),
-                    f"vith {label} {name} rate {rate}: row 6 d{n} against its "
-                    f"plain version ({eg_:.3e} > {tg:.3e}?), every element "
-                    "written, rerun bit-equal")
-            eg = max(eg, eg_)
-        log(f"vith split {label} {name} rate {rate}: {row} max|out-plain| "
-            f"{e:.3e} (tol {tol:.3e}), max|lse-plain| {el:.3e}; row 6 "
-            f"max|grad-plain| {eg:.3e}; every element written, reruns "
-            "bit-equal")
-        errs[(row, label, name, rate)] = e
-        errs[("row 6", label, name, rate)] = eg
-
-    # ---- row 3 -------------------------------------------------------------
-    def check_large(label, b, h, sq, sk, d, dtype, keep=None, kv_valid=None):
-        name = str(dtype).removeprefix("torch.")
-        q = randn(500 + d, b, h, sq, d, dtype=dtype)
-        k, v = (randn(501 + d + i, b, h, sk, d, dtype=dtype) for i in (0, 1))
-        got = []
-        require_route(f"vith {label} {name}", lambda: got.append(
-            fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
-                                         kv_valid=kv_valid,
-                                         out=nan_like(q))),
-            [(vith_route("row 3", d), name)])
-        out, lse = got[0]
-        ref, ref_lse = fa.flash_attention_large_reference(
-            q, k, v, kv_mask=keep, kv_valid=kv_valid)
-        again = fa.flash_attention_large_fwd(q, k, v, kv_mask=keep,
-                                             kv_valid=kv_valid)
-        torch.cuda.synchronize()
-        e, el = max_err(out, ref), max_err(lse, ref_lse)
-        tol = fwd_tol(name, sk, ref)
-        require(bool(torch.isfinite(out.float()).all()) and e <= tol
-                and el <= LSE_TOL and torch.equal(again[0], out),
-                f"vith {label} {name}: row 3 against its plain version "
-                f"({e:.3e} > {tol:.3e}?), every element written, rerun "
-                "bit-equal")
-        log(f"vith large {label} {name}: row 3 max|out-plain| {e:.3e} (tol "
-            f"{tol:.3e}), max|lse-plain| {el:.3e}; every element written, "
-            "rerun bit-equal")
-        errs[("row 3", label, name)] = e
-
-    # ---- row 4 -------------------------------------------------------------
-    def check_small_bwd(label, b, h, s, d, dtype):
-        name = str(dtype).removeprefix("torch.")
-        require(fa.flash_bwd_supported(s, s, d), f"vith {label}: row 4's "
-                "shared-memory rule admits the shape")
-        q, k, v, do = (randn(600 + 4 * d + i, b, h, s, d, dtype=dtype)
-                       for i in range(4))
-        out, lse = fa.flash_attention_reference(q, k, v)
-        got = []
-        require_route(f"vith {label} {name}", lambda: got.append(
-            fa.flash_attention_bwd(
-                q, k, v, out, lse, do,
-                grads=tuple(nan_like(t) for t in (q, k, v)))),
-            [(vith_route("row 4", d), name)])
-        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do)
-        torch.cuda.synchronize()
-        eg = 0.0
-        for n, g_, w_, a_ in zip("qkv", got[0], want, again):
-            eg_, tg = max_err(g_, w_), grad_tol(name, w_)
-            require(bool(torch.isfinite(g_.float()).all()) and eg_ <= tg
-                    and torch.equal(a_, g_),
-                    f"vith {label} {name}: row 4 d{n} against its plain "
-                    f"version ({eg_:.3e} > {tg:.3e}?), every element written, "
-                    "rerun bit-equal")
-            eg = max(eg, eg_)
-        log(f"vith small-S bwd {label} {name}: row 4 max|grad-plain| {eg:.3e};"
-            " every element written, rerun bit-equal")
-        errs[("row 4", label, name)] = eg
-
+    chk = RowChecks("vith", vith_route, errs)
     det_b, det_sk = det_keep.shape
     for dtype in (bf16, fp32):
         for rate in (0.0, 0.1):
-            check_packed("ViT-H/14@224 B32 S257 H16 dh80", 32, 257, 16, 80,
-                         dtype, rate)
-            check_split("ViT-H/14@336 B4 H16 S577 D80", 4, 16, 577, 80,
-                        dtype, rate)
+            chk.check_packed("ViT-H/14@224 B32 S257 H16 dh80", 32, 257, 16,
+                             80, dtype, rate)
+            chk.check_split("ViT-H/14@336 B4 H16 S577 D80", 4, 16, 577, 80,
+                            dtype, rate)
             for dh in (12, 96, 128, 77):
-                check_packed(f"B4 S197 H4 dh{dh}", 4, 197, 4, dh, dtype, rate)
-            check_split("B2 H3 S150 D77", 2, 3, 150, 77, dtype, rate, rate > 0)
-        check_large("ViT-H/14@518 B4 H16 S1370 D80", 4, 16, 1370, 1370, 80,
-                    dtype)
-        check_large("DETR-R50 encoder B4 H8 S4704 D80 COCO masks", det_b, 8,
-                    det_sk, det_sk, 80, dtype, keep=det_keep)
+                chk.check_packed(f"B4 S197 H4 dh{dh}", 4, 197, 4, dh, dtype,
+                                 rate)
+            chk.check_split("B2 H3 S150 D77", 2, 3, 150, 77, dtype, rate,
+                            rate > 0)
+        chk.check_large("ViT-H/14@518 B4 H16 S1370 D80", 4, 16, 1370, 1370,
+                        80, dtype)
+        chk.check_large("DETR-R50 encoder B4 H8 S4704 D80 COCO masks", det_b,
+                        8, det_sk, det_sk, 80, dtype, keep=det_keep)
         for d in (12, 128, 77):
-            check_large(f"B2 H4 S1300 D{d} masked", 2, 4, 1300, 1300, d,
-                        dtype, keep=det_keep[:2, :1300])
-        check_small_bwd("ViT-H/14@224 B2 H16 S257 D80", 2, 16, 257, 80, dtype)
+            chk.check_large(f"B2 H4 S1300 D{d} masked", 2, 4, 1300, 1300, d,
+                            dtype, keep=det_keep[:2, :1300])
+        chk.check_small_bwd("ViT-H/14@224 B2 H16 S257 D80", 2, 16, 257, 80,
+                            dtype)
         for d, s in ((12, 257), (128, 100), (77, 150)):
-            check_small_bwd(f"B2 H4 S{s} D{d}", 2, 4, s, d, dtype)
+            chk.check_small_bwd(f"B2 H4 S{s} D{d}", 2, 4, s, d, dtype)
     log(f"vith kernel checks in {time.perf_counter() - t_phase:.1f} s")
 
     # ---- the rows' times at ViT-H/14's dh 80 (bf16) -----------------------
@@ -2086,6 +2181,571 @@ def vith_phase(det_keep):
             v for k, v in errs.items() if k[0] == row and "bfloat16" in k)
     totals = {k: sum(r.get(k, 0) for r in runs) for k in fa.LAUNCHES}
     log(f"ViT-H/14 phase in {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in totals.items() if v} }")
+    return totals, times, errs, numbers
+
+
+# ViT-B/16's widths at 3 heads (hidden 768, dh 256) and Swin-T's at 4× its
+# heads (dh 8): shape probes at published widths, not published models (no
+# model of the repo's families goes above dh 128 or below 16), the head dims
+# that rows 1-7 and 9-13 took in phase 7e's slice.
+VITB3 = dict(patch_size=16, num_layers=12, num_heads=3, hidden_dim=768,
+             mlp_dim=3072, num_classes=1000)
+SWIN_T4_HEADS = [12, 24, 48, 96]
+# Swin-T at 4× heads, batch 32: the routes the JAX package takes on a TPU
+# (tests/test_torch_port_head_dims_wide.py): 4 batched, 1 slab, 1 packed
+# window forward, and stage 3's 6 blocks on the split-head kernel (row 2)
+SWIN_T4_LAUNCHES_PER_FORWARD = {"window_batched_attention": 4,
+                                "window_fused_slab_attention": 1,
+                                "window_packed_attention": 1,
+                                "flash_attention": 6}
+WINDOW_ROW_NAMES = ("row 9", "row 10", "row 11", "row 12", "row 13")
+
+
+def wide_route(row: str, d: int) -> str:
+    """The ROUTE_NAMES row that head dim d takes: rows 1-7 above 128 their
+    wide kernels (else as vith_route); the window rows their own kernels at
+    every dh (dh 1-8 are instantiations in the 16 tile)."""
+    if row in WINDOW_ROW_NAMES:
+        return row
+    return f"{row} wide" if d > 128 else vith_route(row, d)
+
+
+def wide_phase(det_keep):
+    """Phase 7e: rows 1-7 above head dim 128 and rows 9-13 at dh 1, 2, 4
+    and 8 against their plain versions; their times at the model shapes;
+    ViT-B/16's widths at 3 heads served and trained at 224 px, served and
+    trained at 448 px, served at 576 px (2 layers), and Swin-T's widths at
+    4× its heads served and trained. Returns (the launches of its model
+    runs by wrapper, the rows' times by wrapper name, the checks' errors,
+    the model numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformers_tpu_torch import serving
+    from vision_transformers_tpu_torch.models.image_classification import (
+        SwinTransformer,
+        ViT,
+    )
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.ops import windows
+    from vision_transformers_tpu_torch.training import trainer
+    from vision_transformers_tpu_torch.training.optimizers import (
+        make_optimizer,
+    )
+    from vision_transformers_tpu_torch.utils.args import get_args
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs = {}
+    chk = RowChecks("wide", wide_route, errs)
+    randn = chk.randn
+
+    # ---- rows 1-7 above 128 ----------------------------------------------
+    for dtype in (bf16, fp32):
+        for d in (129, 160, 200, 256, 512):
+            for rate in (0.0, 0.1):
+                chk.check_packed(f"B2 S150 H2 dh{d}", 2, 150, 2, d, dtype,
+                                 rate)
+                chk.check_split(f"B2 H2 S150 D{d}", 2, 2, 150, d, dtype,
+                                rate, rate > 0)
+            chk.check_large(f"B2 H2 S1300 D{d} masked", 2, 2, 1300, 1300, d,
+                            dtype, keep=det_keep[:2, :1300])
+            fits = [s for s in range(16, 257, 16)
+                    if fa.flash_bwd_supported(s, s, d)]
+            require(bool(fits) == (d < 437), f"row 4's rule at D {d}: "
+                    f"largest S {fits[-1] if fits else None}")
+            if fits:
+                chk.check_small_bwd(f"B2 H2 S{fits[-1]} D{d}", 2, 2,
+                                    fits[-1], d, dtype)
+        # the path shapes of ViT-B/16's widths at 3 heads
+        for rate in (0.0, 0.1):
+            chk.check_packed("ViT-B3@224 B32 S197 H3 dh256", 32, 197, 3, 256,
+                             dtype, rate)
+            chk.check_split("ViT-B3@448 B4 H3 S785 D256", 4, 3, 785, 256,
+                            dtype, rate)
+        chk.check_large("ViT-B3@576 B2 H3 S1297 D256", 2, 3, 1297, 1297, 256,
+                        dtype)
+        chk.check_small_bwd("ViT-B3 B32 H3 S64 D256", 32, 3, 64, 256, dtype)
+    log(f"wide rows 1-7 checks in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- rows 9-13 at dh 1, 2, 4 and 8 ------------------------------------
+    def window_close(out, ref, name):
+        e = max_err(out, ref)
+        share = differing_share(out, ref)
+        return e, share, e <= WINDOW_TOL[name] and (
+            name == "float32" or share <= WINDOW_DIFFERING_MAX)
+
+    def check_window(label, g, n, h, dh, nwp, dtype):
+        name = str(dtype).removeprefix("torch.")
+        qkv = randn(800 + dh, g, n, 3 * h * dh, dtype=dtype)
+        bias = None if nwp == 0 else randn(801 + dh, nwp, h, n, n, dtype=fp32)
+        do = randn(802 + dh, g, n, h * dh, dtype=dtype)
+        ref = fa.window_attention_reference(qkv, bias, h)
+        for fn, row in (("window_packed_attention", "row 9"),
+                        ("window_batched_attention", "row 11")):
+            got = []
+            require_route(f"wide {label} {name} {fn}",
+                          lambda: got.append(getattr(fa, fn)(qkv, bias, h)),
+                          [(wide_route(row, dh), name)])
+            e, share, ok = window_close(got[0], ref, name)
+            require(ok and torch.equal(getattr(fa, fn)(qkv, bias, h), got[0]),
+                    f"wide {label} {name}: {row} against its plain version "
+                    f"({e:.3e}, {share:.4f} of elements differ), rerun "
+                    "bit-equal")
+            errs[(row, label, name)] = e
+        dref, db_ref = fa.window_attention_bwd_reference(qkv, bias, do, h)
+        got = []
+        require_route(f"wide {label} {name} row 10", lambda: got.append(
+            fa.window_attention_bwd(qkv, bias, do, h,
+                                    dqkv=chk.nan_like(qkv))),
+            [(wide_route("row 10", dh), name)])
+        (dqkv, db), again = got[0], fa.window_attention_bwd(qkv, bias, do, h)
+        tol = (WINDOW_GRAD_TOL if name == "bfloat16" else GRAD_TOL[name]) \
+            * max(1.0, dref.float().abs().max().item())
+        eg = max_err(dqkv, dref)
+        ok = bool(torch.isfinite(dqkv.float()).all()) and eg <= tol \
+            and torch.equal(again[0], dqkv)
+        if bias is not None:
+            tol_b = tol / max(1.0, dref.float().abs().max().item()) * max(
+                1.0, db_ref.float().abs().max().item())
+            ok = ok and max_err(db, db_ref) <= tol_b \
+                and torch.equal(again[1], db)
+        require(ok, f"wide {label} {name}: row 10 against its plain version "
+                f"({eg:.3e} > {tol:.3e}?), dbias too, every element written, "
+                "rerun bit-equal")
+        errs[("row 10", label, name)] = eg
+        log(f"wide window {label} {name}: rows 9 and 11 max|out-plain| "
+            f"{errs[('row 9', label, name)]:.3e}, "
+            f"{errs[('row 11', label, name)]:.3e}; row 10 max|dqkv-plain| "
+            f"{eg:.3e} (tol {tol:.3e}); reruns bit-equal")
+
+    def check_fused(label, b, hw, shift, h, dh, dtype):
+        name = str(dtype).removeprefix("torch.")
+        win, nwp = 7, (hw // 7) ** 2 if shift else 1
+        qkv = randn(810 + dh, b, hw, hw, 3 * h * dh, dtype=dtype)
+        bias = randn(811 + dh, nwp, h, 49, 49, dtype=fp32)
+        geo = (b, hw, hw, win, win, h, dh, nwp)
+        ref = fa.window_fused_reference(qkv, bias, h, (win, win),
+                                        (shift, shift))
+        for plan, row in ((fa.window_fused_plan(*geo), "row 13"),
+                          (fa.window_fused_flat_plan(*geo), "row 12")):
+            if plan is None:
+                continue
+            out = torch.full(ref.shape, float("nan"), dtype=dtype, device=dev)
+            require_route(f"wide {label} {name} {plan[0]}",
+                          lambda: fa.fused_window_attention(
+                              qkv, bias, h, (win, win), (shift, shift),
+                              plan=plan, out=out),
+                          [(wide_route(row, dh), name)])
+            e, share, ok = window_close(out, ref, name)
+            again = fa.fused_window_attention(qkv, bias, h, (win, win),
+                                              (shift, shift), plan=plan)
+            require(ok and torch.equal(again, out),
+                    f"wide {label} {name}: {row} against its plain version "
+                    f"({e:.3e}, {share:.4f} differ), every element written, "
+                    "rerun bit-equal")
+            errs[(row, label, name)] = e
+            log(f"wide fused {plan[0]} {label} {name}: {row} "
+                f"max|out-plain| {e:.3e}, {share:.4f} of elements differ; "
+                "every element written, rerun bit-equal")
+
+    for dtype in (bf16, fp32):
+        for dh in (8, 4, 2, 1):
+            # Swin-T's stages 1 (shifted) and 4 at batch 4, heads C / dh
+            check_window(f"Swin-T s1 B4 G256 N49 H{96 // dh} dh{dh} nW'64",
+                         256, 49, 96 // dh, dh, 64, dtype)
+            check_window(f"Swin-T s4 B4 G4 N49 H{768 // dh} dh{dh}",
+                         4, 49, 768 // dh, dh, 1, dtype)
+            check_fused(f"Swin-T s1 B4 56x56 H{96 // dh} dh{dh}", 4, 56, 3,
+                        96 // dh, dh, dtype)
+            check_fused(f"Swin-T s2 B4 28x28 H{192 // dh} dh{dh}", 4, 28, 3,
+                        192 // dh, dh, dtype)
+    log(f"wide window checks done at {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the rows' times at the model shapes (bf16) -----------------------
+    times = {}
+
+    def put(name, key, k_ms, p_ms, l_ms, nbytes, flops):
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        times.setdefault(name, {}).update({
+            f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+            f"{key}_library_ms": l_ms, f"{key}_bound_ms": bnd,
+            f"{key}_bound_by": by, f"{key}_tflops": flops / k_ms / 1e9})
+        log(f"wide time {name} {key}: kernel {k_ms:.4f} ms, bound {bnd:.4f} "
+            f"ms ({by}), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, "
+            f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+
+    def sdpa_grad(q, k, v, do, p, mask=None, bias=None):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             dropout_p=p)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    kw = dict(dropout_rate=0.1, seed=2027)
+    b, s, h, dh = 32, 197, 3, 256
+    qkv = randn(900, b, s, 3 * h * dh, dtype=bf16)
+    do = randn(901, b, s, h * dh, dtype=bf16)
+    qv, kv, vv = (t.view(b, s, h, dh).transpose(1, 2)
+                  for t in qkv.split(h * dh, dim=-1))
+    do_h = do.view(b, s, h, dh).transpose(1, 2)
+    io = b * s * h * dh * 2
+    put("packed_attention", "vitb3_s197_d256",
+        cuda_ms(lambda: fa.packed_flash_attention_fwd(qkv, h)),
+        cuda_ms(lambda: fa.packed_flash_attention_reference(qkv, h), iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv)),
+        4 * io + b * s * h * 4, 4 * b * h * s * s * dh)
+    out, lse = fa.packed_flash_attention_fwd(qkv, h, **kw)
+    put("packed_attention_bwd", "vitb3_s197_d256",
+        cuda_ms(lambda: fa.packed_flash_attention_bwd(qkv, do, out, lse, h,
+                                                      **kw)),
+        cuda_ms(lambda: fa.packed_flash_attention_bwd_reference(
+            qkv, do, out, lse, h, **kw), iters=3),
+        cuda_ms(sdpa_grad(qv, kv, vv, do_h, 0.1)),
+        8 * io + b * s * h * 4, 10 * b * h * s * s * dh)
+    del qkv, do, qv, kv, vv, do_h, out, lse
+    b, h, s, d = 4, 3, 785, 256
+    q, k, v, do = (randn(910 + i, b, h, s, d, dtype=bf16) for i in range(4))
+    io = b * h * s * d * 2
+    put("flash_attention", "vitb3_s785_d256",
+        cuda_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+        cuda_ms(lambda: fa.flash_attention_reference(q, k, v), iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    put("dropout_attention_fwd", "vitb3_s785_d256",
+        cuda_ms(lambda: fa.flash_dropout_attention_fwd(q, k, v, **kw)),
+        cuda_ms(lambda: fa.flash_dropout_attention_reference(q, k, v, **kw),
+                iters=5),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       dropout_p=0.1)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    out, lse = fa.flash_dropout_attention_fwd(q, k, v, **kw)
+    put("dropout_attention_bwd", "vitb3_s785_d256",
+        cuda_ms(lambda: fa.flash_dropout_attention_bwd(q, k, v, do, out, lse,
+                                                       **kw)),
+        cuda_ms(lambda: fa.flash_dropout_attention_bwd_reference(
+            q, k, v, do, out, lse, **kw), iters=3),
+        cuda_ms(sdpa_grad(q, k, v, do, 0.1)),
+        8 * io + b * h * s * 4, 10 * b * h * s * s * d)
+    del q, k, v, do, out, lse
+    b, h, s, d = 2, 3, 1297, 256
+    q, k, v = (randn(920 + i, b, h, s, d, dtype=bf16) for i in range(3))
+    io = b * h * s * d * 2
+    put("flash_attention_large", "vitb3_s1297_d256",
+        cuda_ms(lambda: fa.flash_attention_large_fwd(q, k, v)),
+        cuda_ms(lambda: fa.flash_attention_large_reference(q, k, v),
+                iters=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        4 * io + b * h * s * 4, 4 * b * h * s * s * d)
+    del q, k, v
+    # row 4 at ViT-B3's split heads (G 96 at batch 32) at S 64, the largest
+    # its shared-memory rule admits at D 256
+    b, h, s, d = 32, 3, 64, 256
+    q, k, v, do = (randn(930 + i, b, h, s, d, dtype=bf16) for i in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    io = b * h * s * d * 2
+    put("flash_attention_bwd", "vitb3_g96_s64_d256",
+        cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)),
+        cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                         do), iters=5),
+        cuda_ms(sdpa_grad(q, k, v, do, 0.0)),
+        8 * io + b * h * s * 4, 10 * b * h * s * s * d)
+    del q, k, v, do, out, lse
+
+    # the window rows at dh 8 at Swin-T's widths at 4× heads, batch 32
+    def split_heads(t, h_):
+        g_, n_, three = t.shape
+        return [x.reshape(g_, n_, h_, three // (3 * h_)).transpose(1, 2)
+                for x in t.split(three // 3, dim=-1)]
+
+    def window_time(name, key, g, n, h_, d_, nwp, call, ref_call):
+        qkv_ = randn(940, g, n, 3 * h_ * d_, dtype=bf16)
+        bias_ = randn(941, nwp, h_, n, n, dtype=fp32)
+        mask = bias_.to(bf16).repeat(g // nwp, 1, 1, 1)
+        q_, k_, v_ = split_heads(qkv_, h_)
+        io_ = g * n * h_ * d_ * 2
+        put(name, key, cuda_ms(lambda: call(qkv_, bias_, h_)),
+            cuda_ms(lambda: ref_call(qkv_, bias_, h_), iters=5),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_,
+                                                           attn_mask=mask)),
+            4 * io_ + nwp * h_ * n * n * 2, 4 * g * h_ * n * n * d_)
+        return qkv_, bias_, q_, k_, v_, mask
+
+    window_time("window_packed_attention", "swint4_s2_g512_h24_dh8", 512, 49,
+                24, 8, 16, fa.window_packed_attention,
+                fa.window_attention_reference)
+    qkv, bias, q, k, v, mask = window_time(
+        "window_batched_attention", "swint4_s1_g2048_h12_dh8", 2048, 49, 12,
+        8, 1, fa.window_batched_attention, fa.window_attention_reference)
+    do = randn(942, 2048, 49, 12 * 8, dtype=bf16)
+    do_h = do.view(2048, 49, 12, 8).transpose(1, 2)
+    io = 2048 * 49 * 12 * 8 * 2
+    put("window_attention_bwd", "swint4_s1_g2048_h12_dh8",
+        cuda_ms(lambda: fa.window_attention_bwd(qkv, bias, do, 12)),
+        cuda_ms(lambda: fa.window_attention_bwd_reference(qkv, bias, do, 12),
+                iters=3),
+        cuda_ms(sdpa_grad(q, k, v, do_h, 0.0, mask=mask)),
+        7 * io + 12 * 49 * 49 * 2, 10 * 2048 * 12 * 49 * 49 * 8)
+    del qkv, bias, q, k, v, mask, do, do_h
+    for kind, hw, h_, row_name in (("slab", 56, 12, "window_fused_slab_attention"),
+                                   ("flat", 28, 24,
+                                    "window_fused_flat_attention")):
+        b = 32
+        nwp = (hw // 7) ** 2
+        qkv = randn(950, b, hw, hw, 3 * h_ * 8, dtype=bf16)
+        bias = randn(951, nwp, h_, 49, 49, dtype=fp32)
+        geo = (b, hw, hw, 7, 7, h_, 8, nwp)
+        plan = (fa.window_fused_plan(*geo) if kind == "slab"
+                else fa.window_fused_flat_plan(*geo))
+        g = b * nwp
+        mask = bias.to(bf16).repeat(b, 1, 1, 1)
+
+        def chain():
+            x = torch.roll(qkv, shifts=(-3, -3), dims=(1, 2))
+            q_, k_, v_ = split_heads(windows.window_partition(x, 7, 7), h_)
+            o = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+            o = o.transpose(1, 2).reshape(g, 49, h_ * 8)
+            o = windows.window_reverse(o, 7, 7, hw, hw)
+            return torch.roll(o, shifts=(3, 3), dims=(1, 2))
+
+        io = b * hw * hw * h_ * 8 * 2
+        put(row_name, f"swint4_{kind}_b32_{hw}x{hw}_h{h_}_dh8",
+            cuda_ms(lambda: fa.fused_window_attention(
+                qkv, bias, h_, (7, 7), (3, 3), plan=plan)),
+            cuda_ms(lambda: fa.window_fused_reference(qkv, bias, h_, (7, 7),
+                                                      (3, 3)), iters=3),
+            cuda_ms(chain), 4 * io + nwp * h_ * 49 * 49 * 2,
+            4 * g * h_ * 49 * 49 * 8)
+        del qkv, bias, mask
+    log(f"wide times done at {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the models -------------------------------------------------------
+    rng = np.random.RandomState(19)
+    runs, numbers = [], {}
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append(dict(fa.LAUNCHES))
+        return out, runs[-1]
+
+    def serve(label, model, shape, buckets, want, routes):
+        """Export, load and serve ``model``: per bucket finite logits, the
+        launches ``want`` per forward and nothing else of the table, the
+        routes by kernel name, ms per request, device ms, idle share."""
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(model, shape, tmp, buckets=buckets,
+                                      dtype=fp32)
+            clf = serving.load_classifier(tmp)
+        clf.warmup()
+        log(f"{label}: exported, loaded and warmed up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        x = rng.standard_normal((max(buckets), *shape)).astype(np.float32)
+        for bkt in buckets:
+            logits, la = counted(lambda: clf.predict(x[:bkt]))
+            require(tuple(logits.shape) == (bkt, 1000)
+                    and bool(torch.isfinite(logits.float()).all())
+                    and {k: v for k, v in la.items() if v} == want,
+                    f"{label} bucket {bkt}: finite logits, launches {want} "
+                    f"per forward and no other kernel of the table: {la}")
+            require_route(f"{label} bucket {bkt} forward",
+                          lambda: clf.predict(x[:bkt]), routes)
+            for _ in range(2):
+                clf.predict(x[:bkt]).float().cpu()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                clf.predict(x[:bkt]).float().cpu()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            with torch.inference_mode():
+                xb = torch.from_numpy(x[:bkt]).to(dev)
+                dev_ms = cuda_ms(lambda: clf.model(xb), iters=5, warmup=1)
+            wall, busy, count, _ = device_profile(
+                lambda: clf.predict(x[:bkt]).float().cpu())
+            idle = None if busy is None else 1 - busy / wall
+            numbers[f"{label} served b{bkt}"] = dict(ms=ms, device_ms=dev_ms,
+                                                     idle=idle)
+            log(f"{label} bf16 served bucket {bkt}: {ms:.3f} ms per request "
+                f"(host numpy in, logits out), forward device time "
+                f"{dev_ms:.3f} ms, {bkt / ms * 1e3:.1f} images/s; profile "
+                + ("saw no device activity" if busy is None else
+                   f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} "
+                   f"activities, idle share {idle:.3f}"))
+
+    def train(label, model, image, bsz, steps, lr, want, routes):
+        """``steps`` fused Adam steps on one seeded batch: the loss falls;
+        per step the launches ``want`` (at least), the routes by name; step
+        ms and idle share of a warm step."""
+        state = trainer.make_train_state(
+            model, tx=make_optimizer("adam", lr, fused=True))
+        step = trainer.train_step_fn(model)
+        xb = rng.randint(0, 256, (bsz, image, image, 3)).astype(np.uint8)
+        yb = rng.randint(0, 1000, bsz).astype(np.int32)
+        wb = np.ones(bsz, np.float32)
+        model.dropout_generator.manual_seed(image)
+        losses = []
+
+        def go():
+            nonlocal state
+            for _ in range(steps):
+                state, loss_n, _, n = step(state, xb, yb, wb)
+                losses.append((loss_n / n).item())
+
+        _, la = counted(go)
+        log(f"{label}: {steps} Adam steps at batch {bsz}: loss "
+            f"{[round(x_, 4) for x_ in losses]}, launches {la}")
+        require(np.isfinite(losses).all() and losses[-1] < losses[0]
+                and all(la[k] >= steps * v for k, v in want.items()),
+                f"{label}: finite losses that fall over {steps} steps, "
+                f"{want} a step: {la}")
+
+        def one_step():
+            nonlocal state
+            state, *_ = step(state, xb, yb, wb)
+
+        require_route(f"{label} bf16 train step", one_step, routes)
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        wall, busy, count, _ = device_profile(one_step)
+        idle = None if busy is None else 1 - busy / wall
+        numbers[f"{label} train b{bsz}"] = dict(ms=step_ms, idle=idle,
+                                                 losses=losses)
+        log(f"{label} bf16 train step, batch {bsz}: {step_ms:.3f} ms a step "
+            f"(host clock, synchronised; {bsz / step_ms * 1e3:.1f} images/s)"
+            "; profile " + ("saw no device activity" if busy is None else
+                            f"wall {wall:.3f} ms, busy {busy:.3f} ms in "
+                            f"{count} activities, idle share {idle:.3f}"))
+
+    # ViT-B/16's widths at 3 heads, dh 256
+    t0 = time.perf_counter()
+    vit = ViT(image_size=224, **VITB3, dtype="bfloat16")
+    weights = seeded_state_dict(vit, seed=256)
+    vit.load_state_dict(weights)
+
+    def weights_at(image):
+        w = dict(weights)
+        shape = (1, (image // 16) ** 2 + 1, 768)
+        w["encoder.pos_embedding"] = torch.from_numpy(
+            (0.02 * np.random.RandomState(image).standard_normal(shape))
+            .astype(np.float32))
+        return w
+
+    log(f"ViT-B/16 widths at 3 heads: built and seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve("ViT-B3 @224", vit, (224, 224, 3), (1, 32),
+          {"packed_attention": 12}, [("row 1 wide", "bfloat16")])
+    del vit
+    m = ViT(image_size=224, **VITB3, attention_dropout=0.1, dtype="bfloat16")
+    m.load_state_dict(weights)
+    train("ViT-B3 @224", m, 224, 32, 3, 1e-4,
+          {"packed_attention": 12, "packed_attention_bwd": 12,
+           "fused_adam": 1},
+          [("row 1 wide", "bfloat16"), ("row 7 wide", "bfloat16")])
+    del m
+    m = ViT(image_size=448, **VITB3, dtype="bfloat16")
+    m.load_state_dict(weights_at(448))
+    serve("ViT-B3 @448", m, (448, 448, 3), (4,), {"flash_attention": 12},
+          [("row 2 wide", "bfloat16")])
+    del m
+    m = ViT(image_size=448, **VITB3, attention_dropout=0.1, dtype="bfloat16")
+    m.load_state_dict(weights_at(448))
+    train("ViT-B3 @448", m, 448, 2, 3, 1e-4,
+          {"dropout_attention_fwd": 12, "dropout_attention_bwd": 12},
+          [("row 5 wide", "bfloat16"), ("row 6 wide", "bfloat16")])
+    del m
+    two = {k: v for k, v in weights_at(576).items()
+           if not re.search(r"encoder_layer_([2-9]|1\d)\.", k)}
+    m = ViT(image_size=576, **dict(VITB3, num_layers=2), dtype="bfloat16")
+    m.load_state_dict(two)
+    serve("ViT-B3 @576 2 layers", m, (576, 576, 3), (2,),
+          {"flash_attention_large": 2}, [("row 3 wide", "bfloat16")])
+    del m
+    # 2 layers in fp32 at 224: the card against the CPU's plain versions
+    two = {k: v for k, v in weights.items()
+           if not re.search(r"encoder_layer_([2-9]|1\d)\.", k)}
+    card2 = ViT(image_size=224, **dict(VITB3, num_layers=2))
+    card2.load_state_dict(two)
+    cpu2 = ViT(image_size=224, **dict(VITB3, num_layers=2), device="cpu")
+    cpu2.load_state_dict(two)
+    x2 = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        got2, la2 = counted(lambda: card2(torch.from_numpy(x2).to(dev)))
+        require_route("ViT-B3 2 layers fp32 forward",
+                      lambda: card2(torch.from_numpy(x2).to(dev)),
+                      [("row 1 wide", "float32")])
+        want2 = cpu2(torch.from_numpy(x2))
+    e2 = max_err(got2.cpu(), want2)
+    log(f"ViT-B3 2 layers fp32, card against the CPU's plain versions: "
+        f"max|logit diff| {e2:.3e} (tol {LOGIT_TOL_FP32}, max|ref| "
+        f"{want2.abs().max().item():.3f}), launches {la2}")
+    require(e2 <= LOGIT_TOL_FP32 and la2["packed_attention"] == 2,
+            "ViT-B3 2 layers fp32 on the card against the CPU")
+    numbers["vitb3_2layers_fp32_err"] = e2
+    del card2, cpu2, two, weights
+
+    # Swin-T's widths at 4× heads, dh 8
+    args = dict(get_args("swint_224_imagenet"), num_heads=SWIN_T4_HEADS,
+                stochastic_depth_prob=0.0)
+    swin = SwinTransformer(**args, dtype="bfloat16")
+    sw = seeded_state_dict(swin, seed=8)
+    swin.load_state_dict(sw)
+    routes = [("row 11", "bfloat16"), ("row 13", "bfloat16"),
+              ("row 9", "bfloat16"), ("row 2 padded", "bfloat16")]
+    windows.ROUTE_LOG = []
+    serve("Swin-T4 @224", swin, (224, 224, 3), (1, 32),
+          SWIN_T4_LAUNCHES_PER_FORWARD, routes)
+    taken = list(windows.ROUTE_LOG[:12])
+    windows.ROUTE_LOG = None
+    require(taken == ["batched", "fused_slab", "batched", "pack"]
+            + ["split"] * 6 + ["batched", "batched"],
+            f"Swin-T4 routes as the JAX package's plans: {taken}")
+    del swin
+    m = SwinTransformer(**args, dtype="bfloat16")
+    m.load_state_dict(sw)
+    train("Swin-T4 @224", m, 224, 32, 3, 1e-4,
+          {"window_attention_bwd": 6, "fused_adam": 1},
+          routes + [("row 10", "bfloat16")])
+    del m
+    # fp32 at batch 2: the card against the CPU's plain versions
+    card = SwinTransformer(**args)
+    card.load_state_dict(sw)
+    cpu = SwinTransformer(**args, device="cpu")
+    cpu.load_state_dict(sw)
+    xs = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        got, _ = counted(lambda: card(torch.from_numpy(xs).to(dev)))
+        want = cpu(torch.from_numpy(xs))
+    e = max_err(got.cpu(), want)
+    log(f"Swin-T4 fp32, card against the CPU's plain versions: max|logit "
+        f"diff| {e:.3e} (tol {LOGIT_TOL_FP32}, max|ref| "
+        f"{want.abs().max().item():.3f})")
+    require(e <= LOGIT_TOL_FP32, "Swin-T4 fp32 on the card against the CPU")
+    numbers["swint4_fp32_err"] = e
+    del card, cpu, sw
+
+    for name, row in (("packed_attention", "row 1"),
+                      ("packed_attention_bwd", "row 7"),
+                      ("flash_attention", "row 2"),
+                      ("flash_attention_large", "row 3"),
+                      ("flash_attention_bwd", "row 4"),
+                      ("dropout_attention_fwd", "row 5"),
+                      ("dropout_attention_bwd", "row 6"),
+                      ("window_packed_attention", "row 9"),
+                      ("window_attention_bwd", "row 10"),
+                      ("window_batched_attention", "row 11"),
+                      ("window_fused_flat_attention", "row 12"),
+                      ("window_fused_slab_attention", "row 13")):
+        times.setdefault(name, {})["wide_max_abs_err"] = max(
+            v for k, v in errs.items() if k[0] == row and "bfloat16" in k)
+    totals = {k: sum(r.get(k, 0) for r in runs) for k in fa.LAUNCHES}
+    log(f"wide phase in {time.perf_counter() - t_phase:.1f} s, launches "
         f"{ {k: v for k, v in totals.items() if v} }")
     return totals, times, errs, numbers
 
@@ -5206,6 +5866,10 @@ def main() -> int:
     vith_total, vith_times, vith_errs, vith_numbers = vith_phase(det_keep)
     log(f"ViT-H/14 numbers: {json.dumps(vith_numbers)}")
 
+    # ---- 7e. rows 1-7 above 128, rows 9-13 at dh 1-8, ViT-B3 and Swin-T4 -
+    wide_total, wide_times, wide_errs, wide_numbers = wide_phase(det_keep)
+    log(f"phase 7e numbers: {json.dumps(wide_numbers)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -5314,7 +5978,10 @@ def main() -> int:
         extra["parallel_launches"] = par_total[name]  # phase 7c's runs
         extra["vith_launches"] = vith_total[name]  # phase 7d's model runs
         extra.update(vith_times.get(name, {}))  # phase 7d's dh-80 times
-        launches += cli_total[name] + par_total[name] + vith_total[name]
+        extra["wide_launches"] = wide_total[name]  # phase 7e's model runs
+        extra.update(wide_times.get(name, {}))  # phase 7e's dh-256/8 times
+        launches += (cli_total[name] + par_total[name] + vith_total[name]
+                     + wide_total[name])
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,

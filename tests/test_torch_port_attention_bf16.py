@@ -537,15 +537,15 @@ def test_window_bwd_reference_matches_jax_kernel_in_bf16(g, heads, nwp):
 def test_window_route_sends_bf16_to_the_tensor_cores(dh):
     """``window_route``: bf16 → the tensor-core kernels of rows 9 and 10 at
     every N the window kernels take, fp32 → the CUDA-core ones; N 0 and
-    N 129, a head dim outside ``TILE_HEAD_DIMS`` (the window kernels keep
-    their own rule; rows 1-7 take 1 <= D <= 128) and fp16 refused."""
-    assert dh in tfa.TILE_HEAD_DIMS and tfa.attention_head_dim_supported(dh)
+    N 129, a head dim outside ``WINDOW_HEAD_DIMS`` (the window kernels keep
+    their own rule; rows 1-7 take D >= 1) and fp16 refused."""
+    assert dh in tfa.WINDOW_HEAD_DIMS and tfa.attention_head_dim_supported(dh)
     for n in range(1, tfa.MAX_WINDOW_TOKENS + 1):
         assert tfa.window_route(torch.bfloat16, n, dh) == "tensor_cores"
         assert tfa.window_route(torch.float32, n, dh) == "cuda_cores"
     for dtype, n, d in ((torch.bfloat16, 129, dh), (torch.float32, 129, dh),
                         (torch.bfloat16, 0, dh), (torch.float16, 49, dh),
-                        (torch.bfloat16, 49, 8), (torch.float32, 49, 128)):
+                        (torch.bfloat16, 49, 24), (torch.float32, 49, 128)):
         with pytest.raises(ValueError):
             tfa.window_route(dtype, n, d)
 
@@ -556,12 +556,13 @@ def test_window_route_sends_bf16_to_the_tensor_cores(dh):
 def test_window_route_names_each_kernel(dh, kernel):
     """``window_route(..., kernel)``: bf16 → the tensor cores for every
     window kernel, the slab one (row 13) too; fp32 → the CUDA cores; N 0 and
-    N 129, a head dim of 8, fp16 and an unknown kernel refused."""
+    N 129, a head dim of 24 (not dividing 128), fp16 and an unknown kernel
+    refused."""
     for n in (1, 16, 17, 49, 64, 100, tfa.MAX_WINDOW_TOKENS):
         assert tfa.window_route(torch.bfloat16, n, dh, kernel) == "tensor_cores"
         assert tfa.window_route(torch.float32, n, dh, kernel) == "cuda_cores"
     for dtype, n, d in ((torch.bfloat16, 0, dh), (torch.bfloat16, 129, dh),
-                        (torch.float32, 129, dh), (torch.bfloat16, 49, 8),
+                        (torch.float32, 129, dh), (torch.bfloat16, 49, 24),
                         (torch.float16, 49, dh)):
         with pytest.raises(ValueError):
             tfa.window_route(dtype, n, d, kernel)

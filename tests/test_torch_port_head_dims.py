@@ -1,7 +1,8 @@
 """Rows 1-7 at head dims other than 16, 32 and 64, against the JAX package.
 
-The CUDA kernels of rows 1-7 take any head dim from 1 to 128 (the next tile
-of 16, 32, 64 or 128 with the columns past D zero). On the CPU the port's
+The CUDA kernels of rows 1-7 take any head dim: up to 128 the next tile of
+16, 32, 64 or 128 with the columns past D zero (this file), above 128 the
+wide kernels (tests/test_torch_port_head_dims_wide.py). On the CPU the port's
 wrappers run their plain versions, which must compute the JAX package's
 function at those dims too: inputs from a numpy seed feed both packages, the
 JAX Pallas functions run in interpret mode (as the JAX package's own tests
@@ -56,19 +57,20 @@ def _leaf(a):
 
 @pytest.mark.parametrize("d", [0, 1, 7, 12, 16, 77, 80, 96, 127, 128, 129])
 def test_rows_1_to_7_take_every_head_dim_up_to_128(d):
-    """One rule for rows 1-7: 1 <= D <= 128. Rows 8-13 keep theirs: the
-    window route and the fused block take only their tiles' head dims."""
-    assert tfa.attention_head_dim_supported(d) == (1 <= d <= 128)
-    assert tfa.ATTENTION_HEAD_DIM_RULE == "1 <= D <= 128"
+    """One rule for rows 1-7: every D >= 1 (above 128 the wide kernels;
+    tests/test_torch_port_head_dims_wide.py). Rows 8-13 keep theirs: the
+    fused block takes only its tiles' head dims, the window route those of
+    the JAX window plans (dh <= 64 dividing 128)."""
+    assert tfa.attention_head_dim_supported(d) == (d >= 1)
+    assert tfa.ATTENTION_HEAD_DIM_RULE == "D >= 1"
     if d == 0:  # no head dim at all: refused on every device
         z = torch.zeros(1, 1, 4, 0)
-        with pytest.raises(ValueError, match="1 <= D <= 128"):
+        with pytest.raises(ValueError, match="D >= 1"):
             tfa.flash_attention_fwd(z, z, z)
-        with pytest.raises(ValueError, match="1 <= D <= 128"):
+        with pytest.raises(ValueError, match="D >= 1"):
             tfa.packed_flash_attention_fwd(torch.zeros(1, 4, 0), 2)
-    tiled = d in tfa.TILE_HEAD_DIMS
-    assert tfa.fused_block_supported(2 * d, 2) == tiled
-    if tiled:
+    assert tfa.fused_block_supported(2 * d, 2) == (d in tfa.TILE_HEAD_DIMS)
+    if d in tfa.WINDOW_HEAD_DIMS:
         assert tfa.window_route(torch.bfloat16, 49, d) == "tensor_cores"
     else:
         with pytest.raises(ValueError, match="head dim"):

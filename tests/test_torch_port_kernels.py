@@ -652,7 +652,8 @@ def test_fused_window_section_stride(cuda):
 def test_window_kernels_are_forward_only_on_cuda(cuda):
     """They were, until the shared backward kernel: now a recorded gradient
     goes through ``window_attention_bwd``, once per backward; ``out=`` stays
-    a forward-only convenience."""
+    a forward-only convenience. A head dim outside the JAX window plans
+    (24) raises before any launch."""
     qkv = torch.from_numpy(_randn(46, 4, 16, 3 * 2 * 16)).to(cuda)
     qkv.requires_grad_()
     for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
@@ -676,9 +677,10 @@ def test_window_kernels_are_forward_only_on_cuda(cuda):
                                            1, 8, 8, 32, device=cuda))
     with torch.no_grad():  # a leaf that needs a gradient, but none recorded
         assert tfa.window_packed_attention(qkv, None, 2).shape == (4, 16, 32)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.window_packed_attention(torch.zeros(4, 16, 3 * 2 * 8, device=cuda),
-                                    None, 2)
+    with pytest.raises(ValueError, match="head dim"):  # 24 divides no 128
+        tfa.window_packed_attention(
+            torch.zeros(4, 16, 3 * 2 * 24, device=cuda), None, 2,
+            plan=(1, 32))
 
 
 # The window backward against its plain version: dqkv, in bf16 to
@@ -831,7 +833,7 @@ def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
 @pytest.mark.cuda
 def test_unported_paths_raise_on_cuda(cuda):
     """What the kernels refuse on the card: a bias on the streaming route
-    (a key-padding mask, or Sq·Sk > 1.5 M), a head dim above 128, and a
+    (a key-padding mask, or Sq·Sk > 1.5 M), a head dim of 0, and a
     small-S backward whose group does not fit a block's shared memory. A
     key-padding mask at rate 0 and a large bias-free S now launch the
     streaming kernel."""
@@ -848,9 +850,8 @@ def test_unported_paths_raise_on_cuda(cuda):
     tattn.dot_product_attention(q, q, q, mask=keep[:, None, None, :])
     tfa.flash_attention(big, big, big)
     assert tfa.LAUNCHES["flash_attention_large"] == 2
-    with pytest.raises(ValueError, match="head dim 129"):
-        tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 129,
-                                               device=cuda), 2)
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.packed_flash_attention(torch.zeros(1, 4, 0, device=cuda), 2)
     wide = torch.zeros(1, 1, 4, 64, device=cuda)
     long_k = torch.zeros(1, 1, 1000, 64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -1120,8 +1121,9 @@ def test_packed_backward_tensor_cores_at_path_shapes(cuda, rate, b, s, heads,
 @pytest.mark.cuda
 def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
     """Row 7 takes bf16 (the tensor cores) and fp32 (the CUDA cores) at
-    every head dim from 1 to 128 (dh 80 launches its padded kernels); a
-    float16 operand or head dim 129 raises before any launch. Rows 7 and 8
+    every head dim (dh 80 launches its padded kernels, dh 129 its wide
+    ones); a float16 operand or head dim 0 raises before any launch. Rows 7
+    and 8
     on the tensor cores copy 16 bytes at a time: a bf16 operand 2 bytes off
     raises. Nothing falls back."""
     bf16 = torch.bfloat16
@@ -1142,9 +1144,15 @@ def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
     assert _build.launched() == {"packed_bwd_dq_mma_padded_kernel": 1,
                                  "packed_bwd_dkv_mma_padded_kernel": 1}
     wider = torch.zeros(b, s, 3 * 129, device=cuda, dtype=bf16)
-    with pytest.raises(ValueError, match="head dim 129"):
-        tfa.packed_flash_attention_bwd(wider, wider[..., :129],
-                                       wider[..., :129], lse[..., :1], 1)
+    w_out, w_lse = tfa.packed_flash_attention_fwd(wider, 1)
+    _build.reset_launched()
+    tfa.packed_flash_attention_bwd(wider, w_out, w_out, w_lse, 1)
+    torch.cuda.synchronize()
+    assert _build.launched() == {"packed_bwd_dq_mma_wide_kernel": 1,
+                                 "packed_bwd_dkv_mma_wide_kernel": 1}
+    empty = torch.zeros(b, s, 0, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.packed_flash_attention_bwd(empty, empty, empty, lse[..., :1], 1)
     off = torch.zeros(qkv.numel() + 8, device=cuda, dtype=bf16)
     with pytest.raises(RuntimeError, match="misaligned"):
         tfa.packed_flash_attention_bwd(off[1:1 + qkv.numel()].view_as(qkv),
@@ -1346,10 +1354,10 @@ def test_bf16_padded_operands_at_odd_row_offsets(cuda, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_head_rule_refuses_other_dims(cuda, dtype):
-    """Rows 1-7 take 1 <= D <= 128 and refuse D 0 and 129 before any launch,
-    naming their rule; D 65 and 96 (once refused by rows 2, 5 and 6) and
-    D 12 (once refused by row 1) launch."""
-    for d in (0, 129):
+    """Rows 1-7 take every D >= 1 and refuse D 0 before any launch, naming
+    their rule; D 65 and 96 (once refused by rows 2, 5 and 6), D 12 (once
+    refused by row 1) and D 129 (once refused by all) launch."""
+    for d in (0,):
         q = torch.zeros(1, 1, 8, d, device=cuda, dtype=dtype)
         calls = (
             lambda: tfa.flash_attention_fwd(q, q, q),
@@ -1361,18 +1369,18 @@ def test_split_head_rule_refuses_other_dims(cuda, dtype):
             lambda: tfa.packed_flash_attention_fwd(
                 torch.zeros(1, 8, 3 * 2 * d, device=cuda, dtype=dtype), 2))
         for call in calls:
-            with pytest.raises(ValueError, match=r"1 <= D <= 128"):
+            with pytest.raises(ValueError, match=r"D >= 1"):
                 call()
     tfa.reset_launch_counts()
-    for d in (65, 96):
+    for d in (65, 96, 129):
         q = torch.zeros(1, 1, 8, d, device=cuda, dtype=dtype)
         tfa.flash_attention_fwd(q, q, q)
         tfa.flash_dropout_attention_fwd(q, q, q, dropout_rate=0.1, seed=1)
     tfa.packed_flash_attention(torch.zeros(1, 4, 3 * 2 * 12, device=cuda,
                                            dtype=dtype), 2)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES["flash_attention"] == 2
-    assert tfa.LAUNCHES["dropout_attention_fwd"] == 2
+    assert tfa.LAUNCHES["flash_attention"] == 3
+    assert tfa.LAUNCHES["dropout_attention_fwd"] == 3
     assert tfa.LAUNCHES["packed_attention"] == 1
 
 
@@ -1496,3 +1504,249 @@ def test_split_head_128_tile_copy_grain_follows_the_head_dim(cuda, d, offset,
             continue
         want, got = fn(*aligned), fn(*moved)
         assert all(torch.equal(a, g) for a, g in zip(want, got))
+
+
+# Rows 1-7 above head dim 128 (csrc/attention_wide_tile.cuh: D split across
+# the grid in chunks): every wrapper against its plain version, by kernel
+# name, at D 129 and 200 (an odd D: 2-byte copies; an even one: 4-byte), 160
+# (a multiple of 8 not of 128: 16-byte copies, a half-empty last chunk), 256
+# (ViT-B/16's widths at 3 heads) and 512. Forward outputs NaN-filled, reruns
+# bit-equal, at the limits of the D <= 128 kernels.
+_WIDE_DIMS = [129, 160, 200, 256, 512]
+
+
+def _wide(name, dtype):
+    """The wide kernel of ``name`` (the bf16 one's stem) in ``dtype``."""
+    return name.replace("_mma", "" if dtype == torch.float32 else "_mma") \
+        .replace("_kernel", "_wide_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", _WIDE_DIMS)
+def test_wide_packed_kernels_match_plain(cuda, dtype, rate, d):
+    """Rows 1 and 7 above D 128: out, lse and dqkv against the plain
+    versions; at rate 0.1 the next seed's mask is another function, so the
+    mask every chunk block draws is the plain version's."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, s, heads = 2, 70, 2
+    qkv = torch.from_numpy(_randn(90, b, s, 3 * heads * d)).to(cuda, dtype)
+    do = torch.from_numpy(_randn(91, b, s, heads * d)).to(cuda, dtype)
+    kw = dict(dropout_rate=rate, seed=7, kv_valid=66)
+    _build.reset_launched()
+    out, lse = tfa.packed_flash_attention_fwd(
+        qkv, heads, **kw, **_nan_filled(b, s, heads, d, dtype, cuda))
+    dqkv = tfa.packed_flash_attention_bwd(
+        qkv, do, out, lse, heads, **kw,
+        dqkv=torch.full_like(qkv, float("nan")))
+    torch.cuda.synchronize()
+    assert _build.launched() == {
+        _wide(n, dtype): 1 for n in ("packed_fwd_mma_kernel",
+                                     "packed_bwd_dq_mma_kernel",
+                                     "packed_bwd_dkv_mma_kernel")}
+    ref, ref_lse = tfa.packed_flash_attention_reference(qkv, heads, **kw)
+    assert not bool(out.isnan().any()) and not bool(dqkv.isnan().any())
+    assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    dref = tfa.packed_flash_attention_bwd_reference(qkv, do, out, lse, heads,
+                                                    **kw)
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
+    assert _grad_close(dqkv, dref, dtype, tol)
+    again = tfa.packed_flash_attention_fwd(qkv, heads, **kw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert torch.equal(tfa.packed_flash_attention_bwd(qkv, do, out, lse,
+                                                      heads, **kw), dqkv)
+    if rate > 0:
+        other, _ = tfa.packed_flash_attention_reference(
+            qkv, heads, dropout_rate=rate, seed=8, kv_valid=66)
+        assert (out.float() - other.float()).abs().max().item() > \
+            _KERNEL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", _WIDE_DIMS)
+def test_wide_split_head_kernels_match_plain(cuda, dtype, d):
+    """Rows 2 (a bias), 3 (a key-padding mask) and 5/6 (dropout 0.1 and a
+    key mask) above D 128: outputs, lse and gradients against the plain
+    versions, each on its wide kernel."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, h, sq, sk, kv_valid = 2, 2, 70, 90, 85
+    q = torch.from_numpy(_randn(92, b, h, sq, d)).to(cuda, dtype)
+    k = torch.from_numpy(_randn(93, b, h, sk, d)).to(cuda, dtype)
+    v = torch.from_numpy(_randn(94, b, h, sk, d)).to(cuda, dtype)
+    do = torch.from_numpy(_randn(95, b, h, sq, d)).to(cuda, dtype)
+    bias = torch.from_numpy(_randn(96, 1, h, sq, sk)).to(cuda)
+    mask = torch.from_numpy(_masks(b, sk)).to(cuda)
+    for kind in ("bias", "large"):
+        _build.reset_launched()
+        if kind == "bias":
+            out, lse = tfa.flash_attention_fwd(
+                q, k, v, bias, kv_valid=kv_valid,
+                out=torch.full_like(q, float("nan")))
+            ref, ref_lse = tfa.flash_attention_reference(q, k, v, bias,
+                                                         kv_valid=kv_valid)
+            want = {_wide("flash_fwd_mma_kernel", dtype): 1}
+        else:
+            out, lse = tfa.flash_attention_large_fwd(
+                q, k, v, kv_mask=mask, kv_valid=kv_valid,
+                out=torch.full_like(q, float("nan")))
+            ref, ref_lse = tfa.flash_attention_large_reference(
+                q, k, v, kv_mask=mask, kv_valid=kv_valid)
+            want = {_wide("flash_large_mma_kernel", dtype): 1}
+        torch.cuda.synchronize()
+        assert _build.launched() == want
+        assert not bool(out.isnan().any())
+        assert (out.float() - ref.float()).abs().max().item() <= \
+            _KERNEL_TOL[dtype]
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
+    kw = dict(dropout_rate=0.1, seed=99, kv_valid=kv_valid, key_mask=mask)
+    _build.reset_launched()
+    out, lse = tfa.flash_dropout_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert _build.launched() == {
+        _wide(n, dtype): 1 for n in ("drop_fwd_mma_kernel",
+                                     "drop_bwd_dq_mma_kernel",
+                                     "drop_bwd_dkv_mma_kernel")}
+    ref, ref_lse = tfa.flash_dropout_attention_reference(q, k, v, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= _KERNEL_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    want = tfa.flash_dropout_attention_bwd_reference(q, k, v, do, out, lse,
+                                                     **kw)
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
+    for g, w in zip(grads, want):
+        assert _grad_close(g, w, dtype, tol)
+    again = tfa.flash_dropout_attention_bwd(q, k, v, do, out, lse, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", _WIDE_DIMS)
+def test_wide_small_s_backward_matches_plain(cuda, dtype, d):
+    """Row 4 above D 128 within its rule (``flash_bwd_smem_bytes``, a
+    block's shared memory): dq, dk, dv against the plain version on the wide
+    passes at the largest S the rule admits, and a ValueError one step past
+    it (at D 512 the rule admits no shape)."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    fits = [s for s in range(8, 200, 8) if tfa.flash_bwd_supported(s, s, d)]
+    past = (fits[-1] if fits else 0) + 32
+    big = torch.zeros(1, 1, past, d, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfa.flash_attention_bwd(big, big, big, big,
+                                torch.zeros(1, 1, past, device=cuda), big)
+    if not fits:
+        assert d >= 437
+        return
+    s = fits[-1]
+    q, k, v, do = (torch.from_numpy(_randn(97 + i, 2, 2, s, d)).to(cuda, dtype)
+                   for i in range(4))
+    out, lse = tfa.flash_attention_fwd(q, k, v, kv_valid=s - 3)
+    _build.reset_launched()
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=s - 3)
+    torch.cuda.synchronize()
+    assert _build.launched() == {
+        _wide(n, dtype): 1 for n in ("flash_bwd_dq_mma_kernel",
+                                     "flash_bwd_dkv_mma_kernel")}
+    want = tfa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                             kv_valid=s - 3)
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
+    for g, w in zip(got, want):
+        assert _grad_close(g, w, dtype, tol)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, kv_valid=s - 3)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# The window rows 9-13 at dh 1, 2, 4 and 8 (bf16 the tensor-core kernels in
+# the 16 tile, the columns past dh zero; fp32 the CUDA-core kernels
+# instantiated at dh), at Swin-T's stage shapes with 4× its heads (dh 8) and narrower heads.
+_NARROW_WINDOW_SHAPES = [
+    # g, n, heads, dh, nW'
+    (256, 49, 12, 8, 64),   # Swin-T stage 1 at 4× heads, shifted
+    (64, 49, 24, 8, 16),    # stage 2
+    (10, 49, 96, 8, 1),     # stage 4
+    (64, 49, 6, 4, 16),
+    (37, 49, 3, 2, 1),      # 6-byte sections: 4-byte copies
+    (15, 49, 3, 1, 3),      # 3-element sections: 2-byte loads
+]
+
+
+def _narrow_name(fn, dtype):
+    return _WINDOW_ROUTE_NAMES[(fn, dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,heads,dh,nwp", _NARROW_WINDOW_SHAPES)
+def test_window_kernels_narrow_head_dims_match_plain(cuda, dtype, g, n,
+                                                     heads, dh, nwp):
+    """Rows 9, 10 and 11 at dh 1-8: the packed and batched forwards and the
+    backward against their plain versions (dqkv NaN-filled), by kernel
+    name, reruns bit-equal."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    qkv, bias = _window_inputs(cuda, dtype, g, n, heads, dh, nwp)
+    for fn in ("window_packed_attention", "window_batched_attention"):
+        _build.reset_launched()
+        out = getattr(tfa, fn)(qkv, bias, heads)
+        torch.cuda.synchronize()
+        assert _build.launched() == {_narrow_name(fn, dtype): 1}
+        ref = tfa.window_attention_reference(qkv, bias, heads)
+        assert _window_close(out, ref, dtype)
+        assert torch.equal(getattr(tfa, fn)(qkv, bias, heads), out)
+    do = torch.from_numpy(_randn(48, g, n, heads * dh)).to(cuda, dtype)
+    ref, ref_db = tfa.window_attention_bwd_reference(qkv, bias, do, heads)
+    _build.reset_launched()
+    got, got_db = tfa.window_attention_bwd(
+        qkv, bias, do, heads, dqkv=torch.full_like(qkv, float("nan")))
+    torch.cuda.synchronize()
+    assert _build.launched() == {
+        _narrow_name("window_attention_bwd", dtype): 1}
+    assert not bool(torch.isnan(got.float()).any())
+    tol = _WINDOW_GRAD_TOL if dtype == torch.bfloat16 else None
+    assert _grad_close(got, ref, dtype, tol)
+    again, again_db = tfa.window_attention_bwd(qkv, bias, do, heads)
+    assert torch.equal(got, again)
+    if bias is not None:
+        assert _grad_close(got_db, ref_db, dtype, tol)
+        assert torch.equal(got_db, again_db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,shift,heads,dh", [
+    (56, 3, 12, 8),   # Swin-T stage 1 at 4× heads: the slab kernel
+    (28, 3, 24, 8),   # stage 2: the flat one
+    (28, 3, 6, 2), (56, 0, 3, 1), (28, 3, 6, 4)])
+def test_fused_window_kernels_narrow_head_dims_match_plain(cuda, dtype, hw,
+                                                           shift, heads, dh):
+    """Rows 12 and 13 at dh 1-8 on Swin-T's maps (window 7, per-window bias
+    where shifted): each plan the map has into a NaN-filled out, by kernel
+    name, reruns bit-equal."""
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, win = 2, 7
+    nwp = (hw // win) ** 2 if shift else 1
+    qkv = torch.from_numpy(_randn(42, b, hw, hw, 3 * heads * dh)).to(cuda,
+                                                                   dtype)
+    bias = torch.from_numpy(_randn(43, nwp, heads, 49, 49)).to(cuda)
+    ref = tfa.window_fused_reference(qkv, bias, heads, (win, win),
+                                     (shift, shift))
+    for plan in _fused_plans(b, hw, hw, win, heads, dh, nwp):
+        kind = plan[0]
+        out = torch.full(ref.shape, float("nan"), device=cuda, dtype=dtype)
+        _build.reset_launched()
+        tfa.fused_window_attention(qkv, bias, heads, (win, win),
+                                   (shift, shift), plan=plan, out=out)
+        torch.cuda.synchronize()
+        assert _build.launched() == {_narrow_name(
+            f"window_fused_{kind}_attention", dtype): 1}
+        assert not bool(torch.isnan(out.float()).any())
+        assert _window_close(out, ref, dtype)
+        assert torch.equal(tfa.fused_window_attention(
+            qkv, bias, heads, (win, win), (shift, shift), plan=plan), out)

@@ -77,7 +77,7 @@
 //     lane % 4 hold keys 4a .. 4a+3 and 8+4a .. 8+4a+3 of query columns
 //     c, c+1: four calls, one per lane, gathered by __shfl_xor_sync 4 and 8.
 //
-// Other head dims (rows 4, 6 and 7 take any d from 1 to 128;
+// Other head dims up to 128 (above it attention_wide_tile.cuh;
 // attention_mma_tile.cuh): D 128 keeps the streamed K/V (pass 1) or Q/dO
 // (pass 2) buffers, 68 KB, in dynamic shared memory; a head dim d not 16,
 // 32, 64 or 128 runs in the next tile under the Padded layout (rows 4 and 6;

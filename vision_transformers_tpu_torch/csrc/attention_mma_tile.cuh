@@ -110,7 +110,7 @@
 // and 5 round p (row 5: p·(1/(1 − rate))) unnormalised and divide at the
 // end: within one bf16 step of their plain versions, not bit-equal.
 //
-// Other head dims (rows 1-7 take any d from 1 to 128): D 128 is an
+// Other head dims up to 128 (above it attention_wide_tile.cuh): D 128 is an
 // instantiation of its own (one A tile a warp, its K/V buffers, 68 KB, in
 // dynamic shared memory). A head dim d not 16, 32, 64 or 128 runs in the
 // next tile (16, 32, 64 or 128) under the Padded layout: (G, S, d) groups

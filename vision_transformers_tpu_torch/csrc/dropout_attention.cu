@@ -54,7 +54,11 @@
 // written (the *_padded_kernel kernels, on attention_mma_tile.cuh's
 // GroupPad layouts; a bf16 operand aligned as align_mask(D) says: 4 bytes for
 // an even D below 64, the PaddedStrided grain in the 128 tile, 16 bytes for D
-// 80); the fp32 partials of a split dk/dv pass then have rows D apart.
+// 80); the fp32 partials of a split dk/dv pass then have rows D apart. A D
+// above 128 (ViT-B/16's widths at 3 heads, D 256, at 448 px) takes the
+// *_wide_kernel kernels (attention_wide_tile.cuh: D split across grid z,
+// each block's scores summed over every chunk; the forward's skipped tiles
+// and tile counts kept; the dk/dv pass never split, part unused).
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
@@ -62,6 +66,7 @@
 #include "attention_bwd_tile.cuh"
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_mma_tile.cuh"
+#include "attention_wide_tile.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -341,6 +346,180 @@ drop_bwd_dkv_mma_padded_kernel(const bf16* __restrict__ q,
       sq, sk, kv_valid, scale, drop, blockIdx.x, vtt::mma::group_pad<D>(d));
 }
 
+// ---- head dims above 128: attention_wide_tile.cuh's split of d across grid
+// z, contiguous (G, S, d) groups; the dk/dv pass is not split along its
+// query loop (its grid has ceil(d / 64) times the blocks already).
+
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_fwd_mma_wide_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ kmask,
+                         bf16* __restrict__ out, float* __restrict__ lse,
+                         int heads, int sq, int sk, int kv_valid, float scale,
+                         vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide_mma<vtt::mma::KeyMask::AddFloat, true>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, nullptr, out + g * sq * d,
+      lse + g * sq, sq, sk, kv_valid, scale, group_mask(kmask, heads, sk),
+      drop, blockIdx.x, tile_counts, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ kmask, float* __restrict__ out,
+                     float* __restrict__ lse, int heads, int sq, int sk,
+                     int kv_valid, float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide<vtt::mma::KeyMask::AddFloat>(
+      blockIdx.y * vtt::kBlockQ, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, nullptr, group_mask(kmask, heads, sk),
+      out + g * sq * d, lse + g * sq, sq, sk, kv_valid, scale, drop,
+      blockIdx.x, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_bwd_dq_mma_wide_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const float* __restrict__ kmask,
+                            const bf16* __restrict__ dout,
+                            const bf16* __restrict__ out,
+                            const float* __restrict__ lse,
+                            bf16* __restrict__ dq, float* __restrict__ delta,
+                            int heads, int sq, int sk, int kv_valid,
+                            float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dq_rows_wide_mma<true, vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, dout + g * sq * d, out + g * sq * d,
+      lse + g * sq, group_mask(kmask, heads, sk), dq + g * sq * d,
+      delta + g * sq, sq, sk, kv_valid, scale, drop, blockIdx.x,
+      vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+drop_bwd_dkv_mma_wide_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const float* __restrict__ kmask,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int heads, int sq, int sk, int kv_valid,
+                             float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dkv_rows_wide_mma<true, vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, dout + g * sq * d, lse + g * sq,
+      delta + g * sq, group_mask(kmask, heads, sk), dk + g * sk * d,
+      dv + g * sk * d, sq, sk, kv_valid, scale, drop, blockIdx.x,
+      vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_bwd_dq_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ kmask,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ out,
+                        const float* __restrict__ lse, float* __restrict__ dq,
+                        float* __restrict__ delta, int heads, int sq, int sk,
+                        int kv_valid, float scale, vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dq_rows_wide<vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::kBlockQ, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, out + g * sq * d, lse + g * sq,
+      group_mask(kmask, heads, sk), dq + g * sq * d, delta + g * sq, sq, sk,
+      kv_valid, scale, drop, blockIdx.x, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+drop_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ kmask,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int heads, int sq, int sk, int kv_valid, float scale,
+                         vtt::Dropout drop, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dkv_rows_wide<vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::kBlockK, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, lse + g * sq, delta + g * sq,
+      group_mask(kmask, heads, sk), dk + g * sk * d, dv + g * sk * d, sq, sk,
+      kv_valid, scale, drop, blockIdx.x, vtt::wide::Rows{d, d, d, 1});
+}
+
+int launch_wide(const Args& a, bool backward, int is_bf16) {
+  const int d = a.d;
+  const auto* kmask = static_cast<const float*>(a.kmask);
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* delta = static_cast<float*>(a.delta);
+  int rc;
+  if (is_bf16) {
+    const auto* q = static_cast<const bf16*>(a.q);
+    const auto* k = static_cast<const bf16*>(a.k);
+    const auto* v = static_cast<const bf16*>(a.v);
+    const int nc = vtt::wide::chunks(d, vtt::wide::kW);
+    const dim3 grid_q(a.g, (a.sq + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                      nc);
+    if (!backward) {
+      drop_fwd_mma_wide_kernel<<<grid_q, vtt::mma::kThreads, 0, a.stream>>>(
+          q, k, v, kmask, static_cast<bf16*>(const_cast<void*>(a.out)),
+          static_cast<float*>(const_cast<void*>(a.lse)), a.heads, a.sq, a.sk,
+          a.kv_valid, a.scale, a.drop, d);
+      return vtt::launched("drop_fwd_mma_wide_kernel");
+    }
+    const auto* dout = static_cast<const bf16*>(a.dout);
+    drop_bwd_dq_mma_wide_kernel<<<grid_q, vtt::mma::kThreads, 0, a.stream>>>(
+        q, k, v, kmask, dout, static_cast<const bf16*>(a.out), lse,
+        static_cast<bf16*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+        a.scale, a.drop, d);
+    rc = vtt::launched("drop_bwd_dq_mma_wide_kernel");
+    if (rc != 0) return rc;
+    const dim3 grid_k(a.g, (a.sk + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                      vtt::wide::chunks(d, vtt::wide::kWkv));
+    drop_bwd_dkv_mma_wide_kernel<<<grid_k, vtt::mma::kThreads, 0,
+                                   a.stream>>>(
+        q, k, v, kmask, dout, lse, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+        a.drop, d);
+    return vtt::launched("drop_bwd_dkv_mma_wide_kernel");
+  }
+  const auto* q = static_cast<const float*>(a.q);
+  const auto* k = static_cast<const float*>(a.k);
+  const auto* v = static_cast<const float*>(a.v);
+  const int nc = vtt::wide::chunks(d, vtt::wide::kFW);
+  const dim3 grid_q(a.g, (a.sq + vtt::kBlockQ - 1) / vtt::kBlockQ, nc);
+  if (!backward) {
+    drop_fwd_wide_kernel<<<grid_q, vtt::kThreads, 0, a.stream>>>(
+        q, k, v, kmask, static_cast<float*>(const_cast<void*>(a.out)),
+        static_cast<float*>(const_cast<void*>(a.lse)), a.heads, a.sq, a.sk,
+        a.kv_valid, a.scale, a.drop, d);
+    return vtt::launched("drop_fwd_wide_kernel");
+  }
+  const auto* dout = static_cast<const float*>(a.dout);
+  drop_bwd_dq_wide_kernel<<<grid_q, vtt::kThreads, 0, a.stream>>>(
+      q, k, v, kmask, dout, static_cast<const float*>(a.out), lse,
+      static_cast<float*>(a.dq), delta, a.heads, a.sq, a.sk, a.kv_valid,
+      a.scale, a.drop, d);
+  rc = vtt::launched("drop_bwd_dq_wide_kernel");
+  if (rc != 0) return rc;
+  const dim3 grid_k(a.g, (a.sk + vtt::kBlockK - 1) / vtt::kBlockK, nc);
+  drop_bwd_dkv_wide_kernel<<<grid_k, vtt::kThreads, 0, a.stream>>>(
+      q, k, v, kmask, dout, lse, delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.heads, a.sq, a.sk, a.kv_valid, a.scale,
+      a.drop, d);
+  return vtt::launched("drop_bwd_dkv_wide_kernel");
+}
+
 // kPad: the head dim a.d runs in the tile of width D (a.d < D).
 template <int D, bool kPad>
 int launch_bwd_mma(const Args& a) {
@@ -529,8 +708,9 @@ int dispatch_d(const Args& a, bool backward) {
     case 64: return launch_dir<T, 64, false>(a, backward);
     case 128: return launch_dir<T, 128, false>(a, backward);
     default:
-      if (a.d < 1 || a.d > 128)
-        return static_cast<int>(cudaErrorInvalidValue);
+      if (a.d < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (a.d > 128)
+        return launch_wide(a, backward, std::is_same_v<T, bf16>);
       return a.d < 16   ? launch_dir<T, 16, true>(a, backward)
              : a.d < 32 ? launch_dir<T, 32, true>(a, backward)
              : a.d < 64 ? launch_dir<T, 64, true>(a, backward)
@@ -566,7 +746,7 @@ extern "C" {
 // forward skips the tiles past the last one that holds a key < kv_valid
 // whose value is 0). is_bf16: 1 = bf16, 0 = fp32. drop_thresh =
 // min(int(rate·2^32), 2^32 − 1), 0 for no dropout; inv_keep = 1/(1 − rate);
-// seed: the mask's 64-bit seed. d: 1-128.
+// seed: the mask's 64-bit seed. d >= 1.
 // A bf16 q, k, v or out off its copies' grain (attention_mma_tile.cuh's
 // align_mask(d)) is refused (cudaErrorMisalignedAddress).
 int dropout_attention_fwd(const void* q, const void* k, const void* v,
@@ -585,7 +765,7 @@ int dropout_attention_fwd(const void* q, const void* k, const void* v,
 // delta: fp32 scratch of G·Sq elements (δ = rowsum(do ⊙ out), written by the
 // first pass and read by the second). bf16 only: part, null or fp32 scratch
 // of 2·chunks·G·Sk·d elements, splits the dk/dv pass's query loop into
-// `chunks` ranges (1 = no split, part may be null). A bf16 q, k, v, do, out,
+// `chunks` ranges (1 = no split, part may be null; d > 128 never splits). A bf16 q, k, v, do, out,
 // dq, dk or dv that is not 16-byte aligned is refused
 // (cudaErrorMisalignedAddress).
 int dropout_attention_bwd(const void* q, const void* k, const void* v,

@@ -30,11 +30,15 @@
 // flash_fwd_mma_padded_kernel (bf16, attention_mma_tile.cuh's GroupPad
 // layouts: Padded below 128, a bf16 operand 4-byte aligned for an even D;
 // the 128 tile in dynamic shared memory with PaddedStrided's copies, 16-byte
-// aligned for D a multiple of 8) and flash_fwd_padded_kernel (fp32).
+// aligned for D a multiple of 8) and flash_fwd_padded_kernel (fp32). A D
+// above 128 takes flash_fwd_mma_wide_kernel / flash_fwd_wide_kernel
+// (attention_wide_tile.cuh: D split across grid z, each block's scores
+// summed over every chunk of q and k).
 #include <cstdint>
 #include <type_traits>
 
 #include "attention_mma_tile.cuh"
+#include "attention_wide_tile.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -113,6 +117,71 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                kv_valid, scale);
 }
 
+// Any head dim d above 128: attention_wide_tile.cuh's split of d across grid
+// z, contiguous (G, S, d) groups.
+__device__ __forceinline__ const float* group_bias(const float* bias,
+                                                  int bias_g, int sq,
+                                                  int sk) {
+  return bias == nullptr
+      ? nullptr
+      : bias + (blockIdx.x % bias_g) * static_cast<long long>(sq) * sk;
+}
+
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+flash_fwd_mma_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int sq, int sk,
+                          int bias_g, int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide_mma<vtt::mma::KeyMask::NoMask, false>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, group_bias(bias, bias_g, sq, sk),
+      out + g * sq * d, lse + g * sq, sq, sk, kv_valid, scale, nullptr,
+      vtt::Dropout{}, 0u, nullptr, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      float* __restrict__ lse, int sq, int sk, int bias_g,
+                      int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide<vtt::mma::KeyMask::NoMask>(
+      blockIdx.y * vtt::kBlockQ, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, group_bias(bias, bias_g, sq, sk), nullptr,
+      out + g * sq * d, lse + g * sq, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, vtt::wide::Rows{d, d, d, 1});
+}
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* bias, void* out, void* lse, int g, int sq, int sk,
+                int d, int bias_g, int kv_valid, float scale, int is_bf16,
+                cudaStream_t stream) {
+  const auto* b_ = static_cast<const float*>(bias);
+  auto* l_ = static_cast<float*>(lse);
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    const dim3 grid(g, (sq + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                    vtt::wide::chunks(d, vtt::wide::kW));
+    flash_fwd_mma_wide_kernel<<<grid, vtt::mma::kThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), b_, static_cast<bf16*>(out), l_, sq, sk,
+        bias_g, kv_valid, scale, d);
+    return vtt::launched("flash_fwd_mma_wide_kernel");
+  }
+  const dim3 grid(g, (sq + vtt::kBlockQ - 1) / vtt::kBlockQ,
+                  vtt::wide::chunks(d, vtt::wide::kFW));
+  flash_fwd_wide_kernel<<<grid, vtt::kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), b_, static_cast<float*>(out), l_, sq, sk,
+      bias_g, kv_valid, scale, d);
+  return vtt::launched("flash_fwd_wide_kernel");
+}
+
 // kPad: the head dim d runs in the tile of width D (d < D).
 template <typename T, int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, const void* bias,
@@ -178,7 +247,11 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
     case 64: return VTT_LAUNCH(64, false);
     case 128: return VTT_LAUNCH(128, false);
     default:
-      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (d > 128)
+        return launch_wide(q, k, v, bias, out, lse, g, sq, sk, d, bias_g,
+                           kv_valid, scale,
+                           std::is_same_v<T, __nv_bfloat16>, stream);
       return d < 16   ? VTT_LAUNCH(16, true)
              : d < 32 ? VTT_LAUNCH(32, true)
              : d < 64 ? VTT_LAUNCH(64, true) : VTT_LAUNCH(128, true);
@@ -191,7 +264,7 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
 extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. bias may be null (then bias_g
-// is ignored). is_bf16: 1 = bf16, 0 = fp32. d: 1-128. A bf16 q, k, v
+// is ignored). is_bf16: 1 = bf16, 0 = fp32. d >= 1. A bf16 q, k, v
 // or out off its copies' grain (align_mask(d): 16 bytes at D 16, 32, 64,
 // 128 and a multiple of 8 above 64, 4 at another even D, none at an odd D) is refused (cudaErrorMisalignedAddress): the
 // tensor-core route reads them with copies of that width.

@@ -59,7 +59,14 @@
 // flash_attention.py::flash_bwd_smem_bytes, is the fp32 kernel's footprint;
 // the bf16 passes take at most 71 KB whatever the shape (the 128 tile's four
 // 17 KB tile buffers and the staged lse and δ), under a block's 227 KB, so
-// every shape the rule admits runs on both routes.
+// every shape the rule admits runs on both routes. A D above 128 takes
+// flash_bwd_{dq,dkv}_mma_wide_kernel (bf16) or flash_bwd_{dq,dkv}_wide_kernel
+// (fp32): attention_wide_tile.cuh's two passes under ScaledGrads, D split
+// across grid z, at most 27 KB of shared memory a block whatever the shape.
+// The rule stays the entry's contract there too, unchanged: at D 256 it
+// admits Sq, Sk <= 64, and from D 437 on no shape at all (one 32-row tile
+// of K, V, q and do as fp32 already passes 227 KB), so those backwards take
+// row 6 at rate 0.
 //
 // What bounds it on the H100 (ViT-B/16 @224, batch 32: G = 384, S = 197,
 // D = 64, bf16): 10·G·S²·D = 9.5 GFLOP, 9.6 µs at 989 TFLOP/s, against
@@ -71,6 +78,7 @@
 
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_tile.cuh"
+#include "attention_wide_tile.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -413,6 +421,82 @@ flash_bwd_dkv_mma_padded_kernel(const bf16* __restrict__ q,
       vtt::make_dropout(0u, 1.f, 0ull), 0u, mm::group_pad<D>(d));
 }
 
+// ---- head dims above 128 (both dtypes): attention_wide_tile.cuh's two
+// passes under ScaledGrads, d split across grid z; delta is the dq pass's
+// scratch for the dk/dv pass in fp32 too.
+
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dq_mma_wide_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const bf16* __restrict__ out,
+                             const float* __restrict__ lse,
+                             bf16* __restrict__ dq, float* __restrict__ delta,
+                             int sq, int sk, int kv_valid, float scale,
+                             int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dq_rows_wide_mma<false, mm::ScaledGrads>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, dout + g * sq * d, out + g * sq * d,
+      lse + g * sq, nullptr, dq + g * sq * d, delta + g * sq, sq, sk,
+      kv_valid, scale, vtt::make_dropout(0u, 1.f, 0ull), 0u,
+      vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(mm::kThreads)
+flash_bwd_dkv_mma_wide_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int sq, int sk, int kv_valid, float scale,
+                              int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dkv_rows_wide_mma<false, mm::ScaledGrads>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, dout + g * sq * d, lse + g * sq,
+      delta + g * sq, nullptr, dk + g * sk * d, dv + g * sk * d, sq, sk,
+      kv_valid, scale, vtt::make_dropout(0u, 1.f, 0ull), 0u,
+      vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ out,
+                         const float* __restrict__ lse, float* __restrict__ dq,
+                         float* __restrict__ delta, int sq, int sk,
+                         int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dq_rows_wide<mm::ScaledGrads>(
+      blockIdx.y * kBlockQ, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, out + g * sq * d, lse + g * sq,
+      nullptr, dq + g * sq * d, delta + g * sq, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int sq, int sk, int kv_valid, float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::bwd_dkv_rows_wide<mm::ScaledGrads>(
+      blockIdx.y * kBlockK, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, dout + g * sq * d, lse + g * sq, delta + g * sq,
+      nullptr, dk + g * sk * d, dv + g * sk * d, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, vtt::wide::Rows{d, d, d, 1});
+}
+
 struct Args {
   const void *q, *k, *v, *out, *lse, *dout;
   void *dq, *dk, *dv, *delta;
@@ -504,6 +588,48 @@ int launch(const Args& a, int d) {
   }
 }
 
+// The wide passes (d > 128), either dtype.
+int launch_wide(const Args& a, int d, int is_bf16) {
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* delta = static_cast<float*>(a.delta);
+  int rc;
+  if (is_bf16) {
+    const dim3 grid_q(a.g, (a.sq + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                      vtt::wide::chunks(d, vtt::wide::kW));
+    flash_bwd_dq_mma_wide_kernel<<<grid_q, mm::kThreads, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        static_cast<const bf16*>(a.out), lse, static_cast<bf16*>(a.dq), delta,
+        a.sq, a.sk, a.kv_valid, a.scale, d);
+    rc = vtt::launched("flash_bwd_dq_mma_wide_kernel");
+    if (rc != 0) return rc;
+    const dim3 grid_k(a.g, (a.sk + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                      vtt::wide::chunks(d, vtt::wide::kWkv));
+    flash_bwd_dkv_mma_wide_kernel<<<grid_k, mm::kThreads, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse,
+        delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk,
+        a.kv_valid, a.scale, d);
+    return vtt::launched("flash_bwd_dkv_mma_wide_kernel");
+  }
+  const int nc = vtt::wide::chunks(d, vtt::wide::kFW);
+  const dim3 grid_q(a.g, (a.sq + kBlockQ - 1) / kBlockQ, nc);
+  flash_bwd_dq_wide_kernel<<<grid_q, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.out), lse, static_cast<float*>(a.dq), delta,
+      a.sq, a.sk, a.kv_valid, a.scale, d);
+  rc = vtt::launched("flash_bwd_dq_wide_kernel");
+  if (rc != 0) return rc;
+  const dim3 grid_k(a.g, (a.sk + kBlockK - 1) / kBlockK, nc);
+  flash_bwd_dkv_wide_kernel<<<grid_k, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse,
+      delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq,
+      a.sk, a.kv_valid, a.scale, d);
+  return vtt::launched("flash_bwd_dkv_wide_kernel");
+}
+
 template <int D, bool kPad>
 int launch_d(const Args& a, int d, int is_bf16) {
   return is_bf16 ? launch_mma<D, kPad>(a, d) : launch<D, kPad>(a, d);
@@ -516,10 +642,10 @@ extern "C" {
 // Returns 0 or the cudaError_t of a launch; cudaErrorInvalidValue when the
 // shape is outside the route (flash_attention.py::flash_bwd_smem_bytes over
 // one block's 227 KB of shared memory). is_bf16: 1 = bf16 (the tensor
-// cores), 0 = fp32. d: 1-128. bf16 only: delta, fp32 scratch of G·Sq
-// elements (δ, written by the first pass and read by the second); a q, k, v,
-// out, do, dq, dk or dv off its copies' grain (align_mask(d)) is refused
-// (cudaErrorMisalignedAddress).
+// cores), 0 = fp32. d >= 1. bf16, and fp32 at d > 128: delta, fp32
+// scratch of G·Sq elements (δ, written by the first pass and read by the
+// second); bf16: a q, k, v, out, do, dq, dk or dv off its copies' grain
+// (align_mask(d)) is refused (cudaErrorMisalignedAddress).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* lse, const void* dout,
                         void* dq, void* dk, void* dv, void* delta, int g,
@@ -527,7 +653,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         int is_bf16, void* stream) {
   const size_t smem = static_cast<size_t>(smem_floats(sq, sk, d)) * 4;
   if (g < 1 || sq < 1 || sk < 1 || kv_valid < 1 || kv_valid > sk ||
-      smem > 232448 || (is_bf16 && delta == nullptr))
+      smem > 232448 || ((is_bf16 || d > 128) && delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
@@ -544,7 +670,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 64: return launch_d<64, false>(a, d, is_bf16);
     case 128: return launch_d<128, false>(a, d, is_bf16);
     default:
-      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (d > 128) return launch_wide(a, d, is_bf16);
       return d < 16   ? launch_d<16, true>(a, d, is_bf16)
              : d < 32 ? launch_d<32, true>(a, d, is_bf16)
              : d < 64 ? launch_d<64, true>(a, d, is_bf16)

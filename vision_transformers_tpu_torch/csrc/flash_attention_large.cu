@@ -48,11 +48,15 @@
 // width with the columns past D read as zeros and not written:
 // flash_large_mma_padded_kernel (bf16, attention_mma_tile.cuh's GroupPad
 // layouts, the same mask policy and skipped trailing tiles) and
-// flash_large_padded_kernel (fp32).
+// flash_large_padded_kernel (fp32). A D above 128 (ViT-B/16's widths at 3
+// heads, D 256, at 576 px) takes flash_large_mma_wide_kernel /
+// flash_large_wide_kernel (attention_wide_tile.cuh: D split across grid z,
+// the same mask policy and, in bf16, the same skipped tiles).
 #include <cstdint>
 #include <type_traits>
 
 #include "attention_mma_tile.cuh"
+#include "attention_wide_tile.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -298,6 +302,68 @@ flash_large_mma_padded_kernel(const bf16* __restrict__ q,
       vtt::Dropout{}, 0u, tile_counts, vtt::mma::group_pad<D>(d));
 }
 
+// Any head dim d above 128: attention_wide_tile.cuh's split of d across grid
+// z, the same mask policy (and, in bf16, skipped trailing tiles and tile
+// counts, from chunk 0's blocks).
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+flash_large_mma_wide_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const unsigned char* __restrict__ kmask,
+                            bf16* __restrict__ out, float* __restrict__ lse,
+                            int groups_per_row, int sq, int sk, int kv_valid,
+                            float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide_mma<vtt::mma::KeyMask::ReplaceByte, false>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q + g * sq * d,
+      k + g * sk * d, v + g * sk * d, nullptr, out + g * sq * d,
+      lse + g * sq, sq, sk, kv_valid, scale,
+      kmask == nullptr ? nullptr : kmask + (g / groups_per_row) * sk,
+      vtt::Dropout{}, 0u, tile_counts, vtt::wide::Rows{d, d, d, 1});
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_large_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const unsigned char* __restrict__ kmask,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        int groups_per_row, int sq, int sk, int kv_valid,
+                        float scale, int d) {
+  const long long g = blockIdx.x;
+  vtt::wide::attend_rows_wide<vtt::mma::KeyMask::ReplaceByte>(
+      blockIdx.y * kBlockQ, blockIdx.z, q + g * sq * d, k + g * sk * d,
+      v + g * sk * d, nullptr,
+      kmask == nullptr ? nullptr : kmask + (g / groups_per_row) * sk,
+      out + g * sq * d, lse + g * sq, sq, sk, kv_valid, scale,
+      vtt::make_dropout(0u, 1.f, 0ull), 0u, vtt::wide::Rows{d, d, d, 1});
+}
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* kmask, void* out, void* lse, int g, int mask_rows,
+                int sq, int sk, int d, int kv_valid, float scale, int is_bf16,
+                cudaStream_t stream) {
+  const int per_row = kmask == nullptr ? 1 : g / mask_rows;
+  const auto* m_ = static_cast<const unsigned char*>(kmask);
+  auto* l_ = static_cast<float*>(lse);
+  if (is_bf16) {
+    const dim3 grid(g, (sq + vtt::wide::kRows - 1) / vtt::wide::kRows,
+                    vtt::wide::chunks(d, vtt::wide::kW));
+    flash_large_mma_wide_kernel<<<grid, vtt::mma::kThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), m_, static_cast<bf16*>(out), l_, per_row,
+        sq, sk, kv_valid, scale, d);
+    return vtt::launched("flash_large_mma_wide_kernel");
+  }
+  const dim3 grid(g, (sq + kBlockQ - 1) / kBlockQ,
+                  vtt::wide::chunks(d, vtt::wide::kFW));
+  flash_large_wide_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), m_, static_cast<float*>(out), l_, per_row,
+      sq, sk, kv_valid, scale, d);
+  return vtt::launched("flash_large_wide_kernel");
+}
+
 // kPad: the head dim d runs in the tile of width D (d < D).
 template <typename T, int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, const void* kmask,
@@ -362,7 +428,10 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* kmask,
     case 64: return VTT_LAUNCH(64, false);
     case 128: return VTT_LAUNCH(128, false);
     default:
-      if (d < 1 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+      if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (d > 128)
+        return launch_wide(q, k, v, kmask, out, lse, g, mask_rows, sq, sk, d,
+                           kv_valid, scale, std::is_same_v<T, bf16>, stream);
       return d < 16   ? VTT_LAUNCH(16, true)
              : d < 32 ? VTT_LAUNCH(32, true)
              : d < 64 ? VTT_LAUNCH(64, true) : VTT_LAUNCH(128, true);
@@ -376,7 +445,7 @@ extern "C" {
 
 // Returns 0 or the cudaError_t of the launch. kmask may be null (then
 // mask_rows is ignored); else mask_rows must divide g. is_bf16: 1 = bf16,
-// 0 = fp32. d: 1-128. sq / 32 query tiles must fit the grid's y dimension.
+// 0 = fp32. d >= 1. sq / 32 query tiles must fit the grid's y dimension.
 // A bf16 q, k, v or out off its copies' grain (align_mask(d): 16 bytes at D
 // 16, 32, 64, 128 and a multiple of 8 above 64, 4 at another even D, none
 // at an odd D) is refused (cudaErrorMisalignedAddress):

@@ -62,12 +62,19 @@
 // aligned) and the fp32 tiles' kPad in fp32. The in-kernel dropout draws the
 // same keep bits at every dh: f(seed, b·H + h, row, column). Zero-padding
 // dh 80 into the 128 tile spends 37.5% of the tile's products on zeros.
+// A dh above 128 (ViT-B/16's widths at 3 heads: 256) takes the *_wide_kernel
+// kernels of attention_wide_tile.cuh: grid z splits dh into output chunks
+// (bf16: 128 columns a forward or dq block, 64 a dk/dv block; fp32: 64),
+// each block summing the scores over every chunk of q and k (or do and v)
+// itself; q, k, v read and dqkv written in place as above, head h's chunk j
+// at column h·dh + j·W of its section.
 #include <cstdint>
 #include <type_traits>
 
 #include "attention_bwd_mma_tile.cuh"
 #include "attention_bwd_tile.cuh"
 #include "attention_mma_tile.cuh"
+#include "attention_wide_tile.cuh"
 #include "launch_log.cuh"
 
 namespace {
@@ -219,6 +226,10 @@ struct PackedGroupD {
                                       static_cast<int>(3 * hd),
                                       static_cast<int>(hd), heads};
   }
+  // the same rows for attention_wide_tile.cuh (dh > 128)
+  __device__ vtt::wide::Rows wide() const {
+    return vtt::wide::Rows{static_cast<int>(d), 3 * hd, hd, heads};
+  }
 };
 
 template <typename T, int D>
@@ -326,6 +337,110 @@ packed_bwd_dkv_mma_padded_kernel(const __nv_bfloat16* __restrict__ qkv,
       lse + g.lse(), delta + static_cast<long long>(blockIdx.x) * s, nullptr,
       dq + g.hd, dq + 2 * g.hd, nullptr, nullptr, s, s, kv_valid, scale,
       drop, blockIdx.x, g.layout<D>());
+}
+
+// ---- head dims above 128: attention_wide_tile.cuh's split of dh across
+// grid z (bf16: 128 columns a forward or dq block, 64 a dk/dv block; fp32:
+// 64), q, k and v still read in place.
+
+template <bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_fwd_mma_wide_kernel(const __nv_bfloat16* __restrict__ qkv,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int s, int heads,
+                           int kv_valid, float scale, vtt::Dropout drop,
+                           int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::wide::attend_rows_wide_mma<vtt::mma::KeyMask::NoMask, kDrop>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      nullptr, out + g.unpacked(), lse + g.lse(), s, s, kv_valid, scale,
+      nullptr, drop, blockIdx.x, nullptr, g.wide());
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_fwd_wide_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                       float* __restrict__ lse, int s, int heads,
+                       int kv_valid, float scale, vtt::Dropout drop, int d) {
+  const PackedGroupD g(s, heads, d);
+  const float* q = qkv + g.packed();
+  vtt::wide::attend_rows_wide<vtt::mma::KeyMask::NoMask>(
+      blockIdx.y * vtt::kBlockQ, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      nullptr, nullptr, out + g.unpacked(), lse + g.lse(), s, s, kv_valid,
+      scale, drop, blockIdx.x, g.wide());
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dq_mma_wide_kernel(const __nv_bfloat16* __restrict__ qkv,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const __nv_bfloat16* __restrict__ out,
+                              const float* __restrict__ lse,
+                              __nv_bfloat16* __restrict__ dqkv,
+                              float* __restrict__ delta, int s, int heads,
+                              int kv_valid, float scale, vtt::Dropout drop,
+                              int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  vtt::wide::bwd_dq_rows_wide_mma<kDrop, vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), out + g.unpacked(), lse + g.lse(), nullptr,
+      dqkv + g.packed(), delta + static_cast<long long>(blockIdx.x) * s, s,
+      s, kv_valid, scale, drop, blockIdx.x, g.wide());
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(vtt::mma::kThreads)
+packed_bwd_dkv_mma_wide_kernel(const __nv_bfloat16* __restrict__ qkv,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dqkv, int s,
+                               int heads, int kv_valid, float scale,
+                               vtt::Dropout drop, int d) {
+  const PackedGroupD g(s, heads, d);
+  const __nv_bfloat16* q = qkv + g.packed();
+  __nv_bfloat16* dq = dqkv + g.packed();
+  vtt::wide::bwd_dkv_rows_wide_mma<kDrop, vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::wide::kRows, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), lse + g.lse(),
+      delta + static_cast<long long>(blockIdx.x) * s, nullptr, dq + g.hd,
+      dq + 2 * g.hd, s, s, kv_valid, scale, drop, blockIdx.x, g.wide());
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_bwd_dq_wide_kernel(const float* __restrict__ qkv,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ out,
+                          const float* __restrict__ lse,
+                          float* __restrict__ dqkv, float* __restrict__ delta,
+                          int s, int heads, int kv_valid, float scale,
+                          vtt::Dropout drop, int d) {
+  const PackedGroupD g(s, heads, d);
+  const float* q = qkv + g.packed();
+  vtt::wide::bwd_dq_rows_wide<vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::kBlockQ, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), out + g.unpacked(), lse + g.lse(), nullptr,
+      dqkv + g.packed(), delta + static_cast<long long>(blockIdx.x) * s, s,
+      s, kv_valid, scale, drop, blockIdx.x, g.wide());
+}
+
+__global__ void __launch_bounds__(vtt::kThreads)
+packed_bwd_dkv_wide_kernel(const float* __restrict__ qkv,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dqkv, int s, int heads,
+                           int kv_valid, float scale, vtt::Dropout drop,
+                           int d) {
+  const PackedGroupD g(s, heads, d);
+  const float* q = qkv + g.packed();
+  float* dq = dqkv + g.packed();
+  vtt::wide::bwd_dkv_rows_wide<vtt::mma::ScaledDs>(
+      blockIdx.y * vtt::kBlockK, blockIdx.z, q, q + g.hd, q + 2 * g.hd,
+      dout + g.unpacked(), lse + g.lse(),
+      delta + static_cast<long long>(blockIdx.x) * s, nullptr, dq + g.hd,
+      dq + 2 * g.hd, s, s, kv_valid, scale, drop, blockIdx.x, g.wide());
 }
 
 struct Args {
@@ -520,6 +635,83 @@ int launch_padded(const Args& a, int dh, bool backward) {
                   : launch_fwd_padded<T, D>(a, dh);
 }
 
+// The wide kernels (dh > 128): grid z the output chunks.
+int launch_wide(const Args& a, int dh, bool backward, int is_bf16) {
+  using bf16 = __nv_bfloat16;
+  int rc;
+  if (is_bf16) {
+    const auto* qkv = static_cast<const bf16*>(a.qkv);
+    const int rows = (a.s + vtt::wide::kRows - 1) / vtt::wide::kRows;
+    const dim3 grid(a.b * a.heads, rows, vtt::wide::chunks(dh, vtt::wide::kW));
+    if (!backward) {
+      auto* out = static_cast<bf16*>(const_cast<void*>(a.out));
+      auto* lse = static_cast<float*>(const_cast<void*>(a.lse));
+      if (a.drop.thresh != 0u)
+        packed_fwd_mma_wide_kernel<true><<<grid, vtt::mma::kThreads, 0,
+                                           a.stream>>>(
+            qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop, dh);
+      else
+        packed_fwd_mma_wide_kernel<false><<<grid, vtt::mma::kThreads, 0,
+                                            a.stream>>>(
+            qkv, out, lse, a.s, a.heads, a.kv_valid, a.scale, a.drop, dh);
+      return vtt::launched("packed_fwd_mma_wide_kernel");
+    }
+    const auto* dout = static_cast<const bf16*>(a.dout);
+    const auto* out = static_cast<const bf16*>(a.out);
+    const auto* lse = static_cast<const float*>(a.lse);
+    auto* dqkv = static_cast<bf16*>(a.dqkv);
+    auto* delta = static_cast<float*>(a.delta);
+    const dim3 grid_k(a.b * a.heads, rows,
+                      vtt::wide::chunks(dh, vtt::wide::kWkv));
+    if (a.drop.thresh != 0u)
+      packed_bwd_dq_mma_wide_kernel<true><<<grid, vtt::mma::kThreads, 0,
+                                            a.stream>>>(
+          qkv, dout, out, lse, dqkv, delta, a.s, a.heads, a.kv_valid,
+          a.scale, a.drop, dh);
+    else
+      packed_bwd_dq_mma_wide_kernel<false><<<grid, vtt::mma::kThreads, 0,
+                                             a.stream>>>(
+          qkv, dout, out, lse, dqkv, delta, a.s, a.heads, a.kv_valid,
+          a.scale, a.drop, dh);
+    rc = vtt::launched("packed_bwd_dq_mma_wide_kernel");
+    if (rc != 0) return rc;
+    if (a.drop.thresh != 0u)
+      packed_bwd_dkv_mma_wide_kernel<true><<<grid_k, vtt::mma::kThreads, 0,
+                                             a.stream>>>(
+          qkv, dout, lse, delta, dqkv, a.s, a.heads, a.kv_valid, a.scale,
+          a.drop, dh);
+    else
+      packed_bwd_dkv_mma_wide_kernel<false><<<grid_k, vtt::mma::kThreads, 0,
+                                              a.stream>>>(
+          qkv, dout, lse, delta, dqkv, a.s, a.heads, a.kv_valid, a.scale,
+          a.drop, dh);
+    return vtt::launched("packed_bwd_dkv_mma_wide_kernel");
+  }
+  const auto* qkv = static_cast<const float*>(a.qkv);
+  const dim3 grid(a.b * a.heads, (a.s + vtt::kBlockQ - 1) / vtt::kBlockQ,
+                  vtt::wide::chunks(dh, vtt::wide::kFW));
+  if (!backward) {
+    packed_fwd_wide_kernel<<<grid, vtt::kThreads, 0, a.stream>>>(
+        qkv, static_cast<float*>(const_cast<void*>(a.out)),
+        static_cast<float*>(const_cast<void*>(a.lse)), a.s, a.heads,
+        a.kv_valid, a.scale, a.drop, dh);
+    return vtt::launched("packed_fwd_wide_kernel");
+  }
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* delta = static_cast<float*>(a.delta);
+  packed_bwd_dq_wide_kernel<<<grid, vtt::kThreads, 0, a.stream>>>(
+      qkv, static_cast<const float*>(a.dout), static_cast<const float*>(a.out),
+      lse, static_cast<float*>(a.dqkv), delta, a.s, a.heads, a.kv_valid,
+      a.scale, a.drop, dh);
+  rc = vtt::launched("packed_bwd_dq_wide_kernel");
+  if (rc != 0) return rc;
+  packed_bwd_dkv_wide_kernel<<<grid, vtt::kThreads, 0, a.stream>>>(
+      qkv, static_cast<const float*>(a.dout), lse, delta,
+      static_cast<float*>(a.dqkv), a.s, a.heads, a.kv_valid, a.scale, a.drop,
+      dh);
+  return vtt::launched("packed_bwd_dkv_wide_kernel");
+}
+
 template <typename T>
 int dispatch_dh(const Args& a, int dh, bool backward) {
   switch (dh) {
@@ -527,7 +719,9 @@ int dispatch_dh(const Args& a, int dh, bool backward) {
     case 32: return backward ? launch_bwd<T, 32>(a) : launch_fwd<T, 32>(a);
     case 64: return backward ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
     default:
-      if (dh < 1 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+      if (dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (dh > 128)
+        return launch_wide(a, dh, backward, std::is_same_v<T, __nv_bfloat16>);
       return dh < 16   ? launch_padded<T, 16>(a, dh, backward)
              : dh < 32 ? launch_padded<T, 32>(a, dh, backward)
              : dh < 64 ? launch_padded<T, 64>(a, dh, backward)
@@ -547,7 +741,7 @@ int dispatch(const Args& a, int dh, int is_bf16, bool backward) {
 extern "C" {
 
 // Each returns 0 or the cudaError_t of a launch. is_bf16: 1 = bf16, 0 = fp32.
-// dh: 1-128. drop_thresh = min(int(rate·2^32), 2^32 − 1), 0 for no dropout;
+// dh >= 1. drop_thresh = min(int(rate·2^32), 2^32 − 1), 0 for no dropout;
 // inv_keep = 1/(1 − rate); seed: the mask's 64-bit seed. The forward refuses
 // a bf16 qkv or out that is not 16-byte aligned for dh a multiple of 8
 // (4-byte for another even dh; cudaErrorMisalignedAddress): the tensor-core

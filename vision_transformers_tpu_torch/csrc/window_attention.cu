@@ -90,6 +90,7 @@ window_packed_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                            out + row * hd + h * D);
 }
 
+// D: the head dim, in the tile of width T = window_tile(D) (16 for D 1-8).
 template <int D, int NK>
 __global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
 window_packed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -98,14 +99,15 @@ window_packed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                          int heads, int bias_windows, float scale, int mt,
                          int wpb) {
   using vtt::mma::bf16;
-  constexpr int S = D + 8;
+  constexpr int T = vtt::mma::window_tile(D);
+  constexpr int S = T + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = warp / mt, t = warp % mt;  // window of the block, query tile
   const long long gw = static_cast<long long>(blockIdx.x) * wpb + w;
   if (gw >= g) return;  // a ragged last block: this window's warps only
   bf16* qs = reinterpret_cast<bf16*>(smem_raw)
-             + w * vtt::mma::window_smem_elems<D, NK>(3, 1);
+             + w * vtt::mma::window_smem_elems<T, NK>(3, 1);
   bf16* ks = qs + NK * S;
   bf16* vs = ks + NK * S;
   bf16* bs = vs + NK * S;  // (NK, NK + 8): the window's bias row
@@ -114,18 +116,18 @@ window_packed_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const long long hd = static_cast<long long>(heads) * D;
   const bf16* src = qkv + gw * n * 3 * hd + h * D;  // q of token 0
   const int tid = t * 32 + lane, count = mt * 32;
-  vtt::mma::window_stage<D, NK>(qs, src, n, 3 * hd, tid, count);
-  vtt::mma::window_stage<D, NK>(ks, src + hd, n, 3 * hd, tid, count);
-  vtt::mma::window_stage<D, NK>(vs, src + 2 * hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(qs, src, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(ks, src + hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(vs, src + 2 * hd, n, 3 * hd, tid, count);
   vtt::mma::cp_async_commit();
   if (bias != nullptr)
     vtt::mma::window_stage_bias<NK>(
         bs, bias + ((gw % bias_windows) * heads + h) * n * n, n, t, mt, lane);
   vtt::mma::cp_async_wait<0>();
   vtt::mma::window_sync(w, count);
-  vtt::mma::window_attend_mma<D, NK>(qs, ks, vs, bias == nullptr ? nullptr : bs,
-                                     n, t, scale, out + gw * n * hd + h * D,
-                                     hd, lane);
+  vtt::mma::window_attend_mma<T, NK, D>(
+      qs, ks, vs, bias == nullptr ? nullptr : bs, n, t, scale,
+      out + gw * n * hd + h * D, hd, lane);
 }
 
 template <typename T, int D>
@@ -183,7 +185,7 @@ window_batched_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                           __nv_bfloat16* __restrict__ out, long long g, int n,
                           int heads, int bias_windows, float scale, int mt,
                           int wpb, int run) {
-  vtt::mma::window_run_mma<D, NK>(
+  vtt::mma::window_run_mma<vtt::mma::window_tile(D), NK, D>(
       vtt::mma::PackedWindows{n}, qkv, bias, out,
       static_cast<long long>(blockIdx.x) * wpb * run, g, n, heads,
       static_cast<long long>(heads) * D, bias_windows, scale, mt, wpb, run);
@@ -212,7 +214,8 @@ int launch_packed_mma(const void* qkv, const void* bias, void* out, int g,
                       cudaStream_t stream) {
   const vtt::mma::WindowGeometry geo = vtt::mma::window_mma_geometry(n);
   const size_t smem = static_cast<size_t>(geo.wpb) *
-                      vtt::mma::window_smem_elems<D, NK>(3, 1) *
+                      vtt::mma::window_smem_elems<vtt::mma::window_tile(D),
+                                                  NK>(3, 1) *
                       sizeof(__nv_bfloat16);
   auto kernel = window_packed_mma_kernel<D, NK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -280,6 +283,10 @@ int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
            : launch_packed<float, D>(qkv, bias, out, g, n, heads,            \
                                      bias_windows, scale, p, threads, st))
   switch (dh) {
+    case 1: return VTT_PACKED(1);
+    case 2: return VTT_PACKED(2);
+    case 4: return VTT_PACKED(4);
+    case 8: return VTT_PACKED(8);
     case 16: return VTT_PACKED(16);
     case 32: return VTT_PACKED(32);
     case 64: return VTT_PACKED(64);
@@ -312,6 +319,10 @@ int window_batched_attention_fwd(const void* qkv, const void* bias, void* out,
                                       bias_windows, scale, p, threads,        \
                                       passes, st))
   switch (dh) {
+    case 1: return VTT_BATCHED(1);
+    case 2: return VTT_BATCHED(2);
+    case 4: return VTT_BATCHED(4);
+    case 8: return VTT_BATCHED(8);
     case 16: return VTT_BATCHED(16);
     case 32: return VTT_BATCHED(32);
     case 64: return VTT_BATCHED(64);

@@ -65,7 +65,9 @@ namespace {
 using vtt::axpy_row;
 using vtt::dot_row;
 using vtt::kWinMaxThreads;
-using vtt::RowIO;
+using vtt::row_load;
+using vtt::row_store;
+using vtt::row_vec;
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a block can ask for
 
@@ -75,12 +77,12 @@ template <typename T, int D>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
                                            long long row_stride, int rows,
                                            float* __restrict__ dst) {
-  constexpr int V = RowIO<T>::kVec;
+  constexpr int V = row_vec<T, D>();
   constexpr int C = D / V;
   for (int idx = threadIdx.x; idx < rows * C; idx += blockDim.x) {
     const int c = idx % C, r = idx / C;
     float tmp[V];
-    RowIO<T>::load(src + r * row_stride + c * V, tmp);
+    row_load<V>(src + r * row_stride + c * V, tmp);
     float* d = dst + r * D + c * V;
 #pragma unroll
     for (int e = 0; e < V; ++e) d[e] = tmp[e];
@@ -89,16 +91,16 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
 
 template <typename T, int D>
 __device__ __forceinline__ void load_row(const T* __restrict__ src, float* r) {
-  constexpr int V = RowIO<T>::kVec;
+  constexpr int V = row_vec<T, D>();
 #pragma unroll
-  for (int c = 0; c < D / V; ++c) RowIO<T>::load(src + c * V, r + c * V);
+  for (int c = 0; c < D / V; ++c) row_load<V>(src + c * V, r + c * V);
 }
 
 template <typename T, int D>
 __device__ __forceinline__ void store_row(T* __restrict__ dst, const float* r) {
-  constexpr int V = RowIO<T>::kVec;
+  constexpr int V = row_vec<T, D>();
 #pragma unroll
-  for (int c = 0; c < D / V; ++c) RowIO<T>::store(dst + c * V, r + c * V);
+  for (int c = 0; c < D / V; ++c) row_store<V>(dst + c * V, r + c * V);
 }
 
 template <typename T, int D>
@@ -107,7 +109,9 @@ window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
                   const T* __restrict__ dout, T* __restrict__ dqkv,
                   T* __restrict__ ds_out, long long g, int n, int heads,
                   int bias_windows, float scale, int p) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 1 || D == 2 || D == 4 || D == 8 || D == 16 || D == 32 ||
+                    D == 64,
+                "head dim must be 1, 2, 4, 8, 16, 32 or 64");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = n | 1;  // odd row stride of the two score tiles
   float* xs = reinterpret_cast<float*>(smem_raw);  // K, then Q: (P·N, D)
@@ -211,7 +215,8 @@ window_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 
 // Each window's shared memory: Q, K, V, dO (NK rows of D + 8), then the
 // tiles bf16(p), bf16(ds·scale) and the bias, overwritten by bf16(ds)
-// (NK rows of NK + 8).
+// (NK rows of NK + 8). D: the head dim, in the tile of width T =
+// window_tile(D) (16 for D 1-8).
 template <int D, int NK>
 __global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
 window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -222,14 +227,15 @@ window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                       int heads, int bias_windows, float scale, int mt,
                       int wpb) {
   using vtt::mma::bf16;
-  constexpr int S = D + 8, SB = NK + 8;
+  constexpr int T = vtt::mma::window_tile(D);
+  constexpr int S = T + 8, SB = NK + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = warp / mt, t = warp % mt;  // window of the block, tile
   const long long gw = static_cast<long long>(blockIdx.x) * wpb + w;
   if (gw >= g) return;  // a ragged last block: this window's warps only
   bf16* qs = reinterpret_cast<bf16*>(smem_raw)
-             + w * vtt::mma::window_smem_elems<D, NK>(4, 3);
+             + w * vtt::mma::window_smem_elems<T, NK>(4, 3);
   bf16* ks = qs + NK * S;
   bf16* vs = ks + NK * S;
   bf16* dos = vs + NK * S;
@@ -242,11 +248,11 @@ window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const long long row0 = gw * n;  // token 0 of the window
   const bf16* src = qkv + row0 * 3 * hd + h * D;
   const int tid = t * 32 + lane, count = mt * 32;
-  vtt::mma::window_stage<D, NK>(qs, src, n, 3 * hd, tid, count);
-  vtt::mma::window_stage<D, NK>(ks, src + hd, n, 3 * hd, tid, count);
-  vtt::mma::window_stage<D, NK>(vs, src + 2 * hd, n, 3 * hd, tid, count);
-  vtt::mma::window_stage<D, NK>(dos, dout + row0 * hd + h * D, n, hd, tid,
-                                count);
+  vtt::mma::window_stage<T, NK, D>(qs, src, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(ks, src + hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(vs, src + 2 * hd, n, 3 * hd, tid, count);
+  vtt::mma::window_stage<T, NK, D>(dos, dout + row0 * hd + h * D, n, hd, tid,
+                                   count);
   vtt::mma::cp_async_commit();
   if (bias != nullptr)
     vtt::mma::window_stage_bias<NK>(
@@ -255,7 +261,7 @@ window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   vtt::mma::window_sync(w, count);
 
   bf16* dq = dqkv + row0 * 3 * hd + h * D;
-  vtt::mma::window_bwd_rows_mma<D, NK>(
+  vtt::mma::window_bwd_rows_mma<T, NK, D>(
       qs, ks, vs, dos, bias == nullptr ? nullptr : xt,
       ds_out == nullptr ? nullptr : xt, pt, dt, n, t, scale, dq, 3 * hd,
       lane);
@@ -266,8 +272,8 @@ window_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int r = t; r < n; r += mt)
       for (int c = lane; c < n; c += 32) d[r * n + c] = xt[r * SB + c];
   }
-  vtt::mma::window_bwd_keys_mma<D, NK>(qs, dos, pt, dt, n, t, mt, dq + hd,
-                                       dq + 2 * hd, 3 * hd, lane);
+  vtt::mma::window_bwd_keys_mma<T, NK, D>(qs, dos, pt, dt, n, t, mt, dq + hd,
+                                          dq + 2 * hd, 3 * hd, lane);
 }
 
 size_t bwd_smem_bytes(int p, int n, int d) {
@@ -300,7 +306,8 @@ int launch_bwd_mma(const void* qkv, const void* bias, const void* dout,
                    int bias_windows, float scale, cudaStream_t stream) {
   const vtt::mma::WindowGeometry geo = vtt::mma::window_mma_geometry(n);
   const size_t smem = static_cast<size_t>(geo.wpb) *
-                      vtt::mma::window_smem_elems<D, NK>(4, 3) *
+                      vtt::mma::window_smem_elems<vtt::mma::window_tile(D),
+                                                  NK>(4, 3) *
                       sizeof(__nv_bfloat16);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = window_bwd_mma_kernel<D, NK>;
@@ -346,6 +353,10 @@ int window_attention_bwd(const void* qkv, const void* bias, const void* dout,
                                   heads, bias_windows, scale, p, threads,    \
                                   st))
   switch (dh) {
+    case 1: return VTT_BWD(1);
+    case 2: return VTT_BWD(2);
+    case 4: return VTT_BWD(4);
+    case 8: return VTT_BWD(8);
     case 16: return VTT_BWD(16);
     case 32: return VTT_BWD(32);
     case 64: return VTT_BWD(64);

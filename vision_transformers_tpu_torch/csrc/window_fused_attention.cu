@@ -187,6 +187,7 @@ window_fused_flat_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
       out + row * sec + h * D);
 }
 
+// D: the head dim, in the tile of width window_tile(D) (16 for D 1-8).
 template <int D, int NK>
 __global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
 window_fused_flat_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -197,7 +198,7 @@ window_fused_flat_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                              int run) {
   // nW' is 1 or the windows of one image, so g mod nW' is the window's
   // index inside its image
-  vtt::mma::window_run_mma<D, NK>(
+  vtt::mma::window_run_mma<vtt::mma::window_tile(D), NK, D>(
       FlatRows{m}, qkv, bias, out,
       static_cast<long long>(blockIdx.x) * wpb * run, g, m.wh * m.ww, heads,
       sec, bias_windows, scale, mt, wpb, run);
@@ -218,9 +219,9 @@ window_fused_slab_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const SlabWindows wins{
       SlabRows{m, static_cast<long long>(b) * m.hp, R * m.wh + m.sh},
       rb.end - m.nw};
-  vtt::mma::window_run_mma<D, NK>(wins, qkv, bias, out, rb.first, rb.end,
-                                  m.wh * m.ww, heads, sec, bias_windows,
-                                  scale, mt, wpb, run);
+  vtt::mma::window_run_mma<vtt::mma::window_tile(D), NK, D>(
+      wins, qkv, bias, out, rb.first, rb.end, m.wh * m.ww, heads, sec,
+      bias_windows, scale, mt, wpb, run);
 }
 
 template <typename T, int D>
@@ -305,6 +306,10 @@ int dispatch(bool slab, const void* qkv, const void* bias, void* out, int b,
                          sc, bw, scale);                                    \
      }))
   switch (dh) {
+    case 1: return VTT_FUSED(1);
+    case 2: return VTT_FUSED(2);
+    case 4: return VTT_FUSED(4);
+    case 8: return VTT_FUSED(8);
     case 16: return VTT_FUSED(16);
     case 32: return VTT_FUSED(32);
     case 64: return VTT_FUSED(64);

@@ -78,6 +78,14 @@
 // so one wave of blocks covers the work, at most kMaxRun steps a block;
 // past that, more blocks. Row 13's blocks each keep to one window row.
 //
+// Head dims 1, 2, 4 and 8 (a Swin at 4× its heads: dh 8) run in the 16
+// tile: the window's rows staged with their DH elements and 16 − DH zeros
+// (window_stage_rows_narrow, copies of the widest grain the offsets keep),
+// so the scores are those of the DH columns, and only DH columns of out, dq,
+// dk and dv written (window_store_narrow). Every body takes DH as a template
+// parameter whose default is the tile width, so the kernels of dh 16, 32 and
+// 64 keep their code.
+//
 // Numerics, as _window_pack_kernel and window_attention_reference: s =
 // acc·scale + bias in fp32, two roundings (never an FMA: the plain version
 // multiplies, then adds), the bias held in bf16 and widened at the add;
@@ -123,6 +131,9 @@ constexpr int kWinMmaMaxThreads = 256;  // 8 query tiles of N 128
 __host__ __device__ constexpr int window_keys(int n) {
   return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
 }
+
+// The tile width a head dim d runs in: d, or 16 for d 1, 2, 4 and 8.
+__host__ __device__ constexpr int window_tile(int d) { return d < 16 ? 16 : d; }
 
 // Query tiles (= warps) a window takes, windows a block takes, threads.
 struct WindowGeometry {
@@ -181,12 +192,83 @@ __device__ __forceinline__ void window_stage_rows(bf16* s, const bf16* g,
   }
 }
 
+// 8 bytes global → shared, zero-filled when !pred (window rows of dh 4).
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 8 : 0));
+}
+
+// window_stage_rows for a head dim DH of 1, 2, 4 or 8 in the tile of width
+// 16: each row's DH elements and 16 − DH zeros, by pieces of the widest
+// grain every offset keeps (rows, sections and head offsets are multiples of
+// DH elements): 16-byte cp.async at DH 8, 8-byte at 4, 4-byte at 2 (zero
+// pieces with source size 0), plain 2-byte loads and stores at 1, which the
+// caller's barrier publishes as it does the copies.
+template <int DH, int NK, class Rows>
+__device__ __forceinline__ void window_stage_rows_narrow(
+    bf16* s, const bf16* g, int n, const Rows& rows, int tid, int count) {
+  static_assert(DH == 1 || DH == 2 || DH == 4 || DH == 8,
+                "narrow head dims are 1, 2, 4 and 8");
+  constexpr int D = 16;
+  if constexpr (DH == 1) {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(g);
+    unsigned short* su = reinterpret_cast<unsigned short*>(s);
+    for (int idx = tid; idx < NK * D; idx += count) {
+      const int r = idx / D, c = idx % D;
+      su[r * (D + 8) + c] = r < n && c == 0 ? u[rows(r)] : 0;
+    }
+  } else {
+    constexpr int E = DH;      // elements a piece
+    constexpr int C = D / E;   // pieces a row, the first one DH's
+    for (int idx = tid; idx < NK * C; idx += count) {
+      const int r = idx / C, c = idx % C;
+      const bool in = r < n && c == 0;
+      bf16* dst = s + r * (D + 8) + c * E;
+      const bf16* src = g + rows(in ? r : 0);
+      if constexpr (DH == 8)
+        cp_async_16(dst, src, in);
+      else if constexpr (DH == 4)
+        cp_async_8(dst, src, in);
+      else
+        cp_async_4(dst, src, in);
+    }
+  }
+}
+
+// window_stage_rows at head dim DH: the tile's own width, or (DH < D = 16)
+// the narrow copies.
+template <int D, int NK, int DH, class Rows>
+__device__ __forceinline__ void window_stage_rows_as(bf16* s, const bf16* g,
+                                                     int n, const Rows& rows,
+                                                     int tid, int count) {
+  if constexpr (DH == D)
+    window_stage_rows<D, NK>(s, g, n, rows, tid, count);
+  else
+    window_stage_rows_narrow<DH, NK>(s, g, n, rows, tid, count);
+}
+
 // The same with rows `stride` elements apart.
-template <int D, int NK>
+template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_stage(bf16* s, const bf16* g, int n,
                                              long long stride, int tid,
                                              int count) {
-  window_stage_rows<D, NK>(s, g, n, RowStride{stride}, tid, count);
+  window_stage_rows_as<D, NK, DH>(s, g, n, RowStride{stride}, tid, count);
+}
+
+// Columns col, col + 1 (col even, in the first 8) of a window row of DH
+// elements (1, 2, 4 or 8) at p, rounded to bf16: both where col < DH, or
+// column 0 alone at DH 1.
+template <int DH>
+__device__ __forceinline__ void window_store_narrow(bf16* p, int col,
+                                                   float x0, float x1) {
+  if constexpr (DH == 1) {
+    if (col == 0) p[0] = __float2bfloat16_rn(x0);
+  } else {
+    if (col < DH)
+      *reinterpret_cast<__nv_bfloat162*>(p + col) =
+          __floats2bfloat162_rn(x0, x1);
+  }
 }
 
 // The bias rows [0, n) × [0, n) of one (window, head), n·n consecutive
@@ -306,11 +388,13 @@ __device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
 // Query tile t (rows 16·t .. 16·t + 15) of one (window, head): out rows
 // r < n in bf16 at o + rows(r). qs, ks, vs: the window's Q, K, V tiles (row
 // stride D + 8, rows >= n zero); bias: TileBias or FlatBias.
-template <int D, int NK, class Rows, class Bias>
+template <int D, int NK, int DH = D, class Rows, class Bias>
 __device__ __forceinline__ void window_attend_mma_rows(
     const bf16* qs, const bf16* ks, const bf16* vs, const Bias& bias, int n,
     int t, float scale, bf16* __restrict__ o, const Rows& rows, int lane) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64, "tile width must be 16, 32 or 64");
+  static_assert(DH == D || (D == 16 && DH < 16),
+                "a head dim below 16 runs in the 16 tile");
   constexpr int S = D + 8;
   const int tq = lane & 3;
   const int r0 = t * 16 + (lane >> 2);
@@ -340,21 +424,26 @@ __device__ __forceinline__ void window_attend_mma_rows(
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (r >= n) continue;
+    if constexpr (DH == D) {
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<__nv_bfloat162*>(o + rows(r) + n8 * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        *reinterpret_cast<__nv_bfloat162*>(o + rows(r) + n8 * 8 + 2 * tq) =
+            __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+    } else {
+      window_store_narrow<DH>(o + rows(r), 2 * tq, acc[0][2 * i],
+                              acc[0][2 * i + 1]);
+    }
   }
 }
 
 // The same with out rows o_stride elements apart and the bias tile bs (row
 // stride NK + 8) or null.
-template <int D, int NK>
+template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_attend_mma(
     const bf16* qs, const bf16* ks, const bf16* vs, const bf16* bs, int n,
     int t, float scale, bf16* __restrict__ o, long long o_stride, int lane) {
-  window_attend_mma_rows<D, NK>(qs, ks, vs, TileBias<NK>{bs}, n, t, scale, o,
-                                RowStride{o_stride}, lane);
+  window_attend_mma_rows<D, NK, DH>(qs, ks, vs, TileBias<NK>{bs}, n, t, scale,
+                                    o, RowStride{o_stride}, lane);
 }
 
 // The backward's query tile t of one (window, head): p, ds and dq. qs, ks,
@@ -364,12 +453,14 @@ __device__ __forceinline__ void window_attend_mma(
 // elements it read); pt, dt: bf16(p) and bf16(ds·scale) (row stride
 // NK + 8), every element of rows 16·t .. 16·t + 15 written. dq rows < n in
 // bf16 at row stride dq_stride.
-template <int D, int NK>
+template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_bwd_rows_mma(
     const bf16* qs, const bf16* ks, const bf16* vs, const bf16* dos,
     const bf16* bs, bf16* xs, bf16* pt, bf16* dt, int n, int t, float scale,
     bf16* __restrict__ dq, long long dq_stride, int lane) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64, "tile width must be 16, 32 or 64");
+  static_assert(DH == D || (D == 16 && DH < 16),
+                "a head dim below 16 runs in the 16 tile");
   constexpr int S = D + 8, SB = NK + 8;
   const int tq = lane & 3;
   const int r0 = t * 16 + (lane >> 2);
@@ -444,11 +535,16 @@ __device__ __forceinline__ void window_bwd_rows_mma(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!live[i]) continue;
+    if constexpr (DH == D) {
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (r0 + 8 * i) * dq_stride
-                                         + n8 * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (r0 + 8 * i) * dq_stride
+                                           + n8 * 8 + 2 * tq) =
+            __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+    } else {
+      window_store_narrow<DH>(dq + (r0 + 8 * i) * dq_stride, 2 * tq,
+                              acc[0][2 * i], acc[0][2 * i + 1]);
+    }
   }
 }
 
@@ -456,7 +552,7 @@ __device__ __forceinline__ void window_bwd_rows_mma(
 // after every query tile's window_bwd_rows_mma: dk = bf16(ds·scale)ᵀ·Q and
 // dv = bf16(p)ᵀ·dO over the mt query tiles, rows < n in bf16 at row stride
 // stride.
-template <int D, int NK>
+template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_bwd_keys_mma(
     const bf16* qs, const bf16* dos, const bf16* pt, const bf16* dt, int n,
     int t, int mt, bf16* __restrict__ dk, bf16* __restrict__ dv,
@@ -480,13 +576,20 @@ __device__ __forceinline__ void window_bwd_keys_mma(
   for (int i = 0; i < 2; ++i) {
     const int j = j0 + 8 * i;
     if (j >= n) continue;
+    if constexpr (DH == D) {
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8) {
-      const long long off = j * stride + n8 * 8 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(ak[n8][2 * i], ak[n8][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
-          __floats2bfloat162_rn(av[n8][2 * i], av[n8][2 * i + 1]);
+      for (int n8 = 0; n8 < D / 8; ++n8) {
+        const long long off = j * stride + n8 * 8 + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+            __floats2bfloat162_rn(ak[n8][2 * i], ak[n8][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+            __floats2bfloat162_rn(av[n8][2 * i], av[n8][2 * i + 1]);
+      }
+    } else {
+      window_store_narrow<DH>(dk + j * stride, 2 * tq, ak[0][2 * i],
+                              ak[0][2 * i + 1]);
+      window_store_narrow<DH>(dv + j * stride, 2 * tq, av[0][2 * i],
+                              av[0][2 * i + 1]);
     }
   }
 }
@@ -545,7 +648,7 @@ struct OwnBias {
 // values) for window_run_mma: its rows into `rows` first (table maps), then
 // Q, K, V and, with a per-window bias (bias non-null, `total` values), the
 // window's bias row as whole 16-byte chunks, as one cp.async group.
-template <int D, int NK, class Windows>
+template <int D, int NK, int DH = D, class Windows>
 __device__ __forceinline__ void window_run_load(
     const Windows& wins, bf16* qs, long long* rows, const bf16* col,
     long long sec, long long gw, int n, int w, int t, int mt, int lane,
@@ -556,16 +659,17 @@ __device__ __forceinline__ void window_run_load(
     if (tid < n) rows[tid] = wins(gw, tid);  // count >= 2n threads
     window_sync(w, count);
     const RowTable in{rows, 3 * sec};
-    window_stage_rows<D, NK>(qs, col, n, in, tid, count);
-    window_stage_rows<D, NK>(qs + NK * S, col + sec, n, in, tid, count);
-    window_stage_rows<D, NK>(qs + 2 * NK * S, col + 2 * sec, n, in, tid,
-                             count);
+    window_stage_rows_as<D, NK, DH>(qs, col, n, in, tid, count);
+    window_stage_rows_as<D, NK, DH>(qs + NK * S, col + sec, n, in, tid,
+                                    count);
+    window_stage_rows_as<D, NK, DH>(qs + 2 * NK * S, col + 2 * sec, n, in,
+                                    tid, count);
   } else {
     const bf16* src = col + wins(gw, 0) * 3 * sec;
-    window_stage<D, NK>(qs, src, n, 3 * sec, tid, count);
-    window_stage<D, NK>(qs + NK * S, src + sec, n, 3 * sec, tid, count);
-    window_stage<D, NK>(qs + 2 * NK * S, src + 2 * sec, n, 3 * sec, tid,
-                        count);
+    window_stage<D, NK, DH>(qs, src, n, 3 * sec, tid, count);
+    window_stage<D, NK, DH>(qs + NK * S, src + sec, n, 3 * sec, tid, count);
+    window_stage<D, NK, DH>(qs + 2 * NK * S, src + 2 * sec, n, 3 * sec, tid,
+                            count);
   }
   if (bias != nullptr) {  // chunks past the tensor's end read nothing
     bf16* bs = qs + 3 * NK * S;
@@ -588,7 +692,7 @@ __device__ __forceinline__ void window_run_load(
 // out at h·D of a row of sec); a Windows policy with kTable keeps the rows
 // of the window in flight in a shared-memory table. bias: null or
 // (nW', H, N, N) bf16, window g reading row g mod nW'.
-template <int D, int NK, class Windows>
+template <int D, int NK, int DH = D, class Windows>
 __device__ __forceinline__ void window_run_mma(
     const Windows& wins, const bf16* __restrict__ qkv,
     const bf16* __restrict__ bias, bf16* __restrict__ out, long long first,
@@ -607,7 +711,7 @@ __device__ __forceinline__ void window_run_mma(
   bf16* slot = sb + (shared_bias ? NK * SB : 0) + w * 2 * elems;
   long long* table = reinterpret_cast<long long*>(
       sb + window_run_elems<D, NK>(wpb, shared_bias, own_bias)) + w * 2 * NK;
-  const bf16* col = qkv + h * D;
+  const bf16* col = qkv + h * DH;
   const long long own = first + w;  // the slot's first window
   const bf16* own_rows = own_bias ? bias : nullptr;
   const long long total = static_cast<long long>(bias_windows) * heads * n * n;
@@ -617,7 +721,7 @@ __device__ __forceinline__ void window_run_mma(
     window_stage_bias<NK>(sb, bias + static_cast<long long>(h) * n * n, n,
                           warp, mt * wpb, lane);
   if (own < end)
-    window_run_load<D, NK>(wins, slot, table, col, sec, own, n, w, t, mt,
+    window_run_load<D, NK, DH>(wins, slot, table, col, sec, own, n, w, t, mt,
                            lane, own_rows, total,
                            OwnBias(own, nwp, heads, h, n));
   __syncthreads();  // the shared bias tile
@@ -631,21 +735,22 @@ __device__ __forceinline__ void window_run_mma(
     window_sync(w, count);
     const int b = s & 1;
     if (s + 1 < run && gw + wpb < end)
-      window_run_load<D, NK>(wins, slot + (b ^ 1) * elems,
+      window_run_load<D, NK, DH>(wins, slot + (b ^ 1) * elems,
                              table + (b ^ 1) * NK, col, sec, gw + wpb, n, w,
                              t, mt, lane, own_rows, total,
                              OwnBias(gw + wpb, nwp, heads, h, n));
     const bf16* qs = slot + b * elems;
     const auto attend = [&](const auto& bias_at) {
       if constexpr (Windows::kTable)
-        window_attend_mma_rows<D, NK>(qs, qs + NK * S, qs + 2 * NK * S,
-                                      bias_at, n, t, scale, out + h * D,
-                                      RowTable{table + b * NK, sec}, lane);
+        window_attend_mma_rows<D, NK, DH>(qs, qs + NK * S, qs + 2 * NK * S,
+                                          bias_at, n, t, scale, out + h * DH,
+                                          RowTable{table + b * NK, sec},
+                                          lane);
       else
-        window_attend_mma_rows<D, NK>(qs, qs + NK * S, qs + 2 * NK * S,
-                                      bias_at, n, t, scale,
-                                      out + wins(gw, 0) * sec + h * D,
-                                      RowStride{sec}, lane);
+        window_attend_mma_rows<D, NK, DH>(qs, qs + NK * S, qs + 2 * NK * S,
+                                          bias_at, n, t, scale,
+                                          out + wins(gw, 0) * sec + h * DH,
+                                          RowStride{sec}, lane);
     };
     if (own_bias)
       attend(FlatBias{qs + 3 * NK * S +
@@ -719,7 +824,8 @@ inline cudaError_t run_occupancy(const void* kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-// Launches a window_run_mma kernel (`name` for the launch log) on g windows
+// Launches a window_run_mma kernel of head dim D (`name` for the launch log;
+// its tile window_tile(D) wide) on g windows
 // of n tokens and `heads` heads (row_windows: 0, or the windows of a row no
 // block may cross; bias_windows 0: no bias; table: the kernel keeps a row
 // table a window slot) with `args`, then the shape's mt, wpb and run. The
@@ -737,8 +843,9 @@ inline int window_run_launch(void (*kernel)(Params...), const char* name,
   if (bias_windows > 1 && reinterpret_cast<uintptr_t>(bias) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const WindowGeometry geo = window_mma_geometry(n);
+  constexpr int T = window_tile(D);
   const size_t smem =
-      window_run_elems<D, NK>(geo.wpb, bias_windows == 1, bias_windows > 1) *
+      window_run_elems<T, NK>(geo.wpb, bias_windows == 1, bias_windows > 1) *
           sizeof(bf16) +
       (table ? geo.wpb * 2 * NK * sizeof(long long) : 0);
   int sms = 0, blocks_per_sm = 0;

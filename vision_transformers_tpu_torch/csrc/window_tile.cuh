@@ -3,7 +3,9 @@
 // bf16 all of them run on the tensor cores, window_mma_tile.cuh); the fp32
 // backward of row 10 (window_attention_bwd.cu) shares its row I/O. For one
 // (window, head)
-//   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 16, 32 or 64,
+//   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 1, 2, 4, 8,
+//   16, 32 or 64 (rows read by 16-byte vectors, or a float2 or a float at
+//   D 2 and 1),
 // with q, k, v read in place from a packed projection whose token rows the
 // caller's RowMap names (row index → q at column h·D, k one section further,
 // v two), so the same body serves the partitioned (G, N, 3·H·D) tensor and
@@ -54,6 +56,39 @@ struct RowIO<float> {
   }
 };
 
+// The vector width of a row of D elements of T: RowIO's 16 bytes, or at a
+// head dim below 4 (fp32 dh 1 and 2) the whole row, whose offsets (h·D, the
+// sections, the rows) keep only D elements' alignment.
+template <typename T, int D>
+__host__ __device__ constexpr int row_vec() {
+  return D < RowIO<T>::kVec ? D : RowIO<T>::kVec;
+}
+
+// V elements of fp32 at p to/from registers: RowIO's 16-byte vector, or a
+// float2 or a float.
+template <int V>
+__device__ __forceinline__ void row_load(const float* p, float* dst) {
+  if constexpr (V == 4) {
+    RowIO<float>::load(p, dst);
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+    dst[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void row_store(float* p, const float* src) {
+  if constexpr (V == 4)
+    RowIO<float>::store(p, src);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(src[0], src[1]);
+  else
+    *p = src[0];
+}
+
 // Tokens of the partitioned (G, N, ·) tensor: window g, token i → row g·N + i.
 struct PackedRows {
   int n;
@@ -70,7 +105,7 @@ __device__ __forceinline__ void stage_kv(
     const T* __restrict__ qkv, const RowMap& map, long long w0, int count,
     int n, long long col, long long sec, long long row_stride,
     float* __restrict__ ks, float* __restrict__ vs) {
-  constexpr int V = RowIO<T>::kVec;
+  constexpr int V = row_vec<T, D>();
   constexpr int C = D / V;
   const int total = count * n * C;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -79,11 +114,11 @@ __device__ __forceinline__ void stage_kv(
     const int w = tok / n, i = tok % n;
     const T* src = qkv + map(w0 + w, i) * row_stride + col + c * V;
     float tmp[V];
-    RowIO<T>::load(src + sec, tmp);
+    row_load<V>(src + sec, tmp);
     float* kd = ks + tok * D + c * V;
 #pragma unroll
     for (int e = 0; e < V; ++e) kd[e] = tmp[e];
-    RowIO<T>::load(src + 2 * sec, tmp);
+    row_load<V>(src + 2 * sec, tmp);
     float* vd = vs + tok * D + c * V;
 #pragma unroll
     for (int e = 0; e < V; ++e) vd[e] = tmp[e];
@@ -94,6 +129,12 @@ __device__ __forceinline__ void stage_kv(
 template <int D>
 __device__ __forceinline__ float dot_row(const float* r,
                                          const float* __restrict__ x) {
+  if constexpr (D < 4) {  // fp32 dh 1 and 2: rows of D floats
+    float a = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) a = fmaf(r[d], x[d], a);
+    return a;
+  }
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float a = 0.f;
 #pragma unroll
@@ -111,6 +152,11 @@ __device__ __forceinline__ float dot_row(const float* r,
 template <int D>
 __device__ __forceinline__ void axpy_row(float c, const float* __restrict__ x,
                                          float* r) {
+  if constexpr (D < 4) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) r[d] = fmaf(c, x[d], r[d]);
+    return;
+  }
   const float4* x4 = reinterpret_cast<const float4*>(x);
 #pragma unroll
   for (int d4 = 0; d4 < D / 4; ++d4) {
@@ -131,12 +177,14 @@ __device__ __forceinline__ void attend_row(
     const T* __restrict__ q_row, const float* __restrict__ ks,
     const float* __restrict__ vs, const B* __restrict__ b_row, int n,
     float scale, T* __restrict__ o_row) {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim must be 16, 32 or 64");
+  static_assert(D == 1 || D == 2 || D == 4 || D == 8 || D == 16 || D == 32 ||
+                    D == 64,
+                "head dim must be 1, 2, 4, 8, 16, 32 or 64");
   static_assert(std::is_same_v<T, float>, "bf16 takes window_mma_tile.cuh");
-  constexpr int V = RowIO<T>::kVec;
+  constexpr int V = row_vec<T, D>();
   float q[D], acc[D];
 #pragma unroll
-  for (int c = 0; c < D / V; ++c) RowIO<T>::load(q_row + c * V, q + c * V);
+  for (int c = 0; c < D / V; ++c) row_load<V>(q_row + c * V, q + c * V);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     q[d] *= scale;
@@ -153,15 +201,19 @@ __device__ __forceinline__ void attend_row(
       const int j = j0 + c;
       float x = -CUDART_INF_F;  // past the window's last key: p = 0
       if (j < n) {
-        const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
         float a = 0.f;
+        if constexpr (D < 4) {
+          a = dot_row<D>(q, ks + j * D);
+        } else {
+          const float4* k4 = reinterpret_cast<const float4*>(ks + j * D);
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kk = k4[d4];
-          a = fmaf(q[4 * d4], kk.x, a);
-          a = fmaf(q[4 * d4 + 1], kk.y, a);
-          a = fmaf(q[4 * d4 + 2], kk.z, a);
-          a = fmaf(q[4 * d4 + 3], kk.w, a);
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 kk = k4[d4];
+            a = fmaf(q[4 * d4], kk.x, a);
+            a = fmaf(q[4 * d4 + 1], kk.y, a);
+            a = fmaf(q[4 * d4 + 2], kk.z, a);
+            a = fmaf(q[4 * d4 + 3], kk.w, a);
+          }
         }
         x = a;
         if (b_row != nullptr) x += to_f32(b_row[j]);
@@ -181,14 +233,18 @@ __device__ __forceinline__ void attend_row(
       if (j < n) {
         const float p = expf(s[c] - m_new);
         l += p;
-        const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
+        if constexpr (D < 4) {
+          axpy_row<D>(p, vs + j * D, acc);
+        } else {
+          const float4* v4 = reinterpret_cast<const float4*>(vs + j * D);
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = v4[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 vv = v4[d4];
+            acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
+            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+          }
         }
       }
     }
@@ -199,7 +255,7 @@ __device__ __forceinline__ void attend_row(
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] *= inv;
 #pragma unroll
-  for (int c = 0; c < D / V; ++c) RowIO<T>::store(o_row + c * V, acc + c * V);
+  for (int c = 0; c < D / V; ++c) row_store<V>(o_row + c * V, acc + c * V);
 }
 
 // Bytes of dynamic shared memory for K and V of p windows.

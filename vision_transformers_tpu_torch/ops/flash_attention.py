@@ -99,20 +99,27 @@ USE_PALLAS_BWD = False
 _PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 
 # Rows 1-7 (the packed, split-head, dropout, streaming and small-S
-# attention kernels, forward and backward) take any head dim from 1 to 128:
-# D 16, 32, 64 and 128 are instantiations of their tiles (rows 1 and 7: 16,
-# 32 and 64), any other D runs in the next one with the columns past D read
-# as zeros (TNT: D 12 and 128; ViT-H/14: D 80). The JAX kernels take any D
-# their VMEM budgets admit; no model of the repo goes above 128.
-ATTENTION_HEAD_DIM_RULE = "1 <= D <= 128"
-# Head dims the kernels of rows 8-13 (the fused block and the window
-# kernels) are instantiated for: their own rules keep to these.
+# attention kernels, forward and backward) take any head dim, as the JAX
+# kernels do: D 16, 32, 64 and 128 are instantiations of their tiles (rows 1
+# and 7: 16, 32 and 64), any other D up to 128 runs in the next one with the
+# columns past D read as zeros (TNT: D 12 and 128; ViT-H/14: D 80), and a D
+# above 128 (any ViT(num_heads=...) whose width allows it: ViT-B/16's
+# widths at 3 heads, D 256) takes csrc/attention_wide_tile.cuh's kernels,
+# D split across the grid in chunks. Row 4 keeps its shape rule
+# (flash_bwd_smem_bytes) on top.
+ATTENTION_HEAD_DIM_RULE = "D >= 1"
+# Head dims the fused block (row 8) is instantiated for: its rule keeps to
+# these (fused_block_supported).
 TILE_HEAD_DIMS = (16, 32, 64)
+# Head dims of the window kernels (rows 9-13), those of the JAX window plans
+# (dh <= 64 dividing 128): 16, 32 and 64 are instantiations of their tiles,
+# 1, 2, 4 and 8 run in the 16 tile with the columns past dh read as zeros.
+WINDOW_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def attention_head_dim_supported(d: int) -> bool:
     """Whether rows 1-7 take head dim ``d`` on the card."""
-    return 1 <= d <= 128
+    return d >= 1
 
 
 # kernel name -> launches since the last reset_launch_counts()
@@ -171,7 +178,8 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
     """What a CUDA kernel takes: a contiguous CUDA tensor of ``dtype``
     (float32 or bfloat16) and a head dim of ``ATTENTION_HEAD_DIM_RULE``
     (rows 1-7), or of ``head_dims`` where a row keeps its own
-    (``TILE_HEAD_DIMS``, rows 8-13); anything else raises ``ValueError``."""
+    (``TILE_HEAD_DIMS``, row 8; ``WINDOW_HEAD_DIMS``, rows 9-13); anything
+    else raises ``ValueError``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
@@ -433,11 +441,12 @@ def packed_flash_attention_fwd(
     """The packed forward → (out, fp32 lse (B, S, H)); no autograd graph.
     ``out`` / ``lse`` (CUDA only): contiguous tensors of those shapes to
     write into instead of new ones. bf16 runs on the tensor cores
-    (``packed_fwd_mma_kernel``; at a dh other than 16, 32 and 64
-    ``packed_fwd_mma_padded_kernel``) and needs qkv and out 16-byte aligned
-    (4-byte for an even dh not a multiple of 8), or the launch raises; fp32
-    on the CUDA cores (``packed_fwd_kernel``, ``packed_fwd_padded_kernel``).
-    dh: ``ATTENTION_HEAD_DIM_RULE``."""
+    (``packed_fwd_mma_kernel``; at a dh other than 16, 32 and 64 up to 128
+    ``packed_fwd_mma_padded_kernel``, above 128 ``packed_fwd_mma_wide_kernel``)
+    and needs qkv and out 16-byte aligned (4-byte for an even dh not a
+    multiple of 8), or the launch raises; fp32 on the CUDA cores
+    (``packed_fwd_kernel``, ``packed_fwd_padded_kernel``,
+    ``packed_fwd_wide_kernel``). dh: ``ATTENTION_HEAD_DIM_RULE``."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if qkv.device.type == "cpu":
@@ -482,8 +491,9 @@ def packed_flash_attention_bwd(
     contiguous tensor like qkv to write into instead of a new one. bf16
     takes the tensor cores (``packed_bwd_dq_mma_kernel``,
     ``packed_bwd_dkv_mma_kernel``; ``*_padded_kernel`` at a dh other than
-    16, 32 and 64), where qkv, do, out and dqkv must be aligned as the
-    forward's operands or the launch raises; fp32 the CUDA cores."""
+    16, 32 and 64 up to 128, ``*_wide_kernel`` above), where qkv, do, out
+    and dqkv must be aligned as the forward's operands or the launch raises;
+    fp32 the CUDA cores."""
     b, s, hd, dh, scale, kv_valid = _packed_dims(qkv, heads, scale, kv_valid)
     rate, seed = _dropout_args(dropout_rate, seed)
     if do.shape != (b, s, hd) or out.shape != (b, s, hd) \
@@ -754,7 +764,9 @@ def flash_dropout_attention_bwd(
     dq, dk, dv = grads
     delta = torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
     is_bf16 = q.dtype == torch.bfloat16
-    chunks = dkv_chunks(b * h, s_q, s_k) if is_bf16 else 1
+    # the wide kernels (d > 128) never split: their grid has ceil(d / 64)
+    # times the dk/dv blocks already
+    chunks = dkv_chunks(b * h, s_q, s_k) if is_bf16 and d <= 128 else 1
     part = None  # the chunks' fp32 partial dk and dv
     if chunks > 1:
         part = torch.empty(2 * chunks * b * h * s_k * d, dtype=torch.float32,
@@ -993,8 +1005,10 @@ def flash_attention_large_fwd(
     one that holds an attended key), fp32 on the CUDA cores; a bf16 q, k, v
     or ``out`` off its copies' grain raises (as
     ``flash_dropout_attention_fwd``'s). D: ``ATTENTION_HEAD_DIM_RULE``, any
-    D but 16, 32, 64 and 128 in the next tile
-    (``flash_large_mma_padded_kernel``, ``flash_large_padded_kernel``)."""
+    other D up to 128 in the next tile
+    (``flash_large_mma_padded_kernel``, ``flash_large_padded_kernel``), above
+    128 split across the grid (``flash_large_mma_wide_kernel``,
+    ``flash_large_wide_kernel``)."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid,
                                                      kv_mask)
     if q.device.type == "cpu":
@@ -1090,9 +1104,11 @@ def flash_attention_bwd(
     products as ``_bwd_kernel`` does; fp32 on the CUDA cores, one launch of
     one block per group. Every output has one owner, so two runs give equal
     bits. On CUDA the shape must pass ``flash_bwd_smem_bytes``'s rule
-    (``ValueError`` otherwise). D: ``ATTENTION_HEAD_DIM_RULE``, any D but
-    16, 32, 64 and 128 in the next tile (``*_padded_kernel``). ``grads``
-    (CUDA only): contiguous (dq, dk, dv) like (q, k, v) to write into."""
+    (``ValueError`` otherwise; from D 437 on it admits no shape). D:
+    ``ATTENTION_HEAD_DIM_RULE``, any other D up to 128 in the next tile
+    (``*_padded_kernel``), above 128 the two passes of ``*_wide_kernel`` in
+    either dtype. ``grads`` (CUDA only): contiguous (dq, dk, dv) like (q, k,
+    v) to write into."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
     if do.shape != q.shape or out.shape != q.shape \
             or lse.shape != (b, h, s_q):
@@ -1122,9 +1138,10 @@ def flash_attention_bwd(
     for name, t, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
         _check_into(name, t, like)
     is_bf16 = q.dtype == torch.bfloat16
-    # δ, written by the bf16 route's first pass and read by its second
+    # δ, written by the two-pass routes' first pass and read by their second
+    # (bf16; fp32 at D > 128)
     delta = (torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
-             if is_bf16 else None)
+             if is_bf16 or d > 128 else None)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd(
@@ -1325,17 +1342,19 @@ def window_route(dtype: torch.dtype, n: int, dh: int,
     12 and 13). ``"tensor_cores"`` (every product on ``mma.sync``:
     ``window_packed_mma_kernel``, ``window_bwd_mma_kernel``,
     ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``,
-    ``window_fused_slab_mma_kernel``) for bf16, ``"cuda_cores"`` for fp32,
-    at every shape the window kernels take: 1 <= N <= 128 tokens and a head
-    dim of ``TILE_HEAD_DIMS``. Any other shape, dtype or kernel raises
-    ``ValueError``. A shape rule, not a fallback: the C entries take the
-    same kernel by the dtype, and a launch on it that fails raises."""
+    ``window_fused_slab_mma_kernel``; dh 1, 2, 4 and 8 in their 16 tile)
+    for bf16, ``"cuda_cores"`` for fp32, at every
+    shape the window kernels take: 1 <= N <= 128 tokens and a head dim of
+    ``WINDOW_HEAD_DIMS`` (the JAX plans' dh <= 64 dividing 128). Any other
+    shape, dtype or kernel raises ``ValueError``. A shape rule, not a
+    fallback: the C entries take the same kernel by the dtype, and a launch
+    on it that fails raises."""
     if kernel not in WINDOW_KERNELS:
         raise ValueError(f"window kernels are {WINDOW_KERNELS}, got {kernel!r}")
-    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in TILE_HEAD_DIMS:
+    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in WINDOW_HEAD_DIMS:
         raise ValueError(
             f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
-            f"dim of {TILE_HEAD_DIMS}, got N = {n}, dh = {dh}")
+            f"dim of {WINDOW_HEAD_DIMS}, got N = {n}, dh = {dh}")
     if dtype == torch.bfloat16:
         return "tensor_cores"
     if dtype == torch.float32:
@@ -1535,16 +1554,25 @@ def window_fused_reference(qkv_map: torch.Tensor,
     return o
 
 
+def window_grain(dh: int, itemsize: int) -> int:
+    """The bytes a window kernel copies a row by, at head dim ``dh``: 16,
+    or a whole row where it is narrower (dh 1-4 in bf16, 1-2 in fp32: the
+    offsets of such rows keep only their own width's alignment)."""
+    return min(16, dh * itemsize)
+
+
 def _check_window_operands(name: str, qkv: torch.Tensor,
                            bias: Optional[torch.Tensor], dh: int,
                            sec: int) -> None:
     """What the CUDA window kernels take: see ``_check_cuda_operand``; rows
-    are read as 16-byte vectors."""
-    _check_cuda_operand("qkv", qkv, qkv.dtype, dh, TILE_HEAD_DIMS)
-    if qkv.data_ptr() % 16 or (sec * qkv.element_size()) % 16:
+    are read by copies of ``window_grain`` bytes, so qkv and its section
+    stride must keep that alignment."""
+    _check_cuda_operand("qkv", qkv, qkv.dtype, dh, WINDOW_HEAD_DIMS)
+    grain = window_grain(dh, qkv.element_size())
+    if qkv.data_ptr() % grain or (sec * qkv.element_size()) % grain:
         raise ValueError(
-            f"{name}: qkv must be 16-byte aligned with sections of a "
-            "multiple of 16 bytes")
+            f"{name}: qkv must be {grain}-byte aligned with sections of a "
+            f"multiple of {grain} bytes")
     if bias is not None:
         _check_same_device(qkv, bias=bias)
 
@@ -1617,10 +1645,12 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
 
     do = do.contiguous()  # arrives as a view of the caller's reverse
     _check_window_operands("window_attention_bwd", qkv, bias, dh, hd)
-    _check_cuda_operand("do", do, qkv.dtype, dh, TILE_HEAD_DIMS)
+    _check_cuda_operand("do", do, qkv.dtype, dh, WINDOW_HEAD_DIMS)
     _check_same_device(qkv, do=do)
-    if do.data_ptr() % 16:
-        raise ValueError("window_attention_bwd: do must be 16-byte aligned")
+    grain = window_grain(dh, qkv.element_size())
+    if do.data_ptr() % grain:
+        raise ValueError(
+            f"window_attention_bwd: do must be {grain}-byte aligned")
     route = window_route(qkv.dtype, n, dh, "bwd")
     if dqkv is None:
         dqkv = torch.empty_like(qkv)
