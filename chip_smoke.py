@@ -11,7 +11,7 @@ exit, and without the final result line:
    kernel of the port built from ``vision_transformers_tpu_torch/csrc``
    (one ``nvcc`` per source, all in parallel), and the registers, shared
    memory, stack and spills ``-Xptxas -v`` gives the kernels of rows 1-15;
-   the kernels of rows 1-7 and 14, on both routes, and the window kernels
+   the kernels of rows 1-8 and 14, on both routes, and the window kernels
    whose text did not change when rows 9-13 took the tensor cores (rows
    9-13 in fp32, and rows 9 and 10's tensor-core kernels, which rows 11-13
    joined on their tile), must keep their
@@ -111,9 +111,10 @@ exit, and without the final result line:
    ``torch._int_mm``); reruns bit-equal; logits against the same artifact
    served on the CPU (``INT8_CPU_TOL_REL``) and features against the float
    model on the card (``INT8_FEATURE_REL``); ``int8_matmul`` on the card
-   bit-equal to the CPU at 5 rows (padded to 17) and at ViT-B's fc1, and its
-   K rule; ms per request at each bucket, images/s at 32, forward device
-   time and idle share, int8 and bf16 in turns.
+   bit-equal to the CPU at 5 rows (padded to 17), at ViT-B's fc1 and at K
+   100, N 36 (zero-padded to multiples of 8); ms per request at each
+   bucket, images/s at 32, forward device time and idle share, int8 and
+   bf16 in turns.
 4. Split-head path: a 2-layer ViT-B-width model at 512 px (S = 1025, where
    ``packed_flash_supported`` is false), through the split-head kernel.
 5. Window path: ``swint_224_imagenet`` and ``swinv2t_224_imagenet`` (full
@@ -237,7 +238,7 @@ exit, and without the final result line:
    D 77 with a key mask; row 3 at ViT-H/14 @518 (S 1370, D 80, no mask), at
    the DETR encoder's masked shape (B 4, H 8, S 4704, COCO masks) with D 80
    and at D 12, 128 and 77; row 4 at ViT-H/14 @224's split-head shape (B 2,
-   H 16, S 257, D 80, which its shared-memory rule admits) and at D 12, 128
+   H 16, S 257, D 80, the fp32 kernel's K and V resident) and at D 12, 128
    and 77. Each row's time at dh 80 (bf16) beside its bound, its plain
    version and SDPA. Then ViT-H/14 at full width and depth in bf16 through
    ``export_classifier`` → ``load_classifier`` → ``predict``: @224 at
@@ -255,12 +256,12 @@ exit, and without the final result line:
    1-7 (their ``*_wide_kernel`` kernels, the head dim split across the
    grid) against their plain versions as in 7d (``RowChecks``) at D 129,
    160, 200, 256 and 512 in bf16 and fp32, rates 0 and 0.1, row 3 with key
-   masks, row 4 at the largest S its shared-memory rule admits (none at D
-   512), and at the shapes of ViT-B/16's widths at 3 heads (dh 256): B 32,
-   S 197 (rows 1, 7), B 4, S 785 (rows 2, 5, 6), B 2, S 1297 (row 3), B 32,
-   S 64 (row 4). Rows 9-13 (their tensor-core kernels in bf16, dh 1-8 in
-   the 16 tile, and the CUDA-core ones in fp32) at dh 1, 2, 4 and 8 at Swin-T's stage shapes with
-   heads C / dh (batch 4): the packed and batched forwards and the backward
+   masks, row 4 at S 256 (its route, the JAX score budget, admits it at
+   every D), and at the shapes of ViT-B/16's widths at 3 heads (dh 256): B
+   32, S 197 (rows 1, 7), B 4, S 785 (rows 2, 5, 6), B 2, S 1297 (row 3), B
+   32, S 64 (row 4; phase 7f takes S 197). Rows 9-13 (their tensor-core
+   kernels in bf16, dh 1-8 in the 16 tile, and the CUDA-core ones in fp32)
+   at dh 1, 2, 4 and 8 at Swin-T's stage shapes with heads C / dh (batch 4): the packed and batched forwards and the backward
    with dbias (dqkv NaN-filled) at stages 1 and 4, the slab and flat fused
    forwards at stages 1 and 2 (NaN-filled), reruns bit-equal, routes by
    name. Each row's time at those model shapes (bf16) beside its bound, its
@@ -276,6 +277,29 @@ exit, and without the final result line:
    package's routes), trained at batch 32 (3 fused-Adam steps, the loss
    falling; row 10 six times a step), in fp32 against the CPU; ms per
    request, forward device time, step ms and idle shares.
+7f. Row 8 at every head dim and row 4 at every shape its route sends it
+   (``fused_phase``). Row 8 at dh 12, 48, 80, 96, 160 and 256
+   (``BLOCK_HEAD_DIMS``: the 16, 64 and 128 tiles and the wide one) at B 8,
+   S 197 and at ViT-B3's B 32, in bf16 (``fused_block_mma_padded_kernel``,
+   ``fused_block_mma_wide_kernel``) and fp32 (``fused_block_padded_kernel``,
+   ``fused_block_wide_kernel``), by kernel name: into NaN-filled outputs
+   against the plain version, reruns and torch's (out, in) weights
+   bit-equal, the tensor-core route's four phases bit-equal to its one
+   launch, beside a planted fault (a 16-wide k slice of Wout inside the
+   width left out). Row 4 at ``ROW4_SHAPES`` (G 96, S 197, D 256; G 16, S
+   512, D 128 and 256) in both dtypes as in 7d (fp32 at S 512, D 128: the
+   streaming passes), and ``flash_attention``'s autograd backward at
+   ViT-B3's split heads under ``USE_PALLAS_BWD`` by name (row 4, no row
+   6). Times (bf16; row 4 also fp32) beside bound, plain and library: row 8
+   at B 32, S 197 at dh 256 (with its phases' device times), 48, 96 and 80,
+   row 4 at the three shapes. ViT-B3 served @224 at buckets 1 and 32 with
+   ``USE_FUSED_BLOCK`` on (12 row-8 launches a forward on
+   ``fused_block_mma_wide_kernel``, no row 1) and off (12 row-1), the
+   flag-on logits within ``LOGIT_TOL_BF16_REL`` of max|logit| of flag off,
+   ms per request, device ms and idle share of both in one process; 2
+   layers in fp32 flag on against the CPU (``FUSED_LOGIT_TOL_FP32``); the
+   2-layer probes of ``FUSED_PROBES`` (dh 48 and 96) at batch 8, flag on
+   against off by the same bound, their route by name.
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -454,6 +478,18 @@ ROUTE_NAMES = {
                                  "drop_bwd_dkv_mma_wide_kernel"),
     ("row 6 wide", "float32"): ("drop_bwd_dq_wide_kernel",
                                 "drop_bwd_dkv_wide_kernel"),
+    # row 8 at any other head dim up to 128 (the next tile) and above 128
+    ("row 8 padded", "bfloat16"): ("fused_block_mma_padded_kernel",),
+    ("row 8 padded", "float32"): ("fused_block_padded_kernel",),
+    ("row 8 wide", "bfloat16"): ("fused_block_mma_wide_kernel",),
+    ("row 8 wide", "float32"): ("fused_block_wide_kernel",),
+    # row 4 in fp32 past the resident kernel's shared memory (S 512 at D
+    # 128): the streaming passes, attention_wide_tile.cuh's fp32 bodies;
+    # bf16 streams in its own two passes at every shape
+    ("row 4 streamed", "bfloat16"): ("flash_bwd_dq_mma_kernel",
+                                     "flash_bwd_dkv_mma_kernel"),
+    ("row 4 streamed", "float32"): ("flash_bwd_dq_wide_kernel",
+                                    "flash_bwd_dkv_wide_kernel"),
     ("row 9", "bfloat16"): ("window_packed_mma_kernel",),
     ("row 9", "float32"): ("window_packed_kernel",),
     ("row 10", "bfloat16"): ("window_bwd_mma_kernel",),
@@ -480,6 +516,10 @@ MODEL_GRAD_TOL = 1e-4
 # largest reference logit.
 LOGIT_TOL_FP32 = 1e-3
 LOGIT_TOL_BF16_REL = 5e-2
+# The flag-on fp32 forward of ViT-B3 at 2 layers, card against the CPU's
+# plain version: summation order through two blocks (phase 7e saw 5.1e-6 at
+# max|ref| 3.8 on the unfused path).
+FUSED_LOGIT_TOL_FP32 = 1e-4
 # int8 (w8a8) serving, ViT-B/16 @224 in bf16. The card's logits against the
 # same artifact served on the CPU: both quantize the same way and their int8
 # products are exact, so they differ only where the bf16 float parts (LN,
@@ -1270,6 +1310,60 @@ KEPT_REGISTERS = {
     "window_bwd_mma_kernel<64, 32>": 128,
     "window_bwd_mma_kernel<64, 64>": 127,
     "window_bwd_mma_kernel<64, 128>": 207,
+    # row 8 at every head dim, both routes: the cooperative kernels
+    # and the measurement-only phase kernels (Tile 0 exact, 1 padded, 2
+    # wide); the first build's counts (ptxas: the 16-64 tiles at the 128
+    # registers of two 256-thread blocks an SM, 28-64 bytes spilled as the
+    # dh-64 kernel before them; the 128 and wide tiles at one block an SM
+    # without spill; fp32 at 128 and the wide tile 40 and 28 bytes)
+    "fused_block_kernel<float, 16>": 92,
+    "fused_block_kernel<float, 32>": 91,
+    "fused_block_kernel<float, 64>": 106,
+    "fused_block_padded_kernel<float, 16>": 92,
+    "fused_block_padded_kernel<float, 32>": 91,
+    "fused_block_padded_kernel<float, 64>": 106,
+    "fused_block_padded_kernel<float, 128>": 168,
+    "fused_block_wide_kernel<float>": 128,
+    "fused_block_kernel<__nv_bfloat16, 16>": 92,
+    "fused_block_kernel<__nv_bfloat16, 32>": 91,
+    "fused_block_kernel<__nv_bfloat16, 64>": 106,
+    "fused_block_padded_kernel<__nv_bfloat16, 16>": 92,
+    "fused_block_padded_kernel<__nv_bfloat16, 32>": 91,
+    "fused_block_padded_kernel<__nv_bfloat16, 64>": 106,
+    "fused_block_padded_kernel<__nv_bfloat16, 128>": 168,
+    "fused_block_wide_kernel<__nv_bfloat16>": 128,
+    "fused_block_mma_kernel<16, false>": 128,
+    "fused_block_mma_kernel<32, false>": 128,
+    "fused_block_mma_kernel<64, false>": 128,
+    "fused_block_mma_padded_kernel<16, false>": 128,
+    "fused_block_mma_padded_kernel<32, false>": 128,
+    "fused_block_mma_padded_kernel<64, false>": 128,
+    "fused_block_mma_padded_kernel<128, false>": 228,
+    "fused_block_mma_wide_kernel<false>": 246,
+    "fused_block_mma_phase_kernel<(Tile)0, 16, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)0, 32, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)0, 64, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 16, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 32, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 64, false>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 128, false>": 226,
+    "fused_block_mma_phase_kernel<(Tile)2, 0, false>": 246,
+    "fused_block_mma_kernel<16, true>": 128,
+    "fused_block_mma_kernel<32, true>": 128,
+    "fused_block_mma_kernel<64, true>": 128,
+    "fused_block_mma_padded_kernel<16, true>": 128,
+    "fused_block_mma_padded_kernel<32, true>": 128,
+    "fused_block_mma_padded_kernel<64, true>": 128,
+    "fused_block_mma_padded_kernel<128, true>": 228,
+    "fused_block_mma_wide_kernel<true>": 246,
+    "fused_block_mma_phase_kernel<(Tile)0, 16, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)0, 32, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)0, 64, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 16, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 32, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 64, true>": 128,
+    "fused_block_mma_phase_kernel<(Tile)1, 128, true>": 226,
+    "fused_block_mma_phase_kernel<(Tile)2, 0, true>": 246,
 }
 # The global loads of fused_block_kernel<float, D> (row 8's CUDA-core route)
 # that took the non-coherent path (SASS .CONSTANT) before its phases read the
@@ -1309,15 +1403,31 @@ def ptxas_usage(build_log):
                            capture_output=True, text=True, timeout=60,
                            check=True).stdout.splitlines()
     for f, name in zip(found, names):
-        f[1] = name.replace("(anonymous namespace)::", "").split("(")[0] \
-            .removeprefix("void ")
+        f[1] = _kernel_name(name.replace("(anonymous namespace)::", ""))
     return [tuple(f) for f in found]
+
+
+def _kernel_name(demangled):
+    """``void k<T, 16>(Params)`` → ``k<T, 16>``: the name up to its
+    argument list, template arguments kept whole (an enum argument prints
+    as ``(Tile)1``)."""
+    depth = 0
+    for i, ch in enumerate(demangled):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            demangled = demangled[:i]
+            break
+    return demangled.removeprefix("void ")
 
 
 def sass_global_loads(lib, kernel_re):
     """{D: (global loads, of them .CONSTANT, of them .STRONG.GPU)} of the
     kernels of the library ``lib`` whose mangled names match ``kernel_re``
-    (its group 1 the head dim), from ``cuobjdump -sass``: .CONSTANT is the
+    (its group 1 the head dim; 0 for a pattern without a group), from
+    ``cuobjdump -sass``: .CONSTANT is the
     non-coherent path (ld.global.nc), .STRONG.GPU the loads through L2
     (ld.global.cg, ``__ldcg``)."""
     from vision_transformers_tpu_torch.ops import _build
@@ -1330,7 +1440,7 @@ def sass_global_loads(lib, kernel_re):
         m = re.search(r"Function : (\S+)", line)
         if m:
             k = re.search(kernel_re, m.group(1))
-            d = int(k.group(1)) if k else None
+            d = (int(k.group(1)) if k.lastindex else 0) if k else None
             if d is not None:
                 found[d] = [0, 0, 0]
             continue
@@ -1778,7 +1888,7 @@ class RowChecks:
 
         name = str(dtype).removeprefix("torch.")
         require(fa.flash_bwd_supported(s, s, d), f"{self.tag} {label}: row 4's "
-                "shared-memory rule admits the shape")
+                "route admits the shape")
         q, k, v, do = (self.randn(600 + 4 * d + i, b, h, s, d, dtype=dtype)
                        for i in range(4))
         out, lse = fa.flash_attention_reference(q, k, v)
@@ -2252,13 +2362,14 @@ def wide_phase(det_keep):
                                 rate, rate > 0)
             chk.check_large(f"B2 H2 S1300 D{d} masked", 2, 2, 1300, 1300, d,
                             dtype, keep=det_keep[:2, :1300])
+            # row 4's route is the JAX score budget at every D (phase 7f
+            # holds it at the shapes the old shared-memory rule refused)
             fits = [s for s in range(16, 257, 16)
                     if fa.flash_bwd_supported(s, s, d)]
-            require(bool(fits) == (d < 437), f"row 4's rule at D {d}: "
-                    f"largest S {fits[-1] if fits else None}")
-            if fits:
-                chk.check_small_bwd(f"B2 H2 S{fits[-1]} D{d}", 2, 2,
-                                    fits[-1], d, dtype)
+            require(fits[-1] == 256, f"row 4's route at D {d}: largest S "
+                    f"{fits[-1]}")
+            chk.check_small_bwd(f"B2 H2 S{fits[-1]} D{d}", 2, 2, fits[-1], d,
+                                dtype)
         # the path shapes of ViT-B/16's widths at 3 heads
         for rate in (0.0, 0.1):
             chk.check_packed("ViT-B3@224 B32 S197 H3 dh256", 32, 197, 3, 256,
@@ -2439,8 +2550,8 @@ def wide_phase(det_keep):
         cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
         4 * io + b * h * s * 4, 4 * b * h * s * s * d)
     del q, k, v
-    # row 4 at ViT-B3's split heads (G 96 at batch 32) at S 64, the largest
-    # its shared-memory rule admits at D 256
+    # row 4 at ViT-B3's split heads (G 96 at batch 32) at S 64 (phase 7f
+    # times S 197)
     b, h, s, d = 32, 3, 64, 256
     q, k, v, do = (randn(930 + i, b, h, s, d, dtype=bf16) for i in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v)
@@ -2750,6 +2861,400 @@ def wide_phase(det_keep):
     return totals, times, errs, numbers
 
 
+def block_inputs(randn, seed, b, s, hd, dtype):
+    """Row 8's operands from ``randn(seed, *shape, dtype=)``: x (B, S, hd)
+    in dtype; fp32 rows gamma, beta, bqkv, bout; Wqkv and Wout (in, out) in
+    dtype."""
+    import torch
+
+    fp32 = torch.float32
+    x = randn(seed, b, s, hd, dtype=dtype)
+    rows = [1 + 0.1 * randn(seed + 1, hd, dtype=fp32),
+            0.1 * randn(seed + 2, hd, dtype=fp32),
+            0.1 * randn(seed + 3, 3 * hd, dtype=fp32),
+            0.1 * randn(seed + 4, hd, dtype=fp32)]
+    w = [(randn(seed + 5, hd, 3 * hd, dtype=fp32) / hd ** 0.5).to(dtype),
+         (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
+    return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
+
+
+def library_block(x, g, be, wqkv, bqkv, wout, bout, h):
+    """Row 8's library chain: LN -> F.linear -> SDPA -> F.linear +
+    residual (its yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    b, s, hd = x.shape
+    xn = F.layer_norm(x, (hd,), g.to(x.dtype), be.to(x.dtype), 1e-6)
+    qkv = F.linear(xn, wqkv.t(), bqkv.to(x.dtype))
+    q, k, v = (t.view(b, s, h, hd // h).transpose(1, 2)
+               for t in qkv.split(hd, dim=-1))
+    o = F.scaled_dot_product_attention(q, k, v)
+    return x + F.linear(o.transpose(1, 2).reshape(b, s, hd), wout.t(),
+                        bout.to(x.dtype))
+
+
+# Row 8 at head dims other than 16, 32 and 64 (phase 7f): (dh, heads) at
+# B 8, S 197, the card tests' dims (the 16, 64 and 128 tiles, the wide one);
+# ViT-B3 (dh 256) also at its path shape, B 32.
+BLOCK_HEAD_DIMS = ((12, 8), (48, 8), (80, 16), (96, 8), (160, 4), (256, 3))
+# Row 4 at the shapes the shared-memory rule refused before its route became
+# the JAX score budget: (G, S, D).
+ROW4_SHAPES = ((96, 197, 256), (16, 512, 128), (16, 512, 256))
+# Two 2-layer probes of the flag-on path at 224 px, flag on against off:
+# CaiT-S's attention widths (arXiv:2103.17239; hidden 384, 8 heads, dh 48:
+# the 64 tile) and ViT-B/16's widths at 8 heads (dh 96: the 128 tile).
+FUSED_PROBES = {"dh48": dict(patch_size=16, num_layers=2, num_heads=8,
+                             hidden_dim=384, mlp_dim=1536,
+                             num_classes=1000),
+                "dh96": dict(patch_size=16, num_layers=2, num_heads=8,
+                             hidden_dim=768, mlp_dim=3072,
+                             num_classes=1000)}
+
+
+def block_route(dh: int) -> str:
+    """The ROUTE_NAMES row that row 8 takes at head dim dh."""
+    return "row 8" if dh in (16, 32, 64) else \
+        "row 8 wide" if dh > 128 else "row 8 padded"
+
+
+def row4_route(s: int, d: int, dtype: str) -> str:
+    """The ROUTE_NAMES row that row 4 takes at a square S and head dim d:
+    above 128 the wide passes; fp32 past the resident kernel's shared memory
+    the streaming ones (bf16 streams in its own passes at every shape)."""
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    if d > 128:
+        return "row 4 wide"
+    if dtype == "float32" and fa.flash_bwd_smem_bytes(s, s, d) > fa._SMEM_LIMIT:
+        return "row 4 streamed"
+    return vith_route("row 4", d)
+
+
+def fused_phase():
+    """Phase 7f: row 8 at head dims other than 16, 32 and 64 on both routes
+    and row 4 at every shape its route (the JAX score budget) sends it,
+    against their plain versions; their times beside bound, plain and
+    library; the autograd backward of ``flash_attention`` at ViT-B3's
+    split-head shape under ``USE_PALLAS_BWD`` (row 4, not row 6); ViT-B3
+    served at 224 px with ``USE_FUSED_BLOCK`` on (row 8 twelve times a
+    forward, row 1 never) and off, fp32 at 2 layers against the CPU, and
+    the two probes of FUSED_PROBES, flag on against off. Returns (the
+    launches of its model runs by wrapper, times by wrapper name, the
+    checks' errors, the model numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformers_tpu_torch import serving
+    from vision_transformers_tpu_torch.models.image_classification import ViT
+    from vision_transformers_tpu_torch.models.image_classification import (
+        vanilla_vit as vv,
+    )
+    from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs, times, runs, numbers = {}, {}, [], {}
+    randn = RowChecks("fused", vith_route, errs).randn
+
+    # ---- row 8 at every head dim -------------------------------------------
+    def check_block(label, b, s, h, dh, dtype):
+        """Row 8 into a NaN-filled output against its plain version, the
+        route by kernel name, a rerun and torch's (out, in) weights
+        bit-equal, the tensor-core route's four phases bit-equal to its one
+        launch; beside the limit a planted fault, the plain output with a
+        16-wide k slice of Wout inside the width (k 368 .. 383, or the last
+        16 of a narrower one) left out, which must exceed it."""
+        name = str(dtype).removeprefix("torch.")
+        hd = h * dh
+        args = block_inputs(randn, 170 + dh, b, s, hd, dtype)
+        x, g, be, wqkv, bqkv, wout, bout = args
+        require(fa.fused_block_supported(hd, h), f"row 8 admits {label}")
+        route = fa.fused_block_route(dtype, hd, h,
+                                     (*wqkv.stride(), *wout.stride()))
+        got = []
+        require_route(f"fused {label} {name}", lambda: got.append(
+            fa.fused_attention_block_fwd(
+                *args, h, out=torch.full_like(x, float("nan")))),
+            [(block_route(dh), name)])
+        out = got[0]
+        want = fa.fused_attention_block_reference(*args, h)
+        again = fa.fused_attention_block_fwd(*args, h)
+        out_in = fa.fused_attention_block_fwd(
+            x, g, be, wqkv.t().contiguous().t(), bqkv,
+            wout.t().contiguous().t(), bout, h)
+        k0 = min(368, hd - 16)
+        cut = wout.clone()
+        cut[k0:k0 + 16] = 0
+        e_fault = max_err(fa.fused_attention_block_reference(
+            x, g, be, wqkv, bqkv, cut, bout, h), want)
+        torch.cuda.synchronize()
+        e = max_err(out, want)
+        tol = KERNEL_TOL[name] * max(1.0, want.float().abs().max().item())
+        errs[("fused_block", label, name)] = e
+        log(f"fused fused_attention_block {label} {name} ({route}): "
+            f"max|out-plain| {e:.3e} (tol {tol:.3e}, k {k0}..{k0 + 15} of "
+            f"Wout left out {e_fault:.3e}), every element written, rerun "
+            "and (out, in) weights bit-equal")
+        require(e_fault > tol, f"fused_attention_block {label} {name}: a "
+                f"16-wide k slice of Wout left out ({e_fault:.3e}) would "
+                f"pass the limit {tol:.3e}")
+        require(not bool(torch.isnan(out.float()).any())
+                and torch.equal(again, out) and torch.equal(out_in, out)
+                and e <= tol,
+                f"fused_attention_block {label} {name}: every element "
+                "written, reruns and the (out, in) layout bit-equal, within "
+                "tolerance of the plain version")
+        require(route == ("tensor_cores" if dtype == bf16 else "cuda_cores"),
+                f"fused_attention_block {label} {name}: route {route}")
+        if route == "tensor_cores":
+            require(torch.equal(fa._measure_fused_block_phases(
+                        *args, h, (0, 1, 2, 3)), out),
+                    f"fused_attention_block {label}: the one cooperative "
+                    "launch bit-equal to its four phases launched in order")
+
+    for dtype in (bf16, fp32):
+        for dh, h in BLOCK_HEAD_DIMS:
+            check_block(f"B8 S197 H{h} dh{dh}", 8, 197, h, dh, dtype)
+        check_block("ViT-B3 B32 S197 H3 dh256", 32, 197, 3, 256, dtype)
+    log(f"fused row 8 checks in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- row 4 at every routed shape ---------------------------------------
+    for dtype in (bf16, fp32):
+        name = str(dtype).removeprefix("torch.")
+        for g, s, d in ROW4_SHAPES:
+            chk = RowChecks("fused", lambda row, d_, s=s, name=name:
+                            row4_route(s, d_, name), errs)
+            chk.check_small_bwd(f"G{g} S{s} D{d}", 1, g, s, d, dtype)
+    # flash_attention's autograd backward at ViT-B3's split heads under
+    # USE_PALLAS_BWD: row 4, not row 6
+    q, k, v = (randn(180 + i, 32, 3, 197, 256, dtype=bf16).requires_grad_()
+               for i in range(3))
+    fa.USE_PALLAS_BWD = True
+    try:
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        _build.reset_launched()
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+        taken = _build.launched()
+    finally:
+        fa.USE_PALLAS_BWD = False
+    require(set(ROUTE_NAMES[("row 4 wide", "bfloat16")]) <= set(taken)
+            and not any(n.startswith("drop_bwd") for n in taken),
+            f"flash_attention's backward at ViT-B3's split heads under "
+            f"USE_PALLAS_BWD launches row 4, not row 6: {taken}")
+    log(f"route fused flash_attention backward B32 H3 S197 D256 under "
+        f"USE_PALLAS_BWD: {taken} (row 4, no row 6)")
+    del q, k, v, out
+    log(f"fused row 4 checks done at {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- times (bf16) -------------------------------------------------------
+    def put(name, key, k_ms, p_ms, l_ms, nbytes, flops, dtype="bfloat16"):
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        times.setdefault(name, {}).update({
+            f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+            f"{key}_library_ms": l_ms, f"{key}_bound_ms": bnd,
+            f"{key}_bound_by": by, f"{key}_tflops": flops / k_ms / 1e9})
+        log(f"fused time {name} {key}: kernel {k_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}), plain {p_ms:.4f} ms, library "
+            f"{l_ms:.4f} ms, {flops / k_ms / 1e9:.1f} TFLOP/s")
+
+    for key, h, dh in (("vitb3_b32_s197_h3_dh256", 3, 256),
+                       ("caits_b32_s197_h8_dh48", 8, 48),
+                       ("b32_s197_h8_dh96", 8, 96),
+                       ("vith14_b32_s197_h16_dh80", 16, 80)):
+        hd = h * dh
+        blk = block_inputs(randn, 190 + dh, 32, 197, hd, bf16)
+        put("fused_attention_block", key,
+            cuda_ms(lambda: fa.fused_attention_block_fwd(*blk, h)),
+            cuda_ms(lambda: fa.fused_attention_block_reference(*blk, h),
+                    iters=5),
+            cuda_ms(lambda: library_block(*blk, h)),
+            (2 * 32 * 197 * hd + 4 * hd * hd) * 2 + 6 * hd * 4,
+            2 * 32 * 197 * hd * 4 * hd + 4 * 32 * 197 * 197 * hd)
+        if key.startswith("vitb3"):
+            dev_ms = queued_ms(
+                [lambda: fa.fused_attention_block_fwd(*blk, h)]
+                + [lambda p=p: fa._measure_fused_block_phases(*blk, h, (p,))
+                   for p in range(4)])
+            times["fused_attention_block"].update(
+                {f"{key}_device_ms": dev_ms[0],
+                 **{f"{key}_phase{i}_ms": t for i, t in
+                    enumerate(dev_ms[1:])}})
+            log(f"fused row 8 at ViT-B3 B 32, device time: one launch "
+                f"{dev_ms[0]:.4f} ms; its phases launched alone "
+                f"{', '.join(f'{t:.4f}' for t in dev_ms[1:])} ms (statistics, "
+                f"LN + QKV, attention, out-projection)")
+        del blk
+
+    def sdpa_grad(q_, k_, v_, do_):
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        o = F.scaled_dot_product_attention(*leaves)
+        return lambda: torch.autograd.grad(o, leaves, do_, retain_graph=True)
+
+    for g, s, d in ROW4_SHAPES:
+        for dtype in (bf16, fp32):
+            name = str(dtype).removeprefix("torch.")
+            q, k, v, do = (randn(200 + i, 1, g, s, d, dtype=dtype)
+                           for i in range(4))
+            out, lse = fa.flash_attention_fwd(q, k, v)
+            io = g * s * d * dtype.itemsize
+            key = f"g{g}_s{s}_d{d}" + ("" if dtype == bf16 else "_fp32")
+            put("flash_attention_bwd", key,
+                cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                       do)),
+                cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do), iters=3),
+                cuda_ms(sdpa_grad(q, k, v, do)),
+                8 * io + g * s * 4, 10 * g * s * s * d, dtype=name)
+            del q, k, v, do, out, lse
+    log(f"fused times done at {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the models ---------------------------------------------------------
+    rng = np.random.RandomState(20)
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append(dict(fa.LAUNCHES))
+        return out, runs[-1]
+
+    def nonzero(launches):
+        return {k: v for k, v in launches.items() if v}
+
+    vit = ViT(image_size=224, **VITB3, dtype="bfloat16")
+    weights = seeded_state_dict(vit, seed=256)
+    vit.load_state_dict(weights)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        serving.export_classifier(vit, (224, 224, 3), tmp, buckets=(1, 32),
+                                  dtype=fp32)
+        clf = serving.load_classifier(tmp)
+    del vit
+    clf.warmup()
+    x = rng.standard_normal((32, 224, 224, 3)).astype(np.float32)
+    try:
+        for bkt in (1, 32):
+            logits = {}
+            for flag in (True, False):
+                vv.USE_FUSED_BLOCK = flag
+                logits[flag], la = counted(lambda: clf.predict(x[:bkt]))
+                want = ({"fused_attention_block": 12} if flag
+                        else {"packed_attention": 12})
+                require(nonzero(la) == want
+                        and bool(torch.isfinite(logits[flag].float()).all()),
+                        f"ViT-B3 @224 bucket {bkt} USE_FUSED_BLOCK={flag}: "
+                        f"finite logits, launches {want} a forward: {la}")
+                require_route(
+                    f"ViT-B3 @224 bucket {bkt} USE_FUSED_BLOCK={flag}",
+                    lambda: clf.predict(x[:bkt]),
+                    [("row 8 wide" if flag else "row 1 wide", "bfloat16")])
+                for _ in range(2):
+                    clf.predict(x[:bkt]).float().cpu()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    clf.predict(x[:bkt]).float().cpu()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+                with torch.inference_mode():
+                    xb = torch.from_numpy(x[:bkt]).to(dev)
+                    dev_ms = cuda_ms(lambda: clf.model(xb), iters=5,
+                                     warmup=1)
+                wall, busy, count, _ = device_profile(
+                    lambda: clf.predict(x[:bkt]).float().cpu())
+                idle = None if busy is None else 1 - busy / wall
+                numbers[f"ViT-B3 flag {'on' if flag else 'off'} b{bkt}"] = \
+                    dict(ms=ms, device_ms=dev_ms, idle=idle)
+                log(f"ViT-B3 @224 bf16 USE_FUSED_BLOCK={flag} served bucket "
+                    f"{bkt}: {ms:.3f} ms per request (host numpy in, logits "
+                    f"out), forward device time {dev_ms:.3f} ms; profile "
+                    + ("saw no device activity" if busy is None else
+                       f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} "
+                       f"activities, idle share {idle:.3f}"))
+            scale = logits[False].float().abs().max().item()
+            e = max_err(logits[True], logits[False])
+            numbers[f"ViT-B3 flag on vs off b{bkt}"] = dict(err=e, scale=scale)
+            log(f"ViT-B3 @224 bucket {bkt}: flag on against off max|logit "
+                f"diff| {e:.3e} (tol {LOGIT_TOL_BF16_REL} x max|ref| "
+                f"{scale:.3f})")
+            require(e <= LOGIT_TOL_BF16_REL * scale,
+                    f"ViT-B3 @224 bucket {bkt}: flag-on logits within "
+                    f"{LOGIT_TOL_BF16_REL} x max|logit| of flag off")
+        del clf
+
+        # 2 layers in fp32, flag on: the card's CUDA-core route against the
+        # CPU's plain version
+        vv.USE_FUSED_BLOCK = True
+        two = {k: v_ for k, v_ in weights.items()
+               if not re.search(r"encoder_layer_([2-9]|1\d)\.", k)}
+        card2 = ViT(image_size=224, **dict(VITB3, num_layers=2))
+        card2.load_state_dict(two)
+        cpu2 = ViT(image_size=224, **dict(VITB3, num_layers=2), device="cpu")
+        cpu2.load_state_dict(two)
+        x2 = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+        with torch.no_grad():
+            got2, la2 = counted(lambda: card2(torch.from_numpy(x2).to(dev)))
+            require_route("ViT-B3 2 layers fp32 flag-on forward",
+                          lambda: card2(torch.from_numpy(x2).to(dev)),
+                          [("row 8 wide", "float32")])
+            want2 = cpu2(torch.from_numpy(x2))
+        e2 = max_err(got2.cpu(), want2)
+        numbers["vitb3_2layers_fp32_flag_on_err"] = e2
+        log(f"ViT-B3 2 layers fp32 USE_FUSED_BLOCK=True, card against the "
+            f"CPU's plain version: max|logit diff| {e2:.3e} (tol "
+            f"{FUSED_LOGIT_TOL_FP32}, max|ref| "
+            f"{want2.abs().max().item():.3f}), launches {nonzero(la2)}")
+        require(e2 <= FUSED_LOGIT_TOL_FP32
+                and nonzero(la2) == {"fused_attention_block": 2},
+                "ViT-B3 2 layers fp32 flag on, on the card against the CPU")
+        del card2, cpu2, two, weights
+
+        # the probes: 2 layers in bf16, flag on against off
+        for label, cfg in FUSED_PROBES.items():
+            m = ViT(image_size=224, **cfg, dtype="bfloat16")
+            m.load_state_dict(seeded_state_dict(m, seed=cfg["hidden_dim"]))
+            xp = torch.from_numpy(rng.standard_normal(
+                (8, 224, 224, 3)).astype(np.float32)).to(dev)
+            dh = cfg["hidden_dim"] // cfg["num_heads"]
+            outs = {}
+            with torch.no_grad():
+                for flag in (True, False):
+                    vv.USE_FUSED_BLOCK = flag
+                    outs[flag], la = counted(lambda: m(xp))
+                    attn = la["packed_attention"] + la["flash_attention"]
+                    require(la["fused_attention_block"] == (2 if flag else 0)
+                            and attn == (0 if flag else 2),
+                            f"probe {label} flag {flag}: 2 row-8 launches "
+                            f"(flag on) or 2 attention forwards (off): {la}")
+                vv.USE_FUSED_BLOCK = True
+                require_route(f"probe {label} dh{dh} flag-on forward",
+                              lambda: m(xp), [(block_route(dh), "bfloat16")])
+            scale = outs[False].float().abs().max().item()
+            e = max_err(outs[True], outs[False])
+            numbers[f"probe {label}"] = dict(err=e, scale=scale)
+            log(f"probe {label} (hidden {cfg['hidden_dim']}, "
+                f"{cfg['num_heads']} heads, dh {dh}, 2 layers, bf16, B 8): "
+                f"flag on against off max|logit diff| {e:.3e} (tol "
+                f"{LOGIT_TOL_BF16_REL} x max|ref| {scale:.3f})")
+            require(e <= LOGIT_TOL_BF16_REL * scale,
+                    f"probe {label}: flag-on logits within "
+                    f"{LOGIT_TOL_BF16_REL} x max|logit| of flag off")
+            del m, xp
+    finally:
+        vv.USE_FUSED_BLOCK = False
+
+    times.setdefault("fused_attention_block", {})["head_dims_max_abs_err"] = \
+        max(v for k, v in errs.items()
+            if k[0] == "fused_block" and k[-1] == "bfloat16")
+    times.setdefault("flash_attention_bwd", {})["routed_max_abs_err"] = max(
+        v for k, v in errs.items() if k[0] == "row 4" and "bfloat16" in k)
+    totals = {k: sum(r.get(k, 0) for r in runs) for k in fa.LAUNCHES}
+    log(f"fused phase in {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{nonzero(totals)}")
+    return totals, times, errs, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2840,7 +3345,7 @@ def main() -> int:
     require(kept == KEPT_REGISTERS, "the kernels of KEPT_REGISTERS keep "
             "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
-    log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-7 and 14, "
+    log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-8 and 14, "
         "both routes; rows 9-13 in fp32, rows 9 and 10 on the tensor cores) "
         "at their registers")
     # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
@@ -2857,6 +3362,22 @@ def main() -> int:
                     for d_, (_, n_nc, n_l2) in loads.items()),
             f"fused_block_kernel<float, D> reads its workspaces through L2: "
             f"{loads}")
+    # and so do its instantiations at the other head dims (the padded tiles
+    # and the wide one): no .CONSTANT load at all
+    for kernel, pattern, dims in (
+            ("fused_block_padded_kernel<float, {}>",
+             r"fused_block_padded_kernelIfLi(\d+)E", [16, 32, 64, 128]),
+            ("fused_block_wide_kernel<float>{}", r"fused_block_wide_kernelIfE",
+             [0])):
+        loads = sass_global_loads(_build._lib_path("fused_block"), pattern)
+        for d_, (n_ldg, n_nc, n_l2) in loads.items():
+            log(f"sass {kernel.format(d_ or '')}: {n_ldg} global loads, "
+                f"{n_nc} .CONSTANT, {n_l2} .STRONG.GPU (through L2)")
+        require(sorted(loads) == dims
+                and all(n_l2 > 0 and n_nc == 0
+                        for _, n_nc, n_l2 in loads.values()),
+                f"{kernel.format('D')} reads its workspaces through L2, "
+                f"never by the non-coherent path: {loads}")
 
     # ---- 2. kernels against their plain versions -------------------------
     def randn(seed, *shape, dtype):
@@ -3590,17 +4111,6 @@ def main() -> int:
                         dtype)
     del qm, km, vm, got, want
 
-    def block_inputs(seed, b, s, hd, dtype):
-        """Row 8's operands: x (B, S, hd) in dtype; fp32 rows gamma, beta,
-        bqkv, bout; Wqkv and Wout (in, out) in dtype."""
-        x = randn(seed, b, s, hd, dtype=dtype)
-        rows = [1 + 0.1 * randn(seed + 1, hd, dtype=fp32),
-                0.1 * randn(seed + 2, hd, dtype=fp32),
-                0.1 * randn(seed + 3, 3 * hd, dtype=fp32),
-                0.1 * randn(seed + 4, hd, dtype=fp32)]
-        w = [(randn(seed + 5, hd, 3 * hd, dtype=fp32) / hd ** 0.5).to(dtype),
-             (randn(seed + 6, hd, hd, dtype=fp32) / hd ** 0.5).to(dtype)]
-        return x, rows[0], rows[1], w[0], rows[2], w[1], rows[3]
 
     # rows 1-8 and 14: bf16 on the tensor-core kernels, fp32 on the
     # CUDA-core ones, by the kernels' names in the launch logs; then the
@@ -3618,7 +4128,7 @@ def main() -> int:
         x_r = randn(91, 300, 64, dtype=dtype)
         ones = torch.ones(64, device=dev)
         w_r = randn(92, 64, 128, dtype=dtype)
-        blk_r = block_inputs(94, 2, 150, 256, dtype)
+        blk_r = block_inputs(randn, 94, 2, 150, 256, dtype)
         blk_t = (*blk_r[:3], blk_r[3].t().contiguous().t(), blk_r[4],
                  blk_r[5].t().contiguous().t(), blk_r[6])
         require_route(f"wrappers {name}", lambda: (
@@ -3908,7 +4418,7 @@ def main() -> int:
         16-wide slice of the out-projection) left out, which must exceed
         it."""
         name = str(dtype).removeprefix("torch.")
-        args = block_inputs(110, b, s, h * dh, dtype)
+        args = block_inputs(randn, 110, b, s, h * dh, dtype)
         x, g, be, wqkv, bqkv, wout, bout = args
         route = fa.fused_block_route(dtype, h * dh, h,
                                      (*wqkv.stride(), *wout.stride()))
@@ -3976,7 +4486,7 @@ def main() -> int:
     errs[("fused_block", "grad")] = autograd_err(
         "fused_attention_block B2 S197 H12", fa.fused_attention_block,
         fa.fused_attention_block_reference,
-        list(block_inputs(130, 2, 197, 768, fp32)), heads=12)
+        list(block_inputs(randn, 130, 2, 197, 768, fp32)), heads=12)
 
     # ---- 3. main path: ViT-B/16 @224 served in bf16 ----------------------
     args = get_args("vitb16_224_imagenet")
@@ -4144,8 +4654,9 @@ def main() -> int:
     del f8, f16, l16, fmodel
     # int8_matmul on the card against the CPU, bit-equal (exact int32
     # products, the same fp32 steps), at 5 rows (padded to torch._int_mm's
-    # 17 on CUDA) and at ViT-B's fc1 (6304 x 768 -> 3072); a K off the
-    # multiple of 8 raises
+    # 17 on CUDA) and at ViT-B's fc1 (6304 x 768 -> 3072); K and N off the
+    # multiple of 8 (K 100, N 36) are zero-padded on both devices, bit-equal
+    # too
     for rows in (5, 32 * 197):
         xm = randn(130, rows, 768, dtype=bf16)
         wq, ws = quant.quantize_kernel(randn(131, 3072, 768, dtype=fp32))
@@ -4154,11 +4665,19 @@ def main() -> int:
         want = quant.int8_matmul(xm.cpu(), wq.cpu(), ws.cpu(), bm.cpu())
         require(torch.equal(got.cpu(), want),
                 f"int8_matmul at {rows} rows: the card bit-equal to the CPU")
-    try:
-        quant.int8_matmul(xm[:, :12], wq[:, :12], ws)
-        raise RuntimeError("check failed: int8_matmul K 12 on CUDA raises")
-    except ValueError as e:
-        log(f"int8_matmul K 12 on CUDA: {e}")
+    for rows in (5, 40):
+        xk = randn(133, rows, 100, dtype=bf16)
+        wk, sk_ = quant.quantize_kernel(randn(134, 36, 100, dtype=fp32))
+        bk = randn(135, 36, dtype=fp32)
+        got = quant.int8_matmul(xk, wk, sk_, bk)
+        want = quant.int8_matmul(xk.cpu(), wk.cpu(), sk_.cpu(), bk.cpu())
+        require(tuple(got.shape) == (rows, 36)
+                and torch.equal(got.cpu(), want),
+                f"int8_matmul at K 100, N 36, {rows} rows: the card "
+                "bit-equal to the CPU")
+    log("int8_matmul at K 100, N 36 (5 and 40 rows, zero-padded to "
+        "multiples of 8): the card bit-equal to the CPU")
+    del xk, wk, sk_, bk
     w16 = randn(131, 3072, 768, dtype=bf16)
     xq = quant.dynamic_quant_rows(xm)[0]
     mm_ms = queued_ms([lambda: quant.int8_matmul(xm, wq, ws, bm),
@@ -5870,6 +6389,11 @@ def main() -> int:
     wide_total, wide_times, wide_errs, wide_numbers = wide_phase(det_keep)
     log(f"phase 7e numbers: {json.dumps(wide_numbers)}")
 
+    # ---- 7f. row 8 at every head dim, row 4 at every routed shape, ViT-B3
+    # served with USE_FUSED_BLOCK --------------------------------------------
+    block_total, block_times, _, block_numbers = fused_phase()
+    log(f"phase 7f numbers: {json.dumps(block_numbers)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -5980,8 +6504,10 @@ def main() -> int:
         extra.update(vith_times.get(name, {}))  # phase 7d's dh-80 times
         extra["wide_launches"] = wide_total[name]  # phase 7e's model runs
         extra.update(wide_times.get(name, {}))  # phase 7e's dh-256/8 times
+        extra["block_launches"] = block_total[name]  # phase 7f's model runs
+        extra.update(block_times.get(name, {}))  # phase 7f's times
         launches += (cli_total[name] + par_total[name] + vith_total[name]
-                     + wide_total[name])
+                     + wide_total[name] + block_total[name])
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,
@@ -6683,15 +7209,6 @@ def main() -> int:
     # the fused attention sub-block at ViT-B/16 @224, batch 32, beside bucket
     # 1 and T2T-ViT-14's 6 heads; the library chain is LN -> F.linear ->
     # SDPA -> F.linear + residual
-    def library_block(x, g, be, wqkv, bqkv, wout, bout, h):
-        b, s, hd = x.shape
-        xn = F.layer_norm(x, (hd,), g.to(x.dtype), be.to(x.dtype), 1e-6)
-        qkv = F.linear(xn, wqkv.t(), bqkv.to(x.dtype))
-        q, k, v = (t.view(b, s, h, hd // h).transpose(1, 2)
-                   for t in qkv.split(hd, dim=-1))
-        o = F.scaled_dot_product_attention(q, k, v)
-        return x + F.linear(o.transpose(1, 2).reshape(b, s, hd), wout.t(),
-                            bout.to(x.dtype))
 
     def block_cost(b, s, hd):
         """(bytes, FLOPs): x read, the weights read, out written (bf16), the
@@ -6699,9 +7216,9 @@ def main() -> int:
         return ((2 * b * s * hd + 4 * hd * hd) * 2 + 6 * hd * 4,
                 2 * b * s * hd * 4 * hd + 4 * b * s * s * hd)
 
-    blk = block_inputs(160, 32, 197, 768, bf16)
-    blk1 = block_inputs(161, 1, 197, 768, bf16)
-    blk_t2t = block_inputs(162, 32, 197, 384, bf16)
+    blk = block_inputs(randn, 160, 32, 197, 768, bf16)
+    blk1 = block_inputs(randn, 161, 1, 197, 768, bf16)
+    blk_t2t = block_inputs(randn, 162, 32, 197, 384, bf16)
     casts = [torch.zeros(n, 768, device=dev) for n in (2304, 768)]
     vit_fam = family["vitb16_224_imagenet"]
     block_fwd = fa.fused_attention_block_fwd

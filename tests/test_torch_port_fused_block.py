@@ -124,8 +124,8 @@ def test_fused_block_reads_a_transposed_weight_in_place():
     (1024, 16, True),   # ViT-L/16: admitted (the JAX VMEM rule excludes it)
     (192, 3, True),     # ViT-Ti
     (256, 16, True),    # dh 16
-    (1280, 16, False),  # ViT-H/14: dh 80, no kernel instance
-    (48, 4, False),     # dh 12
+    (1280, 16, True),   # ViT-H/14: dh 80, the 128 tile
+    (48, 4, True),      # dh 12, the 16 tile
     (100, 3, False),    # indivisible
 ])
 def test_size_rule(hd, heads, ok):
@@ -148,14 +148,15 @@ def _weights(hd, layouts, device="cpu"):
     (torch.bfloat16, 32, 2, ("out_in", "out_in"), "tensor_cores"),    # dh 16
     (torch.bfloat16, 768, 12, ("in_out", "out_in"), "cuda_cores"),  # mixed
     (torch.bfloat16, 768, 12, ("out_in", "in_out"), "cuda_cores"),
-    (torch.bfloat16, 1280, 16, ("out_in", "out_in"), "cuda_cores"),  # dh 80
+    (torch.bfloat16, 1280, 16, ("out_in", "out_in"), "tensor_cores"),  # dh 80
     (torch.float32, 768, 12, ("out_in", "out_in"), "cuda_cores"),
     (torch.float32, 384, 6, ("in_out", "in_out"), "cuda_cores"),
 ])
 def test_fused_block_route_rule(dtype, hd, heads, layouts, route):
-    """Which CUDA launches of row 8 take the tensor cores: bf16 at a head
-    dim of the kernels with both weights in one layout at leading strides
-    that are multiples of 8; everything else the CUDA-core kernel."""
+    """Which CUDA launches of row 8 take the tensor cores: bf16 at any head
+    dim (a width that is a multiple of 8) with both weights in one layout at
+    leading strides that are multiples of 8; everything else the CUDA-core
+    kernels."""
     strides = [st for w, n in zip(_weights(hd, layouts), ("wqkv", "wout"))
                for st in tfa._weight_strides(n, w)]
     assert tfa.fused_block_route(dtype, hd, heads, tuple(strides)) == route
@@ -294,12 +295,14 @@ def test_each_guard_condition_turns_the_branch_off(fused_flag, fused_calls):
     with torch.no_grad():
         _, weights = model(torch.zeros(1, 16, 16, 3), return_weights=True)
     assert fused_calls == [] and len(weights) == 2
-    odd = ViT(**dict(CFG, hidden_dim=40, mlp_dim=40), device="cpu")  # dh 20
-    assert not odd.encoder.encoder_layer_0._use_fused_block(
+    # dh 20 is no guard condition: every head dim has a tile
+    odd = ViT(**dict(CFG, hidden_dim=40, mlp_dim=40), device="cpu")
+    assert odd.encoder.encoder_layer_0._use_fused_block(
         torch.zeros(1, 17, 40), False)
     with torch.no_grad():
         odd(torch.zeros(1, 16, 16, 3))
-    assert fused_calls == []
+    assert fused_calls == [(1, 17, 40)] * 2
+    del fused_calls[:]
     quant8 = ViT(**CFG, quant8=True, device="cpu")   # reads int8 weights
     assert not quant8.encoder.encoder_layer_0._use_fused_block(x, False)
     with torch.no_grad():

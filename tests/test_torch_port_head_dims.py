@@ -57,10 +57,10 @@ def _leaf(a):
 
 @pytest.mark.parametrize("d", [0, 1, 7, 12, 16, 77, 80, 96, 127, 128, 129])
 def test_rows_1_to_7_take_every_head_dim_up_to_128(d):
-    """One rule for rows 1-7: every D >= 1 (above 128 the wide kernels;
-    tests/test_torch_port_head_dims_wide.py). Rows 8-13 keep theirs: the
-    fused block takes only its tiles' head dims, the window route those of
-    the JAX window plans (dh <= 64 dividing 128)."""
+    """One rule for rows 1-8: every D >= 1 (above 128 the wide kernels;
+    tests/test_torch_port_head_dims_wide.py; the fused block at any head
+    dim whose heads divide the width). Rows 9-13 keep theirs: the window
+    route those of the JAX window plans (dh <= 64 dividing 128)."""
     assert tfa.attention_head_dim_supported(d) == (d >= 1)
     assert tfa.ATTENTION_HEAD_DIM_RULE == "D >= 1"
     if d == 0:  # no head dim at all: refused on every device
@@ -69,7 +69,7 @@ def test_rows_1_to_7_take_every_head_dim_up_to_128(d):
             tfa.flash_attention_fwd(z, z, z)
         with pytest.raises(ValueError, match="D >= 1"):
             tfa.packed_flash_attention_fwd(torch.zeros(1, 4, 0), 2)
-    assert tfa.fused_block_supported(2 * d, 2) == (d in tfa.TILE_HEAD_DIMS)
+    assert tfa.fused_block_supported(2 * d, 2) == (d >= 1)
     if d in tfa.WINDOW_HEAD_DIMS:
         assert tfa.window_route(torch.bfloat16, 49, d) == "tensor_cores"
     else:

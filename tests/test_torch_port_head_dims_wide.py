@@ -86,26 +86,33 @@ def _leaf(a):
 
 @pytest.mark.parametrize("d", [129, 160, 200, 256, 512, 1024])
 def test_rows_1_to_7_take_head_dims_above_128(d):
-    """Rows 1-7 admit every D >= 1 (the JAX kernels have no upper bound);
-    the window kernels and the fused block keep their own head dims."""
+    """Rows 1-7 admit every D >= 1 (the JAX kernels have no upper bound),
+    and so does the fused block (row 8); the window kernels keep their own
+    head dims."""
     assert tfa.attention_head_dim_supported(d)
     assert not tfa.attention_head_dim_supported(0)
-    assert d not in tfa.WINDOW_HEAD_DIMS and d not in tfa.TILE_HEAD_DIMS
+    assert d not in tfa.WINDOW_HEAD_DIMS
     with pytest.raises(ValueError, match="head dim"):
         tfa.window_route(torch.bfloat16, 49, d)
-    assert not tfa.fused_block_supported(2 * d, 2)
+    assert tfa.fused_block_supported(2 * d, 2)
 
 
 def test_row_4_rule_is_the_shared_memory_bound():
-    """Row 4 keeps ``flash_bwd_smem_bytes`` at every D: the largest square
-    S it admits falls with D (160 at D 129, 64 at D 256), and from D 437 on
-    it admits no shape (one 32-row tile of K, V, q and do in fp32 passes a
-    block's 227 KB); the backward then takes row 6 at rate 0."""
-    def largest(d):
-        return max([s for s in range(1, 512)
-                    if tfa.flash_bwd_supported(s, s, d)] or [0])
+    """Row 4's route is the JAX score budget alone, at every D: the largest
+    square S it admits is 512 whatever D. The shared-memory bound
+    (``flash_bwd_smem_bytes``, the fp32 resident kernel's footprint) now
+    only chooses, inside the entry, between that kernel and the streaming
+    passes: its largest square S still falls with D (160 at D 129, 64 at
+    D 256, none from D 437 on)."""
+    def largest(rule, d):
+        return max([s for s in range(1, 600) if rule(s, d)] or [0])
 
-    assert [largest(d) for d in (129, 160, 200, 256, 436, 437, 512)] == \
+    supported = lambda s, d: tfa.flash_bwd_supported(s, s, d)  # noqa: E731
+    resident = lambda s, d: \
+        tfa.flash_bwd_smem_bytes(s, s, d) <= tfa._SMEM_LIMIT  # noqa: E731
+    dims = (129, 160, 200, 256, 436, 437, 512)
+    assert [largest(supported, d) for d in dims] == [512] * len(dims)
+    assert [largest(resident, d) for d in dims] == \
         [160, 128, 96, 64, 32, 0, 0]
     assert tfa.flash_bwd_smem_bytes(1, 1, 436) <= tfa._SMEM_LIMIT \
         < tfa.flash_bwd_smem_bytes(1, 1, 437)
@@ -240,8 +247,8 @@ def test_wide_split_head_forward_matches_jax(route, dh, monkeypatch):
 @pytest.mark.parametrize("route", ["row 4", "row 6"])
 def test_wide_bias_free_backward_matches_jax(route, dh, monkeypatch):
     """The bias-free backward of ``flash_attention`` above D 128 by both of
-    its kernels: row 4 (``USE_PALLAS_BWD``; the shape inside
-    ``flash_bwd_smem_bytes``' rule) against ``_flash_bwd_pallas`` in
+    its kernels: row 4 (``USE_PALLAS_BWD``; the shape inside the JAX score
+    budget) against ``_flash_bwd_pallas`` in
     interpret mode, row 6 (the default) against ``jax.vjp`` of
     ``flash_dropout_attention`` at rate 0 (``_drop_bwd_kernel`` in interpret
     mode); kv_valid < Sk."""

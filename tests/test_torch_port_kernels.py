@@ -833,10 +833,11 @@ def test_fused_adam_kernel_matches_plain(cuda, weight_decay):
 @pytest.mark.cuda
 def test_unported_paths_raise_on_cuda(cuda):
     """What the kernels refuse on the card: a bias on the streaming route
-    (a key-padding mask, or Sq·Sk > 1.5 M), a head dim of 0, and a
-    small-S backward whose group does not fit a block's shared memory. A
-    key-padding mask at rate 0 and a large bias-free S now launch the
-    streaming kernel."""
+    (a key-padding mask, or Sq·Sk > 1.5 M) and a head dim of 0. A
+    key-padding mask at rate 0 and a large bias-free S launch the streaming
+    kernel; a small-S backward whose group does not fit a block's shared
+    memory streams (fp32: the wide passes), and the fused block takes dh 20
+    in its padded tile: neither is refused any more."""
     q = torch.zeros(1, 2, 8, 16, device=cuda)
     keep = torch.ones(1, 8, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="bias"):
@@ -852,15 +853,28 @@ def test_unported_paths_raise_on_cuda(cuda):
     assert tfa.LAUNCHES["flash_attention_large"] == 2
     with pytest.raises(ValueError, match="head dim 0"):
         tfa.packed_flash_attention(torch.zeros(1, 4, 0, device=cuda), 2)
-    wide = torch.zeros(1, 1, 4, 64, device=cuda)
-    long_k = torch.zeros(1, 1, 1000, 64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfa.flash_attention_bwd(wide, long_k, long_k, wide,
-                                torch.zeros(1, 1, 4, device=cuda), wide)
+    from vision_transformers_tpu_torch.ops import _build
+
+    q4, k4, v4, do4 = (torch.from_numpy(_randn(170 + i, 1, 1, n, 64)).to(cuda)
+                       for i, n in enumerate((4, 1000, 1000, 4)))
+    assert tfa.flash_bwd_smem_bytes(4, 1000, 64) > tfa._SMEM_LIMIT
+    out4, lse4 = tfa.flash_attention_fwd(q4, k4, v4)
+    torch.cuda.synchronize()
+    _build.reset_launched()
+    got = tfa.flash_attention_bwd(q4, k4, v4, out4, lse4, do4)
+    torch.cuda.synchronize()
+    assert _build.launched() == {"flash_bwd_dq_wide_kernel": 1,
+                                 "flash_bwd_dkv_wide_kernel": 1}
+    want = tfa.flash_attention_bwd_reference(q4, k4, v4, out4, lse4, do4)
+    assert all(_grad_close(g, r, torch.float32) for g, r in zip(got, want))
     x, rows, w = _block_inputs(cuda, torch.float32, 1, 8, 40)
-    with pytest.raises(ValueError, match="head dim"):   # dh 20
-        tfa.fused_attention_block(x, *rows[:2], w[0], rows[2], w[1], rows[3],
-                                  2)
+    args = (x, *rows[:2], w[0], rows[2], w[1], rows[3], 2)   # dh 20
+    _build.reset_launched()
+    out = tfa.fused_attention_block(*args)
+    torch.cuda.synchronize()
+    assert _build.launched() == {"fused_block_padded_kernel": 1}
+    assert _fused_close(out, tfa.fused_attention_block_reference(*args),
+                        torch.float32)
     with pytest.raises(ValueError, match="fp32"):
         tfd.ln_dense(x, rows[0].bfloat16(), rows[1], w[0])
 
@@ -1086,6 +1100,111 @@ def test_fused_block_tensor_cores_at_path_shapes(cuda, b, s, heads, dh):
         tfa._measure_fused_block_phases(*args, (0, 1, 2, 3)), out)
 
 
+# Row 8 at head dims other than 16, 32 and 64: the next tile (dh 12: 16;
+# 48: 64; 80 and 96: 128) or the wide one (160, 256), on both routes, by
+# kernel name. Into a NaN-filled output, reruns and torch's (out, in)
+# weights bit-equal, the four phases of the tensor-core route bit-equal to
+# its one launch, beside a planted fault (one 16-wide k slice of Wout left
+# out, inside the width).
+_BLOCK_HEAD_DIMS = [(12, 8), (48, 8), (80, 16), (96, 8), (160, 4), (256, 3)]
+
+
+def _block_kernel(dh, dtype):
+    stem = "fused_block_mma" if dtype == torch.bfloat16 else "fused_block"
+    kind = "" if dh in (16, 32, 64) else "_wide" if dh > 128 else "_padded"
+    return f"{stem}{kind}_kernel"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,heads", _BLOCK_HEAD_DIMS)
+def test_fused_block_other_head_dims_match_plain(cuda, dtype, dh, heads):
+    from vision_transformers_tpu_torch.ops import _build
+
+    b, s, hd = 4, 197, heads * dh
+    x, rows, w = _block_inputs(cuda, dtype, b, s, hd)
+    args = (x, rows[0], rows[1], w[0], rows[2], w[1], rows[3], heads)
+    assert tfa.fused_block_supported(hd, heads)
+    assert tfa.fused_block_route(dtype, hd, heads,
+                                 (*w[0].stride(), *w[1].stride())) == (
+        "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+    torch.cuda.synchronize()
+    _build.reset_launched()
+    out = tfa.fused_attention_block_fwd(*args,
+                                        out=torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    assert _build.launched() == {_block_kernel(dh, dtype): 1}
+    want = tfa.fused_attention_block_reference(*args)
+    cut = w[1].clone()
+    k0 = min(368, hd - 16)
+    cut[k0:k0 + 16] = 0
+    fault = tfa.fused_attention_block_reference(*args[:5], cut, rows[3],
+                                                heads)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    assert _fused_close(out, want, dtype)
+    assert not _fused_close(fault, want, dtype)
+    views = (x, rows[0], rows[1], w[0].t().contiguous().t(), rows[2],
+             w[1].t().contiguous().t(), rows[3], heads)
+    for a in (args, views):
+        assert torch.equal(tfa.fused_attention_block_fwd(*a), out)
+    if dtype == torch.bfloat16:
+        assert torch.equal(
+            tfa._measure_fused_block_phases(*args, (0, 1, 2, 3)), out)
+
+
+# Row 4 at the shapes its shared-memory rule refused before the route became
+# the JAX score budget alone: ViT-B/16's widths at 3 heads split (G 96, S
+# 197, D 256, the wide passes), S 512 at D 128 (bf16 the tensor-core passes,
+# fp32 past the resident kernel: the streaming passes) and at D 256.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,s,d", [(96, 197, 256), (16, 512, 128),
+                                   (16, 512, 256)])
+def test_small_s_backward_at_every_routed_shape(cuda, dtype, g, s, d):
+    from vision_transformers_tpu_torch.ops import _build
+
+    assert tfa.flash_bwd_supported(s, s, d)
+    q, k, v, do = (torch.from_numpy(_randn(140 + i, 1, g, s, d)).to(
+        cuda, dtype) for i in range(4))
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    _build.reset_launched()
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, grads=tuple(
+        torch.full_like(t, float("nan")) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        names = ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+        names = names if d == 128 else tuple(_wide(n, dtype) for n in names)
+    else:  # d > 128, or past the resident kernel: the streaming passes
+        names = ("flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel")
+    assert _build.launched() == {n: 1 for n in names}
+    want = tfa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    tol = _MMA_GRAD_TOL if dtype == torch.bfloat16 else None
+    for g_, w_ in zip(got, want):
+        assert not bool(torch.isnan(g_.float()).any())
+        assert _grad_close(g_, w_, dtype, tol)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_at_k100_n36_bit_equal_to_the_cpu(cuda):
+    """K and N off torch._int_mm's multiples of 8 are zero-padded on the
+    card as on the CPU: the same bits, at 5 rows (padded to 17) and 40."""
+    from vision_transformers_tpu_torch.ops import quant
+
+    w = torch.from_numpy(_randn(150, 36, 100)) * 0.1
+    bias = torch.from_numpy(_randn(151, 36)) * 0.1
+    kq, ks = quant.quantize_kernel(w)
+    for rows in (5, 40):
+        x = torch.from_numpy(_randn(152 + rows, rows, 100))
+        want = quant.int8_matmul(x, kq, ks, bias)
+        got = quant.int8_matmul(x.to(cuda), kq.to(cuda), ks.to(cuda),
+                                bias.to(cuda))
+        assert torch.equal(got.cpu(), want)
+
+
 # Row 7 in bf16 on the tensor cores (packed_bwd_*_mma_kernel) at the ViT
 # paths' shapes (ViT-B/16 and T2T-ViT-14 at batch 32, vit_tiny at 64) and at
 # dh 32 and 16, from the forward's out and lse, relative to max(1,
@@ -1122,8 +1241,8 @@ def test_packed_backward_tensor_cores_at_path_shapes(cuda, rate, b, s, heads,
 def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
     """Row 7 takes bf16 (the tensor cores) and fp32 (the CUDA cores) at
     every head dim (dh 80 launches its padded kernels, dh 129 its wide
-    ones); a float16 operand or head dim 0 raises before any launch. Rows 7
-    and 8
+    ones), and so does row 8 (dh 80 its padded kernel, no refusal); a
+    float16 operand or head dim 0 raises before any launch. Rows 7 and 8
     on the tensor cores copy 16 bytes at a time: a bf16 operand 2 bytes off
     raises. Nothing falls back."""
     bf16 = torch.bfloat16
@@ -1161,6 +1280,12 @@ def test_rows_7_and_8_refuse_what_no_kernel_takes(cuda):
         tfa.packed_flash_attention_bwd(
             qkv, out, out, lse, heads,
             dqkv=off[1:1 + qkv.numel()].view_as(qkv))
+    xh, rh, wh = _block_inputs(cuda, bf16, b, s, 2 * 80)
+    _build.reset_launched()
+    tfa.fused_attention_block_fwd(xh, rh[0], rh[1], wh[0], rh[2], wh[1],
+                                  rh[3], 2)
+    torch.cuda.synchronize()
+    assert _build.launched() == {"fused_block_mma_padded_kernel": 1}
     x, rows, w = _block_inputs(cuda, bf16, b, s, heads * dh)
     x_off = off[1:1 + x.numel()].view_as(x)
     x_off.copy_(x)
@@ -1628,22 +1753,14 @@ def test_wide_split_head_kernels_match_plain(cuda, dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", _WIDE_DIMS)
 def test_wide_small_s_backward_matches_plain(cuda, dtype, d):
-    """Row 4 above D 128 within its rule (``flash_bwd_smem_bytes``, a
-    block's shared memory): dq, dk, dv against the plain version on the wide
-    passes at the largest S the rule admits, and a ValueError one step past
-    it (at D 512 the rule admits no shape)."""
+    """Row 4 above D 128 on the wide passes at any S its route (the JAX
+    score budget) admits: dq, dk, dv against the plain version at S 96, past
+    the old shared-memory rule at D 256 and 512 (which admitted S 64 and no
+    shape); no shape raises."""
     from vision_transformers_tpu_torch.ops import _build
 
-    fits = [s for s in range(8, 200, 8) if tfa.flash_bwd_supported(s, s, d)]
-    past = (fits[-1] if fits else 0) + 32
-    big = torch.zeros(1, 1, past, d, device=cuda, dtype=dtype)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfa.flash_attention_bwd(big, big, big, big,
-                                torch.zeros(1, 1, past, device=cuda), big)
-    if not fits:
-        assert d >= 437
-        return
-    s = fits[-1]
+    s = 96
+    assert tfa.flash_bwd_supported(s, s, d)
     q, k, v, do = (torch.from_numpy(_randn(97 + i, 2, 2, s, d)).to(cuda, dtype)
                    for i in range(4))
     out, lse = tfa.flash_attention_fwd(q, k, v, kv_valid=s - 3)

@@ -15,9 +15,11 @@
 //     <D, NoMask, kDrop, Strided>, q, k and v read in place from the packed
 //     (B, S, 3·H·dh) projection, out and lse written in place;
 //   - row 8's attention phase, _fused_block_kernel (:1028), through
-//     fused_block.cu: <D, NoMask, false, Strided, HalfBlock>, each 128-thread
-//     half of a 256-thread block on its own rows, q, k and v read in place
-//     from the block's QKV workspace.
+//     fused_block.cu: <D, NoMask, false, Strided, HalfBlock> at dh 16, 32
+//     and 64, <D, NoMask, false, PaddedStrided<D>, HalfBlock> at any other
+//     dh up to 128 in the next tile, each 128-thread half of a 256-thread
+//     block on its own rows, q, k and v read in place from the block's QKV
+//     workspace.
 // fp32 inputs keep attend_rows (attention_tile.cuh) and flash_large_kernel.
 //
 // What bounds it on the H100: at ViT-B/16 @512 (G 96, S 1025, D 64) the
@@ -287,8 +289,9 @@ __device__ __forceinline__ void load_tile_padded(bf16* s, const bf16* g,
 // that d's row and head offsets keep aligned: 16-byte cp.async for d a
 // multiple of 8 (16-byte chunks wholly in or out of the row), 4-byte for an
 // even d, plain 2-byte loads and stores for an odd one (the caller's
-// barrier publishes them, as the copies).
-template <int D>
+// barrier publishes them, as the copies). kL2: the 2-byte loads through L2
+// (__ldcg), for rows written earlier in the same launch (row 8's HalfBlock).
+template <int D, bool kL2 = false>
 __device__ __forceinline__ void load_tile_strided_padded(
     bf16* s, const bf16* g, int row0, int n, int d, int stride,
     unsigned tid) {
@@ -324,16 +327,23 @@ __device__ __forceinline__ void load_tile_strided_padded(
       const int idx = tid + i * kThreads;
       const int r = idx / D, c = idx % D;
       const int gr = row0 + r;
-      su[r * (D + 8) + c] =
-          gr < n && c < d ? u[static_cast<long long>(gr) * stride + c] : 0;
+      if constexpr (kL2)
+        su[r * (D + 8) + c] =
+            gr < n && c < d ? __ldcg(u + static_cast<long long>(gr) * stride
+                                     + c)
+                            : 0;
+      else
+        su[r * (D + 8) + c] =
+            gr < n && c < d ? u[static_cast<long long>(gr) * stride + c] : 0;
     }
   }
 }
 
 // load_a_frags for the PaddedStrided layout: rows `stride` apart, columns
 // >= d zero; 4-byte loads for an even d (a fragment's column pair is then
-// wholly in or out of the row), 2-byte ones for an odd d.
-template <int D>
+// wholly in or out of the row), 2-byte ones for an odd d. kL2: through L2
+// (__ldcg), as load_tile_strided_padded's.
+template <int D, bool kL2 = false>
 __device__ __forceinline__ void load_a_frags_strided_padded(
     uint32_t (&f)[D / 16][4], const bf16* p, const int (&row)[2], int n,
     int d, int stride) {
@@ -349,7 +359,14 @@ __device__ __forceinline__ void load_a_frags_strided_padded(
       uint32_t w = 0u;
       if (r < n && c < d) {
         const long long b = static_cast<long long>(r) * stride + c;
-        if (even) {
+        if constexpr (kL2) {
+          if (even) {
+            w = __ldcg(reinterpret_cast<const uint32_t*>(p + b));
+          } else {
+            w = __ldcg(u + b);
+            if (c + 1 < d) w |= static_cast<uint32_t>(__ldcg(u + b + 1)) << 16;
+          }
+        } else if (even) {
           w = *reinterpret_cast<const uint32_t*>(p + b);
         } else {
           w = u[b];
@@ -549,13 +566,14 @@ template <int D>
 struct IsPaddedStrided<PaddedStrided<D>> : std::true_type {};
 
 // K/V-tile and Q-fragment loads by layout: PaddedStrided's (the grain by
-// d), Padded's, or the 16-byte ones.
-template <int D, class Layout>
+// d), Padded's, or the 16-byte ones. kL2: PaddedStrided's plain loads
+// through L2 (HalfBlock); the copies are cp.async either way.
+template <int D, class Layout, bool kL2 = false>
 __device__ __forceinline__ void load_tile_as(const Layout& lay, bf16* s,
                                              const bf16* g, int row0, int n,
                                              int stride, unsigned tid) {
   if constexpr (IsPaddedStrided<Layout>::value)
-    load_tile_strided_padded<D>(s, g, row0, n, lay.d, stride, tid);
+    load_tile_strided_padded<D, kL2>(s, g, row0, n, lay.d, stride, tid);
   else if constexpr (IsPadded<Layout>::value)
     load_tile_padded<D>(s, g, row0, n, lay.d, tid);
   else
@@ -624,9 +642,12 @@ __host__ __device__ constexpr int mma_dyn_bytes() { return D > 64 ? 4 * tile_byt
 // HalfBlock (row 8, fused_block.cu): one 128-thread half of a 256-thread
 // block, numbered from 0 within the half, meeting at named barrier 1 + half
 // (barrier 0 is __syncthreads'), its buffers 4·64·(D + 8) bf16 of the
-// caller's shared memory (K's two, then V's two). NoMask only. Its q, k and
-// v were written earlier in the same launch: k and v come by cp.async.cg,
-// q through L2 (kL2Loads), never by the non-coherent path.
+// caller's shared memory (K's two, then V's two), at any tile D. NoMask
+// only. Its q, k and v were written earlier in the same launch: k and v
+// come by cp.async (.cg at 16 bytes; PaddedStrided's 4-byte copies are .ca,
+// which no stale line can serve: no phase before the attention reads the
+// workspace) or, for an odd d, by __ldcg, q through L2 (kL2Loads), never by
+// the non-coherent path.
 struct WholeBlock {
   static constexpr bool kOwnSmem = true;
   static constexpr bool kL2Loads = false;
@@ -758,7 +779,6 @@ __device__ __forceinline__ void attend_rows_mma(
   constexpr bool kPad = IsPadded<Layout>::value;
   static_assert(Block::kOwnSmem || !kMasked,
                 "a half block runs the unmasked tile only");
-  static_assert(Block::kOwnSmem || D <= 64, "a half block runs D <= 64");
   constexpr int S = D + 8;
   constexpr int M = fwd_m<D>();
   // keys per online-softmax step: the whole tile for one A tile a warp, half
@@ -792,8 +812,10 @@ __device__ __forceinline__ void attend_rows_mma(
     row[m][1] = row[m][0] + 8;
   }
 
-  load_tile_as<D>(lay, ks[0], k, 0, sk, lay.qkv(), tid);
-  load_tile_as<D>(lay, vs[0], v, 0, sk, lay.qkv(), tid);
+  load_tile_as<D, Layout, Block::kL2Loads>(lay, ks[0], k, 0, sk, lay.qkv(),
+                                          tid);
+  load_tile_as<D, Layout, Block::kL2Loads>(lay, vs[0], v, 0, sk, lay.qkv(),
+                                          tid);
   cp_async_commit();
   // The key tiles walked: all of them, or (masked policies) tiles 0 .. the
   // last one that holds a key < kv_valid the mask attends. Skipping the
@@ -823,7 +845,8 @@ __device__ __forceinline__ void attend_rows_mma(
 #pragma unroll
   for (int m = 0; m < M; ++m)
     if constexpr (IsPaddedStrided<Layout>::value)
-      load_a_frags_strided_padded<D>(qf[m], q, row[m], sq, lay.d, lay.qkv());
+      load_a_frags_strided_padded<D, Block::kL2Loads>(qf[m], q, row[m], sq,
+                                                      lay.d, lay.qkv());
     else if constexpr (kPad)
       load_a_frags_padded<D>(qf[m], q, row[m], sq, lay.qkv());
     else
@@ -844,10 +867,12 @@ __device__ __forceinline__ void attend_rows_mma(
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      load_tile_as<D>(lay, ks[buf ^ 1], k, (t + 1) * kCols, sk, lay.qkv(),
-                      tid);
-      load_tile_as<D>(lay, vs[buf ^ 1], v, (t + 1) * kCols, sk, lay.qkv(),
-                      tid);
+      load_tile_as<D, Layout, Block::kL2Loads>(lay, ks[buf ^ 1], k,
+                                              (t + 1) * kCols, sk, lay.qkv(),
+                                              tid);
+      load_tile_as<D, Layout, Block::kL2Loads>(lay, vs[buf ^ 1], v,
+                                              (t + 1) * kCols, sk, lay.qkv(),
+                                              tid);
       cp_async_commit();
       if constexpr (kMasked)
         fetch_tile_mask<kMask>(raw, add, kmask, t + 1, sk, kv_valid);

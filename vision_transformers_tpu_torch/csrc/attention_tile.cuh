@@ -156,9 +156,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // null; kmask (fp32, one value per key) may be null. lse is fp32 with row
 // stride lse_rs, or null when the caller does not need it. rng_group is the
 // group's index b·H + h for the dropout mask. Loads: how q, k and v are read
-// (PlainLoads, or L2Loads where the launch wrote them). kPad (rows 2 and 5
-// at a head dim dc below the tile's D): columns >= dc read as 0 and not
-// written; D 128 takes attend_dyn_bytes<D>() of dynamic shared memory.
+// (PlainLoads, or L2Loads where the launch wrote them). kPad (rows 2 and 5,
+// and row 8's CUDA-core route, at a head dim dc below the tile's D): columns
+// >= dc read as 0 and not written; D 128 takes attend_dyn_bytes<D>() of
+// dynamic shared memory.
 template <typename T, int D, class Loads = PlainLoads, bool kPad = false>
 __device__ __forceinline__ void attend_rows(
     int q0, const T* __restrict__ q, long long q_rs,
@@ -191,7 +192,9 @@ __device__ __forceinline__ void attend_rows(
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qi = q0 + r;
-    if constexpr (Loads::kThroughL2)
+    if constexpr (Loads::kThroughL2 && kPad)
+      qs[r][c] = qi < sq && c < dc ? to_f32(__ldcg(q + qi * q_rs + c)) : 0.f;
+    else if constexpr (Loads::kThroughL2)
       qs[r][c] = qi < sq ? to_f32(__ldcg(q + qi * q_rs + c)) : 0.f;
     else if constexpr (kPad)
       qs[r][c] = qi < sq && c < dc ? to_f32(q[qi * q_rs + c]) : 0.f;
@@ -221,7 +224,10 @@ __device__ __forceinline__ void attend_rows(
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D, kj = k0 + r;
       const bool in = kj < sk;
-      if constexpr (Loads::kThroughL2) {
+      if constexpr (Loads::kThroughL2 && kPad) {
+        ks[r][c] = in && c < dc ? to_f32(__ldcg(k + kj * kv_rs + c)) : 0.f;
+        vs[r][c] = in && c < dc ? to_f32(__ldcg(v + kj * kv_rs + c)) : 0.f;
+      } else if constexpr (Loads::kThroughL2) {
         ks[r][c] = in ? to_f32(__ldcg(k + kj * kv_rs + c)) : 0.f;
         vs[r][c] = in ? to_f32(__ldcg(v + kj * kv_rs + c)) : 0.f;
       } else if constexpr (kPad) {

@@ -102,11 +102,13 @@ __host__ __device__ constexpr int chunks(int d, int w) {
 // `stride` elements apart into shared memory of row stride W + 8; rows >= n
 // and columns >= dc zero. The grain by the head dim d (above); plain loads
 // are published by the caller's barrier, as the copies. The caller commits.
-template <int R, int W>
+// Block: the threads that copy (mma::WholeBlock or HalfBlock, whose plain
+// loads go through L2).
+template <int R, int W, class Block = mma::WholeBlock>
 __device__ __forceinline__ void load_chunk(bf16* s, const bf16* g, int row0,
                                            int n, int dc, long long stride,
                                            int d) {
-  const int tid = static_cast<int>(threadIdx.x);
+  const int tid = static_cast<int>(Block::tid());
   if ((d & 7) == 0) {
     constexpr int C = W / 8;
 #pragma unroll 4
@@ -131,7 +133,11 @@ __device__ __forceinline__ void load_chunk(bf16* s, const bf16* g, int row0,
 #pragma unroll 4
     for (int idx = tid; idx < R * W; idx += mma::kThreads) {
       const int r = idx / W, c = idx % W, gr = row0 + r;
-      su[r * (W + 8) + c] = gr < n && c < dc ? u[gr * stride + c] : 0;
+      if constexpr (Block::kL2Loads)
+        su[r * (W + 8) + c] = gr < n && c < dc ? __ldcg(u + gr * stride + c)
+                                               : 0;
+      else
+        su[r * (W + 8) + c] = gr < n && c < dc ? u[gr * stride + c] : 0;
     }
   }
 }
@@ -140,8 +146,8 @@ __device__ __forceinline__ void load_chunk(bf16* s, const bf16* g, int row0,
 // bf16 matrix at row stride `stride`, columns [0, dc), read from device
 // memory; rows >= n and columns >= dc zero. 4-byte loads for an even head
 // dim (a fragment's column pair is then wholly in or out), 2-byte ones for
-// an odd one.
-template <int W>
+// an odd one. kL2: through L2 (__ldcg), for rows the launch wrote.
+template <int W, bool kL2 = false>
 __device__ __forceinline__ void load_a_chunk(uint32_t (&f)[W / 16][4],
                                              const bf16* p,
                                              const int (&row)[2], int n,
@@ -158,7 +164,14 @@ __device__ __forceinline__ void load_a_chunk(uint32_t (&f)[W / 16][4],
       uint32_t w = 0u;
       if (r < n && c < dc) {
         const long long b = r * stride + c;
-        if (even) {
+        if constexpr (kL2) {
+          if (even) {
+            w = __ldcg(reinterpret_cast<const uint32_t*>(p + b));
+          } else {
+            w = __ldcg(u + b);
+            if (c + 1 < dc) w |= static_cast<uint32_t>(__ldcg(u + b + 1)) << 16;
+          }
+        } else if (even) {
           w = *reinterpret_cast<const uint32_t*>(p + b);
         } else {
           w = u[b];
@@ -188,21 +201,31 @@ __device__ __forceinline__ void store_pair(bf16* p, int col, int dc,
 // attend_rows_mma's (attention_mma_tile.cuh); lay: the group's rows.
 // 4 warps of 16 rows; K (chunk by chunk) and V (chunk c) of a 64-key tile
 // in shared memory, Q's A fragments read chunk by chunk from device memory.
-template <KeyMask kMask, bool kDrop>
+// blk: the threads that run it, as attend_rows_mma's: WholeBlock (rows 1,
+// 2, 3, 5; its own K and V buffers), or HalfBlock (row 8's attention phase,
+// fused_block.cu, NoMask: its K and V buffers, 2·64·136 bf16, from the
+// caller, its plain loads through L2).
+template <KeyMask kMask, bool kDrop, class Block = mma::WholeBlock>
 __device__ __forceinline__ void attend_rows_wide_mma(
     int q0, int c, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
     bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk,
     int kv_valid, float scale, const void* __restrict__ kmask, Dropout drop,
-    uint32_t rng_group, unsigned long long* tile_counts, Rows lay) {
+    uint32_t rng_group, unsigned long long* tile_counts, Rows lay,
+    Block blk = Block{}) {
   constexpr int S = kW + 8;
   constexpr bool kMasked = kMask != KeyMask::NoMask;
-  __shared__ __align__(16) bf16 ks[kKeys * S];
-  __shared__ __align__(16) bf16 vs[kKeys * S];
+  static_assert(Block::kOwnSmem || !kMasked,
+                "a half block runs the unmasked tile only");
+  constexpr bool kOwn = Block::kOwnSmem;
+  __shared__ __align__(16) bf16 ks_own[kOwn ? kKeys * S : 8];
+  __shared__ __align__(16) bf16 vs_own[kOwn ? kKeys * S : 8];
+  bf16* ks = kOwn ? ks_own : blk.kv();
+  bf16* vs = kOwn ? vs_own : blk.kv() + kKeys * S;
   __shared__ uint32_t keep_s[kMask == KeyMask::ReplaceByte ? 2 : 1];
   __shared__ float add_s[kMask == KeyMask::AddFloat ? kKeys : 1];
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tq = lane & 3;
+  const int lane = blk.tid() & 31, warp = blk.tid() >> 5, tq = lane & 3;
   const int row[2] = {q0 + warp * 16 + (lane >> 2),
                       q0 + warp * 16 + (lane >> 2) + 8};
   const int nc = chunks(lay.d, kW);
@@ -232,9 +255,9 @@ __device__ __forceinline__ void attend_rows_wide_mma(
   float mr[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < tiles; ++t) {
-    __syncthreads();  // every warp is done with the last tile's buffers
-    load_chunk<kKeys, kW>(vs, v + c * kW, t * kKeys, sk, dco, lay.qkv,
-                          lay.d);
+    blk.sync();  // every warp is done with the last tile's buffers
+    load_chunk<kKeys, kW, Block>(vs, v + c * kW, t * kKeys, sk, dco, lay.qkv,
+                                 lay.d);
     mma::cp_async_commit();
     if constexpr (kMasked) {
       int raw[2] = {0, 0};
@@ -249,14 +272,15 @@ __device__ __forceinline__ void attend_rows_wide_mma(
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
     for (int j = 0; j < nc; ++j) {
       const int dj = min(kW, lay.d - j * kW);
-      if (j > 0) __syncthreads();  // every warp has read chunk j - 1
-      load_chunk<kKeys, kW>(ks, k + j * kW, t * kKeys, sk, dj, lay.qkv,
-                            lay.d);
+      if (j > 0) blk.sync();  // every warp has read chunk j - 1
+      load_chunk<kKeys, kW, Block>(ks, k + j * kW, t * kKeys, sk, dj, lay.qkv,
+                                   lay.d);
       mma::cp_async_commit();
       uint32_t qf[kW / 16][4];
-      load_a_chunk<kW>(qf, q + j * kW, row, sq, dj, lay.qkv, even);
+      load_a_chunk<kW, Block::kL2Loads>(qf, q + j * kW, row, sq, dj, lay.qkv,
+                                        even);
       mma::cp_async_wait<0>();
-      __syncthreads();
+      blk.sync();
       mma::mma_abt<kW, kKeys / 8>(s, qf, ks, lane);
     }
 
@@ -648,26 +672,34 @@ __device__ __forceinline__ void bwd_dkv_rows_wide_mma(
 // then the block's own 64 output columns.
 
 // Columns [0, dc) of rows [row0, row0 + 32) at row stride `stride` into a
-// shared (32, ld) fp32 tile; the rest zero.
-template <int LD>
+// shared (32, ld) fp32 tile; the rest zero. T: the operand's type (bf16 only
+// on row 8's CUDA-core route); Loads: PlainLoads, or L2Loads for rows the
+// launch wrote (attention_tile.cuh).
+template <int LD, typename T = float, class Loads = PlainLoads>
 __device__ __forceinline__ void stage_f32(float (*s)[LD],
-                                          const float* __restrict__ g,
+                                          const T* __restrict__ g,
                                           int row0, int n, int dc,
                                           long long stride) {
   for (int idx = threadIdx.x; idx < kBlockQ * kFW; idx += kThreads) {
     const int r = idx / kFW, cc = idx % kFW, gr = row0 + r;
-    s[r][cc] = gr < n && cc < dc ? g[gr * stride + cc] : 0.f;
+    if constexpr (Loads::kThroughL2)
+      s[r][cc] = gr < n && cc < dc ? to_f32(__ldcg(g + gr * stride + cc))
+                                   : 0.f;
+    else
+      s[r][cc] = gr < n && cc < dc ? to_f32(g[gr * stride + cc]) : 0.f;
   }
 }
 
 // Forward: rows [q0, q0 + 32) of one group, output chunk c (64 columns).
 // bias: this group's (Sq, Sk) fp32 slice or null (NoMask); kmask: the
-// group's uint8 row (ReplaceByte) or fp32 row (AddFloat), or null.
-template <KeyMask kMask>
+// group's uint8 row (ReplaceByte) or fp32 row (AddFloat), or null. T and
+// Loads as stage_f32's: fp32 with plain loads (rows 1-5), or row 8's
+// CUDA-core route (fused_block.cu), either dtype, q, k and v through L2.
+template <KeyMask kMask, typename T = float, class Loads = PlainLoads>
 __device__ __forceinline__ void attend_rows_wide(
-    int q0, int c, const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ bias,
-    const void* __restrict__ kmask, float* __restrict__ o,
+    int q0, int c, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ bias,
+    const void* __restrict__ kmask, T* __restrict__ o,
     float* __restrict__ lse, int sq, int sk, int kv_valid, float scale,
     Dropout drop, uint32_t rng_group, Rows lay) {
   __shared__ float qs[kBlockQ][kFW];
@@ -700,8 +732,8 @@ __device__ __forceinline__ void attend_rows_wide(
     for (int j = 0; j < nc; ++j) {
       const int dj = min(kFW, lay.d - j * kFW);
       __syncthreads();  // the last chunk's (and tile's) readers are done
-      stage_f32<kFW>(qs, q + j * kFW, q0, sq, dj, lay.qkv);
-      stage_f32<kFW + 1>(ks, k + j * kFW, k0, sk, dj, lay.qkv);
+      stage_f32<kFW, T, Loads>(qs, q + j * kFW, q0, sq, dj, lay.qkv);
+      stage_f32<kFW + 1, T, Loads>(ks, k + j * kFW, k0, sk, dj, lay.qkv);
       __syncthreads();
 #pragma unroll 16
       for (int cc = 0; cc < kFW; ++cc) {
@@ -711,7 +743,7 @@ __device__ __forceinline__ void attend_rows_wide(
           s[r] = fmaf(qs[warp + kWarps * r][cc], kc, s[r]);
       }
     }
-    stage_f32<kFW>(vs, v + c * kFW, k0, sk, dco, lay.qkv);
+    stage_f32<kFW, T, Loads>(vs, v + c * kFW, k0, sk, dco, lay.qkv);
 
     const int kj = k0 + lane;
     const bool key_in = kj < sk;
@@ -772,7 +804,8 @@ __device__ __forceinline__ void attend_rows_wide(
   for (int i = 0; i < kOutRows; ++i) {
     const int row = orow + kOutStride * i;
     const int qi = q0 + row;
-    if (qi < sq && od < dco) o[qi * lay.o + c * kFW + od] = acc[i] / l_s[row];
+    if (qi < sq && od < dco)
+      o[qi * lay.o + c * kFW + od] = from_f32<T>(acc[i] / l_s[row]);
   }
 }
 

@@ -30,8 +30,8 @@
 // 7 tile products where the mathematics needs 5, no atomics, so two runs
 // give equal bits. Each block holds one 64-row tile of Q and dO (or K and V)
 // in registers and streams the other operands, so nothing about the group's
-// size limits it; the route keeps flash_bwd_smem_bytes's rule all the same,
-// as the contract of this entry.
+// size limits it: it takes every shape the JAX route sends (Sq·Sk < 512² +
+// 1, any D).
 //
 // fp32: flash_bwd_kernel, fp32 FMAs on the CUDA cores. One thread block owns
 // one group and every output of it, in one launch and without atomics. It
@@ -44,9 +44,13 @@
 //      streamed from device memory, L2-resident at these sizes), pᵀ and dsᵀ
 //      into shared tiles, dk and dv of the keys accumulated and written.
 // The whole group's K and V must fit the block's shared memory
-// (flash_attention.py::flash_bwd_smem_bytes, the same formula as here): the
-// route takes this entry only then, as _BWD_SCORE_BUDGET bounds it on the
-// TPU; outside it the backward is dropout_attention_bwd at rate 0.
+// (flash_attention.py::flash_bwd_smem_bytes, the same formula as here). A
+// shape past it (S 512 at D 128: 543 KB) streams instead: the two passes of
+// attention_wide_tile.cuh's fp32 bodies under ScaledGrads, whose 64-column
+// chunks cover any D (flash_bwd_dq_wide_kernel, then
+// flash_bwd_dkv_wide_kernel, δ through the delta scratch; the scores are
+// summed in 64-column chunks, so they differ from the resident kernel's in
+// the last bits, as any two summation orders do).
 //
 // Head dims: D 16, 32, 64 and 128 are instantiations of both routes' kernels
 // (the bf16 D 128 passes with their streamed tiles in dynamic shared
@@ -55,18 +59,17 @@
 // and not written: flash_bwd_{dq,dkv}_mma_padded_kernel (bf16, the GroupPad
 // layouts; a bf16 operand aligned as align_mask(D) says) and
 // flash_bwd_padded_kernel (fp32, rows D + 1 apart in shared memory, so the
-// group's footprint is smem_floats(sq, sk, D) exactly). The route's rule,
-// flash_attention.py::flash_bwd_smem_bytes, is the fp32 kernel's footprint;
-// the bf16 passes take at most 71 KB whatever the shape (the 128 tile's four
-// 17 KB tile buffers and the staged lse and δ), under a block's 227 KB, so
-// every shape the rule admits runs on both routes. A D above 128 takes
+// group's footprint is smem_floats(sq, sk, D) exactly).
+// flash_attention.py::flash_bwd_smem_bytes is the fp32 kernel's footprint
+// and chooses between it and the streaming passes; the bf16 passes take at
+// most 71 KB whatever the shape (the 128 tile's four 17 KB tile buffers and
+// the staged lse and δ), under a block's 227 KB. A D above 128 takes
 // flash_bwd_{dq,dkv}_mma_wide_kernel (bf16) or flash_bwd_{dq,dkv}_wide_kernel
 // (fp32): attention_wide_tile.cuh's two passes under ScaledGrads, D split
 // across grid z, at most 27 KB of shared memory a block whatever the shape.
-// The rule stays the entry's contract there too, unchanged: at D 256 it
-// admits Sq, Sk <= 64, and from D 437 on no shape at all (one 32-row tile
-// of K, V, q and do as fp32 already passes 227 KB), so those backwards take
-// row 6 at rate 0.
+// So the entry takes every shape the JAX route sends it (_flash_bwd_pallas
+// refuses none): the fp32 resident kernel where its footprint fits a block,
+// the streaming passes elsewhere.
 //
 // What bounds it on the H100 (ViT-B/16 @224, batch 32: G = 384, S = 197,
 // D = 64, bf16): 10·G·S²·D = 9.5 GFLOP, 9.6 µs at 989 TFLOP/s, against
@@ -588,7 +591,8 @@ int launch(const Args& a, int d) {
   }
 }
 
-// The wide passes (d > 128), either dtype.
+// The wide passes (d > 128), either dtype; in fp32 also the streamed
+// backward of a group past the resident kernel's shared memory, any d.
 int launch_wide(const Args& a, int d, int is_bf16) {
   const auto* lse = static_cast<const float*>(a.lse);
   auto* delta = static_cast<float*>(a.delta);
@@ -639,12 +643,12 @@ int launch_d(const Args& a, int d, int is_bf16) {
 
 extern "C" {
 
-// Returns 0 or the cudaError_t of a launch; cudaErrorInvalidValue when the
-// shape is outside the route (flash_attention.py::flash_bwd_smem_bytes over
-// one block's 227 KB of shared memory). is_bf16: 1 = bf16 (the tensor
-// cores), 0 = fp32. d >= 1. bf16, and fp32 at d > 128: delta, fp32
-// scratch of G·Sq elements (δ, written by the first pass and read by the
-// second); bf16: a q, k, v, out, do, dq, dk or dv off its copies' grain
+// Returns 0 or the cudaError_t of a launch. is_bf16: 1 = bf16 (the tensor
+// cores), 0 = fp32. d >= 1, any Sq and Sk. bf16, and fp32 at d > 128 or
+// past the resident kernel's shared memory (flash_bwd_smem_bytes over one
+// block's 227 KB): delta, fp32 scratch of G·Sq elements (δ, written by the
+// first pass and read by the second; cudaErrorInvalidValue if null there);
+// bf16: a q, k, v, out, do, dq, dk or dv off its copies' grain
 // (align_mask(d)) is refused (cudaErrorMisalignedAddress).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* lse, const void* dout,
@@ -652,8 +656,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         int sq, int sk, int d, int kv_valid, float scale,
                         int is_bf16, void* stream) {
   const size_t smem = static_cast<size_t>(smem_floats(sq, sk, d)) * 4;
+  // the fp32 kernel's group in one block's shared memory; else streamed
+  const bool resident = smem <= 232448;
   if (g < 1 || sq < 1 || sk < 1 || kv_valid < 1 || kv_valid > sk ||
-      smem > 232448 || ((is_bf16 || d > 128) && delta == nullptr))
+      ((is_bf16 || d > 128 || !resident) && delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
@@ -664,6 +670,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Args a{q, k, v, out, lse, dout, dq, dk, dv, delta, g, sq, sk,
                kv_valid, scale, smem, static_cast<cudaStream_t>(stream)};
+  if (!is_bf16 && !resident && d >= 1) return launch_wide(a, d, 0);
   switch (d) {
     case 16: return launch_d<16, false>(a, d, is_bf16);
     case 32: return launch_d<32, false>(a, d, is_bf16);

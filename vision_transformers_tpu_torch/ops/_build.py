@@ -119,9 +119,9 @@ _SIGNATURES = {
         "ln_dense_error_string": (ctypes.c_char_p, [_I]),
     },
     # (x, gamma, beta, wqkv, ldk1, ldn1, bqkv, wout, ldk3, ldn3, bout, qkv_ws,
-    #  attn_ws, out, b, s, heads, dh, scale, eps, is_bf16, stream)
+    #  attn_ws, out, lse_ws, b, s, heads, dh, scale, eps, is_bf16, stream)
     "fused_block": {
-        "fused_block_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L] + [_P] * 4
+        "fused_block_fwd": (_I, [_P] * 4 + [_L, _L, _P, _P, _L, _L] + [_P] * 5
                             + [_I] * 4 + [_F, _F, _I, _P]),
         # (x, gamma, beta, wqkv, ldk1, ldn1, bqkv, wout, ldk3, ldn3, bout,
         #  qkv_ws, attn_ws, out, stats, lse_ws, b, s, heads, dh, scale, eps,

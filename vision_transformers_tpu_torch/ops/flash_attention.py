@@ -105,12 +105,9 @@ _PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 # columns past D read as zeros (TNT: D 12 and 128; ViT-H/14: D 80), and a D
 # above 128 (any ViT(num_heads=...) whose width allows it: ViT-B/16's
 # widths at 3 heads, D 256) takes csrc/attention_wide_tile.cuh's kernels,
-# D split across the grid in chunks. Row 4 keeps its shape rule
-# (flash_bwd_smem_bytes) on top.
+# D split across the grid in chunks. The fused block (row 8) takes the same
+# head dims in its attention phase (fused_block_supported).
 ATTENTION_HEAD_DIM_RULE = "D >= 1"
-# Head dims the fused block (row 8) is instantiated for: its rule keeps to
-# these (fused_block_supported).
-TILE_HEAD_DIMS = (16, 32, 64)
 # Head dims of the window kernels (rows 9-13), those of the JAX window plans
 # (dh <= 64 dividing 128): 16, 32 and 64 are instantiations of their tiles,
 # 1, 2, 4 and 8 run in the 16 tile with the columns past dh read as zeros.
@@ -177,9 +174,9 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                         head_dims: Optional[Tuple[int, ...]] = None) -> None:
     """What a CUDA kernel takes: a contiguous CUDA tensor of ``dtype``
     (float32 or bfloat16) and a head dim of ``ATTENTION_HEAD_DIM_RULE``
-    (rows 1-7), or of ``head_dims`` where a row keeps its own
-    (``TILE_HEAD_DIMS``, row 8; ``WINDOW_HEAD_DIMS``, rows 9-13); anything
-    else raises ``ValueError``."""
+    (rows 1-8), or of ``head_dims`` where a row keeps its own
+    (``WINDOW_HEAD_DIMS``, rows 9-13); anything else raises
+    ``ValueError``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
@@ -192,11 +189,11 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         if not attention_head_dim_supported(head_dim):
             raise ValueError(
                 f"head dim {head_dim} not supported by the attention CUDA "
-                f"kernels (rows 1-7 take {ATTENTION_HEAD_DIM_RULE})")
+                f"kernels (rows 1-8 take {ATTENTION_HEAD_DIM_RULE})")
     elif head_dim not in head_dims:
         raise ValueError(
             f"head dim {head_dim} not supported by the CUDA kernel "
-            f"(supported: {head_dims}; rows 1-7 take "
+            f"(supported: {head_dims}; rows 1-8 take "
             f"{ATTENTION_HEAD_DIM_RULE})")
 
 
@@ -1049,20 +1046,24 @@ _SMEM_LIMIT = 232448
 
 
 def flash_bwd_smem_bytes(s_q: int, s_k: int, d: int) -> int:
-    """Shared memory of ``csrc/flash_attention_bwd.cu`` for one group: K and
-    V resident as fp32 (rows rounded up to 32, stride d + 1), lse and δ of
-    every query row, one q and one do tile, two 32 × 33 score tiles."""
+    """Shared memory of ``csrc/flash_attention_bwd.cu``'s fp32 kernel at
+    D <= 128 for one group: K and V resident as fp32 (rows rounded up to 32,
+    stride d + 1), lse and δ of every query row, one q and one do tile, two
+    32 × 33 score tiles. Within ``_SMEM_LIMIT`` that kernel runs; past it the
+    fp32 backward streams (the entry's choice, not a route rule)."""
     r32 = lambda x: -(-x // 32) * 32  # noqa: E731
     return 4 * (2 * r32(s_k) * (d + 1) + 2 * r32(s_q) + 2 * 32 * (d + 1)
                 + 2 * 32 * 33)
 
 
 def flash_bwd_supported(s_q: int, s_k: int, d: int) -> bool:
-    """The small-S backward's route: below the JAX package's
-    ``_PALLAS_BWD_MIN_SCORES`` and with the group's K and V in one block's
-    shared memory (as ``_BWD_SCORE_BUDGET`` bounds the TPU kernel)."""
-    return (s_q * s_k < _PALLAS_BWD_MIN_SCORES
-            and flash_bwd_smem_bytes(s_q, s_k, d) <= _SMEM_LIMIT)
+    """The small-S backward's route, the JAX package's
+    (``_flash_attention_bwd``, :2414-2425): below ``_PALLAS_BWD_MIN_SCORES``
+    scores, at any head dim ``d`` (``_flash_bwd_pallas`` sizes its group
+    block from ``_BWD_SCORE_BUDGET`` and refuses no shape; every shape
+    here has a kernel)."""
+    del d  # no head-dim term, as in JAX
+    return s_q * s_k < _PALLAS_BWD_MIN_SCORES
 
 
 def flash_attention_bwd_reference(
@@ -1102,13 +1103,14 @@ def flash_attention_bwd(
     bf16 runs on the tensor cores (two launches; a bf16 operand that is not
     16-byte aligned raises), rounding ds unscaled and pᵀ before their
     products as ``_bwd_kernel`` does; fp32 on the CUDA cores, one launch of
-    one block per group. Every output has one owner, so two runs give equal
-    bits. On CUDA the shape must pass ``flash_bwd_smem_bytes``'s rule
-    (``ValueError`` otherwise; from D 437 on it admits no shape). D:
-    ``ATTENTION_HEAD_DIM_RULE``, any other D up to 128 in the next tile
-    (``*_padded_kernel``), above 128 the two passes of ``*_wide_kernel`` in
-    either dtype. ``grads`` (CUDA only): contiguous (dq, dk, dv) like (q, k,
-    v) to write into."""
+    one block per group where the group's K and V fit its shared memory
+    (``flash_bwd_smem_bytes``), else the two streaming passes of
+    ``flash_bwd_{dq,dkv}_wide_kernel``. Every output has one owner, so two
+    runs give equal bits. Any shape (the route, ``flash_bwd_supported``, is
+    the JAX package's score budget). D: ``ATTENTION_HEAD_DIM_RULE``, any
+    other D up to 128 in the next tile (``*_padded_kernel``), above 128 the
+    two passes of ``*_wide_kernel`` in either dtype. ``grads`` (CUDA only):
+    contiguous (dq, dk, dv) like (q, k, v) to write into."""
     b, h, s_q, s_k, d, scale, kv_valid = _split_dims(q, k, v, scale, kv_valid)
     if do.shape != q.shape or out.shape != q.shape \
             or lse.shape != (b, h, s_q):
@@ -1118,11 +1120,6 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do,
                                              scale=scale, kv_valid=kv_valid)
-    if flash_bwd_smem_bytes(s_q, s_k, d) > _SMEM_LIMIT:
-        raise ValueError(
-            f"flash_attention_bwd: Sq {s_q}, Sk {s_k}, D {d} need "
-            f"{flash_bwd_smem_bytes(s_q, s_k, d)} bytes of shared memory, "
-            f"more than a block has ({_SMEM_LIMIT})")
 
     from vision_transformers_tpu_torch.ops import _build
 
@@ -1139,9 +1136,11 @@ def flash_attention_bwd(
         _check_into(name, t, like)
     is_bf16 = q.dtype == torch.bfloat16
     # δ, written by the two-pass routes' first pass and read by their second
-    # (bf16; fp32 at D > 128)
+    # (bf16; fp32 at D > 128 or past the resident kernel's shared memory)
+    two_pass = (is_bf16 or d > 128
+                or flash_bwd_smem_bytes(s_q, s_k, d) > _SMEM_LIMIT)
     delta = (torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
-             if is_bf16 or d > 128 else None)
+             if two_pass else None)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd(
@@ -1886,26 +1885,31 @@ def fused_window_attention(qkv_map: torch.Tensor,
 def fused_block_supported(hd: int, heads: int) -> bool:
     """The port's size rule for ``fused_attention_block``, in place of the
     JAX package's VMEM budget (``fused_block_supported(s, hd, itemsize)``,
-    :1015, which counts Wqkv and Wout resident in a TPU core's VMEM). The
-    CUDA kernels keep no operand resident: weights, qkv and keys stream
-    through fixed shared-memory tiles, the rest goes through a device-memory
-    workspace. So neither S nor the width is limited; the one condition is a
-    head dim the kernels are built for (``TILE_HEAD_DIMS``). ViT-L
-    (hd 1024, dh 64) is admitted in bf16, which the JAX rule excludes."""
-    return heads > 0 and hd % heads == 0 and hd // heads in TILE_HEAD_DIMS
+    :1015, which counts Wqkv and Wout resident in a TPU core's VMEM and has
+    no head-dim term). The CUDA kernels keep no operand resident: weights,
+    qkv and keys stream through fixed shared-memory tiles, the rest goes
+    through a device-memory workspace. So neither S nor the width is
+    limited, and every head dim has a tile (``ATTENTION_HEAD_DIM_RULE``): the
+    one condition is heads that divide the width. A superset of the JAX
+    rule: ViT-L (hd 1024) and ViT-H/14 (hd 1280, dh 80) are admitted, which
+    the VMEM budget excludes."""
+    return heads > 0 and hd > 0 and hd % heads == 0
 
 
 def fused_block_route(dtype: torch.dtype, hd: int, heads: int,
                       strides: Tuple[int, int, int, int]) -> str:
     """The route of a CUDA launch of the fused sub-block, from the operands
-    alone, before any launch: ``"tensor_cores"`` (``fused_block_mma_kernel``,
-    every product on ``mma.sync``) for bf16 whose width H·dh is a multiple of
-    8 and whose two weights lie in one layout — both (in, out) (ldn = 1) or
-    both torch's (out, in) (ldk = 1) — at leading strides that are multiples
-    of 8 (the 16-byte rows the tiles' copies need; every model of the repo);
-    else ``"cuda_cores"`` (``fused_block_kernel``). ``strides``: (ldk, ldn)
-    of Wqkv, then of Wout. A shape rule, not a fallback: a launch on the
-    chosen route that fails raises."""
+    alone, before any launch: ``"tensor_cores"`` (``fused_block_mma_kernel``
+    at dh 16, 32 and 64, ``fused_block_mma_padded_kernel`` at any other dh
+    up to 128, ``fused_block_mma_wide_kernel`` above; every product on
+    ``mma.sync``) for bf16 whose width H·dh is a multiple of 8 (odd and
+    narrow dh included) and whose two weights lie in one layout — both (in,
+    out) (ldn = 1) or both torch's (out, in) (ldk = 1) — at leading strides
+    that are multiples of 8 (the 16-byte rows the dense tiles' copies need;
+    every model of the repo); else ``"cuda_cores"`` (``fused_block_kernel``,
+    ``fused_block_padded_kernel``, ``fused_block_wide_kernel``).
+    ``strides``: (ldk, ldn) of Wqkv, then of Wout. A shape rule, not a
+    fallback: a launch on the chosen route that fails raises."""
     ldk1, ldn1, ldk3, ldn3 = strides
     if ldk1 == 1 and ldk3 == 1:
         leads = (ldn1, ldn3)
@@ -2021,7 +2025,7 @@ def _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads, hd,
     of ``_measure_fused_block_phases`` (``phases`` a bit mask)."""
     from vision_transformers_tpu_torch.ops import _build
 
-    _check_cuda_operand("x", x, x.dtype, dh, TILE_HEAD_DIMS)
+    _check_cuda_operand("x", x, x.dtype, dh)
     for name, w in (("wqkv", wqkv), ("wout", wout)):
         if not w.is_cuda or w.dtype != x.dtype:
             raise ValueError(f"{name} must be a {x.dtype} CUDA tensor, got "
@@ -2048,6 +2052,10 @@ def _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads, hd,
     _check_into("out", out, x)
     qkv_ws = torch.empty(b, s, 3 * hd, dtype=x.dtype, device=x.device)
     attn_ws = torch.empty(b, s, hd, dtype=x.dtype, device=x.device)
+    # the attention's lse, unread: the tensor-core route's at every dh, the
+    # CUDA-core route's above 128 (its wide tile writes it)
+    lse_ws = (torch.empty(b, s, heads, dtype=torch.float32, device=x.device)
+              if route == "tensor_cores" or dh > 128 else None)
     lib = _build.load("fused_block")
     head = (x.data_ptr(), r["gamma"].data_ptr(), r["beta"].data_ptr(),
             wqkv.data_ptr(), ldk1, ldn1, r["bqkv"].data_ptr(),
@@ -2056,20 +2064,19 @@ def _fused_block_launch(x, gamma, beta, wqkv, bqkv, wout, bout, heads, hd,
     with torch.cuda.device(x.device):  # launch on the tensor's card
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "tensor_cores":
-            # each row's (mean, rstd); the attention phase's lse, unread
+            # each row's (mean, rstd)
             stats = torch.empty(b * s, 2, dtype=torch.float32,
                                 device=x.device)
-            lse_ws = torch.empty(b, s, heads, dtype=torch.float32,
-                                 device=x.device)
             tail = (stats.data_ptr(), lse_ws.data_ptr(), b, s, heads, dh,
                     scale, float(eps))
             rc = lib.fused_block_mma_fwd(*head, *tail, stream) \
                 if phases is None \
                 else lib.fused_block_mma_phases(*head, *tail, phases, stream)
         else:
-            rc = lib.fused_block_fwd(*head, b, s, heads, dh, scale,
-                                     float(eps),
-                                     int(x.dtype == torch.bfloat16), stream)
+            rc = lib.fused_block_fwd(
+                *head, None if lse_ws is None else lse_ws.data_ptr(), b, s,
+                heads, dh, scale, float(eps), int(x.dtype == torch.bfloat16),
+                stream)
     _build.check(lib, "fused_block", rc)
     LAUNCHES["fused_attention_block"] += 1
     return out

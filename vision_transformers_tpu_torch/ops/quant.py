@@ -19,8 +19,11 @@ of the JAX tree's (in, out).
 
 On CUDA ``torch._int_mm`` takes more than 16 rows and K and N multiples of
 8. Fewer rows are padded with zero rows, which quantize to exactly 0 and are
-sliced off; a K or N off the multiple raises ``ValueError``. Nothing is
-computed in float instead.
+sliced off. K and N are padded to multiples of 8 with zeros on every
+device (JAX's ``lax.dot_general`` takes any shape): a zero column of K adds
+an exact 0 to every int32 sum, and the extra columns of N are sliced off, so
+the bits are those of the unpadded product, on the CPU as on the card.
+Nothing is computed in float instead.
 
 ``PRODUCTS["int8_matmul"]`` counts the int8 products run (either device);
 ``reset_product_counts()`` zeroes it.
@@ -94,18 +97,19 @@ def quantize_dense_params(dense: Dense) -> dict:
 
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 × (K, N) int8 → (M, N) int32 by ``torch._int_mm``,
-    within its CUDA shape rules (the module's docstring)."""
+    within its CUDA shape rules: K and N zero-padded to multiples of 8 on
+    every device, rows to ``_CUDA_MIN_ROWS`` on CUDA (the module's
+    docstring)."""
     m, k = a.shape
     n = b.shape[1]
-    if a.is_cuda:
-        if k % 8 or n % 8:
-            raise ValueError(
-                f"int8_matmul on CUDA: torch._int_mm needs K and N multiples "
-                f"of 8, got K {k}, N {n}")
-        if m < _CUDA_MIN_ROWS:
-            a = torch.cat([a, a.new_zeros(_CUDA_MIN_ROWS - m, k)])
-            return torch._int_mm(a, b)[:m]
-    return torch._int_mm(a, b)
+    pad_k, pad_n = -k % 8, -n % 8
+    if pad_k or pad_n:
+        # b stays column-major, as the (out, in) weight's transpose is
+        a = torch.nn.functional.pad(a, (0, pad_k))
+        b = torch.nn.functional.pad(b.t(), (0, pad_k, 0, pad_n)).t()
+    if a.is_cuda and m < _CUDA_MIN_ROWS:
+        a = torch.cat([a, a.new_zeros(_CUDA_MIN_ROWS - m, a.shape[1])])
+    return torch._int_mm(a, b)[:m, :n]
 
 
 def int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor,
