@@ -300,6 +300,28 @@ exit, and without the final result line:
    layers in fp32 flag on against the CPU (``FUSED_LOGIT_TOL_FP32``); the
    2-layer probes of ``FUSED_PROBES`` (dh 48 and 96) at batch 8, flag on
    against off by the same bound, their route by name.
+7g. Rows 11 and 10 at every head dim the JAX batched plan admits
+   (``window_head_dims_phase``): the batched forward and the backward with
+   and without dbias at ``WINDOW_OTHER_SHAPES`` (dh 12, 24, 48, 80, 96,
+   128, 192 and 256 at N 49; N 16, 64 and 128 at a dh of each tile; ragged
+   G; dh 12's sections 8-byte aligned only) and at the largest dh the plan
+   admits at one head (``WINDOW_LARGEST``: 1534 and 532 in bf16, 919 and
+   318 in fp32, one more refused), in bf16 (the padded tiles 16-64, the
+   64-column chunks above) and fp32 (the 32-column chunks), by kernel name:
+   against the plain versions, every element written (dqkv NaN-filled, the
+   forward's out in a freed NaN-filled block it must take, by address),
+   reruns bit-equal, each
+   beside a planted fault (key 0 of the last window hidden from its
+   queries). At H·dh 2176 (68 heads of 32, N 49, bf16) the batched plan
+   refuses and the block takes the packed kernel, at 2144 the batched one,
+   as the JAX plans decide. Times (bf16 at Swin-T's stage 1, G 2048, H·dh 96
+   at dh 48 and 96, and dh 192; fp32 at dh 48) beside bound, plain and SDPA
+   (its backward with the mask). Swin-T's widths at 2 heads a stage
+   (``SWIN_T_FEWER_HEADS``, dh 48) served @224 at buckets 1 and 32 (4
+   batched and 8 split-head launches a forward, the JAX routes), trained
+   at batch 32 (3 fused-Adam steps, the loss falling; row 10 four times a
+   step), in fp32 at batch 2 against the CPU; at 1 head a stage (dh 96)
+   served at bucket 32; ms per request, device ms, step ms, idle shares.
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -500,6 +522,17 @@ ROUTE_NAMES = {
     ("row 12", "float32"): ("window_fused_flat_kernel",),
     ("row 13", "bfloat16"): ("window_fused_slab_mma_kernel",),
     ("row 13", "float32"): ("window_fused_slab_kernel",),
+    # rows 11 and 10 at a head dim outside the pack and fused plans': bf16
+    # the padded tiles 16-128 or the 64-column chunks, fp32 the 32-column
+    # chunks (ops/flash_attention.py's window_route)
+    ("row 11 padded", "bfloat16"): ("window_batched_mma_padded_kernel",),
+    ("row 11 padded", "float32"): ("window_batched_chunked_kernel",),
+    ("row 11 chunked", "bfloat16"): ("window_batched_mma_chunked_kernel",),
+    ("row 11 chunked", "float32"): ("window_batched_chunked_kernel",),
+    ("row 10 padded", "bfloat16"): ("window_bwd_mma_padded_kernel",),
+    ("row 10 padded", "float32"): ("window_bwd_chunked_kernel",),
+    ("row 10 chunked", "bfloat16"): ("window_bwd_mma_chunked_kernel",),
+    ("row 10 chunked", "float32"): ("window_bwd_chunked_kernel",),
 }
 # The window wrappers' launch counters and their rows of the kernel table:
 # a path that launches one requires its route by name.
@@ -693,6 +726,29 @@ def max_err(a, b) -> float:
 def differing_share(a, b) -> float:
     """The share of elements of a whose bits differ from b's."""
     return (a != b).float().mean().item()
+
+
+def into_freed_nan(call, shape, dtype, dev):
+    """call()'s output, for a wrapper that allocates it itself and makes no
+    other tensor on the card before it: run on a stream of its own, whose
+    caching-allocator pool then holds one free block alone, a NaN-filled
+    one of the output's size. The output must take that block (same
+    address, or the check fails), so any element the kernel leaves
+    unwritten reads NaN."""
+    import torch
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        nan = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+        ptr = nan.data_ptr()
+        del nan
+        out = call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    require(out.data_ptr() == ptr, "the output took the freed NaN block "
+            f"({out.data_ptr():#x} against {ptr:#x})")
+    return out
 
 
 def seeded_state_dict(model, seed: int):
@@ -1310,6 +1366,43 @@ KEPT_REGISTERS = {
     "window_bwd_mma_kernel<64, 32>": 128,
     "window_bwd_mma_kernel<64, 64>": 127,
     "window_bwd_mma_kernel<64, 128>": 207,
+    # rows 11 and 10 at every other head dim their JAX plan admits:
+    # the padded tiles 16-64, the 64-column chunks above and the fp32
+    # 32-column chunks; the first build's counts (no spill)
+    "window_batched_chunked_kernel": 71,
+    "window_batched_mma_chunked_kernel<16>": 58,
+    "window_batched_mma_chunked_kernel<32>": 64,
+    "window_batched_mma_chunked_kernel<64>": 80,
+    "window_batched_mma_chunked_kernel<128>": 128,
+    "window_batched_mma_padded_kernel<16, 16>": 77,
+    "window_batched_mma_padded_kernel<16, 32>": 64,
+    "window_batched_mma_padded_kernel<16, 64>": 112,
+    "window_batched_mma_padded_kernel<16, 128>": 128,
+    "window_batched_mma_padded_kernel<32, 16>": 64,
+    "window_batched_mma_padded_kernel<32, 32>": 76,
+    "window_batched_mma_padded_kernel<32, 64>": 110,
+    "window_batched_mma_padded_kernel<32, 128>": 130,
+    "window_batched_mma_padded_kernel<64, 16>": 70,
+    "window_batched_mma_padded_kernel<64, 32>": 80,
+    "window_batched_mma_padded_kernel<64, 64>": 128,
+    "window_batched_mma_padded_kernel<64, 128>": 184,
+    "window_bwd_chunked_kernel": 107,
+    "window_bwd_mma_chunked_kernel<16>": 128,
+    "window_bwd_mma_chunked_kernel<32>": 163,
+    "window_bwd_mma_chunked_kernel<64>": 166,
+    "window_bwd_mma_chunked_kernel<128>": 253,
+    "window_bwd_mma_padded_kernel<16, 16>": 64,
+    "window_bwd_mma_padded_kernel<16, 32>": 80,
+    "window_bwd_mma_padded_kernel<16, 64>": 100,
+    "window_bwd_mma_padded_kernel<16, 128>": 219,
+    "window_bwd_mma_padded_kernel<32, 16>": 73,
+    "window_bwd_mma_padded_kernel<32, 32>": 73,
+    "window_bwd_mma_padded_kernel<32, 64>": 99,
+    "window_bwd_mma_padded_kernel<32, 128>": 208,
+    "window_bwd_mma_padded_kernel<64, 16>": 130,
+    "window_bwd_mma_padded_kernel<64, 32>": 130,
+    "window_bwd_mma_padded_kernel<64, 64>": 130,
+    "window_bwd_mma_padded_kernel<64, 128>": 209,
     # row 8 at every head dim, both routes: the cooperative kernels
     # and the measurement-only phase kernels (Tile 0 exact, 1 padded, 2
     # wide); the first build's counts (ptxas: the 16-64 tiles at the 128
@@ -2312,6 +2405,148 @@ SWIN_T4_LAUNCHES_PER_FORWARD = {"window_batched_attention": 4,
 WINDOW_ROW_NAMES = ("row 9", "row 10", "row 11", "row 12", "row 13")
 
 
+def split_heads(t, h):
+    """The q, k, v of a partitioned (G, N, 3·H·dh) tensor as (G, H, N, dh)
+    views."""
+    g, n, three = t.shape
+    return [x.reshape(g, n, h, three // (3 * h)).transpose(1, 2)
+            for x in t.split(three // 3, dim=-1)]
+
+
+def sdpa_grad(q, k, v, do, p=0.0, mask=None):
+    """One call of SDPA's backward through autograd (graph kept): the
+    library time of a backward."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                         dropout_p=p)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+class ModelRuns:
+    """The model runs of a phase (7e, 7g): each launch count of a run into
+    ``runs``, the served and trained numbers into ``numbers``; inputs drawn
+    from ``rng``."""
+
+    def __init__(self, seed):
+        self.rng = np.random.RandomState(seed)
+        self.runs, self.numbers = [], {}
+
+    def counted(self, fn):
+        import torch
+        from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        self.runs.append(dict(fa.LAUNCHES))
+        return out, self.runs[-1]
+
+    def serve(self, label, model, shape, buckets, want, routes):
+        """Export, load and serve ``model``: per bucket finite logits, the
+        launches ``want`` per forward and nothing else of the table, the
+        routes by kernel name, ms per request, device ms, idle share."""
+        import torch
+        from vision_transformers_tpu_torch import serving
+
+        dev, fp32 = torch.device("cuda"), torch.float32
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serving.export_classifier(model, shape, tmp, buckets=buckets,
+                                      dtype=fp32)
+            clf = serving.load_classifier(tmp)
+        clf.warmup()
+        log(f"{label}: exported, loaded and warmed up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        x = self.rng.standard_normal((max(buckets), *shape)).astype(np.float32)
+        for bkt in buckets:
+            logits, la = self.counted(lambda: clf.predict(x[:bkt]))
+            require(tuple(logits.shape) == (bkt, 1000)
+                    and bool(torch.isfinite(logits.float()).all())
+                    and {k: v for k, v in la.items() if v} == want,
+                    f"{label} bucket {bkt}: finite logits, launches {want} "
+                    f"per forward and no other kernel of the table: {la}")
+            require_route(f"{label} bucket {bkt} forward",
+                          lambda: clf.predict(x[:bkt]), routes)
+            for _ in range(2):
+                clf.predict(x[:bkt]).float().cpu()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                clf.predict(x[:bkt]).float().cpu()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            with torch.inference_mode():
+                xb = torch.from_numpy(x[:bkt]).to(dev)
+                dev_ms = cuda_ms(lambda: clf.model(xb), iters=5, warmup=1)
+            wall, busy, count, _ = device_profile(
+                lambda: clf.predict(x[:bkt]).float().cpu())
+            idle = None if busy is None else 1 - busy / wall
+            self.numbers[f"{label} served b{bkt}"] = dict(
+                ms=ms, device_ms=dev_ms, idle=idle)
+            log(f"{label} bf16 served bucket {bkt}: {ms:.3f} ms per request "
+                f"(host numpy in, logits out), forward device time "
+                f"{dev_ms:.3f} ms, {bkt / ms * 1e3:.1f} images/s; profile "
+                + ("saw no device activity" if busy is None else
+                   f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} "
+                   f"activities, idle share {idle:.3f}"))
+
+    def train(self, label, model, image, bsz, steps, lr, want, routes):
+        """``steps`` fused Adam steps on one seeded batch: the loss falls;
+        per step the launches ``want`` (at least), the routes by name; step
+        ms and idle share of a warm step."""
+        import torch
+        from vision_transformers_tpu_torch.training import trainer
+        from vision_transformers_tpu_torch.training.optimizers import (
+            make_optimizer,
+        )
+
+        state = trainer.make_train_state(
+            model, tx=make_optimizer("adam", lr, fused=True))
+        step = trainer.train_step_fn(model)
+        xb = self.rng.randint(0, 256, (bsz, image, image, 3)).astype(np.uint8)
+        yb = self.rng.randint(0, 1000, bsz).astype(np.int32)
+        wb = np.ones(bsz, np.float32)
+        model.dropout_generator.manual_seed(image)
+        losses = []
+
+        def go():
+            nonlocal state
+            for _ in range(steps):
+                state, loss_n, _, n = step(state, xb, yb, wb)
+                losses.append((loss_n / n).item())
+
+        _, la = self.counted(go)
+        log(f"{label}: {steps} Adam steps at batch {bsz}: loss "
+            f"{[round(x_, 4) for x_ in losses]}, launches {la}")
+        require(np.isfinite(losses).all() and losses[-1] < losses[0]
+                and all(la[k] >= steps * v for k, v in want.items()),
+                f"{label}: finite losses that fall over {steps} steps, "
+                f"{want} a step: {la}")
+
+        def one_step():
+            nonlocal state
+            state, *_ = step(state, xb, yb, wb)
+
+        require_route(f"{label} bf16 train step", one_step, routes)
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        wall, busy, count, _ = device_profile(one_step)
+        idle = None if busy is None else 1 - busy / wall
+        self.numbers[f"{label} train b{bsz}"] = dict(
+            ms=step_ms, idle=idle, losses=losses)
+        log(f"{label} bf16 train step, batch {bsz}: {step_ms:.3f} ms a step "
+            f"(host clock, synchronised; {bsz / step_ms * 1e3:.1f} images/s)"
+            "; profile " + ("saw no device activity" if busy is None else
+                            f"wall {wall:.3f} ms, busy {busy:.3f} ms in "
+                            f"{count} activities, idle share {idle:.3f}"))
+
+
 def wide_route(row: str, d: int) -> str:
     """The ROUTE_NAMES row that head dim d takes: rows 1-7 above 128 their
     wide kernels (else as vith_route); the window rows their own kernels at
@@ -2394,18 +2629,49 @@ def wide_phase(det_keep):
         bias = None if nwp == 0 else randn(801 + dh, nwp, h, n, n, dtype=fp32)
         do = randn(802 + dh, g, n, h * dh, dtype=dtype)
         ref = fa.window_attention_reference(qkv, bias, h)
+        at = {}  # row 11's probe where the batched plan refuses this one
         for fn, row in (("window_packed_attention", "row 9"),
                         ("window_batched_attention", "row 11")):
+            q_, b_, h_, ref_, label_ = qkv, bias, h, ref, label
+            size = qkv.element_size()
+            if fn == "window_batched_attention" and fa.window_batched_plan(
+                    g, n, h, dh, max(nwp, 1), size) is None:
+                # the JAX batched plan's VMEM budget refuses (H·dh 768 at
+                # 768 heads of 1 in bf16; 192 of 4, 384 of 2 and 768 of 1
+                # in fp32, and 96 of 1 at nW' 64): no launch
+                fa.reset_launch_counts()
+                try:
+                    fa.window_batched_attention(qkv, bias, h)
+                    refused = False
+                except ValueError:
+                    refused = True
+                require(refused and not any(fa.LAUNCHES.values()),
+                        f"wide {label} {name}: row 11 refused before any "
+                        "launch where the batched plan is None")
+                log(f"wide window {label} {name}: row 11 refused by the "
+                    "batched plan (the JAX budget), no launch")
+                # the same probe at half the heads, or a quarter, ..., the
+                # first the plan admits: this dh's kernel, with this kind
+                # of bias, is still held against its plain version
+                while fa.window_batched_plan(g, n, h_, dh, max(nwp, 1),
+                                             size) is None:
+                    h_ //= 2
+                label_ = f"{label} at H{h_}"
+                q_ = randn(803 + dh, g, n, 3 * h_ * dh, dtype=dtype)
+                b_ = None if nwp == 0 else randn(804 + dh, nwp, h_, n, n,
+                                                  dtype=fp32)
+                ref_ = fa.window_attention_reference(q_, b_, h_)
+                at[row] = label_
             got = []
-            require_route(f"wide {label} {name} {fn}",
-                          lambda: got.append(getattr(fa, fn)(qkv, bias, h)),
+            require_route(f"wide {label_} {name} {fn}",
+                          lambda: got.append(getattr(fa, fn)(q_, b_, h_)),
                           [(wide_route(row, dh), name)])
-            e, share, ok = window_close(got[0], ref, name)
-            require(ok and torch.equal(getattr(fa, fn)(qkv, bias, h), got[0]),
-                    f"wide {label} {name}: {row} against its plain version "
+            e, share, ok = window_close(got[0], ref_, name)
+            require(ok and torch.equal(getattr(fa, fn)(q_, b_, h_), got[0]),
+                    f"wide {label_} {name}: {row} against its plain version "
                     f"({e:.3e}, {share:.4f} of elements differ), rerun "
                     "bit-equal")
-            errs[(row, label, name)] = e
+            errs[(row, label_, name)] = e
         dref, db_ref = fa.window_attention_bwd_reference(qkv, bias, do, h)
         got = []
         require_route(f"wide {label} {name} row 10", lambda: got.append(
@@ -2427,10 +2693,13 @@ def wide_phase(det_keep):
                 f"({eg:.3e} > {tol:.3e}?), dbias too, every element written, "
                 "rerun bit-equal")
         errs[("row 10", label, name)] = eg
+        label11 = at.get("row 11", label)
         log(f"wide window {label} {name}: rows 9 and 11 max|out-plain| "
             f"{errs[('row 9', label, name)]:.3e}, "
-            f"{errs[('row 11', label, name)]:.3e}; row 10 max|dqkv-plain| "
-            f"{eg:.3e} (tol {tol:.3e}); reruns bit-equal")
+            f"{errs[('row 11', label11, name)]:.3e}"
+            + ("" if label11 == label else f" (row 11 {label11})")
+            + f"; row 10 max|dqkv-plain| {eg:.3e} (tol {tol:.3e}); reruns "
+            "bit-equal")
 
     def check_fused(label, b, hw, shift, h, dh, dtype):
         name = str(dtype).removeprefix("torch.")
@@ -2487,12 +2756,6 @@ def wide_phase(det_keep):
         log(f"wide time {name} {key}: kernel {k_ms:.4f} ms, bound {bnd:.4f} "
             f"ms ({by}), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, "
             f"{flops / k_ms / 1e9:.1f} TFLOP/s")
-
-    def sdpa_grad(q, k, v, do, p, mask=None, bias=None):
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             dropout_p=p)
-        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
     kw = dict(dropout_rate=0.1, seed=2027)
     b, s, h, dh = 32, 197, 3, 256
@@ -2565,11 +2828,6 @@ def wide_phase(det_keep):
     del q, k, v, do, out, lse
 
     # the window rows at dh 8 at Swin-T's widths at 4× heads, batch 32
-    def split_heads(t, h_):
-        g_, n_, three = t.shape
-        return [x.reshape(g_, n_, h_, three // (3 * h_)).transpose(1, 2)
-                for x in t.split(three // 3, dim=-1)]
-
     def window_time(name, key, g, n, h_, d_, nwp, call, ref_call):
         qkv_ = randn(940, g, n, 3 * h_ * d_, dtype=bf16)
         bias_ = randn(941, nwp, h_, n, n, dtype=fp32)
@@ -2632,107 +2890,9 @@ def wide_phase(det_keep):
     log(f"wide times done at {time.perf_counter() - t_phase:.1f} s")
 
     # ---- the models -------------------------------------------------------
-    rng = np.random.RandomState(19)
-    runs, numbers = [], {}
-
-    def counted(fn):
-        fa.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        runs.append(dict(fa.LAUNCHES))
-        return out, runs[-1]
-
-    def serve(label, model, shape, buckets, want, routes):
-        """Export, load and serve ``model``: per bucket finite logits, the
-        launches ``want`` per forward and nothing else of the table, the
-        routes by kernel name, ms per request, device ms, idle share."""
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            serving.export_classifier(model, shape, tmp, buckets=buckets,
-                                      dtype=fp32)
-            clf = serving.load_classifier(tmp)
-        clf.warmup()
-        log(f"{label}: exported, loaded and warmed up in "
-            f"{time.perf_counter() - t0:.1f} s")
-        x = rng.standard_normal((max(buckets), *shape)).astype(np.float32)
-        for bkt in buckets:
-            logits, la = counted(lambda: clf.predict(x[:bkt]))
-            require(tuple(logits.shape) == (bkt, 1000)
-                    and bool(torch.isfinite(logits.float()).all())
-                    and {k: v for k, v in la.items() if v} == want,
-                    f"{label} bucket {bkt}: finite logits, launches {want} "
-                    f"per forward and no other kernel of the table: {la}")
-            require_route(f"{label} bucket {bkt} forward",
-                          lambda: clf.predict(x[:bkt]), routes)
-            for _ in range(2):
-                clf.predict(x[:bkt]).float().cpu()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                clf.predict(x[:bkt]).float().cpu()
-            ms = (time.perf_counter() - t0) / 5 * 1e3
-            with torch.inference_mode():
-                xb = torch.from_numpy(x[:bkt]).to(dev)
-                dev_ms = cuda_ms(lambda: clf.model(xb), iters=5, warmup=1)
-            wall, busy, count, _ = device_profile(
-                lambda: clf.predict(x[:bkt]).float().cpu())
-            idle = None if busy is None else 1 - busy / wall
-            numbers[f"{label} served b{bkt}"] = dict(ms=ms, device_ms=dev_ms,
-                                                     idle=idle)
-            log(f"{label} bf16 served bucket {bkt}: {ms:.3f} ms per request "
-                f"(host numpy in, logits out), forward device time "
-                f"{dev_ms:.3f} ms, {bkt / ms * 1e3:.1f} images/s; profile "
-                + ("saw no device activity" if busy is None else
-                   f"wall {wall:.3f} ms, busy {busy:.3f} ms in {count} "
-                   f"activities, idle share {idle:.3f}"))
-
-    def train(label, model, image, bsz, steps, lr, want, routes):
-        """``steps`` fused Adam steps on one seeded batch: the loss falls;
-        per step the launches ``want`` (at least), the routes by name; step
-        ms and idle share of a warm step."""
-        state = trainer.make_train_state(
-            model, tx=make_optimizer("adam", lr, fused=True))
-        step = trainer.train_step_fn(model)
-        xb = rng.randint(0, 256, (bsz, image, image, 3)).astype(np.uint8)
-        yb = rng.randint(0, 1000, bsz).astype(np.int32)
-        wb = np.ones(bsz, np.float32)
-        model.dropout_generator.manual_seed(image)
-        losses = []
-
-        def go():
-            nonlocal state
-            for _ in range(steps):
-                state, loss_n, _, n = step(state, xb, yb, wb)
-                losses.append((loss_n / n).item())
-
-        _, la = counted(go)
-        log(f"{label}: {steps} Adam steps at batch {bsz}: loss "
-            f"{[round(x_, 4) for x_ in losses]}, launches {la}")
-        require(np.isfinite(losses).all() and losses[-1] < losses[0]
-                and all(la[k] >= steps * v for k, v in want.items()),
-                f"{label}: finite losses that fall over {steps} steps, "
-                f"{want} a step: {la}")
-
-        def one_step():
-            nonlocal state
-            state, *_ = step(state, xb, yb, wb)
-
-        require_route(f"{label} bf16 train step", one_step, routes)
-        one_step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            one_step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / 3 * 1e3
-        wall, busy, count, _ = device_profile(one_step)
-        idle = None if busy is None else 1 - busy / wall
-        numbers[f"{label} train b{bsz}"] = dict(ms=step_ms, idle=idle,
-                                                 losses=losses)
-        log(f"{label} bf16 train step, batch {bsz}: {step_ms:.3f} ms a step "
-            f"(host clock, synchronised; {bsz / step_ms * 1e3:.1f} images/s)"
-            "; profile " + ("saw no device activity" if busy is None else
-                            f"wall {wall:.3f} ms, busy {busy:.3f} ms in "
-                            f"{count} activities, idle share {idle:.3f}"))
+    mr = ModelRuns(19)
+    rng, runs, numbers = mr.rng, mr.runs, mr.numbers
+    counted, serve, train = mr.counted, mr.serve, mr.train
 
     # ViT-B/16's widths at 3 heads, dh 256
     t0 = time.perf_counter()
@@ -3255,6 +3415,291 @@ def fused_phase():
     return totals, times, errs, numbers
 
 
+# Row 11 and its backward (row 10) at head dims outside the pack and fused
+# plans' (phase 7g): (label, G, N, H, dh, nW') at N 49 for dh 12-256 (the
+# 16, 32 and 64 tiles and the chunks above 64), N 16, 64 and 128 at one dh
+# a tile, ragged G (not a multiple of the windows a block takes at once).
+WINDOW_OTHER_SHAPES = [
+    ("dh12 G64 N49 H8", 64, 49, 8, 12, 1),   # 24-byte sections: 8-byte copies
+    ("dh24 G64 N49 H4 nW'16", 64, 49, 4, 24, 16),
+    ("dh48 G256 N49 H2", 256, 49, 2, 48, 1),
+    ("dh80 G64 N49 H2", 64, 49, 2, 80, 1),
+    ("dh96 G256 N49 H1", 256, 49, 1, 96, 1),
+    ("dh128 G64 N49 H2 nW'4", 64, 49, 2, 128, 4),
+    ("dh192 G64 N49 H2", 64, 49, 2, 192, 1),
+    ("dh256 G64 N49 H2 nW'16", 64, 49, 2, 256, 16),
+    ("dh12 G99 N16 H3 ragged", 99, 16, 3, 12, 1),
+    ("dh24 G33 N64 H2 ragged", 33, 64, 2, 24, 1),
+    ("dh48 G20 N128 H2 no bias", 20, 128, 2, 48, 0),
+    ("dh96 G37 N64 H1 ragged", 37, 64, 1, 96, 1),
+    ("dh96 G20 N128 H1", 20, 128, 1, 96, 1),
+    ("dh192 G21 N16 H1 ragged", 21, 16, 1, 192, 1),
+    ("dh192 G10 N128 H1", 10, 128, 1, 192, 1),
+]
+# The largest dh the batched plan admits at one head, by the JAX budget at
+# its least block with the call's itemsize: (N, dh) in each dtype.
+WINDOW_LARGEST = {"bfloat16": ((49, 1534), (128, 532)),
+                  "float32": ((49, 919), (128, 318))}
+# Swin-T's published widths (arXiv:2103.14030: C 96, depths 2-2-6-2, window
+# 7) at 2 and at 1 heads a stage: dh 48 (the 64 tile) and 96 (the
+# 64-column chunks), shape probes as phase 7e's Swin-T4. At batch 32 the JAX routes: the
+# unshifted blocks of stages 1 and 2 and both of stage 4 batched, every
+# other block the split-head kernel (no pack or fused plan takes these dh).
+SWIN_T_FEWER_HEADS = {48: [2, 4, 8, 16], 96: [1, 2, 4, 8]}
+SWIN_T_FEWER_LAUNCHES = {"window_batched_attention": 4, "flash_attention": 8}
+SWIN_T_FEWER_ROUTES = ["batched", "split"] * 2 + ["split"] * 6 \
+    + ["batched", "batched"]
+
+
+def other_route(row: str, route: str) -> str:
+    """The ROUTE_NAMES row of row 10 or 11 on ``window_route``'s route at a
+    head dim outside WINDOW_HEAD_DIMS."""
+    return f"{row} chunked" if route.endswith("chunked") else f"{row} padded"
+
+
+def window_head_dims_phase():
+    """Phase 7g: rows 11 and 10 at every head dim the JAX batched plan
+    admits, against their plain versions; their times beside bound, plain
+    and library; the route at H·dh 2176; Swin-T at 2 heads a stage (dh 48)
+    served and trained, in fp32 against the CPU, and at 1 head a stage (dh
+    96) served. Returns (the launches of its model runs by wrapper, times
+    by wrapper name, the checks' errors, the model numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vision_transformers_tpu_torch.models.image_classification import (
+        SwinTransformer,
+    )
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+    from vision_transformers_tpu_torch.ops import windows
+    from vision_transformers_tpu_torch.utils.args import get_args
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    errs, times = {}, {}
+    chk = RowChecks("head dims", vith_route, errs)
+    randn = chk.randn
+
+    # ---- rows 11 and 10 at every admitted head dim -------------------------
+    def check(label, g, n, h, dh, nwp, dtype):
+        """Row 11 into a freed NaN-filled block (``into_freed_nan``), row 10
+        into a NaN-filled dqkv, with and without dbias: against the plain
+        versions, every element written, reruns bit-equal, the kernels by
+        name, each beside a planted fault (the plain result with key 0 of
+        the last window hidden from its queries)."""
+        name = str(dtype).removeprefix("torch.")
+        qkv = randn(700 + dh, g, n, 3 * h * dh, dtype=dtype)
+        bias = None if nwp == 0 else randn(701 + dh, nwp, h, n, n, dtype=fp32)
+        do = randn(702 + dh, g, n, h * dh, dtype=dtype)
+        hidden = (torch.zeros(g, h, n, n, device=dev) if bias is None
+                  else bias.repeat(g // nwp, 1, 1, 1))
+        hidden[-1, :, :, 0] = -1e9
+        ref = fa.window_attention_reference(qkv, bias, h)
+        fault = fa.window_attention_reference(qkv, hidden, h)
+        got = []
+
+        # the bias already rounded: the wrapper's first tensor is out
+        bias_r = None if bias is None else bias.to(dtype)
+
+        def forward():
+            got.append(into_freed_nan(
+                lambda: fa.window_batched_attention(qkv, bias_r, h),
+                (g, n, h * dh), dtype, dev))
+
+        route = fa.window_route(dtype, n, dh, "batched")
+        require_route(f"row 11 {label} {name}", forward,
+                      [(other_route("row 11", route), name)])
+        out = got[0]
+        e, share = max_err(out, ref), differing_share(out, ref)
+        ef = max_err(out, fault)
+        require(not bool(torch.isnan(out.float()).any())
+                and e <= WINDOW_TOL[name]
+                and (dtype == fp32 or share <= WINDOW_DIFFERING_MAX)
+                and ef > WINDOW_TOL[name]
+                and torch.equal(fa.window_batched_attention(qkv, bias, h),
+                                out),
+                f"row 11 {label} {name} ({route}): against its plain version "
+                f"({e:.3e}, {share:.4f} of elements differ), every element "
+                f"written, the planted fault {ef:.3e} above the limit, rerun "
+                "bit-equal")
+        errs[("row 11", label, name)] = e
+        dref, db_ref = fa.window_attention_bwd_reference(qkv, bias, do, h)
+        dfault, _ = fa.window_attention_bwd_reference(qkv, hidden, do, h)
+        got = []
+        broute = fa.window_route(dtype, n, dh, "bwd")
+        require_route(f"row 10 {label} {name}", lambda: got.append(
+            fa.window_attention_bwd(qkv, bias, do, h,
+                                    dqkv=chk.nan_like(qkv))),
+            [(other_route("row 10", broute), name)])
+        (dqkv, db), again = got[0], fa.window_attention_bwd(qkv, bias, do, h)
+        tol = (WINDOW_GRAD_TOL if dtype == bf16 else GRAD_TOL[name]) \
+            * max(1.0, dref.float().abs().max().item())
+        eg, efg = max_err(dqkv, dref), max_err(dqkv, dfault)
+        no_db = fa.window_attention_bwd(qkv, bias, do, h, need_dbias=False)
+        ok = (bool(torch.isfinite(dqkv.float()).all()) and eg <= tol
+              and efg > tol and torch.equal(again[0], dqkv)
+              and torch.equal(no_db[0], dqkv) and no_db[1] is None)
+        eb = 0.0
+        if bias is not None:
+            tol_b = tol / max(1.0, dref.float().abs().max().item()) * max(
+                1.0, db_ref.float().abs().max().item())
+            eb = max_err(db, db_ref)
+            ok = ok and eb <= tol_b and torch.equal(again[1], db)
+        require(ok, f"row 10 {label} {name} ({broute}): against its plain "
+                f"version ({eg:.3e} > {tol:.3e}?; dbias {eb:.3e}), every "
+                f"element written, the planted fault {efg:.3e} above the "
+                "limit, reruns and the run without dbias bit-equal")
+        errs[("row 10", label, name)] = eg
+        log(f"head dims {label} {name}: row 11 ({route}) max|out-plain| "
+            f"{e:.3e} (tol {WINDOW_TOL[name]}), {share:.4f} differ, fault "
+            f"{ef:.3e}; row 10 ({broute}) max|dqkv-plain| {eg:.3e} (tol "
+            f"{tol:.3e}), dbias {eb:.3e}, fault {efg:.3e}; every element "
+            "written, reruns bit-equal")
+
+    for dtype in (bf16, fp32):
+        name = str(dtype).removeprefix("torch.")
+        for label, g, n, h, dh, nwp in WINDOW_OTHER_SHAPES:
+            check(label, g, n, h, dh, nwp, dtype)
+        size = torch.empty((), dtype=dtype).element_size()
+        for n, dh in WINDOW_LARGEST[name]:
+            require(fa.window_batched_plan(8, n, 1, dh, 1, size) is not None
+                    and fa.window_batched_plan(8, n, 1, dh + 1, 1, size)
+                    is None, f"the batched plan's largest dh at N {n}, H 1, "
+                    f"{name}: {dh}")
+            check(f"largest dh{dh} G8 N{n} H1", 8, n, 1, dh, 1, dtype)
+    log(f"head dims checks in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- H·dh 2176 at N 49: the JAX budget refuses the batched kernel ------
+    require(fa.window_batched_plan(32, 49, 68, 32, 1, 2) is None
+            and fa.window_batched_plan(32, 49, 67, 32, 1, 2) is not None,
+            "the batched plan at N 49, dh 32, bf16: 67 heads admitted, 68 "
+            "refused")
+    runs = []
+    for heads, want in ((67, "batched"), (68, "pack")):
+        c = 32 * heads
+        x = randn(710, 32, 7, 7, c, dtype=bf16)
+        w_qkv, w_proj = (randn(711 + i, c, k * c, dtype=bf16) * 0.02
+                         for i, k in enumerate((3, 1)))
+        rel = randn(713, heads, 49, 49, dtype=fp32)
+        windows.ROUTE_LOG = []
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            y = windows.shifted_window_attention(x, w_qkv, None, w_proj, None,
+                                                 rel, (7, 7), heads, (0, 0))
+        torch.cuda.synchronize()
+        taken, la = list(windows.ROUTE_LOG), dict(fa.LAUNCHES)
+        windows.ROUTE_LOG = None
+        runs.append(la)
+        require(taken == [want] and bool(torch.isfinite(y.float()).all())
+                and la[f"window_{'batched' if want == 'batched' else 'packed'}"
+                       "_attention"] == 1,
+                f"H·dh {c} at N 49, bf16: the route {want} (the JAX plans')"
+                f": {taken}, {la}")
+        log(f"H·dh {c} (heads {heads}, dh 32) at N 49, batch 32, bf16: "
+            f"route {taken[0]}, as the JAX plans decide")
+
+    # ---- the rows' times (bf16; fp32 at dh 48) -----------------------------
+    def put(name, key, k_ms, p_ms, l_ms, nbytes, flops, dtype="bfloat16"):
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        times.setdefault(name, {}).update({
+            f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+            f"{key}_library_ms": l_ms, f"{key}_bound_ms": bnd,
+            f"{key}_bound_by": by})
+        log(f"head dims time {name} {key}: kernel {k_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms")
+
+    g, n = 2048, 49  # Swin-T's stage 1 at batch 32, one shared bias
+    for h, dh, dtype in ((2, 48, bf16), (1, 96, bf16), (1, 192, bf16),
+                         (2, 48, fp32)):
+        name = str(dtype).removeprefix("torch.")
+        key = f"s1_g{g}_h{h}_dh{dh}" + ("_fp32" if dtype == fp32 else "")
+        qkv = randn(720, g, n, 3 * h * dh, dtype=dtype)
+        bias = randn(721, 1, h, n, n, dtype=fp32)
+        do = randn(722, g, n, h * dh, dtype=dtype)
+        mask = bias.to(dtype).expand(g, h, n, n)
+        q, k, v = split_heads(qkv, h)
+        do_h = do.view(g, n, h, dh).transpose(1, 2)
+        item = torch.empty((), dtype=dtype).element_size()
+        io = g * n * h * dh * item
+        put("window_batched_attention", key,
+            cuda_ms(lambda: fa.window_batched_attention(qkv, bias, h)),
+            cuda_ms(lambda: fa.window_attention_reference(qkv, bias, h),
+                    iters=3),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=mask)),
+            4 * io + h * n * n * item, 4 * g * h * n * n * dh, name)
+        put("window_attention_bwd", key,
+            cuda_ms(lambda: fa.window_attention_bwd(qkv, bias, do, h)),
+            cuda_ms(lambda: fa.window_attention_bwd_reference(qkv, bias, do,
+                                                              h), iters=3),
+            cuda_ms(sdpa_grad(q, k, v, do_h, mask=mask)),
+            7 * io + g * h * n * n * item + h * n * n * item,
+            10 * g * h * n * n * dh, name)
+        del qkv, bias, do, mask, q, k, v, do_h
+    log(f"head dims times done at {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the models ---------------------------------------------------------
+    mr = ModelRuns(21)
+    mr.runs.extend(runs)
+    base = dict(get_args("swint_224_imagenet"), stochastic_depth_prob=0.0)
+    for dh, heads in SWIN_T_FEWER_HEADS.items():
+        label = f"Swin-T dh{dh} @224"
+        row11 = other_route("row 11", fa.window_route(bf16, 49, dh, "batched"))
+        fwd_routes = [(row11, "bfloat16"), ("row 2 padded", "bfloat16")]
+        args = dict(base, num_heads=heads)
+        swin = SwinTransformer(**args, dtype="bfloat16")
+        sw = seeded_state_dict(swin, seed=dh)
+        swin.load_state_dict(sw)
+        windows.ROUTE_LOG = []
+        mr.serve(label, swin, (224, 224, 3), (1, 32) if dh == 48 else (32,),
+                 SWIN_T_FEWER_LAUNCHES, fwd_routes)
+        taken = list(windows.ROUTE_LOG[:12])
+        windows.ROUTE_LOG = None
+        require(taken == SWIN_T_FEWER_ROUTES,
+                f"{label} routes as the JAX package's plans: {taken}")
+        del swin
+        if dh != 48:
+            continue
+        m = SwinTransformer(**args, dtype="bfloat16")
+        m.load_state_dict(sw)
+        mr.train(label, m, 224, 32, 3, 1e-4,
+                 {"window_batched_attention": 4, "window_attention_bwd": 4,
+                  "fused_adam": 1},
+                 fwd_routes + [("row 10 padded", "bfloat16")])
+        del m
+        # fp32 at batch 2: the card against the CPU's plain versions
+        card = SwinTransformer(**args)
+        card.load_state_dict(sw)
+        cpu = SwinTransformer(**args, device="cpu")
+        cpu.load_state_dict(sw)
+        xs = mr.rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+        with torch.no_grad():
+            got, la = mr.counted(lambda: card(torch.from_numpy(xs).to(dev)))
+            require_route(f"{label} fp32 forward",
+                          lambda: card(torch.from_numpy(xs).to(dev)),
+                          [("row 11 padded", "float32")])
+            want = cpu(torch.from_numpy(xs))
+        e = max_err(got.cpu(), want)
+        log(f"{label} fp32, card against the CPU's plain versions: max|logit "
+            f"diff| {e:.3e} (tol {LOGIT_TOL_FP32}, max|ref| "
+            f"{want.abs().max().item():.3f}), launches "
+            f"{ {k: v for k, v in la.items() if v} }")
+        require(e <= LOGIT_TOL_FP32 and la["window_batched_attention"] == 4,
+                f"{label} fp32 on the card against the CPU")
+        mr.numbers[f"swint_dh{dh}_fp32_err"] = e
+        del card, cpu, sw
+
+    for name, row in (("window_attention_bwd", "row 10"),
+                      ("window_batched_attention", "row 11")):
+        times.setdefault(name, {})["head_dims_max_abs_err"] = max(
+            v for k, v in errs.items() if k[0] == row and "bfloat16" in k)
+    totals = {k: sum(r.get(k, 0) for r in mr.runs) for k in fa.LAUNCHES}
+    log(f"head dims phase in {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in totals.items() if v} }")
+    return totals, times, errs, mr.numbers
+
+
 def main() -> int:
     import torch
 
@@ -3346,8 +3791,8 @@ def main() -> int:
             "their registers: "
             f"{ {k: (v, kept.get(k)) for k, v in KEPT_REGISTERS.items() if kept.get(k) != v} }")
     log(f"ptxas: the {len(kept)} kernels of KEPT_REGISTERS (rows 1-8 and 14, "
-        "both routes; rows 9-13 in fp32, rows 9 and 10 on the tensor cores) "
-        "at their registers")
+        "both routes; rows 9-13 in fp32, rows 9 and 10 on the tensor cores; "
+        "rows 10 and 11 at other head dims) at their registers")
     # the fp32 fused block (row 8's CUDA-core route) reads the workspaces its
     # own phases wrote through L2, never by the non-coherent path
     loads = sass_global_loads(_build._lib_path("fused_block"),
@@ -6394,6 +6839,11 @@ def main() -> int:
     block_total, block_times, _, block_numbers = fused_phase()
     log(f"phase 7f numbers: {json.dumps(block_numbers)}")
 
+    # ---- 7g. rows 11 and 10 at every head dim the JAX batched plan admits,
+    # Swin-T at 2 and 1 heads a stage (dh 48, 96) ----------------------------
+    whd_total, whd_times, _, whd_numbers = window_head_dims_phase()
+    log(f"phase 7g numbers: {json.dumps(whd_numbers)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -6506,8 +6956,10 @@ def main() -> int:
         extra.update(wide_times.get(name, {}))  # phase 7e's dh-256/8 times
         extra["block_launches"] = block_total[name]  # phase 7f's model runs
         extra.update(block_times.get(name, {}))  # phase 7f's times
+        extra["head_dims_launches"] = whd_total[name]  # phase 7g's runs
+        extra.update(whd_times.get(name, {}))  # phase 7g's dh-48/96/192 times
         launches += (cli_total[name] + par_total[name] + vith_total[name]
-                     + wide_total[name] + block_total[name])
+                     + wide_total[name] + block_total[name] + whd_total[name])
         require(launches > 0, f"{name}: launched on its path")
         kernels.append(dict(
             name=name, route="cuda", source=port + source,

@@ -556,14 +556,23 @@ def test_window_route_sends_bf16_to_the_tensor_cores(dh):
 def test_window_route_names_each_kernel(dh, kernel):
     """``window_route(..., kernel)``: bf16 → the tensor cores for every
     window kernel, the slab one (row 13) too; fp32 → the CUDA cores; N 0 and
-    N 129, a head dim of 24 (not dividing 128), fp16 and an unknown kernel
-    refused."""
+    N 129, fp16 and an unknown kernel refused; a head dim of 24 (not
+    dividing 128) refused by the packed and fused kernels, whose JAX plans
+    refuse it, and routed by the batched one and the backward, whose JAX
+    plan admits it (bf16 the 32 tile, fp32 the chunks)."""
     for n in (1, 16, 17, 49, 64, 100, tfa.MAX_WINDOW_TOKENS):
         assert tfa.window_route(torch.bfloat16, n, dh, kernel) == "tensor_cores"
         assert tfa.window_route(torch.float32, n, dh, kernel) == "cuda_cores"
-    for dtype, n, d in ((torch.bfloat16, 0, dh), (torch.bfloat16, 129, dh),
-                        (torch.float32, 129, dh), (torch.bfloat16, 49, 24),
-                        (torch.float16, 49, dh)):
+    refused = [(torch.bfloat16, 0, dh), (torch.bfloat16, 129, dh),
+               (torch.float32, 129, dh), (torch.bfloat16, 49, 24),
+               (torch.float16, 49, dh)]
+    if kernel in tfa.WINDOW_ANY_HEAD_DIM_KERNELS:
+        refused.remove((torch.bfloat16, 49, 24))
+        assert tfa.window_route(torch.bfloat16, 49, 24, kernel) == \
+            "tensor_cores_tile32"
+        assert tfa.window_route(torch.float32, 49, 24, kernel) == \
+            "cuda_cores_chunked"
+    for dtype, n, d in refused:
         with pytest.raises(ValueError):
             tfa.window_route(dtype, n, d, kernel)
     with pytest.raises(ValueError, match="window kernels are"):

@@ -141,14 +141,20 @@ def test_window_route_takes_the_jax_plans_head_dims(dh):
 
 @pytest.mark.parametrize("dh", [3, 5, 12, 24, 96, 128])
 def test_window_head_dims_outside_the_plans_still_raise(dh):
-    """A window dh that does not divide 128, or is above 64: no plan in
-    either package, no route."""
+    """A window dh that does not divide 128, or is above 64: no pack or
+    fused plan in either package, no packed route. The batched plans of
+    both packages admit it (the JAX one has no head-dim term), and so do
+    the port's batched and backward routes."""
     with pytest.raises(ValueError, match="head dim"):
         tfa.window_route(torch.bfloat16, 49, dh)
     for mod in (tfa, jfa):
         assert mod.window_pack_plan(32, 49, 3, dh, 1) is None
         assert mod.window_fused_flat_plan(2, 28, 28, 7, 7, 3, dh, 1,
                                           2) is None
+        assert mod.window_batched_plan(32, 49, 3, dh, 1) is not None
+    for kernel in ("batched", "bwd"):
+        assert tfa.window_route(torch.bfloat16, 49, dh, kernel).startswith(
+            "tensor_cores_")
 
 
 @pytest.mark.parametrize("image,route", [(224, "packed"), (448, "split"),

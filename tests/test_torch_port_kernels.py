@@ -652,8 +652,9 @@ def test_fused_window_section_stride(cuda):
 def test_window_kernels_are_forward_only_on_cuda(cuda):
     """They were, until the shared backward kernel: now a recorded gradient
     goes through ``window_attention_bwd``, once per backward; ``out=`` stays
-    a forward-only convenience. A head dim outside the JAX window plans
-    (24) raises before any launch."""
+    a forward-only convenience. A head dim outside the JAX pack plan (24)
+    raises before any launch of the packed kernel; the batched one, whose
+    JAX plan takes any head dim, launches there, forward and backward."""
     qkv = torch.from_numpy(_randn(46, 4, 16, 3 * 2 * 16)).to(cuda)
     qkv.requires_grad_()
     for fn in (tfa.window_packed_attention, tfa.window_batched_attention):
@@ -681,6 +682,14 @@ def test_window_kernels_are_forward_only_on_cuda(cuda):
         tfa.window_packed_attention(
             torch.zeros(4, 16, 3 * 2 * 24, device=cuda), None, 2,
             plan=(1, 32))
+    q24 = torch.from_numpy(_randn(48, 4, 16, 3 * 2 * 24)).to(cuda)
+    q24.requires_grad_()
+    tfa.reset_launch_counts()
+    (grad,) = torch.autograd.grad(
+        tfa.window_batched_attention(q24, None, 2).sum(), q24)
+    assert tfa.LAUNCHES["window_batched_attention"] == 1
+    assert tfa.LAUNCHES["window_attention_bwd"] == 1
+    assert bool(torch.isfinite(grad).all())
 
 
 # The window backward against its plain version: dqkv, in bf16 to
@@ -1867,3 +1876,115 @@ def test_fused_window_kernels_narrow_head_dims_match_plain(cuda, dtype, hw,
         assert _window_close(out, ref, dtype)
         assert torch.equal(tfa.fused_window_attention(
             qkv, bias, heads, (win, win), (shift, shift), plan=plan), out)
+
+
+# Rows 11 and 10 at head dims outside WINDOW_HEAD_DIMS, which the JAX
+# batched plan admits (it has no head-dim term): in bf16 the padded tiles
+# (16, 32, 64) and the 64-column chunks above 64, in fp32 the 32-column
+# chunks (``window_route``); the tolerances of the other window shapes.
+_OTHER_WINDOW_SHAPES = [
+    # g, n, heads, dh, nW'
+    (64, 49, 2, 12, 1),     # 24-byte sections: 8-byte copies
+    (48, 49, 4, 24, 16),    # per-window bias
+    (2048, 49, 2, 48, 1),   # Swin-T at 2 heads a stage, stage 1, batch 32
+    (33, 16, 3, 20, 1),     # 40-byte sections, 16 keys, ragged last block
+    (37, 49, 1, 80, 1),
+    (9, 64, 2, 96, 3),      # two chunks at 64 keys, per-window bias
+    (32, 49, 1, 96, 1),     # Swin-T at 1 head a stage, stage 1
+    (5, 128, 1, 96, 0),     # two chunks at 128 keys, no bias
+    (12, 49, 2, 128, 4),
+    (10, 49, 1, 192, 1),    # three chunks
+    (6, 128, 1, 256, 2),
+    (7, 49, 3, 5, 1),       # an odd head dim: 2-byte copies
+    (11, 25, 2, 6, 0),      # 12-byte sections: 4-byte copies
+]
+
+
+def _other_name(fn, route):
+    """The kernel of ``fn`` (row 11's wrapper or row 10's) on ``route``."""
+    row = "batched" if fn == "window_batched_attention" else "bwd"
+    if route == "cuda_cores_chunked":
+        return f"window_{row}_chunked_kernel"
+    tile = "chunked" if route == "tensor_cores_chunked" else "padded"
+    return f"window_{row}_mma_{tile}_kernel"
+
+
+def _into_freed_nan(call, shape, dtype, cuda):
+    """call()'s output, for a wrapper that allocates it itself and makes no
+    other tensor on the card before it, on a stream of its own whose
+    allocator pool holds one free block alone, a NaN-filled one of the
+    output's size: the output must take it (same address), so any element
+    the kernel leaves unwritten reads NaN."""
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        nan = torch.full(shape, float("nan"), dtype=dtype, device=cuda)
+        ptr = nan.data_ptr()
+        del nan
+        out = call()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr
+    return out
+
+
+def _check_other_head_dim(cuda, dtype, g, n, heads, dh, nwp):
+    from vision_transformers_tpu_torch.ops import _build
+
+    qkv, bias = _window_inputs(cuda, dtype, g, n, heads, dh, nwp)
+    fn = "window_batched_attention"
+    # the bias already rounded: the wrapper's first tensor is out
+    bias_r = None if bias is None else bias.to(dtype)
+    _build.reset_launched()
+    out = _into_freed_nan(
+        lambda: tfa.window_batched_attention(qkv, bias_r, heads),
+        (g, n, heads * dh), dtype, cuda)
+    assert _build.launched() == {
+        _other_name(fn, tfa.window_route(dtype, n, dh, "batched")): 1}
+    assert not bool(torch.isnan(out.float()).any())  # every element written
+    ref = tfa.window_attention_reference(qkv, bias, heads)
+    assert _window_close(out, ref, dtype)
+    assert torch.equal(tfa.window_batched_attention(qkv, bias, heads), out)
+    do = torch.from_numpy(_randn(48, g, n, heads * dh)).to(cuda, dtype)
+    ref, ref_db = tfa.window_attention_bwd_reference(qkv, bias, do, heads)
+    _build.reset_launched()
+    got, got_db = tfa.window_attention_bwd(
+        qkv, bias, do, heads, dqkv=torch.full_like(qkv, float("nan")))
+    torch.cuda.synchronize()
+    assert _build.launched() == {_other_name(
+        "window_attention_bwd", tfa.window_route(dtype, n, dh, "bwd")): 1}
+    assert not bool(torch.isnan(got.float()).any())  # every element written
+    tol = _WINDOW_GRAD_TOL if dtype == torch.bfloat16 else None
+    assert _grad_close(got, ref, dtype, tol)
+    assert dtype == torch.float32 or \
+        (got != ref).float().mean().item() <= _WINDOW_DIFFERING_MAX
+    again, again_db = tfa.window_attention_bwd(qkv, bias, do, heads)
+    assert torch.equal(got, again)  # no atomics: equal bits
+    if bias is not None:
+        assert _grad_close(got_db, ref_db, dtype, tol)
+        assert torch.equal(got_db, again_db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,heads,dh,nwp", _OTHER_WINDOW_SHAPES)
+def test_window_batched_other_head_dims_match_plain(cuda, dtype, g, n, heads,
+                                                    dh, nwp):
+    """Row 11 and its backward (row 10) at a head dim outside
+    ``WINDOW_HEAD_DIMS``: against their plain versions (out in a freed
+    NaN-filled block, dqkv NaN-filled), by kernel name, reruns bit-equal."""
+    assert dh not in tfa.WINDOW_HEAD_DIMS
+    _check_other_head_dim(cuda, dtype, g, n, heads, dh, nwp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,dh", [
+    (torch.bfloat16, 49, 1534), (torch.bfloat16, 128, 532),
+    (torch.float32, 49, 919), (torch.float32, 128, 318)])
+def test_window_batched_largest_admitted_head_dim(cuda, dtype, n, dh):
+    """The largest dh the batched plan admits at one head (the JAX budget
+    at its least block, with the call's itemsize), one past it refused."""
+    size = torch.empty((), dtype=dtype).element_size()
+    assert tfa.window_batched_plan(8, n, 1, dh, 1, size) is not None
+    assert tfa.window_batched_plan(8, n, 1, dh + 1, 1, size) is None
+    _check_other_head_dim(cuda, dtype, 5, n, 1, dh, 1)

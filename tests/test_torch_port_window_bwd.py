@@ -240,7 +240,9 @@ def test_fused_window_out_takes_no_gradient():
 
 def test_backward_plan_covers_what_the_forward_plans_cover():
     """Every (N, dh) a forward plan accepts has a backward plan whose block
-    fits the card's shared memory; none of the TPU's ``g % p`` conditions."""
+    fits the card's shared memory; none of the TPU's ``g % p`` conditions.
+    The batched plan admits dh 96 (its JAX plan has no head-dim term), so
+    the backward plan does too; N 144 has none."""
     for n in (1, 9, 16, 49, 64, 100, 128):
         for dh in (16, 32, 64):
             for g in (1, 3, 2048):
@@ -251,7 +253,8 @@ def test_backward_plan_covers_what_the_forward_plans_cover():
     assert tfa.window_bwd_plan(8, 49, 3, 32) == (3, 160)  # Swin-T
     assert tfa.window_bwd_plan(8, 64, 3, 32) == (2, 128)  # SwinV2-T
     assert tfa.window_bwd_plan(8, 144, 3, 32) is None
-    assert tfa.window_bwd_plan(8, 49, 3, 96) is None
+    assert tfa.window_batched_plan(8, 49, 3, 96, 1) is not None
+    assert tfa.window_bwd_plan(8, 49, 3, 96) == (3, 160)  # 32-column chunks
     with pytest.raises(ValueError, match="do must be"):
         tfa.window_attention_bwd(torch.zeros(2, 4, 3 * 32), None,
                                  torch.zeros(2, 4, 16), 1)

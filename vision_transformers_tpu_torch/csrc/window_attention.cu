@@ -53,6 +53,18 @@
 // window's q, k, v. The launch shape (windows a step, run, grid) comes from
 // N, G·H and the card (window_run_launch); the C entry's p, threads and
 // passes, the CUDA-core plan, are only checked.
+//
+// Row 11 at every other head dim its JAX plan admits (that plan has no
+// head-dim term; ops/flash_attention.py's window_batched_plan keeps its VMEM
+// budget as the route rule): in bf16 window_batched_mma_padded_kernel<T, NK>
+// runs dh up to 64 in the tile T of window_tile(dh) (16, 32 or 64), the
+// columns past dh read as zeros by copies of the grain the offsets keep
+// (window_stage_cols) and never stored, the dh a runtime argument. Above 64
+// window_batched_mma_chunked_kernel<NK> takes the head dim in 64-column
+// chunks (window_chunk_tile.cuh). In fp32 window_batched_chunked_kernel: the
+// window's scores in shared memory, one thread a query row, K and then V in
+// 32-column chunks (kWinCols).
+#include "window_chunk_tile.cuh"
 #include "window_mma_tile.cuh"
 #include "window_tile.cuh"
 
@@ -191,6 +203,108 @@ window_batched_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
       static_cast<long long>(heads) * D, bias_windows, scale, mt, wpb, run);
 }
 
+// Row 11 at a head dim dh outside WINDOW_HEAD_DIMS, dh <= D, in the tile D.
+template <int D, int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_batched_mma_padded_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                 const __nv_bfloat16* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ out, long long g,
+                                 int n, int heads, int bias_windows,
+                                 float scale, int dh, int mt, int wpb,
+                                 int run) {
+  vtt::mma::window_run_mma<D, NK, 0>(
+      vtt::mma::PackedWindows{n}, qkv, bias, out,
+      static_cast<long long>(blockIdx.x) * wpb * run, g, n, heads,
+      static_cast<long long>(heads) * dh, bias_windows, scale, mt, wpb, run,
+      dh);
+}
+
+// Row 11 above head dim 64: 64-column chunks.
+template <int NK>
+__global__ void __launch_bounds__(vtt::mma::kWinMmaMaxThreads)
+window_batched_mma_chunked_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                  const __nv_bfloat16* __restrict__ bias,
+                                  __nv_bfloat16* __restrict__ out, long long g,
+                                  int n, int heads, int dh, int bias_windows,
+                                  float scale, int mt, int wpb, int run) {
+  vtt::mma::window_run_chunked_mma<NK>(
+      qkv, bias, out, static_cast<long long>(blockIdx.x) * wpb * run, g, n,
+      heads, dh, bias_windows, scale, mt, wpb, run);
+}
+
+// Row 11 in fp32 at a head dim outside WINDOW_HEAD_DIMS: a block takes
+// `passes` groups of p windows of one head, one thread a query row. Its
+// scores accumulate in a shared (P·N, N|1) tile over 32-column chunks of K,
+// then each row's softmax in place, then out chunk by chunk over V.
+__global__ void __launch_bounds__(kWinMaxThreads)
+window_batched_chunked_kernel(const float* __restrict__ qkv,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, long long g, int n,
+                              int heads, int dh, int bias_windows, float scale,
+                              int p, int passes) {
+  using vtt::kWinCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = n | 1;  // odd row stride: a warp's rows in distinct banks
+  float* xs = reinterpret_cast<float*>(smem_raw);  // (P·N, kWinCols)
+  float* st = xs + p * n * kWinCols;               // (P·N, ld)
+  const int h = blockIdx.y;
+  const long long hd = static_cast<long long>(heads) * dh;
+  const long long base = static_cast<long long>(blockIdx.x) * p * passes;
+  const int w = threadIdx.x / n, i = threadIdx.x % n;
+  float* srow = st + threadIdx.x * ld;
+  const float* xw = xs + w * n * kWinCols;
+  for (int pass = 0; pass < passes; ++pass) {
+    const long long w0 = base + static_cast<long long>(pass) * p;
+    if (w0 >= g) break;  // the same for every thread of the block
+    const int count = static_cast<int>(min(static_cast<long long>(p), g - w0));
+    const bool active = w < count;
+    const float* q0 = qkv + w0 * n * 3 * hd + h * dh;  // q of the 1st token
+    const long long row = w0 * n + threadIdx.x;       // this thread's token
+    for (int c0 = 0; c0 < dh; c0 += kWinCols) {
+      __syncthreads();  // xs has been read
+      vtt::stage_chunk(q0 + hd, 3 * hd, count * n, c0, dh, xs);  // K
+      __syncthreads();
+      if (!active) continue;
+      float q[kWinCols];
+      vtt::load_chunk(qkv + row * 3 * hd + h * dh, c0, dh, q);
+      for (int j = 0; j < n; ++j)
+        srow[j] = (c0 == 0 ? 0.f : srow[j]) +
+                  vtt::dot_row<kWinCols>(q, xw + j * kWinCols);
+    }
+    if (active) {  // p = softmax(s·scale + bias), max before any exp
+      const float* b_row = bias == nullptr
+          ? nullptr
+          : bias + (((w0 + w) % bias_windows) * heads + h) * n * n + i * n;
+      float m = -CUDART_INF_F;
+      for (int j = 0; j < n; ++j) {
+        float x = srow[j] * scale;
+        if (b_row != nullptr) x += b_row[j];
+        srow[j] = x;
+        m = fmaxf(m, x);
+      }
+      float l = 0.f;
+      for (int j = 0; j < n; ++j) {
+        const float e = expf(srow[j] - m);
+        srow[j] = e;
+        l += e;
+      }
+      for (int j = 0; j < n; ++j) srow[j] /= l;
+    }
+    for (int c0 = 0; c0 < dh; c0 += kWinCols) {
+      __syncthreads();
+      vtt::stage_chunk(q0 + 2 * hd, 3 * hd, count * n, c0, dh, xs);  // V
+      __syncthreads();
+      if (!active) continue;
+      float acc[kWinCols];
+#pragma unroll
+      for (int c = 0; c < kWinCols; ++c) acc[c] = 0.f;
+      for (int j = 0; j < n; ++j)
+        vtt::axpy_row<kWinCols>(srow[j], xw + j * kWinCols, acc);
+      vtt::store_chunk(out + row * hd + h * dh, c0, dh, acc);
+    }
+  }
+}
+
 template <typename T, int D>
 int launch_packed(const void* qkv, const void* bias, void* out, int g, int n,
                   int heads, int bias_windows, float scale, int p, int threads,
@@ -250,6 +364,73 @@ int launch_batched(const void* qkv, const void* bias, void* out, int g, int n,
   return vtt::launched("window_batched_kernel");
 }
 
+// Row 11 in bf16 at a head dim outside WINDOW_HEAD_DIMS: the padded tile
+// of dh up to 64, else the chunks.
+int launch_batched_other(const void* qkv, const void* bias, void* out, int g,
+                         int n, int heads, int dh, int bw, float scale,
+                         cudaStream_t st) {
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* b = static_cast<const __nv_bfloat16*>(bias);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const long long gl = g;
+  return vtt::mma::with_window_keys(n, [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    if (dh > 64) {
+      const vtt::mma::WindowGeometry geo = vtt::mma::window_mma_geometry(n);
+      const size_t smem =
+          vtt::mma::window_chunk_elems<NK>(geo.wpb, bw == 1, bw > 1) *
+          sizeof(__nv_bfloat16);
+      auto kernel = window_batched_mma_chunked_kernel<NK>;
+      int sms = 0, blocks = 0;
+      const cudaError_t err = vtt::mma::run_occupancy(
+          reinterpret_cast<const void*>(kernel), geo.threads, smem, &sms,
+          &blocks);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const vtt::mma::RunPlan plan = vtt::mma::window_run_plan(
+          gl, 0, geo.wpb, heads, static_cast<long long>(blocks) * sms);
+      kernel<<<dim3(static_cast<unsigned>(plan.blocks), heads), geo.threads,
+               smem, st>>>(q, b, o, gl, n, heads, dh, bw, scale, geo.mt,
+                           geo.wpb, plan.run);
+      return vtt::launched("window_batched_mma_chunked_kernel");
+    }
+    switch (vtt::mma::window_tile(dh)) {
+#define VTT_PADDED(D)                                                        \
+  case D:                                                                    \
+    return vtt::mma::window_run_launch<D, NK>(                               \
+        window_batched_mma_padded_kernel<D, NK>,                             \
+        "window_batched_mma_padded_kernel", gl, 0, n, heads, bw, false, bias,  \
+        st, q, b, o, gl, n, heads, bw, scale, dh);
+      VTT_PADDED(16)
+      VTT_PADDED(32)
+      VTT_PADDED(64)
+#undef VTT_PADDED
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
+}
+
+int launch_batched_chunked(const void* qkv, const void* bias, void* out, int g,
+                           int n, int heads, int dh, int bias_windows,
+                           float scale, int p, int threads, int passes,
+                           cudaStream_t stream) {
+  const int ld = n | 1;
+  const size_t smem =
+      static_cast<size_t>(p) * n * (vtt::kWinCols + ld) * sizeof(float);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_batched_chunked_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = p * passes;
+  const dim3 grid((g + per_block - 1) / per_block, heads);
+  window_batched_chunked_kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias),
+      static_cast<float*>(out), g, n, heads, dh, bias_windows, scale, p,
+      passes);
+  return vtt::launched("window_batched_chunked_kernel");
+}
+
 bool args_ok(const void* bias, int g, int n, int heads, int bias_windows,
              int p, int threads) {
   return g >= 1 && heads >= 1 && heads <= 65535 &&
@@ -266,7 +447,9 @@ extern "C" {
 // Both forwards take the tensor cores in bf16 (window_packed_mma_kernel,
 // window_batched_mma_kernel: their own launch shapes) and the CUDA cores in
 // fp32 (window_packed_kernel, window_batched_kernel: the launch shape p,
-// threads [, passes]).
+// threads [, passes]) at dh 1, 2, 4, 8, 16, 32 and 64; the batched one at
+// any other dh >= 1 too (window_batched_mma_padded_kernel,
+// window_batched_mma_chunked_kernel; window_batched_chunked_kernel).
 
 int window_packed_attention_fwd(const void* qkv, const void* bias, void* out,
                                 int g, int n, int heads, int dh,
@@ -326,9 +509,15 @@ int window_batched_attention_fwd(const void* qkv, const void* bias, void* out,
     case 16: return VTT_BATCHED(16);
     case 32: return VTT_BATCHED(32);
     case 64: return VTT_BATCHED(64);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
 #undef VTT_BATCHED
+  if (dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_batched_other(qkv, bias, out, g, n, heads, dh, bw,
+                                        scale, st)
+                 : launch_batched_chunked(qkv, bias, out, g, n, heads, dh,
+                                          bias_windows, scale, p, threads,
+                                          passes, st);
 }
 
 const char* window_attention_error_string(int code) {

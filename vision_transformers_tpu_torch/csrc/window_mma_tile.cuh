@@ -84,7 +84,11 @@
 // so the scores are those of the DH columns, and only DH columns of out, dq,
 // dk and dv written (window_store_narrow). Every body takes DH as a template
 // parameter whose default is the tile width, so the kernels of dh 16, 32 and
-// 64 keep their code.
+// 64 keep their code. Rows 11 and 10 take any other dh up to 64 the same
+// way with DH 0 and the dh a runtime argument (the padded kernels, in the
+// tile window_tile(dh): copies of window_grain_bytes by window_stage_cols,
+// stores of the columns below dh by window_store_cols). Above 64 they take
+// window_chunk_tile.cuh's chunks.
 //
 // Numerics, as _window_pack_kernel and window_attention_reference: s =
 // acc·scale + bias in fp32, two roundings (never an FMA: the plain version
@@ -132,8 +136,20 @@ __host__ __device__ constexpr int window_keys(int n) {
   return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
 }
 
-// The tile width a head dim d runs in: d, or 16 for d 1, 2, 4 and 8.
-__host__ __device__ constexpr int window_tile(int d) { return d < 16 ? 16 : d; }
+// The tile width a head dim d up to 64 runs in: the least of 16, 32 and 64
+// that holds it (d 1, 2, 4 and 8 in the 16 tile; rows 10 and 11 at any other
+// d in the padded kernels; above 64 window_chunk_tile.cuh).
+__host__ __device__ constexpr int window_tile(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : 64;
+}
+
+// The bytes a row of d bf16 values is copied by: the largest power of two,
+// at most 16, that divides 2·d (ops/flash_attention.py's window_grain), since
+// every offset of a row (its row, section and head) is a multiple of d
+// elements: 16 for d a multiple of 8, 8 for d 12 or 20, 2 for an odd d.
+__host__ __device__ constexpr int window_grain_bytes(int d) {
+  return ((2 * d) & -(2 * d)) < 16 ? ((2 * d) & -(2 * d)) : 16;
+}
 
 // Query tiles (= warps) a window takes, windows a block takes, threads.
 struct WindowGeometry {
@@ -199,6 +215,61 @@ __device__ __forceinline__ void cp_async_8(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 8 : 0));
 }
 
+// Columns [c0, c0 + C) of rows [0, n) of a bf16 matrix of head dim dh whose
+// row r lies at g + rows(r), into shared memory of row stride C + 8, columns
+// >= dh and rows [n, NK) zero-filled, by the `count` threads numbered tid, in
+// pieces of E elements, the grain: 16-byte cp.async at E 8, 8-byte at 4,
+// 4-byte at 2 (zero pieces with source size 0), plain 2-byte loads and
+// stores at 1, which the caller's barrier publishes as it does the copies.
+// dh is a multiple of E and c0 of C, so a piece lies wholly in or past the
+// row. The caller commits.
+template <int E, int C, int NK, class Rows>
+__device__ __forceinline__ void window_stage_cols_by(bf16* s, const bf16* g,
+                                                     int n, const Rows& rows,
+                                                     int c0, int dh, int tid,
+                                                     int count) {
+  constexpr int P = C / E;  // pieces a row
+  for (int idx = tid; idx < NK * P; idx += count) {
+    const int r = idx / P, c = (idx % P) * E;
+    const bool in = r < n && c0 + c < dh;
+    bf16* dst = s + r * (C + 8) + c;
+    const bf16* src = g + (in ? rows(r) + c0 + c : 0);
+    if constexpr (E == 8) {
+      cp_async_16(dst, src, in);
+    } else if constexpr (E == 4) {
+      cp_async_8(dst, src, in);
+    } else if constexpr (E == 2) {
+      cp_async_4(dst, src, in);
+    } else {
+      *reinterpret_cast<unsigned short*>(dst) =
+          in ? *reinterpret_cast<const unsigned short*>(src) : 0;
+    }
+  }
+}
+
+// The same at the grain of a runtime head dim dh (window_grain_bytes): the
+// rows of the padded tiles (c0 = 0, C the tile) and the chunks of
+// window_chunk_tile.cuh.
+template <int C, int NK, class Rows>
+__device__ __forceinline__ void window_stage_cols(bf16* s, const bf16* g,
+                                                  int n, const Rows& rows,
+                                                  int c0, int dh, int tid,
+                                                  int count) {
+  switch (window_grain_bytes(dh)) {
+    case 16:
+      window_stage_cols_by<8, C, NK>(s, g, n, rows, c0, dh, tid, count);
+      break;
+    case 8:
+      window_stage_cols_by<4, C, NK>(s, g, n, rows, c0, dh, tid, count);
+      break;
+    case 4:
+      window_stage_cols_by<2, C, NK>(s, g, n, rows, c0, dh, tid, count);
+      break;
+    default:
+      window_stage_cols_by<1, C, NK>(s, g, n, rows, c0, dh, tid, count);
+  }
+}
+
 // window_stage_rows for a head dim DH of 1, 2, 4 or 8 in the tile of width
 // 16: each row's DH elements and 16 − DH zeros, by pieces of the widest
 // grain every offset keeps (rows, sections and head offsets are multiples of
@@ -236,14 +307,17 @@ __device__ __forceinline__ void window_stage_rows_narrow(
   }
 }
 
-// window_stage_rows at head dim DH: the tile's own width, or (DH < D = 16)
-// the narrow copies.
+// window_stage_rows at head dim DH: the tile's own width, (DH < D = 16) the
+// narrow copies, or (DH 0, the padded kernels) the runtime head dim dh.
 template <int D, int NK, int DH, class Rows>
 __device__ __forceinline__ void window_stage_rows_as(bf16* s, const bf16* g,
                                                      int n, const Rows& rows,
-                                                     int tid, int count) {
+                                                     int tid, int count,
+                                                     int dh = DH) {
   if constexpr (DH == D)
     window_stage_rows<D, NK>(s, g, n, rows, tid, count);
+  else if constexpr (DH == 0)
+    window_stage_cols<D, NK>(s, g, n, rows, 0, dh, tid, count);
   else
     window_stage_rows_narrow<DH, NK>(s, g, n, rows, tid, count);
 }
@@ -252,8 +326,8 @@ __device__ __forceinline__ void window_stage_rows_as(bf16* s, const bf16* g,
 template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_stage(bf16* s, const bf16* g, int n,
                                              long long stride, int tid,
-                                             int count) {
-  window_stage_rows_as<D, NK, DH>(s, g, n, RowStride{stride}, tid, count);
+                                             int count, int dh = DH) {
+  window_stage_rows_as<D, NK, DH>(s, g, n, RowStride{stride}, tid, count, dh);
 }
 
 // Columns col, col + 1 (col even, in the first 8) of a window row of DH
@@ -268,6 +342,21 @@ __device__ __forceinline__ void window_store_narrow(bf16* p, int col,
     if (col < DH)
       *reinterpret_cast<__nv_bfloat162*>(p + col) =
           __floats2bfloat162_rn(x0, x1);
+  }
+}
+
+// Columns col, col + 1 (col even) of a row of dh elements at p, rounded to
+// bf16, those below dh: a pair by one 4-byte store at an even dh (the row's
+// offsets keep 4 bytes), else one by one.
+__device__ __forceinline__ void window_store_cols(bf16* p, int col, int dh,
+                                                  float x0, float x1) {
+  if ((dh & 1) == 0) {
+    if (col < dh)
+      *reinterpret_cast<__nv_bfloat162*>(p + col) =
+          __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (col < dh) p[col] = __float2bfloat16_rn(x0);
+    if (col + 1 < dh) p[col + 1] = __float2bfloat16_rn(x1);
   }
 }
 
@@ -387,13 +476,16 @@ __device__ __forceinline__ void window_probs(float (&s)[NK / 8][4],
 
 // Query tile t (rows 16·t .. 16·t + 15) of one (window, head): out rows
 // r < n in bf16 at o + rows(r). qs, ks, vs: the window's Q, K, V tiles (row
-// stride D + 8, rows >= n zero); bias: TileBias or FlatBias.
+// stride D + 8, rows >= n zero, columns past the head dim zero); bias:
+// TileBias or FlatBias. DH: the head dim, or 0 for the runtime dh of the
+// padded kernels (any dh up to the tile D; only its columns are stored).
 template <int D, int NK, int DH = D, class Rows, class Bias>
 __device__ __forceinline__ void window_attend_mma_rows(
     const bf16* qs, const bf16* ks, const bf16* vs, const Bias& bias, int n,
-    int t, float scale, bf16* __restrict__ o, const Rows& rows, int lane) {
+    int t, float scale, bf16* __restrict__ o, const Rows& rows, int lane,
+    int dh = DH) {
   static_assert(D == 16 || D == 32 || D == 64, "tile width must be 16, 32 or 64");
-  static_assert(DH == D || (D == 16 && DH < 16),
+  static_assert(DH == D || DH == 0 || (D == 16 && DH < 16),
                 "a head dim below 16 runs in the 16 tile");
   constexpr int S = D + 8;
   const int tq = lane & 3;
@@ -429,6 +521,11 @@ __device__ __forceinline__ void window_attend_mma_rows(
       for (int n8 = 0; n8 < D / 8; ++n8)
         *reinterpret_cast<__nv_bfloat162*>(o + rows(r) + n8 * 8 + 2 * tq) =
             __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+    } else if constexpr (DH == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        window_store_cols(o + rows(r), n8 * 8 + 2 * tq, dh, acc[n8][2 * i],
+                          acc[n8][2 * i + 1]);
     } else {
       window_store_narrow<DH>(o + rows(r), 2 * tq, acc[0][2 * i],
                               acc[0][2 * i + 1]);
@@ -446,46 +543,19 @@ __device__ __forceinline__ void window_attend_mma(
                                     o, RowStride{o_stride}, lane);
 }
 
-// The backward's query tile t of one (window, head): p, ds and dq. qs, ks,
-// vs, dos: the window's Q, K, V, dO tiles (row stride D + 8, rows >= n
-// zero); bs: its bias tile or null; xs: null, or the tile for bf16(ds)
-// (the bias tile itself where there is one: each lane writes exactly the
-// elements it read); pt, dt: bf16(p) and bf16(ds·scale) (row stride
-// NK + 8), every element of rows 16·t .. 16·t + 15 written. dq rows < n in
-// bf16 at row stride dq_stride.
-template <int D, int NK, int DH = D>
-__device__ __forceinline__ void window_bwd_rows_mma(
-    const bf16* qs, const bf16* ks, const bf16* vs, const bf16* dos,
-    const bf16* bs, bf16* xs, bf16* pt, bf16* dt, int n, int t, float scale,
-    bf16* __restrict__ dq, long long dq_stride, int lane) {
-  static_assert(D == 16 || D == 32 || D == 64, "tile width must be 16, 32 or 64");
-  static_assert(DH == D || (D == 16 && DH < 16),
-                "a head dim below 16 runs in the 16 tile");
-  constexpr int S = D + 8, SB = NK + 8;
-  const int tq = lane & 3;
-  const int r0 = t * 16 + (lane >> 2);
-
-  float p[NK / 8][4];
-  {
-    uint32_t qf[D / 16][4];
-    load_a_smem<D>(qf, qs + t * 16 * S, lane);
-#pragma unroll
-    for (int n8 = 0; n8 < NK / 8; ++n8)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n8][e] = 0.f;
-    mma_abt<D, NK / 8>(p, qf, ks, lane);
-  }
-  window_probs<NK>(p, bs, r0, n, tq, scale);
-  float dp[NK / 8][4];
-  {
-    uint32_t df[D / 16][4];
-    load_a_smem<D>(df, dos + t * 16 * S, lane);
-#pragma unroll
-    for (int n8 = 0; n8 < NK / 8; ++n8)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n8][e] = 0.f;
-    mma_abt<D, NK / 8>(dp, df, vs, lane);
-  }
+// The backward's score gradient of query tile rows r0, r0 + 8 from this
+// lane's fp32 p (window_probs) and dP = dO·Vᵀ: δ = rowsum(p ⊙ dP) over the
+// quad, ds = p ⊙ (dP − δ) (0 on query rows >= n, whose p is zeroed too, so
+// they add nothing to dK and dV); bf16(p) to pt, bf16(ds·scale) to dt and,
+// where xs is not null, bf16(ds) to xs (row stride NK + 8); dp left holding
+// ds·scale in fp32, whose bf16 rounding is what dt holds.
+template <int NK>
+__device__ __forceinline__ void window_bwd_ds(float (&p)[NK / 8][4],
+                                              float (&dp)[NK / 8][4],
+                                              bf16* xs, bf16* pt, bf16* dt,
+                                              int r0, int n, int tq,
+                                              float scale) {
+  constexpr int SB = NK + 8;
   const bool live[2] = {r0 < n, r0 + 8 < n};
   float delta[2] = {0.f, 0.f};
 #pragma unroll
@@ -520,6 +590,50 @@ __device__ __forceinline__ void window_bwd_rows_mma(
       *reinterpret_cast<__nv_bfloat162*>(dt + off) =
           __floats2bfloat162_rn(dp[n8][2 * i], dp[n8][2 * i + 1]);
     }
+}
+
+// The backward's query tile t of one (window, head): p, ds and dq. qs, ks,
+// vs, dos: the window's Q, K, V, dO tiles (row stride D + 8, rows >= n
+// zero); bs: its bias tile or null; xs: null, or the tile for bf16(ds)
+// (the bias tile itself where there is one: each lane writes exactly the
+// elements it read); pt, dt: bf16(p) and bf16(ds·scale) (row stride
+// NK + 8), every element of rows 16·t .. 16·t + 15 written. dq rows < n in
+// bf16 at row stride dq_stride. DH as in window_attend_mma_rows.
+template <int D, int NK, int DH = D>
+__device__ __forceinline__ void window_bwd_rows_mma(
+    const bf16* qs, const bf16* ks, const bf16* vs, const bf16* dos,
+    const bf16* bs, bf16* xs, bf16* pt, bf16* dt, int n, int t, float scale,
+    bf16* __restrict__ dq, long long dq_stride, int lane, int dh = DH) {
+  static_assert(D == 16 || D == 32 || D == 64, "tile width must be 16, 32 or 64");
+  static_assert(DH == D || DH == 0 || (D == 16 && DH < 16),
+                "a head dim below 16 runs in the 16 tile");
+  constexpr int S = D + 8;
+  const int tq = lane & 3;
+  const int r0 = t * 16 + (lane >> 2);
+
+  float p[NK / 8][4];
+  {
+    uint32_t qf[D / 16][4];
+    load_a_smem<D>(qf, qs + t * 16 * S, lane);
+#pragma unroll
+    for (int n8 = 0; n8 < NK / 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n8][e] = 0.f;
+    mma_abt<D, NK / 8>(p, qf, ks, lane);
+  }
+  window_probs<NK>(p, bs, r0, n, tq, scale);
+  float dp[NK / 8][4];
+  {
+    uint32_t df[D / 16][4];
+    load_a_smem<D>(df, dos + t * 16 * S, lane);
+#pragma unroll
+    for (int n8 = 0; n8 < NK / 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n8][e] = 0.f;
+    mma_abt<D, NK / 8>(dp, df, vs, lane);
+  }
+  window_bwd_ds<NK>(p, dp, xs, pt, dt, r0, n, tq, scale);
+  const bool live[2] = {r0 < n, r0 + 8 < n};
 
   float acc[D / 8][4];
 #pragma unroll
@@ -541,6 +655,11 @@ __device__ __forceinline__ void window_bwd_rows_mma(
         *reinterpret_cast<__nv_bfloat162*>(dq + (r0 + 8 * i) * dq_stride
                                            + n8 * 8 + 2 * tq) =
             __floats2bfloat162_rn(acc[n8][2 * i], acc[n8][2 * i + 1]);
+    } else if constexpr (DH == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8)
+        window_store_cols(dq + (r0 + 8 * i) * dq_stride, n8 * 8 + 2 * tq, dh,
+                          acc[n8][2 * i], acc[n8][2 * i + 1]);
     } else {
       window_store_narrow<DH>(dq + (r0 + 8 * i) * dq_stride, 2 * tq,
                               acc[0][2 * i], acc[0][2 * i + 1]);
@@ -551,12 +670,12 @@ __device__ __forceinline__ void window_bwd_rows_mma(
 // The backward's key tile t (keys 16·t .. 16·t + 15) of one (window, head),
 // after every query tile's window_bwd_rows_mma: dk = bf16(ds·scale)ᵀ·Q and
 // dv = bf16(p)ᵀ·dO over the mt query tiles, rows < n in bf16 at row stride
-// stride.
+// stride. DH as in window_attend_mma_rows.
 template <int D, int NK, int DH = D>
 __device__ __forceinline__ void window_bwd_keys_mma(
     const bf16* qs, const bf16* dos, const bf16* pt, const bf16* dt, int n,
     int t, int mt, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    long long stride, int lane) {
+    long long stride, int lane, int dh = DH) {
   constexpr int S = D + 8;
   const int tq = lane & 3;
   const int j0 = t * 16 + (lane >> 2);
@@ -584,6 +703,14 @@ __device__ __forceinline__ void window_bwd_keys_mma(
             __floats2bfloat162_rn(ak[n8][2 * i], ak[n8][2 * i + 1]);
         *reinterpret_cast<__nv_bfloat162*>(dv + off) =
             __floats2bfloat162_rn(av[n8][2 * i], av[n8][2 * i + 1]);
+      }
+    } else if constexpr (DH == 0) {
+#pragma unroll
+      for (int n8 = 0; n8 < D / 8; ++n8) {
+        window_store_cols(dk + j * stride, n8 * 8 + 2 * tq, dh, ak[n8][2 * i],
+                          ak[n8][2 * i + 1]);
+        window_store_cols(dv + j * stride, n8 * 8 + 2 * tq, dh, av[n8][2 * i],
+                          av[n8][2 * i + 1]);
       }
     } else {
       window_store_narrow<DH>(dk + j * stride, 2 * tq, ak[0][2 * i],
@@ -647,12 +774,13 @@ struct OwnBias {
 // Window gw of the slot whose buffer is `qs` (Q, K, V, then its own bias
 // values) for window_run_mma: its rows into `rows` first (table maps), then
 // Q, K, V and, with a per-window bias (bias non-null, `total` values), the
-// window's bias row as whole 16-byte chunks, as one cp.async group.
+// window's bias row as whole 16-byte chunks, as one cp.async group. DH as
+// in window_attend_mma_rows.
 template <int D, int NK, int DH = D, class Windows>
 __device__ __forceinline__ void window_run_load(
     const Windows& wins, bf16* qs, long long* rows, const bf16* col,
     long long sec, long long gw, int n, int w, int t, int mt, int lane,
-    const bf16* bias, long long total, const OwnBias& own) {
+    const bf16* bias, long long total, const OwnBias& own, int dh = DH) {
   constexpr int S = D + 8;
   const int tid = t * 32 + lane, count = mt * 32;
   if constexpr (Windows::kTable) {
@@ -666,10 +794,11 @@ __device__ __forceinline__ void window_run_load(
                                     tid, count);
   } else {
     const bf16* src = col + wins(gw, 0) * 3 * sec;
-    window_stage<D, NK, DH>(qs, src, n, 3 * sec, tid, count);
-    window_stage<D, NK, DH>(qs + NK * S, src + sec, n, 3 * sec, tid, count);
+    window_stage<D, NK, DH>(qs, src, n, 3 * sec, tid, count, dh);
+    window_stage<D, NK, DH>(qs + NK * S, src + sec, n, 3 * sec, tid, count,
+                            dh);
     window_stage<D, NK, DH>(qs + 2 * NK * S, src + 2 * sec, n, 3 * sec, tid,
-                            count);
+                            count, dh);
   }
   if (bias != nullptr) {  // chunks past the tensor's end read nothing
     bf16* bs = qs + 3 * NK * S;
@@ -691,13 +820,15 @@ __device__ __forceinline__ void window_run_load(
 // column h·D of a row of 3·sec elements, k at sec + h·D, v at 2·sec + h·D;
 // out at h·D of a row of sec); a Windows policy with kTable keeps the rows
 // of the window in flight in a shared-memory table. bias: null or
-// (nW', H, N, N) bf16, window g reading row g mod nW'.
+// (nW', H, N, N) bf16, window g reading row g mod nW'. DH as in
+// window_attend_mma_rows (0: the runtime dh, row 11's padded kernels on the
+// partitioned tensor).
 template <int D, int NK, int DH = D, class Windows>
 __device__ __forceinline__ void window_run_mma(
     const Windows& wins, const bf16* __restrict__ qkv,
     const bf16* __restrict__ bias, bf16* __restrict__ out, long long first,
     long long end, int n, int heads, long long sec, int bias_windows,
-    float scale, int mt, int wpb, int run) {
+    float scale, int mt, int wpb, int run, int dh = DH) {
   constexpr int S = D + 8, SB = NK + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -711,7 +842,7 @@ __device__ __forceinline__ void window_run_mma(
   bf16* slot = sb + (shared_bias ? NK * SB : 0) + w * 2 * elems;
   long long* table = reinterpret_cast<long long*>(
       sb + window_run_elems<D, NK>(wpb, shared_bias, own_bias)) + w * 2 * NK;
-  const bf16* col = qkv + h * DH;
+  const bf16* col = qkv + h * dh;
   const long long own = first + w;  // the slot's first window
   const bf16* own_rows = own_bias ? bias : nullptr;
   const long long total = static_cast<long long>(bias_windows) * heads * n * n;
@@ -723,7 +854,7 @@ __device__ __forceinline__ void window_run_mma(
   if (own < end)
     window_run_load<D, NK, DH>(wins, slot, table, col, sec, own, n, w, t, mt,
                            lane, own_rows, total,
-                           OwnBias(own, nwp, heads, h, n));
+                           OwnBias(own, nwp, heads, h, n), dh);
   __syncthreads();  // the shared bias tile
   for (int s = 0; s < run; ++s) {
     const long long gw = own + static_cast<long long>(s) * wpb;
@@ -738,19 +869,19 @@ __device__ __forceinline__ void window_run_mma(
       window_run_load<D, NK, DH>(wins, slot + (b ^ 1) * elems,
                              table + (b ^ 1) * NK, col, sec, gw + wpb, n, w,
                              t, mt, lane, own_rows, total,
-                             OwnBias(gw + wpb, nwp, heads, h, n));
+                             OwnBias(gw + wpb, nwp, heads, h, n), dh);
     const bf16* qs = slot + b * elems;
     const auto attend = [&](const auto& bias_at) {
       if constexpr (Windows::kTable)
         window_attend_mma_rows<D, NK, DH>(qs, qs + NK * S, qs + 2 * NK * S,
-                                          bias_at, n, t, scale, out + h * DH,
+                                          bias_at, n, t, scale, out + h * dh,
                                           RowTable{table + b * NK, sec},
-                                          lane);
+                                          lane, dh);
       else
         window_attend_mma_rows<D, NK, DH>(qs, qs + NK * S, qs + 2 * NK * S,
                                           bias_at, n, t, scale,
-                                          out + wins(gw, 0) * sec + h * DH,
-                                          RowStride{sec}, lane);
+                                          out + wins(gw, 0) * sec + h * dh,
+                                          RowStride{sec}, lane, dh);
     };
     if (own_bias)
       attend(FlatBias{qs + 3 * NK * S +

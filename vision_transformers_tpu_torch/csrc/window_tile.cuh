@@ -1,8 +1,9 @@
 // CUDA-core body of the window-attention forwards (window_attention.cu,
 // window_fused_attention.cu): the fp32 kernels of rows 9, 11, 12 and 13 (in
 // bf16 all of them run on the tensor cores, window_mma_tile.cuh); the fp32
-// backward of row 10 (window_attention_bwd.cu) shares its row I/O. For one
-// (window, head)
+// backward of row 10 (window_attention_bwd.cu) shares its row I/O, and the
+// chunked fp32 kernels of rows 10 and 11 (other head dims) its chunk I/O
+// (stage_chunk). For one (window, head)
 //   out = softmax(q·kᵀ·scale + bias)·v,   N <= 128 tokens, D = 1, 2, 4, 8,
 //   16, 32 or 64 (rows read by 16-byte vectors, or a float2 or a float at
 //   D 2 and 1),
@@ -256,6 +257,43 @@ __device__ __forceinline__ void attend_row(
   for (int d = 0; d < D; ++d) acc[d] *= inv;
 #pragma unroll
   for (int c = 0; c < D / V; ++c) row_store<V>(o_row + c * V, acc + c * V);
+}
+
+// Columns a chunk of the chunked fp32 kernels of rows 10 and 11
+// (window_batched_chunked_kernel, window_bwd_chunked_kernel): at a head dim
+// outside 1, 2, 4, 8, 16, 32 and 64 they keep a window's N × N scores in
+// shared memory, one thread a row, and pass the head dim in chunks of this
+// many columns (ops/flash_attention.py's _WINDOW_CHUNK).
+constexpr int kWinCols = 32;
+
+// Columns [c0, c0 + kWinCols) of `rows` consecutive token rows of a head dim
+// dh, rows `row_stride` elements apart from `src` (column 0 of the head), into
+// shared memory as fp32 (rows, kWinCols), columns >= dh zero; consecutive
+// threads on consecutive columns.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ src,
+                                            long long row_stride, int rows,
+                                            int c0, int dh,
+                                            float* __restrict__ dst) {
+  for (int idx = threadIdx.x; idx < rows * kWinCols; idx += blockDim.x) {
+    const int r = idx / kWinCols, c = idx % kWinCols;
+    dst[idx] = c0 + c < dh ? src[r * row_stride + c0 + c] : 0.f;
+  }
+}
+
+// Columns [c0, c0 + kWinCols) of one row of head dim dh into registers,
+// zeros past dh.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ src,
+                                           int c0, int dh, float* r) {
+#pragma unroll
+  for (int c = 0; c < kWinCols; ++c) r[c] = c0 + c < dh ? src[c0 + c] : 0.f;
+}
+
+// The columns of a chunk below dh to one row.
+__device__ __forceinline__ void store_chunk(float* __restrict__ dst, int c0,
+                                            int dh, const float* r) {
+#pragma unroll
+  for (int c = 0; c < kWinCols; ++c)
+    if (c0 + c < dh) dst[c0 + c] = r[c];
 }
 
 // Bytes of dynamic shared memory for K and V of p windows.

@@ -29,7 +29,8 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   from the partitioned (G, N, 3·H·dh) projection, with a shared or
   per-window bias. For bf16 both run on the tensor cores
   (``csrc/window_mma_tile.cuh``, ``window_route``); the batched one walks a
-  run of windows per block with the shared bias staged once.
+  run of windows per block with the shared bias staged once, at every head
+  dim its JAX plan admits (``csrc/window_chunk_tile.cuh`` above 64).
 - ``fused_window_attention`` (``csrc/window_fused_attention.cu``) replaces
   ``_window_fused_kernel`` (the slab plan) and ``_window_fused_flat_kernel``
   (the flat plan): cyclic shift, window partition, attention, reverse and
@@ -78,6 +79,7 @@ and a backward replays its forward's mask from the seed alone.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -108,10 +110,15 @@ _PALLAS_BWD_MIN_SCORES = 512 * 512 + 1
 # D split across the grid in chunks. The fused block (row 8) takes the same
 # head dims in its attention phase (fused_block_supported).
 ATTENTION_HEAD_DIM_RULE = "D >= 1"
-# Head dims of the window kernels (rows 9-13), those of the JAX window plans
-# (dh <= 64 dividing 128): 16, 32 and 64 are instantiations of their tiles,
-# 1, 2, 4 and 8 run in the 16 tile with the columns past dh read as zeros.
+# Head dims of the packed and fused window kernels (rows 9, 12 and 13), those
+# of their JAX plans (dh <= 64 dividing 128): 16, 32 and 64 are
+# instantiations of their tiles, 1, 2, 4 and 8 run in the 16 tile with the
+# columns past dh read as zeros. The batched forward (row 11) and the
+# backward (row 10) keep these instantiations and take every other dh >= 1
+# too, as the JAX batched plan has no head-dim term
+# (``WINDOW_ANY_HEAD_DIM_KERNELS``, ``window_route``).
 WINDOW_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
+WINDOW_ANY_HEAD_DIM_KERNELS = ("batched", "bwd")
 
 
 def attention_head_dim_supported(d: int) -> bool:
@@ -174,9 +181,9 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                         head_dims: Optional[Tuple[int, ...]] = None) -> None:
     """What a CUDA kernel takes: a contiguous CUDA tensor of ``dtype``
     (float32 or bfloat16) and a head dim of ``ATTENTION_HEAD_DIM_RULE``
-    (rows 1-8), or of ``head_dims`` where a row keeps its own
-    (``WINDOW_HEAD_DIMS``, rows 9-13); anything else raises
-    ``ValueError``."""
+    (rows 1-8, and the window rows 10 and 11: ``head_dims`` None), or of
+    ``head_dims`` where a row keeps its own (``WINDOW_HEAD_DIMS``, rows 9,
+    12 and 13); anything else raises ``ValueError``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or dtype not in (torch.float32, torch.bfloat16):
@@ -1244,10 +1251,28 @@ _H100_SMS = 132
 # ask for).
 _WINDOW_BWD_SMEM_TARGET = 100 * 1024
 _WINDOW_BWD_SMEM_LIMIT = 232448
+# Columns a chunk of the fp32 kernels of rows 10 and 11 at a head dim outside
+# WINDOW_HEAD_DIMS (csrc/window_tile.cuh's chunked bodies): the window's
+# scores stay in shared memory and the head dim passes in chunks of this
+# many columns (the last one zero-filled past dh).
+_WINDOW_CHUNK = 32
+# The JAX package's VMEM targets of its window plans: the pack and batched
+# plans' (flash_attention.py:1243) and the fused plans' (:1845).
+_JAX_PACK_VMEM = 14 * 1024 * 1024
+_JAX_FUSED_VMEM = 13 * 1024 * 1024
 
 
 def _window_shape_ok(n: int, dh: int) -> bool:
     return 0 < dh <= 64 and 128 % dh == 0 and 0 < n <= MAX_WINDOW_TOKENS
+
+
+def _window_fwd_smem(p: int, n: int, dh: int) -> int:
+    """Bytes of shared memory of a CUDA-core forward for p windows: K and V
+    as (N, dh) fp32, or (the chunked kernel) an (N, N|1) fp32 score tile and
+    one (N, chunk) fp32 chunk of K or V."""
+    if dh in WINDOW_HEAD_DIMS:
+        return p * n * dh * 8
+    return p * n * ((n | 1) + _WINDOW_CHUNK) * 4
 
 
 def _window_block(n: int, dh: int, count: Optional[int] = None
@@ -1258,7 +1283,7 @@ def _window_block(n: int, dh: int, count: Optional[int] = None
     windows per row) the fewest thread slots over ceil(count / P) passes."""
     best = None
     for p in range(1, max(1, _WINDOW_MAX_THREADS // n) + 1):
-        if p > 1 and p * n * dh * 8 > _WINDOW_MAX_SMEM:
+        if p > 1 and _window_fwd_smem(p, n, dh) > _WINDOW_MAX_SMEM:
             break
         if count is not None and p > count:
             break
@@ -1284,14 +1309,75 @@ def window_pack_plan(g: int, n: int, heads: int, dh: int, bias_windows: int,
     return _window_block(n, dh)
 
 
+def jax_budget_admits(kind: str, n: int, heads: int, dh: int, itemsize: int,
+                      hp: int = 0, wp: int = 0, wh: int = 1, ww: int = 1,
+                      bias_windows: int = 1) -> bool:
+    """Whether the JAX window plan of ``kind`` fits its VMEM budget at the
+    least block it may choose, whatever the batch, with the call's
+    ``itemsize``: the basis of the port's window routes. ``"batched"``:
+    ``window_batched_plan`` (:1680) at 8 windows, its inputs and outputs
+    double-buffered, the bias block and the fp32 scores of the block.
+    ``"pack"``: ``window_pack_plan``'s fits(1) (:1280), one pack of 128/dh
+    windows. ``"slab"`` and ``"flat"``: the fused plans' fits (:1878, :1977)
+    at the fewest images (window rows, slab) whose windows fill a pack, on
+    the (hp, wp) map in (wh, ww) windows. Each estimate grows with the
+    block, so a block the JAX plan may take fits only if this one does. The
+    divisibility the TPU's grid adds (``g % blk``, ``bias_windows % blk``,
+    ``g % p``) is left out, as the port's plans leave it out."""
+    hd = heads * dh
+    wide = max(n, 128)
+    if kind == "batched":
+        blk = 8
+        in_b = 2 * blk * n * 3 * hd * itemsize
+        out_b = 2 * blk * n * hd * itemsize
+        bias_b = min(blk, max(bias_windows, 1)) * heads * n * wide * itemsize
+        live = blk * n * (n * 3 * 4 + dh * 2 * 4)
+        return in_b + out_b + bias_b + live <= _JAX_PACK_VMEM
+    p = 128 // dh
+    if kind == "pack":
+        in_b = 2 * p * n * 3 * hd * itemsize
+        out_b = 2 * p * n * hd * itemsize
+        live = (p * n) * 128 * (3 * 4 + 2 * itemsize)
+        bias_b = heads * (p * n) * wide * itemsize
+        return in_b + out_b + live + bias_b <= _JAX_PACK_VMEM
+    sec = -(-hd // 128) * 128
+    if kind == "slab":
+        nw = wp // ww
+        bb = -(-p // nw)
+        gb = bb * nw // p
+        rows = bb * wh * wp
+    else:
+        nw_img = (hp // wh) * (wp // ww)
+        bb = -(-p // nw_img)
+        gb = bb * nw_img // p
+        rows = bb * hp * wp
+    slab_in = rows * 3 * sec * itemsize
+    slab_out = rows * sec * itemsize
+    live = 2 * slab_in + slab_out
+    f32 = 3 * gb * (p * n) * wide * 4
+    packed = gb * (p * n + 2 * n) * 128 * itemsize
+    bias_b = 2 * gb * heads * (p * n) * wide * itemsize
+    return (slab_in + slab_out + live + f32 + packed + bias_b
+            <= _JAX_FUSED_VMEM)
+
+
 def window_batched_plan(g: int, n: int, heads: int, dh: int,
                         bias_windows: int, itemsize: int = 2):
     """(windows per pass, threads, passes per block) for
-    ``window_batched_attention``, or None for N > 128. A block stages its
-    head's shared bias once and walks ``passes`` groups of windows; fewer
-    passes when G·H is too small to fill the card otherwise. The JAX plan's
-    ``g % blk`` condition is the TPU's and is dropped."""
-    if not 0 < n <= MAX_WINDOW_TOKENS or g < 1:
+    ``window_batched_attention``, or None for N > 128 and where the JAX
+    plan's VMEM budget refuses at its least block
+    (``jax_budget_admits("batched", ...)``: from H·dh 2176 at N 49, dh 32 in bf16;
+    the router then takes the packed or the split-head path, as the JAX one
+    does on its chip). Any head dim otherwise: the JAX plan has no head-dim
+    term. A block stages its head's shared bias once and walks ``passes``
+    groups of windows; fewer passes when G·H is too small to fill the card
+    otherwise. The JAX plan's ``g % blk`` condition is the TPU's and is
+    dropped. The launch shape of the CUDA-core kernel (fp32, ``window_route``);
+    the tensor-core kernels (bf16) take their own, and the C entry only
+    checks this one."""
+    if not 0 < n <= MAX_WINDOW_TOKENS or g < 1 or dh < 1 or heads < 1 \
+            or not jax_budget_admits("batched", n, heads, dh, itemsize,
+                                     bias_windows=bias_windows):
         return None
     p, threads = _window_block(n, dh)
     passes = max(1, min(8, (g * heads) // (p * _H100_SMS * 4)))
@@ -1306,20 +1392,23 @@ def _window_bwd_smem(p: int, n: int, dh: int) -> int:
 
 def window_bwd_plan(g: int, n: int, heads: int, dh: int):
     """(windows per block, threads) for ``window_attention_bwd``, or None if
-    the shape is outside the window kernels' contract. One thread per row,
-    so the block's P·N rows should fill whole warps, within the shared
-    memory that leaves two blocks to an SM. The JAX plan
+    the shape is outside the window kernels' contract (N <= 128, dh >= 1).
+    One thread per row, so the block's P·N rows should fill whole warps,
+    within the shared memory that leaves two blocks to an SM (outside
+    ``WINDOW_HEAD_DIMS`` the chunked kernel holds a chunk of K/V, then of
+    Q/dO, in place of the whole rows). The JAX plan
     (``_window_pack_bwd_gblk``) is a VMEM budget and a ``g % p`` condition,
     facts of the TPU: here every shape the forward kernels take has a
     backward kernel. The launch shape of the CUDA-core kernel (fp32,
-    ``window_route``); the tensor-core kernel (bf16) takes its own from N,
-    and the C entry only checks this one."""
-    if not _window_shape_ok(n, dh) or g < 1 \
-            or _window_bwd_smem(1, n, dh) > _WINDOW_BWD_SMEM_LIMIT:
+    ``window_route``); the tensor-core kernel (bf16) takes its own from N
+    and dh, and the C entry only checks this one."""
+    width = dh if dh in WINDOW_HEAD_DIMS else _WINDOW_CHUNK
+    if not 0 < n <= MAX_WINDOW_TOKENS or dh < 1 or g < 1 \
+            or _window_bwd_smem(1, n, width) > _WINDOW_BWD_SMEM_LIMIT:
         return None
     best = (-(-n // 32) * 32, 1)
     for p in range(2, _WINDOW_MAX_THREADS // n + 1):
-        if _window_bwd_smem(p, n, dh) > _WINDOW_BWD_SMEM_TARGET:
+        if _window_bwd_smem(p, n, width) > _WINDOW_BWD_SMEM_TARGET:
             break
         threads = -(-p * n // 32) * 32
         if threads / p <= best[0] / best[1]:
@@ -1330,6 +1419,16 @@ def window_bwd_plan(g: int, n: int, heads: int, dh: int):
 WINDOW_KERNELS = ("packed", "bwd", "batched", "fused_flat", "fused_slab")
 
 
+def window_mma_tile(dh: int) -> int:
+    """The tile a bf16 window kernel runs head dim ``dh`` in
+    (``csrc/window_mma_tile.cuh``'s ``window_tile``): the least of 16, 32
+    and 64 that holds dh, or 0 above 64, where the head dim passes in
+    chunks of 64 columns (``csrc/window_chunk_tile.cuh``)."""
+    if dh > 64:
+        return 0
+    return next(t for t in (16, 32, 64) if dh <= t)
+
+
 def window_route(dtype: torch.dtype, n: int, dh: int,
                  kernel: str = "packed") -> str:
     """The route of a CUDA launch of a window kernel, from the operands
@@ -1338,27 +1437,43 @@ def window_route(dtype: torch.dtype, n: int, dh: int,
     (``window_attention_bwd``, row 10), ``"batched"``
     (``window_batched_attention``, row 11), ``"fused_flat"`` and
     ``"fused_slab"`` (``fused_window_attention``'s flat and slab plans, rows
-    12 and 13). ``"tensor_cores"`` (every product on ``mma.sync``:
-    ``window_packed_mma_kernel``, ``window_bwd_mma_kernel``,
+    12 and 13).
+
+    At a head dim of ``WINDOW_HEAD_DIMS`` (the JAX pack and fused plans' dh
+    <= 64 dividing 128): ``"tensor_cores"`` for bf16 (every product on
+    ``mma.sync``: ``window_packed_mma_kernel``, ``window_bwd_mma_kernel``,
     ``window_batched_mma_kernel``, ``window_fused_flat_mma_kernel``,
-    ``window_fused_slab_mma_kernel``; dh 1, 2, 4 and 8 in their 16 tile)
-    for bf16, ``"cuda_cores"`` for fp32, at every
-    shape the window kernels take: 1 <= N <= 128 tokens and a head dim of
-    ``WINDOW_HEAD_DIMS`` (the JAX plans' dh <= 64 dividing 128). Any other
-    shape, dtype or kernel raises ``ValueError``. A shape rule, not a
-    fallback: the C entries take the same kernel by the dtype, and a launch
-    on it that fails raises."""
+    ``window_fused_slab_mma_kernel``; dh 1, 2, 4 and 8 in their 16 tile),
+    ``"cuda_cores"`` for fp32. Rows 10 and 11 (``"bwd"``, ``"batched"``)
+    take every other dh >= 1: bf16 ``"tensor_cores_tile<T>"`` (the padded
+    kernels ``window_batched_mma_padded_kernel`` and
+    ``window_bwd_mma_padded_kernel`` in tile T of ``window_mma_tile``) or
+    ``"tensor_cores_chunked"`` (``window_batched_mma_chunked_kernel``,
+    ``window_bwd_mma_chunked_kernel``), fp32 ``"cuda_cores_chunked"``
+    (``window_batched_chunked_kernel``, ``window_bwd_chunked_kernel``). All
+    at 1 <= N <= 128 tokens. Any other shape, dtype or kernel raises
+    ``ValueError``. A shape rule, not a fallback: the C entries take the
+    same kernel by the dtype and dh, and a launch on it that fails
+    raises."""
     if kernel not in WINDOW_KERNELS:
         raise ValueError(f"window kernels are {WINDOW_KERNELS}, got {kernel!r}")
-    if not 0 < n <= MAX_WINDOW_TOKENS or dh not in WINDOW_HEAD_DIMS:
+    any_dh = kernel in WINDOW_ANY_HEAD_DIM_KERNELS
+    if not 0 < n <= MAX_WINDOW_TOKENS or dh < 1 \
+            or (dh not in WINDOW_HEAD_DIMS and not any_dh):
+        rule = "any head dim >= 1" if any_dh \
+            else f"a head dim of {WINDOW_HEAD_DIMS}"
         raise ValueError(
-            f"window kernels take 1 <= N <= {MAX_WINDOW_TOKENS} and a head "
-            f"dim of {WINDOW_HEAD_DIMS}, got N = {n}, dh = {dh}")
-    if dtype == torch.bfloat16:
-        return "tensor_cores"
-    if dtype == torch.float32:
-        return "cuda_cores"
-    raise ValueError(f"window kernels take float32 or bfloat16, got {dtype}")
+            f"window kernel {kernel!r} takes 1 <= N <= {MAX_WINDOW_TOKENS} "
+            f"and {rule}, got N = {n}, head dim {dh}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"window kernels take float32 or bfloat16, got {dtype}")
+    bf = dtype == torch.bfloat16
+    if dh in WINDOW_HEAD_DIMS:
+        return "tensor_cores" if bf else "cuda_cores"
+    if not bf:
+        return "cuda_cores_chunked"
+    tile = window_mma_tile(dh)
+    return f"tensor_cores_tile{tile}" if tile else "tensor_cores_chunked"
 
 
 def _fused_geometry_ok(hp, wp, wh, ww, dh, bias_windows) -> bool:
@@ -1553,27 +1668,41 @@ def window_fused_reference(qkv_map: torch.Tensor,
     return o
 
 
-def window_grain(dh: int, itemsize: int) -> int:
-    """The bytes a window kernel copies a row by, at head dim ``dh``: 16,
-    or a whole row where it is narrower (dh 1-4 in bf16, 1-2 in fp32: the
-    offsets of such rows keep only their own width's alignment)."""
-    return min(16, dh * itemsize)
+def window_grain(dh: int, itemsize: int, sec: Optional[int] = None) -> int:
+    """The bytes a window kernel copies a row by, at head dim ``dh``: the
+    largest power of two, at most 16, that divides dh·itemsize (and the
+    section stride sec·itemsize where given), since a row's offsets (its
+    row, section and head) are multiples of those. 16 from dh 8 in bf16;
+    dh 12 and 20 keep 8 bytes, dh 6 and 10 four, an odd dh two (plain
+    loads); the whole row at dh 1-4 in bf16 and 1-2 in fp32."""
+    nbytes = dh * itemsize
+    if sec is not None:
+        nbytes = math.gcd(nbytes, sec * itemsize)
+    return min(16, nbytes & -nbytes)
 
 
 def _check_window_operands(name: str, qkv: torch.Tensor,
                            bias: Optional[torch.Tensor], dh: int,
-                           sec: int) -> None:
-    """What the CUDA window kernels take: see ``_check_cuda_operand``; rows
-    are read by copies of ``window_grain`` bytes, so qkv and its section
-    stride must keep that alignment."""
-    _check_cuda_operand("qkv", qkv, qkv.dtype, dh, WINDOW_HEAD_DIMS)
+                           sec: int, kind: str) -> None:
+    """What the CUDA window kernels take: see ``_check_cuda_operand``, with
+    the head dims of window kernel ``kind`` (``window_route``); rows are
+    read by copies of ``window_grain`` bytes, so qkv and its section stride
+    must keep that alignment."""
+    _check_cuda_operand("qkv", qkv, qkv.dtype, dh, _window_head_dims(kind))
     grain = window_grain(dh, qkv.element_size())
-    if qkv.data_ptr() % grain or (sec * qkv.element_size()) % grain:
+    if qkv.data_ptr() % grain \
+            or window_grain(dh, qkv.element_size(), sec) != grain:
         raise ValueError(
             f"{name}: qkv must be {grain}-byte aligned with sections of a "
             f"multiple of {grain} bytes")
     if bias is not None:
         _check_same_device(qkv, bias=bias)
+
+
+def _window_head_dims(kind: str) -> Optional[Tuple[int, ...]]:
+    """The head dims window kernel ``kind`` takes, for
+    ``_check_cuda_operand``: None (any) for rows 10 and 11."""
+    return None if kind in WINDOW_ANY_HEAD_DIM_KERNELS else WINDOW_HEAD_DIMS
 
 
 def _window_launch(lib_name: str, fn: str, counter: str, qkv: torch.Tensor,
@@ -1600,7 +1729,7 @@ def _window_forward(kind: str, qkv: torch.Tensor,
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, bias, heads, scale)
     name = f"window_{kind}_attention"
-    _check_window_operands(name, qkv, bias, dh, hd)
+    _check_window_operands(name, qkv, bias, dh, hd, kind)
     window_route(qkv.dtype, n, dh, kind)
     bias = _window_bias(bias, g, heads, n, qkv.dtype)
     out = torch.empty(g, n, hd, dtype=qkv.dtype, device=qkv.device)
@@ -1628,7 +1757,10 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     share a bias row is taken here, in fp32; with ``need_dbias`` false
     nothing of it is written. ``dqkv`` (CUDA only): a contiguous tensor
     like qkv to write into instead of a new one. On the card bf16 takes the
-    tensor cores, fp32 the CUDA cores (``window_route``)."""
+    tensor cores, fp32 the CUDA cores (``window_route``), at any head dim
+    >= 1 (outside ``WINDOW_HEAD_DIMS`` the padded tiles or the chunks, as
+    ``window_batched_attention``; the JAX package differentiates
+    ``_window_pack_ref`` with jnp there)."""
     g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
     if do.shape != (g, n, hd):
         raise ValueError(f"do must be {(g, n, hd)}, got {tuple(do.shape)}")
@@ -1643,14 +1775,14 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     from vision_transformers_tpu_torch.ops import _build
 
     do = do.contiguous()  # arrives as a view of the caller's reverse
-    _check_window_operands("window_attention_bwd", qkv, bias, dh, hd)
-    _check_cuda_operand("do", do, qkv.dtype, dh, WINDOW_HEAD_DIMS)
+    _check_window_operands("window_attention_bwd", qkv, bias, dh, hd, "bwd")
+    _check_cuda_operand("do", do, qkv.dtype, dh, _window_head_dims("bwd"))
     _check_same_device(qkv, do=do)
     grain = window_grain(dh, qkv.element_size())
     if do.data_ptr() % grain:
         raise ValueError(
             f"window_attention_bwd: do must be {grain}-byte aligned")
-    route = window_route(qkv.dtype, n, dh, "bwd")
+    window_route(qkv.dtype, n, dh, "bwd")
     if dqkv is None:
         dqkv = torch.empty_like(qkv)
     elif dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype \
@@ -1668,7 +1800,7 @@ def window_attention_bwd(qkv: torch.Tensor, bias: Optional[torch.Tensor],
             do.data_ptr(), dqkv.data_ptr(),
             None if ds is None else ds.data_ptr(), g, n, heads, dh,
             0 if bias_c is None else bias_c.shape[0], scale, p, threads,
-            int(route == "tensor_cores"),
+            int(qkv.dtype == torch.bfloat16),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, "window_attention_bwd", rc)
     LAUNCHES["window_attention_bwd"] += 1
@@ -1739,7 +1871,14 @@ def window_batched_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
     the next window's q, k and v copied while the current one computes, the
     bias held as bf16; in fp32 the CUDA-core kernel walks ``passes`` groups
     of windows, one thread per query row. A per-window bias (nW' > 1) is
-    staged per window (bf16) or read from device memory (fp32) instead."""
+    staged per window (bf16) or read from device memory (fp32) instead.
+
+    Any head dim the plan admits (the JAX plan has no head-dim term): dh
+    outside ``WINDOW_HEAD_DIMS`` runs in bf16 in the padded tile of
+    ``window_mma_tile`` (16, 32, 64; columns past dh read as zeros)
+    or, above 64, in 64-column chunks of the head dim with the softmax
+    still one pass, and in fp32 in 32-column chunks with the window's
+    scores in shared memory (``window_route``)."""
     g, n, hd, dh, scale = _window_dims(qkv, heads, scale)
     if blk is None:
         blk = window_batched_plan(g, n, heads, dh,
@@ -1759,7 +1898,7 @@ def _fused_window_forward(qkv_map, bias, heads, window, shift, dh, scale,
         return window_fused_reference(qkv_map, bias, heads, (wh, ww),
                                       (sh, sw), scale, hd)
     name = f"fused_window_attention ({plan[0]})"
-    _check_window_operands(name, qkv_map, bias, dh, sec)
+    _check_window_operands(name, qkv_map, bias, dh, sec, f"fused_{plan[0]}")
     window_route(qkv_map.dtype, wh * ww, dh, f"fused_{plan[0]}")
     nwin = (hp // wh) * (wp // ww)
     bias = _window_bias(bias, nwin, heads, wh * ww, qkv_map.dtype)

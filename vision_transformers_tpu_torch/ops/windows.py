@@ -29,10 +29,17 @@ wherever every JAX plan exists (batch 32 at the 224-pixel presets, which
 ``tests/test_torch_port_windows.py`` checks). ``wp % 8 == 0`` is kept as the
 rule that sends a map to the slab kernel and the rest to the flat one. The
 VMEM budgets of the packed and fused plans are kept too, as routing rules
-without the batch (``_jax_budget_admits``: each evaluated at the least block
-its plan may choose): at dh 8 and many heads they are what refuses a path
+without the batch (``flash_attention.jax_budget_admits``, the one home of
+every window plan's budget: each evaluated at the least block its plan may
+choose): at dh 8 and many heads they are what refuses a path
 (Swin-T's widths at 4× its heads: stage 2's shifted blocks take the packed
-kernel, stage 3 the split-head path, as on the TPU).
+kernel, stage 3 the split-head path, as on the TPU). So is the batched
+plan's (``window_batched_plan``, at its least block of 8 windows): from
+H·dh 2176 at N 49, dh 32 in bf16 a block leaves the batched kernel for the
+packed or the split-head path. The batched kernel and the backward take
+any head dim, as the JAX batched plan does, so a Swin at dh 48 takes them
+where the JAX package does (its other blocks the split-head path: no pack
+or fused plan takes dh 48).
 
 Two TPU layout facts are not carried over, on purpose: the q, k, v sections
 are not padded to 128 lanes (the fused kernels take the section stride as an
@@ -58,6 +65,7 @@ from vision_transformers_tpu_torch.core.initializers import trunc_normal_, zeros
 from vision_transformers_tpu_torch.ops.attention import dot_product_attention
 from vision_transformers_tpu_torch.ops.flash_attention import (
     fused_window_attention,
+    jax_budget_admits,
     window_batched_attention,
     window_batched_plan,
     window_fused_flat_plan,
@@ -86,52 +94,6 @@ _pack_dropout_warned = False
 def _record(route: str) -> None:
     if ROUTE_LOG is not None:
         ROUTE_LOG.append(route)
-
-
-# The JAX package's VMEM targets of its window plans
-# (flash_attention.py:1243, :1845).
-_JAX_PACK_VMEM = 14 * 1024 * 1024
-_JAX_FUSED_VMEM = 13 * 1024 * 1024
-
-
-def _jax_budget_admits(kind: str, n: int, heads: int, dh: int, itemsize: int,
-                       hp: int = 0, wp: int = 0, wh: int = 1,
-                       ww: int = 1) -> bool:
-    """Whether the JAX plan of ``kind`` ("pack", "slab" or "flat") fits its
-    VMEM budget at the least block that fills one pack of 128/dh windows,
-    whatever the batch: window_pack_plan's fits(1) (:1280), and the fused
-    plans' fits (:1878, :1977) at the fewest images (window rows, slab)
-    whose windows fill a pack. The divisibility the TPU's grid adds is left
-    out, as the port's plans leave it out. Each estimate grows with the
-    block, so a block the JAX plan may take fits only if this one does."""
-    p = 128 // dh
-    hd = heads * dh
-    wide = max(n, 128)
-    if kind == "pack":
-        in_b = 2 * p * n * 3 * hd * itemsize
-        out_b = 2 * p * n * hd * itemsize
-        live = (p * n) * 128 * (3 * 4 + 2 * itemsize)
-        bias_b = heads * (p * n) * wide * itemsize
-        return in_b + out_b + live + bias_b <= _JAX_PACK_VMEM
-    sec = -(-hd // 128) * 128
-    if kind == "slab":
-        nw = wp // ww
-        bb = -(-p // nw)
-        gb = bb * nw // p
-        rows = bb * wh * wp
-    else:
-        nw_img = (hp // wh) * (wp // ww)
-        bb = -(-p // nw_img)
-        gb = bb * nw_img // p
-        rows = bb * hp * wp
-    slab_in = rows * 3 * sec * itemsize
-    slab_out = rows * sec * itemsize
-    live = 2 * slab_in + slab_out
-    f32 = 3 * gb * (p * n) * wide * 4
-    packed = gb * (p * n + 2 * n) * 128 * itemsize
-    bias_b = 2 * gb * heads * (p * n) * wide * itemsize
-    return (slab_in + slab_out + live + f32 + packed + bias_b
-            <= _JAX_FUSED_VMEM)
 
 
 def _batched_preferred(n_win: int, nwp: int, drop: float) -> bool:
@@ -341,14 +303,14 @@ def shifted_window_attention(
     if use_fused and drop == 0.0:
         fused_plan = window_fused_plan(
             b, pad_h, pad_w, wh, ww, num_heads, dh, nwp, itemsize)
-        if fused_plan is not None and not _jax_budget_admits(
+        if fused_plan is not None and not jax_budget_admits(
                 "slab", n, num_heads, dh, itemsize, *geo):
             fused_plan = None
         if fused_plan is None:
             # wp % 8 != 0 (Swin-T stages 2-4): the flat kernel
             fused_plan = window_fused_flat_plan(
                 b, pad_h, pad_w, wh, ww, num_heads, dh, nwp, itemsize)
-            if fused_plan is not None and not _jax_budget_admits(
+            if fused_plan is not None and not jax_budget_admits(
                     "flat", n, num_heads, dh, itemsize, *geo):
                 fused_plan = None
 
@@ -404,7 +366,7 @@ def shifted_window_attention(
     if batched_blk is None and (
             FORCE_PACK_PATH if FORCE_PACK_PATH is not None else True):
         pack_plan = window_pack_plan(g, n, num_heads, dh, nwp, itemsize)
-        if pack_plan is not None and not _jax_budget_admits(
+        if pack_plan is not None and not jax_budget_admits(
                 "pack", n, num_heads, dh, itemsize):
             pack_plan = None
         if pack_plan is not None and drop > 0.0:

@@ -13,7 +13,12 @@ tensor-core kernel of rows 9 and 10 (``window_packed_mma_kernel``,
 ``window_bwd_mma_kernel``), by its name with the anonymous namespace's
 path-dependent hash taken out: equal digests in two trees mean equal code.
 
-    python3 window_times.py [--tree DIR] [--sass] > times.json
+``--head-dims`` times only rows 11 and 10 in bf16 at head dims above 64
+(``HEAD_DIM_SHAPES``: Swin-T's stage 1 and a window of 64 tokens at one
+head), with the route each tree's ``window_route`` names, and builds only
+the window kernels.
+
+    python3 window_times.py [--tree DIR] [--sass | --head-dims] > times.json
 """
 
 from __future__ import annotations
@@ -46,13 +51,21 @@ WINDOW_SHAPES = {
     "row 12 swin-t s3 B32 14x14 H12 shift0": ("flat", (32, 14, 7, 0, 12, 32)),
     "row 13 swin-t s1 B32 56x56 H3 shift3": ("slab", (32, 56, 7, 3, 3, 32)),
 }
+# (G, N, H, dh, nW') of rows 11 and 10 at head dims above 64 (--head-dims):
+# Swin-T's stage 1 at batch 32 (G 2048, N 49) at one head of 96 and of 80,
+# and 64-token windows (SwinV2-T's at 256 px, G 2048) at one head of 96
+HEAD_DIM_SHAPES = {
+    f"row {row} G2048 N{n} H1 dh{dh} nW'1": (kind, (2048, n, 1, dh, 1))
+    for n, dh in ((49, 96), (49, 80), (64, 96))
+    for row, kind in ((11, "batched"), (10, "bwd"))}
 SERVED = ("swint_224_imagenet", "swinv2t_224_imagenet",
           "twins_svts224_imagenet")
 REQUESTS = 30  # timed requests a model, after 3 warm ones
 
 
-def window_times(fa, dev):
-    """{label: {"ms": back to back, "device_ms": queued}} in bf16."""
+def window_times(fa, dev, shapes=WINDOW_SHAPES):
+    """{label: {"ms": back to back, "device_ms": queued}} in bf16; with
+    ``shapes`` HEAD_DIM_SHAPES also each kernel's "route"."""
     import torch
 
     def randn(seed, *shape, dtype=torch.bfloat16):
@@ -60,9 +73,11 @@ def window_times(fa, dev):
         return torch.randn(*shape, generator=g).to(dev, dtype)
 
     out = {}
-    for label, (kind, shape) in WINDOW_SHAPES.items():
+    for label, (kind, shape) in shapes.items():
+        route = None
         if kind in ("packed", "bwd", "batched"):
             g, n, h, dh, nwp = shape
+            route = fa.window_route(torch.bfloat16, n, dh, kind)
             qkv = randn(30, g, n, 3 * h * dh)
             bias = randn(31, nwp, h, n, n, dtype=torch.float32)
             if kind == "bwd":
@@ -83,6 +98,8 @@ def window_times(fa, dev):
             call = lambda: fa.fused_window_attention(  # noqa: E731
                 qkv, bias, h, (win, win), (shift, shift), plan=plan)
         out[label] = {"ms": cuda_ms(call), "device_ms": queued_ms([call])[0]}
+        if shapes is HEAD_DIM_SHAPES:
+            out[label]["route"] = route
     return out
 
 
@@ -152,6 +169,8 @@ def main() -> int:
                     help="root of the checkout whose port is timed")
     ap.add_argument("--sass", action="store_true",
                     help="also digest rows 9 and 10's tensor-core SASS")
+    ap.add_argument("--head-dims", action="store_true",
+                    help="time only rows 11 and 10 at HEAD_DIM_SHAPES")
     args = ap.parse_args()
     import torch
 
@@ -164,12 +183,19 @@ def main() -> int:
 
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__)))
     dev = torch.device("cuda")
-    _build.build()
+    if args.head_dims:
+        _build.build(["window_attention", "window_attention_bwd"])
+    else:
+        _build.build()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    result = {"tree": pkg, "card": card.strip().splitlines()[0],
-              "kernels": window_times(fa, dev), "served": served_times(dev)}
+    result = {"tree": pkg, "card": card.strip().splitlines()[0]}
+    if args.head_dims:
+        result["kernels"] = window_times(fa, dev, HEAD_DIM_SHAPES)
+    else:
+        result.update(kernels=window_times(fa, dev),
+                      served=served_times(dev))
     if args.sass:
         result["sass"] = sass_digests(_build)
     print(json.dumps(result))
