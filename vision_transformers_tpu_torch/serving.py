@@ -71,6 +71,7 @@ from vision_transformers_tpu_torch.parallel.mesh import (
     DataParallel,
     check_mesh,
 )
+from vision_transformers_tpu_torch.utils.metrics import span
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "weights.pt"
@@ -181,6 +182,7 @@ class ServingClassifier:
         self.buckets = sorted(int(b) for b in manifest["buckets"])
         self.input_shape = tuple(manifest["input_shape"])
         self.input_dtype = as_dtype(manifest["input_dtype"])
+        self.requests = 0  # predict calls so far: the next one's ordinal
 
     def warmup(self) -> None:
         """Run every bucket once now (kernel builds, library handles), so
@@ -194,28 +196,39 @@ class ServingClassifier:
 
     @torch.inference_mode()
     def _run_bucket(self, b: int, x: torch.Tensor) -> torch.Tensor:
-        n = x.shape[0]
-        if n < b:
-            x = torch.cat([x, x.new_zeros((b - n, *x.shape[1:]))], dim=0)
-        if self._dp is not None:
-            return self._dp.gather(self.model(self._dp.local(x)))[:n]
-        return self.model(x)[:n]
+        with span("vtt.serve.forward"):
+            n = x.shape[0]
+            if n < b:
+                x = torch.cat([x, x.new_zeros((b - n, *x.shape[1:]))], dim=0)
+            if self._dp is not None:
+                return self._dp.gather(self.model(self._dp.local(x)))[:n]
+            return self.model(x)[:n]
 
     def predict(self, images: Any) -> torch.Tensor:
-        """Logits for ``images`` of shape ``(n, *input_shape)``."""
-        x = torch.as_tensor(images, dtype=self.input_dtype).to(self.device)
-        if x.ndim == len(self.input_shape):  # single image convenience
-            x = x[None]
-        if tuple(x.shape[1:]) != self.input_shape or x.shape[0] < 1:
-            raise ValueError(
-                f"expected (n, {self.input_shape}), got {tuple(x.shape)}")
-        n = x.shape[0]
-        big = self.buckets[-1]
-        if n <= big:
-            bucket = next(b for b in self.buckets if b >= n)
-            return self._run_bucket(bucket, x)
-        parts = [self._run_bucket(big, x[i: i + big]) for i in range(0, n, big)]
-        return torch.cat(parts, dim=0)
+        """Logits for ``images`` of shape ``(n, *input_shape)``. Spans
+        (``utils.metrics.span``, ordinal: the call's count):
+        ``vtt.serve.predict`` over the call, ``vtt.serve.input`` over the
+        conversion, the copy to the device and the shape check, and
+        ``vtt.serve.forward`` over each bucket run."""
+        ordinal = self.requests
+        self.requests += 1
+        with span("vtt.serve.predict", ordinal):
+            with span("vtt.serve.input"):
+                x = torch.as_tensor(images,
+                                    dtype=self.input_dtype).to(self.device)
+                if x.ndim == len(self.input_shape):  # single image convenience
+                    x = x[None]
+                if tuple(x.shape[1:]) != self.input_shape or x.shape[0] < 1:
+                    raise ValueError(f"expected (n, {self.input_shape}), "
+                                     f"got {tuple(x.shape)}")
+            n = x.shape[0]
+            big = self.buckets[-1]
+            if n <= big:
+                bucket = next(b for b in self.buckets if b >= n)
+                return self._run_bucket(bucket, x)
+            parts = [self._run_bucket(big, x[i: i + big])
+                     for i in range(0, n, big)]
+            return torch.cat(parts, dim=0)
 
 
 def load_classifier(artifact_dir: str, device: DeviceLike = None,

@@ -53,6 +53,7 @@ from vision_transformers_tpu_torch.utils.checkpoint import save_checkpoint
 from vision_transformers_tpu_torch.utils.distillation_loss import (
     distillation_loss,
 )
+from vision_transformers_tpu_torch.utils.metrics import span
 
 
 @dataclass
@@ -126,7 +127,12 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     ``step(state, images, labels, weights)`` → (state, loss·n, correct, n),
     the last three as scalars on the model's device. Inputs may be numpy
     arrays or tensors; they are moved to the model's device. A ``quant8``
-    model raises ``ValueError`` (``refuse_serving_only``).
+    model raises ``ValueError`` (``refuse_serving_only``). Spans
+    (``utils.metrics.span``, ordinal: ``state.step`` before the step):
+    ``vtt.train.step`` over the step, and in it ``vtt.train.input``,
+    ``vtt.train.forward`` (the teacher and the loss too),
+    ``vtt.train.backward`` (``zero_grad`` and ``backward``),
+    ``vtt.train.allreduce`` (under a mesh) and ``vtt.train.optimizer``.
 
     ``teacher_fn`` (normalised images → logits) enables DeiT-style
     distillation: the model's training forward must return (cls_logits,
@@ -140,42 +146,48 @@ def train_step_fn(model, normalize=None, loss_fn=None, teacher_fn=None,
     generator = getattr(model, "dropout_generator", None)
 
     def step(state: TrainState, images, labels, weights):
-        images, labels, weights = _to_device(_model_device(model), images,
-                                             labels, weights)
-        x = _default_preprocess(images, normalize)
-        model.train()
-        if dp is None:
-            out = model(x)
-        else:
-            with dp.seeded(generator):
-                out = _forward(model, x, dp)
-        if teacher_fn is not None:
-            if not isinstance(out, tuple):
-                raise ValueError(
-                    "distillation needs a model whose training forward "
-                    "returns (cls_logits, dist_logits), as DeiT's does with "
-                    "distilled_training=True")
-            logits, dist_logits = out
+        with span("vtt.train.step", state.step):
+            with span("vtt.train.input"):
+                images, labels, weights = _to_device(
+                    _model_device(model), images, labels, weights)
+                x = _default_preprocess(images, normalize)
+            model.train()
+            with span("vtt.train.forward"):
+                if dp is None:
+                    out = model(x)
+                else:
+                    with dp.seeded(generator):
+                        out = _forward(model, x, dp)
+                if teacher_fn is not None:
+                    if not isinstance(out, tuple):
+                        raise ValueError(
+                            "distillation needs a model whose training "
+                            "forward returns (cls_logits, dist_logits), as "
+                            "DeiT's does with distilled_training=True")
+                    logits, dist_logits = out
+                    with torch.no_grad():
+                        teacher_logits = _forward(teacher_fn, x, dp)
+                    kind, alpha, tau = distill or ("hard", 0.5, 5.0)
+                    loss = distillation_loss(
+                        loss_fn(logits, labels, weights), dist_logits,
+                        teacher_logits, kind, alpha, tau)
+                else:
+                    logits = out
+                    loss = loss_fn(logits, labels, weights)
+            with span("vtt.train.backward"):
+                state.optimizer.zero_grad()
+                loss.backward()
+            if dp is not None:
+                with span("vtt.train.allreduce"):
+                    dp.all_reduce_grads(state.optimizer.params)
+            with span("vtt.train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
             with torch.no_grad():
-                teacher_logits = _forward(teacher_fn, x, dp)
-            kind, alpha, tau = distill or ("hard", 0.5, 5.0)
-            loss = distillation_loss(loss_fn(logits, labels, weights),
-                                     dist_logits, teacher_logits, kind, alpha,
-                                     tau)
-        else:
-            logits = out
-            loss = loss_fn(logits, labels, weights)
-        state.optimizer.zero_grad()
-        loss.backward()
-        if dp is not None:
-            dp.all_reduce_grads(state.optimizer.params)
-        state.optimizer.step()
-        state.step += 1
-        with torch.no_grad():
-            pred = logits.argmax(dim=-1)
-            correct = ((pred == labels) * weights).sum()
-            n = weights.sum()
-            return state, loss.detach() * n, correct, n
+                pred = logits.argmax(dim=-1)
+                correct = ((pred == labels) * weights).sum()
+                n = weights.sum()
+                return state, loss.detach() * n, correct, n
 
     return step
 

@@ -11,7 +11,10 @@ Counterpart of ``vision_transformers_tpu/utils/metrics.py``:
 - ``profile_trace``: a ``torch.profiler`` trace (CPU and, where there is
   one, CUDA activity) written for TensorBoard/Perfetto;
 - ``force_sync``: wait for a tensor's device by reading one scalar of it;
-- ``get_sha``: the git provenance stamp of the working directory.
+- ``get_sha``: the git provenance stamp of the working directory;
+- ``span`` / ``take_spans``: the port's named spans (``vtt.serve.*`` in
+  ``ServingClassifier.predict``, ``vtt.train.*`` in ``train_step_fn``),
+  live only while a ``torch.profiler`` runs.
 
 ``SmoothedValue.synchronize_between_processes`` (and ``MetricLogger``'s)
 sums (count, total) over the ranks of the process group
@@ -24,12 +27,15 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import threading
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler_state
+from torch._C._profiler import _RecordFunctionFast
 
 
 def _multi_process() -> bool:
@@ -196,7 +202,9 @@ def force_sync(x) -> float:
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """``torch.profiler`` trace of the block (CPU, and CUDA where present),
-    written to ``logdir`` as a Chrome/Perfetto trace."""
+    written to ``logdir`` as a Chrome/Perfetto trace. The port's spans
+    (``span``) are live inside it and show as host operations named
+    ``vtt.*`` over the operations they dispatched."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -225,3 +233,97 @@ def get_sha() -> str:
                 f"{'has uncommitted changes' if diff else 'clean'}")
     except Exception:
         return "sha: N/A"
+
+
+SPAN_CAPACITY = 16384  # spans the buffer holds until ``take_spans`` empties it
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: its name, its parent's name (None for a root), the
+    ordinal of the request or step it belongs to, and its ends in ns since
+    the Unix epoch (``time.time_ns``, the clock of ``torch.profiler``'s
+    events: ``trace_start_ns()`` plus an event's relative time)."""
+
+    name: str
+    parent: Optional[str]
+    ordinal: Optional[int]
+    start_ns: int
+    end_ns: int
+
+
+_span_lock = threading.Lock()
+_span_buffer: List[SpanRecord] = []
+_spans_dropped = 0
+_open_spans = threading.local()  # .stack: this thread's open spans
+_OFF = contextlib.nullcontext()  # every span while no profiler runs
+
+
+class _Span:
+    """A live span: a profiler range (``_RecordFunctionFast``: a host
+    operation in the trace, with no mirror on the device's timeline) and,
+    when it closes, one ``SpanRecord`` in the buffer, stamped just inside
+    the range."""
+
+    __slots__ = ("name", "ordinal", "parent", "_range", "_start")
+
+    def __init__(self, name: str, ordinal: Optional[int]):
+        self.name = name
+        self.ordinal = ordinal
+
+    def __enter__(self):
+        stack = getattr(_open_spans, "stack", None)
+        if stack is None:
+            stack = _open_spans.stack = []
+        parent = stack[-1] if stack else None
+        self.parent = parent.name if parent is not None else None
+        if self.ordinal is None and parent is not None:
+            self.ordinal = parent.ordinal
+        self._range = _RecordFunctionFast(
+            self.name, (), {} if self.ordinal is None
+            else {"ordinal": self.ordinal})
+        self._range.__enter__()
+        stack.append(self)
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _open_spans.stack.pop()
+        self._range.__exit__(*exc)
+        _keep(SpanRecord(self.name, self.parent, self.ordinal, self._start,
+                         end))
+        return False
+
+
+def _keep(record: SpanRecord) -> None:
+    global _spans_dropped
+    with _span_lock:
+        if len(_span_buffer) < SPAN_CAPACITY:
+            _span_buffer.append(record)
+        else:
+            _spans_dropped += 1
+
+
+def span(name: str, ordinal: Optional[int] = None):
+    """Context manager naming a phase of the port's work.
+
+    With no profiler running it is one flag read: no profiler range is
+    opened and nothing is kept. While a ``torch.profiler`` runs it opens a
+    range named ``name`` (nested over the operations it dispatches in the
+    trace) and, on exit, keeps a ``SpanRecord`` in a bounded buffer that
+    ``take_spans`` empties. ``ordinal`` names the request or step (a root
+    span's); a span opened inside another takes its parent's."""
+    if not _profiler_state._is_profiler_enabled:
+        return _OFF
+    return _Span(name, ordinal)
+
+
+def take_spans() -> Tuple[List[SpanRecord], int]:
+    """The spans closed since the last call, in the order they closed, and
+    the number dropped because the buffer held ``SPAN_CAPACITY``; empties
+    the buffer."""
+    global _span_buffer, _spans_dropped
+    with _span_lock:
+        spans, dropped = _span_buffer, _spans_dropped
+        _span_buffer, _spans_dropped = [], 0
+    return spans, dropped
