@@ -199,6 +199,63 @@ def test_cpu_serving_launches_no_kernel(clf):
 
 
 # ---------------------------------------------------------------------------
+# Staging through the pinned ring: the plan here, the ring itself on the card
+# (tests/test_torch_port_serving_cuda.py).
+
+_IMAGE_224 = 224 * 224 * 3 * 4  # one fp32 ImageNet image, 602 112 bytes
+
+
+@pytest.mark.parametrize("image_bytes,chunk_bytes,per", [
+    (_IMAGE_224, serving.CHUNK_BYTES, 111),  # 64 MiB
+    (_IMAGE_224, 16 << 20, 27),
+    (3072, 12288, 4),  # whole images only
+    (3072, 12287, 3),
+    (3072, 3072, 1),
+    (5000, 4096, 1),  # one image larger than a slot: the slot is one image
+])
+def test_images_per_chunk(image_bytes, chunk_bytes, per):
+    assert serving.images_per_chunk(image_bytes, chunk_bytes) == per
+
+
+@pytest.mark.parametrize("n,image_bytes,chunk_bytes,chunks", [
+    (1, 3072, 12288, [(0, 1)]),
+    (9, 3072, 12288, [(0, 4), (4, 8), (8, 9)]),  # ragged last chunk
+    (8, 3072, 12288, [(0, 4), (4, 8)]),
+    (3, 5000, 4096, [(0, 1), (1, 2), (2, 3)]),  # an image larger than a slot
+    (256, _IMAGE_224, serving.CHUNK_BYTES,  # a scored batch: 3 chunks
+     [(0, 111), (111, 222), (222, 256)]),
+    (256, _IMAGE_224, 16 << 20,
+     [(i, min(i + 27, 256)) for i in range(0, 256, 27)]),
+])
+def test_staging_chunks(n, image_bytes, chunk_bytes, chunks):
+    got = serving.staging_chunks(n, image_bytes, chunk_bytes)
+    assert got == chunks
+    assert got[0][0] == 0 and got[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_cpu_predict_stages_nothing(clf, monkeypatch, dtype):
+    """On the CPU a request takes the direct path: no ring, nothing counted,
+    and a request of the input dtype reaches the model as numpy's memory
+    (n 9 through buckets (2, 4): 4 + 4 + 1 padded to 4)."""
+    seen = []
+    real = clf._run_bucket
+    monkeypatch.setattr(clf, "_run_bucket",
+                        lambda b, x: seen.append((b, x)) or real(b, x))
+    x = (np.random.RandomState(5).rand(9, *SHAPE) * 255).astype(dtype)
+    got = clf.predict(x)
+    assert [(b, t.shape[0]) for b, t in seen] == [(4, 4), (4, 4), (4, 1)]
+    assert clf._ring is None and clf.staged_chunks == clf.staged_bytes == 0
+    as_input = torch.as_tensor(x, dtype=torch.float32)
+    assert torch.equal(torch.cat([t for _, t in seen]), as_input)
+    if dtype == np.float32:
+        assert seen[0][1].data_ptr() == x.ctypes.data
+    assert torch.equal(got, torch.cat([real(4, as_input[i: i + 4])
+                                       for i in range(0, 9, 4)]))
+
+
+# ---------------------------------------------------------------------------
 # The port imports nothing of JAX or of the JAX package.
 
 _FORBIDDEN = re.compile(
