@@ -13,6 +13,14 @@ SwinV2 (``SwinTransformerV2``) is the same skeleton with cosine attention
 and a continuous position bias (``ShiftedWindowAttentionV2``), post-norm
 blocks and ``PatchMergingV2``.
 
+Every stage takes ``window_size`` by default, as the JAX package does: a map
+smaller than the window is zero-padded to it and attended over unmasked.
+``clip_window=True`` (with ``image_size``) takes the published rule instead
+(arXiv:2111.09883's code, timm): each stage's window is min(window, map
+side) on each axis, and a shifted block shifts only where the window does
+not cover the map (``clip_to_map``). SwinV2-B @256 with window 16 then
+attends one unpadded 8 × 8 window in its last stage.
+
 Module names mirror the JAX params tree (``patch_embed``, ``patch_norm``,
 ``stage{i}_block{j}.{norm1,attn,norm2,mlp}``, ``merge{i}``, ``norm``,
 ``head``), so ``utils.port_jax.swin_state_dict_from_jax`` is a rename, a
@@ -32,7 +40,7 @@ of that integer.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -63,6 +71,17 @@ from vision_transformers_tpu_torch.ops.windows import (
 def _trunc02(t: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return trunc_normal_(t, 0.02, generator)
+
+
+def clip_to_map(window_size: Sequence[int], side: Sequence[int]
+                ) -> Tuple[List[int], List[int]]:
+    """A stage's (window, shift of its shifted blocks) on a map of ``side``
+    under the published rule: the window is min(window, side) on each axis,
+    and the shift is half the window where the window does not cover the
+    map, else 0."""
+    window = [min(w, s) for w, s in zip(window_size, side)]
+    shift = [0 if s <= w else w // 2 for w, s in zip(window, side)]
+    return window, shift
 
 
 class SwinTransformerBlock(nn.Module):
@@ -116,7 +135,10 @@ class SwinTransformer(nn.Module, TrainableModel):
     ``device`` (default CUDA; raises without one unless ``device="cpu"``),
     ``seed`` for the initial weights and ``in_channels``. ``dtype`` is the
     compute dtype; parameters are fp32. ``config`` holds the constructor
-    kwargs that rebuild the model (serving's manifest stores them)."""
+    kwargs that rebuild the model (serving's manifest stores them).
+    ``clip_window``: each stage's window and shift by ``clip_to_map`` on
+    its map (needs ``image_size``); only a clipped model's ``config``
+    carries the key."""
 
     def __init__(self, patch_size: Sequence[int], embed_dim: int,
                  depths: Sequence[int], num_heads: Sequence[int],
@@ -125,7 +147,8 @@ class SwinTransformer(nn.Module, TrainableModel):
                  stochastic_depth_prob: float = 0.1, num_classes: int = 100,
                  image_size: Optional[int] = None, v2: bool = False,
                  dtype: DtypeLike = torch.float32, in_channels: int = 3, *,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 clip_window: bool = False):
         super().__init__()
         device = resolve_device(device)
         dtype = as_dtype(dtype)
@@ -140,6 +163,12 @@ class SwinTransformer(nn.Module, TrainableModel):
             stochastic_depth_prob=stochastic_depth_prob,
             num_classes=num_classes, image_size=image_size, v2=v2,
             dtype=dtype_name(dtype), in_channels=in_channels)
+        if clip_window:
+            if image_size is None:
+                raise ValueError("clip_window needs image_size: each "
+                                 "stage's window follows its map")
+            self.config["clip_window"] = True
+            side = [image_size // p for p in patch_size]
         self.patch_size = patch_size
         self.has_dropout = (dropout > 0.0 or attention_dropout > 0.0
                             or stochastic_depth_prob > 0.0)
@@ -159,14 +188,18 @@ class SwinTransformer(nn.Module, TrainableModel):
         block_id = 0
         for i_stage, depth in enumerate(depths):
             dim = embed_dim * 2 ** i_stage
+            window = window_size
+            half = [w // 2 for w in window_size]
+            if clip_window:
+                window, half = clip_to_map(window_size, side)
+                side = [(s + 1) // 2 for s in side]  # merging pads odd maps
             for i_layer in range(depth):
                 sd_prob = (stochastic_depth_prob * float(block_id)
                            / max(total_blocks - 1, 1))
-                shift = [0 if i_layer % 2 == 0 else w // 2
-                         for w in window_size]
+                shift = [0] * 2 if i_layer % 2 == 0 else half
                 name = f"stage{i_stage}_block{i_layer}"
                 self.add_module(name, block_cls(
-                    dim, num_heads[i_stage], window_size, shift,
+                    dim, num_heads[i_stage], window, shift,
                     mlp_ratio=mlp_ratio, dropout=dropout,
                     attention_dropout=attention_dropout,
                     stochastic_depth_prob=sd_prob, dtype=dtype,

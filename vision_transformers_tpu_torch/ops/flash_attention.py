@@ -84,6 +84,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from vision_transformers_tpu_torch.utils.metrics import span
+
 # The TPU kernels' finite mask value (flash_attention.py:44), also used by
 # the CUDA kernels (csrc/attention_tile.cuh).
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -141,9 +143,17 @@ LAUNCHES: Dict[str, int] = {
     "fused_attention_block": 0}
 
 
+# The biased split-head backward (``flash_attention_bias_bwd``, plain
+# PyTorch on every device, so counted on the CPU too): its calls and the
+# fp32 score elements (G·H·Sq·Sk) each materialises, summed since the last
+# reset_launch_counts().
+BIAS_BWD: Dict[str, int] = {"calls": 0, "score_elements": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BIAS_BWD):
+        for name in counts:
+            counts[name] = 0
 
 
 def masked_tile_counts(name: str) -> Tuple[int, int]:
@@ -1179,8 +1189,12 @@ class _Flash(torch.autograd.Function):
         kw = dict(scale=ctx.scale, kv_valid=ctx.kv_valid)
         dbias = None
         if bias is not None:
-            dq, dk, dv, dbias = flash_attention_bias_bwd(
-                q, k, v, bias, do, out, lse, **kw)
+            BIAS_BWD["calls"] += 1
+            BIAS_BWD["score_elements"] += q.shape[0] * q.shape[1] * \
+                q.shape[2] * k.shape[2]
+            with span("vtt.attn.bias_bwd"):
+                dq, dk, dv, dbias = flash_attention_bias_bwd(
+                    q, k, v, bias, do, out, lse, **kw)
         elif (kv_mask is None and USE_PALLAS_BWD
               and flash_bwd_supported(q.shape[2], k.shape[2], q.shape[3])):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **kw)

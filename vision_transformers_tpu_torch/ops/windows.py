@@ -17,7 +17,10 @@ the window kernels with one warning and takes ``dot_product_attention``.
 The router never asks where the tensor lies: each wrapper in
 ``ops/flash_attention.py`` launches its CUDA kernel for a CUDA tensor and
 runs its plain version for a CPU tensor. ``ROUTE_LOG``, when a list,
-receives the name of every route taken.
+receives the name of every route taken. The split-head path (a window of
+more than 128 tokens, or one no window kernel takes) runs inside the span
+``vtt.window.split`` (``utils.metrics.span``): the head split, the
+attention call and the reverse into the map.
 
 The JAX plans also carry conditions that are facts of TPU tiles (``g % p``,
 ``g % blk``, ``(bb·nw) % p``, ``(bb·Hp·Wp) % 8``, VMEM budgets), which make
@@ -75,6 +78,7 @@ from vision_transformers_tpu_torch.ops.flash_attention import (
 )
 from vision_transformers_tpu_torch.ops.layers import Dense, Dropout, LayerNorm
 from vision_transformers_tpu_torch.parallel.mesh import shard_tensor
+from vision_transformers_tpu_torch.utils.metrics import span
 
 # Test hooks, as in the JAX package: None = auto, True/False forces the
 # choice of the packed kernel over the split-head path, ...
@@ -376,22 +380,25 @@ def shifted_window_attention(
 
     if batched_blk is not None:
         _record("batched")
-        out = window_batched_attention(
-            qkv_packed, bias, num_heads, scale=scale, blk=batched_blk)
+        out = window_reverse(window_batched_attention(
+            qkv_packed, bias, num_heads, scale=scale, blk=batched_blk),
+            wh, ww, pad_h, pad_w)
     elif pack_plan is not None:
         _record("pack")
-        out = window_packed_attention(
-            qkv_packed, bias, num_heads, scale=scale, plan=pack_plan)
+        out = window_reverse(window_packed_attention(
+            qkv_packed, bias, num_heads, scale=scale, plan=pack_plan),
+            wh, ww, pad_h, pad_w)
     else:
         _record("split")
-        q, k, v = qkv_packed.reshape(g, n, 3, num_heads, dh).permute(
-            2, 0, 3, 1, 4).contiguous()  # each (B·nW, nH, N, dh)
-        out = dot_product_attention(
-            q, k, v, bias=bias, scale=scale, dropout_rate=drop,
-            generator=generator)
-        out = out.transpose(1, 2).reshape(g, n, cq)
+        with span("vtt.window.split"):
+            q, k, v = qkv_packed.reshape(g, n, 3, num_heads, dh).permute(
+                2, 0, 3, 1, 4).contiguous()  # each (B·nW, nH, N, dh)
+            out = dot_product_attention(
+                q, k, v, bias=bias, scale=scale, dropout_rate=drop,
+                generator=generator)
+            out = window_reverse(out.transpose(1, 2).reshape(g, n, cq),
+                                 wh, ww, pad_h, pad_w)
 
-    out = window_reverse(out, wh, ww, pad_h, pad_w)
     if sum(shift) > 0:
         out = torch.roll(out, shifts=(shift[0], shift[1]), dims=(1, 2))
     return _project(out[:, :h, :w, :], proj_kernel, proj_bias)
