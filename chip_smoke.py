@@ -322,6 +322,20 @@ exit, and without the final result line:
    at batch 32 (3 fused-Adam steps, the loss falling; row 10 four times a
    step), in fp32 at batch 2 against the CPU; at 1 head a stage (dh 96)
    served at bucket 32; ms per request, device ms, step ms, idle shares.
+7h. Row 16, the biased split-head backward (``bias_bwd_phase``, callable
+   alone: ``python -c 'import chip_smoke as c; c.bias_bwd_phase()'``) at
+   SwinV2-B @256 w16's stage 1 at batch 128 (G 2048 windows of 4 heads, N
+   256, dh 32), the bias shared by the windows (bias_g = H) and, shifted,
+   one a window (16·H): its route by kernel name, bit-equal reruns, its
+   error against the plain version held to the card tests' limits (one
+   bf16 step at the largest element, at most 1e-3 of the elements over one
+   step of their own, dbias 1e-5 of its largest), beside a planted fault (p
+   and dS rounded once to bf16) that those limits must fail, and its time
+   beside its bound, the plain version's and SDPA's autograd backward with
+   the bias as a mask that takes a gradient (the library yardstick, timed
+   here alone); then one bf16 train step of SwinV2-B @256 w16 at batch 8,
+   whose 22 biased backwards must each launch the kernel (none plain on the
+   card): row 16's launches on the main path.
 8. Times: serving latency per bucket (the ViT family with the flag on and
    off), and each of the fifteen kernels beside its bound, its plain version
    and the PyTorch library call (or chain) for the same function (rows 9-13:
@@ -462,6 +476,11 @@ ROUTE_NAMES = {
                                    "drop_bwd_dkv_mma_padded_kernel"),
     ("row 6 padded", "float32"): ("drop_bwd_dq_padded_kernel",
                                   "drop_bwd_dkv_padded_kernel"),
+    # row 16, the biased backward: the kernel in bf16, the plain version
+    # (no kernel) in fp32
+    ("row 16", "bfloat16"): ("bias_bwd_dq_mma_kernel",
+                             "bias_bwd_dkv_mma_kernel"),
+    ("row 16", "float32"): (),
     ("row 4", "bfloat16"): ("flash_bwd_dq_mma_kernel",
                             "flash_bwd_dkv_mma_kernel"),
     ("row 4", "float32"): ("flash_bwd_kernel",),
@@ -1125,7 +1144,7 @@ PTXAS_SOURCES = ("fused_adam", "packed_attention", "flash_attention",
                  "flash_attention_large",
                  "flash_attention_bwd", "dropout_attention", "fused_block",
                  "ln_dense", "window_attention", "window_attention_bwd",
-                 "window_fused_attention")
+                 "window_fused_attention", "flash_attention_bias_bwd")
 # The registers `nvcc -Xptxas -v` (CUDA 12.9, sm_90a) gives the kernels of
 # rows 1-7 and 14 on both routes, and the window kernels that kept their
 # text (read from the parent's build on the card when rows 9 and 10 took the
@@ -2007,6 +2026,174 @@ class RowChecks:
             " every element written, rerun bit-equal")
         self.errs[("row 4", label, name)] = eg
 
+
+
+# Row 16 at SwinV2-B @256 w16's stage 1 at batch 128: (label, bias lead);
+# the lead 1 bias is shared by every window (bias_g = H), the lead 16 one
+# (the shifted block's) by the same window of every image (bias_g = 16·H).
+BIAS_BWD_STAGE1 = (("stage 1", 1), ("stage 1 shifted", 16))
+# Row 16 against its plain version, the limits of the card tests
+# (tests/test_torch_port_kernels.py, where each one's reason is): dq, dk, dv
+# within one bf16 step at the largest element, at most BIAS_BWD_OFF_STEP of
+# their elements more than one step of their own apart, dbias (fp32) within
+# BIAS_BWD_DBIAS_TOL of its largest element.
+BIAS_BWD_TOL = 8e-3
+BIAS_BWD_OFF_STEP = 1e-3
+BIAS_BWD_DBIAS_TOL = 1e-5
+
+
+def off_step_share(got, ref) -> float:
+    """Share of elements more than one bf16 step of ``ref`` apart."""
+    import torch
+
+    ref, got = ref.float(), got.float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+                      - 7)
+    return float(((got - ref).abs() > step * 1.001).float().mean())
+
+
+def bias_bwd_one_rounding(q, k, v, bias, do, out, lse, *, scale, kv_valid):
+    """The plain version with p and dS rounded once to bf16 before their
+    products (a planted fault: the bias-free backward's numerics) → (dq, dk,
+    dv)."""
+    import torch
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    p = torch.exp(fa._biased_scores(q, k, bias, scale, kv_valid)
+                  - lse.unsqueeze(-1))
+    dof = do.float()
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), dof).bfloat16()
+    p.mul_(torch.matmul(dof, v.float().transpose(-1, -2))
+           - (dof * out.float()).sum(-1, keepdim=True))
+    ds = p.bfloat16().float()
+    del p
+    dq = (torch.matmul(ds, k.float()) * scale).bfloat16()
+    dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).bfloat16()
+    return dq, dk, dv
+
+
+def bias_bwd_phase():
+    """Phase 7h: row 16 at ``BIAS_BWD_STAGE1``, then a SwinV2-B @256 w16
+    train step. Returns {label: numbers}, with the step's under
+    "swinv2_b step"."""
+    import torch
+    import torch.nn.functional as F
+    from vision_transformers_tpu_torch.models.image_classification import (
+        SwinTransformerV2,
+    )
+    from vision_transformers_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, h, n, d = 2048, 4, 256, 32
+    numbers = {}
+    for label, lead in BIAS_BWD_STAGE1:
+        gen = torch.Generator().manual_seed(27)
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        bias = (2 * torch.randn(lead, h, n, n, generator=gen)).to(dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, bias)
+        kw = dict(scale=d ** -0.5, kv_valid=n)
+        args = (q, k, v, bias, do, out, lse)
+
+        def call():
+            return fa.flash_attention_bias_bwd(*args, **kw)
+
+        require_route(f"row 16 at SwinV2-B {label}", call,
+                      [("row 16", "bfloat16")])
+        got, again = call(), call()
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"row 16 {label}: two runs give equal bits")
+        del again
+        ref = fa.flash_attention_bias_bwd_reference(*args, **kw)
+        errs, off, fault_off = {}, {}, {}
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            top = float(r.float().abs().max())
+            errs[name] = max_err(g, r) / top
+            if name == "dbias":
+                require(errs[name] <= BIAS_BWD_DBIAS_TOL,
+                        f"row 16 {label}: dbias within {BIAS_BWD_DBIAS_TOL} "
+                        f"of its largest element ({errs[name]:.3e})")
+                continue
+            off[name] = off_step_share(g, r)
+            require(errs[name] <= BIAS_BWD_TOL and off[name]
+                    <= BIAS_BWD_OFF_STEP,
+                    f"row 16 {label}: {name} within {BIAS_BWD_TOL} of its "
+                    f"largest element ({errs[name]:.3e}), at most "
+                    f"{BIAS_BWD_OFF_STEP} of it over one step ({off[name]:.3e})")
+        fault = bias_bwd_one_rounding(*args, **kw)
+        for name, f_, r in zip(("dq", "dk", "dv"), fault, ref):
+            fault_off[name] = off_step_share(f_, r)
+            require(fault_off[name] > 10 * BIAS_BWD_OFF_STEP,
+                    f"row 16 {label}: the planted one-rounding fault's {name} "
+                    f"fails the limits ({fault_off[name]:.3e} over one step)")
+        abs_err = max(max_err(g, r) for g, r in zip(got[:3], ref[:3]))
+        del ref, fault
+        kernel_ms = cuda_ms(call, iters=10)
+        plain_ms = cuda_ms(
+            lambda: fa.flash_attention_bias_bwd_reference(*args, **kw),
+            iters=3, warmup=1)
+        # the bias as a bf16 (B, H, N, N) mask whose gradient SDPA takes
+        mask = bias.to(torch.bfloat16).repeat(b // lead, 1, 1, 1)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves[:3],
+                                                  attn_mask=leaves[3])
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True), iters=5)
+        del sdpa_out, leaves, mask
+        flops = 10 * b * h * n * n * d
+        moved = 8 * b * h * n * d * 2 + 2 * lead * h * n * n * 4
+        bound, by = bound_ms(moved, flops, "bfloat16")
+        numbers[label] = dict(
+            kernel_ms=kernel_ms, bound_ms=bound, bound_by=by,
+            plain_ms=plain_ms, library_ms=library_ms,
+            tflops=flops / kernel_ms / 1e9, errors=errs,
+            max_abs_err=abs_err,
+            off_step=off, fault_off_step=fault_off, moved=moved, flops=flops,
+            plan=fa.bias_bwd_plan(b * h, lead * h, n, n, d)._asdict())
+        log(f"row 16 {label} (G {b}, H {h}, N {n}, dh {d}, bias_g "
+            f"{lead * h}): kernel {kernel_ms:.3f} ms "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s of 10·G·H·N²·dh), "
+            f"bound {bound:.3f} ms ({by}), plain {plain_ms:.3f} ms, SDPA "
+            f"autograd backward {library_ms:.3f} ms; max error over the "
+            f"largest plain element {errs}, share over one step {off}, the "
+            f"one-rounding fault's {fault_off}")
+        del q, k, v, do, bias, out, lse, got, args
+
+    # one bf16 train step of SwinV2-B @256 w16 (its published widths, no
+    # stochastic depth) at batch 8: stages 1-3 are the split-head path, 22
+    # biased backwards a step, each of which must launch row 16
+    model = SwinTransformerV2(
+        image_size=256, patch_size=[4, 4], embed_dim=128,
+        depths=[2, 2, 18, 2], num_heads=[4, 8, 16, 32], window_size=[16, 16],
+        mlp_ratio=4.0, dropout=0.0, attention_dropout=0.0,
+        stochastic_depth_prob=0.0, num_classes=1000, clip_window=True,
+        dtype=torch.bfloat16, device=dev)
+    model.train()
+    gen = torch.Generator().manual_seed(28)
+    x = torch.randn(8, 256, 256, 3, generator=gen).to(dev)
+    model(x).float().sum().backward()  # builds every kernel of the step
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    model.zero_grad(set_to_none=True)
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    step = dict(calls=fa.BIAS_BWD["calls"],
+                launches=fa.LAUNCHES["flash_attention_bias_bwd"],
+                plain_on_card=fa.BIAS_BWD["plain_on_card"])
+    require(step["calls"] == 22 and step["launches"] == 22
+            and step["plain_on_card"] == 0
+            and all(bool(torch.isfinite(p_.grad).all())
+                    for p_ in model.parameters() if p_.grad is not None),
+            f"SwinV2-B @256 w16 bf16 train step at batch 8: 22 biased "
+            f"backwards, each row 16's kernel, none plain on the card, finite "
+            f"gradients ({step})")
+    log(f"SwinV2-B @256 w16 bf16 train step, batch 8: BIAS_BWD calls "
+        f"{step['calls']}, row 16 launches {step['launches']}, plain on the "
+        f"card {step['plain_on_card']}")
+    numbers["swinv2_b step"] = step
+    del model, x
+    return numbers
 
 
 def vith_route(row: str, d: int) -> str:
@@ -6844,6 +7031,10 @@ def main() -> int:
     whd_total, whd_times, _, whd_numbers = window_head_dims_phase()
     log(f"phase 7g numbers: {json.dumps(whd_numbers)}")
 
+    # ---- 7h. row 16, the biased backward, at SwinV2-B stage 1 ------------
+    bias_numbers = bias_bwd_phase()
+    log(f"phase 7h numbers: {json.dumps(bias_numbers)}")
+
     # ---- 8. times ---------------------------------------------------------
     for b in clf.buckets:
         x = images[:b]
@@ -7742,6 +7933,23 @@ def main() -> int:
         f"(flag off {vit_fam['modular_ms']:.3f} ms); its per-call weight "
         f"casts {12 * kernels[-1]['weight_casts_per_layer_ms']:.3f} ms")
     del blk, blk1, blk_t2t, casts, mixed, x_rows, qkv_blk
+
+    # the biased split-head backward at SwinV2-B @256 w16's stage 1, from
+    # phase 7h (the shared bias, then the shifted block's one a window); its
+    # launches are the SwinV2-B step's there. It replaces no TPU kernel: the
+    # line is the JAX package's jnp backward it computes.
+    b16, b16s = bias_numbers["stage 1"], bias_numbers["stage 1 shifted"]
+    entry("flash_attention_bias_bwd", "flash_attention_bias_bwd.cu", 2427,
+          bias_numbers["swinv2_b step"]["launches"],
+          max(b16["max_abs_err"], b16s["max_abs_err"]),
+          "G8192 S256 dh32 bias_g 4 (SwinV2-B @256 w16 stage 1, batch 128)",
+          b16["kernel_ms"], b16["plain_ms"], b16["library_ms"],
+          b16["moved"], b16["flops"], tflops=b16["tflops"],
+          errors=b16["errors"], off_step=b16["off_step"],
+          shifted_ms=b16s["kernel_ms"], shifted_bound_ms=b16s["bound_ms"],
+          shifted_plain_ms=b16s["plain_ms"],
+          shifted_library_ms=b16s["library_ms"],
+          shifted_errors=b16s["errors"], shifted_off_step=b16s["off_step"])
 
     require(len(kernels) == len(fa.LAUNCHES),
             "every kernel of the launch table has its line")

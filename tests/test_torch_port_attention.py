@@ -206,6 +206,8 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     tfa.flash_dropout_attention(q, q, q, dropout_rate=0.1,
                                 seed=1).sum().backward()
     tfa.flash_attention(q, q, q, kv_mask=torch.ones(1, 9, dtype=torch.bool))
+    bias = torch.zeros(1, 2, 9, 9, requires_grad=True)
+    tfa.flash_attention(q, q, q, bias).sum().backward()
     x = torch.from_numpy(_randn(22, 1, 9, 16)).requires_grad_()
     rows = [torch.ones(16), torch.zeros(16), torch.zeros(48), torch.zeros(16)]
     tfa.fused_attention_block(x, rows[0], rows[1], torch.eye(16).repeat(1, 3),
@@ -218,5 +220,6 @@ def test_cpu_tensors_never_count_as_kernel_launches():
         "window_packed_attention", "window_batched_attention",
         "window_fused_slab_attention", "window_fused_flat_attention",
         "window_attention_bwd", "fused_adam", "flash_attention_large",
-        "flash_attention_bwd", "ln_dense", "fused_attention_block"}
+        "flash_attention_bwd", "ln_dense", "fused_attention_block",
+        "flash_attention_bias_bwd"}
     assert not any(tfa.LAUNCHES.values())

@@ -394,7 +394,150 @@ def test_autograd_functions_launch_their_kernels(cuda, dtype):
         "window_batched_attention": 0, "window_fused_slab_attention": 0,
         "window_fused_flat_attention": 0, "window_attention_bwd": 0,
         "fused_adam": 0, "flash_attention_large": 0, "flash_attention_bwd": 0,
-        "ln_dense": 1, "fused_attention_block": 1}
+        "ln_dense": 1, "fused_attention_block": 1,
+        # the biased backward: the kernel in bf16, the plain version in fp32
+        "flash_attention_bias_bwd": int(dtype == torch.bfloat16)}
+
+
+# The biased backward (row 16, csrc/flash_attention_bias_bwd.cu) against
+# its plain version on the same bf16 inputs, in fp32 on the card. Both round
+# their fp32 dq, dk, dv once to bf16; the kernel keeps p and dS to about 16
+# bits (two bf16 terms) where the plain version keeps 24, and sums in
+# another order. So an element is at most one bf16 step of the reference
+# apart but where the two fp32 values straddle a rounding boundary at a
+# value that cancelled: the largest difference is one step at the largest
+# element (2^-8 to 2^-7 of it), and at most _BIAS_BWD_OFF_STEP of the
+# elements are more than one step apart (1-3e-4 in the first card runs; a
+# single bf16 rounding of p and dS, the bias-free backward's, puts about a
+# tenth of them there, which the test checks too). dbias stays fp32: its
+# sums differ in order alone (under 1e-6 of its largest element in those
+# runs).
+_BIAS_BWD_TOL = 8e-3
+_BIAS_BWD_OFF_STEP = 1e-3
+_DBIAS_TOL = 1e-5
+
+# (B, H, Sq, Sk, D, bias lead, kv_valid): SwinV2-B @256 w16's four split
+# shapes at 8 images (stage 1 with bias_g = H and, shifted, 16·H; stage 2
+# shifted, 4·H; stage 3, 16 heads), windows of 144 and 576, Sq != Sk with
+# kv_valid < Sk at D 64, D 16, 80 and 128, and bias_g = G (no broadcast).
+_BIAS_BWD_SHAPES = [
+    (128, 4, 256, 256, 32, 1, None), (128, 4, 256, 256, 32, 16, None),
+    (32, 8, 256, 256, 32, 4, None), (8, 16, 256, 256, 32, 1, None),
+    (32, 4, 144, 144, 32, 16, None), (4, 2, 576, 576, 32, 1, None),
+    (4, 3, 100, 70, 64, 2, 60), (8, 2, 49, 49, 16, 4, None),
+    (3, 2, 130, 97, 80, 3, None), (2, 2, 200, 200, 128, 1, 190),
+    (6, 2, 64, 64, 32, 6, None)]
+
+
+def _bias_bwd_inputs(cuda, b, h, sq, sk, d, lead, kv_valid):
+    r = [torch.from_numpy(_randn(60 + i, *s)) for i, s in enumerate(
+        [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)])]
+    q, k, v, do = (t.to(cuda, torch.bfloat16) for t in r)
+    bias = 2 * torch.from_numpy(_randn(64, lead, h, sq, sk)).to(cuda)
+    out, lse = tfa.flash_attention_fwd(q, k, v, bias, kv_valid=kv_valid)
+    return q, k, v, bias, do, out, lse
+
+
+def _off_step_share(got, ref):
+    """Share of elements more than one bf16 step of ``ref`` apart."""
+    ref, got = ref.float(), got.float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+                      - 7)
+    return float(((got - ref).abs() > step * 1.001).float().mean())
+
+
+def _one_rounding(q, k, v, bias, do, out, lse, scale, kv_valid):
+    """The plain version with p and dS rounded once to bf16 before their
+    products (a planted fault: the bias-free backward's numerics)."""
+    p = torch.exp(tfa._biased_scores(q, k, bias, scale, kv_valid)
+                  - lse.unsqueeze(-1))
+    dof = do.float()
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, v.float().transpose(-1, -2))
+              - (dof * out.float()).sum(-1, keepdim=True))
+    ds = ds.bfloat16().float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,d,lead,kv_valid", _BIAS_BWD_SHAPES)
+def test_bias_bwd_kernel_matches_plain(cuda, b, h, sq, sk, d, lead,
+                                       kv_valid):
+    from vision_transformers_tpu_torch.ops import _build
+
+    args = _bias_bwd_inputs(cuda, b, h, sq, sk, d, lead, kv_valid)
+    kw = dict(scale=d ** -0.5, kv_valid=sk if kv_valid is None else kv_valid)
+    plan = tfa.bias_bwd_plan(b * h, lead * h, sq, sk, d)
+    tfa.reset_launch_counts()
+    _build.load("flash_attention_bias_bwd")
+    _build.reset_launched()
+    got = tfa.flash_attention_bias_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = {"bias_bwd_dq_mma_kernel": 1, "bias_bwd_dkv_mma_kernel": 1}
+    if plan.chunks > 1:
+        want["bias_bwd_sum_kernel"] = 1
+    assert _build.launched() == want
+    assert tfa.LAUNCHES["flash_attention_bias_bwd"] == 1
+    ref = tfa.flash_attention_bias_bwd_reference(*args, **kw)
+    one = _one_rounding(*args, **kw)
+    for name, g, r, o in zip(("dq", "dk", "dv"), got, ref, one):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        top = float(r.float().abs().max())
+        assert float((g.float() - r.float()).abs().max()) <= \
+            _BIAS_BWD_TOL * top, name
+        assert _off_step_share(g, r) <= _BIAS_BWD_OFF_STEP, name
+        assert _off_step_share(o, r) > 10 * _BIAS_BWD_OFF_STEP, name
+    dbias = got[3]
+    assert dbias.shape == args[3].shape and dbias.dtype == torch.float32
+    assert float((dbias - ref[3]).abs().max()) <= \
+        _DBIAS_TOL * float(ref[3].abs().max())
+    again = tfa.flash_attention_bias_bwd(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bias_bwd_route_on_the_card(cuda):
+    """fp32 and D > 128 keep the plain version: no launch of the kernel,
+    each call counted as plain on the card."""
+    tfa.reset_launch_counts()
+    for dtype, d in ((torch.float32, 32), (torch.bfloat16, 160)):
+        q, k, v, bias, do, out, lse = _bias_bwd_inputs(
+            cuda, 2, 2, 40, 40, d, 1, None)
+        q, k, v, do, out = (t.to(dtype) for t in (q, k, v, do, out))
+        got = tfa.flash_attention_bias_bwd(q, k, v, bias, do, out, lse,
+                                           scale=0.1, kv_valid=40)
+        ref = tfa.flash_attention_bias_bwd_reference(
+            q, k, v, bias, do, out, lse, scale=0.1, kv_valid=40)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert tfa.LAUNCHES["flash_attention_bias_bwd"] == 0
+    assert tfa.BIAS_BWD["plain_on_card"] == 2
+
+
+@pytest.mark.cuda
+def test_swinv2_step_launches_the_bias_kernel_once_per_biased_call(cuda):
+    """A bf16 SwinV2 train step whose first two stages attend 144-token
+    windows (the split-head path): every biased backward is the kernel."""
+    from vision_transformers_tpu_torch.models.image_classification import (
+        SwinTransformerV2,
+    )
+
+    model = SwinTransformerV2(
+        image_size=48, patch_size=[2, 2], embed_dim=32, depths=[2, 2, 2],
+        num_heads=[1, 2, 4], window_size=[12, 12], mlp_ratio=4.0,
+        dropout=0.0, attention_dropout=0.0, stochastic_depth_prob=0.0,
+        num_classes=10, clip_window=True, dtype=torch.bfloat16, device=cuda)
+    model.train()
+    x = torch.from_numpy(_randn(66, 4, 48, 48, 3)).to(cuda)
+    tfa.reset_launch_counts()
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.BIAS_BWD["calls"] == 4
+    assert tfa.LAUNCHES["flash_attention_bias_bwd"] == tfa.BIAS_BWD["calls"]
+    assert tfa.BIAS_BWD["plain_on_card"] == 0
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters() if p.grad is not None)
 
 
 # Window kernels (rows 9, 11, 12, 13). fp32: summation order and expf

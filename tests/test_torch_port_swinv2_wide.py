@@ -182,7 +182,10 @@ def test_unclipped_geometry_is_unchanged():
 def test_routes_and_biased_backward_counters():
     """Stages 1 and 2 (144-token windows) route split, stage 3 (6 × 6)
     batched; the biased backward runs once a split call and counts its
-    G·H·N² fp32 score elements."""
+    G·H·N² score elements; on the CPU it is the plain version, so the
+    kernel's launch counter stays 0, and so does ``plain_on_card`` (the
+    card's calls the kernel does not take). ``reset_launch_counts`` zeroes
+    them all."""
     model = _model()
     x, y = _batch()
     tw.ROUTE_LOG = []
@@ -196,9 +199,15 @@ def test_routes_and_biased_backward_counters():
     # (G = images · windows, H) of the split calls: 2 × 2 windows of 144 at
     # one head, then one window of 144 at two heads
     scores = 2 * (BATCH * 4 * 1 * 144 ** 2) + 2 * (BATCH * 1 * 2 * 144 ** 2)
-    assert tfa.BIAS_BWD == {"calls": 4, "score_elements": scores}
+    assert tfa.BIAS_BWD == {"calls": 4, "score_elements": scores,
+                            "plain_on_card": 0}
+    assert tfa.LAUNCHES["flash_attention_bias_bwd"] == 0
+    tfa.LAUNCHES["flash_attention_bias_bwd"] = 4  # as a card's step counts
+    tfa.BIAS_BWD["plain_on_card"] = 1
     tfa.reset_launch_counts()
-    assert tfa.BIAS_BWD == {"calls": 0, "score_elements": 0}
+    assert tfa.BIAS_BWD == {"calls": 0, "score_elements": 0,
+                            "plain_on_card": 0}
+    assert tfa.LAUNCHES["flash_attention_bias_bwd"] == 0
 
 
 def _ranges(prof, name):

@@ -28,7 +28,8 @@ BUILD_DIR = CSRC / "build"
 KERNELS = ("packed_attention", "flash_attention", "dropout_attention",
            "window_attention", "window_fused_attention",
            "window_attention_bwd", "fused_adam", "flash_attention_large",
-           "flash_attention_bwd", "ln_dense", "fused_block")
+           "flash_attention_bwd", "ln_dense", "fused_block",
+           "flash_attention_bias_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -106,6 +107,13 @@ _SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attention_bwd": (_I, [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
         "flash_attention_bwd_error_string": (ctypes.c_char_p, [_I]),
+    },
+    # (q, k, v, dout, out, lse, bias, dq, dk, dv, dbias, delta, part, groups,
+    #  bias_g, sq, sk, d, kv_valid, rows, chunks, dq_smem, scale, stream):
+    #  bf16 only
+    "flash_attention_bias_bwd": {
+        "flash_attention_bias_bwd": (_I, [_P] * 13 + [_I] * 9 + [_F, _P]),
+        "flash_attention_bias_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
     # (x, gamma, beta, w, ldk, ldn, bias, out, rows, d, n, eps, act, is_bf16,
     #  stream)

@@ -21,8 +21,10 @@ thirteen of its TPU kernels are ported, as CUDA C++ in ``csrc/``:
   ``_attn_kernel``: split-head attention with an additive bias, on the
   tensor cores for bf16 (``csrc/attention_mma_tile.cuh``). Without a
   bias its backward is the ``flash_dropout_attention`` backward kernel at
-  rate 0; with a bias it is plain PyTorch (dq, dk, dv and dbias), as the JAX
-  package computes that case outside any kernel.
+  rate 0; with a bias it is ``flash_attention_bias_bwd``
+  (``csrc/flash_attention_bias_bwd.cu``, dq, dk, dv and dbias on the tensor
+  cores for bf16), a kernel of no TPU counterpart: the JAX package computes
+  that case in jnp, outside any kernel.
 - ``window_packed_attention`` and ``window_batched_attention``
   (``csrc/window_attention.cu``) replace ``_window_pack_kernel`` and
   ``_window_batched_kernel``: Swin's per-window attention read in place
@@ -80,7 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,14 +142,21 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_large": 0, "flash_attention_bwd": 0,
     # ops/fused_dense.py (replaces fused_dense.py::_ln_dense_kernel)
     "ln_dense": 0,
-    "fused_attention_block": 0}
+    "fused_attention_block": 0,
+    # the biased split-head backward, one a call of its two or three
+    # launches (it replaces no TPU kernel)
+    "flash_attention_bias_bwd": 0}
 
 
-# The biased split-head backward (``flash_attention_bias_bwd``, plain
-# PyTorch on every device, so counted on the CPU too): its calls and the
-# fp32 score elements (G·H·Sq·Sk) each materialises, summed since the last
-# reset_launch_counts().
-BIAS_BWD: Dict[str, int] = {"calls": 0, "score_elements": 0}
+# Every biased split-head backward (``_Flash.backward``, on every device, so
+# counted on the CPU too): its calls and score elements (G·H·Sq·Sk), summed
+# since the last reset_launch_counts(). LAUNCHES["flash_attention_bias_bwd"]
+# over ``calls`` is the share of them the kernel took; ``plain_on_card``
+# counts the calls of ``flash_attention_bias_bwd`` on a CUDA tensor that the
+# kernel does not take (``bias_bwd_route``), each of which materialises the
+# (G·H, Sq, Sk) fp32 scores in device memory.
+BIAS_BWD: Dict[str, int] = {"calls": 0, "score_elements": 0,
+                            "plain_on_card": 0}
 
 
 def reset_launch_counts() -> None:
@@ -887,14 +896,14 @@ def flash_attention_reference(
     return out, (m + torch.log(denom)).squeeze(-1)
 
 
-def flash_attention_bias_bwd(
+def flash_attention_bias_bwd_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
         do: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, *,
         scale: float, kv_valid: int):
-    """Backward of the biased forward → (dq, dk, dv, dbias), in plain
-    PyTorch on any device: the JAX package computes this case outside its
-    kernels too (flash_attention.py:2427-2466), in fp32 throughout. dbias
-    is ds summed over the batch entries that shared a bias row."""
+    """Plain PyTorch version of the biased backward → (dq, dk, dv, dbias):
+    the JAX package computes this case outside its kernels
+    (flash_attention.py:2427-2466), in fp32 throughout. dbias is ds summed
+    over the batch entries that shared a bias row."""
     b, h, s_q, _ = q.shape
     s_k = k.shape[2]
     p = torch.exp(_biased_scores(q, k, bias, scale, kv_valid)
@@ -909,6 +918,138 @@ def flash_attention_bias_bwd(
     dbias = ds.reshape(b // bias.shape[0], bias.shape[0], h, s_q,
                        s_k).sum(dim=0).to(bias.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+# The biased backward kernel's dq pass (csrc/flash_attention_bias_bwd.cu):
+# a block owns `rows` query rows of one bias plane, the most of these whose
+# fp32 dbias rows and K/V ring fit a block's shared memory, and a chunk of
+# the plane's groups. About 8 × 132 blocks keep the last wave's share small
+# (four waves at SwinV2-B's two blocks an SM); a chunk takes at least four
+# groups where the plane has them, so the dbias partial a block writes once
+# costs less than the K and V its groups stream.
+_BIAS_BWD_ROWS = (64, 48, 32, 16)
+_BIAS_BWD_BLOCKS = 8 * 132
+_BIAS_BWD_MIN_GROUPS = 4
+
+
+class BiasBwdPlan(NamedTuple):
+    """The dq pass's query rows a block, the chunks each bias plane's groups
+    split into (none empty), its blocks, its shared bytes, and the bytes of
+    the chunks' fp32 dbias partials (0 with one chunk: the pass writes dbias
+    itself)."""
+    rows: int
+    chunks: int
+    blocks: int
+    smem_bytes: int
+    part_bytes: int
+
+
+def bias_bwd_row_floats(s_k: int) -> int:
+    """Floats of one query row of the dq pass's fp32 dbias sums: Sk rounded
+    up to even (float2 column pairs), then to 8 mod 32 (no bank
+    conflicts)."""
+    w = 2 * (-(-s_k // 2))
+    return w + (8 - w % 32) % 32
+
+
+def _bias_bwd_rows(s_q: int, s_k: int, d: int) -> Optional[Tuple[int, int]]:
+    """(rows, shared bytes) of the dq pass, or None where 16 rows do not
+    fit (Sk past 2536 at D 128, 3304 at D 32) or the query tiles overflow
+    the grid."""
+    if not 1 <= d <= 128:
+        return None
+    tile = next(t for t in (16, 32, 64, 128) if t >= d)
+    ring = 4 * _MMA_TILE * (tile + 8) * 2  # two stages of K and V
+    w = bias_bwd_row_floats(s_k)
+    for rows in _BIAS_BWD_ROWS:
+        smem = rows * w * 4 + ring
+        if (smem <= _SMEM_LIMIT and (rows == 16 or rows < s_q + 16)
+                and -(-s_q // rows) <= 65535):
+            return rows, smem
+    return None
+
+
+def bias_bwd_plan(groups: int, bias_g: int, s_q: int, s_k: int,
+                  d: int) -> Optional[BiasBwdPlan]:
+    """The biased backward kernel's plan for ``groups`` = G·H groups, of
+    which each ``bias_g``-th shares a bias plane, at (Sq, Sk, D); None
+    where the kernel takes no such shape (``bias_bwd_route``). A function
+    of the shape alone, so reruns stay bit-equal."""
+    fit = _bias_bwd_rows(s_q, s_k, d)
+    if fit is None or groups % bias_g:
+        return None
+    rows, smem = fit
+    per_chunk = bias_g * -(-s_q // rows)  # blocks of one chunk
+    n_per = groups // bias_g
+    chunks = max(1, min(-(-n_per // _BIAS_BWD_MIN_GROUPS),
+                        -(-_BIAS_BWD_BLOCKS // per_chunk)))
+    per = -(-n_per // chunks)
+    chunks = -(-n_per // per)
+    part = 4 * chunks * bias_g * s_q * s_k if chunks > 1 else 0
+    return BiasBwdPlan(rows, chunks, chunks * per_chunk, smem, part)
+
+
+def bias_bwd_route(dtype: torch.dtype, s_q: int, s_k: int, d: int) -> str:
+    """What computes a biased backward on the card: ``"kernel"`` for bf16
+    where ``bias_bwd_plan`` has a plan (D <= 128, Sk within the dq pass's
+    shared memory: 2536 at D 128, 3304 at D 32); else ``"plain"``
+    (``flash_attention_bias_bwd_reference``, not yet a kernel, counted in
+    ``BIAS_BWD["plain_on_card"]``)."""
+    return ("kernel" if dtype == torch.bfloat16
+            and bias_bwd_plan(1, 1, s_q, s_k, d) is not None else "plain")
+
+
+def flash_attention_bias_bwd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+        do: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, *,
+        scale: float, kv_valid: int):
+    """Backward of the biased forward → (dq, dk, dv, dbias): dq, dk, dv in
+    the inputs' dtype, dbias like ``bias``. On the card where
+    ``bias_bwd_route`` says ``"kernel"`` (bf16, D <= 128): the kernel of
+    ``csrc/flash_attention_bias_bwd.cu``, the plain version's fp32
+    arithmetic with no (G·H, Sq, Sk) tensor in device memory (p and ds enter
+    their products as two bf16 terms; dbias summed in fp32 in a fixed order,
+    so two runs give equal bits). Not yet a kernel: fp32 inputs, D > 128
+    and Sk past the dq pass's shared memory keep the plain version on the
+    card, each call counted in ``BIAS_BWD["plain_on_card"]``; the CPU keeps
+    it too (``flash_attention_bias_bwd_reference``)."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    if q.device.type == "cpu" or bias_bwd_route(q.dtype, s_q, s_k,
+                                                d) != "kernel":
+        if q.device.type == "cuda":
+            BIAS_BWD["plain_on_card"] += 1
+        return flash_attention_bias_bwd_reference(
+            q, k, v, bias, do, out, lse, scale=scale, kv_valid=kv_valid)
+
+    from vision_transformers_tpu_torch.ops import _build
+
+    do = do.contiguous()  # arrives as a view of the caller's transpose
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
+        _check_cuda_operand(name, t, q.dtype, d)
+    _check_cuda_operand("lse", lse, torch.float32, d)
+    bg = _group_bias(bias, b, h, s_q, s_k).float().contiguous()
+    _check_same_device(q, k=k, v=v, do=do, out=out, lse=lse, bias=bg)
+    plan = bias_bwd_plan(b * h, bg.shape[0], s_q, s_k, d)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    dbias = torch.empty_like(bg)
+    delta = torch.empty(b * h * s_q, dtype=torch.float32, device=q.device)
+    part = (torch.empty(plan.part_bytes // 4, dtype=torch.float32,
+                        device=q.device) if plan.chunks > 1 else None)
+    lib = _build.load("flash_attention_bias_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bias_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), bg.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), b * h, bg.shape[0],
+            s_q, s_k, d, kv_valid, plan.rows, plan.chunks,
+            plan.smem_bytes, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention_bias_bwd", rc)
+    LAUNCHES["flash_attention_bias_bwd"] += 1
+    return dq, dk, dv, dbias.view(bias.shape).to(bias.dtype)
 
 
 def flash_attention_fwd(
